@@ -1,0 +1,71 @@
+"""Vector math over batched [..., 3] float32 tensors.
+
+Counterpart of cudapathtracer_tpu/utils/math.py. Dot products are written
+as explicit left-to-right component sums, the order XLA uses for its
+size-3 reductions, so both packages round the same way.
+"""
+
+from __future__ import annotations
+
+import torch
+
+EPSILON = 1e-5
+RAY_EPSILON = 1e-4
+PI = 3.14159265358979323846
+INV_PI = 1.0 / PI
+
+
+def dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """[..., 3] x [..., 3] -> [...]."""
+    return a[..., 0] * b[..., 0] + a[..., 1] * b[..., 1] + a[..., 2] * b[..., 2]
+
+
+def dot3(a, b):
+    """Like dot() but keeps the last axis: [...] -> [..., 1]."""
+    return dot(a, b)[..., None]
+
+
+def length_sq(a):
+    return dot(a, a)
+
+
+def normalize(a, eps: float = 1e-20):
+    """a * rsqrt(max(|a|^2, eps)); zero vectors stay ~zero."""
+    return a * torch.rsqrt(torch.clamp(dot3(a, a), min=eps))
+
+
+def cross(a, b):
+    ax, ay, az = a[..., 0], a[..., 1], a[..., 2]
+    bx, by, bz = b[..., 0], b[..., 1], b[..., 2]
+    return torch.stack([ay * bz - az * by, az * bx - ax * bz,
+                        ax * by - ay * bx], dim=-1)
+
+
+def luminance(c):
+    """Rec.709 luminance."""
+    return c[..., 0] * 0.2126 + c[..., 1] * 0.7152 + c[..., 2] * 0.0722
+
+
+def build_frame(n):
+    """Orthonormal tangent frame (t, b) around unit normals [..., 3]."""
+    nx, ny, nz = n[..., 0], n[..., 1], n[..., 2]
+    use_x = torch.abs(nx) > torch.abs(nz)
+    inv_a = torch.rsqrt(torch.clamp(nx * nx + ny * ny, min=1e-20))
+    zero = torch.zeros_like(nx)
+    ta = torch.stack([-ny * inv_a, nx * inv_a, zero], dim=-1)
+    inv_b = torch.rsqrt(torch.clamp(ny * ny + nz * nz, min=1e-20))
+    tb = torch.stack([zero, -nz * inv_b, ny * inv_b], dim=-1)
+    t = torch.where(use_x[..., None], ta, tb)
+    return t, cross(n, t)
+
+
+def to_local(v, n):
+    """World -> shading space where z = n."""
+    t, b = build_frame(n)
+    return torch.stack([dot(v, t), dot(v, b), dot(v, n)], dim=-1)
+
+
+def to_world(v, n):
+    """Shading space -> world."""
+    t, b = build_frame(n)
+    return v[..., 0:1] * t + v[..., 1:2] * b + v[..., 2:3] * n

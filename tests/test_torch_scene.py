@@ -1,0 +1,68 @@
+"""Host scene packing of the PyTorch port against the JAX package.
+
+Tolerance: none. The port packs tri_f32, light_f32 and bvh8_table itself
+(no split of the JAX build_scene), so the blocks are compared as uint32
+views and must be bit-equal: both packages must traverse the same tables.
+"""
+
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+from cudapathtracer_tpu.scene import builtin
+from cudapathtracer_tpu.scene.materials import build_table as jbuild_table
+from cudapathtracer_tpu.scene.materials import \
+    builtin_materials as jbuiltin_materials
+from cudapathtracer_tpu.scene.scene import build_scene as jbuild_scene
+from cudapathtracer_tpu_torch.scene import materials as tmaterials
+from cudapathtracer_tpu_torch.scene.scene import build_scene, pack_scene
+
+SCENES = {
+    "blocks": builtin.cornell_with_blocks,
+    "bunny2": lambda: builtin.cornell_with_bunny(subdivisions=2),
+    # material 13 is MAT_LEAF: SBVH off, 94 columns
+    "bunny2_leaf": lambda: builtin.cornell_with_bunny(subdivisions=2,
+                                                      bunny_mat=13),
+}
+
+
+@pytest.mark.parametrize("name", sorted(SCENES))
+def test_blocks_bit_equal(name):
+    js, _ = jbuild_scene(SCENES[name](), jbuiltin_materials())
+    hs, _ = pack_scene(SCENES[name](), tmaterials.builtin_materials())
+    for blk in ("tri_f32", "light_f32", "bvh8_table"):
+        want = np.asarray(getattr(js, blk))
+        got = getattr(hs, blk)
+        assert got.shape == want.shape, blk
+        np.testing.assert_array_equal(got.view(np.uint32),
+                                      want.view(np.uint32), err_msg=blk)
+    assert hs.tri_f32.shape[1] == (94 if name == "bunny2_leaf" else 78)
+    assert hs.num_lights == js.num_lights
+    assert hs.has_leaf_materials == js.has_leaf_materials
+    assert hs.has_trans_maps == js.has_trans_maps
+    assert hs.bvh8_leaf_tris == js.bvh8_leaf_tris
+
+
+def test_materials_table_equal():
+    want = jbuild_table(jbuiltin_materials(), device=False)
+    got = tmaterials.build_table(tmaterials.builtin_materials())
+    assert len(tmaterials.builtin_materials()) == 24
+    for f in dataclasses.fields(want):
+        np.testing.assert_array_equal(getattr(got, f.name),
+                                      np.asarray(getattr(want, f.name)),
+                                      err_msg=f.name)
+    dev = got.to("cpu")
+    assert isinstance(dev.albedo, torch.Tensor)
+    assert dev.albedo.dtype == torch.float32 and dev.type.dtype == torch.int32
+
+
+def test_upload_and_views():
+    scene, bvh = build_scene(builtin.cornell_with_blocks(),
+                             tmaterials.builtin_materials(), device="cpu")
+    assert scene.tri_f32.dtype == torch.float32
+    assert scene.bvh8_table.shape[1] == 96
+    assert scene.tri_shade_row.shape == (scene.num_triangles, 48)
+    assert scene.num_triangles == bvh.perm.shape[0]
+    assert scene.materials.count == 24
