@@ -33,12 +33,14 @@ def main(argv=None) -> int:
     ap.add_argument("--width", type=int, default=None)
     ap.add_argument("--height", type=int, default=None)
     ap.add_argument("--samples-per-dispatch", type=int, default=None,
-                    help="accepted for compatibility; every sample is one "
-                         "dispatch here (the image does not depend on it)")
+                    help="only 1: every sample is one dispatch here")
     ap.add_argument("--device", default="cuda",
                     help="torch device to render on (default cuda; cpu "
                          "runs the plain PyTorch versions of the kernels)")
     args = ap.parse_args(argv)
+    if args.samples_per_dispatch not in (None, 1):
+        ap.error("--samples-per-dispatch: only 1 is supported (each sample "
+                 "is one dispatch)")
 
     from cudapathtracer_tpu.scene.bvh import bvh_stats
     from cudapathtracer_tpu.utils.config import load_config

@@ -4,7 +4,9 @@ Sources live in kernels/csrc/*.cu (sm_90a). They are compiled on first use
 with nvcc into one shared library with a plain C interface,
 build/torch_ext/libtpt_torch_kernels.so, and called through ctypes on
 PyTorch's current stream; the library is rebuilt whenever a source is newer.
-Nothing is compiled when this module is imported.
+Nothing is compiled when this module is imported. The traversal's stack
+depth is fixed at build time: the default 16 is the library above, and any
+other depth (stack_d=) builds its own libtpt_torch_kernels_stack<d>.so.
 
 Each wrapper below checks its tensors (device, dtype, shape, contiguity),
 allocates the outputs, launches, raises if the launch was refused, and then
@@ -34,6 +36,7 @@ _REPO_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 BUILD_DIR = os.path.join(_REPO_ROOT, "build", "torch_ext")
 LIBRARY = os.path.join(BUILD_DIR, "libtpt_torch_kernels.so")
+STACK_D = 16      # traverse8.cu's default stack depth
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-fmad=false", "-shared", "-Xcompiler", "-fPIC")
 
@@ -42,7 +45,7 @@ launches = {"closest_hit8": 0, "shadow_factor8": 0, "uniform_id": 0,
             "generate_rays": 0}
 
 _lock = threading.Lock()
-_lib = None
+_libs = {}        # stack depth -> loaded library
 
 
 def reset_launches() -> None:
@@ -60,16 +63,27 @@ def _nvcc() -> str:
     return path
 
 
-def build(verbose: bool = False) -> str:
+def _library(stack_d: int) -> str:
+    """Path of the kernel library whose traversal stack holds stack_d."""
+    if stack_d == STACK_D:
+        return LIBRARY
+    return os.path.join(BUILD_DIR, f"libtpt_torch_kernels_stack{stack_d}.so")
+
+
+def build(verbose: bool = False, stack_d: int = STACK_D) -> str:
     """Compile the kernel library if it is missing or older than a source.
     Returns its path."""
+    if not 7 <= stack_d <= 64:
+        raise ValueError(f"stack_d {stack_d}: a row pushes up to 7 entries, "
+                         "and the stack lives in local memory (<= 64)")
+    lib = _library(stack_d)
     srcs = [os.path.join(CSRC, f) for f in SOURCES + HEADERS]
-    if (os.path.exists(LIBRARY) and all(
-            os.path.getmtime(LIBRARY) >= os.path.getmtime(s) for s in srcs)):
-        return LIBRARY
+    if (os.path.exists(lib) and all(
+            os.path.getmtime(lib) >= os.path.getmtime(s) for s in srcs)):
+        return lib
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{LIBRARY}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
+    tmp = f"{lib}.{os.getpid()}.tmp"
+    cmd = [_nvcc(), *NVCC_FLAGS, f"-DTPT_STACK_D={stack_d}", "-o", tmp,
            *(os.path.join(CSRC, f) for f in SOURCES)]
     if verbose:
         cmd.insert(1, "-Xptxas=-v")
@@ -78,16 +92,15 @@ def build(verbose: bool = False) -> str:
         raise RuntimeError("nvcc failed:\n" + res.stdout + res.stderr)
     if verbose:
         print(res.stdout + res.stderr)
-    os.replace(tmp, LIBRARY)
-    return LIBRARY
+    os.replace(tmp, lib)
+    return lib
 
 
-def _load():
-    global _lib
+def _load(stack_d: int = STACK_D):
     with _lock:
-        if _lib is not None:
-            return _lib
-        lib = ctypes.CDLL(build())
+        if stack_d in _libs:
+            return _libs[stack_d]
+        lib = ctypes.CDLL(build(stack_d=stack_d))
         p, i32, i64, u32 = (ctypes.c_void_p, ctypes.c_int32,
                             ctypes.c_int64, ctypes.c_uint32)
         lib.tpt_error_string.restype = ctypes.c_char_p
@@ -98,11 +111,11 @@ def _load():
         lib.tpt_generate_rays.argtypes = [p, p, p, p, p, i64, p, p, p]
         lib.tpt_closest_hit8.restype = ctypes.c_int
         lib.tpt_closest_hit8.argtypes = [p, p, p, p, p, p, i64,
-                                         p, p, p, p, p]
+                                         p, p, p, p, p, p]
         lib.tpt_shadow_factor8.restype = ctypes.c_int
         lib.tpt_shadow_factor8.argtypes = [p, p, i32, p, p, p, p, p, i64,
                                            p, p]
-        _lib = lib
+        _libs[stack_d] = lib
         return lib
 
 
@@ -131,8 +144,7 @@ def _cuda_device(t: torch.Tensor):
     return t.device
 
 
-def _launch(name: str, fn, *args) -> None:
-    lib = _load()
+def _launch(name: str, lib, fn, *args) -> None:
     err = fn(*args)
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: "
@@ -149,7 +161,7 @@ def uniform_id(ids: torch.Tensor, k0: int, k1: int, two: bool):
     u1 = torch.empty(n, dtype=torch.float32, device=dev) if two else None
     lib = _load()
     with torch.cuda.device(dev):
-        _launch("uniform_id", lib.tpt_uniform_id, ids.data_ptr(),
+        _launch("uniform_id", lib, lib.tpt_uniform_id, ids.data_ptr(),
                 u0.data_ptr(), u1.data_ptr() if two else None, n,
                 k0 & 0xFFFFFFFF, k1 & 0xFFFFFFFF, _stream(dev))
     return u0, u1
@@ -173,7 +185,7 @@ def generate_rays(px: torch.Tensor, py: torch.Tensor, ids: torch.Tensor,
     ckeys = (ctypes.c_uint32 * 8)(*(k & 0xFFFFFFFF for k in keys))
     lib = _load()
     with torch.cuda.device(dev):
-        _launch("generate_rays", lib.tpt_generate_rays, px.data_ptr(),
+        _launch("generate_rays", lib, lib.tpt_generate_rays, px.data_ptr(),
                 py.data_ptr(), ids.data_ptr(), o.data_ptr(), d.data_ptr(), n,
                 ctypes.addressof(cparams), ctypes.addressof(ckeys),
                 _stream(dev))
@@ -196,25 +208,31 @@ def _ray_args(table, o, d, max_t, skip_tri, active):
     return dev, n
 
 
-def closest_hit8(table, o, d, max_t, skip_tri, active):
-    """K1 closest (traverse8.cu) -> (t, tri, u, v), each [N]."""
+def closest_hit8(table, o, d, max_t, skip_tri, active, stack_d=STACK_D,
+                 with_restarts=False):
+    """K1 closest (traverse8.cu) -> (t, tri, u, v), each [N]; with
+    with_restarts, also each ray's number of restarts from the root."""
     dev, n = _ray_args(table, o, d, max_t, skip_tri, active)
     t = torch.empty(n, dtype=torch.float32, device=dev)
     tri = torch.empty(n, dtype=torch.int32, device=dev)
     u = torch.empty(n, dtype=torch.float32, device=dev)
     v = torch.empty(n, dtype=torch.float32, device=dev)
-    lib = _load()
+    restarts = (torch.empty(n, dtype=torch.int32, device=dev)
+                if with_restarts else None)
+    lib = _load(stack_d)
     with torch.cuda.device(dev):
-        _launch("closest_hit8", lib.tpt_closest_hit8, table.data_ptr(),
+        _launch("closest_hit8", lib, lib.tpt_closest_hit8, table.data_ptr(),
                 o.data_ptr(), d.data_ptr(), max_t.data_ptr(),
                 skip_tri.data_ptr(),
                 None if active is None else active.data_ptr(), n,
                 t.data_ptr(), tri.data_ptr(), u.data_ptr(), v.data_ptr(),
+                None if restarts is None else restarts.data_ptr(),
                 _stream(dev))
-    return t, tri, u, v
+    return (t, tri, u, v, restarts) if with_restarts else (t, tri, u, v)
 
 
-def shadow_factor8(table, tri_f32, o, d, max_t, skip_tri, active):
+def shadow_factor8(table, tri_f32, o, d, max_t, skip_tri, active,
+                   stack_d=STACK_D):
     """K1 shadow (traverse8.cu) -> transmission scale [N,3]."""
     dev, n = _ray_args(table, o, d, max_t, skip_tri, active)
     if tri_f32.dim() != 2 or tri_f32.shape[1] not in (78, 94):
@@ -222,11 +240,12 @@ def shadow_factor8(table, tri_f32, o, d, max_t, skip_tri, active):
                          f"{tuple(tri_f32.shape)}")
     _check(tri_f32, "tri_f32", torch.float32, tri_f32.shape, dev)
     scale = torch.empty((n, 3), dtype=torch.float32, device=dev)
-    lib = _load()
+    lib = _load(stack_d)
     with torch.cuda.device(dev):
-        _launch("shadow_factor8", lib.tpt_shadow_factor8, table.data_ptr(),
-                tri_f32.data_ptr(), tri_f32.shape[1], o.data_ptr(),
-                d.data_ptr(), max_t.data_ptr(), skip_tri.data_ptr(),
+        _launch("shadow_factor8", lib, lib.tpt_shadow_factor8,
+                table.data_ptr(), tri_f32.data_ptr(), tri_f32.shape[1],
+                o.data_ptr(), d.data_ptr(), max_t.data_ptr(),
+                skip_tri.data_ptr(),
                 None if active is None else active.data_ptr(), n,
                 scale.data_ptr(), _stream(dev))
     return scale

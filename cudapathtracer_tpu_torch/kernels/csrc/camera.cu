@@ -39,8 +39,8 @@ __global__ void generate_rays_kernel(const float* __restrict__ px,
                     threadIdx.x;
   if (i >= n) return;
   const uint32_t id = static_cast<uint32_t>(ids[i]);
-  const float jx = tpt::uniform_keyed(c.keys[0], c.keys[1], id) - 0.5f;
-  const float jy = tpt::uniform_keyed(c.keys[2], c.keys[3], id) - 0.5f;
+  const float jx = tpt::uniform_draw_key(c.keys[0], c.keys[1], id) - 0.5f;
+  const float jy = tpt::uniform_draw_key(c.keys[2], c.keys[3], id) - 0.5f;
   const float u =
       (2.0f * (px[i] + jx * c.aa_jitter) / c.width - 1.0f) * c.aspect *
       c.fov_scale;
@@ -49,9 +49,10 @@ __global__ void generate_rays_kernel(const float* __restrict__ px,
   const float uf = u * c.focal_dist;
   const float vf = v * c.focal_dist;
 
-  const float r_rnd = tpt::uniform_keyed(c.keys[4], c.keys[5], id);
+  const float r_rnd = tpt::uniform_draw_key(c.keys[4], c.keys[5], id);
   const float theta =
-      6.28318530717958647692f * tpt::uniform_keyed(c.keys[6], c.keys[7], id);
+      6.28318530717958647692f *
+      tpt::uniform_draw_key(c.keys[6], c.keys[7], id);
   const float radius = c.aperture * sqrtf(r_rnd);
   const float rc = radius * cosf(theta);
   const float rs = radius * sinf(theta);

@@ -40,9 +40,9 @@ __host__ __device__ __forceinline__ float bits_to_unit(uint32_t bits) {
 }
 
 // uniform_id for one lane: the draw keyed by `id` under draw key (k0, k1).
-__host__ __device__ __forceinline__ float uniform_keyed(uint32_t k0,
-                                                        uint32_t k1,
-                                                        uint32_t id) {
+__host__ __device__ __forceinline__ float uniform_draw_key(uint32_t k0,
+                                                           uint32_t k1,
+                                                           uint32_t id) {
   uint32_t x0 = id, x1 = 0u;
   threefry2x32(k0, k1, x0, x1);
   return bits_to_unit(x0);

@@ -18,10 +18,12 @@
 // 19-comparator sort, 4 Moller-Trumbore tests) is small beside it.
 // Design: the row is read with 16-byte loads through the read-only path,
 // the 8 child keys are sorted in registers by the same 19-comparator
-// network, and the stack is a 16-entry ring in local memory, so an overflow
-// keeps the newest 16 entries exactly as the JAX shift did. The traversal
-// order is the JAX one, so the results are the same ids, not just the same
-// closest distance:
+// network, and the stack is a ring of kStackD entries in local memory, so an
+// overflow keeps the newest entries exactly as the JAX shift did. kStackD is
+// 16, the JAX default; -DTPT_STACK_D=<n> builds another depth, as the JAX
+// package's TPT_STACK_D does (tests build 7 to drive the overflow path).
+// The traversal order is the JAX one, so the results are the same ids, not
+// just the same closest distance:
 //  * child key = (tmin bits, negatives flipped, & ~7) | slot, ascending;
 //    enter the nearest child directly, push the others far to near;
 //  * overflow marks the ray; once its stack drains it restarts from the root
@@ -45,7 +47,11 @@ namespace {
 constexpr int kRowW = 96;
 constexpr int kTriOff = 50;
 constexpr int kLeafTris = 4;
-constexpr int kStackD = 16;
+#ifndef TPT_STACK_D
+#define TPT_STACK_D 16
+#endif
+constexpr int kStackD = TPT_STACK_D;
+static_assert(kStackD >= 7, "one row pushes up to 7 entries");
 constexpr int kMaxRestarts = 3;
 constexpr int32_t kKeyInvalid = 0x7FFFFFFF;
 constexpr int32_t kLeafMatFlag = 1 << 30;
@@ -88,7 +94,8 @@ traverse8_kernel(const float* __restrict__ table,
                  const bool* __restrict__ active, int64_t n,
                  float* __restrict__ t_out, int32_t* __restrict__ tri_out,
                  float* __restrict__ u_out, float* __restrict__ v_out,
-                 float* __restrict__ scale_out) {
+                 float* __restrict__ scale_out,
+                 int32_t* __restrict__ restarts_out) {
   const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x +
                     threadIdx.x;
   if (i >= n) return;
@@ -114,7 +121,7 @@ traverse8_kernel(const float* __restrict__ table,
       entry = direct;
     } else {
       --sp;
-      entry = stack[sp & (kStackD - 1)];
+      entry = stack[sp % kStackD];
       --top;
     }
     const float* row = table + static_cast<int64_t>(entry) * kRowW;
@@ -157,7 +164,7 @@ traverse8_kernel(const float* __restrict__ table,
 #pragma unroll
     for (int s = 7; s >= 1; --s) {
       if (s <= count) {
-        stack[sp & (kStackD - 1)] = base + (key[s] & 7);
+        stack[sp % kStackD] = base + (key[s] & 7);
         ++sp;
       }
     }
@@ -291,6 +298,7 @@ traverse8_kernel(const float* __restrict__ table,
     tri_out[i] = best_tri;
     u_out[i] = best_u;
     v_out[i] = best_v;
+    if (restarts_out != nullptr) restarts_out[i] = lostc >> 1;
   }
 }
 
@@ -302,17 +310,18 @@ inline unsigned blocks_for(int64_t n) {
 
 }  // namespace
 
-// active may be null (every ray traced). Returns the launch's cudaError_t.
+// active may be null (every ray traced), and so may restarts (per ray, the
+// number of restarts from the root). Returns the launch's cudaError_t.
 extern "C" int tpt_closest_hit8(const float* table, const float* o,
                                 const float* d, const float* max_t,
                                 const int32_t* skip_tri, const bool* active,
                                 int64_t n, float* t, int32_t* tri, float* u,
-                                float* v, void* stream) {
+                                float* v, int32_t* restarts, void* stream) {
   if (n <= 0) return 0;
   traverse8_kernel<false><<<blocks_for(n), kThreads, 0,
                             static_cast<cudaStream_t>(stream)>>>(
       table, nullptr, 0, o, d, max_t, skip_tri, active, n, t, tri, u, v,
-      nullptr);
+      nullptr, restarts);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -325,6 +334,6 @@ extern "C" int tpt_shadow_factor8(const float* table, const float* tri_f32,
   traverse8_kernel<true><<<blocks_for(n), kThreads, 0,
                            static_cast<cudaStream_t>(stream)>>>(
       table, tri_f32, tri_cols, o, d, max_t, skip_tri, active, n, nullptr,
-      nullptr, nullptr, nullptr, scale);
+      nullptr, nullptr, nullptr, scale, nullptr);
   return static_cast<int>(cudaGetLastError());
 }

@@ -7,7 +7,7 @@ tensors and run the plain PyTorch version below for CPU tensors.
 
 The plain version is a vectorised transcription of the JAX traversal, one
 row per ray per step: descend into the nearest child, push the others far
-to near on a 16-entry stack (a ring, so an overflow keeps the newest
+to near on a STACK_D-entry stack (a ring, so an overflow keeps the newest
 entries), restart a ray whose stack overflowed once it drains (at most 3
 times), ties between a row's triangles to the first slot, MAT_LEAF
 transmission products for shadow rays with the 0.01 cut-off. Each step
@@ -24,7 +24,7 @@ from cudapathtracer_tpu_torch.ops.intersect import (BIG_T, DET_EPS,
                                                     safe_inv_dir)
 from cudapathtracer_tpu_torch.ops.traverse import Hit
 
-STACK_D = 16
+STACK_D = kernels.STACK_D   # 16, as the JAX traversal's default
 MAX_RESTARTS = 3
 ROW_W = 96        # scene/bvh8.py row_width(4)
 TRI_OFF = 50      # scene/bvh8.py TRI_OFF
@@ -181,7 +181,8 @@ def _leaf_shadow(tri_f32, d, uu, vv, ok, tid, raw, scale):
     return torch.where(blocked[:, None], 0.0, scale), blocked
 
 
-def _traverse_plain(table, tri_f32, o, d, max_t, skip_tri, active, shadow):
+def _traverse_plain(table, tri_f32, o, d, max_t, skip_tri, active, shadow,
+                    with_restarts=False):
     """Plain version of K1: both modes. Per-ray state lives in full-width
     tensors; each step gathers the rays in flight, advances them one row
     and scatters them back."""
@@ -242,13 +243,16 @@ def _traverse_plain(table, tri_f32, o, d, max_t, skip_tri, active, shadow):
             st[k][live] = x
     if shadow:
         return st["scale"]
-    return st["t_cut"], st["tri"], st["u"], st["v"]
+    out = st["t_cut"], st["tri"], st["u"], st["v"]
+    return (*out, st["lostc"] >> 1) if with_restarts else out
 
 
-def closest_hit8_plain(table, o, d, max_t, skip_tri, active):
-    """Plain version of K1 closest -> (t, tri, u, v)."""
+def closest_hit8_plain(table, o, d, max_t, skip_tri, active,
+                       with_restarts=False):
+    """Plain version of K1 closest -> (t, tri, u, v); with with_restarts,
+    also each ray's number of restarts from the root."""
     return _traverse_plain(table, None, o, d, max_t, skip_tri, active,
-                           shadow=False)
+                           shadow=False, with_restarts=with_restarts)
 
 
 def shadow_factor8_plain(table, tri_f32, o, d, max_t, skip_tri, active):
@@ -267,7 +271,7 @@ def closest_hit8(scene, o, d, max_t=None, skip_tri=None, active=None) -> Hit:
                                  active)
     else:
         out = kernels.closest_hit8(scene.bvh8_table, o, d, max_t, skip_tri,
-                                   active)
+                                   active, stack_d=STACK_D)
     return Hit(*out)
 
 
@@ -280,4 +284,4 @@ def shadow_factor8(scene, o, d, max_t, skip_tri=None, active=None):
         return shadow_factor8_plain(scene.bvh8_table, scene.tri_f32, o, d,
                                     max_t, skip_tri, active)
     return kernels.shadow_factor8(scene.bvh8_table, scene.tri_f32, o, d,
-                                  max_t, skip_tri, active)
+                                  max_t, skip_tri, active, stack_d=STACK_D)

@@ -131,8 +131,8 @@ class Camera:
         vec = lambda v: torch.tensor(v, dtype=torch.float32, device=dev)
         origin, right, up, forward = (vec(self.origin), vec(self.right),
                                       vec(self.up), vec(self.forward))
-        draw = lambda dr: rng.uniform_keyed_plain(*rng.draw_key(key, dr),
-                                                  ids)
+        draw = lambda dr: rng.uniform_draw_key_plain(
+            *rng.draw_key(key, dr), ids)
         jx = draw(0) - 0.5
         jy = draw(1) - 0.5
         u = ((2.0 * (px + jx * self.aa_jitter) / self.width - 1.0)

@@ -23,7 +23,6 @@ emission; [15] area; [16] permuted triangle index (i32 bits).
 
 from __future__ import annotations
 
-import os
 from dataclasses import dataclass
 
 import numpy as np
@@ -35,6 +34,9 @@ from cudapathtracer_tpu.utils.obj import MeshData
 from cudapathtracer_tpu_torch.scene.materials import (MAT_LEAF,
                                                       MaterialTable,
                                                       build_table)
+
+SBVH_SPATIAL_DEPTH = 6   # levels with spatial splits; native build below
+BVH8_LEAF_TRIS = 4       # inline triangles per BVH8 row (the kernel's)
 
 
 @dataclass
@@ -93,14 +95,15 @@ class Scene:
 
 
 def pack_scene(mesh: MeshData, materials: list, textures=None,
-               max_leaf_size: int = 2, bvh8_leaf_tris: int = 4,
-               bvh8_policy: str | None = None,
-               use_sbvh: bool | None = None):
+               max_leaf_size: int = 2):
     """Build the BVH and pack every block on the host.
 
-    materials: list of Material. Returns (HostScene, host BVH). The SBVH default (TPT_BVH_SBVH, on unless "0") and its
-    MAT_LEAF gate are the JAX package's: a leaf triangle duplicated by a
-    spatial split would attenuate shadow rays twice."""
+    materials: list of Material. Returns (HostScene, host BVH). The BVH is
+    the JAX package's default build: SBVH with spatial splits in the top
+    SBVH_SPATIAL_DEPTH levels, or the plain SAH build when any triangle is
+    MAT_LEAF (a leaf triangle duplicated by a spatial split would attenuate
+    shadow rays twice), collapsed to BVH8 rows of BVH8_LEAF_TRIS inline
+    triangles by the SAH policy."""
     if mesh.num_triangles == 0:
         raise ValueError("scene has no triangles")
     htab = build_table(materials)
@@ -113,12 +116,9 @@ def pack_scene(mesh: MeshData, materials: list, textures=None,
     mat_types = np.asarray(htab.type)
     any_leaf_mat = bool((mat_types[np.asarray(mesh.mat_id)]
                          == MAT_LEAF).any())
-    if use_sbvh is None:
-        use_sbvh = os.environ.get("TPT_BVH_SBVH", "1") != "0"
-    if use_sbvh and not any_leaf_mat:
+    if not any_leaf_mat:
         bvh = bvh_mod.build_sbvh(
-            p0, p1, p2, max_leaf_size,
-            spatial_depth=int(os.environ.get("TPT_BVH_SBVH_DEPTH", "6")),
+            p0, p1, p2, max_leaf_size, spatial_depth=SBVH_SPATIAL_DEPTH,
             native_below=True,
             no_split=np.asarray(mesh.light_ind) >= 0)
     else:
@@ -163,9 +163,8 @@ def pack_scene(mesh: MeshData, materials: list, textures=None,
     tri_is_leaf_mat = mat_types[tri_mat] == MAT_LEAF
     shade_row = _pack_shade_rows(htab, tri_n, tri_uv, tri_emission,
                                  tri_light, tri_mat, area)
-    policy = bvh8_policy or os.environ.get("TPT_BVH8_POLICY", "sah")
     bvh8 = bvh8_mod.collapse(bvh, tri_pack, tri_is_leaf_mat,
-                             leaf_tris=bvh8_leaf_tris, policy=policy)
+                             leaf_tris=BVH8_LEAF_TRIS, policy="sah")
 
     t = tri_pack.shape[0]
     tcols = 94 if tri_is_leaf_mat.any() else 78
@@ -196,7 +195,8 @@ def pack_scene(mesh: MeshData, materials: list, textures=None,
 
     host = HostScene(
         tri_f32=tri_f32, light_f32=light_f32,
-        bvh8_table=np.asarray(bvh8.table, np.float32), materials=htab, textures=np.asarray(textures, np.float32),
+        bvh8_table=np.asarray(bvh8.table, np.float32), materials=htab,
+        textures=np.asarray(textures, np.float32),
         num_lights=num_lights,
         has_leaf_materials=bool(tri_is_leaf_mat.any()),
         has_trans_maps=bool(
@@ -219,12 +219,9 @@ def upload(host: HostScene, device) -> Scene:
 
 
 def build_scene(mesh: MeshData, materials: list, textures=None,
-                max_leaf_size: int = 2, bvh8_leaf_tris: int = 4,
-                bvh8_policy: str | None = None,
-                use_sbvh: bool | None = None, device="cpu"):
+                max_leaf_size: int = 2, device="cpu"):
     """pack_scene + upload. Returns (Scene, host BVH)."""
-    host, bvh = pack_scene(mesh, materials, textures, max_leaf_size,
-                           bvh8_leaf_tris, bvh8_policy, use_sbvh)
+    host, bvh = pack_scene(mesh, materials, textures, max_leaf_size)
     return upload(host, device), bvh
 
 

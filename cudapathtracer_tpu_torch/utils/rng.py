@@ -103,7 +103,7 @@ def _bits_to_unit(bits: torch.Tensor) -> torch.Tensor:
     return (bits >> 9).to(torch.float32) * (2.0 ** -23)
 
 
-def uniform_keyed_plain(k0: int, k1: int, ids: torch.Tensor, two=False):
+def uniform_draw_key_plain(k0: int, k1: int, ids: torch.Tensor, two=False):
     """Plain version of kernel K6 (any device)."""
     x0, x1 = _threefry_lanes(k0, k1, ids)
     if two:
@@ -111,11 +111,11 @@ def uniform_keyed_plain(k0: int, k1: int, ids: torch.Tensor, two=False):
     return _bits_to_unit(x0)
 
 
-def uniform_keyed(k0: int, k1: int, ids: torch.Tensor, two=False):
+def uniform_draw_key(k0: int, k1: int, ids: torch.Tensor, two=False):
     """K6: one (or two) uniforms in [0, 1) per id under the draw key
     (k0, k1). CPU tensors take the plain version, CUDA tensors the kernel."""
     if ids.device.type == "cpu":
-        return uniform_keyed_plain(k0, k1, ids, two)
+        return uniform_draw_key_plain(k0, k1, ids, two)
     u0, u1 = kernels.uniform_id(ids, k0, k1, two)
     return (u0, u1) if two else u0
 
@@ -123,13 +123,13 @@ def uniform_keyed(k0: int, k1: int, ids: torch.Tensor, two=False):
 def uniform_id(key: Key, draw_id: int, ids: torch.Tensor) -> torch.Tensor:
     """One labelled uniform in [0,1) per lane, keyed by stable ids."""
     k0, k1 = draw_key(key, draw_id)
-    return uniform_keyed(k0, k1, ids)
+    return uniform_draw_key(k0, k1, ids)
 
 
 def uniform2_id(key: Key, draw_id: int, ids: torch.Tensor):
     """Two independent uniforms per lane, keyed by stable ids."""
     k0, k1 = draw_key(key, draw_id)
-    return uniform_keyed(k0, k1, ids, two=True)
+    return uniform_draw_key(k0, k1, ids, two=True)
 
 
 def uniform_any(key: Key, draw_id: int, n: int, ids=None) -> torch.Tensor:

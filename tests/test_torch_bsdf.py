@@ -3,15 +3,22 @@ on the same numpy-made directions, uniforms and builtin materials.
 
 Two checks per function:
   * same formulas: the port in float64 against the JAX function in float64
-    (jax x64 mode), rtol 1e-9, atol 1e-12 on every element;
+    (jax x64 mode), rtol 1e-9, atol 1e-12 on every element. bsdf_sample is
+    fed its four uniforms explicitly for this (the keyed draws are float32
+    in both packages);
   * same float32 results: rtol 1e-5, atol 1e-6 on at least 97% of the
-    elements of every output. The rest are lanes where the formula itself
-    cancels: 1 - cos^2 in ggx_sample_h, d_ggx's denominator near a narrow
-    GGX peak (1 - h_z^2 ~ 1e-3 at roughness 0.1). There a one-ulp
-    difference in an intermediate moves the result by up to ~1e-2
-    relative, and the two float32 paths do differ in the last ulp: XLA:CPU's
-    rsqrt is not correctly rounded, PyTorch's CPU sqrt is not always, and
-    cos/sin/exp differ. The float64 check covers those lanes.
+    elements of every output, and rtol 1e-2 on every element. The lanes
+    between the two bounds are where the formula itself cancels: 1 - cos^2
+    in ggx_sample_h, d_ggx's denominator near a narrow GGX peak. There a
+    one-ulp difference in an intermediate moves the result by up to ~6e-3
+    relative (measured), and the two float32 paths do differ in the last
+    ulp: XLA:CPU's rsqrt is not correctly rounded, PyTorch's CPU sqrt is
+    not always, and cos/sin/exp differ. One condition is looser: a metal
+    lane of bsdf_sample whose sampled half vector lies on the GGX peak
+    (1 - h_z^2 < 1e-4). float32 resolves 1 - h_z^2 only to ~6e-8 there,
+    which at roughness 0.05 (alpha^2 = 6.25e-6) is a ~1% step of D's
+    denominator before it is squared; its f and pdf are held to rtol 1e-1
+    (measured worst 7.2e-2). The float64 check covers those lanes exactly.
 """
 
 import dataclasses
@@ -30,7 +37,8 @@ from cudapathtracer_tpu.scene.materials import \
     builtin_materials as jbuiltin_materials
 from cudapathtracer_tpu.utils import rng as jrng
 from cudapathtracer_tpu_torch.ops import bsdf as tb
-from cudapathtracer_tpu_torch.scene.materials import (MaterialTable,
+from cudapathtracer_tpu_torch.scene.materials import (MAT_METAL,
+                                                      MaterialTable,
                                                       build_table,
                                                       builtin_materials)
 from cudapathtracer_tpu_torch.utils import rng as trng
@@ -86,9 +94,9 @@ def _cast(args, dtype):
             and a.dtype == np.float32 else a for a in args]
 
 
-def _check(jfn, tfn, args, f64=True):
+def _check(jfn, tfn, args, f64=True, peak=None):
     """Compare tfn (port) with jfn (JAX) under the bounds in the module
-    docstring."""
+    docstring. peak: [N] bool, the GGX-peak lanes held to rtol 1e-1."""
     j32 = _flat(jfn(*[jnp.asarray(a) for a in args]))
     t32 = _flat(tfn(*[torch.as_tensor(a) for a in args]))
     if f64:
@@ -104,6 +112,14 @@ def _check(jfn, tfn, args, f64=True):
         assert close.mean() >= 0.97, (
             f"only {close.mean():.4f} of elements within rtol 1e-5, atol "
             f"1e-6; worst: jax {j[~close][:3]}, port {t[~close][:3]}")
+        fin = np.isfinite(j)
+        loose = np.zeros(j.shape, bool) if peak is None else \
+            np.broadcast_to(peak.reshape(peak.shape + (1,) * (j.ndim - 1)),
+                            j.shape)
+        np.testing.assert_allclose(t[fin & ~loose], j[fin & ~loose],
+                                   rtol=1e-2, atol=1e-6)
+        np.testing.assert_allclose(t[fin & loose], j[fin & loose],
+                                   rtol=1e-1, atol=1e-6)
 
 
 def _both(name, *args):
@@ -150,7 +166,7 @@ def test_dielectric_sample_matches_jax(inputs, mode):
     assert (pdf.numpy() == 1.0).any()
 
 
-def test_dispatch_matches_jax(inputs):
+def test_dispatch_matches_jax(inputs, monkeypatch):
     x = inputs
     jm, tm = x["jmat"], x["tmat"]
     args = [x[k] for k in ("albedo", "wi", "wo", "eta_i", "trans")]
@@ -162,14 +178,38 @@ def test_dispatch_matches_jax(inputs):
     ids = np.arange(N, dtype=np.int32)
     jkey = jrng.bounce_key(jrng.sample_key(jrng.base_key(), 2), 1)
     tkey = trng.bounce_key(trng.sample_key(trng.base_key(), 2), 1)
-    # float32 only: the draws are float32 in both packages, and jax x64
-    # mode promotes their products differently from PyTorch (the lobes'
-    # samplers are float64-checked above with explicit uniforms)
-    _check(lambda a, wi, bf, e, i: jb.bsdf_sample(jkey, 4, jm, a, wi, bf, e,
-                                                  ids=i),
-           lambda a, wi, bf, e, i: tb.bsdf_sample(tkey, 4, tm, a, wi, bf, e,
-                                                  ids=i),
-           [x["albedo"], x["wi"], x["backface"], x["eta_i"], ids], f64=False)
+    # the four draws bsdf_sample consumes, bit-equal in both packages
+    us = [trng.uniform_any(tkey, 4 + k, N, torch.as_tensor(ids)).numpy()
+          for k in range(4)]
+    for k, u in enumerate(us):
+        ju = np.asarray(jrng.uniform_any(jkey, 4 + k, N, jnp.asarray(ids)))
+        np.testing.assert_array_equal(u.view(np.uint32), ju.view(np.uint32))
+
+    def explicit(pkg, mat):
+        """bsdf_sample of `pkg` on the uniforms passed in (any float dtype)
+        in place of its keyed draws."""
+        def fn(a, wi, bf, e, *u):
+            with monkeypatch.context() as mp:
+                mp.setattr(pkg.rng, "uniform_any",
+                           lambda key, draw, n, ids=None: u[draw - 4])
+                return pkg.bsdf_sample(None, 4, mat, a, wi, bf, e)
+        return fn
+
+    args = [x["albedo"], x["wi"], x["backface"], x["eta_i"], *us]
+    jfn, tfn = explicit(jb, jm), explicit(tb, tm)
+    # metal lanes whose half vector sits on the GGX peak (module docstring)
+    wo = np.asarray(jfn(*[jnp.asarray(a) for a in args])[0], np.float64)
+    h = x["wi"] + wo
+    hz2 = h[:, 2] ** 2 / np.maximum((h * h).sum(axis=1), 1e-30)
+    peak = (tm.type.numpy() == MAT_METAL) & (1.0 - hz2 < 1e-4)
+    assert peak.any() and peak.mean() < 0.1
+    _check(jfn, tfn, args, peak=peak)
+    # with its key, the port draws exactly those uniforms
+    keyed = tb.bsdf_sample(tkey, 4, tm, *[torch.as_tensor(a)
+                                          for a in args[:4]],
+                           ids=torch.as_tensor(ids))
+    for a, b in zip(keyed, tfn(*[torch.as_tensor(a) for a in args])):
+        assert torch.equal(a, b)
     assert len(np.unique(tm.type.numpy())) == 5   # every lobe selected
 
 

@@ -5,9 +5,9 @@ The kernel tests need an NVIDIA card (sm_90a) and nvcc; they carry the
 `cuda` marker and skip without a card:
     python -m pytest -m cuda tests/test_torch_kernels.py
 chip_smoke.py makes the same comparisons at the main path's sizes.
-Tolerances: K6 bit-equal; K7 max abs 1e-6; K1 triangle ids equal, t/u/v
-and shadow scale within 1e-5 (the kernels are built with -fmad=false and
-follow the plain versions operation for operation).
+Tolerances: K6 bit-equal; K7 max abs 1e-6; K1 triangle ids and restart
+counts equal, t/u/v and shadow scale within 1e-5 (the kernels are built
+with -fmad=false and follow the plain versions operation for operation).
 """
 
 import numpy as np
@@ -34,7 +34,7 @@ def cuda():
 def test_import_builds_nothing():
     """Importing the port compiles nothing; the CPU path launches nothing."""
     import cudapathtracer_tpu_torch.driver  # noqa: F401
-    assert kernels._lib is None or torch.cuda.is_available()
+    assert not kernels._libs or torch.cuda.is_available()
     kernels.reset_launches()
     rng.uniform_id(rng.base_key(), 0, torch.arange(8, dtype=torch.int32))
     assert all(v == 0 for v in kernels.launches.values())
@@ -71,9 +71,9 @@ def test_k6_matches_plain(cuda):
                        device=cuda)
     k0, k1 = rng.draw_key(rng.base_key(), 3)
     kernels.reset_launches()
-    ku = rng.uniform_keyed(k0, k1, ids, two=True)
+    ku = rng.uniform_draw_key(k0, k1, ids, two=True)
     assert kernels.launches["uniform_id"] == 1
-    pu = rng.uniform_keyed_plain(k0, k1, ids, two=True)
+    pu = rng.uniform_draw_key_plain(k0, k1, ids, two=True)
     for a, b in zip(ku, pu):
         assert torch.equal(a.view(torch.int32), b.view(torch.int32))
 
@@ -122,4 +122,59 @@ def test_k1_matches_plain(cuda, bunny_mat):
     ks = traverse8.shadow_factor8(sc, o, d, mt, skip, active)
     ps = traverse8.shadow_factor8_plain(sc.bvh8_table, sc.tri_f32, o, d, mt,
                                         skip, active)
+    assert (ks - ps).abs().max().item() <= 1e-5
+
+
+def grazing_rays(n=2000, seed=3):
+    """Rays near the floor and nearly parallel to it: the rays of
+    test_torch_traverse8.py::test_stack_overflow_restart, which overflow a
+    7-entry stack on cornell_with_bunny(subdivisions=4)."""
+    gen = np.random.default_rng(seed)
+    o = gen.uniform(-0.49, 0.49, (n, 3))
+    o[:, 1] = gen.uniform(-0.5, -0.2, n)
+    d = gen.normal(size=(n, 3))
+    d[:, 1] *= 0.05
+    o = o.astype(np.float32)
+    d = (d / np.linalg.norm(d, axis=1, keepdims=True)).astype(np.float32)
+    return o, d
+
+
+@pytest.mark.cuda
+def test_k1_stack_overflow_restart(cuda, monkeypatch):
+    """A 7-entry build of traverse8.cu drives the ring and the restart
+    from the root. On the grazing rays, whose plain version at 7 entries
+    matches the JAX traversal at TPT_STACK_D=7 (test_torch_traverse8.py),
+    rays overflow, and the kernel's restart counts, ids and t equal the
+    plain version's at the same depth; the restarts recover every hit of
+    the 16-entry kernel. Shadow rays through the same ring match too."""
+    sc, _ = build_scene(builtin.cornell_with_bunny(subdivisions=4),
+                        builtin_materials(), device=cuda)
+    o, d = (torch.as_tensor(a, device=cuda) for a in grazing_rays())
+    n = o.shape[0]
+    mt = torch.full((n,), 999999.0, device=cuda)
+    skip = torch.full((n,), -1, dtype=torch.int32, device=cuda)
+    full = kernels.closest_hit8(sc.bvh8_table, o, d, mt, skip, None,
+                                with_restarts=True)
+    monkeypatch.setattr(traverse8, "STACK_D", 7)
+    k = kernels.closest_hit8(sc.bvh8_table, o, d, mt, skip, None,
+                             stack_d=7, with_restarts=True)
+    p = traverse8.closest_hit8_plain(sc.bvh8_table, o, d, mt, skip, None,
+                                     with_restarts=True)
+    assert int((k[4] > 0).sum()) > 0, "the 7-entry stack never overflowed"
+    assert int((full[4] > 0).sum()) == 0
+    assert torch.equal(k[4], p[4])
+    assert torch.equal(k[1], p[1])
+    assert torch.equal(k[1], full[1])
+    m = k[1] >= 0
+    assert (k[0][m] - p[0][m]).abs().max().item() <= 1e-5
+    # the entry point builds and launches the depth traverse8.STACK_D names
+    kernels.reset_launches()
+    assert torch.equal(traverse8.closest_hit8(sc, o, d).tri, k[1])
+    assert kernels.launches["closest_hit8"] == 1
+    gen = np.random.default_rng(5)
+    smt = torch.as_tensor(gen.uniform(0.1, 2.0, n), dtype=torch.float32,
+                          device=cuda)
+    ks = traverse8.shadow_factor8(sc, o, d, smt)
+    ps = traverse8.shadow_factor8_plain(sc.bvh8_table, sc.tri_f32, o, d, smt,
+                                        skip, None)
     assert (ks - ps).abs().max().item() <= 1e-5

@@ -12,8 +12,12 @@ with the kernels' plain versions.
     1e-5, atol 1e-5 on every element of the diffuse scene (measured: at
     most 4.8e-6 absolute, for radiance up to 16); on the others on at least
     97% of the elements, the rest being GGX-peak and glass lanes where one
-    ulp of an intermediate is amplified (test_torch_bsdf.py; measured up
-    to 0.12 absolute on one leaf pixel of sample 1).
+    ulp of an intermediate is amplified (test_torch_bsdf.py). Those are
+    bounded per scene at a few times the measured worst relative error:
+    rtol 1e-3 on the spheres and nested scenes (measured 5.3e-5 and
+    2.2e-4), rtol 1e-1 on the leaf scene (measured 4.3e-2, one pixel of
+    sample 1 whose path crossed a leaf at its GGX peak). The mean of every
+    scene's image agrees within 2e-3 relative (measured 1.1e-3 on leaf).
 """
 
 import jax.numpy as jnp
@@ -81,6 +85,10 @@ SCENES = {
 }
 
 
+# every element, relative (module docstring)
+BOUND = {"blocks": 1e-5, "spheres": 1e-3, "nested": 1e-3, "leaf": 1e-1}
+
+
 @pytest.mark.parametrize("name", sorted(SCENES))
 def test_sample_matches_jax(name):
     js, _ = jbuild_scene(SCENES[name](), jbuiltin_materials())
@@ -102,3 +110,5 @@ def test_sample_matches_jax(name):
     assert np.isfinite(got).all()
     close = np.isclose(got, want, rtol=1e-5, atol=1e-5)
     assert close.mean() >= (1.0 if name == "blocks" else 0.97), close.mean()
+    np.testing.assert_allclose(got, want, rtol=BOUND[name], atol=1e-5)
+    assert abs(got.mean() / want.mean() - 1.0) < 2e-3
