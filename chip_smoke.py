@@ -6,7 +6,9 @@ NVIDIA GPU. Run from the repository root:
 
 Phases (one line each; any failure exits non-zero before the result line):
   1. a CUDA card is required; print nvidia-smi's name and power limit;
-  2. build the kernels from kernels/csrc into build/torch_ext;
+  2. build the kernels from kernels/csrc into build/torch_ext (one nvcc per
+     source, all at once); print the build seconds and the megakernel's
+     registers and spill bytes (ptxas);
   3. K6 (rng.cu) against its plain version on 2,073,600 ids: bit-equal;
   4. K7 (camera.cu) against its plain version at 1920x1080: max abs <= 1e-6;
   5. K1 (traverse8.cu) against its plain version on the ~82k-triangle
@@ -17,16 +19,28 @@ Phases (one line each; any failure exits non-zero before the result line):
      variant (within 1e-5); restart counts equal the plain version's, and
      a 7-entry-stack build of traverse8.cu must overflow and restart on
      grazing rays and still match the plain version at that depth;
-  6. the unidirectional golden (16x16, 8 spp) rendered on the card:
-     rmse < 1e-3 against tests/golden/cornell_uni_16x16_8spp.npy, or, if
-     float rounding flipped a discrete decision, |mean ratio - 1| < 1e-2;
-  7. the main path: driver.Renderer on configs/cornell.rendertron with
-     Engine classic, the bunny scene, 1920x1080, depth 8, 4 spp; the image
-     must be finite, free of NaN/Inf/negative pixels and > 90% non-black,
-     and every kernel of the path must have launched during it.
-Then one JSON line with each kernel's launches, error and times against
-its plain version, the card's name and power limit, and as the last line
-{"ok": true, "device": {...}}.
+  6. shade_eval (the K2-K4 device code of uni_mega.cu) against the plain
+     K2-K4 functions on ~1M hits of the 1080p bunny scene and of its
+     MAT_LEAF variant, under tests/test_torch_bsdf.py's per-element bounds
+     (see compare_shade_eval); the worst error of each output is printed;
+  7. K5, the megakernel (uni_mega.cu), against its plain version
+     (models/unidirectional.render_plain, whose traversal and draws go
+     through K1 and K6, held to their own plain versions above) at
+     1920x1080, 1 spp, both draw schedules, and at 256x256 on the mirror +
+     glass spheres scene (the medium stack): rays within 0.1%, image mean
+     ratio within 1e-3, >= 99% of pixels within rtol 1e-3;
+  8. the goldens on the card through the megakernel (16x16, 8 spp): mega
+     against tests/golden/cornell_mega_16x16_8spp.npy and classic against
+     cornell_uni_16x16_8spp.npy, each at rmse < 1e-3;
+  9. the main path: driver.Renderer on configs/cornell.rendertron as
+     shipped (the default mega engine), the bunny scene, 1920x1080, depth
+     8, 4 spp; the image must be finite, free of NaN/Inf/negative pixels
+     and > 90% non-black, and the megakernel must have launched during it;
+     then the same with Engine classic (its path, with its own counts).
+Then one JSON line with each kernel's launches on the main path, error and
+times against its plain version, its bound on this card and the library
+call's time (null: no PyTorch call computes these functions), the card's
+name and power limit, and as the last line {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -34,6 +48,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -41,16 +56,35 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 OUT_DIR = os.path.join(ROOT, "chiprun_out", "chip_smoke")
 WIDTH, HEIGHT, SPP, DEPTH = 1920, 1080, 4, 8
+CSRC = "cudapathtracer_tpu_torch/kernels/csrc/"
 KERNELS = (  # name, source, the JAX function it replaces
-    ("uniform_id", "cudapathtracer_tpu_torch/kernels/csrc/rng.cu",
-     "cudapathtracer_tpu/utils/rng.py:106"),
-    ("generate_rays", "cudapathtracer_tpu_torch/kernels/csrc/camera.cu",
+    ("uniform_id", CSRC + "rng.cu", "cudapathtracer_tpu/utils/rng.py:106"),
+    ("generate_rays", CSRC + "camera.cu",
      "cudapathtracer_tpu/scene/camera.py:81"),
-    ("closest_hit8", "cudapathtracer_tpu_torch/kernels/csrc/traverse8.cu",
+    ("closest_hit8", CSRC + "traverse8.cu",
      "cudapathtracer_tpu/ops/traverse8.py:288"),
-    ("shadow_factor8", "cudapathtracer_tpu_torch/kernels/csrc/traverse8.cu",
+    ("shadow_factor8", CSRC + "traverse8.cu",
      "cudapathtracer_tpu/ops/traverse8.py:354"),
+    ("render_unidirectional", CSRC + "uni_mega.cu",
+     "cudapathtracer_tpu/models/unidirectional_mega.py:222"),
+    ("shade_eval", CSRC + "uni_mega.cu",
+     "cudapathtracer_tpu/ops/lanemajor.py:125"),
 )
+# The card's peaks (on-chip-measurement guide: H100 SXM data sheet) for the
+# bound: bytes over memory bandwidth, scalar operations (integer or float,
+# one per instruction: the kernels are built with -fmad=false) over the
+# float32 rate outside the tensor cores. Both are lower bounds on time.
+PEAK_BYTES_S = 3.35e12
+PEAK_OPS_S = 67e12
+# scalar operations, counted from the sources: one BVH8 row visited in
+# traverse8.cuh (8 slab tests x 27, the 19-comparator sort x 2, 7 pushes
+# x 3, 4 Moller-Trumbore tests x 52, the leaf fold 7); one Threefry-2x32
+# draw in threefry.cuh (20 rounds x 5, 5 key injections x 3, the unit
+# conversion 2); one K7 pixel (4 draws and ~60 float ops).
+OPS_PER_ROW = 490
+OPS_PER_DRAW = 117
+OPS_PER_CAMERA_RAY = 4 * OPS_PER_DRAW + 60
+K_ULP = 32 * 2.0 ** -24   # tests/test_torch_bsdf.py's K u
 
 
 class SmokeFailure(Exception):
@@ -137,6 +171,175 @@ def nee_rays(scene, hit_o, hit_d, hit, ids):
         ((dist - EPSILON) * (1.0 - EPSILON)).contiguous()
 
 
+def bound_ms(nbytes: float, ops: float) -> tuple:
+    """(the least time in ms the card could take, what bounds it)."""
+    tb, to = nbytes / PEAK_BYTES_S * 1e3, ops / PEAK_OPS_S * 1e3
+    return (tb, "bytes") if tb >= to else (to, "operations")
+
+
+def ptxas_of(log: str, kernel: str) -> dict:
+    """Registers, stack and spill bytes ptxas reported for a kernel."""
+    m = re.search(r"Compiling entry function '[^']*" + kernel + r"[^']*'"
+                  r".*?(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                  r"(\d+) bytes spill loads.*?Used (\d+) registers", log,
+                  re.S)
+    check(m is not None, f"build: no ptxas report for {kernel}")
+    stack, st, ld, regs = (int(x) for x in m.groups())
+    return dict(registers=regs, stack_bytes=stack, spill_store_bytes=st,
+                spill_load_bytes=ld)
+
+
+def compare_render(k, p, what: str) -> float:
+    """K5 against its plain version: ((li, rays), (li, rays)); rays within
+    0.1%, image mean ratio within 1e-3, >= 99% of pixels within rtol 1e-3
+    (atol 1e-6) on every channel. Returns the max abs pixel error."""
+    import torch
+    (kl, kr), (pl, pr) = k, p
+    rays = abs(kr - pr) / pr
+    ratio = (kl.double().mean() / pl.double().mean()).item()
+    close = torch.isclose(kl, pl, rtol=1e-3, atol=1e-6).all(dim=1)
+    frac = close.float().mean().item()
+    err = (kl - pl).abs().max().item()
+    say("K5", f"{what}: rays kernel {kr} plain {pr} (diff {rays:.3g}), mean "
+        f"ratio {ratio:.7f}, pixels within rtol 1e-3 {frac:.6f}, max abs "
+        f"{err:.3g}")
+    check(bool(torch.isfinite(kl).all()), f"K5 {what}: non-finite radiance")
+    check(rays <= 1e-3, f"K5 {what}: rays differ by {rays:.3g}")
+    check(abs(ratio - 1.0) <= 1e-3, f"K5 {what}: mean ratio {ratio:.7f}")
+    check(frac >= 0.99, f"K5 {what}: only {frac:.5f} of pixels within rtol "
+          "1e-3")
+    return err
+
+
+def _half_z(wi, wo):
+    h = wi + wo
+    h = h / h.norm(dim=1, keepdim=True).clamp(min=1e-300)
+    return h[:, 2].abs()
+
+
+def _peak(h_z, alpha):
+    a2 = alpha * alpha
+    return 2.0 * (1.0 - a2) / (1.0 - h_z * h_z * (1.0 - a2))
+
+
+def _schlick(cos_t, eta_i, eta_t):
+    r0 = ((eta_i - eta_t) / (eta_i + eta_t)) ** 2
+    return r0 + (1.0 - r0) * (1.0 - cos_t.abs()) ** 5
+
+
+def shade_eval_bounds(scene, d, hit, p, eta_i, u_sel, u1):
+    """Per-element bounds of shade_eval against its plain version p
+    ([N, 38], columns in models/unidirectional_mega.shade_eval_plain): the
+    bounds of tests/test_torch_bsdf.py, |k - p| <= 1e-6 + 1e-5 |p| +
+    K u (A_rel |p| + A_abs), with the lane's condition A from float64:
+    GGX lanes (metal, leaf) carry D's peak 2 (1 - a^2) / den at the NEE
+    and the sampled directions' half vectors, the sample's cancellations
+    (1 + 1/s) and 3 (1 + 1/s) / sin_t; dielectric lanes 1 / cos_t^2. Lanes
+    at a branch edge (leaf u_sel < F, dielectric u < F, TIR, F >= 0.99999,
+    within 1e-5, and the shading frame's |n_x| > |n_z| choice within 1e-6
+    unless both are 0) are left out, at most 1%. Returns (bound [N,38], keep [N])."""
+    import torch
+    from cudapathtracer_tpu_torch.utils.math import to_local
+    q = p.double()
+    row = scene.tri_shade_row[hit.tri.clamp(min=0)].double()
+    mtype = scene.tri_shade_row[hit.tri.clamp(min=0), 20].contiguous().view(
+        torch.int32)
+    alpha = row[:, 24] ** 2
+    ior = row[:, 31]
+    wi = -to_local(d.double(), q[:, 3:6])
+    ggx = (mtype == 1) | (mtype == 4)
+    s = 1.0 + (alpha * alpha - 1.0) * u1.double()
+    cos2 = ((1.0 - u1.double()) / s).clamp(0.0, 1.0)
+    amp = 1.0 + 1.0 / s
+    sin_t = (1.0 - cos2).clamp(min=1e-300).sqrt()
+    zero = torch.zeros_like(alpha)
+    nee_rel = torch.where(ggx, _peak(_half_z(wi, q[:, 17:20]), alpha), zero)
+    bs_rel = torch.where(ggx, _peak(_half_z(wi, q[:, 29:32]), alpha) * amp,
+                         zero)
+    bs_abs = torch.where(ggx, 3.0 * amp / sin_t, zero)
+    bf = q[:, 8] > 0.5
+    eta_a = torch.where(bf, ior, torch.ones_like(ior))
+    eta_b = torch.where(bf, torch.ones_like(ior), ior)
+    cos_i = wi[:, 2].clamp(1e-5, 1.0)
+    eta = eta_a / eta_b
+    cos_t2 = 1.0 - eta * eta * (1.0 - cos_i * cos_i)
+    fres = _schlick(cos_i, eta_a, eta_b)
+    diel = mtype == 2
+    refr = 1.0 / cos_t2.abs().clamp(min=1e-300)
+    bs_rel = torch.where(diel, refr, bs_rel)
+    bs_abs = torch.where(diel, refr, bs_abs)
+    u = u_sel.double()
+    edge = (diel & (((u - fres).abs() < 1e-5) | (cos_t2.abs() < 1e-5)
+                    | ((fres - 0.99999).abs() < 1e-5)))
+    edge |= (mtype == 4) & ((u - _schlick(wi[:, 2], eta_i.double(), ior))
+                            .abs() < 1e-5)
+    nx, nz = q[:, 3].abs(), q[:, 5].abs()
+    edge |= ((nx - nz).abs() < 1e-6) & (nx + nz > 1e-6)
+    a_rel = torch.zeros_like(q)
+    a_abs = torch.zeros_like(q)
+    for c in (13, 14, 15, 28):            # NEE contrib, the NEE pdf
+        a_rel[:, c] = nee_rel
+    for c in range(29, 36):               # BSDF sample wo, f, pdf
+        a_rel[:, c] = bs_rel
+        a_abs[:, c] = bs_abs
+    bound = 1e-6 + 1e-5 * q.abs() + K_ULP * (a_rel * q.abs() + a_abs)
+    keep = hit.valid & ~edge
+    check(edge.float().mean().item() < 0.01, "shade_eval: more than 1% of "
+          "lanes at a branch edge")
+    return bound, keep
+
+
+SHADE_COLS = (("point", 0, 3), ("normal", 3, 6), ("uv", 6, 8),
+              ("backface", 8, 9), ("albedo", 9, 12), ("trans", 12, 13),
+              ("nee_contrib", 13, 16), ("light_pdf", 16, 17),
+              ("nee_wo", 17, 20), ("shadow_o", 20, 23), ("shadow_d", 23, 26),
+              ("max_t", 26, 27), ("nee_active", 27, 28), ("nee_bpdf", 28, 29),
+              ("wo", 29, 32), ("f", 32, 35), ("pdf", 35, 36),
+              ("mat_id", 36, 37), ("emissive", 37, 38))
+
+
+def compare_shade_eval(scene, d, hit, k, p, eta_i, u_sel, u1,
+                       what: str) -> float:
+    """shade_eval (k) against shade_eval_plain (p) on the same hits. The
+    discrete columns (backface, active, mat_id, emissive) equal on >=
+    99.99% of hits; light_pdf = dist^2 / (cos_l n A) through
+    x = dist^2 / light_pdf = cos_l n A, which stays well conditioned where
+    the light is seen edge-on (cos_l -> 0, the pdf -> inf), within
+    1e-6 + 1e-5 |x| (dist from the plain shadow ray's max_t); every other
+    column under shade_eval_bounds. The NEE outputs are compared where the
+    plain NEE is active: elsewhere nothing reads them, and on a light's own
+    surface the light sample lies in the hit's plane, where the shadow
+    direction is one ulp of cancellation. Returns the worst abs error over
+    the compared elements."""
+    bound, keep = shade_eval_bounds(scene, d, hit, p, eta_i, u_sel, u1)
+    kd, pd = k.double(), p.double()
+    err = (kd - pd).abs()
+    dist2 = (pd[:, 26] / (1.0 - 1e-5) + 1e-5) ** 2
+    x_k, x_p = dist2 / kd[:, 16], dist2 / pd[:, 16]
+    err[:, 16] = (x_k - x_p).abs()
+    bound[:, 16] = 1e-6 + 1e-5 * x_p.abs()
+    worst, parts = 0.0, []
+    nee = keep & (pd[:, 27] > 0.5)
+    for name, c0, c1 in SHADE_COLS:
+        rows = nee if 13 <= c0 < 29 and name != "nee_active" else keep
+        e = err[rows, c0:c1]
+        if name in ("backface", "nee_active", "mat_id", "emissive"):
+            frac = (e == 0).all(dim=1).float().mean().item()
+            check(frac >= 0.9999, f"shade_eval {what}: {name} equal on only "
+                  f"{frac:.6f} of hits")
+            parts.append(f"{name} {1.0 - frac:.2g}")
+            continue
+        over = (e > bound[rows, c0:c1]).any(dim=1)
+        check(not bool(over.any()), f"shade_eval {what}: {name} over its "
+              f"bound on {int(over.sum())} hits")
+        m = e.max().item() if e.numel() else 0.0
+        worst = max(worst, m)
+        parts.append(f"{name} {m:.3g}")
+    say("shade", f"{what}: {int(keep.sum())} hits compared; worst error "
+        "per output (discrete: share unequal): " + ", ".join(parts))
+    return worst
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(ROOT, "cudapathtracer_tpu_torch")):
         print("FAIL: run chip_smoke.py from a checkout of the repository "
@@ -149,16 +352,17 @@ def main() -> int:
               "needs an NVIDIA GPU")
         return 2
     sys.path.insert(0, ROOT)
-    from cudapathtracer_tpu.scene import builtin
-    from cudapathtracer_tpu.utils.config import MeshConfig, load_config
     from cudapathtracer_tpu_torch import kernels
     from cudapathtracer_tpu_torch.driver import Renderer
     from cudapathtracer_tpu_torch.models import unidirectional
+    from cudapathtracer_tpu_torch.models import unidirectional_mega
     from cudapathtracer_tpu_torch.ops import traverse8
+    from cudapathtracer_tpu_torch.scene import builtin
     from cudapathtracer_tpu_torch.scene.camera import Camera
     from cudapathtracer_tpu_torch.scene.materials import builtin_materials
     from cudapathtracer_tpu_torch.scene.scene import build_scene
     from cudapathtracer_tpu_torch.utils import rng
+    from cudapathtracer_tpu_torch.utils.config import MeshConfig, load_config
     from cudapathtracer_tpu_torch.utils.image import rmse
 
     dev = torch.device("cuda", 0)
@@ -174,8 +378,14 @@ def main() -> int:
     # --- 2. build
     t0 = time.perf_counter()
     kernels.build(verbose=True)
-    say("build", f"{kernels.LIBRARY} built in "
-        f"{time.perf_counter() - t0:.1f} s")
+    build_s = time.perf_counter() - t0
+    with open(kernels.LIBRARY + ".ptxas.txt") as f:
+        mk = ptxas_of(f.read(), "uni_mega_kernel")
+    say("build", f"{kernels.LIBRARY} built in {build_s:.1f} s "
+        f"({len(kernels.SOURCES)} sources in parallel); uni_mega_kernel: "
+        f"{mk['registers']} registers, {mk['stack_bytes']} bytes stack "
+        f"frame, {mk['spill_store_bytes']} bytes spill stores, "
+        f"{mk['spill_load_bytes']} bytes spill loads")
 
     # --- 3. K6
     n = WIDTH * HEIGHT
@@ -193,6 +403,7 @@ def main() -> int:
           and torch.equal(ku1.view(torch.int32), pu1.view(torch.int32)),
           "K6: kernel draws are not bit-equal to the plain version")
     stats["uniform_id"].update(
+        bound=bound_ms(n * 8, n * OPS_PER_DRAW),
         max_abs_err=0.0,
         ms=cuda_ms(lambda: rng.uniform_draw_key(k0, k1, ids), 50),
         plain_ms=cuda_ms(lambda: rng.uniform_draw_key_plain(k0, k1, ids), 10))
@@ -214,6 +425,7 @@ def main() -> int:
                    (kd - pd).abs().max().item())
     check(err7 <= 1e-6, f"K7: max abs error {err7:.3g} > 1e-6")
     stats["generate_rays"].update(
+        bound=bound_ms(n * (12 + 24), n * OPS_PER_CAMERA_RAY),
         max_abs_err=err7,
         ms=cuda_ms(lambda: cam.generate_rays(ckey, fx, fy, ids), 50),
         plain_ms=cuda_ms(lambda: cam.generate_rays_plain(ckey, fx, fy, ids),
@@ -236,11 +448,14 @@ def main() -> int:
     ph = traverse8.closest_hit8_plain(tbl, o, d, nomax, noskip, None,
                                       with_restarts=True)
     err1 = compare_hits(kh, traverse8.Hit(*ph[:4]), "primary 1080p")
-    kr = kernels.closest_hit8(tbl, o, d, nomax, noskip, None,
-                              with_restarts=True)[4]
+    kr, krows = kernels.closest_hit8(tbl, o, d, nomax, noskip, None,
+                                     with_restarts=True, with_rows=True)[4:]
     check(torch.equal(kr, ph[4]), "K1: restart counts differ from the "
           "plain version on the primary rays")
+    # inputs: the table, o, d, max_t, skip_tri; outputs t, tri, u, v
     stats["closest_hit8"].update(
+        bound=bound_ms(tbl.numel() * 4 + n * (32 + 16),
+                       int(krows.sum()) * OPS_PER_ROW),
         ms=cuda_ms(lambda: traverse8.closest_hit8(scene, o, d), 10),
         plain_ms=cuda_ms(lambda: traverse8.closest_hit8_plain(
             tbl, o, d, nomax, noskip, None), 1, warmup=0))
@@ -314,11 +529,10 @@ def main() -> int:
     stats["closest_hit8"]["max_abs_err"] = err1
 
     err_s = 0.0
-    for label, sc in (("bunny", scene), ("bunny MAT_LEAF", None)):
-        if sc is None:
-            sc, _ = build_scene(builtin.cornell_with_bunny(subdivisions=6,
+    leaf_scene, _ = build_scene(builtin.cornell_with_bunny(subdivisions=6,
                                                            bunny_mat=13),
                                 builtin_materials(), device=dev)
+    for label, sc in (("bunny", scene), ("bunny MAT_LEAF", leaf_scene)):
         h = traverse8.closest_hit8(sc, o, d)
         so, sd, smt = nee_rays(sc, o, d, h, ids)
         m = so.shape[0]
@@ -334,7 +548,14 @@ def main() -> int:
             f"occluded {(ks.amax(1) == 0).float().mean().item():.4f}, "
             f"partly transmitted {partial:.4f}")
         if label == "bunny":
+            srows = kernels.shadow_factor8(sc.bvh8_table, sc.tri_f32, so,
+                                           sd, smt, sk, None,
+                                           with_rows=True)[1]
+            # inputs: the table, o, d, max_t, skip_tri (no MAT_LEAF
+            # triangle, so no tri_f32 row is needed); output the scale
             stats["shadow_factor8"].update(
+                bound=bound_ms(tbl.numel() * 4 + m * (32 + 12),
+                               int(srows.sum()) * OPS_PER_ROW),
                 ms=cuda_ms(lambda: traverse8.shadow_factor8(sc, so, sd, smt),
                            10),
                 plain_ms=cuda_ms(lambda: traverse8.shadow_factor8_plain(
@@ -348,9 +569,113 @@ def main() -> int:
         f"{stats['closest_hit8']['plain_ms']:.3f} ms; shadow kernel "
         f"{stats['shadow_factor8']['ms']:.3f} ms, plain "
         f"{stats['shadow_factor8']['plain_ms']:.3f} ms")
-    del scene
 
-    # --- 6. golden on the card
+    # --- 6. shade_eval: the K2-K4 device code against the plain functions
+    skey = rng.sample_key(rng.base_key(), 3)
+    gen = np.random.default_rng(11)
+    err_k24, shade_hits = 0.0, 0
+    for label, sc in (("bunny", scene), ("bunny MAT_LEAF", leaf_scene)):
+        # ~1M hits: the 1080p primary hits, then random rays from them
+        h0 = traverse8.closest_hit8(sc, o, d)
+        sel = torch.nonzero(h0.valid)[:, 0][: 1 << 19]
+        p0 = o[sel] + d[sel] * h0.t[sel, None]
+        rd = torch.as_tensor(gen.normal(size=(sel.numel(), 3)),
+                             dtype=torch.float32, device=dev)
+        rd = rd / rd.norm(dim=1, keepdim=True)
+        eo = torch.cat([o[sel], (p0 - d[sel] * 1e-4)]).contiguous()
+        ed = torch.cat([d[sel], rd]).contiguous()
+        eh = traverse8.closest_hit8(sc, eo, ed)
+        ne = eo.shape[0]
+        lit = torch.as_tensor(gen.integers(0, 12, ne), dtype=torch.int32,
+                              device=dev)
+        eids = (torch.cat([sel, sel]).to(torch.int32) * 191 + lit)
+        eta = torch.as_tensor(gen.choice([1e-5, 1.0, 1.333, 1.5], ne),
+                              dtype=torch.float32, device=dev)
+        ke = unidirectional_mega.shade_eval(sc, eo, ed, eh, eids, eta, skey)
+        pe = unidirectional_mega.shade_eval_plain(sc, eo, ed, eh, eids, eta,
+                                                  skey)
+        u_sel = rng.uniform_id(skey, 4, eids)
+        u1 = rng.uniform_id(skey, 6, eids)
+        err_k24 = max(err_k24, compare_shade_eval(
+            sc, ed, eh, ke, pe, eta, u_sel, u1, f"{label}, {ne} rays"))
+        shade_hits += int(eh.valid.sum())
+        if label == "bunny":
+            keys = [w for dr in range(9) for w in rng.draw_key(skey, dr)]
+            c = lambda x: x.contiguous()
+            args = (sc, eo, ed, c(eh.t), c(eh.tri), c(eh.u), c(eh.v), eids,
+                    c(eta), keys)
+            # inputs: the hit records (48 B), the shading rows of the hit
+            # triangles (192 B), a light row (68 B); output 38 floats
+            nv = int(eh.valid.sum())
+            stats["shade_eval"].update(
+                bound=bound_ms(ne * 48 + nv * (192 + 68) + ne * 38 * 4,
+                               nv * 7 * OPS_PER_DRAW),
+                ms=cuda_ms(lambda: kernels.shade_eval(*args), 10),
+                plain_ms=cuda_ms(lambda: unidirectional_mega.shade_eval_plain(
+                    sc, eo, ed, eh, eids, eta, skey), 3))
+    stats["shade_eval"]["max_abs_err"] = err_k24
+    say("shade", f"kernel {stats['shade_eval']['ms']:.4f} ms, plain "
+        f"{stats['shade_eval']['plain_ms']:.4f} ms ({shade_hits} hits "
+        "compared over both scenes)")
+    del leaf_scene
+
+    # --- 7. K5 against its plain version
+    def render(sc, c, sched, pxs, pys, plain=False):
+        """Sample 0: K5 or, with plain, its plain version."""
+        fn = unidirectional.render_plain if plain else \
+            unidirectional.render_kernel
+        return fn(sc, c, rng.base_key(), 0, pxs, pys, max_depth=DEPTH,
+                  use_mis=True, sample_environment=False, schedule=sched)
+
+    err5 = 0.0
+    for sched in ("mega", "classic"):
+        k5 = render(scene, cam, sched, px, py)
+        p5 = render(scene, cam, sched, px, py, plain=True)
+        err5 = max(err5, compare_render(
+            k5, p5, f"{WIDTH}x{HEIGHT} bunny, 1 spp, {sched}"))
+        if sched == "mega":
+            mega_rays = k5[1]
+            stats["render_unidirectional"].update(
+                ms=cuda_ms(lambda: render(scene, cam, "mega", px, py), 5),
+                plain_ms=cuda_ms(lambda: render(scene, cam, "mega", px, py,
+                                                plain=True), 1, warmup=0))
+    _, _, rows5 = kernels.render_unidirectional(
+        scene, px, py, cam.kernel_params(),
+        unidirectional.kernel_keys(rng.base_key(), 0), max_depth=DEPTH,
+        use_mis=True, sample_environment=False, schedule="mega",
+        air_priority=scene.air_priority, with_rows=True)
+    # inputs read once: the tables, px, py; outputs li, rays. Operations:
+    # the rows every ray of the sample visited and the camera draws; the
+    # shading arithmetic is not counted, so the bound is low.
+    tbytes = sum(t.numel() * 4 for t in (scene.bvh8_table, scene.tri_f32,
+                                          scene.light_f32, scene.textures,
+                                          scene.medium_f32))
+    stats["render_unidirectional"].update(
+        bound=bound_ms(tbytes + n * (8 + 12 + 4),
+                       int(rows5.sum()) * OPS_PER_ROW
+                       + n * OPS_PER_CAMERA_RAY))
+    say("K5", f"{WIDTH}x{HEIGHT} mega sample: kernel "
+        f"{stats['render_unidirectional']['ms']:.3f} ms "
+        f"({mega_rays / stats['render_unidirectional']['ms'] / 1e3:.3f} "
+        f"Mrays/s), plain {stats['render_unidirectional']['plain_ms']:.3f} "
+        f"ms; {int(rows5.sum())} BVH8 rows visited; bound "
+        f"{stats['render_unidirectional']['bound'][0]:.4f} ms "
+        f"({stats['render_unidirectional']['bound'][1]})")
+    sph, _ = build_scene(builtin.cornell_with_spheres(), builtin_materials(),
+                         device=dev)
+    scam = Camera.pinhole((0.0, 0.0, 1.0), 256, 256, 0.0, 0.0, 0.0, 60.0)
+    sy, sx = torch.meshgrid(torch.arange(256, dtype=torch.int32, device=dev),
+                            torch.arange(256, dtype=torch.int32, device=dev),
+                            indexing="ij")
+    sx, sy = sx.reshape(-1).contiguous(), sy.reshape(-1).contiguous()
+    for sched in ("mega", "classic"):
+        err5 = max(err5, compare_render(
+            render(sph, scam, sched, sx, sy),
+            render(sph, scam, sched, sx, sy, plain=True),
+            f"256x256 mirror + glass spheres, 1 spp, {sched}"))
+    stats["render_unidirectional"]["max_abs_err"] = err5
+
+    # --- 8. goldens on the card, through the megakernel
     gscene, _ = build_scene(builtin.cornell_with_blocks(),
                             builtin_materials(), device=dev)
     gcam = Camera.pinhole((0.0, 0.0, 1.0), 16, 16, 0.0, 0.0, 0.0, 60.0)
@@ -358,70 +683,88 @@ def main() -> int:
                                            device=dev),
                               torch.arange(16, dtype=torch.int32,
                                            device=dev), indexing="ij")
-    acc = torch.zeros((256, 3), device=dev)
-    for s in range(8):
-        li, _ = unidirectional.render_sample(
-            gscene, gcam, rng.base_key(), s, gxx.reshape(-1),
-            gyy.reshape(-1), max_depth=6)
-        acc += li
-    img = (acc / 8).cpu().numpy()
-    golden = np.load(os.path.join(ROOT, "tests", "golden",
-                                  "cornell_uni_16x16_8spp.npy"))
-    err = rmse(img, golden)
-    ratio = float(img.mean() / golden.mean())
-    say("golden", f"16x16 8 spp on the card: rmse {err:.3g} (bound 1e-3), "
-        f"mean ratio {ratio:.6f}, max |dpixel| "
-        f"{np.abs(img - golden).max():.3g}")
-    check(err < 1e-3 or abs(ratio - 1.0) < 1e-2,
-          f"golden: rmse {err:.3g} and mean ratio {ratio:.6f}")
+    for mod, gname in ((unidirectional_mega, "cornell_mega_16x16_8spp.npy"),
+                       (unidirectional, "cornell_uni_16x16_8spp.npy")):
+        kernels.reset_launches()
+        acc = torch.zeros((256, 3), device=dev)
+        for s in range(8):
+            li, _ = mod.render_sample(gscene, gcam, rng.base_key(), s,
+                                      gxx.reshape(-1), gyy.reshape(-1),
+                                      max_depth=6)
+            acc += li
+        check(kernels.launches["render_unidirectional"] == 8,
+              f"golden {gname}: not rendered by the megakernel")
+        img = (acc / 8).cpu().numpy()
+        golden = np.load(os.path.join(ROOT, "tests", "golden", gname))
+        err = rmse(img, golden)
+        say("golden", f"{gname} (16x16, 8 spp) on the card through the "
+            f"megakernel: rmse {err:.3g} (bound 1e-3), mean ratio "
+            f"{float(img.mean() / golden.mean()):.6f}")
+        check(err < 1e-3, f"golden {gname}: rmse {err:.3g}")
+    del scene, sph, gscene
 
-    # --- 7. the main path through the Renderer
-    cfg = load_config(os.path.join(ROOT, "configs", "cornell.rendertron"))
-    cfg = dataclasses.replace(
-        cfg, engine="classic", width=WIDTH, height=HEIGHT, max_depth=DEPTH,
-        sample_count=SPP, name="smoke", output_dir=OUT_DIR,
-        meshes=[MeshConfig("builtin:cornell_bunny", 1.0, (0.0, 0.0, 0.0),
-                           2)])
-    t0 = time.perf_counter()
-    r = Renderer(cfg, device="cuda")
-    say("main", f"Renderer ready in {time.perf_counter() - t0:.1f} s: "
-        f"{r.scene.num_triangles} triangles, {WIDTH}x{HEIGHT}, depth "
-        f"{DEPTH}, {SPP} spp")
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    kernels.reset_launches()
-    t0 = time.perf_counter()
-    r.render(progressive=False, verbose=False)
-    torch.cuda.synchronize()
-    secs = time.perf_counter() - t0
-    launches = dict(kernels.launches)
-    acc = r.accum
-    bad = int((~torch.isfinite(acc)).any(dim=1).sum()
-              + (acc < 0).any(dim=1).sum())
-    fb = r.framebuffer()
-    nonblack = float((fb.max(axis=-1) > 0.0).mean())
-    rays = r.metrics.rays_traced
-    say("main", f"{rays} rays in {secs:.3f} s = {rays / secs / 1e6:.3f} "
-        f"Mrays/s ({card}); peak memory "
-        f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB; launches "
-        f"{launches}; non-black {nonblack:.4f}; bad pixels {bad}")
-    check(fb.shape == (HEIGHT, WIDTH, 3), f"framebuffer shape {fb.shape}")
-    check(bad == 0, f"{bad} NaN/Inf/negative pixels")
-    check(nonblack > 0.9, f"only {nonblack:.3f} of pixels non-black")
-    for name, _, _ in KERNELS:
-        check(launches[name] > 0, f"main path never launched {name}")
-    r.save_final(0)
+    # --- 9. the main path through the Renderer: mega (the config's
+    # default), then classic; each with the counts zeroed just before it
+    cfg0 = load_config(os.path.join(ROOT, "configs", "cornell.rendertron"))
+    check(cfg0.engine == "mega", "configs/cornell.rendertron is expected to "
+          f"select the default mega engine, got {cfg0.engine!r}")
+    main_launches = {}
+    for engine in ("mega", "classic"):
+        cfg = dataclasses.replace(
+            cfg0, engine=engine, width=WIDTH, height=HEIGHT,
+            max_depth=DEPTH, sample_count=SPP, name=f"smoke_{engine}",
+            output_dir=OUT_DIR,
+            meshes=[MeshConfig("builtin:cornell_bunny", 1.0,
+                               (0.0, 0.0, 0.0), 2)])
+        t0 = time.perf_counter()
+        r = Renderer(cfg, device="cuda")
+        say("main", f"{engine}: Renderer ready in "
+            f"{time.perf_counter() - t0:.1f} s: {r.scene.num_triangles} "
+            f"triangles, {WIDTH}x{HEIGHT}, depth {DEPTH}, {SPP} spp")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        r.render(progressive=False, verbose=False)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches = dict(kernels.launches)
+        acc = r.accum
+        bad = int((~torch.isfinite(acc)).any(dim=1).sum()
+                  + (acc < 0).any(dim=1).sum())
+        fb = r.framebuffer()
+        nonblack = float((fb.max(axis=-1) > 0.0).mean())
+        rays, phase = r.metrics.rays_traced, r.metrics.render_seconds
+        # Mrays/s is per second of the render phase (RenderMetrics); the
+        # wall time also holds the final image's tonemap on the host
+        say("main", f"{engine}: {rays} rays in a {phase:.3f} s render "
+            f"phase = {rays / phase / 1e6:.3f} Mrays/s ({card}); "
+            f"{secs:.3f} s with the final image; peak memory "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB; launches "
+            f"{launches}; non-black {nonblack:.4f}; bad pixels {bad}")
+        check(fb.shape == (HEIGHT, WIDTH, 3), f"framebuffer shape {fb.shape}")
+        check(bad == 0, f"{engine}: {bad} NaN/Inf/negative pixels")
+        check(nonblack > 0.9, f"{engine}: only {nonblack:.3f} of pixels "
+              "non-black")
+        check(launches["render_unidirectional"] == SPP,
+              f"{engine}: the megakernel launched "
+              f"{launches['render_unidirectional']} times for {SPP} samples")
+        r.save_final(0)
+        if engine == "mega":
+            main_launches = launches
 
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
-         "launches": launches[name],
+         "launches": main_launches[name],
          "max_abs_err": stats[name]["max_abs_err"],
-         "ms": stats[name]["ms"], "plain_ms": stats[name]["plain_ms"]}
+         "ms": stats[name]["ms"], "plain_ms": stats[name]["plain_ms"],
+         "bound_ms": stats[name]["bound"][0],
+         "bound_by": stats[name]["bound"][1], "library_ms": None}
         for name, src, rep in KERNELS]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}))
+        "count": 1}}))
     return 0
 
 

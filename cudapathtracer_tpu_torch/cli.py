@@ -42,11 +42,11 @@ def main(argv=None) -> int:
         ap.error("--samples-per-dispatch: only 1 is supported (each sample "
                  "is one dispatch)")
 
-    from cudapathtracer_tpu.scene.bvh import bvh_stats
-    from cudapathtracer_tpu.utils.config import load_config
     from cudapathtracer_tpu_torch.driver import (Renderer, check_supported,
                                                  mesh_from_config,
                                                  resolve_device)
+    from cudapathtracer_tpu_torch.scene.bvh import bvh_stats
+    from cudapathtracer_tpu_torch.utils.config import load_config
 
     cfg = load_config(args.config)
     if args.integrator:

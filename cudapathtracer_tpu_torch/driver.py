@@ -1,10 +1,12 @@
 """Render driver: config -> scene -> progressive render -> image files.
 
 Counterpart of cudapathtracer_tpu/driver.py for the configurations this
-package covers: integrator UNIDIRECTIONAL with `Engine: classic`. Every
-other integrator or engine raises NotImplementedError naming its ROADMAP
-item; the default mega engine is never replaced by classic, since the two
-are different noise realisations with different goldens.
+package covers: integrator UNIDIRECTIONAL with either engine, the default
+`Engine: mega` (models/unidirectional_mega.py) or `Engine: classic`
+(models/unidirectional.py). The two are one estimator with different draw
+schedules, so different noise realisations with different goldens: one is
+never rendered when the other was asked for. Every other integrator raises
+NotImplementedError naming its ROADMAP item.
 
 The Renderer runs on an explicit device. "cuda" needs a CUDA build of
 PyTorch and a card and raises otherwise; the CPU is used only when asked
@@ -21,18 +23,19 @@ import time
 import numpy as np
 import torch
 
-from cudapathtracer_tpu.scene import builtin
-from cudapathtracer_tpu.utils.config import RenderConfig
-from cudapathtracer_tpu.utils.metrics import RenderMetrics
-from cudapathtracer_tpu.utils.obj import MeshData, load_obj
 from cudapathtracer_tpu_torch.models import unidirectional as uni_mod
+from cudapathtracer_tpu_torch.models import unidirectional_mega as mega_mod
+from cudapathtracer_tpu_torch.scene import builtin
 from cudapathtracer_tpu_torch.scene.camera import Camera
 from cudapathtracer_tpu_torch.scene.materials import (apply_material_configs,
                                                       builtin_materials)
 from cudapathtracer_tpu_torch.scene.scene import build_scene
 from cudapathtracer_tpu_torch.scene.textures import reference_atlas
 from cudapathtracer_tpu_torch.utils import rng
+from cudapathtracer_tpu_torch.utils.config import RenderConfig
 from cudapathtracer_tpu_torch.utils.image import Image, scrub
+from cudapathtracer_tpu_torch.utils.metrics import RenderMetrics
+from cudapathtracer_tpu_torch.utils.obj import MeshData, load_obj
 
 BUILTIN_SCENES = {
     "builtin:cornell": builtin.cornell_box,
@@ -41,9 +44,11 @@ BUILTIN_SCENES = {
     "builtin:cornell_bunny": builtin.cornell_with_bunny,
 }
 
+# UNIDIRECTIONAL's engines -> their render_sample
+_ENGINES = {"mega": mega_mod.render_sample, "classic": uni_mod.render_sample}
+
 # what is not ported yet, by ROADMAP item
 _NOT_PORTED = {
-    ("UNIDIRECTIONAL", "mega"): "K5/M6 (the per-path megakernel)",
     "NAIVE_UNIDIRECTIONAL": "M7 (naive)",
     "BIDIRECTIONAL": "M9 (BDPT)",
     "VCM": "M10 (photon family)",
@@ -65,15 +70,14 @@ def resolve_device(device) -> torch.device:
 def check_supported(cfg: RenderConfig) -> None:
     """Raise NotImplementedError unless the configuration is ported."""
     integ, engine = cfg.integrator, cfg.engine
-    if integ == "UNIDIRECTIONAL" and engine == "classic":
+    if integ == "UNIDIRECTIONAL" and engine in _ENGINES:
         return
-    item = _NOT_PORTED.get((integ, engine)) or _NOT_PORTED.get(integ)
-    if item is None:
-        item = f"engine {engine!r}"
+    item = _NOT_PORTED.get(integ) or f"engine {engine!r}"
     raise NotImplementedError(
         f"integrator {integ} with engine {engine!r} is not ported to "
         f"cudapathtracer_tpu_torch yet (ROADMAP {item}); the port covers "
-        "UNIDIRECTIONAL with 'Engine: classic'")
+        "UNIDIRECTIONAL with 'Engine: mega' (the default) or "
+        "'Engine: classic'")
 
 
 def mesh_from_config(cfg: RenderConfig, render_number: int = 0) -> MeshData:
@@ -155,7 +159,7 @@ class Renderer:
     def render_sample(self, sample_idx: int):
         """One sample of every pixel -> (radiance [P,3], rays)."""
         cfg = self.cfg
-        return uni_mod.render_sample(
+        return _ENGINES[cfg.engine](
             self.scene, self.camera, self.key, sample_idx, self.px, self.py,
             max_depth=max(cfg.max_depth, 1),
             sample_environment=cfg.sample_environment)

@@ -1,23 +1,30 @@
 """The port's hand-written CUDA kernels: build, load, launch, count.
 
-Sources live in kernels/csrc/*.cu (sm_90a). They are compiled on first use
-with nvcc into one shared library with a plain C interface,
-build/torch_ext/libtpt_torch_kernels.so, and called through ctypes on
-PyTorch's current stream; the library is rebuilt whenever a source is newer.
-Nothing is compiled when this module is imported. The traversal's stack
-depth is fixed at build time: the default 16 is the library above, and any
-other depth (stack_d=) builds its own libtpt_torch_kernels_stack<d>.so.
+Sources live in kernels/csrc (sm_90a): one .cu per launchable kernel family
+and one .cuh of device code per TPU kernel, shared between them (K1
+traverse8.cuh, K7 camera.cuh, K2 shade.cuh, K3 bsdf.cuh, K4 nee.cuh, K6
+threefry.cuh; the per-path megakernel K5, uni_mega.cu, calls them all).
+They are compiled on first use with nvcc, one process per source, all
+started together, and linked into one shared library with a plain C
+interface, build/torch_ext/libtpt_torch_kernels.so, called through ctypes
+on PyTorch's current stream; the library is rebuilt whenever a source or
+header is newer. Nothing is compiled when this module is imported. The
+traversal's stack depth is fixed at build time: the default 16 is the
+library above, and any other depth (stack_d=) builds its own
+libtpt_torch_kernels_stack<d>.so.
 
 Each wrapper below checks its tensors (device, dtype, shape, contiguity),
 allocates the outputs, launches, raises if the launch was refused, and then
 adds one to its entry of `launches`. The launch counters are the package's
 only global state; `reset_launches()` zeroes them.
 
-Compile flags: -O3 and -fmad=false, no --use_fast_math. -fmad=false keeps
-every a*b+c rounded twice, as the plain PyTorch versions (one operator per
-op) and XLA:CPU round it, so the traversal kernel returns the same triangle
-ids and t values as its plain version instead of differing at triangle
-edges; the kernels are bound by memory latency, not by FMA throughput.
+Compile flags: -O3 and -fmad=false, no --use_fast_math (so sqrtf and
+division are correctly rounded). -fmad=false keeps every a*b+c rounded
+twice, as the plain PyTorch versions (one operator per op) and XLA:CPU
+round it, so the traversal kernel returns the same triangle ids and t
+values as its plain version instead of differing at triangle edges, and
+the shading arithmetic follows the plain version; the kernels are bound by
+memory latency, not by FMA throughput.
 """
 
 from __future__ import annotations
@@ -25,24 +32,28 @@ from __future__ import annotations
 import ctypes
 import os
 import subprocess
+import tempfile
 import threading
 
 import torch
 
 CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
-SOURCES = ("rng.cu", "camera.cu", "traverse8.cu")
-HEADERS = ("threefry.cuh",)
+SOURCES = ("rng.cu", "camera.cu", "traverse8.cu", "uni_mega.cu")
+HEADERS = ("threefry.cuh", "camera.cuh", "traverse8.cuh", "shade.cuh",
+           "bsdf.cuh", "nee.cuh")
 _REPO_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 BUILD_DIR = os.path.join(_REPO_ROOT, "build", "torch_ext")
 LIBRARY = os.path.join(BUILD_DIR, "libtpt_torch_kernels.so")
-STACK_D = 16      # traverse8.cu's default stack depth
+STACK_D = 16      # traverse8.cuh's default stack depth
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-fmad=false", "-shared", "-Xcompiler", "-fPIC")
+              "-fmad=false", "-Xcompiler", "-fPIC")
+SHADE_EVAL_COLS = 38   # uni_mega.cu kShadeEvalCols
+SCHEDULES = {"classic": 0, "mega": 1}
 
 # kernel name -> launches since the last reset_launches()
 launches = {"closest_hit8": 0, "shadow_factor8": 0, "uniform_id": 0,
-            "generate_rays": 0}
+            "generate_rays": 0, "render_unidirectional": 0, "shade_eval": 0}
 
 _lock = threading.Lock()
 _libs = {}        # stack depth -> loaded library
@@ -71,28 +82,53 @@ def _library(stack_d: int) -> str:
 
 
 def build(verbose: bool = False, stack_d: int = STACK_D) -> str:
-    """Compile the kernel library if it is missing or older than a source.
-    Returns its path."""
+    """Compile the kernel library if it is missing or older than a source
+    or header: one nvcc per source, all at once, then one link. With
+    verbose it always builds, and ptxas's report of each kernel's
+    registers and spills is printed and kept beside the library in
+    <library>.ptxas.txt. Returns the library's path."""
     if not 7 <= stack_d <= 64:
         raise ValueError(f"stack_d {stack_d}: a row pushes up to 7 entries, "
                          "and the stack lives in local memory (<= 64)")
     lib = _library(stack_d)
     srcs = [os.path.join(CSRC, f) for f in SOURCES + HEADERS]
-    if (os.path.exists(lib) and all(
+    if (not verbose and os.path.exists(lib) and all(
             os.path.getmtime(lib) >= os.path.getmtime(s) for s in srcs)):
         return lib
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{lib}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, f"-DTPT_STACK_D={stack_d}", "-o", tmp,
-           *(os.path.join(CSRC, f) for f in SOURCES)]
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmpdir:
+        procs = []
+        for src in SOURCES:
+            obj = os.path.join(tmpdir, src + ".o")
+            cmd = [nvcc, *NVCC_FLAGS, f"-DTPT_STACK_D={stack_d}", "-c",
+                   "-o", obj, os.path.join(CSRC, src)]
+            if verbose:
+                cmd.insert(1, "-Xptxas=-v")
+            procs.append((src, obj, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True)))
+        outs, failed = {}, []
+        for src, _, proc in procs:
+            outs[src] = proc.communicate(timeout=600)[0]
+            if proc.returncode != 0:
+                failed.append(src)
+        if failed:
+            raise RuntimeError("nvcc failed on " + ", ".join(failed) + ":\n"
+                               + "\n".join(outs[f] for f in failed))
+        tmp = f"{lib}.{os.getpid()}.tmp"
+        res = subprocess.run([nvcc, "-shared", "-o", tmp,
+                              *(obj for _, obj, _ in procs)],
+                             capture_output=True, text=True, timeout=600)
+        if res.returncode != 0:
+            raise RuntimeError("nvcc link failed:\n" + res.stdout
+                               + res.stderr)
+        os.replace(tmp, lib)
     if verbose:
-        cmd.insert(1, "-Xptxas=-v")
-    res = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
-    if res.returncode != 0:
-        raise RuntimeError("nvcc failed:\n" + res.stdout + res.stderr)
-    if verbose:
-        print(res.stdout + res.stderr)
-    os.replace(tmp, lib)
+        report = "\n".join(outs.values())
+        with open(lib + ".ptxas.txt", "w") as f:
+            f.write(report)
+        print(report)
     return lib
 
 
@@ -111,10 +147,17 @@ def _load(stack_d: int = STACK_D):
         lib.tpt_generate_rays.argtypes = [p, p, p, p, p, i64, p, p, p]
         lib.tpt_closest_hit8.restype = ctypes.c_int
         lib.tpt_closest_hit8.argtypes = [p, p, p, p, p, p, i64,
-                                         p, p, p, p, p, p]
+                                         p, p, p, p, p, p, p]
         lib.tpt_shadow_factor8.restype = ctypes.c_int
         lib.tpt_shadow_factor8.argtypes = [p, p, i32, p, p, p, p, p, i64,
-                                           p, p]
+                                           p, p, p]
+        lib.tpt_render_unidirectional.restype = ctypes.c_int
+        lib.tpt_render_unidirectional.argtypes = [
+            p, p, i32, p, i32, p, p, p, p, i64, p, p, i32, i32, i32, i32,
+            i32, p, p, p, p]
+        lib.tpt_shade_eval.restype = ctypes.c_int
+        lib.tpt_shade_eval.argtypes = [p, i32, p, i32, p, p, p, p, p, p, p,
+                                       p, p, p, i64, p, p, p]
         _libs[stack_d] = lib
         return lib
 
@@ -208,17 +251,26 @@ def _ray_args(table, o, d, max_t, skip_tri, active):
     return dev, n
 
 
+def _counts(want: bool, n: int, dev):
+    return torch.empty(n, dtype=torch.int32, device=dev) if want else None
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
 def closest_hit8(table, o, d, max_t, skip_tri, active, stack_d=STACK_D,
-                 with_restarts=False):
+                 with_restarts=False, with_rows=False):
     """K1 closest (traverse8.cu) -> (t, tri, u, v), each [N]; with
-    with_restarts, also each ray's number of restarts from the root."""
+    with_restarts, also each ray's number of restarts from the root, and
+    with with_rows, then the number of BVH8 rows it visited."""
     dev, n = _ray_args(table, o, d, max_t, skip_tri, active)
     t = torch.empty(n, dtype=torch.float32, device=dev)
     tri = torch.empty(n, dtype=torch.int32, device=dev)
     u = torch.empty(n, dtype=torch.float32, device=dev)
     v = torch.empty(n, dtype=torch.float32, device=dev)
-    restarts = (torch.empty(n, dtype=torch.int32, device=dev)
-                if with_restarts else None)
+    restarts = _counts(with_restarts, n, dev)
+    rows = _counts(with_rows, n, dev)
     lib = _load(stack_d)
     with torch.cuda.device(dev):
         _launch("closest_hit8", lib, lib.tpt_closest_hit8, table.data_ptr(),
@@ -226,20 +278,22 @@ def closest_hit8(table, o, d, max_t, skip_tri, active, stack_d=STACK_D,
                 skip_tri.data_ptr(),
                 None if active is None else active.data_ptr(), n,
                 t.data_ptr(), tri.data_ptr(), u.data_ptr(), v.data_ptr(),
-                None if restarts is None else restarts.data_ptr(),
-                _stream(dev))
-    return (t, tri, u, v, restarts) if with_restarts else (t, tri, u, v)
+                _ptr(restarts), _ptr(rows), _stream(dev))
+    out = (t, tri, u, v)
+    return out + tuple(x for x in (restarts, rows) if x is not None)
 
 
 def shadow_factor8(table, tri_f32, o, d, max_t, skip_tri, active,
-                   stack_d=STACK_D):
-    """K1 shadow (traverse8.cu) -> transmission scale [N,3]."""
+                   stack_d=STACK_D, with_rows=False):
+    """K1 shadow (traverse8.cu) -> transmission scale [N,3]; with
+    with_rows, (scale, each ray's number of BVH8 rows visited)."""
     dev, n = _ray_args(table, o, d, max_t, skip_tri, active)
     if tri_f32.dim() != 2 or tri_f32.shape[1] not in (78, 94):
         raise ValueError(f"tri_f32 must be [T,78|94], got "
                          f"{tuple(tri_f32.shape)}")
     _check(tri_f32, "tri_f32", torch.float32, tri_f32.shape, dev)
     scale = torch.empty((n, 3), dtype=torch.float32, device=dev)
+    rows = _counts(with_rows, n, dev)
     lib = _load(stack_d)
     with torch.cuda.device(dev):
         _launch("shadow_factor8", lib, lib.tpt_shadow_factor8,
@@ -247,5 +301,99 @@ def shadow_factor8(table, tri_f32, o, d, max_t, skip_tri, active,
                 o.data_ptr(), d.data_ptr(), max_t.data_ptr(),
                 skip_tri.data_ptr(),
                 None if active is None else active.data_ptr(), n,
-                scale.data_ptr(), _stream(dev))
-    return scale
+                scale.data_ptr(), _ptr(rows), _stream(dev))
+    return scale if rows is None else (scale, rows)
+
+
+def _scene_args(scene, dev):
+    """Check the scene blocks the per-path kernels read; returns them."""
+    blocks = dict(tri_f32=scene.tri_f32, light_f32=scene.light_f32,
+                  textures=scene.textures, medium=scene.medium_f32)
+    for name, t in blocks.items():
+        if t.dim() != 2:
+            raise ValueError(f"{name} must be 2-D, got {tuple(t.shape)}")
+        _check(t, name, torch.float32, t.shape, dev)
+    cols = {"tri_f32": (78, 94), "light_f32": (17,), "textures": (3,),
+            "medium": (4,)}
+    for name, ok in cols.items():
+        if blocks[name].shape[1] not in ok:
+            raise ValueError(f"{name}: {blocks[name].shape[1]} columns, "
+                             f"expected one of {ok}")
+    return blocks
+
+
+def render_unidirectional(scene, px: torch.Tensor, py: torch.Tensor,
+                          cam_params: list, keys: list, *, max_depth: int,
+                          use_mis: bool, sample_environment: bool,
+                          schedule: str, air_priority: int,
+                          with_rows: bool = False):
+    """K5 (uni_mega.cu): one sample of the unidirectional path tracer for
+    the pixels (px, py) [P] int32, one thread per path. cam_params: the 19
+    camera floats; keys: 28 uint32 words (8 camera draw-key words, the
+    sample key pair, the 9 mega draw-key pairs). schedule: "classic" or
+    "mega". -> (radiance [P,3] f32, rays [P] i32), and with with_rows each
+    path's count of BVH8 rows visited [P] i32."""
+    dev = _cuda_device(px)
+    n = px.shape[0]
+    _check(px, "px", torch.int32, (n,), dev)
+    _check(py, "py", torch.int32, (n,), dev)
+    tbl = scene.bvh8_table
+    if tbl.dim() != 2 or tbl.shape[1] != 96:
+        raise ValueError(f"bvh8 table must be [R,96], got {tuple(tbl.shape)}")
+    _check(tbl, "table", torch.float32, tbl.shape, dev)
+    b = _scene_args(scene, dev)
+    if len(cam_params) != 19 or len(keys) != 28:
+        raise ValueError("render_unidirectional: 19 camera floats and 28 "
+                         "key words")
+    if schedule not in SCHEDULES:
+        raise ValueError(f"schedule {schedule!r}: one of {sorted(SCHEDULES)}")
+    li = torch.empty((n, 3), dtype=torch.float32, device=dev)
+    rays = torch.empty(n, dtype=torch.int32, device=dev)
+    rows = _counts(with_rows, n, dev)
+    cparams = (ctypes.c_float * 19)(*cam_params)
+    ckeys = (ctypes.c_uint32 * 28)(*(k & 0xFFFFFFFF for k in keys))
+    lib = _load()
+    with torch.cuda.device(dev):
+        _launch("render_unidirectional", lib, lib.tpt_render_unidirectional,
+                tbl.data_ptr(), b["tri_f32"].data_ptr(),
+                b["tri_f32"].shape[1], b["light_f32"].data_ptr(),
+                scene.num_lights, b["textures"].data_ptr(),
+                b["medium"].data_ptr(), px.data_ptr(), py.data_ptr(), n,
+                ctypes.addressof(cparams), ctypes.addressof(ckeys),
+                max_depth, int(use_mis), int(sample_environment),
+                SCHEDULES[schedule], air_priority, li.data_ptr(),
+                rays.data_ptr(), _ptr(rows), _stream(dev))
+    return (li, rays) if rows is None else (li, rays, rows)
+
+
+def shade_eval(scene, o, d, t, tri, u, v, ids, eta_i, keys: list):
+    """Test entry of uni_mega.cu: the K2-K4 device functions once per hit
+    (o, d [N,3]; t, u, v, eta_i [N] f32; tri, ids [N] i32) with the mega
+    draw keys (18 uint32 words, draws 0-8) -> [N, SHADE_EVAL_COLS] f32, the
+    columns of models/unidirectional_mega.shade_eval_plain."""
+    dev = _cuda_device(o)
+    n = o.shape[0]
+    _check(o, "o", torch.float32, (n, 3), dev)
+    _check(d, "d", torch.float32, (n, 3), dev)
+    for name, x, dt in (("t", t, torch.float32), ("tri", tri, torch.int32),
+                        ("u", u, torch.float32), ("v", v, torch.float32),
+                        ("ids", ids, torch.int32),
+                        ("eta_i", eta_i, torch.float32)):
+        _check(x, name, dt, (n,), dev)
+    b = _scene_args(scene, dev)
+    if len(keys) != 18:
+        raise ValueError("shade_eval: 18 key words")
+    out = torch.empty((n, SHADE_EVAL_COLS), dtype=torch.float32, device=dev)
+    ckeys = (ctypes.c_uint32 * 28)(*([0] * 10), *(k & 0xFFFFFFFF
+                                                  for k in keys))
+    lib = _load()
+    with torch.cuda.device(dev):
+        _launch("shade_eval", lib, lib.tpt_shade_eval,
+                b["tri_f32"].data_ptr(), b["tri_f32"].shape[1],
+                b["light_f32"].data_ptr(), scene.num_lights,
+                b["textures"].data_ptr(), b["medium"].data_ptr(),
+                o.data_ptr(), d.data_ptr(), t.data_ptr(), tri.data_ptr(),
+                u.data_ptr(), v.data_ptr(), ids.data_ptr(),
+                eta_i.data_ptr(), n, ctypes.addressof(ckeys), out.data_ptr(),
+                _stream(dev))
+    return out

@@ -1,0 +1,86 @@
+// K7 device code: one pixel's primary ray (pinhole and thin lens).
+//
+// Replaces cudapathtracer_tpu/scene/camera.py:Camera.generate_rays (lines
+// 81-110) and its lane-major twin ops/lanemajor.py:generate_raysT (line
+// 677), which the mega engine calls on refill: four id-keyed draws per pixel
+// (0, 1: +-0.5 * aa_jitter tent jitter; 2, 3: lens disk), the focal-plane
+// point, the lens offset gated on aperture > 0, and the normalized
+// direction. camera.cu launches it over a batch of pixels; uni_mega.cu calls
+// it at the start of each path.
+//
+// The arithmetic follows the plain PyTorch version operation for operation
+// (every including file is built with -fmad=false), so the two agree to
+// rounding; rsqrtf mirrors torch.rsqrt on the GPU.
+#pragma once
+
+#include <cstdint>
+
+#include "threefry.cuh"
+
+namespace tpt {
+
+struct CameraParams {
+  float origin[3], right[3], up[3], forward[3];
+  float fov_scale, aperture, focal_dist, aspect, width, height, aa_jitter;
+  uint32_t keys[8];  // (k0, k1) of draws 0, 1, 2, 3
+};
+
+// params: origin[3], right[3], up[3], forward[3], fov_scale, aperture,
+// focal_dist, aspect, width, height, aa_jitter (19 floats); keys: 8 words.
+__host__ __device__ inline CameraParams make_camera(const float* params,
+                                                    const uint32_t* keys) {
+  CameraParams c;
+  for (int k = 0; k < 3; ++k) {
+    c.origin[k] = params[k];
+    c.right[k] = params[3 + k];
+    c.up[k] = params[6 + k];
+    c.forward[k] = params[9 + k];
+  }
+  c.fov_scale = params[12];
+  c.aperture = params[13];
+  c.focal_dist = params[14];
+  c.aspect = params[15];
+  c.width = params[16];
+  c.height = params[17];
+  c.aa_jitter = params[18];
+  for (int k = 0; k < 8; ++k) c.keys[k] = keys[k];
+  return c;
+}
+
+// The primary ray of pixel (px, py) with draws keyed by id.
+__device__ __forceinline__ void camera_ray(const CameraParams& c, float px,
+                                           float py, uint32_t id,
+                                           float org[3], float dir[3]) {
+  const float jx = uniform_draw_key(c.keys[0], c.keys[1], id) - 0.5f;
+  const float jy = uniform_draw_key(c.keys[2], c.keys[3], id) - 0.5f;
+  const float u =
+      (2.0f * (px + jx * c.aa_jitter) / c.width - 1.0f) * c.aspect *
+      c.fov_scale;
+  const float v =
+      (2.0f * (py + jy * c.aa_jitter) / c.height - 1.0f) * c.fov_scale;
+  const float uf = u * c.focal_dist;
+  const float vf = v * c.focal_dist;
+
+  const float r_rnd = uniform_draw_key(c.keys[4], c.keys[5], id);
+  const float theta =
+      6.28318530717958647692f * uniform_draw_key(c.keys[6], c.keys[7], id);
+  const float radius = c.aperture * sqrtf(r_rnd);
+  const float rc = radius * cosf(theta);
+  const float rs = radius * sinf(theta);
+  const bool lens_on = c.aperture > 0.0f;
+
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    const float focal = c.origin[k] + c.right[k] * uf + c.up[k] * vf +
+                        c.forward[k] * c.focal_dist;
+    const float lens = lens_on ? c.right[k] * rc + c.up[k] * rs : 0.0f;
+    org[k] = c.origin[k] + lens;
+    dir[k] = focal - org[k];
+  }
+  const float l2 = dir[0] * dir[0] + dir[1] * dir[1] + dir[2] * dir[2];
+  const float inv = rsqrtf(fmaxf(l2, 1e-20f));
+#pragma unroll
+  for (int k = 0; k < 3; ++k) dir[k] = dir[k] * inv;
+}
+
+}  // namespace tpt

@@ -1,88 +1,20 @@
-// K1: BVH8 closest-hit and any-hit shadow traversal.
+// K1: BVH8 closest-hit and any-hit shadow traversal, one launch per batch
+// of rays.
 //
 // Replaces cudapathtracer_tpu/ops/traverse8.py:closest_hit8 (line 288) and
-// shadow_factor8 (line 354) with their step helpers _pop, _node_stage,
-// _sort8_keys, _push_block, _leaf_tris, _leaf_closest and _leaf_shadow. The
-// JAX version advanced a whole wavefront one row per lockstep step, with the
-// stack as a [16, N] array shifted per push; here one thread owns one ray
-// and loops until its stack drains.
-//
-// Table: scene/bvh8.py's hybrid CBVH rows, [R, 96] float32: [0:48] child
-// boxes (minx[8] miny[8] minz[8] maxx[8] maxy[8] maxz[8]), [48] child base
-// (int bits), [50:86] four inline triangles (v0, e1, e2), [86:90] their ids
-// (int bits, bit 30 = MAT_LEAF, -1 = empty).
-//
-// Bound: memory latency. Each step is one dependent 384-byte row fetch
-// (then a child row that depends on it), and rays diverge, so neighbouring
-// threads read unrelated rows; the arithmetic per row (8 slab tests, a
-// 19-comparator sort, 4 Moller-Trumbore tests) is small beside it.
-// Design: the row is read with 16-byte loads through the read-only path,
-// the 8 child keys are sorted in registers by the same 19-comparator
-// network, and the stack is a ring of kStackD entries in local memory, so an
-// overflow keeps the newest entries exactly as the JAX shift did. kStackD is
-// 16, the JAX default; -DTPT_STACK_D=<n> builds another depth, as the JAX
-// package's TPT_STACK_D does (tests build 7 to drive the overflow path).
-// The traversal order is the JAX one, so the results are the same ids, not
-// just the same closest distance:
-//  * child key = (tmin bits, negatives flipped, & ~7) | slot, ascending;
-//    enter the nearest child directly, push the others far to near;
-//  * overflow marks the ray; once its stack drains it restarts from the root
-//    (closest: keeping t_best; shadow: scale reset to 1), at most 3 times;
-//  * inline triangles: t < t_cut strictly, tid != skip_tri; the row's winner
-//    is the smallest (t bits & ~3) | slot, so near-ties go to the first slot;
-//  * shadow: per row, the product over MAT_LEAF triangles of
-//    albedo * transmission * (1 - Schlick(interpolated normal)); any opaque
-//    hit, or a product whose max falls below 0.01, blocks the ray.
-// FMA: the library is built with -fmad=false (see kernels/__init__.py), so
-// each product is rounded before its sum as in the plain PyTorch version and
-// XLA:CPU; with contraction on, Moller-Trumbore's u, v and t move by an ulp
-// and rays through a shared edge can pick the other triangle.
+// shadow_factor8 (line 354). The per-ray traversal lives in traverse8.cuh
+// (tpt::trace8), which the per-path megakernel (uni_mega.cu) calls too;
+// this file only maps one thread to one ray of the batch and writes its
+// result. What bounds the traversal and how its design answers that is in
+// traverse8.cuh.
 
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
+#include "traverse8.cuh"
+
 namespace {
-
-constexpr int kRowW = 96;
-constexpr int kTriOff = 50;
-constexpr int kLeafTris = 4;
-#ifndef TPT_STACK_D
-#define TPT_STACK_D 16
-#endif
-constexpr int kStackD = TPT_STACK_D;
-static_assert(kStackD >= 7, "one row pushes up to 7 entries");
-constexpr int kMaxRestarts = 3;
-constexpr int32_t kKeyInvalid = 0x7FFFFFFF;
-constexpr int32_t kLeafMatFlag = 1 << 30;
-constexpr float kDetEps = 1e-12f;
-
-__device__ __forceinline__ float safe_inv(float d) {
-  const float s = d >= 0.0f ? 1.0f : -1.0f;
-  return s / fmaxf(fabsf(d), 1e-30f);
-}
-
-__device__ __forceinline__ void cswap(int32_t& a, int32_t& b) {
-  const int32_t lo = min(a, b), hi = max(a, b);
-  a = lo;
-  b = hi;
-}
-
-// Batcher odd-even merge network for 8 keys (traverse8.py _SORT8).
-__device__ __forceinline__ void sort8(int32_t k[8]) {
-  cswap(k[0], k[1]); cswap(k[2], k[3]); cswap(k[4], k[5]); cswap(k[6], k[7]);
-  cswap(k[0], k[2]); cswap(k[1], k[3]); cswap(k[4], k[6]); cswap(k[5], k[7]);
-  cswap(k[1], k[2]); cswap(k[5], k[6]);
-  cswap(k[0], k[4]); cswap(k[1], k[5]); cswap(k[2], k[6]); cswap(k[3], k[7]);
-  cswap(k[2], k[4]); cswap(k[3], k[5]);
-  cswap(k[1], k[2]); cswap(k[3], k[4]); cswap(k[5], k[6]);
-}
-
-struct Tri {
-  float t, u, v;
-  int32_t tid, raw;
-  bool ok;
-};
 
 template <bool kShadow>
 __global__ void __launch_bounds__(128)
@@ -95,210 +27,26 @@ traverse8_kernel(const float* __restrict__ table,
                  float* __restrict__ t_out, int32_t* __restrict__ tri_out,
                  float* __restrict__ u_out, float* __restrict__ v_out,
                  float* __restrict__ scale_out,
-                 int32_t* __restrict__ restarts_out) {
+                 int32_t* __restrict__ restarts_out,
+                 int32_t* __restrict__ rows_out) {
   const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x +
                     threadIdx.x;
   if (i >= n) return;
-  const float ox = o[3 * i], oy = o[3 * i + 1], oz = o[3 * i + 2];
-  const float dx = d[3 * i], dy = d[3 * i + 1], dz = d[3 * i + 2];
-  const float ix = safe_inv(dx), iy = safe_inv(dy), iz = safe_inv(dz);
-  const int32_t skip_tri = skip[i];
-
-  float t_cut = max_t[i];  // closest: running t_best; shadow: max_t
-  int32_t best_tri = -1;
-  float best_u = 0.0f, best_v = 0.0f;
-  float s0 = 1.0f, s1 = 1.0f, s2 = 1.0f;
-
-  int32_t direct = (active == nullptr || active[i]) ? 0 : -1;
-  int top = 0;        // live entries (<= kStackD)
-  uint32_t sp = 0u;   // ring write position
-  int lostc = 0;      // bit 0: pending loss; bits 1+: restarts
-  int32_t stack[kStackD];
-
-  while (direct >= 0 || top > 0) {
-    int32_t entry;
-    if (direct >= 0) {
-      entry = direct;
-    } else {
-      --sp;
-      entry = stack[sp % kStackD];
-      --top;
-    }
-    const float* row = table + static_cast<int64_t>(entry) * kRowW;
-    const float4* row4 = reinterpret_cast<const float4*>(row);
-
-    // ---- child stage: slab-test 8 slots, sort packed keys
-    float b[48];
-#pragma unroll
-    for (int q = 0; q < 12; ++q) {
-      const float4 w = __ldg(row4 + q);
-      b[4 * q] = w.x;
-      b[4 * q + 1] = w.y;
-      b[4 * q + 2] = w.z;
-      b[4 * q + 3] = w.w;
-    }
-    const float4 meta = __ldg(row4 + 12);  // [48:52]: child base, pad, tri0
-    const int32_t base = __float_as_int(meta.x);
-    int32_t key[8];
-#pragma unroll
-    for (int s = 0; s < 8; ++s) {
-      const float t1x = (b[s] - ox) * ix, t2x = (b[24 + s] - ox) * ix;
-      const float t1y = (b[8 + s] - oy) * iy, t2y = (b[32 + s] - oy) * iy;
-      const float t1z = (b[16 + s] - oz) * iz, t2z = (b[40 + s] - oz) * iz;
-      const float tmin =
-          fmaxf(fmaxf(fminf(t1x, t2x), fminf(t1y, t2y)), fminf(t1z, t2z));
-      const float tmax =
-          fminf(fminf(fmaxf(t1x, t2x), fmaxf(t1y, t2y)), fmaxf(t1z, t2z));
-      const bool hit = (tmax >= tmin) && (tmax > 0.0f) && (tmin < t_cut);
-      int32_t tb = __float_as_int(tmin);
-      if (tb < 0) tb ^= 0x7FFFFFFF;
-      key[s] = hit ? ((tb & ~7) | s) : kKeyInvalid;
-    }
-    sort8(key);
-    const int32_t new_direct =
-        key[0] != kKeyInvalid ? base + (key[0] & 7) : -1;
-    int count = 0;
-#pragma unroll
-    for (int s = 1; s < 8; ++s) count += key[s] != kKeyInvalid;
-    // push deferred key[1..count] far to near: key[1] ends on top
-#pragma unroll
-    for (int s = 7; s >= 1; --s) {
-      if (s <= count) {
-        stack[sp % kStackD] = base + (key[s] & 7);
-        ++sp;
-      }
-    }
-    if (top + count > kStackD) lostc |= 1;
-    top = min(top + count, kStackD);
-
-    // ---- inline-triangle stage: Moller-Trumbore on up to 4 triangles
-    float tv[40];
-    const float2* row2 = reinterpret_cast<const float2*>(row + kTriOff);
-#pragma unroll
-    for (int q = 0; q < 20; ++q) {
-      const float2 w = __ldg(row2 + q);
-      tv[2 * q] = w.x;
-      tv[2 * q + 1] = w.y;
-    }
-    Tri tr[kLeafTris];
-#pragma unroll
-    for (int j = 0; j < kLeafTris; ++j) {
-      const float* p = tv + 9 * j;
-      const float v0x = p[0], v0y = p[1], v0z = p[2];
-      const float e1x = p[3], e1y = p[4], e1z = p[5];
-      const float e2x = p[6], e2y = p[7], e2z = p[8];
-      const int32_t raw = __float_as_int(tv[36 + j]);
-      const int32_t tid = raw < 0 ? -1 : (raw & ~kLeafMatFlag);
-      const float hx = dy * e2z - dz * e2y;
-      const float hy = dz * e2x - dx * e2z;
-      const float hz = dx * e2y - dy * e2x;
-      const float a = hx * e1x + hy * e1y + hz * e1z;
-      const bool ok_det = fabsf(a) >= kDetEps;
-      const float f = 1.0f / (ok_det ? a : 1.0f);
-      const float sx = ox - v0x, sy = oy - v0y, sz = oz - v0z;
-      const float u = f * (sx * hx + sy * hy + sz * hz);
-      const float qx = sy * e1z - sz * e1y;
-      const float qy = sz * e1x - sx * e1z;
-      const float qz = sx * e1y - sy * e1x;
-      const float v = f * (dx * qx + dy * qy + dz * qz);
-      const float t = f * (e2x * qx + e2y * qy + e2z * qz);
-      tr[j].t = t;
-      tr[j].u = u;
-      tr[j].v = v;
-      tr[j].tid = tid;
-      tr[j].raw = raw;
-      tr[j].ok = ok_det && u >= 0.0f && v >= 0.0f && u + v <= 1.0f &&
-                 t > 0.0f && tid >= 0 && t < t_cut && tid != skip_tri;
-    }
-
-    if (!kShadow) {
-      int32_t kmin = kKeyInvalid;
-      int win = 0;
-#pragma unroll
-      for (int j = 0; j < kLeafTris; ++j) {
-        const int32_t k =
-            tr[j].ok ? ((__float_as_int(fmaxf(tr[j].t, 0.0f)) & ~3) | j)
-                     : kKeyInvalid;
-        if (k < kmin) {
-          kmin = k;
-          win = j;
-        }
-      }
-      if (kmin != kKeyInvalid) {
-#pragma unroll
-        for (int j = 0; j < kLeafTris; ++j) {
-          if (j == win) {
-            t_cut = tr[j].t;
-            best_tri = tr[j].tid;
-            best_u = tr[j].u;
-            best_v = tr[j].v;
-          }
-        }
-      }
-    } else {
-      float f0 = 1.0f, f1 = 1.0f, f2 = 1.0f;
-      bool opaque = false, any_leaf = false;
-#pragma unroll
-      for (int j = 0; j < kLeafTris; ++j) {
-        if (!tr[j].ok) continue;
-        const bool leaf_mat = tr[j].raw >= 0 && (tr[j].raw & kLeafMatFlag);
-        if (!leaf_mat) {
-          opaque = true;
-          continue;
-        }
-        // tri_f32[78:94]: vertex normals a, b, c; albedo; transmission; ior
-        const float* sr =
-            tri_f32 + static_cast<int64_t>(tr[j].tid) * tri_cols + 78;
-        const float u = tr[j].u, v = tr[j].v;
-        const float w0 = 1.0f - u - v;
-        const float nx = sr[0] * w0 + sr[3] * u + sr[6] * v;
-        const float ny = sr[1] * w0 + sr[4] * u + sr[7] * v;
-        const float nz = sr[2] * w0 + sr[5] * u + sr[8] * v;
-        const float inv_len = rsqrtf(fmaxf(nx * nx + ny * ny + nz * nz,
-                                           1e-20f));
-        const float cos_t = fabsf(dx * nx + dy * ny + dz * nz) * inv_len;
-        const float ior = sr[13];
-        float r0 = (1.0f - ior) / (1.0f + ior);
-        r0 = r0 * r0;
-        const float x = 1.0f - cos_t;
-        const float x2 = x * x;
-        const float fres = r0 + (1.0f - r0) * (x * (x2 * x2));
-        const float tmul = sr[12] * (1.0f - fres);
-        f0 = f0 * (sr[9] * tmul);
-        f1 = f1 * (sr[10] * tmul);
-        f2 = f2 * (sr[11] * tmul);
-        any_leaf = true;
-      }
-      s0 = s0 * f0;
-      s1 = s1 * f1;
-      s2 = s2 * f2;
-      const bool dark = fmaxf(fmaxf(s0, s1), s2) < 0.01f;
-      if (opaque || (any_leaf && dark)) {  // occlusion is final
-        s0 = s1 = s2 = 0.0f;
-        break;
-      }
-    }
-
-    direct = new_direct;
-    // drained with a pending loss: restart from the root
-    if (direct < 0 && top <= 0 && (lostc & 1) &&
-        (lostc >> 1) < kMaxRestarts) {
-      direct = 0;
-      lostc = ((lostc >> 1) + 1) << 1;
-      if (kShadow) s0 = s1 = s2 = 1.0f;
-    }
-  }
-
+  const tpt::Trace8 r = tpt::trace8<kShadow>(
+      table, tri_f32, tri_cols, o[3 * i], o[3 * i + 1], o[3 * i + 2],
+      d[3 * i], d[3 * i + 1], d[3 * i + 2], max_t[i], skip[i],
+      active == nullptr || active[i]);
+  if (rows_out != nullptr) rows_out[i] = r.rows;
   if (kShadow) {
-    scale_out[3 * i] = s0;
-    scale_out[3 * i + 1] = s1;
-    scale_out[3 * i + 2] = s2;
+    scale_out[3 * i] = r.s0;
+    scale_out[3 * i + 1] = r.s1;
+    scale_out[3 * i + 2] = r.s2;
   } else {
-    t_out[i] = t_cut;
-    tri_out[i] = best_tri;
-    u_out[i] = best_u;
-    v_out[i] = best_v;
-    if (restarts_out != nullptr) restarts_out[i] = lostc >> 1;
+    t_out[i] = r.t;
+    tri_out[i] = r.tri;
+    u_out[i] = r.u;
+    v_out[i] = r.v;
+    if (restarts_out != nullptr) restarts_out[i] = r.restarts;
   }
 }
 
@@ -310,18 +58,20 @@ inline unsigned blocks_for(int64_t n) {
 
 }  // namespace
 
-// active may be null (every ray traced), and so may restarts (per ray, the
-// number of restarts from the root). Returns the launch's cudaError_t.
+// active may be null (every ray traced), and so may restarts and rows (per
+// ray, the number of restarts from the root and of rows visited). Returns
+// the launch's cudaError_t.
 extern "C" int tpt_closest_hit8(const float* table, const float* o,
                                 const float* d, const float* max_t,
                                 const int32_t* skip_tri, const bool* active,
                                 int64_t n, float* t, int32_t* tri, float* u,
-                                float* v, int32_t* restarts, void* stream) {
+                                float* v, int32_t* restarts, int32_t* rows,
+                                void* stream) {
   if (n <= 0) return 0;
   traverse8_kernel<false><<<blocks_for(n), kThreads, 0,
                             static_cast<cudaStream_t>(stream)>>>(
       table, nullptr, 0, o, d, max_t, skip_tri, active, n, t, tri, u, v,
-      nullptr, restarts);
+      nullptr, restarts, rows);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -329,11 +79,12 @@ extern "C" int tpt_shadow_factor8(const float* table, const float* tri_f32,
                                   int32_t tri_cols, const float* o,
                                   const float* d, const float* max_t,
                                   const int32_t* skip_tri, const bool* active,
-                                  int64_t n, float* scale, void* stream) {
+                                  int64_t n, float* scale, int32_t* rows,
+                                  void* stream) {
   if (n <= 0) return 0;
   traverse8_kernel<true><<<blocks_for(n), kThreads, 0,
                            static_cast<cudaStream_t>(stream)>>>(
       table, tri_f32, tri_cols, o, d, max_t, skip_tri, active, n, nullptr,
-      nullptr, nullptr, nullptr, scale, nullptr);
+      nullptr, nullptr, nullptr, scale, nullptr, rows);
   return static_cast<int>(cudaGetLastError());
 }

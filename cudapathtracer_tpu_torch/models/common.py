@@ -14,7 +14,6 @@ from typing import NamedTuple
 import torch
 
 from cudapathtracer_tpu_torch.ops import bsdf as bsdf_ops
-from cudapathtracer_tpu_torch.ops import traverse
 from cudapathtracer_tpu_torch.utils import rng
 from cudapathtracer_tpu_torch.utils.math import (EPSILON, build_frame, dot,
                                                  length_sq, normalize)
@@ -120,22 +119,6 @@ def nee_sample(scene, key, draw_base, point, normal, wi_local, mat, albedo,
     gate = (light_pdf > EPSILON) & active
     contrib = torch.where(gate[:, None], contrib, 0.0)
     return NEESample(contrib, light_pdf, wo_local, origin, wi, max_t, gate)
-
-
-def next_event_estimation(scene, key, draw_base, point, normal, wi_local,
-                          mat, albedo, eta_i, active, ids=None,
-                          transmission=None):
-    """One NEE shadow connection per lane. Returns (contribution [N,3],
-    light_pdf [N], wo_local [N,3])."""
-    ns = nee_sample(scene, key, draw_base, point, normal, wi_local, mat,
-                    albedo, eta_i, active, ids, transmission=transmission)
-    if scene.num_lights == 0:
-        return ns.contrib, ns.light_pdf, ns.wo_local
-    shadow = traverse.shadow_factor(scene, ns.origin, ns.dir, ns.max_t,
-                                    active=ns.active)
-    clear = shadow.amax(dim=-1) > 0.0
-    contrib = torch.where(clear[:, None], ns.contrib * shadow, 0.0)
-    return contrib, ns.light_pdf, ns.wo_local
 
 
 def power2_weight(p, q):

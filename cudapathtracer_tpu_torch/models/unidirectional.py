@@ -1,18 +1,34 @@
 """Unidirectional path tracer with NEE + power-2 MIS, nested dielectrics,
-Beer-Lambert absorption and Russian roulette (the classic engine).
+Beer-Lambert absorption and Russian roulette (the classic engine), and the
+plain version both engines share.
 
 Counterpart of cudapathtracer_tpu/models/unidirectional.py:render_sample
-with the same draw ids, depth rules and ray count. Raygen (K7), the RNG
-(K6) and both traversals (K1) are kernels on CUDA tensors; shading, BSDF
-and NEE are plain PyTorch. Each bounce works on the paths still alive:
-dead paths are dropped with index_select, which leaves the image unchanged
-because every draw is keyed by pixel id, never by lane.
+with the same draw ids, depth rules and ray count. On CUDA tensors a
+sample is one launch of the per-path megakernel (K5,
+kernels/csrc/uni_mega.cu) with the classic draw schedule. On CPU tensors
+it is the plain version below: a per-bounce loop over the live paths that
+reuses ops/bsdf.py, models/common.py, ops/traverse.shade_data and the plain
+BVH8 traversal. Each bounce works on the paths still alive: dead paths are
+dropped with index_select, which leaves the image unchanged because every
+draw is keyed by the path, never by lane.
+
+The mega engine (models/unidirectional_mega.py) is the same estimator with
+another draw schedule, so `render_plain` serves both:
+  classic: draw d of bounce `it` keyed by draw_key(bounce_key(skey, it), d)
+           with the pixel id; at most HARD_DEPTH_CAP + 32 bounces; rays
+           count every NEE candidate; NEE adds beta * (contrib * shadow) * w;
+  mega:    keyed by draw_key(skey, d) with the path's list index * 191 +
+           it (its event counter `lit`); one more event (the JAX lane dies
+           after the event with lit >= LIT_CAP); rays count traced NEE
+           shadows; NEE adds ((beta * contrib) * w) * shadow, the JAX
+           engine's pending weight scaled when its shadow drains.
 """
 
 from __future__ import annotations
 
 import torch
 
+from cudapathtracer_tpu_torch import kernels
 from cudapathtracer_tpu_torch.models import common
 from cudapathtracer_tpu_torch.ops import bsdf as bsdf_ops
 from cudapathtracer_tpu_torch.ops import traverse
@@ -23,6 +39,10 @@ from cudapathtracer_tpu_torch.utils.math import (EPSILON, RAY_EPSILON,
                                                  to_world)
 
 HARD_DEPTH_CAP = 100
+LIT_CAP = HARD_DEPTH_CAP + 32   # the mega engine's event cap
+ID_STRIDE = 191                 # mega draw ids: index * ID_STRIDE + lit
+# events a path may take, by schedule
+MAX_EVENTS = {"classic": HARD_DEPTH_CAP + 32, "mega": LIT_CAP + 1}
 
 # rng draw ids within a bounce
 _D_NEE = 0    # ..2 (light pick + 2 warp uniforms)
@@ -40,15 +60,55 @@ def render_sample(scene, camera, base_key, sample_idx, px, py, *,
                   sample_environment: bool = False):
     """Trace one sample for pixels (px, py) [N] (int) -> (radiance [N,3]
     float32, rays traced as a Python int)."""
+    if px.device.type == "cpu":
+        return render_plain(scene, camera, base_key, sample_idx, px, py,
+                            max_depth=max_depth, use_mis=use_mis,
+                            sample_environment=sample_environment,
+                            schedule="classic")
+    return render_kernel(scene, camera, base_key, sample_idx, px, py,
+                         max_depth=max_depth, use_mis=use_mis,
+                         sample_environment=sample_environment,
+                         schedule="classic")
+
+
+def kernel_keys(base_key, sample_idx) -> list:
+    """The 28 key words K5 takes for a sample, folded on the host: the
+    camera's four draw keys, the sample key, the mega schedule's nine draw
+    keys (the classic ones are derived in the kernel)."""
+    skey = rng.sample_key(base_key, sample_idx)
+    cam_key = rng.fold_in(skey, 2 ** 20)
+    keys = [w for dr in range(4) for w in rng.draw_key(cam_key, dr)]
+    keys += list(skey)
+    return keys + [w for dr in range(9) for w in rng.draw_key(skey, dr)]
+
+
+def render_kernel(scene, camera, base_key, sample_idx, px, py, *,
+                  max_depth: int, use_mis: bool, sample_environment: bool,
+                  schedule: str):
+    """One launch of K5 (uni_mega.cu) on CUDA tensors -> (radiance [N,3],
+    rays as a Python int)."""
+    li, rays = kernels.render_unidirectional(
+        scene, px.to(torch.int32).contiguous(),
+        py.to(torch.int32).contiguous(), camera.kernel_params(),
+        kernel_keys(base_key, sample_idx), max_depth=max_depth,
+        use_mis=use_mis, sample_environment=sample_environment,
+        schedule=schedule, air_priority=scene.air_priority)
+    return li, int(rays.sum())
+
+
+def render_plain(scene, camera, base_key, sample_idx, px, py, *,
+                 max_depth: int, use_mis: bool = True,
+                 sample_environment: bool = False, schedule: str):
+    """Plain version of K5 for either draw schedule ("classic" or "mega");
+    any device. -> (radiance [N,3], rays as a Python int)."""
     n, dev = px.shape[0], px.device
     skey = rng.sample_key(base_key, sample_idx)
     pid = rng.pixel_ids(px, py)
-    o, d = camera.generate_rays(rng.fold_in(skey, 2 ** 20),
-                                px.to(torch.float32), py.to(torch.float32),
-                                pid)
+    o, d = camera.generate_rays_plain(rng.fold_in(skey, 2 ** 20),
+                                      px.to(torch.float32),
+                                      py.to(torch.float32), pid)
     mats = scene.materials
-    air_priority = int(mats.priority[0])
-    ms0 = common.MediumStack.make(n, air_priority, device=dev)
+    ms0 = common.MediumStack.make(n, scene.air_priority, device=dev)
     li_out = torch.zeros((n, 3), dtype=torch.float32, device=dev)
 
     s = dict(
@@ -65,10 +125,10 @@ def render_sample(scene, camera, base_key, sample_idx, px, py, *,
         ms_stack=ms0.stack, ms_top=ms0.top)
     rays = 0
     it = 0
-    while it < HARD_DEPTH_CAP + 32 and s["lane"].numel() > 0:
+    while it < MAX_EVENTS[schedule] and s["lane"].numel() > 0:
         rays += s["lane"].numel()
         alive, s, nee_rays = _bounce(scene, mats, skey, it, s, max_depth,
-                                     use_mis, sample_environment)
+                                     use_mis, sample_environment, schedule)
         rays += nee_rays
         li_out[s["lane"]] = s["li"]
         keep = torch.nonzero(alive)[:, 0]
@@ -79,11 +139,14 @@ def render_sample(scene, camera, base_key, sample_idx, px, py, *,
 
 
 def _bounce(scene, mats, skey, it, s, max_depth, use_mis,
-            sample_environment):
+            sample_environment, schedule):
     """One bounce of every live path. Returns (alive [M], new state,
-    shadow rays traced)."""
+    shadow rays counted)."""
     pid = s["pid"]
-    bkey = rng.bounce_key(skey, it)
+    if schedule == "classic":
+        key, ids = rng.bounce_key(skey, it), pid
+    else:
+        key, ids = skey, (s["lane"] * ID_STRIDE + it).to(torch.int32)
     ms = common.MediumStack(s["ms_stack"], s["ms_top"])
     nee_rays = 0
 
@@ -153,19 +216,30 @@ def _bounce(scene, mats, skey, it, s, max_depth, use_mis,
 
         # NEE from non-emissive, non-specular surfaces
         do_nee = shade & ~emissive & ~is_specular
-        nee_rays = int(do_nee.sum())
-        nee_c, light_pdf, wo_nee = common.next_event_estimation(
-            scene, bkey, _D_NEE, info["point"], normal, wi_local, mat,
-            albedo, eta_i, do_nee, ids=pid, transmission=trans)
-        bsdf_pdf_nee = bsdf_ops.bsdf_pdf(mat, -wi_local, wo_nee, eta_i,
-                                         transmission=trans)
-        w_nee = common.power2_weight(light_pdf, bsdf_pdf_nee)
-        li = li + torch.where((do_nee & (light_pdf > EPSILON))[:, None],
-                              beta * nee_c * w_nee[:, None], 0.0)
+        ns = common.nee_sample(scene, key, _D_NEE, info["point"], normal,
+                               wi_local, mat, albedo, eta_i, do_nee, ids=ids,
+                               transmission=trans)
+        if schedule == "classic":
+            nee_rays = int(do_nee.sum())
+        else:
+            nee_rays = int(ns.active.sum())
+        if scene.num_lights > 0:
+            shadow = traverse.shadow_factor(scene, ns.origin, ns.dir,
+                                            ns.max_t, active=ns.active)
+            bsdf_pdf_nee = bsdf_ops.bsdf_pdf(mat, -wi_local, ns.wo_local,
+                                             eta_i, transmission=trans)
+            w_nee = common.power2_weight(ns.light_pdf, bsdf_pdf_nee)[:, None]
+            if schedule == "classic":
+                clear = shadow.amax(dim=-1) > 0.0
+                nee_c = torch.where(clear[:, None], ns.contrib * shadow, 0.0)
+                add_nee = beta * nee_c * w_nee
+            else:
+                add_nee = beta * ns.contrib * w_nee * shadow
+            li = li + torch.where(ns.active[:, None], add_nee, 0.0)
 
     # BSDF sampling
     wo_local, f_val, pdf = bsdf_ops.bsdf_sample(
-        bkey, _D_BSDF, mat, albedo, -wi_local, backface, eta_i, ids=pid,
+        key, _D_BSDF, mat, albedo, -wi_local, backface, eta_i, ids=ids,
         transmission=trans)
     pdf = torch.clamp(pdf, min=0.01)
 
@@ -193,7 +267,7 @@ def _bounce(scene, mats, skey, it, s, max_depth, use_mis,
     # Russian roulette past max_depth
     rr_zone = alive & (depth > max_depth + 1)
     p_surv = torch.clamp(luminance(beta), 0.05, 0.99)
-    u_rr = rng.uniform_id(bkey, _D_RR, pid)
+    u_rr = rng.uniform_id(key, _D_RR, ids)
     killed = rr_zone & (u_rr > p_surv)
     beta = torch.where((rr_zone & ~killed)[:, None],
                        beta / p_surv[:, None], beta)

@@ -3,8 +3,9 @@
 Counterpart of cudapathtracer_tpu/ops/traverse.py. `closest_hit` and
 `shadow_factor` dispatch to the BVH8 engine (ops/traverse8.py, kernel K1);
 the JAX package's threaded binary engine (traversal="threaded") is not
-ported. `shade_data` is the classic path's hit fetch: one gather of the
-packed shading row and the barycentric interpolation (plain PyTorch).
+ported. `shade_data` is the plain version of the hit fetch (K2, device
+code in kernels/csrc/shade.cuh): one gather of the packed shading row and
+the barycentric interpolation.
 """
 
 from __future__ import annotations

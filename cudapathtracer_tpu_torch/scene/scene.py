@@ -1,9 +1,10 @@
 """Scene tables: the packed triangle, light and BVH8 blocks on a device.
 
 Counterpart of cudapathtracer_tpu/scene/scene.py:207-386 and 468-500. The
-host side calls the same shared builders (scene/bvh.py SAH/SBVH,
-scene/bvh8.py CBVH collapse) with the same defaults and packs the same
-blocks, bit for bit (tests/test_torch_scene.py holds them equal):
+host side calls the port's own copies of the JAX package's builders
+(scene/bvh.py SAH/SBVH, scene/bvh8.py CBVH collapse, scene/native.py) with
+the same defaults and packs the same blocks, bit for bit
+(tests/test_torch_scene.py holds them equal):
 
   tri_f32    [T, 78|94] f32  triangles in BVH leaf order (layout below)
   light_f32  [L, 17]    f32  one row per light
@@ -19,6 +20,9 @@ tri_f32 columns: [0:9] v0, e1, e2; [9:18] vertex normals a, b, c;
 none); [78:94] shadow row, only when a triangle is MAT_LEAF.
 light_f32 columns: [0:9] p0, p1, p2; [9:12] vertex-a normal; [12:15]
 emission; [15] area; [16] permuted triangle index (i32 bits).
+medium_f32 [M, 4] f32, one row per material: [0:3] Beer-Lambert
+absorption, [3] ior (what the medium stack looks up; the per-path kernel
+reads it).
 """
 
 from __future__ import annotations
@@ -28,12 +32,12 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from cudapathtracer_tpu.scene import bvh as bvh_mod
-from cudapathtracer_tpu.scene import bvh8 as bvh8_mod
-from cudapathtracer_tpu.utils.obj import MeshData
+from cudapathtracer_tpu_torch.scene import bvh as bvh_mod
+from cudapathtracer_tpu_torch.scene import bvh8 as bvh8_mod
 from cudapathtracer_tpu_torch.scene.materials import (MAT_LEAF,
                                                       MaterialTable,
                                                       build_table)
+from cudapathtracer_tpu_torch.utils.obj import MeshData
 
 SBVH_SPATIAL_DEPTH = 6   # levels with spatial splits; native build below
 BVH8_LEAF_TRIS = 4       # inline triangles per BVH8 row (the kernel's)
@@ -46,6 +50,7 @@ class HostScene:
     light_f32: np.ndarray
     bvh8_table: np.ndarray
     materials: MaterialTable    # numpy columns
+    medium_f32: np.ndarray      # [M, 4]
     textures: np.ndarray        # [A, 3]
     num_lights: int
     has_leaf_materials: bool
@@ -60,10 +65,12 @@ class Scene:
     light_f32: torch.Tensor     # [L, 17]
     bvh8_table: torch.Tensor    # [R, 96]
     materials: MaterialTable    # tensors, [M] / [M,3]
+    medium_f32: torch.Tensor    # [M, 4]
     textures: torch.Tensor      # [A, 3]
     num_lights: int
     has_leaf_materials: bool
     has_trans_maps: bool
+    air_priority: int           # priority of the ambient medium (material 0)
     bvh8_leaf_tris: int = 4
     traversal: str = "bvh8"
 
@@ -123,7 +130,7 @@ def pack_scene(mesh: MeshData, materials: list, textures=None,
             no_split=np.asarray(mesh.light_ind) >= 0)
     else:
         bvh = bvh_mod.build_bvh(centroids, amins, amaxs, max_leaf_size,
-                                use_native=True, thread=False)
+                                use_native=True)
     perm = bvh.perm
 
     p0, p1, p2 = p0[perm], p1[perm], p2[perm]
@@ -196,6 +203,8 @@ def pack_scene(mesh: MeshData, materials: list, textures=None,
     host = HostScene(
         tri_f32=tri_f32, light_f32=light_f32,
         bvh8_table=np.asarray(bvh8.table, np.float32), materials=htab,
+        medium_f32=np.concatenate(
+            [htab.absorption, htab.ior[:, None]], axis=1).astype(np.float32),
         textures=np.asarray(textures, np.float32),
         num_lights=num_lights,
         has_leaf_materials=bool(tri_is_leaf_mat.any()),
@@ -211,10 +220,12 @@ def upload(host: HostScene, device) -> Scene:
     return Scene(
         tri_f32=put(host.tri_f32), light_f32=put(host.light_f32),
         bvh8_table=put(host.bvh8_table),
-        materials=host.materials.to(device), textures=put(host.textures),
+        materials=host.materials.to(device),
+        medium_f32=put(host.medium_f32), textures=put(host.textures),
         num_lights=host.num_lights,
         has_leaf_materials=host.has_leaf_materials,
         has_trans_maps=host.has_trans_maps,
+        air_priority=int(host.materials.priority[0]),
         bvh8_leaf_tris=host.bvh8_leaf_tris)
 
 

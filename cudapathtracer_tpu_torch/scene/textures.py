@@ -9,7 +9,7 @@ import os
 
 import numpy as np
 
-from cudapathtracer_tpu.scene.builtin import checker_texture
+from cudapathtracer_tpu_torch.scene.builtin import checker_texture
 from cudapathtracer_tpu_torch.utils.image import load_bmp
 
 # the reference's hard-coded list

@@ -28,6 +28,7 @@ from cudapathtracer_tpu.scene.materials import \
 from cudapathtracer_tpu.scene.scene import build_scene as jbuild_scene
 from cudapathtracer_tpu.utils import rng as jrng
 from cudapathtracer_tpu_torch.models import common as tc
+from cudapathtracer_tpu_torch.ops import traverse
 from cudapathtracer_tpu_torch.scene.materials import (MaterialTable,
                                                       build_table,
                                                       builtin_materials)
@@ -93,6 +94,9 @@ def test_light_sample_and_pdf(setup):
 
 
 def test_next_event_estimation(setup):
+    """The port's NEE as its integrator runs it (nee_sample, then the
+    shadow ray, then the contribution where the ray is clear) against the
+    JAX package's next_event_estimation."""
     x = setup
     jk, tk = _keys()
     jargs = [jnp.asarray(x[k]) for k in ("p", "n", "wi")]
@@ -101,10 +105,15 @@ def test_next_event_estimation(setup):
         x["js"], jk, 0, *jargs, x["jmat"], jnp.asarray(x["albedo"]),
         jnp.asarray(x["eta_i"]), jnp.asarray(x["active"]),
         ids=jnp.asarray(x["ids"]))
-    tr = tc.next_event_estimation(
+    ns = tc.nee_sample(
         x["ts"], tk, 0, *targs, x["tmat"], torch.as_tensor(x["albedo"]),
         torch.as_tensor(x["eta_i"]), torch.as_tensor(x["active"]),
         ids=torch.as_tensor(x["ids"]))
+    shadow = traverse.shadow_factor(x["ts"], ns.origin, ns.dir, ns.max_t,
+                                    active=ns.active)
+    clear = shadow.amax(dim=-1) > 0.0
+    tr = (torch.where(clear[:, None], ns.contrib * shadow, 0.0),
+          ns.light_pdf, ns.wo_local)
     for a, b in zip(tr[1:], jr[1:]):   # light pdf, light direction
         np.testing.assert_allclose(a.numpy(), np.asarray(b), **TOL)
     contrib = tr[0].numpy()

@@ -1,8 +1,10 @@
 """Driver and CLI of the PyTorch port, on the CPU (--device cpu).
 
 No float tolerance here: these tests check the product surface — a real
-BMP from the CLI, exact checkpoint resume, refusal of what is not ported,
-no JAX import, and that the CPU path launches no kernel."""
+BMP from the CLI (also from configs/cornell.rendertron as shipped, which
+renders with the default mega engine), exact checkpoint resume, refusal of
+what is not ported, that neither JAX nor the JAX package is imported, and
+that the CPU path launches no kernel."""
 
 import os
 import subprocess
@@ -11,9 +13,9 @@ import sys
 import pytest
 import torch
 
-from cudapathtracer_tpu.utils.config import parse_config
 from cudapathtracer_tpu_torch import cli, kernels
 from cudapathtracer_tpu_torch.driver import Renderer
+from cudapathtracer_tpu_torch.utils.config import parse_config
 from cudapathtracer_tpu_torch.utils.image import load_bmp
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -51,6 +53,22 @@ def test_cli_end_to_end(tmp_path):
     assert all(v == 0 for v in kernels.launches.values())
 
 
+def test_cli_default_config(tmp_path, monkeypatch):
+    """configs/cornell.rendertron as shipped (no Engine line: the mega
+    engine) renders on the CPU into a real BMP."""
+    monkeypatch.chdir(tmp_path)
+    kernels.reset_launches()
+    cfg = os.path.join(REPO, "configs", "cornell.rendertron")
+    assert cli.main([cfg, "--device", "cpu", "--no-progressive",
+                     "--samples", "2", "--width", "32",
+                     "--height", "24"]) == 0
+    img = load_bmp(str(tmp_path / "renders" / "cornell0.bmp"),
+                   decode_srgb=False)
+    assert img.shape == (24, 32, 3)
+    assert (img.max(axis=-1) > 0).mean() > 0.9
+    assert all(v == 0 for v in kernels.launches.values())
+
+
 def test_checkpoint_resume_exact(tmp_path):
     cfg = parse_config(_config_text(tmp_path / "r"))
     ck = str(tmp_path / "ck.npz")
@@ -69,7 +87,7 @@ def test_checkpoint_resume_exact(tmp_path):
 
 
 @pytest.mark.parametrize("engine,integrator", [
-    ("mega", "UNIDIRECTIONAL"), ("classic", "BIDIRECTIONAL"),
+    ("mega", "BIDIRECTIONAL"), ("classic", "BIDIRECTIONAL"),
     ("classic", "NAIVE_UNIDIRECTIONAL"), ("classic", "VCM"),
     ("mega", "SPPM")])
 def test_unported_raise(tmp_path, engine, integrator):
@@ -96,17 +114,26 @@ def test_default_device_is_cuda(tmp_path):
 
 
 def test_port_never_imports_jax(tmp_path):
+    """The port parses a config with its own parser and renders with both
+    engines without importing jax or any module of the JAX package."""
     code = f"""
 import sys
 import cudapathtracer_tpu_torch
 import cudapathtracer_tpu_torch.cli, cudapathtracer_tpu_torch.driver
-from cudapathtracer_tpu.utils.config import parse_config
+from cudapathtracer_tpu_torch.utils.config import parse_config
 from cudapathtracer_tpu_torch.driver import Renderer
-cfg = parse_config({_config_text(tmp_path / 'r')!r})
-r = Renderer(cfg, device="cpu")
-img = r.render(num_samples=1, progressive=False, verbose=False)
-assert img.pixels.shape == (24, 32, 3)
-assert "jax" not in sys.modules, sorted(m for m in sys.modules if "jax" in m)
+for engine in ("mega", "classic"):
+    cfg = parse_config({_config_text(tmp_path / 'r')!r}.replace(
+        "Engine: classic", "Engine: " + engine))
+    assert cfg.engine == engine
+    r = Renderer(cfg, device="cpu")
+    img = r.render(num_samples=1, progressive=False, verbose=False)
+    assert img.pixels.shape == (24, 32, 3)
+    assert r.metrics.rays_traced > 24 * 32
+bad = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")
+             or m == "cudapathtracer_tpu"
+             or m.startswith("cudapathtracer_tpu."))
+assert not bad, bad
 print("no-jax-ok")
 """
     env = {k: v for k, v in os.environ.items() if not k.startswith("JAX")}

@@ -7,16 +7,23 @@ The kernel tests need an NVIDIA card (sm_90a) and nvcc; they carry the
 chip_smoke.py makes the same comparisons at the main path's sizes.
 Tolerances: K6 bit-equal; K7 max abs 1e-6; K1 triangle ids and restart
 counts equal, t/u/v and shadow scale within 1e-5 (the kernels are built
-with -fmad=false and follow the plain versions operation for operation).
+with -fmad=false and follow the plain versions operation for operation);
+K5 (render_unidirectional) and its test entry shade_eval under
+chip_smoke.py's criteria (compare_render, compare_shade_eval): rays within
+0.1%, image mean within 1e-3, >= 99% of pixels within rtol 1e-3; the
+per-element bounds of tests/test_torch_bsdf.py.
 """
 
 import numpy as np
 import pytest
 import torch
 
-from cudapathtracer_tpu.scene import builtin
+import chip_smoke
 from cudapathtracer_tpu_torch import kernels
+from cudapathtracer_tpu_torch.models import unidirectional as uni
+from cudapathtracer_tpu_torch.models import unidirectional_mega as mega
 from cudapathtracer_tpu_torch.ops import traverse8
+from cudapathtracer_tpu_torch.scene import builtin
 from cudapathtracer_tpu_torch.scene.camera import Camera
 from cudapathtracer_tpu_torch.scene.materials import builtin_materials
 from cudapathtracer_tpu_torch.scene.scene import build_scene
@@ -41,13 +48,16 @@ def test_import_builds_nothing():
 
 
 @pytest.mark.parametrize("call", ["uniform_id", "generate_rays",
-                                  "closest_hit8", "shadow_factor8"])
+                                  "closest_hit8", "shadow_factor8",
+                                  "render_unidirectional", "shade_eval"])
 def test_wrappers_refuse_non_cuda_tensors(call):
     """A wrapper launches on CUDA tensors or raises; it never falls back."""
     kernels.reset_launches()
     n = 4
+    f1 = torch.zeros(n)
     f3 = torch.zeros((n, 3))
     i1 = torch.zeros(n, dtype=torch.int32)
+    scene = build_scene(builtin.cornell_box(), builtin_materials())[0]
     args = {
         "uniform_id": (i1, 1, 2, False),
         "generate_rays": (torch.zeros(n), torch.zeros(n), i1, [0.0] * 19,
@@ -56,12 +66,17 @@ def test_wrappers_refuse_non_cuda_tensors(call):
                          None),
         "shadow_factor8": (torch.zeros((2, 96)), torch.zeros((2, 78)), f3,
                            f3, torch.zeros(n), i1, None),
+        "render_unidirectional": (scene, i1, i1, [0.0] * 19, [0] * 28),
+        "shade_eval": (scene, f3, f3, f1, i1, f1, f1, i1, f1, [0] * 18),
     }[call]
+    kw = (dict(max_depth=4, use_mis=True, sample_environment=False,
+               schedule="mega", air_priority=99)
+          if call == "render_unidirectional" else {})
     with pytest.raises(ValueError, match="CUDA"):
-        getattr(kernels, call)(*args)
+        getattr(kernels, call)(*args, **kw)
     meta = [a.to("meta") if isinstance(a, torch.Tensor) else a for a in args]
     with pytest.raises(ValueError, match="CUDA"):
-        getattr(kernels, call)(*meta)
+        getattr(kernels, call)(*meta, **kw)
     assert kernels.launches[call] == 0
 
 
@@ -178,3 +193,57 @@ def test_k1_stack_overflow_restart(cuda, monkeypatch):
     ps = traverse8.shadow_factor8_plain(sc.bvh8_table, sc.tri_f32, o, d, smt,
                                         skip, None)
     assert (ks - ps).abs().max().item() <= 1e-5
+
+
+def _grid(w, h, dev):
+    gy, gx = torch.meshgrid(torch.arange(h, dtype=torch.int32, device=dev),
+                            torch.arange(w, dtype=torch.int32, device=dev),
+                            indexing="ij")
+    return gx.reshape(-1).contiguous(), gy.reshape(-1).contiguous()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("schedule", ["mega", "classic"])
+@pytest.mark.parametrize("name", ["blocks", "spheres", "leaf"])
+def test_k5_matches_plain(cuda, name, schedule):
+    mesh = {"blocks": builtin.cornell_with_blocks,
+            "spheres": builtin.cornell_with_spheres,
+            "leaf": lambda: builtin.cornell_with_bunny(3, bunny_mat=13)}[name]
+    sc, _ = build_scene(mesh(), builtin_materials(), device=cuda)
+    cam = Camera.pinhole((0.0, 0.0, 1.0), 96, 64, 0.0, 0.0, 0.0, 60.0)
+    px, py = _grid(96, 64, cuda)
+    kernels.reset_launches()
+    k = uni.render_kernel(sc, cam, rng.base_key(), 1, px, py, max_depth=6,
+                          use_mis=True, sample_environment=False,
+                          schedule=schedule)
+    assert kernels.launches["render_unidirectional"] == 1
+    p = uni.render_plain(sc, cam, rng.base_key(), 1, px, py, max_depth=6,
+                         schedule=schedule)
+    chip_smoke.compare_render(k, p, f"{name} {schedule}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bunny_mat", [2, 13])
+def test_shade_eval_matches_plain(cuda, bunny_mat):
+    sc, _ = build_scene(builtin.cornell_with_bunny(subdivisions=3,
+                                                   bunny_mat=bunny_mat),
+                        builtin_materials(), device=cuda)
+    gen = np.random.default_rng(2)
+    n = 50000
+    o = torch.as_tensor(gen.uniform(-0.45, 0.45, (n, 3)), dtype=torch.float32,
+                        device=cuda)
+    d = torch.as_tensor(gen.normal(size=(n, 3)), dtype=torch.float32,
+                        device=cuda)
+    d = (d / d.norm(dim=1, keepdim=True)).contiguous()
+    hit = traverse8.closest_hit8(sc, o, d)
+    ids = torch.arange(n, dtype=torch.int32, device=cuda) * 191 + 5
+    eta = torch.as_tensor(gen.choice([1e-5, 1.0, 1.5], n),
+                          dtype=torch.float32, device=cuda)
+    skey = rng.sample_key(rng.base_key(), 6)
+    kernels.reset_launches()
+    k = mega.shade_eval(sc, o, d, hit, ids, eta, skey)
+    assert kernels.launches["shade_eval"] == 1
+    p = mega.shade_eval_plain(sc, o, d, hit, ids, eta, skey)
+    chip_smoke.compare_shade_eval(sc, d, hit, k, p, eta,
+                                  rng.uniform_id(skey, 4, ids),
+                                  rng.uniform_id(skey, 6, ids), "test")

@@ -1,8 +1,10 @@
 """Host scene packing of the PyTorch port against the JAX package.
 
-Tolerance: none. The port packs tri_f32, light_f32 and bvh8_table itself
-(no split of the JAX build_scene), so the blocks are compared as uint32
-views and must be bit-equal: both packages must traverse the same tables.
+Tolerance: none. The port packs tri_f32, light_f32 and bvh8_table itself,
+from its own builtin meshes with its own copies of the SAH/SBVH builders,
+the BVH8 collapse and their native C++ library, so the blocks are compared
+as uint32 views and must be bit-equal: both packages must traverse the
+same tables.
 """
 
 import dataclasses
@@ -16,22 +18,27 @@ from cudapathtracer_tpu.scene.materials import build_table as jbuild_table
 from cudapathtracer_tpu.scene.materials import \
     builtin_materials as jbuiltin_materials
 from cudapathtracer_tpu.scene.scene import build_scene as jbuild_scene
+from cudapathtracer_tpu_torch.scene import builtin as tbuiltin
 from cudapathtracer_tpu_torch.scene import materials as tmaterials
 from cudapathtracer_tpu_torch.scene.scene import build_scene, pack_scene
 
+# name -> (JAX package's mesh, port's mesh)
 SCENES = {
-    "blocks": builtin.cornell_with_blocks,
-    "bunny2": lambda: builtin.cornell_with_bunny(subdivisions=2),
+    "blocks": (builtin.cornell_with_blocks, tbuiltin.cornell_with_blocks),
+    "bunny2": (lambda: builtin.cornell_with_bunny(subdivisions=2),
+               lambda: tbuiltin.cornell_with_bunny(subdivisions=2)),
     # material 13 is MAT_LEAF: SBVH off, 94 columns
-    "bunny2_leaf": lambda: builtin.cornell_with_bunny(subdivisions=2,
-                                                      bunny_mat=13),
+    "bunny2_leaf": (
+        lambda: builtin.cornell_with_bunny(subdivisions=2, bunny_mat=13),
+        lambda: tbuiltin.cornell_with_bunny(subdivisions=2, bunny_mat=13)),
 }
 
 
 @pytest.mark.parametrize("name", sorted(SCENES))
 def test_blocks_bit_equal(name):
-    js, _ = jbuild_scene(SCENES[name](), jbuiltin_materials())
-    hs, _ = pack_scene(SCENES[name](), tmaterials.builtin_materials())
+    jmesh, tmesh = SCENES[name]
+    js, _ = jbuild_scene(jmesh(), jbuiltin_materials())
+    hs, _ = pack_scene(tmesh(), tmaterials.builtin_materials())
     for blk in ("tri_f32", "light_f32", "bvh8_table"):
         want = np.asarray(getattr(js, blk))
         got = getattr(hs, blk)
@@ -59,7 +66,7 @@ def test_materials_table_equal():
 
 
 def test_upload_and_views():
-    scene, bvh = build_scene(builtin.cornell_with_blocks(),
+    scene, bvh = build_scene(tbuiltin.cornell_with_blocks(),
                              tmaterials.builtin_materials(), device="cpu")
     assert scene.tri_f32.dtype == torch.float32
     assert scene.bvh8_table.shape[1] == 96
