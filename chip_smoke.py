@@ -70,7 +70,7 @@ KERNELS = (  # name, source, the JAX function it replaces
     ("shade_eval", CSRC + "uni_mega.cu",
      "cudapathtracer_tpu/ops/lanemajor.py:125"),
 )
-# The card's peaks (on-chip-measurement guide: H100 SXM data sheet) for the
+# The card's peaks (H100 SXM data sheet) for the
 # bound: bytes over memory bandwidth, scalar operations (integer or float,
 # one per instruction: the kernels are built with -fmad=false) over the
 # float32 rate outside the tensor cores. Both are lower bounds on time.

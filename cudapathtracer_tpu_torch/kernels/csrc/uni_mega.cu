@@ -34,7 +34,7 @@
 // diverge), then of the shading row and light row reads; the BSDF and NEE
 // arithmetic is a few hundred flops per event. One launch per sample ends
 // with the longest paths (up to 133 events), so the tail of a launch runs
-// few threads; that is the first thing a later PR should measure.
+// few threads; that is the first thing to measure.
 // Design: all path state (beta, li, the 16-entry medium stack, the
 // 16-entry BVH stack inside K1) lives in registers and local memory; each
 // event reads its own rows, and the only writes are li and the path's ray
