@@ -7,8 +7,8 @@ NVIDIA GPU. Run from the repository root:
 Phases (one line each; any failure exits non-zero before the result line):
   1. a CUDA card is required; print nvidia-smi's name and power limit;
   2. build the kernels from kernels/csrc into build/torch_ext (one nvcc per
-     source, all at once); print the build seconds and the megakernel's
-     registers and spill bytes (ptxas);
+     source, all at once); print the build seconds and each kernel's
+     registers, stack frame and spill bytes (ptxas);
   3. K6 (rng.cu) against its plain version on 2,073,600 ids: bit-equal;
   4. K7 (camera.cu) against its plain version at 1920x1080: max abs <= 1e-6;
   5. K1 (traverse8.cu) against its plain version on the ~82k-triangle
@@ -36,8 +36,32 @@ Phases (one line each; any failure exits non-zero before the result line):
      shipped (the default mega engine), the bunny scene, 1920x1080, depth
      8, 4 spp; the image must be finite, free of NaN/Inf/negative pixels
      and > 90% non-black, and the megakernel must have launched during it;
-     then the same with Engine classic (its path, with its own counts).
-Then one JSON line with each kernel's launches on the main path, error and
+     then the same with Engine classic (its path, with its own counts);
+ 10. K10 (packing.cu) against the plain codecs on 2,073,600 unit vectors,
+     betas and flag words: bit-equal both ways;
+ 11. K12 (bdpt_walk.cu), the light and eye walks of the 1080p bunny scene
+     at the config's depths (eye 8, light 6), against the plain walks
+     (compare_walk: at most 0.1% of lanes diverged, printed; `valid` and
+     flags equal on the rest, each other field within its bound on >=
+     99.9% of the vertices); ray counts within 0.1%;
+ 12. K11 (bdpt_splat.cu) and 13. K13 (bdpt_connect.cu) on the kernel
+     walk's buffers against their plain versions on the same buffers
+     (compare_image: rays within 0.1%, image mean within 1e-3, >= 99.9% /
+     99.5% of pixels within rtol 1e-3); the splat twice, to print the
+     spread from atomicAdd's order; then K12, K11 and K13 again on the
+     256x256 mirror + glass spheres scene with each strategy flag of
+     BDPT_FLAGS set in turn, and the light walk with VCM's d_vm chain
+     (eta_vcm) on (compare_bdpt);
+ 14. the BDPT golden through the four kernels: rmse < 1e-3 against
+     tests/golden/cornell_bdpt_16x16_8spp.npy, mean ratio printed;
+ 15. the BDPT main path: Renderer on the same config with Integrator
+     BIDIRECTIONAL and Engine classic at its own depths, the bunny scene,
+     1920x1080, 4 spp: rays, render-phase seconds, Mrays/s, peak memory,
+     4 launches per sample (K12 twice, K11, K13), finite, non-negative and
+     > 90% non-black; then one sample's four launches timed with CUDA
+     events.
+Then one JSON line with each kernel's launches on its main path (the
+BDPT kernels on the BDPT path, the others on the mega path), error and
 times against its plain version, its bound on this card and the library
 call's time (null: no PyTorch call computes these functions), the card's
 name and power limit, and as the last line {"ok": true, "device": {...}}.
@@ -69,7 +93,16 @@ KERNELS = (  # name, source, the JAX function it replaces
      "cudapathtracer_tpu/models/unidirectional_mega.py:222"),
     ("shade_eval", CSRC + "uni_mega.cu",
      "cudapathtracer_tpu/ops/lanemajor.py:125"),
+    ("packing_roundtrip", CSRC + "packing.cu",
+     "cudapathtracer_tpu/utils/packing.py:23"),
+    ("bdpt_walk", CSRC + "bdpt_walk.cu",
+     "cudapathtracer_tpu/models/paths.py:129"),
+    ("bdpt_splat", CSRC + "bdpt_splat.cu",
+     "cudapathtracer_tpu/models/bdpt.py:93"),
+    ("bdpt_connect", CSRC + "bdpt_connect.cu",
+     "cudapathtracer_tpu/models/bdpt.py:226"),
 )
+BDPT_KERNELS = ("bdpt_walk", "bdpt_splat", "bdpt_connect")
 # The card's peaks (H100 SXM data sheet) for the
 # bound: bytes over memory bandwidth, scalar operations (integer or float,
 # one per instruction: the kernels are built with -fmad=false) over the
@@ -84,7 +117,30 @@ PEAK_OPS_S = 67e12
 OPS_PER_ROW = 490
 OPS_PER_DRAW = 117
 OPS_PER_CAMERA_RAY = 4 * OPS_PER_DRAW + 60
+# BDPT (bdpt.cuh), counted the same way: a stored walk vertex (the bounce
+# key fold and two draws, 5 Threefry calls, and ~300 float ops of shading,
+# BSDF sample and MIS step; encoding ~60); one decoded vertex (two oct
+# decodes, ~40); one codec round trip in packing.cu (~120)
+OPS_PER_WALK_VERTEX = 5 * OPS_PER_DRAW + 360
+OPS_PER_DECODE = 40
+OPS_PER_CODEC = 120
+VERTEX_BYTES = 51   # one packed vertex: pt 12, two oct 8, uv 4, beta 6,
+#                     pdf_fwd/d_vcm/d_vc/d_vm 16, flags 4, valid 1
 K_ULP = 32 * 2.0 ** -24   # tests/test_torch_bsdf.py's K u
+# BDPTConfig's strategy flags, each set away from its default in turn
+# (light_depth_1: no stored light vertex, eye depth 2: one connection row)
+BDPT_FLAGS = {
+    "no_light_trace": dict(light_trace=False),
+    "no_nee": dict(nee=False),
+    "no_naive": dict(naive=False),
+    "no_connection": dict(connection=False),
+    "no_mis": dict(do_mis=False),
+    "paint_weight": dict(paint_weight=True),
+    "environment": dict(sample_environment=True),
+    "light_depth_1": dict(light_depth=1, eye_depth=2),
+}
+# eta_vcm of a VCM light walk (n_paths pi r^2: 65,536 paths at r = 0.005)
+VCM_ETA = 5.1471854
 
 
 class SmokeFailure(Exception):
@@ -169,6 +225,15 @@ def nee_rays(scene, hit_o, hit_d, hit, ids):
     dist = torch.sqrt(torch.clamp(length_sq(stl), min=0.0))
     return (p + wi * EPSILON).contiguous(), wi.contiguous(), \
         ((dist - EPSILON) * (1.0 - EPSILON)).contiguous()
+
+
+def peak_gib(base: int) -> str:
+    """The peak allocated since the last reset, and how far it rose above
+    `base` (what was allocated before the measured run)."""
+    import torch
+    peak = torch.cuda.max_memory_allocated()
+    return (f"{peak / 2**30:.3f} GiB ({(peak - base) / 2**30:.3f} GiB above "
+            "what was allocated before the render)")
 
 
 def bound_ms(nbytes: float, ops: float) -> tuple:
@@ -340,6 +405,184 @@ def compare_shade_eval(scene, d, hit, k, p, eta_i, u_sel, u1,
     return worst
 
 
+def compare_codecs(k: dict, p: dict, what: str) -> None:
+    """K10 (packing_roundtrip) against the plain codecs: bit-equal."""
+    import torch
+    for name in k:
+        a, b = k[name], p[name]
+        if a.dtype in (torch.float32, torch.float16):
+            a, b = (a.view(torch.int32) if a.dtype == torch.float32
+                    else a.view(torch.int16)), \
+                (b.view(torch.int32) if b.dtype == torch.float32
+                 else b.view(torch.int16))
+        bad = int((a != b).reshape(a.shape[0], -1).any(dim=1).sum())
+        check(bad == 0, f"K10 {what}: {name} differs from the plain codec "
+              f"on {bad} of {a.shape[0]} vectors")
+
+
+def _oct_steps(a, b):
+    """Per element, the larger snorm16 step between two oct words."""
+    import torch
+    out = None
+    for shift in (0, 16):
+        x = ((a.long() >> shift) & 0xFFFF).to(torch.int16).long()
+        y = ((b.long() >> shift) & 0xFFFF).to(torch.int16).long()
+        d = (x - y).abs()
+        out = d if out is None else torch.maximum(out, d)
+    return out
+
+
+def compare_walk(k, p, what: str) -> tuple:
+    """K12 against the plain walk on the same pixels and keys; k and p are
+    (PathBuffers, v0 dict, Escape or None). A lane diverged where `valid`
+    differs at some depth, or the flag word or the point (by > 1e-3)
+    where valid: at most 0.1% of lanes may. On the others, over the valid
+    vertices: `valid` and flags equal (by the definition), points within
+    1e-3 (by the definition) and within 1e-4, pdf_fwd / d_vcm / d_vc within
+    / d_vm rtol 1e-3 (atol 1e-6), the oct words within one snorm16 step
+    and float16 beta / uv within 2^-10 relative, each on >= 99.9% of the
+    vertices (one ulp of a direction moves a grazing hit far along the
+    surface it hits); the light endpoint's ids
+    equal and its floats within rtol 1e-5 on >= 99.9% of lanes; the escape
+    flag equal, and where a walk escaped its direction within 1e-5 and its
+    throughput within rtol 1e-4 on >= 99.9% of those lanes. Returns the
+    worst point error."""
+    import torch
+    (kb, kv0, kesc), (pb, pv0, pesc) = k, p
+    kv, pv = kb.valid, pb.valid
+    both = kv & pv
+    div = ((kv != pv) | ((kb.flags != pb.flags) & both)
+           | (((kb.pt - pb.pt).abs().amax(dim=-1) > 1e-3) & both)).any(0)
+    ndiv = int(div.sum())
+    n = kv.shape[1]
+    m = both & ~div[None]
+    nv = int(m.sum())
+    check(ndiv <= 1e-3 * n, f"K12 {what}: {ndiv} of {n} lanes diverged")
+    parts = []
+    ept = (kb.pt - pb.pt).abs().amax(dim=-1)[m]
+    worst_pt = ept.max().item() if nv else 0.0
+    shares = {"pt": (ept <= 1e-4).float().mean()}
+    for f in ("pdf_fwd", "d_vcm", "d_vc", "d_vm"):
+        a, b = getattr(kb, f)[m], getattr(pb, f)[m]
+        shares[f] = torch.isclose(a, b, rtol=1e-3, atol=1e-6).float().mean()
+    for f in ("n_oct", "wo_oct"):
+        shares[f] = (_oct_steps(getattr(kb, f)[m], getattr(pb, f)[m])
+                     <= 1).float().mean()
+    for f in ("beta_h", "uv_h"):
+        a, b = getattr(kb, f)[m].float(), getattr(pb, f)[m].float()
+        shares[f] = torch.isclose(a, b, rtol=2.0 ** -10,
+                                  atol=1e-7).all(dim=-1).float().mean()
+    for f, sh in shares.items():
+        sh = sh.item() if nv else 1.0
+        check(sh >= 0.999, f"K12 {what}: {f} within its bound on only "
+              f"{sh:.5f} of the vertices")
+        parts.append(f"{f} {sh:.6f}")
+    if "light_ind" in kv0:
+        ok = ~div
+        for f in ("light_ind", "mat_id", "tri"):
+            sh = (kv0[f] == pv0[f])[ok].float().mean().item()
+            check(sh >= 0.9999, f"K12 {what}: endpoint {f} equal on {sh}")
+        for f in ("pt", "n", "beta", "pdf_fwd"):
+            a, b = kv0[f][ok], pv0[f][ok]
+            c = torch.isclose(a, b, rtol=1e-5, atol=1e-6)
+            sh = (c.all(dim=-1) if c.dim() > 1 else c).float().mean().item()
+            check(sh >= 0.999, f"K12 {what}: endpoint {f} within rtol 1e-5 "
+                  f"on {sh}")
+    if kesc is not None:
+        check(torch.equal(kesc.valid[~div], pesc.valid[~div]),
+              f"K12 {what}: escape flags differ")
+        e = kesc.valid & ~div
+        ne = int(e.sum())
+        for f, tol in (("d", dict(rtol=0.0, atol=1e-5)),
+                       ("beta", dict(rtol=1e-4, atol=1e-7))):
+            c = torch.isclose(getattr(kesc, f)[e], getattr(pesc, f)[e], **tol)
+            sh = c.all(dim=-1).float().mean().item() if ne else 1.0
+            check(sh >= 0.999, f"K12 {what}: escape {f} within its bound on "
+                  f"only {sh:.5f} of {ne} escaped lanes")
+            parts.append(f"escape {f} {sh:.6f}")
+        parts.append(f"{ne} escaped")
+    say("K12", f"{what}: {n} paths, {ndiv} diverged; {nv} valid vertices "
+        f"compared, max |dpt| {worst_pt:.3g}; share within bounds: "
+        + ", ".join(parts))
+    return worst_pt
+
+
+def compare_image(k, p, what: str, tag: str, share: float) -> float:
+    """Radiance or a frame buffer ((img, rays), (img, rays)) on the same
+    inputs: rays within 0.1%, image mean within 1e-3, >= share of the
+    pixels within rtol 1e-3 (atol 1e-5) on every channel. Returns the max
+    abs pixel error."""
+    import torch
+    (kl, kr), (pl, pr) = k, p
+    rays = abs(kr - pr) / max(pr, 1)
+    ratio = (kl.double().mean() / pl.double().mean()).item()
+    close = torch.isclose(kl, pl, rtol=1e-3, atol=1e-5).all(dim=1)
+    frac = close.float().mean().item()
+    err = (kl - pl).abs().max().item()
+    say(tag, f"{what}: rays kernel {kr} plain {pr} (diff {rays:.3g}), mean "
+        f"ratio {ratio:.7f}, pixels within rtol 1e-3 {frac:.6f}, max abs "
+        f"{err:.3g}")
+    check(bool(torch.isfinite(kl).all()), f"{tag} {what}: non-finite")
+    check(rays <= 1e-3, f"{tag} {what}: rays differ by {rays:.3g}")
+    check(abs(ratio - 1.0) <= 1e-3, f"{tag} {what}: mean ratio {ratio:.7f}")
+    check(frac >= share, f"{tag} {what}: only {frac:.5f} of pixels within "
+          "rtol 1e-3")
+    return err
+
+
+def compare_bdpt(scene, cam, px, py, cfg, keys, what: str,
+                 eta_vcm=None) -> tuple:
+    """K12 (both walks; eta_vcm turns on the light walk's VCM d_vm chain),
+    then K11 and K13 on the kernel walks' buffers, against their plain
+    versions on the same inputs (compare_walk, compare_image); cfg is a
+    BDPTConfig, keys the sample's (key_l, key_e, key_c). Returns the
+    (K12, K11, K13) errors."""
+    import torch
+    from cudapathtracer_tpu_torch import kernels
+    from cudapathtracer_tpu_torch.models import bdpt, paths
+    from cudapathtracer_tpu_torch.utils import rng
+    key_l, key_e, key_c = keys
+    n, dev = px.shape[0], px.device
+    rays = {m: torch.zeros(n, dtype=torch.int32, device=dev)
+            for m in ("light", "eye", "splat", "connect")}
+    lw = kernels.bdpt_walk(scene, px, py, paths.walk_keys(key_l, "light"),
+                           mode="light", max_depth=cfg.light_depth,
+                           rays=rays["light"], eta_vcm=eta_vcm)
+    ew = kernels.bdpt_walk(scene, px, py, paths.walk_keys(key_e, "eye"),
+                           mode="eye", max_depth=cfg.eye_depth,
+                           rays=rays["eye"], camera=cam)
+    pl = paths.generate_light_path(scene, key_l, px, py, cfg.light_depth,
+                                   eta_vcm)
+    pe = paths.generate_eye_path(scene, cam, key_e, px, py, cfg.eye_depth)
+    if eta_vcm is not None:
+        check(bool((pl[0].d_vm != 0).any()), f"K12 {what}: eta_vcm set but "
+              "the plain light walk's d_vm is all zero")
+    err12 = max(compare_walk((lw["bufs"], lw["v0"], None),
+                             (pl[0], pl[1], None), f"{what} light"),
+                compare_walk((ew["bufs"], ew["v0"], ew["escape"]),
+                             (pe[0], pe[1], pe[2]), f"{what} eye"))
+    for m, prays in (("light", pl[2]), ("eye", pe[3])):
+        krays = int(rays[m].sum())
+        check(abs(krays - prays) <= 1e-3 * prays, f"K12 {what} {m}: rays "
+              f"{krays} vs plain {prays}")
+    fbk = torch.zeros((n, 3), device=dev)
+    kernels.bdpt_splat(scene, cam, lw["bufs"], lw["v0"], fbk, rays["splat"],
+                       cfg)
+    fbp = torch.zeros((n, 3), device=dev)
+    _, prays_s = bdpt.light_trace_splat(scene, cam, lw["bufs"], lw["v0"],
+                                        cfg, fbp)
+    err11 = compare_image((fbk, int(rays["splat"].sum())), (fbp, prays_s),
+                          f"{what} splat", "K11", 0.999)
+    out, _ = kernels.bdpt_connect(scene, cam, key_c, ew, lw, None,
+                                  rays["connect"], cfg, px=px, py=py)
+    outp, prays_c = bdpt.connect_plain(
+        scene, cam, key_c, ew["bufs"], ew["v0"], ew["escape"], lw["bufs"],
+        lw["v0"], cfg, rng.pixel_ids(px, py))
+    err13 = compare_image((out, int(rays["connect"].sum())), (outp, prays_c),
+                          f"{what} connect", "K13", 0.995)
+    return err12, err11, err13
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(ROOT, "cudapathtracer_tpu_torch")):
         print("FAIL: run chip_smoke.py from a checkout of the repository "
@@ -354,14 +597,14 @@ def main() -> int:
     sys.path.insert(0, ROOT)
     from cudapathtracer_tpu_torch import kernels
     from cudapathtracer_tpu_torch.driver import Renderer
-    from cudapathtracer_tpu_torch.models import unidirectional
+    from cudapathtracer_tpu_torch.models import bdpt, paths, unidirectional
     from cudapathtracer_tpu_torch.models import unidirectional_mega
     from cudapathtracer_tpu_torch.ops import traverse8
     from cudapathtracer_tpu_torch.scene import builtin
     from cudapathtracer_tpu_torch.scene.camera import Camera
     from cudapathtracer_tpu_torch.scene.materials import builtin_materials
     from cudapathtracer_tpu_torch.scene.scene import build_scene
-    from cudapathtracer_tpu_torch.utils import rng
+    from cudapathtracer_tpu_torch.utils import packing, rng
     from cudapathtracer_tpu_torch.utils.config import MeshConfig, load_config
     from cudapathtracer_tpu_torch.utils.image import rmse
 
@@ -380,12 +623,16 @@ def main() -> int:
     kernels.build(verbose=True)
     build_s = time.perf_counter() - t0
     with open(kernels.LIBRARY + ".ptxas.txt") as f:
-        mk = ptxas_of(f.read(), "uni_mega_kernel")
+        ptxas_log = f.read()
     say("build", f"{kernels.LIBRARY} built in {build_s:.1f} s "
-        f"({len(kernels.SOURCES)} sources in parallel); uni_mega_kernel: "
-        f"{mk['registers']} registers, {mk['stack_bytes']} bytes stack "
-        f"frame, {mk['spill_store_bytes']} bytes spill stores, "
-        f"{mk['spill_load_bytes']} bytes spill loads")
+        f"({len(kernels.SOURCES)} sources in parallel)")
+    for kname in ("uni_mega_kernel", "bdpt_walk_kernel", "bdpt_splat_kernel",
+                  "bdpt_connect_kernel", "packing_kernel"):
+        mk = ptxas_of(ptxas_log, kname)
+        say("build", f"{kname}: {mk['registers']} registers, "
+            f"{mk['stack_bytes']} bytes stack frame, "
+            f"{mk['spill_store_bytes']} bytes spill stores, "
+            f"{mk['spill_load_bytes']} bytes spill loads")
 
     # --- 3. K6
     n = WIDTH * HEIGHT
@@ -701,6 +948,198 @@ def main() -> int:
             f"megakernel: rmse {err:.3g} (bound 1e-3), mean ratio "
             f"{float(img.mean() / golden.mean()):.6f}")
         check(err < 1e-3, f"golden {gname}: rmse {err:.3g}")
+    # --- 10. K10: the packed-vertex codecs, bit-equal to the plain ones
+    gen = np.random.default_rng(13)
+    vec = torch.as_tensor(gen.normal(size=(n, 3)), dtype=torch.float32,
+                          device=dev)
+    vec = (vec / vec.norm(dim=1, keepdim=True)).contiguous()
+    cbeta = torch.as_tensor(gen.lognormal(0.0, 6.0, (n, 3)),
+                            dtype=torch.float32, device=dev)
+    cdl = torch.as_tensor(gen.uniform(size=n) < 0.5, device=dev)
+    cbf = torch.as_tensor(gen.uniform(size=n) < 0.5, device=dev)
+    cli = torch.as_tensor(gen.integers(-1, 1 << 20, n), dtype=torch.int32,
+                          device=dev)
+    cmi = torch.as_tensor(gen.integers(0, 1024, n), dtype=torch.int32,
+                          device=dev)
+
+    def codecs_plain():
+        o = packing.pack_oct(vec)
+        h = packing.to_half3(cbeta)
+        f = packing.pack_flags(cdl, cbf, cli, cmi)
+        return dict(oct=o, dec=packing.unpack_oct(o), half3=h,
+                    beta_dec=packing.from_half3(h), flags=f,
+                    unflags=torch.stack([x.to(torch.int32) for x in
+                                         packing.unpack_flags(f)], dim=1))
+    codec_args = (vec, cbeta, cdl, cbf, cli, cmi)
+    compare_codecs(kernels.packing_roundtrip(*codec_args), codecs_plain(),
+                   f"{n} vectors")
+    stats["packing_roundtrip"].update(
+        bound=bound_ms(n * (34 + 54), n * OPS_PER_CODEC), max_abs_err=0.0,
+        ms=cuda_ms(lambda: kernels.packing_roundtrip(*codec_args), 20),
+        plain_ms=cuda_ms(codecs_plain, 5))
+    say("K10", f"{n} unit vectors, betas and flag words: oct, half and flag "
+        "codecs bit-equal both ways; kernel "
+        f"{stats['packing_roundtrip']['ms']:.4f} ms, plain "
+        f"{stats['packing_roundtrip']['plain_ms']:.4f} ms")
+
+    # --- 11-13. K12, K11, K13 against their plain versions: the 1080p
+    # bunny scene at the config's depths, sample 0; K11 and K13 read the
+    # kernel walk's buffers, so their parity does not rest on K12's
+    cfg0 = load_config(os.path.join(ROOT, "configs", "cornell.rendertron"))
+    bcfg = bdpt.BDPTConfig.from_config(cfg0)
+    key_l, key_e, key_c = bdpt.sample_keys(rng.base_key(), 0)
+    wkeys = {"light": paths.walk_keys(key_l, "light"),
+             "eye": paths.walk_keys(key_e, "eye")}
+
+    def walk(mode, rays=None, with_rows=False):
+        return kernels.bdpt_walk(
+            scene, px, py, wkeys[mode], mode=mode, camera=cam,
+            max_depth=bcfg.light_depth if mode == "light" else bcfg.eye_depth,
+            rays=torch.zeros(n, dtype=torch.int32, device=dev)
+            if rays is None else rays, with_rows=with_rows)
+    t0 = time.perf_counter()
+    wrays = {m: torch.zeros(n, dtype=torch.int32, device=dev)
+             for m in ("light", "eye")}
+    kw = {m: walk(m, wrays[m], with_rows=True) for m in ("light", "eye")}
+    pl = paths.generate_light_path(scene, key_l, px, py, bcfg.light_depth)
+    pe = paths.generate_eye_path(scene, cam, key_e, px, py, bcfg.eye_depth)
+    err12 = 0.0
+    for mode, pw, prays in (("light", (pl[0], pl[1], None), pl[2]),
+                            ("eye", (pe[0], pe[1], pe[2]), pe[3])):
+        k = kw[mode]
+        err12 = max(err12, compare_walk(
+            (k["bufs"], k["v0"], k["escape"]), pw, f"{mode} walk "
+            f"{WIDTH}x{HEIGHT}, depth {pw[0].valid.shape[0] + 1}"))
+        krays = int(wrays[mode].sum())
+        check(abs(krays - prays) <= 1e-3 * prays, f"K12 {mode}: rays "
+              f"{krays} vs plain {prays}")
+    wrows = int(kw["light"]["rows"].sum() + kw["eye"]["rows"].sum())
+    wverts = int(kw["light"]["bufs"].valid.sum() + kw["eye"]["bufs"].valid.sum())
+    tbytes = sum(t.numel() * 4 for t in (scene.bvh8_table, scene.tri_f32,
+                                          scene.light_f32, scene.textures,
+                                          scene.mat_f32))
+    stored = (bcfg.light_depth - 1 + bcfg.eye_depth - 1) * n
+    stats["bdpt_walk"].update(
+        bound=bound_ms(tbytes + n * 16 + stored * VERTEX_BYTES
+                       + n * (52 + 12 + 25 + 8),
+                       wrows * OPS_PER_ROW + wverts * OPS_PER_WALK_VERTEX
+                       + n * (OPS_PER_CAMERA_RAY + 5 * OPS_PER_DRAW)),
+        max_abs_err=err12,
+        ms=cuda_ms(lambda: walk("light"), 3) + cuda_ms(lambda: walk("eye"),
+                                                       3),
+        plain_ms=cuda_ms(lambda: paths.generate_light_path(
+            scene, key_l, px, py, bcfg.light_depth), 1, warmup=0)
+        + cuda_ms(lambda: paths.generate_eye_path(
+            scene, cam, key_e, px, py, bcfg.eye_depth), 1, warmup=0))
+    say("K12", f"light + eye walks: kernel {stats['bdpt_walk']['ms']:.3f} ms, "
+        f"plain {stats['bdpt_walk']['plain_ms']:.3f} ms; "
+        f"{int(wrays['light'].sum()) + int(wrays['eye'].sum())} rays, "
+        f"{wrows} BVH8 rows, {wverts} valid vertices; bound "
+        f"{stats['bdpt_walk']['bound'][0]:.4f} ms "
+        f"({stats['bdpt_walk']['bound'][1]}); "
+        f"{time.perf_counter() - t0:.1f} s for the phase")
+    del pl, pe
+
+    lw, ew = kw["light"], kw["eye"]
+    fbk = torch.zeros((n, 3), device=dev)
+    srays = torch.zeros(n, dtype=torch.int32, device=dev)
+    srows = kernels.bdpt_splat(scene, cam, lw["bufs"], lw["v0"], fbk, srays,
+                               bcfg, with_rows=True)
+    fbk2 = torch.zeros((n, 3), device=dev)
+    kernels.bdpt_splat(scene, cam, lw["bufs"], lw["v0"], fbk2,
+                       torch.zeros(n, dtype=torch.int32, device=dev), bcfg)
+    fbp = torch.zeros((n, 3), device=dev)
+    _, prays_s = bdpt.light_trace_splat(scene, cam, lw["bufs"], lw["v0"],
+                                        bcfg, fbp)
+    err11 = compare_image((fbk, int(srays.sum())), (fbp, prays_s),
+                          f"splat {WIDTH}x{HEIGHT}, {bcfg.light_depth} "
+                          "vertices per light path", "K11", 0.999)
+    say("K11", "two kernel runs on the same buffers (atomicAdd order): max "
+        f"abs difference {(fbk - fbk2).abs().max().item():.3g}")
+    fbt = torch.zeros((n, 3), device=dev)
+    rst = torch.zeros(n, dtype=torch.int32, device=dev)
+    lverts = bcfg.light_depth * n
+    stats["bdpt_splat"].update(
+        bound=bound_ms(tbytes + (bcfg.light_depth - 1) * n * VERTEX_BYTES
+                       + n * 44 + n * 12 + n * 4,
+                       int(srows.sum()) * OPS_PER_ROW
+                       + lverts * OPS_PER_DECODE),
+        max_abs_err=err11,
+        ms=cuda_ms(lambda: kernels.bdpt_splat(scene, cam, lw["bufs"],
+                                              lw["v0"], fbt, rst, bcfg), 5),
+        plain_ms=cuda_ms(lambda: bdpt.light_trace_splat(
+            scene, cam, lw["bufs"], lw["v0"], bcfg, fbt), 1, warmup=0))
+    say("K11", f"kernel {stats['bdpt_splat']['ms']:.3f} ms, plain "
+        f"{stats['bdpt_splat']['plain_ms']:.3f} ms; {int(srays.sum())} "
+        f"shadow rays, {int(srows.sum())} BVH8 rows; bound "
+        f"{stats['bdpt_splat']['bound'][0]:.4f} ms "
+        f"({stats['bdpt_splat']['bound'][1]})")
+
+    crays = torch.zeros(n, dtype=torch.int32, device=dev)
+    outk, crows = kernels.bdpt_connect(scene, cam, key_c, ew, lw, None, crays,
+                                       bcfg, px=px, py=py, with_rows=True)
+    pid = rng.pixel_ids(px, py)
+    outp, prays_c = bdpt.connect_plain(scene, cam, key_c, ew["bufs"],
+                                       ew["v0"], ew["escape"], lw["bufs"],
+                                       lw["v0"], bcfg, pid)
+    err13 = compare_image((outk, int(crays.sum())), (outp, prays_c),
+                          f"connections {WIDTH}x{HEIGHT}, t <= "
+                          f"{bcfg.eye_depth}, s <= {bcfg.light_depth}",
+                          "K13", 0.995)
+    everts = int(ew["bufs"].valid.sum())
+    stats["bdpt_connect"].update(
+        bound=bound_ms(tbytes + stored * VERTEX_BYTES + n * (12 + 25 + 12),
+                       int(crows.sum()) * OPS_PER_ROW
+                       + everts * (bcfg.light_depth * OPS_PER_DECODE
+                                   + 7 * OPS_PER_DRAW)),
+        max_abs_err=err13,
+        ms=cuda_ms(lambda: kernels.bdpt_connect(
+            scene, cam, key_c, ew, lw, None, rst, bcfg, px=px, py=py), 3),
+        plain_ms=cuda_ms(lambda: bdpt.connect_plain(
+            scene, cam, key_c, ew["bufs"], ew["v0"], ew["escape"],
+            lw["bufs"], lw["v0"], bcfg, pid), 1, warmup=0))
+    say("K13", f"kernel {stats['bdpt_connect']['ms']:.3f} ms, plain "
+        f"{stats['bdpt_connect']['plain_ms']:.3f} ms; {int(crays.sum())} "
+        f"shadow rays, {int(crows.sum())} BVH8 rows, {everts} eye vertices; "
+        f"bound {stats['bdpt_connect']['bound'][0]:.4f} ms "
+        f"({stats['bdpt_connect']['bound'][1]})")
+    del kw, lw, ew, fbk, fbk2, fbp, fbt, outk, outp, codec_args, vec, cbeta
+    del cdl, cbf, cli, cmi, wrays, srays, srows, crays, crows, pid, rst
+
+    # --- 13b. every strategy flag, and the VCM light walk (eta_vcm), on the
+    # mirror + glass spheres scene at 256x256: K12, K11, K13 against their
+    # plain versions as above
+    t0 = time.perf_counter()
+    fkeys = bdpt.sample_keys(rng.base_key(), 1)
+    compare_bdpt(sph, scam, sx, sy, bcfg, fkeys, "spheres 256x256 vcm walk",
+                 eta_vcm=VCM_ETA)
+    for fname, over in BDPT_FLAGS.items():
+        compare_bdpt(sph, scam, sx, sy, dataclasses.replace(bcfg, **over),
+                     fkeys, f"spheres 256x256 {fname}")
+    say("flags", f"{len(BDPT_FLAGS)} strategy-flag settings and the VCM "
+        "walk held to their plain versions in "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    # --- 14. the BDPT golden on the card through K12, K11, K12, K13
+    gcfg = bdpt.BDPTConfig(eye_depth=6, light_depth=4)
+    kernels.reset_launches()
+    acc = torch.zeros((256, 3), device=dev)
+    for s in range(8):
+        li, _ = bdpt.render_sample(gscene, gcam, rng.base_key(), s,
+                                   gxx.reshape(-1), gyy.reshape(-1), cfg=gcfg)
+        acc += li
+    check(all(kernels.launches[k] == (16 if k == "bdpt_walk" else 8)
+              for k in BDPT_KERNELS),
+          f"BDPT golden: launches {kernels.launches}")
+    img = (acc / 8).cpu().numpy()
+    golden = np.load(os.path.join(ROOT, "tests", "golden",
+                                  "cornell_bdpt_16x16_8spp.npy"))
+    err = rmse(img, golden)
+    say("golden", f"cornell_bdpt_16x16_8spp.npy (16x16, 8 spp) on the card "
+        f"through K12, K11, K12, K13: rmse {err:.3g} (bound 1e-3), mean "
+        f"ratio {float(img.mean() / golden.mean()):.6f}")
+    check(err < 1e-3, f"BDPT golden: rmse {err:.3g}")
+
     del scene, sph, gscene
 
     # --- 9. the main path through the Renderer: mega (the config's
@@ -722,6 +1161,7 @@ def main() -> int:
             f"{time.perf_counter() - t0:.1f} s: {r.scene.num_triangles} "
             f"triangles, {WIDTH}x{HEIGHT}, depth {DEPTH}, {SPP} spp")
         torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
         torch.cuda.reset_peak_memory_stats()
         kernels.reset_launches()
         t0 = time.perf_counter()
@@ -740,8 +1180,8 @@ def main() -> int:
         say("main", f"{engine}: {rays} rays in a {phase:.3f} s render "
             f"phase = {rays / phase / 1e6:.3f} Mrays/s ({card}); "
             f"{secs:.3f} s with the final image; peak memory "
-            f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB; launches "
-            f"{launches}; non-black {nonblack:.4f}; bad pixels {bad}")
+            f"{peak_gib(base)}; launches {launches}; non-black "
+            f"{nonblack:.4f}; bad pixels {bad}")
         check(fb.shape == (HEIGHT, WIDTH, 3), f"framebuffer shape {fb.shape}")
         check(bad == 0, f"{engine}: {bad} NaN/Inf/negative pixels")
         check(nonblack > 0.9, f"{engine}: only {nonblack:.3f} of pixels "
@@ -749,9 +1189,85 @@ def main() -> int:
         check(launches["render_unidirectional"] == SPP,
               f"{engine}: the megakernel launched "
               f"{launches['render_unidirectional']} times for {SPP} samples")
-        r.save_final(0)
+        r.finish().save_bmp(os.path.join(OUT_DIR, f"{cfg.name}.bmp"))
         if engine == "mega":
             main_launches = launches
+        del r
+
+    # --- 15. the BDPT main path through the Renderer: the same config with
+    # Integrator BIDIRECTIONAL and Engine classic at its own depths
+    cfg = dataclasses.replace(
+        cfg0, integrator="BIDIRECTIONAL", engine="classic", width=WIDTH,
+        height=HEIGHT, sample_count=SPP, name="smoke_bdpt",
+        output_dir=OUT_DIR,
+        meshes=[MeshConfig("builtin:cornell_bunny", 1.0, (0.0, 0.0, 0.0), 2)])
+    t0 = time.perf_counter()
+    r = Renderer(cfg, device="cuda")
+    bcfg = bdpt.BDPTConfig.from_config(r.cfg)
+    say("bdpt", f"Renderer ready in {time.perf_counter() - t0:.1f} s: "
+        f"{r.scene.num_triangles} triangles, {WIDTH}x{HEIGHT}, eye depth "
+        f"{bcfg.eye_depth}, light depth {bcfg.light_depth}, {SPP} spp")
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    r.render(progressive=False, verbose=False)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    bdpt_launches = dict(kernels.launches)
+    acc = r.accum
+    bad = int((~torch.isfinite(acc)).any(dim=1).sum()
+              + (acc < 0).any(dim=1).sum())
+    fb = r.framebuffer()
+    nonblack = float((fb.max(axis=-1) > 0.0).mean())
+    rays, phase = r.metrics.rays_traced, r.metrics.render_seconds
+    say("bdpt", f"{rays} rays in a {phase:.3f} s render phase = "
+        f"{rays / phase / 1e6:.3f} Mrays/s ({card}); {secs:.3f} s with the "
+        f"final image; peak memory {peak_gib(base)}; launches "
+        f"{bdpt_launches}; non-black {nonblack:.4f}; bad pixels {bad}")
+    check(fb.shape == (HEIGHT, WIDTH, 3), f"framebuffer shape {fb.shape}")
+    check(bad == 0, f"bdpt: {bad} NaN/Inf/negative pixels")
+    check(nonblack > 0.9, f"bdpt: only {nonblack:.3f} of pixels non-black")
+    want = {"bdpt_walk": 2 * SPP, "bdpt_splat": SPP, "bdpt_connect": SPP,
+            "render_unidirectional": 0}
+    check(all(bdpt_launches[k] == v for k, v in want.items()),
+          f"bdpt: launches {bdpt_launches}, expected {want}")
+    r.finish().save_bmp(os.path.join(OUT_DIR, f"{cfg.name}.bmp"))
+
+    # one sample's four launches, each between two CUDA events
+    key_l, key_e, key_c = bdpt.sample_keys(r.key, SPP)
+    rays_t = torch.zeros(r.px.shape[0], dtype=torch.int32, device=dev)
+    fb_t = torch.zeros((r.px.shape[0], 3), device=dev)
+    stage_ms = {}
+    for rep in range(2):   # the first pass warms up
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+        ev[0].record()
+        lw = kernels.bdpt_walk(r.scene, r.px, r.py,
+                               paths.walk_keys(key_l, "light"), mode="light",
+                               max_depth=bcfg.light_depth, rays=rays_t)
+        ev[1].record()
+        kernels.bdpt_splat(r.scene, r.camera, lw["bufs"], lw["v0"], fb_t,
+                           rays_t, bcfg)
+        ev[2].record()
+        ew = kernels.bdpt_walk(r.scene, r.px, r.py,
+                               paths.walk_keys(key_e, "eye"), mode="eye",
+                               max_depth=bcfg.eye_depth, rays=rays_t,
+                               camera=r.camera)
+        ev[3].record()
+        kernels.bdpt_connect(r.scene, r.camera, key_c, ew, lw, fb_t, rays_t,
+                             bcfg, px=r.px, py=r.py)
+        ev[4].record()
+        torch.cuda.synchronize()
+        stage_ms = {name: ev[i].elapsed_time(ev[i + 1]) for i, name in
+                    enumerate(("light walk", "splat", "eye walk",
+                               "connect"))}
+        del lw, ew
+    say("bdpt", "one 1080p sample, CUDA events per launch: " + ", ".join(
+        f"{k} {v:.3f} ms" for k, v in stage_ms.items())
+        + f"; sum {sum(stage_ms.values()):.3f} ms ({card})")
+    for k in ("packing_roundtrip",) + BDPT_KERNELS:
+        main_launches[k] = bdpt_launches[k]
 
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,

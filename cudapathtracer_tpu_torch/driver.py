@@ -3,10 +3,13 @@
 Counterpart of cudapathtracer_tpu/driver.py for the configurations this
 package covers: integrator UNIDIRECTIONAL with either engine, the default
 `Engine: mega` (models/unidirectional_mega.py) or `Engine: classic`
-(models/unidirectional.py). The two are one estimator with different draw
+(models/unidirectional.py), and integrator BIDIRECTIONAL with `Engine:
+classic` (models/bdpt.py, its settings from BDPTConfig.from_config). The
+two unidirectional engines are one estimator with different draw
 schedules, so different noise realisations with different goldens: one is
-never rendered when the other was asked for. Every other integrator raises
-NotImplementedError naming its ROADMAP item.
+never rendered when the other was asked for. BIDIRECTIONAL with the
+default mega engine (the JAX package's bdpt_mega) and every other
+integrator raise NotImplementedError naming their ROADMAP item.
 
 The Renderer runs on an explicit device. "cuda" needs a CUDA build of
 PyTorch and a card and raises otherwise; the CPU is used only when asked
@@ -23,6 +26,7 @@ import time
 import numpy as np
 import torch
 
+from cudapathtracer_tpu_torch.models import bdpt as bdpt_mod
 from cudapathtracer_tpu_torch.models import unidirectional as uni_mod
 from cudapathtracer_tpu_torch.models import unidirectional_mega as mega_mod
 from cudapathtracer_tpu_torch.scene import builtin
@@ -50,7 +54,8 @@ _ENGINES = {"mega": mega_mod.render_sample, "classic": uni_mod.render_sample}
 # what is not ported yet, by ROADMAP item
 _NOT_PORTED = {
     "NAIVE_UNIDIRECTIONAL": "M7 (naive)",
-    "BIDIRECTIONAL": "M9 (BDPT)",
+    "BIDIRECTIONAL": "M12 (bdpt_mega, kernel K14; 'Engine: classic' is "
+                     "ported)",
     "VCM": "M10 (photon family)",
     "SPPM": "M10 (photon family)",
 }
@@ -72,12 +77,14 @@ def check_supported(cfg: RenderConfig) -> None:
     integ, engine = cfg.integrator, cfg.engine
     if integ == "UNIDIRECTIONAL" and engine in _ENGINES:
         return
+    if integ == "BIDIRECTIONAL" and engine == "classic":
+        return
     item = _NOT_PORTED.get(integ) or f"engine {engine!r}"
     raise NotImplementedError(
         f"integrator {integ} with engine {engine!r} is not ported to "
         f"cudapathtracer_tpu_torch yet (ROADMAP {item}); the port covers "
         "UNIDIRECTIONAL with 'Engine: mega' (the default) or "
-        "'Engine: classic'")
+        "'Engine: classic', and BIDIRECTIONAL with 'Engine: classic'")
 
 
 def mesh_from_config(cfg: RenderConfig, render_number: int = 0) -> MeshData:
@@ -159,6 +166,10 @@ class Renderer:
     def render_sample(self, sample_idx: int):
         """One sample of every pixel -> (radiance [P,3], rays)."""
         cfg = self.cfg
+        if cfg.integrator == "BIDIRECTIONAL":
+            return bdpt_mod.render_sample(
+                self.scene, self.camera, self.key, sample_idx, self.px,
+                self.py, cfg=bdpt_mod.BDPTConfig.from_config(cfg))
         return _ENGINES[cfg.engine](
             self.scene, self.camera, self.key, sample_idx, self.px, self.py,
             max_depth=max(cfg.max_depth, 1),

@@ -3,7 +3,9 @@
 Sources live in kernels/csrc (sm_90a): one .cu per launchable kernel family
 and one .cuh of device code per TPU kernel, shared between them (K1
 traverse8.cuh, K7 camera.cuh, K2 shade.cuh, K3 bsdf.cuh, K4 nee.cuh, K6
-threefry.cuh; the per-path megakernel K5, uni_mega.cu, calls them all).
+threefry.cuh, K10 packing.cuh, K12's MIS step mis.cuh, the BDPT bodies
+bdpt.cuh; the per-path megakernel K5, uni_mega.cu, and the BDPT kernels
+K11 bdpt_splat.cu, K12 bdpt_walk.cu and K13 bdpt_connect.cu call them).
 They are compiled on first use with nvcc, one process per source, all
 started together, and linked into one shared library with a plain C
 interface, build/torch_ext/libtpt_torch_kernels.so, called through ctypes
@@ -38,9 +40,10 @@ import threading
 import torch
 
 CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
-SOURCES = ("rng.cu", "camera.cu", "traverse8.cu", "uni_mega.cu")
+SOURCES = ("rng.cu", "camera.cu", "traverse8.cu", "uni_mega.cu", "packing.cu",
+           "bdpt_walk.cu", "bdpt_splat.cu", "bdpt_connect.cu")
 HEADERS = ("threefry.cuh", "camera.cuh", "traverse8.cuh", "shade.cuh",
-           "bsdf.cuh", "nee.cuh")
+           "bsdf.cuh", "nee.cuh", "packing.cuh", "mis.cuh", "bdpt.cuh")
 _REPO_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 BUILD_DIR = os.path.join(_REPO_ROOT, "build", "torch_ext")
@@ -53,7 +56,9 @@ SCHEDULES = {"classic": 0, "mega": 1}
 
 # kernel name -> launches since the last reset_launches()
 launches = {"closest_hit8": 0, "shadow_factor8": 0, "uniform_id": 0,
-            "generate_rays": 0, "render_unidirectional": 0, "shade_eval": 0}
+            "generate_rays": 0, "render_unidirectional": 0, "shade_eval": 0,
+            "packing_roundtrip": 0, "bdpt_walk": 0, "bdpt_splat": 0,
+            "bdpt_connect": 0}
 
 _lock = threading.Lock()
 _libs = {}        # stack depth -> loaded library
@@ -158,6 +163,14 @@ def _load(stack_d: int = STACK_D):
         lib.tpt_shade_eval.restype = ctypes.c_int
         lib.tpt_shade_eval.argtypes = [p, i32, p, i32, p, p, p, p, p, p, p,
                                        p, p, p, i64, p, p, p]
+        lib.tpt_packing_roundtrip.restype = ctypes.c_int
+        lib.tpt_packing_roundtrip.argtypes = [p, p, p, p, p, p, i64, p, p,
+                                              p, p, p, p, p]
+        for name in ("tpt_bdpt_walk", "tpt_bdpt_connect"):
+            getattr(lib, name).restype = ctypes.c_int
+            getattr(lib, name).argtypes = [p, p, p, p, p]
+        lib.tpt_bdpt_splat.restype = ctypes.c_int
+        lib.tpt_bdpt_splat.argtypes = [p, p, p, p]
         _libs[stack_d] = lib
         return lib
 
@@ -305,6 +318,15 @@ def shadow_factor8(table, tri_f32, o, d, max_t, skip_tri, active,
     return scale if rows is None else (scale, rows)
 
 
+def _table(scene, dev):
+    """The scene's BVH8 table [R, 96], checked."""
+    tbl = scene.bvh8_table
+    if tbl.dim() != 2 or tbl.shape[1] != 96:
+        raise ValueError(f"bvh8 table must be [R,96], got {tuple(tbl.shape)}")
+    _check(tbl, "table", torch.float32, tbl.shape, dev)
+    return tbl
+
+
 def _scene_args(scene, dev):
     """Check the scene blocks the per-path kernels read; returns them."""
     blocks = dict(tri_f32=scene.tri_f32, light_f32=scene.light_f32,
@@ -337,10 +359,7 @@ def render_unidirectional(scene, px: torch.Tensor, py: torch.Tensor,
     n = px.shape[0]
     _check(px, "px", torch.int32, (n,), dev)
     _check(py, "py", torch.int32, (n,), dev)
-    tbl = scene.bvh8_table
-    if tbl.dim() != 2 or tbl.shape[1] != 96:
-        raise ValueError(f"bvh8 table must be [R,96], got {tuple(tbl.shape)}")
-    _check(tbl, "table", torch.float32, tbl.shape, dev)
+    tbl = _table(scene, dev)
     b = _scene_args(scene, dev)
     if len(cam_params) != 19 or len(keys) != 28:
         raise ValueError("render_unidirectional: 19 camera floats and 28 "
@@ -397,3 +416,230 @@ def shade_eval(scene, o, d, t, tri, u, v, ids, eta_i, keys: list):
                 eta_i.data_ptr(), n, ctypes.addressof(ckeys), out.data_ptr(),
                 _stream(dev))
     return out
+
+
+def packing_roundtrip(vec, beta, is_delta, backface, light_ind, mat_id):
+    """K10 codecs (packing.cu) over a batch: vec, beta [N,3] f32; is_delta,
+    backface [N] bool; light_ind, mat_id [N] i32 -> dict of oct [N] i32
+    (uint32 bits), dec [N,3] f32, half3 [N,3] f16, beta_dec [N,3] f32,
+    flags [N] i32 (uint32 bits), unflags [N,4] i32 (is_delta, backface,
+    light_ind, mat_id)."""
+    dev = _cuda_device(vec)
+    n = vec.shape[0]
+    _check(vec, "vec", torch.float32, (n, 3), dev)
+    _check(beta, "beta", torch.float32, (n, 3), dev)
+    _check(is_delta, "is_delta", torch.bool, (n,), dev)
+    _check(backface, "backface", torch.bool, (n,), dev)
+    _check(light_ind, "light_ind", torch.int32, (n,), dev)
+    _check(mat_id, "mat_id", torch.int32, (n,), dev)
+    e = lambda *s, dt=torch.float32: torch.empty(s, dtype=dt, device=dev)
+    out = dict(oct=e(n, dt=torch.int32), dec=e(n, 3),
+               half3=e(n, 3, dt=torch.float16), beta_dec=e(n, 3),
+               flags=e(n, dt=torch.int32), unflags=e(n, 4, dt=torch.int32))
+    lib = _load()
+    with torch.cuda.device(dev):
+        _launch("packing_roundtrip", lib, lib.tpt_packing_roundtrip,
+                vec.data_ptr(), beta.data_ptr(), is_delta.data_ptr(),
+                backface.data_ptr(), light_ind.data_ptr(), mat_id.data_ptr(),
+                n, *(out[k].data_ptr() for k in ("oct", "dec", "half3",
+                                                 "beta_dec", "flags",
+                                                 "unflags")),
+                _stream(dev))
+    return out
+
+
+# --- the BDPT kernels (K11-K13) ----------------------------------------------
+
+_BUF_DTYPES = {"pt": torch.float32, "n_oct": torch.int32,
+               "wo_oct": torch.int32, "uv_h": torch.float16,
+               "beta_h": torch.float16, "pdf_fwd": torch.float32,
+               "d_vcm": torch.float32, "d_vc": torch.float32,
+               "d_vm": torch.float32, "flags": torch.int32,
+               "valid": torch.bool}
+_BUF_TAIL = {"pt": (3,), "uv_h": (2,), "beta_h": (3,)}
+
+
+def _check_bufs(bufs, name: str, depth: int, n: int, dev) -> list:
+    """Check a PathBuffers [depth, n]; returns its 11 field addresses."""
+    ptrs = []
+    for field in _BUF_DTYPES:
+        t = getattr(bufs, field)
+        _check(t, f"{name}.{field}", _BUF_DTYPES[field],
+               (depth, n) + _BUF_TAIL.get(field, ()), dev)
+        ptrs.append(t.data_ptr())
+    return ptrs
+
+
+def _bdpt_scene(scene, dev) -> dict:
+    tbl = _table(scene, dev)
+    b = _scene_args(scene, dev)
+    mat = scene.mat_f32
+    if mat.dim() != 2 or mat.shape[1] != 26:
+        raise ValueError(f"mat_f32 must be [M,26], got {tuple(mat.shape)}")
+    _check(mat, "mat_f32", torch.float32, mat.shape, dev)
+    return dict(table=tbl, tri_f32=b["tri_f32"], light_f32=b["light_f32"],
+                textures=b["textures"], mat_f32=mat)
+
+
+def _i64s(values):
+    return (ctypes.c_int64 * len(values))(*(int(v) for v in values))
+
+
+def _f32s(values):
+    return (ctypes.c_float * len(values))(*values)
+
+
+def _u32s(values):
+    return (ctypes.c_uint32 * len(values))(*(v & 0xFFFFFFFF for v in values))
+
+
+def bdpt_walk(scene, px, py, keys: list, *, mode: str, max_depth: int,
+              rays, camera=None, eta_vcm=None, with_rows: bool = False):
+    """K12 (bdpt_walk.cu): one eye or light walk per pixel (px, py) [N]
+    int32; keys: 12 words (models/paths.walk_keys); camera: eye mode only.
+    Adds each walk's closest rays to rays [N] i32. eta_vcm turns on the
+    VCM d_vm chain (light mode). -> dict(bufs=PathBuffers [max_depth-1, N],
+    v0=vertex-0 dict, escape=Escape (eye) or None, rows=[N] i32 BVH8 rows
+    visited or None)."""
+    from cudapathtracer_tpu_torch.models import paths
+    dev = _cuda_device(px)
+    n = px.shape[0]
+    _check(px, "px", torch.int32, (n,), dev)
+    _check(py, "py", torch.int32, (n,), dev)
+    _check(rays, "rays", torch.int32, (n,), dev)
+    if mode not in ("eye", "light"):
+        raise ValueError(f"mode {mode!r}: 'eye' or 'light'")
+    if mode == "eye" and camera is None:
+        raise ValueError("the eye walk needs the camera")
+    if max_depth < 1 or len(keys) != 12:
+        raise ValueError("bdpt_walk: max_depth >= 1 and 12 key words")
+    sc = _bdpt_scene(scene, dev)
+    depth = max_depth - 1
+    bufs = paths.PathBuffers.empty(depth, n, dev)
+    e = lambda *s, dt=torch.float32: torch.empty(s, dtype=dt, device=dev)
+    v0 = dict(pt=e(n, 3))
+    esc = None
+    if mode == "light":
+        v0.update(n=e(n, 3), beta=e(n, 3), pdf_fwd=e(n),
+                  light_ind=e(n, dt=torch.int32), mat_id=e(n, dt=torch.int32),
+                  tri=e(n, dt=torch.int32))
+    else:
+        esc = paths.Escape(valid=e(n, dt=torch.bool), d=e(n, 3), beta=e(n, 3))
+    rows = torch.zeros(n, dtype=torch.int32, device=dev) if with_rows \
+        else None
+    g = lambda d, k: _ptr(d.get(k)) or 0
+    ptrs = ([sc[k].data_ptr() for k in ("table", "tri_f32", "light_f32",
+                                        "textures")]
+            + [px.data_ptr(), py.data_ptr()]
+            + _check_bufs(bufs, "bufs", depth, n, dev)
+            + [g(v0, k) for k in ("pt", "n", "beta", "pdf_fwd", "light_ind",
+                                  "mat_id", "tri")]
+            + [_ptr(esc.valid) if esc else 0, _ptr(esc.d) if esc else 0,
+               _ptr(esc.beta) if esc else 0, rays.data_ptr(),
+               _ptr(rows) or 0])
+    cam = camera.kernel_params() if camera is not None else [0.0] * 19
+    area = camera.plane_area() if camera is not None else 0.0
+    iv = [n, sc["tri_f32"].shape[1], scene.num_lights,
+          0 if mode == "eye" else 1, max_depth, int(mode == "eye"),
+          int(eta_vcm is not None)]
+    fv = cam + [area, 0.0 if eta_vcm is None else float(eta_vcm)]
+    args = (_i64s(ptrs), _i64s(iv), _f32s(fv), _u32s(keys))  # kept alive
+    lib = _load()
+    with torch.cuda.device(dev):
+        _launch("bdpt_walk", lib, lib.tpt_bdpt_walk,
+                *(ctypes.addressof(a) for a in args), _stream(dev))
+    if mode == "eye":
+        v0["n"] = torch.tensor(camera.forward, dtype=torch.float32,
+                               device=dev).expand(n, 3)
+    return dict(bufs=bufs, v0=v0, escape=esc, rows=rows)
+
+
+def bdpt_splat(scene, camera, lbufs, lv0: dict, fb, rays, cfg, *,
+               with_rows: bool = False):
+    """K11 (bdpt_splat.cu): the t=1 light-trace splat of light paths [N]
+    (lbufs [L-1, N], the endpoint lv0) added into the raster-indexed frame
+    buffer fb [P,3] f32 in place with atomics; rays [N] i32 += the shadow
+    rays to the lens. cfg: a BDPTConfig (do_mis, paint_weight). -> rows
+    [N] i32 (BVH8 rows visited) with with_rows, else None."""
+    dev = _cuda_device(fb)
+    n = lv0["pt"].shape[0]
+    p = fb.shape[0]
+    _check(fb, "fb", torch.float32, (p, 3), dev)
+    if p != camera.width * camera.height:
+        raise ValueError(f"fb has {p} pixels, the camera {camera.width}x"
+                         f"{camera.height}")
+    _check(rays, "rays", torch.int32, (n,), dev)
+    for k, dt, tail in (("pt", torch.float32, (3,)), ("n", torch.float32,
+                                                       (3,)),
+                        ("beta", torch.float32, (3,)),
+                        ("pdf_fwd", torch.float32, ()),
+                        ("mat_id", torch.int32, ())):
+        _check(lv0[k], f"lv0.{k}", dt, (n,) + tail, dev)
+    sc = _bdpt_scene(scene, dev)
+    depth = lbufs.pt.shape[0]
+    rows = torch.zeros(n, dtype=torch.int32, device=dev) if with_rows \
+        else None
+    ptrs = ([sc[k].data_ptr() for k in ("table", "tri_f32", "mat_f32",
+                                        "textures")]
+            + _check_bufs(lbufs, "lbufs", depth, n, dev)
+            + [lv0[k].data_ptr() for k in ("pt", "n", "beta", "pdf_fwd",
+                                           "mat_id")]
+            + [fb.data_ptr(), rays.data_ptr(), _ptr(rows) or 0])
+    iv = [n, sc["tri_f32"].shape[1], depth, camera.width, camera.height,
+          int(cfg.do_mis), int(cfg.paint_weight)]
+    fv = camera.kernel_params() + [camera.plane_area()]
+    args = (_i64s(ptrs), _i64s(iv), _f32s(fv))
+    lib = _load()
+    with torch.cuda.device(dev):
+        _launch("bdpt_splat", lib, lib.tpt_bdpt_splat,
+                *(ctypes.addressof(a) for a in args), _stream(dev))
+    return rows
+
+
+def bdpt_connect(scene, camera, key_c, eye: dict, light: dict, fb, rays, cfg,
+                 *, px, py, with_rows: bool = False):
+    """K13 (bdpt_connect.cu): the connection stage of each pixel (px, py)
+    [N] i32; eye: bdpt_walk's eye result (bufs [E-1, N], v0, escape),
+    light: its light result (bufs [L-1, N]); fb: [N,3] f32 added to the
+    result, or None; key_c: the sample's connection key pair; rays [N] i32
+    += the shadow rays traced. cfg: a BDPTConfig. -> (radiance [N,3] f32,
+    rows [N] i32 BVH8 rows visited or None)."""
+    dev = _cuda_device(px)
+    n = px.shape[0]
+    _check(px, "px", torch.int32, (n,), dev)
+    _check(py, "py", torch.int32, (n,), dev)
+    _check(rays, "rays", torch.int32, (n,), dev)
+    if fb is not None:
+        _check(fb, "fb", torch.float32, (n, 3), dev)
+    if cfg.eye_depth < 2 or cfg.light_depth < 1:
+        raise ValueError("bdpt_connect: eye_depth >= 2 and light_depth >= 1")
+    sc = _bdpt_scene(scene, dev)
+    esc = eye["escape"]
+    _check(eye["v0"]["pt"], "ev0.pt", torch.float32, (n, 3), dev)
+    _check(esc.valid, "escape.valid", torch.bool, (n,), dev)
+    _check(esc.d, "escape.d", torch.float32, (n, 3), dev)
+    _check(esc.beta, "escape.beta", torch.float32, (n, 3), dev)
+    out = torch.empty((n, 3), dtype=torch.float32, device=dev)
+    rows = torch.zeros(n, dtype=torch.int32, device=dev) if with_rows \
+        else None
+    ptrs = ([sc[k].data_ptr() for k in ("table", "tri_f32", "light_f32",
+                                        "mat_f32", "textures")]
+            + [px.data_ptr(), py.data_ptr()]
+            + _check_bufs(eye["bufs"], "eye bufs", cfg.eye_depth - 1, n, dev)
+            + [eye["v0"]["pt"].data_ptr(), esc.valid.data_ptr(),
+               esc.d.data_ptr(), esc.beta.data_ptr()]
+            + _check_bufs(light["bufs"], "light bufs", cfg.light_depth - 1,
+                          n, dev)
+            + [_ptr(fb) or 0, out.data_ptr(), rays.data_ptr(),
+               _ptr(rows) or 0])
+    iv = [n, sc["tri_f32"].shape[1], scene.num_lights, cfg.eye_depth,
+          cfg.light_depth, int(cfg.naive), int(cfg.nee), int(cfg.connection),
+          int(cfg.do_mis), int(cfg.paint_weight),
+          int(cfg.sample_environment)]
+    fv = camera.kernel_params() + [camera.plane_area()]
+    args = (_i64s(ptrs), _i64s(iv), _f32s(fv), _u32s(list(key_c)))
+    lib = _load()
+    with torch.cuda.device(dev):
+        _launch("bdpt_connect", lib, lib.tpt_bdpt_connect,
+                *(ctypes.addressof(a) for a in args), _stream(dev))
+    return out, rows

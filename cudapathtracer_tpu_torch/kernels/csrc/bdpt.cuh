@@ -1,0 +1,848 @@
+// K11-K13 device code: the per-thread bodies of the BDPT kernels and the
+// packed path-vertex buffers they share.
+//
+//   walk_path      K12: one eye or light walk (models/paths.py:129,219,237)
+//   splat_vertex   K11: one light vertex to the lens (models/bdpt.py:93)
+//   connect_pixel  K13: the connection stage of one pixel
+//                  (models/bdpt.py:175,226)
+//
+// bdpt_walk.cu, bdpt_splat.cu and bdpt_connect.cu launch them, one thread
+// per path, per light vertex and per pixel. The buffers are depth-major
+// [D, N] in the JAX package's packed layout (models/paths.PathBuffers):
+// the walk keeps its state unpacked in registers and stores each vertex
+// through the K10 codecs (packing.cuh); the splat and the connections read
+// the DECODED vertices, as the JAX stages do. The light endpoint (s = 1)
+// is kept unpacked (v0 arrays). Every draw is keyed by the pixel id
+// (py << 14) + px and derived in-kernel with Threefry where it depends on
+// depth (bounce_key(key, depth), fold_in(key_c, t)).
+//
+// Arithmetic follows the plain versions (models/paths.py, models/bdpt.py)
+// operation for operation; the files are built with -fmad=false. x**3 and
+// x**4 are XLA's integer_pow products x (x x) and (x x)(x x).
+#pragma once
+
+#include <cuda_fp16.h>
+
+#include <cstdint>
+
+#include "bsdf.cuh"
+#include "camera.cuh"
+#include "mis.cuh"
+#include "nee.cuh"
+#include "packing.cuh"
+#include "shade.cuh"
+#include "threefry.cuh"
+#include "traverse8.cuh"
+
+namespace tpt {
+
+constexpr float kMaxGNee = 15.0f;
+constexpr float kMaxGConnect = 2.0f;
+constexpr float kMaxFireflyLum = 5.0f;
+constexpr int kMatCols = 26;  // mat_f32: shade-row columns 20:46
+
+// ---- packed buffers --------------------------------------------------------
+
+// One walk's buffers, all [D, N]; element (j, i) is vertex j + 1 of path i.
+struct PathBufs {
+  float* pt;          // [D,N,3]
+  uint32_t* n_oct;    // [D,N]
+  uint32_t* wo_oct;   // [D,N] unit vector toward the previous vertex
+  __half* uv;         // [D,N,2]
+  __half* beta;       // [D,N,3]
+  float* pdf_fwd;
+  float* d_vcm;
+  float* d_vc;
+  float* d_vm;
+  uint32_t* flags;
+  bool* valid;
+  int64_t n;
+  int depth;
+};
+
+// A decoded vertex (the connection and splat stages' view).
+struct Vertex {
+  V3 pt, n, wo, beta;
+  float u, v;  // uv
+  float pdf_fwd, d_vcm, d_vc;
+  bool valid, is_delta, backface;
+  int32_t light_ind, mat_id;
+};
+
+__device__ __forceinline__ Vertex load_vertex(const PathBufs& b, int j,
+                                              int64_t i) {
+  const int64_t k = j * b.n + i;
+  Vertex v;
+  v.valid = b.valid[k];
+  v.pt = v3(b.pt[3 * k], b.pt[3 * k + 1], b.pt[3 * k + 2]);
+  v.n = unpack_oct(b.n_oct[k]);
+  v.wo = unpack_oct(b.wo_oct[k]);
+  v.beta = load_half3(b.beta + 3 * k);
+  v.u = __half2float(b.uv[2 * k]);
+  v.v = __half2float(b.uv[2 * k + 1]);
+  v.pdf_fwd = b.pdf_fwd[k];
+  v.d_vcm = b.d_vcm[k];
+  v.d_vc = b.d_vc[k];
+  const Flags f = unpack_flags(b.flags[k]);
+  v.is_delta = f.is_delta;
+  v.backface = f.backface;
+  v.light_ind = f.light_ind;
+  v.mat_id = f.mat_id;
+  return v;
+}
+
+__device__ __forceinline__ void store_vertex(const PathBufs& b, int j,
+                                             int64_t i, V3 pt, V3 n, V3 wo,
+                                             float u, float v, V3 beta,
+                                             float pdf_fwd, float d_vcm,
+                                             float d_vc, float d_vm,
+                                             uint32_t flags, bool valid) {
+  const int64_t k = j * b.n + i;
+  b.pt[3 * k] = pt.x;
+  b.pt[3 * k + 1] = pt.y;
+  b.pt[3 * k + 2] = pt.z;
+  b.n_oct[k] = pack_oct(n);
+  b.wo_oct[k] = pack_oct(wo);
+  b.uv[2 * k] = __float2half_rn(u);
+  b.uv[2 * k + 1] = __float2half_rn(v);
+  store_half3(b.beta + 3 * k, beta);
+  b.pdf_fwd[k] = pdf_fwd;
+  b.d_vcm[k] = d_vcm;
+  b.d_vc[k] = d_vc;
+  b.d_vm[k] = d_vm;
+  b.flags[k] = flags;
+  b.valid[k] = valid;
+}
+
+// A vertex the walk did not reach: only `valid` is read downstream.
+__device__ __forceinline__ void store_dead(const PathBufs& b, int j,
+                                           int64_t i) {
+  const V3 z = v3(0.0f, 0.0f, 0.0f);
+  store_vertex(b, j, i, z, v3(0.0f, 0.0f, 1.0f), v3(0.0f, 0.0f, 1.0f), 0.0f,
+               0.0f, z, 0.0f, 0.0f, 0.0f, 0.0f, 0u, false);
+}
+
+// ---- shared pieces ---------------------------------------------------------
+
+struct SceneRefs {
+  const float* table;     // bvh8_table [R, 96]
+  const float* tri_f32;   // [T, tri_cols]
+  int tri_cols;
+  Lights lights;          // light_f32 [L, 17]
+  const float* mat_f32;   // [M, 26]
+  const float* textures;  // [A, 3]
+};
+
+// The draws of one key: draw(d) = uniform of draw_key(key, d) keyed by id.
+struct KeyDraws {
+  uint32_t k0, k1, id;
+  __device__ __forceinline__ float operator()(int d) const {
+    uint32_t a = 0u, b = static_cast<uint32_t>(d);
+    threefry2x32(k0, k1, a, b);  // draw_key(key, d) = fold_in(key, d)
+    return uniform_draw_key(a, b, id);
+  }
+};
+
+// fold_in(key, data)
+__device__ __forceinline__ KeyDraws fold_draws(uint32_t k0, uint32_t k1,
+                                               uint32_t data, uint32_t id) {
+  uint32_t a = 0u, b = data;
+  threefry2x32(k0, k1, a, b);
+  KeyDraws d;
+  d.k0 = a;
+  d.k1 = b;
+  d.id = id;
+  return d;
+}
+
+// Draws whose keys were folded on the host: pairs keys[2d], keys[2d+1].
+struct TableDraws {
+  const uint32_t* keys;
+  uint32_t id;
+  __device__ __forceinline__ float operator()(int d) const {
+    return uniform_draw_key(keys[2 * d], keys[2 * d + 1], id);
+  }
+};
+
+struct LightPoint {
+  int32_t li, tri;
+  V3 p, n, le;
+  float area;
+};
+
+// Uniform light pick + sqrt-warp area sample with the INTERPOLATED normal
+// (draws 0, 1, 2: pick, u, v).
+template <class Draw>
+__device__ __forceinline__ LightPoint light_point(const Draw& draw,
+                                                  const SceneRefs& sc) {
+  const int32_t count = sc.lights.count > 1 ? sc.lights.count : 1;
+  const float num = static_cast<float>(count);
+  int32_t idx = static_cast<int32_t>(draw(0) * num);
+  idx = idx < count - 1 ? idx : count - 1;
+  const float* r = sc.lights.rows + 17 * static_cast<int64_t>(idx);
+  LightPoint lp;
+  lp.li = idx;
+  lp.tri = row_i32(r, 16);
+  const V3 a = row_v3(r, 0), b = row_v3(r, 3), c = row_v3(r, 6);
+  lp.le = row_v3(r, 12);
+  lp.area = __ldg(r + 15);
+  const float* tn = sc.tri_f32 + static_cast<int64_t>(lp.tri) * sc.tri_cols + 9;
+  const V3 n0 = row_v3(tn, 0), n1 = row_v3(tn, 3), n2 = row_v3(tn, 6);
+  const float u = sqrtf(draw(1));
+  const float v = draw(2);
+  const float w0 = 1.0f - u, w1 = u * (1.0f - v), w2 = u * v;
+  lp.p = add(add(scale(a, w0), scale(b, w1)), scale(c, w2));
+  lp.n = normalize(add(add(scale(n0, w0), scale(n1, w1)), scale(n2, w2)));
+  return lp;
+}
+
+__device__ __forceinline__ float cube(float x) { return x * (x * x); }
+
+__device__ __forceinline__ float fourth(float x) {
+  const float x2 = x * x;
+  return x2 * x2;
+}
+
+__device__ __forceinline__ Mat mat_of(const SceneRefs& sc, int32_t mat_id) {
+  return read_mat(sc.mat_f32 + kMatCols * static_cast<int64_t>(mat_id));
+}
+
+__device__ __forceinline__ float max3(float a, float b, float c) {
+  return fmaxf(fmaxf(a, b), c);
+}
+
+struct Weighting {
+  bool do_mis, paint_weight;
+  __device__ __forceinline__ V3 operator()(V3 contrib, float w) const {
+    if (paint_weight) return v3(w, w, w);
+    return do_mis ? scale(contrib, w) : contrib;
+  }
+};
+
+// ---- K12: the walk ---------------------------------------------------------
+
+constexpr int kModeEye = 0;
+constexpr int kModeLight = 1;
+
+struct WalkParams {
+  CameraParams cam;        // eye mode: raygen (camera draw keys inside)
+  float plane_area;        // eye mode
+  uint32_t light_keys[10]; // light mode: draw keys 100..104
+  uint32_t key0, key1;     // the walk key (bounce keys derive from it)
+  int mode, max_depth;
+  bool radiance;           // transport: radiance (eye) or importance
+  bool use_vm;             // VCM d_vm chain
+  float eta_vcm;
+};
+
+// Endpoint outputs: eye v0_pt; light all v0 arrays; eye escape arrays.
+struct WalkOut {
+  PathBufs bufs;
+  float* v0_pt;
+  float* v0_n;
+  float* v0_beta;
+  float* v0_pdf;
+  int32_t* v0_light;
+  int32_t* v0_mat;
+  int32_t* v0_tri;
+  bool* esc_valid;
+  float* esc_d;
+  float* esc_beta;
+  int32_t* rays;   // += closest rays of the walk
+  int32_t* rows;   // nullable: += BVH8 rows visited
+};
+
+__device__ __forceinline__ void put3(float* dst, int64_t i, V3 a) {
+  dst[3 * i] = a.x;
+  dst[3 * i + 1] = a.y;
+  dst[3 * i + 2] = a.z;
+}
+
+__device__ __forceinline__ void walk_path(const SceneRefs& sc,
+                                          const WalkParams& p,
+                                          const WalkOut& out, int64_t i,
+                                          int32_t px, int32_t py) {
+  const uint32_t id = static_cast<uint32_t>((py << 14) + px);
+  V3 o, d, thr, prev_pt;
+  float prev_pdf, prev_cos, first_vc;
+  if (p.mode == kModeEye) {
+    float org[3], dir[3];
+    camera_ray(p.cam, static_cast<float>(px), static_cast<float>(py), id, org,
+               dir);
+    o = v3(org[0], org[1], org[2]);
+    d = v3(dir[0], dir[1], dir[2]);
+    const V3 fwd = v3(p.cam.forward[0], p.cam.forward[1], p.cam.forward[2]);
+    const float cos_cam = fabsf(dot(fwd, d));
+    prev_pdf = 1.0f / (p.plane_area * cube(cos_cam));
+    prev_cos = cos_cam;
+    thr = v3(1.0f, 1.0f, 1.0f);
+    prev_pt = o;
+    first_vc = 0.0f;
+    put3(out.v0_pt, i, o);
+  } else {
+    const TableDraws ld{p.light_keys, id};
+    const LightPoint lp = light_point(ld, sc);
+    const float num =
+        static_cast<float>(sc.lights.count > 1 ? sc.lights.count : 1);
+    const float pdf0 = (1.0f / num) / fmaxf(lp.area, 1e-20f);
+    const V3 beta0 = scale(lp.le, kPi / pdf0);
+    const V3 out_local = cosine_sample(ld(3), ld(4));
+    const V3 out_world = to_world(out_local, lp.n);
+    const float cos_emit = fabsf(out_local.z);
+    put3(out.v0_pt, i, lp.p);
+    put3(out.v0_n, i, lp.n);
+    put3(out.v0_beta, i, beta0);
+    out.v0_pdf[i] = pdf0;
+    out.v0_light[i] = lp.li;
+    out.v0_mat[i] = row_i32(
+        sc.tri_f32 + static_cast<int64_t>(lp.tri) * sc.tri_cols, 76);
+    out.v0_tri[i] = lp.tri;
+    o = add(lp.p, scale(lp.n, kRayEps));
+    d = out_world;
+    thr = beta0;
+    prev_pdf = cos_emit / kPi;
+    prev_cos = cos_emit;
+    prev_pt = lp.p;
+    first_vc = 1.0f / fmaxf(pdf0, 1e-20f);
+  }
+  const float first_vm = p.use_vm ? first_vc / fmaxf(p.eta_vcm, 1e-30f) : 0.0f;
+
+  MisState ms;
+  ms.d_vcm = ms.d_vc = ms.d_vm = ms.pdf_rev_prev = 0.0f;
+  ms.prev_was_delta = false;
+  bool alive = true, escaped = false;
+  V3 esc_d = d, esc_beta = thr;
+  int32_t rays = 0, rows = 0;
+  for (int depth = 1; depth < p.max_depth; ++depth) {
+    const int j = depth - 1;
+    if (!alive) {
+      store_dead(out.bufs, j, i);
+      continue;
+    }
+    ++rays;
+    const Trace8 h = trace8<false>(sc.table, nullptr, 0, o.x, o.y, o.z, d.x,
+                                   d.y, d.z, kBigT, -1, true);
+    rows += h.rows;
+    if (h.tri < 0) {  // the first miss: the walk escapes
+      escaped = true;
+      esc_d = d;
+      esc_beta = thr;
+      alive = false;
+      store_dead(out.bufs, j, i);
+      continue;
+    }
+    const ShadeHit s =
+        shade_fetch(sc.tri_f32, sc.tri_cols, h.tri, h.u, h.v, o, d, h.t);
+    const Mat& m = s.mat;
+    const V3 normal = s.normal;
+    const V3 wo_local = to_local(d, normal);  // incoming, z < 0
+    const V3 albedo = resolve_albedo(sc.textures, s);
+    const float trans = resolve_transmission(sc.textures, s);
+
+    const float d2 = fmaxf(length_sq(sub(s.point, prev_pt)), kRayEps);
+    const float pdf_fwd_area = prev_pdf * fabsf(wo_local.z) / d2;
+    const float g = prev_cos / d2;
+
+    const KeyDraws bd = fold_draws(p.key0, p.key1,
+                                   static_cast<uint32_t>(depth), id);
+    const Sample bs = bsdf_sample(bd, m, albedo, neg(wo_local), s.backface,
+                                  1.0f, trans, p.radiance);
+    const float pdf_rev_sa = bsdf_pdf(m, bs.wo, neg(wo_local), 1.0f, trans);
+
+    const float safe_fwd = fmaxf(pdf_fwd_area, 1e-20f);
+    const MisState mv = mis_advance(
+        ms, depth == 1, pdf_fwd_area, g, pdf_rev_sa, m.is_specular,
+        1.0f / safe_fwd, first_vc * g / safe_fwd,
+        p.use_vm ? first_vm * g / safe_fwd : 0.0f, p.use_vm, p.eta_vcm);
+
+    const bool valid = bs.pdf >= kEps;
+    store_vertex(out.bufs, j, i, s.point, normal, normalize(neg(d)), s.uv0,
+                 s.uv1, thr, pdf_fwd_area, mv.d_vcm, mv.d_vc, mv.d_vm,
+                 pack_flags(m.is_specular, s.backface, s.light_ind, s.mat_id),
+                 valid);
+    if (!valid) {
+      alive = false;
+      continue;
+    }
+    // continue the walk
+    thr = scale(mul(thr, bs.f), fabsf(bs.wo.z) / fmaxf(bs.pdf, 1e-20f));
+    const V3 wi_world = normalize(to_world(bs.wo, normal));
+    const float side = dot(wi_world, normal) < 0.0f ? -1.0f : 1.0f;
+    o = add(s.point, scale(normal, side * kRayEps));
+    d = wi_world;
+    prev_pdf = bs.pdf;
+    prev_cos = fabsf(bs.wo.z);
+    prev_pt = s.point;
+  }
+  if (out.esc_valid != nullptr) {
+    out.esc_valid[i] = escaped;
+    put3(out.esc_d, i, esc_d);
+    put3(out.esc_beta, i, esc_beta);
+  }
+  out.rays[i] += rays;
+  if (out.rows != nullptr) out.rows[i] += rows;
+}
+
+// ---- K11: the light-trace splat --------------------------------------------
+
+struct SplatParams {
+  CameraParams cam;
+  float plane_area;
+  int width, height;
+  Weighting weighting;
+};
+
+// The unpacked light endpoint (s = 1) of path i.
+struct Endpoint {
+  const float* pt;
+  const float* n;
+  const float* beta;
+  const float* pdf;
+  const int32_t* mat;
+};
+
+__device__ __forceinline__ V3 get3(const float* src, int64_t i) {
+  return v3(src[3 * i], src[3 * i + 1], src[3 * i + 2]);
+}
+
+// Light vertex j of path i (j = 0: the endpoint; j >= 1: stored row j - 1)
+// to the lens; adds into fb [P,3] and rays[i] with atomics.
+__device__ __forceinline__ void splat_vertex(const SceneRefs& sc,
+                                             const SplatParams& p,
+                                             const PathBufs& lb,
+                                             const Endpoint& e, int j,
+                                             int64_t i, float* fb,
+                                             int32_t* rays, int32_t* rows) {
+  const bool first = j == 0;
+  Vertex v;
+  if (first) {
+    v.pt = get3(e.pt, i);
+    v.n = get3(e.n, i);
+    v.beta = get3(e.beta, i);
+    v.pdf_fwd = e.pdf[i];
+    v.valid = true;
+    v.is_delta = false;
+  } else {
+    v = load_vertex(lb, j - 1, i);
+  }
+  if (!v.valid || v.is_delta) return;
+  const float ptv[3] = {v.pt.x, v.pt.y, v.pt.z};
+  float rx, ry;
+  if (!world_to_raster(p.cam, ptv, rx, ry)) return;
+
+  const V3 cam_o = v3(p.cam.origin[0], p.cam.origin[1], p.cam.origin[2]);
+  const V3 to_cam = sub(cam_o, v.pt);
+  const float dist = sqrtf(fmaxf(length_sq(to_cam), 1e-20f));
+  const V3 to_cam_u = v3(to_cam.x / dist, to_cam.y / dist, to_cam.z / dist);
+  const V3 origin = add(v.pt, scale(v.n, kRayEps));
+  atomicAdd(rays + i, 1);
+  const Trace8 sh = trace8<true>(sc.table, sc.tri_f32, sc.tri_cols, origin.x,
+                                 origin.y, origin.z, to_cam_u.x, to_cam_u.y,
+                                 to_cam_u.z, dist - kRayEps, -1, true);
+  if (rows != nullptr) atomicAdd(rows + i, sh.rows);
+  if (!(max3(sh.s0, sh.s1, sh.s2) > 0.0f)) return;
+  const float cos_light = dot(v.n, to_cam_u);
+  const V3 fwd = v3(p.cam.forward[0], p.cam.forward[1], p.cam.forward[2]);
+  const float cos_cam = fabsf(dot(fwd, neg(to_cam_u)));
+  if (!(cos_light > kEps)) return;
+
+  const V3 to_cam_local = to_local(to_cam_u, v.n);
+  const float d2 = fmaxf(length_sq(to_cam), kRayEps);
+  const float pdf_trace_cam = cos_light / (d2 * p.plane_area * cube(cos_cam));
+  V3 light_f;
+  float w_light;
+  if (first) {
+    light_f = v3(kInvPi, kInvPi, kInvPi);
+    w_light = pdf_trace_cam / fmaxf(v.pdf_fwd, 1e-20f);
+  } else {
+    const V3 to_prev_local = to_local(v.wo, v.n);
+    const Mat m = mat_of(sc, v.mat_id);
+    const V3 albedo = resolve_albedo(sc.textures, m, v.u, v.v);
+    const float trans = resolve_transmission(sc.textures, m, v.u, v.v);
+    light_f = bsdf_f(m, albedo, to_prev_local, to_cam_local, 1.0f, trans);
+    const float pdf_rev_sa =
+        bsdf_pdf(m, to_cam_local, to_prev_local, 1.0f, trans);
+    w_light = pdf_trace_cam * (v.d_vcm + pdf_rev_sa * v.d_vc);
+  }
+  const float we = 1.0f / (p.plane_area * fourth(cos_cam));
+  const float g = cos_light * cos_cam / d2;
+  const V3 contrib =
+      mul(scale(mul(v.beta, light_f), g * we), v3(sh.s0, sh.s1, sh.s2));
+  const float weight = 1.0f / (1.0f + w_light);
+  const V3 o = p.weighting(contrib, weight);
+  int32_t iy = static_cast<int32_t>(ry), ix = static_cast<int32_t>(rx);
+  iy = iy < 0 ? 0 : (iy > p.height - 1 ? p.height - 1 : iy);
+  ix = ix < 0 ? 0 : (ix > p.width - 1 ? p.width - 1 : ix);
+  const int64_t pix = static_cast<int64_t>(iy) * p.width + ix;
+  atomicAdd(fb + 3 * pix, o.x);
+  atomicAdd(fb + 3 * pix + 1, o.y);
+  atomicAdd(fb + 3 * pix + 2, o.z);
+}
+
+// ---- K13: the connection stage ---------------------------------------------
+
+struct ConnectParams {
+  CameraParams cam;
+  float plane_area;
+  uint32_t key_c0, key_c1;  // NEE keys: fold_in(key_c, t)
+  int eye_depth, light_depth;
+  bool naive, nee, connection, sample_environment;
+  Weighting weighting;
+};
+
+struct ConnectIn {
+  PathBufs eye, light;
+  const float* ev0_pt;     // [N,3] the lens point of each eye path
+  const bool* esc_valid;   // [N]
+  const float* esc_d;      // [N,3]
+  const float* esc_beta;   // [N,3]
+  const float* fb;         // nullable: the splat, added to the result
+};
+
+__device__ __forceinline__ V3 connect_pixel(const SceneRefs& sc,
+                                            const ConnectParams& p,
+                                            const ConnectIn& in, int64_t i,
+                                            uint32_t id, int32_t& rays,
+                                            int32_t& rows) {
+  const Weighting& wt = p.weighting;
+  V3 li = v3(0.0f, 0.0f, 0.0f);
+  if (p.sample_environment && in.esc_valid[i]) {
+    const V3 e = mul(get3(in.esc_beta, i), sample_sky(get3(in.esc_d, i), true));
+    li = add(li, wt(e, 1.0f));
+  }
+  const float num =
+      static_cast<float>(sc.lights.count > 1 ? sc.lights.count : 1);
+  const V3 fwd = v3(p.cam.forward[0], p.cam.forward[1], p.cam.forward[2]);
+  for (int t = 2; t <= p.eye_depth; ++t) {
+    const Vertex ev = load_vertex(in.eye, t - 2, i);
+    if (!ev.valid) break;  // every later eye vertex is invalid too
+    const bool first_t = t == 2;
+    V3 prev_pt;
+    bool prev_delta;
+    if (first_t) {
+      prev_pt = get3(in.ev0_pt, i);
+      prev_delta = true;
+    } else {
+      const int64_t k = static_cast<int64_t>(t - 3) * in.eye.n + i;
+      prev_pt = get3(in.eye.pt, k);
+      prev_delta = unpack_flags(in.eye.flags[k]).is_delta;
+    }
+    if (ev.is_delta) continue;  // every strategy skips delta eye vertices
+    const Mat me = mat_of(sc, ev.mat_id);
+    const V3 albedo_e = resolve_albedo(sc.textures, me, ev.u, ev.v);
+    const float trans_e = resolve_transmission(sc.textures, me, ev.u, ev.v);
+
+    // s = 0: the eye walk hit a light
+    if (p.naive && ev.light_ind >= 0 && !ev.backface) {
+      const float* lr = sc.lights.rows + 17 * static_cast<int64_t>(ev.light_ind);
+      const V3 le = row_v3(lr, 12);
+      const float area = __ldg(lr + 15);
+      const V3 wo_n = normalize(ev.wo);
+      const float cos_l = fabsf(dot(ev.n, wo_n));
+      const float d2 = fmaxf(length_sq(sub(ev.pt, prev_pt)), 1e-20f);
+      const float pdf_connect = (1.0f / num) / fmaxf(area, 1e-20f);
+      float w_eye;
+      V3 contrib = mul(le, ev.beta);
+      if (first_t) {
+        const float cos_cam = fabsf(dot(fwd, neg(wo_n)));
+        const float pdf_trace_cam =
+            cos_l / (d2 * p.plane_area * cube(cos_cam));
+        w_eye = pdf_connect / fmaxf(pdf_trace_cam, 1e-20f);
+      } else {
+        const float pdf_c = prev_delta ? 0.0f : pdf_connect;
+        w_eye = pdf_c * ev.d_vcm + pdf_c * (cos_l / kPi) * ev.d_vc;
+        const float lum = luminance(contrib);
+        if (lum > kMaxFireflyLum)
+          contrib = scale(contrib, kMaxFireflyLum / fmaxf(lum, 1e-20f));
+      }
+      li = add(li, wt(contrib, 1.0f / (1.0f + w_eye)));
+    }
+
+    // s = 1: NEE
+    if (p.nee && sc.lights.count > 0) {
+      const V3 ptc_local = to_local(neg(ev.wo), ev.n);
+      ++rays;
+      const KeyDraws kk = fold_draws(p.key_c0, p.key_c1,
+                                     static_cast<uint32_t>(t), id);
+      const LightPoint lp = light_point(kk, sc);
+      const V3 stl = sub(lp.p, ev.pt);
+      const float d2 = fmaxf(length_sq(stl), kRayEps);
+      const float dist = sqrtf(d2);
+      const V3 stl_u = v3(stl.x / dist, stl.y / dist, stl.z / dist);
+      const V3 origin = add(ev.pt, scale(ev.n, kRayEps));
+      const Trace8 sh = trace8<true>(sc.table, sc.tri_f32, sc.tri_cols,
+                                     origin.x, origin.y, origin.z, stl_u.x,
+                                     stl_u.y, stl_u.z, dist - kEps, lp.tri,
+                                     true);
+      rows += sh.rows;
+      const float cos_light = dot(lp.n, neg(stl_u));
+      if (max3(sh.s0, sh.s1, sh.s2) > 0.0f && cos_light >= kEps) {
+        const float cos_surf = fabsf(dot(ev.n, stl_u));
+        const float g = fminf(cos_light * cos_surf / d2, kMaxGNee);
+        const float pdf_connect = (1.0f / num) / fmaxf(lp.area, 1e-20f);
+        const float pdf_emit_sa = cos_light / kPi;
+        const V3 stl_local = to_local(stl_u, ev.n);
+        const V3 f = bsdf_f(me, albedo_e, neg(ptc_local), stl_local, 1.0f,
+                            trans_e);
+        const V3 contrib = scale(mul(mul(v3(sh.s0, sh.s1, sh.s2), f), lp.le),
+                                 g / pdf_connect);
+        const float pdf_bsdf_sa =
+            bsdf_pdf(me, neg(ptc_local), stl_local, 1.0f, trans_e);
+        const float pdf_bsdf_area = pdf_bsdf_sa * fabsf(cos_light) / d2;
+        const float w_light = pdf_bsdf_area / fmaxf(pdf_connect, 1e-20f);
+        const float pdf_curr_rev_area =
+            pdf_emit_sa * fabsf(stl_local.z) / d2;
+        const float pdf_prev_rev_sa =
+            bsdf_pdf(me, stl_local, neg(ptc_local), 1.0f, trans_e);
+        const float w_eye =
+            pdf_curr_rev_area * (ev.d_vcm + pdf_prev_rev_sa * ev.d_vc);
+        const float weight = 1.0f / (1.0f + w_light + w_eye);
+        li = add(li, wt(mul(contrib, ev.beta), weight));
+      }
+    }
+
+    // s >= 2: connections to the stored light vertices
+    if (!p.connection) continue;
+    for (int j = 0; j < p.light_depth - 1; ++j) {
+      const Vertex lv = load_vertex(in.light, j, i);
+      if (!lv.valid || lv.is_delta) continue;
+      const V3 e2l = sub(lv.pt, ev.pt);
+      const float d2 = fmaxf(length_sq(e2l), kRayEps);
+      const float dist = sqrtf(d2);
+      const V3 e2l_u = v3(e2l.x / dist, e2l.y / dist, e2l.z / dist);
+      const float cos_l = fabsf(dot(lv.n, neg(e2l_u)));
+      const float cos_e = fabsf(dot(ev.n, e2l_u));
+      if (!(cos_l > kEps && cos_e > kEps)) continue;
+      const V3 origin = add(ev.pt, scale(ev.n, kRayEps));
+      ++rays;
+      const Trace8 sh = trace8<true>(sc.table, sc.tri_f32, sc.tri_cols,
+                                     origin.x, origin.y, origin.z, e2l_u.x,
+                                     e2l_u.y, e2l_u.z, dist - kRayEps, -1,
+                                     true);
+      rows += sh.rows;
+      if (!(max3(sh.s0, sh.s1, sh.s2) > 0.0f)) continue;
+
+      const V3 l2e_loc_l = to_local(neg(e2l_u), lv.n);
+      const V3 to_l_from_prev_loc = to_local(neg(lv.wo), lv.n);
+      const V3 l2e_loc_e = to_local(neg(e2l_u), ev.n);
+      const V3 to_prev_loc_e = to_local(ev.wo, ev.n);
+      const Mat ml = mat_of(sc, lv.mat_id);
+      const V3 albedo_l = resolve_albedo(sc.textures, ml, lv.u, lv.v);
+      const float trans_l = resolve_transmission(sc.textures, ml, lv.u, lv.v);
+
+      // four reverse pdfs (pdf_eval(A, B) is bsdf_pdf(-A, B))
+      const float pdf_eye_rev_sa =
+          bsdf_pdf(ml, neg(to_l_from_prev_loc), l2e_loc_l, 1.0f, trans_l);
+      const float pdf_eye_rev_area = pdf_eye_rev_sa * cos_e / d2;
+      const float pdf_bef_eye_rev_sa =
+          bsdf_pdf(me, neg(l2e_loc_e), to_prev_loc_e, 1.0f, trans_e);
+      const float pdf_light_rev_sa =
+          bsdf_pdf(me, to_prev_loc_e, neg(l2e_loc_e), 1.0f, trans_e);
+      const float pdf_light_rev_area = pdf_light_rev_sa * cos_l / d2;
+      const float pdf_bef_light_rev_sa =
+          bsdf_pdf(ml, l2e_loc_l, neg(to_l_from_prev_loc), 1.0f, trans_l);
+      const float w_eye =
+          pdf_eye_rev_area * (ev.d_vcm + pdf_bef_eye_rev_sa * ev.d_vc);
+      const float w_light =
+          pdf_light_rev_area * (lv.d_vcm + pdf_bef_light_rev_sa * lv.d_vc);
+      const float weight = 1.0f / (1.0f + w_eye + w_light);
+
+      // f_eval(A, B) is bsdf_f(-A, B)
+      const V3 f_eye =
+          bsdf_f(me, albedo_e, neg(l2e_loc_e), to_prev_loc_e, 1.0f, trans_e);
+      const V3 f_light = bsdf_f(ml, albedo_l, l2e_loc_l,
+                                neg(to_l_from_prev_loc), 1.0f, trans_l);
+      const float g = fminf(cos_e * cos_l / d2, kMaxGConnect);
+      const V3 contrib =
+          mul(scale(mul(mul(mul(ev.beta, lv.beta), f_eye), f_light), g),
+              v3(sh.s0, sh.s1, sh.s2));
+      li = add(li, wt(contrib, weight));
+    }
+  }
+  if (in.fb != nullptr) li = add(li, get3(in.fb, i));
+  return li;
+}
+
+// ---- host side: the C entries' argument blocks -----------------------------
+// The C entry points take host arrays (ptrs: device addresses, 0 = none;
+// iv: integers; fv: floats; keys: uint32 words) whose layouts are given at
+// each entry in bdpt_walk.cu, bdpt_splat.cu and bdpt_connect.cu; these
+// unpack them.
+
+template <class T>
+inline T* dev_ptr(const int64_t* ptrs, int k) {
+  return reinterpret_cast<T*>(ptrs[k]);
+}
+
+// The 11 buffer fields from ptrs[0..10].
+inline PathBufs path_bufs(const int64_t* ptrs, int64_t n, int depth) {
+  PathBufs b;
+  b.pt = dev_ptr<float>(ptrs, 0);
+  b.n_oct = dev_ptr<uint32_t>(ptrs, 1);
+  b.wo_oct = dev_ptr<uint32_t>(ptrs, 2);
+  b.uv = dev_ptr<__half>(ptrs, 3);
+  b.beta = dev_ptr<__half>(ptrs, 4);
+  b.pdf_fwd = dev_ptr<float>(ptrs, 5);
+  b.d_vcm = dev_ptr<float>(ptrs, 6);
+  b.d_vc = dev_ptr<float>(ptrs, 7);
+  b.d_vm = dev_ptr<float>(ptrs, 8);
+  b.flags = dev_ptr<uint32_t>(ptrs, 9);
+  b.valid = dev_ptr<bool>(ptrs, 10);
+  b.n = n;
+  b.depth = depth;
+  return b;
+}
+
+struct WalkLaunch {
+  SceneRefs sc;
+  WalkParams p;
+  WalkOut out;
+  const int32_t* px;
+  const int32_t* py;
+  int64_t n;
+};
+
+inline bool walk_launch(const int64_t* ptrs, const int64_t* iv,
+                        const float* fv, const uint32_t* keys,
+                        WalkLaunch& w) {
+  w.n = iv[0];
+  w.sc.table = dev_ptr<const float>(ptrs, 0);
+  w.sc.tri_f32 = dev_ptr<const float>(ptrs, 1);
+  w.sc.tri_cols = static_cast<int>(iv[1]);
+  w.sc.lights.rows = dev_ptr<const float>(ptrs, 2);
+  w.sc.lights.count = static_cast<int32_t>(iv[2]);
+  w.sc.mat_f32 = nullptr;
+  w.sc.textures = dev_ptr<const float>(ptrs, 3);
+  w.px = dev_ptr<const int32_t>(ptrs, 4);
+  w.py = dev_ptr<const int32_t>(ptrs, 5);
+  WalkParams& p = w.p;
+  p.cam = make_camera(fv, keys);
+  p.plane_area = fv[19];
+  p.eta_vcm = fv[20];
+  for (int k = 0; k < 10; ++k) p.light_keys[k] = keys[k];
+  p.key0 = keys[10];
+  p.key1 = keys[11];
+  p.mode = static_cast<int>(iv[3]);
+  p.max_depth = static_cast<int>(iv[4]);
+  p.radiance = iv[5] != 0;
+  p.use_vm = iv[6] != 0;
+  WalkOut& o = w.out;
+  o.bufs = path_bufs(ptrs + 6, w.n, p.max_depth - 1);
+  o.v0_pt = dev_ptr<float>(ptrs, 17);
+  o.v0_n = dev_ptr<float>(ptrs, 18);
+  o.v0_beta = dev_ptr<float>(ptrs, 19);
+  o.v0_pdf = dev_ptr<float>(ptrs, 20);
+  o.v0_light = dev_ptr<int32_t>(ptrs, 21);
+  o.v0_mat = dev_ptr<int32_t>(ptrs, 22);
+  o.v0_tri = dev_ptr<int32_t>(ptrs, 23);
+  o.esc_valid = dev_ptr<bool>(ptrs, 24);
+  o.esc_d = dev_ptr<float>(ptrs, 25);
+  o.esc_beta = dev_ptr<float>(ptrs, 26);
+  o.rays = dev_ptr<int32_t>(ptrs, 27);
+  o.rows = dev_ptr<int32_t>(ptrs, 28);
+  return (p.mode == kModeEye || p.mode == kModeLight) && p.max_depth >= 1;
+}
+
+struct SplatLaunch {
+  SceneRefs sc;
+  SplatParams p;
+  PathBufs lb;
+  Endpoint e;
+  float* fb;
+  int32_t* rays;
+  int32_t* rows;
+  int64_t n;
+};
+
+inline bool splat_launch(const int64_t* ptrs, const int64_t* iv,
+                         const float* fv, SplatLaunch& s) {
+  static const uint32_t kNoKeys[8] = {};
+  s.n = iv[0];
+  s.sc.table = dev_ptr<const float>(ptrs, 0);
+  s.sc.tri_f32 = dev_ptr<const float>(ptrs, 1);
+  s.sc.tri_cols = static_cast<int>(iv[1]);
+  s.sc.lights.rows = nullptr;
+  s.sc.lights.count = 0;
+  s.sc.mat_f32 = dev_ptr<const float>(ptrs, 2);
+  s.sc.textures = dev_ptr<const float>(ptrs, 3);
+  s.lb = path_bufs(ptrs + 4, s.n, static_cast<int>(iv[2]));
+  s.e.pt = dev_ptr<const float>(ptrs, 15);
+  s.e.n = dev_ptr<const float>(ptrs, 16);
+  s.e.beta = dev_ptr<const float>(ptrs, 17);
+  s.e.pdf = dev_ptr<const float>(ptrs, 18);
+  s.e.mat = dev_ptr<const int32_t>(ptrs, 19);
+  s.fb = dev_ptr<float>(ptrs, 20);
+  s.rays = dev_ptr<int32_t>(ptrs, 21);
+  s.rows = dev_ptr<int32_t>(ptrs, 22);
+  s.p.cam = make_camera(fv, kNoKeys);
+  s.p.plane_area = fv[19];
+  s.p.width = static_cast<int>(iv[3]);
+  s.p.height = static_cast<int>(iv[4]);
+  s.p.weighting.do_mis = iv[5] != 0;
+  s.p.weighting.paint_weight = iv[6] != 0;
+  return s.lb.depth >= 0 && s.p.width > 0 && s.p.height > 0;
+}
+
+struct ConnectLaunch {
+  SceneRefs sc;
+  ConnectParams p;
+  ConnectIn in;
+  const int32_t* px;
+  const int32_t* py;
+  float* out;
+  int32_t* rays;
+  int32_t* rows;
+  int64_t n;
+};
+
+inline bool connect_launch(const int64_t* ptrs, const int64_t* iv,
+                           const float* fv, const uint32_t* keys,
+                           ConnectLaunch& c) {
+  static const uint32_t kNoKeys[8] = {};
+  c.n = iv[0];
+  c.sc.table = dev_ptr<const float>(ptrs, 0);
+  c.sc.tri_f32 = dev_ptr<const float>(ptrs, 1);
+  c.sc.tri_cols = static_cast<int>(iv[1]);
+  c.sc.lights.rows = dev_ptr<const float>(ptrs, 2);
+  c.sc.lights.count = static_cast<int32_t>(iv[2]);
+  c.sc.mat_f32 = dev_ptr<const float>(ptrs, 3);
+  c.sc.textures = dev_ptr<const float>(ptrs, 4);
+  c.px = dev_ptr<const int32_t>(ptrs, 5);
+  c.py = dev_ptr<const int32_t>(ptrs, 6);
+  ConnectParams& p = c.p;
+  p.cam = make_camera(fv, kNoKeys);
+  p.plane_area = fv[19];
+  p.key_c0 = keys[0];
+  p.key_c1 = keys[1];
+  p.eye_depth = static_cast<int>(iv[3]);
+  p.light_depth = static_cast<int>(iv[4]);
+  p.naive = iv[5] != 0;
+  p.nee = iv[6] != 0;
+  p.connection = iv[7] != 0;
+  p.weighting.do_mis = iv[8] != 0;
+  p.weighting.paint_weight = iv[9] != 0;
+  p.sample_environment = iv[10] != 0;
+  c.in.eye = path_bufs(ptrs + 7, c.n, p.eye_depth - 1);
+  c.in.ev0_pt = dev_ptr<const float>(ptrs, 18);
+  c.in.esc_valid = dev_ptr<const bool>(ptrs, 19);
+  c.in.esc_d = dev_ptr<const float>(ptrs, 20);
+  c.in.esc_beta = dev_ptr<const float>(ptrs, 21);
+  c.in.light = path_bufs(ptrs + 22, c.n, p.light_depth - 1);
+  c.in.fb = dev_ptr<const float>(ptrs, 33);
+  c.out = dev_ptr<float>(ptrs, 34);
+  c.rays = dev_ptr<int32_t>(ptrs, 35);
+  c.rows = dev_ptr<int32_t>(ptrs, 36);
+  return p.eye_depth >= 2 && p.light_depth >= 1;
+}
+
+// One pixel of the connection stage, as the kernel runs it.
+__device__ __forceinline__ void connect_one(const ConnectLaunch& c,
+                                            int64_t i) {
+  const uint32_t id = static_cast<uint32_t>((c.py[i] << 14) + c.px[i]);
+  int32_t r = 0, w = 0;
+  put3(c.out, i, connect_pixel(c.sc, c.p, c.in, i, id, r, w));
+  c.rays[i] += r;
+  if (c.rows != nullptr) c.rows[i] += w;
+}
+
+}  // namespace tpt

@@ -8,8 +8,9 @@
 // material has. The quirks docs/PARITY.md §2.4 lists are kept: Rs-only
 // conductor Fresnel, Schlick dielectric Fresnel with a forced mirror on TIR
 // or F >= 0.99999, the EPS-clamped cosine pdf, the adjoint eta^2 in radiance
-// mode, and the leaf's 3-event sample. Only radiance transport is here (the
-// unidirectional engines' only mode).
+// mode only, and the leaf's 3-event sample. Both transport modes are here:
+// radiance (the eye side) and importance (the BDPT light walk,
+// models/paths.py), which differ only in the refracted dielectric's eta^2.
 //
 // Bound: arithmetic (a few hundred flops per lobe, a handful of
 // transcendentals) plus, for textured materials, four scattered 12-byte
@@ -75,19 +76,26 @@ __device__ __forceinline__ V3 sample_texture(const float* __restrict__ tex,
 }
 
 __device__ __forceinline__ V3 resolve_albedo(const float* __restrict__ tex,
-                                             const ShadeHit& s) {
-  const Mat& m = s.mat;
+                                             const Mat& m, float u, float v) {
   if (m.tex_start < 0) return m.albedo;
-  return sample_texture(tex, m.tex_start, m.tex_width, m.tex_height, s.uv0,
-                        s.uv1);
+  return sample_texture(tex, m.tex_start, m.tex_width, m.tex_height, u, v);
+}
+
+__device__ __forceinline__ V3 resolve_albedo(const float* __restrict__ tex,
+                                             const ShadeHit& s) {
+  return resolve_albedo(tex, s.mat, s.uv0, s.uv1);
+}
+
+__device__ __forceinline__ float resolve_transmission(
+    const float* __restrict__ tex, const Mat& m, float u, float v) {
+  if (m.trans_tex_start < 0) return m.transmission;
+  return sample_texture(tex, m.trans_tex_start, m.trans_tex_width,
+                        m.trans_tex_height, u, v).x;
 }
 
 __device__ __forceinline__ float resolve_transmission(
     const float* __restrict__ tex, const ShadeHit& s) {
-  const Mat& m = s.mat;
-  if (m.trans_tex_start < 0) return m.transmission;
-  return sample_texture(tex, m.trans_tex_start, m.trans_tex_width,
-                        m.trans_tex_height, s.uv0, s.uv1).x;
+  return resolve_transmission(tex, s.mat, s.uv0, s.uv1);
 }
 
 // ---- Fresnel --------------------------------------------------------------
@@ -190,15 +198,18 @@ __device__ __forceinline__ float mirror_f(V3 wo) {
   return 1.0f / fmaxf(wo.z, kEps);
 }
 
-// ---- smooth dielectric (delta lobe: sample only), radiance mode -----------
+// ---- smooth dielectric (delta lobe: sample only) ---------------------------
 
 struct Sample {
   V3 wo, f;
   float pdf;
 };
 
+// radiance: the adjoint eta^2 on refraction (radiance transport); without
+// it, importance transport.
 __device__ __forceinline__ Sample dielectric_sample(float u, V3 wi, float ior,
-                                                    bool backface) {
+                                                    bool backface,
+                                                    bool radiance) {
   const float eta_i = backface ? ior : 1.0f;
   const float eta_t = backface ? 1.0f : ior;
   const float cos_i = fminf(fmaxf(wi.z, kEps), 1.0f);
@@ -216,7 +227,7 @@ __device__ __forceinline__ Sample dielectric_sample(float u, V3 wi, float ior,
   } else {
     s.wo = v3(-eta * wi.x, -eta * wi.y, -sqrtf(fmaxf(cos_t2, 0.0f)));
     f = (1.0f - fres) / fmaxf(fabsf(s.wo.z), kEps);
-    f = f * eta * eta;  // adjoint factor, radiance mode
+    if (radiance) f = f * eta * eta;  // adjoint factor
     s.pdf = 1.0f - fres;
   }
   s.f = v3(f, f, f);
@@ -318,11 +329,12 @@ __device__ __forceinline__ float bsdf_pdf(const Mat& m, V3 wi, V3 wo,
 // Sample wo for one path; draw(k) returns the uniform of draw base + k
 // (0: u_sel, 1: u_t, 2: u1, 3: u2). Types without a lobe of their own
 // sample the Lambertian lobe, as the plain dispatch's default does.
+// radiance: false for importance transport (the BDPT light walk).
 template <class Draw>
 __device__ __forceinline__ Sample bsdf_sample(const Draw& draw, const Mat& m,
                                               V3 albedo, V3 wi, bool backface,
-                                              float eta_i,
-                                              float transmission) {
+                                              float eta_i, float transmission,
+                                              bool radiance = true) {
   switch (m.type) {
     case kMatMetal: {
       const V3 h = ggx_sample_h(draw(2), draw(3), m.roughness * m.roughness);
@@ -335,7 +347,7 @@ __device__ __forceinline__ Sample bsdf_sample(const Draw& draw, const Mat& m,
       return s;
     }
     case kMatSmoothDielectric:
-      return dielectric_sample(draw(0), wi, m.ior, backface);
+      return dielectric_sample(draw(0), wi, m.ior, backface, radiance);
     case kMatLeaf:
       return leaf_sample(draw(0), draw(1), draw(2), draw(3), wi, m.ior,
                          eta_i, m.roughness, albedo, transmission);

@@ -5,8 +5,10 @@
 // 677), which the mega engine calls on refill: four id-keyed draws per pixel
 // (0, 1: +-0.5 * aa_jitter tent jitter; 2, 3: lens disk), the focal-plane
 // point, the lens offset gated on aperture > 0, and the normalized
-// direction. camera.cu launches it over a batch of pixels; uni_mega.cu calls
-// it at the start of each path.
+// direction. camera.cu launches it over a batch of pixels; uni_mega.cu and
+// the BDPT eye walk (bdpt_walk.cu) call it at the start of each path. Also
+// world_to_raster (scene/camera.py:112), the light-trace splat's projection
+// (bdpt_splat.cu).
 //
 // The arithmetic follows the plain PyTorch version operation for operation
 // (every including file is built with -fmad=false), so the two agree to
@@ -81,6 +83,31 @@ __device__ __forceinline__ void camera_ray(const CameraParams& c, float px,
   const float inv = rsqrtf(fmaxf(l2, 1e-20f));
 #pragma unroll
   for (int k = 0; k < 3; ++k) dir[k] = dir[k] * inv;
+}
+
+// The light tracer's sensor (scene/camera.py world_to_raster): the pixel
+// coordinates (rx, ry) of world point p; false when p is behind the lens
+// (depth <= 0.001) or off the image.
+__device__ __forceinline__ bool world_to_raster(const CameraParams& c,
+                                                const float p[3], float& rx,
+                                                float& ry) {
+  float d[3];
+#pragma unroll
+  for (int k = 0; k < 3; ++k) d[k] = p[k] - c.origin[k];
+  const float dist_z =
+      d[0] * c.forward[0] + d[1] * c.forward[1] + d[2] * c.forward[2];
+  bool ok = dist_z > 0.001f;
+  const float safe_z = ok ? dist_z : 1.0f;
+  const float slope_x =
+      (d[0] * c.right[0] + d[1] * c.right[1] + d[2] * c.right[2]) / safe_z;
+  const float slope_y =
+      (d[0] * c.up[0] + d[1] * c.up[1] + d[2] * c.up[2]) / safe_z;
+  const float ndc_x = slope_x / (c.aspect * c.fov_scale);
+  const float ndc_y = slope_y / c.fov_scale;
+  ok = ok && fabsf(ndc_x) <= 1.0f && fabsf(ndc_y) <= 1.0f;
+  rx = (ndc_x + 1.0f) * 0.5f * c.width;
+  ry = (ndc_y + 1.0f) * 0.5f * c.height;
+  return ok;
 }
 
 }  // namespace tpt

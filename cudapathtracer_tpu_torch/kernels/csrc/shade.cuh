@@ -114,7 +114,7 @@ struct Mat {
 struct ShadeHit {
   V3 point, normal, emission, normal_a;
   float uv0, uv1, area;
-  int32_t mat_id;
+  int32_t mat_id, light_ind;
   bool backface;
   Mat mat;
 };
@@ -125,6 +125,30 @@ __device__ __forceinline__ int32_t row_i32(const float* row, int c) {
 
 __device__ __forceinline__ V3 row_v3(const float* row, int c) {
   return v3(__ldg(row + c), __ldg(row + c + 1), __ldg(row + c + 2));
+}
+
+// The material fields of one row in the layout of shade-row columns 20:46
+// (scene/scene.py: a triangle's shade row from column 20, or a row of the
+// per-material block mat_f32 [M, 26]).
+__device__ __forceinline__ Mat read_mat(const float* r) {
+  Mat m;
+  m.type = row_i32(r, 0);
+  m.albedo = row_v3(r, 1);
+  m.roughness = __ldg(r + 4);
+  m.eta = row_v3(r, 5);
+  m.k = row_v3(r, 8);
+  m.ior = __ldg(r + 11);
+  m.transmission = __ldg(r + 12);
+  m.is_specular = row_i32(r, 13) != 0;
+  m.boundary = row_i32(r, 14) != 0;
+  m.priority = row_i32(r, 19);
+  m.tex_start = row_i32(r, 20);
+  m.tex_width = row_i32(r, 21);
+  m.tex_height = row_i32(r, 22);
+  m.trans_tex_start = row_i32(r, 23);
+  m.trans_tex_width = row_i32(r, 24);
+  m.trans_tex_height = row_i32(r, 25);
+  return m;
 }
 
 // The shading record of a closest hit (tri >= 0; a miss reads row 0, as the
@@ -145,26 +169,11 @@ __device__ __forceinline__ ShadeHit shade_fetch(const float* __restrict__ tri_f3
   s.uv1 = __ldg(row + 10) * w0 + __ldg(row + 12) * u + __ldg(row + 14) * v;
   s.point = add(o, scale(d, t));
   s.emission = row_v3(row, 15);
+  s.light_ind = row_i32(row, 18);
   s.mat_id = row_i32(row, 19);
   s.normal_a = na;
   s.area = __ldg(row + 46);
-  Mat& m = s.mat;
-  m.type = row_i32(row, 20);
-  m.albedo = row_v3(row, 21);
-  m.roughness = __ldg(row + 24);
-  m.eta = row_v3(row, 25);
-  m.k = row_v3(row, 28);
-  m.ior = __ldg(row + 31);
-  m.transmission = __ldg(row + 32);
-  m.is_specular = row_i32(row, 33) != 0;
-  m.boundary = row_i32(row, 34) != 0;
-  m.priority = row_i32(row, 39);
-  m.tex_start = row_i32(row, 40);
-  m.tex_width = row_i32(row, 41);
-  m.tex_height = row_i32(row, 42);
-  m.trans_tex_start = row_i32(row, 43);
-  m.trans_tex_width = row_i32(row, 44);
-  m.trans_tex_height = row_i32(row, 45);
+  s.mat = read_mat(row + 20);
   return s;
 }
 

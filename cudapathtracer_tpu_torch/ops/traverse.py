@@ -5,7 +5,8 @@ Counterpart of cudapathtracer_tpu/ops/traverse.py. `closest_hit` and
 the JAX package's threaded binary engine (traversal="threaded") is not
 ported. `shade_data` is the plain version of the hit fetch (K2, device
 code in kernels/csrc/shade.cuh): one gather of the packed shading row and
-the barycentric interpolation.
+the barycentric interpolation; `interpolate_hit` (the BDPT walks' fetch)
+returns the same record without the material fields.
 """
 
 from __future__ import annotations
@@ -102,3 +103,16 @@ def shade_data(scene, o, d, hit: Hit):
         trans_tex_height=texi[:, 6],
     )
     return info, mat
+
+
+def interpolate_hit(scene, o, d, hit: Hit) -> dict:
+    """Counterpart of the JAX package's interpolate_hit: the interpolated
+    shading data at hit points (point, normal flipped toward the ray, uv,
+    emission, mat_id, light_ind, backface, valid, t, tri). The JAX function
+    gathers the per-triangle columns; the packed shading row holds the same
+    normals, uvs, emission and ids, interpolated in the same order, so this
+    is shade_data's record."""
+    info, _ = shade_data(scene, o, d, hit)
+    keys = ("point", "normal", "uv", "emission", "mat_id", "light_ind",
+            "backface", "valid", "t", "tri")
+    return {k: info[k] for k in keys}

@@ -21,7 +21,7 @@ import torch
 
 from cudapathtracer_tpu_torch import kernels
 from cudapathtracer_tpu_torch.utils import rng
-from cudapathtracer_tpu_torch.utils.math import normalize
+from cudapathtracer_tpu_torch.utils.math import dot, normalize, true_div
 
 _TWO_PI = 2.0 * math.pi
 
@@ -106,6 +106,43 @@ class Camera:
     def aspect(self) -> float:
         return _f32(self.width / self.height)
 
+    def plane_area(self) -> float:
+        """Area of the image plane at unit distance, 4 aspect fov_scale^2,
+        rounded to float32 after each product as the JAX package does."""
+        f32 = np.float32
+        return float(f32(f32(4.0 * self.aspect) * f32(self.fov_scale))
+                     * f32(self.fov_scale))
+
+    def world_to_raster(self, p: torch.Tensor):
+        """Project world points [N,3] to pixel coordinates, the light
+        tracer's sensor. Returns (px [N], py [N], on_screen [N] bool)."""
+        vec = lambda v: torch.tensor(v, dtype=torch.float32, device=p.device)
+        d = p - vec(self.origin)
+        dist_z = dot(d, vec(self.forward))
+        ok = dist_z > 0.001
+        safe_z = torch.where(ok, dist_z, 1.0)
+        slope_x = dot(d, vec(self.right)) / safe_z
+        slope_y = dot(d, vec(self.up)) / safe_z
+        ndc_x = true_div(slope_x, _f32(np.float32(self.aspect)
+                                       * np.float32(self.fov_scale)))
+        ndc_y = true_div(slope_y, self.fov_scale)
+        ok = ok & (torch.abs(ndc_x) <= 1.0) & (torch.abs(ndc_y) <= 1.0)
+        px = (ndc_x + 1.0) * 0.5 * float(self.width)
+        py = (ndc_y + 1.0) * 0.5 * float(self.height)
+        return px, py, ok
+
+    def importance(self, d_world: torch.Tensor):
+        """Pinhole importance We and direction pdf for unit directions from
+        the lens: pdf_dir = 1 / (A cos^3), We = pdf_dir / cos, A the image
+        plane area at unit distance, cos clamped to >= 1e-6. Returns
+        (we [N], pdf_dir [N])."""
+        fwd = torch.tensor(self.forward, dtype=torch.float32,
+                           device=d_world.device)
+        cos_t = torch.clamp(dot(d_world, fwd), min=1e-6)
+        cos3 = cos_t * cos_t * cos_t
+        pdf_dir = 1.0 / (self.plane_area() * cos3)
+        return pdf_dir / cos_t, pdf_dir
+
     def kernel_params(self) -> list:
         """The 19 floats camera.cu takes, in its order."""
         return [*self.origin, *self.right, *self.up, *self.forward,
@@ -135,10 +172,10 @@ class Camera:
             *rng.draw_key(key, dr), ids)
         jx = draw(0) - 0.5
         jy = draw(1) - 0.5
-        u = ((2.0 * (px + jx * self.aa_jitter) / self.width - 1.0)
+        u = ((true_div(2.0 * (px + jx * self.aa_jitter), self.width) - 1.0)
              * self.aspect * self.fov_scale)
-        v = (2.0 * (py + jy * self.aa_jitter) / self.height - 1.0) \
-            * self.fov_scale
+        v = (true_div(2.0 * (py + jy * self.aa_jitter), self.height)
+             - 1.0) * self.fov_scale
         focal = (origin + right * (u * self.focal_dist)[:, None]
                  + up * (v * self.focal_dist)[:, None]
                  + forward * self.focal_dist)

@@ -23,6 +23,9 @@ emission; [15] area; [16] permuted triangle index (i32 bits).
 medium_f32 [M, 4] f32, one row per material: [0:3] Beer-Lambert
 absorption, [3] ior (what the medium stack looks up; the per-path kernel
 reads it).
+mat_f32 [M, 26] f32, one row per material in the layout of the shade row's
+columns 20:46 (type, albedo, ..., trans_tex start/w/h): the BDPT kernels
+read the material of a stored path vertex by its mat_id.
 """
 
 from __future__ import annotations
@@ -51,6 +54,7 @@ class HostScene:
     bvh8_table: np.ndarray
     materials: MaterialTable    # numpy columns
     medium_f32: np.ndarray      # [M, 4]
+    mat_f32: np.ndarray         # [M, 26]
     textures: np.ndarray        # [A, 3]
     num_lights: int
     has_leaf_materials: bool
@@ -66,6 +70,7 @@ class Scene:
     bvh8_table: torch.Tensor    # [R, 96]
     materials: MaterialTable    # tensors, [M] / [M,3]
     medium_f32: torch.Tensor    # [M, 4]
+    mat_f32: torch.Tensor       # [M, 26]
     textures: torch.Tensor      # [A, 3]
     num_lights: int
     has_leaf_materials: bool
@@ -205,6 +210,7 @@ def pack_scene(mesh: MeshData, materials: list, textures=None,
         bvh8_table=np.asarray(bvh8.table, np.float32), materials=htab,
         medium_f32=np.concatenate(
             [htab.absorption, htab.ior[:, None]], axis=1).astype(np.float32),
+        mat_f32=_pack_mat_rows(htab),
         textures=np.asarray(textures, np.float32),
         num_lights=num_lights,
         has_leaf_materials=bool(tri_is_leaf_mat.any()),
@@ -221,7 +227,8 @@ def upload(host: HostScene, device) -> Scene:
         tri_f32=put(host.tri_f32), light_f32=put(host.light_f32),
         bvh8_table=put(host.bvh8_table),
         materials=host.materials.to(device),
-        medium_f32=put(host.medium_f32), textures=put(host.textures),
+        medium_f32=put(host.medium_f32), mat_f32=put(host.mat_f32),
+        textures=put(host.textures),
         num_lights=host.num_lights,
         has_leaf_materials=host.has_leaf_materials,
         has_trans_maps=host.has_trans_maps,
@@ -234,6 +241,17 @@ def build_scene(mesh: MeshData, materials: list, textures=None,
     """pack_scene + upload. Returns (Scene, host BVH)."""
     host, bvh = pack_scene(mesh, materials, textures, max_leaf_size)
     return upload(host, device), bvh
+
+
+def _pack_mat_rows(table) -> np.ndarray:
+    """mat_f32: each material's fields in the shade row's layout (columns
+    20:46 of a row whose triangle has that material)."""
+    m = np.asarray(table.type).shape[0]
+    z = np.zeros
+    return _pack_shade_rows(table, z((m, 3, 3), np.float32),
+                            z((m, 3, 2), np.float32), z((m, 3), np.float32),
+                            z(m, np.int32), np.arange(m),
+                            z(m, np.float32))[:, 20:46].copy()
 
 
 def _pack_shade_rows(table, tri_n, tri_uv, tri_emission, tri_light,

@@ -15,6 +15,19 @@ PI = 3.14159265358979323846
 INV_PI = 1.0 / PI
 
 
+def true_div(a, b):
+    """a / b correctly rounded on every device, for a Python number on
+    either side: PyTorch turns `tensor / number` on CUDA into a product
+    with the number's reciprocal, and `number / tensor` everywhere into the
+    tensor's reciprocal times the number, each rounded twice. The kernels
+    divide once (IEEE), as XLA does."""
+    if not isinstance(b, torch.Tensor):
+        b = torch.full_like(a, b)
+    elif not isinstance(a, torch.Tensor):
+        a = torch.full_like(b, a)
+    return a / b
+
+
 def dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """[..., 3] x [..., 3] -> [...]."""
     return a[..., 0] * b[..., 0] + a[..., 1] * b[..., 1] + a[..., 2] * b[..., 2]

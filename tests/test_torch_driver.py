@@ -10,6 +10,7 @@ import os
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 
@@ -21,6 +22,16 @@ from cudapathtracer_tpu_torch.utils.image import load_bmp
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
+BDPT_SETTINGS = """Bidirectional Eye Depth: 5
+Bidirectional Light Depth: 3
+BDPT_LIGHTTRACE: true
+BDPT_NEE: true
+BDPT_NAIVE: true
+BDPT_CONNECTION: true
+BDPT_DOMIS: true
+"""
+
+
 def _config_text(out_dir, engine="classic", integrator="UNIDIRECTIONAL"):
     return f"""Name: tiny
 width: 32
@@ -29,7 +40,7 @@ Integrator: {integrator}
 Engine: {engine}
 Sample Count: 2
 Unidirectional Max Depth: 4
-Pinhole Camera: true
+{BDPT_SETTINGS}Pinhole Camera: true
 Camera Position: 0.0 0.0 1.0
 Camera Rotation: 0.0 0.0 0.0
 Camera FOV: 60.0
@@ -87,17 +98,46 @@ def test_checkpoint_resume_exact(tmp_path):
 
 
 @pytest.mark.parametrize("engine,integrator", [
-    ("mega", "BIDIRECTIONAL"), ("classic", "BIDIRECTIONAL"),
-    ("classic", "NAIVE_UNIDIRECTIONAL"), ("classic", "VCM"),
-    ("mega", "SPPM")])
+    ("mega", "BIDIRECTIONAL"), ("classic", "NAIVE_UNIDIRECTIONAL"),
+    ("classic", "VCM"), ("mega", "SPPM")])
 def test_unported_raise(tmp_path, engine, integrator):
     cfg = parse_config(_config_text(tmp_path, engine, integrator))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # BIDIRECTIONAL's default mega engine is the mega-variant item
+    item = "M12" if integrator == "BIDIRECTIONAL" else "ROADMAP"
+    with pytest.raises(NotImplementedError, match=item):
         Renderer(cfg, device="cpu")
     path = tmp_path / "cfg.rendertron"
     path.write_text(_config_text(tmp_path, engine, integrator))
     with pytest.raises(NotImplementedError):
         cli.main([str(path), "--device", "cpu"])
+
+
+def test_bdpt_classic_renderer(tmp_path):
+    """BIDIRECTIONAL with Engine classic renders on the CPU through
+    Renderer with the plain versions: a real image, the config's depths,
+    no kernel launched."""
+    cfg = parse_config(_config_text(tmp_path / "r", "classic",
+                                    "BIDIRECTIONAL"))
+    kernels.reset_launches()
+    r = Renderer(cfg, device="cpu")
+    img = r.render(num_samples=2, progressive=False, verbose=False)
+    assert img.pixels.shape == (24, 32, 3)
+    fb = r.framebuffer()
+    assert np.isfinite(fb).all() and (fb >= 0).all()
+    assert (fb.max(axis=-1) > 0).mean() > 0.9
+    assert r.metrics.rays_traced > 2 * 24 * 32
+    assert all(v == 0 for v in kernels.launches.values())
+
+
+def test_bdpt_classic_cli(tmp_path):
+    path = tmp_path / "bdpt.rendertron"
+    out = tmp_path / "renders"
+    path.write_text(_config_text(out, "classic", "BIDIRECTIONAL"))
+    assert cli.main([str(path), "--device", "cpu", "--no-progressive",
+                     "--samples", "1"]) == 0
+    img = load_bmp(str(out / "tiny0.bmp"), decode_srgb=False)
+    assert img.shape == (24, 32, 3)
+    assert (img.max(axis=-1) > 0).mean() > 0.9
 
 
 def test_default_device_is_cuda(tmp_path):
@@ -115,17 +155,21 @@ def test_default_device_is_cuda(tmp_path):
 
 def test_port_never_imports_jax(tmp_path):
     """The port parses a config with its own parser and renders with both
-    engines without importing jax or any module of the JAX package."""
+    engines and classic BDPT without importing jax or any module of the
+    JAX package."""
     code = f"""
 import sys
 import cudapathtracer_tpu_torch
 import cudapathtracer_tpu_torch.cli, cudapathtracer_tpu_torch.driver
 from cudapathtracer_tpu_torch.utils.config import parse_config
 from cudapathtracer_tpu_torch.driver import Renderer
-for engine in ("mega", "classic"):
+for engine, integ in (("mega", "UNIDIRECTIONAL"),
+                      ("classic", "UNIDIRECTIONAL"),
+                      ("classic", "BIDIRECTIONAL")):
     cfg = parse_config({_config_text(tmp_path / 'r')!r}.replace(
-        "Engine: classic", "Engine: " + engine))
-    assert cfg.engine == engine
+        "Engine: classic", "Engine: " + engine).replace(
+        "Integrator: UNIDIRECTIONAL", "Integrator: " + integ))
+    assert (cfg.engine, cfg.integrator) == (engine, integ)
     r = Renderer(cfg, device="cpu")
     img = r.render(num_samples=1, progressive=False, verbose=False)
     assert img.pixels.shape == (24, 32, 3)

@@ -11,8 +11,17 @@ with -fmad=false and follow the plain versions operation for operation);
 K5 (render_unidirectional) and its test entry shade_eval under
 chip_smoke.py's criteria (compare_render, compare_shade_eval): rays within
 0.1%, image mean within 1e-3, >= 99% of pixels within rtol 1e-3; the
-per-element bounds of tests/test_torch_bsdf.py.
+per-element bounds of tests/test_torch_bsdf.py. The BDPT kernels under
+chip_smoke.py's criteria too: K10's codecs bit-equal (compare_codecs);
+K12's walks with at most 0.1% of lanes diverged and each field within its
+bound on >= 99.9% of the vertices (compare_walk); K11 and K13 on the same
+buffers as their plain versions, rays within 0.1%, image mean within
+1e-3, >= 99.9% (K11) and 99.5% (K13) of pixels within rtol 1e-3
+(compare_image), at the defaults and with each strategy flag set and the
+VCM d_vm chain on (compare_bdpt); the BDPT golden at rmse < 1e-3.
 """
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -20,6 +29,7 @@ import torch
 
 import chip_smoke
 from cudapathtracer_tpu_torch import kernels
+from cudapathtracer_tpu_torch.models import bdpt, paths
 from cudapathtracer_tpu_torch.models import unidirectional as uni
 from cudapathtracer_tpu_torch.models import unidirectional_mega as mega
 from cudapathtracer_tpu_torch.ops import traverse8
@@ -27,7 +37,7 @@ from cudapathtracer_tpu_torch.scene import builtin
 from cudapathtracer_tpu_torch.scene.camera import Camera
 from cudapathtracer_tpu_torch.scene.materials import builtin_materials
 from cudapathtracer_tpu_torch.scene.scene import build_scene
-from cudapathtracer_tpu_torch.utils import rng
+from cudapathtracer_tpu_torch.utils import packing, rng
 
 
 @pytest.fixture
@@ -49,7 +59,9 @@ def test_import_builds_nothing():
 
 @pytest.mark.parametrize("call", ["uniform_id", "generate_rays",
                                   "closest_hit8", "shadow_factor8",
-                                  "render_unidirectional", "shade_eval"])
+                                  "render_unidirectional", "shade_eval",
+                                  "packing_roundtrip", "bdpt_walk",
+                                  "bdpt_splat", "bdpt_connect"])
 def test_wrappers_refuse_non_cuda_tensors(call):
     """A wrapper launches on CUDA tensors or raises; it never falls back."""
     kernels.reset_launches()
@@ -58,6 +70,13 @@ def test_wrappers_refuse_non_cuda_tensors(call):
     f3 = torch.zeros((n, 3))
     i1 = torch.zeros(n, dtype=torch.int32)
     scene = build_scene(builtin.cornell_box(), builtin_materials())[0]
+    b1 = torch.zeros(n, dtype=torch.bool)
+    cam = Camera.pinhole((0.0, 0.0, 1.0), 2, 2, 0.0, 0.0, 0.0, 60.0)
+    cfg = bdpt.BDPTConfig(eye_depth=3, light_depth=2)
+    bufs = paths.PathBuffers.empty(1, n, "cpu")
+    v0 = dict(pt=f3, n=f3, beta=f3, pdf_fwd=f1, mat_id=i1)
+    eye = dict(bufs=paths.PathBuffers.empty(2, n, "cpu"), v0=v0,
+               escape=paths.Escape(b1, f3, f3))
     args = {
         "uniform_id": (i1, 1, 2, False),
         "generate_rays": (torch.zeros(n), torch.zeros(n), i1, [0.0] * 19,
@@ -68,10 +87,17 @@ def test_wrappers_refuse_non_cuda_tensors(call):
                            f3, torch.zeros(n), i1, None),
         "render_unidirectional": (scene, i1, i1, [0.0] * 19, [0] * 28),
         "shade_eval": (scene, f3, f3, f1, i1, f1, f1, i1, f1, [0] * 18),
+        "packing_roundtrip": (f3, f3, b1, b1, i1, i1),
+        "bdpt_walk": (scene, i1, i1, [0] * 12),
+        "bdpt_splat": (scene, cam, bufs, v0, f3, i1, cfg),
+        "bdpt_connect": (scene, cam, (0, 1), eye, dict(bufs=bufs, v0=v0),
+                         f3, i1, cfg),
     }[call]
-    kw = (dict(max_depth=4, use_mis=True, sample_environment=False,
-               schedule="mega", air_priority=99)
-          if call == "render_unidirectional" else {})
+    kw = {"render_unidirectional": dict(
+              max_depth=4, use_mis=True, sample_environment=False,
+              schedule="mega", air_priority=99),
+          "bdpt_walk": dict(mode="light", max_depth=2, rays=i1),
+          "bdpt_connect": dict(px=i1, py=i1)}.get(call, {})
     with pytest.raises(ValueError, match="CUDA"):
         getattr(kernels, call)(*args, **kw)
     meta = [a.to("meta") if isinstance(a, torch.Tensor) else a for a in args]
@@ -247,3 +273,79 @@ def test_shade_eval_matches_plain(cuda, bunny_mat):
     chip_smoke.compare_shade_eval(sc, d, hit, k, p, eta,
                                   rng.uniform_id(skey, 4, ids),
                                   rng.uniform_id(skey, 6, ids), "test")
+
+
+@pytest.mark.cuda
+def test_k10_matches_plain(cuda):
+    gen = np.random.default_rng(8)
+    n = 200000
+    t = lambda a, dt=torch.float32: torch.as_tensor(a, dtype=dt, device=cuda)
+    vec = t(gen.normal(size=(n, 3)))
+    vec = (vec / vec.norm(dim=1, keepdim=True)).contiguous()
+    beta = t(gen.lognormal(0.0, 6.0, (n, 3)))
+    dl = t(gen.uniform(size=n) < 0.5, torch.bool)
+    bf = t(gen.uniform(size=n) < 0.5, torch.bool)
+    li = t(gen.integers(-1, 1 << 20, n), torch.int32)
+    mi = t(gen.integers(0, 1024, n), torch.int32)
+    kernels.reset_launches()
+    k = kernels.packing_roundtrip(vec, beta, dl, bf, li, mi)
+    assert kernels.launches["packing_roundtrip"] == 1
+    o, h = packing.pack_oct(vec), packing.to_half3(beta)
+    f = packing.pack_flags(dl, bf, li, mi)
+    p = dict(oct=o, dec=packing.unpack_oct(o), half3=h,
+             beta_dec=packing.from_half3(h), flags=f,
+             unflags=torch.stack([x.to(torch.int32)
+                                  for x in packing.unpack_flags(f)], dim=1))
+    chip_smoke.compare_codecs(k, p, "test")
+
+
+BDPT_CASES = ([(scene, "defaults") for scene in ("blocks", "spheres", "leaf")]
+              + [("spheres", f) for f in sorted(chip_smoke.BDPT_FLAGS)]
+              + [("spheres", "vcm_walk")])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,flags", BDPT_CASES)
+def test_bdpt_kernels_match_plain(cuda, name, flags):
+    """K12 (both walks), then K11 and K13 on the kernel walk's buffers,
+    against their plain versions on the same inputs (chip_smoke's
+    compare_bdpt): at the defaults on three scenes, then on the mirror +
+    glass spheres with each strategy flag set in turn and with the light
+    walk's VCM d_vm chain on."""
+    mesh = {"blocks": builtin.cornell_with_blocks,
+            "spheres": builtin.cornell_with_spheres,
+            "leaf": lambda: builtin.cornell_with_bunny(3, bunny_mat=13)}[name]
+    sc, _ = build_scene(mesh(), builtin_materials(), device=cuda)
+    w, h = 96, 64
+    cam = Camera.pinhole((0.0, 0.0, 1.0), w, h, 0.0, 0.0, 0.0, 60.0)
+    px, py = _grid(w, h, cuda)
+    cfg = dataclasses.replace(bdpt.BDPTConfig(eye_depth=6, light_depth=4),
+                              **chip_smoke.BDPT_FLAGS.get(flags, {}))
+    eta = chip_smoke.VCM_ETA if flags == "vcm_walk" else None
+    kernels.reset_launches()
+    chip_smoke.compare_bdpt(sc, cam, px, py, cfg,
+                            bdpt.sample_keys(rng.base_key(), 2),
+                            f"{name} {flags}", eta_vcm=eta)
+    assert (kernels.launches["bdpt_walk"], kernels.launches["bdpt_splat"],
+            kernels.launches["bdpt_connect"]) == (2, 1, 1)
+
+
+@pytest.mark.cuda
+def test_bdpt_golden_on_card(cuda):
+    import os
+    sc, _ = build_scene(builtin.cornell_with_blocks(), builtin_materials(),
+                        device=cuda)
+    cam = Camera.pinhole((0.0, 0.0, 1.0), 16, 16, 0.0, 0.0, 0.0, 60.0)
+    px, py = _grid(16, 16, cuda)
+    cfg = bdpt.BDPTConfig(eye_depth=6, light_depth=4)
+    kernels.reset_launches()
+    acc = torch.zeros((256, 3), device=cuda)
+    for s in range(8):
+        li, rays = bdpt.render_sample(sc, cam, rng.base_key(), s, px, py,
+                                      cfg=cfg)
+        acc += li
+    assert kernels.launches["bdpt_connect"] == 8
+    golden = np.load(os.path.join(os.path.dirname(os.path.abspath(
+        __file__)), "golden", "cornell_bdpt_16x16_8spp.npy"))
+    err = np.sqrt(np.mean(((acc / 8).cpu().numpy() - golden) ** 2))
+    assert err < 1e-3, f"rmse {err:.3g}"

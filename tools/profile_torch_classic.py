@@ -1,11 +1,13 @@
 #!/usr/bin/env python3
-"""Where the time goes in the PyTorch port's unidirectional main path, on
-one GPU.
+"""Where the time goes in the PyTorch port's main paths, on one GPU.
 
-Renders the main path (configs/cornell.rendertron, the ~82k-triangle
-Cornell + bunny scene, depth 8) through driver.Renderer with the engine
-asked for (--engine mega, the config's default, or classic; on the card
-both are one launch per sample of the per-path megakernel, K5): one
+Renders a main path (configs/cornell.rendertron, the ~82k-triangle
+Cornell + bunny scene) through driver.Renderer with the engine asked for:
+--engine mega (the config's default) or classic, the unidirectional path
+at depth 8, one launch per sample of the per-path megakernel K5; or
+--engine bdpt, Integrator BIDIRECTIONAL with Engine classic at the
+config's eye and light depths, four launches per sample (the walks K12
+twice, the splat K11, the connections K13). One
 timed warm-up sample, then timed samples (host clock around samples that
 end in a synchronize, and CUDA events around the same samples), then one
 sample under torch.profiler. Prints per-kernel device time grouped by layer, the
@@ -13,7 +15,7 @@ device's busy time and idle share over the profiled sample, and each
 sample's time and Mrays/s. Writes the profiler table and a Chrome trace
 under --out (the trace gzipped). Run from the repository root:
 
-    python3 tools/profile_torch_classic.py [--engine mega|classic]
+    python3 tools/profile_torch_classic.py [--engine mega|classic|bdpt]
         [--width 1920 --height 1080 --spp 4]
 """
 
@@ -31,6 +33,9 @@ import time
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 LAYERS = (("K5 megakernel", "uni_mega_kernel"),
+          ("K12 BDPT walks", "bdpt_walk_kernel"),
+          ("K11 BDPT splat", "bdpt_splat_kernel"),
+          ("K13 BDPT connections", "bdpt_connect_kernel"),
           ("K1 traverse8", "traverse8_kernel"),
           ("K6 rng", "uniform_id_kernel"),
           ("K7 camera", "generate_rays_kernel"))
@@ -39,7 +44,8 @@ OTHER = "other device work (sums, copies, accumulation)"
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__)
-    ap.add_argument("--engine", choices=("mega", "classic"), default="mega")
+    ap.add_argument("--engine", choices=("mega", "classic", "bdpt"),
+                    default="mega")
     ap.add_argument("--width", type=int, default=1920)
     ap.add_argument("--height", type=int, default=1080)
     ap.add_argument("--depth", type=int, default=8)
@@ -60,10 +66,12 @@ def main() -> int:
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
                           text=True, timeout=60).stdout.strip()
+    bdpt = args.engine == "bdpt"
     cfg = dataclasses.replace(
         load_config(os.path.join(ROOT, "configs", "cornell.rendertron")),
-        engine=args.engine, width=args.width, height=args.height,
-        max_depth=args.depth,
+        integrator="BIDIRECTIONAL" if bdpt else "UNIDIRECTIONAL",
+        engine="classic" if bdpt else args.engine, width=args.width,
+        height=args.height, max_depth=args.depth,
         meshes=[MeshConfig("builtin:cornell_bunny", 1.0, (0.0, 0.0, 0.0),
                            2)])
     r = Renderer(cfg, device="cuda")
@@ -124,7 +132,9 @@ def main() -> int:
     print(table[:6000])
     summary = dict(
         card=card, kind=torch.cuda.get_device_name(0), engine=args.engine,
-        width=args.width, height=args.height, depth=args.depth,
+        width=args.width, height=args.height,
+        depth=((cfg.bdpt_eye_depth, cfg.bdpt_light_depth) if bdpt
+               else args.depth),
         warmup_sample_seconds=warmup_secs, sample_seconds=secs,
         sample_event_ms=event_ms,
         mrays_per_s=rays / args.spp / secs / 1e6,
