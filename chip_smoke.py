@@ -59,12 +59,34 @@ Phases (one line each; any failure exits non-zero before the result line):
      1920x1080, 4 spp: rays, render-phase seconds, Mrays/s, peak memory,
      4 launches per sample (K12 twice, K11, K13), finite, non-negative and
      > 90% non-black; then one sample's four launches timed with CUDA
-     events.
+     events;
+ 16. the photon family (compare_vcm) on the VCM main path's sample
+     (1920x1080 bunny, eye 8, light 6: 12,441,600 candidate photons, a
+     table above 2^24 buckets): K12's light walk with eta_vcm, then
+     vcm_splat (K11's VCM form) and vcm_eye (K13's VCM form with the K9
+     merge) against their plain versions on the same buffers and grid
+     (rays within 0.1%, image mean within 1e-3, >= 99.9% / 99.5% of pixels
+     within rtol 1e-3, dropped photons equal), K8 (photon_pack, a stable
+     torch.sort, photon_table) bit-equal to build_grid; the same for SPPM,
+     and for VCM on the 512x512 mirror + glass spheres at the caustics
+     config's depths (samples 0 and 1); each kernel timed at the 1080p
+     shapes, the 1080p splat twice to print the spread from atomicAdd's
+     order;
+ 17. the VCM and SPPM goldens through the kernels (rmse < 1e-3);
+ 18. the photon main paths through Renderer: Integrator VCM and SPPM with
+     Engine classic on the same config (1080p bunny, 4 spp), then
+     configs/vcm_caustics.rendertron with Engine classic at 4 spp: rays,
+     render-phase seconds, Mrays/s, peak memory, launches per sample (K12,
+     vcm_splat, photon_pack, photon_table, vcm_eye; SPPM without the
+     splat; and one torch.sort), merge-cap dropped photons; finite,
+     non-negative, > 90% non-black;
+ 19. one 1080p VCM sample's launches timed with CUDA events.
 Then one JSON line with each kernel's launches on its main path (the
-BDPT kernels on the BDPT path, the others on the mega path), error and
-times against its plain version, its bound on this card and the library
-call's time (null: no PyTorch call computes these functions), the card's
-name and power limit, and as the last line {"ok": true, "device": {...}}.
+BDPT kernels on the BDPT path, the photon kernels on the VCM path, the
+others on the mega path), error and times against its plain version, its
+bound on this card and the library call's time (null: no PyTorch call
+computes these functions), the card's name and power limit, and as the
+last line {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -101,8 +123,17 @@ KERNELS = (  # name, source, the JAX function it replaces
      "cudapathtracer_tpu/models/bdpt.py:93"),
     ("bdpt_connect", CSRC + "bdpt_connect.cu",
      "cudapathtracer_tpu/models/bdpt.py:226"),
+    ("vcm_splat", CSRC + "bdpt_splat.cu",
+     "cudapathtracer_tpu/models/vcm.py:87"),
+    ("photon_pack", CSRC + "photon_grid.cu",
+     "cudapathtracer_tpu/ops/hashgrid.py:151"),
+    ("photon_table", CSRC + "photon_grid.cu",
+     "cudapathtracer_tpu/ops/hashgrid.py:151"),
+    ("vcm_eye", CSRC + "vcm_eye.cu",
+     "cudapathtracer_tpu/models/vcm.py:150"),
 )
 BDPT_KERNELS = ("bdpt_walk", "bdpt_splat", "bdpt_connect")
+PHOTON_KERNELS = ("vcm_splat", "photon_pack", "photon_table", "vcm_eye")
 # The card's peaks (H100 SXM data sheet) for the
 # bound: bytes over memory bandwidth, scalar operations (integer or float,
 # one per instruction: the kernels are built with -fmad=false) over the
@@ -124,6 +155,9 @@ OPS_PER_CAMERA_RAY = 4 * OPS_PER_DRAW + 60
 OPS_PER_WALK_VERTEX = 5 * OPS_PER_DRAW + 360
 OPS_PER_DECODE = 40
 OPS_PER_CODEC = 120
+# the photon grid (hashgrid.cuh, photon_grid.cu): one photon's oct decode
+# and encode (~70), half2 codes (~10), cell, hash and key (~20)
+OPS_PER_PHOTON = 100
 VERTEX_BYTES = 51   # one packed vertex: pt 12, two oct 8, uv 4, beta 6,
 #                     pdf_fwd/d_vcm/d_vc/d_vm 16, flags 4, valid 1
 K_ULP = 32 * 2.0 ** -24   # tests/test_torch_bsdf.py's K u
@@ -532,7 +566,8 @@ def compare_image(k, p, what: str, tag: str, share: float) -> float:
 
 def compare_bdpt(scene, cam, px, py, cfg, keys, what: str,
                  eta_vcm=None) -> tuple:
-    """K12 (both walks; eta_vcm turns on the light walk's VCM d_vm chain),
+    """K12 (both walks; eta_vcm turns on the light walk's VCM d_vm chain,
+    then held bit-equal to the plain walk's),
     then K11 and K13 on the kernel walks' buffers, against their plain
     versions on the same inputs (compare_walk, compare_image); cfg is a
     BDPTConfig, keys the sample's (key_l, key_e, key_c). Returns the
@@ -557,6 +592,12 @@ def compare_bdpt(scene, cam, px, py, cfg, keys, what: str,
     if eta_vcm is not None:
         check(bool((pl[0].d_vm != 0).any()), f"K12 {what}: eta_vcm set but "
               "the plain light walk's d_vm is all zero")
+        # the plain seed divides in IEEE (true_div) as the kernel does
+        both = lw["bufs"].valid & pl[0].valid
+        kv, pv = (b.d_vm[both].view(torch.int32) for b in (lw["bufs"], pl[0]))
+        check(torch.equal(kv, pv), f"K12 {what}: d_vm differs from the "
+              f"plain walk's on {int((kv != pv).sum())} vertices")
+        say("K12", f"{what}: d_vm bit-equal on {kv.numel()} vertices")
     err12 = max(compare_walk((lw["bufs"], lw["v0"], None),
                              (pl[0], pl[1], None), f"{what} light"),
                 compare_walk((ew["bufs"], ew["v0"], ew["escape"]),
@@ -583,6 +624,149 @@ def compare_bdpt(scene, cam, px, py, cfg, keys, what: str,
     return err12, err11, err13
 
 
+def compare_grid(k, p, what: str) -> None:
+    """K8 (photon_pack, sort, photon_table) against build_grid on the same
+    photons: sorted rows and the (start, end) table bit-equal."""
+    import torch
+    check(k.table_size == p.table_size and k.rows.shape == p.rows.shape,
+          f"K8 {what}: grid shapes differ")
+    bad_rows = int((k.rows.view(torch.int32) != p.rows.view(torch.int32))
+                   .any(dim=1).sum())
+    bad_se = int((k.cell_se != p.cell_se).any(dim=1).sum())
+    check(bad_rows == 0 and bad_se == 0, f"K8 {what}: {bad_rows} rows and "
+          f"{bad_se} (start, end) entries differ from the plain version")
+    t = k.table_size
+    invalid = int(k.cell_se[t, 1] - k.cell_se[t, 0])
+    say("K8", f"{what}: {k.rows.shape[0]} sorted rows ({invalid} invalid in "
+        f"the sentinel bucket), table of {t + 1} buckets (key wraps: "
+        f"{t > 2 ** 24}): rows and (start, end) bit-equal")
+
+
+def compare_vcm(scene, cam, px, py, cfg, sample_idx: int, what: str) -> dict:
+    """One VCM/SPPM sample's kernels against their plain versions on the
+    same inputs: K12's light walk with eta_vcm (the kernel's buffers feed
+    both sides), then vcm_splat against vcm_light_splat (compare_image,
+    99.9%), K8 against build_grid (compare_grid), and vcm_eye against eye_pass_plain on the same buffers and
+    grid (compare_image, 99.5%; dropped photons equal). Returns the errors,
+    the inputs and the plain versions' CUDA-event milliseconds."""
+    import torch
+    from cudapathtracer_tpu_torch import kernels
+    from cudapathtracer_tpu_torch.models import paths, vcm
+    from cudapathtracer_tpu_torch.ops import hashgrid
+    from cudapathtracer_tpu_torch.utils import rng
+    n, dev = px.shape[0], px.device
+    key_l, key_e = vcm.sample_keys(rng.base_key(), sample_idx)
+    mr, eta, norm = vcm.sample_scalars(scene, cfg, sample_idx, n)
+    salt = hashgrid.photon_salt(sample_idx)
+    z = lambda: torch.zeros(n, dtype=torch.int32, device=dev)
+    lw = kernels.bdpt_walk(scene, px, py, paths.walk_keys(key_l, "light"),
+                           mode="light", max_depth=cfg.light_depth + 1,
+                           rays=z(), eta_vcm=eta)
+    lb = lw["bufs"]
+    out = dict(lbufs=lb, mr=mr, eta=eta, norm=norm, salt=salt, keys_e=key_e,
+               err_splat=0.0, plain_ms={})
+
+    def timed(name, fn):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        res = fn()
+        ev[1].record()
+        torch.cuda.synchronize()
+        out["plain_ms"][name] = ev[0].elapsed_time(ev[1])
+        return res
+    if cfg.light_trace:
+        fbk, srays = torch.zeros((n, 3), device=dev), z()
+        kernels.vcm_splat(scene, cam, lb, fbk, srays, cfg, eta)
+        fbp = torch.zeros((n, 3), device=dev)
+        _, prays = timed("vcm_splat", lambda: vcm.vcm_light_splat(
+            scene, cam, lb, cfg, eta, fbp))
+        out["err_splat"] = compare_image((fbk, int(srays.sum())),
+                                         (fbp, prays), f"{what} vcm splat",
+                                         "K11", 0.999)
+    kgrid = hashgrid.build_grid_kernel(lb, scene.scene_min, mr, salt)
+    def pack_plain():
+        rows, valid = hashgrid.photon_rows(lb)
+        return (rows, valid) + hashgrid.grid_keys(
+            rows, valid, scene.scene_min, 2.0 * mr, kgrid.table_size, salt)
+    rows, valid, h, key = timed("photon_pack", pack_plain)
+    order = torch.sort(key, stable=True).indices
+    prows, pse = timed("photon_table", lambda: hashgrid.grid_table(
+        rows, h, order, kgrid.table_size))
+    pgrid = hashgrid.PhotonGrid(prows, pse, tuple(scene.scene_min), 2.0 * mr,
+                                kgrid.table_size)
+    compare_grid(kgrid, pgrid, what)
+    grid = kgrid if cfg.do_merge else None
+    erays = z()
+    outk, dropk, _ = kernels.vcm_eye(
+        scene, cam, paths.walk_keys(key_e, "eye"), lb, grid, None, erays,
+        cfg, px=px, py=py, merge_radius=mr, eta_vcm=eta, merge_norm=norm,
+        **hashgrid.merge_switches(cfg.max_per_cell))
+    outp, prays_e, dropp = timed("vcm_eye", lambda: vcm.eye_pass_plain(
+        scene, cam, key_e, lb, grid, cfg, px, py, mr, eta, norm))
+    out["err_eye"] = compare_image((outk, int(erays.sum())),
+                                   (outp, prays_e), f"{what} eye pass",
+                                   "K13v", 0.995)
+    dk = int(dropk.sum())
+    check(dk == dropp, f"K9 {what}: dropped photons kernel {dk} vs plain "
+          f"{dropp}")
+    say("K9", f"{what}: merge cap dropped {dk} candidate photons (plain "
+        f"{dropp})")
+    out.update(grid=kgrid, photons=int(valid.sum()), dropped=dk)
+    return out
+
+
+def render_path(cfg, tag: str, card: str, want: dict) -> tuple:
+    """One main path through Renderer(device="cuda") with the launch
+    counters zeroed just before its render: prints the time to Renderer
+    ready, rays, the render phase, Mrays/s (per second of the render phase,
+    as RenderMetrics counts it; the wall time also holds the final image's
+    host tonemap), peak memory, launches per sample and the merge-cap
+    dropped photons; checks a finite, non-negative, > 90% non-black image
+    of the configured shape and the launch counts in `want`; saves the BMP
+    under chiprun_out/. Returns (the Renderer, its launches)."""
+    import torch
+    from cudapathtracer_tpu_torch import kernels
+    from cudapathtracer_tpu_torch.driver import Renderer
+    t0 = time.perf_counter()
+    r = Renderer(cfg, device="cuda")
+    c = r.cfg
+    say(tag, f"Renderer ready in {time.perf_counter() - t0:.1f} s: "
+        f"{r.scene.num_triangles} triangles, {c.integrator}, engine "
+        f"{c.engine}, {c.width}x{c.height}, depth {c.max_depth}, eye / light "
+        f"depth {c.bdpt_eye_depth} / {c.bdpt_light_depth}, "
+        f"{c.sample_count} spp")
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    r.render(progressive=False, verbose=False)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = dict(kernels.launches)
+    acc = r.accum
+    bad = int((~torch.isfinite(acc)).any(dim=1).sum()
+              + (acc < 0).any(dim=1).sum())
+    fb = r.framebuffer()
+    nonblack = float((fb.max(axis=-1) > 0.0).mean())
+    rays, phase = r.metrics.rays_traced, r.metrics.render_seconds
+    per_sample = {k: v / c.sample_count for k, v in launches.items() if v}
+    say(tag, f"{rays} rays in a {phase:.3f} s render phase = "
+        f"{rays / phase / 1e6:.3f} Mrays/s ({card}); {secs:.3f} s with the "
+        f"final image; peak memory {peak_gib(base)}; launches per sample "
+        f"{per_sample}; merge-cap dropped photons "
+        f"{r.metrics.merge_dropped}; non-black {nonblack:.4f}; bad pixels "
+        f"{bad}")
+    check(fb.shape == (c.height, c.width, 3), f"{tag}: framebuffer shape "
+          f"{fb.shape}")
+    check(bad == 0, f"{tag}: {bad} NaN/Inf/negative pixels")
+    check(nonblack > 0.9, f"{tag}: only {nonblack:.3f} of pixels non-black")
+    check(all(launches[k] == v for k, v in want.items()),
+          f"{tag}: launches {launches}, expected {want}")
+    r.finish().save_bmp(os.path.join(OUT_DIR, f"{c.name}.bmp"))
+    return r, launches
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(ROOT, "cudapathtracer_tpu_torch")):
         print("FAIL: run chip_smoke.py from a checkout of the repository "
@@ -596,10 +780,9 @@ def main() -> int:
         return 2
     sys.path.insert(0, ROOT)
     from cudapathtracer_tpu_torch import kernels
-    from cudapathtracer_tpu_torch.driver import Renderer
     from cudapathtracer_tpu_torch.models import bdpt, paths, unidirectional
-    from cudapathtracer_tpu_torch.models import unidirectional_mega
-    from cudapathtracer_tpu_torch.ops import traverse8
+    from cudapathtracer_tpu_torch.models import unidirectional_mega, vcm
+    from cudapathtracer_tpu_torch.ops import hashgrid, traverse8
     from cudapathtracer_tpu_torch.scene import builtin
     from cudapathtracer_tpu_torch.scene.camera import Camera
     from cudapathtracer_tpu_torch.scene.materials import builtin_materials
@@ -627,7 +810,9 @@ def main() -> int:
     say("build", f"{kernels.LIBRARY} built in {build_s:.1f} s "
         f"({len(kernels.SOURCES)} sources in parallel)")
     for kname in ("uni_mega_kernel", "bdpt_walk_kernel", "bdpt_splat_kernel",
-                  "bdpt_connect_kernel", "packing_kernel"):
+                  "bdpt_connect_kernel", "packing_kernel",
+                  "photon_pack_kernel", "photon_table_kernel",
+                  "vcm_eye_kernel"):
         mk = ptxas_of(ptxas_log, kname)
         say("build", f"{kname}: {mk['registers']} registers, "
             f"{mk['stack_bytes']} bytes stack frame, "
@@ -1140,100 +1325,166 @@ def main() -> int:
         f"ratio {float(img.mean() / golden.mean()):.6f}")
     check(err < 1e-3, f"BDPT golden: rmse {err:.3g}")
 
+    # --- 16. the photon family against its plain versions: the 1080p VCM
+    # main path's sample (12.4M candidate photons, a table above 2^24
+    # buckets), the same for SPPM, and VCM on the 512x512 mirror + glass
+    # spheres (the caustics config's scene and depths)
+    t0 = time.perf_counter()
+
+    def photon_cfg(c, integ):
+        return vcm.VCMConfig.from_config(dataclasses.replace(
+            c, integrator=integ, engine="classic").normalized())
+    vmain = photon_cfg(cfg0, "VCM")
+    res = compare_vcm(scene, cam, px, py, vmain, 0,
+                      f"vcm {WIDTH}x{HEIGHT}")
+    check(res["grid"].table_size > 2 ** 24, "the 1080p VCM grid is expected "
+          "to need more than 2^24 buckets")
+    plain_ms = res["plain_ms"]
+    err_splat, err_eye = res["err_splat"], res["err_eye"]
+    lb, vgrid = res["lbufs"], res["grid"]
+    mr, eta, norm = res["mr"], res["eta"], res["norm"]
+    p = lb.pt.shape[0] * lb.pt.shape[1]
+    p8, tsize = vgrid.rows.shape[0], vgrid.table_size
+    ekeys = paths.walk_keys(res["keys_e"], "eye")
+    srays = torch.zeros(n, dtype=torch.int32, device=dev)
+    fbs = [torch.zeros((n, 3), device=dev) for _ in range(2)]
+    srows = kernels.vcm_splat(scene, cam, lb, fbs[0], srays, vmain, eta,
+                              with_rows=True)
+    kernels.vcm_splat(scene, cam, lb, fbs[1],
+                      torch.zeros(n, dtype=torch.int32, device=dev), vmain,
+                      eta)
+    say("K11", "vcm_splat, two kernel runs on the same buffers (atomicAdd "
+        f"order): max abs difference "
+        f"{(fbs[0] - fbs[1]).abs().max().item():.3g}")
+    erays = torch.zeros(n, dtype=torch.int32, device=dev)
+    switches = hashgrid.merge_switches(vmain.max_per_cell)
+    _, _, erows = kernels.vcm_eye(scene, cam, ekeys, lb, vgrid, None, erays,
+                                  vmain, px=px, py=py, merge_radius=mr,
+                                  eta_vcm=eta, merge_norm=norm,
+                                  with_rows=True, **switches)
+    packed = kernels.photon_pack(lb, scene.scene_min, 2.0 * mr, tsize,
+                                 res["salt"])
+    order = torch.sort(packed[2], stable=True).indices
+    tbytes = sum(t.numel() * 4 for t in (scene.bvh8_table, scene.tri_f32,
+                                          scene.light_f32, scene.textures,
+                                          scene.mat_f32))
+    lbytes = vmain.light_depth * n * VERTEX_BYTES
+    gbytes = 32 * p8 + 8 * (tsize + 1)
+    fbt = torch.zeros((n, 3), device=dev)
+    rst = torch.zeros(n, dtype=torch.int32, device=dev)
+    stats["vcm_splat"].update(
+        bound=bound_ms(tbytes + lbytes + n * (12 + 4),
+                       int(srows.sum()) * OPS_PER_ROW
+                       + vmain.light_depth * n * OPS_PER_DECODE),
+        max_abs_err=err_splat, plain_ms=plain_ms["vcm_splat"],
+        ms=cuda_ms(lambda: kernels.vcm_splat(scene, cam, lb, fbt, rst, vmain,
+                                             eta), 5))
+    stats["photon_pack"].update(
+        bound=bound_ms(p * (35 + 44) + 8 * (tsize + 1),
+                       p * OPS_PER_PHOTON),
+        max_abs_err=0.0, plain_ms=plain_ms["photon_pack"],
+        ms=cuda_ms(lambda: kernels.photon_pack(lb, scene.scene_min, 2.0 * mr,
+                                               tsize, res["salt"]), 5))
+    touched = int((vgrid.cell_se[:, 1] > vgrid.cell_se[:, 0]).sum())
+    stats["photon_table"].update(
+        bound=bound_ms(p * (8 + 4 + 32) + 32 * p8 + 16 * touched, p * 4),
+        max_abs_err=0.0, plain_ms=plain_ms["photon_table"],
+        ms=cuda_ms(lambda: kernels.photon_table(packed[0], packed[1], order,
+                                                packed[3]), 5))
+    sort_ms = cuda_ms(lambda: torch.sort(packed[2], stable=True), 5)
+    stats["vcm_eye"].update(
+        bound=bound_ms(tbytes + lbytes + gbytes + n * (8 + 12 + 4 + 4),
+                       int(erows.sum()) * OPS_PER_ROW
+                       + n * OPS_PER_CAMERA_RAY),
+        max_abs_err=err_eye, plain_ms=plain_ms["vcm_eye"],
+        ms=cuda_ms(lambda: kernels.vcm_eye(
+            scene, cam, ekeys, lb, vgrid, None, rst, vmain, px=px, py=py,
+            merge_radius=mr, eta_vcm=eta, merge_norm=norm, **switches), 2))
+    say("photon", f"vcm {WIDTH}x{HEIGHT} sample 0: {p} candidate photons "
+        f"({res['photons']} valid) in {touched} of {tsize + 1} buckets, "
+        f"merge radius {mr:.6g}, eta_vcm "
+        f"{eta:.6g}; kernel / plain ms: vcm_splat "
+        f"{stats['vcm_splat']['ms']:.3f} / {plain_ms['vcm_splat']:.3f}, "
+        f"photon_pack {stats['photon_pack']['ms']:.3f} / "
+        f"{plain_ms['photon_pack']:.3f}, sort {sort_ms:.3f}, photon_table "
+        f"{stats['photon_table']['ms']:.3f} / {plain_ms['photon_table']:.3f}"
+        f", vcm_eye {stats['vcm_eye']['ms']:.3f} / {plain_ms['vcm_eye']:.3f}"
+        f"; {int(srows.sum())} + {int(erows.sum())} BVH8 rows (splat, eye)")
+    del res, lb, vgrid, packed, order, srows, erows, fbt, rst, fbs
+    sres = compare_vcm(scene, cam, px, py, photon_cfg(cfg0, "SPPM"), 0,
+                       f"sppm {WIDTH}x{HEIGHT}")
+    del sres
+    ccfg = photon_cfg(load_config(os.path.join(
+        ROOT, "configs", "vcm_caustics.rendertron")), "VCM")
+    ccam = Camera.pinhole((0.0, 0.0, 1.0), 512, 512, 0.0, 0.0, 0.0, 60.0)
+    cx, cy = (t.reshape(-1).contiguous() for t in reversed(torch.meshgrid(
+        torch.arange(512, dtype=torch.int32, device=dev),
+        torch.arange(512, dtype=torch.int32, device=dev), indexing="ij")))
+    for s in (0, 1):
+        cres = compare_vcm(sph, ccam, cx, cy, ccfg, s,
+                           f"caustics 512x512 sample {s}")
+        err_splat = max(err_splat, cres["err_splat"])
+        err_eye = max(err_eye, cres["err_eye"])
+        del cres
+    stats["vcm_splat"]["max_abs_err"] = err_splat
+    stats["vcm_eye"]["max_abs_err"] = err_eye
+    say("photon", f"K8, K9, K11 and K13's VCM forms held to their plain "
+        f"versions in {time.perf_counter() - t0:.1f} s")
+
+    # --- 17. the VCM and SPPM goldens on the card through the kernels
+    gvcm = vcm.VCMConfig(eye_depth=6, light_depth=4)
+    for gname, gc in (("vcm", gvcm), ("sppm", dataclasses.replace(
+            gvcm, light_trace=False, nee=False, naive=False,
+            connection=False, do_mis=False, do_sppm=True))):
+        kernels.reset_launches()
+        acc = torch.zeros((256, 3), device=dev)
+        for s in range(8):
+            li, _, _ = vcm.render_sample(gscene, gcam, rng.base_key(), s,
+                                         gxx.reshape(-1), gyy.reshape(-1),
+                                         cfg=gc)
+            acc += li
+        want = {k: 8 for k in PHOTON_KERNELS + ("bdpt_walk",)}
+        want["vcm_splat"] = 8 if gc.light_trace else 0
+        check(all(kernels.launches[k] == v for k, v in want.items()),
+              f"{gname} golden: launches {kernels.launches}")
+        img = (acc / 8).cpu().numpy()
+        golden = np.load(os.path.join(ROOT, "tests", "golden",
+                                      f"cornell_{gname}_16x16_8spp.npy"))
+        err = rmse(img, golden)
+        say("golden", f"cornell_{gname}_16x16_8spp.npy (16x16, 8 spp) on the "
+            f"card through the photon kernels: rmse {err:.3g} (bound 1e-3), "
+            f"mean ratio {float(img.mean() / golden.mean()):.6f}")
+        check(err < 1e-3, f"{gname} golden: rmse {err:.3g}")
+
     del scene, sph, gscene
 
     # --- 9. the main path through the Renderer: mega (the config's
-    # default), then classic; each with the counts zeroed just before it
+    # default), then classic
     cfg0 = load_config(os.path.join(ROOT, "configs", "cornell.rendertron"))
     check(cfg0.engine == "mega", "configs/cornell.rendertron is expected to "
           f"select the default mega engine, got {cfg0.engine!r}")
-    main_launches = {}
+    bunny = [MeshConfig("builtin:cornell_bunny", 1.0, (0.0, 0.0, 0.0), 2)]
+
+    def main_cfg(**over):
+        return dataclasses.replace(cfg0, width=WIDTH, height=HEIGHT,
+                                   sample_count=SPP, output_dir=OUT_DIR,
+                                   meshes=bunny, **over)
     for engine in ("mega", "classic"):
-        cfg = dataclasses.replace(
-            cfg0, engine=engine, width=WIDTH, height=HEIGHT,
-            max_depth=DEPTH, sample_count=SPP, name=f"smoke_{engine}",
-            output_dir=OUT_DIR,
-            meshes=[MeshConfig("builtin:cornell_bunny", 1.0,
-                               (0.0, 0.0, 0.0), 2)])
-        t0 = time.perf_counter()
-        r = Renderer(cfg, device="cuda")
-        say("main", f"{engine}: Renderer ready in "
-            f"{time.perf_counter() - t0:.1f} s: {r.scene.num_triangles} "
-            f"triangles, {WIDTH}x{HEIGHT}, depth {DEPTH}, {SPP} spp")
-        torch.cuda.synchronize()
-        base = torch.cuda.memory_allocated()
-        torch.cuda.reset_peak_memory_stats()
-        kernels.reset_launches()
-        t0 = time.perf_counter()
-        r.render(progressive=False, verbose=False)
-        torch.cuda.synchronize()
-        secs = time.perf_counter() - t0
-        launches = dict(kernels.launches)
-        acc = r.accum
-        bad = int((~torch.isfinite(acc)).any(dim=1).sum()
-                  + (acc < 0).any(dim=1).sum())
-        fb = r.framebuffer()
-        nonblack = float((fb.max(axis=-1) > 0.0).mean())
-        rays, phase = r.metrics.rays_traced, r.metrics.render_seconds
-        # Mrays/s is per second of the render phase (RenderMetrics); the
-        # wall time also holds the final image's tonemap on the host
-        say("main", f"{engine}: {rays} rays in a {phase:.3f} s render "
-            f"phase = {rays / phase / 1e6:.3f} Mrays/s ({card}); "
-            f"{secs:.3f} s with the final image; peak memory "
-            f"{peak_gib(base)}; launches {launches}; non-black "
-            f"{nonblack:.4f}; bad pixels {bad}")
-        check(fb.shape == (HEIGHT, WIDTH, 3), f"framebuffer shape {fb.shape}")
-        check(bad == 0, f"{engine}: {bad} NaN/Inf/negative pixels")
-        check(nonblack > 0.9, f"{engine}: only {nonblack:.3f} of pixels "
-              "non-black")
-        check(launches["render_unidirectional"] == SPP,
-              f"{engine}: the megakernel launched "
-              f"{launches['render_unidirectional']} times for {SPP} samples")
-        r.finish().save_bmp(os.path.join(OUT_DIR, f"{cfg.name}.bmp"))
+        r, launches = render_path(
+            main_cfg(engine=engine, max_depth=DEPTH, name=f"smoke_{engine}"),
+            engine, card, {"render_unidirectional": SPP})
         if engine == "mega":
             main_launches = launches
         del r
 
     # --- 15. the BDPT main path through the Renderer: the same config with
     # Integrator BIDIRECTIONAL and Engine classic at its own depths
-    cfg = dataclasses.replace(
-        cfg0, integrator="BIDIRECTIONAL", engine="classic", width=WIDTH,
-        height=HEIGHT, sample_count=SPP, name="smoke_bdpt",
-        output_dir=OUT_DIR,
-        meshes=[MeshConfig("builtin:cornell_bunny", 1.0, (0.0, 0.0, 0.0), 2)])
-    t0 = time.perf_counter()
-    r = Renderer(cfg, device="cuda")
+    r, bdpt_launches = render_path(
+        main_cfg(integrator="BIDIRECTIONAL", engine="classic",
+                 name="smoke_bdpt"), "bdpt", card,
+        {"bdpt_walk": 2 * SPP, "bdpt_splat": SPP, "bdpt_connect": SPP,
+         "render_unidirectional": 0})
     bcfg = bdpt.BDPTConfig.from_config(r.cfg)
-    say("bdpt", f"Renderer ready in {time.perf_counter() - t0:.1f} s: "
-        f"{r.scene.num_triangles} triangles, {WIDTH}x{HEIGHT}, eye depth "
-        f"{bcfg.eye_depth}, light depth {bcfg.light_depth}, {SPP} spp")
-    torch.cuda.synchronize()
-    base = torch.cuda.memory_allocated()
-    torch.cuda.reset_peak_memory_stats()
-    kernels.reset_launches()
-    t0 = time.perf_counter()
-    r.render(progressive=False, verbose=False)
-    torch.cuda.synchronize()
-    secs = time.perf_counter() - t0
-    bdpt_launches = dict(kernels.launches)
-    acc = r.accum
-    bad = int((~torch.isfinite(acc)).any(dim=1).sum()
-              + (acc < 0).any(dim=1).sum())
-    fb = r.framebuffer()
-    nonblack = float((fb.max(axis=-1) > 0.0).mean())
-    rays, phase = r.metrics.rays_traced, r.metrics.render_seconds
-    say("bdpt", f"{rays} rays in a {phase:.3f} s render phase = "
-        f"{rays / phase / 1e6:.3f} Mrays/s ({card}); {secs:.3f} s with the "
-        f"final image; peak memory {peak_gib(base)}; launches "
-        f"{bdpt_launches}; non-black {nonblack:.4f}; bad pixels {bad}")
-    check(fb.shape == (HEIGHT, WIDTH, 3), f"framebuffer shape {fb.shape}")
-    check(bad == 0, f"bdpt: {bad} NaN/Inf/negative pixels")
-    check(nonblack > 0.9, f"bdpt: only {nonblack:.3f} of pixels non-black")
-    want = {"bdpt_walk": 2 * SPP, "bdpt_splat": SPP, "bdpt_connect": SPP,
-            "render_unidirectional": 0}
-    check(all(bdpt_launches[k] == v for k, v in want.items()),
-          f"bdpt: launches {bdpt_launches}, expected {want}")
-    r.finish().save_bmp(os.path.join(OUT_DIR, f"{cfg.name}.bmp"))
 
     # one sample's four launches, each between two CUDA events
     key_l, key_e, key_c = bdpt.sample_keys(r.key, SPP)
@@ -1268,6 +1519,79 @@ def main() -> int:
         + f"; sum {sum(stage_ms.values()):.3f} ms ({card})")
     for k in ("packing_roundtrip",) + BDPT_KERNELS:
         main_launches[k] = bdpt_launches[k]
+    del r
+
+    # --- 18. the photon main paths through the Renderer: Integrator VCM,
+    # then SPPM, with Engine classic on the same config (the bunny scene,
+    # 1080p, 4 spp, its BDPT depths), then configs/vcm_caustics.rendertron
+    # as shipped with Engine classic at 4 spp: 5 launches and a sort per
+    # VCM sample, SPPM without the splat
+    caustics = load_config(os.path.join(ROOT, "configs",
+                                        "vcm_caustics.rendertron"))
+    for tag, cfg in (
+            ("vcm", main_cfg(integrator="VCM", engine="classic",
+                             name="smoke_vcm")),
+            ("sppm", main_cfg(integrator="SPPM", engine="classic",
+                              name="smoke_sppm")),
+            ("caustics", dataclasses.replace(
+                caustics, engine="classic", sample_count=SPP,
+                name="smoke_caustics", output_dir=OUT_DIR))):
+        splat = tag != "sppm"
+        r, launches = render_path(
+            cfg, tag, card,
+            {"bdpt_walk": SPP, "vcm_splat": SPP if splat else 0,
+             "photon_pack": SPP, "photon_table": SPP, "vcm_eye": SPP,
+             "bdpt_splat": 0, "bdpt_connect": 0, "render_unidirectional": 0})
+        if tag == "vcm":
+            for k in PHOTON_KERNELS:
+                main_launches[k] = launches[k]
+            vr = r
+        del r
+
+    # --- 19. one VCM sample's launches, each between two CUDA events
+    vc = vcm.VCMConfig.from_config(vr.cfg)
+    n = vr.px.shape[0]
+    key_l, key_e = vcm.sample_keys(vr.key, SPP)
+    mr, eta, norm = vcm.sample_scalars(vr.scene, vc, SPP, n)
+    salt = hashgrid.photon_salt(SPP)
+    stage_ms = {}
+    for rep in range(2):   # the first pass warms up
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(7)]
+        rays_t = torch.zeros(n, dtype=torch.int32, device=dev)
+        fb_t = torch.zeros((n, 3), device=dev)
+        ev[0].record()
+        lw = kernels.bdpt_walk(vr.scene, vr.px, vr.py,
+                               paths.walk_keys(key_l, "light"), mode="light",
+                               max_depth=vc.light_depth + 1, rays=rays_t,
+                               eta_vcm=eta)
+        ev[1].record()
+        kernels.vcm_splat(vr.scene, vr.camera, lw["bufs"], fb_t, rays_t, vc,
+                          eta)
+        ev[2].record()
+        tsize = hashgrid.photon_table_size(vc.light_depth * n)
+        rows, h, key, cse = kernels.photon_pack(
+            lw["bufs"], vr.scene.scene_min, 2.0 * mr, tsize, salt)
+        ev[3].record()
+        order = torch.sort(key, stable=True).indices
+        ev[4].record()
+        srows = kernels.photon_table(rows, h, order, cse)
+        ev[5].record()
+        kernels.vcm_eye(vr.scene, vr.camera, paths.walk_keys(key_e, "eye"),
+                        lw["bufs"], hashgrid.PhotonGrid(
+                            srows, cse, vr.scene.scene_min, 2.0 * mr, tsize),
+                        fb_t, rays_t, vc, px=vr.px, py=vr.py,
+                        merge_radius=mr, eta_vcm=eta, merge_norm=norm,
+                        **hashgrid.merge_switches(vc.max_per_cell))
+        ev[6].record()
+        torch.cuda.synchronize()
+        stage_ms = {name: ev[i].elapsed_time(ev[i + 1]) for i, name in
+                    enumerate(("light walk", "vcm_splat", "photon_pack",
+                               "torch.sort", "photon_table", "vcm_eye"))}
+        del lw, rows, h, key, cse, order, srows
+    say("vcm", "one 1080p sample, CUDA events per launch: " + ", ".join(
+        f"{k} {v:.3f} ms" for k, v in stage_ms.items())
+        + f"; sum {sum(stage_ms.values()):.3f} ms ({card})")
+    del vr
 
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,

@@ -3,13 +3,15 @@
 Counterpart of cudapathtracer_tpu/driver.py for the configurations this
 package covers: integrator UNIDIRECTIONAL with either engine, the default
 `Engine: mega` (models/unidirectional_mega.py) or `Engine: classic`
-(models/unidirectional.py), and integrator BIDIRECTIONAL with `Engine:
-classic` (models/bdpt.py, its settings from BDPTConfig.from_config). The
-two unidirectional engines are one estimator with different draw
-schedules, so different noise realisations with different goldens: one is
-never rendered when the other was asked for. BIDIRECTIONAL with the
-default mega engine (the JAX package's bdpt_mega) and every other
-integrator raise NotImplementedError naming their ROADMAP item.
+(models/unidirectional.py), and integrators BIDIRECTIONAL (models/bdpt.py,
+its settings from BDPTConfig.from_config), VCM and SPPM (models/vcm.py,
+VCMConfig.from_config) with `Engine: classic`. The two unidirectional
+engines are one estimator with different draw schedules, so different
+noise realisations with different goldens: one is never rendered when the
+other was asked for. BIDIRECTIONAL, VCM and SPPM with the default mega
+engine (the JAX package's bdpt_mega and vcm_mega) and every other
+integrator raise NotImplementedError naming their ROADMAP item. VCM and
+SPPM count the photons their merge cap left out (metrics.merge_dropped).
 
 The Renderer runs on an explicit device. "cuda" needs a CUDA build of
 PyTorch and a card and raises otherwise; the CPU is used only when asked
@@ -29,6 +31,8 @@ import torch
 from cudapathtracer_tpu_torch.models import bdpt as bdpt_mod
 from cudapathtracer_tpu_torch.models import unidirectional as uni_mod
 from cudapathtracer_tpu_torch.models import unidirectional_mega as mega_mod
+from cudapathtracer_tpu_torch.models import vcm as vcm_mod
+from cudapathtracer_tpu_torch.ops import hashgrid
 from cudapathtracer_tpu_torch.scene import builtin
 from cudapathtracer_tpu_torch.scene.camera import Camera
 from cudapathtracer_tpu_torch.scene.materials import (apply_material_configs,
@@ -56,9 +60,11 @@ _NOT_PORTED = {
     "NAIVE_UNIDIRECTIONAL": "M7 (naive)",
     "BIDIRECTIONAL": "M12 (bdpt_mega, kernel K14; 'Engine: classic' is "
                      "ported)",
-    "VCM": "M10 (photon family)",
-    "SPPM": "M10 (photon family)",
+    "VCM": "M12 (vcm_mega, kernel K14; 'Engine: classic' is ported)",
+    "SPPM": "M12 (vcm_mega, kernel K14; 'Engine: classic' is ported)",
 }
+# integrators whose 'Engine: classic' is ported, and only it
+_CLASSIC_ONLY = ("BIDIRECTIONAL", "VCM", "SPPM")
 
 
 def resolve_device(device) -> torch.device:
@@ -77,14 +83,15 @@ def check_supported(cfg: RenderConfig) -> None:
     integ, engine = cfg.integrator, cfg.engine
     if integ == "UNIDIRECTIONAL" and engine in _ENGINES:
         return
-    if integ == "BIDIRECTIONAL" and engine == "classic":
+    if integ in _CLASSIC_ONLY and engine == "classic":
         return
     item = _NOT_PORTED.get(integ) or f"engine {engine!r}"
     raise NotImplementedError(
         f"integrator {integ} with engine {engine!r} is not ported to "
         f"cudapathtracer_tpu_torch yet (ROADMAP {item}); the port covers "
         "UNIDIRECTIONAL with 'Engine: mega' (the default) or "
-        "'Engine: classic', and BIDIRECTIONAL with 'Engine: classic'")
+        "'Engine: classic', and BIDIRECTIONAL, VCM and SPPM with "
+        "'Engine: classic'")
 
 
 def mesh_from_config(cfg: RenderConfig, render_number: int = 0) -> MeshData:
@@ -117,6 +124,20 @@ def mesh_from_config(cfg: RenderConfig, render_number: int = 0) -> MeshData:
             load_obj(mc.path, mesh, mc.material_id, mc.emission,
                      offset=offset)
     return mesh
+
+
+def merge_note(dropped: int, max_per_cell: int) -> str:
+    """The render's note on the photons the merge cap left out."""
+    if hashgrid.REWEIGHT:
+        # the salted count/kept reweighting keeps the capped visit an
+        # unbiased subsample (ops/hashgrid.py)
+        return (f"note: photon merge subsampled {dropped:,} candidate "
+                f"photons (max_per_cell={max_per_cell}; unbiased "
+                "reweighting — adds merge variance, not energy loss; raise "
+                "'VCM Max Photons Per Cell' to trade speed for variance)")
+    return (f"WARNING: photon merge cap truncated {dropped:,} candidate "
+            f"photons (max_per_cell={max_per_cell}; 'VCM Max Photons Per "
+            "Cell' in the config raises it if caustics look dim)")
 
 
 class Renderer:
@@ -164,12 +185,17 @@ class Renderer:
         self.sample_count = 0
 
     def render_sample(self, sample_idx: int):
-        """One sample of every pixel -> (radiance [P,3], rays)."""
+        """One sample of every pixel -> (radiance [P,3], rays), and for VCM
+        and SPPM also the photons the merge cap left out."""
         cfg = self.cfg
         if cfg.integrator == "BIDIRECTIONAL":
             return bdpt_mod.render_sample(
                 self.scene, self.camera, self.key, sample_idx, self.px,
                 self.py, cfg=bdpt_mod.BDPTConfig.from_config(cfg))
+        if cfg.integrator in ("VCM", "SPPM"):
+            return vcm_mod.render_sample(
+                self.scene, self.camera, self.key, sample_idx, self.px,
+                self.py, cfg=vcm_mod.VCMConfig.from_config(cfg))
         return _ENGINES[cfg.engine](
             self.scene, self.camera, self.key, sample_idx, self.px, self.py,
             max_depth=max(cfg.max_depth, 1),
@@ -186,9 +212,11 @@ class Renderer:
             if verbose:
                 print(f"resumed at sample {self.sample_count}")
         last_save = time.monotonic()
+        dropped = 0
         with self.metrics.phase("render"):
             while self.sample_count < total:
-                li, rays = self.render_sample(self.sample_count)
+                li, rays, *rest = self.render_sample(self.sample_count)
+                dropped += rest[0] if rest else 0
                 self.accum += li
                 self.metrics.add_rays(rays)
                 self.sample_count += 1
@@ -205,6 +233,10 @@ class Renderer:
                               "samples")
             if self.device.type == "cuda":
                 torch.cuda.synchronize(self.device)
+        if dropped:
+            self.metrics.merge_dropped = dropped
+            if verbose:
+                print(merge_note(dropped, cfg.vcm_max_per_cell))
         return self.finish()
 
     def framebuffer(self) -> np.ndarray:

@@ -5,7 +5,9 @@ and one .cuh of device code per TPU kernel, shared between them (K1
 traverse8.cuh, K7 camera.cuh, K2 shade.cuh, K3 bsdf.cuh, K4 nee.cuh, K6
 threefry.cuh, K10 packing.cuh, K12's MIS step mis.cuh, the BDPT bodies
 bdpt.cuh; the per-path megakernel K5, uni_mega.cu, and the BDPT kernels
-K11 bdpt_splat.cu, K12 bdpt_walk.cu and K13 bdpt_connect.cu call them).
+K11 bdpt_splat.cu, K12 bdpt_walk.cu and K13 bdpt_connect.cu call them;
+the photon grid's hashgrid.cuh (K8-K10) serves K8 photon_grid.cu and the
+VCM eye kernel vcm_eye.cu, whose body is vcm.cuh).
 They are compiled on first use with nvcc, one process per source, all
 started together, and linked into one shared library with a plain C
 interface, build/torch_ext/libtpt_torch_kernels.so, called through ctypes
@@ -41,9 +43,11 @@ import torch
 
 CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 SOURCES = ("rng.cu", "camera.cu", "traverse8.cu", "uni_mega.cu", "packing.cu",
-           "bdpt_walk.cu", "bdpt_splat.cu", "bdpt_connect.cu")
+           "bdpt_walk.cu", "bdpt_splat.cu", "bdpt_connect.cu",
+           "photon_grid.cu", "vcm_eye.cu")
 HEADERS = ("threefry.cuh", "camera.cuh", "traverse8.cuh", "shade.cuh",
-           "bsdf.cuh", "nee.cuh", "packing.cuh", "mis.cuh", "bdpt.cuh")
+           "bsdf.cuh", "nee.cuh", "packing.cuh", "mis.cuh", "bdpt.cuh",
+           "hashgrid.cuh", "vcm.cuh")
 _REPO_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 BUILD_DIR = os.path.join(_REPO_ROOT, "build", "torch_ext")
@@ -58,7 +62,8 @@ SCHEDULES = {"classic": 0, "mega": 1}
 launches = {"closest_hit8": 0, "shadow_factor8": 0, "uniform_id": 0,
             "generate_rays": 0, "render_unidirectional": 0, "shade_eval": 0,
             "packing_roundtrip": 0, "bdpt_walk": 0, "bdpt_splat": 0,
-            "bdpt_connect": 0}
+            "bdpt_connect": 0, "vcm_splat": 0, "photon_pack": 0,
+            "photon_table": 0, "vcm_eye": 0}
 
 _lock = threading.Lock()
 _libs = {}        # stack depth -> loaded library
@@ -171,6 +176,12 @@ def _load(stack_d: int = STACK_D):
             getattr(lib, name).argtypes = [p, p, p, p, p]
         lib.tpt_bdpt_splat.restype = ctypes.c_int
         lib.tpt_bdpt_splat.argtypes = [p, p, p, p]
+        lib.tpt_photon_pack.restype = ctypes.c_int
+        lib.tpt_photon_pack.argtypes = [p, p, p, u32, p]
+        lib.tpt_photon_table.restype = ctypes.c_int
+        lib.tpt_photon_table.argtypes = [p, p, p]
+        lib.tpt_vcm_eye.restype = ctypes.c_int
+        lib.tpt_vcm_eye.argtypes = [p, p, p, p, p]
         _libs[stack_d] = lib
         return lib
 
@@ -561,37 +572,47 @@ def bdpt_splat(scene, camera, lbufs, lv0: dict, fb, rays, cfg, *,
     buffer fb [P,3] f32 in place with atomics; rays [N] i32 += the shadow
     rays to the lens. cfg: a BDPTConfig (do_mis, paint_weight). -> rows
     [N] i32 (BVH8 rows visited) with with_rows, else None."""
-    dev = _cuda_device(fb)
     n = lv0["pt"].shape[0]
-    p = fb.shape[0]
-    _check(fb, "fb", torch.float32, (p, 3), dev)
-    if p != camera.width * camera.height:
-        raise ValueError(f"fb has {p} pixels, the camera {camera.width}x"
-                         f"{camera.height}")
-    _check(rays, "rays", torch.int32, (n,), dev)
+    dev = _cuda_device(fb)
     for k, dt, tail in (("pt", torch.float32, (3,)), ("n", torch.float32,
                                                        (3,)),
                         ("beta", torch.float32, (3,)),
                         ("pdf_fwd", torch.float32, ()),
                         ("mat_id", torch.int32, ())):
         _check(lv0[k], f"lv0.{k}", dt, (n,) + tail, dev)
+    return _splat("bdpt_splat", scene, camera, lbufs, n,
+                  [lv0[k].data_ptr() for k in ("pt", "n", "beta", "pdf_fwd",
+                                               "mat_id")],
+                  fb, rays, cfg, None, with_rows)
+
+
+def _splat(name, scene, camera, lbufs, n, v0_ptrs, fb, rays, cfg, eta_vcm,
+           with_rows):
+    """One launch of bdpt_splat.cu's entry, counted under name: the BDPT
+    form with the endpoint's addresses, or the VCM form (eta_vcm given)."""
+    dev = _cuda_device(fb)
+    p = fb.shape[0]
+    _check(fb, "fb", torch.float32, (p, 3), dev)
+    if p != camera.width * camera.height:
+        raise ValueError(f"fb has {p} pixels, the camera {camera.width}x"
+                         f"{camera.height}")
+    _check(rays, "rays", torch.int32, (n,), dev)
     sc = _bdpt_scene(scene, dev)
     depth = lbufs.pt.shape[0]
     rows = torch.zeros(n, dtype=torch.int32, device=dev) if with_rows \
         else None
     ptrs = ([sc[k].data_ptr() for k in ("table", "tri_f32", "mat_f32",
                                         "textures")]
-            + _check_bufs(lbufs, "lbufs", depth, n, dev)
-            + [lv0[k].data_ptr() for k in ("pt", "n", "beta", "pdf_fwd",
-                                           "mat_id")]
+            + _check_bufs(lbufs, "lbufs", depth, n, dev) + v0_ptrs
             + [fb.data_ptr(), rays.data_ptr(), _ptr(rows) or 0])
     iv = [n, sc["tri_f32"].shape[1], depth, camera.width, camera.height,
-          int(cfg.do_mis), int(cfg.paint_weight)]
-    fv = camera.kernel_params() + [camera.plane_area()]
+          int(cfg.do_mis), int(cfg.paint_weight), int(eta_vcm is not None)]
+    fv = camera.kernel_params() + [camera.plane_area(),
+                                   0.0 if eta_vcm is None else float(eta_vcm)]
     args = (_i64s(ptrs), _i64s(iv), _f32s(fv))
     lib = _load()
     with torch.cuda.device(dev):
-        _launch("bdpt_splat", lib, lib.tpt_bdpt_splat,
+        _launch(name, lib, lib.tpt_bdpt_splat,
                 *(ctypes.addressof(a) for a in args), _stream(dev))
     return rows
 
@@ -643,3 +664,137 @@ def bdpt_connect(scene, camera, key_c, eye: dict, light: dict, fb, rays, cfg,
         _launch("bdpt_connect", lib, lib.tpt_bdpt_connect,
                 *(ctypes.addressof(a) for a in args), _stream(dev))
     return out, rows
+
+
+# --- the photon family (K8, K9, K11's and K13's VCM forms) -------------------
+
+def vcm_splat(scene, camera, lbufs, fb, rays, cfg, eta_vcm: float, *,
+              with_rows: bool = False):
+    """K11's VCM form (bdpt_splat.cu's VCM mode): every stored light vertex
+    of lbufs [L, N] (not the endpoint) to the lens, w_light with eta_vcm,
+    added into the raster-indexed frame buffer fb [P,3] f32 in place with
+    atomics; rays [N] i32 += the shadow rays to the lens. cfg: a VCMConfig
+    (do_mis, paint_weight). -> rows [N] i32 (BVH8 rows visited) with
+    with_rows."""
+    return _splat("vcm_splat", scene, camera, lbufs, lbufs.pt.shape[1],
+                  [0] * 5, fb, rays, cfg, eta_vcm, with_rows)
+
+
+def photon_pack(lbufs, scene_min, cell_size: float, table_size: int, salt):
+    """K8's first half (photon_grid.cu): one photon per stored light vertex
+    of lbufs [L, N], in the flat order row * N + lane. -> (rows [P, 8] f32
+    with uint32 words 3-5, bucket [P] i32 (table_size for a photon that is
+    invalid or delta), key [P] i64 (uint32 values: salted with salt, or the
+    bucket alone when salt is None), cell_se [T+1, 2] i32 filled with
+    (P, 0))."""
+    dev = _cuda_device(lbufs.pt)
+    depth, n = lbufs.pt.shape[0], lbufs.pt.shape[1]
+    p = depth * n
+    if p <= 0 or not 0 < table_size < 2 ** 32:
+        raise ValueError(f"photon_pack: {p} photons, table {table_size}")
+    e = lambda *sh, dt=torch.float32: torch.empty(sh, dtype=dt, device=dev)
+    rows, bucket = e(p, 8), e(p, dt=torch.int32)
+    key, cell_se = e(p, dt=torch.int64), e(table_size + 1, 2, dt=torch.int32)
+    ptrs = (_check_bufs(lbufs, "lbufs", depth, n, dev)
+            + [rows.data_ptr(), bucket.data_ptr(), key.data_ptr(),
+               cell_se.data_ptr()])
+    iv = [n, depth, table_size, int(salt is not None)]
+    fv = [float(x) for x in scene_min] + [float(cell_size)]
+    args = (_i64s(ptrs), _i64s(iv), _f32s(fv))
+    lib = _load()
+    with torch.cuda.device(dev):
+        _launch("photon_pack", lib, lib.tpt_photon_pack,
+                *(ctypes.addressof(a) for a in args),
+                0 if salt is None else int(salt) & 0xFFFFFFFF, _stream(dev))
+    return rows, bucket, key, cell_se
+
+
+def photon_table(rows, bucket, order, cell_se):
+    """K8's second half (photon_grid.cu): the rows [P, 8] gathered into
+    sorted order (order [P] i64, from a stable sort of photon_pack's keys)
+    and padded by (-P) % 8 + 8 zero rows, and each bucket's (start, end)
+    made with atomicMin / atomicMax into cell_se [T+1, 2] in place.
+    -> sorted rows [P8, 8] f32."""
+    dev = _cuda_device(rows)
+    p = rows.shape[0]
+    _check(rows, "rows", torch.float32, (p, 8), dev)
+    _check(bucket, "bucket", torch.int32, (p,), dev)
+    _check(order, "order", torch.int64, (p,), dev)
+    _check(cell_se, "cell_se", torch.int32, cell_se.shape, dev)
+    if cell_se.dim() != 2 or cell_se.shape[1] != 2:
+        raise ValueError(f"cell_se must be [T+1, 2], got "
+                         f"{tuple(cell_se.shape)}")
+    p8 = p + (-p) % 8 + 8
+    out = torch.empty((p8, 8), dtype=torch.float32, device=dev)
+    args = (_i64s([rows.data_ptr(), bucket.data_ptr(), order.data_ptr(),
+                   out.data_ptr(), cell_se.data_ptr()]), _i64s([p, p8]))
+    lib = _load()
+    with torch.cuda.device(dev):
+        _launch("photon_table", lib, lib.tpt_photon_table,
+                *(ctypes.addressof(a) for a in args), _stream(dev))
+    return out
+
+
+def vcm_eye(scene, camera, keys: list, lbufs, grid, fb, rays, cfg, *, px,
+            py, merge_radius: float, eta_vcm: float, merge_norm: float,
+            one_brick: bool, reweight: bool, with_rows: bool = False):
+    """K13's VCM form with the K9 merge (vcm_eye.cu): the eye pass of each
+    pixel (px, py) [N] i32. keys: the 12 eye walk words
+    (models/paths.walk_keys(key_e, "eye")); lbufs: the VCM light walk's
+    buffers [light_depth, N]; grid: a hashgrid.PhotonGrid, or None without
+    the merge; fb: [N,3] f32 added to the result, or None; rays [N] i32 +=
+    the rays traced. cfg: a VCMConfig. one_brick, reweight: the merge's
+    estimator switches (ops/hashgrid.merge_switches). -> (radiance [N,3]
+    f32, the merge cap's dropped photons [N] i32, rows [N] i32 BVH8 rows
+    visited or None)."""
+    dev = _cuda_device(px)
+    n = px.shape[0]
+    _check(px, "px", torch.int32, (n,), dev)
+    _check(py, "py", torch.int32, (n,), dev)
+    _check(rays, "rays", torch.int32, (n,), dev)
+    if fb is not None:
+        _check(fb, "fb", torch.float32, (n, 3), dev)
+    if cfg.eye_depth < 1 or cfg.light_depth < 1 or len(keys) != 12:
+        raise ValueError("vcm_eye: eye_depth >= 1, light_depth >= 1 and 12 "
+                         "key words")
+    merge = cfg.do_merge
+    if merge and grid is None:
+        raise ValueError("vcm_eye: do_merge needs the photon grid")
+    sc = _bdpt_scene(scene, dev)
+    gptrs, table, smin, cell = [0, 0], 0, [0.0] * 3, 0.0
+    if merge:
+        _check(grid.rows, "grid.rows", torch.float32, grid.rows.shape, dev)
+        _check(grid.cell_se, "grid.cell_se", torch.int32,
+               (grid.table_size + 1, 2), dev)
+        if grid.rows.dim() != 2 or grid.rows.shape[1] != 8:
+            raise ValueError("grid.rows must be [P8, 8]")
+        gptrs = [grid.rows.data_ptr(), grid.cell_se.data_ptr()]
+        table, smin, cell = grid.table_size, list(grid.scene_min), \
+            grid.cell_size
+    out = torch.empty((n, 3), dtype=torch.float32, device=dev)
+    dropped = torch.empty(n, dtype=torch.int32, device=dev)
+    rows = torch.zeros(n, dtype=torch.int32, device=dev) if with_rows \
+        else None
+    ptrs = ([sc[k].data_ptr() for k in ("table", "tri_f32", "light_f32",
+                                        "mat_f32", "textures")]
+            + [px.data_ptr(), py.data_ptr()]
+            + _check_bufs(lbufs, "light bufs", cfg.light_depth, n, dev)
+            + gptrs + [_ptr(fb) or 0, out.data_ptr(), rays.data_ptr(),
+                       dropped.data_ptr(), _ptr(rows) or 0])
+    iv = [n, sc["tri_f32"].shape[1], scene.num_lights, cfg.eye_depth,
+          cfg.light_depth, int(cfg.naive), int(cfg.nee), int(cfg.connection),
+          int(cfg.do_mis), int(cfg.paint_weight),
+          int(cfg.sample_environment), int(merge), int(cfg.do_sppm), table,
+          cfg.max_per_cell, int(one_brick), int(reweight)]
+    mr = float(merge_radius)
+    r2 = float(torch.tensor(mr, dtype=torch.float32)
+               * torch.tensor(mr, dtype=torch.float32))
+    fv = (camera.kernel_params()
+          + [camera.plane_area(), float(eta_vcm), float(merge_norm)]
+          + smin + [cell, r2])
+    args = (_i64s(ptrs), _i64s(iv), _f32s(fv), _u32s(list(keys)))
+    lib = _load()
+    with torch.cuda.device(dev):
+        _launch("vcm_eye", lib, lib.tpt_vcm_eye,
+                *(ctypes.addressof(a) for a in args), _stream(dev))
+    return out, dropped, rows

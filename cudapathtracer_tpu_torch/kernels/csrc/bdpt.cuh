@@ -2,7 +2,8 @@
 // packed path-vertex buffers they share.
 //
 //   walk_path      K12: one eye or light walk (models/paths.py:129,219,237)
-//   splat_vertex   K11: one light vertex to the lens (models/bdpt.py:93)
+//   splat_vertex   K11: one light vertex to the lens (models/bdpt.py:93;
+//                  VCM's form, models/vcm.py:87, adds eta_vcm)
 //   connect_pixel  K13: the connection stage of one pixel
 //                  (models/bdpt.py:175,226)
 //
@@ -390,6 +391,8 @@ struct SplatParams {
   float plane_area;
   int width, height;
   Weighting weighting;
+  bool vcm;        // VCM's form: eta_vcm joins a stored vertex's w_light
+  float eta_vcm;
 };
 
 // The unpacked light endpoint (s = 1) of path i.
@@ -462,7 +465,8 @@ __device__ __forceinline__ void splat_vertex(const SceneRefs& sc,
     light_f = bsdf_f(m, albedo, to_prev_local, to_cam_local, 1.0f, trans);
     const float pdf_rev_sa =
         bsdf_pdf(m, to_cam_local, to_prev_local, 1.0f, trans);
-    w_light = pdf_trace_cam * (v.d_vcm + pdf_rev_sa * v.d_vc);
+    const float d_vcm = p.vcm ? p.eta_vcm + v.d_vcm : v.d_vcm;
+    w_light = pdf_trace_cam * (d_vcm + pdf_rev_sa * v.d_vc);
   }
   const float we = 1.0f / (p.plane_area * fourth(cos_cam));
   const float g = cos_light * cos_cam / d2;
@@ -780,6 +784,8 @@ inline bool splat_launch(const int64_t* ptrs, const int64_t* iv,
   s.p.height = static_cast<int>(iv[4]);
   s.p.weighting.do_mis = iv[5] != 0;
   s.p.weighting.paint_weight = iv[6] != 0;
+  s.p.vcm = iv[7] != 0;
+  s.p.eta_vcm = fv[20];
   return s.lb.depth >= 0 && s.p.width > 0 && s.p.height > 0;
 }
 

@@ -1,7 +1,11 @@
-// K11: the BDPT t=1 light-trace splat, one thread per light vertex.
+// K11: the t=1 light-trace splat, one thread per light vertex, in its BDPT
+// and VCM forms.
 //
-// Replaces cudapathtracer_tpu/models/bdpt.py:light_trace_splat (line 93):
-// every light vertex (the unpacked endpoint s=1 and the stored vertices
+// bdpt_splat replaces cudapathtracer_tpu/models/bdpt.py:light_trace_splat
+// (line 93); its VCM mode (iv vcm) replaces models/vcm.py:vcm_light_splat
+// (line 87), which splats only the stored vertices (not the endpoint) and
+// adds eta_vcm to each vertex's w_light (SplatParams::vcm).
+// Every light vertex (the unpacked endpoint s=1 and the stored vertices
 // s>=2, decoded through K10) is projected onto the image
 // (tpt::world_to_raster), tested for visibility with a shadow ray to the
 // lens (K1), weighted by We G f and its MIS weight (tpt::splat_vertex,
@@ -29,8 +33,9 @@ __global__ void __launch_bounds__(kThreads)
 bdpt_splat_kernel(tpt::SplatLaunch s) {
   const int64_t k = static_cast<int64_t>(blockIdx.x) * blockDim.x +
                     threadIdx.x;
-  if (k >= s.n * (s.lb.depth + 1)) return;
-  const int j = static_cast<int>(k / s.n);
+  const int first = s.p.vcm ? 1 : 0;  // VCM splats no endpoint
+  if (k >= s.n * (s.lb.depth + 1 - first)) return;
+  const int j = static_cast<int>(k / s.n) + first;
   const int64_t i = k % s.n;
   tpt::splat_vertex(s.sc, s.p, s.lb, s.e, j, i, s.fb, s.rays, s.rows);
 }
@@ -38,17 +43,17 @@ bdpt_splat_kernel(tpt::SplatLaunch s) {
 }  // namespace
 
 // ptrs: table, tri_f32, mat_f32, textures, the 11 light-buffer fields,
-// v0_pt, v0_n, v0_beta, v0_pdf, v0_mat, fb, rays, rows (0 = none).
-// iv: n, tri_cols, depth (stored light vertices), width, height, do_mis,
-// paint_weight. fv: the 19 camera floats, plane_area. Returns the launch's
-// cudaError_t.
+// v0_pt, v0_n, v0_beta, v0_pdf, v0_mat (0 in VCM's form), fb, rays, rows
+// (0 = none). iv: n, tri_cols, depth (stored light vertices), width,
+// height, do_mis, paint_weight, vcm. fv: the 19 camera floats, plane_area,
+// eta_vcm. Returns the launch's cudaError_t.
 extern "C" int tpt_bdpt_splat(const int64_t* ptrs, const int64_t* iv,
                               const float* fv, void* stream) {
   tpt::SplatLaunch s;
   if (!tpt::splat_launch(ptrs, iv, fv, s))
     return static_cast<int>(cudaErrorInvalidValue);
-  if (s.n <= 0) return 0;
-  const int64_t threads = s.n * (s.lb.depth + 1);
+  const int64_t threads = s.n * (s.lb.depth + (s.p.vcm ? 0 : 1));
+  if (threads <= 0) return 0;
   const unsigned blocks =
       static_cast<unsigned>((threads + kThreads - 1) / kThreads);
   bdpt_splat_kernel<<<blocks, kThreads, 0,

@@ -36,14 +36,14 @@ from cudapathtracer_tpu_torch.ops import bsdf as bsdf_ops
 from cudapathtracer_tpu_torch.ops import traverse
 from cudapathtracer_tpu_torch.scene.materials import MaterialTable
 from cudapathtracer_tpu_torch.utils import rng
-from cudapathtracer_tpu_torch.utils.math import (EPSILON, INV_PI, PI,
+from cudapathtracer_tpu_torch.utils.math import (EPSILON, INV_PI,
+                                                 MAX_FIREFLY_LUM, PI,
                                                  RAY_EPSILON, dot, length_sq,
                                                  luminance, normalize,
                                                  to_local, true_div)
 
 MAX_G_NEE = 15.0        # G clamp of the s=1 strategy
 MAX_G_CONNECT = 2.0     # G clamp of the s>=2 connections
-MAX_FIREFLY_LUM = 5.0   # firefly clamp of s=0 past t=2
 
 
 @dataclass(frozen=True)
@@ -131,7 +131,10 @@ def light_trace_splat(scene, camera, lbufs, lv0, cfg: BDPTConfig, fb):
     return fb, rays
 
 
-def _splat_vertex(scene, camera, v, first: bool, cfg, fb) -> int:
+def _splat_vertex(scene, camera, v, first: bool, cfg, fb,
+                  eta_vcm=None) -> int:
+    """One light vertex per lane to the lens (K11's plain body); eta_vcm
+    adds VCM's merge term to a stored vertex's w_light."""
     n, dev = v["pt"].shape[0], v["pt"].device
     w, h = camera.width, camera.height
     plane_area = camera.plane_area()
@@ -168,7 +171,8 @@ def _splat_vertex(scene, camera, v, first: bool, cfg, fb) -> int:
                                   ones, transmission=trans)
         pdf_rev_sa = bsdf_ops.bsdf_pdf(mat, to_cam_local, to_prev_local,
                                        ones, transmission=trans)
-        w_light = pdf_trace_cam * (v["d_vcm"] + pdf_rev_sa * v["d_vc"])
+        d_vcm = v["d_vcm"] if eta_vcm is None else eta_vcm + v["d_vcm"]
+        w_light = pdf_trace_cam * (d_vcm + pdf_rev_sa * v["d_vc"])
 
     we = 1.0 / (plane_area * _fourth(cos_cam))
     g = cos_light * cos_cam / d2

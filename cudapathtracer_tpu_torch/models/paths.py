@@ -313,7 +313,8 @@ def generate_light_path(scene, key, px, py, max_depth: int, eta_vcm=None):
     start, v0 = start_light_walk(scene, key, px.shape[0], ids)
     first_vm_seed = None
     if eta_vcm is not None:
-        first_vm_seed = start.first_vc_scale / max(float(eta_vcm), 1e-30)
+        first_vm_seed = true_div(start.first_vc_scale,
+                                 max(float(eta_vcm), 1e-30))
     bufs, _esc, rays = random_walk(scene, key, start, max_depth,
                                    TRANSPORT_IMPORTANCE, eta_vcm,
                                    first_vm_seed, ids=ids)

@@ -1,0 +1,440 @@
+"""Vertex connection and merging, and SPPM as flag-restricted VCM
+("Integrator: VCM" / "SPPM" with "Engine: classic").
+
+Counterpart of cudapathtracer_tpu/models/vcm.py. One sample is:
+  1. the light pass: the VCM light walk (models/paths.py with eta_vcm, the
+     d_vm chain) of light_depth stored vertices per pixel id, and the t=1
+     light-trace splat with VCM's eta_vcm term (the endpoint is not
+     splatted);
+  2. the photon grid over every stored light vertex that is valid and not
+     delta (ops/hashgrid.py, salted per sample);
+  3. the eye pass: an eye walk of eye_depth bounces carried on the fly
+     (nothing stored), each bounce adding s=0 (a light hit), s=1 (NEE),
+     s>=2 (a connection to every stored light vertex of the same pixel id)
+     and the merge with the photons within the merge radius.
+SPPM turns off the connections, NEE, the light hits, the splat and MIS,
+and ends each eye path after its first non-delta surface.
+
+On CUDA tensors `render_sample` launches K12 (bdpt_walk.cu, light mode
+with eta_vcm), K11's VCM form (vcm_splat, bdpt_splat.cu), K8 (photon_pack,
+a stable torch.sort, photon_table: photon_grid.cu) and the eye kernel
+(K13's VCM form with the K9 merge, vcm_eye.cu): five launches and a sort
+per sample (SPPM: no splat). On CPU tensors it runs `render_plain`, the
+plain versions operation for operation over [N] lanes. The merge radius,
+eta_vcm and the merge normalisation are float32 values computed once per
+sample on the host (`sample_scalars`) and given to both.
+
+Kept quirks of the JAX estimator: no eta_vcm in the s=0 weight; depth 0
+exempt from the firefly clamp at s=0; NEE's w_light is the squared ratio;
+the firefly clamp on every s>=1 contribution; connections test
+cos >= EPSILON; the eye side's direction to its previous vertex is
+normalize(prev_pt - pos); the merge's w_eye/w_light divide d_vcm by
+max(eta_vcm, 1e-30). The splat's frame buffer is indexed by raster pixel
+(the pixel list must be the whole frame in raster order, as
+driver.Renderer gives it).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from cudapathtracer_tpu_torch import kernels
+from cudapathtracer_tpu_torch.models import bdpt, common, mis, paths
+from cudapathtracer_tpu_torch.models.bdpt import (MAX_G_CONNECT, _bdpt_nee,
+                                                  _gather_mat, _vertex,
+                                                  _weighted)
+from cudapathtracer_tpu_torch.ops import bsdf as bsdf_ops
+from cudapathtracer_tpu_torch.ops import hashgrid, traverse
+from cudapathtracer_tpu_torch.scene.materials import MaterialTable
+from cudapathtracer_tpu_torch.utils import rng
+from cudapathtracer_tpu_torch.utils.math import (EPSILON, MAX_FIREFLY_LUM,
+                                                 PI, RAY_EPSILON, dot,
+                                                 length_sq, luminance,
+                                                 merge_radius, normalize,
+                                                 to_local, to_world,
+                                                 true_div)
+
+
+@dataclass(frozen=True)
+class VCMConfig:
+    eye_depth: int = 16
+    light_depth: int = 10
+    light_trace: bool = True
+    nee: bool = True
+    naive: bool = True
+    connection: bool = True
+    do_mis: bool = True
+    do_merge: bool = True
+    do_sppm: bool = False
+    paint_weight: bool = False
+    merge_alpha: float = 0.7           # "VCM Merge Radius Power Factor"
+    r0_multiplier: float = 0.01        # "VCM Initial Merge Radius Multiplier"
+    max_per_cell: int = 8              # the merge's per-cell cap
+    sample_environment: bool = False
+
+    @staticmethod
+    def from_config(cfg) -> "VCMConfig":
+        return VCMConfig(
+            eye_depth=max(cfg.bdpt_eye_depth, 1),
+            light_depth=max(cfg.bdpt_light_depth, 1),
+            light_trace=cfg.bdpt_light_trace, nee=cfg.bdpt_nee,
+            naive=cfg.bdpt_naive, connection=cfg.bdpt_connection,
+            do_mis=cfg.bdpt_do_mis, do_merge=cfg.vcm_do_merge,
+            do_sppm=cfg.do_sppm, paint_weight=cfg.bdpt_paint_weight,
+            merge_alpha=cfg.vcm_merge_const or 0.7,
+            r0_multiplier=cfg.vcm_initial_merge_radius_multiplier or 0.01,
+            max_per_cell=max(int(getattr(cfg, "vcm_max_per_cell", 8)), 1),
+            sample_environment=cfg.sample_environment)
+
+
+def sample_scalars(scene, cfg: VCMConfig, sample_idx: int, n_paths: int):
+    """(merge radius, eta_vcm, merge normalisation) of a sample as float32
+    values (Python floats), in the JAX package's operation order:
+    r0 = scene_radius * r0_multiplier, mr = r0 sqrt((1/(s+1))^alpha),
+    eta_vcm = (n pi) mr mr, merge_norm = 1 / (pi mr mr n)."""
+    f = np.float32
+    r0 = f(scene.scene_radius) * f(cfg.r0_multiplier)
+    mr = f(merge_radius(r0, sample_idx, cfg.merge_alpha))
+    eta = f(n_paths * PI) * mr * mr
+    norm = f(1.0) / (f(PI) * mr * mr * f(n_paths))
+    return float(mr), float(eta), float(norm)
+
+
+def sample_keys(base_key, sample_idx):
+    """(key_l, key_e) of a sample."""
+    skey = rng.sample_key(base_key, sample_idx)
+    return rng.fold_in(skey, 1), rng.fold_in(skey, 2)
+
+
+def _clamp_firefly(c):
+    lum = luminance(c)
+    scale = torch.where(lum > MAX_FIREFLY_LUM,
+                        true_div(MAX_FIREFLY_LUM, torch.clamp(lum, min=1e-20)),
+                        1.0)
+    return c * scale[:, None]
+
+
+def _take(mat: MaterialTable, idx) -> MaterialTable:
+    return MaterialTable(**{f.name: getattr(mat, f.name)[idx]
+                            for f in dataclasses.fields(mat)})
+
+
+# --- t=1: the VCM light-trace splat (K11's VCM form) -------------------------
+
+def vcm_light_splat(scene, camera, lbufs, cfg: VCMConfig, eta_vcm: float,
+                    fb):
+    """Plain version of vcm_splat (any device): every stored light vertex
+    (not the endpoint) to the lens, w_light with eta_vcm, added into the
+    raster-indexed fb [P,3] in place in depth order. Returns (fb, rays as
+    a Python int)."""
+    rays = 0
+    for j in range(lbufs.pt.shape[0]):
+        rays += bdpt._splat_vertex(scene, camera, _vertex(lbufs, j), False,
+                                   cfg, fb, eta_vcm=eta_vcm)
+    return fb, rays
+
+
+# --- the eye pass (K13's VCM form with the K9 merge) -------------------------
+
+def eye_pass_plain(scene, camera, key_e, lbufs, grid, cfg: VCMConfig, px, py,
+                   mr: float, eta_vcm: float, merge_norm: float):
+    """Plain version of vcm_eye (any device): the eye walk of every pixel
+    with its per-bounce strategies and merge, in the JAX order. lbufs: the
+    light buffers [light_depth, N]; grid: a PhotonGrid or None (no merge).
+    Returns (radiance [N,3] without the splat, rays as a Python int,
+    merge-cap dropped photons as a Python int)."""
+    n, dev = px.shape[0], px.device
+    ids = rng.pixel_ids(px, py)
+    ones = torch.ones(n, dtype=torch.float32, device=dev)
+    zeros = torch.zeros(n, dtype=torch.float32, device=dev)
+    num_lights = max(scene.num_lights, 1)
+    start, _ = paths.start_eye_walk(scene, camera, key_e, px, py, ids)
+    o, d, thr = start.o, start.d, start.throughput
+    prev_pdf_sa, prev_cos, prev_pt = (start.prev_pdf_sa, start.prev_cos,
+                                      start.prev_pt)
+    mstate = mis.MisState.zeros(n, dev)
+    alive = torch.ones(n, dtype=torch.bool, device=dev)
+    prev_delta = torch.ones(n, dtype=torch.bool, device=dev)
+    colorsum = torch.zeros((n, 3), dtype=torch.float32, device=dev)
+    rays = dropped = 0
+    lverts = ([_vertex(lbufs, j) for j in range(cfg.light_depth)]
+              if cfg.connection else [])
+    for depth in range(cfg.eye_depth):
+        if not bool(alive.any()):
+            break
+        bkey = rng.bounce_key(key_e, depth)
+        rays += int(alive.sum())
+        hit = traverse.closest_hit(scene, o, d, active=alive)
+        info, mat = traverse.shade_data(scene, o, d, hit)
+        reached = alive & hit.valid
+        if cfg.sample_environment:
+            missed = alive & ~hit.valid
+            out = _weighted(thr * common.sample_sky(d, True), ones, cfg)
+            colorsum = colorsum + torch.where(missed[:, None], out, 0.0)
+
+        normal, pos = info["normal"], info["point"]
+        wo_local = to_local(d, normal)
+        albedo = bsdf_ops.resolve_albedo(scene, mat, info["uv"])
+        trans = bsdf_ops.resolve_transmission(scene, mat, info["uv"])
+        cur_delta = mat.is_specular
+
+        d2p = torch.clamp(length_sq(pos - prev_pt), min=RAY_EPSILON)
+        pdf_fwd_area = prev_pdf_sa * torch.abs(wo_local[..., 2]) / d2p
+        g = prev_cos / d2p
+        wi_local, f_val, pdf_sa = bsdf_ops.bsdf_sample(
+            bkey, 0, mat, albedo, -wo_local, info["backface"], ones, 0,
+            ids=ids, transmission=trans)
+        pdf_rev_sa = bsdf_ops.bsdf_pdf(mat, wi_local, -wo_local, ones,
+                                       transmission=trans)
+        valid = reached & (pdf_sa >= EPSILON)
+        first_d_vcm = 1.0 / torch.clamp(pdf_fwd_area, min=1e-20)
+        d_vcm, d_vc, d_vm, mstate2 = mis.advance(
+            mstate, depth == 0, pdf_fwd_area, g, pdf_rev_sa, cur_delta,
+            first_d_vcm, zeros, zeros, eta_vcm)
+
+        conn = valid & ~cur_delta
+        ev = dict(pt=pos, n=normal, uv=info["uv"])
+        prev_to_curr_local = to_local(pos - prev_pt, normal)
+        to_prev = normalize(prev_pt - pos)
+
+        # s = 0: the eye walk hit a light (no eta_vcm in this weight)
+        if cfg.naive:
+            is_light = conn & (info["light_ind"] >= 0) & ~info["backface"]
+            lrow = scene.light_f32[torch.clamp(info["light_ind"], min=0)]
+            le, area = lrow[:, 12:15], lrow[:, 15]
+            cos_l = dot(normal, to_prev)
+            pdf_connect = torch.where(
+                prev_delta, 0.0,
+                true_div(float(np.float32(1.0 / num_lights)),
+                         torch.clamp(area, min=1e-20)))
+            w_eye = (pdf_connect * d_vcm
+                     + pdf_connect * true_div(cos_l, PI) * d_vc)
+            out = _weighted(le * thr, 1.0 / (1.0 + w_eye), cfg)
+            if depth > 0:   # directly seen emission is not clamped
+                out = _clamp_firefly(out)
+            colorsum = colorsum + torch.where(is_light[:, None], out, 0.0)
+
+        # s = 1: NEE, w_light the squared pdf ratio
+        if cfg.nee and scene.num_lights > 0:
+            rays += int(conn.sum())
+            ne = _bdpt_nee(scene, bkey, 7, ev, mat, albedo,
+                           prev_to_curr_local, conn, ids, trans)
+            pdf_bsdf_sa = bsdf_ops.bsdf_pdf(mat, -prev_to_curr_local,
+                                            ne["stl_local"], ones,
+                                            transmission=trans)
+            pdf_bsdf_area = (pdf_bsdf_sa * torch.abs(ne["cos_light"])
+                             / ne["d2"])
+            ratio = pdf_bsdf_area / torch.clamp(ne["pdf_connect"], min=1e-20)
+            w_light = ratio * ratio
+            pdf_curr_rev_area = (ne["pdf_emit_sa"]
+                                 * torch.abs(ne["stl_local"][..., 2])
+                                 / ne["d2"])
+            pdf_prev_rev_sa = bsdf_ops.bsdf_pdf(mat, ne["stl_local"],
+                                                -prev_to_curr_local, ones,
+                                                transmission=trans)
+            w_eye = pdf_curr_rev_area * (eta_vcm + d_vcm
+                                         + pdf_prev_rev_sa * d_vc)
+            weight = 1.0 / (1.0 + w_light + w_eye)
+            out = _clamp_firefly(_weighted(ne["contrib"] * thr, weight, cfg))
+            colorsum = colorsum + torch.where((conn & ne["ok"])[:, None], out,
+                                              0.0)
+
+        # s >= 2: connections to every stored light vertex
+        eye = dict(pos=pos, n=normal, mat=mat, albedo=albedo, trans=trans,
+                   thr=thr, d_vcm=d_vcm, d_vc=d_vc, d_vm=d_vm,
+                   to_prev=to_prev)
+        for lv in lverts:
+            colorsum, r = _connect_vcm(scene, eye, lv, conn, ones, colorsum,
+                                       cfg, eta_vcm)
+            rays += r
+
+        # the merge with the photons around pos
+        if grid is not None:
+            fold = _merge_fold(eye | dict(prev_loc=to_local(to_prev, normal)),
+                               cfg, eta_vcm, merge_norm)
+            colorsum, drop = hashgrid.fold_neighbors(
+                grid, pos, mr, cfg.max_per_cell, fold, colorsum, active=conn,
+                count_dropped=True)
+            dropped += drop
+
+        # continue the walk; SPPM ends it after its first non-delta surface
+        new_thr = thr * f_val * (torch.abs(wi_local[..., 2])
+                                 / torch.clamp(pdf_sa, min=1e-20))[:, None]
+        wi_world = normalize(to_world(wi_local, normal))
+        side = torch.where(dot(wi_world, normal) < 0.0, -1.0, 1.0)
+        new_o = pos + normal * (side * RAY_EPSILON)[:, None]
+        keep = valid
+        if cfg.do_sppm and cfg.do_merge:
+            keep = keep & cur_delta
+        upd = valid[:, None]
+        o = torch.where(upd, new_o, o)
+        d = torch.where(upd, wi_world, d)
+        thr = torch.where(upd, new_thr, thr)
+        prev_pdf_sa = torch.where(valid, pdf_sa, prev_pdf_sa)
+        prev_cos = torch.where(valid, torch.abs(wi_local[..., 2]), prev_cos)
+        prev_pt = torch.where(upd, pos, prev_pt)
+        mstate = mis.MisState(*(torch.where(valid, a2, a1)
+                                for a2, a1 in zip(mstate2, mstate)))
+        alive = keep
+        prev_delta = torch.where(reached, cur_delta, prev_delta)
+    return colorsum, rays, dropped
+
+
+def _connect_vcm(scene, e, lv, conn, ones, colorsum, cfg, eta_vcm):
+    """s >= 2 against one stored light vertex per lane; returns
+    (colorsum, the shadow rays traced)."""
+    do = conn & lv["valid"] & ~lv["is_delta"]
+    e2l = lv["pt"] - e["pos"]
+    d2 = torch.clamp(length_sq(e2l), min=RAY_EPSILON)
+    dist = torch.sqrt(d2)
+    e2l_u = e2l / dist[:, None]
+    cos_l = torch.abs(dot(lv["n"], -e2l_u))
+    cos_e = torch.abs(dot(e["n"], e2l_u))
+    do = do & (cos_l >= EPSILON) & (cos_e >= EPSILON)
+    rays = int(do.sum())
+    shadow = traverse.shadow_factor(scene, e["pos"] + e["n"] * RAY_EPSILON,
+                                    e2l_u, dist - RAY_EPSILON, active=do)
+    do = do & (shadow.amax(dim=-1) > 0.0)
+
+    mat_l = _gather_mat(scene, lv["mat_id"])
+    albedo_l = bsdf_ops.resolve_albedo(scene, mat_l, lv["uv"])
+    trans_l = bsdf_ops.resolve_transmission(scene, mat_l, lv["uv"])
+    mat, trans = e["mat"], e["trans"]
+    l2e_loc_l = to_local(-e2l_u, lv["n"])
+    to_l_from_prev_loc = to_local(-lv["wo"], lv["n"])
+    l2e_loc_e = to_local(-e2l_u, e["n"])
+    to_prev_loc_e = to_local(e["to_prev"], e["n"])
+
+    pdf_eye_rev_sa = bsdf_ops.bsdf_pdf(mat_l, -to_l_from_prev_loc, l2e_loc_l,
+                                       ones, transmission=trans_l)
+    pdf_eye_rev_area = pdf_eye_rev_sa * cos_e / d2
+    pdf_bef_eye_rev_sa = bsdf_ops.bsdf_pdf(mat, -l2e_loc_e, to_prev_loc_e,
+                                           ones, transmission=trans)
+    pdf_light_rev_sa = bsdf_ops.bsdf_pdf(mat, to_prev_loc_e, -l2e_loc_e,
+                                         ones, transmission=trans)
+    pdf_light_rev_area = pdf_light_rev_sa * cos_l / d2
+    pdf_bef_light_rev_sa = bsdf_ops.bsdf_pdf(mat_l, l2e_loc_l,
+                                             -to_l_from_prev_loc, ones,
+                                             transmission=trans_l)
+    w_eye = pdf_eye_rev_area * (eta_vcm + e["d_vcm"]
+                                + pdf_bef_eye_rev_sa * e["d_vc"])
+    w_light = pdf_light_rev_area * (eta_vcm + lv["d_vcm"]
+                                    + pdf_bef_light_rev_sa * lv["d_vc"])
+    weight = 1.0 / (1.0 + w_eye + w_light)
+
+    f_eye = bsdf_ops.bsdf_f(mat, e["albedo"], -l2e_loc_e, to_prev_loc_e,
+                            ones, transmission=trans)
+    f_light = bsdf_ops.bsdf_f(mat_l, albedo_l, l2e_loc_l, -to_l_from_prev_loc,
+                              ones, transmission=trans_l)
+    gg = torch.clamp(cos_e * cos_l / d2, max=MAX_G_CONNECT)
+    contrib = e["thr"] * lv["beta"] * f_eye * f_light * gg[:, None] * shadow
+    out = _clamp_firefly(_weighted(contrib, weight, cfg))
+    return colorsum + torch.where(do[:, None], out, 0.0), rays
+
+
+def _merge_fold(e, cfg, eta_vcm: float, merge_norm: float):
+    """The merge's fold for hashgrid.fold_neighbors: the photon's
+    contribution at the eye vertex, evaluated on the in-range lanes only
+    (every operation is per lane, so the values are those of the whole
+    wavefront's)."""
+    eta = max(eta_vcm, 1e-30)
+
+    def fold(colorsum, row, in_range, w_cell):
+        idx = torch.nonzero(in_range)[:, 0]
+        if idx.numel() == 0:
+            return colorsum
+        _, wi, p_beta, p_d_vcm, p_d_vm = hashgrid.photon_fields(row[idx])
+        mat, nrm = _take(e["mat"], idx), e["n"][idx]
+        albedo, trans = e["albedo"][idx], e["trans"][idx]
+        prev_loc = e["prev_loc"][idx]
+        ones = torch.ones(idx.shape[0], dtype=torch.float32,
+                          device=idx.device)
+        wi_loc = to_local(wi, nrm)
+        f_val = bsdf_ops.bsdf_f(mat, albedo, wi_loc, prev_loc, ones,
+                                transmission=trans)
+        pdf_eye_rev = bsdf_ops.bsdf_pdf(mat, wi_loc, prev_loc, ones,
+                                        transmission=trans)
+        pdf_light_rev = bsdf_ops.bsdf_pdf(mat, prev_loc, wi_loc, ones,
+                                          transmission=trans)
+        w_eye = true_div(e["d_vcm"][idx], eta) + pdf_eye_rev * e["d_vm"][idx]
+        w_light = true_div(p_d_vcm, eta) + pdf_light_rev * p_d_vm
+        weight = 1.0 / (1.0 + w_eye + w_light)
+        contrib = (p_beta * f_val * e["thr"][idx] * merge_norm
+                   * w_cell[idx][:, None])
+        out = _weighted(contrib, weight, cfg)
+        return colorsum.index_put((idx,), colorsum[idx] + out)
+    return fold
+
+
+# --- one sample --------------------------------------------------------------
+
+def render_sample(scene, camera, base_key, sample_idx, px, py, *,
+                  cfg: VCMConfig):
+    """One VCM/SPPM sample over the whole frame (px, py [P] in raster
+    order) -> (radiance [P,3] with the splat added, rays traced, photons
+    the merge cap left out), the counts as Python ints."""
+    fn = render_plain if px.device.type == "cpu" else render_kernel
+    return fn(scene, camera, base_key, sample_idx, px, py, cfg=cfg)
+
+
+def _grid_inputs(scene, cfg, sample_idx, n):
+    mr, eta, norm = sample_scalars(scene, cfg, sample_idx, n)
+    return mr, eta, norm, hashgrid.photon_salt(sample_idx)
+
+
+def render_plain(scene, camera, base_key, sample_idx, px, py, *,
+                 cfg: VCMConfig):
+    """Plain versions of K12, the VCM splat, K8 and the eye pass in turn;
+    any device."""
+    key_l, key_e = sample_keys(base_key, sample_idx)
+    n = px.shape[0]
+    mr, eta, norm, salt = _grid_inputs(scene, cfg, sample_idx, n)
+    lbufs, _, rays_l = paths.generate_light_path(
+        scene, key_l, px, py, cfg.light_depth + 1, eta_vcm=eta)
+    fb = torch.zeros((n, 3), dtype=torch.float32, device=px.device)
+    rays_s = 0
+    if cfg.light_trace:
+        fb, rays_s = vcm_light_splat(scene, camera, lbufs, cfg, eta, fb)
+    grid = None
+    if cfg.do_merge:
+        rows, valid = hashgrid.photon_rows(lbufs)
+        grid = hashgrid.build_grid(
+            rows, valid, scene.scene_min, mr,
+            hashgrid.photon_table_size(rows.shape[0]), salt=salt)
+    li, rays_e, dropped = eye_pass_plain(scene, camera, key_e, lbufs, grid,
+                                         cfg, px, py, mr, eta, norm)
+    return li + fb, rays_l + rays_s + rays_e, dropped
+
+
+def render_kernel(scene, camera, base_key, sample_idx, px, py, *,
+                  cfg: VCMConfig):
+    """K12 (light), vcm_splat, photon_pack + sort + photon_table, vcm_eye:
+    one ray-count and one dropped-count accumulator [P] and one host sync
+    for both sums."""
+    key_l, key_e = sample_keys(base_key, sample_idx)
+    n, dev = px.shape[0], px.device
+    px = px.to(torch.int32).contiguous()
+    py = py.to(torch.int32).contiguous()
+    mr, eta, norm, salt = _grid_inputs(scene, cfg, sample_idx, n)
+    rays = torch.zeros(n, dtype=torch.int32, device=dev)
+    lw = kernels.bdpt_walk(scene, px, py, paths.walk_keys(key_l, "light"),
+                           mode="light", max_depth=cfg.light_depth + 1,
+                           rays=rays, eta_vcm=eta)
+    fb = torch.zeros((n, 3), dtype=torch.float32, device=dev)
+    if cfg.light_trace:
+        kernels.vcm_splat(scene, camera, lw["bufs"], fb, rays, cfg, eta)
+    grid = None
+    if cfg.do_merge:
+        grid = hashgrid.build_grid_kernel(lw["bufs"], scene.scene_min, mr,
+                                          salt)
+    out, dropped, _ = kernels.vcm_eye(
+        scene, camera, paths.walk_keys(key_e, "eye"), lw["bufs"], grid, fb,
+        rays, cfg, px=px, py=py, merge_radius=mr, eta_vcm=eta,
+        merge_norm=norm, **hashgrid.merge_switches(cfg.max_per_cell))
+    rays_total, dropped_total = torch.stack(
+        [rays.sum(), dropped.sum()]).tolist()
+    return out, rays_total, dropped_total

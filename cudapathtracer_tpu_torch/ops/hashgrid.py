@@ -1,0 +1,261 @@
+"""Photon hash grid: sort-based build (K8) and the bounded 8-cell merge
+query (K9), with the 32-byte photon row (K10's photon part).
+
+Counterpart of cudapathtracer_tpu/ops/hashgrid.py. Photons are hashed by
+their cell of size 2r (the prime-XOR hash P1, P2, P3), sorted by a salted
+key (the bucket times 256 plus an 8-bit multiplicative-hash tiebreak, so
+each bucket's order is random per sample) and indexed by a fused
+[T+1, 2] (start, end) table made with scatter-min/max. A query visits the
+8 cells of size 2r around its point (the 2x2x2 block whose corner is
+nearest), at most `max_per_cell` photons of each, tests the exact
+distance, and weighs each kept photon by count/kept.
+
+The functions here are the plain versions, on any device: the CPU path
+and the oracle. On the card `build_grid_kernel` builds the same grid from
+K12's packed light buffers with two kernels around a stable torch.sort
+(kernels.photon_pack and kernels.photon_table), and the merge query is
+device code of the VCM eye kernel (kernels/csrc/hashgrid.cuh). The
+estimator switches are read under the JAX package's names and defaults:
+TPT_MERGE_REWEIGHT at import (REWEIGHT), TPT_GRID_ONE_BRICK at each call.
+
+Integer parity: the cell hash wraps in int32 and the sort key in uint32;
+here both are computed in int64 masked to 32 bits. The key wraps for
+table sizes above 2^24 (buckets h and h + 2^24 then share their key's high
+bits and interleave in the sort), as in the JAX package; the (start, end)
+window of a bucket then holds the other bucket's photons too, and the
+exact distance test drops them.
+"""
+
+from __future__ import annotations
+
+import os
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from cudapathtracer_tpu_torch.utils import packing
+from cudapathtracer_tpu_torch.utils.math import dot, next_prime, true_div
+
+P1, P2, P3 = 73856093, 19349663, 83492791
+PHOTON_ROW = 8     # pos(0:3) f32, wi oct(3), beta half2 r|g (4), b|0 (5),
+#                    d_vcm(6), d_vm(7): 32 bytes
+_M32 = 0xFFFFFFFF
+SALT_MUL = 0x9E3779B9        # the per-sample salt: s * SALT_MUL + 1
+_KEY_MUL1, _KEY_MUL2 = 2654435761, 2246822519
+
+# count/kept reweighting of the capped merge (an unbiased subsample of
+# the cell); 0 restores the biased truncation with unsalted grids
+REWEIGHT = os.environ.get("TPT_MERGE_REWEIGHT", "1") != "0"
+
+
+def one_brick_active(max_per_cell: int) -> bool:
+    """The one-brick window: keep only the photons of the 8-photon brick
+    that holds the cell's start, kept = min(count, cap, 8 - start % 8).
+    On by default; needs reweighting and a cap of 1..8."""
+    return (os.environ.get("TPT_GRID_ONE_BRICK", "1") != "0"
+            and REWEIGHT and 1 <= max_per_cell <= 8)
+
+
+def merge_switches(max_per_cell: int) -> dict:
+    """The merge query's estimator switches, resolved once for the eye
+    kernel: dict(one_brick=..., reweight=...)."""
+    return dict(one_brick=one_brick_active(max_per_cell), reweight=REWEIGHT)
+
+
+def _window_weight(count, kept):
+    if not REWEIGHT:
+        return torch.ones(count.shape, dtype=torch.float32,
+                          device=count.device)
+    return (count.to(torch.float32)
+            / torch.clamp(kept, min=1).to(torch.float32))
+
+
+class PhotonGrid(NamedTuple):
+    rows: torch.Tensor       # [P8, 8] f32 sorted photon rows, P8 = P padded
+    #                          to a multiple of 8 plus 8 zero rows
+    cell_se: torch.Tensor    # [T+1, 2] i32 (start, end); bucket T holds
+    #                          the invalid photons
+    scene_min: tuple         # 3 float32 values
+    cell_size: float         # 2 * merge radius, float32
+    table_size: int
+
+
+def photon_table_size(max_photons: int) -> int:
+    """next_prime(2 * max_photons)."""
+    return next_prime(2 * max_photons)
+
+
+def photon_salt(sample_idx: int) -> int:
+    """The sample's salt of the sort key, a uint32."""
+    return (int(sample_idx) * SALT_MUL + 1) & _M32
+
+
+def pack_photons(pos, wi, beta, d_vcm, d_vm):
+    """Packed photon rows [P, 8] f32 from [P, ...] components; words 3-5
+    carry uint32 bits (the oct direction and two half2 words)."""
+    f32 = lambda u: u.contiguous().view(torch.float32)
+    wi_oct = f32(packing.pack_oct(wi))
+    b_rg = f32(packing.pack_half2(beta[:, 0], beta[:, 1]))
+    b_b = f32(packing.pack_half2(beta[:, 2], torch.zeros_like(beta[:, 2])))
+    return torch.cat([pos, wi_oct[:, None], b_rg[:, None], b_b[:, None],
+                      d_vcm[:, None], d_vm[:, None]], dim=1)
+
+
+def photon_fields(row):
+    """Rows [N, 8] -> (pos [N,3], wi [N,3], beta [N,3], d_vcm [N],
+    d_vm [N])."""
+    bits = lambda c: row[:, c].contiguous().view(torch.int32)
+    wi = packing.unpack_oct(bits(3))
+    br, bg = packing.unpack_half2(bits(4))
+    bb, _ = packing.unpack_half2(bits(5))
+    return row[:, 0:3], wi, torch.stack([br, bg, bb], dim=-1), row[:, 6], \
+        row[:, 7]
+
+
+def photon_rows(lbufs):
+    """The photon rows of light buffers [L, N] (row-major over depth then
+    lane) and their validity (valid and not delta), as the JAX VCM packs
+    them: the direction is the DECODED wo packed again."""
+    flat = lambda a: a.reshape((-1,) + a.shape[2:])
+    rows = pack_photons(flat(lbufs.pt), flat(lbufs.wo), flat(lbufs.beta),
+                        flat(lbufs.d_vcm), flat(lbufs.d_vm))
+    return rows, flat(lbufs.valid & ~lbufs.is_delta)
+
+
+def _cell_coord(pos, scene_min, cell_size):
+    return true_div(pos - pos.new_tensor(scene_min), cell_size)
+
+
+def _hash_cells(cell, table_size: int):
+    """int32 cells [..., 3] -> buckets [...] int64: the int32-wrapping
+    prime-XOR hash as uint32, mod table_size."""
+    c = cell.to(torch.int64)
+    h = (c[..., 0] * P1) ^ (c[..., 1] * P2) ^ (c[..., 2] * P3)
+    return (h & _M32) % table_size
+
+
+def _mul32(a, b: int):
+    """(a * b) mod 2^32 for int64 tensors a in [0, 2^32) and b < 2^32,
+    with no intermediate above 2^48."""
+    lo = a * (b & 0xFFFF)
+    hi = ((a * (b >> 16)) & 0xFFFF) << 16
+    return (lo + hi) & _M32
+
+
+def sort_keys(h, salt):
+    """The sort key of each photon (int64 holding uint32): the bucket with
+    the salted tiebreak, or the bucket alone without reweighting or salt."""
+    if salt is None or not REWEIGHT:
+        return h
+    idx = torch.arange(h.shape[0], dtype=torch.int64, device=h.device)
+    r = _mul32(_mul32(idx, _KEY_MUL1) ^ (int(salt) & _M32), _KEY_MUL2)
+    return ((h << 8) + (r >> 24)) & _M32
+
+
+def grid_keys(rows, valid, scene_min, cell_size: float, table_size: int,
+              salt=None):
+    """Plain version of photon_pack's bucket and key: each photon's bucket
+    [P] int64 (table_size unless valid) and its sort key (sort_keys)."""
+    cell = torch.floor(_cell_coord(rows[:, 0:3], scene_min, cell_size))
+    h = _hash_cells(cell.to(torch.int32), table_size)
+    h = torch.where(valid, h, table_size)
+    return h, sort_keys(h, salt)
+
+
+def grid_table(rows, h, order, table_size: int):
+    """Plain version of photon_table: the rows in sorted order, padded by
+    (-P) % 8 + 8 zero rows, and the (start, end) table [T+1, 2] int32 made
+    by scatter-min/max of the sorted slots into their buckets."""
+    p = rows.shape[0]
+    h_sorted = h[order]
+    pad = (-p) % 8 + 8
+    rows_sorted = torch.cat([rows[order],
+                             rows.new_zeros((pad, rows.shape[1]))])
+    idx = torch.arange(p, dtype=torch.int32, device=rows.device)
+    start = torch.full((table_size + 1,), p, dtype=torch.int32,
+                       device=rows.device)
+    end = torch.zeros((table_size + 1,), dtype=torch.int32,
+                      device=rows.device)
+    start.scatter_reduce_(0, h_sorted, idx, "amin")
+    end.scatter_reduce_(0, h_sorted, idx + 1, "amax")
+    return rows_sorted, torch.stack([start, end], dim=-1)
+
+
+def build_grid(rows, valid, scene_min, merge_radius: float, table_size: int,
+               salt=None) -> PhotonGrid:
+    """Plain version of K8: hash, stable sort, padded sorted rows and the
+    (start, end) table. rows [P, 8]; valid [P] bool (invalid photons go to
+    the sentinel bucket table_size); merge_radius: a float32 value."""
+    cell_size = 2.0 * merge_radius
+    h, key = grid_keys(rows, valid, scene_min, cell_size, table_size, salt)
+    order = torch.sort(key, stable=True).indices
+    rows_sorted, cell_se = grid_table(rows, h, order, table_size)
+    return PhotonGrid(rows=rows_sorted, cell_se=cell_se,
+                      scene_min=tuple(scene_min), cell_size=cell_size,
+                      table_size=table_size)
+
+
+def build_grid_kernel(lbufs, scene_min, merge_radius: float, salt,
+                      table_size: int | None = None) -> PhotonGrid:
+    """K8 on the card from K12's light buffers [L, N]: photon_pack (row,
+    bucket and key per stored vertex; plain version photon_rows +
+    grid_keys), a stable torch.sort of the keys, photon_table (sorted
+    padded rows, the (start, end) table; plain version grid_table). The
+    same grid as photon_rows + build_grid, bit for bit."""
+    from cudapathtracer_tpu_torch import kernels
+    p = lbufs.pt.shape[0] * lbufs.pt.shape[1]
+    if table_size is None:
+        table_size = photon_table_size(p)
+    cell_size = 2.0 * merge_radius
+    salted = salt is not None and REWEIGHT
+    rows, h, key, cell_se = kernels.photon_pack(
+        lbufs, scene_min, cell_size, table_size, salt if salted else None)
+    order = torch.sort(key, stable=True).indices
+    rows_sorted = kernels.photon_table(rows, h, order, cell_se)
+    return PhotonGrid(rows=rows_sorted, cell_se=cell_se,
+                      scene_min=tuple(scene_min), cell_size=cell_size,
+                      table_size=table_size)
+
+
+def fold_neighbors(grid: PhotonGrid, query_pos, merge_radius: float,
+                   max_per_cell: int, fold, init, active=None,
+                   count_dropped: bool = False):
+    """Plain version of K9: for the 8 corner cells in order (bit 0 x,
+    bit 1 y, bit 2 z of the cell index select the step), the cell's photons
+    start .. start + kept - 1 in ascending order, folded as
+    fold(carry, photon row [N, 8], in_range [N], w [N]) -> carry, where
+    in_range holds the exact d^2 <= r^2 test and w is count/kept (1 without
+    reweighting). With count_dropped also returns the number of candidate
+    photons the cap left out over the active queries (an int)."""
+    n, dev = query_pos.shape[0], query_pos.device
+    if active is None:
+        active = torch.ones(n, dtype=torch.bool, device=dev)
+    r2 = float(np.float32(merge_radius) * np.float32(merge_radius))
+    coord = _cell_coord(query_pos, grid.scene_min, grid.cell_size)
+    base = torch.floor(coord).to(torch.int32)
+    step = torch.where(coord - base.to(torch.float32) >= 0.5, 1,
+                       -1).to(torch.int32)
+    one_brick = one_brick_active(max_per_cell)
+    carry, dropped = init, 0
+    for c in range(8):
+        sel = torch.tensor([(c >> 0) & 1, (c >> 1) & 1, (c >> 2) & 1],
+                           dtype=torch.int32, device=dev)
+        h = _hash_cells(base + step * sel, grid.table_size)
+        se = grid.cell_se[h]
+        start = se[:, 0]
+        count = torch.clamp(se[:, 1] - start, min=0)
+        kept = torch.clamp(count, max=max_per_cell)
+        if one_brick:
+            kept = torch.minimum(kept, 8 - (start & 7))
+        w = _window_weight(count, kept)
+        kept = torch.where(active, kept, 0)
+        for k in range(int(kept.max()) if n else 0):
+            ok = k < kept
+            row = grid.rows[torch.where(ok, start + k, 0)]
+            diff = query_pos - row[:, 0:3]
+            d2 = dot(diff, diff)
+            carry = fold(carry, row, ok & (d2 <= r2), w)
+        if count_dropped:
+            dropped += int(torch.where(active, count - kept, 0).sum())
+    return (carry, dropped) if count_dropped else carry

@@ -26,6 +26,9 @@ reads it).
 mat_f32 [M, 26] f32, one row per material in the layout of the shade row's
 columns 20:46 (type, albedo, ..., trans_tex start/w/h): the BDPT kernels
 read the material of a stored path vertex by its mat_id.
+scene_min and scene_radius (the root AABB's min corner and half its
+diagonal, float32 values held as Python floats) place and size the VCM
+photon grid.
 """
 
 from __future__ import annotations
@@ -60,6 +63,8 @@ class HostScene:
     has_leaf_materials: bool
     has_trans_maps: bool
     bvh8_leaf_tris: int
+    scene_min: tuple            # root AABB min (3 float32 values)
+    scene_radius: float         # half the root AABB's diagonal, float32
 
 
 @dataclass
@@ -76,6 +81,8 @@ class Scene:
     has_leaf_materials: bool
     has_trans_maps: bool
     air_priority: int           # priority of the ambient medium (material 0)
+    scene_min: tuple            # root AABB min, float32 values
+    scene_radius: float         # half the root AABB's diagonal, float32
     bvh8_leaf_tris: int = 4
     traversal: str = "bvh8"
 
@@ -172,6 +179,10 @@ def pack_scene(mesh: MeshData, materials: list, textures=None,
     if textures is None:
         textures = np.zeros((1, 3), np.float32)
 
+    root_min = bvh.bounds[0, 0:3]
+    root_max = bvh.bounds[0, 3:6]
+    radius = 0.5 * float(np.linalg.norm(root_max - root_min))
+
     tri_is_leaf_mat = mat_types[tri_mat] == MAT_LEAF
     shade_row = _pack_shade_rows(htab, tri_n, tri_uv, tri_emission,
                                  tri_light, tri_mat, area)
@@ -216,7 +227,9 @@ def pack_scene(mesh: MeshData, materials: list, textures=None,
         has_leaf_materials=bool(tri_is_leaf_mat.any()),
         has_trans_maps=bool(
             (np.asarray(htab.trans_tex_start)[tri_mat] >= 0).any()),
-        bvh8_leaf_tris=bvh8.leaf_tris)
+        bvh8_leaf_tris=bvh8.leaf_tris,
+        scene_min=tuple(float(x) for x in np.asarray(root_min, np.float32)),
+        scene_radius=float(np.float32(radius)))
     return host, bvh
 
 
@@ -233,12 +246,14 @@ def upload(host: HostScene, device) -> Scene:
         has_leaf_materials=host.has_leaf_materials,
         has_trans_maps=host.has_trans_maps,
         air_priority=int(host.materials.priority[0]),
+        scene_min=host.scene_min, scene_radius=host.scene_radius,
         bvh8_leaf_tris=host.bvh8_leaf_tris)
 
 
 def build_scene(mesh: MeshData, materials: list, textures=None,
-                max_leaf_size: int = 2, device="cpu"):
-    """pack_scene + upload. Returns (Scene, host BVH)."""
+                max_leaf_size: int = 2, *, device):
+    """pack_scene + upload to `device` (no default: the caller names the
+    card or the CPU). Returns (Scene, host BVH)."""
     host, bvh = pack_scene(mesh, materials, textures, max_leaf_size)
     return upload(host, device), bvh
 

@@ -7,12 +7,14 @@ size-3 reductions, so both packages round the same way.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 EPSILON = 1e-5
 RAY_EPSILON = 1e-4
 PI = 3.14159265358979323846
 INV_PI = 1.0 / PI
+MAX_FIREFLY_LUM = 5.0   # the BDPT/VCM firefly clamp of a contribution
 
 
 def true_div(a, b):
@@ -82,3 +84,38 @@ def to_world(v, n):
     """Shading space -> world."""
     t, b = build_frame(n)
     return v[..., 0:1] * t + v[..., 1:2] * b + v[..., 2:3] * n
+
+
+def is_prime(n: int) -> bool:
+    """Host-side primality test for hash-table sizing."""
+    if n < 2:
+        return False
+    if n % 2 == 0:
+        return n == 2
+    i = 3
+    while i * i <= n:
+        if n % i == 0:
+            return False
+        i += 2
+    return True
+
+
+def next_prime(n: int) -> int:
+    """Smallest prime >= n."""
+    while not is_prime(n):
+        n += 1
+    return n
+
+
+def merge_radius(initial_radius: float, sample_idx: int,
+                 alpha: float) -> float:
+    """The VCM/SPPM progressive merge radius r_i = r0 sqrt((1/(i+1))^alpha),
+    in float32 in the JAX package's operation order; returns the float32
+    value as a Python float. The power is exp(alpha ln x) in float64,
+    rounded once: XLA:CPU's float32 power gives the same value on 99.94%
+    of sample indices and differs by one ulp on the rest (numpy's float32
+    power differs on more)."""
+    f = np.float32
+    x = f(1.0) / (f(sample_idx) + f(1.0))
+    xa = f(np.exp(np.float64(f(alpha)) * np.log(np.float64(x))))
+    return float(f(initial_radius) * np.sqrt(xa))

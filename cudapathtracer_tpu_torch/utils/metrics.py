@@ -4,8 +4,7 @@ Formalizes the reference's ad-hoc chrono prints (main.cu:511-513, 542-544,
 910-920) into a metrics object that also reports Mrays/s and spp/s — the
 BASELINE.md headline numbers the reference never recorded.
 
-The port's own copy of cudapathtracer_tpu/utils/metrics.py without the VCM
-merge-cap counter (the photon family is not ported).
+The port's own copy of cudapathtracer_tpu/utils/metrics.py.
 """
 
 from __future__ import annotations
@@ -21,6 +20,9 @@ class RenderMetrics:
     rays_traced: int = 0
     samples_done: int = 0
     pixels: int = 0
+    # photons truncated by the VCM merge's static max_per_cell cap (upper
+    # bound on in-range photons dropped); None = integrator doesn't count
+    merge_dropped: int | None = None
 
     @contextmanager
     def phase(self, name: str):
@@ -52,4 +54,7 @@ class RenderMetrics:
         lines.append(f"  rays traced: {self.rays_traced:,}")
         lines.append(f"  Mrays/s: {self.mrays_per_sec:.2f}")
         lines.append(f"  spp/s: {self.spp_per_sec:.3f}")
+        if self.merge_dropped is not None:
+            lines.append(f"  merge-cap dropped photons: "
+                         f"{self.merge_dropped:,}")
         return "\n".join(lines)

@@ -2,11 +2,13 @@
 
 Counterpart of cudapathtracer_tpu/utils/packing.py:23-141, bit for bit:
 the octahedral unit-vector codec (one 32-bit word, 2 x snorm16), the
-half-precision beta/uv codec and the packed flag word (isDelta | backface |
-lightInd + 1 | matID). The device forms live in kernels/csrc/packing.cuh;
-the BDPT kernels (K11-K13) encode and decode every path vertex through
-them, and kernels.packing_roundtrip launches them over a batch for the
-comparison with these functions.
+half-precision beta/uv codec, the half2 word (two float16 in one 32-bit
+word: the photon row's beta, ops/hashgrid.py) and the packed flag word
+(isDelta | backface | lightInd + 1 | matID). The device forms live in
+kernels/csrc/packing.cuh (half2: hashgrid.cuh); the BDPT kernels
+(K11-K13) encode and decode every path vertex through them, and
+kernels.packing_roundtrip launches them over a batch for the comparison
+with these functions.
 
 Words are held as int32 tensors carrying the uint32 bit patterns (PyTorch
 has no full uint32 arithmetic); `.numpy().view(np.uint32)` gives the JAX
@@ -78,6 +80,21 @@ def to_half3(c: torch.Tensor) -> torch.Tensor:
 
 def from_half3(c: torch.Tensor) -> torch.Tensor:
     return c.to(torch.float32)
+
+
+def pack_half2(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Two float32 [...] -> one word [...] int32 (uint32 bits): a as
+    float16 in the low 16 bits, b in the high."""
+    lo = a.to(torch.float16).view(torch.int16).to(torch.int64) & _MASK16
+    hi = b.to(torch.float16).view(torch.int16).to(torch.int64) & _MASK16
+    return (lo | (hi << 16)).to(torch.int32)
+
+
+def unpack_half2(u: torch.Tensor):
+    """[...] int32 (uint32 bits) -> (a, b) float32."""
+    w = u.to(torch.int64)
+    half = lambda x: x.to(torch.int16).view(torch.float16).to(torch.float32)
+    return half(w & _MASK16), half((w >> 16) & _MASK16)
 
 
 # Packed flag word: bit 31 isDelta, bit 30 backface, bits 29..10 lightInd+1

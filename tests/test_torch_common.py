@@ -42,7 +42,8 @@ TOL = dict(rtol=1e-5, atol=1e-6)
 @pytest.fixture(scope="module")
 def setup():
     js, _ = jbuild_scene(builtin.cornell_with_blocks(), jbuiltin_materials())
-    ts, _ = build_scene(builtin.cornell_with_blocks(), builtin_materials())
+    ts, _ = build_scene(builtin.cornell_with_blocks(), builtin_materials(),
+                        device="cpu")
     gen = np.random.default_rng(9)
     # points on the floor and back wall, facing into the box
     p = gen.uniform(-0.45, 0.45, (N, 3))

@@ -99,11 +99,12 @@ def test_checkpoint_resume_exact(tmp_path):
 
 @pytest.mark.parametrize("engine,integrator", [
     ("mega", "BIDIRECTIONAL"), ("classic", "NAIVE_UNIDIRECTIONAL"),
-    ("classic", "VCM"), ("mega", "SPPM")])
+    ("mega", "VCM"), ("mega", "SPPM")])
 def test_unported_raise(tmp_path, engine, integrator):
     cfg = parse_config(_config_text(tmp_path, engine, integrator))
-    # BIDIRECTIONAL's default mega engine is the mega-variant item
-    item = "M12" if integrator == "BIDIRECTIONAL" else "ROADMAP"
+    # the bidirectional family's default mega engine is the mega-variant
+    # item (its classic engine is ported)
+    item = "ROADMAP M7" if integrator.startswith("NAIVE") else "ROADMAP M12"
     with pytest.raises(NotImplementedError, match=item):
         Renderer(cfg, device="cpu")
     path = tmp_path / "cfg.rendertron"
@@ -140,6 +141,39 @@ def test_bdpt_classic_cli(tmp_path):
     assert (img.max(axis=-1) > 0).mean() > 0.9
 
 
+@pytest.mark.parametrize("integrator", ["VCM", "SPPM"])
+def test_vcm_sppm_classic_renderer(tmp_path, integrator):
+    """VCM and SPPM with Engine classic render on the CPU through Renderer
+    with the plain versions: a real image, rays, the merge-cap counter, no
+    kernel launched. SPPM sees only what its 2,304 photons light (its
+    16x16 golden is 10.5% non-black)."""
+    cfg = parse_config(_config_text(tmp_path / "r", "classic", integrator))
+    kernels.reset_launches()
+    r = Renderer(cfg, device="cpu")
+    img = r.render(num_samples=2, progressive=False, verbose=False)
+    assert img.pixels.shape == (24, 32, 3)
+    fb = r.framebuffer()
+    assert np.isfinite(fb).all() and (fb >= 0).all()
+    lit = (fb.max(axis=-1) > 0).mean()
+    assert lit > (0.9 if integrator == "VCM" else 0.05)
+    assert r.metrics.rays_traced > 2 * 24 * 32
+    assert r.metrics.merge_dropped is None or r.metrics.merge_dropped > 0
+    assert all(v == 0 for v in kernels.launches.values())
+
+
+@pytest.mark.parametrize("integrator", ["VCM", "SPPM"])
+def test_vcm_sppm_classic_cli(tmp_path, integrator):
+    path = tmp_path / "vcm.rendertron"
+    out = tmp_path / "renders"
+    path.write_text(_config_text(out, "classic", integrator))
+    assert cli.main([str(path), "--device", "cpu", "--no-progressive",
+                     "--samples", "1"]) == 0
+    img = load_bmp(str(out / "tiny0.bmp"), decode_srgb=False)
+    assert img.shape == (24, 32, 3)
+    assert (img.max(axis=-1) > 0).mean() > (0.9 if integrator == "VCM"
+                                            else 0.02)
+
+
 def test_default_device_is_cuda(tmp_path):
     """Without a card the default device raises instead of falling back."""
     if torch.cuda.is_available():
@@ -155,8 +189,8 @@ def test_default_device_is_cuda(tmp_path):
 
 def test_port_never_imports_jax(tmp_path):
     """The port parses a config with its own parser and renders with both
-    engines and classic BDPT without importing jax or any module of the
-    JAX package."""
+    engines, classic BDPT, VCM and SPPM without importing jax or any
+    module of the JAX package."""
     code = f"""
 import sys
 import cudapathtracer_tpu_torch
@@ -165,7 +199,8 @@ from cudapathtracer_tpu_torch.utils.config import parse_config
 from cudapathtracer_tpu_torch.driver import Renderer
 for engine, integ in (("mega", "UNIDIRECTIONAL"),
                       ("classic", "UNIDIRECTIONAL"),
-                      ("classic", "BIDIRECTIONAL")):
+                      ("classic", "BIDIRECTIONAL"), ("classic", "VCM"),
+                      ("classic", "SPPM")):
     cfg = parse_config({_config_text(tmp_path / 'r')!r}.replace(
         "Engine: classic", "Engine: " + engine).replace(
         "Integrator: UNIDIRECTIONAL", "Integrator: " + integ))

@@ -18,7 +18,13 @@ bound on >= 99.9% of the vertices (compare_walk); K11 and K13 on the same
 buffers as their plain versions, rays within 0.1%, image mean within
 1e-3, >= 99.9% (K11) and 99.5% (K13) of pixels within rtol 1e-3
 (compare_image), at the defaults and with each strategy flag set and the
-VCM d_vm chain on (compare_bdpt); the BDPT golden at rmse < 1e-3.
+VCM d_vm chain on (compare_bdpt); the BDPT golden at rmse < 1e-3. The
+photon family under chip_smoke.py's criteria too: K8's grid bit-equal to
+build_grid's (compare_grid, also with a table above 2^24 buckets), the VCM
+splat and the eye kernel on the same light buffers and grid as their plain
+versions (compare_vcm: rays within 0.1%, image mean within 1e-3, >= 99.9%
+and 99.5% of pixels within rtol 1e-3, dropped photons equal) for VCM,
+SPPM and each merge mode; the VCM and SPPM goldens at rmse < 1e-3.
 """
 
 import dataclasses
@@ -29,10 +35,10 @@ import torch
 
 import chip_smoke
 from cudapathtracer_tpu_torch import kernels
-from cudapathtracer_tpu_torch.models import bdpt, paths
+from cudapathtracer_tpu_torch.models import bdpt, paths, vcm
 from cudapathtracer_tpu_torch.models import unidirectional as uni
 from cudapathtracer_tpu_torch.models import unidirectional_mega as mega
-from cudapathtracer_tpu_torch.ops import traverse8
+from cudapathtracer_tpu_torch.ops import hashgrid, traverse8
 from cudapathtracer_tpu_torch.scene import builtin
 from cudapathtracer_tpu_torch.scene.camera import Camera
 from cudapathtracer_tpu_torch.scene.materials import builtin_materials
@@ -61,7 +67,8 @@ def test_import_builds_nothing():
                                   "closest_hit8", "shadow_factor8",
                                   "render_unidirectional", "shade_eval",
                                   "packing_roundtrip", "bdpt_walk",
-                                  "bdpt_splat", "bdpt_connect"])
+                                  "bdpt_splat", "bdpt_connect", "vcm_splat",
+                                  "photon_pack", "photon_table", "vcm_eye"])
 def test_wrappers_refuse_non_cuda_tensors(call):
     """A wrapper launches on CUDA tensors or raises; it never falls back."""
     kernels.reset_launches()
@@ -69,10 +76,12 @@ def test_wrappers_refuse_non_cuda_tensors(call):
     f1 = torch.zeros(n)
     f3 = torch.zeros((n, 3))
     i1 = torch.zeros(n, dtype=torch.int32)
-    scene = build_scene(builtin.cornell_box(), builtin_materials())[0]
+    scene = build_scene(builtin.cornell_box(), builtin_materials(),
+                        device="cpu")[0]
     b1 = torch.zeros(n, dtype=torch.bool)
     cam = Camera.pinhole((0.0, 0.0, 1.0), 2, 2, 0.0, 0.0, 0.0, 60.0)
     cfg = bdpt.BDPTConfig(eye_depth=3, light_depth=2)
+    vcfg = vcm.VCMConfig(eye_depth=3, light_depth=1)
     bufs = paths.PathBuffers.empty(1, n, "cpu")
     v0 = dict(pt=f3, n=f3, beta=f3, pdf_fwd=f1, mat_id=i1)
     eye = dict(bufs=paths.PathBuffers.empty(2, n, "cpu"), v0=v0,
@@ -92,12 +101,21 @@ def test_wrappers_refuse_non_cuda_tensors(call):
         "bdpt_splat": (scene, cam, bufs, v0, f3, i1, cfg),
         "bdpt_connect": (scene, cam, (0, 1), eye, dict(bufs=bufs, v0=v0),
                          f3, i1, cfg),
+        "vcm_splat": (scene, cam, bufs, f3, i1, vcfg, 1.0),
+        "photon_pack": (bufs, (0.0, 0.0, 0.0), 0.1, 7, None),
+        "photon_table": (torch.zeros((n, 8)), i1,
+                         torch.zeros(n, dtype=torch.int64),
+                         torch.zeros((8, 2), dtype=torch.int32)),
+        "vcm_eye": (scene, cam, [0] * 12, bufs, None, None, i1, vcfg),
     }[call]
     kw = {"render_unidirectional": dict(
               max_depth=4, use_mis=True, sample_environment=False,
               schedule="mega", air_priority=99),
           "bdpt_walk": dict(mode="light", max_depth=2, rays=i1),
-          "bdpt_connect": dict(px=i1, py=i1)}.get(call, {})
+          "bdpt_connect": dict(px=i1, py=i1),
+          "vcm_eye": dict(px=i1, py=i1, merge_radius=0.1, eta_vcm=1.0,
+                          merge_norm=1.0, one_brick=True,
+                          reweight=True)}.get(call, {})
     with pytest.raises(ValueError, match="CUDA"):
         getattr(kernels, call)(*args, **kw)
     meta = [a.to("meta") if isinstance(a, torch.Tensor) else a for a in args]
@@ -347,5 +365,92 @@ def test_bdpt_golden_on_card(cuda):
     assert kernels.launches["bdpt_connect"] == 8
     golden = np.load(os.path.join(os.path.dirname(os.path.abspath(
         __file__)), "golden", "cornell_bdpt_16x16_8spp.npy"))
+    err = np.sqrt(np.mean(((acc / 8).cpu().numpy() - golden) ** 2))
+    assert err < 1e-3, f"rmse {err:.3g}"
+
+
+def _vcm_setup(name, cuda, w=96, h=64):
+    mesh = {"blocks": builtin.cornell_with_blocks,
+            "spheres": builtin.cornell_with_spheres}[name]
+    sc, _ = build_scene(mesh(), builtin_materials(), device=cuda)
+    cam = Camera.pinhole((0.0, 0.0, 1.0), w, h, 0.0, 0.0, 0.0, 60.0)
+    return sc, cam, *_grid(w, h, cuda)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("table", [None, 3 * 2 ** 23 + 7])
+def test_photon_grid_matches_plain(cuda, table):
+    """K8 on a VCM light walk's buffers against build_grid, bit for bit;
+    the second case with a table above 2^24 buckets (the key wraps)."""
+    sc, cam, px, py = _vcm_setup("blocks", cuda)
+    cfg = vcm.VCMConfig(eye_depth=6, light_depth=4)
+    size = None if table is None else hashgrid.photon_table_size(table // 2)
+    key_l, _ = vcm.sample_keys(rng.base_key(), 3)
+    mr, eta, _ = vcm.sample_scalars(sc, cfg, 3, px.shape[0])
+    salt = hashgrid.photon_salt(3)
+    lb = kernels.bdpt_walk(
+        sc, px, py, paths.walk_keys(key_l, "light"), mode="light",
+        max_depth=cfg.light_depth + 1,
+        rays=torch.zeros(px.shape[0], dtype=torch.int32, device=cuda),
+        eta_vcm=eta)["bufs"]
+    kernels.reset_launches()
+    kgrid = hashgrid.build_grid_kernel(lb, sc.scene_min, mr, salt, size)
+    assert kernels.launches["photon_pack"] == 1
+    assert kernels.launches["photon_table"] == 1
+    assert kgrid.table_size == (size or hashgrid.photon_table_size(
+        cfg.light_depth * px.shape[0]))
+    rows, valid = hashgrid.photon_rows(lb)
+    pgrid = hashgrid.build_grid(rows, valid, sc.scene_min, mr,
+                                kgrid.table_size, salt=salt)
+    chip_smoke.compare_grid(kgrid, pgrid, "grid test")
+
+
+VCM_CASES = {"vcm": ({}, {}), "sppm": (dict(
+    light_trace=False, nee=False, naive=False, connection=False,
+    do_mis=False, do_sppm=True), {}),
+    "two_brick": ({}, {"TPT_GRID_ONE_BRICK": "0"}),
+    "cap12": (dict(max_per_cell=12), {}), "no_reweight": ({}, None),
+    "environment": (dict(sample_environment=True), {})}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,case", [("blocks", c) for c in VCM_CASES]
+                         + [("spheres", "vcm"), ("spheres", "sppm")])
+def test_vcm_kernels_match_plain(cuda, monkeypatch, name, case):
+    """vcm_splat, K8 and vcm_eye against their plain versions on the same
+    light buffers and grid (chip_smoke's compare_vcm), for VCM, SPPM, each
+    merge mode and the environment term."""
+    over, env = VCM_CASES[case]
+    if env is None:
+        monkeypatch.setattr(hashgrid, "REWEIGHT", False)
+    for k, v in (env or {}).items():
+        monkeypatch.setenv(k, v)
+    sc, cam, px, py = _vcm_setup(name, cuda)
+    cfg = dataclasses.replace(vcm.VCMConfig(eye_depth=6, light_depth=4),
+                              **over)
+    kernels.reset_launches()
+    res = chip_smoke.compare_vcm(sc, cam, px, py, cfg, 1, f"{name} {case}")
+    assert kernels.launches["vcm_eye"] == 1
+    assert kernels.launches["vcm_splat"] == int(cfg.light_trace)
+    assert res["photons"] > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["vcm", "sppm"])
+def test_vcm_goldens_on_card(cuda, name):
+    import os
+    sc, cam, px, py = _vcm_setup("blocks", cuda, 16, 16)
+    cfg = vcm.VCMConfig(eye_depth=6, light_depth=4)
+    if name == "sppm":
+        cfg = dataclasses.replace(cfg, **VCM_CASES["sppm"][0])
+    kernels.reset_launches()
+    acc = torch.zeros((256, 3), device=cuda)
+    for s in range(8):
+        li, rays, _ = vcm.render_sample(sc, cam, rng.base_key(), s, px, py,
+                                        cfg=cfg)
+        acc += li
+    assert kernels.launches["vcm_eye"] == 8
+    golden = np.load(os.path.join(os.path.dirname(os.path.abspath(
+        __file__)), "golden", f"cornell_{name}_16x16_8spp.npy"))
     err = np.sqrt(np.mean(((acc / 8).cpu().numpy() - golden) ** 2))
     assert err < 1e-3, f"rmse {err:.3g}"

@@ -88,7 +88,8 @@ def _grid(w, h):
 @pytest.fixture(scope="module")
 def scenes():
     js, _ = jbuild_scene(builtin.cornell_with_blocks(), jbuiltin_materials())
-    ts, _ = build_scene(builtin.cornell_with_blocks(), builtin_materials())
+    ts, _ = build_scene(builtin.cornell_with_blocks(), builtin_materials(),
+                        device="cpu")
     jc = JCamera.pinhole((0.0, 0.0, 1.0), W, H, 0.0, 0.0, 0.0, 60.0)
     tc = Camera.pinhole((0.0, 0.0, 1.0), W, H, 0.0, 0.0, 0.0, 60.0)
     return js, ts, jc, tc

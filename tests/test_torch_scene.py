@@ -1,6 +1,8 @@
 """Host scene packing of the PyTorch port against the JAX package.
 
-Tolerance: none. The port packs tri_f32, light_f32 and bvh8_table itself,
+Tolerance: none. The port packs tri_f32, light_f32 and bvh8_table itself
+(and the root box's min corner and half diagonal, which place and size
+the VCM photon grid),
 from its own builtin meshes with its own copies of the SAH/SBVH builders,
 the BVH8 collapse and their native C++ library, so the blocks are compared
 as uint32 views and must be bit-equal: both packages must traverse the
@@ -50,6 +52,11 @@ def test_blocks_bit_equal(name):
     assert hs.has_leaf_materials == js.has_leaf_materials
     assert hs.has_trans_maps == js.has_trans_maps
     assert hs.bvh8_leaf_tris == js.bvh8_leaf_tris
+    # the photon grid's origin and the merge radius' scale (VCM)
+    np.testing.assert_array_equal(
+        np.asarray(hs.scene_min, np.float32).view(np.uint32),
+        np.asarray(js.node_bounds)[0, 0:3].view(np.uint32))
+    assert np.float32(hs.scene_radius) == np.float32(js.scene_radius)
 
 
 def test_materials_table_equal():

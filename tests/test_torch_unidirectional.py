@@ -52,7 +52,8 @@ def _grid(w, h):
 
 @pytest.fixture(scope="module")
 def scene():
-    return build_scene(builtin.cornell_with_blocks(), builtin_materials())[0]
+    return build_scene(builtin.cornell_with_blocks(), builtin_materials(),
+                       device="cpu")[0]
 
 
 def test_golden_cpu(scene):
@@ -92,7 +93,7 @@ BOUND = {"blocks": 1e-5, "spheres": 1e-3, "nested": 1e-3, "leaf": 1e-1}
 @pytest.mark.parametrize("name", sorted(SCENES))
 def test_sample_matches_jax(name):
     js, _ = jbuild_scene(SCENES[name](), jbuiltin_materials())
-    ts, _ = build_scene(SCENES[name](), builtin_materials())
+    ts, _ = build_scene(SCENES[name](), builtin_materials(), device="cpu")
     jcam = JCamera.pinhole((0.0, 0.0, 1.0), 8, 8, 0.0, 0.0, 0.0, 60.0)
     cam = Camera.pinhole((0.0, 0.0, 1.0), 8, 8, 0.0, 0.0, 0.0, 60.0)
     px, py = _grid(8, 8)

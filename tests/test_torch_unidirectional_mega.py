@@ -68,7 +68,8 @@ def _grid(w, h):
 @pytest.fixture(scope="module")
 def golden_renders():
     """8 spp of the golden setup through both engines' plain versions."""
-    scene = build_scene(builtin.cornell_with_blocks(), builtin_materials())[0]
+    scene = build_scene(builtin.cornell_with_blocks(), builtin_materials(),
+                        device="cpu")[0]
     cam = Camera.pinhole((0.0, 0.0, 1.0), 16, 16, 0.0, 0.0, 0.0, 60.0)
     px, py = _grid(16, 16)
     kernels.reset_launches()
@@ -114,7 +115,8 @@ RTOL = {"blocks": 1e-5, "spheres": 1e-3, "nested": 1e-3, "leaf": 1e-1}
 @pytest.mark.parametrize("name", sorted(SCENES))
 def test_sample_matches_jax(name):
     js, _ = jbuild_scene(SCENES[name](jbuiltin), jbuiltin_materials())
-    ts, _ = build_scene(SCENES[name](builtin), builtin_materials())
+    ts, _ = build_scene(SCENES[name](builtin), builtin_materials(),
+                        device="cpu")
     jcam = JCamera.pinhole((0.0, 0.0, 1.0), 8, 8, 0.0, 0.0, 0.0, 60.0)
     cam = Camera.pinhole((0.0, 0.0, 1.0), 8, 8, 0.0, 0.0, 0.0, 60.0)
     px, py = _grid(8, 8)

@@ -7,7 +7,10 @@ Cornell + bunny scene) through driver.Renderer with the engine asked for:
 at depth 8, one launch per sample of the per-path megakernel K5; or
 --engine bdpt, Integrator BIDIRECTIONAL with Engine classic at the
 config's eye and light depths, four launches per sample (the walks K12
-twice, the splat K11, the connections K13). One
+twice, the splat K11, the connections K13); or --engine vcm / sppm,
+Integrator VCM / SPPM with Engine classic at the same depths, five
+launches and a sort per sample (K12's light walk, vcm_splat (not SPPM),
+photon_pack, torch.sort, photon_table, vcm_eye). One
 timed warm-up sample, then timed samples (host clock around samples that
 end in a synchronize, and CUDA events around the same samples), then one
 sample under torch.profiler. Prints per-kernel device time grouped by layer, the
@@ -15,7 +18,8 @@ device's busy time and idle share over the profiled sample, and each
 sample's time and Mrays/s. Writes the profiler table and a Chrome trace
 under --out (the trace gzipped). Run from the repository root:
 
-    python3 tools/profile_torch_classic.py [--engine mega|classic|bdpt]
+    python3 tools/profile_torch_classic.py
+        [--engine mega|classic|bdpt|vcm|sppm]
         [--width 1920 --height 1080 --spp 4]
 """
 
@@ -34,8 +38,12 @@ import time
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 LAYERS = (("K5 megakernel", "uni_mega_kernel"),
           ("K12 BDPT walks", "bdpt_walk_kernel"),
-          ("K11 BDPT splat", "bdpt_splat_kernel"),
+          ("K11 splat (BDPT or VCM form)", "bdpt_splat_kernel"),
           ("K13 BDPT connections", "bdpt_connect_kernel"),
+          ("K8 photon_pack", "photon_pack_kernel"),
+          ("K8 sort (torch.sort)", "RadixSort"),
+          ("K8 photon_table", "photon_table_kernel"),
+          ("K13 VCM eye pass (with K9)", "vcm_eye_kernel"),
           ("K1 traverse8", "traverse8_kernel"),
           ("K6 rng", "uniform_id_kernel"),
           ("K7 camera", "generate_rays_kernel"))
@@ -44,8 +52,8 @@ OTHER = "other device work (sums, copies, accumulation)"
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__)
-    ap.add_argument("--engine", choices=("mega", "classic", "bdpt"),
-                    default="mega")
+    ap.add_argument("--engine", choices=("mega", "classic", "bdpt", "vcm",
+                                         "sppm"), default="mega")
     ap.add_argument("--width", type=int, default=1920)
     ap.add_argument("--height", type=int, default=1080)
     ap.add_argument("--depth", type=int, default=8)
@@ -66,10 +74,12 @@ def main() -> int:
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
                           text=True, timeout=60).stdout.strip()
-    bdpt = args.engine == "bdpt"
+    integ = {"bdpt": "BIDIRECTIONAL", "vcm": "VCM", "sppm": "SPPM"}.get(
+        args.engine, "UNIDIRECTIONAL")
+    bdpt = integ != "UNIDIRECTIONAL"
     cfg = dataclasses.replace(
         load_config(os.path.join(ROOT, "configs", "cornell.rendertron")),
-        integrator="BIDIRECTIONAL" if bdpt else "UNIDIRECTIONAL",
+        integrator=integ,
         engine="classic" if bdpt else args.engine, width=args.width,
         height=args.height, max_depth=args.depth,
         meshes=[MeshConfig("builtin:cornell_bunny", 1.0, (0.0, 0.0, 0.0),
