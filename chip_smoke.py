@@ -26,7 +26,8 @@ Phases (one line each; any failure exits non-zero before the result line):
   7. K5, the megakernel (uni_mega.cu), against its plain version
      (models/unidirectional.render_plain, whose traversal and draws go
      through K1 and K6, held to their own plain versions above) at
-     1920x1080, 1 spp, both draw schedules, and at 256x256 on the mirror +
+     1920x1080, 1 spp, both draw schedules (the mega one retiring each path
+     through RGB9E5 in both versions), and at 256x256 on the mirror +
      glass spheres scene (the medium stack): rays within 0.1%, image mean
      ratio within 1e-3, >= 99% of pixels within rtol 1e-3;
   8. the goldens on the card through the megakernel (16x16, 8 spp): mega
@@ -80,10 +81,35 @@ Phases (one line each; any failure exits non-zero before the result line):
      vcm_splat, photon_pack, photon_table, vcm_eye; SPPM without the
      splat; and one torch.sort), merge-cap dropped photons; finite,
      non-negative, > 90% non-black;
- 19. one 1080p VCM sample's launches timed with CUDA events.
+ 19. one 1080p VCM sample's launches timed with CUDA events;
+ 20. K10's RGB9E5 mode (packing.cu) bit-equal to the plain codec on
+     2,073,600 colours, edge values included;
+ 21. K14 (mega_eye.cu) against its plain version (compare_mega) on both
+     chunks of the 1080p sample in the VCM, SPPM and BDPT flavours, on the
+     kernels' light walks and grids (rays and dropped photons equal, >=
+     99.9% of pixels within rtol 1e-3, the bit-equal share printed); K9's
+     materialised forms (neighbor_slots.cu: neighbor_slots,
+     neighbor_slots_compact, gather_neighbors) bit-equal to their plain
+     versions on chunk 0's grid and first-bounce hit points, one-brick and
+     standard; K14 on the caustics config as shipped (512x512, one chunk
+     with 10,016 pad paths), samples 0 and 1;
+ 22. the naive integrator (uni_mega.cu's naive schedule) against its plain
+     version at 1080p, depth 8 (as phase 7);
+ 23. the default-engine main paths through Renderer: Integrator VCM, SPPM
+     and BIDIRECTIONAL with no Engine line on the same config (1080p bunny,
+     4 spp, two chunks a sample: per chunk K12, the splat, photon_pack,
+     torch.sort, photon_table and mega_eye; SPPM without the splat; BDPT
+     K12, bdpt_splat, mega_eye), configs/vcm_caustics.rendertron as shipped
+     at 4 spp (one chunk), and NAIVE_UNIDIRECTIONAL at depth 8 (one launch
+     a sample; > 5% non-black, its image being sparse): rays, render-phase
+     Mrays/s, peak memory, launches per sample;
+ 24. one 1080p VCM-mega and one BDPT-mega sample's launches timed with
+     CUDA events.
 Then one JSON line with each kernel's launches on its main path (the
-BDPT kernels on the BDPT path, the photon kernels on the VCM path, the
-others on the mega path), error and times against its plain version, its
+BDPT kernels on the BDPT path, the photon kernels on the VCM path, mega_eye
+on the VCM-mega path, naive on the naive path, the others on the mega
+path; rgb9e5 and neighbor_slots are the test entries of device code that
+runs inside K5 and K14, so 0), error and times against its plain version, its
 bound on this card and the library call's time (null: no PyTorch call
 computes these functions), the card's name and power limit, and as the
 last line {"ok": true, "device": {...}}.
@@ -131,9 +157,22 @@ KERNELS = (  # name, source, the JAX function it replaces
      "cudapathtracer_tpu/ops/hashgrid.py:151"),
     ("vcm_eye", CSRC + "vcm_eye.cu",
      "cudapathtracer_tpu/models/vcm.py:150"),
+    ("rgb9e5", CSRC + "packing.cu", "cudapathtracer_tpu/utils/packing.py:53"),
+    ("neighbor_slots", CSRC + "neighbor_slots.cu",
+     "cudapathtracer_tpu/ops/hashgrid.py:412"),
+    ("mega_eye", CSRC + "mega_eye.cu",
+     "cudapathtracer_tpu/models/vcm_mega.py:322"),
+    ("naive", CSRC + "uni_mega.cu", "cudapathtracer_tpu/models/naive.py:41"),
 )
 BDPT_KERNELS = ("bdpt_walk", "bdpt_splat", "bdpt_connect")
 PHOTON_KERNELS = ("vcm_splat", "photon_pack", "photon_table", "vcm_eye")
+# the mega engines' launches per chunk of a sample (K12, the splat, K8's
+# two launches, K14), by integrator
+MEGA_KERNELS = {
+    "VCM": ("bdpt_walk", "vcm_splat", "photon_pack", "photon_table",
+            "mega_eye"),
+    "SPPM": ("bdpt_walk", "photon_pack", "photon_table", "mega_eye"),
+    "BIDIRECTIONAL": ("bdpt_walk", "bdpt_splat", "mega_eye")}
 # The card's peaks (H100 SXM data sheet) for the
 # bound: bytes over memory bandwidth, scalar operations (integer or float,
 # one per instruction: the kernels are built with -fmad=false) over the
@@ -158,6 +197,13 @@ OPS_PER_CODEC = 120
 # the photon grid (hashgrid.cuh, photon_grid.cu): one photon's oct decode
 # and encode (~70), half2 codes (~10), cell, hash and key (~20)
 OPS_PER_PHOTON = 100
+# RGB9E5 (packing.cuh): a double log and two double exps counted as ~25
+# scalar operations each, clamps, rounding and packing ~45
+OPS_PER_RGB9E5 = 120
+# K9's slots (hashgrid.cuh): a query's 8 cell hashes and table reads
+# (~200), each slot's index and distance test (~20)
+OPS_PER_QUERY = 200
+OPS_PER_SLOT = 20
 VERTEX_BYTES = 51   # one packed vertex: pt 12, two oct 8, uv 4, beta 6,
 #                     pdf_fwd/d_vcm/d_vc/d_vm 16, flags 4, valid 1
 K_ULP = 32 * 2.0 ** -24   # tests/test_torch_bsdf.py's K u
@@ -715,15 +761,245 @@ def compare_vcm(scene, cam, px, py, cfg, sample_idx: int, what: str) -> dict:
     return out
 
 
-def render_path(cfg, tag: str, card: str, want: dict) -> tuple:
+def rgb9e5_inputs(n: int, seed: int = 17):
+    """[n,3] float32 colours for K10's RGB9E5: zeros, negatives, tiny and
+    subnormal values, values above the 9e5 maximum and infinities, values
+    within 64 ulps of every power of two the exponent meets, values on the
+    mantissa's rounding edges ((m + 1/2) 2^(e-9)), then lognormal values
+    over the codec's whole range."""
+    import numpy as np
+    import torch
+    gen = np.random.default_rng(seed)
+    edge = [np.array([0.0, -0.0, -1.0, -1e30, 1e-45, 1e-38, 1e-30, 1e-10,
+                      3e-5, 65408.0, 65409.0, 1e5, 1e30, np.inf],
+                     np.float32)]
+    for k in range(-26, 18):
+        b = np.float32(2.0 ** k).view(np.int32)
+        edge.append((b + np.arange(-64, 65)).astype(np.int32)
+                    .view(np.float32))
+    m = np.arange(512, dtype=np.float64) + 0.5
+    for e in range(-15, 17):
+        edge.append((m * 2.0 ** (e - 9)).astype(np.float32))
+    edge = np.concatenate(edge)
+    k = edge.size
+    c = np.empty((n, 3), np.float32)
+    c[:k, 0] = edge
+    c[:k, 1] = gen.permutation(edge) * gen.uniform(0, 1, k)
+    c[:k, 2] = gen.permutation(edge)
+    c[k:] = gen.lognormal(-2.0, 4.0, (n - k, 3))
+    return torch.as_tensor(c)
+
+
+def compare_rgb9e5(k, c, what: str) -> None:
+    """K10's RGB9E5 (rgb9e5_roundtrip's (packed, decoded)) against the plain
+    codec on the same colours c: both bit-equal."""
+    import torch
+    from cudapathtracer_tpu_torch.utils import packing
+    pp = packing.pack_rgb9e5(c)
+    pd = packing.unpack_rgb9e5(pp)
+    bad = int(((k[0] != pp) | (k[1].view(torch.int32) != pd.view(torch.int32))
+               .any(dim=1)).sum())
+    check(bad == 0, f"K10 RGB9E5 {what}: {bad} of {c.shape[0]} colours "
+          "differ from the plain codec")
+
+
+def compare_slots(grid, q, active, mr: float, cap: int, what: str,
+                  cap_q: int = 16) -> int:
+    """K9's materialised forms (neighbor_slots.cu) against the plain
+    neighbor_slots, neighbor_slots_compact and gather_neighbors on the same
+    grid and queries q [N,3] (active [N]): rows, ok and weights bit-equal,
+    dropped counts equal, in the mode TPT_GRID_ONE_BRICK selects. Returns
+    the slots in range."""
+    import torch
+    from cudapathtracer_tpu_torch import kernels
+    from cudapathtracer_tpu_torch.ops import hashgrid
+    sw = dict(one_brick=hashgrid.one_brick_active(cap),
+              reweight=hashgrid.REWEIGHT)
+    bits = lambda t: t.view(torch.int32)
+    found = 0
+    for mode in ("slots", "compact", "gather"):
+        k = kernels.neighbor_slots(grid, q, mr, cap, mode=mode, cap_q=cap_q,
+                                   active=active, **sw)
+        if mode == "slots":
+            p = hashgrid.neighbor_slots(grid, q, mr, cap, active=active)
+        elif mode == "compact":
+            p = hashgrid.neighbor_slots_compact(grid, q, mr, cap, cap_q,
+                                                active=active)
+        else:
+            rows, ok = zip(*hashgrid.gather_neighbors(grid, q, mr, cap,
+                                                      active=active))
+            p = (torch.stack(rows), torch.stack(ok), None, None)
+        bad = [int((bits(k[0]) != bits(p[0])).any(dim=-1).sum()),
+               int((k[1] != p[1]).sum())]
+        if p[2] is not None:
+            bad.append(int((bits(k[2]) != bits(p[2])).sum()))
+            kd = int(k[3].sum())
+            check(kd == p[3], f"K9 {what} {mode}: dropped {kd} vs plain "
+                  f"{p[3]}")
+        check(sum(bad) == 0, f"K9 {what} {mode}: {bad} slots differ "
+              "(rows, ok, wgt)")
+        found += int(k[1].sum())
+        say("K9", f"{what} {mode}: {k[0].shape[0]} slots x {q.shape[0]} "
+            f"queries bit-equal (rows, ok{'' if p[2] is None else ', wgt'}"
+            f"), {int(k[1].sum())} in range"
+            + ("" if p[3] is None else f", dropped {p[3]}"))
+    return found
+
+
+def first_hits(scene, cam, px, py, sample_idx: int):
+    """The eye paths' first hit points (pixels px, py; the mega engine's
+    primary rays) and whether each ray hit: (points [N,3], hit [N])."""
+    from cudapathtracer_tpu_torch.models import vcm
+    from cudapathtracer_tpu_torch.ops import traverse8
+    from cudapathtracer_tpu_torch.utils import rng
+    _, key_e = vcm.sample_keys(rng.base_key(), sample_idx)
+    o, d = cam.generate_rays(rng.fold_in(key_e, 2 ** 20), px.float(),
+                             py.float(), rng.pixel_ids(px, py))
+    h = traverse8.closest_hit8(scene, o, d)
+    return (o + d * h.t[:, None]).contiguous(), h.valid.contiguous()
+
+
+def mega_inputs(scene, px, py, cfg, flavor: str, sample_idx: int,
+                chunks) -> list:
+    """Per chunk of the mega engines' partition, the inputs its eye pass
+    reads, from the kernels: the light walk (K12, pads masked) and, under
+    VCM with the merge, the grid (K8). -> list of dicts (pxc, pyc, cnt,
+    gbase, lbufs, grid, mr, eta, norm)."""
+    import torch
+    from cudapathtracer_tpu_torch import kernels
+    from cudapathtracer_tpu_torch.models import paths, vcm, vcm_mega
+    from cudapathtracer_tpu_torch.ops import hashgrid
+    from cudapathtracer_tpu_torch.utils import rng
+    key_l, _ = vcm.sample_keys(rng.base_key(), sample_idx)
+    out = []
+    for ci in range(chunks.n_chunks):
+        pxc, pyc, cnt = vcm_mega.chunk_pixels_of(px, py, ci, chunks.c_pix)
+        rays = torch.zeros(chunks.c_pix, dtype=torch.int32, device=px.device)
+        if flavor == "vcm":
+            mr, eta, norm = vcm_mega.chunk_scalars(scene, cfg, sample_idx, cnt)
+            lw = kernels.bdpt_walk(scene, pxc, pyc,
+                                   paths.walk_keys(key_l, "light"),
+                                   mode="light",
+                                   max_depth=cfg.light_depth + 1, rays=rays,
+                                   eta_vcm=eta)
+        else:
+            mr = eta = norm = 0.0
+            lw = kernels.bdpt_walk(scene, pxc, pyc,
+                                   paths.walk_keys(key_l, "light"),
+                                   mode="light", max_depth=cfg.light_depth,
+                                   rays=rays)
+        lb = vcm_mega.mask_pads(lw["bufs"], cnt)
+        grid = None
+        if flavor == "vcm" and cfg.do_merge:
+            grid = hashgrid.build_grid_kernel(
+                lb, scene.scene_min, mr, hashgrid.photon_salt(sample_idx))
+        out.append(dict(pxc=pxc, pyc=pyc, cnt=cnt, gbase=ci * chunks.c_pix,
+                        lbufs=lb, grid=grid, mr=mr, eta=eta, norm=norm))
+    return out
+
+
+def mega_eye_kernel(scene, cam, cfg, flavor, sample_idx, ch, out, rays,
+                    with_rows=False):
+    """K14 over one chunk's inputs ch (mega_inputs) into out [P,3] and rays
+    [c_pix]; -> (dropped [c_pix], rows or None)."""
+    from cudapathtracer_tpu_torch import kernels
+    from cudapathtracer_tpu_torch.models import vcm, vcm_mega
+    from cudapathtracer_tpu_torch.ops import hashgrid
+    from cudapathtracer_tpu_torch.utils import rng
+    _, key_e = vcm.sample_keys(rng.base_key(), sample_idx)
+    sw = (hashgrid.merge_switches(cfg.max_per_cell) if flavor == "vcm"
+          else {})
+    return kernels.mega_eye(
+        scene, cam, vcm_mega.eye_keys(key_e), ch["lbufs"], ch["grid"], out,
+        rays, cfg, px=ch["pxc"], py=ch["pyc"], cnt=ch["cnt"],
+        gbase=ch["gbase"], flavor=flavor, merge_radius=ch["mr"],
+        eta_vcm=ch["eta"], merge_norm=ch["norm"], with_rows=with_rows, **sw)
+
+
+def mega_eye_plain(scene, cam, cfg, flavor, sample_idx, ch):
+    """The plain K14 over one chunk's inputs: (radiance [cnt,3], rays,
+    dropped)."""
+    from cudapathtracer_tpu_torch.models import vcm, vcm_mega
+    from cudapathtracer_tpu_torch.utils import rng
+    _, key_e = vcm.sample_keys(rng.base_key(), sample_idx)
+    cnt = ch["cnt"]
+    return vcm_mega.eye_pass_plain(
+        scene, cam, key_e, ch["lbufs"], ch["grid"], cfg, ch["pxc"][:cnt],
+        ch["pyc"][:cnt], ch["gbase"], flavor=flavor, mr=ch["mr"],
+        eta_vcm=ch["eta"], merge_norm=ch["norm"])
+
+
+def compare_mega(scene, cam, px, py, cfg, flavor: str, sample_idx: int,
+                 what: str, width: int = 0, chunk_pixels: int = 0) -> dict:
+    """K14 (mega_eye) against its plain version on every chunk of a sample,
+    on the same inputs (mega_inputs: the kernels' light walk and grid):
+    rays and dropped photons equal, >= 99.9% of pixels within rtol 1e-3
+    (the share bit-equal printed). cfg: a VCMConfig (BDPT's via
+    bdpt_mega.as_machine_cfg). Returns the error, the chunks' inputs and
+    the plain version's CUDA-event milliseconds summed over the chunks."""
+    import torch
+    from cudapathtracer_tpu_torch.models import vcm_mega
+    p_total, dev = px.shape[0], px.device
+    chunks = vcm_mega.mega_chunks(p_total, chunk_pixels, width)
+    inputs = mega_inputs(scene, px, py, cfg, flavor, sample_idx, chunks)
+    outk = torch.zeros((p_total, 3), device=dev)
+    outp = torch.zeros((p_total, 3), device=dev)
+    rk = rp = dk = dp = 0
+    plain_ms = 0.0
+    for ch in inputs:
+        rays = torch.zeros(ch["pxc"].shape[0], dtype=torch.int32, device=dev)
+        drop, _ = mega_eye_kernel(scene, cam, cfg, flavor, sample_idx, ch,
+                                  outk, rays)
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        li, r, d = mega_eye_plain(scene, cam, cfg, flavor, sample_idx, ch)
+        ev[1].record()
+        torch.cuda.synchronize()
+        plain_ms += ev[0].elapsed_time(ev[1])
+        outp[ch["gbase"]:ch["gbase"] + ch["cnt"]] = li
+        rk, rp = rk + int(rays.sum()), rp + r
+        dk, dp = dk + int(drop.sum()), dp + d
+    same = (outk.view(torch.int32) == outp.view(torch.int32)).all(dim=1)
+    say("K14", f"{what}: {chunks.n_chunks} chunk(s) of {chunks.c_pix} "
+        f"({chunks.n_chunks * chunks.c_pix - p_total} pad), bit-equal pixels "
+        f"{same.float().mean().item():.6f}, dropped kernel {dk} plain {dp}")
+    check(rk == rp, f"K14 {what}: rays kernel {rk} vs plain {rp}")
+    check(dk == dp, f"K14 {what}: dropped kernel {dk} vs plain {dp}")
+    err = compare_image((outk, rk), (outp, rp), what, "K14", 0.999)
+    return dict(err=err, inputs=inputs, plain_ms=plain_ms, chunks=chunks,
+                same=same.float().mean().item())
+
+
+def time_mega(scene, cam, cfg, flavor: str, sample_idx: int, inputs):
+    """K14 over every chunk's inputs (mega_inputs): (CUDA-event ms of one
+    sample's eye pass, summed over the chunks; BVH8 rows its rays
+    visited)."""
+    import torch
+    p_total = sum(ch["cnt"] for ch in inputs)
+    dev = inputs[0]["pxc"].device
+    out = torch.zeros((p_total, 3), device=dev)
+    ms, rows = 0.0, 0
+    for ch in inputs:
+        rays = torch.zeros(ch["pxc"].shape[0], dtype=torch.int32, device=dev)
+        _, r = mega_eye_kernel(scene, cam, cfg, flavor, sample_idx, ch, out,
+                               rays, with_rows=True)
+        rows += int(r.sum())
+        ms += cuda_ms(lambda: mega_eye_kernel(scene, cam, cfg, flavor,
+                                              sample_idx, ch, out, rays), 2)
+    return ms, rows
+
+
+def render_path(cfg, tag: str, card: str, want: dict,
+                min_lit: float = 0.9) -> tuple:
     """One main path through Renderer(device="cuda") with the launch
     counters zeroed just before its render: prints the time to Renderer
     ready, rays, the render phase, Mrays/s (per second of the render phase,
     as RenderMetrics counts it; the wall time also holds the final image's
     host tonemap), peak memory, launches per sample and the merge-cap
-    dropped photons; checks a finite, non-negative, > 90% non-black image
-    of the configured shape and the launch counts in `want`; saves the BMP
-    under chiprun_out/. Returns (the Renderer, its launches)."""
+    dropped photons; checks a finite, non-negative image of the configured
+    shape, more than min_lit of it non-black, and the launch counts in
+    `want`; saves the BMP under OUT_DIR. Returns (the Renderer, its
+    launches)."""
     import torch
     from cudapathtracer_tpu_torch import kernels
     from cudapathtracer_tpu_torch.driver import Renderer
@@ -760,7 +1036,8 @@ def render_path(cfg, tag: str, card: str, want: dict) -> tuple:
     check(fb.shape == (c.height, c.width, 3), f"{tag}: framebuffer shape "
           f"{fb.shape}")
     check(bad == 0, f"{tag}: {bad} NaN/Inf/negative pixels")
-    check(nonblack > 0.9, f"{tag}: only {nonblack:.3f} of pixels non-black")
+    check(nonblack > min_lit, f"{tag}: only {nonblack:.3f} of pixels "
+          "non-black")
     check(all(launches[k] == v for k, v in want.items()),
           f"{tag}: launches {launches}, expected {want}")
     r.finish().save_bmp(os.path.join(OUT_DIR, f"{c.name}.bmp"))
@@ -780,8 +1057,10 @@ def main() -> int:
         return 2
     sys.path.insert(0, ROOT)
     from cudapathtracer_tpu_torch import kernels
-    from cudapathtracer_tpu_torch.models import bdpt, paths, unidirectional
-    from cudapathtracer_tpu_torch.models import unidirectional_mega, vcm
+    from cudapathtracer_tpu_torch.models import (bdpt, bdpt_mega, naive,
+                                                 paths, unidirectional,
+                                                 unidirectional_mega, vcm,
+                                                 vcm_mega)
     from cudapathtracer_tpu_torch.ops import hashgrid, traverse8
     from cudapathtracer_tpu_torch.scene import builtin
     from cudapathtracer_tpu_torch.scene.camera import Camera
@@ -812,7 +1091,8 @@ def main() -> int:
     for kname in ("uni_mega_kernel", "bdpt_walk_kernel", "bdpt_splat_kernel",
                   "bdpt_connect_kernel", "packing_kernel",
                   "photon_pack_kernel", "photon_table_kernel",
-                  "vcm_eye_kernel"):
+                  "vcm_eye_kernel", "slots_kernel", "rgb9e5_kernel",
+                  "mega_eye_kernel"):
         mk = ptxas_of(ptxas_log, kname)
         say("build", f"{kname}: {mk['registers']} registers, "
             f"{mk['stack_bytes']} bytes stack frame, "
@@ -1456,6 +1736,149 @@ def main() -> int:
             f"mean ratio {float(img.mean() / golden.mean()):.6f}")
         check(err < 1e-3, f"{gname} golden: rmse {err:.3g}")
 
+    # --- 20. K10's RGB9E5 mode, bit-equal to the plain codec (the mega
+    # engines' retirement, inside uni_mega.cu's mega schedule and K14)
+    rc = rgb9e5_inputs(n).to(dev)
+    compare_rgb9e5(kernels.rgb9e5_roundtrip(rc), rc, f"{n} colours")
+    stats["rgb9e5"].update(
+        bound=bound_ms(n * (12 + 4 + 12), n * OPS_PER_RGB9E5),
+        max_abs_err=0.0,
+        ms=cuda_ms(lambda: kernels.rgb9e5_roundtrip(rc), 20),
+        plain_ms=cuda_ms(lambda: packing.unpack_rgb9e5(
+            packing.pack_rgb9e5(rc)), 5))
+    say("K10", f"RGB9E5: {n} colours (zeros, negatives, subnormals, values "
+        "above 65408 and infinities, every power of two and rounding edge "
+        "of the range) packed and decoded bit-equal; kernel "
+        f"{stats['rgb9e5']['ms']:.4f} ms, plain "
+        f"{stats['rgb9e5']['plain_ms']:.4f} ms")
+    del rc
+
+    # --- 21. K14, the mega eye pass, against its plain version on every
+    # chunk of the 1080p sample (two chunks of 1,036,800 pixels) in the VCM,
+    # SPPM and BDPT flavours, on the kernels' light walks and grids; then
+    # K9's materialised forms on chunk 0's grid and first-bounce hit points
+    # in both modes; then VCM on configs/vcm_caustics.rendertron as shipped
+    # (512x512: one chunk of 272,160 with 10,016 pad paths)
+    t0 = time.perf_counter()
+
+    def mega_cfg(c, integ):
+        c = dataclasses.replace(c, integrator=integ, engine="mega")
+        c = c.normalized()
+        if integ == "BIDIRECTIONAL":
+            return bdpt_mega.as_machine_cfg(bdpt.BDPTConfig.from_config(c))
+        return vcm.VCMConfig.from_config(c)
+    mres, err14 = {}, 0.0
+    for integ in ("VCM", "SPPM", "BIDIRECTIONAL"):
+        flavor = "bdpt" if integ == "BIDIRECTIONAL" else "vcm"
+        mres[integ] = compare_mega(scene, cam, px, py, mega_cfg(cfg0, integ),
+                                   flavor, 0, f"{integ} {WIDTH}x{HEIGHT}")
+        check(mres[integ]["chunks"].n_chunks == 2, "the 1080p mega sample is "
+              "expected in two chunks")
+        err14 = max(err14, mres[integ]["err"])
+    vm_cfg, vin = mega_cfg(cfg0, "VCM"), mres["VCM"]["inputs"]
+    mega_ms, mega_rows = time_mega(scene, cam, vm_cfg, "vcm", 0, vin)
+    tbytes = sum(t.numel() * 4 for t in (scene.bvh8_table, scene.tri_f32,
+                                          scene.light_f32, scene.textures,
+                                          scene.mat_f32))
+    gbytes = sum(32 * ch["grid"].rows.shape[0] + 16 * int(
+        (ch["grid"].cell_se[:, 1] > ch["grid"].cell_se[:, 0]).sum())
+        for ch in vin)
+    # inputs read once: the tables, each chunk's light buffers and grid
+    # (the buckets a photon lies in), the pixels; outputs the radiance,
+    # rays and dropped counts
+    stats["mega_eye"].update(
+        bound=bound_ms(tbytes + vm_cfg.light_depth * n * VERTEX_BYTES
+                       + gbytes + n * (8 + 12 + 4 + 4),
+                       mega_rows * OPS_PER_ROW + n * OPS_PER_CAMERA_RAY),
+        ms=mega_ms, plain_ms=mres["VCM"]["plain_ms"])
+    say("K14", f"VCM {WIDTH}x{HEIGHT}, one sample's eye pass (2 chunks): "
+        f"kernel {mega_ms:.3f} ms, plain {mres['VCM']['plain_ms']:.3f} ms; "
+        f"{mega_rows} BVH8 rows; bound {stats['mega_eye']['bound'][0]:.4f} "
+        f"ms ({stats['mega_eye']['bound'][1]})")
+
+    ch0 = vin[0]
+    q, hit = first_hits(scene, cam, ch0["pxc"], ch0["pyc"], 0)
+    cap, nq = vm_cfg.max_per_cell, q.shape[0]
+    old = os.environ.get("TPT_GRID_ONE_BRICK")
+    try:
+        for mode in ("1", "0"):
+            os.environ["TPT_GRID_ONE_BRICK"] = mode
+            found = compare_slots(ch0["grid"], q, hit, ch0["mr"], cap,
+                                  f"{WIDTH}x{HEIGHT} chunk 0 cap {cap} "
+                                  + ("one-brick" if mode == "1"
+                                     else "standard"))
+            check(found > 0, "K9: no slot in range on the 1080p grid")
+    finally:
+        if old is None:
+            os.environ.pop("TPT_GRID_ONE_BRICK")
+        else:
+            os.environ["TPT_GRID_ONE_BRICK"] = old
+    sw = hashgrid.merge_switches(cap)
+    m_slots = 64 if sw["one_brick"] else 8 * cap
+    slot_args = (ch0["grid"], q, ch0["mr"], cap)
+    stats["neighbor_slots"].update(
+        bound=bound_ms(nq * (12 + 1 + 8 * 8) + 32 * ch0["grid"].rows.shape[0]
+                       + m_slots * nq * (32 + 1 + 4) + nq * 4,
+                       nq * (OPS_PER_QUERY + m_slots * OPS_PER_SLOT)),
+        max_abs_err=0.0,
+        ms=cuda_ms(lambda: kernels.neighbor_slots(
+            *slot_args, mode="slots", active=hit, **sw), 5),
+        plain_ms=cuda_ms(lambda: hashgrid.neighbor_slots(
+            *slot_args, active=hit), 2))
+    say("K9", f"neighbor_slots ({m_slots} slots x {nq} queries): kernel "
+        f"{stats['neighbor_slots']['ms']:.3f} ms, plain "
+        f"{stats['neighbor_slots']['plain_ms']:.3f} ms")
+    del mres, vin, ch0, q, hit, slot_args
+
+    cmega = mega_cfg(load_config(os.path.join(
+        ROOT, "configs", "vcm_caustics.rendertron")), "VCM")
+    ccam = Camera.pinhole((0.0, 0.0, 1.0), 512, 512, 0.0, 0.0, 0.0, 60.0)
+    cx, cy = (t.reshape(-1).contiguous() for t in reversed(torch.meshgrid(
+        torch.arange(512, dtype=torch.int32, device=dev),
+        torch.arange(512, dtype=torch.int32, device=dev), indexing="ij")))
+    for s in (0, 1):
+        cres = compare_mega(sph, ccam, cx, cy, cmega, "vcm", s,
+                            f"caustics 512x512 sample {s}")
+        check(cres["chunks"].c_pix * cres["chunks"].n_chunks > 512 * 512,
+              "the 512x512 mega sample is expected to carry pad paths")
+        err14 = max(err14, cres["err"])
+        del cres
+    stats["mega_eye"]["max_abs_err"] = err14
+    say("K14", "the mega eye pass held to its plain version in "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    # --- 22. the naive integrator (uni_mega.cu's naive schedule) against
+    # its plain version at 1080p on the bunny scene, depth 8
+    kn = naive.render_kernel(scene, cam, rng.base_key(), 0, px, py,
+                             max_depth=DEPTH)
+    pn = naive.render_plain(scene, cam, rng.base_key(), 0, px, py,
+                            max_depth=DEPTH)
+    errn = compare_render(kn, pn, f"{WIDTH}x{HEIGHT} bunny, 1 spp, naive")
+    _, _, rows_n = kernels.render_unidirectional(
+        scene, px, py, cam.kernel_params(),
+        unidirectional.kernel_keys(rng.base_key(), 0), max_depth=DEPTH,
+        use_mis=False, sample_environment=False, schedule="naive",
+        air_priority=scene.air_priority, with_rows=True)
+    tbytes5 = sum(t.numel() * 4 for t in (scene.bvh8_table, scene.tri_f32,
+                                           scene.light_f32, scene.textures,
+                                           scene.medium_f32))
+    stats["naive"].update(
+        bound=bound_ms(tbytes5 + n * (8 + 12 + 4),
+                       int(rows_n.sum()) * OPS_PER_ROW
+                       + n * OPS_PER_CAMERA_RAY),
+        max_abs_err=errn,
+        ms=cuda_ms(lambda: naive.render_kernel(
+            scene, cam, rng.base_key(), 0, px, py, max_depth=DEPTH), 5),
+        plain_ms=cuda_ms(lambda: naive.render_plain(
+            scene, cam, rng.base_key(), 0, px, py, max_depth=DEPTH), 1,
+            warmup=0))
+    say("naive", f"{WIDTH}x{HEIGHT} sample: kernel "
+        f"{stats['naive']['ms']:.3f} ms ({kn[1] / stats['naive']['ms'] / 1e3:.3f}"
+        f" Mrays/s), plain {stats['naive']['plain_ms']:.3f} ms; "
+        f"{int(rows_n.sum())} BVH8 rows; bound "
+        f"{stats['naive']['bound'][0]:.4f} ms ({stats['naive']['bound'][1]})")
+    del kn, pn, rows_n
+
     del scene, sph, gscene
 
     # --- 9. the main path through the Renderer: mega (the config's
@@ -1547,6 +1970,137 @@ def main() -> int:
                 main_launches[k] = launches[k]
             vr = r
         del r
+
+    # --- 23. the default-engine main paths through the Renderer: the same
+    # config with Integrator VCM, SPPM and BIDIRECTIONAL and no Engine line
+    # (1080p bunny, 4 spp, two chunks a sample), configs/vcm_caustics.
+    # rendertron as shipped (one chunk with pads), then NAIVE_UNIDIRECTIONAL
+    # at depth 8 (one launch a sample; its image is sparse: only paths that
+    # reach the light by BSDF sampling are lit)
+    none = {k: 0 for k in ("vcm_eye", "bdpt_connect", "render_unidirectional",
+                           "naive", "vcm_splat", "bdpt_splat", "photon_pack",
+                           "photon_table")}
+    for tag, cfg, integ, chunks in (
+            ("vcm mega", main_cfg(integrator="VCM", name="smoke_vcm_mega"),
+             "VCM", 2),
+            ("sppm mega", main_cfg(integrator="SPPM", name="smoke_sppm_mega"),
+             "SPPM", 2),
+            ("bdpt mega", main_cfg(integrator="BIDIRECTIONAL",
+                                   name="smoke_bdpt_mega"),
+             "BIDIRECTIONAL", 2),
+            ("caustics mega", dataclasses.replace(
+                caustics, sample_count=SPP, name="smoke_caustics_mega",
+                output_dir=OUT_DIR), "VCM", 1)):
+        check(cfg.engine == "mega", f"{tag}: expected the default engine")
+        want = dict(none, **{k: chunks * SPP for k in MEGA_KERNELS[integ]})
+        r, launches = render_path(cfg, tag, card, want)
+        if tag == "vcm mega":
+            # rgb9e5 and neighbor_slots are test entries: their device code
+            # runs inside K14 (and K5's mega schedule), so they launch 0
+            for k in ("mega_eye", "rgb9e5", "neighbor_slots"):
+                main_launches[k] = launches[k]
+            vmr = r
+        elif tag == "bdpt mega":
+            bmr = r
+        del r
+    r, launches = render_path(
+        main_cfg(integrator="NAIVE_UNIDIRECTIONAL", max_depth=DEPTH,
+                 name="smoke_naive"), "naive", card,
+        dict(none, naive=SPP, mega_eye=0, bdpt_walk=0), min_lit=0.05)
+    main_launches["naive"] = launches["naive"]
+    del r
+
+    # --- 24. one 1080p VCM-mega and one BDPT-mega sample's launches per
+    # chunk, each between two CUDA events
+    vc = vcm.VCMConfig.from_config(vmr.cfg)
+    ch = vcm_mega.mega_chunks(vmr.px.shape[0])
+    key_l, key_e = vcm.sample_keys(vmr.key, SPP)
+    lkeys, ekeys = paths.walk_keys(key_l, "light"), vcm_mega.eye_keys(key_e)
+    salt = hashgrid.photon_salt(SPP)
+    sw = hashgrid.merge_switches(vc.max_per_cell)
+    names = ("light walk", "vcm_splat", "photon_pack", "torch.sort",
+             "photon_table", "mega_eye")
+    stage_ms = {}
+    for rep in range(2):   # the first pass warms up
+        stage_ms = {k: 0.0 for k in names}
+        out_t = torch.zeros((vmr.px.shape[0], 3), device=dev)
+        fb_t = torch.zeros_like(out_t)
+        for ci in range(ch.n_chunks):
+            pxc, pyc, cnt = vcm_mega.chunk_pixels_of(vmr.px, vmr.py, ci,
+                                                     ch.c_pix)
+            mr, eta, norm = vcm_mega.chunk_scalars(vmr.scene, vc, SPP, cnt)
+            rays_t = torch.zeros(ch.c_pix, dtype=torch.int32, device=dev)
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(7)]
+            ev[0].record()
+            lw = kernels.bdpt_walk(vmr.scene, pxc, pyc, lkeys, mode="light",
+                                   max_depth=vc.light_depth + 1, rays=rays_t,
+                                   eta_vcm=eta)
+            lb = vcm_mega.mask_pads(lw["bufs"], cnt)
+            ev[1].record()
+            kernels.vcm_splat(vmr.scene, vmr.camera, lb, fb_t, rays_t, vc,
+                              eta)
+            ev[2].record()
+            tsize = hashgrid.photon_table_size(vc.light_depth * ch.c_pix)
+            rows, h, key, cse = kernels.photon_pack(
+                lb, vmr.scene.scene_min, 2.0 * mr, tsize, salt)
+            ev[3].record()
+            order = torch.sort(key, stable=True).indices
+            ev[4].record()
+            srows = kernels.photon_table(rows, h, order, cse)
+            ev[5].record()
+            kernels.mega_eye(vmr.scene, vmr.camera, ekeys, lb,
+                             hashgrid.PhotonGrid(srows, cse,
+                                                 vmr.scene.scene_min,
+                                                 2.0 * mr, tsize),
+                             out_t, rays_t, vc, px=pxc, py=pyc, cnt=cnt,
+                             gbase=ci * ch.c_pix, flavor="vcm",
+                             merge_radius=mr, eta_vcm=eta, merge_norm=norm,
+                             **sw)
+            ev[6].record()
+            torch.cuda.synchronize()
+            for i, k in enumerate(names):
+                stage_ms[k] += ev[i].elapsed_time(ev[i + 1])
+            del lw, lb, rows, h, key, cse, order, srows
+    say("vcm mega", f"one 1080p sample ({ch.n_chunks} chunks), CUDA events "
+        "per launch summed over the chunks: " + ", ".join(
+            f"{k} {v:.3f} ms" for k, v in stage_ms.items())
+        + f"; sum {sum(stage_ms.values()):.3f} ms ({card})")
+    del vmr
+    bc = bdpt.BDPTConfig.from_config(bmr.cfg)
+    key_l, key_e = vcm.sample_keys(bmr.key, SPP)
+    lkeys, ekeys = paths.walk_keys(key_l, "light"), vcm_mega.eye_keys(key_e)
+    names = ("light walk", "bdpt_splat", "mega_eye")
+    for rep in range(2):   # the first pass warms up
+        stage_ms = {k: 0.0 for k in names}
+        out_t = torch.zeros((bmr.px.shape[0], 3), device=dev)
+        fb_t = torch.zeros_like(out_t)
+        for ci in range(ch.n_chunks):
+            pxc, pyc, cnt = vcm_mega.chunk_pixels_of(bmr.px, bmr.py, ci,
+                                                     ch.c_pix)
+            rays_t = torch.zeros(ch.c_pix, dtype=torch.int32, device=dev)
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+            ev[0].record()
+            lw = kernels.bdpt_walk(bmr.scene, pxc, pyc, lkeys, mode="light",
+                                   max_depth=bc.light_depth, rays=rays_t)
+            lb = vcm_mega.mask_pads(lw["bufs"], cnt)
+            ev[1].record()
+            kernels.bdpt_splat(bmr.scene, bmr.camera, lb, lw["v0"], fb_t,
+                               rays_t, bc, n_live=cnt)
+            ev[2].record()
+            kernels.mega_eye(bmr.scene, bmr.camera, ekeys, lb, None, out_t,
+                             rays_t, bdpt_mega.as_machine_cfg(bc), px=pxc,
+                             py=pyc, cnt=cnt, gbase=ci * ch.c_pix,
+                             flavor="bdpt")
+            ev[3].record()
+            torch.cuda.synchronize()
+            for i, k in enumerate(names):
+                stage_ms[k] += ev[i].elapsed_time(ev[i + 1])
+            del lw, lb
+    say("bdpt mega", f"one 1080p sample ({ch.n_chunks} chunks), CUDA events "
+        "per launch summed over the chunks: " + ", ".join(
+            f"{k} {v:.3f} ms" for k, v in stage_ms.items())
+        + f"; sum {sum(stage_ms.values()):.3f} ms ({card})")
+    del bmr
 
     # --- 19. one VCM sample's launches, each between two CUDA events
     vc = vcm.VCMConfig.from_config(vr.cfg)

@@ -11,9 +11,9 @@ The hot loops run as hand-written CUDA kernels (`kernels/csrc/*.cu`); each
 has a plain PyTorch version beside it in the Python module that calls it.
 A CPU tensor takes the plain version, a CUDA tensor the kernel.
 
-Covered so far: the unidirectional path tracer (NEE + power-2 MIS) with
-both engines, the default mega and classic, each one launch per sample of
-the per-path megakernel on the card, driven through `driver.Renderer` and
+Covered: every integrator of the reference (UNIDIRECTIONAL, BIDIRECTIONAL,
+VCM, SPPM and NAIVE_UNIDIRECTIONAL) with both engines, the default mega
+and classic, driven through `driver.Renderer` and
 `python -m cudapathtracer_tpu_torch`.
 """
 

@@ -1,17 +1,15 @@
 """Render driver: config -> scene -> progressive render -> image files.
 
-Counterpart of cudapathtracer_tpu/driver.py for the configurations this
-package covers: integrator UNIDIRECTIONAL with either engine, the default
-`Engine: mega` (models/unidirectional_mega.py) or `Engine: classic`
-(models/unidirectional.py), and integrators BIDIRECTIONAL (models/bdpt.py,
-its settings from BDPTConfig.from_config), VCM and SPPM (models/vcm.py,
-VCMConfig.from_config) with `Engine: classic`. The two unidirectional
-engines are one estimator with different draw schedules, so different
-noise realisations with different goldens: one is never rendered when the
-other was asked for. BIDIRECTIONAL, VCM and SPPM with the default mega
-engine (the JAX package's bdpt_mega and vcm_mega) and every other
-integrator raise NotImplementedError naming their ROADMAP item. VCM and
-SPPM count the photons their merge cap left out (metrics.merge_dropped).
+Counterpart of cudapathtracer_tpu/driver.py. Every integrator renders
+with either engine, the default `Engine: mega` or `Engine: classic`:
+UNIDIRECTIONAL (models/unidirectional_mega.py, models/unidirectional.py),
+BIDIRECTIONAL (models/bdpt_mega.py, models/bdpt.py; BDPTConfig.from_config),
+VCM and SPPM (models/vcm_mega.py, models/vcm.py; VCMConfig.from_config) and
+NAIVE_UNIDIRECTIONAL (models/naive.py, one engine). An engine's draw
+schedule is its own, so the two engines give different noise realisations
+with different goldens: one is never rendered when the other was asked
+for. Any other engine raises NotImplementedError. VCM and SPPM count the
+photons their merge cap left out (metrics.merge_dropped).
 
 The Renderer runs on an explicit device. "cuda" needs a CUDA build of
 PyTorch and a card and raises otherwise; the CPU is used only when asked
@@ -29,9 +27,12 @@ import numpy as np
 import torch
 
 from cudapathtracer_tpu_torch.models import bdpt as bdpt_mod
+from cudapathtracer_tpu_torch.models import bdpt_mega
+from cudapathtracer_tpu_torch.models import naive as naive_mod
 from cudapathtracer_tpu_torch.models import unidirectional as uni_mod
 from cudapathtracer_tpu_torch.models import unidirectional_mega as mega_mod
 from cudapathtracer_tpu_torch.models import vcm as vcm_mod
+from cudapathtracer_tpu_torch.models import vcm_mega
 from cudapathtracer_tpu_torch.ops import hashgrid
 from cudapathtracer_tpu_torch.scene import builtin
 from cudapathtracer_tpu_torch.scene.camera import Camera
@@ -52,19 +53,21 @@ BUILTIN_SCENES = {
     "builtin:cornell_bunny": builtin.cornell_with_bunny,
 }
 
-# UNIDIRECTIONAL's engines -> their render_sample
-_ENGINES = {"mega": mega_mod.render_sample, "classic": uni_mod.render_sample}
-
-# what is not ported yet, by ROADMAP item
-_NOT_PORTED = {
-    "NAIVE_UNIDIRECTIONAL": "M7 (naive)",
-    "BIDIRECTIONAL": "M12 (bdpt_mega, kernel K14; 'Engine: classic' is "
-                     "ported)",
-    "VCM": "M12 (vcm_mega, kernel K14; 'Engine: classic' is ported)",
-    "SPPM": "M12 (vcm_mega, kernel K14; 'Engine: classic' is ported)",
+# (integrator family, engine) -> render_sample
+_RENDER = {
+    ("UNIDIRECTIONAL", "mega"): mega_mod.render_sample,
+    ("UNIDIRECTIONAL", "classic"): uni_mod.render_sample,
+    ("BIDIRECTIONAL", "mega"): bdpt_mega.render_sample,
+    ("BIDIRECTIONAL", "classic"): bdpt_mod.render_sample,
+    ("VCM", "mega"): vcm_mega.render_sample,
+    ("VCM", "classic"): vcm_mod.render_sample,
+    ("NAIVE_UNIDIRECTIONAL", "mega"): naive_mod.render_sample,
+    ("NAIVE_UNIDIRECTIONAL", "classic"): naive_mod.render_sample,
 }
-# integrators whose 'Engine: classic' is ported, and only it
-_CLASSIC_ONLY = ("BIDIRECTIONAL", "VCM", "SPPM")
+
+
+def _family(integrator: str) -> str:
+    return "VCM" if integrator == "SPPM" else integrator
 
 
 def resolve_device(device) -> torch.device:
@@ -80,18 +83,10 @@ def resolve_device(device) -> torch.device:
 
 def check_supported(cfg: RenderConfig) -> None:
     """Raise NotImplementedError unless the configuration is ported."""
-    integ, engine = cfg.integrator, cfg.engine
-    if integ == "UNIDIRECTIONAL" and engine in _ENGINES:
-        return
-    if integ in _CLASSIC_ONLY and engine == "classic":
-        return
-    item = _NOT_PORTED.get(integ) or f"engine {engine!r}"
-    raise NotImplementedError(
-        f"integrator {integ} with engine {engine!r} is not ported to "
-        f"cudapathtracer_tpu_torch yet (ROADMAP {item}); the port covers "
-        "UNIDIRECTIONAL with 'Engine: mega' (the default) or "
-        "'Engine: classic', and BIDIRECTIONAL, VCM and SPPM with "
-        "'Engine: classic'")
+    if (_family(cfg.integrator), cfg.engine) not in _RENDER:
+        raise NotImplementedError(
+            f"integrator {cfg.integrator} with engine {cfg.engine!r}: the "
+            "engines are 'mega' (the default) and 'classic'")
 
 
 def mesh_from_config(cfg: RenderConfig, render_number: int = 0) -> MeshData:
@@ -188,18 +183,15 @@ class Renderer:
         """One sample of every pixel -> (radiance [P,3], rays), and for VCM
         and SPPM also the photons the merge cap left out."""
         cfg = self.cfg
+        fn = _RENDER[_family(cfg.integrator), cfg.engine]
+        args = (self.scene, self.camera, self.key, sample_idx, self.px,
+                self.py)
         if cfg.integrator == "BIDIRECTIONAL":
-            return bdpt_mod.render_sample(
-                self.scene, self.camera, self.key, sample_idx, self.px,
-                self.py, cfg=bdpt_mod.BDPTConfig.from_config(cfg))
+            return fn(*args, cfg=bdpt_mod.BDPTConfig.from_config(cfg))
         if cfg.integrator in ("VCM", "SPPM"):
-            return vcm_mod.render_sample(
-                self.scene, self.camera, self.key, sample_idx, self.px,
-                self.py, cfg=vcm_mod.VCMConfig.from_config(cfg))
-        return _ENGINES[cfg.engine](
-            self.scene, self.camera, self.key, sample_idx, self.px, self.py,
-            max_depth=max(cfg.max_depth, 1),
-            sample_environment=cfg.sample_environment)
+            return fn(*args, cfg=vcm_mod.VCMConfig.from_config(cfg))
+        return fn(*args, max_depth=max(cfg.max_depth, 1),
+                  sample_environment=cfg.sample_environment)
 
     def render(self, num_samples: int | None = None,
                checkpoint_path: str | None = None, resume: bool = True,

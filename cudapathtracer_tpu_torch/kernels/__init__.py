@@ -6,8 +6,10 @@ traverse8.cuh, K7 camera.cuh, K2 shade.cuh, K3 bsdf.cuh, K4 nee.cuh, K6
 threefry.cuh, K10 packing.cuh, K12's MIS step mis.cuh, the BDPT bodies
 bdpt.cuh; the per-path megakernel K5, uni_mega.cu, and the BDPT kernels
 K11 bdpt_splat.cu, K12 bdpt_walk.cu and K13 bdpt_connect.cu call them;
-the photon grid's hashgrid.cuh (K8-K10) serves K8 photon_grid.cu and the
-VCM eye kernel vcm_eye.cu, whose body is vcm.cuh).
+the photon grid's hashgrid.cuh (K8-K10) serves K8 photon_grid.cu, the
+VCM eye kernel vcm_eye.cu, whose body is vcm.cuh, K9's test entry
+neighbor_slots.cu, and the mega engines' eye kernel K14 mega_eye.cu,
+whose body is mega.cuh).
 They are compiled on first use with nvcc, one process per source, all
 started together, and linked into one shared library with a plain C
 interface, build/torch_ext/libtpt_torch_kernels.so, called through ctypes
@@ -44,10 +46,10 @@ import torch
 CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 SOURCES = ("rng.cu", "camera.cu", "traverse8.cu", "uni_mega.cu", "packing.cu",
            "bdpt_walk.cu", "bdpt_splat.cu", "bdpt_connect.cu",
-           "photon_grid.cu", "vcm_eye.cu")
+           "photon_grid.cu", "vcm_eye.cu", "neighbor_slots.cu", "mega_eye.cu")
 HEADERS = ("threefry.cuh", "camera.cuh", "traverse8.cuh", "shade.cuh",
            "bsdf.cuh", "nee.cuh", "packing.cuh", "mis.cuh", "bdpt.cuh",
-           "hashgrid.cuh", "vcm.cuh")
+           "hashgrid.cuh", "vcm.cuh", "mega.cuh")
 _REPO_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 BUILD_DIR = os.path.join(_REPO_ROOT, "build", "torch_ext")
@@ -56,14 +58,17 @@ STACK_D = 16      # traverse8.cuh's default stack depth
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-fmad=false", "-Xcompiler", "-fPIC")
 SHADE_EVAL_COLS = 38   # uni_mega.cu kShadeEvalCols
-SCHEDULES = {"classic": 0, "mega": 1}
+SCHEDULES = {"classic": 0, "mega": 1, "naive": 2}
+MEGA_FLAVORS = {"vcm": 0, "bdpt": 1}
+SLOT_MODES = {"slots": 0, "compact": 1, "gather": 2}
 
 # kernel name -> launches since the last reset_launches()
 launches = {"closest_hit8": 0, "shadow_factor8": 0, "uniform_id": 0,
             "generate_rays": 0, "render_unidirectional": 0, "shade_eval": 0,
             "packing_roundtrip": 0, "bdpt_walk": 0, "bdpt_splat": 0,
             "bdpt_connect": 0, "vcm_splat": 0, "photon_pack": 0,
-            "photon_table": 0, "vcm_eye": 0}
+            "photon_table": 0, "vcm_eye": 0, "rgb9e5": 0,
+            "neighbor_slots": 0, "mega_eye": 0, "naive": 0}
 
 _lock = threading.Lock()
 _libs = {}        # stack depth -> loaded library
@@ -180,8 +185,13 @@ def _load(stack_d: int = STACK_D):
         lib.tpt_photon_pack.argtypes = [p, p, p, u32, p]
         lib.tpt_photon_table.restype = ctypes.c_int
         lib.tpt_photon_table.argtypes = [p, p, p]
-        lib.tpt_vcm_eye.restype = ctypes.c_int
-        lib.tpt_vcm_eye.argtypes = [p, p, p, p, p]
+        for name in ("tpt_vcm_eye", "tpt_mega_eye"):
+            getattr(lib, name).restype = ctypes.c_int
+            getattr(lib, name).argtypes = [p, p, p, p, p]
+        lib.tpt_rgb9e5_roundtrip.restype = ctypes.c_int
+        lib.tpt_rgb9e5_roundtrip.argtypes = [p, i64, p, p, p]
+        lib.tpt_neighbor_slots.restype = ctypes.c_int
+        lib.tpt_neighbor_slots.argtypes = [p, p, p, p]
         _libs[stack_d] = lib
         return lib
 
@@ -363,9 +373,11 @@ def render_unidirectional(scene, px: torch.Tensor, py: torch.Tensor,
     """K5 (uni_mega.cu): one sample of the unidirectional path tracer for
     the pixels (px, py) [P] int32, one thread per path. cam_params: the 19
     camera floats; keys: 28 uint32 words (8 camera draw-key words, the
-    sample key pair, the 9 mega draw-key pairs). schedule: "classic" or
-    "mega". -> (radiance [P,3] f32, rays [P] i32), and with with_rows each
-    path's count of BVH8 rows visited [P] i32."""
+    sample key pair, the 9 mega draw-key pairs). schedule: "classic",
+    "mega" (each path retired through RGB9E5) or "naive" (the naive
+    integrator, max_depth bounces; counted under "naive"). -> (radiance
+    [P,3] f32, rays [P] i32), and with with_rows each path's count of BVH8
+    rows visited [P] i32."""
     dev = _cuda_device(px)
     n = px.shape[0]
     _check(px, "px", torch.int32, (n,), dev)
@@ -384,7 +396,8 @@ def render_unidirectional(scene, px: torch.Tensor, py: torch.Tensor,
     ckeys = (ctypes.c_uint32 * 28)(*(k & 0xFFFFFFFF for k in keys))
     lib = _load()
     with torch.cuda.device(dev):
-        _launch("render_unidirectional", lib, lib.tpt_render_unidirectional,
+        _launch("naive" if schedule == "naive" else "render_unidirectional",
+                lib, lib.tpt_render_unidirectional,
                 tbl.data_ptr(), b["tri_f32"].data_ptr(),
                 b["tri_f32"].shape[1], b["light_f32"].data_ptr(),
                 scene.num_lights, b["textures"].data_ptr(),
@@ -566,12 +579,13 @@ def bdpt_walk(scene, px, py, keys: list, *, mode: str, max_depth: int,
 
 
 def bdpt_splat(scene, camera, lbufs, lv0: dict, fb, rays, cfg, *,
-               with_rows: bool = False):
+               n_live: int | None = None, with_rows: bool = False):
     """K11 (bdpt_splat.cu): the t=1 light-trace splat of light paths [N]
     (lbufs [L-1, N], the endpoint lv0) added into the raster-indexed frame
     buffer fb [P,3] f32 in place with atomics; rays [N] i32 += the shadow
-    rays to the lens. cfg: a BDPTConfig (do_mis, paint_weight). -> rows
-    [N] i32 (BVH8 rows visited) with with_rows, else None."""
+    rays to the lens. cfg: a BDPTConfig (do_mis, paint_weight); n_live:
+    only paths i < n_live splat (a mega chunk's pads do not). -> rows [N]
+    i32 (BVH8 rows visited) with with_rows, else None."""
     n = lv0["pt"].shape[0]
     dev = _cuda_device(fb)
     for k, dt, tail in (("pt", torch.float32, (3,)), ("n", torch.float32,
@@ -583,11 +597,11 @@ def bdpt_splat(scene, camera, lbufs, lv0: dict, fb, rays, cfg, *,
     return _splat("bdpt_splat", scene, camera, lbufs, n,
                   [lv0[k].data_ptr() for k in ("pt", "n", "beta", "pdf_fwd",
                                                "mat_id")],
-                  fb, rays, cfg, None, with_rows)
+                  fb, rays, cfg, None, with_rows, n_live)
 
 
 def _splat(name, scene, camera, lbufs, n, v0_ptrs, fb, rays, cfg, eta_vcm,
-           with_rows):
+           with_rows, n_live=None):
     """One launch of bdpt_splat.cu's entry, counted under name: the BDPT
     form with the endpoint's addresses, or the VCM form (eta_vcm given)."""
     dev = _cuda_device(fb)
@@ -606,7 +620,10 @@ def _splat(name, scene, camera, lbufs, n, v0_ptrs, fb, rays, cfg, eta_vcm,
             + _check_bufs(lbufs, "lbufs", depth, n, dev) + v0_ptrs
             + [fb.data_ptr(), rays.data_ptr(), _ptr(rows) or 0])
     iv = [n, sc["tri_f32"].shape[1], depth, camera.width, camera.height,
-          int(cfg.do_mis), int(cfg.paint_weight), int(eta_vcm is not None)]
+          int(cfg.do_mis), int(cfg.paint_weight), int(eta_vcm is not None),
+          n if n_live is None else n_live]
+    if not 0 <= iv[-1] <= n:
+        raise ValueError(f"n_live {iv[-1]} of {n} light paths")
     fv = camera.kernel_params() + [camera.plane_area(),
                                    0.0 if eta_vcm is None else float(eta_vcm)]
     args = (_i64s(ptrs), _i64s(iv), _f32s(fv))
@@ -798,3 +815,145 @@ def vcm_eye(scene, camera, keys: list, lbufs, grid, fb, rays, cfg, *, px,
         _launch("vcm_eye", lib, lib.tpt_vcm_eye,
                 *(ctypes.addressof(a) for a in args), _stream(dev))
     return out, dropped, rows
+
+
+# --- the mega engines (K14) and the materialised K9, RGB9E5 (K10) -----------
+
+def rgb9e5_roundtrip(c):
+    """K10's RGB9E5 (packing.cu's RGB9E5 mode) over a batch: c [N,3] f32
+    -> (packed [N] i32 (uint32 bits), the packed words decoded [N,3]
+    f32)."""
+    dev = _cuda_device(c)
+    n = c.shape[0]
+    _check(c, "c", torch.float32, (n, 3), dev)
+    packed = torch.empty(n, dtype=torch.int32, device=dev)
+    dec = torch.empty((n, 3), dtype=torch.float32, device=dev)
+    lib = _load()
+    with torch.cuda.device(dev):
+        _launch("rgb9e5", lib, lib.tpt_rgb9e5_roundtrip, c.data_ptr(), n,
+                packed.data_ptr(), dec.data_ptr(), _stream(dev))
+    return packed, dec
+
+
+def _grid_args(grid, dev):
+    """Check a hashgrid.PhotonGrid; -> (its two addresses, table size,
+    P8, scene_min + [cell_size])."""
+    _check(grid.rows, "grid.rows", torch.float32, grid.rows.shape, dev)
+    _check(grid.cell_se, "grid.cell_se", torch.int32,
+           (grid.table_size + 1, 2), dev)
+    p8 = grid.rows.shape[0]
+    if grid.rows.dim() != 2 or grid.rows.shape[1] != 8 or p8 % 8 or p8 < 16:
+        raise ValueError("grid.rows must be [P8, 8], P8 a multiple of 8")
+    return ([grid.rows.data_ptr(), grid.cell_se.data_ptr()], grid.table_size,
+            p8, [float(x) for x in grid.scene_min] + [float(grid.cell_size)])
+
+
+def _r2(merge_radius: float) -> float:
+    mr = torch.tensor(float(merge_radius), dtype=torch.float32)
+    return float(mr * mr)
+
+
+def neighbor_slots(grid, query, merge_radius: float, max_per_cell: int, *,
+                   mode: str, cap_q: int = 0, active=None, one_brick: bool,
+                   reweight: bool):
+    """K9's materialised forms (neighbor_slots.cu) for queries [N,3] f32
+    (active [N] bool or None): mode "slots" (M = 64 one-brick, else 8 x
+    cap), "compact" (M = cap_q) or "gather" (M = 8 x cap). -> (rows
+    [M,N,8] f32, ok [M,N] bool, wgt [M,N] f32 or None, dropped [N] i32 or
+    None), the tensors of ops/hashgrid.py's plain versions (gather: the
+    slots of gather_neighbors stacked)."""
+    dev = _cuda_device(query)
+    n = query.shape[0]
+    _check(query, "query", torch.float32, (n, 3), dev)
+    if active is not None:
+        _check(active, "active", torch.bool, (n,), dev)
+    if mode not in SLOT_MODES:
+        raise ValueError(f"mode {mode!r}: one of {sorted(SLOT_MODES)}")
+    if mode == "slots" and not 1 <= max_per_cell <= 8:
+        raise ValueError("slots mode needs 1 <= max_per_cell <= 8")
+    if mode == "compact" and cap_q < 1:
+        raise ValueError("compact mode needs cap_q >= 1")
+    gptrs, table, p8, geom = _grid_args(grid, dev)
+    m = {"slots": 64 if one_brick else 8 * max_per_cell, "compact": cap_q,
+         "gather": 8 * max_per_cell}[mode]
+    rows = torch.empty((m, n, 8), dtype=torch.float32, device=dev)
+    ok = torch.empty((m, n), dtype=torch.bool, device=dev)
+    gather = mode == "gather"
+    wgt = None if gather else torch.empty((m, n), dtype=torch.float32,
+                                          device=dev)
+    dropped = None if gather else torch.empty(n, dtype=torch.int32,
+                                              device=dev)
+    ptrs = gptrs + [query.data_ptr(), _ptr(active) or 0, rows.data_ptr(),
+                    ok.data_ptr(), _ptr(wgt) or 0, _ptr(dropped) or 0]
+    iv = [n, SLOT_MODES[mode], table, max_per_cell, cap_q, int(one_brick),
+          int(reweight), p8]
+    args = (_i64s(ptrs), _i64s(iv), _f32s(geom + [_r2(merge_radius)]))
+    lib = _load()
+    with torch.cuda.device(dev):
+        _launch("neighbor_slots", lib, lib.tpt_neighbor_slots,
+                *(ctypes.addressof(a) for a in args), _stream(dev))
+    return rows, ok, wgt, dropped
+
+
+def mega_eye(scene, camera, keys: list, lbufs, grid, out, rays, cfg, *, px,
+             py, cnt: int, gbase: int, flavor: str, merge_radius: float = 0.0,
+             eta_vcm: float = 0.0, merge_norm: float = 0.0,
+             one_brick: bool = False, reweight: bool = True,
+             with_rows: bool = False):
+    """K14 (mega_eye.cu): the mega eye pass of a chunk's first cnt pixels
+    (px, py [c_pix] i32, the chunk's pixels) paired with its light paths
+    (lbufs [L, c_pix]: every row is a connection candidate); lane l writes
+    its path's radiance, retired through RGB9E5, into out [P,3] f32 row
+    gbase + l (its index in the pixel list, which keys its draws) and adds
+    its rays into rays [c_pix] i32. keys: models/vcm_mega.eye_keys (22
+    words); flavor: "vcm" (VCM and SPPM) or "bdpt"; grid: a
+    hashgrid.PhotonGrid under VCM with do_merge, else None; cfg: a
+    VCMConfig; one_brick, reweight: the merge's estimator switches.
+    -> (the merge cap's dropped photons [c_pix] i32 (lanes >= cnt 0), rows
+    [c_pix] i32 BVH8 rows visited or None)."""
+    dev = _cuda_device(px)
+    c_pix = px.shape[0]
+    _check(px, "px", torch.int32, (c_pix,), dev)
+    _check(py, "py", torch.int32, (c_pix,), dev)
+    _check(rays, "rays", torch.int32, (c_pix,), dev)
+    p_total = out.shape[0]
+    _check(out, "out", torch.float32, (p_total, 3), dev)
+    if flavor not in MEGA_FLAVORS:
+        raise ValueError(f"flavor {flavor!r}: one of {sorted(MEGA_FLAVORS)}")
+    if not 0 <= cnt <= c_pix or gbase < 0 or gbase + cnt > p_total:
+        raise ValueError(f"mega_eye: {cnt} pixels at {gbase} of a chunk of "
+                         f"{c_pix} in a frame of {p_total}")
+    if cfg.eye_depth < 1 or len(keys) != 22:
+        raise ValueError("mega_eye: eye_depth >= 1 and 22 key words")
+    merge = flavor == "vcm" and cfg.do_merge
+    if merge and grid is None:
+        raise ValueError("mega_eye: do_merge needs the photon grid")
+    sc = _bdpt_scene(scene, dev)
+    gptrs, table, p8, geom = [0, 0], 0, 0, [0.0] * 4
+    if merge:
+        gptrs, table, p8, geom = _grid_args(grid, dev)
+    light_rows = lbufs.pt.shape[0]
+    dropped = torch.zeros(c_pix, dtype=torch.int32, device=dev)
+    rows = torch.zeros(c_pix, dtype=torch.int32, device=dev) if with_rows \
+        else None
+    ptrs = ([sc[k].data_ptr() for k in ("table", "tri_f32", "light_f32",
+                                        "mat_f32", "textures")]
+            + [px.data_ptr(), py.data_ptr()]
+            + _check_bufs(lbufs, "light bufs", light_rows, c_pix, dev)
+            + gptrs + [out.data_ptr(), rays.data_ptr(), dropped.data_ptr(),
+                       _ptr(rows) or 0])
+    iv = [cnt, c_pix, sc["tri_f32"].shape[1], scene.num_lights,
+          cfg.eye_depth, light_rows, MEGA_FLAVORS[flavor], int(cfg.naive),
+          int(cfg.nee), int(cfg.connection), int(cfg.do_mis),
+          int(cfg.paint_weight), int(cfg.sample_environment), int(merge),
+          int(cfg.do_sppm), table, cfg.max_per_cell, int(one_brick),
+          int(reweight), p8, gbase]
+    fv = (camera.kernel_params()
+          + [camera.plane_area(), float(eta_vcm), float(merge_norm)]
+          + geom + [_r2(merge_radius)])
+    args = (_i64s(ptrs), _i64s(iv), _f32s(fv), _u32s(list(keys)))
+    lib = _load()
+    with torch.cuda.device(dev):
+        _launch("mega_eye", lib, lib.tpt_mega_eye,
+                *(ctypes.addressof(a) for a in args), _stream(dev))
+    return dropped, rows

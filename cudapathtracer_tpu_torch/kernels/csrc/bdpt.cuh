@@ -756,6 +756,7 @@ struct SplatLaunch {
   int32_t* rays;
   int32_t* rows;
   int64_t n;
+  int64_t n_live;  // paths i >= n_live splat nothing (a mega chunk's pads)
 };
 
 inline bool splat_launch(const int64_t* ptrs, const int64_t* iv,
@@ -786,7 +787,9 @@ inline bool splat_launch(const int64_t* ptrs, const int64_t* iv,
   s.p.weighting.paint_weight = iv[6] != 0;
   s.p.vcm = iv[7] != 0;
   s.p.eta_vcm = fv[20];
-  return s.lb.depth >= 0 && s.p.width > 0 && s.p.height > 0;
+  s.n_live = iv[8];
+  return s.lb.depth >= 0 && s.p.width > 0 && s.p.height > 0 &&
+         s.n_live >= 0 && s.n_live <= s.n;
 }
 
 struct ConnectLaunch {

@@ -37,6 +37,7 @@ bdpt_splat_kernel(tpt::SplatLaunch s) {
   if (k >= s.n * (s.lb.depth + 1 - first)) return;
   const int j = static_cast<int>(k / s.n) + first;
   const int64_t i = k % s.n;
+  if (i >= s.n_live) return;
   tpt::splat_vertex(s.sc, s.p, s.lb, s.e, j, i, s.fb, s.rays, s.rows);
 }
 
@@ -45,7 +46,8 @@ bdpt_splat_kernel(tpt::SplatLaunch s) {
 // ptrs: table, tri_f32, mat_f32, textures, the 11 light-buffer fields,
 // v0_pt, v0_n, v0_beta, v0_pdf, v0_mat (0 in VCM's form), fb, rays, rows
 // (0 = none). iv: n, tri_cols, depth (stored light vertices), width,
-// height, do_mis, paint_weight, vcm. fv: the 19 camera floats, plane_area,
+// height, do_mis, paint_weight, vcm, n_live (paths i >= n_live are
+// skipped: the mega engines' chunk pads). fv: the 19 camera floats, plane_area,
 // eta_vcm. Returns the launch's cudaError_t.
 extern "C" int tpt_bdpt_splat(const int64_t* ptrs, const int64_t* iv,
                               const float* fv, void* stream) {

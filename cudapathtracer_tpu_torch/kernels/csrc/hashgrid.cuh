@@ -4,11 +4,14 @@
 //
 // Replaces cudapathtracer_tpu/utils/packing.py:pack_half2 (102) and
 // unpack_half2 (115), ops/hashgrid.py:pack_photons (119), photon_fields
-// (130), _cell_of (142), _hash_cells (146), the key of build_grid (151) and
-// fold_neighbors (240) with _window_weight and one_brick_active. The grid
-// kernels (photon_grid.cu) pack, hash and index the photons; the VCM eye
-// kernel (vcm_eye.cu) folds each eye vertex's candidates through
-// fold_neighbors below.
+// (130), _cell_of (142), _hash_cells (146), the key of build_grid (151),
+// fold_neighbors (240) with _window_weight and one_brick_active, and the
+// materialised forms neighbor_slots (412), neighbor_slots_compact (512) and
+// gather_neighbors (203). The grid kernels (photon_grid.cu) pack, hash and
+// index the photons; the VCM eye kernel (vcm_eye.cu) folds each eye
+// vertex's candidates through fold_neighbors below, the mega eye kernel
+// (mega_eye.cu) sums them over neighbor_slots' slots (cap <= 8), and
+// neighbor_slots.cu materialises the three forms over a batch of queries.
 //
 // The merge keeps the JAX candidate set and fold order, not its TPU
 // mechanics (bricks, rotates, batched gathers): cells c = 0..7 (bit 0 steps
@@ -118,42 +121,148 @@ struct GridRefs {
   float r2;                // merge radius squared (float32)
   int cap;                 // max_per_cell
   bool one_brick, reweight;
+  int64_t n_rows;          // P8 (the materialised forms' brick clamp)
 };
 
-// Folds fold(photon, w) over the in-range candidates of query q, in the
-// JAX order; returns the photons the cap left out (count - kept, summed).
-template <class Fold>
-__device__ __forceinline__ int32_t fold_neighbors(const GridRefs& g, V3 q,
-                                                  Fold&& fold) {
+// The 8 corner cells of query q (bit 0 of c steps x, bit 1 y, bit 2 z).
+struct QueryCells {
+  int32_t start[8], count[8];
+};
+
+__device__ __forceinline__ QueryCells query_cells(const GridRefs& g, V3 q) {
   int32_t base[3], step[3];
   for (int k = 0; k < 3; ++k) {
     const float c = cell_coord(g.geom, q, k);
     base[k] = static_cast<int32_t>(floorf(c));
     step[k] = c - static_cast<float>(base[k]) >= 0.5f ? 1 : -1;
   }
-  int32_t dropped = 0;
+  QueryCells qc;
   for (int c = 0; c < 8; ++c) {
     const uint32_t h =
         hash_cell(base[0] + ((c & 1) ? step[0] : 0),
                   base[1] + ((c & 2) ? step[1] : 0),
                   base[2] + ((c & 4) ? step[2] : 0), g.geom.table_size);
-    const int32_t start = g.cell_se[2 * static_cast<int64_t>(h)];
-    const int32_t end = g.cell_se[2 * static_cast<int64_t>(h) + 1];
-    const int32_t count = end - start > 0 ? end - start : 0;
-    int32_t kept = count < g.cap ? count : g.cap;
-    if (g.one_brick && kept > 8 - (start & 7)) kept = 8 - (start & 7);
-    const float w = g.reweight ? static_cast<float>(count) /
-                                     static_cast<float>(kept > 1 ? kept : 1)
-                               : 1.0f;
+    const int2 se = *reinterpret_cast<const int2*>(g.cell_se +
+                                                   2 * static_cast<int64_t>(h));
+    qc.start[c] = se.x;
+    qc.count[c] = se.y - se.x > 0 ? se.y - se.x : 0;
+  }
+  return qc;
+}
+
+// kept = min(count, cap), in the one-brick mode also <= 8 - (start & 7).
+__device__ __forceinline__ int32_t kept_of(const GridRefs& g, int32_t start,
+                                           int32_t count) {
+  int32_t kept = count < g.cap ? count : g.cap;
+  if (g.one_brick && kept > 8 - (start & 7)) kept = 8 - (start & 7);
+  return kept;
+}
+
+// count / kept (1 without reweighting).
+__device__ __forceinline__ float window_weight(const GridRefs& g,
+                                              int32_t count, int32_t kept) {
+  return g.reweight ? static_cast<float>(count) /
+                          static_cast<float>(kept > 1 ? kept : 1)
+                    : 1.0f;
+}
+
+__device__ __forceinline__ const float* photon_row(const GridRefs& g,
+                                                   int64_t p) {
+  return g.rows + kPhotonRow * p;
+}
+
+__device__ __forceinline__ bool in_range(const GridRefs& g, V3 q,
+                                         const float* row) {
+  const float4 a = *reinterpret_cast<const float4*>(row);
+  return length_sq(sub(q, v3(a.x, a.y, a.z))) <= g.r2;
+}
+
+// Folds fold(photon, w) over the in-range candidates of query q, in the
+// JAX order; returns the photons the cap left out (count - kept, summed).
+template <class Fold>
+__device__ __forceinline__ int32_t fold_neighbors(const GridRefs& g, V3 q,
+                                                  Fold&& fold) {
+  const QueryCells qc = query_cells(g, q);
+  int32_t dropped = 0;
+  for (int c = 0; c < 8; ++c) {
+    const int32_t start = qc.start[c], count = qc.count[c];
+    const int32_t kept = kept_of(g, start, count);
+    const float w = window_weight(g, count, kept);
     for (int32_t k = 0; k < kept; ++k) {
-      const float* row = g.rows + kPhotonRow * static_cast<int64_t>(start + k);
-      const float4 a = *reinterpret_cast<const float4*>(row);
-      if (length_sq(sub(q, v3(a.x, a.y, a.z))) <= g.r2)
-        fold(photon_fields(row), w);
+      const float* row = photon_row(g, start + k);
+      if (in_range(g, q, row)) fold(photon_fields(row), w);
     }
     dropped += count - kept;
   }
   return dropped;
+}
+
+// neighbor_slots' slots of query q in its order (ops/hashgrid.py:412): M =
+// 8 x cap slots (c, k) holding photon start + k from the two bricks from
+// start's (the second clamped to the last), a candidate for k < kept; or,
+// in the one-brick mode, M = 64 slots (c, k) holding photon k of start's
+// brick, a candidate for rel = k - (start & 7) in [0, kept). Calls
+// visit(m, row, ok, w) with ok = candidate && in range: for every slot with
+// kAll, else for the candidates only (which are fold_neighbors' photons in
+// its order, so a sum over them is the fold's). Returns count - kept summed
+// over the cells. Needs 1 <= cap <= 8.
+template <bool kAll, class Visit>
+__device__ __forceinline__ int32_t neighbor_slots(const GridRefs& g, V3 q,
+                                                  Visit&& visit) {
+  const QueryCells qc = query_cells(g, q);
+  const int64_t max_brick = g.n_rows / 8 - 1;
+  const int per_cell = g.one_brick ? 8 : g.cap;
+  int32_t dropped = 0;
+  for (int c = 0; c < 8; ++c) {
+    const int32_t start = qc.start[c], count = qc.count[c];
+    const int32_t kept = kept_of(g, start, count);
+    const float w = window_weight(g, count, kept);
+    const int32_t a = start & 7;
+    const int64_t w0 = start >> 3;
+    for (int k = 0; k < per_cell; ++k) {
+      int64_t p;
+      bool cand;
+      if (g.one_brick) {
+        p = ((w0 < max_brick ? w0 : max_brick) << 3) + k;
+        cand = k - a >= 0 && k - a < kept;
+      } else {
+        const int64_t b = w0 + ((a + k) >> 3);
+        p = ((b < max_brick ? b : max_brick) << 3) + ((a + k) & 7);
+        cand = k < kept;
+      }
+      if (!kAll && !cand) continue;
+      const float* row = photon_row(g, p);
+      visit(c * per_cell + k, row, cand && in_range(g, q, row), w);
+    }
+    dropped += count - kept;
+  }
+  return dropped;
+}
+
+// neighbor_slots_compact's slot k < cap_q of query q (ops/hashgrid.py:512):
+// the k-th entry of the cell-major stream of kept photons; past the stream
+// photon 0, not ok, weight count / kept of no cell.
+struct CompactSlot {
+  int64_t p;
+  bool ok;  // a stream entry (the distance test is the caller's)
+  float w;
+};
+
+__device__ __forceinline__ CompactSlot compact_slot(const GridRefs& g,
+                                                    const QueryCells& qc,
+                                                    const int32_t* kept,
+                                                    int32_t total, int cap_q,
+                                                    int k) {
+  CompactSlot s;
+  s.ok = k < (total < cap_q ? total : cap_q);
+  int32_t prev = 0;
+  int c = 0;
+  while (c < 8 && prev + kept[c] <= k) prev += kept[c++];
+  const int32_t start = c < 8 ? qc.start[c] : 0;
+  s.p = s.ok ? static_cast<int64_t>(start) + k - (c < 8 ? prev : 0) : 0;
+  s.w = c < 8 ? window_weight(g, qc.count[c], kept[c])
+              : window_weight(g, 0, 0);
+  return s;
 }
 
 }  // namespace tpt

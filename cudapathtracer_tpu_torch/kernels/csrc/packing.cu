@@ -4,10 +4,12 @@
 // run inside the walk, splat and connection kernels; this launch is their
 // test entry.
 //
-// Replaces cudapathtracer_tpu/utils/packing.py:23,37,92,98,128,136.
+// Replaces cudapathtracer_tpu/utils/packing.py:23,37,92,98,128,136, and in
+// its RGB9E5 mode (tpt_rgb9e5_roundtrip) :53,70,83.
 // Bound: memory (about 60 bytes in and out per vector against a few dozen
-// flops). Design: the encoders and decoders run back to back per thread,
-// so one launch checks both directions on the same inputs.
+// flops; RGB9E5 28 bytes against two double transcendentals). Design: the
+// encoders and decoders run back to back per thread, so one launch checks
+// both directions on the same inputs.
 
 #include <cuda_runtime.h>
 
@@ -54,7 +56,34 @@ packing_kernel(const float* __restrict__ vec, const float* __restrict__ beta,
   unflags[4 * i + 3] = g.mat_id;
 }
 
+__global__ void __launch_bounds__(kThreads)
+rgb9e5_kernel(const float* __restrict__ c, int64_t n,
+              uint32_t* __restrict__ packed, float* __restrict__ dec) {
+  const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x +
+                    threadIdx.x;
+  if (i >= n) return;
+  const uint32_t u =
+      tpt::pack_rgb9e5(tpt::v3(c[3 * i], c[3 * i + 1], c[3 * i + 2]));
+  packed[i] = u;
+  const tpt::V3 w = tpt::unpack_rgb9e5(u);
+  dec[3 * i] = w.x;
+  dec[3 * i + 1] = w.y;
+  dec[3 * i + 2] = w.z;
+}
+
 }  // namespace
+
+// The RGB9E5 mode: c [n,3] f32 -> packed [n] u32, dec [n,3] f32 (the packed
+// word decoded). Returns the launch's cudaError_t.
+extern "C" int tpt_rgb9e5_roundtrip(const float* c, int64_t n,
+                                    uint32_t* packed, float* dec,
+                                    void* stream) {
+  if (n <= 0) return 0;
+  const unsigned blocks = static_cast<unsigned>((n + kThreads - 1) / kThreads);
+  rgb9e5_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      c, n, packed, dec);
+  return static_cast<int>(cudaGetLastError());
+}
 
 // vec, beta [n,3] f32; is_delta, backface [n] bool; light_ind, mat_id [n]
 // i32 -> oct [n] u32, dec [n,3] f32, half3 [n,3] f16, beta_dec [n,3] f32,

@@ -8,6 +8,8 @@
 // vertex goes through them: the walk (bdpt_walk.cu) encodes, the splat and
 // the connections (bdpt_splat.cu, bdpt_connect.cu) decode; packing.cu
 // launches them over a batch for the comparison with the plain versions.
+// Also the RGB9E5 word (below) through which the mega kernels (uni_mega.cu,
+// mega_eye.cu) retire each path's radiance.
 //
 // Bit parity with the JAX package: snorm16 rounding is round-half-even
 // (rintf, as jnp.round); float -> half is __float2half_rn (XLA's convert);
@@ -95,6 +97,46 @@ __device__ __forceinline__ void store_half3(__half* dst, V3 c) {
 __device__ __forceinline__ V3 load_half3(const __half* src) {
   return v3(__half2float(src[0]), __half2float(src[1]),
             __half2float(src[2]));
+}
+
+// ---- RGB9E5: the mega engines' retirement of a path's radiance ----------
+// Replaces utils/packing.py:pack_rgb9e5 (53), pack_rgb9e5_cols (70) and
+// unpack_rgb9e5 (83). XLA takes log2(x) as log(x) / 0.6931472f and exp2(x)
+// as exp(x * 0.6931472f), so its 2^k is inexact for most |k| > 12; both are
+// computed here in double and rounded to float once, as the plain version
+// does (utils/packing.py).
+constexpr float kLn2F = 0.693147182464599609375f;
+
+__device__ __forceinline__ float exp2_xla(float k) {
+  return static_cast<float>(exp(static_cast<double>(k * kLn2F)));
+}
+
+__device__ __forceinline__ uint32_t pack_rgb9e5(V3 c) {
+  const float r = fminf(fmaxf(c.x, 0.0f), 65408.0f);
+  const float g = fminf(fmaxf(c.y, 0.0f), 65408.0f);
+  const float b = fminf(fmaxf(c.z, 0.0f), 65408.0f);
+  const float maxc = fmaxf(fmaxf(r, g), b);
+  const float lg =
+      static_cast<float>(log(static_cast<double>(fmaxf(maxc, 1e-10f))));
+  const float e = fminf(fmaxf(ceilf(lg / kLn2F), -15.0f), 16.0f);
+  const float s = exp2_xla(9.0f - e);
+  auto mant = [s](float x) {
+    return static_cast<uint32_t>(fminf(fmaxf(rintf(x * s), 0.0f), 511.0f));
+  };
+  const uint32_t eb = static_cast<uint32_t>(e + 15.0f);
+  return mant(r) | (mant(g) << 9) | (mant(b) << 18) | (eb << 27);
+}
+
+__device__ __forceinline__ V3 unpack_rgb9e5(uint32_t u) {
+  const float e = static_cast<float>((u >> 27) & 0x1Fu) - 15.0f;
+  const float s = exp2_xla(e - 9.0f);
+  return v3(static_cast<float>(u & 0x1FFu) * s,
+            static_cast<float>((u >> 9) & 0x1FFu) * s,
+            static_cast<float>((u >> 18) & 0x1FFu) * s);
+}
+
+__device__ __forceinline__ V3 round_rgb9e5(V3 c) {
+  return unpack_rgb9e5(pack_rgb9e5(c));
 }
 
 }  // namespace tpt

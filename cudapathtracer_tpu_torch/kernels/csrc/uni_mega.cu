@@ -1,6 +1,6 @@
 // K5: the unidirectional path tracer as one per-path megakernel (NEE +
 // power-2 MIS, nested dielectrics, Beer-Lambert absorption, Russian
-// roulette), for both engines.
+// roulette), for both engines, and the naive integrator (schedule naive).
 //
 // Replaces cudapathtracer_tpu/models/unidirectional_mega.py:render_sample
 // (line 222) and serves the classic engine too
@@ -24,7 +24,10 @@
 //            rays = closest events + NEE candidates (do_nee);
 //   mega:    key fold_in(skey, d), id p * 191 + lit; at most 133 events
 //            (the lane dies after the event with lit >= LIT_CAP = 132);
-//            rays = closest events + traced NEE shadows.
+//            rays = closest events + traced NEE shadows; each path's
+//            radiance retires through RGB9E5 (K10, packing.cuh), as the
+//            JAX engine's retirement slots hold it;
+//   naive:   models/naive.py:render_sample (line 41): render_naive_path.
 // The classic per-event key is derived here with tpt::threefry2x32, so no
 // key table is needed. The NEE weight is summed in each schedule's order:
 // classic (beta * (contrib * shadow)) * w; mega ((beta * contrib) * w) *
@@ -48,6 +51,7 @@
 #include "bsdf.cuh"
 #include "camera.cuh"
 #include "nee.cuh"
+#include "packing.cuh"
 #include "shade.cuh"
 #include "threefry.cuh"
 #include "traverse8.cuh"
@@ -62,6 +66,7 @@ constexpr int kDBsdf = 4;
 constexpr int kDRr = 8;
 constexpr int kScheduleClassic = 0;
 constexpr int kScheduleMega = 1;
+constexpr int kScheduleNaive = 2;   // the naive integrator (no NEE/MIS/RR)
 constexpr int kShadeEvalCols = 38;
 
 struct SceneArgs {
@@ -269,6 +274,55 @@ __device__ __forceinline__ PathOut render_path(const SceneArgs& sc,
   return out;
 }
 
+// The naive integrator's path (models/naive.py): BSDF sampling only, no
+// NEE, MIS or Russian roulette, eta_i = 1, emission added after the
+// sampling-validity break, at most max_depth bounces; bounce `depth` draws
+// keyed by fold_in(fold_in(skey, depth), d) with the pixel id; the next ray
+// is unnormalized to_world(wo) from the side of wo.z.
+__device__ __forceinline__ PathOut render_naive_path(const SceneArgs& sc,
+                                                     const Params& p,
+                                                     uint32_t pix_id, V3 o,
+                                                     V3 d) {
+  V3 beta = v3(1.0f, 1.0f, 1.0f), li = v3(0.0f, 0.0f, 0.0f);
+  int32_t rays = 0, rows = 0;
+  for (int depth = 0; depth < p.max_depth; ++depth) {
+    ++rays;
+    EventDraws e;
+    e.mega_keys = p.draw_keys;
+    e.classic = true;
+    e.b0 = 0u;
+    e.b1 = static_cast<uint32_t>(depth);
+    threefry2x32(p.skey0, p.skey1, e.b0, e.b1);  // bounce_key(skey, depth)
+    e.id = pix_id;
+    const Trace8 h = trace8<false>(sc.table, nullptr, 0, o.x, o.y, o.z, d.x,
+                                   d.y, d.z, kBigT, -1, true);
+    rows += h.rows;
+    if (h.tri < 0) {
+      li = add(li, mul(beta, sample_sky(d, p.sample_environment != 0)));
+      break;
+    }
+    const ShadeHit s =
+        shade_fetch(sc.tri_f32, sc.tri_cols, h.tri, h.u, h.v, o, d, h.t);
+    const V3 wi_local = to_local(d, s.normal);
+    const V3 albedo = resolve_albedo(sc.textures, s);
+    const float trans = resolve_transmission(sc.textures, s);
+    const BasedDraws bd{&e, 0};
+    const Sample bs =
+        bsdf_sample(bd, s.mat, albedo, neg(wi_local), s.backface, 1.0f, trans);
+    if (bs.pdf <= 0.0f || length_sq(bs.f) < kEps) break;
+    li = add(li, mul(s.emission, beta));
+    beta = scale(mul(beta, bs.f), fabsf(bs.wo.z) / fmaxf(bs.pdf, 1e-20f));
+    d = to_world(bs.wo, s.normal);
+    const float side = bs.wo.z > 0.0f ? 1.0f : -1.0f;
+    o = add(s.point, scale(s.normal, side * kRayEps));
+  }
+  PathOut out;
+  out.li = li;
+  out.rays = rays;
+  out.rows = rows;
+  return out;
+}
+
 // What the plain K2-K4 functions return for one hit (shade_eval): point,
 // normal, uv, backface, albedo, transmission, then NEE (contrib, light_pdf,
 // wo_local, shadow origin, dir, max_t, active), the NEE direction's BSDF
@@ -370,12 +424,17 @@ uni_mega_kernel(tpt::SceneArgs sc, tpt::Params p,
   float org[3], dir[3];
   tpt::camera_ray(p.cam, static_cast<float>(x), static_cast<float>(y), pix_id,
                   org, dir);
-  const tpt::PathOut r =
-      tpt::render_path(sc, p, i, pix_id, tpt::v3(org[0], org[1], org[2]),
-                       tpt::v3(dir[0], dir[1], dir[2]));
-  li_out[3 * i] = r.li.x;
-  li_out[3 * i + 1] = r.li.y;
-  li_out[3 * i + 2] = r.li.z;
+  const tpt::V3 o = tpt::v3(org[0], org[1], org[2]);
+  const tpt::V3 d = tpt::v3(dir[0], dir[1], dir[2]);
+  const tpt::PathOut r = p.schedule == tpt::kScheduleNaive
+                             ? tpt::render_naive_path(sc, p, pix_id, o, d)
+                             : tpt::render_path(sc, p, i, pix_id, o, d);
+  // the mega engine retires each path's radiance through RGB9E5
+  const tpt::V3 li =
+      p.schedule == tpt::kScheduleMega ? tpt::round_rgb9e5(r.li) : r.li;
+  li_out[3 * i] = li.x;
+  li_out[3 * i + 1] = li.y;
+  li_out[3 * i + 2] = li.z;
   rays_out[i] = r.rays;
   if (rows_out != nullptr) rows_out[i] = r.rows;
 }
@@ -446,7 +505,8 @@ extern "C" int tpt_render_unidirectional(
     int32_t air_priority, float* li, int32_t* rays, int32_t* rows,
     void* stream) {
   if (n <= 0) return 0;
-  if (schedule != tpt::kScheduleClassic && schedule != tpt::kScheduleMega)
+  if (schedule != tpt::kScheduleClassic && schedule != tpt::kScheduleMega &&
+      schedule != tpt::kScheduleNaive)
     return static_cast<int>(cudaErrorInvalidValue);
   const unsigned blocks = static_cast<unsigned>((n + kThreads - 1) / kThreads);
   uni_mega_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(

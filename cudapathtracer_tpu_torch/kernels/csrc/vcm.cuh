@@ -57,30 +57,44 @@ struct EyeVertex {
   Mat m;
 };
 
-// s >= 2 against stored light vertex j; adds into li, counts the ray.
-__device__ __forceinline__ void connect_vcm(const SceneRefs& sc,
-                                            const VcmParams& p,
-                                            const VcmIn& in,
-                                            const EyeVertex& e, int j,
-                                            int64_t i, V3& li, int32_t& rays,
-                                            int32_t& rows) {
-  const Vertex lv = load_vertex(in.light, j, i);
-  if (!lv.valid || lv.is_delta) return;
+// The geometry of the connection of eye vertex e with light vertex lv, and
+// its shadow ray (to dist - RAY_EPSILON from pos + n RAY_EPSILON): false if
+// the light vertex is invalid or delta or a cosine is below EPSILON (no
+// ray), else traced (one ray counted).
+struct ConnRay {
+  V3 e2l_u;
+  float d2, cos_l, cos_e;
+  Trace8 sh;
+};
+
+__device__ __forceinline__ bool conn_ray(const SceneRefs& sc,
+                                         const EyeVertex& e, const Vertex& lv,
+                                         ConnRay& c, int32_t& rays,
+                                         int32_t& rows) {
+  if (!lv.valid || lv.is_delta) return false;
   const V3 e2l = sub(lv.pt, e.pos);
-  const float d2 = fmaxf(length_sq(e2l), kRayEps);
-  const float dist = sqrtf(d2);
-  const V3 e2l_u = v3(e2l.x / dist, e2l.y / dist, e2l.z / dist);
-  const float cos_l = fabsf(dot(lv.n, neg(e2l_u)));
-  const float cos_e = fabsf(dot(e.n, e2l_u));
-  if (!(cos_l >= kEps && cos_e >= kEps)) return;
+  c.d2 = fmaxf(length_sq(e2l), kRayEps);
+  const float dist = sqrtf(c.d2);
+  c.e2l_u = v3(e2l.x / dist, e2l.y / dist, e2l.z / dist);
+  c.cos_l = fabsf(dot(lv.n, neg(c.e2l_u)));
+  c.cos_e = fabsf(dot(e.n, c.e2l_u));
+  if (!(c.cos_l >= kEps && c.cos_e >= kEps)) return false;
   const V3 origin = add(e.pos, scale(e.n, kRayEps));
   ++rays;
-  const Trace8 sh = trace8<true>(sc.table, sc.tri_f32, sc.tri_cols, origin.x,
-                                 origin.y, origin.z, e2l_u.x, e2l_u.y,
-                                 e2l_u.z, dist - kRayEps, -1, true);
-  rows += sh.rows;
-  if (!(max3(sh.s0, sh.s1, sh.s2) > 0.0f)) return;
+  c.sh = trace8<true>(sc.table, sc.tri_f32, sc.tri_cols, origin.x, origin.y,
+                      origin.z, c.e2l_u.x, c.e2l_u.y, c.e2l_u.z,
+                      dist - kRayEps, -1, true);
+  rows += c.sh.rows;
+  return true;
+}
 
+// The unshadowed connection (((thr beta_l) f_eye) f_light) G and its MIS
+// weight with eta_vcm (0 under BDPT's weights).
+__device__ __forceinline__ V3 conn_terms(const SceneRefs& sc, float eta_vcm,
+                                         const EyeVertex& e, const Vertex& lv,
+                                         const ConnRay& c, float& weight) {
+  const V3 e2l_u = c.e2l_u;
+  const float d2 = c.d2, cos_l = c.cos_l, cos_e = c.cos_e;
   const Mat ml = mat_of(sc, lv.mat_id);
   const V3 albedo_l = resolve_albedo(sc.textures, ml, lv.u, lv.v);
   const float trans_l = resolve_transmission(sc.textures, ml, lv.u, lv.v);
@@ -100,21 +114,71 @@ __device__ __forceinline__ void connect_vcm(const SceneRefs& sc,
   const float pdf_bef_light_rev_sa =
       bsdf_pdf(ml, l2e_loc_l, neg(to_l_from_prev_loc), 1.0f, trans_l);
   const float w_eye = pdf_eye_rev_area *
-                      (p.eta_vcm + e.d_vcm + pdf_bef_eye_rev_sa * e.d_vc);
+                      (eta_vcm + e.d_vcm + pdf_bef_eye_rev_sa * e.d_vc);
   const float w_light =
       pdf_light_rev_area *
-      (p.eta_vcm + lv.d_vcm + pdf_bef_light_rev_sa * lv.d_vc);
-  const float weight = 1.0f / (1.0f + w_eye + w_light);
+      (eta_vcm + lv.d_vcm + pdf_bef_light_rev_sa * lv.d_vc);
+  weight = 1.0f / (1.0f + w_eye + w_light);
 
   const V3 f_eye =
       bsdf_f(e.m, e.albedo, neg(l2e_loc_e), to_prev_loc_e, 1.0f, e.trans);
   const V3 f_light = bsdf_f(ml, albedo_l, l2e_loc_l, neg(to_l_from_prev_loc),
                             1.0f, trans_l);
   const float gg = fminf(cos_e * cos_l / d2, kMaxGConnect);
-  const V3 contrib = mul(scale(mul(mul(mul(e.thr, lv.beta), f_eye), f_light),
-                               gg),
-                         v3(sh.s0, sh.s1, sh.s2));
+  return scale(mul(mul(mul(e.thr, lv.beta), f_eye), f_light), gg);
+}
+
+// s >= 2 against stored light vertex j; adds into li, counts the ray.
+__device__ __forceinline__ void connect_vcm(const SceneRefs& sc,
+                                            const VcmParams& p,
+                                            const VcmIn& in,
+                                            const EyeVertex& e, int j,
+                                            int64_t i, V3& li, int32_t& rays,
+                                            int32_t& rows) {
+  const Vertex lv = load_vertex(in.light, j, i);
+  ConnRay c;
+  if (!conn_ray(sc, e, lv, c, rays, rows)) return;
+  if (!(max3(c.sh.s0, c.sh.s1, c.sh.s2) > 0.0f)) return;
+  float weight;
+  const V3 base = conn_terms(sc, p.eta_vcm, e, lv, c, weight);
+  const V3 contrib = mul(base, v3(c.sh.s0, c.sh.s1, c.sh.s2));
   li = add(li, clamp_firefly(p.weighting(contrib, weight)));
+}
+
+// s = 0 under VCM's weights at eye vertex e (its shade-time normal), a
+// light seen from the front: no eta_vcm in the weight, depth 0 exempt from
+// the firefly clamp.
+__device__ __forceinline__ V3 implicit_vcm(const SceneRefs& sc,
+                                           const Weighting& wt,
+                                           int32_t light_ind,
+                                           const EyeVertex& e,
+                                           bool prev_delta, int depth) {
+  const float num =
+      static_cast<float>(sc.lights.count > 1 ? sc.lights.count : 1);
+  const float* lr = sc.lights.rows + 17 * static_cast<int64_t>(light_ind);
+  const float area = __ldg(lr + 15);
+  const float cos_l = dot(e.n, e.to_prev);
+  const float pdf_connect =
+      prev_delta ? 0.0f : (1.0f / num) / fmaxf(area, 1e-20f);
+  const float w_eye =
+      pdf_connect * e.d_vcm + pdf_connect * (cos_l / kPi) * e.d_vc;
+  const V3 out = wt(mul(row_v3(lr, 12), e.thr), 1.0f / (1.0f + w_eye));
+  return depth > 0 ? clamp_firefly(out) : out;
+}
+
+// The merge of photon ph at eye vertex e (prev_loc: the direction to the
+// previous vertex in e's frame): returns (beta_p f) thr and its MIS weight.
+__device__ __forceinline__ V3 merge_term(const EyeVertex& e, V3 prev_loc,
+                                         const Photon& ph, float eta,
+                                         float& weight) {
+  const V3 wi_loc = to_local(ph.wi, e.n);
+  const V3 f = bsdf_f(e.m, e.albedo, wi_loc, prev_loc, 1.0f, e.trans);
+  const float pdf_eye_rev = bsdf_pdf(e.m, wi_loc, prev_loc, 1.0f, e.trans);
+  const float pdf_light_rev = bsdf_pdf(e.m, prev_loc, wi_loc, 1.0f, e.trans);
+  const float w_eye = e.d_vcm / eta + pdf_eye_rev * e.d_vm;
+  const float w_light = ph.d_vcm / eta + pdf_light_rev * ph.d_vm;
+  weight = 1.0f / (1.0f + w_eye + w_light);
+  return mul(mul(ph.beta, f), e.thr);
 }
 
 // The eye pass of pixel (px, py), path i: returns its radiance plus the
@@ -187,19 +251,8 @@ __device__ __forceinline__ V3 vcm_eye_pixel(const SceneRefs& sc,
 
     if (valid && !cur_delta) {
       // s = 0: the eye walk hit a light (no eta_vcm in this weight)
-      if (p.naive && s.light_ind >= 0 && !s.backface) {
-        const float* lr =
-            sc.lights.rows + 17 * static_cast<int64_t>(s.light_ind);
-        const float area = __ldg(lr + 15);
-        const float cos_l = dot(e.n, e.to_prev);
-        const float pdf_connect =
-            prev_delta ? 0.0f : (1.0f / num) / fmaxf(area, 1e-20f);
-        const float w_eye =
-            pdf_connect * e.d_vcm + pdf_connect * (cos_l / kPi) * e.d_vc;
-        V3 out = wt(mul(row_v3(lr, 12), thr), 1.0f / (1.0f + w_eye));
-        if (depth > 0) out = clamp_firefly(out);
-        li = add(li, out);
-      }
+      if (p.naive && s.light_ind >= 0 && !s.backface)
+        li = add(li, implicit_vcm(sc, wt, s.light_ind, e, prev_delta, depth));
 
       // s = 1: NEE; w_light the squared pdf ratio
       const V3 ptc_local = to_local(sub(e.pos, prev_pt), e.n);
@@ -256,18 +309,9 @@ __device__ __forceinline__ V3 vcm_eye_pixel(const SceneRefs& sc,
         const float eta = fmaxf(p.eta_vcm, 1e-30f);
         dropped += fold_neighbors(in.grid, e.pos, [&](const Photon& ph,
                                                       float w) {
-          const V3 wi_loc = to_local(ph.wi, e.n);
-          const V3 f = bsdf_f(e.m, e.albedo, wi_loc, prev_loc, 1.0f, e.trans);
-          const float pdf_eye_rev =
-              bsdf_pdf(e.m, wi_loc, prev_loc, 1.0f, e.trans);
-          const float pdf_light_rev =
-              bsdf_pdf(e.m, prev_loc, wi_loc, 1.0f, e.trans);
-          const float w_eye = e.d_vcm / eta + pdf_eye_rev * e.d_vm;
-          const float w_light = ph.d_vcm / eta + pdf_light_rev * ph.d_vm;
-          const float weight = 1.0f / (1.0f + w_eye + w_light);
-          const V3 contrib =
-              scale(scale(mul(mul(ph.beta, f), thr), p.merge_norm), w);
-          li = add(li, wt(contrib, weight));
+          float weight;
+          const V3 base = merge_term(e, prev_loc, ph, eta, weight);
+          li = add(li, wt(scale(scale(base, p.merge_norm), w), weight));
         });
       }
     }
@@ -342,6 +386,7 @@ inline bool vcm_launch(const int64_t* ptrs, const int64_t* iv,
   g.cap = static_cast<int>(iv[14]);
   g.one_brick = iv[15] != 0;
   g.reweight = iv[16] != 0;
+  g.n_rows = 0;  // the fold reads no brick
   for (int k = 0; k < 3; ++k) g.geom.smin[k] = fv[22 + k];
   g.geom.cell_size = fv[25];
   g.r2 = fv[26];

@@ -118,21 +118,23 @@ def _light_endpoint(lv0: dict) -> dict:
 
 # --- t=1: the light-trace splat (K11) ---------------------------------------
 
-def light_trace_splat(scene, camera, lbufs, lv0, cfg: BDPTConfig, fb):
+def light_trace_splat(scene, camera, lbufs, lv0, cfg: BDPTConfig, fb,
+                      active=None):
     """Plain version of K11 (any device): connect every light vertex to
     the lens and add it into fb [P,3] (raster-indexed) in place, s=1
     first, then the stored vertices in depth order, each a scatter-add
-    over the lanes. Returns (fb, rays as a Python int). (The JAX
-    function's `active` mask serves only its mega engines.)"""
-    rays = _splat_vertex(scene, camera, _light_endpoint(lv0), True, cfg, fb)
+    over the lanes. active [N] bool masks whole light paths (the mega
+    engine's chunk pads). Returns (fb, rays as a Python int)."""
+    rays = _splat_vertex(scene, camera, _light_endpoint(lv0), True, cfg, fb,
+                         active=active)
     for j in range(lbufs.pt.shape[0]):
         rays += _splat_vertex(scene, camera, _vertex(lbufs, j), False, cfg,
-                              fb)
+                              fb, active=active)
     return fb, rays
 
 
 def _splat_vertex(scene, camera, v, first: bool, cfg, fb,
-                  eta_vcm=None) -> int:
+                  eta_vcm=None, active=None) -> int:
     """One light vertex per lane to the lens (K11's plain body); eta_vcm
     adds VCM's merge term to a stored vertex's w_light."""
     n, dev = v["pt"].shape[0], v["pt"].device
@@ -140,6 +142,8 @@ def _splat_vertex(scene, camera, v, first: bool, cfg, fb,
     plane_area = camera.plane_area()
     rx, ry, on_screen = camera.world_to_raster(v["pt"])
     go = v["valid"] & on_screen & ~v["is_delta"]
+    if active is not None:
+        go = go & active
 
     to_cam = v["pt"].new_tensor(camera.origin) - v["pt"]
     dist = torch.sqrt(torch.clamp(length_sq(to_cam), min=1e-20))

@@ -21,7 +21,9 @@ another draw schedule, so `render_plain` serves both:
            it (its event counter `lit`); one more event (the JAX lane dies
            after the event with lit >= LIT_CAP); rays count traced NEE
            shadows; NEE adds ((beta * contrib) * w) * shadow, the JAX
-           engine's pending weight scaled when its shadow drains.
+           engine's pending weight scaled when its shadow drains; each
+           path's radiance retires through RGB9E5 (utils/packing.py), as
+           the JAX engine's retirement slots hold it.
 """
 
 from __future__ import annotations
@@ -32,7 +34,7 @@ from cudapathtracer_tpu_torch import kernels
 from cudapathtracer_tpu_torch.models import common
 from cudapathtracer_tpu_torch.ops import bsdf as bsdf_ops
 from cudapathtracer_tpu_torch.ops import traverse
-from cudapathtracer_tpu_torch.utils import rng
+from cudapathtracer_tpu_torch.utils import packing, rng
 from cudapathtracer_tpu_torch.utils.math import (EPSILON, RAY_EPSILON,
                                                  length_sq, luminance,
                                                  normalize, to_local,
@@ -135,6 +137,8 @@ def render_plain(scene, camera, base_key, sample_idx, px, py, *,
         if keep.numel() < alive.numel():
             s = {k: s[k][keep] for k in _STATE}
         it += 1
+    if schedule == "mega":   # the mega engine's RGB9E5 retirement
+        li_out = packing.round_rgb9e5(li_out)
     return li_out, rays
 
 

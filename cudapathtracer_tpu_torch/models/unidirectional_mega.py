@@ -10,7 +10,9 @@ id. So the port runs the same estimator one path per thread, in program
 order: on CUDA tensors a sample is one launch of the per-path megakernel
 (K5, kernels/csrc/uni_mega.cu), on CPU tensors the plain version
 (models/unidirectional.render_plain with the mega draw schedule), which is
-the kernel's oracle and is never called on the card's main path.
+the kernel's oracle and is never called on the card's main path. Each
+path's radiance retires through RGB9E5 (utils/packing.py), as the JAX
+engine's retirement slots hold it (its default TPT_MEGA_RETIRE=slots).
 
 One deliberate difference from the JAX engine: every path starts from the
 initial medium stack (the ambient medium in slot 0, top 1). The JAX lane

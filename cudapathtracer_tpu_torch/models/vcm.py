@@ -203,20 +203,9 @@ def eye_pass_plain(scene, camera, key_e, lbufs, grid, cfg: VCMConfig, px, py,
 
         # s = 0: the eye walk hit a light (no eta_vcm in this weight)
         if cfg.naive:
-            is_light = conn & (info["light_ind"] >= 0) & ~info["backface"]
-            lrow = scene.light_f32[torch.clamp(info["light_ind"], min=0)]
-            le, area = lrow[:, 12:15], lrow[:, 15]
-            cos_l = dot(normal, to_prev)
-            pdf_connect = torch.where(
-                prev_delta, 0.0,
-                true_div(float(np.float32(1.0 / num_lights)),
-                         torch.clamp(area, min=1e-20)))
-            w_eye = (pdf_connect * d_vcm
-                     + pdf_connect * true_div(cos_l, PI) * d_vc)
-            out = _weighted(le * thr, 1.0 / (1.0 + w_eye), cfg)
-            if depth > 0:   # directly seen emission is not clamped
-                out = _clamp_firefly(out)
-            colorsum = colorsum + torch.where(is_light[:, None], out, 0.0)
+            colorsum = colorsum + implicit_vcm(
+                scene, info, conn, to_prev, prev_delta, thr, d_vcm, d_vc,
+                depth, cfg)
 
         # s = 1: NEE, w_light the squared pdf ratio
         if cfg.nee and scene.num_lights > 0:
@@ -284,9 +273,46 @@ def eye_pass_plain(scene, camera, key_e, lbufs, grid, cfg: VCMConfig, px, py,
     return colorsum, rays, dropped
 
 
+def implicit_vcm(scene, info, conn, to_prev, prev_delta, thr, d_vcm, d_vc,
+                 depth: int, cfg):
+    """s = 0 under VCM's weights: what each lane [N,3] adds where its eye
+    vertex (shade_data's info, non-delta on conn lanes) is a light seen from
+    the front; no eta_vcm in the weight, depth 0 exempt from the clamp."""
+    num_lights = max(scene.num_lights, 1)
+    is_light = conn & (info["light_ind"] >= 0) & ~info["backface"]
+    lrow = scene.light_f32[torch.clamp(info["light_ind"], min=0)]
+    le, area = lrow[:, 12:15], lrow[:, 15]
+    cos_l = dot(info["normal"], to_prev)
+    pdf_connect = torch.where(
+        prev_delta, 0.0,
+        true_div(float(np.float32(1.0 / num_lights)),
+                 torch.clamp(area, min=1e-20)))
+    w_eye = (pdf_connect * d_vcm
+             + pdf_connect * true_div(cos_l, PI) * d_vc)
+    out = _weighted(le * thr, 1.0 / (1.0 + w_eye), cfg)
+    if depth > 0:   # directly seen emission is not clamped
+        out = _clamp_firefly(out)
+    return torch.where(is_light[:, None], out, 0.0)
+
+
 def _connect_vcm(scene, e, lv, conn, ones, colorsum, cfg, eta_vcm):
     """s >= 2 against one stored light vertex per lane; returns
     (colorsum, the shadow rays traced)."""
+    do, e2l_u, dist, cos_l, cos_e, d2 = conn_geometry(e, lv, conn)
+    rays = int(do.sum())
+    shadow = traverse.shadow_factor(scene, e["pos"] + e["n"] * RAY_EPSILON,
+                                    e2l_u, dist - RAY_EPSILON, active=do)
+    do = do & (shadow.amax(dim=-1) > 0.0)
+    base, weight = conn_terms(scene, e, lv, ones, e2l_u, cos_l, cos_e, d2,
+                              eta_vcm)
+    out = _clamp_firefly(_weighted(base * shadow, weight, cfg))
+    return colorsum + torch.where(do[:, None], out, 0.0), rays
+
+
+def conn_geometry(e, lv, conn):
+    """The connection's gate and geometry: (do, e2l_u, dist, cos_l, cos_e,
+    d2) for eye vertices e and light vertices lv [N]; do = conn, the light
+    vertex valid and not delta, both cosines >= EPSILON."""
     do = conn & lv["valid"] & ~lv["is_delta"]
     e2l = lv["pt"] - e["pos"]
     d2 = torch.clamp(length_sq(e2l), min=RAY_EPSILON)
@@ -295,11 +321,12 @@ def _connect_vcm(scene, e, lv, conn, ones, colorsum, cfg, eta_vcm):
     cos_l = torch.abs(dot(lv["n"], -e2l_u))
     cos_e = torch.abs(dot(e["n"], e2l_u))
     do = do & (cos_l >= EPSILON) & (cos_e >= EPSILON)
-    rays = int(do.sum())
-    shadow = traverse.shadow_factor(scene, e["pos"] + e["n"] * RAY_EPSILON,
-                                    e2l_u, dist - RAY_EPSILON, active=do)
-    do = do & (shadow.amax(dim=-1) > 0.0)
+    return do, e2l_u, dist, cos_l, cos_e, d2
 
+
+def conn_terms(scene, e, lv, ones, e2l_u, cos_l, cos_e, d2, eta_vcm):
+    """The unshadowed connection (((thr beta_l) f_eye) f_light) G and its
+    MIS weight with eta_vcm (0 for BDPT's weights)."""
     mat_l = _gather_mat(scene, lv["mat_id"])
     albedo_l = bsdf_ops.resolve_albedo(scene, mat_l, lv["uv"])
     trans_l = bsdf_ops.resolve_transmission(scene, mat_l, lv["uv"])
@@ -331,9 +358,7 @@ def _connect_vcm(scene, e, lv, conn, ones, colorsum, cfg, eta_vcm):
     f_light = bsdf_ops.bsdf_f(mat_l, albedo_l, l2e_loc_l, -to_l_from_prev_loc,
                               ones, transmission=trans_l)
     gg = torch.clamp(cos_e * cos_l / d2, max=MAX_G_CONNECT)
-    contrib = e["thr"] * lv["beta"] * f_eye * f_light * gg[:, None] * shadow
-    out = _clamp_firefly(_weighted(contrib, weight, cfg))
-    return colorsum + torch.where(do[:, None], out, 0.0), rays
+    return e["thr"] * lv["beta"] * f_eye * f_light * gg[:, None], weight
 
 
 def _merge_fold(e, cfg, eta_vcm: float, merge_norm: float):
@@ -341,33 +366,39 @@ def _merge_fold(e, cfg, eta_vcm: float, merge_norm: float):
     contribution at the eye vertex, evaluated on the in-range lanes only
     (every operation is per lane, so the values are those of the whole
     wavefront's)."""
-    eta = max(eta_vcm, 1e-30)
-
     def fold(colorsum, row, in_range, w_cell):
         idx = torch.nonzero(in_range)[:, 0]
         if idx.numel() == 0:
             return colorsum
-        _, wi, p_beta, p_d_vcm, p_d_vm = hashgrid.photon_fields(row[idx])
-        mat, nrm = _take(e["mat"], idx), e["n"][idx]
-        albedo, trans = e["albedo"][idx], e["trans"][idx]
-        prev_loc = e["prev_loc"][idx]
-        ones = torch.ones(idx.shape[0], dtype=torch.float32,
-                          device=idx.device)
-        wi_loc = to_local(wi, nrm)
-        f_val = bsdf_ops.bsdf_f(mat, albedo, wi_loc, prev_loc, ones,
-                                transmission=trans)
-        pdf_eye_rev = bsdf_ops.bsdf_pdf(mat, wi_loc, prev_loc, ones,
-                                        transmission=trans)
-        pdf_light_rev = bsdf_ops.bsdf_pdf(mat, prev_loc, wi_loc, ones,
-                                          transmission=trans)
-        w_eye = true_div(e["d_vcm"][idx], eta) + pdf_eye_rev * e["d_vm"][idx]
-        w_light = true_div(p_d_vcm, eta) + pdf_light_rev * p_d_vm
-        weight = 1.0 / (1.0 + w_eye + w_light)
-        contrib = (p_beta * f_val * e["thr"][idx] * merge_norm
-                   * w_cell[idx][:, None])
+        base, weight = merge_terms(e, idx, row[idx], eta_vcm)
+        contrib = base * merge_norm * w_cell[idx][:, None]
         out = _weighted(contrib, weight, cfg)
         return colorsum.index_put((idx,), colorsum[idx] + out)
     return fold
+
+
+def merge_terms(e, idx, row, eta_vcm: float):
+    """The merge of photon rows [K,8] at eye lanes idx [K]: ((beta_p f)
+    thr) and the MIS weight. e: the eye vertex (pos, n, mat, albedo,
+    trans, thr, d_vcm, d_vm, prev_loc = its direction to the previous
+    vertex in its frame)."""
+    eta = max(eta_vcm, 1e-30)
+    _, wi, p_beta, p_d_vcm, p_d_vm = hashgrid.photon_fields(row)
+    mat, nrm = _take(e["mat"], idx), e["n"][idx]
+    albedo, trans = e["albedo"][idx], e["trans"][idx]
+    prev_loc = e["prev_loc"][idx]
+    ones = torch.ones(idx.shape[0], dtype=torch.float32, device=idx.device)
+    wi_loc = to_local(wi, nrm)
+    f_val = bsdf_ops.bsdf_f(mat, albedo, wi_loc, prev_loc, ones,
+                            transmission=trans)
+    pdf_eye_rev = bsdf_ops.bsdf_pdf(mat, wi_loc, prev_loc, ones,
+                                    transmission=trans)
+    pdf_light_rev = bsdf_ops.bsdf_pdf(mat, prev_loc, wi_loc, ones,
+                                      transmission=trans)
+    w_eye = true_div(e["d_vcm"][idx], eta) + pdf_eye_rev * e["d_vm"][idx]
+    w_light = true_div(p_d_vcm, eta) + pdf_light_rev * p_d_vm
+    weight = 1.0 / (1.0 + w_eye + w_light)
+    return p_beta * f_val * e["thr"][idx], weight
 
 
 # --- one sample --------------------------------------------------------------

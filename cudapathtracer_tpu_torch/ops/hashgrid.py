@@ -259,3 +259,133 @@ def fold_neighbors(grid: PhotonGrid, query_pos, merge_radius: float,
         if count_dropped:
             dropped += int(torch.where(active, count - kept, 0).sum())
     return (carry, dropped) if count_dropped else carry
+
+
+# --- K9's materialised forms: every candidate slot of every query at once ---
+
+# gather_neighbors' cell order: x step outermost (cell index bit 0 steps x)
+GATHER_CELLS = tuple(dx | (dy << 1) | (dz << 2) for dx in (0, 1)
+                     for dy in (0, 1) for dz in (0, 1))
+
+def _query_cells(grid: PhotonGrid, query_pos):
+    """The 8 corner cells of each query: (start [8,N] int64, count [8,N]
+    int64), cell c stepping x by bit 0, y by bit 1, z by bit 2."""
+    dev = query_pos.device
+    coord = _cell_coord(query_pos, grid.scene_min, grid.cell_size)
+    base = torch.floor(coord).to(torch.int32)
+    step = torch.where(coord - base.to(torch.float32) >= 0.5, 1,
+                       -1).to(torch.int32)
+    c = torch.arange(8, device=dev)
+    sel = torch.stack([c & 1, (c >> 1) & 1, (c >> 2) & 1],
+                      dim=-1).to(torch.int32)                    # [8,3]
+    h = _hash_cells(base[None] + step[None] * sel[:, None], grid.table_size)
+    se = grid.cell_se[h].to(torch.int64)                         # [8,N,2]
+    start = se[..., 0]
+    return start, torch.clamp(se[..., 1] - start, min=0)
+
+
+def _in_range(grid, query_pos, rows, ok, merge_radius: float):
+    """ok & the exact d^2 <= r^2 of each slot's row [M,N,8]."""
+    r2 = float(np.float32(merge_radius) * np.float32(merge_radius))
+    diff = query_pos[None] - rows[..., 0:3]
+    return ok & (dot(diff, diff) <= r2)
+
+
+def _active(query_pos, active):
+    if active is None:
+        return torch.ones(query_pos.shape[0], dtype=torch.bool,
+                          device=query_pos.device)
+    return active
+
+
+def neighbor_slots(grid: PhotonGrid, query_pos, merge_radius: float,
+                   max_per_cell: int, active=None):
+    """Every candidate slot of every query [N,3]: (rows [M,N,8], ok [M,N],
+    wgt [M,N], dropped as a Python int), cell-major. Standard mode: M =
+    8 x cap, slot (c, k) holds the cell's photon start + k (taken from the
+    two 8-photon bricks from start's, the second clamped to the last), ok
+    for k < min(count, cap), wgt count / kept. One-brick mode: M = 64,
+    slot (c, k) holds photon k of the brick holding start, ok for
+    rel = k - start % 8 in [0, kept), kept = min(count, cap, 8 - start % 8),
+    wgt count / kept. ok includes the exact distance test; dropped counts
+    count - kept over the active queries. Needs 1 <= cap <= 8."""
+    if not 1 <= max_per_cell <= 8:
+        raise ValueError("neighbor_slots needs 1 <= max_per_cell <= 8")
+    n = query_pos.shape[0]
+    active = _active(query_pos, active)
+    start, count = _query_cells(grid, query_pos)
+    max_brick = grid.rows.shape[0] // 8 - 1
+    w0 = start >> 3
+    a = start & 7
+    if one_brick_active(max_per_cell):
+        ks = torch.arange(8, device=start.device)
+        p_idx = (torch.clamp(w0, max=max_brick) << 3)[:, None] \
+            + ks[None, :, None]                                  # [8,8,N]
+        rel = ks[None, :, None] - a[:, None]
+        kept = torch.minimum(torch.clamp(count, max=max_per_cell), 8 - a)
+        ok = active & (rel >= 0) & (rel < kept[:, None])
+        w = _window_weight(count, kept)
+    else:
+        ks = torch.arange(max_per_cell, device=start.device)
+        pos = a[:, None] + ks[None, :, None]                     # [8,cap,N]
+        brick = torch.clamp(w0[:, None] + (pos >> 3), max=max_brick)
+        p_idx = (brick << 3) + (pos & 7)
+        kept = torch.clamp(count, max=max_per_cell)
+        ok = active & (ks[None, :, None] < kept[:, None])
+        w = _window_weight(count, kept)
+    m = p_idx.shape[0] * p_idx.shape[1]
+    rows = grid.rows[p_idx.reshape(m, n)]
+    ok = _in_range(grid, query_pos, rows, ok.reshape(m, n), merge_radius)
+    wgt = w[:, None].expand(p_idx.shape).reshape(m, n)
+    dropped = int(torch.where(active, count - kept, 0).sum())
+    return rows, ok, wgt, dropped
+
+
+def neighbor_slots_compact(grid: PhotonGrid, query_pos, merge_radius: float,
+                           max_per_cell: int, cap_q: int, active=None):
+    """The candidate stream of neighbor_slots (each cell's kept photons,
+    cells in order) per query, truncated to its first cap_q entries:
+    (rows [cap_q,N,8], ok [cap_q,N], wgt [cap_q,N], dropped). Slot k of a
+    query lies in the cell c whose kept run holds it (cum_kept[c-1] <= k <
+    cum_kept[c]) and holds photon start_c + k - cum_kept[c-1]; past the
+    stream's end the slot reads photon 0 with ok false and wgt 0 (1 without
+    reweighting). dropped adds the stream's tail beyond cap_q to the
+    cells' count - kept."""
+    n, dev = query_pos.shape[0], query_pos.device
+    active = _active(query_pos, active)
+    start, count = _query_cells(grid, query_pos)
+    kept = torch.clamp(count, max=max_per_cell)
+    if one_brick_active(max_per_cell):
+        kept = torch.minimum(kept, 8 - (start & 7))
+    cum = torch.cumsum(kept, dim=0)                              # [8,N]
+    total = cum[7]
+    cum0 = torch.cat([torch.zeros_like(cum[:1]), cum[:-1]])
+    ks = torch.arange(cap_q, device=dev)
+    c_idx = (cum[None] <= ks[:, None, None]).sum(dim=1)          # [cap_q,N]
+    inside = c_idx < 8
+    pick = lambda t: torch.where(
+        inside, t.gather(0, torch.clamp(c_idx, max=7)), 0)
+    p_idx = pick(start) + ks[:, None] - pick(cum0)
+    ok = active & (ks[:, None] < torch.clamp(total, max=cap_q))
+    rows = grid.rows[torch.where(ok, p_idx, 0)]
+    ok = _in_range(grid, query_pos, rows, ok, merge_radius)
+    wgt = _window_weight(pick(count), pick(kept))
+    over = (count - kept).sum(dim=0) + torch.clamp(total - cap_q, min=0)
+    return rows, ok, wgt, int(torch.where(active, over, 0).sum())
+
+
+def gather_neighbors(grid: PhotonGrid, query_pos, merge_radius: float,
+                     max_per_cell: int, active=None):
+    """Yield (photon row [N,8], in_range [N]) for every slot (cell, k), k <
+    max_per_cell: the cell's photon start + k where k < count (uncapped by
+    the one-brick window), else photon 0 with in_range false. The cells
+    come with the x step outermost and the z step innermost (GATHER_CELLS).
+    in_range includes the exact distance test."""
+    active = _active(query_pos, active)
+    start, count = _query_cells(grid, query_pos)
+    for c in GATHER_CELLS:
+        for k in range(max_per_cell):
+            ok = active & (k < count[c])
+            row = grid.rows[torch.where(ok, start[c] + k, 0)]
+            yield row, _in_range(grid, query_pos, row[None], ok[None],
+                                 merge_radius)[0]

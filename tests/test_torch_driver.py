@@ -2,9 +2,10 @@
 
 No float tolerance here: these tests check the product surface — a real
 BMP from the CLI (also from configs/cornell.rendertron as shipped, which
-renders with the default mega engine), exact checkpoint resume, refusal of
-what is not ported, that neither JAX nor the JAX package is imported, and
-that the CPU path launches no kernel."""
+renders with the default mega engine), every integrator with its default
+engine, exact checkpoint resume, refusal of an unknown engine, that neither
+JAX nor the JAX package is imported, and that the CPU path launches no
+kernel."""
 
 import os
 import subprocess
@@ -101,14 +102,46 @@ def test_checkpoint_resume_exact(tmp_path):
     ("mega", "BIDIRECTIONAL"), ("classic", "NAIVE_UNIDIRECTIONAL"),
     ("mega", "VCM"), ("mega", "SPPM")])
 def test_unported_raise(tmp_path, engine, integrator):
-    cfg = parse_config(_config_text(tmp_path, engine, integrator))
-    # the bidirectional family's default mega engine is the mega-variant
-    # item (its classic engine is ported)
-    item = "ROADMAP M7" if integrator.startswith("NAIVE") else "ROADMAP M12"
-    with pytest.raises(NotImplementedError, match=item):
+    """What raised NotImplementedError before the mega engines and naive
+    were ported now renders through Renderer and the CLI on the CPU (a
+    real image, rays, no kernel launched); an unknown engine still
+    raises."""
+    cfg = parse_config(_config_text(tmp_path / "r", engine, integrator))
+    kernels.reset_launches()
+    r = Renderer(cfg, device="cpu")
+    img = r.render(num_samples=1, progressive=False, verbose=False)
+    assert img.pixels.shape == (24, 32, 3)
+    fb = r.framebuffer()
+    assert np.isfinite(fb).all() and (fb >= 0).all()
+    lit = (fb.max(axis=-1) > 0).mean()
+    # SPPM sees only what its photons light and naive only paths that
+    # reach the light by BSDF sampling: both are sparse at 1 spp
+    assert lit > (0.02 if integrator in ("SPPM", "NAIVE_UNIDIRECTIONAL")
+                  else 0.9)
+    assert r.metrics.rays_traced > 24 * 32
+    if integrator in ("VCM", "SPPM"):
+        assert r.metrics.merge_dropped is not None
+    assert all(v == 0 for v in kernels.launches.values())
+    path = tmp_path / "cfg.rendertron"
+    out = tmp_path / "renders"
+    path.write_text(_config_text(out, engine, integrator))
+    assert cli.main([str(path), "--device", "cpu", "--no-progressive",
+                     "--samples", "1"]) == 0
+    assert load_bmp(str(out / "tiny0.bmp"), decode_srgb=False).shape == \
+        (24, 32, 3)
+    bad = parse_config(_config_text(tmp_path, "wavefront", integrator))
+    with pytest.raises(NotImplementedError, match="wavefront"):
+        Renderer(bad, device="cpu")
+
+
+def test_unknown_engine_raises(tmp_path):
+    """An engine other than mega or classic raises, through Renderer and
+    through the CLI."""
+    cfg = parse_config(_config_text(tmp_path, "threaded"))
+    with pytest.raises(NotImplementedError, match="'mega'.*'classic'"):
         Renderer(cfg, device="cpu")
     path = tmp_path / "cfg.rendertron"
-    path.write_text(_config_text(tmp_path, engine, integrator))
+    path.write_text(_config_text(tmp_path, "threaded"))
     with pytest.raises(NotImplementedError):
         cli.main([str(path), "--device", "cpu"])
 
@@ -188,9 +221,9 @@ def test_default_device_is_cuda(tmp_path):
 
 
 def test_port_never_imports_jax(tmp_path):
-    """The port parses a config with its own parser and renders with both
-    engines, classic BDPT, VCM and SPPM without importing jax or any
-    module of the JAX package."""
+    """The port parses a config with its own parser and renders every
+    integrator with both engines without importing jax or any module of
+    the JAX package."""
     code = f"""
 import sys
 import cudapathtracer_tpu_torch
@@ -200,7 +233,9 @@ from cudapathtracer_tpu_torch.driver import Renderer
 for engine, integ in (("mega", "UNIDIRECTIONAL"),
                       ("classic", "UNIDIRECTIONAL"),
                       ("classic", "BIDIRECTIONAL"), ("classic", "VCM"),
-                      ("classic", "SPPM")):
+                      ("classic", "SPPM"), ("mega", "BIDIRECTIONAL"),
+                      ("mega", "VCM"), ("mega", "SPPM"),
+                      ("mega", "NAIVE_UNIDIRECTIONAL")):
     cfg = parse_config({_config_text(tmp_path / 'r')!r}.replace(
         "Engine: classic", "Engine: " + engine).replace(
         "Integrator: UNIDIRECTIONAL", "Integrator: " + integ))

@@ -291,3 +291,88 @@ def test_one_brick_window_unbiased(monkeypatch):
     mean = (acc / 64).numpy()
     nz = full.sum(1) > 1e-3
     np.testing.assert_allclose(mean[nz], full[nz], rtol=0.12, atol=0.02)
+
+
+# --- K9's materialised forms -------------------------------------------------
+
+def _slot_grids(seed=27):
+    """A clustered seeded grid (cells hold up to ~12 photons, so caps 1-8
+    truncate and the one-brick window cuts) in both packages, and 300
+    queries, 90% active."""
+    p = 2403
+    ph = _photons(p, seed)
+    ph["pos"] = np.repeat(ph["pos"][: p // 3], 3, axis=0)[:p]
+    ph["pos"] += np.random.default_rng(seed).normal(
+        0, 0.01, ph["pos"].shape).astype(np.float32)
+    j, t = _rows(ph)
+    gen = np.random.default_rng(seed + 1)
+    valid = gen.uniform(size=p) < 0.9
+    r = float(np.float32(0.09))
+    salt = hashgrid.photon_salt(4)
+    jg = jhashgrid.build_grid(j, jnp.asarray(valid), jnp.asarray(SMIN), r,
+                              hashgrid.photon_table_size(p),
+                              salt=jnp.uint32(salt))
+    tg = hashgrid.build_grid(t, torch.as_tensor(valid), SMIN, r,
+                             hashgrid.photon_table_size(p), salt=salt)
+    q = gen.uniform(-0.9, 0.9, (300, 3)).astype(np.float32)
+    q[:100] = ph["pos"][gen.integers(0, p, 100)]   # queries on photons
+    active = gen.uniform(size=300) < 0.9
+    return jg, tg, q, active, r
+
+
+def _assert_slots_equal(got, want):
+    rows, ok, wgt = got[:3]
+    np.testing.assert_array_equal(rows.numpy().view(np.uint32),
+                                  _u32(want[0]))
+    np.testing.assert_array_equal(ok.numpy(), np.asarray(want[1]))
+    np.testing.assert_array_equal(wgt.numpy().view(np.uint32),
+                                  _u32(want[2]))
+    assert got[3] == int(want[3])
+
+
+@pytest.mark.parametrize("one_brick", [True, False])
+@pytest.mark.parametrize("cap", [1, 4, 8])
+def test_neighbor_slots_bit_equal(monkeypatch, cap, one_brick):
+    """neighbor_slots: rows, ok, wgt bit-equal and dropped equal to JAX in
+    both modes (M = 64 slots one-brick, 8 x cap standard)."""
+    monkeypatch.setenv("TPT_GRID_ONE_BRICK", "1" if one_brick else "0")
+    assert hashgrid.one_brick_active(cap) == one_brick
+    jg, tg, q, active, r = _slot_grids()
+    want = jhashgrid.neighbor_slots(jg, jnp.asarray(q), r, cap,
+                                    active=jnp.asarray(active))
+    got = hashgrid.neighbor_slots(tg, torch.as_tensor(q), r, cap,
+                                  active=torch.as_tensor(active))
+    assert got[0].shape == (64 if one_brick else 8 * cap, 300, 8)
+    _assert_slots_equal(got, want)
+    assert got[1].sum() > 100 and got[3] > 0
+
+
+@pytest.mark.parametrize("one_brick,cap,cap_q", [
+    (True, 8, 5), (True, 8, 40), (False, 4, 3), (False, 8, 70)])
+def test_neighbor_slots_compact_bit_equal(monkeypatch, one_brick, cap,
+                                          cap_q):
+    monkeypatch.setenv("TPT_GRID_ONE_BRICK", "1" if one_brick else "0")
+    jg, tg, q, active, r = _slot_grids()
+    want = jhashgrid.neighbor_slots_compact(jg, jnp.asarray(q), r, cap,
+                                            cap_q, active=jnp.asarray(active))
+    got = hashgrid.neighbor_slots_compact(tg, torch.as_tensor(q), r, cap,
+                                          cap_q,
+                                          active=torch.as_tensor(active))
+    assert got[0].shape == (cap_q, 300, 8)
+    _assert_slots_equal(got, want)
+    assert got[1].sum() > 50
+
+
+@pytest.mark.parametrize("cap", [4, 12])
+def test_gather_neighbors_bit_equal(cap):
+    jg, tg, q, active, r = _slot_grids()
+    want = list(jhashgrid.gather_neighbors(jg, jnp.asarray(q), r, cap,
+                                           active=jnp.asarray(active)))
+    got = list(hashgrid.gather_neighbors(tg, torch.as_tensor(q), r, cap,
+                                         active=torch.as_tensor(active)))
+    assert len(got) == len(want) == 8 * cap
+    for (trow, tok), (jrow, jok) in zip(got, want):
+        np.testing.assert_array_equal(trow.numpy().view(np.uint32),
+                                      _u32(jrow))
+        np.testing.assert_array_equal(tok.numpy(), np.asarray(jok))
+    assert sum(int(ok.sum()) for _, ok in got) > 100

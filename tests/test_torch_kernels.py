@@ -35,7 +35,8 @@ import torch
 
 import chip_smoke
 from cudapathtracer_tpu_torch import kernels
-from cudapathtracer_tpu_torch.models import bdpt, paths, vcm
+from cudapathtracer_tpu_torch.models import (bdpt, bdpt_mega, naive, paths,
+                                             vcm, vcm_mega)
 from cudapathtracer_tpu_torch.models import unidirectional as uni
 from cudapathtracer_tpu_torch.models import unidirectional_mega as mega
 from cudapathtracer_tpu_torch.ops import hashgrid, traverse8
@@ -68,7 +69,9 @@ def test_import_builds_nothing():
                                   "render_unidirectional", "shade_eval",
                                   "packing_roundtrip", "bdpt_walk",
                                   "bdpt_splat", "bdpt_connect", "vcm_splat",
-                                  "photon_pack", "photon_table", "vcm_eye"])
+                                  "photon_pack", "photon_table", "vcm_eye",
+                                  "rgb9e5_roundtrip", "neighbor_slots",
+                                  "mega_eye"])
 def test_wrappers_refuse_non_cuda_tensors(call):
     """A wrapper launches on CUDA tensors or raises; it never falls back."""
     kernels.reset_launches()
@@ -107,6 +110,11 @@ def test_wrappers_refuse_non_cuda_tensors(call):
                          torch.zeros(n, dtype=torch.int64),
                          torch.zeros((8, 2), dtype=torch.int32)),
         "vcm_eye": (scene, cam, [0] * 12, bufs, None, None, i1, vcfg),
+        "rgb9e5_roundtrip": (f3,),
+        "neighbor_slots": (hashgrid.PhotonGrid(
+            torch.zeros((16, 8)), torch.zeros((8, 2), dtype=torch.int32),
+            (0.0, 0.0, 0.0), 0.1, 7), f3, 0.05, 4),
+        "mega_eye": (scene, cam, [0] * 22, bufs, None, f3, i1, vcfg),
     }[call]
     kw = {"render_unidirectional": dict(
               max_depth=4, use_mis=True, sample_environment=False,
@@ -115,13 +123,18 @@ def test_wrappers_refuse_non_cuda_tensors(call):
           "bdpt_connect": dict(px=i1, py=i1),
           "vcm_eye": dict(px=i1, py=i1, merge_radius=0.1, eta_vcm=1.0,
                           merge_norm=1.0, one_brick=True,
-                          reweight=True)}.get(call, {})
+                          reweight=True),
+          "neighbor_slots": dict(mode="slots", one_brick=True,
+                                 reweight=True),
+          "mega_eye": dict(px=i1, py=i1, cnt=n, gbase=0,
+                           flavor="vcm")}.get(call, {})
     with pytest.raises(ValueError, match="CUDA"):
         getattr(kernels, call)(*args, **kw)
     meta = [a.to("meta") if isinstance(a, torch.Tensor) else a for a in args]
     with pytest.raises(ValueError, match="CUDA"):
         getattr(kernels, call)(*meta, **kw)
-    assert kernels.launches[call] == 0
+    assert kernels.launches[{"rgb9e5_roundtrip": "rgb9e5"}.get(call, call)] \
+        == 0
 
 
 @pytest.mark.cuda
@@ -454,3 +467,118 @@ def test_vcm_goldens_on_card(cuda, name):
         __file__)), "golden", f"cornell_{name}_16x16_8spp.npy"))
     err = np.sqrt(np.mean(((acc / 8).cpu().numpy() - golden) ** 2))
     assert err < 1e-3, f"rmse {err:.3g}"
+
+
+# --- the mega engines (K14), K9's materialised forms, RGB9E5, naive ---------
+
+@pytest.mark.cuda
+def test_rgb9e5_matches_plain(cuda):
+    """K10's RGB9E5 mode bit-equal to the plain codec, edge values
+    included (chip_smoke's rgb9e5_inputs and compare_rgb9e5)."""
+    c = chip_smoke.rgb9e5_inputs(200000).to(cuda)
+    kernels.reset_launches()
+    k = kernels.rgb9e5_roundtrip(c)
+    assert kernels.launches["rgb9e5"] == 1
+    chip_smoke.compare_rgb9e5(k, c, "test")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("one_brick", [True, False])
+@pytest.mark.parametrize("cap", [4, 8])
+def test_neighbor_slots_match_plain(cuda, monkeypatch, one_brick, cap):
+    """The three materialised forms bit-equal to their plain versions on a
+    VCM light walk's grid and the first hit points of the eye paths."""
+    monkeypatch.setenv("TPT_GRID_ONE_BRICK", "1" if one_brick else "0")
+    sc, cam, px, py = _vcm_setup("blocks", cuda)
+    cfg = vcm.VCMConfig(eye_depth=6, light_depth=4, max_per_cell=cap,
+                        r0_multiplier=0.03)
+    ch = chip_smoke.mega_inputs(sc, px, py, cfg, "vcm", 2,
+                                vcm_mega.mega_chunks(px.shape[0]))[0]
+    q, hit = chip_smoke.first_hits(sc, cam, px, py, 2)
+    kernels.reset_launches()
+    found = chip_smoke.compare_slots(ch["grid"], q, hit, ch["mr"], cap,
+                                     f"cap {cap}")
+    assert kernels.launches["neighbor_slots"] == 3
+    assert found > 0
+
+
+MEGA_CASES = {
+    "vcm": ("vcm", {}, {}), "sppm": ("vcm", VCM_CASES["sppm"][0], {}),
+    "vcm_two_chunks": ("vcm", {}, dict(chunk_pixels=96 * 32)),
+    "vcm_pad": ("vcm", {}, dict(width=1000)),
+    "cap12": ("vcm", dict(max_per_cell=12), {}),
+    "environment": ("vcm", dict(sample_environment=True), {}),
+    "bdpt": ("bdpt", {}, {}), "bdpt_pad": ("bdpt", {}, dict(width=1000)),
+    "bdpt_no_nee": ("bdpt", dict(nee=False), {}),
+    "bdpt_no_connection": ("bdpt", dict(connection=False), {}),
+    "bdpt_paint_weight": ("bdpt", dict(paint_weight=True), {}),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,case", [("blocks", c) for c in MEGA_CASES]
+                         + [("spheres", "vcm"), ("spheres", "bdpt")])
+def test_mega_eye_matches_plain(cuda, name, case):
+    """K14 against its plain version on every chunk of a sample, on the
+    same light buffers and grid (chip_smoke's compare_mega: rays and
+    dropped photons equal, >= 99.9% of pixels within rtol 1e-3), in both
+    flavours, with two chunks, with pads, with the fold's cap and the
+    strategy flags."""
+    flavor, over, part = MEGA_CASES[case]
+    sc, cam, px, py = _vcm_setup(name, cuda)
+    cfg = dataclasses.replace(vcm.VCMConfig(eye_depth=6, light_depth=4),
+                              **over)
+    if flavor == "bdpt":
+        cfg = bdpt_mega.as_machine_cfg(dataclasses.replace(
+            bdpt.BDPTConfig(eye_depth=6, light_depth=4), **over))
+    kernels.reset_launches()
+    res = chip_smoke.compare_mega(sc, cam, px, py, cfg, flavor, 1,
+                                  f"{name} {case}", **part)
+    assert kernels.launches["mega_eye"] == res["chunks"].n_chunks
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("integrator", ["VCM", "SPPM", "BIDIRECTIONAL"])
+def test_mega_render_launches(cuda, integrator):
+    """One sample of each mega engine through render_sample on the card:
+    finite, non-negative, the launches per chunk (VCM: K12, vcm_splat,
+    photon_pack, photon_table, mega_eye; SPPM without the splat; BDPT:
+    K12, bdpt_splat, mega_eye)."""
+    sc, cam, px, py = _vcm_setup("blocks", cuda)
+    kernels.reset_launches()
+    if integrator == "BIDIRECTIONAL":
+        li, rays = bdpt_mega.render_sample(
+            sc, cam, rng.base_key(), 0, px, py,
+            cfg=bdpt.BDPTConfig(eye_depth=6, light_depth=4),
+            chunk_pixels=96 * 32)
+        want = dict(bdpt_walk=2, bdpt_splat=2, mega_eye=2)
+    else:
+        cfg = vcm.VCMConfig(eye_depth=6, light_depth=4)
+        if integrator == "SPPM":
+            cfg = dataclasses.replace(cfg, **VCM_CASES["sppm"][0])
+        li, rays, _ = vcm_mega.render_sample(sc, cam, rng.base_key(), 0, px,
+                                             py, cfg=cfg,
+                                             chunk_pixels=96 * 32)
+        want = dict(bdpt_walk=2, vcm_splat=2 * cfg.light_trace,
+                    photon_pack=2, photon_table=2, mega_eye=2)
+    assert all(kernels.launches[k] == v for k, v in want.items()), \
+        kernels.launches
+    assert bool(torch.isfinite(li).all()) and bool((li >= 0).all())
+    assert rays > px.shape[0]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["blocks", "spheres", "leaf"])
+def test_naive_matches_plain(cuda, name):
+    mesh = {"blocks": builtin.cornell_with_blocks,
+            "spheres": builtin.cornell_with_spheres,
+            "leaf": lambda: builtin.cornell_with_bunny(3, bunny_mat=13)}[name]
+    sc, _ = build_scene(mesh(), builtin_materials(), device=cuda)
+    cam = Camera.pinhole((0.0, 0.0, 1.0), 96, 64, 0.0, 0.0, 0.0, 60.0)
+    px, py = _grid(96, 64, cuda)
+    kernels.reset_launches()
+    k = naive.render_kernel(sc, cam, rng.base_key(), 1, px, py, max_depth=6)
+    assert kernels.launches["naive"] == 1
+    assert kernels.launches["render_unidirectional"] == 0
+    p = naive.render_plain(sc, cam, rng.base_key(), 1, px, py, max_depth=6)
+    chip_smoke.compare_render(k, p, f"{name} naive")

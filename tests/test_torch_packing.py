@@ -106,3 +106,69 @@ def test_oct_roundtrip_is_stable(seed):
     u = packing.pack_oct(torch.as_tensor(v))
     u2 = packing.pack_oct(packing.unpack_oct(u))
     assert (u2 == u).float().mean().item() > 0.999
+
+
+# --- RGB9E5: the mega engines' per-path retirement --------------------------
+
+def _rgb9e5_colours(seed=6):
+    """Zeros, negatives, tiny and subnormal values, values above the 9e5
+    maximum (65408) and infinity, values within 8 ulps of every power of
+    two the shared exponent meets, values on the mantissa's rounding edges
+    ((m + 1/2) 2^(e-9)) and their float neighbours, then lognormal colours
+    over the codec's whole range; the channels permuted against each other
+    so each edge is met as the largest channel and below it."""
+    gen = np.random.default_rng(seed)
+    edge = [np.array([0.0, -0.0, -1.0, -1e30, 1e-45, 1e-38, 1e-30, 1e-10,
+                      3e-5, 65408.0, 65409.0, 65535.0, 1e5, 1e30, np.inf],
+                     np.float32)]
+    for k in range(-26, 18):
+        b = np.float32(2.0 ** k).view(np.int32)
+        edge.append((b + np.arange(-8, 9)).astype(np.int32).view(np.float32))
+    half = (np.arange(0, 512, 7, dtype=np.float64) + 0.5)
+    for e in range(-15, 17):
+        mid = (half * 2.0 ** (e - 9)).astype(np.float32)
+        edge += [mid, np.nextafter(mid, np.float32(0)),
+                 np.nextafter(mid, np.float32(np.inf))]
+    edge = np.concatenate(edge).astype(np.float32)
+    k = edge.size
+    c = np.empty((N, 3), np.float32)
+    c[:k, 0] = edge
+    c[:k, 1] = gen.permutation(edge) * gen.uniform(0, 1, k).astype(np.float32)
+    c[:k, 2] = gen.permutation(edge)
+    c[k:] = gen.lognormal(-2.0, 4.0, (N - k, 3))
+    return c
+
+
+def test_rgb9e5_bit_equal():
+    """pack_rgb9e5, pack_rgb9e5_cols and unpack_rgb9e5 bit-equal to JAX,
+    edge values included; the round trip keeps each channel within 2^-8
+    of the largest (half a mantissa step, 2^-9 of it, where log2 does not
+    round the exponent up just below a power of two)."""
+    c = _rgb9e5_colours()
+    ju = np.asarray(jpacking.pack_rgb9e5(jnp.asarray(c)))
+    tu = packing.pack_rgb9e5(torch.as_tensor(c))
+    np.testing.assert_array_equal(tu.numpy().view(np.uint32), ju)
+    tcols = packing.pack_rgb9e5_cols(torch.as_tensor(c.T.copy()))
+    np.testing.assert_array_equal(tcols.numpy().view(np.uint32), ju)
+    jd = np.asarray(jpacking.unpack_rgb9e5(jnp.asarray(ju)))
+    td = packing.unpack_rgb9e5(tu).numpy()
+    np.testing.assert_array_equal(_bits(td), _bits(jd))
+    rd = packing.round_rgb9e5(torch.as_tensor(c)).numpy()
+    np.testing.assert_array_equal(_bits(rd), _bits(jd))
+    # every exponent the codec has is met
+    assert len(np.unique(ju >> 27)) == 32
+    inside = np.isfinite(c).all(1) & (c >= 0).all(1) & (c.max(1) < 65408) \
+        & (c.max(1) > 2.0 ** -14)
+    err = np.abs(td - c)[inside].max(1) / c[inside].max(1)
+    assert err.max() <= 2.0 ** -8
+
+
+def test_rgb9e5_on_arbitrary_words():
+    """unpack_rgb9e5 bit-equal to JAX on every kind of 32-bit word."""
+    words = np.random.default_rng(7).integers(0, 2 ** 32, N,
+                                              dtype=np.uint64)
+    words = words.astype(np.uint32)
+    words[:32] = np.arange(32, dtype=np.uint32) << 27
+    jd = np.asarray(jpacking.unpack_rgb9e5(jnp.asarray(words)))
+    td = packing.unpack_rgb9e5(torch.as_tensor(words.view(np.int32))).numpy()
+    np.testing.assert_array_equal(_bits(td), _bits(jd))

@@ -4,27 +4,28 @@ schedule).
 
   * The golden: the setup of tests/test_golden.py (cornell_with_blocks,
     16x16, pinhole at (0,0,1), fov 60, base_key(), max_depth 6, 8 spp)
-    within rmse 1e-3 of cornell_mega_16x16_8spp.npy, the golden's own
-    bound.
+    within rmse 1e-4 of cornell_mega_16x16_8spp.npy (the golden's own
+    bound is 1e-3; measured 2.3e-5, printed, where the port sat at 5.8e-4
+    before it retired each path through RGB9E5 as the JAX engine does).
   * Samples 0 and 1 of an 8x8 frame against JAX
     models/unidirectional_mega.render_sample at width 64 on the same
     inputs, on the four scenes of test_torch_unidirectional.py. At width
     64 every path of the frame rides the JAX machine's first wave, the
     only paths that start from the initial medium stack as the port's do
     (models/unidirectional_mega.py docstring). The ray counts are equal.
-    Radiance: the JAX engine retires each path's radiance through RGB9E5
-    (9-bit mantissas under a shared exponent, utils/packing.py), which
-    rounds a pixel by up to 2^-8 of its largest channel, so each element is
-    held to 2^-8 max_c + 1e-5 + rtol |jax|, with the rtol of the classic
-    test for that scene (GGX-peak and glass lanes,
-    test_torch_unidirectional.py). One pixel per scene may miss that bound:
-    a shadow ray that grazes a surface can see or miss it depending on one
-    ulp of its origin, and XLA contracts the hit point o + d*t into an FMA
-    where the port rounds twice (measured: one pixel of blocks sample 0,
-    5.9e-4 in the port and 0 in JAX, its NEE ray grazing a block's face).
-    Over all elements the max abs difference is held to 5e-2 (measured
-    7.2e-3, the RGB9E5 rounding of a ~15.6 pixel) and the image mean to
-    2e-3 relative (measured 3.3e-4).
+    Radiance: both engines retire each path through RGB9E5 (9-bit
+    mantissas under a shared exponent, utils/packing.py), so each element
+    is held to 1e-5 + rtol |jax|, with the rtol of the classic test for
+    that scene (GGX-peak and glass lanes, test_torch_unidirectional.py).
+    One pixel per scene may miss that bound by one RGB9E5 quantum (2^-8 of
+    its largest channel, a rounding edge the float paths reach from either
+    side) or by a grazing shadow ray, which can see or miss a surface
+    depending on one ulp of its origin (XLA contracts the hit point
+    o + d*t into an FMA where the port rounds twice). Measured: no pixel
+    over the bound; 510 of 512 pixels bit-equal, the other two (leaf,
+    sample 1) one quantum apart (3.9e-3, within that scene's rtol). Over
+    all elements the max abs difference is held to 5e-2 and the image mean
+    to 2e-3 relative (measured 1.8e-4).
   * The two schedules are not confused: the mega and classic renders of
     the golden setup are different noise realisations, each far (rmse
     > 1e-2) from the other's golden.
@@ -55,7 +56,6 @@ from cudapathtracer_tpu_torch.utils import rng
 from cudapathtracer_tpu_torch.utils.image import rmse
 
 GOLDEN = os.path.join(os.path.dirname(os.path.abspath(__file__)), "golden")
-RGB9E5_REL = 2.0 ** -8
 
 
 def _grid(w, h):
@@ -89,7 +89,8 @@ def golden_renders():
 def test_golden_cpu(golden_renders):
     golden = np.load(os.path.join(GOLDEN, "cornell_mega_16x16_8spp.npy"))
     err = rmse(golden_renders["mega"], golden)
-    assert err < 1e-3, f"golden drift: rmse={err:.2e}"
+    print(f"mega golden rmse {err:.3e}")
+    assert err < 1e-4, f"golden drift: rmse={err:.2e}"
 
 
 def test_schedules_not_confused(golden_renders):
@@ -132,8 +133,7 @@ def test_sample_matches_jax(name):
         want.append(np.asarray(jli))
     got, want = np.concatenate(got), np.concatenate(want)
     assert np.isfinite(got).all()
-    maxc = np.maximum(got.max(axis=1), want.max(axis=1))[:, None]
-    bound = RGB9E5_REL * maxc + 1e-5 + RTOL[name] * np.abs(want)
+    bound = 1e-5 + RTOL[name] * np.abs(want)
     err = np.abs(got - want)
     over = (err > bound).any(axis=1)
     assert over.sum() <= 1, (
