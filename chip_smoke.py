@@ -104,12 +104,44 @@ Phases (one line each; any failure exits non-zero before the result line):
      a sample; > 5% non-black, its image being sparse): rays, render-phase
      Mrays/s, peak memory, launches per sample;
  24. one 1080p VCM-mega and one BDPT-mega sample's launches timed with
-     CUDA events.
+     CUDA events;
+ 25. K5's k-sample mode (samples per dispatch, models/batch.py) bit-equal
+     to k single launches summed in sample order: the bunny scene at
+     512x512 with k = 8 for the mega, classic and naive schedules and at
+     1080p with k = 4 for mega; CUDA events of the batch against the
+     singles; the 1080p batch also against the plain batch (batch.py's
+     loop over K5's plain version, compared as phase 7 compares K5);
+ 26. K6's keyed mode bit-equal to uniform_keyed's plain version on
+     2,073,600 ids with per-lane key pairs; K12's table mode (the keyed
+     light walk of models/light_mega.py) bit-equal to its folded mode on
+     chunk 0 of the 1080p mega partition (1,036,800 light paths), VCM and
+     BDPT flavours, both timed, and against its plain version (the classic
+     walk drawing from the same tables; compare_walk, rays within 0.1%);
+ 27. the batched main path: configs/vcm_caustics.rendertron as shipped
+     (512x512, VCM-mega, 256 samples, 8 per dispatch by the auto rule)
+     through cli.main with the checks on (Mrays/s, K14 launches, the
+     checks summary); the same at 16 samples, 1 against 8 per dispatch
+     (rays and dropped photons equal, the int64 dropped total against its
+     int32 wrap; pixels within 1e-5 + 1e-5 |x|); VCM-mega at 1080p, 2
+     samples, 1 against 2 per dispatch (the same equalities, and a batched
+     dropped total above 2^31); UNIDIRECTIONAL-mega and
+     NAIVE at 256x256 on cornell_blocks, 256 samples, 1 against 8 per
+     dispatch (256 against 32 K5 launches); one batch of every integrator
+     and engine under torch.cuda's sync debug mode "error" (no host sync
+     inside a batch, int64 counts on the card);
+ 28. TPT_MEGA_LIGHT=1: BDPT-mega and VCM-mega at 1080p, 1 sample each,
+     routed through light_mega (K12's table mode), against the toggle-off
+     render (rays equal, pixels within the splat's atomic spread);
+ 29. BDPT_DRAWPATH on the 1080p BIDIRECTIONAL render: the overlay from
+     K12's eye walk equals the one drawn from the plain walk's paths, and
+     the image changes only under it.
 Then one JSON line with each kernel's launches on its main path (the
 BDPT kernels on the BDPT path, the photon kernels on the VCM path, mega_eye
 on the VCM-mega path, naive on the naive path, the others on the mega
-path; rgb9e5 and neighbor_slots are the test entries of device code that
-runs inside K5 and K14, so 0), error and times against its plain version, its
+path; uni_mega_batch on the 256x256 UNIDIRECTIONAL path at 8 per
+dispatch, bdpt_walk_table on the TPT_MEGA_LIGHT VCM-mega path; rgb9e5,
+neighbor_slots and uniform_keyed are the test entries of device code that
+runs inside K5, K14 and K12, so 0), error and times against its plain version, its
 bound on this card and the library call's time (null: no PyTorch call
 computes these functions), the card's name and power limit, and as the
 last line {"ok": true, "device": {...}}.
@@ -117,7 +149,10 @@ last line {"ok": true, "device": {...}}.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import importlib
+import io
 import json
 import os
 import re
@@ -163,6 +198,11 @@ KERNELS = (  # name, source, the JAX function it replaces
     ("mega_eye", CSRC + "mega_eye.cu",
      "cudapathtracer_tpu/models/vcm_mega.py:322"),
     ("naive", CSRC + "uni_mega.cu", "cudapathtracer_tpu/models/naive.py:41"),
+    ("uni_mega_batch", CSRC + "uni_mega.cu",
+     "cudapathtracer_tpu/models/batch.py:33"),
+    ("uniform_keyed", CSRC + "rng.cu", "cudapathtracer_tpu/utils/rng.py:140"),
+    ("bdpt_walk_table", CSRC + "bdpt_walk.cu",
+     "cudapathtracer_tpu/models/light_mega.py:108"),
 )
 BDPT_KERNELS = ("bdpt_walk", "bdpt_splat", "bdpt_connect")
 PHOTON_KERNELS = ("vcm_splat", "photon_pack", "photon_table", "vcm_eye")
@@ -340,6 +380,7 @@ def compare_render(k, p, what: str) -> float:
     (atol 1e-6) on every channel. Returns the max abs pixel error."""
     import torch
     (kl, kr), (pl, pr) = k, p
+    kr, pr = int(kr), int(pr)
     rays = abs(kr - pr) / pr
     ratio = (kl.double().mean() / pl.double().mean()).item()
     close = torch.isclose(kl, pl, rtol=1e-3, atol=1e-6).all(dim=1)
@@ -594,6 +635,7 @@ def compare_image(k, p, what: str, tag: str, share: float) -> float:
     abs pixel error."""
     import torch
     (kl, kr), (pl, pr) = k, p
+    kr, pr = int(kr), int(pr)
     rays = abs(kr - pr) / max(pr, 1)
     ratio = (kl.double().mean() / pl.double().mean()).item()
     close = torch.isclose(kl, pl, rtol=1e-3, atol=1e-5).all(dim=1)
@@ -1057,10 +1099,13 @@ def main() -> int:
         return 2
     sys.path.insert(0, ROOT)
     from cudapathtracer_tpu_torch import kernels
-    from cudapathtracer_tpu_torch.models import (bdpt, bdpt_mega, naive,
-                                                 paths, unidirectional,
+    from cudapathtracer_tpu_torch.models import (bdpt, bdpt_mega,
+                                                 light_mega, naive, paths,
+                                                 unidirectional,
                                                  unidirectional_mega, vcm,
                                                  vcm_mega)
+    from cudapathtracer_tpu_torch.models.batch import make_batched
+    from cudapathtracer_tpu_torch.scene.materials import TRANSPORT_IMPORTANCE
     from cudapathtracer_tpu_torch.ops import hashgrid, traverse8
     from cudapathtracer_tpu_torch.scene import builtin
     from cudapathtracer_tpu_torch.scene.camera import Camera
@@ -1879,6 +1924,172 @@ def main() -> int:
         f"{stats['naive']['bound'][0]:.4f} ms ({stats['naive']['bound'][1]})")
     del kn, pn, rows_n
 
+    # --- 25. K5's k-sample mode (models/batch.py, B1): one launch of k
+    # samples bit-equal to k single launches summed in sample order, on the
+    # bunny scene at 512x512 (k = 8) for the three schedules and at 1080p
+    # (k = 4) for the mega schedule; CUDA events of the batch against the
+    # k singles
+    kbase = rng.base_key()
+    for sched, kw_, kh_, kk in (("mega", 512, 512, 8), ("classic", 512, 512, 8),
+                                ("naive", 512, 512, 8),
+                                ("mega", WIDTH, HEIGHT, 4)):
+        kcam = Camera.pinhole((0.0, 0.0, 1.0), kw_, kh_, 0.0, 0.0, 0.0,
+                              60.0)
+        ky, kx = torch.meshgrid(
+            torch.arange(kh_, dtype=torch.int32, device=dev),
+            torch.arange(kw_, dtype=torch.int32, device=dev), indexing="ij")
+        kx, ky = kx.reshape(-1).contiguous(), ky.reshape(-1).contiguous()
+        k5kw = dict(max_depth=DEPTH, use_mis=sched != "naive",
+                    sample_environment=False, schedule=sched)
+        kernels.reset_launches()
+        bli, brays = unidirectional.render_batch_kernel(
+            scene, kcam, kbase, 0, kx, ky, kk, **k5kw)
+        torch.cuda.synchronize()
+        check(kernels.launches["uni_mega_batch"] == 1
+              and sum(kernels.launches.values()) == 1,
+              f"K5 k-mode {sched}: launches {kernels.launches}")
+        acc, tot = torch.zeros_like(bli), 0
+        for s_ in range(kk):
+            l1, r1 = unidirectional.render_kernel(scene, kcam, kbase, s_, kx,
+                                                  ky, **k5kw)
+            acc = acc + l1
+            tot += int(r1)
+        check(torch.equal(bli, acc) and int(brays) == tot,
+              f"K5 k-mode {sched} {kw_}x{kh_}: not bit-equal to {kk} single "
+              f"launches (rays {int(brays)} vs {tot}, max abs "
+              f"{(bli - acc).abs().max().item():.3g})")
+        ms_b = cuda_ms(lambda: unidirectional.render_batch_kernel(
+            scene, kcam, kbase, 0, kx, ky, kk, **k5kw), 3)
+        ms_s = cuda_ms(lambda: [unidirectional.render_kernel(
+            scene, kcam, kbase, s_, kx, ky, **k5kw) for s_ in range(kk)], 3)
+        say("K5 k-mode", f"{sched} {kw_}x{kh_}, k = {kk}: li_sum and {tot} "
+            f"rays bit-equal to {kk} single launches summed; one launch "
+            f"{ms_b:.3f} ms, {kk} singles {ms_s:.3f} ms ({card})")
+        if kw_ == WIDTH:
+            _, _, brows = kernels.render_unidirectional_batch(
+                scene, kx, ky, kcam.kernel_params(), kernels.upload_words(
+                    [unidirectional.kernel_keys(kbase, s_)
+                     for s_ in range(kk)], dev), with_rows=True,
+                air_priority=scene.air_priority, **k5kw)
+            # the plain batch (models/batch.py's loop over K5's plain
+            # version), kept to hold the k-sample launch against it
+            pbatch = []
+            plain_b_ms = cuda_ms(lambda: pbatch.append(make_batched(
+                lambda sc_, c_, k_, s_, x_, y_: unidirectional.render_plain(
+                    sc_, c_, k_, s_, x_, y_, **k5kw))(
+                        scene, kcam, kbase, 0, kx, ky, kk)), 1, warmup=0)
+            stats["uni_mega_batch"].update(
+                bound=bound_ms(tbytes5 + kx.numel() * (8 + 12 + 4)
+                               + kk * 28 * 4,
+                               int(brows.sum()) * OPS_PER_ROW
+                               + kk * kx.numel() * OPS_PER_CAMERA_RAY),
+                max_abs_err=compare_render(
+                    (bli, brays), pbatch[0],
+                    f"{kw_}x{kh_} bunny, k = {kk} batch against the plain "
+                    "batch"),
+                ms=ms_b, plain_ms=plain_b_ms)
+            del pbatch
+            say("K5 k-mode", f"1080p k = {kk}: plain batch "
+                f"{stats['uni_mega_batch']['plain_ms']:.3f} ms; bound "
+                f"{stats['uni_mega_batch']['bound'][0]:.4f} ms "
+                f"({stats['uni_mega_batch']['bound'][1]}); "
+                f"{int(brows.sum())} BVH8 rows")
+        del bli, acc
+
+    # --- 26. the keyed draws: K6's keyed mode bit-equal to uniform_keyed's
+    # plain version on 2,073,600 ids with per-lane key pairs, then K12's
+    # table mode (the keyed light walk of light_mega) against its folded
+    # mode on chunk 0 of the 1080p mega partition (1,036,800 light paths),
+    # in the VCM flavour (eta_vcm) and the BDPT flavour
+    gen = np.random.default_rng(23)
+    kw0 = torch.as_tensor(gen.integers(0, 2 ** 32, n, dtype=np.uint64)
+                          .astype(np.uint32).view(np.int32), device=dev)
+    kw1 = torch.as_tensor(gen.integers(0, 2 ** 32, n, dtype=np.uint64)
+                          .astype(np.uint32).view(np.int32), device=dev)
+    uk = rng.uniform_keyed(kw0, kw1, ids)
+    up = rng.uniform_keyed_plain(kw0, kw1, ids)
+    check(torch.equal(uk.view(torch.int32), up.view(torch.int32)),
+          "K6 keyed: the kernel's draws are not bit-equal to the plain "
+          "version")
+    stats["uniform_keyed"].update(
+        bound=bound_ms(n * 16, n * OPS_PER_DRAW), max_abs_err=0.0,
+        ms=cuda_ms(lambda: rng.uniform_keyed(kw0, kw1, ids), 50),
+        plain_ms=cuda_ms(lambda: rng.uniform_keyed_plain(kw0, kw1, ids), 10))
+    say("K6 keyed", f"{n} ids with per-lane key pairs bit-equal; kernel "
+        f"{stats['uniform_keyed']['ms']:.4f} ms, plain "
+        f"{stats['uniform_keyed']['plain_ms']:.4f} ms")
+    del kw0, kw1, uk, up
+    vc0 = vcm.VCMConfig.from_config(load_config(os.path.join(
+        ROOT, "configs", "cornell.rendertron")))
+    ch0 = vcm_mega.mega_chunks(n)
+    pxc0, pyc0, cnt0 = vcm_mega.chunk_pixels_of(px, py, 0, ch0.c_pix)
+    key_l0, _ = vcm.sample_keys(rng.base_key(), 0)
+    _, eta0, _ = vcm_mega.chunk_scalars(scene, vc0, 0, cnt0)
+    tb_ms = {}
+    for flavor, depth_, eta_ in (("vcm", vc0.light_depth + 1, eta0),
+                                 ("bdpt", vc0.light_depth, None)):
+        ktab, ketab = light_mega.key_tables(key_l0, depth_)
+        table = light_mega.device_table(ktab, ketab, dev)
+
+        def lwalk(tab, with_rows=False):
+            r_ = torch.zeros(ch0.c_pix, dtype=torch.int32, device=dev)
+            w_ = kernels.bdpt_walk(scene, pxc0, pyc0,
+                                   paths.walk_keys(key_l0, "light"),
+                                   mode="light", max_depth=depth_, rays=r_,
+                                   eta_vcm=eta_, key_table=tab,
+                                   with_rows=with_rows)
+            return w_, r_
+        (tw, tr), (fw, fr) = lwalk(table, True), lwalk(None)
+        diverged = ((tw["bufs"].valid != fw["bufs"].valid).any(0)
+                    | ((tw["bufs"].pt != fw["bufs"].pt).any(-1)).any(0))
+        check(int(diverged.sum()) == 0, f"K12 table mode {flavor}: "
+              f"{int(diverged.sum())} lanes diverged from the folded mode")
+        for name_, a_, b_ in zip(paths.PathBuffers._fields, tw["bufs"],
+                                 fw["bufs"]):
+            check(torch.equal(a_, b_), f"K12 table mode {flavor}: {name_} "
+                  "differs from the folded mode")
+        for k_ in fw["v0"]:
+            check(torch.equal(tw["v0"][k_], fw["v0"][k_]),
+                  f"K12 table mode {flavor}: endpoint {k_} differs")
+        check(torch.equal(tr, fr), f"K12 table mode {flavor}: rays differ")
+        tb_ms[flavor] = (cuda_ms(lambda: lwalk(table), 3),
+                         cuda_ms(lambda: lwalk(None), 3))
+        say("K12 table", f"{flavor} flavour, chunk 0 ({ch0.c_pix} light "
+            f"paths, depth {depth_}): 0 lanes diverged, buffers, endpoint "
+            f"and {int(tr.sum())} rays bit-equal to the folded mode; table "
+            f"mode {tb_ms[flavor][0]:.3f} ms, folded {tb_ms[flavor][1]:.3f} "
+            f"ms ({card})")
+        if flavor == "vcm":
+            trows = int(tw["rows"].sum())
+            tverts = int(tw["bufs"].valid.sum())
+            stats["bdpt_walk_table"].update(
+                bound=bound_ms(tbytes + ch0.c_pix * 8 + table.numel() * 4
+                               + (depth_ - 1) * ch0.c_pix * VERTEX_BYTES
+                               + ch0.c_pix * (52 + 4),
+                               trows * OPS_PER_ROW
+                               + tverts * OPS_PER_WALK_VERTEX
+                               + ch0.c_pix * 5 * OPS_PER_DRAW),
+                ms=tb_ms[flavor][0])
+        # the table mode against its plain version (light_mega.walk_plain:
+        # the classic walk with every draw from the same tables)
+        pwalk = []
+        pw_ms = cuda_ms(lambda: pwalk.append(light_mega.walk_plain(
+            scene, key_l0, pxc0, pyc0, depth_, TRANSPORT_IMPORTANCE, eta_,
+            ktab, ketab)), 1, warmup=0)
+        pb_, pv0_, pr_ = pwalk[0]
+        errt = compare_walk((tw["bufs"], tw["v0"], None), (pb_, pv0_, None),
+                            f"table mode {flavor}, chunk 0")
+        check(abs(int(tr.sum()) - pr_) <= 1e-3 * pr_, f"K12 table mode "
+              f"{flavor}: rays {int(tr.sum())} vs plain {pr_}")
+        stats["bdpt_walk_table"]["max_abs_err"] = max(
+            stats["bdpt_walk_table"].get("max_abs_err", 0.0), errt)
+        if flavor == "vcm":
+            stats["bdpt_walk_table"]["plain_ms"] = pw_ms
+            say("K12 table", f"plain keyed walk {pw_ms:.3f} ms; bound "
+                f"{stats['bdpt_walk_table']['bound'][0]:.4f} ms "
+                f"({stats['bdpt_walk_table']['bound'][1]})")
+        del tw, fw, pwalk, pb_, pv0_
+
     del scene, sph, gscene
 
     # --- 9. the main path through the Renderer: mega (the config's
@@ -2146,6 +2357,285 @@ def main() -> int:
         f"{k} {v:.3f} ms" for k, v in stage_ms.items())
         + f"; sum {sum(stage_ms.values()):.3f} ms ({card})")
     del vr
+
+    # --- 27. the batched main path: configs/vcm_caustics.rendertron as
+    # shipped (512x512, VCM with the mega engine, 256 samples, 8 per
+    # dispatch by the auto rule) through cli.main with the checks on
+    from cudapathtracer_tpu_torch import cli
+    from cudapathtracer_tpu_torch.driver import (Renderer,
+                                                 resolve_samples_per_dispatch)
+    from cudapathtracer_tpu_torch.utils import checks, debugviz
+    from cudapathtracer_tpu_torch.utils.metrics import RenderMetrics
+    caustics_path = os.path.join(ROOT, "configs", "vcm_caustics.rendertron")
+    spd_c = resolve_samples_per_dispatch(caustics, "cuda")
+    check(spd_c == 8, f"caustics: auto samples per dispatch {spd_c}, "
+          "expected 8")
+    cli_dir = os.path.join(OUT_DIR, "cli")
+    os.makedirs(cli_dir, exist_ok=True)
+    cwd = os.getcwd()
+    buf = io.StringIO()
+    # the switch under its JAX name, read when utils/checks.py loads
+    os.environ["CUDAPATHTRACER_TPU_CHECKS"] = "1"
+    importlib.reload(checks)
+    kernels.reset_launches()
+    os.chdir(cli_dir)   # the CLI writes renders/ under the working dir
+    try:
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main([caustics_path, "--device", "cuda"])
+    finally:
+        os.chdir(cwd)
+        del os.environ["CUDAPATHTRACER_TPU_CHECKS"]
+        importlib.reload(checks)
+        # keep the BMPs only: the CSVs would crowd out the other outputs
+        for root, _, files in os.walk(cli_dir):
+            for f in files:
+                if f.endswith(".csv"):
+                    os.remove(os.path.join(root, f))
+    cli_out = buf.getvalue()
+    for line in cli_out.splitlines():
+        say("caustics cli", line.strip())
+    check(rc == 0, f"caustics cli: exit code {rc}")
+    cl = dict(kernels.launches)
+    phase_s = float(re.search(r"render: ([0-9.]+)s", cli_out).group(1))
+    rays_c = int(re.search(r"rays traced: ([0-9,]+)", cli_out).group(1)
+                 .replace(",", ""))
+    check(cl["mega_eye"] == caustics.sample_count and cl["bdpt_walk"]
+          == caustics.sample_count, f"caustics cli: launches {cl}, "
+          f"expected {caustics.sample_count} of K14 and K12 (one chunk)")
+    check("render executed with no numerical errors" in cli_out,
+          "caustics cli: the checks summary reports errors or no stage")
+    say("caustics cli", f"{caustics.sample_count} samples at {spd_c} per "
+        f"dispatch: {rays_c} rays in a {phase_s:.3f} s render phase = "
+        f"{rays_c / phase_s / 1e6:.3f} Mrays/s ({card}); K14 launches "
+        f"{cl['mega_eye']} (256 samples x 1 chunk)")
+
+    # the same config at 16 samples, 1 per dispatch against the auto 8:
+    # rays and dropped photons equal, pixels within the VCM splat's atomic
+    # spread and float association (|a - b| <= 1e-5 + 1e-5 |b|)
+    res16 = {}
+    for spd in (1, 0):
+        r = Renderer(dataclasses.replace(
+            caustics, sample_count=16, samples_per_dispatch=spd,
+            output_dir=OUT_DIR, name=f"smoke_caustics16_spd{spd}"),
+            device="cuda")
+        r.render(progressive=False, verbose=False)
+        res16[spd] = (r.accum.clone(), r.metrics.rays_traced,
+                      r.metrics.merge_dropped, r.metrics.render_seconds)
+        del r
+    (a1, ra1, d1, t1), (a8, ra8, d8, t8) = res16[1], res16[0]
+    diff = (a1 - a8).abs()
+    over = int((diff > 1e-5 + 1e-5 * a8.abs()).sum())
+    wrapped = (d8 + 2 ** 31) % 2 ** 32 - 2 ** 31
+    say("caustics 16", f"spd 1: {ra1} rays, {d1} dropped, {t1:.3f} s "
+        f"({ra1 / t1 / 1e6:.3f} Mrays/s); spd 8: {ra8} rays, {d8} dropped, "
+        f"{t8:.3f} s ({ra8 / t8 / 1e6:.3f} Mrays/s) ({card}); max |diff| "
+        f"{diff.max().item():.3g}, bit-equal share "
+        f"{(diff == 0).float().mean().item():.6f}, {over} channels over the "
+        f"bound; dropped total {'above' if d8 >= 2 ** 31 else 'below'} 2^31 "
+        f"(an int32 sum would read {wrapped})")
+    check(ra1 == ra8 and d1 == d8, "caustics 16: rays or dropped photons "
+          "differ between 1 and 8 samples per dispatch")
+    check(over == 0, f"caustics 16: {over} channels differ beyond the bound")
+    del res16, a1, a8, diff
+
+    # VCM-mega at 1080p (the bunny scene), 2 samples, 1 against 2 per
+    # dispatch: one batch through make_batched whose int64 dropped total on
+    # the card is above 2^31, equal to the unbatched total
+    res2 = {}
+    for spd in (1, 2):
+        r = Renderer(dataclasses.replace(
+            main_cfg(integrator="VCM", samples_per_dispatch=spd,
+                     name=f"smoke_vcm_1080_spd{spd}"), sample_count=2),
+            device="cuda")
+        kernels.reset_launches()
+        r.render(progressive=False, verbose=False)
+        res2[spd] = (r.accum.clone(), r.metrics.rays_traced,
+                     r.metrics.merge_dropped, r.metrics.render_seconds)
+        check(kernels.launches["mega_eye"] == 4, f"vcm 1080 spd {spd}: "
+              f"launches {kernels.launches}, expected 2 samples x 2 chunks "
+              "of K14")
+        del r
+    (a1, ra1, d1, t1), (a2, ra2, d2, t2) = res2[1], res2[2]
+    diff = (a1 - a2).abs()
+    over = int((diff > 1e-5 + 1e-5 * a2.abs()).sum())
+    say("vcm 1080 batch", f"2 samples, spd 1: {ra1} rays, {d1} dropped, "
+        f"{t1:.3f} s; spd 2: {ra2} rays, {d2} dropped, {t2:.3f} s ({card}); "
+        f"max |diff| {diff.max().item():.3g}, {over} channels over the "
+        f"bound; an int32 sum would read {(d2 + 2 ** 31) % 2 ** 32 - 2 ** 31}")
+    check(ra1 == ra2 and d1 == d2, "vcm 1080: rays or dropped photons "
+          "differ between 1 and 2 samples per dispatch")
+    check(d2 >= 2 ** 31, f"vcm 1080: the batched dropped total {d2} is not "
+          "above 2^31")
+    check(over == 0, f"vcm 1080: {over} channels differ beyond the bound")
+    del res2, a1, a2, diff
+
+    # UNIDIRECTIONAL (mega) and NAIVE at 256x256 on cornell_blocks, 256
+    # samples, 1 per dispatch against the auto 8: one K5 launch a sample
+    # against one k-sample launch a batch
+    blocks = [MeshConfig("builtin:cornell_blocks", 1.0, (0.0, 0.0, 0.0), 2)]
+    for integ, single, lit in (("UNIDIRECTIONAL", "render_unidirectional",
+                                0.9), ("NAIVE_UNIDIRECTIONAL", "naive",
+                                       0.05)):
+        accs = {}
+        for spd in (1, 0):
+            tag = f"{integ[:5].lower()} 256 spd{spd or 'auto'}"
+            want = ({single: 256, "uni_mega_batch": 0} if spd == 1 else
+                    {single: 0, "uni_mega_batch": 32})
+            r, launches = render_path(dataclasses.replace(
+                cfg0, integrator=integ, width=256, height=256,
+                sample_count=256, max_depth=DEPTH, meshes=blocks,
+                samples_per_dispatch=spd, output_dir=OUT_DIR,
+                name=f"smoke_{integ[:5].lower()}_256_spd{spd}"), tag, card,
+                want, min_lit=lit)
+            accs[spd] = (r.accum.clone(), r.metrics.rays_traced)
+            if integ == "UNIDIRECTIONAL" and spd == 0:
+                main_launches["uni_mega_batch"] = launches["uni_mega_batch"]
+            del r
+        close = torch.isclose(accs[1][0], accs[0][0], rtol=1e-4, atol=1e-5)
+        say(integ, f"256x256, 256 samples: rays {accs[1][1]} (spd 1) and "
+            f"{accs[0][1]} (spd 8); accumulations within rtol 1e-4 on "
+            f"{close.float().mean().item():.6f} of the channels")
+        check(accs[1][1] == accs[0][1] and bool(close.all()),
+              f"{integ} 256: spd 1 and 8 disagree")
+        del accs
+
+    # no host sync inside a batch: one batch of 2 samples of every
+    # integrator and engine under torch.cuda's sync debug mode "error"
+    for integ, engine, keyed in (
+            ("UNIDIRECTIONAL", "mega", False),
+            ("UNIDIRECTIONAL", "classic", False),
+            ("NAIVE_UNIDIRECTIONAL", "mega", False),
+            ("BIDIRECTIONAL", "classic", False), ("VCM", "classic", False),
+            ("SPPM", "classic", False), ("BIDIRECTIONAL", "mega", False),
+            ("VCM", "mega", False), ("SPPM", "mega", False),
+            ("BIDIRECTIONAL", "mega", True), ("VCM", "mega", True)):
+        r = Renderer(dataclasses.replace(
+            cfg0, integrator=integ, engine=engine, width=64, height=64,
+            max_depth=DEPTH, meshes=blocks, output_dir=OUT_DIR),
+            device="cuda")
+        if keyed:
+            os.environ["TPT_MEGA_LIGHT"] = "1"
+        try:
+            r.render_batch(0, 2)   # warm-up
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                out = r.render_batch(2, 2)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        except RuntimeError as e:
+            raise SmokeFailure(f"{integ} {engine}: a host sync inside a "
+                               f"batch: {e}") from e
+        finally:
+            os.environ.pop("TPT_MEGA_LIGHT", None)
+        check(all(c.dtype == torch.int64 and c.dim() == 0
+                  and c.device.type == "cuda" for c in out[1:]),
+              f"{integ} {engine}: counts not int64 on the card")
+        del r, out
+    say("batch", "no host sync inside a batch of 2 samples, and int64 counts "
+        "on the card, for every integrator and engine (and "
+        "TPT_MEGA_LIGHT=1 for BDPT-mega and VCM-mega)")
+
+    # --- 28. TPT_MEGA_LIGHT=1: BDPT-mega and VCM-mega at 1080p, 1 sample,
+    # against the toggle-off render of the same Renderer. The keyed walk's
+    # buffers are bit-equal to the folded walk's and the eye pass is
+    # deterministic, so the images differ only through the splat's
+    # atomicAdd order (BDPT's vertex 0 is the endpoint the same table-mode
+    # launch writes): rays equal, pixels within 1e-6 + 1e-5 |x|. A second
+    # toggle-off render prints the spread that atomicAdd's order alone gives
+    keyed_r = {}
+    for integ in ("BIDIRECTIONAL", "VCM"):
+        r = Renderer(dataclasses.replace(
+            main_cfg(integrator=integ, name=f"smoke_{integ.lower()}_keyed"),
+            sample_count=1), device="cuda")
+        os.environ.pop("TPT_MEGA_LIGHT", None)
+        offs = []
+        for _ in range(2):
+            r.accum.zero_()
+            r.sample_count, r.metrics = 0, RenderMetrics()
+            r.render(progressive=False, verbose=False)
+            offs.append(r.accum.clone())
+        off, off_rays = offs[1], r.metrics.rays_traced
+        off_drop, off_s = r.metrics.merge_dropped, r.metrics.render_seconds
+        d_off = (offs[0] - off).abs()
+        say(f"keyed {integ}", "two toggle-off renders (atomicAdd's order "
+            f"alone): max |diff| {d_off.max().item():.3g}, bit-equal share "
+            f"{(d_off == 0).float().mean().item():.6f}")
+        del offs, d_off
+        r.accum.zero_()
+        r.sample_count, r.metrics = 0, RenderMetrics()
+        os.environ["TPT_MEGA_LIGHT"] = "1"
+        kernels.reset_launches()
+        light_mega.calls["light_walk_mega"] = 0
+        try:
+            r.render(progressive=False, verbose=False)
+        finally:
+            os.environ.pop("TPT_MEGA_LIGHT", None)
+        lk = dict(kernels.launches)
+        rays_k, phase_k = r.metrics.rays_traced, r.metrics.render_seconds
+        diff = (r.accum - off).abs()
+        within = bool((diff <= 1e-6 + 1e-5 * off.abs()).all())
+        say(f"keyed {integ}", f"1080p, 1 sample: {rays_k} rays in "
+            f"{phase_k:.3f} s = {rays_k / phase_k / 1e6:.3f} Mrays/s "
+            f"({card}); K12 table-mode launches {lk['bdpt_walk_table']}, "
+            f"folded {lk['bdpt_walk']}; against the toggle-off render "
+            f"({off_rays / off_s / 1e6:.3f} Mrays/s): rays "
+            f"{off_rays}, max |diff| {diff.max().item():.3g}, bit-equal "
+            f"share {(diff == 0).float().mean().item():.6f}")
+        check(light_mega.calls["light_walk_mega"] == 2
+              and lk["bdpt_walk_table"] == 2 and lk["bdpt_walk"] == 0,
+              f"keyed {integ}: not routed through light_mega ({lk})")
+        check(rays_k == off_rays and within
+              and r.metrics.merge_dropped == off_drop, f"keyed {integ}: "
+              "differs from the toggle-off render beyond the splat's spread")
+        if integ == "VCM":
+            # one 1080p VCM-mega sample drops more merge candidates than an
+            # int32 holds: the int64 totals on the card stay exact
+            d_ = r.metrics.merge_dropped
+            say(f"keyed {integ}", f"merge-cap dropped photons {d_} with the "
+                f"keyed walk and {off_drop} without (an int32 sum would "
+                f"read {(d_ + 2 ** 31) % 2 ** 32 - 2 ** 31})")
+            check(d_ >= 2 ** 31, "keyed VCM: expected a dropped total above "
+                  "2^31 at 1080p")
+        check(bool(torch.isfinite(r.accum).all()), f"keyed {integ}: "
+              "non-finite pixels")
+        if integ == "VCM":
+            main_launches["bdpt_walk_table"] = lk["bdpt_walk_table"]
+        keyed_r[integ] = r
+        del off, diff
+    del keyed_r["VCM"]
+
+    # --- 29. BDPT_DRAWPATH on the 1080p BIDIRECTIONAL render: the overlay
+    # from K12's eye walk equals the overlay drawn from the plain walk's
+    # paths, and the image differs from the overlay-free one only under it
+    r = keyed_r.pop("BIDIRECTIONAL")
+    r.cfg = dataclasses.replace(r.cfg, bdpt_draw_path=True)
+    kernels.reset_launches()
+    fb_on = r.framebuffer()
+    check(kernels.launches["bdpt_walk"] == 1, "drawpath: the overlay's eye "
+          f"walk is not one K12 launch ({kernels.launches})")
+    key0, depth0 = rng.sample_key(r.key, 0), max(r.cfg.bdpt_eye_depth, 2)
+    sel = debugviz.overlay_eye_paths(r.scene, r.camera, key0, r.px, r.py,
+                                     depth0)[0]
+    idx = torch.as_tensor(sel, device=dev)
+    pb, pv0, _, _ = paths.generate_eye_path(r.scene, r.camera, key0,
+                                            r.px[idx], r.py[idx], depth0)
+    ov_plain = debugviz.path_overlay(r.camera, sel, pb.pt.cpu().numpy(),
+                                     pb.valid.cpu().numpy(),
+                                     pv0["pt"].cpu().numpy())
+    check(np.array_equal(r._overlay, ov_plain), "drawpath: the overlay "
+          "from K12's eye walk differs from the plain walk's")
+    r.cfg = dataclasses.replace(r.cfg, bdpt_draw_path=False)
+    fb_off = r.framebuffer()
+    changed = (fb_on != fb_off).any(-1)
+    under = (r._overlay != 0).any(-1)
+    say("drawpath", f"1080p BIDIRECTIONAL: {len(sel)} eye paths drawn, "
+        f"{int(under.sum())} overlay pixels, {int(changed.sum())} image "
+        "pixels changed, none outside the overlay; K12's overlay equals the "
+        "plain walk's")
+    check(changed.any() and not changed[~under].any(), "drawpath: the "
+          "image changed outside the overlay, or not at all")
+    del r, fb_on, fb_off, keyed_r
 
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,

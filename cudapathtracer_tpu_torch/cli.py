@@ -1,13 +1,16 @@
 """Command-line entry point of the PyTorch + CUDA port.
 
 The same flags as `python -m cudapathtracer_tpu`, plus --device (default
-cuda; the CPU only when asked for with --device cpu).
+cuda; the CPU only when asked for with --device cpu). After each render
+it prints the metrics and the numerical checks' summary
+(CUDAPATHTRACER_TPU_CHECKS=1 turns the checks on).
 
 Usage:
     python -m cudapathtracer_tpu_torch [configs/config.rendertron]
         [--renders N] [--samples N] [--integrator NAME]
         [--checkpoint PATH.npz] [--no-progressive]
-        [--width W] [--height H] [--device cuda|cpu]
+        [--width W] [--height H] [--samples-per-dispatch N]
+        [--device cuda|cpu]
 """
 
 from __future__ import annotations
@@ -33,14 +36,13 @@ def main(argv=None) -> int:
     ap.add_argument("--width", type=int, default=None)
     ap.add_argument("--height", type=int, default=None)
     ap.add_argument("--samples-per-dispatch", type=int, default=None,
-                    help="only 1: every sample is one dispatch here")
+                    help="samples accumulated per device dispatch (the same "
+                         "image as 1; amortizes dispatch overhead at small "
+                         "frames; default: the config's, 0 = auto)")
     ap.add_argument("--device", default="cuda",
                     help="torch device to render on (default cuda; cpu "
                          "runs the plain PyTorch versions of the kernels)")
     args = ap.parse_args(argv)
-    if args.samples_per_dispatch not in (None, 1):
-        ap.error("--samples-per-dispatch: only 1 is supported (each sample "
-                 "is one dispatch)")
 
     from cudapathtracer_tpu_torch.driver import (Renderer, check_supported,
                                                  mesh_from_config,
@@ -55,6 +57,9 @@ def main(argv=None) -> int:
         cfg = dataclasses.replace(cfg, width=args.width)
     if args.height:
         cfg = dataclasses.replace(cfg, height=args.height)
+    if args.samples_per_dispatch:
+        cfg = dataclasses.replace(
+            cfg, samples_per_dispatch=args.samples_per_dispatch)
     check_supported(cfg.normalized())
     device = resolve_device(args.device)
 
@@ -71,6 +76,7 @@ def main(argv=None) -> int:
         r.save_final(rn)
         print(f"  saved {cfg.output_dir}/{cfg.name}{rn}.bmp")
         print(r.metrics.summary())
+        print(f"  {r.checks.summary()}")
     return 0
 
 

@@ -15,6 +15,13 @@ The Renderer runs on an explicit device. "cuda" needs a CUDA build of
 PyTorch and a card and raises otherwise; the CPU is used only when asked
 for. Checkpoints are the JAX package's `.npz` format (accumulation buffer,
 sample count and a config echo), so either package can resume the other's.
+
+As in the JAX driver: `Samples Per Dispatch` (0 = the auto rule of
+resolve_samples_per_dispatch) renders k samples per dispatch through
+models/batch.py, with the ray and merge-dropped totals kept as int64 on the
+device and fetched once after the loop; CUDAPATHTRACER_TPU_CHECKS=1 scans
+each progressive save's batch (utils/checks.py); BDPT_DRAWPATH composites
+the eye-path overlay (utils/debugviz.py) for BIDIRECTIONAL, VCM and SPPM.
 """
 
 from __future__ import annotations
@@ -28,6 +35,7 @@ import torch
 
 from cudapathtracer_tpu_torch.models import bdpt as bdpt_mod
 from cudapathtracer_tpu_torch.models import bdpt_mega
+from cudapathtracer_tpu_torch.models.batch import make_batched
 from cudapathtracer_tpu_torch.models import naive as naive_mod
 from cudapathtracer_tpu_torch.models import unidirectional as uni_mod
 from cudapathtracer_tpu_torch.models import unidirectional_mega as mega_mod
@@ -40,7 +48,8 @@ from cudapathtracer_tpu_torch.scene.materials import (apply_material_configs,
                                                       builtin_materials)
 from cudapathtracer_tpu_torch.scene.scene import build_scene
 from cudapathtracer_tpu_torch.scene.textures import reference_atlas
-from cudapathtracer_tpu_torch.utils import rng
+from cudapathtracer_tpu_torch.utils import debugviz, rng
+from cudapathtracer_tpu_torch.utils.checks import CheckLog
 from cudapathtracer_tpu_torch.utils.config import RenderConfig
 from cudapathtracer_tpu_torch.utils.image import Image, scrub
 from cudapathtracer_tpu_torch.utils.metrics import RenderMetrics
@@ -64,6 +73,13 @@ _RENDER = {
     ("NAIVE_UNIDIRECTIONAL", "mega"): naive_mod.render_sample,
     ("NAIVE_UNIDIRECTIONAL", "classic"): naive_mod.render_sample,
 }
+# the integrators whose sample is one K5 launch -> their k-sample batch
+_BATCH = {
+    ("UNIDIRECTIONAL", "mega"): mega_mod.render_batch,
+    ("UNIDIRECTIONAL", "classic"): uni_mod.render_batch,
+    ("NAIVE_UNIDIRECTIONAL", "mega"): naive_mod.render_batch,
+    ("NAIVE_UNIDIRECTIONAL", "classic"): naive_mod.render_batch,
+}
 
 
 def _family(integrator: str) -> str:
@@ -79,6 +95,19 @@ def resolve_device(device) -> torch.device:
             "False (no CUDA build of PyTorch or no card); pass --device cpu "
             "to render with the plain PyTorch versions on the CPU")
     return dev
+
+
+def resolve_samples_per_dispatch(cfg: RenderConfig, device) -> int:
+    """Samples accumulated per dispatch, the JAX driver's rule with the
+    device type in place of the backend: an explicit value wins; else a
+    CPU device or a frame above 512^2 pixels renders one sample per
+    dispatch, and a card batches max(1, min(8, 2^21 // pixels))."""
+    if cfg.samples_per_dispatch > 0:
+        return cfg.samples_per_dispatch
+    n = cfg.width * cfg.height
+    if torch.device(device).type == "cpu" or n > (1 << 18):
+        return 1
+    return max(1, min(8, (1 << 21) // max(n, 1)))
 
 
 def check_supported(cfg: RenderConfig) -> None:
@@ -145,6 +174,7 @@ class Renderer:
         check_supported(cfg)
         self.device = resolve_device(device)
         self.metrics = RenderMetrics()
+        self.checks = CheckLog()
 
         if mesh is None:
             if len(cfg.meshes) == 1 and cfg.meshes[0].path in BUILTIN_SCENES:
@@ -178,44 +208,84 @@ class Renderer:
         self.accum = torch.zeros((cfg.width * cfg.height, 3),
                                  dtype=torch.float32, device=self.device)
         self.sample_count = 0
+        self._overlay = None  # BDPT_DRAWPATH channel, built lazily
+
+    def _sample_fn(self):
+        """The per-sample step inner(scene, camera, key, sample_idx, px, py)
+        -> (radiance [P,3], rays[, merge-dropped]), the counts Python ints
+        on the CPU and 0-d int64 tensors on the card; for a K5 integrator
+        with its one-launch batch as inner.k_sample (models/batch.py)."""
+        cfg = self.cfg
+        key = (_family(cfg.integrator), cfg.engine)
+        fn = _RENDER[key]
+        if cfg.integrator == "BIDIRECTIONAL":
+            kw = dict(cfg=bdpt_mod.BDPTConfig.from_config(cfg))
+        elif cfg.integrator in ("VCM", "SPPM"):
+            kw = dict(cfg=vcm_mod.VCMConfig.from_config(cfg))
+        else:
+            kw = dict(max_depth=max(cfg.max_depth, 1),
+                      sample_environment=cfg.sample_environment)
+
+        def inner(scene, camera, base_key, sample_idx, px, py):
+            return fn(scene, camera, base_key, sample_idx, px, py, **kw)
+        if key in _BATCH:
+            batch = _BATCH[key]
+
+            def k_sample(scene, camera, base_key, s0, px, py, k):
+                return batch(scene, camera, base_key, s0, px, py, k, **kw)
+            inner.k_sample = k_sample
+        return inner
 
     def render_sample(self, sample_idx: int):
         """One sample of every pixel -> (radiance [P,3], rays), and for VCM
         and SPPM also the photons the merge cap left out."""
-        cfg = self.cfg
-        fn = _RENDER[_family(cfg.integrator), cfg.engine]
-        args = (self.scene, self.camera, self.key, sample_idx, self.px,
-                self.py)
-        if cfg.integrator == "BIDIRECTIONAL":
-            return fn(*args, cfg=bdpt_mod.BDPTConfig.from_config(cfg))
-        if cfg.integrator in ("VCM", "SPPM"):
-            return fn(*args, cfg=vcm_mod.VCMConfig.from_config(cfg))
-        return fn(*args, max_depth=max(cfg.max_depth, 1),
-                  sample_environment=cfg.sample_environment)
+        return self._sample_fn()(self.scene, self.camera, self.key,
+                                 sample_idx, self.px, self.py)
+
+    def render_batch(self, s0: int, k: int):
+        """Samples s0 .. s0+k-1 in one dispatch (models/batch.py) ->
+        (radiance summed [P,3], rays[, merge-dropped]) as 0-d int64
+        tensors."""
+        return make_batched(self._sample_fn())(
+            self.scene, self.camera, self.key, s0, self.px, self.py, k)
 
     def render(self, num_samples: int | None = None,
                checkpoint_path: str | None = None, resume: bool = True,
                progressive: bool = True, verbose: bool = True) -> Image:
-        """Run the progressive sample loop; returns the final Image."""
+        """Run the progressive sample loop in batches of the resolved
+        samples per dispatch; returns the final Image. Progressive saves
+        (and the checks) happen at batch boundaries. Nothing in the loop
+        waits for the card: the ray and dropped totals are int64 on the
+        device, fetched once after it."""
         cfg = self.cfg
         total = num_samples if num_samples is not None else cfg.sample_count
+        inner = self._sample_fn()
+        spd = resolve_samples_per_dispatch(cfg, self.device)
+        batched = make_batched(inner)
         if checkpoint_path and resume and os.path.exists(checkpoint_path):
             self.load_checkpoint(checkpoint_path)
             if verbose:
                 print(f"resumed at sample {self.sample_count}")
         last_save = time.monotonic()
-        dropped = 0
+        zero = lambda: torch.zeros((), dtype=torch.int64, device=self.device)
+        rtot, dtot = zero(), zero()
         with self.metrics.phase("render"):
             while self.sample_count < total:
-                li, rays, *rest = self.render_sample(self.sample_count)
-                dropped += rest[0] if rest else 0
+                k = min(spd, total - self.sample_count)
+                args = (self.scene, self.camera, self.key, self.sample_count,
+                        self.px, self.py)
+                out = batched(*args, k) if k > 1 else inner(*args)
+                li, rays = out[0], out[1]
+                if len(out) > 2:
+                    dtot = dtot + out[2]
                 self.accum += li
-                self.metrics.add_rays(rays)
-                self.sample_count += 1
-                self.metrics.samples_done += 1
+                rtot = rtot + rays
+                self.sample_count += k
+                self.metrics.samples_done += k
                 now = time.monotonic()
                 if (progressive
                         and now - last_save >= cfg.save_interval_seconds):
+                    self.checks.check(f"sample {self.sample_count}", li)
                     self.save_progressive()
                     if checkpoint_path:
                         self.save_checkpoint(checkpoint_path)
@@ -223,8 +293,8 @@ class Renderer:
                     if verbose:
                         print(f"saved progress at {self.sample_count} "
                               "samples")
-            if self.device.type == "cuda":
-                torch.cuda.synchronize(self.device)
+            rays_total, dropped = torch.stack([rtot, dtot]).tolist()
+        self.metrics.add_rays(rays_total)
         if dropped:
             self.metrics.merge_dropped = dropped
             if verbose:
@@ -232,10 +302,20 @@ class Renderer:
         return self.finish()
 
     def framebuffer(self) -> np.ndarray:
-        """Scrubbed, normalized [H,W,3] image."""
+        """Scrubbed, normalized [H,W,3] image. With BDPT_DRAWPATH set
+        (BIDIRECTIONAL, VCM and SPPM), the eye-path overlay of sample 0's
+        key is composited over it, built once."""
         cfg = self.cfg
         acc = self.accum.cpu().numpy().reshape(cfg.height, cfg.width, 3)
-        return scrub(acc, max(self.sample_count, 1))
+        img = scrub(acc, max(self.sample_count, 1))
+        if (cfg.bdpt_draw_path
+                and cfg.integrator in ("BIDIRECTIONAL", "VCM", "SPPM")):
+            if self._overlay is None:
+                self._overlay = debugviz.bdpt_path_overlay(
+                    self.scene, self.camera, rng.sample_key(self.key, 0),
+                    self.px, self.py, eye_depth=max(cfg.bdpt_eye_depth, 2))
+            img = debugviz.composite_overlay(img, self._overlay)
+        return img
 
     def finish(self) -> Image:
         cfg = self.cfg

@@ -19,10 +19,17 @@ traversal's stack depth is fixed at build time: the default 16 is the
 library above, and any other depth (stack_d=) builds its own
 libtpt_torch_kernels_stack<d>.so.
 
+Three entries have a second mode, counted under a name of its own: K6's
+keyed draw (uniform_keyed, rng.cu), K5's k-sample mode for samples per
+dispatch (uni_mega_batch, uni_mega.cu) and K12's table mode for the keyed
+light walk (bdpt_walk_table, bdpt_walk.cu).
+
 Each wrapper below checks its tensors (device, dtype, shape, contiguity),
 allocates the outputs, launches, raises if the launch was refused, and then
 adds one to its entry of `launches`. The launch counters are the package's
-only global state; `reset_launches()` zeroes them.
+only global state; `reset_launches()` zeroes them. No wrapper waits for the
+card: the few words a launch reads from device memory (key tables) are
+copied from pinned memory without blocking (upload_words).
 
 Compile flags: -O3 and -fmad=false, no --use_fast_math (so sqrtf and
 division are correctly rounded). -fmad=false keeps every a*b+c rounded
@@ -41,6 +48,7 @@ import subprocess
 import tempfile
 import threading
 
+import numpy as np
 import torch
 
 CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
@@ -68,7 +76,8 @@ launches = {"closest_hit8": 0, "shadow_factor8": 0, "uniform_id": 0,
             "packing_roundtrip": 0, "bdpt_walk": 0, "bdpt_splat": 0,
             "bdpt_connect": 0, "vcm_splat": 0, "photon_pack": 0,
             "photon_table": 0, "vcm_eye": 0, "rgb9e5": 0,
-            "neighbor_slots": 0, "mega_eye": 0, "naive": 0}
+            "neighbor_slots": 0, "mega_eye": 0, "naive": 0,
+            "uniform_keyed": 0, "uni_mega_batch": 0, "bdpt_walk_table": 0}
 
 _lock = threading.Lock()
 _libs = {}        # stack depth -> loaded library
@@ -158,6 +167,8 @@ def _load(stack_d: int = STACK_D):
         lib.tpt_error_string.argtypes = [ctypes.c_int]
         lib.tpt_uniform_id.restype = ctypes.c_int
         lib.tpt_uniform_id.argtypes = [p, p, p, i64, u32, u32, p]
+        lib.tpt_uniform_keyed.restype = ctypes.c_int
+        lib.tpt_uniform_keyed.argtypes = [p, p, p, p, i64, p]
         lib.tpt_generate_rays.restype = ctypes.c_int
         lib.tpt_generate_rays.argtypes = [p, p, p, p, p, i64, p, p, p]
         lib.tpt_closest_hit8.restype = ctypes.c_int
@@ -170,6 +181,10 @@ def _load(stack_d: int = STACK_D):
         lib.tpt_render_unidirectional.argtypes = [
             p, p, i32, p, i32, p, p, p, p, i64, p, p, i32, i32, i32, i32,
             i32, p, p, p, p]
+        lib.tpt_render_unidirectional_batch.restype = ctypes.c_int
+        lib.tpt_render_unidirectional_batch.argtypes = [
+            p, p, i32, p, i32, p, p, p, p, i64, p, p, i32, i32, i32, i32,
+            i32, i32, p, p, p, p]
         lib.tpt_shade_eval.restype = ctypes.c_int
         lib.tpt_shade_eval.argtypes = [p, i32, p, i32, p, p, p, p, p, p, p,
                                        p, p, p, i64, p, p, p]
@@ -242,6 +257,36 @@ def uniform_id(ids: torch.Tensor, k0: int, k1: int, two: bool):
                 u0.data_ptr(), u1.data_ptr() if two else None, n,
                 k0 & 0xFFFFFFFF, k1 & 0xFFFFFFFF, _stream(dev))
     return u0, u1
+
+
+def _words32(k: torch.Tensor) -> torch.Tensor:
+    """uint32 words (a uint32 or int32 tensor) viewed as int32."""
+    return k.view(torch.int32) if k.dtype == torch.uint32 else k
+
+
+def uniform_keyed(ids: torch.Tensor, k0: torch.Tensor, k1: torch.Tensor):
+    """K6's keyed mode (rng.cu): Threefry-2x32 over (ids, 0) under each
+    lane's key pair (k0, k1 [N] uint32 words) -> [N] f32."""
+    dev = _cuda_device(ids)
+    n = ids.shape[0]
+    _check(ids, "ids", torch.int32, (n,), dev)
+    k0, k1 = _words32(k0), _words32(k1)
+    _check(k0, "k0", torch.int32, (n,), dev)
+    _check(k1, "k1", torch.int32, (n,), dev)
+    u0 = torch.empty(n, dtype=torch.float32, device=dev)
+    lib = _load()
+    with torch.cuda.device(dev):
+        _launch("uniform_keyed", lib, lib.tpt_uniform_keyed, ids.data_ptr(),
+                k0.data_ptr(), k1.data_ptr(), u0.data_ptr(), n, _stream(dev))
+    return u0
+
+
+def upload_words(words, device) -> torch.Tensor:
+    """uint32 words (a nested list of ints) as an int32 tensor on `device`,
+    copied from pinned memory without blocking the host."""
+    host = torch.from_numpy(
+        np.asarray(words, dtype=np.int64).astype(np.uint32).view(np.int32))
+    return host.pin_memory().to(device, non_blocking=True)
 
 
 def generate_rays(px: torch.Tensor, py: torch.Tensor, ids: torch.Tensor,
@@ -365,6 +410,40 @@ def _scene_args(scene, dev):
     return blocks
 
 
+def _k5_launch(name: str, entry: str, scene, px, py, cam_params: list,
+               key_args: tuple, *, max_depth: int, use_mis: bool,
+               sample_environment: bool, schedule: str, air_priority: int,
+               with_rows: bool):
+    """Check the pixels and the scene, allocate the outputs and launch K5
+    through the C entry `entry` (key_args follow the camera floats);
+    counted under name."""
+    dev = _cuda_device(px)
+    n = px.shape[0]
+    _check(px, "px", torch.int32, (n,), dev)
+    _check(py, "py", torch.int32, (n,), dev)
+    tbl = _table(scene, dev)
+    b = _scene_args(scene, dev)
+    if len(cam_params) != 19:
+        raise ValueError(f"{name}: 19 camera floats")
+    if schedule not in SCHEDULES:
+        raise ValueError(f"schedule {schedule!r}: one of {sorted(SCHEDULES)}")
+    li = torch.empty((n, 3), dtype=torch.float32, device=dev)
+    rays = torch.empty(n, dtype=torch.int32, device=dev)
+    rows = _counts(with_rows, n, dev)
+    cparams = (ctypes.c_float * 19)(*cam_params)
+    lib = _load()
+    with torch.cuda.device(dev):
+        _launch(name, lib, getattr(lib, entry), tbl.data_ptr(),
+                b["tri_f32"].data_ptr(), b["tri_f32"].shape[1],
+                b["light_f32"].data_ptr(), scene.num_lights,
+                b["textures"].data_ptr(), b["medium"].data_ptr(),
+                px.data_ptr(), py.data_ptr(), n, ctypes.addressof(cparams),
+                *key_args, max_depth, int(use_mis), int(sample_environment),
+                SCHEDULES[schedule], air_priority, li.data_ptr(),
+                rays.data_ptr(), _ptr(rows), _stream(dev))
+    return (li, rays) if rows is None else (li, rays, rows)
+
+
 def render_unidirectional(scene, px: torch.Tensor, py: torch.Tensor,
                           cam_params: list, keys: list, *, max_depth: int,
                           use_mis: bool, sample_environment: bool,
@@ -378,35 +457,41 @@ def render_unidirectional(scene, px: torch.Tensor, py: torch.Tensor,
     integrator, max_depth bounces; counted under "naive"). -> (radiance
     [P,3] f32, rays [P] i32), and with with_rows each path's count of BVH8
     rows visited [P] i32."""
-    dev = _cuda_device(px)
-    n = px.shape[0]
-    _check(px, "px", torch.int32, (n,), dev)
-    _check(py, "py", torch.int32, (n,), dev)
-    tbl = _table(scene, dev)
-    b = _scene_args(scene, dev)
-    if len(cam_params) != 19 or len(keys) != 28:
-        raise ValueError("render_unidirectional: 19 camera floats and 28 "
-                         "key words")
-    if schedule not in SCHEDULES:
-        raise ValueError(f"schedule {schedule!r}: one of {sorted(SCHEDULES)}")
-    li = torch.empty((n, 3), dtype=torch.float32, device=dev)
-    rays = torch.empty(n, dtype=torch.int32, device=dev)
-    rows = _counts(with_rows, n, dev)
-    cparams = (ctypes.c_float * 19)(*cam_params)
+    if len(keys) != 28:
+        raise ValueError("render_unidirectional: 28 key words")
     ckeys = (ctypes.c_uint32 * 28)(*(k & 0xFFFFFFFF for k in keys))
-    lib = _load()
-    with torch.cuda.device(dev):
-        _launch("naive" if schedule == "naive" else "render_unidirectional",
-                lib, lib.tpt_render_unidirectional,
-                tbl.data_ptr(), b["tri_f32"].data_ptr(),
-                b["tri_f32"].shape[1], b["light_f32"].data_ptr(),
-                scene.num_lights, b["textures"].data_ptr(),
-                b["medium"].data_ptr(), px.data_ptr(), py.data_ptr(), n,
-                ctypes.addressof(cparams), ctypes.addressof(ckeys),
-                max_depth, int(use_mis), int(sample_environment),
-                SCHEDULES[schedule], air_priority, li.data_ptr(),
-                rays.data_ptr(), _ptr(rows), _stream(dev))
-    return (li, rays) if rows is None else (li, rays, rows)
+    return _k5_launch(
+        "naive" if schedule == "naive" else "render_unidirectional",
+        "tpt_render_unidirectional", scene, px, py, cam_params,
+        (ctypes.addressof(ckeys),), max_depth=max_depth, use_mis=use_mis,
+        sample_environment=sample_environment, schedule=schedule,
+        air_priority=air_priority, with_rows=with_rows)
+
+
+def render_unidirectional_batch(scene, px: torch.Tensor, py: torch.Tensor,
+                                cam_params: list, key_table: torch.Tensor, *,
+                                max_depth: int, use_mis: bool,
+                                sample_environment: bool, schedule: str,
+                                air_priority: int, with_rows: bool = False):
+    """K5's k-sample mode (uni_mega.cu, uni_mega_batch_kernel): k samples
+    of the pixels (px, py) [P] int32 in one launch; key_table: [k, 28]
+    int32 (uint32 words, on the device), row s the 28 key words of the
+    batch's sample s. -> (radiance summed over the samples in their order
+    [P,3] f32, rays summed [P] i32), and with with_rows the BVH8 rows
+    visited [P] i32. Counted under "uni_mega_batch" for every schedule."""
+    dev = _cuda_device(px)
+    key_table = _words32(key_table)
+    if key_table.dim() != 2 or key_table.shape[1] != 28 \
+            or key_table.shape[0] < 1:
+        raise ValueError(f"key_table must be [k >= 1, 28], got "
+                         f"{tuple(key_table.shape)}")
+    _check(key_table, "key_table", torch.int32, key_table.shape, dev)
+    return _k5_launch(
+        "uni_mega_batch", "tpt_render_unidirectional_batch", scene, px, py,
+        cam_params, (key_table.data_ptr(), key_table.shape[0]),
+        max_depth=max_depth, use_mis=use_mis,
+        sample_environment=sample_environment, schedule=schedule,
+        air_priority=air_priority, with_rows=with_rows)
 
 
 def shade_eval(scene, o, d, t, tri, u, v, ids, eta_i, keys: list):
@@ -518,13 +603,18 @@ def _u32s(values):
 
 
 def bdpt_walk(scene, px, py, keys: list, *, mode: str, max_depth: int,
-              rays, camera=None, eta_vcm=None, with_rows: bool = False):
+              rays, camera=None, eta_vcm=None, key_table=None,
+              with_rows: bool = False):
     """K12 (bdpt_walk.cu): one eye or light walk per pixel (px, py) [N]
     int32; keys: 12 words (models/paths.walk_keys); camera: eye mode only.
     Adds each walk's closest rays to rays [N] i32. eta_vcm turns on the
-    VCM d_vm chain (light mode). -> dict(bufs=PathBuffers [max_depth-1, N],
-    v0=vertex-0 dict, escape=Escape (eye) or None, rows=[N] i32 BVH8 rows
-    visited or None)."""
+    VCM d_vm chain (light mode). key_table selects the table mode (counted
+    under "bdpt_walk_table"): [max_depth * 8 + 10] int32 words on the
+    device, the bounce draws' key pairs rng.draw_key_table(key,
+    range(max_depth), range(4)) and then the endpoint's (draws 100..104
+    of key), which replace the folded ones. -> dict(bufs=PathBuffers
+    [max_depth-1, N], v0=vertex-0 dict, escape=Escape (eye) or None,
+    rows=[N] i32 BVH8 rows visited or None)."""
     from cudapathtracer_tpu_torch.models import paths
     dev = _cuda_device(px)
     n = px.shape[0]
@@ -537,6 +627,10 @@ def bdpt_walk(scene, px, py, keys: list, *, mode: str, max_depth: int,
         raise ValueError("the eye walk needs the camera")
     if max_depth < 1 or len(keys) != 12:
         raise ValueError("bdpt_walk: max_depth >= 1 and 12 key words")
+    if key_table is not None:
+        key_table = _words32(key_table)
+        _check(key_table, "key_table", torch.int32, (max_depth * 8 + 10,),
+               dev)
     sc = _bdpt_scene(scene, dev)
     depth = max_depth - 1
     bufs = paths.PathBuffers.empty(depth, n, dev)
@@ -560,7 +654,7 @@ def bdpt_walk(scene, px, py, keys: list, *, mode: str, max_depth: int,
                                   "mat_id", "tri")]
             + [_ptr(esc.valid) if esc else 0, _ptr(esc.d) if esc else 0,
                _ptr(esc.beta) if esc else 0, rays.data_ptr(),
-               _ptr(rows) or 0])
+               _ptr(rows) or 0, _ptr(key_table) or 0])
     cam = camera.kernel_params() if camera is not None else [0.0] * 19
     area = camera.plane_area() if camera is not None else 0.0
     iv = [n, sc["tri_f32"].shape[1], scene.num_lights,
@@ -570,11 +664,13 @@ def bdpt_walk(scene, px, py, keys: list, *, mode: str, max_depth: int,
     args = (_i64s(ptrs), _i64s(iv), _f32s(fv), _u32s(keys))  # kept alive
     lib = _load()
     with torch.cuda.device(dev):
-        _launch("bdpt_walk", lib, lib.tpt_bdpt_walk,
+        _launch("bdpt_walk" if key_table is None else "bdpt_walk_table",
+                lib, lib.tpt_bdpt_walk,
                 *(ctypes.addressof(a) for a in args), _stream(dev))
     if mode == "eye":
-        v0["n"] = torch.tensor(camera.forward, dtype=torch.float32,
-                               device=dev).expand(n, 3)
+        # no host sync: the copy leaves pinned memory without blocking
+        v0["n"] = torch.tensor(camera.forward, dtype=torch.float32) \
+            .pin_memory().to(dev, non_blocking=True).expand(n, 3)
     return dict(bufs=bufs, v0=v0, escape=esc, rows=rows)
 
 

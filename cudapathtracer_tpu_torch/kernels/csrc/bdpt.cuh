@@ -1,7 +1,8 @@
 // K11-K13 device code: the per-thread bodies of the BDPT kernels and the
 // packed path-vertex buffers they share.
 //
-//   walk_path      K12: one eye or light walk (models/paths.py:129,219,237)
+//   walk_path      K12: one eye or light walk (models/paths.py:129,219,237);
+//                  its table mode is models/light_mega.py:108's keyed walk
 //   splat_vertex   K11: one light vertex to the lens (models/bdpt.py:93;
 //                  VCM's form, models/vcm.py:87, adds eta_vcm)
 //   connect_pixel  K13: the connection stage of one pixel
@@ -165,6 +166,19 @@ struct TableDraws {
   }
 };
 
+// The BSDF draws 0-3 of one walk bounce: from the host-folded key table
+// (K12's table mode) or folded in the thread from the bounce key.
+struct BounceDraws {
+  const uint32_t* table;  // nullable: this bounce's [4][2] pairs
+  KeyDraws folded;
+  uint32_t id;
+  __device__ __forceinline__ float operator()(int d) const {
+    if (table != nullptr)
+      return uniform_draw_key(table[2 * d], table[2 * d + 1], id);
+    return folded(d);
+  }
+};
+
 struct LightPoint {
   int32_t li, tri;
   V3 p, n, le;
@@ -230,6 +244,11 @@ struct WalkParams {
   float plane_area;        // eye mode
   uint32_t light_keys[10]; // light mode: draw keys 100..104
   uint32_t key0, key1;     // the walk key (bounce keys derive from it)
+  // Table mode (nullable, device memory): the host-folded draw keys of
+  // rng.draw_key_table, [max_depth][4][2] bounce pairs (row b: draws 0-3
+  // of bounce_key(key, b)), then the [5][2] endpoint pairs (draws 100..104
+  // of key). The draws equal the folded mode's bit for bit.
+  const uint32_t* key_table;
   int mode, max_depth;
   bool radiance;           // transport: radiance (eye) or importance
   bool use_vm;             // VCM d_vm chain
@@ -281,7 +300,10 @@ __device__ __forceinline__ void walk_path(const SceneRefs& sc,
     first_vc = 0.0f;
     put3(out.v0_pt, i, o);
   } else {
-    const TableDraws ld{p.light_keys, id};
+    const TableDraws ld{p.key_table != nullptr
+                            ? p.key_table + 8 * p.max_depth
+                            : p.light_keys,
+                        id};
     const LightPoint lp = light_point(ld, sc);
     const float num =
         static_cast<float>(sc.lights.count > 1 ? sc.lights.count : 1);
@@ -344,8 +366,15 @@ __device__ __forceinline__ void walk_path(const SceneRefs& sc,
     const float pdf_fwd_area = prev_pdf * fabsf(wo_local.z) / d2;
     const float g = prev_cos / d2;
 
-    const KeyDraws bd = fold_draws(p.key0, p.key1,
-                                   static_cast<uint32_t>(depth), id);
+    BounceDraws bd;
+    bd.id = id;
+    if (p.key_table != nullptr) {
+      bd.table = p.key_table + 8 * depth;
+    } else {
+      bd.table = nullptr;
+      bd.folded = fold_draws(p.key0, p.key1, static_cast<uint32_t>(depth),
+                             id);
+    }
     const Sample bs = bsdf_sample(bd, m, albedo, neg(wo_local), s.backface,
                                   1.0f, trans, p.radiance);
     const float pdf_rev_sa = bsdf_pdf(m, bs.wo, neg(wo_local), 1.0f, trans);
@@ -744,6 +773,7 @@ inline bool walk_launch(const int64_t* ptrs, const int64_t* iv,
   o.esc_beta = dev_ptr<float>(ptrs, 26);
   o.rays = dev_ptr<int32_t>(ptrs, 27);
   o.rows = dev_ptr<int32_t>(ptrs, 28);
+  p.key_table = dev_ptr<const uint32_t>(ptrs, 29);
   return (p.mode == kModeEye || p.mode == kModeLight) && p.max_depth >= 1;
 }
 

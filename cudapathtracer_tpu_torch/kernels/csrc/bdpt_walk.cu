@@ -17,6 +17,15 @@
 // the stores are ~47 bytes per vertex, coalesced across threads because the
 // buffers are depth-major. Design: all walk state in registers; one launch
 // per walk direction per sample.
+//
+// Table mode: the keyed light walk of the mega engines under TPT_MEGA_LIGHT
+// (cudapathtracer_tpu/models/light_mega.py:108 light_walk_mega, with
+// utils/rng.py:123,140 draw_key_table and uniform_keyed). The JAX lane
+// machine keys a lane's draws by the lane's own depth through a
+// per-(bounce, draw) key table folded on the host; here one thread walks one
+// path, so the same table is read at the walk's depth (ptrs[29]) instead of
+// folding bounce_key(key, depth) per thread. The draws, and so the buffers,
+// the escape record and the rays, are bit-equal to the folded mode's.
 
 #include <cuda_runtime.h>
 
@@ -41,7 +50,8 @@ bdpt_walk_kernel(tpt::WalkLaunch w) {
 // ptrs (host array of device addresses, 0 = none): table, tri_f32,
 // light_f32, textures, px, py, the 11 buffer fields (pt, n_oct, wo_oct, uv,
 // beta, pdf_fwd, d_vcm, d_vc, d_vm, flags, valid), v0_pt, v0_n, v0_beta,
-// v0_pdf, v0_light, v0_mat, v0_tri, esc_valid, esc_d, esc_beta, rays, rows.
+// v0_pdf, v0_light, v0_mat, v0_tri, esc_valid, esc_d, esc_beta, rays, rows,
+// key_table (0: the folded mode).
 // iv: n, tri_cols, num_lights, mode (0 eye, 1 light), max_depth, radiance,
 // use_vm. fv: the 19 camera floats, plane_area, eta_vcm. keys: 10 draw-key
 // words (eye: the camera's 8; light: draws 100..104) and the walk key pair.

@@ -43,6 +43,14 @@
 // event reads its own rows, and the only writes are li and the path's ray
 // count at the end. Built with -fmad=false and correctly rounded sqrtf and
 // division, so the arithmetic follows the plain PyTorch version.
+//
+// The k-sample mode (uni_mega_batch_kernel) replaces
+// cudapathtracer_tpu/models/batch.py:make_batched (line 33) for these
+// three schedules: the JAX fori_loop over k samples in one dispatch becomes
+// a loop over the batch's samples inside each thread, with each sample's
+// key words read from a [k, 28] table in device memory, so a batch is one
+// launch and one write of the pixel's sum. It does the work of k single
+// launches, so its bound is k times theirs.
 
 #include <cuda_runtime.h>
 
@@ -410,6 +418,26 @@ namespace {
 
 constexpr int kThreads = 128;
 
+// One sample of the path of pixel (x, y) at list index i: raygen, the
+// schedule's path, and the mega engine's RGB9E5 retirement.
+__device__ __forceinline__ tpt::PathOut sample_pixel(const tpt::SceneArgs& sc,
+                                                     const tpt::Params& p,
+                                                     int64_t i, int32_t x,
+                                                     int32_t y) {
+  const uint32_t pix_id = static_cast<uint32_t>((y << 14) + x);
+  float org[3], dir[3];
+  tpt::camera_ray(p.cam, static_cast<float>(x), static_cast<float>(y), pix_id,
+                  org, dir);
+  const tpt::V3 o = tpt::v3(org[0], org[1], org[2]);
+  const tpt::V3 d = tpt::v3(dir[0], dir[1], dir[2]);
+  tpt::PathOut r = p.schedule == tpt::kScheduleNaive
+                       ? tpt::render_naive_path(sc, p, pix_id, o, d)
+                       : tpt::render_path(sc, p, i, pix_id, o, d);
+  // the mega engine retires each path's radiance through RGB9E5
+  if (p.schedule == tpt::kScheduleMega) r.li = tpt::round_rgb9e5(r.li);
+  return r;
+}
+
 __global__ void __launch_bounds__(kThreads)
 uni_mega_kernel(tpt::SceneArgs sc, tpt::Params p,
                 const int32_t* __restrict__ px,
@@ -419,24 +447,53 @@ uni_mega_kernel(tpt::SceneArgs sc, tpt::Params p,
   const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x +
                     threadIdx.x;
   if (i >= n) return;
-  const int32_t x = px[i], y = py[i];
-  const uint32_t pix_id = static_cast<uint32_t>((y << 14) + x);
-  float org[3], dir[3];
-  tpt::camera_ray(p.cam, static_cast<float>(x), static_cast<float>(y), pix_id,
-                  org, dir);
-  const tpt::V3 o = tpt::v3(org[0], org[1], org[2]);
-  const tpt::V3 d = tpt::v3(dir[0], dir[1], dir[2]);
-  const tpt::PathOut r = p.schedule == tpt::kScheduleNaive
-                             ? tpt::render_naive_path(sc, p, pix_id, o, d)
-                             : tpt::render_path(sc, p, i, pix_id, o, d);
-  // the mega engine retires each path's radiance through RGB9E5
-  const tpt::V3 li =
-      p.schedule == tpt::kScheduleMega ? tpt::round_rgb9e5(r.li) : r.li;
-  li_out[3 * i] = li.x;
-  li_out[3 * i + 1] = li.y;
-  li_out[3 * i + 2] = li.z;
+  const tpt::PathOut r = sample_pixel(sc, p, i, px[i], py[i]);
+  li_out[3 * i] = r.li.x;
+  li_out[3 * i + 1] = r.li.y;
+  li_out[3 * i + 2] = r.li.z;
   rays_out[i] = r.rays;
   if (rows_out != nullptr) rows_out[i] = r.rows;
+}
+
+// The k-sample mode (models/batch.py:make_batched): sample s of the batch
+// takes row s of keys [k, 28] (the words tpt_render_unidirectional takes
+// by value, uploaded once per batch); each sample's radiance, retired as in
+// one launch, is added into a float32 accumulator that starts at 0, in
+// sample order, which is the JAX fori_loop's sum, and the rays into the
+// pixel's int32 counter. li_out and rays_out are written once.
+__global__ void __launch_bounds__(kThreads)
+uni_mega_batch_kernel(tpt::SceneArgs sc, tpt::Params p,
+                      const uint32_t* __restrict__ keys, int32_t k,
+                      const int32_t* __restrict__ px,
+                      const int32_t* __restrict__ py, int64_t n,
+                      float* __restrict__ li_out,
+                      int32_t* __restrict__ rays_out,
+                      int32_t* __restrict__ rows_out) {
+  const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x +
+                    threadIdx.x;
+  if (i >= n) return;
+  const int32_t x = px[i], y = py[i];
+  float ax = 0.0f, ay = 0.0f, az = 0.0f;
+  int32_t rays = 0, rows = 0;
+  for (int32_t s = 0; s < k; ++s) {
+    const uint32_t* row = keys + 28 * static_cast<int64_t>(s);
+    tpt::Params ps = p;
+    for (int w = 0; w < 8; ++w) ps.cam.keys[w] = row[w];
+    ps.skey0 = row[8];
+    ps.skey1 = row[9];
+    for (int w = 0; w < 18; ++w) ps.draw_keys[w] = row[10 + w];
+    const tpt::PathOut r = sample_pixel(sc, ps, i, x, y);
+    ax = ax + r.li.x;
+    ay = ay + r.li.y;
+    az = az + r.li.z;
+    rays += r.rays;
+    rows += r.rows;
+  }
+  li_out[3 * i] = ax;
+  li_out[3 * i + 1] = ay;
+  li_out[3 * i + 2] = az;
+  rays_out[i] = rays;
+  if (rows_out != nullptr) rows_out[i] = rows;
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -515,6 +572,35 @@ extern "C" int tpt_render_unidirectional(
       make_params(cam_params, keys, max_depth, use_mis, sample_environment,
                   schedule, air_priority),
       px, py, n, li, rays, rows);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The k-sample mode: k samples of n paths summed; keys [k, 28] (device
+// memory) holds each sample's words, row s in the layout of `keys` above.
+// li [n,3] is the sum of the k samples' radiance, rays [n] of their rays.
+// Returns the launch's cudaError_t.
+extern "C" int tpt_render_unidirectional_batch(
+    const float* table, const float* tri_f32, int32_t tri_cols,
+    const float* light_f32, int32_t num_lights, const float* textures,
+    const float* medium, const int32_t* px, const int32_t* py, int64_t n,
+    const float* cam_params, const uint32_t* keys, int32_t k,
+    int32_t max_depth, int32_t use_mis, int32_t sample_environment,
+    int32_t schedule, int32_t air_priority, float* li, int32_t* rays,
+    int32_t* rows, void* stream) {
+  if (n <= 0) return 0;
+  if (k < 1 || keys == nullptr ||
+      (schedule != tpt::kScheduleClassic && schedule != tpt::kScheduleMega &&
+       schedule != tpt::kScheduleNaive))
+    return static_cast<int>(cudaErrorInvalidValue);
+  static const uint32_t kNoKeys[28] = {};
+  const unsigned blocks = static_cast<unsigned>((n + kThreads - 1) / kThreads);
+  uni_mega_batch_kernel<<<blocks, kThreads, 0,
+                          static_cast<cudaStream_t>(stream)>>>(
+      make_scene(table, tri_f32, tri_cols, light_f32, num_lights, textures,
+                 medium),
+      make_params(cam_params, kNoKeys, max_depth, use_mis, sample_environment,
+                  schedule, air_priority),
+      keys, k, px, py, n, li, rays, rows);
   return static_cast<int>(cudaGetLastError());
 }
 

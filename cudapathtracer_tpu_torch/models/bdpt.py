@@ -390,8 +390,8 @@ def sample_keys(base_key, sample_idx):
 def render_sample(scene, camera, base_key, sample_idx, px, py, *,
                   cfg: BDPTConfig):
     """One BDPT sample over the whole frame (px, py [P] in raster order)
-    -> (radiance [P,3] with the light-trace splat added, rays traced as a
-    Python int)."""
+    -> (radiance [P,3] with the light-trace splat added, rays traced: a
+    Python int on the CPU, a 0-d int64 tensor on the card)."""
     fn = render_plain if px.device.type == "cpu" else render_kernel
     return fn(scene, camera, base_key, sample_idx, px, py, cfg=cfg)
 
@@ -416,8 +416,9 @@ def render_plain(scene, camera, base_key, sample_idx, px, py, *,
 
 def render_kernel(scene, camera, base_key, sample_idx, px, py, *,
                   cfg: BDPTConfig):
-    """K12 (light), K11, K12 (eye), K13: four launches, one ray-count
-    accumulator [P] and one host sync for its sum."""
+    """K12 (light), K11, K12 (eye), K13: four launches and one ray-count
+    accumulator [P], summed on the card (a 0-d int64 tensor; no host
+    sync)."""
     key_l, key_e, key_c = sample_keys(base_key, sample_idx)
     n, dev = px.shape[0], px.device
     px = px.to(torch.int32).contiguous()
@@ -434,4 +435,4 @@ def render_kernel(scene, camera, base_key, sample_idx, px, py, *,
                            camera=camera)
     out, _ = kernels.bdpt_connect(scene, camera, key_c, ew, lw, fb, rays, cfg,
                                   px=px, py=py)
-    return out, int(rays.sum())
+    return out, rays.sum()

@@ -11,6 +11,12 @@ vertices 1 .. light_depth-1 stored, pad paths walked and masked), the t=1
 splat of its live paths (K11), the mega eye pass of its live pixels (K14);
 then the splats are added, unrounded. On CUDA tensors that is three
 launches per chunk; on CPU tensors the plain versions.
+
+TPT_MEGA_LIGHT (read on every call under the JAX package's name, as the
+JAX engine reads it) walks the light paths with models/light_mega.py's
+keyed walk instead (K12's table mode on the card). JAX computes vertex 0
+from the endpoint math alone; here it is the endpoint the keyed walk
+computed from the same draws (on the card, written by the same launch).
 """
 
 from __future__ import annotations
@@ -18,11 +24,12 @@ from __future__ import annotations
 import torch
 
 from cudapathtracer_tpu_torch import kernels
-from cudapathtracer_tpu_torch.models import bdpt, paths
+from cudapathtracer_tpu_torch.models import bdpt, light_mega, paths
 from cudapathtracer_tpu_torch.models.vcm import VCMConfig, sample_keys
 from cudapathtracer_tpu_torch.models.vcm_mega import (chunk_pixels_of,
                                                       eye_keys, eye_pass_plain,
                                                       mask_pads, mega_chunks)
+from cudapathtracer_tpu_torch.scene.materials import TRANSPORT_IMPORTANCE
 
 
 def as_machine_cfg(cfg: bdpt.BDPTConfig) -> VCMConfig:
@@ -35,12 +42,20 @@ def as_machine_cfg(cfg: bdpt.BDPTConfig) -> VCMConfig:
         sample_environment=cfg.sample_environment)
 
 
+def light_pass(scene, key_l, pxc, pyc, light_depth: int):
+    """The TPT_MEGA_LIGHT light pass of a chunk: (light buffers [L-1,
+    c_pix], vertex 0, rays)."""
+    return light_mega.walk_with_endpoint(
+        scene, key_l, pxc.shape[0], light_depth, TRANSPORT_IMPORTANCE,
+        eta_vcm=None, pxc=pxc, pyc=pyc)
+
+
 def render_sample(scene, camera, base_key, sample_idx, px, py, *,
                   cfg: bdpt.BDPTConfig, width: int = 0,
                   chunk_pixels: int = 0):
     """One BDPT sample of the mega engine over the whole frame (px, py [P]
-    in raster order) -> (radiance [P,3] with the splat added, rays traced
-    as a Python int)."""
+    in raster order) -> (radiance [P,3] with the splat added, rays traced:
+    a Python int on the CPU, a 0-d int64 tensor on the card)."""
     fn = render_plain if px.device.type == "cpu" else render_kernel
     return fn(scene, camera, base_key, sample_idx, px, py, cfg=cfg,
               width=width, chunk_pixels=chunk_pixels)
@@ -57,10 +72,15 @@ def render_plain(scene, camera, base_key, sample_idx, px, py, *,
     out = torch.empty((p_total, 3), dtype=torch.float32, device=dev)
     fb = torch.zeros((p_total, 3), dtype=torch.float32, device=dev)
     rays = 0
+    keyed = light_mega.enabled()
     for ci in range(ch.n_chunks):
         pxc, pyc, cnt = chunk_pixels_of(px, py, ci, ch.c_pix)
-        lbufs, lv0, r = paths.generate_light_path(scene, key_l, pxc, pyc,
-                                                  cfg.light_depth)
+        if keyed:
+            lbufs, lv0, r = light_pass(scene, key_l, pxc, pyc,
+                                       cfg.light_depth)
+        else:
+            lbufs, lv0, r = paths.generate_light_path(scene, key_l, pxc, pyc,
+                                                      cfg.light_depth)
         lbufs = mask_pads(lbufs, cnt)
         rays += r
         if cfg.light_trace:
@@ -79,8 +99,10 @@ def render_plain(scene, camera, base_key, sample_idx, px, py, *,
 def render_kernel(scene, camera, base_key, sample_idx, px, py, *,
                   cfg: bdpt.BDPTConfig, width: int = 0,
                   chunk_pixels: int = 0):
-    """Per chunk: K12 (light), bdpt_splat, K14 (mega_eye, bdpt flavour);
-    one ray-count accumulator per chunk and one host sync for the sum."""
+    """Per chunk: K12 (light; its table mode under TPT_MEGA_LIGHT),
+    bdpt_splat, K14 (mega_eye, bdpt flavour); one ray-count accumulator
+    per chunk, summed on the card into a 0-d int64 tensor (no host
+    sync)."""
     key_l, key_e = sample_keys(base_key, sample_idx)
     p_total, dev = px.shape[0], px.device
     ch = mega_chunks(p_total, chunk_pixels, width)
@@ -91,17 +113,24 @@ def render_kernel(scene, camera, base_key, sample_idx, px, py, *,
     fb = torch.zeros((p_total, 3), dtype=torch.float32, device=dev)
     lkeys, ekeys = paths.walk_keys(key_l, "light"), eye_keys(key_e)
     sums = []
+    keyed = light_mega.enabled()
     for ci in range(ch.n_chunks):
         pxc, pyc, cnt = chunk_pixels_of(px, py, ci, ch.c_pix)
         rays = torch.zeros(ch.c_pix, dtype=torch.int32, device=dev)
-        lw = kernels.bdpt_walk(scene, pxc, pyc, lkeys, mode="light",
-                               max_depth=cfg.light_depth, rays=rays)
-        lbufs = mask_pads(lw["bufs"], cnt)
+        if keyed:
+            lbufs, lv0, lrays = light_pass(scene, key_l, pxc, pyc,
+                                           cfg.light_depth)
+            sums.append(lrays)
+        else:
+            lw = kernels.bdpt_walk(scene, pxc, pyc, lkeys, mode="light",
+                                   max_depth=cfg.light_depth, rays=rays)
+            lbufs, lv0 = lw["bufs"], lw["v0"]
+        lbufs = mask_pads(lbufs, cnt)
         if cfg.light_trace:
-            kernels.bdpt_splat(scene, camera, lbufs, lw["v0"], fb, rays, cfg,
+            kernels.bdpt_splat(scene, camera, lbufs, lv0, fb, rays, cfg,
                                n_live=cnt)
         kernels.mega_eye(scene, camera, ekeys, lbufs, None, out, rays, mcfg,
                          px=pxc, py=pyc, cnt=cnt, gbase=ci * ch.c_pix,
                          flavor="bdpt")
         sums.append(rays.sum())
-    return out + fb, int(torch.stack(sums).sum())
+    return out + fb, torch.stack(sums).sum()

@@ -150,10 +150,14 @@ class WalkStart(NamedTuple):
 
 def random_walk(scene, key, start: WalkStart, max_depth: int,
                 transport_mode: int, eta_vcm=None, first_vm_seed=None,
-                ids=None):
+                ids=None, key_table=None):
     """Plain version of K12's walk: vertices 1..max_depth-1. Returns
     (PathBuffers [max_depth-1, N], Escape, rays traced as a Python int);
-    buffer row j holds vertex j + 1."""
+    buffer row j holds vertex j + 1. key_table (uint32 [max_depth, 4, 2],
+    rng.draw_key_table(key, range(max_depth), range(4))): bounce `depth`
+    draws with the pairs of row `depth` through rng.uniform_keyed (K12's
+    table mode) instead of folding bounce_key(key, depth); the draws are
+    the same bits."""
     n, dev = start.o.shape[0], start.o.device
     o, d, thr = start.o, start.d, start.throughput
     prev_pdf_sa, prev_cos, prev_pt = (start.prev_pdf_sa, start.prev_cos,
@@ -185,9 +189,13 @@ def random_walk(scene, key, start: WalkStart, max_depth: int,
         pdf_fwd_area = prev_pdf_sa * torch.abs(wo_local[..., 2]) / d2
         g = prev_cos / d2
 
+        draws = None
+        if key_table is not None:
+            kt = key_table[depth]
+            draws = tuple(_keyed(kt[j], n, ids) for j in range(4))
         wi_local, f_val, pdf_sa = bsdf_ops.bsdf_sample(
             bkey, 0, mat, albedo, -wo_local, info["backface"], eta_i,
-            transport_mode, ids=ids, transmission=trans)
+            transport_mode, ids=ids, transmission=trans, draws=draws)
         pdf_rev_sa = bsdf_ops.bsdf_pdf(mat, wi_local, -wo_local, eta_i,
                                        transmission=trans)
 
@@ -238,18 +246,27 @@ def _light_rows(scene, li):
             r[:, 16].contiguous().view(torch.int32))
 
 
-def light_point(scene, key, draw_base, n, ids):
+def _keyed(pair, n, ids):
+    """uniform_keyed with one key pair ([2] uint32) for all n lanes."""
+    pair = pair.to(ids.device)
+    return rng.uniform_keyed(pair[0].expand(n).contiguous(),
+                             pair[1].expand(n).contiguous(), ids)
+
+
+def light_point(scene, key, draw_base, n, ids, draw=None):
     """Uniform light pick + sqrt-warp area sample with the INTERPOLATED
-    normal (draws draw_base + 0..2 of `key`, or the ids of LIGHT_DRAWS).
-    Returns (li, tri, point, normal, emission, area)."""
-    d0, d1, d2 = draw_base
-    ul = rng.uniform_any(key, d0, n, ids)
+    normal (draws draw_base + 0..2 of `key`, or the ids of LIGHT_DRAWS;
+    `draw(j)`, if given, makes draw j instead). Returns (li, tri, point,
+    normal, emission, area)."""
+    if draw is None:
+        draw = lambda j: rng.uniform_any(key, draw_base[j], n, ids)
+    ul = draw(0)
     num = max(scene.num_lights, 1)
     li = torch.clamp((ul * num).to(torch.int32), max=num - 1)
     a, b, c, le, area, tri = _light_rows(scene, li)
     n3 = scene.tri_f32[tri, 9:18].reshape(-1, 3, 3)
-    u = torch.sqrt(rng.uniform_any(key, d1, n, ids))
-    v = rng.uniform_any(key, d2, n, ids)
+    u = torch.sqrt(draw(1))
+    v = draw(2)
     w0, w1, w2 = (1.0 - u), u * (1.0 - v), u * v
     pt = w0[:, None] * a + w1[:, None] * b + w2[:, None] * c
     nrm = normalize(w0[:, None] * n3[:, 0] + w1[:, None] * n3[:, 1]
@@ -272,17 +289,24 @@ def start_eye_walk(scene, camera, key, px, py, ids):
                      first_vc_scale=torch.zeros_like(cos_cam)), v0
 
 
-def start_light_walk(scene, key, n, ids):
+def start_light_walk(scene, key, n, ids, key_table=None):
     """Light endpoint: uniform light pick, area sample, cosine emission;
-    beta0 = Le pi / pdf0. -> (WalkStart, vertex 0 dict)."""
+    beta0 = Le pi / pdf0. key_table (uint32 [5, 2], the pairs of draws
+    LIGHT_DRAWS of `key`: rng.draw_key_table(key, None, LIGHT_DRAWS)[0])
+    draws through rng.uniform_keyed instead, the same bits.
+    -> (WalkStart, vertex 0 dict)."""
+    if key_table is None:
+        draw = lambda j: rng.uniform_any(key, LIGHT_DRAWS[j], n, ids)
+    else:
+        draw = lambda j: _keyed(key_table[j], n, ids)
     li, tri, pt, nrm, le, area = light_point(scene, key, LIGHT_DRAWS[:3], n,
-                                             ids)
+                                             ids, draw)
     num = max(scene.num_lights, 1)
     pdf0 = true_div(float(np.float32(1.0 / num)),
                     torch.clamp(area, min=1e-20))
     beta0 = le * true_div(PI, pdf0)[:, None]
-    u1 = rng.uniform_any(key, LIGHT_DRAWS[3], n, ids)
-    u2 = rng.uniform_any(key, LIGHT_DRAWS[4], n, ids)
+    u1 = draw(3)
+    u2 = draw(4)
     out_local = bsdf_ops.cosine_sample(u1, u2)
     out_world = to_world(out_local, nrm)
     cos_emit = torch.abs(out_local[..., 2])

@@ -10,7 +10,8 @@ it is the plain version below: a per-bounce loop over the live paths that
 reuses ops/bsdf.py, models/common.py, ops/traverse.shade_data and the plain
 BVH8 traversal. Each bounce works on the paths still alive: dead paths are
 dropped with index_select, which leaves the image unchanged because every
-draw is keyed by the path, never by lane.
+draw is keyed by the path, never by lane. On the card a batch of k samples
+(models/batch.py) is one launch of K5's k-sample mode (render_batch).
 
 The mega engine (models/unidirectional_mega.py) is the same estimator with
 another draw schedule, so `render_plain` serves both:
@@ -61,7 +62,8 @@ def render_sample(scene, camera, base_key, sample_idx, px, py, *,
                   max_depth: int, use_mis: bool = True,
                   sample_environment: bool = False):
     """Trace one sample for pixels (px, py) [N] (int) -> (radiance [N,3]
-    float32, rays traced as a Python int)."""
+    float32, rays traced: a Python int on the CPU, a 0-d int64 tensor on
+    the card)."""
     if px.device.type == "cpu":
         return render_plain(scene, camera, base_key, sample_idx, px, py,
                             max_depth=max_depth, use_mis=use_mis,
@@ -88,14 +90,43 @@ def render_kernel(scene, camera, base_key, sample_idx, px, py, *,
                   max_depth: int, use_mis: bool, sample_environment: bool,
                   schedule: str):
     """One launch of K5 (uni_mega.cu) on CUDA tensors -> (radiance [N,3],
-    rays as a Python int)."""
+    rays as a 0-d int64 tensor on the card: no host sync)."""
     li, rays = kernels.render_unidirectional(
         scene, px.to(torch.int32).contiguous(),
         py.to(torch.int32).contiguous(), camera.kernel_params(),
         kernel_keys(base_key, sample_idx), max_depth=max_depth,
         use_mis=use_mis, sample_environment=sample_environment,
         schedule=schedule, air_priority=scene.air_priority)
-    return li, int(rays.sum())
+    return li, rays.sum()
+
+
+def render_batch(scene, camera, base_key, s0: int, px, py, k: int, *,
+                 max_depth: int, use_mis: bool = True,
+                 sample_environment: bool = False):
+    """Samples s0 .. s0+k-1 in one launch of K5's k-sample mode in the
+    classic schedule (CUDA tensors; models/batch.py)."""
+    return render_batch_kernel(scene, camera, base_key, s0, px, py, k,
+                               max_depth=max_depth, use_mis=use_mis,
+                               sample_environment=sample_environment,
+                               schedule="classic")
+
+
+def render_batch_kernel(scene, camera, base_key, s0: int, px, py, k: int, *,
+                        max_depth: int, use_mis: bool,
+                        sample_environment: bool, schedule: str):
+    """Samples s0 .. s0+k-1 in ONE launch of K5's k-sample mode on CUDA
+    tensors (models/batch.py): the samples' key words go to the card as one
+    [k, 28] table, copied without blocking the host. -> (radiance summed in
+    sample order [N,3], rays as a 0-d int64 tensor)."""
+    table = kernels.upload_words(
+        [kernel_keys(base_key, s) for s in range(s0, s0 + k)], px.device)
+    li, rays = kernels.render_unidirectional_batch(
+        scene, px.to(torch.int32).contiguous(),
+        py.to(torch.int32).contiguous(), camera.kernel_params(), table,
+        max_depth=max_depth, use_mis=use_mis,
+        sample_environment=sample_environment, schedule=schedule,
+        air_priority=scene.air_priority)
+    return li, rays.sum()
 
 
 def render_plain(scene, camera, base_key, sample_idx, px, py, *,

@@ -32,9 +32,8 @@ import torch
 
 from cudapathtracer_tpu_torch import kernels
 from cudapathtracer_tpu_torch.models import common
-from cudapathtracer_tpu_torch.models.unidirectional import (_D_BSDF, _D_NEE,
-                                                           render_kernel,
-                                                           render_plain)
+from cudapathtracer_tpu_torch.models.unidirectional import (
+    _D_BSDF, _D_NEE, render_batch_kernel, render_kernel, render_plain)
 from cudapathtracer_tpu_torch.ops import bsdf as bsdf_ops
 from cudapathtracer_tpu_torch.ops import traverse
 from cudapathtracer_tpu_torch.utils import rng
@@ -45,11 +44,23 @@ def render_sample(scene, camera, base_key, sample_idx, px, py, *,
                   max_depth: int, use_mis: bool = True,
                   sample_environment: bool = False):
     """One sample over pixels (px, py) [P] (int) -> (radiance [P,3]
-    float32, rays traced as a Python int)."""
+    float32, rays traced: a Python int on the CPU, a 0-d int64 tensor on
+    the card)."""
     fn = render_plain if px.device.type == "cpu" else render_kernel
     return fn(scene, camera, base_key, sample_idx, px, py,
               max_depth=max_depth, use_mis=use_mis,
               sample_environment=sample_environment, schedule="mega")
+
+
+def render_batch(scene, camera, base_key, s0: int, px, py, k: int, *,
+                 max_depth: int, use_mis: bool = True,
+                 sample_environment: bool = False):
+    """Samples s0 .. s0+k-1 in one launch of K5's k-sample mode in the
+    mega schedule (CUDA tensors; models/batch.py)."""
+    return render_batch_kernel(scene, camera, base_key, s0, px, py, k,
+                               max_depth=max_depth, use_mis=use_mis,
+                               sample_environment=sample_environment,
+                               schedule="mega")
 
 
 def _mega_keys(skey) -> list:

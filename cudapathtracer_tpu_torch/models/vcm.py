@@ -407,7 +407,8 @@ def render_sample(scene, camera, base_key, sample_idx, px, py, *,
                   cfg: VCMConfig):
     """One VCM/SPPM sample over the whole frame (px, py [P] in raster
     order) -> (radiance [P,3] with the splat added, rays traced, photons
-    the merge cap left out), the counts as Python ints."""
+    the merge cap left out), the counts as Python ints on the CPU and as
+    0-d int64 tensors on the card."""
     fn = render_plain if px.device.type == "cpu" else render_kernel
     return fn(scene, camera, base_key, sample_idx, px, py, cfg=cfg)
 
@@ -444,8 +445,8 @@ def render_plain(scene, camera, base_key, sample_idx, px, py, *,
 def render_kernel(scene, camera, base_key, sample_idx, px, py, *,
                   cfg: VCMConfig):
     """K12 (light), vcm_splat, photon_pack + sort + photon_table, vcm_eye:
-    one ray-count and one dropped-count accumulator [P] and one host sync
-    for both sums."""
+    one ray-count and one dropped-count accumulator [P], each summed on the
+    card into a 0-d int64 tensor (no host sync)."""
     key_l, key_e = sample_keys(base_key, sample_idx)
     n, dev = px.shape[0], px.device
     px = px.to(torch.int32).contiguous()
@@ -466,6 +467,4 @@ def render_kernel(scene, camera, base_key, sample_idx, px, py, *,
         scene, camera, paths.walk_keys(key_e, "eye"), lw["bufs"], grid, fb,
         rays, cfg, px=px, py=py, merge_radius=mr, eta_vcm=eta,
         merge_norm=norm, **hashgrid.merge_switches(cfg.max_per_cell))
-    rays_total, dropped_total = torch.stack(
-        [rays.sum(), dropped.sum()]).tolist()
-    return out, rays_total, dropped_total
+    return out, rays.sum(), dropped.sum()

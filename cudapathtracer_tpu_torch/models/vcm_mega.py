@@ -25,6 +25,9 @@ per chunk and sample:
   5. the mega eye pass of its cnt pixels (K14), each path's radiance
      retired through RGB9E5 (K10);
 then the splats are added, unrounded. SPPM is VCM restricted by its flags.
+TPT_MEGA_LIGHT (read on every call under the JAX package's name) walks
+step 1 with models/light_mega.py's keyed walk instead (K12's table mode on
+the card), with eta_vcm, as the JAX engine does.
 
 The mega eye pass differs from the classic one (models/vcm.py) in:
   * draws: as above (classic: bounce_key(key_e, depth), NEE fold_in(., 7));
@@ -54,7 +57,7 @@ import numpy as np
 import torch
 
 from cudapathtracer_tpu_torch import kernels
-from cudapathtracer_tpu_torch.models import common, mis, paths
+from cudapathtracer_tpu_torch.models import common, light_mega, mis, paths
 from cudapathtracer_tpu_torch.models.bdpt import (MAX_G_NEE, _cube, _vertex,
                                                   _weighted)
 from cudapathtracer_tpu_torch.models.vcm import (VCMConfig, _clamp_firefly,
@@ -63,6 +66,7 @@ from cudapathtracer_tpu_torch.models.vcm import (VCMConfig, _clamp_firefly,
                                                  sample_keys, vcm_light_splat)
 from cudapathtracer_tpu_torch.ops import bsdf as bsdf_ops
 from cudapathtracer_tpu_torch.ops import hashgrid, traverse
+from cudapathtracer_tpu_torch.scene.materials import TRANSPORT_IMPORTANCE
 from cudapathtracer_tpu_torch.utils import packing, rng
 from cudapathtracer_tpu_torch.utils.math import (EPSILON, MAX_FIREFLY_LUM,
                                                  PI, RAY_EPSILON, dot,
@@ -378,7 +382,8 @@ def render_sample(scene, camera, base_key, sample_idx, px, py, *,
                   cfg: VCMConfig, width: int = 0, chunk_pixels: int = 0):
     """One VCM/SPPM sample of the mega engine over the whole frame (px, py
     [P] in raster order) -> (radiance [P,3] with the splat added, rays
-    traced, photons the merge cap left out), the counts as Python ints.
+    traced, photons the merge cap left out), the counts as Python ints on
+    the CPU and as 0-d int64 tensors on the card.
     width and chunk_pixels set the chunks as in the JAX engine."""
     fn = render_plain if px.device.type == "cpu" else render_kernel
     return fn(scene, camera, base_key, sample_idx, px, py, cfg=cfg,
@@ -411,11 +416,17 @@ def render_plain(scene, camera, base_key, sample_idx, px, py, *,
     out = torch.empty((p_total, 3), dtype=torch.float32, device=dev)
     fb = torch.zeros((p_total, 3), dtype=torch.float32, device=dev)
     rays = dropped = 0
+    keyed = light_mega.enabled()
     for ci in range(ch.n_chunks):
         pxc, pyc, cnt = chunk_pixels_of(px, py, ci, ch.c_pix)
         mr, eta, norm = chunk_scalars(scene, cfg, sample_idx, cnt)
-        lbufs, _, r = paths.generate_light_path(
-            scene, key_l, pxc, pyc, cfg.light_depth + 1, eta_vcm=eta)
+        if keyed:
+            lbufs, r = light_mega.light_walk_mega(
+                scene, key_l, ch.c_pix, cfg.light_depth + 1,
+                TRANSPORT_IMPORTANCE, eta_vcm=eta, pxc=pxc, pyc=pyc)
+        else:
+            lbufs, _, r = paths.generate_light_path(
+                scene, key_l, pxc, pyc, cfg.light_depth + 1, eta_vcm=eta)
         lbufs = mask_pads(lbufs, cnt)
         rays += r
         if cfg.light_trace:
@@ -434,9 +445,10 @@ def render_plain(scene, camera, base_key, sample_idx, px, py, *,
 
 def render_kernel(scene, camera, base_key, sample_idx, px, py, *,
                   cfg: VCMConfig, width: int = 0, chunk_pixels: int = 0):
-    """Per chunk: K12 (light), vcm_splat, photon_pack + sort +
-    photon_table, K14 (mega_eye); one ray-count and one dropped-count
-    accumulator per chunk and one host sync for the sums."""
+    """Per chunk: K12 (light; its table mode under TPT_MEGA_LIGHT),
+    vcm_splat, photon_pack + sort + photon_table, K14 (mega_eye); one
+    ray-count and one dropped-count accumulator per chunk, summed on the
+    card into 0-d int64 tensors (no host sync)."""
     key_l, key_e = sample_keys(base_key, sample_idx)
     p_total, dev = px.shape[0], px.device
     ch = mega_chunks(p_total, chunk_pixels, width)
@@ -447,15 +459,23 @@ def render_kernel(scene, camera, base_key, sample_idx, px, py, *,
     lkeys, ekeys = paths.walk_keys(key_l, "light"), eye_keys(key_e)
     salt = hashgrid.photon_salt(sample_idx)
     switches = hashgrid.merge_switches(cfg.max_per_cell)
-    sums = []
+    ray_sums, drop_sums = [], []
+    keyed = light_mega.enabled()
     for ci in range(ch.n_chunks):
         pxc, pyc, cnt = chunk_pixels_of(px, py, ci, ch.c_pix)
         mr, eta, norm = chunk_scalars(scene, cfg, sample_idx, cnt)
         rays = torch.zeros(ch.c_pix, dtype=torch.int32, device=dev)
-        lw = kernels.bdpt_walk(scene, pxc, pyc, lkeys, mode="light",
-                               max_depth=cfg.light_depth + 1, rays=rays,
-                               eta_vcm=eta)
-        lbufs = mask_pads(lw["bufs"], cnt)
+        if keyed:
+            lbufs, lrays = light_mega.light_walk_mega(
+                scene, key_l, ch.c_pix, cfg.light_depth + 1,
+                TRANSPORT_IMPORTANCE, eta_vcm=eta, pxc=pxc, pyc=pyc)
+            ray_sums.append(lrays)
+        else:
+            lbufs = kernels.bdpt_walk(
+                scene, pxc, pyc, lkeys, mode="light",
+                max_depth=cfg.light_depth + 1, rays=rays,
+                eta_vcm=eta)["bufs"]
+        lbufs = mask_pads(lbufs, cnt)
         if cfg.light_trace:
             kernels.vcm_splat(scene, camera, lbufs, fb, rays, cfg, eta)
         grid = (hashgrid.build_grid_kernel(lbufs, scene.scene_min, mr, salt)
@@ -464,6 +484,7 @@ def render_kernel(scene, camera, base_key, sample_idx, px, py, *,
             scene, camera, ekeys, lbufs, grid, out, rays, cfg, px=pxc,
             py=pyc, cnt=cnt, gbase=ci * ch.c_pix, flavor="vcm",
             merge_radius=mr, eta_vcm=eta, merge_norm=norm, **switches)
-        sums += [rays.sum(), dropped.sum()]
-    totals = torch.stack(sums).reshape(-1, 2).sum(dim=0).tolist()
-    return out + fb, totals[0], totals[1]
+        ray_sums.append(rays.sum())
+        drop_sums.append(dropped.sum())
+    return (out + fb, torch.stack(ray_sums).sum(),
+            torch.stack(drop_sums).sum())

@@ -288,14 +288,15 @@ def bsdf_pdf(mat, wi, wo, eta_i, transmission=None):
 
 def bsdf_sample(key, draw_base, mat, albedo, wi, backface, eta_i,
                 transport_mode=TRANSPORT_RADIANCE, transmission=None,
-                ids=None):
+                ids=None, draws=None):
     """Sample wo for every lane -> (wo [N,3], f [N,3], pdf [N]); consumes
-    draws draw_base .. draw_base+3 keyed by `ids`."""
+    draws draw_base .. draw_base+3 keyed by `ids`, or the four uniforms
+    `draws` [N] the caller drew (the keyed walk, models/light_mega.py)."""
     n = wi.shape[0]
-    u_sel = rng.uniform_any(key, draw_base + 0, n, ids)
-    u_t = rng.uniform_any(key, draw_base + 1, n, ids)
-    u1 = rng.uniform_any(key, draw_base + 2, n, ids)
-    u2 = rng.uniform_any(key, draw_base + 3, n, ids)
+    if draws is None:
+        draws = tuple(rng.uniform_any(key, draw_base + j, n, ids)
+                      for j in range(4))
+    u_sel, u_t, u1, u2 = draws
     t = mat.type
     trans = mat.transmission if transmission is None else transmission
 

@@ -14,7 +14,10 @@ bit:
 
 Only the id-keyed streams are ported: every draw of the integrators in this
 package is keyed by pixel id. The positional streams (`uniform`,
-`uniform2`) of the JAX package are not.
+`uniform2`) of the JAX package are not. `draw_key_table` folds the key
+pairs of every (bounce, draw) on the host once, and `uniform_keyed` draws
+with a key pair per lane (K6's keyed mode on CUDA tensors): the keyed
+light walk (models/light_mega.py) reads its draws that way.
 """
 
 from __future__ import annotations
@@ -81,13 +84,15 @@ def pixel_ids(px: torch.Tensor, py: torch.Tensor) -> torch.Tensor:
 
 # --- the per-lane draw: kernel K6 and its plain version --------------------
 
-def _threefry_lanes(k0: int, k1: int, ids: torch.Tensor):
+def _threefry_lanes(k0, k1, ids: torch.Tensor):
     """Plain version of K6's cipher: Threefry-2x32 over (ids, 0) per lane,
-    in int64 arithmetic masked to 32 bits. Returns (x0, x1) int64."""
+    in int64 arithmetic masked to 32 bits, under the key (k0, k1): Python
+    ints, or int64 tensors of per-lane words (the keyed mode). Returns
+    (x0, x1) int64."""
     ks = (k0, k1, k0 ^ k1 ^ _PARITY)
     x0 = (ids.to(torch.int64) & _MASK) + ks[0]
     x0 = x0 & _MASK
-    x1 = torch.full_like(x0, ks[1])
+    x1 = torch.zeros_like(x0) + ks[1]
     for i in range(5):
         for r in _TF_ROT[i % 2]:
             x0 = (x0 + x1) & _MASK
@@ -141,3 +146,42 @@ def uniform_any(key: Key, draw_id: int, n: int, ids=None) -> torch.Tensor:
     if ids.shape[0] != n:
         raise ValueError(f"ids has {ids.shape[0]} lanes, expected {n}")
     return uniform_id(key, draw_id, ids)
+
+
+# --- the keyed draws: per-(bounce, draw) key tables and per-lane keys -------
+
+def draw_key_table(key: Key, bounces, draw_ids) -> torch.Tensor:
+    """The (k0, k1) pairs of uniform_id for every (bounce, draw_id): uint32
+    [len(bounces), len(draw_ids), 2], row b keyed by bounce_key(key, b);
+    bounces=None gives one row keyed by `key` itself. Folded on the host,
+    once per table."""
+    rows = []
+    for b in (bounces if bounces is not None else [None]):
+        bkey = key if b is None else bounce_key(key, b)
+        rows.append([list(draw_key(bkey, d)) for d in draw_ids])
+    return torch.tensor(rows, dtype=torch.uint32)
+
+
+def _words(k: torch.Tensor) -> torch.Tensor:
+    """uint32 words (a uint32 or int32 tensor) as int64 values."""
+    if k.dtype == torch.uint32:
+        k = k.view(torch.int32)
+    return k.to(torch.int64) & _MASK
+
+
+def uniform_keyed_plain(k0: torch.Tensor, k1: torch.Tensor,
+                        ids: torch.Tensor) -> torch.Tensor:
+    """Plain version of K6's keyed mode (any device): uniform_id with a key
+    pair per lane (k0, k1 [N] uint32 words, or broadcastable to ids)."""
+    return _bits_to_unit(_threefry_lanes(_words(k0), _words(k1), ids)[0])
+
+
+def uniform_keyed(k0: torch.Tensor, k1: torch.Tensor,
+                  ids: torch.Tensor) -> torch.Tensor:
+    """One uniform in [0,1) per lane under that lane's key pair (k0, k1
+    [N]): bit-equal to uniform_id(key, d, ids) when every pair is
+    draw_key(key, d). CPU tensors take the plain version, CUDA tensors
+    K6's keyed mode."""
+    if ids.device.type == "cpu":
+        return uniform_keyed_plain(k0, k1, ids)
+    return kernels.uniform_keyed(ids, k0, k1)

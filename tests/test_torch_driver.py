@@ -223,11 +223,17 @@ def test_default_device_is_cuda(tmp_path):
 def test_port_never_imports_jax(tmp_path):
     """The port parses a config with its own parser and renders every
     integrator with both engines without importing jax or any module of
-    the JAX package."""
+    the JAX package; so do samples per dispatch (models/batch.py), the
+    keyed light walk (models/light_mega.py), the checks (utils/checks.py)
+    and the BDPT_DRAWPATH overlay (utils/debugviz.py)."""
     code = f"""
-import sys
+import dataclasses, os, sys
 import cudapathtracer_tpu_torch
 import cudapathtracer_tpu_torch.cli, cudapathtracer_tpu_torch.driver
+import cudapathtracer_tpu_torch.models.batch
+import cudapathtracer_tpu_torch.models.light_mega
+import cudapathtracer_tpu_torch.utils.checks
+import cudapathtracer_tpu_torch.utils.debugviz
 from cudapathtracer_tpu_torch.utils.config import parse_config
 from cudapathtracer_tpu_torch.driver import Renderer
 for engine, integ in (("mega", "UNIDIRECTIONAL"),
@@ -244,6 +250,15 @@ for engine, integ in (("mega", "UNIDIRECTIONAL"),
     img = r.render(num_samples=1, progressive=False, verbose=False)
     assert img.pixels.shape == (24, 32, 3)
     assert r.metrics.rays_traced > 24 * 32
+os.environ["TPT_MEGA_LIGHT"] = "1"
+cudapathtracer_tpu_torch.utils.checks.enable_checks(True)
+cfg = dataclasses.replace(cfg, integrator="BIDIRECTIONAL", width=8,
+                          height=8, samples_per_dispatch=2,
+                          bdpt_draw_path=True, save_interval_seconds=0.0)
+r = Renderer(cfg, device="cpu")
+r.render(num_samples=2, progressive=True, verbose=False)
+assert r.checks.reports and r._overlay is not None
+assert cudapathtracer_tpu_torch.models.light_mega.calls["light_walk_mega"]
 bad = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")
              or m == "cudapathtracer_tpu"
              or m.startswith("cudapathtracer_tpu."))

@@ -25,6 +25,11 @@ splat and the eye kernel on the same light buffers and grid as their plain
 versions (compare_vcm: rays within 0.1%, image mean within 1e-3, >= 99.9%
 and 99.5% of pixels within rtol 1e-3, dropped photons equal) for VCM,
 SPPM and each merge mode; the VCM and SPPM goldens at rmse < 1e-3.
+The modes added for samples per dispatch and the keyed light walk are
+bit-equal to what they replace: K5's k-sample mode to k single launches
+summed in sample order (three schedules), K6's keyed mode to the plain
+uniform_keyed and to uniform_id, K12's table mode to the folded walk
+(every buffer field, vertex 0, rays).
 """
 
 import dataclasses
@@ -71,7 +76,8 @@ def test_import_builds_nothing():
                                   "bdpt_splat", "bdpt_connect", "vcm_splat",
                                   "photon_pack", "photon_table", "vcm_eye",
                                   "rgb9e5_roundtrip", "neighbor_slots",
-                                  "mega_eye"])
+                                  "mega_eye", "uniform_keyed",
+                                  "render_unidirectional_batch"])
 def test_wrappers_refuse_non_cuda_tensors(call):
     """A wrapper launches on CUDA tensors or raises; it never falls back."""
     kernels.reset_launches()
@@ -115,10 +121,14 @@ def test_wrappers_refuse_non_cuda_tensors(call):
             torch.zeros((16, 8)), torch.zeros((8, 2), dtype=torch.int32),
             (0.0, 0.0, 0.0), 0.1, 7), f3, 0.05, 4),
         "mega_eye": (scene, cam, [0] * 22, bufs, None, f3, i1, vcfg),
+        "uniform_keyed": (i1, i1, i1),
+        "render_unidirectional_batch": (
+            scene, i1, i1, [0.0] * 19, torch.zeros((2, 28),
+                                                   dtype=torch.int32)),
     }[call]
-    kw = {"render_unidirectional": dict(
-              max_depth=4, use_mis=True, sample_environment=False,
-              schedule="mega", air_priority=99),
+    k5 = dict(max_depth=4, use_mis=True, sample_environment=False,
+              schedule="mega", air_priority=99)
+    kw = {"render_unidirectional": k5, "render_unidirectional_batch": k5,
           "bdpt_walk": dict(mode="light", max_depth=2, rays=i1),
           "bdpt_connect": dict(px=i1, py=i1),
           "vcm_eye": dict(px=i1, py=i1, merge_radius=0.1, eta_vcm=1.0,
@@ -133,8 +143,9 @@ def test_wrappers_refuse_non_cuda_tensors(call):
     meta = [a.to("meta") if isinstance(a, torch.Tensor) else a for a in args]
     with pytest.raises(ValueError, match="CUDA"):
         getattr(kernels, call)(*meta, **kw)
-    assert kernels.launches[{"rgb9e5_roundtrip": "rgb9e5"}.get(call, call)] \
-        == 0
+    assert kernels.launches[{"rgb9e5_roundtrip": "rgb9e5",
+                             "render_unidirectional_batch": "uni_mega_batch"
+                             }.get(call, call)] == 0
 
 
 @pytest.mark.cuda
@@ -582,3 +593,116 @@ def test_naive_matches_plain(cuda, name):
     assert kernels.launches["render_unidirectional"] == 0
     p = naive.render_plain(sc, cam, rng.base_key(), 1, px, py, max_depth=6)
     chip_smoke.compare_render(k, p, f"{name} naive")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("schedule", ["mega", "classic", "naive"])
+def test_k5_batch_mode_bit_equal_to_singles(cuda, schedule):
+    """One launch of K5's k-sample mode (3 samples from sample 2) against
+    three single launches summed in sample order: radiance and rays
+    bit-equal."""
+    sc, _ = build_scene(builtin.cornell_with_spheres(), builtin_materials(),
+                        device=cuda)
+    cam = Camera.pinhole((0.0, 0.0, 1.0), 96, 64, 0.0, 0.0, 0.0, 60.0)
+    px, py = _grid(96, 64, cuda)
+    kw = dict(max_depth=6, use_mis=schedule != "naive",
+              sample_environment=False, schedule=schedule)
+    kernels.reset_launches()
+    li, rays = uni.render_batch_kernel(sc, cam, rng.base_key(), 2, px, py, 3,
+                                       **kw)
+    assert kernels.launches["uni_mega_batch"] == 1
+    assert sum(kernels.launches.values()) == 1
+    acc = torch.zeros_like(li)
+    total = 0
+    for s in range(2, 5):
+        l1, r1 = uni.render_kernel(sc, cam, rng.base_key(), s, px, py, **kw)
+        acc = acc + l1
+        total += int(r1)
+    assert torch.equal(li, acc)
+    assert int(rays) == total
+
+
+@pytest.mark.cuda
+def test_renderer_batch_is_one_k5_launch(cuda, tmp_path):
+    """Through Renderer on the card, 5 samples at 2 per dispatch: two
+    k-sample launches and one single launch, and the image of 1 per
+    dispatch within float association (rays equal)."""
+    from cudapathtracer_tpu_torch.driver import Renderer
+    from cudapathtracer_tpu_torch.utils.config import MeshConfig, RenderConfig
+
+    def cfg(spd):
+        return RenderConfig(width=64, height=48, sample_count=5, max_depth=4,
+                            meshes=[MeshConfig("builtin:cornell_blocks")],
+                            samples_per_dispatch=spd,
+                            output_dir=str(tmp_path))
+    kernels.reset_launches()
+    r2 = Renderer(cfg(2), device="cuda")
+    r2.render(progressive=False, verbose=False)
+    assert (kernels.launches["uni_mega_batch"],
+            kernels.launches["render_unidirectional"]) == (2, 1)
+    r1 = Renderer(cfg(1), device="cuda")
+    r1.render(progressive=False, verbose=False)
+    assert r1.metrics.rays_traced == r2.metrics.rays_traced
+    assert torch.allclose(r1.accum, r2.accum, rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.cuda
+def test_k6_keyed_matches_plain(cuda):
+    gen = np.random.default_rng(41)
+    n = 100003
+    words = lambda: torch.as_tensor(gen.integers(
+        0, 2 ** 32, n, dtype=np.uint64).astype(np.uint32).view(np.int32),
+        device=cuda)
+    k0, k1 = words(), words()
+    ids = torch.as_tensor(gen.integers(0, 2 ** 31, n).astype(np.int32),
+                          device=cuda)
+    kernels.reset_launches()
+    ku = rng.uniform_keyed(k0, k1, ids)
+    assert kernels.launches["uniform_keyed"] == 1
+    pu = rng.uniform_keyed_plain(k0, k1, ids)
+    assert torch.equal(ku.view(torch.int32), pu.view(torch.int32))
+    a, b = rng.draw_key(rng.base_key(), 9)
+    full = lambda w: torch.full((n,), w, dtype=torch.int64).to(
+        torch.uint32).view(torch.int32).to(cuda)
+    assert torch.equal(rng.uniform_keyed(full(a), full(b), ids),
+                       rng.uniform_id(rng.base_key(), 9, ids))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("eta", [None, chip_smoke.VCM_ETA])
+def test_k12_table_mode_bit_equal_to_folded(cuda, eta):
+    """K12's table mode (light_mega's walk) against its folded mode on the
+    same pixels: every buffer field, the endpoint and the rays bit-equal."""
+    from cudapathtracer_tpu_torch.models import light_mega
+    from cudapathtracer_tpu_torch.scene.materials import TRANSPORT_IMPORTANCE
+    sc, _ = build_scene(builtin.cornell_with_spheres(), builtin_materials(),
+                        device=cuda)
+    px, py = _grid(96, 64, cuda)
+    n, depth = px.shape[0], 7
+    key = rng.sample_key(rng.base_key(), 5)
+    ktab, ketab = light_mega.key_tables(key, depth)
+    table = light_mega.device_table(ktab, ketab, cuda)
+    walk = lambda tab: kernels.bdpt_walk(
+        sc, px, py, paths.walk_keys(key, "light"), mode="light",
+        max_depth=depth, rays=torch.zeros(n, dtype=torch.int32, device=cuda),
+        eta_vcm=eta, key_table=tab)
+    kernels.reset_launches()
+    tw, fw = walk(table), walk(None)
+    assert (kernels.launches["bdpt_walk_table"],
+            kernels.launches["bdpt_walk"]) == (1, 1)
+    for name, a, b in zip(paths.PathBuffers._fields, tw["bufs"], fw["bufs"]):
+        assert torch.equal(a, b), name
+    for k in fw["v0"]:
+        assert torch.equal(tw["v0"][k], fw["v0"][k]), k
+    kernels.reset_launches()
+    lb, lv0, lrays = light_mega.walk_with_endpoint(
+        sc, key, n, depth, TRANSPORT_IMPORTANCE, eta_vcm=eta, pxc=px, pyc=py)
+    assert kernels.launches["bdpt_walk_table"] == 1
+    for k in fw["v0"]:
+        assert torch.equal(lv0[k], fw["v0"][k]), k
+    rays = torch.zeros(n, dtype=torch.int32, device=cuda)
+    kernels.bdpt_walk(sc, px, py, paths.walk_keys(key, "light"),
+                      mode="light", max_depth=depth, rays=rays, eta_vcm=eta)
+    assert int(lrays) == int(rays.sum())
+    for name, a, b in zip(paths.PathBuffers._fields, lb, fw["bufs"]):
+        assert torch.equal(a, b), name

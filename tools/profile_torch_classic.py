@@ -1,26 +1,34 @@
 #!/usr/bin/env python3
 """Where the time goes in the PyTorch port's main paths, on one GPU.
 
-Renders a main path (configs/cornell.rendertron, the ~82k-triangle
-Cornell + bunny scene) through driver.Renderer with the engine asked for:
---engine mega (the config's default) or classic, the unidirectional path
-at depth 8, one launch per sample of the per-path megakernel K5; or
---engine bdpt, Integrator BIDIRECTIONAL with Engine classic at the
-config's eye and light depths, four launches per sample (the walks K12
-twice, the splat K11, the connections K13); or --engine vcm / sppm,
-Integrator VCM / SPPM with Engine classic at the same depths, five
-launches and a sort per sample (K12's light walk, vcm_splat (not SPPM),
-photon_pack, torch.sort, photon_table, vcm_eye). One
-timed warm-up sample, then timed samples (host clock around samples that
-end in a synchronize, and CUDA events around the same samples), then one
-sample under torch.profiler. Prints per-kernel device time grouped by layer, the
-device's busy time and idle share over the profiled sample, and each
-sample's time and Mrays/s. Writes the profiler table and a Chrome trace
-under --out (the trace gzipped). Run from the repository root:
+Renders a main path through driver.Renderer: by default
+configs/cornell.rendertron on the ~82k-triangle Cornell + bunny scene
+at 1920x1080 (--config picks another config, which keeps its own size and
+meshes unless --width, --height or --mesh say otherwise). --engine selects the integrator and engine: mega (the
+config's default) or classic, the unidirectional path at --depth, one
+launch per sample of the per-path megakernel K5; naive, the naive
+integrator (K5's naive schedule); bdpt, vcm or sppm, Integrator
+BIDIRECTIONAL / VCM / SPPM with Engine classic at the config's eye and
+light depths (the walks K12, the splat K11, the connections K13; or K12,
+vcm_splat (not SPPM), photon_pack, torch.sort, photon_table, vcm_eye);
+bdpt-mega, vcm-mega or sppm-mega, the same integrators with the default
+mega engine (per chunk K12, the splat, K8, the mega eye pass K14).
+--samples-per-dispatch k renders k samples per dispatch (models/batch.py;
+0 = the driver's auto rule), as the driver does.
+
+One timed warm-up dispatch (it includes the kernel build), then --spp
+timed samples in dispatches of k (host clock around the window, which ends
+in one synchronize, and CUDA events around it), then --profile-spp samples
+under torch.profiler. Prints per-kernel device time grouped by layer, the
+device's busy time and idle share over the profiled window, and the
+steady Mrays/s. Writes the profiler table and a Chrome trace under --out
+(the trace gzipped). Run from the repository root:
 
     python3 tools/profile_torch_classic.py
-        [--engine mega|classic|bdpt|vcm|sppm]
-        [--width 1920 --height 1080 --spp 4]
+        [--engine mega|classic|naive|bdpt|vcm|sppm|bdpt-mega|vcm-mega|
+                  sppm-mega]
+        [--config configs/cornell.rendertron] [--mesh builtin:NAME]
+        [--width 1920 --height 1080 --spp 4] [--samples-per-dispatch K]
 """
 
 from __future__ import annotations
@@ -36,7 +44,8 @@ import sys
 import time
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-LAYERS = (("K5 megakernel", "uni_mega_kernel"),
+LAYERS = (("K5 megakernel, k-sample mode", "uni_mega_batch_kernel"),
+          ("K5 megakernel", "uni_mega_kernel"),
           ("K12 BDPT walks", "bdpt_walk_kernel"),
           ("K11 splat (BDPT or VCM form)", "bdpt_splat_kernel"),
           ("K13 BDPT connections", "bdpt_connect_kernel"),
@@ -44,20 +53,38 @@ LAYERS = (("K5 megakernel", "uni_mega_kernel"),
           ("K8 sort (torch.sort)", "RadixSort"),
           ("K8 photon_table", "photon_table_kernel"),
           ("K13 VCM eye pass (with K9)", "vcm_eye_kernel"),
+          ("K14 mega eye pass", "mega_eye_kernel"),
           ("K1 traverse8", "traverse8_kernel"),
+          ("K6 rng (keyed mode)", "uniform_keyed_kernel"),
           ("K6 rng", "uniform_id_kernel"),
           ("K7 camera", "generate_rays_kernel"))
+# --engine -> (integrator, engine)
+ENGINES = {"mega": ("UNIDIRECTIONAL", "mega"),
+           "classic": ("UNIDIRECTIONAL", "classic"),
+           "naive": ("NAIVE_UNIDIRECTIONAL", "mega"),
+           "bdpt": ("BIDIRECTIONAL", "classic"),
+           "vcm": ("VCM", "classic"), "sppm": ("SPPM", "classic"),
+           "bdpt-mega": ("BIDIRECTIONAL", "mega"),
+           "vcm-mega": ("VCM", "mega"), "sppm-mega": ("SPPM", "mega")}
 OTHER = "other device work (sums, copies, accumulation)"
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__)
-    ap.add_argument("--engine", choices=("mega", "classic", "bdpt", "vcm",
-                                         "sppm"), default="mega")
-    ap.add_argument("--width", type=int, default=1920)
-    ap.add_argument("--height", type=int, default=1080)
+    ap.add_argument("--engine", choices=tuple(ENGINES), default="mega")
+    ap.add_argument("--config", default=os.path.join(ROOT, "configs",
+                                                     "cornell.rendertron"))
+    ap.add_argument("--mesh", default=None,
+                    help="builtin scene (default: the bunny for "
+                         "cornell.rendertron, else the config's meshes)")
+    ap.add_argument("--width", type=int, default=None)
+    ap.add_argument("--height", type=int, default=None)
     ap.add_argument("--depth", type=int, default=8)
     ap.add_argument("--spp", type=int, default=4, help="timed samples")
+    ap.add_argument("--profile-spp", type=int, default=None,
+                    help="profiled samples (default: one dispatch)")
+    ap.add_argument("--samples-per-dispatch", type=int, default=1,
+                    help="samples per dispatch (0: the driver's auto rule)")
     ap.add_argument("--out", default=os.path.join(ROOT, "chiprun_out",
                                                   "profile"))
     args = ap.parse_args()
@@ -68,57 +95,72 @@ def main() -> int:
     sys.path.insert(0, ROOT)
     from torch.profiler import ProfilerActivity, profile
 
-    from cudapathtracer_tpu_torch.driver import Renderer
+    from cudapathtracer_tpu_torch.driver import (Renderer,
+                                                 resolve_samples_per_dispatch)
     from cudapathtracer_tpu_torch.utils.config import MeshConfig, load_config
 
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
                           text=True, timeout=60).stdout.strip()
-    integ = {"bdpt": "BIDIRECTIONAL", "vcm": "VCM", "sppm": "SPPM"}.get(
-        args.engine, "UNIDIRECTIONAL")
-    bdpt = integ != "UNIDIRECTIONAL"
-    cfg = dataclasses.replace(
-        load_config(os.path.join(ROOT, "configs", "cornell.rendertron")),
-        integrator=integ,
-        engine="classic" if bdpt else args.engine, width=args.width,
-        height=args.height, max_depth=args.depth,
-        meshes=[MeshConfig("builtin:cornell_bunny", 1.0, (0.0, 0.0, 0.0),
-                           2)])
+    integ, engine = ENGINES[args.engine]
+    base = load_config(args.config)
+    main_path = os.path.basename(args.config) == "cornell.rendertron"
+    mesh = args.mesh or ("builtin:cornell_bunny" if main_path else None)
+    over = dict(integrator=integ, engine=engine, max_depth=args.depth,
+                samples_per_dispatch=args.samples_per_dispatch)
+    if args.width or main_path:
+        over.update(width=args.width or 1920)
+    if args.height or main_path:
+        over.update(height=args.height or 1080)
+    if mesh:
+        over.update(meshes=[MeshConfig(mesh, 1.0, (0.0, 0.0, 0.0), 2)])
+    cfg = dataclasses.replace(base, **over)
     r = Renderer(cfg, device="cuda")
+    k = resolve_samples_per_dispatch(r.cfg, r.device)
+
+    def window(s0: int, n: int):
+        """n samples from s0 in dispatches of k, accumulated as the driver
+        does; -> the rays as a device tensor (nothing waits)."""
+        rays = torch.zeros((), dtype=torch.int64, device=r.device)
+        s = s0
+        while s < s0 + n:
+            kk = min(k, s0 + n - s)
+            out = r.render_batch(s, kk) if kk > 1 else r.render_sample(s)
+            r.accum += out[0]
+            rays = rays + out[1]
+            s += kk
+        return rays
+
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    r.render_sample(0)                                   # warm-up
+    window(0, k)                                          # warm-up
     torch.cuda.synchronize()
     warmup_secs = time.perf_counter() - t0
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     t0 = time.perf_counter()
     start.record()
-    per_sample, rays = [], 0
-    for s in range(1, 1 + args.spp):
-        t1 = time.perf_counter()
-        n = r.render_sample(s)[1]          # ends in a sync (the ray count)
-        per_sample.append((time.perf_counter() - t1, n))
-        rays += n
+    rays = window(k, args.spp)
     end.record()
     torch.cuda.synchronize()
     secs = (time.perf_counter() - t0) / args.spp
     event_ms = start.elapsed_time(end) / args.spp
+    rays = int(rays)
 
+    n_prof = args.profile_spp or k
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t1 = time.perf_counter()
-        r.render_sample(1 + args.spp)
+        window(k + args.spp, n_prof)
         torch.cuda.synchronize()
         prof_secs = time.perf_counter() - t1
-
     os.makedirs(args.out, exist_ok=True)
     avg = prof.key_averages()
     table = avg.table(sort_by="self_cuda_time_total", row_limit=40)
-    with open(os.path.join(args.out, f"kernels_{args.engine}.txt"),
-              "w") as f:
+    tag = f"{args.engine}_{r.cfg.width}x{r.cfg.height}_spd{k}"
+    with open(os.path.join(args.out, f"kernels_{tag}.txt"), "w") as f:
         f.write(table)
-    trace = os.path.join(args.out, f"trace_{args.engine}.json")
+    trace = os.path.join(args.out, f"trace_{tag}.json")
     prof.export_chrome_trace(trace)
     with open(trace, "rb") as f, gzip.open(trace + ".gz", "wb") as g:
         shutil.copyfileobj(f, g)
@@ -142,24 +184,25 @@ def main() -> int:
     print(table[:6000])
     summary = dict(
         card=card, kind=torch.cuda.get_device_name(0), engine=args.engine,
-        width=args.width, height=args.height,
-        depth=((cfg.bdpt_eye_depth, cfg.bdpt_light_depth) if bdpt
-               else args.depth),
-        warmup_sample_seconds=warmup_secs, sample_seconds=secs,
+        config=os.path.basename(args.config), width=r.cfg.width,
+        height=r.cfg.height, samples_per_dispatch=k,
+        depth=((r.cfg.bdpt_eye_depth, r.cfg.bdpt_light_depth)
+               if integ in ("BIDIRECTIONAL", "VCM", "SPPM") else args.depth),
+        warmup_seconds=warmup_secs, sample_seconds=secs,
         sample_event_ms=event_ms,
         mrays_per_s=rays / args.spp / secs / 1e6,
         rays_per_sample=rays / args.spp,
-        samples=[dict(seconds=t, rays=n) for t, n in per_sample],
-        profiled_sample_seconds=prof_secs, device_busy_seconds=busy,
-        device_idle_share=1.0 - busy / prof_secs,
+        profiled_samples=n_prof, profiled_seconds=prof_secs,
+        device_busy_seconds=busy, device_idle_share=1.0 - busy / prof_secs,
         layer_ms=layers,
-        top_kernels_ms={k[:60]: v / 1e3 for k, v in top},
+        top_kernels_ms={kn[:60]: v / 1e3 for kn, v in top},
         peak_memory_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
     print(json.dumps(summary))
-    with open(os.path.join(args.out, f"summary_{args.engine}.json"),
-              "w") as f:
+    with open(os.path.join(args.out, f"summary_{tag}.json"), "w") as f:
         json.dump(summary, f, indent=1)
     return 0
+
+
 
 
 if __name__ == "__main__":
