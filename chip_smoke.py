@@ -134,14 +134,43 @@ Phases (one line each; any failure exits non-zero before the result line):
      render (rays equal, pixels within the splat's atomic spread);
  29. BDPT_DRAWPATH on the 1080p BIDIRECTIONAL render: the overlay from
      K12's eye walk equals the one drawn from the plain walk's paths, and
-     the image changes only under it.
+     the image changes only under it;
+ 30. K15, the threaded binary engine (traverse_bin.cu), against its plain
+     version on the bunny scene built with traversal="threaded" (no SBVH,
+     93k binary nodes): the 1080p primary rays, random secondary rays
+     (max_t, skip_tri) and NEE-like shadow rays, and shadow rays on its
+     MAT_LEAF variant, under phase 5's criteria; the kernel's rows a ray
+     equal to the plain walk's on >= 99.99% of the rays, printed against
+     K1's on the same rays, and the plain walk's triangle tests, which
+     with the rows make the bound's operations;
+ 31. K5's classic and naive schedules on that scene (their threaded
+     instantiations) against their plain versions at 1080p, 1 spp, under
+     phase 7's criteria;
+ 32. the threaded main path: each classic integrator (UNIDIRECTIONAL,
+     NAIVE_UNIDIRECTIONAL, BIDIRECTIONAL, VCM, SPPM at the config's
+     depths) through its render_sample on the threaded 1080p scene, 4 spp,
+     and the same on the BVH8 engine of the same scene: rays, Mrays/s,
+     peak memory, launches per sample (every launch a threaded
+     instantiation), rows a ray on each engine and one sample of each
+     timed with CUDA events; the two images under compare_image (99% of
+     the pixels; VCM and SPPM by rays and mean, since their capped merge
+     windows shift with any photon that differs; their light walks at the
+     same points on >= 99.999% of the vertices, and on the same light
+     buffers the VCM splat at 99% of the pixels and the eye pass at 99.5%
+     on the same grid);
+ 33. the unidirectional golden through K5's threaded instantiation (16x16,
+     8 spp, threaded cornell_with_blocks) at rmse < 1e-3.
 Then one JSON line with each kernel's launches on its main path (the
 BDPT kernels on the BDPT path, the photon kernels on the VCM path, mega_eye
 on the VCM-mega path, naive on the naive path, the others on the mega
 path; uni_mega_batch on the 256x256 UNIDIRECTIONAL path at 8 per
-dispatch, bdpt_walk_table on the TPT_MEGA_LIGHT VCM-mega path; rgb9e5,
-neighbor_slots and uniform_keyed are the test entries of device code that
-runs inside K5, K14 and K12, so 0), error and times against its plain version, its
+dispatch, bdpt_walk_table on the TPT_MEGA_LIGHT VCM-mega path; K15's two
+entries on the threaded UNIDIRECTIONAL path, where they launch 0 times as
+K1's entries do on the mega path: their device code runs inside K5's
+threaded instantiation, whose launches there the two entries carry in
+"launches_of_the_kernel_it_runs_in"; rgb9e5, neighbor_slots and
+uniform_keyed are the test entries of device code that runs inside K5,
+K14 and K12, so 0), error and times against its plain version, its
 bound on this card and the library call's time (null: no PyTorch call
 computes these functions), the card's name and power limit, and as the
 last line {"ok": true, "device": {...}}.
@@ -203,6 +232,10 @@ KERNELS = (  # name, source, the JAX function it replaces
     ("uniform_keyed", CSRC + "rng.cu", "cudapathtracer_tpu/utils/rng.py:140"),
     ("bdpt_walk_table", CSRC + "bdpt_walk.cu",
      "cudapathtracer_tpu/models/light_mega.py:108"),
+    ("closest_hit_bin", CSRC + "traverse_bin.cu",
+     "cudapathtracer_tpu/ops/traverse.py:132"),
+    ("shadow_factor_bin", CSRC + "traverse_bin.cu",
+     "cudapathtracer_tpu/ops/traverse.py:203"),
 )
 BDPT_KERNELS = ("bdpt_walk", "bdpt_splat", "bdpt_connect")
 PHOTON_KERNELS = ("vcm_splat", "photon_pack", "photon_table", "vcm_eye")
@@ -225,6 +258,11 @@ PEAK_OPS_S = 67e12
 # draw in threefry.cuh (20 rounds x 5, 5 key injections x 3, the unit
 # conversion 2); one K7 pixel (4 draws and ~60 float ops).
 OPS_PER_ROW = 490
+# one threaded node row in traverse_bin.cuh: the slab test (~27) and the
+# link select (~5); each triangle test of a hit leaf one Moller-Trumbore
+# test (52), counted by the plain walk on the same rays
+OPS_PER_BIN_ROW = 32
+OPS_PER_TRI_TEST = 52
 OPS_PER_DRAW = 117
 OPS_PER_CAMERA_RAY = 4 * OPS_PER_DRAW + 60
 # BDPT (bdpt.cuh), counted the same way: a stored walk vertex (the bounce
@@ -292,8 +330,9 @@ def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
     return start.elapsed_time(end) / reps
 
 
-def compare_hits(k, p, what: str) -> float:
-    """K1 closest criterion; returns max |dt| where the ids match."""
+def compare_hits(k, p, what: str, tag: str = "K1") -> float:
+    """The closest-hit criterion of K1 and K15; returns max |dt| where the
+    ids match."""
     import torch
     ids_eq = k.tri == p.tri
     frac = ids_eq.float().mean().item()
@@ -308,7 +347,7 @@ def compare_hits(k, p, what: str) -> float:
     errs = [torch.abs(a[m] - b[m]).max().item() if bool(m.any()) else 0.0
             for a, b in ((k.t, p.t), (k.u, p.u), (k.v, p.v))]
     check(max(errs) <= 1e-5, f"{what}: t/u/v differ by {max(errs):.3g}")
-    say("K1", f"{what}: {k.tri.numel()} rays, ids equal on {frac:.6f}, "
+    say(tag, f"{what}: {k.tri.numel()} rays, ids equal on {frac:.6f}, "
         f"{int(bad.sum())} edge ties, max |dt| {errs[0]:.3g} "
         f"|du| {errs[1]:.3g} |dv| {errs[2]:.3g}")
     return errs[0]
@@ -1086,6 +1125,384 @@ def render_path(cfg, tag: str, card: str, want: dict,
     return r, launches
 
 
+def rows_of_sample(integ: str, scene, cam, px, py, cfg) -> tuple:
+    """One sample of a classic integrator launched as its render_kernel
+    launches it, with each launch's rows counted: (rows visited, rays
+    traced), both summed over the frame. cfg: the max depth
+    (UNIDIRECTIONAL, NAIVE_UNIDIRECTIONAL), a BDPTConfig or a VCMConfig."""
+    import torch
+    from cudapathtracer_tpu_torch import kernels
+    from cudapathtracer_tpu_torch.models import (bdpt, paths, unidirectional,
+                                                 vcm)
+    from cudapathtracer_tpu_torch.ops import hashgrid
+    from cudapathtracer_tpu_torch.utils import rng
+    base, n, dev = rng.base_key(), px.shape[0], px.device
+    if integ in ("UNIDIRECTIONAL", "NAIVE_UNIDIRECTIONAL"):
+        classic = integ == "UNIDIRECTIONAL"
+        _, rays, rows = kernels.render_unidirectional(
+            scene, px, py, cam.kernel_params(),
+            unidirectional.kernel_keys(base, 0), max_depth=cfg,
+            use_mis=classic, sample_environment=False,
+            schedule="classic" if classic else "naive",
+            air_priority=scene.air_priority, with_rows=True)
+        return int(rows.sum()), int(rays.sum())
+    rays = torch.zeros(n, dtype=torch.int32, device=dev)
+    fb = torch.zeros((n, 3), dtype=torch.float32, device=dev)
+    if integ == "BIDIRECTIONAL":
+        key_l, key_e, key_c = bdpt.sample_keys(base, 0)
+        lw = kernels.bdpt_walk(scene, px, py, paths.walk_keys(key_l, "light"),
+                               mode="light", max_depth=cfg.light_depth,
+                               rays=rays, with_rows=True)
+        rows = [lw["rows"], kernels.bdpt_splat(
+            scene, cam, lw["bufs"], lw["v0"], fb, rays, cfg, with_rows=True)]
+        ew = kernels.bdpt_walk(scene, px, py, paths.walk_keys(key_e, "eye"),
+                               mode="eye", max_depth=cfg.eye_depth, rays=rays,
+                               camera=cam, with_rows=True)
+        rows += [ew["rows"], kernels.bdpt_connect(
+            scene, cam, key_c, ew, lw, fb, rays, cfg, px=px, py=py,
+            with_rows=True)[1]]
+        return sum(int(r.sum()) for r in rows), int(rays.sum())
+    key_l, key_e = vcm.sample_keys(base, 0)
+    mr, eta, norm = vcm.sample_scalars(scene, cfg, 0, n)
+    lw = kernels.bdpt_walk(scene, px, py, paths.walk_keys(key_l, "light"),
+                           mode="light", max_depth=cfg.light_depth + 1,
+                           rays=rays, eta_vcm=eta, with_rows=True)
+    rows = [lw["rows"]]
+    if cfg.light_trace:
+        rows.append(kernels.vcm_splat(scene, cam, lw["bufs"], fb, rays, cfg,
+                                      eta, with_rows=True))
+    grid = (hashgrid.build_grid_kernel(lw["bufs"], scene.scene_min, mr,
+                                       hashgrid.photon_salt(0))
+            if cfg.do_merge else None)
+    rows.append(kernels.vcm_eye(
+        scene, cam, paths.walk_keys(key_e, "eye"), lw["bufs"], grid, fb,
+        rays, cfg, px=px, py=py, merge_radius=mr, eta_vcm=eta,
+        merge_norm=norm, with_rows=True,
+        **hashgrid.merge_switches(cfg.max_per_cell))[2])
+    return sum(int(r.sum()) for r in rows), int(rays.sum())
+
+
+def same_input_eye(tsc, s8, cam, px, py, cfg) -> None:
+    """The photon kernels on both engines of one scene (tsc threaded, s8
+    its BVH8 view): K12's light walk (with the VCM chain) at the same point
+    on >= 99.999% of its valid vertices (the rest exact ties); on the same
+    light buffers (the threaded walk of sample 0) the VCM splat (K11) under
+    compare_image at 99% of the pixels and K13's VCM form on the same
+    photon grid at 99.5%, as phase 16 holds the eye kernel."""
+    import torch
+    from cudapathtracer_tpu_torch import kernels
+    from cudapathtracer_tpu_torch.models import paths, vcm
+    from cudapathtracer_tpu_torch.ops import hashgrid
+    from cudapathtracer_tpu_torch.utils import rng
+    n, dev = px.shape[0], px.device
+    key_l, key_e = vcm.sample_keys(rng.base_key(), 0)
+    mr, eta, norm = vcm.sample_scalars(tsc, cfg, 0, n)
+    walks = [kernels.bdpt_walk(
+        sc, px, py, paths.walk_keys(key_l, "light"), mode="light",
+        max_depth=cfg.light_depth + 1,
+        rays=torch.zeros(n, dtype=torch.int32, device=dev),
+        eta_vcm=eta)["bufs"] for sc in (tsc, s8)]
+    v = walks[0].valid | walks[1].valid
+    same = ((walks[0].pt == walks[1].pt).all(dim=-1) & walks[0].valid
+            & walks[1].valid)[v].float().mean().item()
+    say("threaded", f"light walks of the two engines: {int(v.sum())} "
+        f"vertices valid on either, {same:.7f} of them valid on both at the "
+        "same point")
+    check(same >= 0.99999, f"threaded light walk: only {same:.7f} of the "
+          "vertices at the same point on both engines")
+    if cfg.light_trace:
+        fbs = []
+        for sc in (tsc, s8):
+            fb = torch.zeros((n, 3), device=dev)
+            rays = torch.zeros(n, dtype=torch.int32, device=dev)
+            kernels.vcm_splat(sc, cam, walks[0], fb, rays, cfg, eta)
+            fbs.append((fb, rays.sum()))
+        compare_image(fbs[0], fbs[1], "VCM splat (K11), threaded vs BVH8 "
+                      "on the same light buffers", "threaded", 0.99)
+        del fbs
+    grid = (hashgrid.build_grid_kernel(walks[0], tsc.scene_min, mr,
+                                       hashgrid.photon_salt(0))
+            if cfg.do_merge else None)
+    out = []
+    for sc in (tsc, s8):
+        rays = torch.zeros(n, dtype=torch.int32, device=dev)
+        li, dropped, _ = kernels.vcm_eye(
+            sc, cam, paths.walk_keys(key_e, "eye"), walks[0], grid, None,
+            rays, cfg, px=px, py=py, merge_radius=mr, eta_vcm=eta,
+            merge_norm=norm, **hashgrid.merge_switches(cfg.max_per_cell))
+        out.append((li, rays.sum(), int(dropped.sum())))
+    say("threaded", f"dropped photons on the same grid {out[0][2]} and "
+        f"{out[1][2]}")
+    check(out[0][2] == out[1][2], "threaded eye pass: dropped photons differ "
+          "on the same grid")
+    compare_image(out[0][:2], out[1][:2], "eye pass (K13 VCM form), threaded "
+                  "vs BVH8 on the same light buffers and grid", "threaded",
+                  0.995)
+
+
+def threaded_phases(card: str, stats: dict, cam, px, py, ids, cfg0) -> int:
+    """Phases 30-33 on the bunny scene built with traversal="threaded":
+    K15 against its plain version, K5's threaded instantiation against its
+    plain version, every classic integrator against the BVH8 engine of the
+    same scene, the unidirectional golden. Returns the launch counts of the
+    threaded UNIDIRECTIONAL path (4 spp)."""
+    import numpy as np
+    import torch
+    from cudapathtracer_tpu_torch import kernels
+    from cudapathtracer_tpu_torch.models import (bdpt, naive, unidirectional,
+                                                 vcm)
+    from cudapathtracer_tpu_torch.ops import traverse
+    from cudapathtracer_tpu_torch.scene import builtin
+    from cudapathtracer_tpu_torch.scene.camera import Camera
+    from cudapathtracer_tpu_torch.scene.materials import builtin_materials
+    from cudapathtracer_tpu_torch.scene.scene import build_scene
+    from cudapathtracer_tpu_torch.utils import rng
+    from cudapathtracer_tpu_torch.utils.image import rmse
+    dev, n, base = px.device, px.shape[0], rng.base_key()
+
+    # --- 30. K15 against its plain version
+    t0 = time.perf_counter()
+    tsc, _ = build_scene(builtin.cornell_with_bunny(subdivisions=6),
+                         builtin_materials(), traversal="threaded", device=dev)
+    nodes, leaf_k = tsc.node_packed, tsc.max_leaf_size
+    say("scene", f"threaded cornell_with_bunny(6): {tsc.num_triangles} "
+        f"triangles, {nodes.shape[0]} binary nodes of {nodes.shape[1]} "
+        f"floats (largest leaf {leaf_k}), {tsc.bvh8_table.shape[0]} BVH8 "
+        f"rows, built in {time.perf_counter() - t0:.1f} s")
+    ckey = rng.fold_in(rng.sample_key(base, 0), 2 ** 20)
+    o, d = cam.generate_rays(ckey, px.float(), py.float(), ids)
+    nomax = torch.full((n,), 999999.0, device=dev)
+    noskip = torch.full((n,), -1, dtype=torch.int32, device=dev)
+    kh = traverse.closest_hit(tsc, o, d)
+    ph = traverse.closest_hit_bin_plain(nodes, leaf_k, o, d, nomax, noskip,
+                                        None, with_counts=True)
+    err15 = compare_hits(kh, traverse.Hit(*ph[:4]), "threaded primary "
+                         "1080p", tag="K15")
+    rows_b = kernels.closest_hit_bin(nodes, leaf_k, o, d, nomax, noskip, None,
+                                     with_rows=True)[4]
+    rows_8 = kernels.closest_hit8(tsc.bvh8_table, o, d, nomax, noskip, None,
+                                  with_rows=True)[4]
+    same_rows = (rows_b == ph[4]).float().mean().item()
+    check(same_rows >= 0.9999, f"K15 closest: the kernel's rows equal the "
+          f"plain walk's on only {same_rows:.6f} of the rays")
+    nrows, ntests = int(rows_b.sum()), int(ph[5].sum())
+    # inputs read once: the node table, o, d, max_t, skip_tri; outputs t,
+    # tri, u, v; operations: the rows these rays visited and the triangle
+    # tests of their hit leaves. (Each visit's 192-byte row fetched from
+    # memory would take nrows * 192 B / 3.35 TB/s, printed below: the rows
+    # near the root stay in the caches.)
+    tbytes = nodes.numel() * 4
+    stats["closest_hit_bin"].update(
+        bound=bound_ms(tbytes + n * (32 + 16), nrows * OPS_PER_BIN_ROW
+                       + ntests * OPS_PER_TRI_TEST),
+        ms=cuda_ms(lambda: traverse.closest_hit(tsc, o, d), 10),
+        plain_ms=cuda_ms(lambda: traverse.closest_hit_bin_plain(
+            nodes, leaf_k, o, d, nomax, noskip, None), 1, warmup=0))
+    say("K15", f"rows a ray on the 1080p primaries: threaded "
+        f"{rows_b.float().mean().item():.3f} (max {int(rows_b.max())}; "
+        f"equal to the plain walk's on {same_rows:.6f} of the rays), BVH8 "
+        f"{rows_8.float().mean().item():.3f} (max {int(rows_8.max())}) on "
+        f"the same scene; triangle tests a ray {ntests / n:.3f} "
+        f"({ntests / max(nrows, 1):.3f} a row); closest kernel "
+        f"{stats['closest_hit_bin']['ms']:.3f} ms, plain "
+        f"{stats['closest_hit_bin']['plain_ms']:.3f} ms, bound "
+        f"{stats['closest_hit_bin']['bound'][0]:.4f} ms "
+        f"({stats['closest_hit_bin']['bound'][1]}); every visited row from "
+        f"memory {nrows * nodes.shape[1] * 4 / PEAK_BYTES_S * 1e3:.4f} ms "
+        f"({card})")
+    gen = np.random.default_rng(7)
+    sel = torch.nonzero(kh.valid)[:, 0]
+    rd = torch.as_tensor(gen.normal(size=(sel.numel(), 3)),
+                         dtype=torch.float32, device=dev)
+    rd = (rd / rd.norm(dim=1, keepdim=True)).contiguous()
+    so = (o[sel] + d[sel] * kh.t[sel, None] - d[sel] * 1e-4).contiguous()
+    mt = torch.as_tensor(gen.uniform(0.05, 3.0, sel.numel()),
+                         dtype=torch.float32, device=dev)
+    skip = kh.tri[sel].contiguous()
+    ph2 = traverse.closest_hit_bin_plain(nodes, leaf_k, so, rd, mt, skip,
+                                         None)
+    err15 = max(err15, compare_hits(traverse.closest_hit(tsc, so, rd, mt,
+                                                         skip),
+                                    traverse.Hit(*ph2), "threaded secondary "
+                                    "(max_t, skip_tri)", tag="K15"))
+    stats["closest_hit_bin"]["max_abs_err"] = err15
+    del ph, ph2, rd, so, mt, skip
+    leaf_scene, _ = build_scene(builtin.cornell_with_bunny(subdivisions=6,
+                                                           bunny_mat=13),
+                                builtin_materials(), traversal="threaded",
+                                device=dev)
+    err_s = 0.0
+    for label, sc in (("bunny", tsc), ("bunny MAT_LEAF", leaf_scene)):
+        so, sd, smt = nee_rays(sc, o, d, traverse.closest_hit(sc, o, d), ids)
+        m = so.shape[0]
+        sk = torch.full((m,), -1, dtype=torch.int32, device=dev)
+        ks = traverse.shadow_factor(sc, so, sd, smt)
+        ps, psrows, pstests = traverse.shadow_factor_bin_plain(
+            sc.node_packed, sc.max_leaf_size, sc.tri_f32, so, sd, smt, sk,
+            None, with_counts=True)
+        e = (ks - ps).abs().max().item()
+        partial = ((ks > 0) & (ks < 1)).any(dim=1).float().mean().item()
+        check(e <= 1e-5, f"K15 shadow ({label}): max abs error {e:.3g}")
+        err_s = max(err_s, e)
+        say("K15", f"shadow {label}: {m} rays, max abs err {e:.3g}, occluded "
+            f"{(ks.amax(1) == 0).float().mean().item():.4f}, partly "
+            f"transmitted {partial:.4f}")
+        if label == "bunny":
+            srows = kernels.shadow_factor_bin(nodes, leaf_k, sc.tri_f32, so,
+                                              sd, smt, sk, None,
+                                              with_rows=True)[1]
+            srows8 = kernels.shadow_factor8(sc.bvh8_table, sc.tri_f32, so, sd,
+                                            smt, sk, None, with_rows=True)[1]
+            same_rows = (srows == psrows).float().mean().item()
+            check(same_rows >= 0.9999, f"K15 shadow: the kernel's rows equal "
+                  f"the plain walk's on only {same_rows:.6f} of the rays")
+            nsr, nst = int(srows.sum()), int(pstests.sum())
+            # no MAT_LEAF triangle: tri_f32 is not read
+            stats["shadow_factor_bin"].update(
+                bound=bound_ms(tbytes + m * (32 + 12),
+                               nsr * OPS_PER_BIN_ROW
+                               + nst * OPS_PER_TRI_TEST),
+                ms=cuda_ms(lambda: traverse.shadow_factor(sc, so, sd, smt),
+                           10),
+                plain_ms=cuda_ms(lambda: traverse.shadow_factor_bin_plain(
+                    nodes, leaf_k, sc.tri_f32, so, sd, smt, sk, None), 1,
+                    warmup=0))
+            say("K15", f"shadow rows a ray: threaded "
+                f"{srows.float().mean().item():.3f} (equal to the plain "
+                f"walk's on {same_rows:.6f} of the rays), BVH8 "
+                f"{srows8.float().mean().item():.3f}; triangle tests a ray "
+                f"{nst / m:.3f} ({nst / max(nsr, 1):.3f} a row); kernel "
+                f"{stats['shadow_factor_bin']['ms']:.3f} ms, plain "
+                f"{stats['shadow_factor_bin']['plain_ms']:.3f} ms, bound "
+                f"{stats['shadow_factor_bin']['bound'][0]:.4f} ms "
+                f"({stats['shadow_factor_bin']['bound'][1]}) ({card})")
+        else:
+            check(partial > 0.0, "K15 shadow: no ray crossed a MAT_LEAF "
+                  "surface, transmission untested")
+    stats["shadow_factor_bin"]["max_abs_err"] = err_s
+    del leaf_scene, o, d, kh, so, sd, smt
+
+    # --- 31. K5's classic and naive schedules on the threaded scene
+    for sched in ("classic", "naive"):
+        if sched == "classic":
+            kw = dict(max_depth=DEPTH, use_mis=True, sample_environment=False,
+                      schedule="classic")
+            k5 = unidirectional.render_kernel(tsc, cam, base, 0, px, py, **kw)
+            p5 = unidirectional.render_plain(tsc, cam, base, 0, px, py, **kw)
+        else:
+            k5 = naive.render_kernel(tsc, cam, base, 0, px, py,
+                                     max_depth=DEPTH)
+            p5 = naive.render_plain(tsc, cam, base, 0, px, py,
+                                    max_depth=DEPTH)
+        compare_render(k5, p5, f"threaded {WIDTH}x{HEIGHT} bunny, 1 spp, "
+                       f"{sched}")
+    del k5, p5
+
+    # --- 32. every classic integrator on the threaded scene, against the
+    # BVH8 engine of the same scene (its table collapsed from the same tree)
+    bcfg = bdpt.BDPTConfig.from_config(cfg0)
+    vcfg = {i: vcm.VCMConfig.from_config(dataclasses.replace(
+        cfg0, integrator=i, engine="classic").normalized())
+        for i in ("VCM", "SPPM")}
+    cfgs = {"UNIDIRECTIONAL": DEPTH, "NAIVE_UNIDIRECTIONAL": DEPTH,
+            "BIDIRECTIONAL": bcfg, **vcfg}
+    render = {
+        "UNIDIRECTIONAL": lambda sc, s: unidirectional.render_sample(
+            sc, cam, base, s, px, py, max_depth=DEPTH),
+        "NAIVE_UNIDIRECTIONAL": lambda sc, s: naive.render_sample(
+            sc, cam, base, s, px, py, max_depth=DEPTH),
+        "BIDIRECTIONAL": lambda sc, s: bdpt.render_sample(
+            sc, cam, base, s, px, py, cfg=bcfg),
+        "VCM": lambda sc, s: vcm.render_sample(sc, cam, base, s, px, py,
+                                               cfg=vcfg["VCM"]),
+        "SPPM": lambda sc, s: vcm.render_sample(sc, cam, base, s, px, py,
+                                                cfg=vcfg["SPPM"])}
+    # launches per sample of each integrator, all threaded instantiations
+    per_sample = {"UNIDIRECTIONAL": 1, "NAIVE_UNIDIRECTIONAL": 1,
+                  "BIDIRECTIONAL": 3 + int(bcfg.light_trace),
+                  **{i: 2 + int(c.light_trace) for i, c in vcfg.items()}}
+    s8 = dataclasses.replace(tsc, traversal="bvh8")
+    uni_launches = {}
+    for integ, fn in render.items():
+        res = {}
+        for eng, sc in (("threaded", tsc), ("bvh8", s8)):
+            torch.cuda.synchronize()
+            mem0 = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            kernels.reset_launches()
+            t0 = time.perf_counter()
+            acc = torch.zeros((n, 3), device=dev)
+            rays = 0
+            for s in range(SPP):
+                out = fn(sc, s)
+                acc += out[0]
+                rays = rays + out[1]
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            rays = int(rays)
+            launches = dict(kernels.launches)
+            peak = peak_gib(mem0)
+            rows, rays1 = rows_of_sample(integ, sc, cam, px, py, cfgs[integ])
+            ms1 = cuda_ms(lambda: fn(sc, 0), 1)
+            res[eng] = (acc, rays)
+            say("threaded", f"{integ} on the {eng} engine, {WIDTH}x{HEIGHT} "
+                f"bunny, {SPP} spp: {rays} rays in {secs:.3f} s = "
+                f"{rays / secs / 1e6:.3f} Mrays/s ({card}); peak memory "
+                f"{peak}; launches per sample "
+                f"{ {k: v / SPP for k, v in launches.items() if v} }; rows a "
+                f"ray {rows / rays1:.3f} ({rows} rows, {rays1} rays in sample "
+                f"0); one sample by CUDA events {ms1:.3f} ms")
+            want = per_sample[integ] * SPP if eng == "threaded" else 0
+            check(launches["threaded_engine"] == want, f"threaded {integ} on "
+                  f"{eng}: {launches['threaded_engine']} threaded launches, "
+                  f"expected {want}")
+            check(launches["closest_hit8"] + launches["closest_hit_bin"] == 0,
+                  f"threaded {integ}: a batch traversal entry launched")
+            if eng == "threaded" and integ == "UNIDIRECTIONAL":
+                uni_launches = launches
+        # The capped merge reads a cell through an 8-row window aligned in
+        # the sorted photon array (ops/hashgrid.fold_neighbors, one_brick),
+        # so one photon that differs anywhere (an exact tie taken by the
+        # other triangle: BVH8's row winner keys t to 4 ulps, the threaded
+        # walk keeps the strictly nearer) moves the windows of the cells
+        # after it. The photon integrators' renders are held by rays and
+        # mean; their walks, and their splat and eye pass on the same light
+        # buffers and grid, below.
+        photon = integ in ("VCM", "SPPM")
+        compare_image(res["threaded"], res["bvh8"], f"{integ} threaded vs "
+                      f"BVH8 engine, {SPP} spp", "threaded",
+                      0.0 if photon else 0.99)
+        if photon:
+            same_input_eye(tsc, s8, cam, px, py, cfgs[integ])
+        del res, acc
+
+    # --- 33. the unidirectional golden through K5's threaded instantiation
+    gsc, _ = build_scene(builtin.cornell_with_blocks(), builtin_materials(),
+                         traversal="threaded", device=dev)
+    gcam = Camera.pinhole((0.0, 0.0, 1.0), 16, 16, 0.0, 0.0, 0.0, 60.0)
+    gy, gx = torch.meshgrid(torch.arange(16, dtype=torch.int32, device=dev),
+                            torch.arange(16, dtype=torch.int32, device=dev),
+                            indexing="ij")
+    kernels.reset_launches()
+    acc = torch.zeros((256, 3), device=dev)
+    for s in range(8):
+        acc += unidirectional.render_sample(gsc, gcam, base, s,
+                                            gx.reshape(-1), gy.reshape(-1),
+                                            max_depth=6)[0]
+    check(kernels.launches["render_unidirectional"] == 8
+          and kernels.launches["threaded_engine"] == 8,
+          f"threaded golden: launches {kernels.launches}")
+    img = (acc / 8).cpu().numpy()
+    golden = np.load(os.path.join(ROOT, "tests", "golden",
+                                  "cornell_uni_16x16_8spp.npy"))
+    err = rmse(img, golden)
+    say("golden", f"cornell_uni_16x16_8spp.npy on the card through K5's "
+        f"threaded instantiation: rmse {err:.3g} (bound 1e-3), mean ratio "
+        f"{float(img.mean() / golden.mean()):.6f}")
+    check(err < 1e-3, f"threaded golden: rmse {err:.3g}")
+    return uni_launches
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(ROOT, "cudapathtracer_tpu_torch")):
         print("FAIL: run chip_smoke.py from a checkout of the repository "
@@ -1133,10 +1550,16 @@ def main() -> int:
         ptxas_log = f.read()
     say("build", f"{kernels.LIBRARY} built in {build_s:.1f} s "
         f"({len(kernels.SOURCES)} sources in parallel)")
-    for kname in ("uni_mega_kernel", "bdpt_walk_kernel", "bdpt_splat_kernel",
-                  "bdpt_connect_kernel", "packing_kernel",
-                  "photon_pack_kernel", "photon_table_kernel",
-                  "vcm_eye_kernel", "slots_kernel", "rgb9e5_kernel",
+    # the kernels that trace rays are built per engine: ILi0E BVH8 (K1),
+    # ILi1E threaded (K15)
+    engines = ("ILi0E", "ILi1E")
+    for kname in (*(k + e for k in ("uni_mega_kernel", "uni_mega_batch_kernel",
+                                    "bdpt_walk_kernel", "bdpt_splat_kernel",
+                                    "bdpt_connect_kernel", "vcm_eye_kernel")
+                    for e in engines),
+                  "traverse_bin_kernelILb0E", "traverse_bin_kernelILb1E",
+                  "packing_kernel", "photon_pack_kernel",
+                  "photon_table_kernel", "slots_kernel", "rgb9e5_kernel",
                   "mega_eye_kernel"):
         mk = ptxas_of(ptxas_log, kname)
         say("build", f"{kname}: {mk['registers']} registers, "
@@ -2637,13 +3060,25 @@ def main() -> int:
           "image changed outside the overlay, or not at all")
     del r, fb_on, fb_off, keyed_r
 
+    # --- 30-33. the threaded binary engine (K15)
+    tl = threaded_phases(card, stats, cam, px, py, ids, cfg0)
+    # K15's entries launch 0 times on the threaded path, as K1's do on the
+    # mega path: their device code runs inside K5's threaded instantiation,
+    # whose launches the line gives beside them
+    inside = {}
+    for k in ("closest_hit_bin", "shadow_factor_bin"):
+        main_launches[k] = tl[k]
+        inside[k] = {"render_unidirectional": tl["threaded_engine"]}
+
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": main_launches[name],
          "max_abs_err": stats[name]["max_abs_err"],
          "ms": stats[name]["ms"], "plain_ms": stats[name]["plain_ms"],
          "bound_ms": stats[name]["bound"][0],
-         "bound_by": stats[name]["bound"][1], "library_ms": None}
+         "bound_by": stats[name]["bound"][1], "library_ms": None,
+         **({"launches_of_the_kernel_it_runs_in": inside[name]}
+            if name in inside else {})}
         for name, src, rep in KERNELS]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -2,14 +2,15 @@
 
 Sources live in kernels/csrc (sm_90a): one .cu per launchable kernel family
 and one .cuh of device code per TPU kernel, shared between them (K1
-traverse8.cuh, K7 camera.cuh, K2 shade.cuh, K3 bsdf.cuh, K4 nee.cuh, K6
-threefry.cuh, K10 packing.cuh, K12's MIS step mis.cuh, the BDPT bodies
-bdpt.cuh; the per-path megakernel K5, uni_mega.cu, and the BDPT kernels
-K11 bdpt_splat.cu, K12 bdpt_walk.cu and K13 bdpt_connect.cu call them;
-the photon grid's hashgrid.cuh (K8-K10) serves K8 photon_grid.cu, the
-VCM eye kernel vcm_eye.cu, whose body is vcm.cuh, K9's test entry
-neighbor_slots.cu, and the mega engines' eye kernel K14 mega_eye.cu,
-whose body is mega.cuh).
+traverse8.cuh, K15 traverse_bin.cuh (the threaded binary engine, whose
+batch entries are traverse_bin.cu), K7 camera.cuh, K2 shade.cuh, K3
+bsdf.cuh, K4 nee.cuh, K6 threefry.cuh, K10 packing.cuh, K12's MIS step
+mis.cuh, the BDPT bodies bdpt.cuh; the per-path megakernel K5,
+uni_mega.cu, and the BDPT kernels K11 bdpt_splat.cu, K12 bdpt_walk.cu and
+K13 bdpt_connect.cu call them; the photon grid's hashgrid.cuh (K8-K10)
+serves K8 photon_grid.cu, the VCM eye kernel vcm_eye.cu, whose body is
+vcm.cuh, K9's test entry neighbor_slots.cu, and the mega engines' eye
+kernel K14 mega_eye.cu, whose body is mega.cuh).
 They are compiled on first use with nvcc, one process per source, all
 started together, and linked into one shared library with a plain C
 interface, build/torch_ext/libtpt_torch_kernels.so, called through ctypes
@@ -23,6 +24,13 @@ Three entries have a second mode, counted under a name of its own: K6's
 keyed draw (uniform_keyed, rng.cu), K5's k-sample mode for samples per
 dispatch (uni_mega_batch, uni_mega.cu) and K12's table mode for the keyed
 light walk (bdpt_walk_table, bdpt_walk.cu).
+
+Engines: the kernels that trace rays (K5, K11-K13, the VCM eye pass) are
+built twice, once per traversal engine, and launched with the scene's:
+BVH8 (K1, scene.bvh8_table) or threaded (K15, scene.node_packed), as the
+JAX functions follow scene.traversal. Three launches read the BVH8 table on
+every scene, as their JAX counterparts (make_fused_step) do: K5's mega
+schedule, K12's table mode and K14.
 
 Each wrapper below checks its tensors (device, dtype, shape, contiguity),
 allocates the outputs, launches, raises if the launch was refused, and then
@@ -52,12 +60,13 @@ import numpy as np
 import torch
 
 CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
-SOURCES = ("rng.cu", "camera.cu", "traverse8.cu", "uni_mega.cu", "packing.cu",
-           "bdpt_walk.cu", "bdpt_splat.cu", "bdpt_connect.cu",
-           "photon_grid.cu", "vcm_eye.cu", "neighbor_slots.cu", "mega_eye.cu")
-HEADERS = ("threefry.cuh", "camera.cuh", "traverse8.cuh", "shade.cuh",
-           "bsdf.cuh", "nee.cuh", "packing.cuh", "mis.cuh", "bdpt.cuh",
-           "hashgrid.cuh", "vcm.cuh", "mega.cuh")
+SOURCES = ("rng.cu", "camera.cu", "traverse8.cu", "traverse_bin.cu",
+           "uni_mega.cu", "packing.cu", "bdpt_walk.cu", "bdpt_splat.cu",
+           "bdpt_connect.cu", "photon_grid.cu", "vcm_eye.cu",
+           "neighbor_slots.cu", "mega_eye.cu")
+HEADERS = ("threefry.cuh", "camera.cuh", "traverse8.cuh", "traverse_bin.cuh",
+           "shade.cuh", "bsdf.cuh", "nee.cuh", "packing.cuh", "mis.cuh",
+           "bdpt.cuh", "hashgrid.cuh", "vcm.cuh", "mega.cuh")
 _REPO_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 BUILD_DIR = os.path.join(_REPO_ROOT, "build", "torch_ext")
@@ -69,15 +78,21 @@ SHADE_EVAL_COLS = 38   # uni_mega.cu kShadeEvalCols
 SCHEDULES = {"classic": 0, "mega": 1, "naive": 2}
 MEGA_FLAVORS = {"vcm": 0, "bdpt": 1}
 SLOT_MODES = {"slots": 0, "compact": 1, "gather": 2}
+ENGINES = {"bvh8": 0, "threaded": 1}   # traverse_bin.cuh kEngine*
 
 # kernel name -> launches since the last reset_launches()
-launches = {"closest_hit8": 0, "shadow_factor8": 0, "uniform_id": 0,
+launches = {"closest_hit8": 0, "shadow_factor8": 0, "closest_hit_bin": 0,
+            "shadow_factor_bin": 0, "uniform_id": 0,
             "generate_rays": 0, "render_unidirectional": 0, "shade_eval": 0,
             "packing_roundtrip": 0, "bdpt_walk": 0, "bdpt_splat": 0,
             "bdpt_connect": 0, "vcm_splat": 0, "photon_pack": 0,
             "photon_table": 0, "vcm_eye": 0, "rgb9e5": 0,
             "neighbor_slots": 0, "mega_eye": 0, "naive": 0,
-            "uniform_keyed": 0, "uni_mega_batch": 0, "bdpt_walk_table": 0}
+            "uniform_keyed": 0, "uni_mega_batch": 0, "bdpt_walk_table": 0,
+            # launches of a kernel's threaded instantiation (K15's device
+            # code inside K5, K11-K13 or the VCM eye pass), counted beside
+            # that kernel's own count
+            "threaded_engine": 0}
 
 _lock = threading.Lock()
 _libs = {}        # stack depth -> loaded library
@@ -177,14 +192,20 @@ def _load(stack_d: int = STACK_D):
         lib.tpt_shadow_factor8.restype = ctypes.c_int
         lib.tpt_shadow_factor8.argtypes = [p, p, i32, p, p, p, p, p, i64,
                                            p, p, p]
+        lib.tpt_closest_hit_bin.restype = ctypes.c_int
+        lib.tpt_closest_hit_bin.argtypes = [p, i32, i32, p, p, p, p, p, i64,
+                                            p, p, p, p, p, p]
+        lib.tpt_shadow_factor_bin.restype = ctypes.c_int
+        lib.tpt_shadow_factor_bin.argtypes = [p, i32, i32, p, i32, p, p, p,
+                                              p, p, i64, p, p, p]
         lib.tpt_render_unidirectional.restype = ctypes.c_int
         lib.tpt_render_unidirectional.argtypes = [
             p, p, i32, p, i32, p, p, p, p, i64, p, p, i32, i32, i32, i32,
-            i32, p, p, p, p]
+            i32, i32, p, i32, i32, p, p, p, p]
         lib.tpt_render_unidirectional_batch.restype = ctypes.c_int
         lib.tpt_render_unidirectional_batch.argtypes = [
             p, p, i32, p, i32, p, p, p, p, i64, p, p, i32, i32, i32, i32,
-            i32, i32, p, p, p, p]
+            i32, i32, i32, p, i32, i32, p, p, p, p]
         lib.tpt_shade_eval.restype = ctypes.c_int
         lib.tpt_shade_eval.argtypes = [p, i32, p, i32, p, p, p, p, p, p, p,
                                        p, p, p, i64, p, p, p]
@@ -236,12 +257,14 @@ def _cuda_device(t: torch.Tensor):
     return t.device
 
 
-def _launch(name: str, lib, fn, *args) -> None:
+def _launch(name: str, lib, fn, *args, engine: int = 0) -> None:
     err = fn(*args)
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: "
                            f"{lib.tpt_error_string(err).decode()}")
     launches[name] += 1
+    if engine == ENGINES["threaded"]:
+        launches["threaded_engine"] += 1
 
 
 def uniform_id(ids: torch.Tensor, k0: int, k1: int, two: bool):
@@ -315,12 +338,14 @@ def generate_rays(px: torch.Tensor, py: torch.Tensor, ids: torch.Tensor,
 
 
 def _ray_args(table, o, d, max_t, skip_tri, active):
+    """Check a ray batch (and the BVH8 table, unless None)."""
     dev = _cuda_device(o)
     n = o.shape[0]
-    if table.dim() != 2 or table.shape[1] != 96:
-        raise ValueError(f"bvh8 table must be [R,96], got "
-                         f"{tuple(table.shape)}")
-    _check(table, "table", torch.float32, table.shape, dev)
+    if table is not None:
+        if table.dim() != 2 or table.shape[1] != 96:
+            raise ValueError(f"bvh8 table must be [R,96], got "
+                             f"{tuple(table.shape)}")
+        _check(table, "table", torch.float32, table.shape, dev)
     _check(o, "o", torch.float32, (n, 3), dev)
     _check(d, "d", torch.float32, (n, 3), dev)
     _check(max_t, "max_t", torch.float32, (n,), dev)
@@ -328,6 +353,13 @@ def _ray_args(table, o, d, max_t, skip_tri, active):
     if active is not None:
         _check(active, "active", torch.bool, (n,), dev)
     return dev, n
+
+
+def _tri_args(tri_f32, dev):
+    if tri_f32.dim() != 2 or tri_f32.shape[1] not in (78, 94):
+        raise ValueError(f"tri_f32 must be [T,78|94], got "
+                         f"{tuple(tri_f32.shape)}")
+    _check(tri_f32, "tri_f32", torch.float32, tri_f32.shape, dev)
 
 
 def _counts(want: bool, n: int, dev):
@@ -367,10 +399,7 @@ def shadow_factor8(table, tri_f32, o, d, max_t, skip_tri, active,
     """K1 shadow (traverse8.cu) -> transmission scale [N,3]; with
     with_rows, (scale, each ray's number of BVH8 rows visited)."""
     dev, n = _ray_args(table, o, d, max_t, skip_tri, active)
-    if tri_f32.dim() != 2 or tri_f32.shape[1] not in (78, 94):
-        raise ValueError(f"tri_f32 must be [T,78|94], got "
-                         f"{tuple(tri_f32.shape)}")
-    _check(tri_f32, "tri_f32", torch.float32, tri_f32.shape, dev)
+    _tri_args(tri_f32, dev)
     scale = torch.empty((n, 3), dtype=torch.float32, device=dev)
     rows = _counts(with_rows, n, dev)
     lib = _load(stack_d)
@@ -382,6 +411,71 @@ def shadow_factor8(table, tri_f32, o, d, max_t, skip_tri, active,
                 None if active is None else active.data_ptr(), n,
                 scale.data_ptr(), _ptr(rows), _stream(dev))
     return scale if rows is None else (scale, rows)
+
+
+def _bin_args(nodes, leaf_k: int, dev):
+    """Check a threaded node table [M, W] for leaf_k inline triangles."""
+    if nodes.dim() != 2 or leaf_k < 1 or nodes.shape[1] % 8 \
+            or nodes.shape[1] < 24 + 10 * leaf_k:
+        raise ValueError(f"node table must be [M, round8(24 + 10 * {leaf_k})]"
+                         f", got {tuple(nodes.shape)}")
+    _check(nodes, "nodes", torch.float32, nodes.shape, dev)
+
+
+def closest_hit_bin(nodes, leaf_k: int, o, d, max_t, skip_tri, active,
+                    with_rows=False):
+    """K15 closest (traverse_bin.cu) on a threaded scene's node_packed ->
+    (t, tri, u, v), each [N]; with with_rows, also each ray's number of
+    node rows visited."""
+    dev, n = _ray_args(None, o, d, max_t, skip_tri, active)
+    _bin_args(nodes, leaf_k, dev)
+    t = torch.empty(n, dtype=torch.float32, device=dev)
+    tri = torch.empty(n, dtype=torch.int32, device=dev)
+    u = torch.empty(n, dtype=torch.float32, device=dev)
+    v = torch.empty(n, dtype=torch.float32, device=dev)
+    rows = _counts(with_rows, n, dev)
+    lib = _load()
+    with torch.cuda.device(dev):
+        _launch("closest_hit_bin", lib, lib.tpt_closest_hit_bin,
+                nodes.data_ptr(), nodes.shape[1], leaf_k, o.data_ptr(),
+                d.data_ptr(), max_t.data_ptr(), skip_tri.data_ptr(),
+                _ptr(active), n, t.data_ptr(), tri.data_ptr(), u.data_ptr(),
+                v.data_ptr(), _ptr(rows), _stream(dev))
+    out = (t, tri, u, v)
+    return out if rows is None else out + (rows,)
+
+
+def shadow_factor_bin(nodes, leaf_k: int, tri_f32, o, d, max_t, skip_tri,
+                      active, with_rows=False):
+    """K15 shadow (traverse_bin.cu) -> transmission scale [N,3]; with
+    with_rows, (scale, each ray's number of node rows visited)."""
+    dev, n = _ray_args(None, o, d, max_t, skip_tri, active)
+    _bin_args(nodes, leaf_k, dev)
+    _tri_args(tri_f32, dev)
+    scale = torch.empty((n, 3), dtype=torch.float32, device=dev)
+    rows = _counts(with_rows, n, dev)
+    lib = _load()
+    with torch.cuda.device(dev):
+        _launch("shadow_factor_bin", lib, lib.tpt_shadow_factor_bin,
+                nodes.data_ptr(), nodes.shape[1], leaf_k, tri_f32.data_ptr(),
+                tri_f32.shape[1], o.data_ptr(), d.data_ptr(),
+                max_t.data_ptr(), skip_tri.data_ptr(), _ptr(active), n,
+                scale.data_ptr(), _ptr(rows), _stream(dev))
+    return scale if rows is None else (scale, rows)
+
+
+def _engine_args(scene, dev, bvh8_only: bool = False) -> tuple:
+    """(engine, node table address, node_w, leaf_k) of a launch: the
+    scene's engine, or BVH8 for the launches that read the BVH8 table on
+    every scene (bvh8_only: K5's mega schedule, K12's table mode, K14)."""
+    if scene.traversal not in ENGINES:
+        raise ValueError(f"traversal {scene.traversal!r}: one of "
+                         f"{sorted(ENGINES)}")
+    if bvh8_only or scene.traversal == "bvh8":
+        return ENGINES["bvh8"], 0, 0, 0
+    _bin_args(scene.node_packed, scene.max_leaf_size, dev)
+    return (ENGINES["threaded"], scene.node_packed.data_ptr(),
+            scene.node_packed.shape[1], scene.max_leaf_size)
 
 
 def _table(scene, dev):
@@ -427,6 +521,8 @@ def _k5_launch(name: str, entry: str, scene, px, py, cam_params: list,
         raise ValueError(f"{name}: 19 camera floats")
     if schedule not in SCHEDULES:
         raise ValueError(f"schedule {schedule!r}: one of {sorted(SCHEDULES)}")
+    # the mega schedule reads the BVH8 table on every scene
+    eng = _engine_args(scene, dev, bvh8_only=schedule == "mega")
     li = torch.empty((n, 3), dtype=torch.float32, device=dev)
     rays = torch.empty(n, dtype=torch.int32, device=dev)
     rows = _counts(with_rows, n, dev)
@@ -439,8 +535,8 @@ def _k5_launch(name: str, entry: str, scene, px, py, cam_params: list,
                 b["textures"].data_ptr(), b["medium"].data_ptr(),
                 px.data_ptr(), py.data_ptr(), n, ctypes.addressof(cparams),
                 *key_args, max_depth, int(use_mis), int(sample_environment),
-                SCHEDULES[schedule], air_priority, li.data_ptr(),
-                rays.data_ptr(), _ptr(rows), _stream(dev))
+                SCHEDULES[schedule], air_priority, *eng, li.data_ptr(),
+                rays.data_ptr(), _ptr(rows), _stream(dev), engine=eng[0])
     return (li, rays) if rows is None else (li, rays, rows)
 
 
@@ -454,9 +550,10 @@ def render_unidirectional(scene, px: torch.Tensor, py: torch.Tensor,
     camera floats; keys: 28 uint32 words (8 camera draw-key words, the
     sample key pair, the 9 mega draw-key pairs). schedule: "classic",
     "mega" (each path retired through RGB9E5) or "naive" (the naive
-    integrator, max_depth bounces; counted under "naive"). -> (radiance
-    [P,3] f32, rays [P] i32), and with with_rows each path's count of BVH8
-    rows visited [P] i32."""
+    integrator, max_depth bounces; counted under "naive"). The classic and
+    naive schedules trace with the scene's engine, the mega one with BVH8.
+    -> (radiance [P,3] f32, rays [P] i32), and with with_rows each path's
+    count of rows (BVH8 rows or threaded nodes) visited [P] i32."""
     if len(keys) != 28:
         raise ValueError("render_unidirectional: 28 key words")
     ckeys = (ctypes.c_uint32 * 28)(*(k & 0xFFFFFFFF for k in keys))
@@ -477,8 +574,9 @@ def render_unidirectional_batch(scene, px: torch.Tensor, py: torch.Tensor,
     of the pixels (px, py) [P] int32 in one launch; key_table: [k, 28]
     int32 (uint32 words, on the device), row s the 28 key words of the
     batch's sample s. -> (radiance summed over the samples in their order
-    [P,3] f32, rays summed [P] i32), and with with_rows the BVH8 rows
-    visited [P] i32. Counted under "uni_mega_batch" for every schedule."""
+    [P,3] f32, rays summed [P] i32), and with with_rows the rows visited
+    [P] i32. Counted under "uni_mega_batch" for every schedule; engines as
+    render_unidirectional."""
     dev = _cuda_device(px)
     key_table = _words32(key_table)
     if key_table.dim() != 2 or key_table.shape[1] != 28 \
@@ -579,15 +677,20 @@ def _check_bufs(bufs, name: str, depth: int, n: int, dev) -> list:
     return ptrs
 
 
-def _bdpt_scene(scene, dev) -> dict:
+def _bdpt_scene(scene, dev, bvh8_only: bool = False) -> dict:
+    """The scene blocks of the BDPT and photon kernels, checked, and the
+    engine fields that end their launch arrays (engine: the node table's
+    address for ptrs, then engine, node_w, leaf_k for iv)."""
     tbl = _table(scene, dev)
     b = _scene_args(scene, dev)
     mat = scene.mat_f32
     if mat.dim() != 2 or mat.shape[1] != 26:
         raise ValueError(f"mat_f32 must be [M,26], got {tuple(mat.shape)}")
     _check(mat, "mat_f32", torch.float32, mat.shape, dev)
+    eng, nodes, node_w, leaf_k = _engine_args(scene, dev, bvh8_only)
     return dict(table=tbl, tri_f32=b["tri_f32"], light_f32=b["light_f32"],
-                textures=b["textures"], mat_f32=mat)
+                textures=b["textures"], mat_f32=mat, nodes=nodes,
+                engine_iv=[eng, node_w, leaf_k])
 
 
 def _i64s(values):
@@ -614,7 +717,7 @@ def bdpt_walk(scene, px, py, keys: list, *, mode: str, max_depth: int,
     range(max_depth), range(4)) and then the endpoint's (draws 100..104
     of key), which replace the folded ones. -> dict(bufs=PathBuffers
     [max_depth-1, N], v0=vertex-0 dict, escape=Escape (eye) or None,
-    rows=[N] i32 BVH8 rows visited or None)."""
+    rows=[N] i32 rows visited on the scene's engine or None)."""
     from cudapathtracer_tpu_torch.models import paths
     dev = _cuda_device(px)
     n = px.shape[0]
@@ -631,7 +734,8 @@ def bdpt_walk(scene, px, py, keys: list, *, mode: str, max_depth: int,
         key_table = _words32(key_table)
         _check(key_table, "key_table", torch.int32, (max_depth * 8 + 10,),
                dev)
-    sc = _bdpt_scene(scene, dev)
+    # the table mode stands for the JAX keyed walk's fused BVH8 step
+    sc = _bdpt_scene(scene, dev, bvh8_only=key_table is not None)
     depth = max_depth - 1
     bufs = paths.PathBuffers.empty(depth, n, dev)
     e = lambda *s, dt=torch.float32: torch.empty(s, dtype=dt, device=dev)
@@ -654,19 +758,20 @@ def bdpt_walk(scene, px, py, keys: list, *, mode: str, max_depth: int,
                                   "mat_id", "tri")]
             + [_ptr(esc.valid) if esc else 0, _ptr(esc.d) if esc else 0,
                _ptr(esc.beta) if esc else 0, rays.data_ptr(),
-               _ptr(rows) or 0, _ptr(key_table) or 0])
+               _ptr(rows) or 0, _ptr(key_table) or 0, sc["nodes"]])
     cam = camera.kernel_params() if camera is not None else [0.0] * 19
     area = camera.plane_area() if camera is not None else 0.0
     iv = [n, sc["tri_f32"].shape[1], scene.num_lights,
           0 if mode == "eye" else 1, max_depth, int(mode == "eye"),
-          int(eta_vcm is not None)]
+          int(eta_vcm is not None)] + sc["engine_iv"]
     fv = cam + [area, 0.0 if eta_vcm is None else float(eta_vcm)]
     args = (_i64s(ptrs), _i64s(iv), _f32s(fv), _u32s(keys))  # kept alive
     lib = _load()
     with torch.cuda.device(dev):
         _launch("bdpt_walk" if key_table is None else "bdpt_walk_table",
                 lib, lib.tpt_bdpt_walk,
-                *(ctypes.addressof(a) for a in args), _stream(dev))
+                *(ctypes.addressof(a) for a in args), _stream(dev),
+                engine=sc["engine_iv"][0])
     if mode == "eye":
         # no host sync: the copy leaves pinned memory without blocking
         v0["n"] = torch.tensor(camera.forward, dtype=torch.float32) \
@@ -681,7 +786,7 @@ def bdpt_splat(scene, camera, lbufs, lv0: dict, fb, rays, cfg, *,
     buffer fb [P,3] f32 in place with atomics; rays [N] i32 += the shadow
     rays to the lens. cfg: a BDPTConfig (do_mis, paint_weight); n_live:
     only paths i < n_live splat (a mega chunk's pads do not). -> rows [N]
-    i32 (BVH8 rows visited) with with_rows, else None."""
+    i32 (rows visited on the scene's engine) with with_rows, else None."""
     n = lv0["pt"].shape[0]
     dev = _cuda_device(fb)
     for k, dt, tail in (("pt", torch.float32, (3,)), ("n", torch.float32,
@@ -714,19 +819,21 @@ def _splat(name, scene, camera, lbufs, n, v0_ptrs, fb, rays, cfg, eta_vcm,
     ptrs = ([sc[k].data_ptr() for k in ("table", "tri_f32", "mat_f32",
                                         "textures")]
             + _check_bufs(lbufs, "lbufs", depth, n, dev) + v0_ptrs
-            + [fb.data_ptr(), rays.data_ptr(), _ptr(rows) or 0])
+            + [fb.data_ptr(), rays.data_ptr(), _ptr(rows) or 0, sc["nodes"]])
+    n_live = n if n_live is None else n_live
+    if not 0 <= n_live <= n:
+        raise ValueError(f"n_live {n_live} of {n} light paths")
     iv = [n, sc["tri_f32"].shape[1], depth, camera.width, camera.height,
           int(cfg.do_mis), int(cfg.paint_weight), int(eta_vcm is not None),
-          n if n_live is None else n_live]
-    if not 0 <= iv[-1] <= n:
-        raise ValueError(f"n_live {iv[-1]} of {n} light paths")
+          n_live] + sc["engine_iv"]
     fv = camera.kernel_params() + [camera.plane_area(),
                                    0.0 if eta_vcm is None else float(eta_vcm)]
     args = (_i64s(ptrs), _i64s(iv), _f32s(fv))
     lib = _load()
     with torch.cuda.device(dev):
         _launch(name, lib, lib.tpt_bdpt_splat,
-                *(ctypes.addressof(a) for a in args), _stream(dev))
+                *(ctypes.addressof(a) for a in args), _stream(dev),
+                engine=sc["engine_iv"][0])
     return rows
 
 
@@ -737,7 +844,7 @@ def bdpt_connect(scene, camera, key_c, eye: dict, light: dict, fb, rays, cfg,
     light: its light result (bufs [L-1, N]); fb: [N,3] f32 added to the
     result, or None; key_c: the sample's connection key pair; rays [N] i32
     += the shadow rays traced. cfg: a BDPTConfig. -> (radiance [N,3] f32,
-    rows [N] i32 BVH8 rows visited or None)."""
+    rows [N] i32 rows visited on the scene's engine or None)."""
     dev = _cuda_device(px)
     n = px.shape[0]
     _check(px, "px", torch.int32, (n,), dev)
@@ -765,17 +872,18 @@ def bdpt_connect(scene, camera, key_c, eye: dict, light: dict, fb, rays, cfg,
             + _check_bufs(light["bufs"], "light bufs", cfg.light_depth - 1,
                           n, dev)
             + [_ptr(fb) or 0, out.data_ptr(), rays.data_ptr(),
-               _ptr(rows) or 0])
+               _ptr(rows) or 0, sc["nodes"]])
     iv = [n, sc["tri_f32"].shape[1], scene.num_lights, cfg.eye_depth,
           cfg.light_depth, int(cfg.naive), int(cfg.nee), int(cfg.connection),
           int(cfg.do_mis), int(cfg.paint_weight),
-          int(cfg.sample_environment)]
+          int(cfg.sample_environment)] + sc["engine_iv"]
     fv = camera.kernel_params() + [camera.plane_area()]
     args = (_i64s(ptrs), _i64s(iv), _f32s(fv), _u32s(list(key_c)))
     lib = _load()
     with torch.cuda.device(dev):
         _launch("bdpt_connect", lib, lib.tpt_bdpt_connect,
-                *(ctypes.addressof(a) for a in args), _stream(dev))
+                *(ctypes.addressof(a) for a in args), _stream(dev),
+                engine=sc["engine_iv"][0])
     return out, rows
 
 
@@ -787,8 +895,8 @@ def vcm_splat(scene, camera, lbufs, fb, rays, cfg, eta_vcm: float, *,
     of lbufs [L, N] (not the endpoint) to the lens, w_light with eta_vcm,
     added into the raster-indexed frame buffer fb [P,3] f32 in place with
     atomics; rays [N] i32 += the shadow rays to the lens. cfg: a VCMConfig
-    (do_mis, paint_weight). -> rows [N] i32 (BVH8 rows visited) with
-    with_rows."""
+    (do_mis, paint_weight). -> rows [N] i32 (rows visited on the scene's
+    engine) with with_rows."""
     return _splat("vcm_splat", scene, camera, lbufs, lbufs.pt.shape[1],
                   [0] * 5, fb, rays, cfg, eta_vcm, with_rows)
 
@@ -858,7 +966,7 @@ def vcm_eye(scene, camera, keys: list, lbufs, grid, fb, rays, cfg, *, px,
     the merge; fb: [N,3] f32 added to the result, or None; rays [N] i32 +=
     the rays traced. cfg: a VCMConfig. one_brick, reweight: the merge's
     estimator switches (ops/hashgrid.merge_switches). -> (radiance [N,3]
-    f32, the merge cap's dropped photons [N] i32, rows [N] i32 BVH8 rows
+    f32, the merge cap's dropped photons [N] i32, rows [N] i32 rows
     visited or None)."""
     dev = _cuda_device(px)
     n = px.shape[0]
@@ -893,12 +1001,12 @@ def vcm_eye(scene, camera, keys: list, lbufs, grid, fb, rays, cfg, *, px,
             + [px.data_ptr(), py.data_ptr()]
             + _check_bufs(lbufs, "light bufs", cfg.light_depth, n, dev)
             + gptrs + [_ptr(fb) or 0, out.data_ptr(), rays.data_ptr(),
-                       dropped.data_ptr(), _ptr(rows) or 0])
+                       dropped.data_ptr(), _ptr(rows) or 0, sc["nodes"]])
     iv = [n, sc["tri_f32"].shape[1], scene.num_lights, cfg.eye_depth,
           cfg.light_depth, int(cfg.naive), int(cfg.nee), int(cfg.connection),
           int(cfg.do_mis), int(cfg.paint_weight),
           int(cfg.sample_environment), int(merge), int(cfg.do_sppm), table,
-          cfg.max_per_cell, int(one_brick), int(reweight)]
+          cfg.max_per_cell, int(one_brick), int(reweight)] + sc["engine_iv"]
     mr = float(merge_radius)
     r2 = float(torch.tensor(mr, dtype=torch.float32)
                * torch.tensor(mr, dtype=torch.float32))
@@ -909,7 +1017,8 @@ def vcm_eye(scene, camera, keys: list, lbufs, grid, fb, rays, cfg, *, px,
     lib = _load()
     with torch.cuda.device(dev):
         _launch("vcm_eye", lib, lib.tpt_vcm_eye,
-                *(ctypes.addressof(a) for a in args), _stream(dev))
+                *(ctypes.addressof(a) for a in args), _stream(dev),
+                engine=sc["engine_iv"][0])
     return out, dropped, rows
 
 
@@ -1024,7 +1133,7 @@ def mega_eye(scene, camera, keys: list, lbufs, grid, out, rays, cfg, *, px,
     merge = flavor == "vcm" and cfg.do_merge
     if merge and grid is None:
         raise ValueError("mega_eye: do_merge needs the photon grid")
-    sc = _bdpt_scene(scene, dev)
+    sc = _bdpt_scene(scene, dev, bvh8_only=True)   # K14 traces BVH8 always
     gptrs, table, p8, geom = [0, 0], 0, 0, [0.0] * 4
     if merge:
         gptrs, table, p8, geom = _grid_args(grid, dev)

@@ -21,6 +21,13 @@
 // Arithmetic follows the plain versions (models/paths.py, models/bdpt.py)
 // operation for operation; the files are built with -fmad=false. x**3 and
 // x**4 are XLA's integer_pow products x (x x) and (x x)(x x).
+//
+// The three bodies are templates on the traversal engine (traverse_bin.cuh:
+// kEngineBvh8 traces with K1, kEngineThreaded with K15), and each entry
+// launches the scene's; K12's table mode (the keyed walk, which stands for
+// the JAX light_mega's fused BVH8 step) is launched with BVH8 on every
+// scene. The launch arrays end with the engine's fields: ptrs the node
+// table, iv the engine, node_w and leaf_k (engine_refs).
 #pragma once
 
 #include <cuda_fp16.h>
@@ -34,7 +41,7 @@
 #include "packing.cuh"
 #include "shade.cuh"
 #include "threefry.cuh"
-#include "traverse8.cuh"
+#include "traverse_bin.cuh"
 
 namespace tpt {
 
@@ -133,6 +140,8 @@ struct SceneRefs {
   Lights lights;          // light_f32 [L, 17]
   const float* mat_f32;   // [M, 26]
   const float* textures;  // [A, 3]
+  const float* nodes;     // node_packed [M, node_w] (threaded engine)
+  int node_w, leaf_k;
 };
 
 // The draws of one key: draw(d) = uniform of draw_key(key, d) keyed by id.
@@ -278,6 +287,7 @@ __device__ __forceinline__ void put3(float* dst, int64_t i, V3 a) {
   dst[3 * i + 2] = a.z;
 }
 
+template <int kEngine>
 __device__ __forceinline__ void walk_path(const SceneRefs& sc,
                                           const WalkParams& p,
                                           const WalkOut& out, int64_t i,
@@ -343,8 +353,8 @@ __device__ __forceinline__ void walk_path(const SceneRefs& sc,
       continue;
     }
     ++rays;
-    const Trace8 h = trace8<false>(sc.table, nullptr, 0, o.x, o.y, o.z, d.x,
-                                   d.y, d.z, kBigT, -1, true);
+    const Trace8 h = trace_ray<kEngine, false>(sc, o.x, o.y, o.z, d.x, d.y,
+                                               d.z, kBigT, -1, true);
     rows += h.rows;
     if (h.tri < 0) {  // the first miss: the walk escapes
       escaped = true;
@@ -439,6 +449,7 @@ __device__ __forceinline__ V3 get3(const float* src, int64_t i) {
 
 // Light vertex j of path i (j = 0: the endpoint; j >= 1: stored row j - 1)
 // to the lens; adds into fb [P,3] and rays[i] with atomics.
+template <int kEngine>
 __device__ __forceinline__ void splat_vertex(const SceneRefs& sc,
                                              const SplatParams& p,
                                              const PathBufs& lb,
@@ -468,9 +479,9 @@ __device__ __forceinline__ void splat_vertex(const SceneRefs& sc,
   const V3 to_cam_u = v3(to_cam.x / dist, to_cam.y / dist, to_cam.z / dist);
   const V3 origin = add(v.pt, scale(v.n, kRayEps));
   atomicAdd(rays + i, 1);
-  const Trace8 sh = trace8<true>(sc.table, sc.tri_f32, sc.tri_cols, origin.x,
-                                 origin.y, origin.z, to_cam_u.x, to_cam_u.y,
-                                 to_cam_u.z, dist - kRayEps, -1, true);
+  const Trace8 sh = trace_ray<kEngine, true>(
+      sc, origin.x, origin.y, origin.z, to_cam_u.x, to_cam_u.y, to_cam_u.z,
+      dist - kRayEps, -1, true);
   if (rows != nullptr) atomicAdd(rows + i, sh.rows);
   if (!(max3(sh.s0, sh.s1, sh.s2) > 0.0f)) return;
   const float cos_light = dot(v.n, to_cam_u);
@@ -532,6 +543,7 @@ struct ConnectIn {
   const float* fb;         // nullable: the splat, added to the result
 };
 
+template <int kEngine>
 __device__ __forceinline__ V3 connect_pixel(const SceneRefs& sc,
                                             const ConnectParams& p,
                                             const ConnectIn& in, int64_t i,
@@ -603,10 +615,9 @@ __device__ __forceinline__ V3 connect_pixel(const SceneRefs& sc,
       const float dist = sqrtf(d2);
       const V3 stl_u = v3(stl.x / dist, stl.y / dist, stl.z / dist);
       const V3 origin = add(ev.pt, scale(ev.n, kRayEps));
-      const Trace8 sh = trace8<true>(sc.table, sc.tri_f32, sc.tri_cols,
-                                     origin.x, origin.y, origin.z, stl_u.x,
-                                     stl_u.y, stl_u.z, dist - kEps, lp.tri,
-                                     true);
+      const Trace8 sh = trace_ray<kEngine, true>(
+          sc, origin.x, origin.y, origin.z, stl_u.x, stl_u.y, stl_u.z,
+          dist - kEps, lp.tri, true);
       rows += sh.rows;
       const float cos_light = dot(lp.n, neg(stl_u));
       if (max3(sh.s0, sh.s1, sh.s2) > 0.0f && cos_light >= kEps) {
@@ -648,10 +659,9 @@ __device__ __forceinline__ V3 connect_pixel(const SceneRefs& sc,
       if (!(cos_l > kEps && cos_e > kEps)) continue;
       const V3 origin = add(ev.pt, scale(ev.n, kRayEps));
       ++rays;
-      const Trace8 sh = trace8<true>(sc.table, sc.tri_f32, sc.tri_cols,
-                                     origin.x, origin.y, origin.z, e2l_u.x,
-                                     e2l_u.y, e2l_u.z, dist - kRayEps, -1,
-                                     true);
+      const Trace8 sh = trace_ray<kEngine, true>(
+          sc, origin.x, origin.y, origin.z, e2l_u.x, e2l_u.y, e2l_u.z,
+          dist - kRayEps, -1, true);
       rows += sh.rows;
       if (!(max3(sh.s0, sh.s1, sh.s2) > 0.0f)) continue;
 
@@ -707,6 +717,18 @@ inline T* dev_ptr(const int64_t* ptrs, int k) {
   return reinterpret_cast<T*>(ptrs[k]);
 }
 
+// The engine fields at the end of a launch's arrays: ptrs[kp] the node
+// table (0 under BVH8), iv[ki] the engine, iv[ki + 1] node_w, iv[ki + 2]
+// leaf_k. Returns the engine, or -1 if the fields are not a valid one.
+inline int engine_refs(const int64_t* ptrs, int kp, const int64_t* iv,
+                       int ki, SceneRefs& sc) {
+  sc.nodes = dev_ptr<const float>(ptrs, kp);
+  sc.node_w = static_cast<int>(iv[ki + 1]);
+  sc.leaf_k = static_cast<int>(iv[ki + 2]);
+  const int engine = static_cast<int>(iv[ki]);
+  return engine_ok(engine, sc.nodes, sc.node_w, sc.leaf_k) ? engine : -1;
+}
+
 // The 11 buffer fields from ptrs[0..10].
 inline PathBufs path_bufs(const int64_t* ptrs, int64_t n, int depth) {
   PathBufs b;
@@ -733,6 +755,7 @@ struct WalkLaunch {
   const int32_t* px;
   const int32_t* py;
   int64_t n;
+  int engine;
 };
 
 inline bool walk_launch(const int64_t* ptrs, const int64_t* iv,
@@ -774,7 +797,10 @@ inline bool walk_launch(const int64_t* ptrs, const int64_t* iv,
   o.rays = dev_ptr<int32_t>(ptrs, 27);
   o.rows = dev_ptr<int32_t>(ptrs, 28);
   p.key_table = dev_ptr<const uint32_t>(ptrs, 29);
-  return (p.mode == kModeEye || p.mode == kModeLight) && p.max_depth >= 1;
+  w.engine = engine_refs(ptrs, 30, iv, 7, w.sc);
+  return (p.mode == kModeEye || p.mode == kModeLight) && p.max_depth >= 1 &&
+         w.engine >= 0 &&
+         (p.key_table == nullptr || w.engine == kEngineBvh8);
 }
 
 struct SplatLaunch {
@@ -787,6 +813,7 @@ struct SplatLaunch {
   int32_t* rows;
   int64_t n;
   int64_t n_live;  // paths i >= n_live splat nothing (a mega chunk's pads)
+  int engine;
 };
 
 inline bool splat_launch(const int64_t* ptrs, const int64_t* iv,
@@ -818,8 +845,9 @@ inline bool splat_launch(const int64_t* ptrs, const int64_t* iv,
   s.p.vcm = iv[7] != 0;
   s.p.eta_vcm = fv[20];
   s.n_live = iv[8];
+  s.engine = engine_refs(ptrs, 23, iv, 9, s.sc);
   return s.lb.depth >= 0 && s.p.width > 0 && s.p.height > 0 &&
-         s.n_live >= 0 && s.n_live <= s.n;
+         s.n_live >= 0 && s.n_live <= s.n && s.engine >= 0;
 }
 
 struct ConnectLaunch {
@@ -832,6 +860,7 @@ struct ConnectLaunch {
   int32_t* rays;
   int32_t* rows;
   int64_t n;
+  int engine;
 };
 
 inline bool connect_launch(const int64_t* ptrs, const int64_t* iv,
@@ -871,15 +900,17 @@ inline bool connect_launch(const int64_t* ptrs, const int64_t* iv,
   c.out = dev_ptr<float>(ptrs, 34);
   c.rays = dev_ptr<int32_t>(ptrs, 35);
   c.rows = dev_ptr<int32_t>(ptrs, 36);
-  return p.eye_depth >= 2 && p.light_depth >= 1;
+  c.engine = engine_refs(ptrs, 37, iv, 11, c.sc);
+  return p.eye_depth >= 2 && p.light_depth >= 1 && c.engine >= 0;
 }
 
 // One pixel of the connection stage, as the kernel runs it.
+template <int kEngine>
 __device__ __forceinline__ void connect_one(const ConnectLaunch& c,
                                             int64_t i) {
   const uint32_t id = static_cast<uint32_t>((c.py[i] << 14) + c.px[i]);
   int32_t r = 0, w = 0;
-  put3(c.out, i, connect_pixel(c.sc, c.p, c.in, i, id, r, w));
+  put3(c.out, i, connect_pixel<kEngine>(c.sc, c.p, c.in, i, id, r, w));
   c.rays[i] += r;
   if (c.rows != nullptr) c.rows[i] += w;
 }

@@ -27,21 +27,23 @@ namespace {
 
 constexpr int kThreads = 128;
 
+template <int kEngine>
 __global__ void __launch_bounds__(kThreads)
 bdpt_connect_kernel(tpt::ConnectLaunch c) {
   const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x +
                     threadIdx.x;
   if (i >= c.n) return;
-  tpt::connect_one(c, i);
+  tpt::connect_one<kEngine>(c, i);
 }
 
 }  // namespace
 
 // ptrs: table, tri_f32, light_f32, mat_f32, textures, px, py, the 11
 // eye-buffer fields, ev0_pt, esc_valid, esc_d, esc_beta, the 11
-// light-buffer fields, fb, out, rays, rows (0 = none). iv: n, tri_cols,
-// num_lights, eye_depth, light_depth, naive, nee, connection, do_mis,
-// paint_weight, sample_environment. fv: the 19 camera floats, plane_area.
+// light-buffer fields, fb, out, rays, rows (0 = none), the node table (0
+// under BVH8). iv: n, tri_cols, num_lights, eye_depth, light_depth, naive,
+// nee, connection, do_mis, paint_weight, sample_environment, engine,
+// node_w, leaf_k. fv: the 19 camera floats, plane_area.
 // keys: key_c. Returns the launch's cudaError_t.
 extern "C" int tpt_bdpt_connect(const int64_t* ptrs, const int64_t* iv,
                                 const float* fv, const uint32_t* keys,
@@ -52,7 +54,10 @@ extern "C" int tpt_bdpt_connect(const int64_t* ptrs, const int64_t* iv,
   if (c.n <= 0) return 0;
   const unsigned blocks =
       static_cast<unsigned>((c.n + kThreads - 1) / kThreads);
-  bdpt_connect_kernel<<<blocks, kThreads, 0,
-                        static_cast<cudaStream_t>(stream)>>>(c);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (c.engine == tpt::kEngineThreaded)
+    bdpt_connect_kernel<tpt::kEngineThreaded><<<blocks, kThreads, 0, st>>>(c);
+  else
+    bdpt_connect_kernel<tpt::kEngineBvh8><<<blocks, kThreads, 0, st>>>(c);
   return static_cast<int>(cudaGetLastError());
 }

@@ -29,6 +29,7 @@ namespace {
 
 constexpr int kThreads = 128;
 
+template <int kEngine>
 __global__ void __launch_bounds__(kThreads)
 bdpt_splat_kernel(tpt::SplatLaunch s) {
   const int64_t k = static_cast<int64_t>(blockIdx.x) * blockDim.x +
@@ -38,16 +39,18 @@ bdpt_splat_kernel(tpt::SplatLaunch s) {
   const int j = static_cast<int>(k / s.n) + first;
   const int64_t i = k % s.n;
   if (i >= s.n_live) return;
-  tpt::splat_vertex(s.sc, s.p, s.lb, s.e, j, i, s.fb, s.rays, s.rows);
+  tpt::splat_vertex<kEngine>(s.sc, s.p, s.lb, s.e, j, i, s.fb, s.rays,
+                             s.rows);
 }
 
 }  // namespace
 
 // ptrs: table, tri_f32, mat_f32, textures, the 11 light-buffer fields,
 // v0_pt, v0_n, v0_beta, v0_pdf, v0_mat (0 in VCM's form), fb, rays, rows
-// (0 = none). iv: n, tri_cols, depth (stored light vertices), width,
-// height, do_mis, paint_weight, vcm, n_live (paths i >= n_live are
-// skipped: the mega engines' chunk pads). fv: the 19 camera floats, plane_area,
+// (0 = none), the node table (0 under BVH8). iv: n, tri_cols, depth
+// (stored light vertices), width, height, do_mis, paint_weight, vcm,
+// n_live (paths i >= n_live are skipped: the mega engines' chunk pads),
+// engine, node_w, leaf_k. fv: the 19 camera floats, plane_area,
 // eta_vcm. Returns the launch's cudaError_t.
 extern "C" int tpt_bdpt_splat(const int64_t* ptrs, const int64_t* iv,
                               const float* fv, void* stream) {
@@ -58,7 +61,10 @@ extern "C" int tpt_bdpt_splat(const int64_t* ptrs, const int64_t* iv,
   if (threads <= 0) return 0;
   const unsigned blocks =
       static_cast<unsigned>((threads + kThreads - 1) / kThreads);
-  bdpt_splat_kernel<<<blocks, kThreads, 0,
-                      static_cast<cudaStream_t>(stream)>>>(s);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (s.engine == tpt::kEngineThreaded)
+    bdpt_splat_kernel<tpt::kEngineThreaded><<<blocks, kThreads, 0, st>>>(s);
+  else
+    bdpt_splat_kernel<tpt::kEngineBvh8><<<blocks, kThreads, 0, st>>>(s);
   return static_cast<int>(cudaGetLastError());
 }

@@ -37,12 +37,13 @@ namespace {
 
 constexpr int kThreads = 128;
 
+template <int kEngine>
 __global__ void __launch_bounds__(kThreads)
 bdpt_walk_kernel(tpt::WalkLaunch w) {
   const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x +
                     threadIdx.x;
   if (i >= w.n) return;
-  tpt::walk_path(w.sc, w.p, w.out, i, w.px[i], w.py[i]);
+  tpt::walk_path<kEngine>(w.sc, w.p, w.out, i, w.px[i], w.py[i]);
 }
 
 }  // namespace
@@ -51,10 +52,11 @@ bdpt_walk_kernel(tpt::WalkLaunch w) {
 // light_f32, textures, px, py, the 11 buffer fields (pt, n_oct, wo_oct, uv,
 // beta, pdf_fwd, d_vcm, d_vc, d_vm, flags, valid), v0_pt, v0_n, v0_beta,
 // v0_pdf, v0_light, v0_mat, v0_tri, esc_valid, esc_d, esc_beta, rays, rows,
-// key_table (0: the folded mode).
+// key_table (0: the folded mode), the node table (0 under BVH8).
 // iv: n, tri_cols, num_lights, mode (0 eye, 1 light), max_depth, radiance,
-// use_vm. fv: the 19 camera floats, plane_area, eta_vcm. keys: 10 draw-key
-// words (eye: the camera's 8; light: draws 100..104) and the walk key pair.
+// use_vm, engine, node_w, leaf_k (the table mode takes BVH8 only). fv:
+// the 19 camera floats, plane_area, eta_vcm. keys: 10 draw-key words (eye:
+// the camera's 8; light: draws 100..104) and the walk key pair.
 // Returns the launch's cudaError_t.
 extern "C" int tpt_bdpt_walk(const int64_t* ptrs, const int64_t* iv,
                              const float* fv, const uint32_t* keys,
@@ -65,7 +67,10 @@ extern "C" int tpt_bdpt_walk(const int64_t* ptrs, const int64_t* iv,
   if (w.n <= 0) return 0;
   const unsigned blocks =
       static_cast<unsigned>((w.n + kThreads - 1) / kThreads);
-  bdpt_walk_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      w);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (w.engine == tpt::kEngineThreaded)
+    bdpt_walk_kernel<tpt::kEngineThreaded><<<blocks, kThreads, 0, st>>>(w);
+  else
+    bdpt_walk_kernel<tpt::kEngineBvh8><<<blocks, kThreads, 0, st>>>(w);
   return static_cast<int>(cudaGetLastError());
 }

@@ -252,7 +252,7 @@ __device__ __forceinline__ V3 mega_eye_pixel(const SceneRefs& sc,
         for (int j = 0; j < p.light_rows; ++j) {
           const Vertex lv = load_vertex(in.light, j, l);
           ConnRay c;
-          if (!conn_ray(sc, ec, lv, c, rays, rows)) continue;
+          if (!conn_ray<kEngineBvh8>(sc, ec, lv, c, rays, rows)) continue;
           if (!(max3(c.sh.s0, c.sh.s1, c.sh.s2) > 0.0f)) continue;
           float weight;
           const V3 base = conn_terms(sc, p.eta_vcm, ec, lv, c, weight);
@@ -304,6 +304,8 @@ inline bool mega_launch(const int64_t* ptrs, const int64_t* iv,
   c.sc.lights.count = static_cast<int32_t>(iv[3]);
   c.sc.mat_f32 = dev_ptr<const float>(ptrs, 3);
   c.sc.textures = dev_ptr<const float>(ptrs, 4);
+  c.sc.nodes = nullptr;  // K14 traces BVH8 on every scene
+  c.sc.node_w = c.sc.leaf_k = 0;
   c.px = dev_ptr<const int32_t>(ptrs, 5);
   c.py = dev_ptr<const int32_t>(ptrs, 6);
   MegaParams& p = c.p;

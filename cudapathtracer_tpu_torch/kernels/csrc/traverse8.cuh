@@ -90,6 +90,71 @@ struct LeafTri {
   bool ok;
 };
 
+// Moller-Trumbore of the ray (o, d) against the packed triangle p[0:9]
+// (v0, e1, e2) whose id word is raw (bit 30 MAT_LEAF, < 0 empty): ok when
+// it is hit at 0 < t < t_cut, and its id is >= 0 and not skip_tri. The
+// threaded engine (traverse_bin.cuh) tests its leaves with it too.
+__device__ __forceinline__ LeafTri moller_trumbore(const float* p,
+                                                   int32_t raw, float ox,
+                                                   float oy, float oz,
+                                                   float dx, float dy,
+                                                   float dz, float t_cut,
+                                                   int32_t skip_tri) {
+  const float v0x = p[0], v0y = p[1], v0z = p[2];
+  const float e1x = p[3], e1y = p[4], e1z = p[5];
+  const float e2x = p[6], e2y = p[7], e2z = p[8];
+  const int32_t tid = raw < 0 ? -1 : (raw & ~kLeafMatFlag);
+  const float hx = dy * e2z - dz * e2y;
+  const float hy = dz * e2x - dx * e2z;
+  const float hz = dx * e2y - dy * e2x;
+  const float a = hx * e1x + hy * e1y + hz * e1z;
+  const bool ok_det = fabsf(a) >= kDetEps;
+  const float f = 1.0f / (ok_det ? a : 1.0f);
+  const float sx = ox - v0x, sy = oy - v0y, sz = oz - v0z;
+  const float u = f * (sx * hx + sy * hy + sz * hz);
+  const float qx = sy * e1z - sz * e1y;
+  const float qy = sz * e1x - sx * e1z;
+  const float qz = sx * e1y - sy * e1x;
+  const float v = f * (dx * qx + dy * qy + dz * qz);
+  const float t = f * (e2x * qx + e2y * qy + e2z * qz);
+  LeafTri r;
+  r.t = t;
+  r.u = u;
+  r.v = v;
+  r.tid = tid;
+  r.raw = raw;
+  r.ok = ok_det && u >= 0.0f && v >= 0.0f && u + v <= 1.0f && t > 0.0f &&
+         tid >= 0 && t < t_cut && tid != skip_tri;
+  return r;
+}
+
+// The transmission of the MAT_LEAF triangle hit in tr, crossed by the
+// direction d: albedo * (transmission * (1 - Schlick)) through the
+// interpolated normal, from tri_f32[78:94] (vertex normals a, b, c;
+// albedo; transmission; ior). Both engines multiply it in.
+__device__ __forceinline__ void leaf_transmission(
+    const float* __restrict__ tri_f32, int tri_cols, const LeafTri& tr,
+    float dx, float dy, float dz, float& a0, float& a1, float& a2) {
+  const float* sr = tri_f32 + static_cast<int64_t>(tr.tid) * tri_cols + 78;
+  const float u = tr.u, v = tr.v;
+  const float w0 = 1.0f - u - v;
+  const float nx = sr[0] * w0 + sr[3] * u + sr[6] * v;
+  const float ny = sr[1] * w0 + sr[4] * u + sr[7] * v;
+  const float nz = sr[2] * w0 + sr[5] * u + sr[8] * v;
+  const float inv_len = rsqrtf(fmaxf(nx * nx + ny * ny + nz * nz, 1e-20f));
+  const float cos_t = fabsf(dx * nx + dy * ny + dz * nz) * inv_len;
+  const float ior = sr[13];
+  float r0 = (1.0f - ior) / (1.0f + ior);
+  r0 = r0 * r0;
+  const float x = 1.0f - cos_t;
+  const float x2 = x * x;
+  const float fres = r0 + (1.0f - r0) * (x * (x2 * x2));
+  const float tmul = sr[12] * (1.0f - fres);
+  a0 = sr[9] * tmul;
+  a1 = sr[10] * tmul;
+  a2 = sr[11] * tmul;
+}
+
 // One ray's result: closest (t, tri, u, v; tri = -1 and t = max_t on a
 // miss) or shadow (scale, 1 clear, 0 occluded, else the transmission), its
 // number of restarts from the root and of rows it visited.
@@ -190,34 +255,9 @@ __device__ __forceinline__ Trace8 trace8(const float* __restrict__ table,
     }
     LeafTri tr[kLeafTris];
 #pragma unroll
-    for (int j = 0; j < kLeafTris; ++j) {
-      const float* p = tv + 9 * j;
-      const float v0x = p[0], v0y = p[1], v0z = p[2];
-      const float e1x = p[3], e1y = p[4], e1z = p[5];
-      const float e2x = p[6], e2y = p[7], e2z = p[8];
-      const int32_t raw = __float_as_int(tv[36 + j]);
-      const int32_t tid = raw < 0 ? -1 : (raw & ~kLeafMatFlag);
-      const float hx = dy * e2z - dz * e2y;
-      const float hy = dz * e2x - dx * e2z;
-      const float hz = dx * e2y - dy * e2x;
-      const float a = hx * e1x + hy * e1y + hz * e1z;
-      const bool ok_det = fabsf(a) >= kDetEps;
-      const float f = 1.0f / (ok_det ? a : 1.0f);
-      const float sx = ox - v0x, sy = oy - v0y, sz = oz - v0z;
-      const float u = f * (sx * hx + sy * hy + sz * hz);
-      const float qx = sy * e1z - sz * e1y;
-      const float qy = sz * e1x - sx * e1z;
-      const float qz = sx * e1y - sy * e1x;
-      const float v = f * (dx * qx + dy * qy + dz * qz);
-      const float t = f * (e2x * qx + e2y * qy + e2z * qz);
-      tr[j].t = t;
-      tr[j].u = u;
-      tr[j].v = v;
-      tr[j].tid = tid;
-      tr[j].raw = raw;
-      tr[j].ok = ok_det && u >= 0.0f && v >= 0.0f && u + v <= 1.0f &&
-                 t > 0.0f && tid >= 0 && t < t_cut && tid != skip_tri;
-    }
+    for (int j = 0; j < kLeafTris; ++j)
+      tr[j] = moller_trumbore(tv + 9 * j, __float_as_int(tv[36 + j]), ox,
+                              oy, oz, dx, dy, dz, t_cut, skip_tri);
 
     if (!kShadow) {
       int32_t kmin = kKeyInvalid;
@@ -254,27 +294,11 @@ __device__ __forceinline__ Trace8 trace8(const float* __restrict__ table,
           opaque = true;
           continue;
         }
-        // tri_f32[78:94]: vertex normals a, b, c; albedo; transmission; ior
-        const float* sr =
-            tri_f32 + static_cast<int64_t>(tr[j].tid) * tri_cols + 78;
-        const float u = tr[j].u, v = tr[j].v;
-        const float w0 = 1.0f - u - v;
-        const float nx = sr[0] * w0 + sr[3] * u + sr[6] * v;
-        const float ny = sr[1] * w0 + sr[4] * u + sr[7] * v;
-        const float nz = sr[2] * w0 + sr[5] * u + sr[8] * v;
-        const float inv_len = rsqrtf(fmaxf(nx * nx + ny * ny + nz * nz,
-                                           1e-20f));
-        const float cos_t = fabsf(dx * nx + dy * ny + dz * nz) * inv_len;
-        const float ior = sr[13];
-        float r0 = (1.0f - ior) / (1.0f + ior);
-        r0 = r0 * r0;
-        const float x = 1.0f - cos_t;
-        const float x2 = x * x;
-        const float fres = r0 + (1.0f - r0) * (x * (x2 * x2));
-        const float tmul = sr[12] * (1.0f - fres);
-        f0 = f0 * (sr[9] * tmul);
-        f1 = f1 * (sr[10] * tmul);
-        f2 = f2 * (sr[11] * tmul);
+        float a0, a1, a2;
+        leaf_transmission(tri_f32, tri_cols, tr[j], dx, dy, dz, a0, a1, a2);
+        f0 = f0 * a0;
+        f1 = f1 * a1;
+        f2 = f2 * a2;
         any_leaf = true;
       }
       s0 = s0 * f0;

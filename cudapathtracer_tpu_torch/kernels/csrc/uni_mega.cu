@@ -51,6 +51,14 @@
 // key words read from a [k, 28] table in device memory, so a batch is one
 // launch and one write of the pixel's sum. It does the work of k single
 // launches, so its bound is k times theirs.
+//
+// Engines: every kernel here is a template on the traversal engine
+// (traverse_bin.cuh): kEngineBvh8 traces with K1 (bvh8_table),
+// kEngineThreaded with K15 (node_packed), as the JAX classic and naive
+// integrators follow the scene's traversal. The mega schedule traces BVH8
+// on every scene (the JAX mega engine's make_fused_step reads the BVH8
+// table), so its launches take the BVH8 instantiation; the C entries pick
+// the instantiation from their engine argument.
 
 #include <cuda_runtime.h>
 
@@ -62,7 +70,7 @@
 #include "packing.cuh"
 #include "shade.cuh"
 #include "threefry.cuh"
-#include "traverse8.cuh"
+#include "traverse_bin.cuh"
 
 namespace tpt {
 
@@ -84,6 +92,8 @@ struct SceneArgs {
   Lights lights;           // light_f32 [L, 17]
   const float* textures;   // [A, 3]
   const float* medium;     // [M, 4]: absorption xyz, ior
+  const float* nodes;      // node_packed [M, node_w] (threaded engine)
+  int node_w, leaf_k;
 };
 
 struct Params {
@@ -125,11 +135,12 @@ struct BasedDraws {
 
 struct PathOut {
   V3 li;
-  int32_t rays, rows;  // rays traced, BVH8 rows they visited
+  int32_t rays, rows;  // rays traced, rows (BVH8 or nodes) they visited
 };
 
 // One path from its primary ray (o, d); index: the path's position in the
 // pixel list (mega ids), pix_id: its pixel id (classic ids).
+template <int kEngine>
 __device__ __forceinline__ PathOut render_path(const SceneArgs& sc,
                                                const Params& p,
                                                int64_t index, uint32_t pix_id,
@@ -162,8 +173,8 @@ __device__ __forceinline__ PathOut render_path(const SceneArgs& sc,
       e.id = static_cast<uint32_t>(index * kIdStride + lit);
     }
 
-    const Trace8 h = trace8<false>(sc.table, nullptr, 0, o.x, o.y, o.z, d.x,
-                                   d.y, d.z, kBigT, -1, true);
+    const Trace8 h = trace_ray<kEngine, false>(sc, o.x, o.y, o.z, d.x, d.y,
+                                               d.z, kBigT, -1, true);
     rows += h.rows;
     if (h.tri < 0) {
       li = add(li, mul(beta, sample_sky(d, p.sample_environment != 0)));
@@ -227,9 +238,9 @@ __device__ __forceinline__ PathOut render_path(const SceneArgs& sc,
           const float bpdf =
               bsdf_pdf(m, neg(wi_local), ns.wo_local, eta_i, trans);
           const float w = power2_weight(ns.light_pdf, bpdf);
-          const Trace8 sh = trace8<true>(
-              sc.table, sc.tri_f32, sc.tri_cols, ns.origin.x, ns.origin.y,
-              ns.origin.z, ns.dir.x, ns.dir.y, ns.dir.z, ns.max_t, -1, true);
+          const Trace8 sh = trace_ray<kEngine, true>(
+              sc, ns.origin.x, ns.origin.y, ns.origin.z, ns.dir.x, ns.dir.y,
+              ns.dir.z, ns.max_t, -1, true);
           rows += sh.rows;
           const V3 shadow = v3(sh.s0, sh.s1, sh.s2);
           if (classic) {
@@ -287,6 +298,7 @@ __device__ __forceinline__ PathOut render_path(const SceneArgs& sc,
 // sampling-validity break, at most max_depth bounces; bounce `depth` draws
 // keyed by fold_in(fold_in(skey, depth), d) with the pixel id; the next ray
 // is unnormalized to_world(wo) from the side of wo.z.
+template <int kEngine>
 __device__ __forceinline__ PathOut render_naive_path(const SceneArgs& sc,
                                                      const Params& p,
                                                      uint32_t pix_id, V3 o,
@@ -302,8 +314,8 @@ __device__ __forceinline__ PathOut render_naive_path(const SceneArgs& sc,
     e.b1 = static_cast<uint32_t>(depth);
     threefry2x32(p.skey0, p.skey1, e.b0, e.b1);  // bounce_key(skey, depth)
     e.id = pix_id;
-    const Trace8 h = trace8<false>(sc.table, nullptr, 0, o.x, o.y, o.z, d.x,
-                                   d.y, d.z, kBigT, -1, true);
+    const Trace8 h = trace_ray<kEngine, false>(sc, o.x, o.y, o.z, d.x, d.y,
+                                               d.z, kBigT, -1, true);
     rows += h.rows;
     if (h.tri < 0) {
       li = add(li, mul(beta, sample_sky(d, p.sample_environment != 0)));
@@ -420,6 +432,7 @@ constexpr int kThreads = 128;
 
 // One sample of the path of pixel (x, y) at list index i: raygen, the
 // schedule's path, and the mega engine's RGB9E5 retirement.
+template <int kEngine>
 __device__ __forceinline__ tpt::PathOut sample_pixel(const tpt::SceneArgs& sc,
                                                      const tpt::Params& p,
                                                      int64_t i, int32_t x,
@@ -431,13 +444,14 @@ __device__ __forceinline__ tpt::PathOut sample_pixel(const tpt::SceneArgs& sc,
   const tpt::V3 o = tpt::v3(org[0], org[1], org[2]);
   const tpt::V3 d = tpt::v3(dir[0], dir[1], dir[2]);
   tpt::PathOut r = p.schedule == tpt::kScheduleNaive
-                       ? tpt::render_naive_path(sc, p, pix_id, o, d)
-                       : tpt::render_path(sc, p, i, pix_id, o, d);
+                       ? tpt::render_naive_path<kEngine>(sc, p, pix_id, o, d)
+                       : tpt::render_path<kEngine>(sc, p, i, pix_id, o, d);
   // the mega engine retires each path's radiance through RGB9E5
   if (p.schedule == tpt::kScheduleMega) r.li = tpt::round_rgb9e5(r.li);
   return r;
 }
 
+template <int kEngine>
 __global__ void __launch_bounds__(kThreads)
 uni_mega_kernel(tpt::SceneArgs sc, tpt::Params p,
                 const int32_t* __restrict__ px,
@@ -447,7 +461,7 @@ uni_mega_kernel(tpt::SceneArgs sc, tpt::Params p,
   const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x +
                     threadIdx.x;
   if (i >= n) return;
-  const tpt::PathOut r = sample_pixel(sc, p, i, px[i], py[i]);
+  const tpt::PathOut r = sample_pixel<kEngine>(sc, p, i, px[i], py[i]);
   li_out[3 * i] = r.li.x;
   li_out[3 * i + 1] = r.li.y;
   li_out[3 * i + 2] = r.li.z;
@@ -461,6 +475,7 @@ uni_mega_kernel(tpt::SceneArgs sc, tpt::Params p,
 // one launch, is added into a float32 accumulator that starts at 0, in
 // sample order, which is the JAX fori_loop's sum, and the rays into the
 // pixel's int32 counter. li_out and rays_out are written once.
+template <int kEngine>
 __global__ void __launch_bounds__(kThreads)
 uni_mega_batch_kernel(tpt::SceneArgs sc, tpt::Params p,
                       const uint32_t* __restrict__ keys, int32_t k,
@@ -482,7 +497,7 @@ uni_mega_batch_kernel(tpt::SceneArgs sc, tpt::Params p,
     ps.skey0 = row[8];
     ps.skey1 = row[9];
     for (int w = 0; w < 18; ++w) ps.draw_keys[w] = row[10 + w];
-    const tpt::PathOut r = sample_pixel(sc, ps, i, x, y);
+    const tpt::PathOut r = sample_pixel<kEngine>(sc, ps, i, x, y);
     ax = ax + r.li.x;
     ay = ay + r.li.y;
     az = az + r.li.z;
@@ -514,14 +529,19 @@ shade_eval_kernel(tpt::SceneArgs sc, tpt::Params p,
       out + tpt::kShadeEvalCols * i);
 }
 
-// scene: the table pointers; cam_params: 19 floats and keys: 8 camera key
-// words, the sample key pair and 18 mega draw-key words (host memory).
+// scene: the table pointers (nodes: the threaded engine's, or null);
+// cam_params: 19 floats and keys: 8 camera key words, the sample key pair
+// and 18 mega draw-key words (host memory).
 tpt::SceneArgs make_scene(const float* table, const float* tri_f32,
                           int32_t tri_cols, const float* light_f32,
                           int32_t num_lights, const float* textures,
-                          const float* medium) {
+                          const float* medium, const float* nodes = nullptr,
+                          int32_t node_w = 0, int32_t leaf_k = 0) {
   tpt::SceneArgs sc;
   sc.table = table;
+  sc.nodes = nodes;
+  sc.node_w = node_w;
+  sc.leaf_k = leaf_k;
   sc.tri_f32 = tri_f32;
   sc.tri_cols = tri_cols;
   sc.lights.rows = light_f32;
@@ -548,30 +568,43 @@ tpt::Params make_params(const float* cam_params, const uint32_t* keys,
   return p;
 }
 
+bool schedule_ok(int32_t schedule) {
+  return schedule == tpt::kScheduleClassic ||
+         schedule == tpt::kScheduleMega || schedule == tpt::kScheduleNaive;
+}
+
 }  // namespace
 
 // One sample of n paths: li [n,3] f32 and each path's ray count [n] i32;
-// rows may be null, else each path's count of BVH8 rows visited. Returns
-// the launch's cudaError_t.
+// rows may be null, else each path's count of rows visited (BVH8 rows or
+// threaded nodes). engine: kEngineBvh8 (0) or kEngineThreaded (1, with
+// nodes [M, node_w] and leaf_k). Returns the launch's cudaError_t.
 extern "C" int tpt_render_unidirectional(
     const float* table, const float* tri_f32, int32_t tri_cols,
     const float* light_f32, int32_t num_lights, const float* textures,
     const float* medium, const int32_t* px, const int32_t* py, int64_t n,
     const float* cam_params, const uint32_t* keys, int32_t max_depth,
     int32_t use_mis, int32_t sample_environment, int32_t schedule,
-    int32_t air_priority, float* li, int32_t* rays, int32_t* rows,
-    void* stream) {
-  if (n <= 0) return 0;
-  if (schedule != tpt::kScheduleClassic && schedule != tpt::kScheduleMega &&
-      schedule != tpt::kScheduleNaive)
+    int32_t air_priority, int32_t engine, const float* nodes, int32_t node_w,
+    int32_t leaf_k, float* li, int32_t* rays, int32_t* rows, void* stream) {
+  if (!schedule_ok(schedule) ||
+      !tpt::engine_ok(engine, nodes, node_w, leaf_k))
     return static_cast<int>(cudaErrorInvalidValue);
+  if (n <= 0) return 0;
   const unsigned blocks = static_cast<unsigned>((n + kThreads - 1) / kThreads);
-  uni_mega_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+  const tpt::SceneArgs sc =
       make_scene(table, tri_f32, tri_cols, light_f32, num_lights, textures,
-                 medium),
-      make_params(cam_params, keys, max_depth, use_mis, sample_environment,
-                  schedule, air_priority),
-      px, py, n, li, rays, rows);
+                 medium, nodes, node_w, leaf_k);
+  const tpt::Params p = make_params(cam_params, keys, max_depth, use_mis,
+                                    sample_environment, schedule,
+                                    air_priority);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (engine == tpt::kEngineThreaded)
+    uni_mega_kernel<tpt::kEngineThreaded><<<blocks, kThreads, 0, st>>>(
+        sc, p, px, py, n, li, rays, rows);
+  else
+    uni_mega_kernel<tpt::kEngineBvh8><<<blocks, kThreads, 0, st>>>(
+        sc, p, px, py, n, li, rays, rows);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -585,22 +618,28 @@ extern "C" int tpt_render_unidirectional_batch(
     const float* medium, const int32_t* px, const int32_t* py, int64_t n,
     const float* cam_params, const uint32_t* keys, int32_t k,
     int32_t max_depth, int32_t use_mis, int32_t sample_environment,
-    int32_t schedule, int32_t air_priority, float* li, int32_t* rays,
-    int32_t* rows, void* stream) {
-  if (n <= 0) return 0;
-  if (k < 1 || keys == nullptr ||
-      (schedule != tpt::kScheduleClassic && schedule != tpt::kScheduleMega &&
-       schedule != tpt::kScheduleNaive))
+    int32_t schedule, int32_t air_priority, int32_t engine,
+    const float* nodes, int32_t node_w, int32_t leaf_k, float* li,
+    int32_t* rays, int32_t* rows, void* stream) {
+  if (k < 1 || keys == nullptr || !schedule_ok(schedule) ||
+      !tpt::engine_ok(engine, nodes, node_w, leaf_k))
     return static_cast<int>(cudaErrorInvalidValue);
+  if (n <= 0) return 0;
   static const uint32_t kNoKeys[28] = {};
   const unsigned blocks = static_cast<unsigned>((n + kThreads - 1) / kThreads);
-  uni_mega_batch_kernel<<<blocks, kThreads, 0,
-                          static_cast<cudaStream_t>(stream)>>>(
+  const tpt::SceneArgs sc =
       make_scene(table, tri_f32, tri_cols, light_f32, num_lights, textures,
-                 medium),
-      make_params(cam_params, kNoKeys, max_depth, use_mis, sample_environment,
-                  schedule, air_priority),
-      keys, k, px, py, n, li, rays, rows);
+                 medium, nodes, node_w, leaf_k);
+  const tpt::Params p = make_params(cam_params, kNoKeys, max_depth, use_mis,
+                                    sample_environment, schedule,
+                                    air_priority);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (engine == tpt::kEngineThreaded)
+    uni_mega_batch_kernel<tpt::kEngineThreaded><<<blocks, kThreads, 0, st>>>(
+        sc, p, keys, k, px, py, n, li, rays, rows);
+  else
+    uni_mega_batch_kernel<tpt::kEngineBvh8><<<blocks, kThreads, 0, st>>>(
+        sc, p, keys, k, px, py, n, li, rays, rows);
   return static_cast<int>(cudaGetLastError());
 }
 

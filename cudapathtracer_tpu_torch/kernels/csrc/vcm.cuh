@@ -19,6 +19,10 @@
 // the connections; the previous vertex's direction normalize(prev - pos);
 // d_vcm / max(eta_vcm, 1e-30) in the merge weights; NEE's prev-to-current
 // direction is the unnormalized pos - prev_pt in the local frame.
+//
+// Engines: vcm_eye_pixel and the connection ray are templates on the
+// traversal engine (traverse_bin.cuh); vcm_eye.cu launches the scene's,
+// and K14 (mega.cuh) instantiates the connection ray with BVH8.
 #pragma once
 
 #include <cstdint>
@@ -67,6 +71,7 @@ struct ConnRay {
   Trace8 sh;
 };
 
+template <int kEngine>
 __device__ __forceinline__ bool conn_ray(const SceneRefs& sc,
                                          const EyeVertex& e, const Vertex& lv,
                                          ConnRay& c, int32_t& rays,
@@ -81,9 +86,9 @@ __device__ __forceinline__ bool conn_ray(const SceneRefs& sc,
   if (!(c.cos_l >= kEps && c.cos_e >= kEps)) return false;
   const V3 origin = add(e.pos, scale(e.n, kRayEps));
   ++rays;
-  c.sh = trace8<true>(sc.table, sc.tri_f32, sc.tri_cols, origin.x, origin.y,
-                      origin.z, c.e2l_u.x, c.e2l_u.y, c.e2l_u.z,
-                      dist - kRayEps, -1, true);
+  c.sh = trace_ray<kEngine, true>(sc, origin.x, origin.y, origin.z,
+                                  c.e2l_u.x, c.e2l_u.y, c.e2l_u.z,
+                                  dist - kRayEps, -1, true);
   rows += c.sh.rows;
   return true;
 }
@@ -129,6 +134,7 @@ __device__ __forceinline__ V3 conn_terms(const SceneRefs& sc, float eta_vcm,
 }
 
 // s >= 2 against stored light vertex j; adds into li, counts the ray.
+template <int kEngine>
 __device__ __forceinline__ void connect_vcm(const SceneRefs& sc,
                                             const VcmParams& p,
                                             const VcmIn& in,
@@ -137,7 +143,7 @@ __device__ __forceinline__ void connect_vcm(const SceneRefs& sc,
                                             int32_t& rows) {
   const Vertex lv = load_vertex(in.light, j, i);
   ConnRay c;
-  if (!conn_ray(sc, e, lv, c, rays, rows)) return;
+  if (!conn_ray<kEngine>(sc, e, lv, c, rays, rows)) return;
   if (!(max3(c.sh.s0, c.sh.s1, c.sh.s2) > 0.0f)) return;
   float weight;
   const V3 base = conn_terms(sc, p.eta_vcm, e, lv, c, weight);
@@ -183,6 +189,7 @@ __device__ __forceinline__ V3 merge_term(const EyeVertex& e, V3 prev_loc,
 
 // The eye pass of pixel (px, py), path i: returns its radiance plus the
 // splat fb[i]; adds its rays and BVH8 rows, sets its dropped photons.
+template <int kEngine>
 __device__ __forceinline__ V3 vcm_eye_pixel(const SceneRefs& sc,
                                             const VcmParams& p,
                                             const VcmIn& in, int64_t i,
@@ -211,8 +218,8 @@ __device__ __forceinline__ V3 vcm_eye_pixel(const SceneRefs& sc,
 
   for (int depth = 0; depth < p.eye_depth; ++depth) {
     ++rays;
-    const Trace8 h = trace8<false>(sc.table, nullptr, 0, o.x, o.y, o.z, d.x,
-                                   d.y, d.z, kBigT, -1, true);
+    const Trace8 h = trace_ray<kEngine, false>(sc, o.x, o.y, o.z, d.x, d.y,
+                                               d.z, kBigT, -1, true);
     rows += h.rows;
     if (h.tri < 0) {  // escaped: the sky, weight 1
       if (p.sample_environment)
@@ -265,10 +272,9 @@ __device__ __forceinline__ V3 vcm_eye_pixel(const SceneRefs& sc,
         const float dist = sqrtf(d2);
         const V3 stl_u = v3(stl.x / dist, stl.y / dist, stl.z / dist);
         const V3 origin = add(e.pos, scale(e.n, kRayEps));
-        const Trace8 sh = trace8<true>(sc.table, sc.tri_f32, sc.tri_cols,
-                                       origin.x, origin.y, origin.z, stl_u.x,
-                                       stl_u.y, stl_u.z, dist - kEps, lp.tri,
-                                       true);
+        const Trace8 sh = trace_ray<kEngine, true>(
+            sc, origin.x, origin.y, origin.z, stl_u.x, stl_u.y, stl_u.z,
+            dist - kEps, lp.tri, true);
         rows += sh.rows;
         const float cos_light = dot(lp.n, neg(stl_u));
         if (max3(sh.s0, sh.s1, sh.s2) > 0.0f && cos_light >= kEps) {
@@ -301,7 +307,7 @@ __device__ __forceinline__ V3 vcm_eye_pixel(const SceneRefs& sc,
       // s >= 2: every stored light vertex of this path id
       if (p.connection)
         for (int j = 0; j < p.light_depth; ++j)
-          connect_vcm(sc, p, in, e, j, i, li, rays, rows);
+          connect_vcm<kEngine>(sc, p, in, e, j, i, li, rays, rows);
 
       // the merge with the photons around the vertex
       if (p.merge) {
@@ -346,6 +352,7 @@ struct VcmLaunch {
   int32_t* dropped;
   int32_t* rows;
   int64_t n;
+  int engine;
 };
 
 // Layouts at the entry in vcm_eye.cu.
@@ -395,17 +402,20 @@ inline bool vcm_launch(const int64_t* ptrs, const int64_t* iv,
   c.rays = dev_ptr<int32_t>(ptrs, 22);
   c.dropped = dev_ptr<int32_t>(ptrs, 23);
   c.rows = dev_ptr<int32_t>(ptrs, 24);
+  c.engine = engine_refs(ptrs, 25, iv, 17, c.sc);
   const bool grid_ok = !p.merge || (g.rows != nullptr &&
                                     g.cell_se != nullptr &&
                                     g.geom.table_size > 0 && g.cap >= 1);
-  return p.eye_depth >= 1 && p.light_depth >= 1 && grid_ok;
+  return p.eye_depth >= 1 && p.light_depth >= 1 && grid_ok &&
+         c.engine >= 0;
 }
 
 // One pixel of the eye pass, as the kernel runs it.
+template <int kEngine>
 __device__ __forceinline__ void vcm_eye_one(const VcmLaunch& c, int64_t i) {
   int32_t r = 0, w = 0, dr = 0;
-  put3(c.out, i, vcm_eye_pixel(c.sc, c.p, c.in, i, c.px[i], c.py[i], r, w,
-                               dr));
+  put3(c.out, i, vcm_eye_pixel<kEngine>(c.sc, c.p, c.in, i, c.px[i],
+                                        c.py[i], r, w, dr));
   c.rays[i] += r;
   c.dropped[i] = dr;
   if (c.rows != nullptr) c.rows[i] += w;

@@ -29,7 +29,7 @@ import torch
 
 from cudapathtracer_tpu_torch.models import mis
 from cudapathtracer_tpu_torch.ops import bsdf as bsdf_ops
-from cudapathtracer_tpu_torch.ops import traverse
+from cudapathtracer_tpu_torch.ops import traverse, traverse8
 from cudapathtracer_tpu_torch.scene.materials import (TRANSPORT_IMPORTANCE,
                                                       TRANSPORT_RADIANCE)
 from cudapathtracer_tpu_torch.utils import packing, rng
@@ -157,7 +157,9 @@ def random_walk(scene, key, start: WalkStart, max_depth: int,
     rng.draw_key_table(key, range(max_depth), range(4))): bounce `depth`
     draws with the pairs of row `depth` through rng.uniform_keyed (K12's
     table mode) instead of folding bounce_key(key, depth); the draws are
-    the same bits."""
+    the same bits. The walk traces with the scene's engine (ops/traverse),
+    the keyed one with BVH8 on every scene, as the JAX light_mega's fused
+    step and K12's table mode do."""
     n, dev = start.o.shape[0], start.o.device
     o, d, thr = start.o, start.d, start.throughput
     prev_pdf_sa, prev_cos, prev_pt = (start.prev_pdf_sa, start.prev_cos,
@@ -168,10 +170,12 @@ def random_walk(scene, key, start: WalkStart, max_depth: int,
                  d=start.d, beta=start.throughput)
     eta_i = torch.ones(n, dtype=torch.float32, device=dev)
     rows, rays = [], 0
+    closest = traverse.closest_hit if key_table is None \
+        else traverse8.closest_hit8
     for depth in range(1, max_depth):
         bkey = rng.bounce_key(key, depth)
         rays += int(alive.sum())
-        hit = traverse.closest_hit(scene, o, d, active=alive)
+        hit = closest(scene, o, d, active=alive)
         info, mat = traverse.shade_data(scene, o, d, hit)
         reached = alive & hit.valid
         missed = alive & ~hit.valid

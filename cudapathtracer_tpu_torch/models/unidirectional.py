@@ -8,7 +8,10 @@ sample is one launch of the per-path megakernel (K5,
 kernels/csrc/uni_mega.cu) with the classic draw schedule. On CPU tensors
 it is the plain version below: a per-bounce loop over the live paths that
 reuses ops/bsdf.py, models/common.py, ops/traverse.shade_data and the plain
-BVH8 traversal. Each bounce works on the paths still alive: dead paths are
+traversal of the scene's engine (ops/traverse: BVH8 or, on a
+traversal="threaded" scene, the threaded engine; the mega schedule traces
+BVH8 on every scene, as the JAX mega engine's fused step and K5 do). Each
+bounce works on the paths still alive: dead paths are
 dropped with index_select, which leaves the image unchanged because every
 draw is keyed by the path, never by lane. On the card a batch of k samples
 (models/batch.py) is one launch of K5's k-sample mode (render_batch).
@@ -34,7 +37,7 @@ import torch
 from cudapathtracer_tpu_torch import kernels
 from cudapathtracer_tpu_torch.models import common
 from cudapathtracer_tpu_torch.ops import bsdf as bsdf_ops
-from cudapathtracer_tpu_torch.ops import traverse
+from cudapathtracer_tpu_torch.ops import traverse, traverse8
 from cudapathtracer_tpu_torch.utils import packing, rng
 from cudapathtracer_tpu_torch.utils.math import (EPSILON, RAY_EPSILON,
                                                  length_sq, luminance,
@@ -184,8 +187,14 @@ def _bounce(scene, mats, skey, it, s, max_depth, use_mis,
         key, ids = skey, (s["lane"] * ID_STRIDE + it).to(torch.int32)
     ms = common.MediumStack(s["ms_stack"], s["ms_top"])
     nee_rays = 0
+    # the classic schedule follows the scene's engine, the mega one BVH8
+    if schedule == "mega":
+        closest, shadow_factor = (traverse8.closest_hit8,
+                                  traverse8.shadow_factor8)
+    else:
+        closest, shadow_factor = traverse.closest_hit, traverse.shadow_factor
 
-    hit = traverse.closest_hit(scene, s["o"], s["d"])
+    hit = closest(scene, s["o"], s["d"])
     info, mat = traverse.shade_data(scene, s["o"], s["d"], hit)
     miss = ~hit.valid
     li = s["li"] + torch.where(
@@ -259,8 +268,8 @@ def _bounce(scene, mats, skey, it, s, max_depth, use_mis,
         else:
             nee_rays = int(ns.active.sum())
         if scene.num_lights > 0:
-            shadow = traverse.shadow_factor(scene, ns.origin, ns.dir,
-                                            ns.max_t, active=ns.active)
+            shadow = shadow_factor(scene, ns.origin, ns.dir, ns.max_t,
+                                   active=ns.active)
             bsdf_pdf_nee = bsdf_ops.bsdf_pdf(mat, -wi_local, ns.wo_local,
                                              eta_i, transmission=trans)
             w_nee = common.power2_weight(ns.light_pdf, bsdf_pdf_nee)[:, None]

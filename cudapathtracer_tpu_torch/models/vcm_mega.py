@@ -46,6 +46,9 @@ The mega eye pass differs from the classic one (models/vcm.py) in:
 The "bdpt" flavour (BDPT's weights: no eta_vcm, no d_vm, the linear NEE
 ratio, the camera-trace pdf at depth 0 of s=0, the clamp only on deeper
 s=0 hits, no merge) serves models/bdpt_mega.py.
+Engines: the eye pass traces BVH8 (ops/traverse8) on every scene, as the
+JAX eye machine's make_fused_step and K14 do; the light walk and the
+splat follow the scene's traversal (ops/traverse), as there.
 """
 
 from __future__ import annotations
@@ -65,7 +68,7 @@ from cudapathtracer_tpu_torch.models.vcm import (VCMConfig, _clamp_firefly,
                                                  implicit_vcm, merge_terms,
                                                  sample_keys, vcm_light_splat)
 from cudapathtracer_tpu_torch.ops import bsdf as bsdf_ops
-from cudapathtracer_tpu_torch.ops import hashgrid, traverse
+from cudapathtracer_tpu_torch.ops import hashgrid, traverse, traverse8
 from cudapathtracer_tpu_torch.scene.materials import TRANSPORT_IMPORTANCE
 from cudapathtracer_tpu_torch.utils import packing, rng
 from cudapathtracer_tpu_torch.utils.math import (EPSILON, MAX_FIREFLY_LUM,
@@ -244,9 +247,9 @@ def _nee(scene, key_e, e, conn, ids, flavor: str, cfg, eta_vcm):
                                  + pdf_prev_rev_sa * e["d_vc"])
     weight = 1.0 / (1.0 + w_light + w_eye)
     do = conn & (cos_light >= EPSILON)
-    shadow = traverse.shadow_factor(scene, e["pos"] + nrm * RAY_EPSILON,
-                                    stl_u, dist - EPSILON, skip_tri=tri,
-                                    active=do)
+    shadow = traverse8.shadow_factor8(scene, e["pos"] + nrm * RAY_EPSILON,
+                                      stl_u, dist - EPSILON, skip_tri=tri,
+                                      active=do)
     out = _resolve(_weighted(contrib * e["thr"], weight, cfg), shadow,
                    flavor, cfg)
     return torch.where(do[:, None], out, 0.0), int(do.sum())
@@ -287,7 +290,7 @@ def eye_pass_plain(scene, camera, key_e, lbufs, grid, cfg: VCMConfig, px,
         if not bool(alive.any()):
             break
         rays += int(alive.sum())
-        hit = traverse.closest_hit(scene, o, d, active=alive)
+        hit = traverse8.closest_hit8(scene, o, d, active=alive)
         info, mat = traverse.shade_data(scene, o, d, hit)
         reached = alive & hit.valid
         if cfg.sample_environment:
@@ -346,7 +349,7 @@ def eye_pass_plain(scene, camera, key_e, lbufs, grid, cfg: VCMConfig, px,
         for lv in lverts:
             do, e2l_u, dist, cos_l, cos_e, d2 = conn_geometry(eye, lv, conn)
             rays += int(do.sum())
-            shadow = traverse.shadow_factor(
+            shadow = traverse8.shadow_factor8(
                 scene, npos + eye["n"] * RAY_EPSILON, e2l_u,
                 dist - RAY_EPSILON, active=do)
             base, weight = conn_terms(scene, eye, lv, ones, e2l_u, cos_l,

@@ -1,11 +1,29 @@
-"""Traversal entry points, the hit record and the hit fetch.
+"""Traversal entry points, the threaded binary engine, the hit record and
+the hit fetch.
 
-Counterpart of cudapathtracer_tpu/ops/traverse.py. `closest_hit` and
-`shadow_factor` dispatch to the BVH8 engine (ops/traverse8.py, kernel K1);
-the JAX package's threaded binary engine (traversal="threaded") is not
-ported. `shade_data` is the plain version of the hit fetch (K2, device
-code in kernels/csrc/shade.cuh): one gather of the packed shading row and
-the barycentric interpolation; `interpolate_hit` (the BDPT walks' fetch)
+Counterpart of cudapathtracer_tpu/ops/traverse.py. `closest_hit`,
+`shadow_factor` and `trace_fused` dispatch on the scene's traversal, as the
+JAX functions do: "bvh8" goes to the BVH8 engine (ops/traverse8.py, kernel
+K1), "threaded" to the threaded binary engine below (kernel K15,
+kernels/csrc/traverse_bin.cu, on CUDA tensors; its plain version on CPU
+tensors).
+
+The threaded engine walks Scene.node_packed, one row per binary node, with
+one int cursor per ray and no stack: slab-test the node's box (tmin below
+t_best for closest rays, below max_t for shadow rays); on a hit of an inner
+node take the ray octant's hit link (the near child), else its miss link
+(the rest of the tree after this subtree); a hit leaf tests its K inline
+triangles in slot order (strict t < t_best, tid != skip_tri) and then
+continues at its miss link. Shadow rays multiply the transmission of each
+MAT_LEAF triangle they cross in slot order and stop at the first opaque
+hit or once the product's max falls below 0.01. The JAX version advances
+the whole wavefront in lockstep with straggler compaction and a one-hot
+octant select, TPU mechanism; the plain version here advances the rays
+still in flight one row a step, indexing them.
+
+`shade_data` is the plain version of the hit fetch (K2, device code in
+kernels/csrc/shade.cuh): one gather of the packed shading row and the
+barycentric interpolation; `interpolate_hit` (the BDPT walks' fetch)
 returns the same record without the material fields.
 """
 
@@ -15,7 +33,13 @@ from typing import NamedTuple
 
 import torch
 
+from cudapathtracer_tpu_torch import kernels
+from cudapathtracer_tpu_torch.ops.intersect import (aabb_intersect,
+                                                    moller_trumbore,
+                                                    safe_inv_dir)
 from cudapathtracer_tpu_torch.utils.math import dot, normalize
+
+LEAF_MAT_FLAG = 1 << 30
 
 
 class Hit(NamedTuple):
@@ -30,22 +54,166 @@ class Hit(NamedTuple):
         return self.tri >= 0
 
 
-def _engine(scene):
-    if scene.traversal != "bvh8":
-        raise NotImplementedError(
-            f"traversal={scene.traversal!r}: only the BVH8 engine is ported "
-            "(the threaded binary engine is ROADMAP item K15)")
-    from cudapathtracer_tpu_torch.ops import traverse8
-    return traverse8
+def _octant(d):
+    """Direction sign bits: bit k set where d[k] < 0."""
+    neg = (d < 0.0).to(torch.int64)
+    return neg[:, 0] | (neg[:, 1] << 1) | (neg[:, 2] << 2)
+
+
+def _traverse_bin_plain(nodes, leaf_k, tri_f32, o, d, max_t, skip_tri,
+                        active, shadow, with_counts=False):
+    """Plain version of K15, both modes. Per-ray state lives in full-width
+    tensors; each step gathers the rays in flight, advances them one node
+    row and scatters them back. with_counts also returns, per ray, the node
+    rows visited and the triangle tests K15 makes (a hit leaf's slots below
+    its count, for a shadow ray up to the one that blocks it)."""
+    from cudapathtracer_tpu_torch.ops.traverse8 import leaf_factor
+    n, dev = o.shape[0], o.device
+    inv_d = safe_inv_dir(d)
+    octs = _octant(d)
+    cur = torch.zeros(n, dtype=torch.int32, device=dev)
+    if active is not None:
+        cur = torch.where(active, cur, -1)
+    t_best = max_t.clone()
+    tri = torch.full((n,), -1, dtype=torch.int32, device=dev)
+    u = torch.zeros(n, dtype=torch.float32, device=dev)
+    v = torch.zeros(n, dtype=torch.float32, device=dev)
+    scale = torch.ones((n, 3), dtype=torch.float32, device=dev)
+    with_leaf = tri_f32 is not None and tri_f32.shape[1] >= 94
+    id_off = 24 + 9 * leaf_k
+    rows = torch.zeros(n, dtype=torch.int32, device=dev)
+    tests = torch.zeros(n, dtype=torch.int32, device=dev)
+    while True:
+        live = torch.nonzero(cur >= 0)[:, 0]
+        if live.numel() == 0:
+            break
+        if with_counts:
+            rows[live] += 1
+        row = nodes[cur[live].long()]
+        irow = row.view(torch.int32)
+        t_cut = max_t[live] if shadow else t_best[live]
+        tmin, _, hit = aabb_intersect(o[live], inv_d[live], row[:, 0:3],
+                                      row[:, 3:6])
+        hit = hit & (tmin < t_cut)
+        oc = octs[live][:, None]
+        is_leaf = irow[:, 22] > 0
+        nxt = torch.where(hit & ~is_leaf, irow.gather(1, 6 + oc)[:, 0],
+                          irow.gather(1, 14 + oc)[:, 0])
+        sel = torch.nonzero(hit & is_leaf)[:, 0]
+        if sel.numel():
+            lane = live[sel]
+            ld = d[lane]
+            # the K slots' tests at once; their fold is in slot order
+            tv = row[sel, 24:id_off].reshape(-1, leaf_k, 9)
+            raws = irow[sel, id_off:id_off + leaf_k]
+            tids = torch.where(raws < 0, -1, raws & ~LEAF_MAT_FLAG)
+            tts, uus, vvs, oks = moller_trumbore(
+                o[lane, None], ld[:, None], tv[..., 0:3], tv[..., 3:6],
+                tv[..., 6:9])
+            oks = oks & (tids >= 0) & (tids != skip_tri[lane, None])
+            count = irow[sel, 22]
+            if with_counts and not shadow:
+                tests[lane] += count
+            if not shadow:
+                tb, ltri, lu, lv = t_best[lane], tri[lane], u[lane], v[lane]
+                for k in range(leaf_k):
+                    ok = oks[:, k] & (tts[:, k] < tb)
+                    tb = torch.where(ok, tts[:, k], tb)
+                    ltri = torch.where(ok, tids[:, k], ltri)
+                    lu = torch.where(ok, uus[:, k], lu)
+                    lv = torch.where(ok, vvs[:, k], lv)
+                t_best[lane], tri[lane], u[lane], v[lane] = tb, ltri, lu, lv
+            else:
+                sc, mt = scale[lane], max_t[lane]
+                blocked = torch.zeros(sel.numel(), dtype=torch.bool,
+                                      device=dev)
+                for k in range(leaf_k):
+                    if with_counts:
+                        tests[lane] += ((k < count) & ~blocked).to(
+                            torch.int32)
+                    ok = oks[:, k] & ~blocked & (tts[:, k] < mt)
+                    if with_leaf:
+                        lm = (raws[:, k] & LEAF_MAT_FLAG) != 0
+                        sc = torch.where(
+                            (ok & lm)[:, None],
+                            sc * leaf_factor(tri_f32, ld, uus[:, k],
+                                             vvs[:, k], tids[:, k]), sc)
+                        dark = sc.amax(dim=1) < 0.01
+                        blocked = blocked | (ok & (~lm | dark))
+                    else:
+                        blocked = blocked | ok
+                scale[lane] = torch.where(blocked[:, None], 0.0, sc)
+                nxt[sel] = torch.where(blocked, -1, nxt[sel])
+        cur[live] = nxt
+    out = (scale,) if shadow else (t_best, tri, u, v)
+    if with_counts:
+        return out + (rows, tests)
+    return out[0] if shadow else out
+
+
+def closest_hit_bin_plain(nodes, leaf_k, o, d, max_t, skip_tri, active,
+                          with_counts=False):
+    """Plain version of K15 closest -> (t, tri, u, v), and with with_counts
+    the rows visited and triangle tests per ray [N] i32."""
+    return _traverse_bin_plain(nodes, leaf_k, None, o, d, max_t, skip_tri,
+                               active, shadow=False, with_counts=with_counts)
+
+
+def shadow_factor_bin_plain(nodes, leaf_k, tri_f32, o, d, max_t, skip_tri,
+                            active, with_counts=False):
+    """Plain version of K15 shadow -> scale [N,3], and with with_counts
+    (scale, rows, tests) as closest_hit_bin_plain."""
+    return _traverse_bin_plain(nodes, leaf_k, tri_f32, o, d, max_t,
+                               skip_tri, active, shadow=True,
+                               with_counts=with_counts)
 
 
 def closest_hit(scene, o, d, max_t=None, skip_tri=None, active=None) -> Hit:
-    return _engine(scene).closest_hit8(scene, o, d, max_t, skip_tri, active)
+    """Closest hit of rays o, d [N,3] (d normalized) on the scene's engine.
+    max_t: scalar or [N]; skip_tri: [N] triangle to ignore; active: [N]
+    bool rays to trace. Misses keep t = max_t and tri = -1."""
+    from cudapathtracer_tpu_torch.ops import traverse8
+    if scene.traversal == "bvh8":
+        return traverse8.closest_hit8(scene, o, d, max_t, skip_tri, active)
+    o, d, max_t, skip_tri = traverse8.ray_inputs(o, d, max_t, skip_tri)
+    if o.device.type == "cpu":
+        out = closest_hit_bin_plain(scene.node_packed, scene.max_leaf_size,
+                                    o, d, max_t, skip_tri, active)
+    else:
+        out = kernels.closest_hit_bin(scene.node_packed, scene.max_leaf_size,
+                                      o, d, max_t, skip_tri, active)
+    return Hit(*out)
 
 
 def shadow_factor(scene, o, d, max_t, skip_tri=None, active=None):
-    return _engine(scene).shadow_factor8(scene, o, d, max_t, skip_tri,
-                                         active)
+    """Any-hit shadow with MAT_LEAF transmission on the scene's engine ->
+    scale [N,3]: 1 clear, 0 occluded, else the transmission product. Rays
+    not active keep 1."""
+    from cudapathtracer_tpu_torch.ops import traverse8
+    if scene.traversal == "bvh8":
+        return traverse8.shadow_factor8(scene, o, d, max_t, skip_tri, active)
+    o, d, max_t, skip_tri = traverse8.ray_inputs(o, d, max_t, skip_tri)
+    if o.device.type == "cpu":
+        return shadow_factor_bin_plain(scene.node_packed,
+                                       scene.max_leaf_size, scene.tri_f32, o,
+                                       d, max_t, skip_tri, active)
+    return kernels.shadow_factor_bin(scene.node_packed, scene.max_leaf_size,
+                                     scene.tri_f32, o, d, max_t, skip_tri,
+                                     active)
+
+
+def trace_fused(scene, o, d, t_lim, is_shadow, skip_tri=None, active=None):
+    """Closest rays (is_shadow False: t_lim is the initial t_best) and
+    shadow rays (t_lim is max_t) of one batch -> (Hit, scale [N,3]). On
+    either engine, the two entries on their own lanes: the JAX BVH8
+    engine's mixed loop is a lockstep schedule, and its threaded engine
+    makes the same two calls."""
+    act = torch.ones_like(is_shadow) if active is None else active
+    hit = closest_hit(scene, o, d, max_t=t_lim, skip_tri=skip_tri,
+                      active=act & ~is_shadow)
+    scale = shadow_factor(scene, o, d, t_lim, skip_tri=skip_tri,
+                          active=act & is_shadow)
+    return hit, scale
 
 
 def _i32(x):

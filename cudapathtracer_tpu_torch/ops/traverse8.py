@@ -22,7 +22,7 @@ import torch
 from cudapathtracer_tpu_torch import kernels
 from cudapathtracer_tpu_torch.ops.intersect import (BIG_T, DET_EPS,
                                                     safe_inv_dir)
-from cudapathtracer_tpu_torch.ops.traverse import Hit
+from cudapathtracer_tpu_torch.ops.traverse import LEAF_MAT_FLAG, Hit
 
 STACK_D = kernels.STACK_D   # 16, as the JAX traversal's default
 MAX_RESTARTS = 3
@@ -30,10 +30,9 @@ ROW_W = 96        # scene/bvh8.py row_width(4)
 TRI_OFF = 50      # scene/bvh8.py TRI_OFF
 LEAF_TRIS = 4
 KEY_INVALID = 0x7FFFFFFF
-LEAF_MAT_FLAG = 1 << 30
 
 
-def _ray_inputs(o, d, max_t, skip_tri):
+def ray_inputs(o, d, max_t, skip_tri):
     n = o.shape[0]
     o = o.to(torch.float32).contiguous()
     d = d.to(torch.float32).contiguous()
@@ -142,10 +141,30 @@ def _pow5(x):
     return x * (x2 * x2)
 
 
+def leaf_factor(tri_f32, d, u, v, tid):
+    """The transmission of MAT_LEAF triangles tid [M] crossed by rays d
+    [M,3] at (u, v) [M]: albedo * (transmission * (1 - Schlick)) through
+    the interpolated normal -> [M,3] (both engines' product)."""
+    sr = tri_f32[torch.clamp(tid, min=0), 78:94]
+    w0 = 1.0 - u - v
+    nx = sr[:, 0] * w0 + sr[:, 3] * u + sr[:, 6] * v
+    ny = sr[:, 1] * w0 + sr[:, 4] * u + sr[:, 7] * v
+    nz = sr[:, 2] * w0 + sr[:, 5] * u + sr[:, 8] * v
+    inv_len = torch.rsqrt(torch.clamp(nx * nx + ny * ny + nz * nz,
+                                      min=1e-20))
+    cos_t = torch.abs(d[:, 0] * nx + d[:, 1] * ny + d[:, 2] * nz) * inv_len
+    ior = sr[:, 13]
+    r0 = (1.0 - ior) / (1.0 + ior)
+    r0 = r0 * r0
+    fres = r0 + (1.0 - r0) * _pow5(1.0 - cos_t)
+    tmul = sr[:, 12] * (1.0 - fres)
+    return sr[:, 9:12] * tmul[:, None]
+
+
 def _leaf_shadow(tri_f32, d, uu, vv, ok, tid, raw, scale):
     """Fold the row's occlusions into scale [M,3]; returns (scale,
-    blocked). MAT_LEAF triangles transmit albedo * transmission *
-    (1 - Schlick) through the interpolated normal; anything else blocks."""
+    blocked). MAT_LEAF triangles transmit (leaf_factor); anything else
+    blocks."""
     if tri_f32.shape[1] < 94:   # no MAT_LEAF material in the scene
         blocked = ok.any(dim=1)
     else:
@@ -156,23 +175,9 @@ def _leaf_shadow(tri_f32, d, uu, vv, ok, tid, raw, scale):
         for j in range(LEAF_TRIS):
             okj, lm = ok[:, j], is_leaf_mat[:, j]
             pass_leaf = okj & lm
-            sr = tri_f32[torch.clamp(tid[:, j], min=0), 78:94]
-            uj, vj = uu[:, j], vv[:, j]
-            w0 = 1.0 - uj - vj
-            nx = sr[:, 0] * w0 + sr[:, 3] * uj + sr[:, 6] * vj
-            ny = sr[:, 1] * w0 + sr[:, 4] * uj + sr[:, 7] * vj
-            nz = sr[:, 2] * w0 + sr[:, 5] * uj + sr[:, 8] * vj
-            inv_len = torch.rsqrt(torch.clamp(nx * nx + ny * ny + nz * nz,
-                                              min=1e-20))
-            cos_t = torch.abs(d[:, 0] * nx + d[:, 1] * ny
-                              + d[:, 2] * nz) * inv_len
-            ior = sr[:, 13]
-            r0 = (1.0 - ior) / (1.0 + ior)
-            r0 = r0 * r0
-            fres = r0 + (1.0 - r0) * _pow5(1.0 - cos_t)
-            tmul = sr[:, 12] * (1.0 - fres)
-            factor = factor * torch.where(pass_leaf[:, None],
-                                          sr[:, 9:12] * tmul[:, None], 1.0)
+            factor = factor * torch.where(
+                pass_leaf[:, None],
+                leaf_factor(tri_f32, d, uu[:, j], vv[:, j], tid[:, j]), 1.0)
             opaque = opaque | (okj & ~lm)
             any_leaf = any_leaf | pass_leaf
         scale = scale * factor
@@ -265,7 +270,7 @@ def closest_hit8(scene, o, d, max_t=None, skip_tri=None, active=None) -> Hit:
     """BVH8 closest hit. o, d: [N,3]; max_t: scalar or [N]; skip_tri: [N]
     triangle to ignore; active: [N] bool rays to trace. Misses keep
     t = max_t and tri = -1."""
-    o, d, max_t, skip_tri = _ray_inputs(o, d, max_t, skip_tri)
+    o, d, max_t, skip_tri = ray_inputs(o, d, max_t, skip_tri)
     if o.device.type == "cpu":
         out = closest_hit8_plain(scene.bvh8_table, o, d, max_t, skip_tri,
                                  active)
@@ -279,7 +284,7 @@ def shadow_factor8(scene, o, d, max_t, skip_tri=None, active=None):
     """BVH8 any-hit shadow with MAT_LEAF transmission -> scale [N,3]:
     1 clear, 0 occluded, else the transmission product. Rays not active
     keep 1."""
-    o, d, max_t, skip_tri = _ray_inputs(o, d, max_t, skip_tri)
+    o, d, max_t, skip_tri = ray_inputs(o, d, max_t, skip_tri)
     if o.device.type == "cpu":
         return shadow_factor8_plain(scene.bvh8_table, scene.tri_f32, o, d,
                                     max_t, skip_tri, active)

@@ -9,12 +9,16 @@ reference's recursive CPU builder (main.cu:17-233): longest-axis split,
 split, force-leaf fallback, and epsilon-padded per-triangle AABBs
 (main.cu:20-47).
 
-Dropped from the copy: the per-octant threaded (hit, miss) links
-(`thread_links`, the `links` field and the `thread=` options), which only
-the JAX package's threaded binary traversal engine reads; the port
-traverses BVH8 rows only. The inherited faults (ROADMAP Queue 3: a
-reference that touches the split plane is duplicated with a zero-extent
-box; `do_spatial` is dead) are kept so the tables stay equal.
+Nodes also carry per-octant threaded (hit, miss) links (`thread_links`,
+the `links` field, build_bvh's `thread=` option): octant o of a ray's
+direction signs visits the child on the ray's side of the split axis
+first, so the threaded binary engine (traversal="threaded",
+ops/traverse.py, kernel K15) walks the tree with one int cursor and no
+stack. The BVH8 engine never reads them; `thread=False` and build_sbvh
+leave a [1,8,2] sentinel (the threaded engine turns SBVH off). The
+inherited faults (ROADMAP Queue 3: a reference that touches the split
+plane is duplicated with a zero-extent box; `do_spatial` is dead) are
+kept so the tables stay equal.
 
 A C++ builder (scene/csrc/bvh_builder.cpp) accelerates large scenes; the
 numpy implementation below is the reference oracle and fallback.
@@ -33,10 +37,11 @@ AABB_PAD = 1e-6  # main.cu:33-45
 
 @dataclass
 class BVH:
-    """Flat binary BVH (host numpy).
+    """Flat BVH with per-octant threaded links (host numpy; Scene uploads).
 
     bounds:    [M, 6] f32 — (minx, miny, minz, maxx, maxy, maxz)
     leaf:      [M, 2] i32 — (first, count); count == 0 for inner nodes
+    links:     [M, 8, 2] i32 — per-octant (hit_link, miss_link); -1 = done
     perm:      [T] i32 — triangle permutation; leaf `first/count` index the
                permuted order (reference: BVHindices indirection; we permute
                the triangle arrays instead so leaf reads are contiguous)
@@ -44,6 +49,7 @@ class BVH:
     """
     bounds: np.ndarray
     leaf: np.ndarray
+    links: np.ndarray
     perm: np.ndarray
     left: np.ndarray
     right: np.ndarray
@@ -117,21 +123,33 @@ def _sah_split_pos(idx, centroids, amins, amaxs, axis, min_b, max_b):
 
 
 def build_bvh(centroids: np.ndarray, amins: np.ndarray, amaxs: np.ndarray,
-              max_leaf_size: int = 2, use_native: bool = True) -> BVH:
+              max_leaf_size: int = 2, use_native: bool = True,
+              thread: bool = True) -> BVH:
     """Top-down SAH build (buildBVH, main.cu:133-233), iterative.
 
     Node order matches the reference's recursion (pre-order, left subtree
     fully before right), so flat node indices agree with a recursive build.
+
+    thread=False skips the per-octant threaded (hit, miss) links — a
+    Python-loop cost only the binary "threaded" traversal engine consumes
+    (the default BVH8 engine never reads them); `links` is then a [1,8,2]
+    sentinel.
     """
     n = centroids.shape[0]
     if n == 0:
         raise ValueError("empty scene")
 
+    def mk_links(left, right, axis, leaf):
+        if thread:
+            return thread_links(left, right, axis, leaf)
+        return np.full((1, 8, 2), -1, np.int32)
+
     if use_native:
         native = native_build_bvh(centroids, amins, amaxs, max_leaf_size)
         if native is not None:
             left, right, axis, leaf, bounds, perm = native
-            return BVH(bounds=bounds, leaf=leaf, perm=perm,
+            links = mk_links(left, right, axis, leaf)
+            return BVH(bounds=bounds, leaf=leaf, links=links, perm=perm,
                        left=left, right=right, axis=axis)
 
     perm = np.arange(n, dtype=np.int32)
@@ -208,7 +226,8 @@ def build_bvh(centroids: np.ndarray, amins: np.ndarray, amaxs: np.ndarray,
     left = np.asarray(left_l, np.int32)
     right = np.asarray(right_l, np.int32)
     axis = np.asarray(axis_l, np.int32)
-    return BVH(bounds=bounds, leaf=leaf, perm=perm,
+    links = mk_links(left, right, axis, leaf)
+    return BVH(bounds=bounds, leaf=leaf, links=links, perm=perm,
                left=left, right=right, axis=axis)
 
 
@@ -553,8 +572,47 @@ def build_sbvh(p0: np.ndarray, p1: np.ndarray, p2: np.ndarray,
     axis = np.asarray(axis_l, np.int32)
     perm = np.concatenate(out_refs).astype(np.int32) if out_refs \
         else np.zeros((0,), np.int32)
-    return BVH(bounds=bounds, leaf=leaf, perm=perm,
+    # the threaded engine builds with build_bvh: an SBVH tree has no links
+    return BVH(bounds=bounds, leaf=leaf,
+               links=np.full((1, 8, 2), -1, np.int32), perm=perm,
                left=left, right=right, axis=axis)
+
+
+def thread_links(left: np.ndarray, right: np.ndarray, axis: np.ndarray,
+                 leaf: np.ndarray) -> np.ndarray:
+    """Compute per-octant threaded (hit, miss) links.
+
+    Octant o encodes ray direction signs: bit k set <=> dir[k] < 0. At a node
+    split on axis a, the left child (smaller coordinates) is visited first
+    when dir[a] >= 0, i.e. when bit a of o is clear.
+
+    Returns links [M, 8, 2] i32 where links[n, o] = (hit, miss):
+      hit  — next node if the AABB test passes (first child for inner nodes;
+             for leaves, equal to miss: triangles are tested, then continue)
+      miss — next node if the AABB test fails / after finishing this subtree.
+    -1 terminates traversal.
+    """
+    m = left.shape[0]
+    links = np.full((m, 8, 2), -1, np.int32)
+    is_leaf = leaf[:, 1] > 0
+
+    for o in range(8):
+        neg = [(o >> k) & 1 for k in range(3)]
+        # iterative DFS carrying the "next after subtree" continuation
+        stack = [(0, -1)]
+        while stack:
+            node, cont = stack.pop()
+            links[node, o, 1] = cont
+            if is_leaf[node]:
+                links[node, o, 0] = cont
+                continue
+            l, r = left[node], right[node]
+            a = axis[node]
+            first, second = (l, r) if not neg[a] else (r, l)
+            links[node, o, 0] = first
+            stack.append((first, second))
+            stack.append((second, cont))
+    return links
 
 
 def bvh_stats(bvh: BVH) -> dict:

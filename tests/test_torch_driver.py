@@ -224,8 +224,9 @@ def test_port_never_imports_jax(tmp_path):
     """The port parses a config with its own parser and renders every
     integrator with both engines without importing jax or any module of
     the JAX package; so do samples per dispatch (models/batch.py), the
-    keyed light walk (models/light_mega.py), the checks (utils/checks.py)
-    and the BDPT_DRAWPATH overlay (utils/debugviz.py)."""
+    keyed light walk (models/light_mega.py), the checks (utils/checks.py),
+    the BDPT_DRAWPATH overlay (utils/debugviz.py) and one classic sample
+    on a traversal="threaded" scene (the threaded engine)."""
     code = f"""
 import dataclasses, os, sys
 import cudapathtracer_tpu_torch
@@ -259,6 +260,21 @@ r = Renderer(cfg, device="cpu")
 r.render(num_samples=2, progressive=True, verbose=False)
 assert r.checks.reports and r._overlay is not None
 assert cudapathtracer_tpu_torch.models.light_mega.calls["light_walk_mega"]
+import torch
+from cudapathtracer_tpu_torch.models import unidirectional
+from cudapathtracer_tpu_torch.scene import builtin
+from cudapathtracer_tpu_torch.scene.camera import Camera
+from cudapathtracer_tpu_torch.scene.materials import builtin_materials
+from cudapathtracer_tpu_torch.scene.scene import build_scene
+from cudapathtracer_tpu_torch.utils import rng
+sc, _ = build_scene(builtin.cornell_with_blocks(), builtin_materials(),
+                    traversal="threaded", device="cpu")
+px = torch.arange(8, dtype=torch.int32).repeat(8)
+py = torch.arange(8, dtype=torch.int32).repeat_interleave(8)
+li, rays = unidirectional.render_sample(
+    sc, Camera.pinhole((0.0, 0.0, 1.0), 8, 8, 0.0, 0.0, 0.0, 60.0),
+    rng.base_key(), 0, px, py, max_depth=4)
+assert sc.traversal == "threaded" and rays > 64 and li.shape == (64, 3)
 bad = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")
              or m == "cudapathtracer_tpu"
              or m.startswith("cudapathtracer_tpu."))

@@ -18,13 +18,14 @@ from cudapathtracer_tpu.scene import builtin as jbuiltin
 from cudapathtracer_tpu.scene.bvh import build_bvh as jbuild_bvh
 from cudapathtracer_tpu.scene.bvh import build_sbvh as jbuild_sbvh
 from cudapathtracer_tpu.scene.bvh import bvh_stats as jbvh_stats
+from cudapathtracer_tpu.scene.bvh import thread_links as jthread_links
 from cudapathtracer_tpu.scene.bvh import triangle_bounds as jtriangle_bounds
 from cudapathtracer_tpu.utils import config as jconfig
 from cudapathtracer_tpu.utils.obj import MeshData as JMeshData
 from cudapathtracer_tpu.utils.obj import load_obj as jload_obj
 from cudapathtracer_tpu_torch.scene import builtin as tbuiltin
 from cudapathtracer_tpu_torch.scene.bvh import build_bvh, build_sbvh, bvh_stats
-from cudapathtracer_tpu_torch.scene.bvh import triangle_bounds
+from cudapathtracer_tpu_torch.scene.bvh import thread_links, triangle_bounds
 from cudapathtracer_tpu_torch.utils import config as tconfig
 from cudapathtracer_tpu_torch.utils.metrics import RenderMetrics
 from cudapathtracer_tpu_torch.utils.obj import MeshData, load_obj
@@ -136,10 +137,31 @@ def test_bvh_and_stats_equal(sbvh):
         for a, b in zip(triangle_bounds(*p), (c, lo, hi)):
             _equal(a, b, "triangle_bounds")
         want = jbuild_bvh(c, lo, hi, 2, use_native=True, thread=False)
-        got = build_bvh(c, lo, hi, 2, use_native=True)
+        got = build_bvh(c, lo, hi, 2, use_native=True, thread=False)
     for f in ("bounds", "leaf", "perm", "left", "right", "axis"):
         _equal(getattr(got, f), getattr(want, f), f)
     assert bvh_stats(got) == jbvh_stats(want)
+
+
+@pytest.mark.parametrize("native", [False, True], ids=["numpy", "native"])
+def test_thread_links_equal(native):
+    """The threaded engine's per-octant (hit, miss) links: build_bvh with
+    thread=True and thread_links on the same tree, both builders."""
+    mesh = tbuiltin.cornell_with_bunny(subdivisions=2)
+    p = [mesh.positions[mesh.pos_idx[:, k]] for k in range(3)]
+    c, lo, hi = jtriangle_bounds(*p)
+    want = jbuild_bvh(c, lo, hi, 2, use_native=native, thread=True)
+    got = build_bvh(c, lo, hi, 2, use_native=native, thread=True)
+    for f in ("bounds", "leaf", "perm", "left", "right", "axis", "links"):
+        _equal(getattr(got, f), getattr(want, f), f)
+    assert got.links.shape == (got.num_nodes, 8, 2)
+    _equal(thread_links(got.left, got.right, got.axis, got.leaf),
+           jthread_links(want.left, want.right, want.axis, want.leaf),
+           "thread_links")
+    # without thread the links are the [1, 8, 2] sentinel, as in JAX
+    _equal(build_bvh(c, lo, hi, 2, use_native=native, thread=False).links,
+           jbuild_bvh(c, lo, hi, 2, use_native=native, thread=False).links,
+           "sentinel")
 
 
 def test_metrics():

@@ -30,6 +30,11 @@ bit-equal to what they replace: K5's k-sample mode to k single launches
 summed in sample order (three schedules), K6's keyed mode to the plain
 uniform_keyed and to uniform_id, K12's table mode to the folded walk
 (every buffer field, vertex 0, rays).
+K15, the threaded engine (traversal="threaded"), as K1: triangle ids
+equal, t/u/v and shadow scale within 1e-5 of its plain version; K5's
+classic and naive schedules on a threaded scene under compare_render; on
+such a scene ops/traverse launches K15's entries and none of K1's, and K5
+visits other rows than on the BVH8 engine (its threaded instantiation).
 """
 
 import dataclasses
@@ -44,7 +49,7 @@ from cudapathtracer_tpu_torch.models import (bdpt, bdpt_mega, naive, paths,
                                              vcm, vcm_mega)
 from cudapathtracer_tpu_torch.models import unidirectional as uni
 from cudapathtracer_tpu_torch.models import unidirectional_mega as mega
-from cudapathtracer_tpu_torch.ops import hashgrid, traverse8
+from cudapathtracer_tpu_torch.ops import hashgrid, traverse, traverse8
 from cudapathtracer_tpu_torch.scene import builtin
 from cudapathtracer_tpu_torch.scene.camera import Camera
 from cudapathtracer_tpu_torch.scene.materials import builtin_materials
@@ -71,6 +76,7 @@ def test_import_builds_nothing():
 
 @pytest.mark.parametrize("call", ["uniform_id", "generate_rays",
                                   "closest_hit8", "shadow_factor8",
+                                  "closest_hit_bin", "shadow_factor_bin",
                                   "render_unidirectional", "shade_eval",
                                   "packing_roundtrip", "bdpt_walk",
                                   "bdpt_splat", "bdpt_connect", "vcm_splat",
@@ -103,6 +109,10 @@ def test_wrappers_refuse_non_cuda_tensors(call):
                          None),
         "shadow_factor8": (torch.zeros((2, 96)), torch.zeros((2, 78)), f3,
                            f3, torch.zeros(n), i1, None),
+        "closest_hit_bin": (torch.zeros((2, 48)), 2, f3, f3, torch.zeros(n),
+                            i1, None),
+        "shadow_factor_bin": (torch.zeros((2, 48)), 2, torch.zeros((2, 78)),
+                              f3, f3, torch.zeros(n), i1, None),
         "render_unidirectional": (scene, i1, i1, [0.0] * 19, [0] * 28),
         "shade_eval": (scene, f3, f3, f1, i1, f1, f1, i1, f1, [0] * 18),
         "packing_roundtrip": (f3, f3, b1, b1, i1, i1),
@@ -706,3 +716,110 @@ def test_k12_table_mode_bit_equal_to_folded(cuda, eta):
     assert int(lrays) == int(rays.sum())
     for name, a, b in zip(paths.PathBuffers._fields, lb, fw["bufs"]):
         assert torch.equal(a, b), name
+
+
+def _rays(n, dev, seed):
+    gen = np.random.default_rng(seed)
+    f = lambda a: torch.as_tensor(a, dtype=torch.float32, device=dev)
+    o = f(gen.uniform(-0.45, 0.45, (n, 3)))
+    d = f(gen.normal(size=(n, 3)))
+    mt = f(gen.uniform(0.05, 2.0, n))
+    active = torch.as_tensor(gen.uniform(size=n) < 0.9, device=dev)
+    return o, d / d.norm(dim=1, keepdim=True), mt, active
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bunny_mat", [2, 13])
+def test_k15_matches_plain(cuda, bunny_mat):
+    sc, _ = build_scene(builtin.cornell_with_bunny(subdivisions=3,
+                                                   bunny_mat=bunny_mat),
+                        builtin_materials(), traversal="threaded",
+                        device=cuda)
+    n = 20000
+    o, d, mt, active = _rays(n, cuda, 1)
+    skip = torch.full((n,), -1, dtype=torch.int32, device=cuda)
+    kernels.reset_launches()
+    k = traverse.closest_hit(sc, o, d, mt, skip, active)
+    p = traverse.closest_hit_bin_plain(sc.node_packed, sc.max_leaf_size, o,
+                                       d, mt, skip, active)
+    assert torch.equal(k.tri, p[1])
+    m = k.tri >= 0
+    for a, b in zip(k, p):
+        if a.dtype == torch.float32:
+            assert (a[m] - b[m]).abs().max().item() <= 1e-5
+    ks = traverse.shadow_factor(sc, o, d, mt, skip, active)
+    ps = traverse.shadow_factor_bin_plain(sc.node_packed, sc.max_leaf_size,
+                                          sc.tri_f32, o, d, mt, skip, active)
+    assert (ks - ps).abs().max().item() <= 1e-5
+    assert kernels.launches["closest_hit_bin"] == 1
+    assert kernels.launches["shadow_factor_bin"] == 1
+    assert kernels.launches["closest_hit8"] == 0
+    assert kernels.launches["shadow_factor8"] == 0
+    # the kernel visits the rows the plain walk counts
+    krows = kernels.closest_hit_bin(sc.node_packed, sc.max_leaf_size, o, d,
+                                    mt, skip, active, with_rows=True)[4]
+    prows = traverse.closest_hit_bin_plain(
+        sc.node_packed, sc.max_leaf_size, o, d, mt, skip, active,
+        with_counts=True)[4]
+    assert (krows == prows).float().mean().item() >= 0.9999
+    ksrows = kernels.shadow_factor_bin(sc.node_packed, sc.max_leaf_size,
+                                       sc.tri_f32, o, d, mt, skip, active,
+                                       with_rows=True)[1]
+    psrows = traverse.shadow_factor_bin_plain(
+        sc.node_packed, sc.max_leaf_size, sc.tri_f32, o, d, mt, skip, active,
+        with_counts=True)[1]
+    assert (ksrows == psrows).float().mean().item() >= 0.9999
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("schedule", ["classic", "naive"])
+@pytest.mark.parametrize("name", ["blocks", "leaf"])
+def test_k5_threaded_matches_plain(cuda, name, schedule):
+    mesh = {"blocks": builtin.cornell_with_blocks,
+            "leaf": lambda: builtin.cornell_with_bunny(3, bunny_mat=13)}[name]
+    sc, _ = build_scene(mesh(), builtin_materials(), traversal="threaded",
+                        device=cuda)
+    cam = Camera.pinhole((0.0, 0.0, 1.0), 96, 64, 0.0, 0.0, 0.0, 60.0)
+    px, py = _grid(96, 64, cuda)
+    k = uni.render_kernel(sc, cam, rng.base_key(), 1, px, py, max_depth=6,
+                          use_mis=schedule == "classic",
+                          sample_environment=False, schedule=schedule)
+    if schedule == "classic":
+        p = uni.render_plain(sc, cam, rng.base_key(), 1, px, py, max_depth=6,
+                             schedule=schedule)
+    else:
+        p = naive.render_plain(sc, cam, rng.base_key(), 1, px, py,
+                               max_depth=6)
+    chip_smoke.compare_render(k, p, f"{name} {schedule} threaded")
+
+
+@pytest.mark.cuda
+def test_threaded_scene_runs_k15(cuda):
+    """On a threaded scene ops/traverse launches K15, never K1's entries;
+    K5's classic schedule visits other rows than on the BVH8 engine of the
+    same scene (its threaded instantiation), its mega schedule the same
+    rows (BVH8 on every scene)."""
+    sc, _ = build_scene(builtin.cornell_with_blocks(), builtin_materials(),
+                        traversal="threaded", device=cuda)
+    s8 = dataclasses.replace(sc, traversal="bvh8")
+    o, d, mt, active = _rays(4096, cuda, 4)
+    kernels.reset_launches()
+    traverse.closest_hit(sc, o, d, active=active)
+    traverse.shadow_factor(sc, o, d, mt, active=active)
+    assert kernels.launches["closest_hit_bin"] == 1
+    assert kernels.launches["shadow_factor_bin"] == 1
+    assert kernels.launches["closest_hit8"] == 0
+    assert kernels.launches["shadow_factor8"] == 0
+    cam = Camera.pinhole((0.0, 0.0, 1.0), 64, 64, 0.0, 0.0, 0.0, 60.0)
+    px, py = _grid(64, 64, cuda)
+    rows = {}
+    for scene in (sc, s8):
+        for sched in ("classic", "mega"):
+            rows[scene.traversal, sched] = kernels.render_unidirectional(
+                scene, px, py, cam.kernel_params(),
+                uni.kernel_keys(rng.base_key(), 0), max_depth=6,
+                use_mis=True, sample_environment=False, schedule=sched,
+                air_priority=scene.air_priority, with_rows=True)[2]
+    assert not torch.equal(rows["threaded", "classic"],
+                           rows["bvh8", "classic"])
+    assert torch.equal(rows["threaded", "mega"], rows["bvh8", "mega"])

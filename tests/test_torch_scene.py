@@ -2,7 +2,9 @@
 
 Tolerance: none. The port packs tri_f32, light_f32 and bvh8_table itself
 (and the root box's min corner and half diagonal, which place and size
-the VCM photon grid),
+the VCM photon grid; on a traversal="threaded" scene also node_packed, the
+threaded engine's node rows, its largest leaf and the BVH8 table collapsed
+from the non-SBVH tree),
 from its own builtin meshes with its own copies of the SAH/SBVH builders,
 the BVH8 collapse and their native C++ library, so the blocks are compared
 as uint32 views and must be bit-equal: both packages must traverse the
@@ -59,6 +61,28 @@ def test_blocks_bit_equal(name):
     assert np.float32(hs.scene_radius) == np.float32(js.scene_radius)
 
 
+@pytest.mark.parametrize("name", sorted(SCENES))
+def test_threaded_blocks_bit_equal(name):
+    jmesh, tmesh = SCENES[name]
+    js, _ = jbuild_scene(jmesh(), jbuiltin_materials(), traversal="threaded")
+    hs, bvh = pack_scene(tmesh(), tmaterials.builtin_materials(),
+                         traversal="threaded")
+    for blk in ("tri_f32", "light_f32", "bvh8_table", "node_packed"):
+        want = np.asarray(getattr(js, blk))
+        got = getattr(hs, blk)
+        assert got.shape == want.shape, blk
+        np.testing.assert_array_equal(got.view(np.uint32),
+                                      want.view(np.uint32), err_msg=blk)
+    assert hs.traversal == js.traversal == "threaded"
+    assert hs.max_leaf_size == js.max_leaf_size
+    assert hs.node_packed.shape == (bvh.num_nodes, 48)   # K = 2
+    assert bvh.links.shape == (bvh.num_nodes, 8, 2)
+    # the default scene keeps the JAX sentinel and no links
+    hd, bd = pack_scene(tmesh(), tmaterials.builtin_materials())
+    assert hd.traversal == "bvh8" and hd.node_packed.shape == (1, 8)
+    assert bd.links.shape == (1, 8, 2)
+
+
 def test_materials_table_equal():
     want = jbuild_table(jbuiltin_materials(), device=False)
     got = tmaterials.build_table(tmaterials.builtin_materials())
@@ -80,3 +104,12 @@ def test_upload_and_views():
     assert scene.tri_shade_row.shape == (scene.num_triangles, 48)
     assert scene.num_triangles == bvh.perm.shape[0]
     assert scene.materials.count == 24
+    assert scene.traversal == "bvh8" and scene.max_leaf_size == 2
+    tsc, tbvh = build_scene(tbuiltin.cornell_with_blocks(),
+                            tmaterials.builtin_materials(),
+                            traversal="threaded", device="cpu")
+    assert tsc.traversal == "threaded"
+    assert tsc.node_packed.shape == (tbvh.num_nodes, 48)
+    with pytest.raises(ValueError, match="traversal"):
+        pack_scene(tbuiltin.cornell_box(), tmaterials.builtin_materials(),
+                   traversal="stack")

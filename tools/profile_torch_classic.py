@@ -14,7 +14,10 @@ vcm_splat (not SPPM), photon_pack, torch.sort, photon_table, vcm_eye);
 bdpt-mega, vcm-mega or sppm-mega, the same integrators with the default
 mega engine (per chunk K12, the splat, K8, the mega eye pass K14).
 --samples-per-dispatch k renders k samples per dispatch (models/batch.py;
-0 = the driver's auto rule), as the driver does.
+0 = the driver's auto rule), as the driver does. --traversal threaded
+rebuilds the Renderer's scene with the threaded binary engine (the plain
+SAH tree with per-octant links, kernel K15), which the classic kernels
+then trace with; K5's mega schedule and K14 trace BVH8 on every scene.
 
 One timed warm-up dispatch (it includes the kernel build), then --spp
 timed samples in dispatches of k (host clock around the window, which ends
@@ -29,6 +32,7 @@ steady Mrays/s. Writes the profiler table and a Chrome trace under --out
                   sppm-mega]
         [--config configs/cornell.rendertron] [--mesh builtin:NAME]
         [--width 1920 --height 1080 --spp 4] [--samples-per-dispatch K]
+        [--traversal bvh8|threaded]
 """
 
 from __future__ import annotations
@@ -55,6 +59,7 @@ LAYERS = (("K5 megakernel, k-sample mode", "uni_mega_batch_kernel"),
           ("K13 VCM eye pass (with K9)", "vcm_eye_kernel"),
           ("K14 mega eye pass", "mega_eye_kernel"),
           ("K1 traverse8", "traverse8_kernel"),
+          ("K15 threaded traversal", "traverse_bin_kernel"),
           ("K6 rng (keyed mode)", "uniform_keyed_kernel"),
           ("K6 rng", "uniform_id_kernel"),
           ("K7 camera", "generate_rays_kernel"))
@@ -85,6 +90,8 @@ def main() -> int:
                     help="profiled samples (default: one dispatch)")
     ap.add_argument("--samples-per-dispatch", type=int, default=1,
                     help="samples per dispatch (0: the driver's auto rule)")
+    ap.add_argument("--traversal", choices=("bvh8", "threaded"),
+                    default="bvh8", help="the scene's traversal engine")
     ap.add_argument("--out", default=os.path.join(ROOT, "chiprun_out",
                                                   "profile"))
     args = ap.parse_args()
@@ -97,6 +104,10 @@ def main() -> int:
 
     from cudapathtracer_tpu_torch.driver import (Renderer,
                                                  resolve_samples_per_dispatch)
+    from cudapathtracer_tpu_torch.scene.materials import (
+        apply_material_configs, builtin_materials)
+    from cudapathtracer_tpu_torch.scene.scene import build_scene
+    from cudapathtracer_tpu_torch.scene.textures import reference_atlas
     from cudapathtracer_tpu_torch.utils.config import MeshConfig, load_config
 
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -115,7 +126,19 @@ def main() -> int:
     if mesh:
         over.update(meshes=[MeshConfig(mesh, 1.0, (0.0, 0.0, 0.0), 2)])
     cfg = dataclasses.replace(base, **over)
-    r = Renderer(cfg, device="cuda")
+    # the driver's materials and atlas, kept to rebuild the scene
+    textures, wins = reference_atlas()
+    materials = apply_material_configs(builtin_materials(wins),
+                                       cfg.materials)
+    r = Renderer(cfg, materials=materials, textures=textures, device="cuda")
+    if args.traversal == "threaded":
+        t0 = time.perf_counter()
+        r.scene, r.bvh = build_scene(
+            r.mesh, materials, textures,
+            max_leaf_size=max(r.cfg.bvh_leaf_size, 1), traversal="threaded",
+            device=r.device)
+        print(f"threaded scene: {r.scene.node_packed.shape[0]} binary nodes, "
+              f"built in {time.perf_counter() - t0:.1f} s")
     k = resolve_samples_per_dispatch(r.cfg, r.device)
 
     def window(s0: int, n: int):
@@ -157,7 +180,8 @@ def main() -> int:
     os.makedirs(args.out, exist_ok=True)
     avg = prof.key_averages()
     table = avg.table(sort_by="self_cuda_time_total", row_limit=40)
-    tag = f"{args.engine}_{r.cfg.width}x{r.cfg.height}_spd{k}"
+    tag = (f"{args.engine}_{args.traversal}_{r.cfg.width}x{r.cfg.height}"
+           f"_spd{k}")
     with open(os.path.join(args.out, f"kernels_{tag}.txt"), "w") as f:
         f.write(table)
     trace = os.path.join(args.out, f"trace_{tag}.json")
@@ -184,6 +208,7 @@ def main() -> int:
     print(table[:6000])
     summary = dict(
         card=card, kind=torch.cuda.get_device_name(0), engine=args.engine,
+        traversal=args.traversal,
         config=os.path.basename(args.config), width=r.cfg.width,
         height=r.cfg.height, samples_per_dispatch=k,
         depth=((r.cfg.bdpt_eye_depth, r.cfg.bdpt_light_depth)
