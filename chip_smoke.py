@@ -65,14 +65,17 @@ Phases (one line each; any failure exits non-zero before the result line):
      (1920x1080 bunny, eye 8, light 6: 12,441,600 candidate photons, a
      table above 2^24 buckets): K12's light walk with eta_vcm, then
      vcm_splat (K11's VCM form) and vcm_eye (K13's VCM form with the K9
-     merge) against their plain versions on the same buffers and grid
-     (rays within 0.1%, image mean within 1e-3, >= 99.9% / 99.5% of pixels
-     within rtol 1e-3, dropped photons equal), K8 (photon_pack, a stable
-     torch.sort, photon_table) bit-equal to build_grid; the same for SPPM,
-     and for VCM on the 512x512 mirror + glass spheres at the caustics
-     config's depths (samples 0 and 1); each kernel timed at the 1080p
-     shapes, the 1080p splat twice to print the spread from atomicAdd's
-     order;
+     merge, three stage kernels) against their plain versions on the same
+     buffers and grid (rays within 0.1%, image mean within 1e-3, >= 99.9% /
+     99.5% of pixels within rtol 1e-3, dropped photons equal), then each
+     stage against its plain twin on the same inputs (compare_eye_stages:
+     the walk's records under compare_records, the connections over the
+     live pairs and the gather under compare_image at 99.5%, rays and
+     dropped photons equal), K8 (photon_pack, a stable torch.sort,
+     photon_table) bit-equal to build_grid; the same for SPPM, and for VCM
+     on the 512x512 mirror + glass spheres at the caustics config's depths
+     (samples 0 and 1); each kernel and stage timed at the 1080p shapes,
+     the 1080p splat twice to print the spread from atomicAdd's order;
  17. the VCM and SPPM goldens through the kernels (rmse < 1e-3);
  18. the photon main paths through Renderer: Integrator VCM and SPPM with
      Engine classic on the same config (1080p bunny, 4 spp), then
@@ -81,13 +84,16 @@ Phases (one line each; any failure exits non-zero before the result line):
      vcm_splat, photon_pack, photon_table, vcm_eye; SPPM without the
      splat; and one torch.sort), merge-cap dropped photons; finite,
      non-negative, > 90% non-black;
- 19. one 1080p VCM sample's launches timed with CUDA events;
+ 19. one 1080p VCM sample's launches timed with CUDA events (the eye
+     pass stage by stage);
  20. K10's RGB9E5 mode (packing.cu) bit-equal to the plain codec on
      2,073,600 colours, edge values included;
- 21. K14 (mega_eye.cu) against its plain version (compare_mega) on both
-     chunks of the 1080p sample in the VCM, SPPM and BDPT flavours, on the
-     kernels' light walks and grids (rays and dropped photons equal, >=
-     99.9% of pixels within rtol 1e-3, the bit-equal share printed); K9's
+ 21. K14 (its three stages, eye_walk.cu, eye_connect.cu, eye_gather.cu)
+     against its plain version (compare_mega) on both chunks of the 1080p
+     sample in the VCM, SPPM and BDPT flavours, on the kernels' light
+     walks and grids (rays and dropped photons equal, >= 99.9% of pixels
+     within rtol 1e-3, the bit-equal share printed), each stage against
+     its plain twin as in phase 16; K9's
      materialised forms (neighbor_slots.cu: neighbor_slots,
      neighbor_slots_compact, gather_neighbors) bit-equal to their plain
      versions on chunk 0's grid and first-bounce hit points, one-brick and
@@ -104,7 +110,7 @@ Phases (one line each; any failure exits non-zero before the result line):
      a sample; > 5% non-black, its image being sparse): rays, render-phase
      Mrays/s, peak memory, launches per sample;
  24. one 1080p VCM-mega and one BDPT-mega sample's launches timed with
-     CUDA events;
+     CUDA events (K14 stage by stage);
  25. K5's k-sample mode (samples per dispatch, models/batch.py) bit-equal
      to k single launches summed in sample order: the bunny scene at
      512x512 with k = 8 for the mega, classic and naive schedules and at
@@ -119,8 +125,9 @@ Phases (one line each; any failure exits non-zero before the result line):
      walk drawing from the same tables; compare_walk, rays within 0.1%);
  27. the batched main path: configs/vcm_caustics.rendertron as shipped
      (512x512, VCM-mega, 256 samples, 8 per dispatch by the auto rule)
-     through cli.main with the checks on (Mrays/s, K14 launches, the
-     checks summary); the same at 16 samples, 1 against 8 per dispatch
+     through cli.main with the checks on and a 1 s save interval, so
+     that the checks run at the progressive saves (Mrays/s, K14
+     launches, the checks summary); the same at 16 samples, 1 against 8 per dispatch
      (rays and dropped photons equal, the int64 dropped total against its
      int32 wrap; pixels within 1e-5 + 1e-5 |x|); VCM-mega at 1080p, 2
      samples, 1 against 2 per dispatch (the same equalities, and a batched
@@ -159,7 +166,13 @@ Phases (one line each; any failure exits non-zero before the result line):
      buffers the VCM splat at 99% of the pixels and the eye pass at 99.5%
      on the same grid);
  33. the unidirectional golden through K5's threaded instantiation (16x16,
-     8 spp, threaded cornell_with_blocks) at rmse < 1e-3.
+     8 spp, threaded cornell_with_blocks) at rmse < 1e-3;
+ 34. the attribution of the eye passes (tools/eye_attribution.py): one
+     1080p sample's classic VCM and SPPM passes and K14's VCM and BDPT
+     flavours, and (34b, after phase 33) the classic VCM pass on the
+     threaded scene, timed with the connections, the merge and NEE off in
+     turn and with the connections and merge off together (timed only:
+     each toggle changes the estimator).
 Then one JSON line with each kernel's launches on its main path (the
 BDPT kernels on the BDPT path, the photon kernels on the VCM path, mega_eye
 on the VCM-mega path, naive on the naive path, the others on the mega
@@ -173,7 +186,9 @@ uniform_keyed are the test entries of device code that runs inside K5,
 K14 and K12, so 0), error and times against its plain version, its
 bound on this card and the library call's time (null: no PyTorch call
 computes these functions), the card's name and power limit, and as the
-last line {"ok": true, "device": {...}}.
+last line {"ok": true, "device": {...}}. The eye passes have a row each
+(vcm_eye, mega_eye: the pass, counted once a pass and timed as its
+three launches) and a row per stage (<pass>_walk, _connect, _gather).
 """
 
 from __future__ import annotations
@@ -219,12 +234,23 @@ KERNELS = (  # name, source, the JAX function it replaces
      "cudapathtracer_tpu/ops/hashgrid.py:151"),
     ("photon_table", CSRC + "photon_grid.cu",
      "cudapathtracer_tpu/ops/hashgrid.py:151"),
-    ("vcm_eye", CSRC + "vcm_eye.cu",
+    ("vcm_eye", CSRC + "eye.cuh", "cudapathtracer_tpu/models/vcm.py:150"),
+    ("vcm_eye_walk", CSRC + "eye_walk.cu",
      "cudapathtracer_tpu/models/vcm.py:150"),
+    ("vcm_eye_connect", CSRC + "eye_connect.cu",
+     "cudapathtracer_tpu/models/vcm.py:150"),
+    ("vcm_eye_gather", CSRC + "eye_gather.cu",
+     "cudapathtracer_tpu/ops/hashgrid.py:240"),
     ("rgb9e5", CSRC + "packing.cu", "cudapathtracer_tpu/utils/packing.py:53"),
     ("neighbor_slots", CSRC + "neighbor_slots.cu",
      "cudapathtracer_tpu/ops/hashgrid.py:412"),
-    ("mega_eye", CSRC + "mega_eye.cu",
+    ("mega_eye", CSRC + "eye.cuh",
+     "cudapathtracer_tpu/models/vcm_mega.py:322"),
+    ("mega_eye_walk", CSRC + "eye_walk.cu",
+     "cudapathtracer_tpu/models/vcm_mega.py:322"),
+    ("mega_eye_connect", CSRC + "eye_connect.cu",
+     "cudapathtracer_tpu/models/vcm_mega.py:148"),
+    ("mega_eye_gather", CSRC + "eye_gather.cu",
      "cudapathtracer_tpu/models/vcm_mega.py:322"),
     ("naive", CSRC + "uni_mega.cu", "cudapathtracer_tpu/models/naive.py:41"),
     ("uni_mega_batch", CSRC + "uni_mega.cu",
@@ -238,14 +264,20 @@ KERNELS = (  # name, source, the JAX function it replaces
      "cudapathtracer_tpu/ops/traverse.py:203"),
 )
 BDPT_KERNELS = ("bdpt_walk", "bdpt_splat", "bdpt_connect")
-PHOTON_KERNELS = ("vcm_splat", "photon_pack", "photon_table", "vcm_eye")
+PHOTON_KERNELS = ("vcm_splat", "photon_pack", "photon_table", "vcm_eye",
+                  "vcm_eye_walk", "vcm_eye_connect", "vcm_eye_gather")
 # the mega engines' launches per chunk of a sample (K12, the splat, K8's
-# two launches, K14), by integrator
+# two launches, K14 and its stages; SPPM has no connection stage), by
+# integrator
 MEGA_KERNELS = {
     "VCM": ("bdpt_walk", "vcm_splat", "photon_pack", "photon_table",
-            "mega_eye"),
-    "SPPM": ("bdpt_walk", "photon_pack", "photon_table", "mega_eye"),
-    "BIDIRECTIONAL": ("bdpt_walk", "bdpt_splat", "mega_eye")}
+            "mega_eye", "mega_eye_walk", "mega_eye_connect",
+            "mega_eye_gather"),
+    "SPPM": ("bdpt_walk", "photon_pack", "photon_table", "mega_eye",
+             "mega_eye_walk", "mega_eye_gather"),
+    "BIDIRECTIONAL": ("bdpt_walk", "bdpt_splat", "mega_eye", "mega_eye_walk",
+                      "mega_eye_connect", "mega_eye_gather")}
+EYE_STAGES = ("walk", "connect", "gather")
 # The card's peaks (H100 SXM data sheet) for the
 # bound: bytes over memory bandwidth, scalar operations (integer or float,
 # one per instruction: the kernels are built with -fmad=false) over the
@@ -282,6 +314,9 @@ OPS_PER_RGB9E5 = 120
 # (~200), each slot's index and distance test (~20)
 OPS_PER_QUERY = 200
 OPS_PER_SLOT = 20
+# one eye record (kernels/csrc/eye.cuh): pos, n, to_prev, thr, albedo 60,
+# trans, mat_id, d_vcm, d_vc, d_vm, flags 24, the s=0 and NEE terms 24
+RECORD_BYTES = 108
 VERTEX_BYTES = 51   # one packed vertex: pt 12, two oct 8, uv 4, beta 6,
 #                     pdf_fwd/d_vcm/d_vc/d_vm 16, flags 4, valid 1
 K_ULP = 32 * 2.0 ** -24   # tests/test_torch_bsdf.py's K u
@@ -769,13 +804,140 @@ def compare_grid(k, p, what: str) -> None:
         f"{t > 2 ** 24}): rows and (start, end) bit-equal")
 
 
+def compare_records(k, p, what: str, tag: str) -> float:
+    """The eye walk stage's records (models.vcm.EyeRecords [D, N]) against
+    its plain twin's on the same pixels and keys. A path diverged where
+    its flag words differ at some depth, or its points by > 1e-3 at a hit
+    both made (the twin's traversal took another triangle, phase 5's edge
+    ties): at most 0.1% of paths may. On the others, over the hit records:
+    the material ids equal, the points, normals and directions within
+    1e-4, thr, albedo and transmission within rtol 1e-4, d_vcm / d_vc /
+    d_vm within rtol 1e-3 (atol 1e-6), the s=0 and NEE terms (and the sky
+    term at escapes) within rtol 1e-3 (atol 1e-5), each on >= 99.9% of the
+    records; the bit-equal share of the terms printed. Returns the worst
+    term error."""
+    import torch
+    from cudapathtracer_tpu_torch.models import vcm
+    kf, pf = k.flags, p.flags
+    hit = (pf != 0) & ((pf & vcm.REC_ESCAPED) == 0)
+    div = ((kf != pf) | (((k.pos - p.pos).abs().amax(dim=-1) > 1e-3)
+                         & hit)).any(0)
+    n = kf.shape[1]
+    ndiv = int(div.sum())
+    check(ndiv <= 1e-3 * n, f"{tag} {what}: {ndiv} of {n} paths diverged")
+    m = hit & ~div[None]
+    esc = ((pf & vcm.REC_ESCAPED) != 0) & ~div[None]
+    nrec = int(m.sum())
+    shares = {"mat_id": (k.mat_id[m] == p.mat_id[m]).float().mean()}
+    close = lambda a, b, **tol: torch.isclose(a, b, **tol).reshape(
+        a.shape[0], -1).all(dim=1).float().mean()
+    for f in ("pos", "n", "to_prev"):
+        shares[f] = close(getattr(k, f)[m], getattr(p, f)[m], rtol=0.0,
+                          atol=1e-4)
+    for f in ("thr", "albedo", "trans"):
+        shares[f] = close(getattr(k, f)[m], getattr(p, f)[m], rtol=1e-4,
+                          atol=1e-7)
+    for f in ("d_vcm", "d_vc", "d_vm"):
+        shares[f] = close(getattr(k, f)[m], getattr(p, f)[m], rtol=1e-3,
+                          atol=1e-6)
+    terms = {"implicit": (m | esc), "nee": m}
+    worst = 0.0
+    parts = []
+    for f, mm in terms.items():
+        a, b = getattr(k, f)[mm], getattr(p, f)[mm]
+        shares[f] = close(a, b, rtol=1e-3, atol=1e-5)
+        if a.numel():
+            worst = max(worst, (a - b).abs().max().item())
+            parts.append(f"{f} bit-equal "
+                         f"{(a.view(torch.int32) == b.view(torch.int32)).all(dim=1).float().mean().item():.6f}")
+    for f, sh in shares.items():
+        sh = sh.item() if nrec else 1.0
+        check(sh >= 0.999, f"{tag} {what}: {f} within its bound on only "
+              f"{sh:.5f} of the records")
+        parts.append(f"{f} {sh:.6f}")
+    say(tag, f"{what} walk records: {n} paths, {ndiv} diverged; {nrec} hit "
+        f"records and {int(esc.sum())} escapes compared, worst term error "
+        f"{worst:.3g}; share within bounds: " + ", ".join(parts))
+    return worst
+
+
+def compare_eye_stages(ep, walk_plain, connect_plain, gather_plain,
+                       out_rows, what: str, tag: str) -> dict:
+    """The three stage kernels of a set-up eye pass (kernels.vcm_eye_pass
+    or mega_eye_pass, rays zero) against their plain twins on the same
+    inputs: the walk's records from the same pixels and keys
+    (compare_records; rays equal); the connections on the kernel walk's
+    records, over the pairs whose eye record ran its strategies
+    (compare_image, 99.5%; rays equal); the gather on the kernel's records
+    and connections (compare_image, 99.5%; dropped photons equal).
+    walk_plain() -> (records, rays); connect_plain(records) -> (conn,
+    rays); gather_plain(records, conn) -> (radiance, dropped); out_rows:
+    the rows of ep.out the pass writes. Returns per stage (max abs error,
+    plain CUDA-event ms), the stages' rays and rows (ep.rows, if set) and
+    the live record and pair counts."""
+    import torch
+    from cudapathtracer_tpu_torch import kernels
+
+    def timed(fn):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        res = fn()
+        ev[1].record()
+        torch.cuda.synchronize()
+        return res, ev[0].elapsed_time(ev[1])
+
+    def counts():
+        torch.cuda.synchronize()
+        return (int(ep.rays.sum()),
+                int(ep.rows.sum()) if ep.rows is not None else 0)
+    res = {}
+    r0, w0 = counts()
+    kernels.eye_walk(ep)
+    r1, w1 = counts()
+    (prec, prays), pms = timed(walk_plain)
+    check(r1 - r0 == prays, f"{tag} {what}: walk rays kernel {r1 - r0} vs "
+          f"plain {prays}")
+    res["walk"] = (compare_records(ep.rec, prec, what, tag), pms)
+    del prec
+    flags = ep.rec.flags
+    live = (flags & 3) == 3
+    res.update(rays={"walk": r1 - r0}, rows={"walk": w1 - w0},
+               records=int((flags != 0).sum()), live=int(live.sum()),
+               pairs=0)
+    if ep.conn is not None:
+        kernels.eye_connect(ep)
+        r2, w2 = counts()
+        (pconn, prays), pms = timed(lambda: connect_plain(ep.rec))
+        pairs = live[:, None, :].expand(-1, ep.conn.shape[1], -1)
+        res["connect"] = (compare_image(
+            (ep.conn[pairs], r2 - r1), (pconn[pairs], prays),
+            f"{what} connections ({int(pairs.sum())} pairs)", tag, 0.995),
+            pms)
+        check(r2 - r1 == prays, f"{tag} {what}: connection rays kernel "
+              f"{r2 - r1} vs plain {prays}")
+        res["rays"]["connect"], res["rows"]["connect"] = r2 - r1, w2 - w1
+        res["pairs"] = int(pairs.sum())
+        del pconn
+    kernels.eye_gather(ep)
+    (pli, pdrop), pms = timed(lambda: gather_plain(ep.rec, ep.conn))
+    res["gather"] = (compare_image((ep.out[out_rows], 0), (pli, 0),
+                                   f"{what} gather", tag, 0.995), pms)
+    kd = int(ep.dropped.sum())
+    check(kd == pdrop, f"{tag} {what}: gather dropped kernel {kd} vs plain "
+          f"{pdrop}")
+    return res
+
+
 def compare_vcm(scene, cam, px, py, cfg, sample_idx: int, what: str) -> dict:
     """One VCM/SPPM sample's kernels against their plain versions on the
     same inputs: K12's light walk with eta_vcm (the kernel's buffers feed
     both sides), then vcm_splat against vcm_light_splat (compare_image,
-    99.9%), K8 against build_grid (compare_grid), and vcm_eye against eye_pass_plain on the same buffers and
-    grid (compare_image, 99.5%; dropped photons equal). Returns the errors,
-    the inputs and the plain versions' CUDA-event milliseconds."""
+    99.9%), K8 against build_grid (compare_grid), and vcm_eye against
+    eye_pass_plain on the same buffers and grid (compare_image, 99.5%;
+    dropped photons equal), then its three stage kernels against their
+    plain twins (compare_eye_stages). Returns the errors, the inputs, the
+    plain versions' CUDA-event milliseconds, the stages' results and the
+    set-up pass (eps)."""
     import torch
     from cudapathtracer_tpu_torch import kernels
     from cudapathtracer_tpu_torch.models import paths, vcm
@@ -838,8 +1000,45 @@ def compare_vcm(scene, cam, px, py, cfg, sample_idx: int, what: str) -> dict:
           f"{dropp}")
     say("K9", f"{what}: merge cap dropped {dk} candidate photons (plain "
         f"{dropp})")
-    out.update(grid=kgrid, photons=int(valid.sum()), dropped=dk)
+    # the three stages, each against its plain twin on the same inputs
+    ep = kernels.vcm_eye_pass(
+        scene, cam, paths.walk_keys(key_e, "eye"), lb, grid, None, z(), cfg,
+        px=px, py=py, merge_radius=mr, eta_vcm=eta, merge_norm=norm,
+        with_rows=True, **hashgrid.merge_switches(cfg.max_per_cell))
+    out["stages"] = compare_eye_stages(
+        ep, lambda: vcm.eye_walk_plain(scene, cam, key_e, cfg, px, py, eta),
+        lambda rec: vcm.eye_connect_plain(scene, rec, lb, cfg, eta),
+        lambda rec, conn: vcm.eye_gather_plain(scene, rec, conn, grid, cfg,
+                                               mr, eta, norm),
+        slice(None), what, "K13v")
+    out.update(grid=kgrid, photons=int(valid.sum()), dropped=dk, eps=[ep])
     return out
+
+
+def stage_errs(stats: dict, name: str, st: dict) -> None:
+    """Fold a stage comparison's errors into the kernel line's rows."""
+    for stage in EYE_STAGES:
+        if stage in st:
+            row = stats[f"{name}_{stage}"]
+            row["max_abs_err"] = max(row.get("max_abs_err", 0.0),
+                                     st[stage][0])
+
+
+def add_stages(acc: dict, res: dict) -> dict:
+    """Sum compare_eye_stages' results over chunks or runs: the worst
+    error and the summed plain ms per stage, the counts summed."""
+    for k in ("walk", "connect", "gather"):
+        if k in res:
+            e, ms = res[k]
+            pe, pms = acc.get(k, (0.0, 0.0))
+            acc[k] = (max(pe, e), pms + ms)
+    for k in ("records", "live", "pairs"):
+        acc[k] = acc.get(k, 0) + res[k]
+    for k in ("rays", "rows"):
+        d = acc.setdefault(k, {})
+        for st, v in res[k].items():
+            d[st] = d.get(st, 0) + v
+    return acc
 
 
 def rgb9e5_inputs(n: int, seed: int = 17):
@@ -1019,7 +1218,10 @@ def compare_mega(scene, cam, px, py, cfg, flavor: str, sample_idx: int,
     bdpt_mega.as_machine_cfg). Returns the error, the chunks' inputs and
     the plain version's CUDA-event milliseconds summed over the chunks."""
     import torch
-    from cudapathtracer_tpu_torch.models import vcm_mega
+    from cudapathtracer_tpu_torch import kernels
+    from cudapathtracer_tpu_torch.models import vcm, vcm_mega
+    from cudapathtracer_tpu_torch.ops import hashgrid
+    from cudapathtracer_tpu_torch.utils import rng
     p_total, dev = px.shape[0], px.device
     chunks = vcm_mega.mega_chunks(p_total, chunk_pixels, width)
     inputs = mega_inputs(scene, px, py, cfg, flavor, sample_idx, chunks)
@@ -1047,8 +1249,34 @@ def compare_mega(scene, cam, px, py, cfg, flavor: str, sample_idx: int,
     check(rk == rp, f"K14 {what}: rays kernel {rk} vs plain {rp}")
     check(dk == dp, f"K14 {what}: dropped kernel {dk} vs plain {dp}")
     err = compare_image((outk, rk), (outp, rp), what, "K14", 0.999)
+    # the three stages of each chunk, each against its plain twin on the
+    # same inputs
+    _, key_e = vcm.sample_keys(rng.base_key(), sample_idx)
+    outs = torch.zeros((p_total, 3), device=dev)
+    sw = (hashgrid.merge_switches(cfg.max_per_cell) if flavor == "vcm"
+          else {})
+    stages, eps = {}, []
+    for ci, ch in enumerate(inputs):
+        cnt, g0, lb = ch["cnt"], ch["gbase"], ch["lbufs"]
+        ep = kernels.mega_eye_pass(
+            scene, cam, vcm_mega.eye_keys(key_e), lb, ch["grid"], outs,
+            torch.zeros(ch["pxc"].shape[0], dtype=torch.int32, device=dev),
+            cfg, px=ch["pxc"], py=ch["pyc"], cnt=cnt, gbase=g0,
+            flavor=flavor, merge_radius=ch["mr"], eta_vcm=ch["eta"],
+            merge_norm=ch["norm"], with_rows=True, **sw)
+        add_stages(stages, compare_eye_stages(
+            ep, lambda: vcm_mega.eye_walk_plain(
+                scene, cam, key_e, cfg, ch["pxc"][:cnt], ch["pyc"][:cnt], g0,
+                flavor=flavor, eta_vcm=ch["eta"]),
+            lambda rec: vcm_mega.eye_connect_plain(
+                scene, rec, lb, cfg, flavor=flavor, eta_vcm=ch["eta"]),
+            lambda rec, conn: vcm_mega.eye_gather_plain(
+                scene, rec, conn, ch["grid"], cfg, flavor=flavor,
+                mr=ch["mr"], eta_vcm=ch["eta"], merge_norm=ch["norm"]),
+            slice(g0, g0 + cnt), f"{what} chunk {ci}", "K14"))
+        eps.append(ep)
     return dict(err=err, inputs=inputs, plain_ms=plain_ms, chunks=chunks,
-                same=same.float().mean().item())
+                same=same.float().mean().item(), stages=stages, eps=eps)
 
 
 def time_mega(scene, cam, cfg, flavor: str, sample_idx: int, inputs):
@@ -1240,6 +1468,56 @@ def same_input_eye(tsc, s8, cam, px, py, cfg) -> None:
                   0.995)
 
 
+def eye_stage_stats(stats: dict, name: str, st: dict, eps: list,
+                    depth: int, lrows: int, n: int, tbytes: int,
+                    lbytes: int, gbytes: int, fb_bytes: int = 0) -> None:
+    """Each stage's row of the kernels line for the eye pass `name` from
+    compare_eye_stages' results st (summed over the pass's set-up chunks
+    eps): its CUDA-event ms (the stage relaunched on every chunk), its
+    plain twin's ms, its error and its bound. Bytes: the scene tables once
+    per stage that traces, the records (RECORD_BYTES a vertex the walk
+    reached, 4 a depth it did not) written by the walk and read by the
+    others (84 bytes of a vertex by the connections), K12's light vertices
+    and the pair contributions (12 bytes), the grid, the pixels, rays and
+    outputs; operations: the rows the stage visited (ptxas-counted
+    OPS_PER_ROW), the camera rays and walk vertices, the decoded light
+    vertices, the merge queries."""
+    from cudapathtracer_tpu_torch import kernels
+    recs, live, pairs = st["records"], st["live"], st["pairs"]
+    dead = depth * n - recs
+    bounds = {
+        "walk": (tbytes + n * 16 + recs * RECORD_BYTES + dead * 4,
+                 st["rows"]["walk"] * OPS_PER_ROW + n * OPS_PER_CAMERA_RAY
+                 + recs * OPS_PER_WALK_VERTEX),
+        "connect": (tbytes + live * 84 + lbytes + pairs * 12 + n * 8,
+                    st["rows"].get("connect", 0) * OPS_PER_ROW
+                    + pairs * OPS_PER_DECODE),
+        "gather": (live * RECORD_BYTES + pairs * 12 + gbytes + n * 16
+                   + fb_bytes, live * OPS_PER_QUERY),
+    }
+    for stage, (nbytes, ops) in bounds.items():
+        row = f"{name}_{stage}"
+        if stage not in st:
+            stats[row].update(bound=bound_ms(nbytes, ops), max_abs_err=0.0,
+                              ms=0.0, plain_ms=0.0)
+            continue
+        fn = getattr(kernels, f"eye_{stage}")
+        stats[row].update(
+            bound=bound_ms(nbytes, ops),
+            max_abs_err=max(stats[row].get("max_abs_err", 0.0),
+                            st[stage][0]),
+            plain_ms=st[stage][1],
+            ms=sum(cuda_ms(lambda: fn(ep), 2) for ep in eps))
+    say(name, "stages: " + ", ".join(
+        f"{stage} {stats[f'{name}_{stage}']['ms']:.3f} ms (bound "
+        f"{stats[f'{name}_{stage}']['bound'][0]:.4f}, "
+        f"{stats[f'{name}_{stage}']['bound'][1]}; plain "
+        f"{stats[f'{name}_{stage}']['plain_ms']:.3f})"
+        for stage in bounds if stage in st)
+        + f"; {recs} records ({live} with strategies), {pairs} pairs, rays "
+        f"{st['rays']}, rows {st['rows']}")
+
+
 def threaded_phases(card: str, stats: dict, cam, px, py, ids, cfg0) -> int:
     """Phases 30-33 on the bunny scene built with traversal="threaded":
     K15 against its plain version, K5's threaded instantiation against its
@@ -1418,9 +1696,12 @@ def threaded_phases(card: str, stats: dict, cam, px, py, ids, cfg0) -> int:
         "SPPM": lambda sc, s: vcm.render_sample(sc, cam, base, s, px, py,
                                                 cfg=vcfg["SPPM"])}
     # launches per sample of each integrator, all threaded instantiations
+    # (the VCM eye pass: its walk and connection stages trace, the gather
+    # does not)
     per_sample = {"UNIDIRECTIONAL": 1, "NAIVE_UNIDIRECTIONAL": 1,
                   "BIDIRECTIONAL": 3 + int(bcfg.light_trace),
-                  **{i: 2 + int(c.light_trace) for i, c in vcfg.items()}}
+                  **{i: 2 + int(c.light_trace) + int(c.connection)
+                     for i, c in vcfg.items()}}
     s8 = dataclasses.replace(tsc, traversal="bvh8")
     uni_launches = {}
     for integ, fn in render.items():
@@ -1500,6 +1781,12 @@ def threaded_phases(card: str, stats: dict, cam, px, py, ids, cfg0) -> int:
         f"threaded instantiation: rmse {err:.3g} (bound 1e-3), mean ratio "
         f"{float(img.mean() / golden.mean()):.6f}")
     check(err < 1e-3, f"threaded golden: rmse {err:.3g}")
+
+    # --- 34b. the attribution of the classic VCM eye pass on the threaded
+    # scene (tools/eye_attribution.py: each strategy switch off in turn)
+    from tools import eye_attribution
+    eye_attribution.attribution(None, tsc, cam, px, py, cfg0,
+                                log=lambda m: print(m, flush=True))
     return uni_launches
 
 
@@ -1552,15 +1839,21 @@ def main() -> int:
         f"({len(kernels.SOURCES)} sources in parallel)")
     # the kernels that trace rays are built per engine: ILi0E BVH8 (K1),
     # ILi1E threaded (K15)
+    # the eye stages per flavour (0 classic, 1 mega VCM, 2 mega BDPT) and
+    # engine; the gather traces nothing
     engines = ("ILi0E", "ILi1E")
     for kname in (*(k + e for k in ("uni_mega_kernel", "uni_mega_batch_kernel",
                                     "bdpt_walk_kernel", "bdpt_splat_kernel",
-                                    "bdpt_connect_kernel", "vcm_eye_kernel")
+                                    "bdpt_connect_kernel")
                     for e in engines),
+                  *(k + e for k in ("eye_walk_kernel", "eye_connect_kernel")
+                    for e in ("ILi0ELi0E", "ILi0ELi1E", "ILi1ELi0E",
+                              "ILi2ELi0E")),
+                  *("eye_gather_kernel" + e for e in ("ILi0E", "ILi1E",
+                                                      "ILi2E")),
                   "traverse_bin_kernelILb0E", "traverse_bin_kernelILb1E",
                   "packing_kernel", "photon_pack_kernel",
-                  "photon_table_kernel", "slots_kernel", "rgb9e5_kernel",
-                  "mega_eye_kernel"):
+                  "photon_table_kernel", "slots_kernel", "rgb9e5_kernel"):
         mk = ptxas_of(ptxas_log, kname)
         say("build", f"{kname}: {mk['registers']} registers, "
             f"{mk['stack_bytes']} bytes stack frame, "
@@ -2148,6 +2441,9 @@ def main() -> int:
         ms=cuda_ms(lambda: kernels.vcm_eye(
             scene, cam, ekeys, lb, vgrid, None, rst, vmain, px=px, py=py,
             merge_radius=mr, eta_vcm=eta, merge_norm=norm, **switches), 2))
+    eye_stage_stats(stats, "vcm_eye", res["stages"], res["eps"],
+                    vmain.eye_depth, vmain.light_depth, n, tbytes, lbytes,
+                    gbytes, fb_bytes=12 * n)
     say("photon", f"vcm {WIDTH}x{HEIGHT} sample 0: {p} candidate photons "
         f"({res['photons']} valid) in {touched} of {tsize + 1} buckets, "
         f"merge radius {mr:.6g}, eta_vcm "
@@ -2161,6 +2457,7 @@ def main() -> int:
     del res, lb, vgrid, packed, order, srows, erows, fbt, rst, fbs
     sres = compare_vcm(scene, cam, px, py, photon_cfg(cfg0, "SPPM"), 0,
                        f"sppm {WIDTH}x{HEIGHT}")
+    stage_errs(stats, "vcm_eye", sres["stages"])
     del sres
     ccfg = photon_cfg(load_config(os.path.join(
         ROOT, "configs", "vcm_caustics.rendertron")), "VCM")
@@ -2173,6 +2470,7 @@ def main() -> int:
                            f"caustics 512x512 sample {s}")
         err_splat = max(err_splat, cres["err_splat"])
         err_eye = max(err_eye, cres["err_eye"])
+        stage_errs(stats, "vcm_eye", cres["stages"])
         del cres
     stats["vcm_splat"]["max_abs_err"] = err_splat
     stats["vcm_eye"]["max_abs_err"] = err_eye
@@ -2193,6 +2491,7 @@ def main() -> int:
             acc += li
         want = {k: 8 for k in PHOTON_KERNELS + ("bdpt_walk",)}
         want["vcm_splat"] = 8 if gc.light_trace else 0
+        want["vcm_eye_connect"] = 8 if gc.connection else 0
         check(all(kernels.launches[k] == v for k, v in want.items()),
               f"{gname} golden: launches {kernels.launches}")
         img = (acc / 8).cpu().numpy()
@@ -2243,6 +2542,9 @@ def main() -> int:
         check(mres[integ]["chunks"].n_chunks == 2, "the 1080p mega sample is "
               "expected in two chunks")
         err14 = max(err14, mres[integ]["err"])
+        stage_errs(stats, "mega_eye", mres[integ]["stages"])
+        if integ != "VCM":
+            del mres[integ]["eps"]
     vm_cfg, vin = mega_cfg(cfg0, "VCM"), mres["VCM"]["inputs"]
     mega_ms, mega_rows = time_mega(scene, cam, vm_cfg, "vcm", 0, vin)
     tbytes = sum(t.numel() * 4 for t in (scene.bvh8_table, scene.tri_f32,
@@ -2262,7 +2564,12 @@ def main() -> int:
     say("K14", f"VCM {WIDTH}x{HEIGHT}, one sample's eye pass (2 chunks): "
         f"kernel {mega_ms:.3f} ms, plain {mres['VCM']['plain_ms']:.3f} ms; "
         f"{mega_rows} BVH8 rows; bound {stats['mega_eye']['bound'][0]:.4f} "
-        f"ms ({stats['mega_eye']['bound'][1]})")
+        f"ms ({stats['mega_eye']['bound'][1]}); bit-equal pixels "
+        + ", ".join(f"{i} {mres[i]['same']:.6f}" for i in mres))
+    eye_stage_stats(stats, "mega_eye", mres["VCM"]["stages"],
+                    mres["VCM"]["eps"], vm_cfg.eye_depth, vm_cfg.light_depth,
+                    n, tbytes, vm_cfg.light_depth * n * VERTEX_BYTES, gbytes)
+    del mres["VCM"]["eps"]
 
     ch0 = vin[0]
     q, hit = first_hits(scene, cam, ch0["pxc"], ch0["pyc"], 0)
@@ -2310,6 +2617,7 @@ def main() -> int:
         check(cres["chunks"].c_pix * cres["chunks"].n_chunks > 512 * 512,
               "the 512x512 mega sample is expected to carry pad paths")
         err14 = max(err14, cres["err"])
+        stage_errs(stats, "mega_eye", cres["stages"])
         del cres
     stats["mega_eye"]["max_abs_err"] = err14
     say("K14", "the mega eye pass held to its plain version in "
@@ -2513,6 +2821,16 @@ def main() -> int:
                 f"({stats['bdpt_walk_table']['bound'][1]})")
         del tw, fw, pwalk, pb_, pv0_
 
+    # --- 34. the attribution of the eye passes (tools/eye_attribution.py):
+    # one 1080p sample's classic VCM and SPPM passes and K14's VCM and BDPT
+    # flavours timed with each strategy switch off in turn (timed only:
+    # each toggle changes the estimator); the threaded row is 34b
+    from tools import eye_attribution
+    t0 = time.perf_counter()
+    eye_attribution.attribution(scene, None, cam, px, py, cfg0,
+                                log=lambda m: print(m, flush=True))
+    say("attribution", f"done in {time.perf_counter() - t0:.1f} s ({card})")
+
     del scene, sph, gscene
 
     # --- 9. the main path through the Renderer: mega (the config's
@@ -2598,7 +2916,9 @@ def main() -> int:
             cfg, tag, card,
             {"bdpt_walk": SPP, "vcm_splat": SPP if splat else 0,
              "photon_pack": SPP, "photon_table": SPP, "vcm_eye": SPP,
-             "bdpt_splat": 0, "bdpt_connect": 0, "render_unidirectional": 0})
+             "vcm_eye_walk": SPP, "vcm_eye_connect": SPP if splat else 0,
+             "vcm_eye_gather": SPP, "mega_eye": 0, "bdpt_splat": 0,
+             "bdpt_connect": 0, "render_unidirectional": 0})
         if tag == "vcm":
             for k in PHOTON_KERNELS:
                 main_launches[k] = launches[k]
@@ -2613,7 +2933,8 @@ def main() -> int:
     # reach the light by BSDF sampling are lit)
     none = {k: 0 for k in ("vcm_eye", "bdpt_connect", "render_unidirectional",
                            "naive", "vcm_splat", "bdpt_splat", "photon_pack",
-                           "photon_table")}
+                           "photon_table", "vcm_eye_walk", "vcm_eye_connect",
+                           "vcm_eye_gather", "mega_eye_connect")}
     for tag, cfg, integ, chunks in (
             ("vcm mega", main_cfg(integrator="VCM", name="smoke_vcm_mega"),
              "VCM", 2),
@@ -2630,8 +2951,10 @@ def main() -> int:
         r, launches = render_path(cfg, tag, card, want)
         if tag == "vcm mega":
             # rgb9e5 and neighbor_slots are test entries: their device code
-            # runs inside K14 (and K5's mega schedule), so they launch 0
-            for k in ("mega_eye", "rgb9e5", "neighbor_slots"):
+            # runs inside K14's gather (and K5's mega schedule), so they
+            # launch 0
+            for k in ("mega_eye", "mega_eye_walk", "mega_eye_connect",
+                      "mega_eye_gather", "rgb9e5", "neighbor_slots"):
                 main_launches[k] = launches[k]
             vmr = r
         elif tag == "bdpt mega":
@@ -2640,7 +2963,8 @@ def main() -> int:
     r, launches = render_path(
         main_cfg(integrator="NAIVE_UNIDIRECTIONAL", max_depth=DEPTH,
                  name="smoke_naive"), "naive", card,
-        dict(none, naive=SPP, mega_eye=0, bdpt_walk=0), min_lit=0.05)
+        dict(none, naive=SPP, mega_eye=0, mega_eye_walk=0, bdpt_walk=0),
+        min_lit=0.05)
     main_launches["naive"] = launches["naive"]
     del r
 
@@ -2653,7 +2977,8 @@ def main() -> int:
     salt = hashgrid.photon_salt(SPP)
     sw = hashgrid.merge_switches(vc.max_per_cell)
     names = ("light walk", "vcm_splat", "photon_pack", "torch.sort",
-             "photon_table", "mega_eye")
+             "photon_table", "mega_eye walk", "mega_eye connect",
+             "mega_eye gather")
     stage_ms = {}
     for rep in range(2):   # the first pass warms up
         stage_ms = {k: 0.0 for k in names}
@@ -2664,7 +2989,7 @@ def main() -> int:
                                                      ch.c_pix)
             mr, eta, norm = vcm_mega.chunk_scalars(vmr.scene, vc, SPP, cnt)
             rays_t = torch.zeros(ch.c_pix, dtype=torch.int32, device=dev)
-            ev = [torch.cuda.Event(enable_timing=True) for _ in range(7)]
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(9)]
             ev[0].record()
             lw = kernels.bdpt_walk(vmr.scene, pxc, pyc, lkeys, mode="light",
                                    max_depth=vc.light_depth + 1, rays=rays_t,
@@ -2682,19 +3007,19 @@ def main() -> int:
             ev[4].record()
             srows = kernels.photon_table(rows, h, order, cse)
             ev[5].record()
-            kernels.mega_eye(vmr.scene, vmr.camera, ekeys, lb,
-                             hashgrid.PhotonGrid(srows, cse,
-                                                 vmr.scene.scene_min,
-                                                 2.0 * mr, tsize),
-                             out_t, rays_t, vc, px=pxc, py=pyc, cnt=cnt,
-                             gbase=ci * ch.c_pix, flavor="vcm",
-                             merge_radius=mr, eta_vcm=eta, merge_norm=norm,
-                             **sw)
-            ev[6].record()
+            ep = kernels.mega_eye_pass(
+                vmr.scene, vmr.camera, ekeys, lb, hashgrid.PhotonGrid(
+                    srows, cse, vmr.scene.scene_min, 2.0 * mr, tsize),
+                out_t, rays_t, vc, px=pxc, py=pyc, cnt=cnt,
+                gbase=ci * ch.c_pix, flavor="vcm", merge_radius=mr,
+                eta_vcm=eta, merge_norm=norm, **sw)
+            for i, stage in enumerate(EYE_STAGES):
+                getattr(kernels, f"eye_{stage}")(ep)
+                ev[6 + i].record()
             torch.cuda.synchronize()
             for i, k in enumerate(names):
                 stage_ms[k] += ev[i].elapsed_time(ev[i + 1])
-            del lw, lb, rows, h, key, cse, order, srows
+            del lw, lb, rows, h, key, cse, order, srows, ep
     say("vcm mega", f"one 1080p sample ({ch.n_chunks} chunks), CUDA events "
         "per launch summed over the chunks: " + ", ".join(
             f"{k} {v:.3f} ms" for k, v in stage_ms.items())
@@ -2703,7 +3028,8 @@ def main() -> int:
     bc = bdpt.BDPTConfig.from_config(bmr.cfg)
     key_l, key_e = vcm.sample_keys(bmr.key, SPP)
     lkeys, ekeys = paths.walk_keys(key_l, "light"), vcm_mega.eye_keys(key_e)
-    names = ("light walk", "bdpt_splat", "mega_eye")
+    names = ("light walk", "bdpt_splat", "mega_eye walk", "mega_eye connect",
+             "mega_eye gather")
     for rep in range(2):   # the first pass warms up
         stage_ms = {k: 0.0 for k in names}
         out_t = torch.zeros((bmr.px.shape[0], 3), device=dev)
@@ -2712,7 +3038,7 @@ def main() -> int:
             pxc, pyc, cnt = vcm_mega.chunk_pixels_of(bmr.px, bmr.py, ci,
                                                      ch.c_pix)
             rays_t = torch.zeros(ch.c_pix, dtype=torch.int32, device=dev)
-            ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(6)]
             ev[0].record()
             lw = kernels.bdpt_walk(bmr.scene, pxc, pyc, lkeys, mode="light",
                                    max_depth=bc.light_depth, rays=rays_t)
@@ -2721,15 +3047,17 @@ def main() -> int:
             kernels.bdpt_splat(bmr.scene, bmr.camera, lb, lw["v0"], fb_t,
                                rays_t, bc, n_live=cnt)
             ev[2].record()
-            kernels.mega_eye(bmr.scene, bmr.camera, ekeys, lb, None, out_t,
-                             rays_t, bdpt_mega.as_machine_cfg(bc), px=pxc,
-                             py=pyc, cnt=cnt, gbase=ci * ch.c_pix,
-                             flavor="bdpt")
-            ev[3].record()
+            ep = kernels.mega_eye_pass(
+                bmr.scene, bmr.camera, ekeys, lb, None, out_t, rays_t,
+                bdpt_mega.as_machine_cfg(bc), px=pxc, py=pyc, cnt=cnt,
+                gbase=ci * ch.c_pix, flavor="bdpt")
+            for i, stage in enumerate(EYE_STAGES):
+                getattr(kernels, f"eye_{stage}")(ep)
+                ev[3 + i].record()
             torch.cuda.synchronize()
             for i, k in enumerate(names):
                 stage_ms[k] += ev[i].elapsed_time(ev[i + 1])
-            del lw, lb
+            del lw, lb, ep
     say("bdpt mega", f"one 1080p sample ({ch.n_chunks} chunks), CUDA events "
         "per launch summed over the chunks: " + ", ".join(
             f"{k} {v:.3f} ms" for k, v in stage_ms.items())
@@ -2744,7 +3072,7 @@ def main() -> int:
     salt = hashgrid.photon_salt(SPP)
     stage_ms = {}
     for rep in range(2):   # the first pass warms up
-        ev = [torch.cuda.Event(enable_timing=True) for _ in range(7)]
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(9)]
         rays_t = torch.zeros(n, dtype=torch.int32, device=dev)
         fb_t = torch.zeros((n, 3), device=dev)
         ev[0].record()
@@ -2764,18 +3092,22 @@ def main() -> int:
         ev[4].record()
         srows = kernels.photon_table(rows, h, order, cse)
         ev[5].record()
-        kernels.vcm_eye(vr.scene, vr.camera, paths.walk_keys(key_e, "eye"),
-                        lw["bufs"], hashgrid.PhotonGrid(
-                            srows, cse, vr.scene.scene_min, 2.0 * mr, tsize),
-                        fb_t, rays_t, vc, px=vr.px, py=vr.py,
-                        merge_radius=mr, eta_vcm=eta, merge_norm=norm,
-                        **hashgrid.merge_switches(vc.max_per_cell))
-        ev[6].record()
+        ep = kernels.vcm_eye_pass(
+            vr.scene, vr.camera, paths.walk_keys(key_e, "eye"), lw["bufs"],
+            hashgrid.PhotonGrid(srows, cse, vr.scene.scene_min, 2.0 * mr,
+                                tsize),
+            fb_t, rays_t, vc, px=vr.px, py=vr.py, merge_radius=mr,
+            eta_vcm=eta, merge_norm=norm,
+            **hashgrid.merge_switches(vc.max_per_cell))
+        for i, stage in enumerate(EYE_STAGES):
+            getattr(kernels, f"eye_{stage}")(ep)
+            ev[6 + i].record()
         torch.cuda.synchronize()
         stage_ms = {name: ev[i].elapsed_time(ev[i + 1]) for i, name in
                     enumerate(("light walk", "vcm_splat", "photon_pack",
-                               "torch.sort", "photon_table", "vcm_eye"))}
-        del lw, rows, h, key, cse, order, srows
+                               "torch.sort", "photon_table", "vcm_eye walk",
+                               "vcm_eye connect", "vcm_eye gather"))}
+        del lw, rows, h, key, cse, order, srows, ep
     say("vcm", "one 1080p sample, CUDA events per launch: " + ", ".join(
         f"{k} {v:.3f} ms" for k, v in stage_ms.items())
         + f"; sum {sum(stage_ms.values()):.3f} ms ({card})")
@@ -2795,6 +3127,12 @@ def main() -> int:
           "expected 8")
     cli_dir = os.path.join(OUT_DIR, "cli")
     os.makedirs(cli_dir, exist_ok=True)
+    # the checks run at the progressive saves, every Save Interval Seconds
+    # (5 s by default), and the shipped render can take less than that:
+    # the shipped config with a 1 s cadence, so that the checks run
+    cli_cfg = os.path.join(cli_dir, "vcm_caustics.rendertron")
+    with open(caustics_path) as f, open(cli_cfg, "w") as g:
+        g.write("Save Interval Seconds: 1\n" + f.read())
     cwd = os.getcwd()
     buf = io.StringIO()
     # the switch under its JAX name, read when utils/checks.py loads
@@ -2804,7 +3142,7 @@ def main() -> int:
     os.chdir(cli_dir)   # the CLI writes renders/ under the working dir
     try:
         with contextlib.redirect_stdout(buf):
-            rc = cli.main([caustics_path, "--device", "cuda"])
+            rc = cli.main([cli_cfg, "--device", "cuda"])
     finally:
         os.chdir(cwd)
         del os.environ["CUDAPATHTRACER_TPU_CHECKS"]

@@ -8,9 +8,11 @@ bsdf.cuh, K4 nee.cuh, K6 threefry.cuh, K10 packing.cuh, K12's MIS step
 mis.cuh, the BDPT bodies bdpt.cuh; the per-path megakernel K5,
 uni_mega.cu, and the BDPT kernels K11 bdpt_splat.cu, K12 bdpt_walk.cu and
 K13 bdpt_connect.cu call them; the photon grid's hashgrid.cuh (K8-K10)
-serves K8 photon_grid.cu, the VCM eye kernel vcm_eye.cu, whose body is
-vcm.cuh, K9's test entry neighbor_slots.cu, and the mega engines' eye
-kernel K14 mega_eye.cu, whose body is mega.cuh).
+serves K8 photon_grid.cu, K9's test entry neighbor_slots.cu and the VCM
+eye passes: the classic one (K13's VCM form with K9's fold; strategies in
+vcm.cuh) and the mega engines' K14 (its strategies in mega.cuh) run as the
+same three stages, eye.cuh's bodies launched by eye_walk.cu, eye_connect.cu
+and eye_gather.cu).
 They are compiled on first use with nvcc, one process per source, all
 started together, and linked into one shared library with a plain C
 interface, build/torch_ext/libtpt_torch_kernels.so, called through ctypes
@@ -23,14 +25,17 @@ libtpt_torch_kernels_stack<d>.so.
 Three entries have a second mode, counted under a name of its own: K6's
 keyed draw (uniform_keyed, rng.cu), K5's k-sample mode for samples per
 dispatch (uni_mega_batch, uni_mega.cu) and K12's table mode for the keyed
-light walk (bdpt_walk_table, bdpt_walk.cu).
+light walk (bdpt_walk_table, bdpt_walk.cu). An eye pass (vcm_eye,
+mega_eye) counts once under its own name and each of its stage launches
+under <pass>_walk, <pass>_connect and <pass>_gather.
 
-Engines: the kernels that trace rays (K5, K11-K13, the VCM eye pass) are
-built twice, once per traversal engine, and launched with the scene's:
-BVH8 (K1, scene.bvh8_table) or threaded (K15, scene.node_packed), as the
-JAX functions follow scene.traversal. Three launches read the BVH8 table on
-every scene, as their JAX counterparts (make_fused_step) do: K5's mega
-schedule, K12's table mode and K14.
+Engines: the kernels that trace rays (K5, K11-K13, the classic eye pass's
+walk and connections) are built twice, once per traversal engine, and
+launched with the scene's: BVH8 (K1, scene.bvh8_table) or threaded (K15,
+scene.node_packed), as the JAX functions follow scene.traversal. Three
+launches read the BVH8 table on every scene, as their JAX counterparts
+(make_fused_step) do: K5's mega schedule, K12's table mode and K14's
+stages.
 
 Each wrapper below checks its tensors (device, dtype, shape, contiguity),
 allocates the outputs, launches, raises if the launch was refused, and then
@@ -62,11 +67,11 @@ import torch
 CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 SOURCES = ("rng.cu", "camera.cu", "traverse8.cu", "traverse_bin.cu",
            "uni_mega.cu", "packing.cu", "bdpt_walk.cu", "bdpt_splat.cu",
-           "bdpt_connect.cu", "photon_grid.cu", "vcm_eye.cu",
-           "neighbor_slots.cu", "mega_eye.cu")
+           "bdpt_connect.cu", "photon_grid.cu", "neighbor_slots.cu",
+           "eye_walk.cu", "eye_connect.cu", "eye_gather.cu")
 HEADERS = ("threefry.cuh", "camera.cuh", "traverse8.cuh", "traverse_bin.cuh",
            "shade.cuh", "bsdf.cuh", "nee.cuh", "packing.cuh", "mis.cuh",
-           "bdpt.cuh", "hashgrid.cuh", "vcm.cuh", "mega.cuh")
+           "bdpt.cuh", "hashgrid.cuh", "vcm.cuh", "mega.cuh", "eye.cuh")
 _REPO_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 BUILD_DIR = os.path.join(_REPO_ROOT, "build", "torch_ext")
@@ -76,7 +81,7 @@ NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-fmad=false", "-Xcompiler", "-fPIC")
 SHADE_EVAL_COLS = 38   # uni_mega.cu kShadeEvalCols
 SCHEDULES = {"classic": 0, "mega": 1, "naive": 2}
-MEGA_FLAVORS = {"vcm": 0, "bdpt": 1}
+EYE_FLAVORS = {"classic": 0, "vcm": 1, "bdpt": 2}   # eye.cuh kEye*
 SLOT_MODES = {"slots": 0, "compact": 1, "gather": 2}
 ENGINES = {"bvh8": 0, "threaded": 1}   # traverse_bin.cuh kEngine*
 
@@ -89,6 +94,10 @@ launches = {"closest_hit8": 0, "shadow_factor8": 0, "closest_hit_bin": 0,
             "photon_table": 0, "vcm_eye": 0, "rgb9e5": 0,
             "neighbor_slots": 0, "mega_eye": 0, "naive": 0,
             "uniform_keyed": 0, "uni_mega_batch": 0, "bdpt_walk_table": 0,
+            # the eye passes' stages (eye_walk.cu, eye_connect.cu,
+            # eye_gather.cu), counted beside the pass's own count
+            "vcm_eye_walk": 0, "vcm_eye_connect": 0, "vcm_eye_gather": 0,
+            "mega_eye_walk": 0, "mega_eye_connect": 0, "mega_eye_gather": 0,
             # launches of a kernel's threaded instantiation (K15's device
             # code inside K5, K11-K13 or the VCM eye pass), counted beside
             # that kernel's own count
@@ -221,7 +230,7 @@ def _load(stack_d: int = STACK_D):
         lib.tpt_photon_pack.argtypes = [p, p, p, u32, p]
         lib.tpt_photon_table.restype = ctypes.c_int
         lib.tpt_photon_table.argtypes = [p, p, p]
-        for name in ("tpt_vcm_eye", "tpt_mega_eye"):
+        for name in ("tpt_eye_walk", "tpt_eye_connect", "tpt_eye_gather"):
             getattr(lib, name).restype = ctypes.c_int
             getattr(lib, name).argtypes = [p, p, p, p, p]
         lib.tpt_rgb9e5_roundtrip.restype = ctypes.c_int
@@ -956,18 +965,78 @@ def photon_table(rows, bucket, order, cell_se):
     return out
 
 
-def vcm_eye(scene, camera, keys: list, lbufs, grid, fb, rays, cfg, *, px,
-            py, merge_radius: float, eta_vcm: float, merge_norm: float,
-            one_brick: bool, reweight: bool, with_rows: bool = False):
-    """K13's VCM form with the K9 merge (vcm_eye.cu): the eye pass of each
-    pixel (px, py) [N] i32. keys: the 12 eye walk words
-    (models/paths.walk_keys(key_e, "eye")); lbufs: the VCM light walk's
-    buffers [light_depth, N]; grid: a hashgrid.PhotonGrid, or None without
-    the merge; fb: [N,3] f32 added to the result, or None; rays [N] i32 +=
-    the rays traced. cfg: a VCMConfig. one_brick, reweight: the merge's
-    estimator switches (ops/hashgrid.merge_switches). -> (radiance [N,3]
-    f32, the merge cap's dropped photons [N] i32, rows [N] i32 rows
-    visited or None)."""
+# --- the VCM eye passes as three stages (eye.cuh) ---------------------------
+
+class EyePass:
+    """One VCM eye pass, classic (vcm_eye) or mega (mega_eye), set up for
+    its three stage launches (eye_walk, eye_connect, eye_gather): eye.cuh's
+    argument block (kept alive here) and the buffers the stages hand on.
+    rec: the walk's models.vcm.EyeRecords [eye_depth, n]; conn: the
+    connections' contributions [eye_depth, light_rows, n, 3] f32 (written
+    where the eye record ran its strategies), or None where the pass has no
+    connection stage; out, rays, dropped, rows: the pass's outputs (rows
+    None without with_rows)."""
+
+    def __init__(self, name, dev, args, engine, rec, conn, out, rays,
+                 dropped, rows):
+        self.name, self.dev, self.args, self.engine = name, dev, args, engine
+        self.rec, self.conn = rec, conn
+        self.out, self.rays, self.dropped, self.rows = out, rays, dropped, \
+            rows
+
+
+def _eye_pass(name: str, scene, camera, keys: list, lbufs, grid, fb, out,
+              rays, cfg, *, px, py, n: int, flavor: str, merge: bool,
+              gbase: int, merge_radius: float, eta_vcm: float,
+              merge_norm: float, one_brick: bool, reweight: bool,
+              with_rows: bool, dropped) -> EyePass:
+    """Check the inputs of an eye pass over the first n paths of px, py
+    (the light buffers' lanes), allocate its stage buffers and build
+    eye.cuh's argument block."""
+    from cudapathtracer_tpu_torch.models.vcm import EyeRecords
+    dev = px.device
+    n_buf = px.shape[0]
+    light_rows = lbufs.pt.shape[0]
+    sc = _bdpt_scene(scene, dev, bvh8_only=flavor != "classic")
+    gptrs, table, p8, geom = [0, 0], 0, 0, [0.0] * 4
+    if merge:
+        gptrs, table, p8, geom = _grid_args(grid, dev)
+    depth = cfg.eye_depth
+    rec = EyeRecords.empty(depth, n, dev)
+    conn = None
+    if cfg.connection and light_rows > 0:
+        conn = torch.empty((depth, light_rows, n, 3), dtype=torch.float32,
+                           device=dev)
+    rows = torch.zeros(n_buf, dtype=torch.int32, device=dev) if with_rows \
+        else None
+    ptrs = ([sc[k].data_ptr() for k in ("table", "tri_f32", "light_f32",
+                                        "mat_f32", "textures")]
+            + [px.data_ptr(), py.data_ptr()]
+            + _check_bufs(lbufs, "light bufs", light_rows, n_buf, dev)
+            + gptrs + [_ptr(fb) or 0, out.data_ptr(), rays.data_ptr(),
+                       dropped.data_ptr(), _ptr(rows) or 0, sc["nodes"]]
+            + [t.data_ptr() for t in rec] + [_ptr(conn) or 0])
+    iv = [n, n_buf, sc["tri_f32"].shape[1], scene.num_lights, depth,
+          light_rows, EYE_FLAVORS[flavor], int(cfg.naive), int(cfg.nee),
+          int(cfg.connection), int(cfg.do_mis), int(cfg.paint_weight),
+          int(cfg.sample_environment), int(merge), int(cfg.do_sppm), table,
+          cfg.max_per_cell, int(one_brick), int(reweight), p8, gbase] \
+        + sc["engine_iv"]
+    fv = (camera.kernel_params()
+          + [camera.plane_area(), float(eta_vcm), float(merge_norm)]
+          + geom + [_r2(merge_radius)])
+    words = list(keys) + [0] * (22 - len(keys))
+    args = (_i64s(ptrs), _i64s(iv), _f32s(fv), _u32s(words))
+    return EyePass(name, dev, args, sc["engine_iv"][0], rec, conn, out, rays,
+                   dropped, rows)
+
+
+def vcm_eye_pass(scene, camera, keys: list, lbufs, grid, fb, rays, cfg, *,
+                 px, py, merge_radius: float, eta_vcm: float,
+                 merge_norm: float, one_brick: bool, reweight: bool,
+                 with_rows: bool = False) -> EyePass:
+    """The classic VCM / SPPM eye pass (vcm_eye's arguments), set up for
+    its stage launches."""
     dev = _cuda_device(px)
     n = px.shape[0]
     _check(px, "px", torch.int32, (n,), dev)
@@ -978,48 +1047,79 @@ def vcm_eye(scene, camera, keys: list, lbufs, grid, fb, rays, cfg, *, px,
     if cfg.eye_depth < 1 or cfg.light_depth < 1 or len(keys) != 12:
         raise ValueError("vcm_eye: eye_depth >= 1, light_depth >= 1 and 12 "
                          "key words")
+    if lbufs.pt.shape[0] != cfg.light_depth:
+        raise ValueError(f"vcm_eye: {lbufs.pt.shape[0]} light rows for "
+                         f"light_depth {cfg.light_depth}")
     merge = cfg.do_merge
     if merge and grid is None:
         raise ValueError("vcm_eye: do_merge needs the photon grid")
-    sc = _bdpt_scene(scene, dev)
-    gptrs, table, smin, cell = [0, 0], 0, [0.0] * 3, 0.0
-    if merge:
-        _check(grid.rows, "grid.rows", torch.float32, grid.rows.shape, dev)
-        _check(grid.cell_se, "grid.cell_se", torch.int32,
-               (grid.table_size + 1, 2), dev)
-        if grid.rows.dim() != 2 or grid.rows.shape[1] != 8:
-            raise ValueError("grid.rows must be [P8, 8]")
-        gptrs = [grid.rows.data_ptr(), grid.cell_se.data_ptr()]
-        table, smin, cell = grid.table_size, list(grid.scene_min), \
-            grid.cell_size
     out = torch.empty((n, 3), dtype=torch.float32, device=dev)
     dropped = torch.empty(n, dtype=torch.int32, device=dev)
-    rows = torch.zeros(n, dtype=torch.int32, device=dev) if with_rows \
-        else None
-    ptrs = ([sc[k].data_ptr() for k in ("table", "tri_f32", "light_f32",
-                                        "mat_f32", "textures")]
-            + [px.data_ptr(), py.data_ptr()]
-            + _check_bufs(lbufs, "light bufs", cfg.light_depth, n, dev)
-            + gptrs + [_ptr(fb) or 0, out.data_ptr(), rays.data_ptr(),
-                       dropped.data_ptr(), _ptr(rows) or 0, sc["nodes"]])
-    iv = [n, sc["tri_f32"].shape[1], scene.num_lights, cfg.eye_depth,
-          cfg.light_depth, int(cfg.naive), int(cfg.nee), int(cfg.connection),
-          int(cfg.do_mis), int(cfg.paint_weight),
-          int(cfg.sample_environment), int(merge), int(cfg.do_sppm), table,
-          cfg.max_per_cell, int(one_brick), int(reweight)] + sc["engine_iv"]
-    mr = float(merge_radius)
-    r2 = float(torch.tensor(mr, dtype=torch.float32)
-               * torch.tensor(mr, dtype=torch.float32))
-    fv = (camera.kernel_params()
-          + [camera.plane_area(), float(eta_vcm), float(merge_norm)]
-          + smin + [cell, r2])
-    args = (_i64s(ptrs), _i64s(iv), _f32s(fv), _u32s(list(keys)))
+    return _eye_pass("vcm_eye", scene, camera, keys, lbufs, grid, fb, out,
+                     rays, cfg, px=px, py=py, n=n, flavor="classic",
+                     merge=merge, gbase=0, merge_radius=merge_radius,
+                     eta_vcm=eta_vcm, merge_norm=merge_norm,
+                     one_brick=one_brick, reweight=reweight,
+                     with_rows=with_rows, dropped=dropped)
+
+
+def _eye_stage(ep: EyePass, stage: str) -> None:
     lib = _load()
-    with torch.cuda.device(dev):
-        _launch("vcm_eye", lib, lib.tpt_vcm_eye,
-                *(ctypes.addressof(a) for a in args), _stream(dev),
-                engine=sc["engine_iv"][0])
-    return out, dropped, rows
+    with torch.cuda.device(ep.dev):
+        _launch(f"{ep.name}_{stage}", lib, getattr(lib, f"tpt_eye_{stage}"),
+                *(ctypes.addressof(a) for a in ep.args), _stream(ep.dev),
+                engine=0 if stage == "gather" else ep.engine)
+
+
+def eye_walk(ep: EyePass) -> None:
+    """Stage 1 (eye_walk.cu): the eye walk with s=0 and NEE into ep.rec,
+    the rays traced added into the pass's rays."""
+    _eye_stage(ep, "walk")
+
+
+def eye_connect(ep: EyePass) -> None:
+    """Stage 2 (eye_connect.cu): every (eye depth, light row, path) pair's
+    resolved connection into ep.conn, its shadow rays added atomically."""
+    if ep.conn is None:
+        raise ValueError(f"{ep.name}: this pass has no connection stage")
+    _eye_stage(ep, "connect")
+
+
+def eye_gather(ep: EyePass) -> None:
+    """Stage 3 (eye_gather.cu): the terms summed in the flavour's JAX
+    order with the merge folded in, into ep.out and ep.dropped."""
+    _eye_stage(ep, "gather")
+
+
+def run_eye_pass(ep: EyePass) -> None:
+    """The three stages of a pass (two without connections), counted once
+    under the pass's own name."""
+    eye_walk(ep)
+    if ep.conn is not None:
+        eye_connect(ep)
+    eye_gather(ep)
+    launches[ep.name] += 1
+
+
+def vcm_eye(scene, camera, keys: list, lbufs, grid, fb, rays, cfg, *, px,
+            py, merge_radius: float, eta_vcm: float, merge_norm: float,
+            one_brick: bool, reweight: bool, with_rows: bool = False):
+    """K13's VCM form with the K9 merge, as three stage launches (eye.cuh
+    classic flavour): the eye pass of each pixel (px, py) [N] i32. keys:
+    the 12 eye walk words (models/paths.walk_keys(key_e, "eye")); lbufs:
+    the VCM light walk's buffers [light_depth, N]; grid: a
+    hashgrid.PhotonGrid, or None without the merge; fb: [N,3] f32 added to
+    the result, or None; rays [N] i32 += the rays traced. cfg: a
+    VCMConfig. one_brick, reweight: the merge's estimator switches
+    (ops/hashgrid.merge_switches). -> (radiance [N,3] f32, the merge cap's
+    dropped photons [N] i32, rows [N] i32 rows visited or None)."""
+    ep = vcm_eye_pass(scene, camera, keys, lbufs, grid, fb, rays, cfg,
+                      px=px, py=py, merge_radius=merge_radius,
+                      eta_vcm=eta_vcm, merge_norm=merge_norm,
+                      one_brick=one_brick, reweight=reweight,
+                      with_rows=with_rows)
+    run_eye_pass(ep)
+    return ep.out, ep.dropped, ep.rows
 
 
 # --- the mega engines (K14) and the materialised K9, RGB9E5 (K10) -----------
@@ -1100,22 +1200,13 @@ def neighbor_slots(grid, query, merge_radius: float, max_per_cell: int, *,
     return rows, ok, wgt, dropped
 
 
-def mega_eye(scene, camera, keys: list, lbufs, grid, out, rays, cfg, *, px,
-             py, cnt: int, gbase: int, flavor: str, merge_radius: float = 0.0,
-             eta_vcm: float = 0.0, merge_norm: float = 0.0,
-             one_brick: bool = False, reweight: bool = True,
-             with_rows: bool = False):
-    """K14 (mega_eye.cu): the mega eye pass of a chunk's first cnt pixels
-    (px, py [c_pix] i32, the chunk's pixels) paired with its light paths
-    (lbufs [L, c_pix]: every row is a connection candidate); lane l writes
-    its path's radiance, retired through RGB9E5, into out [P,3] f32 row
-    gbase + l (its index in the pixel list, which keys its draws) and adds
-    its rays into rays [c_pix] i32. keys: models/vcm_mega.eye_keys (22
-    words); flavor: "vcm" (VCM and SPPM) or "bdpt"; grid: a
-    hashgrid.PhotonGrid under VCM with do_merge, else None; cfg: a
-    VCMConfig; one_brick, reweight: the merge's estimator switches.
-    -> (the merge cap's dropped photons [c_pix] i32 (lanes >= cnt 0), rows
-    [c_pix] i32 BVH8 rows visited or None)."""
+def mega_eye_pass(scene, camera, keys: list, lbufs, grid, out, rays, cfg, *,
+                  px, py, cnt: int, gbase: int, flavor: str,
+                  merge_radius: float = 0.0, eta_vcm: float = 0.0,
+                  merge_norm: float = 0.0, one_brick: bool = False,
+                  reweight: bool = True, with_rows: bool = False) -> EyePass:
+    """K14's eye pass of a chunk (mega_eye's arguments), set up for its
+    stage launches."""
     dev = _cuda_device(px)
     c_pix = px.shape[0]
     _check(px, "px", torch.int32, (c_pix,), dev)
@@ -1123,8 +1214,8 @@ def mega_eye(scene, camera, keys: list, lbufs, grid, out, rays, cfg, *, px,
     _check(rays, "rays", torch.int32, (c_pix,), dev)
     p_total = out.shape[0]
     _check(out, "out", torch.float32, (p_total, 3), dev)
-    if flavor not in MEGA_FLAVORS:
-        raise ValueError(f"flavor {flavor!r}: one of {sorted(MEGA_FLAVORS)}")
+    if flavor not in ("vcm", "bdpt"):
+        raise ValueError(f"flavor {flavor!r}: 'vcm' or 'bdpt'")
     if not 0 <= cnt <= c_pix or gbase < 0 or gbase + cnt > p_total:
         raise ValueError(f"mega_eye: {cnt} pixels at {gbase} of a chunk of "
                          f"{c_pix} in a frame of {p_total}")
@@ -1133,32 +1224,35 @@ def mega_eye(scene, camera, keys: list, lbufs, grid, out, rays, cfg, *, px,
     merge = flavor == "vcm" and cfg.do_merge
     if merge and grid is None:
         raise ValueError("mega_eye: do_merge needs the photon grid")
-    sc = _bdpt_scene(scene, dev, bvh8_only=True)   # K14 traces BVH8 always
-    gptrs, table, p8, geom = [0, 0], 0, 0, [0.0] * 4
-    if merge:
-        gptrs, table, p8, geom = _grid_args(grid, dev)
-    light_rows = lbufs.pt.shape[0]
     dropped = torch.zeros(c_pix, dtype=torch.int32, device=dev)
-    rows = torch.zeros(c_pix, dtype=torch.int32, device=dev) if with_rows \
-        else None
-    ptrs = ([sc[k].data_ptr() for k in ("table", "tri_f32", "light_f32",
-                                        "mat_f32", "textures")]
-            + [px.data_ptr(), py.data_ptr()]
-            + _check_bufs(lbufs, "light bufs", light_rows, c_pix, dev)
-            + gptrs + [out.data_ptr(), rays.data_ptr(), dropped.data_ptr(),
-                       _ptr(rows) or 0])
-    iv = [cnt, c_pix, sc["tri_f32"].shape[1], scene.num_lights,
-          cfg.eye_depth, light_rows, MEGA_FLAVORS[flavor], int(cfg.naive),
-          int(cfg.nee), int(cfg.connection), int(cfg.do_mis),
-          int(cfg.paint_weight), int(cfg.sample_environment), int(merge),
-          int(cfg.do_sppm), table, cfg.max_per_cell, int(one_brick),
-          int(reweight), p8, gbase]
-    fv = (camera.kernel_params()
-          + [camera.plane_area(), float(eta_vcm), float(merge_norm)]
-          + geom + [_r2(merge_radius)])
-    args = (_i64s(ptrs), _i64s(iv), _f32s(fv), _u32s(list(keys)))
-    lib = _load()
-    with torch.cuda.device(dev):
-        _launch("mega_eye", lib, lib.tpt_mega_eye,
-                *(ctypes.addressof(a) for a in args), _stream(dev))
-    return dropped, rows
+    return _eye_pass("mega_eye", scene, camera, keys, lbufs, grid, None, out,
+                     rays, cfg, px=px, py=py, n=cnt, flavor=flavor,
+                     merge=merge, gbase=gbase, merge_radius=merge_radius,
+                     eta_vcm=eta_vcm, merge_norm=merge_norm,
+                     one_brick=one_brick, reweight=reweight,
+                     with_rows=with_rows, dropped=dropped)
+
+
+def mega_eye(scene, camera, keys: list, lbufs, grid, out, rays, cfg, *, px,
+             py, cnt: int, gbase: int, flavor: str, merge_radius: float = 0.0,
+             eta_vcm: float = 0.0, merge_norm: float = 0.0,
+             one_brick: bool = False, reweight: bool = True,
+             with_rows: bool = False):
+    """K14 as three stage launches (eye.cuh, mega flavours): the mega eye
+    pass of a chunk's first cnt pixels (px, py [c_pix] i32, the chunk's
+    pixels) paired with its light paths (lbufs [L, c_pix]: every row is a
+    connection candidate); path l writes its radiance, retired through
+    RGB9E5, into out [P,3] f32 row gbase + l (its index in the pixel list,
+    which keys its draws) and adds its rays into rays [c_pix] i32. keys:
+    models/vcm_mega.eye_keys (22 words); flavor: "vcm" (VCM and SPPM) or
+    "bdpt"; grid: a hashgrid.PhotonGrid under VCM with do_merge, else None;
+    cfg: a VCMConfig; one_brick, reweight: the merge's estimator switches.
+    -> (the merge cap's dropped photons [c_pix] i32 (lanes >= cnt 0), rows
+    [c_pix] i32 BVH8 rows visited or None)."""
+    ep = mega_eye_pass(scene, camera, keys, lbufs, grid, out, rays, cfg,
+                       px=px, py=py, cnt=cnt, gbase=gbase, flavor=flavor,
+                       merge_radius=merge_radius, eta_vcm=eta_vcm,
+                       merge_norm=merge_norm, one_brick=one_brick,
+                       reweight=reweight, with_rows=with_rows)
+    run_eye_pass(ep)
+    return ep.dropped, ep.rows

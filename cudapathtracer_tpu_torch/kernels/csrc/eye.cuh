@@ -1,0 +1,465 @@
+// The VCM eye passes as three stages: the per-thread bodies that
+// eye_walk.cu, eye_connect.cu and eye_gather.cu launch, in three flavours:
+//
+//   kEyeClassic   the classic VCM / SPPM pass (K13's VCM form with K9's
+//                 fold): cudapathtracer_tpu/models/vcm.py:render_sample's
+//                 eye pass (line 150) and ops/hashgrid.py:fold_neighbors
+//                 (240); traced on the scene's engine
+//   kEyeMegaVcm   K14's VCM / SPPM flavour: models/vcm_mega.py:
+//                 _mk_eye_machine (322) with _pack_conn_table (148)
+//   kEyeMegaBdpt  K14's BDPT flavour: the eye machine of
+//                 models/bdpt_mega.py:render_sample (56)
+//
+// K14's flavours trace BVH8 on every scene, as JAX's make_fused_step does.
+//
+// 1. eye_walk_one: one thread per path walks eye_depth bounces (raygen
+//    K7 -> closest hit -> the sky on a miss -> hit fetch -> BSDF sample ->
+//    MIS step) and at each valid non-delta vertex computes the strategies
+//    that need no light vertex: s=0 and NEE (one shadow ray). It stores
+//    them, weighted and resolved, in the term slots implicit / nee [D,N,3]
+//    (implicit holds the sky term at the depth where the walk escaped), and
+//    writes the vertex record [D,N] that the other stages read: pos, the
+//    shade normal, to_prev, thr, albedo, transmission, the material id
+//    (mat_f32's row is the shade row's material, bit for bit), d_vcm,
+//    d_vc, d_vm and the flags (kRec*). A hit writes every field; an escape
+//    its flags and the sky term; a depth the walk did not reach only its
+//    flags, 0: no stage reads more of them.
+// 2. eye_connect_one: one thread per (eye depth t, light row j, path i):
+//    record t of path i against light vertex j (K12's buffers), one shadow
+//    ray, its resolved contribution into conn [D,L,N,3] (zero where
+//    nothing is traced or the ray is blocked); rays and rows added with
+//    integer atomics. A pair whose eye record has no strategies (dead,
+//    delta or invalid) writes nothing: the gather does not read it.
+// 3. eye_gather_one: one thread per path adds the stored terms in the
+//    flavour's JAX order, starting from zero, and folds the merge from the
+//    record at its place: classic per depth the sky, s=0, NEE, the
+//    connections j = 0, 1, ..., the merge (fold_neighbors), then the
+//    splat's frame buffer; mega per depth the sky, s=0, the merge
+//    (merge_mega), NEE, the connections, then the RGB9E5 retirement (K10).
+//    These are the float32 additions of the fused per-pixel loop, in its
+//    order; a strategy that contributed nothing adds +0, which leaves the
+//    sum unchanged.
+#pragma once
+
+#include <cstdint>
+
+#include "mega.cuh"
+
+namespace tpt {
+
+constexpr int kEyeClassic = 0;
+constexpr int kEyeMegaVcm = 1;
+constexpr int kEyeMegaBdpt = 2;
+
+// The record's flag bits; a record the walk did not reach is 0.
+constexpr int32_t kRecValid = 1;     // a hit whose BSDF sample has pdf >= EPS
+constexpr int32_t kRecNonDelta = 2;  // a hit on a non-delta surface
+constexpr int32_t kRecEscaped = 4;   // the closest ray missed (the sky slot)
+constexpr int32_t kRecEnd = 8;       // the walk's last record
+constexpr int32_t kRecConn = kRecValid | kRecNonDelta;  // strategies ran
+
+// The walk's records and terms, all [D, N] (element (t, i) at t n + i).
+struct EyeRecs {
+  float* pos;       // [D,N,3]
+  float* n;         // [D,N,3] the shade-time normal
+  float* to_prev;   // [D,N,3]
+  float* thr;       // [D,N,3]
+  float* albedo;    // [D,N,3]
+  float* trans;
+  int32_t* mat_id;
+  float* d_vcm;
+  float* d_vc;
+  float* d_vm;
+  int32_t* flags;
+  float* implicit;  // [D,N,3] the sky at an escape, else s=0
+  float* nee;       // [D,N,3]
+  int64_t stride;   // N
+};
+
+__device__ __forceinline__ void store_record(const EyeRecs& r, int64_t k,
+                                             const EyeVertex& e,
+                                             int32_t mat_id, int32_t flags,
+                                             V3 implicit, V3 nee) {
+  put3(r.pos, k, e.pos);
+  put3(r.n, k, e.n);
+  put3(r.to_prev, k, e.to_prev);
+  put3(r.thr, k, e.thr);
+  put3(r.albedo, k, e.albedo);
+  r.trans[k] = e.trans;
+  r.mat_id[k] = mat_id;
+  r.d_vcm[k] = e.d_vcm;
+  r.d_vc[k] = e.d_vc;
+  r.d_vm[k] = e.d_vm;
+  r.flags[k] = flags;
+  put3(r.implicit, k, implicit);
+  put3(r.nee, k, nee);
+}
+
+// The record of a depth the walk escaped at: its flags and the sky term;
+// the vertex fields are not written (no stage reads them).
+__device__ __forceinline__ void store_escape(const EyeRecs& r, int64_t k,
+                                             V3 sky) {
+  r.flags[k] = kRecEscaped | kRecEnd;
+  put3(r.implicit, k, sky);
+}
+
+__device__ __forceinline__ EyeVertex load_record(const SceneRefs& sc,
+                                                 const EyeRecs& r,
+                                                 int64_t k) {
+  EyeVertex e;
+  e.pos = get3(r.pos, k);
+  e.n = get3(r.n, k);
+  e.to_prev = get3(r.to_prev, k);
+  e.thr = get3(r.thr, k);
+  e.albedo = get3(r.albedo, k);
+  e.trans = r.trans[k];
+  e.d_vcm = r.d_vcm[k];
+  e.d_vc = r.d_vc[k];
+  e.d_vm = r.d_vm[k];
+  e.m = mat_of(sc, r.mat_id[k]);
+  return e;
+}
+
+struct EyeLaunch {
+  SceneRefs sc;
+  EyeParams p;
+  PathBufs light;      // [light_rows, n_buf]
+  GridRefs grid;       // rows null without the merge
+  const int32_t* px;   // [n]
+  const int32_t* py;
+  const float* fb;     // classic: nullable, added to the result
+  float* out;          // classic [n,3]; mega [P,3], row gbase + i
+  int32_t* rays;       // [n] +=
+  int32_t* dropped;    // [n] =
+  int32_t* rows;       // [n] += or null
+  EyeRecs rec;
+  float* conn;         // [D, light_rows, n, 3]; null without connections
+  int64_t n;
+  int flavor, engine;
+};
+
+// ---- 1. the eye walk ---------------------------------------------------
+
+template <int kFlavor, int kEngine>
+__device__ __forceinline__ void eye_walk_one(const EyeLaunch& c, int64_t i) {
+  constexpr bool kMega = kFlavor != kEyeClassic;
+  constexpr bool kBdpt = kFlavor == kEyeMegaBdpt;
+  const SceneRefs& sc = c.sc;
+  const EyeParams& p = c.p;
+  const Weighting& wt = p.weighting;
+  const int32_t px = c.px[i], py = c.py[i];
+  const uint32_t id = static_cast<uint32_t>((py << 14) + px);
+  const uint32_t gid =
+      kMega ? static_cast<uint32_t>(p.gbase + i) * kMegaIdStride : 0u;
+  float org[3], dir[3];
+  camera_ray(p.cam, static_cast<float>(px), static_cast<float>(py), id, org,
+             dir);
+  V3 o = v3(org[0], org[1], org[2]);
+  V3 d = v3(dir[0], dir[1], dir[2]);
+  const V3 fwd = v3(p.cam.forward[0], p.cam.forward[1], p.cam.forward[2]);
+  const float cos_cam = fabsf(dot(fwd, d));
+  float prev_pdf = 1.0f / (p.plane_area * cube(cos_cam));
+  float prev_cos = cos_cam;
+  V3 thr = v3(1.0f, 1.0f, 1.0f), prev_pt = o;
+  bool prev_delta = true;
+  MisState ms;
+  ms.d_vcm = ms.d_vc = ms.d_vm = ms.pdf_rev_prev = 0.0f;
+  ms.prev_was_delta = false;
+  const V3 zero = v3(0.0f, 0.0f, 0.0f);
+  int32_t rays = 0, rows = 0;
+  int written = 0;
+
+  for (int depth = 0; depth < p.eye_depth; ++depth) {
+    const int64_t k = depth * c.rec.stride + i;
+    written = depth + 1;
+    ++rays;
+    const Trace8 h = trace_ray<kEngine, false>(sc, o.x, o.y, o.z, d.x, d.y,
+                                               d.z, kBigT, -1, true);
+    rows += h.rows;
+    if (h.tri < 0) {  // escaped: the sky, weight 1
+      store_escape(c.rec, k, p.sample_environment
+                                 ? wt(mul(thr, sample_sky(d, true)), 1.0f)
+                                 : zero);
+      break;
+    }
+    const ShadeHit s =
+        shade_fetch(sc.tri_f32, sc.tri_cols, h.tri, h.u, h.v, o, d, h.t);
+    EyeVertex e;
+    e.m = s.mat;
+    e.pos = s.point;
+    e.n = s.normal;
+    e.thr = thr;
+    const V3 wo_local = to_local(d, e.n);
+    e.albedo = resolve_albedo(sc.textures, s);
+    e.trans = resolve_transmission(sc.textures, s);
+    const bool cur_delta = e.m.is_specular;
+
+    const float d2p = fmaxf(length_sq(sub(e.pos, prev_pt)), kRayEps);
+    const float pdf_fwd_area = prev_pdf * fabsf(wo_local.z) / d2p;
+    const float g = prev_cos / d2p;
+    const uint32_t did = gid + static_cast<uint32_t>(depth);
+    Sample bs;
+    KeyDraws bd;
+    if constexpr (kMega) {
+      bs = bsdf_sample(TableDraws{p.bsdf_keys, did}, e.m, e.albedo,
+                       neg(wo_local), s.backface, 1.0f, e.trans, true);
+    } else {
+      bd = fold_draws(p.key_e0, p.key_e1, static_cast<uint32_t>(depth), id);
+      bs = bsdf_sample(bd, e.m, e.albedo, neg(wo_local), s.backface, 1.0f,
+                       e.trans, true);
+    }
+    const float pdf_rev_sa = bsdf_pdf(e.m, bs.wo, neg(wo_local), 1.0f,
+                                      e.trans);
+    const bool valid = bs.pdf >= kEps;
+    const MisState mv = mis_advance(
+        ms, depth == 0, pdf_fwd_area, g, pdf_rev_sa, cur_delta,
+        1.0f / fmaxf(pdf_fwd_area, 1e-20f), 0.0f, 0.0f, !kBdpt, p.eta_vcm);
+    e.d_vcm = mv.d_vcm;
+    e.d_vc = mv.d_vc;
+    e.d_vm = mv.d_vm;
+    e.to_prev = normalize(sub(prev_pt, e.pos));
+
+    V3 s0 = zero, ne = zero;
+    if (valid && !cur_delta) {
+      // s = 0: the eye walk hit a light
+      if (p.naive && s.light_ind >= 0 && !s.backface) {
+        if constexpr (kBdpt)
+          s0 = implicit_bdpt(sc, p, s.light_ind, e, prev_pt, prev_delta,
+                             depth);
+        else
+          s0 = implicit_vcm(sc, wt, s.light_ind, e, prev_delta, depth);
+      }
+      // s = 1: NEE
+      if (p.nee && sc.lights.count > 0) {
+        if constexpr (kMega) {
+          EyeVertex ec = e;  // the normal toward the previous vertex
+          if (dot(e.n, e.to_prev) < 0.0f) ec.n = neg(e.n);
+          ne = nee_mega<kBdpt>(sc, p, ec, did, rays, rows);
+        } else {
+          ne = nee_vcm<kEngine>(sc, wt, p.eta_vcm, e, bd, id,
+                                to_local(sub(e.pos, prev_pt), e.n), rays,
+                                rows);
+        }
+      }
+    }
+    // SPPM ends the walk after its first non-delta surface
+    const bool stop = !valid || (p.sppm && p.merge && !cur_delta);
+    const int32_t flags = (valid ? kRecValid : 0) |
+                          (cur_delta ? 0 : kRecNonDelta) |
+                          (stop || depth + 1 == p.eye_depth ? kRecEnd : 0);
+    store_record(c.rec, k, e, s.mat_id, flags, s0, ne);
+    if (stop) break;
+
+    // continue the walk
+    thr = scale(mul(thr, bs.f), fabsf(bs.wo.z) / fmaxf(bs.pdf, 1e-20f));
+    const V3 wi_world = normalize(to_world(bs.wo, e.n));
+    const float side = dot(wi_world, e.n) < 0.0f ? -1.0f : 1.0f;
+    o = add(e.pos, scale(e.n, side * kRayEps));
+    d = wi_world;
+    prev_pdf = bs.pdf;
+    prev_cos = fabsf(bs.wo.z);
+    prev_pt = e.pos;
+    prev_delta = cur_delta;
+  }
+  for (int t = written; t < p.eye_depth; ++t)
+    c.rec.flags[t * c.rec.stride + i] = 0;  // not reached: only the flags
+  c.rays[i] += rays;
+  if (c.rows != nullptr) c.rows[i] += rows;
+}
+
+// ---- 2. the connections ------------------------------------------------
+
+// Pair (t, j, i): eye record t of path i against light vertex j of lane i.
+template <int kFlavor, int kEngine>
+__device__ __forceinline__ void eye_connect_one(const EyeLaunch& c, int t,
+                                                int j, int64_t i) {
+  constexpr bool kMega = kFlavor != kEyeClassic;
+  constexpr bool kBdpt = kFlavor == kEyeMegaBdpt;
+  const int64_t k = t * c.rec.stride + i;
+  if ((c.rec.flags[k] & kRecConn) != kRecConn) return;
+  V3 out = v3(0.0f, 0.0f, 0.0f);
+  const int64_t kl = j * c.light.n + i;
+  if (c.light.valid[kl] && !unpack_flags(c.light.flags[kl]).is_delta) {
+    EyeVertex e = load_record(c.sc, c.rec, k);
+    if (kMega && dot(e.n, e.to_prev) < 0.0f) e.n = neg(e.n);
+    const Vertex lv = load_vertex(c.light, j, i);
+    ConnRay cr;
+    int32_t rays = 0, rows = 0;
+    if (conn_ray<kEngine>(c.sc, e, lv, cr, rays, rows)) {
+      atomicAdd(c.rays + i, rays);
+      if (c.rows != nullptr) atomicAdd(c.rows + i, rows);
+      if (max3(cr.sh.s0, cr.sh.s1, cr.sh.s2) > 0.0f) {
+        float weight;
+        const V3 base = conn_terms(c.sc, c.p.eta_vcm, e, lv, cr, weight);
+        const Weighting& wt = c.p.weighting;
+        if constexpr (kMega)
+          out = resolve<kBdpt>(wt, wt(base, weight), cr.sh);
+        else
+          out = clamp_firefly(
+              wt(mul(base, v3(cr.sh.s0, cr.sh.s1, cr.sh.s2)), weight));
+      }
+    }
+  }
+  put3(c.conn,
+       (static_cast<int64_t>(t) * c.p.light_rows + j) * c.rec.stride + i,
+       out);
+}
+
+// ---- 3. the merge and the ordered gather -------------------------------
+
+template <int kFlavor>
+__device__ __forceinline__ void eye_gather_one(const EyeLaunch& c,
+                                               int64_t i) {
+  constexpr bool kMega = kFlavor != kEyeClassic;
+  const EyeParams& p = c.p;
+  const int64_t n = c.rec.stride;
+  const bool merge = p.merge && kFlavor != kEyeMegaBdpt;
+  const bool conns = p.connection && c.conn != nullptr;
+  V3 li = v3(0.0f, 0.0f, 0.0f);
+  int32_t dropped = 0;
+  for (int t = 0; t < p.eye_depth; ++t) {
+    const int64_t k = t * n + i;
+    const int32_t f = c.rec.flags[k];
+    if (f == 0) break;
+    if (f & kRecEscaped) {
+      if (p.sample_environment) li = add(li, get3(c.rec.implicit, k));
+      break;
+    }
+    if ((f & kRecConn) == kRecConn) {
+      li = add(li, get3(c.rec.implicit, k));
+      if (kMega && merge) {
+        const EyeVertex e = load_record(c.sc, c.rec, k);
+        li = add(li, merge_mega(p, c.grid, e, dropped));
+      }
+      li = add(li, get3(c.rec.nee, k));
+      if (conns)
+        for (int j = 0; j < p.light_rows; ++j)
+          li = add(li, get3(c.conn, (static_cast<int64_t>(t) * p.light_rows +
+                                     j) * n + i));
+      if (!kMega && merge) {
+        const EyeVertex e = load_record(c.sc, c.rec, k);
+        const V3 prev_loc = to_local(e.to_prev, e.n);
+        const float eta = fmaxf(p.eta_vcm, 1e-30f);
+        const Weighting& wt = p.weighting;
+        dropped += fold_neighbors(c.grid, e.pos, [&](const Photon& ph,
+                                                     float w) {
+          float weight;
+          const V3 base = merge_term(e, prev_loc, ph, eta, weight);
+          li = add(li, wt(scale(scale(base, p.merge_norm), w), weight));
+        });
+      }
+    }
+    if (f & kRecEnd) break;
+  }
+  if constexpr (kMega) {
+    put3(c.out, p.gbase + i, round_rgb9e5(li));
+  } else {
+    if (c.fb != nullptr) li = add(li, get3(c.fb, i));
+    put3(c.out, i, li);
+  }
+  c.dropped[i] = dropped;
+}
+
+// ---- host side: the C entries' argument block ------------------------------
+
+// The layout the three entries (eye_walk.cu, eye_connect.cu,
+// eye_gather.cu) share.
+// ptrs: 0 table, 1 tri_f32, 2 light_f32, 3 mat_f32, 4 textures, 5 px,
+// 6 py, 7-17 the 11 light-buffer fields [light_rows, n_buf], 18 grid rows,
+// 19 cell_se (0, 0 without the merge), 20 fb (classic; 0 = none), 21 out,
+// 22 rays, 23 dropped, 24 rows (0 = none), 25 the node table (0 under
+// BVH8), 26-38 the records: pos, n, to_prev, thr, albedo, trans, mat_id,
+// d_vcm, d_vc, d_vm, flags, implicit, nee; 39 conn (0 without
+// connections).
+// iv: 0 n (paths), 1 n_buf (the light buffers' lanes), 2 tri_cols,
+// 3 num_lights, 4 eye_depth, 5 light_rows, 6 flavor, 7 naive, 8 nee,
+// 9 connection, 10 do_mis, 11 paint_weight, 12 sample_environment,
+// 13 merge, 14 sppm, 15 table_size, 16 max_per_cell, 17 one_brick,
+// 18 reweight, 19 grid rows P8, 20 gbase, 21 engine, 22 node_w, 23 leaf_k.
+// fv: the 19 camera floats, plane_area, eta_vcm, merge_norm,
+// scene_min[3], cell_size, merge radius squared.
+// keys (22 words): the 8 camera draw-key words, then classic: 2 unused,
+// the eye key pair; mega: the BSDF draw keys 0-3 and NEE's 16-18.
+inline bool eye_launch(const int64_t* ptrs, const int64_t* iv,
+                       const float* fv, const uint32_t* keys, EyeLaunch& c) {
+  c.n = iv[0];
+  const int64_t n_buf = iv[1];
+  c.sc.table = dev_ptr<const float>(ptrs, 0);
+  c.sc.tri_f32 = dev_ptr<const float>(ptrs, 1);
+  c.sc.tri_cols = static_cast<int>(iv[2]);
+  c.sc.lights.rows = dev_ptr<const float>(ptrs, 2);
+  c.sc.lights.count = static_cast<int32_t>(iv[3]);
+  c.sc.mat_f32 = dev_ptr<const float>(ptrs, 3);
+  c.sc.textures = dev_ptr<const float>(ptrs, 4);
+  c.px = dev_ptr<const int32_t>(ptrs, 5);
+  c.py = dev_ptr<const int32_t>(ptrs, 6);
+  c.flavor = static_cast<int>(iv[6]);
+  EyeParams& p = c.p;
+  p.cam = make_camera(fv, keys);
+  p.plane_area = fv[19];
+  p.eta_vcm = fv[20];
+  p.merge_norm = fv[21];
+  p.key_e0 = keys[10];
+  p.key_e1 = keys[11];
+  for (int k = 0; k < 8; ++k) p.bsdf_keys[k] = keys[8 + k];
+  for (int k = 0; k < 6; ++k) p.nee_keys[k] = keys[16 + k];
+  p.eye_depth = static_cast<int>(iv[4]);
+  p.light_rows = static_cast<int>(iv[5]);
+  p.naive = iv[7] != 0;
+  p.nee = iv[8] != 0;
+  p.connection = iv[9] != 0;
+  p.weighting.do_mis = iv[10] != 0;
+  p.weighting.paint_weight = iv[11] != 0;
+  p.sample_environment = iv[12] != 0;
+  p.merge = iv[13] != 0;
+  p.sppm = iv[14] != 0;
+  p.gbase = iv[20];
+  c.light = path_bufs(ptrs + 7, n_buf, p.light_rows);
+  GridRefs& g = c.grid;
+  g.rows = dev_ptr<const float>(ptrs, 18);
+  g.cell_se = dev_ptr<const int32_t>(ptrs, 19);
+  g.geom.table_size = static_cast<uint32_t>(iv[15]);
+  g.cap = static_cast<int>(iv[16]);
+  g.one_brick = iv[17] != 0;
+  g.reweight = iv[18] != 0;
+  g.n_rows = iv[19];
+  for (int k = 0; k < 3; ++k) g.geom.smin[k] = fv[22 + k];
+  g.geom.cell_size = fv[25];
+  g.r2 = fv[26];
+  c.fb = dev_ptr<const float>(ptrs, 20);
+  c.out = dev_ptr<float>(ptrs, 21);
+  c.rays = dev_ptr<int32_t>(ptrs, 22);
+  c.dropped = dev_ptr<int32_t>(ptrs, 23);
+  c.rows = dev_ptr<int32_t>(ptrs, 24);
+  c.engine = engine_refs(ptrs, 25, iv, 21, c.sc);
+  EyeRecs& r = c.rec;
+  r.pos = dev_ptr<float>(ptrs, 26);
+  r.n = dev_ptr<float>(ptrs, 27);
+  r.to_prev = dev_ptr<float>(ptrs, 28);
+  r.thr = dev_ptr<float>(ptrs, 29);
+  r.albedo = dev_ptr<float>(ptrs, 30);
+  r.trans = dev_ptr<float>(ptrs, 31);
+  r.mat_id = dev_ptr<int32_t>(ptrs, 32);
+  r.d_vcm = dev_ptr<float>(ptrs, 33);
+  r.d_vc = dev_ptr<float>(ptrs, 34);
+  r.d_vm = dev_ptr<float>(ptrs, 35);
+  r.flags = dev_ptr<int32_t>(ptrs, 36);
+  r.implicit = dev_ptr<float>(ptrs, 37);
+  r.nee = dev_ptr<float>(ptrs, 38);
+  r.stride = c.n;
+  c.conn = dev_ptr<float>(ptrs, 39);
+  const bool mega = c.flavor != kEyeClassic;
+  const bool merge = p.merge && c.flavor != kEyeMegaBdpt;
+  bool grid_ok = !merge || (g.rows != nullptr && g.cell_se != nullptr &&
+                            g.geom.table_size > 0 && g.cap >= 1);
+  if (mega && merge) grid_ok = grid_ok && g.n_rows >= 16 && g.n_rows % 8 == 0;
+  const bool recs_ok = r.pos && r.n && r.to_prev && r.thr && r.albedo &&
+                       r.trans && r.mat_id && r.d_vcm && r.d_vc && r.d_vm &&
+                       r.flags && r.implicit && r.nee;
+  return c.flavor >= kEyeClassic && c.flavor <= kEyeMegaBdpt &&
+         p.eye_depth >= 1 && p.light_rows >= (mega ? 0 : 1) &&
+         c.n <= n_buf && grid_ok && recs_ok && c.engine >= 0 &&
+         (!mega || c.engine == kEngineBvh8);
+}
+
+}  // namespace tpt

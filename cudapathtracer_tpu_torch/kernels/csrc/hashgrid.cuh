@@ -8,9 +8,9 @@
 // fold_neighbors (240) with _window_weight and one_brick_active, and the
 // materialised forms neighbor_slots (412), neighbor_slots_compact (512) and
 // gather_neighbors (203). The grid kernels (photon_grid.cu) pack, hash and
-// index the photons; the VCM eye kernel (vcm_eye.cu) folds each eye
-// vertex's candidates through fold_neighbors below, the mega eye kernel
-// (mega_eye.cu) sums them over neighbor_slots' slots (cap <= 8), and
+// index the photons; the eye passes' gather (eye_gather.cu) folds each
+// eye vertex's candidates through fold_neighbors below (classic pass) or
+// sums them over neighbor_slots' slots (K14, cap <= 8), and
 // neighbor_slots.cu materialises the three forms over a batch of queries.
 //
 // The merge keeps the JAX candidate set and fold order, not its TPU

@@ -2,8 +2,8 @@
 // every candidate slot's photon row, its in-range flag and its weight, for
 // the comparison with the plain versions (ops/hashgrid.py). On the mega
 // path the same slot enumeration (hashgrid.cuh neighbor_slots) runs inside
-// the eye kernel (mega_eye.cu), which sums over the slots instead of
-// storing them; this launch is its test entry.
+// the mega eye pass's gather (eye_gather.cu), which sums over the slots
+// instead of storing them; this launch is its test entry.
 //
 // Replaces cudapathtracer_tpu/ops/hashgrid.py:neighbor_slots (412),
 // neighbor_slots_compact (512) and gather_neighbors (203), by mode:

@@ -9,7 +9,7 @@
 // the connections (bdpt_splat.cu, bdpt_connect.cu) decode; packing.cu
 // launches them over a batch for the comparison with the plain versions.
 // Also the RGB9E5 word (below) through which the mega kernels (uni_mega.cu,
-// mega_eye.cu) retire each path's radiance.
+// the mega eye pass's gather eye_gather.cu) retire each path's radiance.
 //
 // Bit parity with the JAX package: snorm16 rounding is round-half-even
 // (rintf, as jnp.round); float -> half is __float2half_rn (XLA's convert);

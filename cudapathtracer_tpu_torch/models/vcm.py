@@ -8,19 +8,24 @@ Counterpart of cudapathtracer_tpu/models/vcm.py. One sample is:
      splatted);
   2. the photon grid over every stored light vertex that is valid and not
      delta (ops/hashgrid.py, salted per sample);
-  3. the eye pass: an eye walk of eye_depth bounces carried on the fly
-     (nothing stored), each bounce adding s=0 (a light hit), s=1 (NEE),
-     s>=2 (a connection to every stored light vertex of the same pixel id)
-     and the merge with the photons within the merge radius.
+  3. the eye pass: an eye walk of eye_depth bounces, each bounce adding
+     s=0 (a light hit), s=1 (NEE), s>=2 (a connection to every stored
+     light vertex of the same pixel id) and the merge with the photons
+     within the merge radius, in three stages: the walk with s=0 and NEE
+     (per-vertex records), the connections (one per eye vertex, light
+     vertex and pixel), the merge and the sum of the terms in the JAX
+     order.
 SPPM turns off the connections, NEE, the light hits, the splat and MIS,
 and ends each eye path after its first non-delta surface.
 
 On CUDA tensors `render_sample` launches K12 (bdpt_walk.cu, light mode
 with eta_vcm), K11's VCM form (vcm_splat, bdpt_splat.cu), K8 (photon_pack,
-a stable torch.sort, photon_table: photon_grid.cu) and the eye kernel
-(K13's VCM form with the K9 merge, vcm_eye.cu): five launches and a sort
-per sample (SPPM: no splat). On CPU tensors it runs `render_plain`, the
-plain versions operation for operation over [N] lanes. The merge radius,
+a stable torch.sort, photon_table: photon_grid.cu) and the eye pass
+(K13's VCM form with the K9 merge: eye_walk.cu, eye_connect.cu,
+eye_gather.cu): seven launches and a sort per sample (SPPM: no splat and
+no connection stage). On CPU tensors it runs `render_plain`, the plain
+versions operation for operation over [N] lanes (each eye stage's twin:
+eye_walk_plain, eye_connect_plain, eye_gather_plain). The merge radius,
 eta_vcm and the merge normalisation are float32 values computed once per
 sample on the host (`sample_scalars`) and given to both.
 
@@ -38,6 +43,7 @@ from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -138,20 +144,91 @@ def vcm_light_splat(scene, camera, lbufs, cfg: VCMConfig, eta_vcm: float,
     return fb, rays
 
 
-# --- the eye pass (K13's VCM form with the K9 merge) -------------------------
+# --- the eye pass (K13's VCM form with the K9 merge), in three stages --------
 
-def eye_pass_plain(scene, camera, key_e, lbufs, grid, cfg: VCMConfig, px, py,
-                   mr: float, eta_vcm: float, merge_norm: float):
-    """Plain version of vcm_eye (any device): the eye walk of every pixel
-    with its per-bounce strategies and merge, in the JAX order. lbufs: the
-    light buffers [light_depth, N]; grid: a PhotonGrid or None (no merge).
-    Returns (radiance [N,3] without the splat, rays as a Python int,
-    merge-cap dropped photons as a Python int)."""
+# the record's flag bits (kernels/csrc/eye.cuh kRec*); a depth the walk did
+# not reach is 0
+REC_VALID = 1       # a hit whose BSDF sample has pdf >= EPSILON
+REC_NON_DELTA = 2   # a hit on a non-delta surface
+REC_ESCAPED = 4     # the closest ray missed: the implicit slot holds the sky
+REC_END = 8         # the walk's last record
+REC_CONN = REC_VALID | REC_NON_DELTA   # the strategies ran at the vertex
+
+
+class EyeRecords(NamedTuple):
+    """The eye walk stage's output, depth-major [D, N, ...] (eye.cuh
+    EyeRecs): each vertex's record, which the connection and gather stages
+    read, and the two terms the walk computed there. A hit holds every
+    field; an escape its flags and the sky term in `implicit`; a depth the
+    walk did not reach its flags (0). The plain stages write zeros where
+    the kernel writes nothing."""
+    pos: torch.Tensor       # [D,N,3] f32
+    n: torch.Tensor         # [D,N,3] f32, the shade-time normal
+    to_prev: torch.Tensor   # [D,N,3] f32, normalize(prev - pos)
+    thr: torch.Tensor       # [D,N,3] f32, the throughput at the vertex
+    albedo: torch.Tensor    # [D,N,3] f32
+    trans: torch.Tensor     # [D,N] f32
+    mat_id: torch.Tensor    # [D,N] i32 (scene.mat_f32's row)
+    d_vcm: torch.Tensor     # [D,N] f32
+    d_vc: torch.Tensor      # [D,N] f32
+    d_vm: torch.Tensor      # [D,N] f32
+    flags: torch.Tensor     # [D,N] i32, REC_*
+    implicit: torch.Tensor  # [D,N,3] f32, s=0 (or the sky at an escape)
+    nee: torch.Tensor       # [D,N,3] f32, s=1
+
+    @classmethod
+    def empty(cls, depth: int, n: int, device, fill=torch.empty):
+        f = lambda *tail, dt=torch.float32: fill((depth, n) + tail,
+                                                 dtype=dt, device=device)
+        return cls(pos=f(3), n=f(3), to_prev=f(3), thr=f(3), albedo=f(3),
+                   trans=f(), mat_id=f(dt=torch.int32), d_vcm=f(), d_vc=f(),
+                   d_vm=f(), flags=f(dt=torch.int32), implicit=f(3),
+                   nee=f(3))
+
+    def put(self, t: int, where, **fields) -> None:
+        """Write fields of depth t on the lanes `where` (others keep their
+        values)."""
+        for k, v in fields.items():
+            dst = getattr(self, k)[t]
+            m = where if dst.dim() == 1 else where[:, None]
+            dst.copy_(torch.where(m, v, dst))
+
+    def eye(self, scene, t: int) -> dict:
+        """Depth t's vertices as the strategies take them (the material
+        re-read from mat_f32's rows, which equal the shade rows'; row 0
+        where the strategies did not run, whose fields the kernel leaves
+        unwritten)."""
+        mat_id = torch.where(self.conn(t), self.mat_id[t], 0)
+        return dict(pos=self.pos[t], n=self.n[t], to_prev=self.to_prev[t],
+                    thr=self.thr[t], albedo=self.albedo[t],
+                    trans=self.trans[t], d_vcm=self.d_vcm[t],
+                    d_vc=self.d_vc[t], d_vm=self.d_vm[t],
+                    mat=_gather_mat(scene, mat_id))
+
+    def conn(self, t: int):
+        """[N] bool: the strategies ran at depth t."""
+        return (self.flags[t] & REC_CONN) == REC_CONN
+
+
+def record_flags(reached, missed, valid, cur_delta, stop, last: bool):
+    """The flag word of one depth: hits VALID / NON_DELTA / END, escapes
+    ESCAPED | END, the rest 0."""
+    hit = (valid.int() * REC_VALID + (~cur_delta).int() * REC_NON_DELTA
+           + (stop | last).int() * REC_END)
+    return torch.where(reached, hit, torch.where(
+        missed, REC_ESCAPED | REC_END, 0)).to(torch.int32)
+
+
+def eye_walk_plain(scene, camera, key_e, cfg: VCMConfig, px, py,
+                   eta_vcm: float):
+    """Plain version of the classic eye walk stage (eye_walk.cu, any
+    device): every pixel's walk with s=0 and NEE per vertex, in the JAX
+    order. -> (EyeRecords [eye_depth, N], closest and NEE rays as a Python
+    int)."""
     n, dev = px.shape[0], px.device
     ids = rng.pixel_ids(px, py)
     ones = torch.ones(n, dtype=torch.float32, device=dev)
     zeros = torch.zeros(n, dtype=torch.float32, device=dev)
-    num_lights = max(scene.num_lights, 1)
     start, _ = paths.start_eye_walk(scene, camera, key_e, px, py, ids)
     o, d, thr = start.o, start.d, start.throughput
     prev_pdf_sa, prev_cos, prev_pt = (start.prev_pdf_sa, start.prev_cos,
@@ -159,10 +236,8 @@ def eye_pass_plain(scene, camera, key_e, lbufs, grid, cfg: VCMConfig, px, py,
     mstate = mis.MisState.zeros(n, dev)
     alive = torch.ones(n, dtype=torch.bool, device=dev)
     prev_delta = torch.ones(n, dtype=torch.bool, device=dev)
-    colorsum = torch.zeros((n, 3), dtype=torch.float32, device=dev)
-    rays = dropped = 0
-    lverts = ([_vertex(lbufs, j) for j in range(cfg.light_depth)]
-              if cfg.connection else [])
+    rec = EyeRecords.empty(cfg.eye_depth, n, dev, fill=torch.zeros)
+    rays = 0
     for depth in range(cfg.eye_depth):
         if not bool(alive.any()):
             break
@@ -171,10 +246,10 @@ def eye_pass_plain(scene, camera, key_e, lbufs, grid, cfg: VCMConfig, px, py,
         hit = traverse.closest_hit(scene, o, d, active=alive)
         info, mat = traverse.shade_data(scene, o, d, hit)
         reached = alive & hit.valid
+        missed = alive & ~hit.valid
         if cfg.sample_environment:
-            missed = alive & ~hit.valid
-            out = _weighted(thr * common.sample_sky(d, True), ones, cfg)
-            colorsum = colorsum + torch.where(missed[:, None], out, 0.0)
+            sky = _weighted(thr * common.sample_sky(d, True), ones, cfg)
+            rec.put(depth, missed, implicit=sky)
 
         normal, pos = info["normal"], info["point"]
         wo_local = to_local(d, normal)
@@ -202,12 +277,13 @@ def eye_pass_plain(scene, camera, key_e, lbufs, grid, cfg: VCMConfig, px, py,
         to_prev = normalize(prev_pt - pos)
 
         # s = 0: the eye walk hit a light (no eta_vcm in this weight)
+        s0 = torch.zeros_like(pos)
         if cfg.naive:
-            colorsum = colorsum + implicit_vcm(
-                scene, info, conn, to_prev, prev_delta, thr, d_vcm, d_vc,
-                depth, cfg)
+            s0 = implicit_vcm(scene, info, conn, to_prev, prev_delta, thr,
+                              d_vcm, d_vc, depth, cfg)
 
         # s = 1: NEE, w_light the squared pdf ratio
+        nee = torch.zeros_like(pos)
         if cfg.nee and scene.num_lights > 0:
             rays += int(conn.sum())
             ne = _bdpt_nee(scene, bkey, 7, ev, mat, albedo,
@@ -229,36 +305,24 @@ def eye_pass_plain(scene, camera, key_e, lbufs, grid, cfg: VCMConfig, px, py,
                                          + pdf_prev_rev_sa * d_vc)
             weight = 1.0 / (1.0 + w_light + w_eye)
             out = _clamp_firefly(_weighted(ne["contrib"] * thr, weight, cfg))
-            colorsum = colorsum + torch.where((conn & ne["ok"])[:, None], out,
-                                              0.0)
+            nee = torch.where((conn & ne["ok"])[:, None], out, 0.0)
 
-        # s >= 2: connections to every stored light vertex
-        eye = dict(pos=pos, n=normal, mat=mat, albedo=albedo, trans=trans,
-                   thr=thr, d_vcm=d_vcm, d_vc=d_vc, d_vm=d_vm,
-                   to_prev=to_prev)
-        for lv in lverts:
-            colorsum, r = _connect_vcm(scene, eye, lv, conn, ones, colorsum,
-                                       cfg, eta_vcm)
-            rays += r
+        # SPPM ends the walk after its first non-delta surface
+        keep = valid
+        if cfg.do_sppm and cfg.do_merge:
+            keep = keep & cur_delta
+        rec.put(depth, reached, pos=pos, n=normal, to_prev=to_prev, thr=thr,
+                albedo=albedo, trans=trans, mat_id=info["mat_id"],
+                d_vcm=d_vcm, d_vc=d_vc, d_vm=d_vm, implicit=s0, nee=nee)
+        rec.flags[depth] = record_flags(reached, missed, valid, cur_delta,
+                                        ~keep, depth == cfg.eye_depth - 1)
 
-        # the merge with the photons around pos
-        if grid is not None:
-            fold = _merge_fold(eye | dict(prev_loc=to_local(to_prev, normal)),
-                               cfg, eta_vcm, merge_norm)
-            colorsum, drop = hashgrid.fold_neighbors(
-                grid, pos, mr, cfg.max_per_cell, fold, colorsum, active=conn,
-                count_dropped=True)
-            dropped += drop
-
-        # continue the walk; SPPM ends it after its first non-delta surface
+        # continue the walk
         new_thr = thr * f_val * (torch.abs(wi_local[..., 2])
                                  / torch.clamp(pdf_sa, min=1e-20))[:, None]
         wi_world = normalize(to_world(wi_local, normal))
         side = torch.where(dot(wi_world, normal) < 0.0, -1.0, 1.0)
         new_o = pos + normal * (side * RAY_EPSILON)[:, None]
-        keep = valid
-        if cfg.do_sppm and cfg.do_merge:
-            keep = keep & cur_delta
         upd = valid[:, None]
         o = torch.where(upd, new_o, o)
         d = torch.where(upd, wi_world, d)
@@ -270,7 +334,87 @@ def eye_pass_plain(scene, camera, key_e, lbufs, grid, cfg: VCMConfig, px, py,
                                 for a2, a1 in zip(mstate2, mstate)))
         alive = keep
         prev_delta = torch.where(reached, cur_delta, prev_delta)
-    return colorsum, rays, dropped
+    return rec, rays
+
+
+def eye_connect_plain(scene, rec: EyeRecords, lbufs, cfg: VCMConfig,
+                      eta_vcm: float):
+    """Plain version of the classic connection stage (eye_connect.cu, any
+    device): every (eye depth t, light row j, path) pair's clamped
+    weighted connection, shadowed on the scene's engine. -> (conn [D, L,
+    N, 3], zero where the pair traces nothing; shadow rays as a Python
+    int)."""
+    depth, n = rec.flags.shape
+    lrows = lbufs.pt.shape[0]
+    dev = rec.pos.device
+    conn = torch.zeros((depth, lrows, n, 3), dtype=torch.float32, device=dev)
+    ones = torch.ones(n, dtype=torch.float32, device=dev)
+    lverts = [_vertex(lbufs, j) for j in range(lrows)]
+    rays = 0
+    for t in range(depth):
+        live = rec.conn(t)
+        if not bool(live.any()):
+            continue
+        e = rec.eye(scene, t)
+        for j, lv in enumerate(lverts):
+            conn[t, j], r = _connect_vcm(scene, e, lv, live, ones, cfg,
+                                         eta_vcm)
+            rays += r
+    return conn, rays
+
+
+def eye_gather_plain(scene, rec: EyeRecords, conn, grid, cfg: VCMConfig,
+                     mr: float, eta_vcm: float, merge_norm: float):
+    """Plain version of the classic gather stage (eye_gather.cu, any
+    device): per depth the sky, s=0, NEE, the connections j = 0, 1, ...
+    and the merge with the photons around the vertex (grid: a PhotonGrid,
+    or None without the merge), added in that order from zero. conn: the
+    connection stage's [D, L, N, 3], or None. -> (radiance [N,3] without
+    the splat, merge-cap dropped photons as a Python int)."""
+    depth, n = rec.flags.shape
+    li = torch.zeros((n, 3), dtype=torch.float32, device=rec.pos.device)
+    dropped = 0
+    for t in range(depth):
+        f = rec.flags[t]
+        if not bool((f != 0).any()):
+            break
+        if cfg.sample_environment:
+            li = li + torch.where(((f & REC_ESCAPED) != 0)[:, None],
+                                  rec.implicit[t], 0.0)
+        live = rec.conn(t)
+        m = live[:, None]
+        li = li + torch.where(m, rec.implicit[t], 0.0)
+        li = li + torch.where(m, rec.nee[t], 0.0)
+        if conn is not None:
+            for j in range(conn.shape[1]):
+                li = li + torch.where(m, conn[t, j], 0.0)
+        if grid is not None:
+            e = rec.eye(scene, t)
+            e["prev_loc"] = to_local(e["to_prev"], e["n"])
+            li, drop = hashgrid.fold_neighbors(
+                grid, e["pos"], mr, cfg.max_per_cell,
+                _merge_fold(e, cfg, eta_vcm, merge_norm), li, active=live,
+                count_dropped=True)
+            dropped += drop
+    return li, dropped
+
+
+def eye_pass_plain(scene, camera, key_e, lbufs, grid, cfg: VCMConfig, px, py,
+                   mr: float, eta_vcm: float, merge_norm: float):
+    """Plain version of vcm_eye (any device): the three stages in turn,
+    walk records, pair contributions (with the connections on), the
+    ordered gather with the merge. lbufs: the light buffers [light_depth,
+    N]; grid: a PhotonGrid or None (no merge). Returns (radiance [N,3]
+    without the splat, rays as a Python int, merge-cap dropped photons as
+    a Python int)."""
+    rec, rays = eye_walk_plain(scene, camera, key_e, cfg, px, py, eta_vcm)
+    conn = None
+    if cfg.connection:
+        conn, r = eye_connect_plain(scene, rec, lbufs, cfg, eta_vcm)
+        rays += r
+    li, dropped = eye_gather_plain(scene, rec, conn, grid, cfg, mr, eta_vcm,
+                                   merge_norm)
+    return li, rays, dropped
 
 
 def implicit_vcm(scene, info, conn, to_prev, prev_delta, thr, d_vcm, d_vc,
@@ -295,9 +439,10 @@ def implicit_vcm(scene, info, conn, to_prev, prev_delta, thr, d_vcm, d_vc,
     return torch.where(is_light[:, None], out, 0.0)
 
 
-def _connect_vcm(scene, e, lv, conn, ones, colorsum, cfg, eta_vcm):
-    """s >= 2 against one stored light vertex per lane; returns
-    (colorsum, the shadow rays traced)."""
+def _connect_vcm(scene, e, lv, conn, ones, cfg, eta_vcm):
+    """s >= 2 against one stored light vertex per lane: (what each lane
+    adds, zero where nothing is traced or the ray is blocked; the shadow
+    rays traced)."""
     do, e2l_u, dist, cos_l, cos_e, d2 = conn_geometry(e, lv, conn)
     rays = int(do.sum())
     shadow = traverse.shadow_factor(scene, e["pos"] + e["n"] * RAY_EPSILON,
@@ -306,7 +451,7 @@ def _connect_vcm(scene, e, lv, conn, ones, colorsum, cfg, eta_vcm):
     base, weight = conn_terms(scene, e, lv, ones, e2l_u, cos_l, cos_e, d2,
                               eta_vcm)
     out = _clamp_firefly(_weighted(base * shadow, weight, cfg))
-    return colorsum + torch.where(do[:, None], out, 0.0), rays
+    return torch.where(do[:, None], out, 0.0), rays
 
 
 def conn_geometry(e, lv, conn):

@@ -9,9 +9,10 @@ keeps TPU lanes busy; none of that is ported. Its image does not depend on
 the lane schedule, because every eye draw is keyed by the path's index in
 the pixel list g and its depth (id g * 64 + depth, keys draw_key(key_e,
 d): the BSDF draws 0-3, NEE's 16-18) and the primary ray by the pixel id
-(draw keys of fold_in(key_e, 2^20)). So the port runs one thread per pixel
-(kernels/csrc/mega_eye.cu, K14) and, on CPU tensors, the plain version
-below over [N] lanes per bounce.
+(draw keys of fold_in(key_e, 2^20)). So the port runs K14 as three staged
+kernels (kernels/csrc/eye_walk.cu, eye_connect.cu, eye_gather.cu: one
+thread per path, per (eye depth, light row, path) pair, per path) and, on
+CPU tensors, their plain twins below over [N] lanes.
 
 What is ported is the estimator, with its chunking (`mega_chunks`): the
 frame is cut into chunks of c_pix pixels (pad slots repeat the last pixel);
@@ -63,10 +64,12 @@ from cudapathtracer_tpu_torch import kernels
 from cudapathtracer_tpu_torch.models import common, light_mega, mis, paths
 from cudapathtracer_tpu_torch.models.bdpt import (MAX_G_NEE, _cube, _vertex,
                                                   _weighted)
-from cudapathtracer_tpu_torch.models.vcm import (VCMConfig, _clamp_firefly,
+from cudapathtracer_tpu_torch.models.vcm import (REC_ESCAPED, EyeRecords,
+                                                 VCMConfig, _clamp_firefly,
                                                  conn_geometry, conn_terms,
                                                  implicit_vcm, merge_terms,
-                                                 sample_keys, vcm_light_splat)
+                                                 record_flags, sample_keys,
+                                                 vcm_light_splat)
 from cudapathtracer_tpu_torch.ops import bsdf as bsdf_ops
 from cudapathtracer_tpu_torch.ops import hashgrid, traverse, traverse8
 from cudapathtracer_tpu_torch.scene.materials import TRANSPORT_IMPORTANCE
@@ -255,15 +258,18 @@ def _nee(scene, key_e, e, conn, ids, flavor: str, cfg, eta_vcm):
     return torch.where(do[:, None], out, 0.0), int(do.sum())
 
 
-def eye_pass_plain(scene, camera, key_e, lbufs, grid, cfg: VCMConfig, px,
-                   py, gbase: int, *, flavor: str = "vcm", mr: float = 0.0,
-                   eta_vcm: float = 0.0, merge_norm: float = 0.0):
-    """Plain version of K14 (any device): the mega eye pass of the n live
-    pixels (px, py) [n] of a chunk starting at list index gbase, paired
-    with the light buffers' lanes 0..n-1 (lbufs [L, >= n]; every row is a
-    connection candidate). grid: a PhotonGrid, or None (no merge).
-    -> (each path's radiance through RGB9E5 [n,3], rays as a Python int,
-    merge-cap dropped photons as a Python int)."""
+def _toward_prev(n, to_prev):
+    """The eye normal turned toward the previous vertex (NEE's and the
+    connections' normal)."""
+    return torch.where((dot(n, to_prev) < 0.0)[:, None], -n, n)
+
+
+def eye_walk_plain(scene, camera, key_e, cfg: VCMConfig, px, py, gbase: int,
+                   *, flavor: str = "vcm", eta_vcm: float = 0.0):
+    """Plain version of K14's eye walk stage (eye_walk.cu's mega flavours,
+    any device): the walk of the n pixels (px, py) [n] of a chunk starting
+    at list index gbase, with s=0 and NEE per vertex. -> (EyeRecords
+    [eye_depth, n], closest and NEE rays as a Python int)."""
     if flavor not in FLAVORS:
         raise ValueError(f"flavor {flavor!r}: one of {FLAVORS}")
     vcm = flavor == "vcm"
@@ -279,13 +285,9 @@ def eye_pass_plain(scene, camera, key_e, lbufs, grid, cfg: VCMConfig, px,
     mstate = mis.MisState.zeros(n, dev)
     alive = torch.ones(n, dtype=torch.bool, device=dev)
     prev_delta = torch.ones(n, dtype=torch.bool, device=dev)
-    li = torch.zeros((n, 3), dtype=torch.float32, device=dev)
+    rec = EyeRecords.empty(cfg.eye_depth, n, dev, fill=torch.zeros)
     do_nee = cfg.nee and scene.num_lights > 0
-    lverts = []
-    if cfg.connection:
-        lanes = paths.PathBuffers(*(f[:, :n] for f in lbufs))
-        lverts = [_vertex(lanes, j) for j in range(lanes.pt.shape[0])]
-    rays = dropped = 0
+    rays = 0
     for depth in range(cfg.eye_depth):
         if not bool(alive.any()):
             break
@@ -293,9 +295,10 @@ def eye_pass_plain(scene, camera, key_e, lbufs, grid, cfg: VCMConfig, px,
         hit = traverse8.closest_hit8(scene, o, d, active=alive)
         info, mat = traverse.shade_data(scene, o, d, hit)
         reached = alive & hit.valid
+        missed = alive & ~hit.valid
         if cfg.sample_environment:
-            out = _weighted(thr * common.sample_sky(d, True), ones, cfg)
-            li = li + torch.where((alive & ~hit.valid)[:, None], out, 0.0)
+            sky = _weighted(thr * common.sample_sky(d, True), ones, cfg)
+            rec.put(depth, missed, implicit=sky)
         normal, npos = info["normal"], info["point"]
         wo_local = to_local(d, normal)
         albedo = bsdf_ops.resolve_albedo(scene, mat, info["uv"])
@@ -318,53 +321,39 @@ def eye_pass_plain(scene, camera, key_e, lbufs, grid, cfg: VCMConfig, px,
         conn = valid & ~cur_delta
         to_prev = normalize(prev_pt - npos)
 
-        # at shade time: s = 0, then the merge
+        # s = 0 at shade time
+        s0 = torch.zeros_like(npos)
         if cfg.naive:
             if vcm:
-                li = li + implicit_vcm(scene, info, conn, to_prev,
-                                       prev_delta, thr, d_vcm, d_vc, depth,
-                                       cfg)
+                s0 = implicit_vcm(scene, info, conn, to_prev, prev_delta, thr,
+                                  d_vcm, d_vc, depth, cfg)
             else:
-                li = li + _implicit_bdpt(scene, camera, info, conn, prev_pt,
-                                         prev_delta, thr, d_vcm, d_vc,
-                                         depth, cfg)
-        eye = dict(pos=npos, n=normal, mat=mat, albedo=albedo, trans=trans,
-                   thr=thr, d_vcm=d_vcm, d_vc=d_vc, d_vm=d_vm,
-                   to_prev=to_prev)
-        if vcm and cfg.do_merge:
-            li_m, drop = _merge(grid, eye | dict(
-                prev_loc=to_local(to_prev, normal)), npos, conn, cfg, mr,
-                eta_vcm, merge_norm)
-            li = li + li_m
-            dropped += drop
-
-        # then NEE and the connections, the eye normal toward prev_pt
-        if do_nee or lverts:
-            flip = dot(normal, to_prev) < 0.0
-            eye["n"] = torch.where(flip[:, None], -normal, normal)
+                s0 = _implicit_bdpt(scene, camera, info, conn, prev_pt,
+                                    prev_delta, thr, d_vcm, d_vc, depth, cfg)
+        # NEE, the eye normal toward prev_pt
+        nee = torch.zeros_like(npos)
         if do_nee:
-            add, r = _nee(scene, key_e, eye, conn, did, flavor, cfg,
-                          eta_vcm)
-            li, rays = li + add, rays + r
-        for lv in lverts:
-            do, e2l_u, dist, cos_l, cos_e, d2 = conn_geometry(eye, lv, conn)
-            rays += int(do.sum())
-            shadow = traverse8.shadow_factor8(
-                scene, npos + eye["n"] * RAY_EPSILON, e2l_u,
-                dist - RAY_EPSILON, active=do)
-            base, weight = conn_terms(scene, eye, lv, ones, e2l_u, cos_l,
-                                      cos_e, d2, eta_vcm)
-            out = _resolve(_weighted(base, weight, cfg), shadow, flavor, cfg)
-            li = li + torch.where(do[:, None], out, 0.0)
+            eye = dict(pos=npos, n=_toward_prev(normal, to_prev), mat=mat,
+                       albedo=albedo, trans=trans, thr=thr, d_vcm=d_vcm,
+                       d_vc=d_vc, to_prev=to_prev)
+            nee, r = _nee(scene, key_e, eye, conn, did, flavor, cfg, eta_vcm)
+            rays += r
 
-        # the next bounce; SPPM ends the path after its first non-delta hit
+        # SPPM ends the path after its first non-delta hit
+        keep = valid
+        if cfg.do_sppm and cfg.do_merge:
+            keep = keep & cur_delta
+        rec.put(depth, reached, pos=npos, n=normal, to_prev=to_prev,
+                thr=thr, albedo=albedo, trans=trans, mat_id=info["mat_id"],
+                d_vcm=d_vcm, d_vc=d_vc, d_vm=d_vm, implicit=s0, nee=nee)
+        rec.flags[depth] = record_flags(reached, missed, valid, cur_delta,
+                                        ~keep, depth == cfg.eye_depth - 1)
+
+        # the next bounce
         new_thr = thr * f_val * (torch.abs(wi_local[..., 2])
                                  / torch.clamp(pdf_sa, min=1e-20))[:, None]
         wi_world = normalize(to_world(wi_local, normal))
         side = torch.where(dot(wi_world, normal) < 0.0, -1.0, 1.0)
-        keep = valid
-        if cfg.do_sppm and cfg.do_merge:
-            keep = keep & cur_delta
         upd = valid[:, None]
         o = torch.where(upd, npos + normal * (side * RAY_EPSILON)[:, None], o)
         d = torch.where(upd, wi_world, d)
@@ -376,7 +365,102 @@ def eye_pass_plain(scene, camera, key_e, lbufs, grid, cfg: VCMConfig, px,
                                 for a2, a1 in zip(mstate2, mstate)))
         prev_delta = torch.where(reached, cur_delta, prev_delta)
         alive = keep
-    return packing.round_rgb9e5(li), rays, dropped
+    return rec, rays
+
+
+def eye_connect_plain(scene, rec: EyeRecords, lbufs, cfg: VCMConfig, *,
+                      flavor: str = "vcm", eta_vcm: float = 0.0):
+    """Plain version of K14's connection stage (eye_connect.cu's mega
+    flavours, any device): every (eye depth t, light row j, path) pair
+    against the light buffers' lanes 0..n-1 (lbufs [L, >= n]), the eye
+    normal turned toward the previous vertex, each weighted contribution
+    resolved by its BVH8 shadow ray. -> (conn [D, L, n, 3], zero where
+    the pair traces nothing; shadow rays as a Python int)."""
+    depth, n = rec.flags.shape
+    dev = rec.pos.device
+    lanes = paths.PathBuffers(*(f[:, :n] for f in lbufs))
+    lrows = lanes.pt.shape[0]
+    conn = torch.zeros((depth, lrows, n, 3), dtype=torch.float32, device=dev)
+    ones = torch.ones(n, dtype=torch.float32, device=dev)
+    lverts = [_vertex(lanes, j) for j in range(lrows)]
+    rays = 0
+    for t in range(depth):
+        live = rec.conn(t)
+        if not bool(live.any()):
+            continue
+        eye = rec.eye(scene, t)
+        eye["n"] = _toward_prev(eye["n"], eye["to_prev"])
+        for j, lv in enumerate(lverts):
+            do, e2l_u, dist, cos_l, cos_e, d2 = conn_geometry(eye, lv, live)
+            rays += int(do.sum())
+            shadow = traverse8.shadow_factor8(
+                scene, eye["pos"] + eye["n"] * RAY_EPSILON, e2l_u,
+                dist - RAY_EPSILON, active=do)
+            base, weight = conn_terms(scene, eye, lv, ones, e2l_u, cos_l,
+                                      cos_e, d2, eta_vcm)
+            out = _resolve(_weighted(base, weight, cfg), shadow, flavor, cfg)
+            conn[t, j] = torch.where(do[:, None], out, 0.0)
+    return conn, rays
+
+
+def eye_gather_plain(scene, rec: EyeRecords, conn, grid, cfg: VCMConfig, *,
+                     flavor: str = "vcm", mr: float = 0.0,
+                     eta_vcm: float = 0.0, merge_norm: float = 0.0):
+    """Plain version of K14's gather stage (eye_gather.cu's mega flavours,
+    any device): per depth the sky, s=0, the merge (VCM with a grid: the
+    slots' sum from zero), NEE, the connections j = 0, 1, ..., added in
+    that order from zero, then each path's radiance through RGB9E5.
+    -> (radiance [n,3], merge-cap dropped photons as a Python int)."""
+    depth, n = rec.flags.shape
+    li = torch.zeros((n, 3), dtype=torch.float32, device=rec.pos.device)
+    merge = flavor == "vcm" and cfg.do_merge
+    dropped = 0
+    for t in range(depth):
+        f = rec.flags[t]
+        if not bool((f != 0).any()):
+            break
+        if cfg.sample_environment:
+            li = li + torch.where(((f & REC_ESCAPED) != 0)[:, None],
+                                  rec.implicit[t], 0.0)
+        live = rec.conn(t)
+        m = live[:, None]
+        li = li + torch.where(m, rec.implicit[t], 0.0)
+        if merge:
+            eye = rec.eye(scene, t)
+            eye["prev_loc"] = to_local(eye["to_prev"], eye["n"])
+            li_m, drop = _merge(grid, eye, eye["pos"], live, cfg, mr, eta_vcm,
+                                merge_norm)
+            li = li + li_m
+            dropped += drop
+        li = li + torch.where(m, rec.nee[t], 0.0)
+        if conn is not None:
+            for j in range(conn.shape[1]):
+                li = li + torch.where(m, conn[t, j], 0.0)
+    return packing.round_rgb9e5(li), dropped
+
+
+def eye_pass_plain(scene, camera, key_e, lbufs, grid, cfg: VCMConfig, px,
+                   py, gbase: int, *, flavor: str = "vcm", mr: float = 0.0,
+                   eta_vcm: float = 0.0, merge_norm: float = 0.0):
+    """Plain version of K14 (any device): the three stages in turn, walk
+    records, pair contributions (with the connections on), the ordered
+    gather with the merge, for the n live pixels (px, py) [n] of a chunk
+    starting at list index gbase, paired with the light buffers' lanes
+    0..n-1 (lbufs [L, >= n]; every row is a connection candidate). grid: a
+    PhotonGrid, or None (no merge). -> (each path's radiance through
+    RGB9E5 [n,3], rays as a Python int, merge-cap dropped photons as a
+    Python int)."""
+    rec, rays = eye_walk_plain(scene, camera, key_e, cfg, px, py, gbase,
+                               flavor=flavor, eta_vcm=eta_vcm)
+    conn = None
+    if cfg.connection and lbufs.pt.shape[0] > 0:
+        conn, r = eye_connect_plain(scene, rec, lbufs, cfg, flavor=flavor,
+                                    eta_vcm=eta_vcm)
+        rays += r
+    li, dropped = eye_gather_plain(scene, rec, conn, grid, cfg,
+                                   flavor=flavor, mr=mr, eta_vcm=eta_vcm,
+                                   merge_norm=merge_norm)
+    return li, rays, dropped
 
 
 # --- one sample --------------------------------------------------------------

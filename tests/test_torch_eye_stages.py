@@ -1,0 +1,276 @@
+"""The VCM eye passes' three stages on the CPU: the plain twins of
+kernels/csrc/eye_walk.cu, eye_connect.cu and eye_gather.cu (models/vcm.py
+and models/vcm_mega.py: eye_walk_plain, eye_connect_plain,
+eye_gather_plain), whose composition is each pass's eye_pass_plain.
+
+  * The record and pair layouts: EyeRecords' fields in eye.cuh's order
+    (the struct, the launch's pointer slots, the flag bits); the walk's
+    records [D, N] depth-major (a permuted pixel list permutes the lanes,
+    bit for bit), each path's flags a run of live records closed by one
+    END, escapes last, SPPM ending at its first non-delta hit; the
+    connections [D, L, N, 3], pair (t, j, i) at (t L + j) N + i, zero
+    where the eye record ran no strategy.
+  * The ordered gather: hand-built terms (1e8, 1, -1e8, ...) whose
+    float32 sum depends on the order equal a sequential float32 sum in the
+    flavour's JAX order (classic: the sky, s=0, NEE, the connections;
+    mega the same before RGB9E5), and differ from another order.
+  * The staged plain pass against the JAX package's sample on the golden
+    setup (cornell_with_blocks, 12x12, eye depth 3, light depth 2,
+    sample 1) under two switch sets no other test covers: the connections
+    off with the environment on (no connection stage; the sky slot), and
+    the merge and NEE off (no fold in the gather). Tolerances of
+    tests/test_torch_vcm.py: rays within 0.1%, image mean within 1e-3,
+    >= 98% of the elements within rtol 1e-3.
+"""
+
+import dataclasses
+import os
+import re
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from cudapathtracer_tpu.models import vcm as jvcm
+from cudapathtracer_tpu.scene import builtin as jbuiltin
+from cudapathtracer_tpu.scene.camera import Camera as JCamera
+from cudapathtracer_tpu.scene.materials import \
+    builtin_materials as jbuiltin_materials
+from cudapathtracer_tpu.scene.scene import build_scene as jbuild_scene
+from cudapathtracer_tpu.utils import rng as jrng
+from cudapathtracer_tpu_torch import kernels
+from cudapathtracer_tpu_torch.models import paths, vcm, vcm_mega
+from cudapathtracer_tpu_torch.models.bdpt import _vertex
+from cudapathtracer_tpu_torch.scene import builtin
+from cudapathtracer_tpu_torch.scene.camera import Camera
+from cudapathtracer_tpu_torch.scene.materials import builtin_materials
+from cudapathtracer_tpu_torch.scene.scene import build_scene
+from cudapathtracer_tpu_torch.utils import packing, rng
+
+W = H = 16
+CFG = vcm.VCMConfig(eye_depth=4, light_depth=3)
+SPPM = dict(light_trace=False, nee=False, naive=False, connection=False,
+            do_mis=False, do_sppm=True)
+EYE_CUH = os.path.join(os.path.dirname(kernels.__file__), "csrc", "eye.cuh")
+
+
+@pytest.fixture(scope="module")
+def setup():
+    sc, _ = build_scene(builtin.cornell_with_blocks(), builtin_materials(),
+                        device="cpu")
+    cam = Camera.pinhole((0.0, 0.0, 1.0), W, H, 0.0, 0.0, 0.0, 60.0)
+    py, px = torch.meshgrid(torch.arange(H, dtype=torch.int32),
+                            torch.arange(W, dtype=torch.int32),
+                            indexing="ij")
+    px, py = px.reshape(-1), py.reshape(-1)
+    key_l, key_e = vcm.sample_keys(rng.base_key(), 1)
+    _, eta, _ = vcm.sample_scalars(sc, CFG, 1, px.shape[0])
+    lbufs, _, _ = paths.generate_light_path(sc, key_l, px, py,
+                                            CFG.light_depth + 1, eta_vcm=eta)
+    rec, _ = vcm.eye_walk_plain(sc, cam, key_e, CFG, px, py, eta)
+    return dict(sc=sc, cam=cam, px=px, py=py, key_e=key_e, eta=eta,
+                lbufs=lbufs, rec=rec)
+
+
+# --- the layouts --------------------------------------------------------------
+
+def test_record_layout_is_eye_cuh():
+    """EyeRecords' fields are eye.cuh's EyeRecs members and launch slots
+    26-38 in order (the wrapper passes the tuple's tensors in field
+    order), and the flag bits are its kRec* constants."""
+    src = open(EYE_CUH).read()
+    body = re.search(r"struct EyeRecs \{(.*?)\};", src, re.S).group(1)
+    members = re.findall(r"(?:float|int32_t)\* (\w+);", body)
+    assert tuple(members) == vcm.EyeRecords._fields
+    slots = dict((int(k), f) for f, k in re.findall(
+        r"r\.(\w+) = dev_ptr<\w+>\(ptrs, (\d+)\);", src))
+    assert tuple(slots[k] for k in range(26, 39)) == vcm.EyeRecords._fields
+    bits = {k: int(v) for k, v in re.findall(
+        r"constexpr int32_t kRec(\w+) = (\d+);", src)}
+    assert bits == dict(Valid=vcm.REC_VALID, NonDelta=vcm.REC_NON_DELTA,
+                        Escaped=vcm.REC_ESCAPED, End=vcm.REC_END)
+
+
+def _check_flags(flags):
+    """Each path: live records (flags != 0) at depths 0..k-1, END on the
+    k-th exactly and on no other, an escape only last."""
+    d, n = flags.shape
+    live = flags != 0
+    k = live.int().sum(0)
+    assert bool((live == (torch.arange(d)[:, None] < k[None])).all())
+    end = (flags & vcm.REC_END) != 0
+    assert bool((end.int().sum(0) == (k > 0).int()).all())
+    last = torch.clamp(k - 1, min=0)
+    assert bool(end[last, torch.arange(n)][k > 0].all())
+    esc = (flags & vcm.REC_ESCAPED) != 0
+    assert bool((~esc | end).all())
+    return live, esc
+
+
+def test_walk_records_layout(setup):
+    rec = setup["rec"]
+    d, n = CFG.eye_depth, W * H
+    for f, t in zip(rec._fields, rec):
+        tail = (3,) if f in ("pos", "n", "to_prev", "thr", "albedo",
+                             "implicit", "nee") else ()
+        assert tuple(t.shape) == (d, n) + tail, f
+        assert t.dtype == (torch.int32 if f in ("mat_id", "flags")
+                           else torch.float32), f
+    live, esc = _check_flags(rec.flags)
+    assert int(live[0].sum()) == n                  # every path starts
+    hit = live & ~esc
+    conn = (rec.flags & vcm.REC_CONN) == vcm.REC_CONN
+    assert bool(conn.any()) and bool(esc.any())
+    assert bool((conn <= hit).all())
+    # a hit holds its vertex; dead and escaped records hold zeros
+    assert bool(torch.isfinite(rec.pos[hit]).all())
+    assert bool((rec.n[hit].norm(dim=-1) - 1.0).abs().max() < 1e-4)
+    for f in ("pos", "thr", "nee", "d_vcm"):
+        assert bool((getattr(rec, f)[~hit] == 0).all()), f
+    # the strategies' terms only where they ran; the sky slot is empty
+    # without sample_environment
+    assert bool((rec.nee[~conn] == 0).all())
+    assert bool((rec.implicit[esc] == 0).all())
+    assert bool((rec.nee[conn] != 0).any())
+
+
+def test_walk_is_depth_major_per_lane(setup):
+    """The classic walk draws by pixel id: a reversed pixel list gives the
+    records of the reversed lanes, bit for bit."""
+    px, py = setup["px"].flip(0), setup["py"].flip(0)
+    rec, _ = vcm.eye_walk_plain(setup["sc"], setup["cam"], setup["key_e"],
+                                CFG, px, py, setup["eta"])
+    for f, a, b in zip(rec._fields, rec, setup["rec"]):
+        assert torch.equal(a.view(torch.int32),
+                           b.flip(1).view(torch.int32)), f
+
+
+def test_sppm_walk_ends_at_first_non_delta(setup):
+    cfg = dataclasses.replace(CFG, **SPPM)
+    rec, _ = vcm.eye_walk_plain(setup["sc"], setup["cam"], setup["key_e"],
+                                cfg, setup["px"], setup["py"], setup["eta"])
+    live, esc = _check_flags(rec.flags)
+    k = live.int().sum(0)
+    last = rec.flags[torch.clamp(k - 1, min=0), torch.arange(k.shape[0])]
+    nondelta = (last & vcm.REC_NON_DELTA) != 0
+    # the walk ends at a non-delta hit, an escape or an invalid sample
+    assert bool((nondelta | ((last & vcm.REC_ESCAPED) != 0)
+                 | ((last & vcm.REC_VALID) == 0) | (k == cfg.eye_depth))
+                .all())
+    before = live & ((torch.arange(cfg.eye_depth)[:, None]
+                      < (k - 1)[None]))
+    assert bool(((rec.flags[before] & vcm.REC_NON_DELTA) == 0).all())
+    assert bool((rec.nee == 0).all()) and bool((rec.implicit == 0).all())
+
+
+def test_pair_layout(setup):
+    sc, rec, lb = setup["sc"], setup["rec"], setup["lbufs"]
+    conn, rays = vcm.eye_connect_plain(sc, rec, lb, CFG, setup["eta"])
+    d, n, lrows = CFG.eye_depth, W * H, CFG.light_depth
+    assert tuple(conn.shape) == (d, lrows, n, 3) and conn.is_contiguous()
+    assert rays > 0
+    live = (rec.flags & vcm.REC_CONN) == vcm.REC_CONN
+    assert bool((conn[~live[:, None, :].expand(-1, lrows, -1)] == 0).all())
+    flat = conn.reshape(-1, 3)
+    ones = torch.ones(n)
+    for t, j in ((0, 0), (1, 2), (2, 1)):
+        want, _ = vcm._connect_vcm(sc, rec.eye(sc, t), _vertex(lb, j),
+                                   live[t], ones, CFG, setup["eta"])
+        assert torch.equal(conn[t, j], want)
+        i = torch.arange(n)
+        assert torch.equal(flat[(t * lrows + j) * n + i], want)
+    assert bool((conn != 0).any())
+
+
+# --- the ordered gather -------------------------------------------------------
+
+BIG = 1e8   # float32 exactly
+
+
+def _hand_built(depth: int, lrows: int):
+    """One path: records whose float32 sum depends on the order. Depth 0:
+    s=0 1e8, NEE 1, connections (-1e8, 0.5); depth 1: s=0 -1, NEE 4,
+    connections (2, 0); depth 2 escaped: the sky 8 (when sampled)."""
+    rec = vcm.EyeRecords.empty(depth, 1, "cpu", fill=torch.zeros)
+    terms = [(BIG, 1.0, [-BIG, 0.5]), (-1.0, 4.0, [2.0, 0.0])]
+    conn = torch.zeros((depth, lrows, 1, 3))
+    for t, (s0, nee, cs) in enumerate(terms):
+        rec.implicit[t] = float(s0)
+        rec.nee[t] = nee
+        conn[t, :, 0] = torch.tensor(cs)[:, None]
+        rec.flags[t] = vcm.REC_CONN
+    rec.flags[2] = vcm.REC_ESCAPED | vcm.REC_END
+    rec.implicit[2] = 8.0
+    order = []
+    for s0, nee, cs in terms:
+        order += [s0, nee, *cs]
+    return rec, conn, order
+
+
+def _seq(values):
+    acc = np.float32(0.0)
+    for v in values:
+        acc = np.float32(acc + np.float32(v))
+    return acc
+
+
+@pytest.mark.parametrize("flavor", ["classic", "vcm", "bdpt"])
+@pytest.mark.parametrize("env", [False, True])
+def test_gather_adds_in_jax_order(setup, flavor, env):
+    rec, conn, order = _hand_built(4, 2)
+    cfg = dataclasses.replace(CFG, light_depth=2, do_merge=False,
+                              sample_environment=env)
+    if env:
+        order = order + [8.0]
+    want = _seq(order)
+    # the order matters: the connections before NEE give another sum
+    other = _seq(order[:1] + order[2:4] + order[1:2] + order[4:])
+    assert want != other
+    if flavor == "classic":
+        li, dropped = vcm.eye_gather_plain(setup["sc"], rec, conn, None, cfg,
+                                           0.0, 0.0, 0.0)
+    else:
+        li, dropped = vcm_mega.eye_gather_plain(setup["sc"], rec, conn, None,
+                                                cfg, flavor=flavor)
+        want = packing.round_rgb9e5(torch.full((1, 3), float(want)))[0, 0]
+    assert dropped == 0
+    assert torch.equal(li[0], torch.full((3,), float(want)))
+
+
+# --- the staged plain pass against JAX ---------------------------------------
+
+CASES = {"no_connection_environment": dict(connection=False,
+                                           sample_environment=True),
+         "no_merge_no_nee": dict(do_merge=False, nee=False)}
+
+
+@pytest.mark.parametrize("case", list(CASES))
+def test_staged_pass_matches_jax(case):
+    side, s = 12, 1
+    over = CASES[case]
+    js, _ = jbuild_scene(jbuiltin.cornell_with_blocks(),
+                         jbuiltin_materials())
+    ts, _ = build_scene(builtin.cornell_with_blocks(), builtin_materials(),
+                        device="cpu")
+    jc = JCamera.pinhole((0.0, 0.0, 1.0), side, side, 0.0, 0.0, 0.0, 60.0)
+    tc = Camera.pinhole((0.0, 0.0, 1.0), side, side, 0.0, 0.0, 0.0, 60.0)
+    jpx, jpy = jnp.meshgrid(jnp.arange(side), jnp.arange(side))
+    jpx, jpy = jpx.ravel(), jpy.ravel()
+    jcfg = dataclasses.replace(jvcm.VCMConfig(eye_depth=3, light_depth=2),
+                               **over)
+    cfg = dataclasses.replace(vcm.VCMConfig(eye_depth=3, light_depth=2),
+                              **over)
+    want, jrays = (np.asarray(a) for a in jvcm.render_sample(
+        js, jc, jrng.base_key(), s, jpx, jpy, cfg=jcfg))
+    kernels.reset_launches()
+    li, rays, dropped = vcm.render_sample(
+        ts, tc, rng.base_key(), s, torch.as_tensor(np.array(jpx)),
+        torch.as_tensor(np.array(jpy)), cfg=cfg)
+    assert sum(kernels.launches.values()) == 0
+    assert abs(rays - int(jrays)) <= 1e-3 * int(jrays)
+    assert (dropped > 0) == cfg.do_merge
+    got = li.numpy()
+    assert np.isfinite(got).all() and (got >= 0).all()
+    assert abs(got.mean() / want.mean() - 1.0) < 1e-3
+    assert np.isclose(got, want, rtol=1e-3, atol=1e-5).mean() >= 0.98

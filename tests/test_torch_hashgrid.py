@@ -260,9 +260,12 @@ def test_merge_cap_drop_counter_fires():
 
 def test_one_brick_window_unbiased(monkeypatch):
     """The mirror of the JAX package's
-    test_one_brick_window_unbiased_and_consistent (its fold parts): with
-    the one-brick window, the mean over 64 salts converges to the
-    unbounded sum (12%), and the window's truncation counts as dropped."""
+    test_one_brick_window_unbiased_and_consistent: with the one-brick
+    window, (a) the mean over 64 salts converges to the unbounded sum
+    (12%); (b) neighbor_slots' weighted candidate sum per query equals the
+    fold's (rtol 1e-5, atol 1e-6), its dropped count the fold's; (c) its
+    M is the 64 single-brick slots; (d) the window's truncation counts as
+    dropped."""
     gen = np.random.RandomState(13)
     p = 640
     pos = np.repeat(gen.uniform(-1, 1, (p // 4, 3)).astype(np.float32), 4,
@@ -287,7 +290,16 @@ def test_one_brick_window_unbiased(monkeypatch):
                                                count_dropped=True)
         acc += out
         if s == 0:
-            assert dropped > 0
+            rows_s, ok_s, wgt_s, drop_s = hashgrid.neighbor_slots(g, q, r, 8)
+            assert rows_s.shape[0] == 64                            # (c)
+            _, _, b_s, _, _ = hashgrid.photon_fields(rows_s.reshape(-1, 8))
+            add = torch.where(ok_s.reshape(-1)[:, None],
+                              b_s * wgt_s.reshape(-1)[:, None], 0.0)
+            slot_sum = add.reshape(rows_s.shape[0], 48, 3).sum(0)
+            np.testing.assert_allclose(slot_sum.numpy(), out.numpy(),
+                                       rtol=1e-5, atol=1e-6)        # (b)
+            assert drop_s == dropped
+            assert dropped > 0                                      # (d)
     mean = (acc / 64).numpy()
     nz = full.sum(1) > 1e-3
     np.testing.assert_allclose(mean[nz], full[nz], rtol=0.12, atol=0.02)

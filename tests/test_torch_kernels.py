@@ -30,6 +30,13 @@ bit-equal to what they replace: K5's k-sample mode to k single launches
 summed in sample order (three schedules), K6's keyed mode to the plain
 uniform_keyed and to uniform_id, K12's table mode to the folded walk
 (every buffer field, vertex 0, rays).
+The VCM eye passes run as three stage kernels (eye_walk.cu,
+eye_connect.cu, eye_gather.cu): each stage against its plain twin on the
+same inputs inside compare_vcm / compare_mega (the walk's records within
+chip_smoke.compare_records' bounds, the connections and the gather under
+compare_image), one pass = three launches (two without connections), the
+gather bit-equal to its twin on hand-built terms whose float32 sum
+depends on the order, and no host sync inside the passes.
 K15, the threaded engine (traversal="threaded"), as K1: triangle ids
 equal, t/u/v and shadow scale within 1e-5 of its plain version; K5's
 classic and naive schedules on a threaded scene under compare_render; on
@@ -83,7 +90,8 @@ def test_import_builds_nothing():
                                   "photon_pack", "photon_table", "vcm_eye",
                                   "rgb9e5_roundtrip", "neighbor_slots",
                                   "mega_eye", "uniform_keyed",
-                                  "render_unidirectional_batch"])
+                                  "render_unidirectional_batch",
+                                  "vcm_eye_pass", "mega_eye_pass"])
 def test_wrappers_refuse_non_cuda_tensors(call):
     """A wrapper launches on CUDA tensors or raises; it never falls back."""
     kernels.reset_launches()
@@ -131,6 +139,8 @@ def test_wrappers_refuse_non_cuda_tensors(call):
             torch.zeros((16, 8)), torch.zeros((8, 2), dtype=torch.int32),
             (0.0, 0.0, 0.0), 0.1, 7), f3, 0.05, 4),
         "mega_eye": (scene, cam, [0] * 22, bufs, None, f3, i1, vcfg),
+        "vcm_eye_pass": (scene, cam, [0] * 12, bufs, None, None, i1, vcfg),
+        "mega_eye_pass": (scene, cam, [0] * 22, bufs, None, f3, i1, vcfg),
         "uniform_keyed": (i1, i1, i1),
         "render_unidirectional_batch": (
             scene, i1, i1, [0.0] * 19, torch.zeros((2, 28),
@@ -144,6 +154,11 @@ def test_wrappers_refuse_non_cuda_tensors(call):
           "vcm_eye": dict(px=i1, py=i1, merge_radius=0.1, eta_vcm=1.0,
                           merge_norm=1.0, one_brick=True,
                           reweight=True),
+          "vcm_eye_pass": dict(px=i1, py=i1, merge_radius=0.1, eta_vcm=1.0,
+                               merge_norm=1.0, one_brick=True,
+                               reweight=True),
+          "mega_eye_pass": dict(px=i1, py=i1, cnt=n, gbase=0,
+                                flavor="vcm"),
           "neighbor_slots": dict(mode="slots", one_brick=True,
                                  reweight=True),
           "mega_eye": dict(px=i1, py=i1, cnt=n, gbase=0,
@@ -154,7 +169,9 @@ def test_wrappers_refuse_non_cuda_tensors(call):
     with pytest.raises(ValueError, match="CUDA"):
         getattr(kernels, call)(*meta, **kw)
     assert kernels.launches[{"rgb9e5_roundtrip": "rgb9e5",
-                             "render_unidirectional_batch": "uni_mega_batch"
+                             "render_unidirectional_batch": "uni_mega_batch",
+                             "vcm_eye_pass": "vcm_eye_walk",
+                             "mega_eye_pass": "mega_eye_walk"
                              }.get(call, call)] == 0
 
 
@@ -586,6 +603,128 @@ def test_mega_render_launches(cuda, integrator):
         kernels.launches
     assert bool(torch.isfinite(li).all()) and bool((li >= 0).all())
     assert rays > px.shape[0]
+
+
+EYE_PASSES = {  # name -> (pass, flavor, config overrides)
+    "vcm": ("vcm_eye", "classic", {}),
+    "sppm": ("vcm_eye", "classic", VCM_CASES["sppm"][0]),
+    "vcm_no_connection": ("vcm_eye", "classic", dict(connection=False)),
+    "mega_vcm": ("mega_eye", "vcm", {}),
+    "mega_sppm": ("mega_eye", "vcm", VCM_CASES["sppm"][0]),
+    "mega_bdpt": ("mega_eye", "bdpt", {}),
+    "mega_bdpt_no_connection": ("mega_eye", "bdpt",
+                                dict(connection=False)),
+}
+
+
+def _eye_pass_inputs(cuda, flavor, over):
+    """A set-up eye pass on the blocks scene (96x64, eye 6, light 4,
+    sample 1) and its inputs."""
+    sc, cam, px, py = _vcm_setup("blocks", cuda)
+    cfg = dataclasses.replace(vcm.VCMConfig(eye_depth=6, light_depth=4),
+                              **over)
+    if flavor == "bdpt":
+        cfg = bdpt_mega.as_machine_cfg(dataclasses.replace(
+            bdpt.BDPTConfig(eye_depth=6, light_depth=4), **over))
+    if flavor == "classic":
+        res = chip_smoke.compare_vcm(sc, cam, px, py, cfg, 1, "setup")
+        return sc, cam, cfg, res["eps"][0], res
+    res = chip_smoke.compare_mega(sc, cam, px, py, cfg, flavor, 1, "setup")
+    return sc, cam, cfg, res["eps"][0], res
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(EYE_PASSES))
+def test_eye_pass_is_three_stage_launches(cuda, case):
+    """One pass = its walk, its connections (not without them) and its
+    gather, each counted once under its stage, the pass once under its
+    name; the stages on their own launch only themselves."""
+    name, flavor, over = EYE_PASSES[case]
+    sc, cam, cfg, ep, _ = _eye_pass_inputs(cuda, flavor, over)
+    kernels.reset_launches()
+    kernels.run_eye_pass(ep)
+    torch.cuda.synchronize()
+    conn = int(cfg.connection)
+    want = {name: 1, f"{name}_walk": 1, f"{name}_connect": conn,
+            f"{name}_gather": 1}
+    got = {k: v for k, v in kernels.launches.items() if v}
+    assert got == {k: v for k, v in want.items() if v}, got
+    assert (ep.conn is not None) == bool(conn)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["vcm", "mega_vcm", "mega_bdpt"])
+def test_eye_gather_adds_in_jax_order(cuda, case):
+    """The gather kernel on hand-built records whose float32 sum depends
+    on the order (1e8, 1, -1e8): bit-equal to its plain twin, which adds
+    s=0, NEE, then the connections, depth by depth; the sky at an
+    escape."""
+    from cudapathtracer_tpu_torch.models import vcm_mega
+    name, flavor, over = EYE_PASSES[case]
+    sc, cam, cfg, ep, res = _eye_pass_inputs(
+        cuda, flavor, dict(over, sample_environment=True, **(
+            {} if flavor == "bdpt" else dict(do_merge=False))))
+    rec, n = ep.rec, ep.rec.flags.shape[1]
+    depth, lrows = rec.flags.shape[0], ep.conn.shape[1]
+    gen = np.random.default_rng(8)
+    big = np.float32(1e8)
+    vals = np.array([big, 1.0, -big, 0.5, -1.0], np.float32)
+    for f in ("implicit", "nee"):
+        getattr(rec, f).copy_(torch.as_tensor(
+            gen.choice(vals, size=(depth, n, 3))))
+    ep.conn.copy_(torch.as_tensor(gen.choice(vals,
+                                             size=(depth, lrows, n, 3))))
+    live = vcm.REC_CONN
+    flags = np.full((depth, n), live, np.int32)
+    flags[1, ::3] = live | vcm.REC_END
+    flags[2:, ::3] = 0
+    flags[1, 1::3] = vcm.REC_ESCAPED | vcm.REC_END
+    flags[2:, 1::3] = 0
+    flags[-1, 2::3] |= vcm.REC_END
+    rec.flags.copy_(torch.as_tensor(flags))
+    kernels.eye_gather(ep)
+    torch.cuda.synchronize()
+    if flavor == "classic":
+        li, _ = vcm.eye_gather_plain(sc, rec, ep.conn, None, cfg, 0.0, 0.0,
+                                     0.0)
+        got = ep.out
+    else:
+        li, _ = vcm_mega.eye_gather_plain(sc, rec, ep.conn, None, cfg,
+                                          flavor=flavor)
+        got = ep.out[:n]
+    assert torch.equal(got.view(torch.int32), li.view(torch.int32))
+
+
+@pytest.mark.cuda
+def test_eye_passes_sync_free(cuda):
+    """One sample of every integrator whose eye pass is staged, on the
+    card with torch.cuda's sync debug mode "error": no host sync inside
+    the passes (every buffer is sized from the shapes)."""
+    sc, cam, px, py = _vcm_setup("blocks", cuda)
+    vc = vcm.VCMConfig(eye_depth=6, light_depth=4)
+    sp = dataclasses.replace(vc, **VCM_CASES["sppm"][0])
+    bc = bdpt.BDPTConfig(eye_depth=6, light_depth=4)
+    runs = [lambda: vcm.render_sample(sc, cam, rng.base_key(), 0, px, py,
+                                      cfg=vc),
+            lambda: vcm.render_sample(sc, cam, rng.base_key(), 0, px, py,
+                                      cfg=sp),
+            lambda: vcm_mega.render_sample(sc, cam, rng.base_key(), 0, px,
+                                           py, cfg=vc),
+            lambda: vcm_mega.render_sample(sc, cam, rng.base_key(), 0, px,
+                                           py, cfg=sp),
+            lambda: bdpt_mega.render_sample(sc, cam, rng.base_key(), 0, px,
+                                            py, cfg=bc)]
+    for run in runs:
+        run()   # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            out = run()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        assert all(c.dtype == torch.int64 and c.dim() == 0
+                   for c in out[1:])
+        assert bool(torch.isfinite(out[0]).all())
 
 
 @pytest.mark.cuda

@@ -10,9 +10,11 @@ launch per sample of the per-path megakernel K5; naive, the naive
 integrator (K5's naive schedule); bdpt, vcm or sppm, Integrator
 BIDIRECTIONAL / VCM / SPPM with Engine classic at the config's eye and
 light depths (the walks K12, the splat K11, the connections K13; or K12,
-vcm_splat (not SPPM), photon_pack, torch.sort, photon_table, vcm_eye);
+vcm_splat (not SPPM), photon_pack, torch.sort, photon_table and the VCM
+eye pass's three stages: walk, connections (not SPPM), gather);
 bdpt-mega, vcm-mega or sppm-mega, the same integrators with the default
-mega engine (per chunk K12, the splat, K8, the mega eye pass K14).
+mega engine (per chunk K12, the splat, K8, the mega eye pass K14 in the
+same three stages).
 --samples-per-dispatch k renders k samples per dispatch (models/batch.py;
 0 = the driver's auto rule), as the driver does. --traversal threaded
 rebuilds the Renderer's scene with the threaded binary engine (the plain
@@ -56,8 +58,11 @@ LAYERS = (("K5 megakernel, k-sample mode", "uni_mega_batch_kernel"),
           ("K8 photon_pack", "photon_pack_kernel"),
           ("K8 sort (torch.sort)", "RadixSort"),
           ("K8 photon_table", "photon_table_kernel"),
-          ("K13 VCM eye pass (with K9)", "vcm_eye_kernel"),
-          ("K14 mega eye pass", "mega_eye_kernel"),
+          ("eye pass stage 1: the walk (classic VCM / K14)",
+           "eye_walk_kernel"),
+          ("eye pass stage 2: the connections", "eye_connect_kernel"),
+          ("eye pass stage 3: the merge and gather (K9)",
+           "eye_gather_kernel"),
           ("K1 traverse8", "traverse8_kernel"),
           ("K15 threaded traversal", "traverse_bin_kernel"),
           ("K6 rng (keyed mode)", "uniform_keyed_kernel"),
