@@ -29,7 +29,11 @@ Phases (one line each; any failure exits non-zero before the result line):
      1920x1080, 1 spp, both draw schedules (the mega one retiring each path
      through RGB9E5 in both versions), and at 256x256 on the mirror +
      glass spheres scene (the medium stack): rays within 0.1%, image mean
-     ratio within 1e-3, >= 99% of pixels within rtol 1e-3;
+     ratio within 1e-3, >= 99% of pixels within rtol 1e-3; 7b. K5's path
+     regeneration: the resident grid (SMs x the blocks that fit on one)
+     bit-equal to one block per SM (li, rays, rows) at 1080p for the
+     three schedules, and the lane use and event balance the card
+     counted;
   8. the goldens on the card through the megakernel (16x16, 8 spp): mega
      against tests/golden/cornell_mega_16x16_8spp.npy and classic against
      cornell_uni_16x16_8spp.npy, each at rmse < 1e-3;
@@ -45,22 +49,26 @@ Phases (one line each; any failure exits non-zero before the result line):
      (compare_walk: at most 0.1% of lanes diverged, printed; `valid` and
      flags equal on the rest, each other field within its bound on >=
      99.9% of the vertices); ray counts within 0.1%;
- 12. K11 (bdpt_splat.cu) and 13. K13 (bdpt_connect.cu) on the kernel
-     walk's buffers against their plain versions on the same buffers
-     (compare_image: rays within 0.1%, image mean within 1e-3, >= 99.9% /
-     99.5% of pixels within rtol 1e-3); the splat twice, to print the
-     spread from atomicAdd's order; then K12, K11 and K13 again on the
-     256x256 mirror + glass spheres scene with each strategy flag of
-     BDPT_FLAGS set in turn, and the light walk with VCM's d_vm chain
-     (eta_vcm) on (compare_bdpt);
+ 12. K11 (bdpt_splat.cu) and 13. K13 (bdpt_pairs.cu, bdpt_gather.cu) on
+     the kernel walk's buffers against their plain versions on the same
+     buffers (compare_image: rays within 0.1%, image mean within 1e-3, >=
+     99.9% / 99.5% of pixels within rtol 1e-3; compare_k13: the pairs'
+     terms over the valid non-delta eye vertices and the gather on the
+     kernel's terms against their plain twins, the composed pass with the
+     splat's frame buffer against connect_plain, each at 99.5%; the pairs
+     at one and at all of a pixel's pairs a thread bit-equal); the splat
+     twice, to print the spread from atomicAdd's order; each K13 stage
+     timed; then K12, K11 and K13 again on the 256x256 mirror + glass
+     spheres scene with each strategy flag of BDPT_FLAGS set in turn, and
+     the light walk with VCM's d_vm chain (eta_vcm) on (compare_bdpt);
  14. the BDPT golden through the four kernels: rmse < 1e-3 against
      tests/golden/cornell_bdpt_16x16_8spp.npy, mean ratio printed;
  15. the BDPT main path: Renderer on the same config with Integrator
      BIDIRECTIONAL and Engine classic at its own depths, the bunny scene,
      1920x1080, 4 spp: rays, render-phase seconds, Mrays/s, peak memory,
-     4 launches per sample (K12 twice, K11, K13), finite, non-negative and
-     > 90% non-black; then one sample's four launches timed with CUDA
-     events;
+     5 launches per sample (K12 twice, K11, K13's two stages), finite,
+     non-negative and > 90% non-black; then one sample's five launches
+     timed with CUDA events;
  16. the photon family (compare_vcm) on the VCM main path's sample
      (1920x1080 bunny, eye 8, light 6: 12,441,600 candidate photons, a
      table above 2^24 buckets): K12's light walk with eta_vcm, then
@@ -111,12 +119,11 @@ Phases (one line each; any failure exits non-zero before the result line):
      Mrays/s, peak memory, launches per sample;
  24. one 1080p VCM-mega and one BDPT-mega sample's launches timed with
      CUDA events (K14 stage by stage);
- 25. K5's k-sample mode (samples per dispatch, models/batch.py) bit-equal
-     to k single launches summed in sample order: the bunny scene at
-     512x512 with k = 8 for the mega, classic and naive schedules and at
-     1080p with k = 4 for mega; CUDA events of the batch against the
-     singles; the 1080p batch also against the plain batch (batch.py's
-     loop over K5's plain version, compared as phase 7 compares K5);
+ 25. K5 with k samples a launch (samples per dispatch, models/batch.py)
+     bit-equal to k launches of one sample summed in sample order and to
+     the launch of k on one block per SM: the bunny scene at 512x512 with
+     k = 8 for the mega, classic and naive schedules and at 1080p with k =
+     4 for mega; CUDA events of the batch against the singles;
  26. K6's keyed mode bit-equal to uniform_keyed's plain version on
      2,073,600 ids with per-lane key pairs; K12's table mode (the keyed
      light walk of models/light_mega.py) bit-equal to its folded mode on
@@ -133,7 +140,10 @@ Phases (one line each; any failure exits non-zero before the result line):
      samples, 1 against 2 per dispatch (the same equalities, and a batched
      dropped total above 2^31); UNIDIRECTIONAL-mega and
      NAIVE at 256x256 on cornell_blocks, 256 samples, 1 against 8 per
-     dispatch (256 against 32 K5 launches); one batch of every integrator
+     dispatch (256 against 32 K5 launches), and there B1: one K5 launch of
+     8 samples timed, its bound, and held against the plain batch
+     (batch.py's loop over K5's plain version, compared as phase 7
+     compares K5); one batch of every integrator
      and engine under torch.cuda's sync debug mode "error" (no host sync
      inside a batch, int64 counts on the card);
  28. TPT_MEGA_LIGHT=1: BDPT-mega and VCM-mega at 1080p, 1 sample each,
@@ -176,8 +186,7 @@ Phases (one line each; any failure exits non-zero before the result line):
 Then one JSON line with each kernel's launches on its main path (the
 BDPT kernels on the BDPT path, the photon kernels on the VCM path, mega_eye
 on the VCM-mega path, naive on the naive path, the others on the mega
-path; uni_mega_batch on the 256x256 UNIDIRECTIONAL path at 8 per
-dispatch, bdpt_walk_table on the TPT_MEGA_LIGHT VCM-mega path; K15's two
+path; bdpt_walk_table on the TPT_MEGA_LIGHT VCM-mega path; K15's two
 entries on the threaded UNIDIRECTIONAL path, where they launch 0 times as
 K1's entries do on the mega path: their device code runs inside K5's
 threaded instantiation, whose launches there the two entries carry in
@@ -188,7 +197,9 @@ bound on this card and the library call's time (null: no PyTorch call
 computes these functions), the card's name and power limit, and as the
 last line {"ok": true, "device": {...}}. The eye passes have a row each
 (vcm_eye, mega_eye: the pass, counted once a pass and timed as its
-three launches) and a row per stage (<pass>_walk, _connect, _gather).
+three launches) and a row per stage (<pass>_walk, _connect, _gather);
+K13 a row per stage (bdpt_pairs, bdpt_gather); K5 (render_unidirectional,
+naive) its lane use and event balance on the 1080p sample (phase 7b).
 """
 
 from __future__ import annotations
@@ -226,7 +237,9 @@ KERNELS = (  # name, source, the JAX function it replaces
      "cudapathtracer_tpu/models/paths.py:129"),
     ("bdpt_splat", CSRC + "bdpt_splat.cu",
      "cudapathtracer_tpu/models/bdpt.py:93"),
-    ("bdpt_connect", CSRC + "bdpt_connect.cu",
+    ("bdpt_pairs", CSRC + "bdpt_pairs.cu",
+     "cudapathtracer_tpu/models/bdpt.py:175"),
+    ("bdpt_gather", CSRC + "bdpt_gather.cu",
      "cudapathtracer_tpu/models/bdpt.py:226"),
     ("vcm_splat", CSRC + "bdpt_splat.cu",
      "cudapathtracer_tpu/models/vcm.py:87"),
@@ -253,8 +266,6 @@ KERNELS = (  # name, source, the JAX function it replaces
     ("mega_eye_gather", CSRC + "eye_gather.cu",
      "cudapathtracer_tpu/models/vcm_mega.py:322"),
     ("naive", CSRC + "uni_mega.cu", "cudapathtracer_tpu/models/naive.py:41"),
-    ("uni_mega_batch", CSRC + "uni_mega.cu",
-     "cudapathtracer_tpu/models/batch.py:33"),
     ("uniform_keyed", CSRC + "rng.cu", "cudapathtracer_tpu/utils/rng.py:140"),
     ("bdpt_walk_table", CSRC + "bdpt_walk.cu",
      "cudapathtracer_tpu/models/light_mega.py:108"),
@@ -263,7 +274,7 @@ KERNELS = (  # name, source, the JAX function it replaces
     ("shadow_factor_bin", CSRC + "traverse_bin.cu",
      "cudapathtracer_tpu/ops/traverse.py:203"),
 )
-BDPT_KERNELS = ("bdpt_walk", "bdpt_splat", "bdpt_connect")
+BDPT_KERNELS = ("bdpt_walk", "bdpt_splat", "bdpt_pairs", "bdpt_gather")
 PHOTON_KERNELS = ("vcm_splat", "photon_pack", "photon_table", "vcm_eye",
                   "vcm_eye_walk", "vcm_eye_connect", "vcm_eye_gather")
 # the mega engines' launches per chunk of a sample (K12, the splat, K8's
@@ -741,7 +752,7 @@ def compare_bdpt(scene, cam, px, py, cfg, keys, what: str,
     key_l, key_e, key_c = keys
     n, dev = px.shape[0], px.device
     rays = {m: torch.zeros(n, dtype=torch.int32, device=dev)
-            for m in ("light", "eye", "splat", "connect")}
+            for m in ("light", "eye", "splat")}
     lw = kernels.bdpt_walk(scene, px, py, paths.walk_keys(key_l, "light"),
                            mode="light", max_depth=cfg.light_depth,
                            rays=rays["light"], eta_vcm=eta_vcm)
@@ -776,14 +787,63 @@ def compare_bdpt(scene, cam, px, py, cfg, keys, what: str,
                                         cfg, fbp)
     err11 = compare_image((fbk, int(rays["splat"].sum())), (fbp, prays_s),
                           f"{what} splat", "K11", 0.999)
-    out, _ = kernels.bdpt_connect(scene, cam, key_c, ew, lw, None,
-                                  rays["connect"], cfg, px=px, py=py)
-    outp, prays_c = bdpt.connect_plain(
-        scene, cam, key_c, ew["bufs"], ew["v0"], ew["escape"], lw["bufs"],
-        lw["v0"], cfg, rng.pixel_ids(px, py))
-    err13 = compare_image((out, int(rays["connect"].sum())), (outp, prays_c),
-                          f"{what} connect", "K13", 0.995)
-    return err12, err11, err13
+    err13 = compare_k13(scene, cam, key_c, ew, lw, fbk, cfg, px, py, what)
+    return err12, err11, max(err13.values())
+
+
+def compare_k13(scene, cam, key_c, ew, lw, fb, cfg, px, py, what: str,
+                rows=None) -> dict:
+    """K13's two stages against their plain twins on the same inputs (the
+    kernel walks' buffers ew, lw): bdpt_pairs against connect_pairs_plain
+    over the pairs of valid non-delta eye vertices (compare_image, 99.5%;
+    rays within 0.1%; where the plain terms are all zero, the kernel's must
+    be too); bdpt_gather against connect_gather_plain on the kernel's terms
+    (compare_image, 99.5%; the bit-equal share printed); then the composed
+    pass kernels.bdpt_connect with the splat's frame buffer fb against
+    connect_plain (compare_image, 99.5%). rows: [N] i32 += the pairs' rows,
+    or None. Returns each comparison's max abs error."""
+    import torch
+    from cudapathtracer_tpu_torch import kernels
+    from cudapathtracer_tpu_torch.models import bdpt
+    from cudapathtracer_tpu_torch.utils import rng
+    n, dev = px.shape[0], px.device
+    pid = rng.pixel_ids(px, py)
+    rays = torch.zeros(n, dtype=torch.int32, device=dev)
+    terms = kernels.bdpt_pairs(scene, cam, key_c, ew, lw, rays, cfg, px=px,
+                               py=py, rows=rows)
+    pterms, prays = bdpt.connect_pairs_plain(scene, key_c, ew["bufs"],
+                                             lw["bufs"], cfg, pid)
+    eb = ew["bufs"]
+    live = (eb.valid & ~eb.is_delta)[:, None, :].expand(-1, cfg.light_depth,
+                                                        -1)
+    err = {}
+    if bool((pterms[live] != 0).any()):
+        err["pairs"] = compare_image(
+            (terms[live], int(rays.sum())), (pterms[live], prays),
+            f"{what} pairs ({int(live.sum())} of {live.numel()})", "K13",
+            0.995)
+    else:
+        check(not bool((terms != 0).any()) and int(rays.sum()) == prays,
+              f"K13 {what}: the plain pairs add nothing, the kernel's do")
+        err["pairs"] = 0.0
+    gk = kernels.bdpt_gather(scene, cam, ew, terms, None, cfg)
+    gp = bdpt.connect_gather_plain(scene, cam, eb, ew["v0"], ew["escape"],
+                                   terms, cfg)
+    same = (gk.view(torch.int32) == gp.view(torch.int32)).all(dim=1)
+    say("K13", f"{what} gather on the kernel's terms: bit-equal on "
+        f"{same.float().mean().item():.6f} of the pixels")
+    err["gather"] = compare_image((gk, 0), (gp, 0), f"{what} gather", "K13",
+                                  0.995)
+    crays = torch.zeros(n, dtype=torch.int32, device=dev)
+    out, _ = kernels.bdpt_connect(scene, cam, key_c, ew, lw, fb, crays, cfg,
+                                  px=px, py=py)
+    outp, prays_c = bdpt.connect_plain(scene, cam, key_c, eb, ew["v0"],
+                                       ew["escape"], lw["bufs"], lw["v0"],
+                                       cfg, pid, fb)
+    err["composed"] = compare_image((out, int(crays.sum())),
+                                    (outp, prays_c), f"{what} connect",
+                                    "K13", 0.995)
+    return err
 
 
 def compare_grid(k, p, what: str) -> None:
@@ -1368,8 +1428,7 @@ def rows_of_sample(integ: str, scene, cam, px, py, cfg) -> tuple:
     if integ in ("UNIDIRECTIONAL", "NAIVE_UNIDIRECTIONAL"):
         classic = integ == "UNIDIRECTIONAL"
         _, rays, rows = kernels.render_unidirectional(
-            scene, px, py, cam.kernel_params(),
-            unidirectional.kernel_keys(base, 0), max_depth=cfg,
+            scene, px, py, cam.kernel_params(), base, 0, 1, max_depth=cfg,
             use_mis=classic, sample_environment=False,
             schedule="classic" if classic else "naive",
             air_priority=scene.air_priority, with_rows=True)
@@ -1516,6 +1575,44 @@ def eye_stage_stats(stats: dict, name: str, st: dict, eps: list,
         for stage in bounds if stage in st)
         + f"; {recs} records ({live} with strategies), {pairs} pairs, rays "
         f"{st['rays']}, rows {st['rows']}")
+
+
+def b1_batch(r, stats: dict, card: str) -> None:
+    """B1, samples per dispatch, at the batched main path's shape (r: the
+    256x256 UNIDIRECTIONAL Renderer at 8 per dispatch): one launch of K5
+    with k = 8 timed by CUDA events, held against the plain batch
+    (models/batch.py's loop over K5's plain version) under compare_render,
+    and its bound from the rows that launch visited."""
+    import torch
+    from cudapathtracer_tpu_torch import kernels
+    from cudapathtracer_tpu_torch.models import unidirectional
+    from cudapathtracer_tpu_torch.models.batch import make_batched
+    k, sc, n = 8, r.scene, r.px.shape[0]
+    kw = dict(max_depth=r.cfg.max_depth, use_mis=True,
+              sample_environment=r.cfg.sample_environment)
+    bli, brays = r.render_batch(0, k)[:2]
+    ms = cuda_ms(lambda: r.render_batch(0, k), 5)
+    pbatch = []
+    plain_ms = cuda_ms(lambda: pbatch.append(make_batched(
+        lambda sc_, c_, k_, s_, x_, y_: unidirectional.render_plain(
+            sc_, c_, k_, s_, x_, y_, schedule="mega", **kw))(
+                sc, r.camera, r.key, 0, r.px, r.py, k)), 1, warmup=0)
+    err = compare_render((bli, brays), pbatch[0][:2],
+                         f"256x256 blocks, k = {k} batch (B1) against the "
+                         "plain batch")
+    stats["render_unidirectional"]["max_abs_err"] = max(
+        stats["render_unidirectional"]["max_abs_err"], err)
+    rows = kernels.render_unidirectional(
+        sc, r.px, r.py, r.camera.kernel_params(), r.key, 0, k, schedule="mega",
+        air_priority=sc.air_priority, with_rows=True, **kw)[2]
+    tbytes = sum(t.numel() * 4 for t in (sc.bvh8_table, sc.tri_f32,
+                                          sc.light_f32, sc.textures,
+                                          sc.medium_f32))
+    bb = bound_ms(tbytes + n * (8 + 12 + 4),
+                  int(rows.sum()) * OPS_PER_ROW + k * n * OPS_PER_CAMERA_RAY)
+    say("B1", f"256x256 blocks, k = {k} in one K5 launch: {ms:.3f} ms, plain "
+        f"batch {plain_ms:.3f} ms, bound {bb[0]:.4f} ms ({bb[1]}); "
+        f"{int(rows.sum())} BVH8 rows ({card})")
 
 
 def threaded_phases(card: str, stats: dict, cam, px, py, ids, cfg0) -> int:
@@ -1808,7 +1905,6 @@ def main() -> int:
                                                  unidirectional,
                                                  unidirectional_mega, vcm,
                                                  vcm_mega)
-    from cudapathtracer_tpu_torch.models.batch import make_batched
     from cudapathtracer_tpu_torch.scene.materials import TRANSPORT_IMPORTANCE
     from cudapathtracer_tpu_torch.ops import hashgrid, traverse8
     from cudapathtracer_tpu_torch.scene import builtin
@@ -1840,12 +1936,11 @@ def main() -> int:
     # the kernels that trace rays are built per engine: ILi0E BVH8 (K1),
     # ILi1E threaded (K15)
     # the eye stages per flavour (0 classic, 1 mega VCM, 2 mega BDPT) and
-    # engine; the gather traces nothing
+    # engine; the gathers trace nothing
     engines = ("ILi0E", "ILi1E")
-    for kname in (*(k + e for k in ("uni_mega_kernel", "uni_mega_batch_kernel",
-                                    "bdpt_walk_kernel", "bdpt_splat_kernel",
-                                    "bdpt_connect_kernel")
-                    for e in engines),
+    for kname in (*(k + e for k in ("uni_mega_kernel", "bdpt_walk_kernel",
+                                    "bdpt_splat_kernel", "bdpt_pairs_kernel")
+                    for e in engines), "bdpt_gather_kernel",
                   *(k + e for k in ("eye_walk_kernel", "eye_connect_kernel")
                     for e in ("ILi0ELi0E", "ILi0ELi1E", "ILi1ELi0E",
                               "ILi2ELi0E")),
@@ -2113,8 +2208,8 @@ def main() -> int:
                 plain_ms=cuda_ms(lambda: render(scene, cam, "mega", px, py,
                                                 plain=True), 1, warmup=0))
     _, _, rows5 = kernels.render_unidirectional(
-        scene, px, py, cam.kernel_params(),
-        unidirectional.kernel_keys(rng.base_key(), 0), max_depth=DEPTH,
+        scene, px, py, cam.kernel_params(), rng.base_key(), 0, 1,
+        max_depth=DEPTH,
         use_mis=True, sample_environment=False, schedule="mega",
         air_priority=scene.air_priority, with_rows=True)
     # inputs read once: the tables, px, py; outputs li, rays. Operations:
@@ -2147,6 +2242,40 @@ def main() -> int:
             render(sph, scam, sched, sx, sy, plain=True),
             f"256x256 mirror + glass spheres, 1 spp, {sched}"))
     stats["render_unidirectional"]["max_abs_err"] = err5
+
+    # --- 7b. path regeneration: K5 on its resident grid bit-equal to K5 on
+    # one block per SM (li, rays, rows), three schedules at 1080p; the lane
+    # use the card counted (events / (32 x the warps' calls of the event
+    # code)) and the event balance (events / (32 x the sum of each warp's
+    # busiest lane's events))
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for sched in ("mega", "classic", "naive"):
+        runs = {}
+        for grid in (None, sms):
+            lanes = torch.zeros(3, dtype=torch.int64, device=dev)
+            runs[grid] = kernels.render_unidirectional(
+                scene, px, py, cam.kernel_params(), rng.base_key(), 0, 1,
+                max_depth=DEPTH, use_mis=sched != "naive",
+                sample_environment=False, schedule=sched,
+                air_priority=scene.air_priority, with_rows=True, grid=grid,
+                lanes=lanes) + (lanes.tolist(),)
+        (la, ra, wa, (ev, busy, calls)), (lb, rb, wb, (evb, busyb, callsb)) \
+            = runs[None], runs[sms]
+        check(torch.equal(la.view(torch.int32), lb.view(torch.int32))
+              and torch.equal(ra, rb) and torch.equal(wa, wb),
+              f"K5 {sched}: the resident grid and {sms} blocks differ")
+        use, balance = ev / (32 * calls), ev / (32 * busy)
+        row = stats["naive" if sched == "naive" else
+                    "render_unidirectional"]
+        if sched != "classic":
+            row.update(lane_use=use, event_balance=balance)
+        say("K5", f"{sched} {WIDTH}x{HEIGHT}: the resident grid "
+            f"({kernels.render_unidirectional_grid(scene, n, sched)} blocks "
+            f"of 128) and {sms} blocks bit-equal (li, rays, rows); {ev} "
+            f"events in {calls} warp calls of the event code: lane use "
+            f"{use:.4f}, event balance {balance:.4f} (on {sms} blocks "
+            f"{evb / (32 * callsb):.4f} and {evb / (32 * busyb):.4f})")
+    del runs, la, ra, wa, lb, rb, wb
 
     # --- 8. goldens on the card, through the megakernel
     gscene, _ = build_scene(builtin.cornell_with_blocks(),
@@ -2301,35 +2430,75 @@ def main() -> int:
         f"{stats['bdpt_splat']['bound'][0]:.4f} ms "
         f"({stats['bdpt_splat']['bound'][1]})")
 
+    # K13: the pairs and the gather against their twins, the composed pass
+    # (with the splat's frame buffer) against connect_plain
+    crows = torch.zeros(n, dtype=torch.int32, device=dev)
+    err13 = compare_k13(scene, cam, key_c, ew, lw, fbk, bcfg, px, py,
+                        f"{WIDTH}x{HEIGHT}, t <= {bcfg.eye_depth}, s <= "
+                        f"{bcfg.light_depth}", rows=crows)
+    # the terms, rays and rows do not depend on the pairs a thread takes
+    # (one, or all of a pixel's: the engines' two mappings)
+    per_all = (bcfg.eye_depth - 1) * bcfg.light_depth
+    by_per = {}
+    for per in (1, per_all):
+        prays_ = torch.zeros(n, dtype=torch.int32, device=dev)
+        by_per[per] = (kernels.bdpt_pairs(
+            scene, cam, key_c, ew, lw, prays_, bcfg, px=px, py=py,
+            per=per).view(torch.int32), prays_)
+    check(all(torch.equal(a, b) for a, b in zip(by_per[1], by_per[per_all])),
+          f"K13 pairs: 1 and {per_all} pairs a thread differ")
+    del by_per, prays_
     crays = torch.zeros(n, dtype=torch.int32, device=dev)
-    outk, crows = kernels.bdpt_connect(scene, cam, key_c, ew, lw, None, crays,
-                                       bcfg, px=px, py=py, with_rows=True)
+    terms = kernels.bdpt_pairs(scene, cam, key_c, ew, lw, crays, bcfg, px=px,
+                               py=py)
     pid = rng.pixel_ids(px, py)
-    outp, prays_c = bdpt.connect_plain(scene, cam, key_c, ew["bufs"],
-                                       ew["v0"], ew["escape"], lw["bufs"],
-                                       lw["v0"], bcfg, pid)
-    err13 = compare_image((outk, int(crays.sum())), (outp, prays_c),
-                          f"connections {WIDTH}x{HEIGHT}, t <= "
-                          f"{bcfg.eye_depth}, s <= {bcfg.light_depth}",
-                          "K13", 0.995)
     everts = int(ew["bufs"].valid.sum())
-    stats["bdpt_connect"].update(
-        bound=bound_ms(tbytes + stored * VERTEX_BYTES + n * (12 + 25 + 12),
+    live = ew["bufs"].valid & ~ew["bufs"].is_delta
+    nlive = int(live.sum())
+    # the fused pass's counts; the pairs write every term, the gather
+    # reads the terms of the live eye vertices
+    tbytes_terms = terms.numel() * 4
+    stats["bdpt_pairs"].update(
+        bound=bound_ms(tbytes + stored * VERTEX_BYTES + n * (8 + 8)
+                       + tbytes_terms,
                        int(crows.sum()) * OPS_PER_ROW
                        + everts * (bcfg.light_depth * OPS_PER_DECODE
                                    + 7 * OPS_PER_DRAW)),
-        max_abs_err=err13,
-        ms=cuda_ms(lambda: kernels.bdpt_connect(
-            scene, cam, key_c, ew, lw, None, rst, bcfg, px=px, py=py), 3),
-        plain_ms=cuda_ms(lambda: bdpt.connect_plain(
-            scene, cam, key_c, ew["bufs"], ew["v0"], ew["escape"],
-            lw["bufs"], lw["v0"], bcfg, pid), 1, warmup=0))
-    say("K13", f"kernel {stats['bdpt_connect']['ms']:.3f} ms, plain "
-        f"{stats['bdpt_connect']['plain_ms']:.3f} ms; {int(crays.sum())} "
-        f"shadow rays, {int(crows.sum())} BVH8 rows, {everts} eye vertices; "
-        f"bound {stats['bdpt_connect']['bound'][0]:.4f} ms "
-        f"({stats['bdpt_connect']['bound'][1]})")
-    del kw, lw, ew, fbk, fbk2, fbp, fbt, outk, outp, codec_args, vec, cbeta
+        max_abs_err=err13["pairs"],
+        ms=cuda_ms(lambda: kernels.bdpt_pairs(
+            scene, cam, key_c, ew, lw, rst, bcfg, px=px, py=py), 3),
+        plain_ms=cuda_ms(lambda: bdpt.connect_pairs_plain(
+            scene, key_c, ew["bufs"], lw["bufs"], bcfg, pid), 1, warmup=0))
+    # the gather reads the eye vertices up to each pixel's first invalid
+    # one: every valid vertex whole, and the valid flag (1 B) that stops a
+    # path short of the last depth
+    stops = n - int(ew["bufs"].valid[-1].sum())
+    stats["bdpt_gather"].update(
+        bound=bound_ms(everts * VERTEX_BYTES + stops
+                       + n * (12 + 25 + 12 + 12)
+                       + nlive * bcfg.light_depth * 12,
+                       everts * OPS_PER_DECODE),
+        max_abs_err=max(err13["gather"], err13["composed"]),
+        ms=cuda_ms(lambda: kernels.bdpt_gather(scene, cam, ew, terms, fbk,
+                                               bcfg), 5),
+        plain_ms=cuda_ms(lambda: bdpt.connect_gather_plain(
+            scene, cam, ew["bufs"], ew["v0"], ew["escape"], terms, bcfg,
+            fbk), 1, warmup=0))
+    k13 = {k: stats[k] for k in ("bdpt_pairs", "bdpt_gather")}
+    say("K13", f"pairs {k13['bdpt_pairs']['ms']:.3f} ms (plain "
+        f"{k13['bdpt_pairs']['plain_ms']:.3f}, bound "
+        f"{k13['bdpt_pairs']['bound'][0]:.4f} ms, "
+        f"{k13['bdpt_pairs']['bound'][1]}), gather "
+        f"{k13['bdpt_gather']['ms']:.3f} ms (plain "
+        f"{k13['bdpt_gather']['plain_ms']:.3f}, bound "
+        f"{k13['bdpt_gather']['bound'][0]:.4f} ms, "
+        f"{k13['bdpt_gather']['bound'][1]}), the pass "
+        f"{k13['bdpt_pairs']['ms'] + k13['bdpt_gather']['ms']:.3f} ms "
+        f"({card}); {int(crays.sum())} shadow rays, {int(crows.sum())} BVH8 "
+        f"rows, {everts} eye vertices ({nlive} valid non-delta), "
+        f"{terms.numel() // 3} pairs, terms {tbytes_terms / 2**30:.3f} GiB; "
+        f"1 and {per_all} pairs a thread bit-equal")
+    del kw, lw, ew, fbk, fbk2, fbp, fbt, codec_args, vec, cbeta, terms, live
     del cdl, cbf, cli, cmi, wrays, srays, srows, crays, crows, pid, rst
 
     # --- 13b. every strategy flag, and the VCM light walk (eta_vcm), on the
@@ -2631,10 +2800,9 @@ def main() -> int:
                             max_depth=DEPTH)
     errn = compare_render(kn, pn, f"{WIDTH}x{HEIGHT} bunny, 1 spp, naive")
     _, _, rows_n = kernels.render_unidirectional(
-        scene, px, py, cam.kernel_params(),
-        unidirectional.kernel_keys(rng.base_key(), 0), max_depth=DEPTH,
-        use_mis=False, sample_environment=False, schedule="naive",
-        air_priority=scene.air_priority, with_rows=True)
+        scene, px, py, cam.kernel_params(), rng.base_key(), 0, 1,
+        max_depth=DEPTH, use_mis=False, sample_environment=False,
+        schedule="naive", air_priority=scene.air_priority, with_rows=True)
     tbytes5 = sum(t.numel() * 4 for t in (scene.bvh8_table, scene.tri_f32,
                                            scene.light_f32, scene.textures,
                                            scene.medium_f32))
@@ -2655,11 +2823,11 @@ def main() -> int:
         f"{stats['naive']['bound'][0]:.4f} ms ({stats['naive']['bound'][1]})")
     del kn, pn, rows_n
 
-    # --- 25. K5's k-sample mode (models/batch.py, B1): one launch of k
-    # samples bit-equal to k single launches summed in sample order, on the
-    # bunny scene at 512x512 (k = 8) for the three schedules and at 1080p
-    # (k = 4) for the mega schedule; CUDA events of the batch against the
-    # k singles
+    # --- 25. K5 with k samples a launch (models/batch.py, B1): one launch
+    # of k samples bit-equal to k launches of one sample summed in sample
+    # order, and to the launch of k on one block per SM, on the bunny scene
+    # at 512x512 (k = 8) for the three schedules and at 1080p (k = 4) for
+    # the mega schedule; CUDA events of the batch against the k singles
     kbase = rng.base_key()
     for sched, kw_, kh_, kk in (("mega", 512, 512, 8), ("classic", 512, 512, 8),
                                 ("naive", 512, 512, 8),
@@ -2676,9 +2844,17 @@ def main() -> int:
         bli, brays = unidirectional.render_batch_kernel(
             scene, kcam, kbase, 0, kx, ky, kk, **k5kw)
         torch.cuda.synchronize()
-        check(kernels.launches["uni_mega_batch"] == 1
+        check(kernels.launches["naive" if sched == "naive"
+                               else "render_unidirectional"] == 1
               and sum(kernels.launches.values()) == 1,
               f"K5 k-mode {sched}: launches {kernels.launches}")
+        gli, grays = kernels.render_unidirectional(
+            scene, kx, ky, kcam.kernel_params(), kbase, 0, kk, grid=sms,
+            air_priority=scene.air_priority, **k5kw)
+        check(torch.equal(gli.view(torch.int32), bli.view(torch.int32))
+              and int(grays.sum()) == int(brays),
+              f"K5 k-mode {sched} {kw_}x{kh_}: {sms} blocks differ from "
+              "the resident grid")
         acc, tot = torch.zeros_like(bli), 0
         for s_ in range(kk):
             l1, r1 = unidirectional.render_kernel(scene, kcam, kbase, s_, kx,
@@ -2694,38 +2870,10 @@ def main() -> int:
         ms_s = cuda_ms(lambda: [unidirectional.render_kernel(
             scene, kcam, kbase, s_, kx, ky, **k5kw) for s_ in range(kk)], 3)
         say("K5 k-mode", f"{sched} {kw_}x{kh_}, k = {kk}: li_sum and {tot} "
-            f"rays bit-equal to {kk} single launches summed; one launch "
-            f"{ms_b:.3f} ms, {kk} singles {ms_s:.3f} ms ({card})")
-        if kw_ == WIDTH:
-            _, _, brows = kernels.render_unidirectional_batch(
-                scene, kx, ky, kcam.kernel_params(), kernels.upload_words(
-                    [unidirectional.kernel_keys(kbase, s_)
-                     for s_ in range(kk)], dev), with_rows=True,
-                air_priority=scene.air_priority, **k5kw)
-            # the plain batch (models/batch.py's loop over K5's plain
-            # version), kept to hold the k-sample launch against it
-            pbatch = []
-            plain_b_ms = cuda_ms(lambda: pbatch.append(make_batched(
-                lambda sc_, c_, k_, s_, x_, y_: unidirectional.render_plain(
-                    sc_, c_, k_, s_, x_, y_, **k5kw))(
-                        scene, kcam, kbase, 0, kx, ky, kk)), 1, warmup=0)
-            stats["uni_mega_batch"].update(
-                bound=bound_ms(tbytes5 + kx.numel() * (8 + 12 + 4)
-                               + kk * 28 * 4,
-                               int(brows.sum()) * OPS_PER_ROW
-                               + kk * kx.numel() * OPS_PER_CAMERA_RAY),
-                max_abs_err=compare_render(
-                    (bli, brays), pbatch[0],
-                    f"{kw_}x{kh_} bunny, k = {kk} batch against the plain "
-                    "batch"),
-                ms=ms_b, plain_ms=plain_b_ms)
-            del pbatch
-            say("K5 k-mode", f"1080p k = {kk}: plain batch "
-                f"{stats['uni_mega_batch']['plain_ms']:.3f} ms; bound "
-                f"{stats['uni_mega_batch']['bound'][0]:.4f} ms "
-                f"({stats['uni_mega_batch']['bound'][1]}); "
-                f"{int(brows.sum())} BVH8 rows")
-        del bli, acc
+            f"rays bit-equal to {kk} single launches summed and to {sms} "
+            f"blocks; one launch {ms_b:.3f} ms, {kk} singles {ms_s:.3f} ms "
+            f"({card})")
+        del bli, acc, gli
 
     # --- 26. the keyed draws: K6's keyed mode bit-equal to uniform_keyed's
     # plain version on 2,073,600 ids with per-lane key pairs, then K12's
@@ -2857,17 +3005,17 @@ def main() -> int:
     r, bdpt_launches = render_path(
         main_cfg(integrator="BIDIRECTIONAL", engine="classic",
                  name="smoke_bdpt"), "bdpt", card,
-        {"bdpt_walk": 2 * SPP, "bdpt_splat": SPP, "bdpt_connect": SPP,
-         "render_unidirectional": 0})
+        {"bdpt_walk": 2 * SPP, "bdpt_splat": SPP, "bdpt_pairs": SPP,
+         "bdpt_gather": SPP, "render_unidirectional": 0})
     bcfg = bdpt.BDPTConfig.from_config(r.cfg)
 
-    # one sample's four launches, each between two CUDA events
+    # one sample's five launches, each between two CUDA events
     key_l, key_e, key_c = bdpt.sample_keys(r.key, SPP)
     rays_t = torch.zeros(r.px.shape[0], dtype=torch.int32, device=dev)
     fb_t = torch.zeros((r.px.shape[0], 3), device=dev)
     stage_ms = {}
     for rep in range(2):   # the first pass warms up
-        ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(6)]
         ev[0].record()
         lw = kernels.bdpt_walk(r.scene, r.px, r.py,
                                paths.walk_keys(key_l, "light"), mode="light",
@@ -2881,14 +3029,16 @@ def main() -> int:
                                max_depth=bcfg.eye_depth, rays=rays_t,
                                camera=r.camera)
         ev[3].record()
-        kernels.bdpt_connect(r.scene, r.camera, key_c, ew, lw, fb_t, rays_t,
-                             bcfg, px=r.px, py=r.py)
+        terms = kernels.bdpt_pairs(r.scene, r.camera, key_c, ew, lw, rays_t,
+                                   bcfg, px=r.px, py=r.py)
         ev[4].record()
+        kernels.bdpt_gather(r.scene, r.camera, ew, terms, fb_t, bcfg)
+        ev[5].record()
         torch.cuda.synchronize()
         stage_ms = {name: ev[i].elapsed_time(ev[i + 1]) for i, name in
                     enumerate(("light walk", "splat", "eye walk",
-                               "connect"))}
-        del lw, ew
+                               "connection pairs", "gather"))}
+        del lw, ew, terms
     say("bdpt", "one 1080p sample, CUDA events per launch: " + ", ".join(
         f"{k} {v:.3f} ms" for k, v in stage_ms.items())
         + f"; sum {sum(stage_ms.values()):.3f} ms ({card})")
@@ -2918,7 +3068,7 @@ def main() -> int:
              "photon_pack": SPP, "photon_table": SPP, "vcm_eye": SPP,
              "vcm_eye_walk": SPP, "vcm_eye_connect": SPP if splat else 0,
              "vcm_eye_gather": SPP, "mega_eye": 0, "bdpt_splat": 0,
-             "bdpt_connect": 0, "render_unidirectional": 0})
+             "bdpt_pairs": 0, "render_unidirectional": 0})
         if tag == "vcm":
             for k in PHOTON_KERNELS:
                 main_launches[k] = launches[k]
@@ -2931,7 +3081,7 @@ def main() -> int:
     # rendertron as shipped (one chunk with pads), then NAIVE_UNIDIRECTIONAL
     # at depth 8 (one launch a sample; its image is sparse: only paths that
     # reach the light by BSDF sampling are lit)
-    none = {k: 0 for k in ("vcm_eye", "bdpt_connect", "render_unidirectional",
+    none = {k: 0 for k in ("vcm_eye", "bdpt_pairs", "render_unidirectional",
                            "naive", "vcm_splat", "bdpt_splat", "photon_pack",
                            "photon_table", "vcm_eye_walk", "vcm_eye_connect",
                            "vcm_eye_gather", "mega_eye_connect")}
@@ -3232,7 +3382,7 @@ def main() -> int:
 
     # UNIDIRECTIONAL (mega) and NAIVE at 256x256 on cornell_blocks, 256
     # samples, 1 per dispatch against the auto 8: one K5 launch a sample
-    # against one k-sample launch a batch
+    # against one K5 launch of 8 samples a batch
     blocks = [MeshConfig("builtin:cornell_blocks", 1.0, (0.0, 0.0, 0.0), 2)]
     for integ, single, lit in (("UNIDIRECTIONAL", "render_unidirectional",
                                 0.9), ("NAIVE_UNIDIRECTIONAL", "naive",
@@ -3240,8 +3390,7 @@ def main() -> int:
         accs = {}
         for spd in (1, 0):
             tag = f"{integ[:5].lower()} 256 spd{spd or 'auto'}"
-            want = ({single: 256, "uni_mega_batch": 0} if spd == 1 else
-                    {single: 0, "uni_mega_batch": 32})
+            want = {single: 256 if spd == 1 else 32}
             r, launches = render_path(dataclasses.replace(
                 cfg0, integrator=integ, width=256, height=256,
                 sample_count=256, max_depth=DEPTH, meshes=blocks,
@@ -3250,7 +3399,7 @@ def main() -> int:
                 want, min_lit=lit)
             accs[spd] = (r.accum.clone(), r.metrics.rays_traced)
             if integ == "UNIDIRECTIONAL" and spd == 0:
-                main_launches["uni_mega_batch"] = launches["uni_mega_batch"]
+                b1_batch(r, stats, card)
             del r
         close = torch.isclose(accs[1][0], accs[0][0], rtol=1e-4, atol=1e-5)
         say(integ, f"256x256, 256 samples: rays {accs[1][1]} (spd 1) and "
@@ -3416,7 +3565,9 @@ def main() -> int:
          "bound_ms": stats[name]["bound"][0],
          "bound_by": stats[name]["bound"][1], "library_ms": None,
          **({"launches_of_the_kernel_it_runs_in": inside[name]}
-            if name in inside else {})}
+            if name in inside else {}),
+         **{key: stats[name][key] for key in ("lane_use", "event_balance")
+            if key in stats[name]}}
         for name, src, rep in KERNELS]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

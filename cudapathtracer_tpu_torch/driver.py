@@ -274,7 +274,7 @@ class Renderer:
                 k = min(spd, total - self.sample_count)
                 args = (self.scene, self.camera, self.key, self.sample_count,
                         self.px, self.py)
-                out = batched(*args, k) if k > 1 else inner(*args)
+                out = batched(*args, k)
                 li, rays = out[0], out[1]
                 if len(out) > 2:
                     dtot = dtot + out[2]

@@ -5,14 +5,14 @@ and one .cuh of device code per TPU kernel, shared between them (K1
 traverse8.cuh, K15 traverse_bin.cuh (the threaded binary engine, whose
 batch entries are traverse_bin.cu), K7 camera.cuh, K2 shade.cuh, K3
 bsdf.cuh, K4 nee.cuh, K6 threefry.cuh, K10 packing.cuh, K12's MIS step
-mis.cuh, the BDPT bodies bdpt.cuh; the per-path megakernel K5,
+mis.cuh, the BDPT bodies bdpt.cuh; the persistent megakernel K5,
 uni_mega.cu, and the BDPT kernels K11 bdpt_splat.cu, K12 bdpt_walk.cu and
-K13 bdpt_connect.cu call them; the photon grid's hashgrid.cuh (K8-K10)
-serves K8 photon_grid.cu, K9's test entry neighbor_slots.cu and the VCM
-eye passes: the classic one (K13's VCM form with K9's fold; strategies in
-vcm.cuh) and the mega engines' K14 (its strategies in mega.cuh) run as the
-same three stages, eye.cuh's bodies launched by eye_walk.cu, eye_connect.cu
-and eye_gather.cu).
+K13's two stages bdpt_pairs.cu and bdpt_gather.cu call them; the photon
+grid's hashgrid.cuh (K8-K10) serves K8 photon_grid.cu, K9's test entry
+neighbor_slots.cu and the VCM eye passes: the classic one (K13's VCM form
+with K9's fold; strategies in vcm.cuh) and the mega engines' K14 (its
+strategies in mega.cuh) run as the same three stages, eye.cuh's bodies
+launched by eye_walk.cu, eye_connect.cu and eye_gather.cu).
 They are compiled on first use with nvcc, one process per source, all
 started together, and linked into one shared library with a plain C
 interface, build/torch_ext/libtpt_torch_kernels.so, called through ctypes
@@ -22,12 +22,14 @@ traversal's stack depth is fixed at build time: the default 16 is the
 library above, and any other depth (stack_d=) builds its own
 libtpt_torch_kernels_stack<d>.so.
 
-Three entries have a second mode, counted under a name of its own: K6's
-keyed draw (uniform_keyed, rng.cu), K5's k-sample mode for samples per
-dispatch (uni_mega_batch, uni_mega.cu) and K12's table mode for the keyed
-light walk (bdpt_walk_table, bdpt_walk.cu). An eye pass (vcm_eye,
-mega_eye) counts once under its own name and each of its stage launches
-under <pass>_walk, <pass>_connect and <pass>_gather.
+Two entries have a second mode, counted under a name of its own: K6's
+keyed draw (uniform_keyed, rng.cu) and K12's table mode for the keyed
+light walk (bdpt_walk_table, bdpt_walk.cu). K5 renders k >= 1 samples a
+launch (samples per dispatch), counted under render_unidirectional, or
+naive for its naive schedule. An eye pass (vcm_eye, mega_eye) counts once
+under its own name and each of its stage launches under <pass>_walk,
+<pass>_connect and <pass>_gather; K13 counts its two launches under
+bdpt_pairs and bdpt_gather.
 
 Engines: the kernels that trace rays (K5, K11-K13, the classic eye pass's
 walk and connections) are built twice, once per traversal engine, and
@@ -40,9 +42,12 @@ stages.
 Each wrapper below checks its tensors (device, dtype, shape, contiguity),
 allocates the outputs, launches, raises if the launch was refused, and then
 adds one to its entry of `launches`. The launch counters are the package's
-only global state; `reset_launches()` zeroes them. No wrapper waits for the
-card: the few words a launch reads from device memory (key tables) are
-copied from pinned memory without blocking (upload_words).
+only global state besides K5's scratch (its pixel counter and key table,
+one buffer a device and stream, written on the card by each launch);
+`reset_launches()` zeroes them. No wrapper waits for the card: the few
+words a launch reads from device memory (key tables) are copied from
+pinned memory without blocking (upload_words), or, for K5, derived on the
+card.
 
 Compile flags: -O3 and -fmad=false, no --use_fast_math (so sqrtf and
 division are correctly rounded). -fmad=false keeps every a*b+c rounded
@@ -67,8 +72,9 @@ import torch
 CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 SOURCES = ("rng.cu", "camera.cu", "traverse8.cu", "traverse_bin.cu",
            "uni_mega.cu", "packing.cu", "bdpt_walk.cu", "bdpt_splat.cu",
-           "bdpt_connect.cu", "photon_grid.cu", "neighbor_slots.cu",
-           "eye_walk.cu", "eye_connect.cu", "eye_gather.cu")
+           "bdpt_pairs.cu", "bdpt_gather.cu", "photon_grid.cu",
+           "neighbor_slots.cu", "eye_walk.cu", "eye_connect.cu",
+           "eye_gather.cu")
 HEADERS = ("threefry.cuh", "camera.cuh", "traverse8.cuh", "traverse_bin.cuh",
            "shade.cuh", "bsdf.cuh", "nee.cuh", "packing.cuh", "mis.cuh",
            "bdpt.cuh", "hashgrid.cuh", "vcm.cuh", "mega.cuh", "eye.cuh")
@@ -90,10 +96,10 @@ launches = {"closest_hit8": 0, "shadow_factor8": 0, "closest_hit_bin": 0,
             "shadow_factor_bin": 0, "uniform_id": 0,
             "generate_rays": 0, "render_unidirectional": 0, "shade_eval": 0,
             "packing_roundtrip": 0, "bdpt_walk": 0, "bdpt_splat": 0,
-            "bdpt_connect": 0, "vcm_splat": 0, "photon_pack": 0,
-            "photon_table": 0, "vcm_eye": 0, "rgb9e5": 0,
+            "bdpt_pairs": 0, "bdpt_gather": 0, "vcm_splat": 0,
+            "photon_pack": 0, "photon_table": 0, "vcm_eye": 0, "rgb9e5": 0,
             "neighbor_slots": 0, "mega_eye": 0, "naive": 0,
-            "uniform_keyed": 0, "uni_mega_batch": 0, "bdpt_walk_table": 0,
+            "uniform_keyed": 0, "bdpt_walk_table": 0,
             # the eye passes' stages (eye_walk.cu, eye_connect.cu,
             # eye_gather.cu), counted beside the pass's own count
             "vcm_eye_walk": 0, "vcm_eye_connect": 0, "vcm_eye_gather": 0,
@@ -209,19 +215,17 @@ def _load(stack_d: int = STACK_D):
                                               p, p, i64, p, p, p]
         lib.tpt_render_unidirectional.restype = ctypes.c_int
         lib.tpt_render_unidirectional.argtypes = [
-            p, p, i32, p, i32, p, p, p, p, i64, p, p, i32, i32, i32, i32,
-            i32, i32, p, i32, i32, p, p, p, p]
-        lib.tpt_render_unidirectional_batch.restype = ctypes.c_int
-        lib.tpt_render_unidirectional_batch.argtypes = [
-            p, p, i32, p, i32, p, p, p, p, i64, p, p, i32, i32, i32, i32,
-            i32, i32, i32, p, i32, i32, p, p, p, p]
+            p, p, i32, p, i32, p, p, p, p, i64, p, u32, u32, u32, i32, i32,
+            i32, i32, i32, i32, i32, p, i32, i32, p, p, p, p, i32, p, p]
+        lib.tpt_render_unidirectional_grid.restype = ctypes.c_int
+        lib.tpt_render_unidirectional_grid.argtypes = [i32, i64, p]
         lib.tpt_shade_eval.restype = ctypes.c_int
         lib.tpt_shade_eval.argtypes = [p, i32, p, i32, p, p, p, p, p, p, p,
                                        p, p, p, i64, p, p, p]
         lib.tpt_packing_roundtrip.restype = ctypes.c_int
         lib.tpt_packing_roundtrip.argtypes = [p, p, p, p, p, p, i64, p, p,
                                               p, p, p, p, p]
-        for name in ("tpt_bdpt_walk", "tpt_bdpt_connect"):
+        for name in ("tpt_bdpt_walk", "tpt_bdpt_pairs", "tpt_bdpt_gather"):
             getattr(lib, name).restype = ctypes.c_int
             getattr(lib, name).argtypes = [p, p, p, p, p]
         lib.tpt_bdpt_splat.restype = ctypes.c_int
@@ -513,21 +517,58 @@ def _scene_args(scene, dev):
     return blocks
 
 
-def _k5_launch(name: str, entry: str, scene, px, py, cam_params: list,
-               key_args: tuple, *, max_depth: int, use_mis: bool,
-               sample_environment: bool, schedule: str, air_priority: int,
-               with_rows: bool):
-    """Check the pixels and the scene, allocate the outputs and launch K5
-    through the C entry `entry` (key_args follow the camera floats);
-    counted under name."""
+# K5's scratch, one int64 tensor a (device, stream): the pixel counter,
+# then the key table of k samples (28 uint32 words a sample), both written
+# on the card by the launch's key kernel. Grown to the largest k asked for.
+_K5_SCRATCH: dict = {}
+
+
+def _k5_scratch(dev, k: int) -> torch.Tensor:
+    key = (dev.index, torch.cuda.current_stream(dev).cuda_stream)
+    buf = _K5_SCRATCH.get(key)
+    if buf is None or buf.numel() < 1 + 14 * k:
+        buf = _K5_SCRATCH[key] = torch.empty(1 + 14 * k, dtype=torch.int64,
+                                             device=dev)
+    return buf
+
+
+def render_unidirectional(scene, px: torch.Tensor, py: torch.Tensor,
+                          cam_params: list, base_key, s0: int, k: int, *,
+                          max_depth: int, use_mis: bool,
+                          sample_environment: bool, schedule: str,
+                          air_priority: int, with_rows: bool = False,
+                          grid: int | None = None, lanes=None):
+    """K5 (uni_mega.cu): samples s0 .. s0+k-1 (k >= 1) of the
+    unidirectional path tracer for the pixels (px, py) [P] int32 in one
+    launch of K5. cam_params: the 19 camera floats; base_key: the render's
+    key pair (two uint32 words), from which a small kernel launched just
+    before derives each sample's keys as models/unidirectional.render_plain
+    does. schedule: "classic",
+    "mega" (each path retired through RGB9E5) or "naive" (the naive
+    integrator, max_depth bounces; counted under "naive"). The classic and
+    naive schedules trace with the scene's engine, the mega one with BVH8.
+    -> (radiance summed over the k samples in their order [P,3] f32, rays
+    summed [P] i32), and with with_rows each pixel's count of rows (BVH8
+    rows or threaded nodes) visited [P] i32. Test arguments: grid, a
+    number of blocks in place of the resident grid (the result does not
+    depend on it); lanes, an int64 [3] tensor on the device to which the
+    launch adds (events stepped, the sum over warps of the warp's busiest
+    lane's events, the warps' calls of the event code): events / (32 x
+    calls) is the lane use, events / (32 x busiest) the event balance."""
     dev = _cuda_device(px)
     n = px.shape[0]
     _check(px, "px", torch.int32, (n,), dev)
     _check(py, "py", torch.int32, (n,), dev)
+    if k < 1 or not 0 <= s0 < 2 ** 32:
+        raise ValueError(f"samples {s0} + {k}: k >= 1 from a uint32 start")
+    if lanes is not None:
+        _check(lanes, "lanes", torch.int64, (3,), dev)
+    if grid is not None and grid < 1:
+        raise ValueError(f"grid {grid}: at least one block")
     tbl = _table(scene, dev)
     b = _scene_args(scene, dev)
     if len(cam_params) != 19:
-        raise ValueError(f"{name}: 19 camera floats")
+        raise ValueError("render_unidirectional: 19 camera floats")
     if schedule not in SCHEDULES:
         raise ValueError(f"schedule {schedule!r}: one of {sorted(SCHEDULES)}")
     # the mega schedule reads the BVH8 table on every scene
@@ -538,67 +579,33 @@ def _k5_launch(name: str, entry: str, scene, px, py, cam_params: list,
     cparams = (ctypes.c_float * 19)(*cam_params)
     lib = _load()
     with torch.cuda.device(dev):
-        _launch(name, lib, getattr(lib, entry), tbl.data_ptr(),
+        _launch("naive" if schedule == "naive" else "render_unidirectional",
+                lib, lib.tpt_render_unidirectional, tbl.data_ptr(),
                 b["tri_f32"].data_ptr(), b["tri_f32"].shape[1],
                 b["light_f32"].data_ptr(), scene.num_lights,
                 b["textures"].data_ptr(), b["medium"].data_ptr(),
                 px.data_ptr(), py.data_ptr(), n, ctypes.addressof(cparams),
-                *key_args, max_depth, int(use_mis), int(sample_environment),
+                base_key[0] & 0xFFFFFFFF, base_key[1] & 0xFFFFFFFF, s0, k,
+                max_depth, int(use_mis), int(sample_environment),
                 SCHEDULES[schedule], air_priority, *eng, li.data_ptr(),
-                rays.data_ptr(), _ptr(rows), _stream(dev), engine=eng[0])
+                rays.data_ptr(), _ptr(rows), _k5_scratch(dev, k).data_ptr(),
+                grid or 0, _ptr(lanes), _stream(dev), engine=eng[0])
     return (li, rays) if rows is None else (li, rays, rows)
 
 
-def render_unidirectional(scene, px: torch.Tensor, py: torch.Tensor,
-                          cam_params: list, keys: list, *, max_depth: int,
-                          use_mis: bool, sample_environment: bool,
-                          schedule: str, air_priority: int,
-                          with_rows: bool = False):
-    """K5 (uni_mega.cu): one sample of the unidirectional path tracer for
-    the pixels (px, py) [P] int32, one thread per path. cam_params: the 19
-    camera floats; keys: 28 uint32 words (8 camera draw-key words, the
-    sample key pair, the 9 mega draw-key pairs). schedule: "classic",
-    "mega" (each path retired through RGB9E5) or "naive" (the naive
-    integrator, max_depth bounces; counted under "naive"). The classic and
-    naive schedules trace with the scene's engine, the mega one with BVH8.
-    -> (radiance [P,3] f32, rays [P] i32), and with with_rows each path's
-    count of rows (BVH8 rows or threaded nodes) visited [P] i32."""
-    if len(keys) != 28:
-        raise ValueError("render_unidirectional: 28 key words")
-    ckeys = (ctypes.c_uint32 * 28)(*(k & 0xFFFFFFFF for k in keys))
-    return _k5_launch(
-        "naive" if schedule == "naive" else "render_unidirectional",
-        "tpt_render_unidirectional", scene, px, py, cam_params,
-        (ctypes.addressof(ckeys),), max_depth=max_depth, use_mis=use_mis,
-        sample_environment=sample_environment, schedule=schedule,
-        air_priority=air_priority, with_rows=with_rows)
-
-
-def render_unidirectional_batch(scene, px: torch.Tensor, py: torch.Tensor,
-                                cam_params: list, key_table: torch.Tensor, *,
-                                max_depth: int, use_mis: bool,
-                                sample_environment: bool, schedule: str,
-                                air_priority: int, with_rows: bool = False):
-    """K5's k-sample mode (uni_mega.cu, uni_mega_batch_kernel): k samples
-    of the pixels (px, py) [P] int32 in one launch; key_table: [k, 28]
-    int32 (uint32 words, on the device), row s the 28 key words of the
-    batch's sample s. -> (radiance summed over the samples in their order
-    [P,3] f32, rays summed [P] i32), and with with_rows the rows visited
-    [P] i32. Counted under "uni_mega_batch" for every schedule; engines as
-    render_unidirectional."""
-    dev = _cuda_device(px)
-    key_table = _words32(key_table)
-    if key_table.dim() != 2 or key_table.shape[1] != 28 \
-            or key_table.shape[0] < 1:
-        raise ValueError(f"key_table must be [k >= 1, 28], got "
-                         f"{tuple(key_table.shape)}")
-    _check(key_table, "key_table", torch.int32, key_table.shape, dev)
-    return _k5_launch(
-        "uni_mega_batch", "tpt_render_unidirectional_batch", scene, px, py,
-        cam_params, (key_table.data_ptr(), key_table.shape[0]),
-        max_depth=max_depth, use_mis=use_mis,
-        sample_environment=sample_environment, schedule=schedule,
-        air_priority=air_priority, with_rows=with_rows)
+def render_unidirectional_grid(scene, n: int, schedule: str) -> int:
+    """The blocks (of 128 threads) of K5's resident grid for n pixels on
+    the current device: its SMs times the blocks that fit on one, at most
+    one block per 128 pixels."""
+    dev = torch.device("cuda", torch.cuda.current_device())
+    eng = _engine_args(scene, dev, bvh8_only=schedule == "mega")[0]
+    blocks = ctypes.c_int32(0)
+    lib = _load()
+    err = lib.tpt_render_unidirectional_grid(eng, n, ctypes.byref(blocks))
+    if err != 0:
+        raise RuntimeError("K5 grid query failed: "
+                           f"{lib.tpt_error_string(err).decode()}")
+    return blocks.value
 
 
 def shade_eval(scene, o, d, t, tri, u, v, ids, eta_i, keys: list):
@@ -619,8 +626,7 @@ def shade_eval(scene, o, d, t, tri, u, v, ids, eta_i, keys: list):
     if len(keys) != 18:
         raise ValueError("shade_eval: 18 key words")
     out = torch.empty((n, SHADE_EVAL_COLS), dtype=torch.float32, device=dev)
-    ckeys = (ctypes.c_uint32 * 28)(*([0] * 10), *(k & 0xFFFFFFFF
-                                                  for k in keys))
+    ckeys = _u32s(keys)
     lib = _load()
     with torch.cuda.device(dev):
         _launch("shade_eval", lib, lib.tpt_shade_eval,
@@ -846,54 +852,117 @@ def _splat(name, scene, camera, lbufs, n, v0_ptrs, fb, rays, cfg, eta_vcm,
     return rows
 
 
-def bdpt_connect(scene, camera, key_c, eye: dict, light: dict, fb, rays, cfg,
-                 *, px, py, with_rows: bool = False):
-    """K13 (bdpt_connect.cu): the connection stage of each pixel (px, py)
-    [N] i32; eye: bdpt_walk's eye result (bufs [E-1, N], v0, escape),
-    light: its light result (bufs [L-1, N]); fb: [N,3] f32 added to the
-    result, or None; key_c: the sample's connection key pair; rays [N] i32
-    += the shadow rays traced. cfg: a BDPTConfig. -> (radiance [N,3] f32,
-    rows [N] i32 rows visited on the scene's engine or None)."""
-    dev = _cuda_device(px)
-    n = px.shape[0]
-    _check(px, "px", torch.int32, (n,), dev)
-    _check(py, "py", torch.int32, (n,), dev)
-    _check(rays, "rays", torch.int32, (n,), dev)
+def _connect_launch(name: str, entry: str, scene, camera, key_c, eye: dict,
+                    light, fb, rays, cfg, *, px, py, terms, out, rows,
+                    per: int = 1):
+    """One launch of K13's stage `entry` (bdpt_pairs.cu or bdpt_gather.cu,
+    one argument layout), counted under name. light, rays, px, py (the
+    pairs' inputs) and fb, out (the gather's) may be None; per: the pairs'
+    pairs a thread."""
+    dev = terms.device
+    n = eye["bufs"].pt.shape[1]
+    for t, nm in ((px, "px"), (py, "py")):
+        if t is not None:
+            _check(t, nm, torch.int32, (n,), dev)
+    if rays is not None:
+        _check(rays, "rays", torch.int32, (n,), dev)
     if fb is not None:
         _check(fb, "fb", torch.float32, (n, 3), dev)
     if cfg.eye_depth < 2 or cfg.light_depth < 1:
-        raise ValueError("bdpt_connect: eye_depth >= 2 and light_depth >= 1")
+        raise ValueError("K13: eye_depth >= 2 and light_depth >= 1")
+    _check(terms, "terms", torch.float32,
+           (cfg.eye_depth - 1, cfg.light_depth, n, 3), dev)
     sc = _bdpt_scene(scene, dev)
     esc = eye["escape"]
     _check(eye["v0"]["pt"], "ev0.pt", torch.float32, (n, 3), dev)
     _check(esc.valid, "escape.valid", torch.bool, (n,), dev)
     _check(esc.d, "escape.d", torch.float32, (n, 3), dev)
     _check(esc.beta, "escape.beta", torch.float32, (n, 3), dev)
-    out = torch.empty((n, 3), dtype=torch.float32, device=dev)
-    rows = torch.zeros(n, dtype=torch.int32, device=dev) if with_rows \
-        else None
+    lptrs = ([0] * 11 if light is None else
+             _check_bufs(light["bufs"], "light bufs", cfg.light_depth - 1, n,
+                         dev))
     ptrs = ([sc[k].data_ptr() for k in ("table", "tri_f32", "light_f32",
                                         "mat_f32", "textures")]
-            + [px.data_ptr(), py.data_ptr()]
+            + [_ptr(px) or 0, _ptr(py) or 0]
             + _check_bufs(eye["bufs"], "eye bufs", cfg.eye_depth - 1, n, dev)
             + [eye["v0"]["pt"].data_ptr(), esc.valid.data_ptr(),
                esc.d.data_ptr(), esc.beta.data_ptr()]
-            + _check_bufs(light["bufs"], "light bufs", cfg.light_depth - 1,
-                          n, dev)
-            + [_ptr(fb) or 0, out.data_ptr(), rays.data_ptr(),
-               _ptr(rows) or 0, sc["nodes"]])
+            + lptrs
+            + [_ptr(fb) or 0, _ptr(out) or 0, _ptr(rays) or 0,
+               _ptr(rows) or 0, sc["nodes"], terms.data_ptr()])
     iv = [n, sc["tri_f32"].shape[1], scene.num_lights, cfg.eye_depth,
           cfg.light_depth, int(cfg.naive), int(cfg.nee), int(cfg.connection),
           int(cfg.do_mis), int(cfg.paint_weight),
-          int(cfg.sample_environment)] + sc["engine_iv"]
+          int(cfg.sample_environment)] + sc["engine_iv"] + [per]
     fv = camera.kernel_params() + [camera.plane_area()]
     args = (_i64s(ptrs), _i64s(iv), _f32s(fv), _u32s(list(key_c)))
     lib = _load()
     with torch.cuda.device(dev):
-        _launch("bdpt_connect", lib, lib.tpt_bdpt_connect,
+        # the gather traces nothing: one build, not a threaded instantiation
+        _launch(name, lib, getattr(lib, entry),
                 *(ctypes.addressof(a) for a in args), _stream(dev),
-                engine=sc["engine_iv"][0])
-    return out, rows
+                engine=sc["engine_iv"][0] if name == "bdpt_pairs" else 0)
+
+
+def bdpt_pairs(scene, camera, key_c, eye: dict, light: dict, rays, cfg, *,
+               px, py, rows=None, per: int | None = None):
+    """K13's first stage (bdpt_pairs.cu): one thread per (eye depth t =
+    2..eye_depth, slot, pixel) of the pixels (px, py) [N] i32; slot 0 is
+    s = 1 (NEE, keys fold_in(key_c, t)), slot 1 + j the connection to
+    stored light vertex j. eye, light: bdpt_walk's results; rays [N] i32 +=
+    the shadow rays traced, rows [N] i32 += the rows they visited (or
+    None). per: the pairs a thread takes in (t, slot) order, a divisor of
+    (eye_depth - 1) x light_depth; None, the engine's: one on BVH8, all of
+    a pixel's on the threaded engine (terms, rays and rows do not depend
+    on it). -> terms [eye_depth - 1, light_depth, N, 3] f32: each pair's
+    weighted contribution, +0 where nothing was traced or the ray was
+    blocked."""
+    dev = _cuda_device(px)
+    n = px.shape[0]
+    terms = torch.empty((cfg.eye_depth - 1, cfg.light_depth, n, 3),
+                        dtype=torch.float32, device=dev)
+    if per is None:
+        # K1's short row walks gain from one ray a thread (no lane waits
+        # for its pixel's longest list); K15's walks vary more from ray to
+        # ray, and a thread's sum over its pixel's rays evens them out
+        per = (terms.shape[0] * terms.shape[1]
+               if scene.traversal == "threaded" else 1)
+    if per < 1 or terms.shape[0] * terms.shape[1] % per:
+        raise ValueError(f"per {per}: a divisor of the "
+                         f"{terms.shape[0] * terms.shape[1]} pairs a pixel")
+    _connect_launch("bdpt_pairs", "tpt_bdpt_pairs", scene, camera, key_c, eye,
+                    light, None, rays, cfg, px=px, py=py, terms=terms,
+                    out=None, rows=rows, per=per)
+    return terms
+
+
+def bdpt_gather(scene, camera, eye: dict, terms, fb, cfg):
+    """K13's second stage (bdpt_gather.cu): per pixel, from zero, the sky
+    term, then per eye depth s = 0 and the terms of bdpt_pairs in slot
+    order, then fb [N,3] f32 (or None). -> radiance [N,3] f32."""
+    dev = _cuda_device(terms)
+    out = torch.empty((terms.shape[2], 3), dtype=torch.float32, device=dev)
+    _connect_launch("bdpt_gather", "tpt_bdpt_gather", scene, camera, (0, 0),
+                    eye, None, fb, None, cfg, px=None, py=None, terms=terms,
+                    out=out, rows=None)
+    return out
+
+
+def bdpt_connect(scene, camera, key_c, eye: dict, light: dict, fb, rays, cfg,
+                 *, px, py, with_rows: bool = False):
+    """K13: the connection stage of each pixel (px, py) [N] i32 as two
+    launches, bdpt_pairs then bdpt_gather; eye: bdpt_walk's eye result
+    (bufs [E-1, N], v0, escape), light: its light result (bufs [L-1, N]);
+    fb: [N,3] f32 added to the result, or None; key_c: the sample's
+    connection key pair; rays [N] i32 += the shadow rays traced. cfg: a
+    BDPTConfig. -> (radiance [N,3] f32, rows [N] i32 rows visited on the
+    scene's engine or None)."""
+    dev = _cuda_device(px)
+    rows = torch.zeros(px.shape[0], dtype=torch.int32, device=dev) \
+        if with_rows else None
+    terms = bdpt_pairs(scene, camera, key_c, eye, light, rays, cfg, px=px,
+                       py=py, rows=rows)
+    return bdpt_gather(scene, camera, eye, terms, fb, cfg), rows
 
 
 # --- the photon family (K8, K9, K11's and K13's VCM forms) -------------------

@@ -5,11 +5,13 @@
 //                  its table mode is models/light_mega.py:108's keyed walk
 //   splat_vertex   K11: one light vertex to the lens (models/bdpt.py:93;
 //                  VCM's form, models/vcm.py:87, adds eta_vcm)
-//   connect_pixel  K13: the connection stage of one pixel
-//                  (models/bdpt.py:175,226)
+//   pair_term      K13's first stage: one NEE or connection shadow ray
+//                  of one eye vertex (models/bdpt.py:175,226)
+//   gather_pixel   K13's second stage: one pixel's ordered sum
 //
-// bdpt_walk.cu, bdpt_splat.cu and bdpt_connect.cu launch them, one thread
-// per path, per light vertex and per pixel. The buffers are depth-major
+// bdpt_walk.cu, bdpt_splat.cu, bdpt_pairs.cu and bdpt_gather.cu launch
+// them, one thread per path, per light vertex, per (eye vertex, strategy,
+// pixel) and per pixel. The buffers are depth-major
 // [D, N] in the JAX package's packed layout (models/paths.PathBuffers):
 // the walk keeps its state unpacked in registers and stores each vertex
 // through the K10 codecs (packing.cuh); the splat and the connections read
@@ -22,12 +24,13 @@
 // operation for operation; the files are built with -fmad=false. x**3 and
 // x**4 are XLA's integer_pow products x (x x) and (x x)(x x).
 //
-// The three bodies are templates on the traversal engine (traverse_bin.cuh:
-// kEngineBvh8 traces with K1, kEngineThreaded with K15), and each entry
-// launches the scene's; K12's table mode (the keyed walk, which stands for
-// the JAX light_mega's fused BVH8 step) is launched with BVH8 on every
-// scene. The launch arrays end with the engine's fields: ptrs the node
-// table, iv the engine, node_w and leaf_k (engine_refs).
+// The bodies that trace (all but gather_pixel) are templates on the
+// traversal engine (traverse_bin.cuh: kEngineBvh8 traces with K1,
+// kEngineThreaded with K15), and each entry launches the scene's; K12's
+// table mode (the keyed walk, which stands for the JAX light_mega's fused
+// BVH8 step) is launched with BVH8 on every scene. The launch arrays end
+// with the engine's fields: ptrs the node table, iv the engine, node_w and
+// leaf_k (engine_refs).
 #pragma once
 
 #include <cuda_fp16.h>
@@ -523,7 +526,23 @@ __device__ __forceinline__ void splat_vertex(const SceneRefs& sc,
   atomicAdd(fb + 3 * pix + 2, o.z);
 }
 
-// ---- K13: the connection stage ---------------------------------------------
+// ---- K13: the connection stage, in two kernels -----------------------------
+// 1. pair_term (bdpt_pairs.cu): one thread per (eye depth t, slot, pixel
+//    i). Slot 0 is s = 1 (NEE, keys fold_in(key_c, t), the G clamp 15, a
+//    shadow ray that skips the light's triangle); slot 1 + j the
+//    connection s = j + 2 to stored light vertex j (four reverse pdfs, the
+//    G clamp 2, a shadow ray). It traces at most one shadow ray and
+//    returns the weighted contribution, or +0 where nothing was traced or
+//    the ray was blocked; the kernel stores it in terms [D, S, N, 3] (D =
+//    eye_depth - 1 eye depths, S = light_depth slots).
+// 2. gather_pixel (bdpt_gather.cu): one thread per pixel adds, from zero,
+//    the sky term of an escaped walk, then for each t in order (skipping
+//    delta eye vertices, stopping at the first invalid one) s = 0 (the eye
+//    walk hit a light; no ray, so it is computed here), slot 0, slots
+//    1..S-1, and last the splat's frame buffer. These are the float32
+//    additions of the per-pixel loop the two kernels replaced, in its
+//    order; a slot that contributed nothing adds +0, which leaves a sum
+//    that is never -0 unchanged, so the pixel is bit-equal.
 
 struct ConnectParams {
   CameraParams cam;
@@ -543,12 +562,154 @@ struct ConnectIn {
   const float* fb;         // nullable: the splat, added to the result
 };
 
+struct ConnectLaunch {
+  SceneRefs sc;
+  ConnectParams p;
+  ConnectIn in;
+  const int32_t* px;
+  const int32_t* py;
+  float* terms;  // [D, S, N, 3]: written by the pairs, read by the gather
+  float* out;    // [N, 3]: the gather's result
+  int32_t* rays;
+  int32_t* rows;
+  int64_t n;
+  int engine;
+};
+
+// Row of pair (t, slot) in terms, times N, plus the pixel.
+__device__ __forceinline__ int64_t term_row(const ConnectLaunch& c, int t,
+                                            int slot, int64_t i) {
+  return (static_cast<int64_t>(t - 2) * c.p.light_depth + slot) * c.n + i;
+}
+
 template <int kEngine>
-__device__ __forceinline__ V3 connect_pixel(const SceneRefs& sc,
-                                            const ConnectParams& p,
-                                            const ConnectIn& in, int64_t i,
-                                            uint32_t id, int32_t& rays,
-                                            int32_t& rows) {
+__device__ __forceinline__ V3 pair_term(const ConnectLaunch& c, int t,
+                                        int slot, int64_t i) {
+  const SceneRefs& sc = c.sc;
+  const ConnectParams& p = c.p;
+  const V3 zero = v3(0.0f, 0.0f, 0.0f);
+  // every strategy skips invalid and delta eye vertices: leave before any
+  // light vertex is fetched
+  const int64_t ke = static_cast<int64_t>(t - 2) * c.in.eye.n + i;
+  if (!c.in.eye.valid[ke] || unpack_flags(c.in.eye.flags[ke]).is_delta)
+    return zero;
+  const bool nee = slot == 0;
+  if (nee ? !(p.nee && sc.lights.count > 0) : !p.connection) return zero;
+  Vertex lv;
+  if (!nee) {
+    const int64_t kl = static_cast<int64_t>(slot - 1) * c.in.light.n + i;
+    if (!c.in.light.valid[kl] ||
+        unpack_flags(c.in.light.flags[kl]).is_delta)
+      return zero;
+    lv = load_vertex(c.in.light, slot - 1, i);
+  }
+  const Vertex ev = load_vertex(c.in.eye, t - 2, i);
+  const Mat me = mat_of(sc, ev.mat_id);
+  const V3 albedo_e = resolve_albedo(sc.textures, me, ev.u, ev.v);
+  const float trans_e = resolve_transmission(sc.textures, me, ev.u, ev.v);
+  const Weighting& wt = p.weighting;
+
+  if (nee) {  // s = 1
+    const float num =
+        static_cast<float>(sc.lights.count > 1 ? sc.lights.count : 1);
+    const uint32_t id = static_cast<uint32_t>((c.py[i] << 14) + c.px[i]);
+    const V3 ptc_local = to_local(neg(ev.wo), ev.n);
+    atomicAdd(c.rays + i, 1);
+    const KeyDraws kk = fold_draws(p.key_c0, p.key_c1,
+                                   static_cast<uint32_t>(t), id);
+    const LightPoint lp = light_point(kk, sc);
+    const V3 stl = sub(lp.p, ev.pt);
+    const float d2 = fmaxf(length_sq(stl), kRayEps);
+    const float dist = sqrtf(d2);
+    const V3 stl_u = v3(stl.x / dist, stl.y / dist, stl.z / dist);
+    const V3 origin = add(ev.pt, scale(ev.n, kRayEps));
+    const Trace8 sh = trace_ray<kEngine, true>(
+        sc, origin.x, origin.y, origin.z, stl_u.x, stl_u.y, stl_u.z,
+        dist - kEps, lp.tri, true);
+    if (c.rows != nullptr) atomicAdd(c.rows + i, sh.rows);
+    const float cos_light = dot(lp.n, neg(stl_u));
+    if (!(max3(sh.s0, sh.s1, sh.s2) > 0.0f && cos_light >= kEps))
+      return zero;
+    const float cos_surf = fabsf(dot(ev.n, stl_u));
+    const float g = fminf(cos_light * cos_surf / d2, kMaxGNee);
+    const float pdf_connect = (1.0f / num) / fmaxf(lp.area, 1e-20f);
+    const float pdf_emit_sa = cos_light / kPi;
+    const V3 stl_local = to_local(stl_u, ev.n);
+    const V3 f = bsdf_f(me, albedo_e, neg(ptc_local), stl_local, 1.0f,
+                        trans_e);
+    const V3 contrib = scale(mul(mul(v3(sh.s0, sh.s1, sh.s2), f), lp.le),
+                             g / pdf_connect);
+    const float pdf_bsdf_sa =
+        bsdf_pdf(me, neg(ptc_local), stl_local, 1.0f, trans_e);
+    const float pdf_bsdf_area = pdf_bsdf_sa * fabsf(cos_light) / d2;
+    const float w_light = pdf_bsdf_area / fmaxf(pdf_connect, 1e-20f);
+    const float pdf_curr_rev_area = pdf_emit_sa * fabsf(stl_local.z) / d2;
+    const float pdf_prev_rev_sa =
+        bsdf_pdf(me, stl_local, neg(ptc_local), 1.0f, trans_e);
+    const float w_eye =
+        pdf_curr_rev_area * (ev.d_vcm + pdf_prev_rev_sa * ev.d_vc);
+    const float weight = 1.0f / (1.0f + w_light + w_eye);
+    return wt(mul(contrib, ev.beta), weight);
+  }
+
+  // s >= 2: the connection to stored light vertex slot - 1
+  const V3 e2l = sub(lv.pt, ev.pt);
+  const float d2 = fmaxf(length_sq(e2l), kRayEps);
+  const float dist = sqrtf(d2);
+  const V3 e2l_u = v3(e2l.x / dist, e2l.y / dist, e2l.z / dist);
+  const float cos_l = fabsf(dot(lv.n, neg(e2l_u)));
+  const float cos_e = fabsf(dot(ev.n, e2l_u));
+  if (!(cos_l > kEps && cos_e > kEps)) return zero;
+  const V3 origin = add(ev.pt, scale(ev.n, kRayEps));
+  atomicAdd(c.rays + i, 1);
+  const Trace8 sh = trace_ray<kEngine, true>(
+      sc, origin.x, origin.y, origin.z, e2l_u.x, e2l_u.y, e2l_u.z,
+      dist - kRayEps, -1, true);
+  if (c.rows != nullptr) atomicAdd(c.rows + i, sh.rows);
+  if (!(max3(sh.s0, sh.s1, sh.s2) > 0.0f)) return zero;
+
+  const V3 l2e_loc_l = to_local(neg(e2l_u), lv.n);
+  const V3 to_l_from_prev_loc = to_local(neg(lv.wo), lv.n);
+  const V3 l2e_loc_e = to_local(neg(e2l_u), ev.n);
+  const V3 to_prev_loc_e = to_local(ev.wo, ev.n);
+  const Mat ml = mat_of(sc, lv.mat_id);
+  const V3 albedo_l = resolve_albedo(sc.textures, ml, lv.u, lv.v);
+  const float trans_l = resolve_transmission(sc.textures, ml, lv.u, lv.v);
+
+  // four reverse pdfs (pdf_eval(A, B) is bsdf_pdf(-A, B))
+  const float pdf_eye_rev_sa =
+      bsdf_pdf(ml, neg(to_l_from_prev_loc), l2e_loc_l, 1.0f, trans_l);
+  const float pdf_eye_rev_area = pdf_eye_rev_sa * cos_e / d2;
+  const float pdf_bef_eye_rev_sa =
+      bsdf_pdf(me, neg(l2e_loc_e), to_prev_loc_e, 1.0f, trans_e);
+  const float pdf_light_rev_sa =
+      bsdf_pdf(me, to_prev_loc_e, neg(l2e_loc_e), 1.0f, trans_e);
+  const float pdf_light_rev_area = pdf_light_rev_sa * cos_l / d2;
+  const float pdf_bef_light_rev_sa =
+      bsdf_pdf(ml, l2e_loc_l, neg(to_l_from_prev_loc), 1.0f, trans_l);
+  const float w_eye =
+      pdf_eye_rev_area * (ev.d_vcm + pdf_bef_eye_rev_sa * ev.d_vc);
+  const float w_light =
+      pdf_light_rev_area * (lv.d_vcm + pdf_bef_light_rev_sa * lv.d_vc);
+  const float weight = 1.0f / (1.0f + w_eye + w_light);
+
+  // f_eval(A, B) is bsdf_f(-A, B)
+  const V3 f_eye =
+      bsdf_f(me, albedo_e, neg(l2e_loc_e), to_prev_loc_e, 1.0f, trans_e);
+  const V3 f_light = bsdf_f(ml, albedo_l, l2e_loc_l, neg(to_l_from_prev_loc),
+                            1.0f, trans_l);
+  const float g = fminf(cos_e * cos_l / d2, kMaxGConnect);
+  const V3 contrib =
+      mul(scale(mul(mul(mul(ev.beta, lv.beta), f_eye), f_light), g),
+          v3(sh.s0, sh.s1, sh.s2));
+  return wt(contrib, weight);
+}
+
+__device__ __forceinline__ V3 gather_pixel(const ConnectLaunch& c,
+                                           int64_t i) {
+  const SceneRefs& sc = c.sc;
+  const ConnectParams& p = c.p;
+  const ConnectIn& in = c.in;
   const Weighting& wt = p.weighting;
   V3 li = v3(0.0f, 0.0f, 0.0f);
   if (p.sample_environment && in.esc_valid[i]) {
@@ -558,6 +719,7 @@ __device__ __forceinline__ V3 connect_pixel(const SceneRefs& sc,
   const float num =
       static_cast<float>(sc.lights.count > 1 ? sc.lights.count : 1);
   const V3 fwd = v3(p.cam.forward[0], p.cam.forward[1], p.cam.forward[2]);
+  const bool nee = p.nee && sc.lights.count > 0;
   for (int t = 2; t <= p.eye_depth; ++t) {
     const Vertex ev = load_vertex(in.eye, t - 2, i);
     if (!ev.valid) break;  // every later eye vertex is invalid too
@@ -573,13 +735,11 @@ __device__ __forceinline__ V3 connect_pixel(const SceneRefs& sc,
       prev_delta = unpack_flags(in.eye.flags[k]).is_delta;
     }
     if (ev.is_delta) continue;  // every strategy skips delta eye vertices
-    const Mat me = mat_of(sc, ev.mat_id);
-    const V3 albedo_e = resolve_albedo(sc.textures, me, ev.u, ev.v);
-    const float trans_e = resolve_transmission(sc.textures, me, ev.u, ev.v);
 
     // s = 0: the eye walk hit a light
     if (p.naive && ev.light_ind >= 0 && !ev.backface) {
-      const float* lr = sc.lights.rows + 17 * static_cast<int64_t>(ev.light_ind);
+      const float* lr =
+          sc.lights.rows + 17 * static_cast<int64_t>(ev.light_ind);
       const V3 le = row_v3(lr, 12);
       const float area = __ldg(lr + 15);
       const V3 wo_n = normalize(ev.wo);
@@ -602,105 +762,11 @@ __device__ __forceinline__ V3 connect_pixel(const SceneRefs& sc,
       }
       li = add(li, wt(contrib, 1.0f / (1.0f + w_eye)));
     }
-
-    // s = 1: NEE
-    if (p.nee && sc.lights.count > 0) {
-      const V3 ptc_local = to_local(neg(ev.wo), ev.n);
-      ++rays;
-      const KeyDraws kk = fold_draws(p.key_c0, p.key_c1,
-                                     static_cast<uint32_t>(t), id);
-      const LightPoint lp = light_point(kk, sc);
-      const V3 stl = sub(lp.p, ev.pt);
-      const float d2 = fmaxf(length_sq(stl), kRayEps);
-      const float dist = sqrtf(d2);
-      const V3 stl_u = v3(stl.x / dist, stl.y / dist, stl.z / dist);
-      const V3 origin = add(ev.pt, scale(ev.n, kRayEps));
-      const Trace8 sh = trace_ray<kEngine, true>(
-          sc, origin.x, origin.y, origin.z, stl_u.x, stl_u.y, stl_u.z,
-          dist - kEps, lp.tri, true);
-      rows += sh.rows;
-      const float cos_light = dot(lp.n, neg(stl_u));
-      if (max3(sh.s0, sh.s1, sh.s2) > 0.0f && cos_light >= kEps) {
-        const float cos_surf = fabsf(dot(ev.n, stl_u));
-        const float g = fminf(cos_light * cos_surf / d2, kMaxGNee);
-        const float pdf_connect = (1.0f / num) / fmaxf(lp.area, 1e-20f);
-        const float pdf_emit_sa = cos_light / kPi;
-        const V3 stl_local = to_local(stl_u, ev.n);
-        const V3 f = bsdf_f(me, albedo_e, neg(ptc_local), stl_local, 1.0f,
-                            trans_e);
-        const V3 contrib = scale(mul(mul(v3(sh.s0, sh.s1, sh.s2), f), lp.le),
-                                 g / pdf_connect);
-        const float pdf_bsdf_sa =
-            bsdf_pdf(me, neg(ptc_local), stl_local, 1.0f, trans_e);
-        const float pdf_bsdf_area = pdf_bsdf_sa * fabsf(cos_light) / d2;
-        const float w_light = pdf_bsdf_area / fmaxf(pdf_connect, 1e-20f);
-        const float pdf_curr_rev_area =
-            pdf_emit_sa * fabsf(stl_local.z) / d2;
-        const float pdf_prev_rev_sa =
-            bsdf_pdf(me, stl_local, neg(ptc_local), 1.0f, trans_e);
-        const float w_eye =
-            pdf_curr_rev_area * (ev.d_vcm + pdf_prev_rev_sa * ev.d_vc);
-        const float weight = 1.0f / (1.0f + w_light + w_eye);
-        li = add(li, wt(mul(contrib, ev.beta), weight));
-      }
-    }
-
-    // s >= 2: connections to the stored light vertices
-    if (!p.connection) continue;
-    for (int j = 0; j < p.light_depth - 1; ++j) {
-      const Vertex lv = load_vertex(in.light, j, i);
-      if (!lv.valid || lv.is_delta) continue;
-      const V3 e2l = sub(lv.pt, ev.pt);
-      const float d2 = fmaxf(length_sq(e2l), kRayEps);
-      const float dist = sqrtf(d2);
-      const V3 e2l_u = v3(e2l.x / dist, e2l.y / dist, e2l.z / dist);
-      const float cos_l = fabsf(dot(lv.n, neg(e2l_u)));
-      const float cos_e = fabsf(dot(ev.n, e2l_u));
-      if (!(cos_l > kEps && cos_e > kEps)) continue;
-      const V3 origin = add(ev.pt, scale(ev.n, kRayEps));
-      ++rays;
-      const Trace8 sh = trace_ray<kEngine, true>(
-          sc, origin.x, origin.y, origin.z, e2l_u.x, e2l_u.y, e2l_u.z,
-          dist - kRayEps, -1, true);
-      rows += sh.rows;
-      if (!(max3(sh.s0, sh.s1, sh.s2) > 0.0f)) continue;
-
-      const V3 l2e_loc_l = to_local(neg(e2l_u), lv.n);
-      const V3 to_l_from_prev_loc = to_local(neg(lv.wo), lv.n);
-      const V3 l2e_loc_e = to_local(neg(e2l_u), ev.n);
-      const V3 to_prev_loc_e = to_local(ev.wo, ev.n);
-      const Mat ml = mat_of(sc, lv.mat_id);
-      const V3 albedo_l = resolve_albedo(sc.textures, ml, lv.u, lv.v);
-      const float trans_l = resolve_transmission(sc.textures, ml, lv.u, lv.v);
-
-      // four reverse pdfs (pdf_eval(A, B) is bsdf_pdf(-A, B))
-      const float pdf_eye_rev_sa =
-          bsdf_pdf(ml, neg(to_l_from_prev_loc), l2e_loc_l, 1.0f, trans_l);
-      const float pdf_eye_rev_area = pdf_eye_rev_sa * cos_e / d2;
-      const float pdf_bef_eye_rev_sa =
-          bsdf_pdf(me, neg(l2e_loc_e), to_prev_loc_e, 1.0f, trans_e);
-      const float pdf_light_rev_sa =
-          bsdf_pdf(me, to_prev_loc_e, neg(l2e_loc_e), 1.0f, trans_e);
-      const float pdf_light_rev_area = pdf_light_rev_sa * cos_l / d2;
-      const float pdf_bef_light_rev_sa =
-          bsdf_pdf(ml, l2e_loc_l, neg(to_l_from_prev_loc), 1.0f, trans_l);
-      const float w_eye =
-          pdf_eye_rev_area * (ev.d_vcm + pdf_bef_eye_rev_sa * ev.d_vc);
-      const float w_light =
-          pdf_light_rev_area * (lv.d_vcm + pdf_bef_light_rev_sa * lv.d_vc);
-      const float weight = 1.0f / (1.0f + w_eye + w_light);
-
-      // f_eval(A, B) is bsdf_f(-A, B)
-      const V3 f_eye =
-          bsdf_f(me, albedo_e, neg(l2e_loc_e), to_prev_loc_e, 1.0f, trans_e);
-      const V3 f_light = bsdf_f(ml, albedo_l, l2e_loc_l,
-                                neg(to_l_from_prev_loc), 1.0f, trans_l);
-      const float g = fminf(cos_e * cos_l / d2, kMaxGConnect);
-      const V3 contrib =
-          mul(scale(mul(mul(mul(ev.beta, lv.beta), f_eye), f_light), g),
-              v3(sh.s0, sh.s1, sh.s2));
-      li = add(li, wt(contrib, weight));
-    }
+    // s = 1, then s >= 2 in light-vertex order: the pairs' terms
+    if (nee) li = add(li, get3(c.terms, term_row(c, t, 0, i)));
+    if (p.connection)
+      for (int s = 1; s < p.light_depth; ++s)
+        li = add(li, get3(c.terms, term_row(c, t, s, i)));
   }
   if (in.fb != nullptr) li = add(li, get3(in.fb, i));
   return li;
@@ -709,8 +775,8 @@ __device__ __forceinline__ V3 connect_pixel(const SceneRefs& sc,
 // ---- host side: the C entries' argument blocks -----------------------------
 // The C entry points take host arrays (ptrs: device addresses, 0 = none;
 // iv: integers; fv: floats; keys: uint32 words) whose layouts are given at
-// each entry in bdpt_walk.cu, bdpt_splat.cu and bdpt_connect.cu; these
-// unpack them.
+// each entry in bdpt_walk.cu, bdpt_splat.cu and bdpt_pairs.cu (shared by
+// bdpt_gather.cu); these unpack them.
 
 template <class T>
 inline T* dev_ptr(const int64_t* ptrs, int k) {
@@ -850,19 +916,6 @@ inline bool splat_launch(const int64_t* ptrs, const int64_t* iv,
          s.n_live >= 0 && s.n_live <= s.n && s.engine >= 0;
 }
 
-struct ConnectLaunch {
-  SceneRefs sc;
-  ConnectParams p;
-  ConnectIn in;
-  const int32_t* px;
-  const int32_t* py;
-  float* out;
-  int32_t* rays;
-  int32_t* rows;
-  int64_t n;
-  int engine;
-};
-
 inline bool connect_launch(const int64_t* ptrs, const int64_t* iv,
                            const float* fv, const uint32_t* keys,
                            ConnectLaunch& c) {
@@ -901,18 +954,9 @@ inline bool connect_launch(const int64_t* ptrs, const int64_t* iv,
   c.rays = dev_ptr<int32_t>(ptrs, 35);
   c.rows = dev_ptr<int32_t>(ptrs, 36);
   c.engine = engine_refs(ptrs, 37, iv, 11, c.sc);
-  return p.eye_depth >= 2 && p.light_depth >= 1 && c.engine >= 0;
-}
-
-// One pixel of the connection stage, as the kernel runs it.
-template <int kEngine>
-__device__ __forceinline__ void connect_one(const ConnectLaunch& c,
-                                            int64_t i) {
-  const uint32_t id = static_cast<uint32_t>((c.py[i] << 14) + c.px[i]);
-  int32_t r = 0, w = 0;
-  put3(c.out, i, connect_pixel<kEngine>(c.sc, c.p, c.in, i, id, r, w));
-  c.rays[i] += r;
-  if (c.rows != nullptr) c.rows[i] += w;
+  c.terms = dev_ptr<float>(ptrs, 38);
+  return p.eye_depth >= 2 && p.light_depth >= 1 && c.engine >= 0 &&
+         c.terms != nullptr;
 }
 
 }  // namespace tpt

@@ -49,12 +49,14 @@ __host__ __device__ inline CameraParams make_camera(const float* params,
   return c;
 }
 
-// The primary ray of pixel (px, py) with draws keyed by id.
-__device__ __forceinline__ void camera_ray(const CameraParams& c, float px,
+// The primary ray of pixel (px, py) with draws keyed by id under the
+// draw-key words keys[0..7] (c.keys, or a sample's row of K5's key table).
+__device__ __forceinline__ void camera_ray(const CameraParams& c,
+                                           const uint32_t* keys, float px,
                                            float py, uint32_t id,
                                            float org[3], float dir[3]) {
-  const float jx = uniform_draw_key(c.keys[0], c.keys[1], id) - 0.5f;
-  const float jy = uniform_draw_key(c.keys[2], c.keys[3], id) - 0.5f;
+  const float jx = uniform_draw_key(keys[0], keys[1], id) - 0.5f;
+  const float jy = uniform_draw_key(keys[2], keys[3], id) - 0.5f;
   const float u =
       (2.0f * (px + jx * c.aa_jitter) / c.width - 1.0f) * c.aspect *
       c.fov_scale;
@@ -63,9 +65,9 @@ __device__ __forceinline__ void camera_ray(const CameraParams& c, float px,
   const float uf = u * c.focal_dist;
   const float vf = v * c.focal_dist;
 
-  const float r_rnd = uniform_draw_key(c.keys[4], c.keys[5], id);
+  const float r_rnd = uniform_draw_key(keys[4], keys[5], id);
   const float theta =
-      6.28318530717958647692f * uniform_draw_key(c.keys[6], c.keys[7], id);
+      6.28318530717958647692f * uniform_draw_key(keys[6], keys[7], id);
   const float radius = c.aperture * sqrtf(r_rnd);
   const float rc = radius * cosf(theta);
   const float rs = radius * sinf(theta);
@@ -83,6 +85,13 @@ __device__ __forceinline__ void camera_ray(const CameraParams& c, float px,
   const float inv = rsqrtf(fmaxf(l2, 1e-20f));
 #pragma unroll
   for (int k = 0; k < 3; ++k) dir[k] = dir[k] * inv;
+}
+
+// The primary ray of pixel (px, py) with draws keyed by id.
+__device__ __forceinline__ void camera_ray(const CameraParams& c, float px,
+                                           float py, uint32_t id,
+                                           float org[3], float dir[3]) {
+  camera_ray(c, c.keys, px, py, id, org, dir);
 }
 
 // The light tracer's sensor (scene/camera.py world_to_raster): the pixel

@@ -1,4 +1,4 @@
-// K5: the unidirectional path tracer as one per-path megakernel (NEE +
+// K5: the unidirectional path tracer as one persistent megakernel (NEE +
 // power-2 MIS, nested dielectrics, Beer-Lambert absorption, Russian
 // roulette), for both engines, and the naive integrator (schedule naive).
 //
@@ -9,8 +9,8 @@
 // lane machine (a refill queue, mini/full transitions, retirement slots,
 // lane-major [3,N] state) that keeps TPU lanes busy in lockstep; none of
 // that is ported. Its image does not depend on the lane schedule, because
-// every draw is keyed by the path's pixel index and event counter, so here
-// one thread owns one pixel's path and runs it in program order:
+// every draw is keyed by the path's pixel index and event counter. One
+// path's events run in program order:
 //   raygen (K7) -> closest hit (K1) -> miss: sky | shade (K2) -> Beer and
 //   the priority/false-hit logic -> emission with the MIS counter-weight ->
 //   NEE sample (K4) and its shadow ray (K1) -> BSDF sample (K3) -> medium
@@ -27,30 +27,52 @@
 //            rays = closest events + traced NEE shadows; each path's
 //            radiance retires through RGB9E5 (K10, packing.cuh), as the
 //            JAX engine's retirement slots hold it;
-//   naive:   models/naive.py:render_sample (line 41): render_naive_path.
+//   naive:   models/naive.py:render_sample (line 41): naive_event.
 // The classic per-event key is derived here with tpt::threefry2x32, so no
-// key table is needed. The NEE weight is summed in each schedule's order:
-// classic (beta * (contrib * shadow)) * w; mega ((beta * contrib) * w) *
-// shadow, the JAX engine's pending-then-scale.
+// per-event key table is needed. The NEE weight is summed in each
+// schedule's order: classic (beta * (contrib * shadow)) * w; mega ((beta *
+// contrib) * w) * shadow, the JAX engine's pending-then-scale.
+//
+// Samples: one launch renders k >= 1 samples of every pixel and also
+// replaces cudapathtracer_tpu/models/batch.py:make_batched (line 33) for
+// these three schedules: samples s0 .. s0+k-1 under the base key. A small
+// kernel launched first on the stream derives each sample's 28 key words
+// (the camera's draw keys, the sample key, the mega draw keys, as
+// models/unidirectional.render_plain folds them) with Threefry into a
+// [k, 28] table in device scratch and zeroes the pixel counter beside it,
+// so a launch takes no key words or memset from the host; sample s reads
+// row s. (Derived inside K5 at each sample's start instead, the 15
+// Threefry calls ran in the divergent retire branch on most loop trips
+// while the warp's other lanes waited: a 1080p mega sample took 40.1 ms
+// against 32.0 on an H100.) The pixel's k radiances, each retired as above, are added into a
+// float32 sum from 0 in sample order (the JAX fori_loop's sum), its rays
+// and rows into int32 counters; li, rays and rows are written once a
+// pixel's k samples are done. k = 1 is one sample.
 //
 // Bound: memory latency of the traversal (K1: dependent row reads, rays
 // diverge), then of the shading row and light row reads; the BSDF and NEE
-// arithmetic is a few hundred flops per event. One launch per sample ends
-// with the longest paths (up to 133 events), so the tail of a launch runs
-// few threads; that is the first thing to measure.
-// Design: all path state (beta, li, the 16-entry medium stack, the
-// 16-entry BVH stack inside K1) lives in registers and local memory; each
-// event reads its own rows, and the only writes are li and the path's ray
-// count at the end. Built with -fmad=false and correctly rounded sqrtf and
-// division, so the arithmetic follows the plain PyTorch version.
-//
-// The k-sample mode (uni_mega_batch_kernel) replaces
-// cudapathtracer_tpu/models/batch.py:make_batched (line 33) for these
-// three schedules: the JAX fori_loop over k samples in one dispatch becomes
-// a loop over the batch's samples inside each thread, with each sample's
-// key words read from a [k, 28] table in device memory, so a batch is one
-// launch and one write of the pixel's sum. It does the work of k single
-// launches, so its bound is k times theirs.
+// arithmetic is a few hundred flops per event. A path takes 1 to 133
+// events (mean ~5.4, p99 11 on the 1080p bunny scene at depth 8), so one
+// thread per path left about half of each warp's issue slots idle while
+// its longest path ran (tools/k5_lanes.py).
+// Design: path regeneration on persistent threads (Novak, Havran and
+// Dachsbacher, EG 2010; Aila and Laine, HPG 2009). The grid is the SMs
+// times the blocks that fit on one (cudaOccupancyMaxActiveBlocksPer-
+// Multiprocessor, queried once), and each thread loops one EVENT at a time
+// over whichever path it holds: when the path ends it is retired, and the
+// thread takes the next sample of its pixel or, after the k-th, the next
+// pixel from a device counter (a warp-aggregated atomicAdd; the key
+// kernel zeroes it). So the lanes of a warp stay busy with live paths
+// until the pixels run out. A pixel's k
+// samples run in order in one thread, and every draw is keyed by (sample,
+// pixel, event), so li, rays and rows do not depend on the grid or the
+// order in which pixels are taken. All path state (beta, li, the 16-entry
+// medium stack, the 16-entry BVH stack inside K1) lives in registers and
+// local memory; each event reads its own rows. Built with -fmad=false and
+// correctly rounded sqrtf and division, so the arithmetic follows the
+// plain PyTorch version. The test entry may fix the grid and count the
+// events, each warp's calls of the event code and its busiest lane's
+// events (the lane use and the event balance, printed by chip_smoke.py).
 //
 // Engines: every kernel here is a template on the traversal engine
 // (traverse_bin.cuh): kEngineBvh8 traces with K1 (bvh8_table),
@@ -60,6 +82,7 @@
 // table), so its launches take the BVH8 instantiation; the C entries pick
 // the instantiation from their engine argument.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -84,6 +107,40 @@ constexpr int kScheduleClassic = 0;
 constexpr int kScheduleMega = 1;
 constexpr int kScheduleNaive = 2;   // the naive integrator (no NEE/MIS/RR)
 constexpr int kShadeEvalCols = 38;
+// A sample's row of the key table: the camera's 8 draw-key words, then the
+// sample key pair, then the 9 mega draw-key pairs draw_key(skey, d).
+constexpr int kKeyWords = 28;
+constexpr int kKeySample = 8;
+constexpr int kKeyDraws = 10;
+
+// The key row of sample `sample` under the base key (b0, b1), as
+// models/unidirectional.render_plain folds it: skey = fold_in(base,
+// sample), the camera's draw_key(fold_in(skey, 2^20), 0..3), skey, then
+// draw_key(skey, 0..8).
+__device__ __forceinline__ void sample_key_row(uint32_t b0, uint32_t b1,
+                                               uint32_t sample,
+                                               uint32_t* row) {
+  uint32_t s0 = 0u, s1 = sample;
+  threefry2x32(b0, b1, s0, s1);
+  uint32_t c0 = 0u, c1 = 1u << 20;
+  threefry2x32(s0, s1, c0, c1);
+#pragma unroll
+  for (uint32_t d = 0; d < 4; ++d) {
+    uint32_t w0 = 0u, w1 = d;
+    threefry2x32(c0, c1, w0, w1);
+    row[2 * d] = w0;
+    row[2 * d + 1] = w1;
+  }
+  row[kKeySample] = s0;
+  row[kKeySample + 1] = s1;
+#pragma unroll
+  for (uint32_t d = 0; d < 9; ++d) {
+    uint32_t w0 = 0u, w1 = d;
+    threefry2x32(s0, s1, w0, w1);
+    row[kKeyDraws + 2 * d] = w0;
+    row[kKeyDraws + 2 * d + 1] = w1;
+  }
+}
 
 struct SceneArgs {
   const float* table;      // bvh8_table [R, 96]
@@ -96,10 +153,9 @@ struct SceneArgs {
   int node_w, leaf_k;
 };
 
+// What every sample of a launch shares (the keys are per sample).
 struct Params {
   CameraParams cam;
-  uint32_t skey0, skey1;
-  uint32_t draw_keys[18];  // mega: draw_key(skey, d), d = 0..8
   int max_depth;
   int use_mis;
   int sample_environment;
@@ -109,7 +165,7 @@ struct Params {
 
 // The draws of one closest event: draw(d) -> uniform.
 struct EventDraws {
-  const uint32_t* mega_keys;
+  const uint32_t* mega_keys;  // the 9 pairs draw_key(skey, d)
   uint32_t b0, b1;  // classic: the event's bounce key
   uint32_t id;
   bool classic;
@@ -133,224 +189,254 @@ struct BasedDraws {
   }
 };
 
-struct PathOut {
-  V3 li;
-  int32_t rays, rows;  // rays traced, rows (BVH8 or nodes) they visited
+// One path between two of its events.
+struct PathState {
+  V3 o, d;  // the next ray
+  V3 beta, li, prev_point;
+  float prev_pdf, eta_i;
+  int depth;  // bounces taken
+  int lit;    // events taken (the naive schedule: bounces)
+  bool hit_nonspec;
+  MediumStack ms;
 };
 
-// One path from its primary ray (o, d); index: the path's position in the
-// pixel list (mega ids), pix_id: its pixel id (classic ids).
+// A new path from its primary ray (o, d), with the initial medium stack.
+__device__ __forceinline__ void start_path(PathState& st, V3 o, V3 d,
+                                           int32_t air_priority) {
+  st.o = o;
+  st.d = d;
+  st.beta = v3(1.0f, 1.0f, 1.0f);
+  st.li = v3(0.0f, 0.0f, 0.0f);
+  st.prev_point = v3(0.0f, 0.0f, 0.0f);
+  st.prev_pdf = kEps;
+  st.eta_i = kEps;
+  st.depth = 0;
+  st.lit = 0;
+  st.hit_nonspec = false;
+  st.ms.init(air_priority);
+}
+
+// One event of a classic or mega path; keys: its sample's key row, index:
+// its position in the pixel list (mega ids), pix_id: its pixel id (classic
+// ids). Adds the event's rays and rows; returns whether the path goes on.
 template <int kEngine>
-__device__ __forceinline__ PathOut render_path(const SceneArgs& sc,
-                                               const Params& p,
-                                               int64_t index, uint32_t pix_id,
-                                               V3 o, V3 d) {
+__device__ __forceinline__ bool path_event(const SceneArgs& sc,
+                                           const Params& p,
+                                           const uint32_t* keys,
+                                           int64_t index, uint32_t pix_id,
+                                           PathState& st, int32_t& rays,
+                                           int32_t& rows) {
   const bool classic = p.schedule == kScheduleClassic;
   const float num_lights =
       static_cast<float>(sc.lights.count > 1 ? sc.lights.count : 1);
-  V3 beta = v3(1.0f, 1.0f, 1.0f), li = v3(0.0f, 0.0f, 0.0f);
-  V3 prev_point = v3(0.0f, 0.0f, 0.0f);
-  float prev_pdf = kEps, eta_i = kEps;
-  int depth = 0;
-  bool hit_nonspec = false;
-  MediumStack ms;
-  ms.init(p.air_priority);
-  int32_t rays = 0, rows = 0;
-  const int events = classic ? kLitCap : kLitCap + 1;
+  V3& o = st.o;
+  V3& d = st.d;
+  V3& beta = st.beta;
+  V3& li = st.li;
+  const int lit = st.lit;
+  ++rays;
+  EventDraws e;
+  e.mega_keys = keys + kKeyDraws;
+  e.classic = classic;
+  if (classic) {
+    e.b0 = 0u;
+    e.b1 = static_cast<uint32_t>(lit);
+    threefry2x32(keys[kKeySample], keys[kKeySample + 1], e.b0,
+                 e.b1);  // fold_in(skey, lit)
+    e.id = pix_id;
+  } else {
+    e.b0 = e.b1 = 0u;
+    e.id = static_cast<uint32_t>(index * kIdStride + lit);
+  }
 
-  for (int lit = 0; lit < events; ++lit) {
-    ++rays;
-    EventDraws e;
-    e.mega_keys = p.draw_keys;
-    e.classic = classic;
-    if (classic) {
-      e.b0 = 0u;
-      e.b1 = static_cast<uint32_t>(lit);
-      threefry2x32(p.skey0, p.skey1, e.b0, e.b1);  // fold_in(skey, lit)
-      e.id = pix_id;
-    } else {
-      e.b0 = e.b1 = 0u;
-      e.id = static_cast<uint32_t>(index * kIdStride + lit);
+  const Trace8 h = trace_ray<kEngine, false>(sc, o.x, o.y, o.z, d.x, d.y,
+                                             d.z, kBigT, -1, true);
+  rows += h.rows;
+  if (h.tri < 0) {
+    li = add(li, mul(beta, sample_sky(d, p.sample_environment != 0)));
+    return false;
+  }
+  const ShadeHit s =
+      shade_fetch(sc.tri_f32, sc.tri_cols, h.tri, h.u, h.v, o, d, h.t);
+  const Mat& m = s.mat;
+  const V3 wi_local = to_local(d, s.normal);
+  const V3 albedo = resolve_albedo(sc.textures, s);
+  const float trans = resolve_transmission(sc.textures, s);
+
+  // dominant medium + Beer-Lambert absorption
+  const int32_t dom = st.ms.dominant();
+  const int32_t dom_id = dom & 1023, dom_pri = dom >> 10;
+  const float* med = sc.medium + 4 * dom_id;
+  if (h.t > kEps) {
+    beta = v3(beta.x * expf(-__ldg(med) * h.t),
+              beta.y * expf(-__ldg(med + 1) * h.t),
+              beta.z * expf(-__ldg(med + 2) * h.t));
+  }
+  // a lower-priority boundary crossed inside a dominant medium is a
+  // false hit: the path passes straight through
+  const bool true_hit = !(m.boundary && m.priority > dom_pri);
+  const float dom_ior = __ldg(med + 3);
+  if ((true_hit && m.boundary && m.type == kMatSmoothDielectric) ||
+      !m.boundary)
+    st.eta_i = dom_ior;
+  if (!true_hit) {
+    if (!s.backface)
+      st.ms.push(s.mat_id, m.priority);
+    else
+      st.ms.remove(s.mat_id);
+  }
+
+  // emission
+  const bool emissive = length_sq(s.emission) > kEps;
+  const bool direct_view = st.depth == 0 || !st.hit_nonspec;
+  if (true_hit && emissive && direct_view)
+    li = add(li, mul(beta, s.emission));
+
+  if (p.use_mis) {
+    // a BSDF-sampled ray hit a light: weigh against the NEE pdf
+    if (true_hit && emissive && !direct_view && !m.is_specular) {
+      const float lpdf =
+          nee_pdf(st.prev_point, s.point, s.normal_a, s.area, num_lights);
+      if (lpdf > kEps)
+        li = add(li, scale(mul(beta, s.emission),
+                           power2_weight(st.prev_pdf, lpdf)));
     }
-
-    const Trace8 h = trace_ray<kEngine, false>(sc, o.x, o.y, o.z, d.x, d.y,
-                                               d.z, kBigT, -1, true);
-    rows += h.rows;
-    if (h.tri < 0) {
-      li = add(li, mul(beta, sample_sky(d, p.sample_environment != 0)));
-      break;
-    }
-    const ShadeHit s =
-        shade_fetch(sc.tri_f32, sc.tri_cols, h.tri, h.u, h.v, o, d, h.t);
-    const Mat& m = s.mat;
-    const V3 wi_local = to_local(d, s.normal);
-    const V3 albedo = resolve_albedo(sc.textures, s);
-    const float trans = resolve_transmission(sc.textures, s);
-
-    // dominant medium + Beer-Lambert absorption
-    const int32_t dom = ms.dominant();
-    const int32_t dom_id = dom & 1023, dom_pri = dom >> 10;
-    const float* med = sc.medium + 4 * dom_id;
-    if (h.t > kEps) {
-      beta = v3(beta.x * expf(-__ldg(med) * h.t),
-                beta.y * expf(-__ldg(med + 1) * h.t),
-                beta.z * expf(-__ldg(med + 2) * h.t));
-    }
-    // a lower-priority boundary crossed inside a dominant medium is a
-    // false hit: the path passes straight through
-    const bool true_hit = !(m.boundary && m.priority > dom_pri);
-    const float dom_ior = __ldg(med + 3);
-    if ((true_hit && m.boundary && m.type == kMatSmoothDielectric) ||
-        !m.boundary)
-      eta_i = dom_ior;
-    if (!true_hit) {
-      if (!s.backface)
-        ms.push(s.mat_id, m.priority);
-      else
-        ms.remove(s.mat_id);
-    }
-
-    // emission
-    const bool emissive = length_sq(s.emission) > kEps;
-    const bool direct_view = depth == 0 || !hit_nonspec;
-    if (true_hit && emissive && direct_view)
-      li = add(li, mul(beta, s.emission));
-
-    if (p.use_mis) {
-      // a BSDF-sampled ray hit a light: weigh against the NEE pdf
-      if (true_hit && emissive && !direct_view && !m.is_specular) {
-        const float lpdf =
-            nee_pdf(prev_point, s.point, s.normal_a, s.area, num_lights);
-        if (lpdf > kEps)
-          li = add(li, scale(mul(beta, s.emission),
-                             power2_weight(prev_pdf, lpdf)));
-      }
-      // NEE from non-emissive, non-specular surfaces
-      const bool do_nee = true_hit && !emissive && !m.is_specular;
-      if (classic && do_nee) ++rays;
-      if (do_nee && sc.lights.count > 0) {
-        const BasedDraws nd{&e, kDNee};
-        const NeeSample ns = nee_sample(nd, sc.lights, s.point, s.normal,
-                                        wi_local, m, albedo, eta_i, true,
-                                        trans);
-        if (ns.active) {
-          if (!classic) ++rays;
-          const float bpdf =
-              bsdf_pdf(m, neg(wi_local), ns.wo_local, eta_i, trans);
-          const float w = power2_weight(ns.light_pdf, bpdf);
-          const Trace8 sh = trace_ray<kEngine, true>(
-              sc, ns.origin.x, ns.origin.y, ns.origin.z, ns.dir.x, ns.dir.y,
-              ns.dir.z, ns.max_t, -1, true);
-          rows += sh.rows;
-          const V3 shadow = v3(sh.s0, sh.s1, sh.s2);
-          if (classic) {
-            if (fmaxf(fmaxf(sh.s0, sh.s1), sh.s2) > 0.0f)
-              li = add(li, scale(mul(beta, mul(ns.contrib, shadow)), w));
-          } else {
-            li = add(li, mul(scale(mul(beta, ns.contrib), w), shadow));
-          }
+    // NEE from non-emissive, non-specular surfaces
+    const bool do_nee = true_hit && !emissive && !m.is_specular;
+    if (classic && do_nee) ++rays;
+    if (do_nee && sc.lights.count > 0) {
+      const BasedDraws nd{&e, kDNee};
+      const NeeSample ns = nee_sample(nd, sc.lights, s.point, s.normal,
+                                      wi_local, m, albedo, st.eta_i, true,
+                                      trans);
+      if (ns.active) {
+        if (!classic) ++rays;
+        const float bpdf =
+            bsdf_pdf(m, neg(wi_local), ns.wo_local, st.eta_i, trans);
+        const float w = power2_weight(ns.light_pdf, bpdf);
+        const Trace8 sh = trace_ray<kEngine, true>(
+            sc, ns.origin.x, ns.origin.y, ns.origin.z, ns.dir.x, ns.dir.y,
+            ns.dir.z, ns.max_t, -1, true);
+        rows += sh.rows;
+        const V3 shadow = v3(sh.s0, sh.s1, sh.s2);
+        if (classic) {
+          if (fmaxf(fmaxf(sh.s0, sh.s1), sh.s2) > 0.0f)
+            li = add(li, scale(mul(beta, mul(ns.contrib, shadow)), w));
+        } else {
+          li = add(li, mul(scale(mul(beta, ns.contrib), w), shadow));
         }
       }
     }
-
-    // BSDF sampling
-    const BasedDraws bd{&e, kDBsdf};
-    const Sample bs =
-        bsdf_sample(bd, m, albedo, neg(wi_local), s.backface, eta_i, trans);
-    const float pdf = fmaxf(bs.pdf, 0.01f);
-    if (true_hit) {
-      // medium stack push/pop on refraction through a true-hit boundary
-      if (bs.wo.z < 0.0f) {
-        if (!s.backface)
-          ms.push(s.mat_id, m.priority);
-        else
-          ms.remove(s.mat_id);
-      }
-      beta = scale(mul(beta, bs.f), fabsf(bs.wo.z) / pdf);
-      const float side = bs.wo.z > 0.0f ? 1.0f : -1.0f;
-      o = add(s.point, scale(s.normal, side * kEps));
-      d = normalize(to_world(bs.wo, s.normal));
-      prev_pdf = pdf;
-      prev_point = s.point;
-      ++depth;
-    } else {
-      o = add(s.point, scale(d, kRayEps));  // pass straight through
-    }
-
-    // Russian roulette past max_depth
-    if (depth > p.max_depth + 1) {
-      const float p_surv = fminf(fmaxf(luminance(beta), 0.05f), 0.99f);
-      if (e(kDRr) > p_surv) break;
-      beta = v3(beta.x / p_surv, beta.y / p_surv, beta.z / p_surv);
-    }
-    if (depth >= kHardDepthCap) break;
-    hit_nonspec = hit_nonspec || !m.is_specular;
   }
-  PathOut out;
-  out.li = li;
-  out.rays = rays;
-  out.rows = rows;
-  return out;
+
+  // BSDF sampling
+  const BasedDraws bd{&e, kDBsdf};
+  const Sample bs =
+      bsdf_sample(bd, m, albedo, neg(wi_local), s.backface, st.eta_i, trans);
+  const float pdf = fmaxf(bs.pdf, 0.01f);
+  if (true_hit) {
+    // medium stack push/pop on refraction through a true-hit boundary
+    if (bs.wo.z < 0.0f) {
+      if (!s.backface)
+        st.ms.push(s.mat_id, m.priority);
+      else
+        st.ms.remove(s.mat_id);
+    }
+    beta = scale(mul(beta, bs.f), fabsf(bs.wo.z) / pdf);
+    const float side = bs.wo.z > 0.0f ? 1.0f : -1.0f;
+    o = add(s.point, scale(s.normal, side * kEps));
+    d = normalize(to_world(bs.wo, s.normal));
+    st.prev_pdf = pdf;
+    st.prev_point = s.point;
+    ++st.depth;
+  } else {
+    o = add(s.point, scale(d, kRayEps));  // pass straight through
+  }
+
+  // Russian roulette past max_depth
+  if (st.depth > p.max_depth + 1) {
+    const float p_surv = fminf(fmaxf(luminance(beta), 0.05f), 0.99f);
+    if (e(kDRr) > p_surv) return false;
+    beta = v3(beta.x / p_surv, beta.y / p_surv, beta.z / p_surv);
+  }
+  if (st.depth >= kHardDepthCap) return false;
+  st.hit_nonspec = st.hit_nonspec || !m.is_specular;
+  ++st.lit;
+  return st.lit < (classic ? kLitCap : kLitCap + 1);
 }
 
-// The naive integrator's path (models/naive.py): BSDF sampling only, no
-// NEE, MIS or Russian roulette, eta_i = 1, emission added after the
-// sampling-validity break, at most max_depth bounces; bounce `depth` draws
-// keyed by fold_in(fold_in(skey, depth), d) with the pixel id; the next ray
-// is unnormalized to_world(wo) from the side of wo.z.
+// One bounce of the naive integrator's path (models/naive.py): BSDF
+// sampling only, no NEE, MIS or Russian roulette, eta_i = 1, emission added
+// after the sampling-validity break, at most max_depth bounces; bounce
+// `depth` draws keyed by fold_in(fold_in(skey, depth), d) with the pixel
+// id; the next ray is unnormalized to_world(wo) from the side of wo.z.
 template <int kEngine>
-__device__ __forceinline__ PathOut render_naive_path(const SceneArgs& sc,
-                                                     const Params& p,
-                                                     uint32_t pix_id, V3 o,
-                                                     V3 d) {
-  V3 beta = v3(1.0f, 1.0f, 1.0f), li = v3(0.0f, 0.0f, 0.0f);
-  int32_t rays = 0, rows = 0;
-  for (int depth = 0; depth < p.max_depth; ++depth) {
-    ++rays;
-    EventDraws e;
-    e.mega_keys = p.draw_keys;
-    e.classic = true;
-    e.b0 = 0u;
-    e.b1 = static_cast<uint32_t>(depth);
-    threefry2x32(p.skey0, p.skey1, e.b0, e.b1);  // bounce_key(skey, depth)
-    e.id = pix_id;
-    const Trace8 h = trace_ray<kEngine, false>(sc, o.x, o.y, o.z, d.x, d.y,
-                                               d.z, kBigT, -1, true);
-    rows += h.rows;
-    if (h.tri < 0) {
-      li = add(li, mul(beta, sample_sky(d, p.sample_environment != 0)));
-      break;
-    }
-    const ShadeHit s =
-        shade_fetch(sc.tri_f32, sc.tri_cols, h.tri, h.u, h.v, o, d, h.t);
-    const V3 wi_local = to_local(d, s.normal);
-    const V3 albedo = resolve_albedo(sc.textures, s);
-    const float trans = resolve_transmission(sc.textures, s);
-    const BasedDraws bd{&e, 0};
-    const Sample bs =
-        bsdf_sample(bd, s.mat, albedo, neg(wi_local), s.backface, 1.0f, trans);
-    if (bs.pdf <= 0.0f || length_sq(bs.f) < kEps) break;
-    li = add(li, mul(s.emission, beta));
-    beta = scale(mul(beta, bs.f), fabsf(bs.wo.z) / fmaxf(bs.pdf, 1e-20f));
-    d = to_world(bs.wo, s.normal);
-    const float side = bs.wo.z > 0.0f ? 1.0f : -1.0f;
-    o = add(s.point, scale(s.normal, side * kRayEps));
+__device__ __forceinline__ bool naive_event(const SceneArgs& sc,
+                                            const Params& p,
+                                            const uint32_t* keys,
+                                            uint32_t pix_id, PathState& st,
+                                            int32_t& rays, int32_t& rows) {
+  V3& o = st.o;
+  V3& d = st.d;
+  V3& beta = st.beta;
+  ++rays;
+  EventDraws e;
+  e.mega_keys = keys + kKeyDraws;
+  e.classic = true;
+  e.b0 = 0u;
+  e.b1 = static_cast<uint32_t>(st.lit);
+  threefry2x32(keys[kKeySample], keys[kKeySample + 1], e.b0,
+               e.b1);  // bounce_key(skey, depth)
+  e.id = pix_id;
+  const Trace8 h = trace_ray<kEngine, false>(sc, o.x, o.y, o.z, d.x, d.y,
+                                             d.z, kBigT, -1, true);
+  rows += h.rows;
+  if (h.tri < 0) {
+    st.li = add(st.li, mul(beta, sample_sky(d, p.sample_environment != 0)));
+    return false;
   }
-  PathOut out;
-  out.li = li;
-  out.rays = rays;
-  out.rows = rows;
-  return out;
+  const ShadeHit s =
+      shade_fetch(sc.tri_f32, sc.tri_cols, h.tri, h.u, h.v, o, d, h.t);
+  const V3 wi_local = to_local(d, s.normal);
+  const V3 albedo = resolve_albedo(sc.textures, s);
+  const float trans = resolve_transmission(sc.textures, s);
+  const BasedDraws bd{&e, 0};
+  const Sample bs =
+      bsdf_sample(bd, s.mat, albedo, neg(wi_local), s.backface, 1.0f, trans);
+  if (bs.pdf <= 0.0f || length_sq(bs.f) < kEps) return false;
+  st.li = add(st.li, mul(s.emission, beta));
+  beta = scale(mul(beta, bs.f), fabsf(bs.wo.z) / fmaxf(bs.pdf, 1e-20f));
+  d = to_world(bs.wo, s.normal);
+  const float side = bs.wo.z > 0.0f ? 1.0f : -1.0f;
+  o = add(s.point, scale(s.normal, side * kRayEps));
+  ++st.lit;
+  return st.lit < p.max_depth;
+}
+
+// Sample `keys` (its key row) of pixel (x, y): the primary ray (K7) and a
+// new path; returns whether it takes any event (the naive schedule at
+// max_depth 0 takes none).
+__device__ __forceinline__ bool begin_sample(const Params& p,
+                                             const uint32_t* keys, int32_t x,
+                                             int32_t y, uint32_t pix_id,
+                                             PathState& st) {
+  float org[3], dir[3];
+  camera_ray(p.cam, keys, static_cast<float>(x), static_cast<float>(y),
+             pix_id, org, dir);
+  start_path(st, v3(org[0], org[1], org[2]), v3(dir[0], dir[1], dir[2]),
+             p.air_priority);
+  return p.schedule != kScheduleNaive || p.max_depth > 0;
 }
 
 // What the plain K2-K4 functions return for one hit (shade_eval): point,
 // normal, uv, backface, albedo, transmission, then NEE (contrib, light_pdf,
 // wo_local, shadow origin, dir, max_t, active), the NEE direction's BSDF
 // pdf, the BSDF sample (wo, f, pdf), mat_id and emissive. Draws use the
-// mega keys with id ids[i]; NEE is active on hits that are neither
+// mega keys draw_keys with id ids[i]; NEE is active on hits that are neither
 // emissive nor specular.
 __device__ __forceinline__ void shade_eval_one(const SceneArgs& sc,
-                                               const Params& p, V3 o, V3 d,
+                                               const uint32_t* draw_keys,
+                                               V3 o, V3 d,
                                                float t, int32_t tri, float u,
                                                float v, uint32_t id,
                                                float eta_i, float* out) {
@@ -361,7 +447,7 @@ __device__ __forceinline__ void shade_eval_one(const SceneArgs& sc,
   const float trans = resolve_transmission(sc.textures, s);
   const bool emissive = length_sq(s.emission) > kEps;
   EventDraws e;
-  e.mega_keys = p.draw_keys;
+  e.mega_keys = draw_keys;
   e.classic = false;
   e.b0 = e.b1 = 0u;
   e.id = id;
@@ -428,91 +514,125 @@ __device__ __forceinline__ void shade_eval_one(const SceneArgs& sc,
 
 namespace {
 
-constexpr int kThreads = 128;
+namespace cg = cooperative_groups;
 
-// One sample of the path of pixel (x, y) at list index i: raygen, the
-// schedule's path, and the mega engine's RGB9E5 retirement.
-template <int kEngine>
-__device__ __forceinline__ tpt::PathOut sample_pixel(const tpt::SceneArgs& sc,
-                                                     const tpt::Params& p,
-                                                     int64_t i, int32_t x,
-                                                     int32_t y) {
-  const uint32_t pix_id = static_cast<uint32_t>((y << 14) + x);
-  float org[3], dir[3];
-  tpt::camera_ray(p.cam, static_cast<float>(x), static_cast<float>(y), pix_id,
-                  org, dir);
-  const tpt::V3 o = tpt::v3(org[0], org[1], org[2]);
-  const tpt::V3 d = tpt::v3(dir[0], dir[1], dir[2]);
-  tpt::PathOut r = p.schedule == tpt::kScheduleNaive
-                       ? tpt::render_naive_path<kEngine>(sc, p, pix_id, o, d)
-                       : tpt::render_path<kEngine>(sc, p, i, pix_id, o, d);
-  // the mega engine retires each path's radiance through RGB9E5
-  if (p.schedule == tpt::kScheduleMega) r.li = tpt::round_rgb9e5(r.li);
-  return r;
+constexpr int kThreads = 128;
+constexpr int kWarps = kThreads / 32;
+
+// The next pixel: one atomicAdd for the lanes that ask together, which
+// take consecutive pixels.
+__device__ __forceinline__ int64_t next_pixel(unsigned long long* counter) {
+  const cg::coalesced_group g = cg::coalesced_threads();
+  unsigned long long base = 0;
+  if (g.thread_rank() == 0) base = atomicAdd(counter, g.size());
+  return static_cast<int64_t>(g.shfl(base, 0) + g.thread_rank());
 }
 
+// Samples s0 .. s0+k-1 of each of the n pixels (px, py); sample s keyed by
+// row s of keys [k, 28]. Persistent: each thread steps one event of its
+// path per loop trip and takes the next sample or pixel when the path ends
+// (see the header). counter: the next pixel, zero at the launch. lanes
+// (nullable): += (events stepped, the sum over warps of the warp's busiest
+// lane's events, the warps' calls of the event code: the lanes that call
+// it together count once), whose ratios events / (32 x calls) and events
+// / (32 x busiest) are the lane use and the event balance. The explicit
+// minimum of one block a SM: without it ptxas targets four blocks of 128
+// on this persistent kernel and spills to get there (60 B on BVH8, 100 B
+// on the threaded engine).
 template <int kEngine>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 1)
 uni_mega_kernel(tpt::SceneArgs sc, tpt::Params p,
+                const uint32_t* __restrict__ keys, int32_t k,
                 const int32_t* __restrict__ px,
                 const int32_t* __restrict__ py, int64_t n,
                 float* __restrict__ li_out, int32_t* __restrict__ rays_out,
-                int32_t* __restrict__ rows_out) {
-  const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x +
-                    threadIdx.x;
-  if (i >= n) return;
-  const tpt::PathOut r = sample_pixel<kEngine>(sc, p, i, px[i], py[i]);
-  li_out[3 * i] = r.li.x;
-  li_out[3 * i + 1] = r.li.y;
-  li_out[3 * i + 2] = r.li.z;
-  rays_out[i] = r.rays;
-  if (rows_out != nullptr) rows_out[i] = r.rows;
-}
-
-// The k-sample mode (models/batch.py:make_batched): sample s of the batch
-// takes row s of keys [k, 28] (the words tpt_render_unidirectional takes
-// by value, uploaded once per batch); each sample's radiance, retired as in
-// one launch, is added into a float32 accumulator that starts at 0, in
-// sample order, which is the JAX fori_loop's sum, and the rays into the
-// pixel's int32 counter. li_out and rays_out are written once.
-template <int kEngine>
-__global__ void __launch_bounds__(kThreads)
-uni_mega_batch_kernel(tpt::SceneArgs sc, tpt::Params p,
-                      const uint32_t* __restrict__ keys, int32_t k,
-                      const int32_t* __restrict__ px,
-                      const int32_t* __restrict__ py, int64_t n,
-                      float* __restrict__ li_out,
-                      int32_t* __restrict__ rays_out,
-                      int32_t* __restrict__ rows_out) {
-  const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x +
-                    threadIdx.x;
-  if (i >= n) return;
-  const int32_t x = px[i], y = py[i];
-  float ax = 0.0f, ay = 0.0f, az = 0.0f;
-  int32_t rays = 0, rows = 0;
-  for (int32_t s = 0; s < k; ++s) {
-    const uint32_t* row = keys + 28 * static_cast<int64_t>(s);
-    tpt::Params ps = p;
-    for (int w = 0; w < 8; ++w) ps.cam.keys[w] = row[w];
-    ps.skey0 = row[8];
-    ps.skey1 = row[9];
-    for (int w = 0; w < 18; ++w) ps.draw_keys[w] = row[10 + w];
-    const tpt::PathOut r = sample_pixel<kEngine>(sc, ps, i, x, y);
-    ax = ax + r.li.x;
-    ay = ay + r.li.y;
-    az = az + r.li.z;
-    rays += r.rays;
-    rows += r.rows;
+                int32_t* __restrict__ rows_out,
+                unsigned long long* __restrict__ counter,
+                unsigned long long* __restrict__ lanes) {
+  int32_t events = 0, calls = 0;
+  int64_t i = next_pixel(counter);
+  if (i < n) {
+    int32_t x = px[i], y = py[i];
+    uint32_t pix_id = static_cast<uint32_t>((y << 14) + x);
+    int32_t s = 0, rays = 0, rows = 0;
+    const uint32_t* row = keys;
+    tpt::V3 acc = tpt::v3(0.0f, 0.0f, 0.0f);
+    tpt::PathState st;
+    bool alive = tpt::begin_sample(p, row, x, y, pix_id, st);
+    for (;;) {
+      if (alive) {
+        if (lanes != nullptr &&
+            (threadIdx.x & 31) == __ffs(__activemask()) - 1)
+          ++calls;
+        alive = p.schedule == tpt::kScheduleNaive
+                    ? tpt::naive_event<kEngine>(sc, p, row, pix_id, st,
+                                                rays, rows)
+                    : tpt::path_event<kEngine>(sc, p, row, i, pix_id, st,
+                                               rays, rows);
+        ++events;
+      }
+      if (alive) continue;
+      // retire the path (the mega engine through RGB9E5) into the sum
+      tpt::V3 li = st.li;
+      if (p.schedule == tpt::kScheduleMega) li = tpt::round_rgb9e5(li);
+      acc = tpt::add(acc, li);
+      if (++s == k) {
+        li_out[3 * i] = acc.x;
+        li_out[3 * i + 1] = acc.y;
+        li_out[3 * i + 2] = acc.z;
+        rays_out[i] = rays;
+        if (rows_out != nullptr) rows_out[i] = rows;
+        i = next_pixel(counter);
+        if (i >= n) break;
+        x = px[i];
+        y = py[i];
+        pix_id = static_cast<uint32_t>((y << 14) + x);
+        s = rays = rows = 0;
+        acc = tpt::v3(0.0f, 0.0f, 0.0f);
+      }
+      row = keys + tpt::kKeyWords * static_cast<int64_t>(s);
+      alive = tpt::begin_sample(p, row, x, y, pix_id, st);
+    }
   }
-  li_out[3 * i] = ax;
-  li_out[3 * i + 1] = ay;
-  li_out[3 * i + 2] = az;
-  rays_out[i] = rays;
-  if (rows_out != nullptr) rows_out[i] = rows;
+  if (lanes != nullptr) {  // uniform: every thread of the block gets here
+    __shared__ int32_t warp_max[kWarps];
+    __shared__ unsigned long long block_sums[2];
+    if (threadIdx.x < kWarps) warp_max[threadIdx.x] = 0;
+    if (threadIdx.x < 2) block_sums[threadIdx.x] = 0;
+    __syncthreads();
+    atomicMax(&warp_max[threadIdx.x / 32], events);
+    atomicAdd(&block_sums[0], static_cast<unsigned long long>(events));
+    atomicAdd(&block_sums[1], static_cast<unsigned long long>(calls));
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      unsigned long long busiest = 0;
+      for (int w = 0; w < kWarps; ++w) busiest += warp_max[w];
+      atomicAdd(lanes, block_sums[0]);
+      atomicAdd(lanes + 1, busiest);
+      atomicAdd(lanes + 2, block_sums[1]);
+    }
+  }
 }
 
+// The launch's scratch: scratch[0] the pixel counter, zeroed here, then
+// from word 2 on the key rows of samples s0 .. s0+k-1 under (b0, b1).
 __global__ void __launch_bounds__(kThreads)
-shade_eval_kernel(tpt::SceneArgs sc, tpt::Params p,
+uni_mega_keys_kernel(uint32_t b0, uint32_t b1, uint32_t s0, int32_t k,
+                     unsigned long long* __restrict__ scratch) {
+  const int s = blockIdx.x * kThreads + threadIdx.x;
+  if (s == 0) scratch[0] = 0ull;
+  if (s < k)
+    tpt::sample_key_row(b0, b1, s0 + static_cast<uint32_t>(s),
+                        reinterpret_cast<uint32_t*>(scratch + 1) +
+                            tpt::kKeyWords * static_cast<int64_t>(s));
+}
+
+struct DrawKeys {
+  uint32_t w[18];  // draw_key(skey, d), d = 0..8
+};
+
+__global__ void __launch_bounds__(kThreads)
+shade_eval_kernel(tpt::SceneArgs sc, DrawKeys dk,
                   const float* __restrict__ o, const float* __restrict__ d,
                   const float* __restrict__ t, const int32_t* __restrict__ tri,
                   const float* __restrict__ u, const float* __restrict__ v,
@@ -523,15 +643,13 @@ shade_eval_kernel(tpt::SceneArgs sc, tpt::Params p,
                     threadIdx.x;
   if (i >= n) return;
   tpt::shade_eval_one(
-      sc, p, tpt::v3(o[3 * i], o[3 * i + 1], o[3 * i + 2]),
+      sc, dk.w, tpt::v3(o[3 * i], o[3 * i + 1], o[3 * i + 2]),
       tpt::v3(d[3 * i], d[3 * i + 1], d[3 * i + 2]), t[i], tri[i], u[i], v[i],
       static_cast<uint32_t>(ids[i]), eta_i[i],
       out + tpt::kShadeEvalCols * i);
 }
 
-// scene: the table pointers (nodes: the threaded engine's, or null);
-// cam_params: 19 floats and keys: 8 camera key words, the sample key pair
-// and 18 mega draw-key words (host memory).
+// scene: the table pointers (nodes: the threaded engine's, or null).
 tpt::SceneArgs make_scene(const float* table, const float* tri_f32,
                           int32_t tri_cols, const float* light_f32,
                           int32_t num_lights, const float* textures,
@@ -551,100 +669,113 @@ tpt::SceneArgs make_scene(const float* table, const float* tri_f32,
   return sc;
 }
 
-tpt::Params make_params(const float* cam_params, const uint32_t* keys,
-                        int32_t max_depth, int32_t use_mis,
-                        int32_t sample_environment, int32_t schedule,
-                        int32_t air_priority) {
-  tpt::Params p;
-  p.cam = tpt::make_camera(cam_params, keys);
-  p.skey0 = keys[8];
-  p.skey1 = keys[9];
-  for (int k = 0; k < 18; ++k) p.draw_keys[k] = keys[10 + k];
-  p.max_depth = max_depth;
-  p.use_mis = use_mis;
-  p.sample_environment = sample_environment;
-  p.schedule = schedule;
-  p.air_priority = air_priority;
-  return p;
-}
-
 bool schedule_ok(int32_t schedule) {
   return schedule == tpt::kScheduleClassic ||
          schedule == tpt::kScheduleMega || schedule == tpt::kScheduleNaive;
 }
 
+// The persistent grid of an instantiation on the current device: its SMs
+// times the blocks of kThreads that fit on one, queried once per device
+// and engine; at most one block per kThreads pixels.
+int resident_grid(int32_t engine, int64_t n, unsigned& blocks) {
+  constexpr int kDevices = 64;
+  static int per_sm[kDevices][2], sms[kDevices];
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (dev < 0 || dev >= kDevices) return cudaErrorInvalidDevice;
+  const int e = engine == tpt::kEngineThreaded ? 1 : 0;
+  if (per_sm[dev][e] == 0) {
+    int nb = 0, count = 0;
+    err = e == 1 ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                       &nb, uni_mega_kernel<tpt::kEngineThreaded>, kThreads,
+                       0)
+                 : cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                       &nb, uni_mega_kernel<tpt::kEngineBvh8>, kThreads, 0);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(&count, cudaDevAttrMultiProcessorCount,
+                                   dev);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    if (nb < 1 || count < 1) return cudaErrorLaunchOutOfResources;
+    sms[dev] = count;
+    per_sm[dev][e] = nb;
+  }
+  const int64_t need = (n + kThreads - 1) / kThreads;
+  const int64_t full = static_cast<int64_t>(sms[dev]) * per_sm[dev][e];
+  blocks = static_cast<unsigned>(need < full ? need : full);
+  return 0;
+}
+
 }  // namespace
 
-// One sample of n paths: li [n,3] f32 and each path's ray count [n] i32;
-// rows may be null, else each path's count of rows visited (BVH8 rows or
-// threaded nodes). engine: kEngineBvh8 (0) or kEngineThreaded (1, with
-// nodes [M, node_w] and leaf_k). Returns the launch's cudaError_t.
+// Samples s0 .. s0+k-1 (k >= 1) of n pixels under the base key (b0, b1):
+// li [n,3] f32 the sum of each pixel's k radiances in sample order, rays
+// [n] i32 and rows (null, or [n] i32: rows visited, BVH8 rows or threaded
+// nodes) their sums. cam_params: 19 floats (host memory). scratch: 8 + 112
+// k bytes of device memory (the pixel counter and the key table), written
+// by the key kernel on the stream, so launches that share it must be
+// ordered (one stream). engine: kEngineBvh8 (0) or kEngineThreaded (1,
+// with nodes [M, node_w] and leaf_k). Test arguments: blocks > 0 fixes the
+// grid (0: the resident grid), lanes (null, or three u64 in device
+// memory) as the kernel's. Returns the launches' cudaError_t.
 extern "C" int tpt_render_unidirectional(
     const float* table, const float* tri_f32, int32_t tri_cols,
     const float* light_f32, int32_t num_lights, const float* textures,
     const float* medium, const int32_t* px, const int32_t* py, int64_t n,
-    const float* cam_params, const uint32_t* keys, int32_t max_depth,
-    int32_t use_mis, int32_t sample_environment, int32_t schedule,
-    int32_t air_priority, int32_t engine, const float* nodes, int32_t node_w,
-    int32_t leaf_k, float* li, int32_t* rays, int32_t* rows, void* stream) {
-  if (!schedule_ok(schedule) ||
+    const float* cam_params, uint32_t b0, uint32_t b1, uint32_t s0,
+    int32_t k, int32_t max_depth, int32_t use_mis,
+    int32_t sample_environment, int32_t schedule, int32_t air_priority,
+    int32_t engine, const float* nodes, int32_t node_w, int32_t leaf_k,
+    float* li, int32_t* rays, int32_t* rows, void* scratch, int32_t blocks,
+    void* lanes, void* stream) {
+  if (k < 1 || scratch == nullptr || blocks < 0 || !schedule_ok(schedule) ||
       !tpt::engine_ok(engine, nodes, node_w, leaf_k))
     return static_cast<int>(cudaErrorInvalidValue);
   if (n <= 0) return 0;
-  const unsigned blocks = static_cast<unsigned>((n + kThreads - 1) / kThreads);
+  unsigned grid = static_cast<unsigned>(blocks);
+  if (grid == 0) {
+    const int err = resident_grid(engine, n, grid);
+    if (err != 0) return err;
+  }
+  static const uint32_t kNoKeys[8] = {};
   const tpt::SceneArgs sc =
       make_scene(table, tri_f32, tri_cols, light_f32, num_lights, textures,
                  medium, nodes, node_w, leaf_k);
-  const tpt::Params p = make_params(cam_params, keys, max_depth, use_mis,
-                                    sample_environment, schedule,
-                                    air_priority);
+  tpt::Params p;
+  p.cam = tpt::make_camera(cam_params, kNoKeys);
+  p.max_depth = max_depth;
+  p.use_mis = use_mis;
+  p.sample_environment = sample_environment;
+  p.schedule = schedule;
+  p.air_priority = air_priority;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  auto* ctr = static_cast<unsigned long long*>(scratch);
+  const uint32_t* keys = reinterpret_cast<const uint32_t*>(ctr + 1);
+  auto* ln = static_cast<unsigned long long*>(lanes);
+  uni_mega_keys_kernel<<<(k + kThreads - 1) / kThreads, kThreads, 0, st>>>(
+      b0, b1, s0, k, ctr);
   if (engine == tpt::kEngineThreaded)
-    uni_mega_kernel<tpt::kEngineThreaded><<<blocks, kThreads, 0, st>>>(
-        sc, p, px, py, n, li, rays, rows);
+    uni_mega_kernel<tpt::kEngineThreaded><<<grid, kThreads, 0, st>>>(
+        sc, p, keys, k, px, py, n, li, rays, rows, ctr, ln);
   else
-    uni_mega_kernel<tpt::kEngineBvh8><<<blocks, kThreads, 0, st>>>(
-        sc, p, px, py, n, li, rays, rows);
+    uni_mega_kernel<tpt::kEngineBvh8><<<grid, kThreads, 0, st>>>(
+        sc, p, keys, k, px, py, n, li, rays, rows, ctr, ln);
   return static_cast<int>(cudaGetLastError());
 }
 
-// The k-sample mode: k samples of n paths summed; keys [k, 28] (device
-// memory) holds each sample's words, row s in the layout of `keys` above.
-// li [n,3] is the sum of the k samples' radiance, rays [n] of their rays.
-// Returns the launch's cudaError_t.
-extern "C" int tpt_render_unidirectional_batch(
-    const float* table, const float* tri_f32, int32_t tri_cols,
-    const float* light_f32, int32_t num_lights, const float* textures,
-    const float* medium, const int32_t* px, const int32_t* py, int64_t n,
-    const float* cam_params, const uint32_t* keys, int32_t k,
-    int32_t max_depth, int32_t use_mis, int32_t sample_environment,
-    int32_t schedule, int32_t air_priority, int32_t engine,
-    const float* nodes, int32_t node_w, int32_t leaf_k, float* li,
-    int32_t* rays, int32_t* rows, void* stream) {
-  if (k < 1 || keys == nullptr || !schedule_ok(schedule) ||
-      !tpt::engine_ok(engine, nodes, node_w, leaf_k))
-    return static_cast<int>(cudaErrorInvalidValue);
-  if (n <= 0) return 0;
-  static const uint32_t kNoKeys[28] = {};
-  const unsigned blocks = static_cast<unsigned>((n + kThreads - 1) / kThreads);
-  const tpt::SceneArgs sc =
-      make_scene(table, tri_f32, tri_cols, light_f32, num_lights, textures,
-                 medium, nodes, node_w, leaf_k);
-  const tpt::Params p = make_params(cam_params, kNoKeys, max_depth, use_mis,
-                                    sample_environment, schedule,
-                                    air_priority);
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (engine == tpt::kEngineThreaded)
-    uni_mega_batch_kernel<tpt::kEngineThreaded><<<blocks, kThreads, 0, st>>>(
-        sc, p, keys, k, px, py, n, li, rays, rows);
-  else
-    uni_mega_batch_kernel<tpt::kEngineBvh8><<<blocks, kThreads, 0, st>>>(
-        sc, p, keys, k, px, py, n, li, rays, rows);
-  return static_cast<int>(cudaGetLastError());
+// The resident grid tpt_render_unidirectional launches for n pixels on the
+// current device (blocks of 128 threads). Returns a cudaError_t.
+extern "C" int tpt_render_unidirectional_grid(int32_t engine, int64_t n,
+                                              int32_t* blocks) {
+  unsigned grid = 0;
+  const int err = resident_grid(engine, n, grid);
+  *blocks = static_cast<int32_t>(grid);
+  return err;
 }
 
 // Test entry: the K2-K4 device functions once per hit; out [n, 38] f32
-// (columns: shade_eval_one). Returns the launch's cudaError_t.
+// (columns: shade_eval_one); keys: the 18 mega draw-key words (host
+// memory). Returns the launch's cudaError_t.
 extern "C" int tpt_shade_eval(
     const float* tri_f32, int32_t tri_cols, const float* light_f32,
     int32_t num_lights, const float* textures, const float* medium,
@@ -652,13 +783,13 @@ extern "C" int tpt_shade_eval(
     const float* u, const float* v, const int32_t* ids, const float* eta_i,
     int64_t n, const uint32_t* keys, float* out, void* stream) {
   if (n <= 0) return 0;
-  static const float kNoCamera[19] = {};
+  DrawKeys dk;
+  for (int w = 0; w < 18; ++w) dk.w[w] = keys[w];
   const unsigned blocks = static_cast<unsigned>((n + kThreads - 1) / kThreads);
   shade_eval_kernel<<<blocks, kThreads, 0,
                       static_cast<cudaStream_t>(stream)>>>(
       make_scene(nullptr, tri_f32, tri_cols, light_f32, num_lights, textures,
                  medium),
-      make_params(kNoCamera, keys, 0, 1, 0, tpt::kScheduleMega, 0), o, d, t,
-      tri, u, v, ids, eta_i, n, out);
+      dk, o, d, t, tri, u, v, ids, eta_i, n, out);
   return static_cast<int>(cudaGetLastError());
 }

@@ -11,7 +11,7 @@ On the card there are two forms, both without a host sync inside the
 batch:
   * an integrator whose sample is ONE launch of K5 (UNIDIRECTIONAL with
     either engine, NAIVE_UNIDIRECTIONAL) gives its step a `k_sample`
-    attribute: the batch is one launch of K5's k-sample mode
+    attribute: the batch is one launch of K5 with k samples
     (kernels/csrc/uni_mega.cu), never k launches;
   * the multi-launch integrators (BIDIRECTIONAL, VCM and SPPM with either
     engine) queue the k samples' launches on the current stream one after
@@ -22,8 +22,8 @@ batch:
 On CPU tensors the loop below is the plain version of both.
 
 The radiance is summed in sample order from zeros, as the JAX fori_loop
-sums it (so K5's k-sample mode is bit-equal to k single launches summed in
-that order). The counters are summed as int64: the JAX loop's int32
+sums it (so K5 with k samples is bit-equal to k launches of one sample
+summed in that order). The counters are summed as int64: the JAX loop's int32
 totals wrap above 2^31 (a 1080p VCM sample alone drops ~1.2 x 10^10 merge
 candidates).
 """

@@ -7,13 +7,15 @@ walk, the t=1 light-trace splat, an eye walk and the connection stage
 stored light vertex), all lane-wise: eye path i meets light path i, both
 keyed by pixel i's id.
 
-On CUDA tensors `render_sample` launches four kernels per sample: the walk
+On CUDA tensors `render_sample` launches five kernels per sample: the walk
 kernel K12 (bdpt_walk.cu) for the light paths, the splat K11
 (bdpt_splat.cu, one thread per light vertex, atomicAdd into the frame
-buffer), K12 for the eye paths, and the connection kernel K13
-(bdpt_connect.cu, one thread per pixel looping over t and s in the JAX
-summation order). On CPU tensors it runs the plain versions below, the
-JAX functions operation for operation over [N] lanes. Both read the
+buffer), K12 for the eye paths, and the connection stage K13 in two
+launches: bdpt_pairs.cu (one thread per eye vertex, strategy and pixel,
+one shadow ray each, its weighted term stored) and bdpt_gather.cu (one
+thread per pixel adding the terms in the JAX summation order). On CPU
+tensors it runs the plain versions below, the JAX functions operation for
+operation over [N] lanes. Both read the
 connection and splat inputs from the DECODED packed vertices
 (models/paths.PathBuffers); the light endpoint (s=1) is not packed.
 
@@ -229,41 +231,106 @@ def _bdpt_nee(scene, key, tag, ev, mat_e, albedo_e, prev_to_curr_local,
 
 
 def connect_plain(scene, camera, key_c, ebufs, ev0, esc, lbufs, lv0,
-                  cfg: BDPTConfig, ids):
-    """Plain version of K13 (any device): the environment term, then for
-    t = 2..eye_depth the s=0, s=1 and s>=2 strategies in that order.
-    Returns (li [N,3], rays as a Python int)."""
+                  cfg: BDPTConfig, ids, fb=None):
+    """Plain version of K13 (any device): its two stages in turn,
+    connect_pairs_plain then connect_gather_plain (the environment term,
+    then for t = 2..eye_depth the s=0, s=1 and s>=2 strategies in that
+    order, then fb [N,3] if given). lv0 is not read: s=1 samples the
+    light. Returns (li [N,3], rays as a Python int)."""
+    terms, rays = connect_pairs_plain(scene, key_c, ebufs, lbufs, cfg, ids)
+    return connect_gather_plain(scene, camera, ebufs, ev0, esc, terms, cfg,
+                                fb), rays
+
+
+def connect_pairs_plain(scene, key_c, ebufs, lbufs, cfg: BDPTConfig, ids):
+    """Plain version of K13's first stage (kernels.bdpt_pairs): for each
+    eye depth t = 2..eye_depth, slot 0 the s=1 (NEE) term and slot 1 + j
+    the s=j+2 connection to stored light vertex j, each weighted, +0 where
+    the eye vertex is invalid or delta, the strategy is off, nothing was
+    traced or the ray was blocked. Returns (terms [eye_depth - 1,
+    light_depth, N, 3], rays as a Python int)."""
     n, dev = ids.shape[0], ids.device
     ones = torch.ones(n, dtype=torch.float32, device=dev)
-    li = torch.zeros((n, 3), dtype=torch.float32, device=dev)
-    if cfg.sample_environment:
-        sky = common.sample_sky(esc.d, True)
-        out = _weighted(esc.beta * sky, ones, cfg)
-        li = li + torch.where(esc.valid[:, None], out, 0.0)
+    terms = torch.zeros((cfg.eye_depth - 1, cfg.light_depth, n, 3),
+                        dtype=torch.float32, device=dev)
     rays = 0
-    plane_area = camera.plane_area()
-    num_lights = max(scene.num_lights, 1)
-    fwd = torch.tensor(camera.forward, dtype=torch.float32,
-                       device=dev).expand(n, 3)
     lverts = []
     if cfg.connection and cfg.light_depth >= 2:
         lverts = [_vertex(lbufs, j) for j in range(cfg.light_depth - 1)]
 
     for t in range(2, cfg.eye_depth + 1):
         ev = _vertex(ebufs, t - 2)
-        first_t = t == 2
-        if first_t:
-            ev_prev_pt = ev0["pt"]
-            ev_prev_delta = torch.ones(n, dtype=torch.bool, device=dev)
-        else:
-            prev = paths.PathBuffers(*(f[t - 3] for f in ebufs))
-            ev_prev_pt, ev_prev_delta = prev.pt, prev.is_delta
         mat_e = _gather_mat(scene, ev["mat_id"])
         albedo_e = bsdf_ops.resolve_albedo(scene, mat_e, ev["uv"])
         trans_e = bsdf_ops.resolve_transmission(scene, mat_e, ev["uv"])
 
+        # s = 1: NEE
+        if cfg.nee and scene.num_lights > 0:
+            do = ev["valid"] & ~ev["is_delta"]
+            prev_to_curr_local = to_local(-ev["wo"], ev["n"])
+            rays += int(do.sum())
+            ne = _bdpt_nee(scene, key_c, t, ev, mat_e, albedo_e,
+                           prev_to_curr_local, do, ids, trans_e)
+            pdf_bsdf_sa = bsdf_ops.bsdf_pdf(mat_e, -prev_to_curr_local,
+                                            ne["stl_local"], ones,
+                                            transmission=trans_e)
+            pdf_bsdf_area = (pdf_bsdf_sa * torch.abs(ne["cos_light"])
+                             / ne["d2"])
+            w_light = pdf_bsdf_area / torch.clamp(ne["pdf_connect"],
+                                                  min=1e-20)
+            pdf_curr_rev_area = (ne["pdf_emit_sa"]
+                                 * torch.abs(ne["stl_local"][..., 2])
+                                 / ne["d2"])
+            pdf_prev_rev_sa = bsdf_ops.bsdf_pdf(mat_e, ne["stl_local"],
+                                                -prev_to_curr_local, ones,
+                                                transmission=trans_e)
+            w_eye = pdf_curr_rev_area * (ev["d_vcm"]
+                                         + pdf_prev_rev_sa * ev["d_vc"])
+            weight = 1.0 / (1.0 + w_light + w_eye)
+            out = _weighted(ne["contrib"] * ev["beta"], weight, cfg)
+            terms[t - 2, 0] = torch.where((do & ne["ok"])[:, None], out, 0.0)
+
+        # s >= 2: connections to the stored light vertices
+        for j, lv in enumerate(lverts):
+            terms[t - 2, 1 + j], r = _connect_one(scene, ev, mat_e, albedo_e,
+                                                  trans_e, lv, ones, cfg)
+            rays += r
+    return terms, rays
+
+
+def connect_gather_plain(scene, camera, ebufs, ev0, esc, terms,
+                         cfg: BDPTConfig, fb=None):
+    """Plain version of K13's second stage (kernels.bdpt_gather): from
+    zero, the environment term, then for t = 2..eye_depth up to the first
+    invalid eye vertex, skipping delta ones, the s=0 term (computed here:
+    it traces no ray) and the terms of connect_pairs_plain in slot order,
+    then fb [N,3] if given. Returns li [N,3]."""
+    n, dev = ebufs.pt.shape[1], ebufs.pt.device
+    ones = torch.ones(n, dtype=torch.float32, device=dev)
+    li = torch.zeros((n, 3), dtype=torch.float32, device=dev)
+    if cfg.sample_environment:
+        sky = common.sample_sky(esc.d, True)
+        out = _weighted(esc.beta * sky, ones, cfg)
+        li = li + torch.where(esc.valid[:, None], out, 0.0)
+    plane_area = camera.plane_area()
+    num_lights = max(scene.num_lights, 1)
+    fwd = torch.tensor(camera.forward, dtype=torch.float32,
+                       device=dev).expand(n, 3)
+    reached = torch.ones(n, dtype=torch.bool, device=dev)
+    for t in range(2, cfg.eye_depth + 1):
+        ev = _vertex(ebufs, t - 2)
+        # as the kernel: stop at the first invalid eye vertex, skip delta
+        reached = reached & ev["valid"]
+        live = (reached & ~ev["is_delta"])[:, None]
         # s = 0: the eye walk hit a light
         if cfg.naive:
+            first_t = t == 2
+            if first_t:
+                ev_prev_pt = ev0["pt"]
+                ev_prev_delta = torch.ones(n, dtype=torch.bool, device=dev)
+            else:
+                prev = paths.PathBuffers(*(f[t - 3] for f in ebufs))
+                ev_prev_pt, ev_prev_delta = prev.pt, prev.is_delta
             is_light = ((ev["light_ind"] >= 0) & ~ev["backface"]
                         & ev["valid"] & ~ev["is_delta"])
             lrow = scene.light_f32[torch.clamp(ev["light_ind"], min=0)]
@@ -291,42 +358,18 @@ def connect_plain(scene, camera, key_c, ebufs, ev0, esc, lbufs, lv0,
             weight = 1.0 / (1.0 + w_eye)
             out = _weighted(contrib, weight, cfg)
             li = li + torch.where(is_light[:, None], out, 0.0)
-
-        # s = 1: NEE
+        # s = 1, then s >= 2 in light-vertex order
         if cfg.nee and scene.num_lights > 0:
-            do = ev["valid"] & ~ev["is_delta"]
-            prev_to_curr_local = to_local(-ev["wo"], ev["n"])
-            rays += int(do.sum())
-            ne = _bdpt_nee(scene, key_c, t, ev, mat_e, albedo_e,
-                           prev_to_curr_local, do, ids, trans_e)
-            pdf_bsdf_sa = bsdf_ops.bsdf_pdf(mat_e, -prev_to_curr_local,
-                                            ne["stl_local"], ones,
-                                            transmission=trans_e)
-            pdf_bsdf_area = (pdf_bsdf_sa * torch.abs(ne["cos_light"])
-                             / ne["d2"])
-            w_light = pdf_bsdf_area / torch.clamp(ne["pdf_connect"],
-                                                  min=1e-20)
-            pdf_curr_rev_area = (ne["pdf_emit_sa"]
-                                 * torch.abs(ne["stl_local"][..., 2])
-                                 / ne["d2"])
-            pdf_prev_rev_sa = bsdf_ops.bsdf_pdf(mat_e, ne["stl_local"],
-                                                -prev_to_curr_local, ones,
-                                                transmission=trans_e)
-            w_eye = pdf_curr_rev_area * (ev["d_vcm"]
-                                         + pdf_prev_rev_sa * ev["d_vc"])
-            weight = 1.0 / (1.0 + w_light + w_eye)
-            out = _weighted(ne["contrib"] * ev["beta"], weight, cfg)
-            li = li + torch.where((do & ne["ok"])[:, None], out, 0.0)
-
-        # s >= 2: connections to the stored light vertices
-        for lv in lverts:
-            li, r = _connect_one(scene, ev, mat_e, albedo_e, trans_e, lv,
-                                 ones, li, cfg)
-            rays += r
-    return li, rays
+            li = li + torch.where(live, terms[t - 2, 0], 0.0)
+        if cfg.connection:
+            for s in range(1, cfg.light_depth):
+                li = li + torch.where(live, terms[t - 2, s], 0.0)
+    return li if fb is None else li + fb
 
 
-def _connect_one(scene, ev, mat_e, albedo_e, trans_e, lv, ones, li, cfg):
+def _connect_one(scene, ev, mat_e, albedo_e, trans_e, lv, ones, cfg):
+    """One s>=2 connection per lane -> (its weighted term, +0 where nothing
+    was traced or the ray was blocked; rays as a Python int)."""
     mat_l = _gather_mat(scene, lv["mat_id"])
     albedo_l = bsdf_ops.resolve_albedo(scene, mat_l, lv["uv"])
     trans_l = bsdf_ops.resolve_transmission(scene, mat_l, lv["uv"])
@@ -376,7 +419,7 @@ def _connect_one(scene, ev, mat_e, albedo_e, trans_e, lv, ones, li, cfg):
     g = torch.clamp(cos_e * cos_l / d2, max=MAX_G_CONNECT)
     contrib = ev["beta"] * lv["beta"] * f_eye * f_light * g[:, None] * shadow
     out = _weighted(contrib, weight, cfg)
-    return li + torch.where(do[:, None], out, 0.0), rays
+    return torch.where(do[:, None], out, 0.0), rays
 
 
 # --- one sample --------------------------------------------------------------
@@ -410,15 +453,15 @@ def render_plain(scene, camera, base_key, sample_idx, px, py, *,
     ebufs, ev0, esc, rays_e = paths.generate_eye_path(
         scene, camera, key_e, px, py, cfg.eye_depth)
     li, rays_c = connect_plain(scene, camera, key_c, ebufs, ev0, esc, lbufs,
-                               lv0, cfg, rng.pixel_ids(px, py))
-    return li + fb, rays_l + rays_e + rays_s + rays_c
+                               lv0, cfg, rng.pixel_ids(px, py), fb)
+    return li, rays_l + rays_e + rays_s + rays_c
 
 
 def render_kernel(scene, camera, base_key, sample_idx, px, py, *,
                   cfg: BDPTConfig):
-    """K12 (light), K11, K12 (eye), K13: four launches and one ray-count
-    accumulator [P], summed on the card (a 0-d int64 tensor; no host
-    sync)."""
+    """K12 (light), K11, K12 (eye), K13 (pairs, gather): five launches and
+    one ray-count accumulator [P], summed on the card (a 0-d int64 tensor;
+    no host sync)."""
     key_l, key_e, key_c = sample_keys(base_key, sample_idx)
     n, dev = px.shape[0], px.device
     px = px.to(torch.int32).contiguous()

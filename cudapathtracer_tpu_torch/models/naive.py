@@ -16,10 +16,8 @@ from __future__ import annotations
 
 import torch
 
-from cudapathtracer_tpu_torch import kernels
 from cudapathtracer_tpu_torch.models import common
-from cudapathtracer_tpu_torch.models.unidirectional import (
-    kernel_keys, render_batch_kernel)
+from cudapathtracer_tpu_torch.models.unidirectional import render_batch_kernel
 from cudapathtracer_tpu_torch.ops import bsdf as bsdf_ops
 from cudapathtracer_tpu_torch.ops import traverse
 from cudapathtracer_tpu_torch.utils import rng
@@ -41,21 +39,17 @@ def render_sample(scene, camera, base_key, sample_idx, px, py, *,
 
 def render_kernel(scene, camera, base_key, sample_idx, px, py, *,
                   max_depth: int, sample_environment: bool = False):
-    """One launch of K5's naive schedule on CUDA tensors; the rays as a
-    0-d int64 tensor."""
-    li, rays = kernels.render_unidirectional(
-        scene, px.to(torch.int32).contiguous(),
-        py.to(torch.int32).contiguous(), camera.kernel_params(),
-        kernel_keys(base_key, sample_idx), max_depth=max_depth,
-        use_mis=False, sample_environment=sample_environment,
-        schedule="naive", air_priority=scene.air_priority)
-    return li, rays.sum()
+    """One launch of K5's naive schedule at k = 1 on CUDA tensors; the rays
+    as a 0-d int64 tensor."""
+    return render_batch(scene, camera, base_key, sample_idx, px, py, 1,
+                        max_depth=max_depth,
+                        sample_environment=sample_environment)
 
 
 def render_batch(scene, camera, base_key, s0: int, px, py, k: int, *,
                  max_depth: int, sample_environment: bool = False):
-    """Samples s0 .. s0+k-1 in one launch of K5's k-sample mode in its
-    naive schedule (CUDA tensors; models/batch.py)."""
+    """Samples s0 .. s0+k-1 in one launch of K5 in its naive schedule
+    (CUDA tensors; models/batch.py)."""
     return render_batch_kernel(scene, camera, base_key, s0, px, py, k,
                                max_depth=max_depth, use_mis=False,
                                sample_environment=sample_environment,

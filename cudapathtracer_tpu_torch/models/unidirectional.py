@@ -13,8 +13,9 @@ traversal="threaded" scene, the threaded engine; the mega schedule traces
 BVH8 on every scene, as the JAX mega engine's fused step and K5 do). Each
 bounce works on the paths still alive: dead paths are
 dropped with index_select, which leaves the image unchanged because every
-draw is keyed by the path, never by lane. On the card a batch of k samples
-(models/batch.py) is one launch of K5's k-sample mode (render_batch).
+draw is keyed by the path, never by lane. On the card one sample is one
+launch of K5 with k = 1, and a batch of k samples (models/batch.py) one
+launch with k (render_batch).
 
 The mega engine (models/unidirectional_mega.py) is the same estimator with
 another draw schedule, so `render_plain` serves both:
@@ -78,36 +79,23 @@ def render_sample(scene, camera, base_key, sample_idx, px, py, *,
                          schedule="classic")
 
 
-def kernel_keys(base_key, sample_idx) -> list:
-    """The 28 key words K5 takes for a sample, folded on the host: the
-    camera's four draw keys, the sample key, the mega schedule's nine draw
-    keys (the classic ones are derived in the kernel)."""
-    skey = rng.sample_key(base_key, sample_idx)
-    cam_key = rng.fold_in(skey, 2 ** 20)
-    keys = [w for dr in range(4) for w in rng.draw_key(cam_key, dr)]
-    keys += list(skey)
-    return keys + [w for dr in range(9) for w in rng.draw_key(skey, dr)]
-
-
 def render_kernel(scene, camera, base_key, sample_idx, px, py, *,
                   max_depth: int, use_mis: bool, sample_environment: bool,
                   schedule: str):
-    """One launch of K5 (uni_mega.cu) on CUDA tensors -> (radiance [N,3],
-    rays as a 0-d int64 tensor on the card: no host sync)."""
-    li, rays = kernels.render_unidirectional(
-        scene, px.to(torch.int32).contiguous(),
-        py.to(torch.int32).contiguous(), camera.kernel_params(),
-        kernel_keys(base_key, sample_idx), max_depth=max_depth,
-        use_mis=use_mis, sample_environment=sample_environment,
-        schedule=schedule, air_priority=scene.air_priority)
-    return li, rays.sum()
+    """One sample: one launch of K5 (uni_mega.cu) at k = 1 on CUDA tensors
+    -> (radiance [N,3], rays as a 0-d int64 tensor on the card: no host
+    sync)."""
+    return render_batch_kernel(scene, camera, base_key, sample_idx, px, py,
+                               1, max_depth=max_depth, use_mis=use_mis,
+                               sample_environment=sample_environment,
+                               schedule=schedule)
 
 
 def render_batch(scene, camera, base_key, s0: int, px, py, k: int, *,
                  max_depth: int, use_mis: bool = True,
                  sample_environment: bool = False):
-    """Samples s0 .. s0+k-1 in one launch of K5's k-sample mode in the
-    classic schedule (CUDA tensors; models/batch.py)."""
+    """Samples s0 .. s0+k-1 in one launch of K5 in the classic schedule
+    (CUDA tensors; models/batch.py)."""
     return render_batch_kernel(scene, camera, base_key, s0, px, py, k,
                                max_depth=max_depth, use_mis=use_mis,
                                sample_environment=sample_environment,
@@ -117,16 +105,14 @@ def render_batch(scene, camera, base_key, s0: int, px, py, k: int, *,
 def render_batch_kernel(scene, camera, base_key, s0: int, px, py, k: int, *,
                         max_depth: int, use_mis: bool,
                         sample_environment: bool, schedule: str):
-    """Samples s0 .. s0+k-1 in ONE launch of K5's k-sample mode on CUDA
-    tensors (models/batch.py): the samples' key words go to the card as one
-    [k, 28] table, copied without blocking the host. -> (radiance summed in
-    sample order [N,3], rays as a 0-d int64 tensor)."""
-    table = kernels.upload_words(
-        [kernel_keys(base_key, s) for s in range(s0, s0 + k)], px.device)
-    li, rays = kernels.render_unidirectional_batch(
+    """Samples s0 .. s0+k-1 in ONE launch of K5 on CUDA tensors
+    (models/batch.py); the kernel derives the samples' keys from base_key.
+    -> (radiance summed in sample order [N,3], rays as a 0-d int64
+    tensor)."""
+    li, rays = kernels.render_unidirectional(
         scene, px.to(torch.int32).contiguous(),
-        py.to(torch.int32).contiguous(), camera.kernel_params(), table,
-        max_depth=max_depth, use_mis=use_mis,
+        py.to(torch.int32).contiguous(), camera.kernel_params(), base_key,
+        s0, k, max_depth=max_depth, use_mis=use_mis,
         sample_environment=sample_environment, schedule=schedule,
         air_priority=scene.air_priority)
     return li, rays.sum()

@@ -55,8 +55,8 @@ def render_sample(scene, camera, base_key, sample_idx, px, py, *,
 def render_batch(scene, camera, base_key, s0: int, px, py, k: int, *,
                  max_depth: int, use_mis: bool = True,
                  sample_environment: bool = False):
-    """Samples s0 .. s0+k-1 in one launch of K5's k-sample mode in the
-    mega schedule (CUDA tensors; models/batch.py)."""
+    """Samples s0 .. s0+k-1 in one launch of K5 in the mega schedule (CUDA
+    tensors; models/batch.py)."""
     return render_batch_kernel(scene, camera, base_key, s0, px, py, k,
                                max_depth=max_depth, use_mis=use_mis,
                                sample_environment=sample_environment,

@@ -26,10 +26,12 @@ versions (compare_vcm: rays within 0.1%, image mean within 1e-3, >= 99.9%
 and 99.5% of pixels within rtol 1e-3, dropped photons equal) for VCM,
 SPPM and each merge mode; the VCM and SPPM goldens at rmse < 1e-3.
 The modes added for samples per dispatch and the keyed light walk are
-bit-equal to what they replace: K5's k-sample mode to k single launches
-summed in sample order (three schedules), K6's keyed mode to the plain
-uniform_keyed and to uniform_id, K12's table mode to the folded walk
-(every buffer field, vertex 0, rays).
+bit-equal to what they replace: K5 with k samples to k launches of one
+sample summed in sample order (three schedules), K6's keyed mode to the
+plain uniform_keyed and to uniform_id, K12's table mode to the folded walk
+(every buffer field, vertex 0, rays). K5's path regeneration gives the
+same bits on any grid (three schedules, both engines). K13 runs as two
+launches (bdpt_pairs, bdpt_gather), checked under compare_bdpt.
 The VCM eye passes run as three stage kernels (eye_walk.cu,
 eye_connect.cu, eye_gather.cu): each stage against its plain twin on the
 same inputs inside compare_vcm / compare_mega (the walk's records within
@@ -86,11 +88,11 @@ def test_import_builds_nothing():
                                   "closest_hit_bin", "shadow_factor_bin",
                                   "render_unidirectional", "shade_eval",
                                   "packing_roundtrip", "bdpt_walk",
-                                  "bdpt_splat", "bdpt_connect", "vcm_splat",
+                                  "bdpt_splat", "bdpt_connect", "bdpt_pairs",
+                                  "bdpt_gather", "vcm_splat",
                                   "photon_pack", "photon_table", "vcm_eye",
                                   "rgb9e5_roundtrip", "neighbor_slots",
                                   "mega_eye", "uniform_keyed",
-                                  "render_unidirectional_batch",
                                   "vcm_eye_pass", "mega_eye_pass"])
 def test_wrappers_refuse_non_cuda_tensors(call):
     """A wrapper launches on CUDA tensors or raises; it never falls back."""
@@ -121,13 +123,17 @@ def test_wrappers_refuse_non_cuda_tensors(call):
                             i1, None),
         "shadow_factor_bin": (torch.zeros((2, 48)), 2, torch.zeros((2, 78)),
                               f3, f3, torch.zeros(n), i1, None),
-        "render_unidirectional": (scene, i1, i1, [0.0] * 19, [0] * 28),
+        "render_unidirectional": (scene, i1, i1, [0.0] * 19, (0, 1), 0, 2),
         "shade_eval": (scene, f3, f3, f1, i1, f1, f1, i1, f1, [0] * 18),
         "packing_roundtrip": (f3, f3, b1, b1, i1, i1),
         "bdpt_walk": (scene, i1, i1, [0] * 12),
         "bdpt_splat": (scene, cam, bufs, v0, f3, i1, cfg),
         "bdpt_connect": (scene, cam, (0, 1), eye, dict(bufs=bufs, v0=v0),
                          f3, i1, cfg),
+        "bdpt_pairs": (scene, cam, (0, 1), eye, dict(bufs=bufs, v0=v0), i1,
+                       cfg),
+        "bdpt_gather": (scene, cam, eye, torch.zeros((2, 2, n, 3)), f3,
+                        cfg),
         "vcm_splat": (scene, cam, bufs, f3, i1, vcfg, 1.0),
         "photon_pack": (bufs, (0.0, 0.0, 0.0), 0.1, 7, None),
         "photon_table": (torch.zeros((n, 8)), i1,
@@ -142,15 +148,13 @@ def test_wrappers_refuse_non_cuda_tensors(call):
         "vcm_eye_pass": (scene, cam, [0] * 12, bufs, None, None, i1, vcfg),
         "mega_eye_pass": (scene, cam, [0] * 22, bufs, None, f3, i1, vcfg),
         "uniform_keyed": (i1, i1, i1),
-        "render_unidirectional_batch": (
-            scene, i1, i1, [0.0] * 19, torch.zeros((2, 28),
-                                                   dtype=torch.int32)),
     }[call]
     k5 = dict(max_depth=4, use_mis=True, sample_environment=False,
               schedule="mega", air_priority=99)
-    kw = {"render_unidirectional": k5, "render_unidirectional_batch": k5,
+    kw = {"render_unidirectional": k5,
           "bdpt_walk": dict(mode="light", max_depth=2, rays=i1),
           "bdpt_connect": dict(px=i1, py=i1),
+          "bdpt_pairs": dict(px=i1, py=i1),
           "vcm_eye": dict(px=i1, py=i1, merge_radius=0.1, eta_vcm=1.0,
                           merge_norm=1.0, one_brick=True,
                           reweight=True),
@@ -169,7 +173,7 @@ def test_wrappers_refuse_non_cuda_tensors(call):
     with pytest.raises(ValueError, match="CUDA"):
         getattr(kernels, call)(*meta, **kw)
     assert kernels.launches[{"rgb9e5_roundtrip": "rgb9e5",
-                             "render_unidirectional_batch": "uni_mega_batch",
+                             "bdpt_connect": "bdpt_pairs",
                              "vcm_eye_pass": "vcm_eye_walk",
                              "mega_eye_pass": "mega_eye_walk"
                              }.get(call, call)] == 0
@@ -395,8 +399,10 @@ def test_bdpt_kernels_match_plain(cuda, name, flags):
     chip_smoke.compare_bdpt(sc, cam, px, py, cfg,
                             bdpt.sample_keys(rng.base_key(), 2),
                             f"{name} {flags}", eta_vcm=eta)
+    # K13's stages once each, then once more as the composed pass
     assert (kernels.launches["bdpt_walk"], kernels.launches["bdpt_splat"],
-            kernels.launches["bdpt_connect"]) == (2, 1, 1)
+            kernels.launches["bdpt_pairs"],
+            kernels.launches["bdpt_gather"]) == (2, 1, 2, 2)
 
 
 @pytest.mark.cuda
@@ -413,7 +419,8 @@ def test_bdpt_golden_on_card(cuda):
         li, rays = bdpt.render_sample(sc, cam, rng.base_key(), s, px, py,
                                       cfg=cfg)
         acc += li
-    assert kernels.launches["bdpt_connect"] == 8
+    assert kernels.launches["bdpt_pairs"] == 8
+    assert kernels.launches["bdpt_gather"] == 8
     golden = np.load(os.path.join(os.path.dirname(os.path.abspath(
         __file__)), "golden", "cornell_bdpt_16x16_8spp.npy"))
     err = np.sqrt(np.mean(((acc / 8).cpu().numpy() - golden) ** 2))
@@ -747,8 +754,8 @@ def test_naive_matches_plain(cuda, name):
 @pytest.mark.cuda
 @pytest.mark.parametrize("schedule", ["mega", "classic", "naive"])
 def test_k5_batch_mode_bit_equal_to_singles(cuda, schedule):
-    """One launch of K5's k-sample mode (3 samples from sample 2) against
-    three single launches summed in sample order: radiance and rays
+    """One launch of K5 with k = 3 (3 samples from sample 2) against three
+    launches of one sample summed in sample order: radiance and rays
     bit-equal."""
     sc, _ = build_scene(builtin.cornell_with_spheres(), builtin_materials(),
                         device=cuda)
@@ -759,7 +766,8 @@ def test_k5_batch_mode_bit_equal_to_singles(cuda, schedule):
     kernels.reset_launches()
     li, rays = uni.render_batch_kernel(sc, cam, rng.base_key(), 2, px, py, 3,
                                        **kw)
-    assert kernels.launches["uni_mega_batch"] == 1
+    assert kernels.launches["naive" if schedule == "naive"
+                            else "render_unidirectional"] == 1
     assert sum(kernels.launches.values()) == 1
     acc = torch.zeros_like(li)
     total = 0
@@ -772,10 +780,44 @@ def test_k5_batch_mode_bit_equal_to_singles(cuda, schedule):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("schedule", ["mega", "classic", "naive"])
+@pytest.mark.parametrize("traversal", ["bvh8", "threaded"])
+def test_k5_result_independent_of_grid(cuda, schedule, traversal):
+    """K5 with path regeneration: 2 samples on the resident grid, on one
+    block and on one block per SM give bit-equal radiance, rays and rows;
+    the lane counters count every event (the closest rays of the naive
+    schedule), at most 32 a warp's call of the event code and a warp's
+    busiest lane's event."""
+    sc, _ = build_scene(builtin.cornell_with_spheres(), builtin_materials(),
+                        traversal=traversal, device=cuda)
+    cam = Camera.pinhole((0.0, 0.0, 1.0), 96, 64, 0.0, 0.0, 0.0, 60.0)
+    px, py = _grid(96, 64, cuda)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    outs = []
+    for grid in (None, 1, sms):
+        lanes = torch.zeros(3, dtype=torch.int64, device=cuda)
+        outs.append(kernels.render_unidirectional(
+            sc, px, py, cam.kernel_params(), rng.base_key(), 3, 2,
+            max_depth=6,
+            use_mis=schedule != "naive", sample_environment=False,
+            schedule=schedule, air_priority=sc.air_priority, with_rows=True,
+            grid=grid, lanes=lanes) + (lanes.tolist(),))
+    for li, rays, rows, _ in outs[1:]:
+        assert torch.equal(li.view(torch.int32), outs[0][0].view(torch.int32))
+        assert torch.equal(rays, outs[0][1]) and torch.equal(rows, outs[0][2])
+    events, busiest, calls = outs[0][3]
+    assert 0 < events <= 32 * busiest and events <= 32 * calls
+    if schedule == "naive":
+        assert events == int(outs[0][1].sum())
+    assert kernels.render_unidirectional_grid(sc, px.shape[0], schedule) \
+        >= 1
+
+
+@pytest.mark.cuda
 def test_renderer_batch_is_one_k5_launch(cuda, tmp_path):
-    """Through Renderer on the card, 5 samples at 2 per dispatch: two
-    k-sample launches and one single launch, and the image of 1 per
-    dispatch within float association (rays equal)."""
+    """Through Renderer on the card, 5 samples at 2 per dispatch: three K5
+    launches (k = 2, 2, 1), and the image of 1 per dispatch within float
+    association (rays equal)."""
     from cudapathtracer_tpu_torch.driver import Renderer
     from cudapathtracer_tpu_torch.utils.config import MeshConfig, RenderConfig
 
@@ -787,8 +829,7 @@ def test_renderer_batch_is_one_k5_launch(cuda, tmp_path):
     kernels.reset_launches()
     r2 = Renderer(cfg(2), device="cuda")
     r2.render(progressive=False, verbose=False)
-    assert (kernels.launches["uni_mega_batch"],
-            kernels.launches["render_unidirectional"]) == (2, 1)
+    assert kernels.launches["render_unidirectional"] == 3
     r1 = Renderer(cfg(1), device="cuda")
     r1.render(progressive=False, verbose=False)
     assert r1.metrics.rays_traced == r2.metrics.rays_traced
@@ -955,8 +996,8 @@ def test_threaded_scene_runs_k15(cuda):
     for scene in (sc, s8):
         for sched in ("classic", "mega"):
             rows[scene.traversal, sched] = kernels.render_unidirectional(
-                scene, px, py, cam.kernel_params(),
-                uni.kernel_keys(rng.base_key(), 0), max_depth=6,
+                scene, px, py, cam.kernel_params(), rng.base_key(), 0, 1,
+                max_depth=6,
                 use_mis=True, sample_environment=False, schedule=sched,
                 air_priority=scene.air_priority, with_rows=True)[2]
     assert not torch.equal(rows["threaded", "classic"],

@@ -1,10 +1,12 @@
 #!/usr/bin/env python3
-"""Where the VCM eye passes spend their time, on one GPU.
+"""Where the staged kernels spend their time, and A/B runs of two trees,
+on one GPU.
 
 Times one 1920x1080 sample's eye pass of the PyTorch port by CUDA events,
 on fixed light buffers and photon grids (sample 0 of the ~82k-triangle
 Cornell + bunny scene at configs/cornell.rendertron's depths: eye 8,
-light 6), with the pass's strategy switches turned off in turn:
+light 6), with the pass's strategy switches turned off in turn
+(--toggles, the default when no other part is asked for):
 
   * the classic VCM pass (kernels.vcm_eye): everything on; no
     connections; no merge; no NEE; connections and merge off together
@@ -19,19 +21,46 @@ light 6), with the pass's strategy switches turned off in turn:
     traversal="threaded" (the threaded instantiation), same toggles.
 
 A toggled run changes the estimator: it is timed, never compared. It
-prints ptxas' registers, stack frame and spill bytes of every eye-pass
-instantiation of the build (the library is rebuilt with -Xptxas=-v).
---bit-equal prints K14's bit-equal pixel share against its plain version
-(the tree's chip_smoke.compare_mega, 1080p, three flavours); --renders
-times the eye-pass paths through driver.Renderer (Mrays/s and the peak
-memory rise: renders()).
-The wrappers' signatures are the same on either design of the passes, so
---root may name another checkout of the repository (its package is
-imported and its kernels built there), which lets one call time two trees
-in turns. Run from the repository root:
+prints ptxas' registers, stack frame and spill bytes of every eye-pass,
+K5 and K13 instantiation of the build (the library is rebuilt with
+-Xptxas=-v). The other parts:
 
-    python3 tools/eye_attribution.py [--root DIR] [--reps 2]
-        [--bit-equal] [--renders] [--json chiprun_out/eye_attribution.json]
+  * --bit-equal prints K14's bit-equal pixel share against its plain
+    version (the tree's chip_smoke.compare_mega, 1080p, three flavours);
+  * --renders times the cells (renders(); --cells REGEX keeps those whose
+    name it matches): Mrays/s over a render, one sample's device ms by
+    CUDA events (a batch's over its samples at more than one a dispatch)
+    and the peak memory rise, through driver.Renderer for bdpt-, mega-,
+    classic-, naive-, vcm-, sppm-, vcm-mega-, sppm-mega- and
+    bdpt-mega-1080p (4 spp), uni-mega-256 and naive-256 on cornell_blocks
+    at 1 and 8 samples a dispatch (--spp-256 samples),
+    configs/vcm_caustics.rendertron as shipped with either engine, and
+    through render_sample on the threaded scene (no config key selects
+    it) for BDPT, K5 classic, VCM and SPPM; and K13 (kernels.bdpt_connect)
+    and one K5 mega sample alone at 1080p ("1080p alone");
+  * --dump DIR writes the outputs whose bits a redesign of K5 or K13 must
+    not move: K5's radiance, rays and rows for the mega, classic and naive
+    schedules on the 1080p bunny scene built for BVH8 and for the threaded
+    engine, with k = 1 and k = 8 samples a launch (sample 0 on), and
+    K13's radiance, rays and rows on the tree's K12 walks of sample 0 at
+    eye 8 and light 6, without a frame buffer and with a fixed one;
+    --compare A B then prints, case by case, whether two dumps are
+    bit-equal;
+  * --per P [P ...] times K13's pair stage with P pairs a thread
+    (kernels.bdpt_pairs(per=P)) on both scenes, and checks that the
+    terms, rays and rows do not depend on P.
+
+It uses only entry points whose signatures both designs of a redesigned
+kernel share (or tells them apart), so --root may name another checkout
+of the repository (its package is imported and its kernels built there),
+which lets one call time two trees in turns (parent, change, change,
+parent). Every line names the card and its power limit. Run from the
+repository root:
+
+    python3 tools/eye_attribution.py [--root DIR] [--toggles] [--reps 2]
+        [--bit-equal] [--renders [--cells REGEX] [--spp-256 N]]
+        [--dump DIR] [--per 1 6 42] [--json FILE]
+    python3 tools/eye_attribution.py --compare DUMP_A DUMP_B
 """
 
 from __future__ import annotations
@@ -43,9 +72,10 @@ import os
 import re
 import subprocess
 import sys
+import time
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-WIDTH, HEIGHT = 1920, 1080
+WIDTH, HEIGHT, SPP, DEPTH = 1920, 1080, 4, 8
 CLASSIC_TOGGLES = {"all on": {}, "no connections": dict(connection=False),
                    "no merge": dict(do_merge=False), "no NEE": dict(nee=False),
                    "bare walk": dict(connection=False, do_merge=False)}
@@ -54,7 +84,7 @@ BDPT_TOGGLES = {"all on": {}, "no connections (bare walk)":
                 dict(connection=False), "no NEE": dict(nee=False)}
 
 
-def _events_ms(fn, reps: int) -> float:
+def _events_ms(fn, reps: int = 3) -> float:
     import torch
     fn()
     torch.cuda.synchronize()
@@ -69,9 +99,11 @@ def _events_ms(fn, reps: int) -> float:
 
 def ptxas_eye(log: str) -> dict:
     """{entry: (registers, stack bytes, spill stores, spill loads)} of the
-    eye-pass kernels in a ptxas -v report."""
+    eye-pass, K5 and K13 kernels in a ptxas -v report."""
     out = {}
-    for m in re.finditer(r"Compiling entry function '([^']*eye[^']*)'"
+    for m in re.finditer(r"Compiling entry function "
+                         r"'([^']*(?:eye|uni_mega|bdpt_pairs|bdpt_gather)"
+                         r"[^']*)'"
                          r".*?(\d+) bytes stack frame, (\d+) bytes spill "
                          r"stores, (\d+) bytes spill loads.*?Used (\d+) "
                          r"registers", log, re.S):
@@ -238,83 +270,243 @@ def bit_equal_shares(root: str, scene, cam, px, py, cfg0, log=print):
     return out
 
 
-def renders(cfg0, tsc, cam, px, py, spp: int = 4, log=print) -> dict:
-    """Mrays/s (rays over the render phase) and the peak memory rise of
-    the eye-pass paths through driver.Renderer: VCM and SPPM with Engine
-    classic and with the mega engine and BIDIRECTIONAL's mega engine on
-    the 1080p bunny scene at spp samples, configs/vcm_caustics.rendertron
-    as shipped with either engine (its own samples and dispatch), and
-    classic VCM and SPPM on the threaded scene tsc through render_sample
-    (no config key selects it). Each path renders one sample first (not
-    counted)."""
-    import time
+def k5(scene, cam, px, py, schedule: str, s0: int, k: int):
+    """K5 over samples s0..s0+k-1: (li, rays, rows) through the tree's own
+    entry (one entry for any k that derives the keys on the card, or the
+    older single and k-sample entries that take host key words)."""
+    from cudapathtracer_tpu_torch import kernels
+    from cudapathtracer_tpu_torch.utils import rng
+    kw = dict(max_depth=DEPTH, use_mis=schedule != "naive",
+              sample_environment=False, schedule=schedule,
+              air_priority=scene.air_priority, with_rows=True)
+    if hasattr(kernels, "render_unidirectional_batch"):   # older design
+        from cudapathtracer_tpu_torch.models import unidirectional
+        keys = [unidirectional.kernel_keys(rng.base_key(), s)
+                for s in range(s0, s0 + k)]
+        if k == 1:
+            return kernels.render_unidirectional(
+                scene, px, py, cam.kernel_params(), keys[0], **kw)
+        return kernels.render_unidirectional_batch(
+            scene, px, py, cam.kernel_params(),
+            kernels.upload_words(keys, px.device), **kw)
+    return kernels.render_unidirectional(scene, px, py, cam.kernel_params(),
+                                         rng.base_key(), s0, k, **kw)
+
+
+def k13_inputs(scene, cam, px, py, bcfg):
+    """Sample 0's K12 walks (light and eye) and the connection key."""
     import torch
+    from cudapathtracer_tpu_torch import kernels
+    from cudapathtracer_tpu_torch.models import bdpt, paths
+    from cudapathtracer_tpu_torch.utils import rng
+    key_l, key_e, key_c = bdpt.sample_keys(rng.base_key(), 0)
+    n = px.shape[0]
+    zero = lambda: torch.zeros(n, dtype=torch.int32, device=px.device)
+    lw = kernels.bdpt_walk(scene, px, py, paths.walk_keys(key_l, "light"),
+                           mode="light", max_depth=bcfg.light_depth,
+                           rays=zero())
+    ew = kernels.bdpt_walk(scene, px, py, paths.walk_keys(key_e, "eye"),
+                           mode="eye", max_depth=bcfg.eye_depth, rays=zero(),
+                           camera=cam)
+    return lw, ew, key_c
+
+
+def dump(path: str, scenes: dict, cam, px, py, bcfg, log) -> None:
+    """Write the bit-equality cases of K5 and K13 (torch.save, one file a
+    case)."""
+    import torch
+    from cudapathtracer_tpu_torch import kernels
+    os.makedirs(path, exist_ok=True)
+    n = px.shape[0]
+    for eng, sc in scenes.items():
+        for sched in ("mega", "classic", "naive"):
+            for k in (1, 8):
+                li, rays, rows = k5(sc, cam, px, py, sched, 0, k)
+                torch.save(dict(li=li.cpu(), rays=rays.cpu(),
+                                rows=rows.cpu()),
+                           os.path.join(path, f"k5_{eng}_{sched}_k{k}.pt"))
+                log(f"[ab] dumped K5 {eng} {sched} k={k}: "
+                    f"{int(rays.sum())} rays")
+        lw, ew, key_c = k13_inputs(sc, cam, px, py, bcfg)
+        gen = torch.Generator().manual_seed(7)
+        fixed = torch.rand((n, 3), generator=gen).to(px.device)
+        for tag, fb in (("nofb", None), ("fb", fixed)):
+            rays = torch.zeros(n, dtype=torch.int32, device=px.device)
+            out, rows = kernels.bdpt_connect(sc, cam, key_c, ew, lw, fb, rays,
+                                             bcfg, px=px, py=py,
+                                             with_rows=True)
+            torch.save(dict(li=out.cpu(), rays=rays.cpu(), rows=rows.cpu()),
+                       os.path.join(path, f"k13_{eng}_{tag}.pt"))
+            log(f"[ab] dumped K13 {eng} {tag}: {int(rays.sum())} rays")
+        del lw, ew
+
+
+def compare(a: str, b: str) -> int:
+    """Case by case: bit-equal li, rays and rows, or how far apart; the
+    number of cases that differ."""
+    import torch
+    bad, names = 0, sorted(os.listdir(a))
+    if not names:
+        print(f"[ab] no cases in {a}")
+        return 1
+    for name in names:
+        x = torch.load(os.path.join(a, name))
+        y = torch.load(os.path.join(b, name))
+        li_eq = (x["li"].view(torch.int32) == y["li"].view(torch.int32))
+        pix = li_eq.all(dim=1).float().mean().item()
+        same = (bool(li_eq.all()) and torch.equal(x["rays"], y["rays"])
+                and torch.equal(x["rows"], y["rows"]))
+        bad += not same
+        print(f"[ab] {name[:-3]}: {'bit-equal' if same else 'DIFFERS'} "
+              f"(pixels bit-equal {pix:.6f}, rays {int(x['rays'].sum())} / "
+              f"{int(y['rays'].sum())}, rows {int(x['rows'].sum())} / "
+              f"{int(y['rows'].sum())}, max |dli| "
+              f"{(x['li'] - y['li']).abs().max().item():.3g})", flush=True)
+    print(f"[ab] {bad} case(s) differ")
+    return bad
+
+
+def renders(cfg0, scenes: dict, cam, px, py, bcfg, log=print,
+            cells: str = "", spp_256: int = 256) -> dict:
+    """Mrays/s (rays over the render phase), one sample's device ms and
+    the peak memory rise of the cells whose name matches the regular
+    expression `cells` (the module's docstring lists them)."""
+    import torch
+    from cudapathtracer_tpu_torch import kernels
     from cudapathtracer_tpu_torch.driver import Renderer
-    from cudapathtracer_tpu_torch.models import vcm
+    from cudapathtracer_tpu_torch.models import bdpt, unidirectional, vcm
+    from cudapathtracer_tpu_torch.utils import rng
     from cudapathtracer_tpu_torch.utils.config import MeshConfig, load_config
     from cudapathtracer_tpu_torch.utils.metrics import RenderMetrics
-    from cudapathtracer_tpu_torch.utils import rng
     res = {}
 
-    def measure(tag, r, cfg):
-        r.cfg = cfg.normalized()
-        r.render_sample(0)
-        torch.cuda.synchronize()
+    def note(tag, how, rays, secs, ms, rise):
+        res[tag] = dict(rays=rays, seconds=secs, mrays=rays / secs / 1e6,
+                        sample_ms=ms, peak_rise_gib=rise)
+        log(f"[ab] {tag}: {how}, {rays} rays in {secs:.3f} s = "
+            f"{rays / secs / 1e6:.3f} Mrays/s; one sample {ms:.3f} ms; "
+            f"peak rise {rise:.3f} GiB")
+
+    def through_renderer(tag, cfg):
+        if not re.search(cells, tag):
+            return
+        r = Renderer(cfg, device="cuda")
+        k = r.cfg.samples_per_dispatch or 1
+        one = ((lambda: r.render_batch(0, k)) if k > 1
+               else (lambda: r.render_sample(0)))
+        ms = _events_ms(one) / k
         r.accum.zero_()
         r.sample_count, r.metrics = 0, RenderMetrics()
+        torch.cuda.synchronize()
         base = torch.cuda.memory_allocated()
         torch.cuda.reset_peak_memory_stats()
         r.render(progressive=False, verbose=False)
         torch.cuda.synchronize()
-        rays, secs = r.metrics.rays_traced, r.metrics.render_seconds
         rise = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
-        res[tag] = dict(rays=rays, seconds=secs, mrays=rays / secs / 1e6,
-                        peak_rise_gib=rise)
-        log(f"[attribution] {tag}: {r.cfg.sample_count} spp, {rays} rays in "
-            f"{secs:.3f} s = {rays / secs / 1e6:.3f} Mrays/s, peak rise "
-            f"{rise:.3f} GiB")
+        note(tag, f"{r.cfg.sample_count} spp at {k} a dispatch",
+             r.metrics.rays_traced, r.metrics.render_seconds, ms, rise)
+        del r
+
+    def through_render_sample(tag, fn):
+        if not re.search(cells, tag):
+            return
+        ms = _events_ms(lambda: fn(0))
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        rays = 0
+        for s in range(SPP):
+            rays = rays + fn(s)[1]
+        rays = int(rays)
+        secs = time.perf_counter() - t0
+        rise = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+        note(tag, f"{SPP} spp through render_sample", rays, secs, ms, rise)
 
     bunny = [MeshConfig("builtin:cornell_bunny", 1.0, (0.0, 0.0, 0.0), 2)]
     c1080 = dataclasses.replace(cfg0, width=WIDTH, height=HEIGHT,
-                                sample_count=spp, meshes=bunny)
-    r = Renderer(c1080, device="cuda")
+                                sample_count=SPP, meshes=bunny,
+                                max_depth=DEPTH, samples_per_dispatch=1)
     for tag, integ, engine in (
+            ("bdpt-1080p", "BIDIRECTIONAL", "classic"),
+            ("mega-1080p", "UNIDIRECTIONAL", "mega"),
+            ("classic-1080p", "UNIDIRECTIONAL", "classic"),
+            ("naive-1080p", "NAIVE_UNIDIRECTIONAL", "mega"),
             ("vcm-1080p", "VCM", "classic"), ("sppm-1080p", "SPPM", "classic"),
             ("vcm-mega-1080p", "VCM", "mega"),
             ("sppm-mega-1080p", "SPPM", "mega"),
             ("bdpt-mega-1080p", "BIDIRECTIONAL", "mega")):
-        measure(tag, r, dataclasses.replace(c1080, integrator=integ,
-                                            engine=engine))
-    del r
+        through_renderer(tag, dataclasses.replace(
+            c1080, integrator=integ, engine=engine))
+    blocks = [MeshConfig("builtin:cornell_blocks", 1.0, (0.0, 0.0, 0.0), 2)]
+    for integ, name in (("UNIDIRECTIONAL", "uni-mega-256"),
+                        ("NAIVE_UNIDIRECTIONAL", "naive-256")):
+        for spd in (1, 8):
+            through_renderer(f"{name} spd{spd}", dataclasses.replace(
+                cfg0, integrator=integ, engine="mega", width=256,
+                height=256, sample_count=spp_256, max_depth=DEPTH,
+                meshes=blocks, samples_per_dispatch=spd))
     caustics = load_config(os.path.join(ROOT, "configs",
                                         "vcm_caustics.rendertron"))
-    r = Renderer(caustics, device="cuda")
     for tag, engine in (("caustics-512", "classic"),
                         ("caustics-mega-512", "mega")):
-        measure(tag, r, dataclasses.replace(caustics, engine=engine))
-    del r
-    if tsc is not None:
-        for integ in ("VCM", "SPPM"):
-            cfg = vcm.VCMConfig.from_config(dataclasses.replace(
-                cfg0, integrator=integ, engine="classic").normalized())
-            vcm.render_sample(tsc, cam, rng.base_key(), 0, px, py, cfg=cfg)
-            torch.cuda.synchronize()
-            base = torch.cuda.memory_allocated()
-            torch.cuda.reset_peak_memory_stats()
-            t0 = time.perf_counter()
-            rays = 0
-            for s in range(spp):
-                rays = rays + vcm.render_sample(tsc, cam, rng.base_key(), s,
-                                                px, py, cfg=cfg)[1]
-            rays = int(rays)
-            secs = time.perf_counter() - t0
-            rise = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
-            tag = f"{integ.lower()}-threaded-1080p"
-            res[tag] = dict(rays=rays, seconds=secs, mrays=rays / secs / 1e6,
-                            peak_rise_gib=rise)
-            log(f"[attribution] {tag}: {spp} spp through render_sample, "
-                f"{rays} rays in {secs:.3f} s = {rays / secs / 1e6:.3f} "
-                f"Mrays/s, peak rise {rise:.3f} GiB")
+        through_renderer(tag, dataclasses.replace(caustics, engine=engine))
+    tsc = scenes["threaded"]
+    vcfg = {integ: vcm.VCMConfig.from_config(dataclasses.replace(
+        cfg0, integrator=integ, engine="classic").normalized())
+        for integ in ("VCM", "SPPM")}
+    for tag, fn in (
+            ("bdpt-threaded-1080p", lambda s: bdpt.render_sample(
+                tsc, cam, rng.base_key(), s, px, py, cfg=bcfg)),
+            ("classic-threaded-1080p", lambda s: unidirectional.render_sample(
+                tsc, cam, rng.base_key(), s, px, py, max_depth=DEPTH)),
+            ("vcm-threaded-1080p", lambda s: vcm.render_sample(
+                tsc, cam, rng.base_key(), s, px, py, cfg=vcfg["VCM"])),
+            ("sppm-threaded-1080p", lambda s: vcm.render_sample(
+                tsc, cam, rng.base_key(), s, px, py, cfg=vcfg["SPPM"]))):
+        through_render_sample(tag, fn)
+    if not re.search(cells, "1080p alone"):
+        return res
+    s8 = scenes["bvh8"]
+    lw, ew, key_c = k13_inputs(s8, cam, px, py, bcfg)
+    rays = torch.zeros(px.shape[0], dtype=torch.int32, device=px.device)
+    res["K13 ms"] = _events_ms(lambda: kernels.bdpt_connect(
+        s8, cam, key_c, ew, lw, None, rays, bcfg, px=px, py=py))
+    res["K5 mega ms"] = _events_ms(lambda: k5(s8, cam, px, py, "mega", 0, 1))
+    log(f"[ab] 1080p alone: K13 {res['K13 ms']:.3f} ms, K5 mega sample "
+        f"{res['K5 mega ms']:.3f} ms")
+    return res
+
+
+def per_pairs(scenes: dict, cam, px, py, bcfg, pers: list, log) -> dict:
+    """K13's pair stage at each per, both scenes: {engine: {per: ms}}."""
+    import torch
+    from cudapathtracer_tpu_torch import kernels
+    res = {}
+    n = px.shape[0]
+    for eng, sc in scenes.items():
+        lw, ew, key_c = k13_inputs(sc, cam, px, py, bcfg)
+        res[eng], ref = {}, None
+        for per in pers:
+            rays = torch.zeros(n, dtype=torch.int32, device=px.device)
+            rows = torch.zeros_like(rays)
+            terms = kernels.bdpt_pairs(sc, cam, key_c, ew, lw, rays, bcfg,
+                                       px=px, py=py, rows=rows, per=per)
+            out = (terms.view(torch.int32), rays, rows)
+            if ref is None:
+                ref = out
+            same = all(torch.equal(a, b) for a, b in zip(out, ref))
+            scratch = torch.zeros_like(rays)
+            res[eng][per] = _events_ms(lambda: kernels.bdpt_pairs(
+                sc, cam, key_c, ew, lw, scratch, bcfg, px=px, py=py,
+                per=per))
+            log(f"[ab] K13 pairs, {eng}, {per} pair(s) a thread: "
+                f"{res[eng][per]:.3f} ms; terms, rays and rows "
+                f"{'equal to' if same else 'DIFFER from'} per {pers[0]}'s")
+            if not same:
+                raise SystemExit(1)
+            del terms, out
+        del lw, ew, ref
     return res
 
 
@@ -322,13 +514,28 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("--root", default=ROOT, help="the checkout whose "
                     "package is imported and whose kernels are built")
+    ap.add_argument("--toggles", action="store_true", help="time the eye "
+                    "passes with each strategy off in turn (the default "
+                    "when no other part is asked for)")
     ap.add_argument("--reps", type=int, default=2)
     ap.add_argument("--json", default=None)
     ap.add_argument("--renders", action="store_true", help="also time the "
-                    "eye-pass paths through driver.Renderer (renders())")
+                    "cells (renders())")
+    ap.add_argument("--cells", default="", help="with --renders: the cells "
+                    "whose name this regular expression matches")
+    ap.add_argument("--spp-256", type=int, default=256)
     ap.add_argument("--bit-equal", action="store_true", help="also print "
                     "K14's bit-equal share through the tree's chip_smoke")
+    ap.add_argument("--dump", default=None, help="write K5's and K13's "
+                    "bit-equality cases into this directory")
+    ap.add_argument("--compare", nargs=2, default=None, help="compare two "
+                    "dumps case by case (needs no GPU)")
+    ap.add_argument("--per", type=int, nargs="+", default=None)
     args = ap.parse_args()
+    if args.compare:
+        return 1 if compare(*args.compare) else 0
+    toggles = args.toggles or not (args.renders or args.bit_equal
+                                   or args.dump or args.per)
     root = os.path.abspath(args.root)
     sys.path.insert(0, root)
     import torch
@@ -336,6 +543,7 @@ def main() -> int:
         print("FAIL: needs an NVIDIA GPU")
         return 2
     from cudapathtracer_tpu_torch import kernels
+    from cudapathtracer_tpu_torch.models import bdpt
     from cudapathtracer_tpu_torch.scene import builtin
     from cudapathtracer_tpu_torch.scene.camera import Camera
     from cudapathtracer_tpu_torch.scene.materials import builtin_materials
@@ -349,9 +557,12 @@ def main() -> int:
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
                           text=True, timeout=60).stdout.strip()
-    print(f"[attribution] {card}; tree {root}", flush=True)
+    log = lambda m: print(f"{m} ({card})", flush=True)
+    t0 = time.perf_counter()
     with open(kernels.build(verbose=True) + ".ptxas.txt") as f:
         regs = ptxas_eye(f.read())
+    print(f"[attribution] {card}; tree {root}: kernels ready in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
     for name, (r, st, ss, sl) in sorted(regs.items()):
         print(f"[attribution] ptxas {name}: {r} registers, {st} bytes stack "
               f"frame, {ss} bytes spill stores, {sl} bytes spill loads")
@@ -363,16 +574,24 @@ def main() -> int:
                                          device=dev), indexing="ij")
     px, py = gx.reshape(-1).contiguous(), gy.reshape(-1).contiguous()
     mesh = builtin.cornell_with_bunny(subdivisions=6)
-    scene, _ = build_scene(mesh, builtin_materials(), device=dev)
-    tsc, _ = build_scene(mesh, builtin_materials(), traversal="threaded",
-                         device=dev)
+    scenes = {t: build_scene(mesh, builtin_materials(), traversal=t,
+                             device=dev)[0] for t in ("bvh8", "threaded")}
     cfg0 = load_config(os.path.join(ROOT, "configs", "cornell.rendertron"))
-    out = dict(card=card, tree=root, ptxas=regs,
-               ms=attribution(scene, tsc, cam, px, py, cfg0, args.reps))
+    bcfg = bdpt.BDPTConfig.from_config(cfg0)
+    out = dict(card=card, tree=root, ptxas=regs)
+    if toggles:
+        out["ms"] = attribution(scenes["bvh8"], scenes["threaded"], cam, px,
+                                py, cfg0, args.reps)
     if args.bit_equal:
-        out["bit_equal"] = bit_equal_shares(root, scene, cam, px, py, cfg0)
+        out["bit_equal"] = bit_equal_shares(root, scenes["bvh8"], cam, px,
+                                            py, cfg0)
+    if args.dump:
+        dump(args.dump, scenes, cam, px, py, bcfg, log)
     if args.renders:
-        out["renders"] = renders(cfg0, tsc, cam, px, py)
+        out["renders"] = renders(cfg0, scenes, cam, px, py, bcfg, log,
+                                 args.cells, args.spp_256)
+    if args.per:
+        out["per"] = per_pairs(scenes, cam, px, py, bcfg, args.per, log)
     if args.json:
         os.makedirs(os.path.dirname(os.path.abspath(args.json)),
                     exist_ok=True)

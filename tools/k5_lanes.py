@@ -1,0 +1,201 @@
+#!/usr/bin/env python3
+"""How busy K5's lanes are: events per path, and the lane use of warps.
+
+K5 (kernels/csrc/uni_mega.cu) steps a path one event (one closest ray and
+its shading) at a time, and a path takes 1 to 133 events. If one thread
+owned one pixel's path, a warp would run as long as its longest path, so
+its lane use would be
+
+    sum of events / (32 x sum over warps of the warp's most events),
+
+with warps of 32 consecutive pixels (and the same with blocks of 128
+threads, which hold their SM's slot as long). This tool counts each
+path's events from K5's plain version (models/unidirectional.render_plain
+for the classic and mega schedules, models/naive.render_plain for the
+naive one: the kernel's keyed draws, so the kernel's own counts on the
+classic and naive schedules; the mega schedule keys its draws by the
+path's position in the pixel list, which is the full frame's only when
+every row is given) over evenly spaced bands of full rows, and prints that
+lane use. With --card it also launches K5 on the whole frame with its
+lane counters (kernels.render_unidirectional(lanes=...)) and prints what
+the card measured with path regeneration: the lane use, events stepped /
+(32 x the warps' calls of the event code, the lanes that call it together
+counting once), and the event balance, events stepped / (32 x the sum
+over warps of the most events one lane stepped). Under regeneration every
+lane draws pixels until they run out, so the event balance is near 1 by
+design; the lane use also shows lanes that step their events apart.
+
+Run from the repository root (the plain version on the CPU is slow: a few
+bands of a 1080p frame take minutes; --device cuda runs it on the card):
+
+    python3 tools/k5_lanes.py [--schedule mega|classic|naive]
+        [--width 1920 --height 1080 --depth 8] [--bands 18 --band-rows 2]
+        [--mesh builtin:cornell_bunny] [--device cpu|cuda] [--card]
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import sys
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+MESHES = ("cornell_bunny", "cornell_blocks", "cornell_spheres")
+
+
+def band_rows(height: int, bands: int, rows: int) -> list:
+    """The first row of each of `bands` evenly spaced bands of `rows` rows
+    (every row's band when they cover the frame)."""
+    if bands * rows >= height:
+        return list(range(0, height, rows))
+    step = (height - rows) / max(bands - 1, 1)
+    return sorted({int(round(b * step)) for b in range(bands)})
+
+
+def band_pixels(width: int, height: int, bands: int, rows: int, device):
+    """(px, py) [N] int32 of the bands' pixels in raster order."""
+    import torch
+    starts = band_rows(height, bands, rows)
+    ys = sorted({y for s in starts for y in range(s, min(s + rows, height))})
+    gy, gx = torch.meshgrid(torch.tensor(ys, dtype=torch.int32),
+                            torch.arange(width, dtype=torch.int32),
+                            indexing="ij")
+    return gx.reshape(-1).to(device), gy.reshape(-1).to(device)
+
+
+def path_events(scene, camera, schedule: str, px, py, *, max_depth: int,
+                use_mis: bool = True, sample_idx: int = 0):
+    """Each path's events [N] int64 (in the order of px, py) from K5's
+    plain version, and the plain version's rays (a Python int)."""
+    import torch
+    from cudapathtracer_tpu_torch.models import naive, unidirectional
+    from cudapathtracer_tpu_torch.ops import traverse
+    from cudapathtracer_tpu_torch.utils import rng
+    events = torch.zeros(px.shape[0], dtype=torch.int64, device=px.device)
+    if schedule == "naive":
+        # one closest ray per live lane and bounce, over all lanes
+        mod, name = traverse, "closest_hit"
+
+        def hook(orig):
+            def closest_hit(scene, o, d, *a, active=None, **kw):
+                events.add_(active.to(torch.int64))
+                return orig(scene, o, d, *a, active=active, **kw)
+            return closest_hit
+    else:
+        # one _bounce per event, over the live paths s["lane"]
+        mod, name = unidirectional, "_bounce"
+
+        def hook(orig):
+            def bounce(scene, mats, skey, it, s, *a):
+                events.index_add_(0, s["lane"], torch.ones_like(s["lane"]))
+                return orig(scene, mats, skey, it, s, *a)
+            return bounce
+    orig = getattr(mod, name)
+    setattr(mod, name, hook(orig))
+    try:
+        if schedule == "naive":
+            _, rays = naive.render_plain(scene, camera, rng.base_key(),
+                                         sample_idx, px, py,
+                                         max_depth=max_depth)
+        else:
+            _, rays = unidirectional.render_plain(
+                scene, camera, rng.base_key(), sample_idx, px, py,
+                max_depth=max_depth, use_mis=use_mis,
+                sample_environment=False, schedule=schedule)
+    finally:
+        setattr(mod, name, orig)
+    return events, int(rays)
+
+
+def lane_use(events, group: int) -> float:
+    """sum(events) / (group x sum over groups of `group` consecutive paths
+    of the group's most events); the last group is padded with idle
+    lanes."""
+    import torch
+    pad = (-events.numel()) % group
+    ev = torch.cat([events, events.new_zeros(pad)]).view(-1, group)
+    return float(ev.sum()) / (group * float(ev.amax(dim=1).sum()))
+
+
+def card_lane_use(scene, camera, schedule: str, max_depth: int, dev) -> tuple:
+    """K5 on the whole frame with its lane counters: (lane use, event
+    balance, events, warp calls of the event code, blocks of the grid)."""
+    import torch
+    from cudapathtracer_tpu_torch import kernels
+    from cudapathtracer_tpu_torch.utils import rng
+    gy, gx = torch.meshgrid(
+        torch.arange(camera.height, dtype=torch.int32, device=dev),
+        torch.arange(camera.width, dtype=torch.int32, device=dev),
+        indexing="ij")
+    px, py = gx.reshape(-1).contiguous(), gy.reshape(-1).contiguous()
+    lanes = torch.zeros(3, dtype=torch.int64, device=dev)
+    kernels.render_unidirectional(
+        scene, px, py, camera.kernel_params(), rng.base_key(), 0, 1,
+        max_depth=max_depth,
+        use_mis=schedule != "naive", sample_environment=False,
+        schedule=schedule, air_priority=scene.air_priority, lanes=lanes)
+    events, busiest, calls = lanes.tolist()
+    return (events / (32 * calls), events / (32 * busiest), events, calls,
+            kernels.render_unidirectional_grid(scene, px.shape[0], schedule))
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__)
+    ap.add_argument("--schedule", default="mega",
+                    choices=("mega", "classic", "naive"))
+    ap.add_argument("--width", type=int, default=1920)
+    ap.add_argument("--height", type=int, default=1080)
+    ap.add_argument("--depth", type=int, default=8)
+    ap.add_argument("--bands", type=int, default=18)
+    ap.add_argument("--band-rows", type=int, default=2)
+    ap.add_argument("--mesh", default="builtin:cornell_bunny",
+                    choices=tuple("builtin:" + m for m in MESHES))
+    ap.add_argument("--device", default="cpu")
+    ap.add_argument("--card", action="store_true", help="also launch K5 "
+                    "on the whole frame on the card with its lane counter")
+    args = ap.parse_args()
+    sys.path.insert(0, ROOT)
+    import torch
+    from cudapathtracer_tpu_torch.scene import builtin
+    from cudapathtracer_tpu_torch.scene.camera import Camera
+    from cudapathtracer_tpu_torch.scene.materials import builtin_materials
+    from cudapathtracer_tpu_torch.scene.scene import build_scene
+    dev = torch.device(args.device)
+    mesh = {"builtin:cornell_bunny": lambda: builtin.cornell_with_bunny(6),
+            "builtin:cornell_blocks": builtin.cornell_with_blocks,
+            "builtin:cornell_spheres": builtin.cornell_with_spheres,
+            }[args.mesh]()
+    scene, _ = build_scene(mesh, builtin_materials(), device=dev)
+    cam = Camera.pinhole((0.0, 0.0, 1.0), args.width, args.height, 0.0, 0.0,
+                         0.0, 60.0)
+    px, py = band_pixels(args.width, args.height, args.bands, args.band_rows,
+                         dev)
+    ev, rays = path_events(scene, cam, args.schedule, px, py,
+                           max_depth=args.depth)
+    evf = ev.double()
+    print(f"[k5_lanes] {args.schedule}, {args.mesh} {args.width}x"
+          f"{args.height} depth {args.depth}, {args.bands} bands of "
+          f"{args.band_rows} rows: {ev.numel()} paths, {int(ev.sum())} "
+          f"events ({rays} rays); events a path mean {evf.mean():.3f}, p99 "
+          f"{torch.quantile(evf.cpu(), 0.99).item():.0f}, max "
+          f"{int(ev.max())}")
+    print(f"[k5_lanes] one path a thread: lane use {lane_use(ev, 32):.4f} "
+          f"(warps of 32), {lane_use(ev, 128):.4f} (blocks of 128)")
+    if args.card:
+        if not torch.cuda.is_available():
+            print("FAIL: --card needs an NVIDIA GPU")
+            return 2
+        cdev = torch.device("cuda", 0)
+        csc = scene if dev.type == "cuda" else build_scene(
+            mesh, builtin_materials(), device=cdev)[0]
+        use, balance, events, calls, blocks = card_lane_use(
+            csc, cam, args.schedule, args.depth, cdev)
+        print(f"[k5_lanes] card ({torch.cuda.get_device_name(0)}), whole "
+              f"frame, path regeneration on {blocks} blocks of 128: "
+              f"{events} events in {calls} warp calls of the event code, "
+              f"lane use {use:.4f}, event balance {balance:.4f}")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

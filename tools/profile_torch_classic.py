@@ -9,7 +9,8 @@ config's default) or classic, the unidirectional path at --depth, one
 launch per sample of the per-path megakernel K5; naive, the naive
 integrator (K5's naive schedule); bdpt, vcm or sppm, Integrator
 BIDIRECTIONAL / VCM / SPPM with Engine classic at the config's eye and
-light depths (the walks K12, the splat K11, the connections K13; or K12,
+light depths (the walks K12, the splat K11, the connections K13 in two
+launches; or K12,
 vcm_splat (not SPPM), photon_pack, torch.sort, photon_table and the VCM
 eye pass's three stages: walk, connections (not SPPM), gather);
 bdpt-mega, vcm-mega or sppm-mega, the same integrators with the default
@@ -50,11 +51,12 @@ import sys
 import time
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-LAYERS = (("K5 megakernel, k-sample mode", "uni_mega_batch_kernel"),
-          ("K5 megakernel", "uni_mega_kernel"),
+LAYERS = (("K5 megakernel", "uni_mega_kernel"),
+          ("K5 key table", "uni_mega_keys_kernel"),
           ("K12 BDPT walks", "bdpt_walk_kernel"),
           ("K11 splat (BDPT or VCM form)", "bdpt_splat_kernel"),
-          ("K13 BDPT connections", "bdpt_connect_kernel"),
+          ("K13 BDPT connection rays", "bdpt_pairs_kernel"),
+          ("K13 BDPT gather", "bdpt_gather_kernel"),
           ("K8 photon_pack", "photon_pack_kernel"),
           ("K8 sort (torch.sort)", "RadixSort"),
           ("K8 photon_table", "photon_table_kernel"),
