@@ -48,11 +48,18 @@ Phases (one line each; any failure exits non-zero before the result line):
      at the config's depths (eye 8, light 6), against the plain walks
      (compare_walk: at most 0.1% of lanes diverged, printed; `valid` and
      flags equal on the rest, each other field within its bound on >=
-     99.9% of the vertices); ray counts within 0.1%;
+     99.9% of the vertices); ray counts within 0.1%; K12's path
+     regeneration (walk_grids): the resident grid bit-equal, in every
+     output (the buffers' dead rows included, v0, the escape record, rays,
+     rows), to one block per SM, and the lane use and event balance the
+     card counted;
  12. K11 (bdpt_splat.cu) and 13. K13 (bdpt_pairs.cu, bdpt_gather.cu) on
      the kernel walk's buffers against their plain versions on the same
      buffers (compare_image: rays within 0.1%, image mean within 1e-3, >=
-     99.9% / 99.5% of pixels within rtol 1e-3; compare_k13: the pairs'
+     99.9% / 99.5% of pixels within rtol 1e-3; K11's rays equal the plain
+     count; K11's first stage against its twin, splat_queue_plain, with
+     every path and with n_live < N: the same entries in every screen
+     tile (splat_stages), each stage timed; compare_k13: the pairs'
      terms over the valid non-delta eye vertices and the gather on the
      kernel's terms against their plain twins, the composed pass with the
      splat's frame buffer against connect_plain, each at 99.5%; the pairs
@@ -72,8 +79,10 @@ Phases (one line each; any failure exits non-zero before the result line):
  16. the photon family (compare_vcm) on the VCM main path's sample
      (1920x1080 bunny, eye 8, light 6: 12,441,600 candidate photons, a
      table above 2^24 buckets): K12's light walk with eta_vcm, then
-     vcm_splat (K11's VCM form) and vcm_eye (K13's VCM form with the K9
-     merge, three stage kernels) against their plain versions on the same
+     vcm_splat (K11's VCM form, its rays equal the plain count, its first
+     stage against its twin as in phase 12) and vcm_eye (K13's VCM form
+     with the K9 merge, three stage kernels) against their plain versions
+     on the same
      buffers and grid (rays within 0.1%, image mean within 1e-3, >= 99.9% /
      99.5% of pixels within rtol 1e-3, dropped photons equal), then each
      stage against its plain twin on the same inputs (compare_eye_stages:
@@ -129,7 +138,8 @@ Phases (one line each; any failure exits non-zero before the result line):
      light walk of models/light_mega.py) bit-equal to its folded mode on
      chunk 0 of the 1080p mega partition (1,036,800 light paths), VCM and
      BDPT flavours, both timed, and against its plain version (the classic
-     walk drawing from the same tables; compare_walk, rays within 0.1%);
+     walk drawing from the same tables; compare_walk, rays within 0.1%),
+     and its path regeneration as in phase 11 (walk_grids);
  27. the batched main path: configs/vcm_caustics.rendertron as shipped
      (512x512, VCM-mega, 256 samples, 8 per dispatch by the auto rule)
      through cli.main with the checks on and a 1 s save interval, so
@@ -162,7 +172,8 @@ Phases (one line each; any failure exits non-zero before the result line):
      with the rows make the bound's operations;
  31. K5's classic and naive schedules on that scene (their threaded
      instantiations) against their plain versions at 1080p, 1 spp, under
-     phase 7's criteria;
+     phase 7's criteria; 31b. K12's threaded instantiation (the light walk
+     with and without eta_vcm, the eye walk) under phase 11's walk_grids;
  32. the threaded main path: each classic integrator (UNIDIRECTIONAL,
      NAIVE_UNIDIRECTIONAL, BIDIRECTIONAL, VCM, SPPM at the config's
      depths) through its render_sample on the threaded 1080p scene, 4 spp,
@@ -198,8 +209,11 @@ computes these functions), the card's name and power limit, and as the
 last line {"ok": true, "device": {...}}. The eye passes have a row each
 (vcm_eye, mega_eye: the pass, counted once a pass and timed as its
 three launches) and a row per stage (<pass>_walk, _connect, _gather);
-K13 a row per stage (bdpt_pairs, bdpt_gather); K5 (render_unidirectional,
-naive) its lane use and event balance on the 1080p sample (phase 7b).
+K13 a row per stage (bdpt_pairs, bdpt_gather), K11 a row per stage of
+each form (bdpt_splat_bin, _trace; vcm_splat_bin, _trace); K5
+(render_unidirectional, naive) its lane use and event balance on the
+1080p sample (phase 7b), K12 (bdpt_walk, bdpt_walk_table) theirs over
+the 1080p walks (phase 11) and the table mode's chunk (phase 26).
 """
 
 from __future__ import annotations
@@ -243,6 +257,14 @@ KERNELS = (  # name, source, the JAX function it replaces
      "cudapathtracer_tpu/models/bdpt.py:226"),
     ("vcm_splat", CSRC + "bdpt_splat.cu",
      "cudapathtracer_tpu/models/vcm.py:87"),
+    ("bdpt_splat_bin", CSRC + "bdpt_splat.cu",
+     "cudapathtracer_tpu/models/bdpt.py:93"),
+    ("bdpt_splat_trace", CSRC + "bdpt_splat.cu",
+     "cudapathtracer_tpu/models/bdpt.py:93"),
+    ("vcm_splat_bin", CSRC + "bdpt_splat.cu",
+     "cudapathtracer_tpu/models/vcm.py:87"),
+    ("vcm_splat_trace", CSRC + "bdpt_splat.cu",
+     "cudapathtracer_tpu/models/vcm.py:87"),
     ("photon_pack", CSRC + "photon_grid.cu",
      "cudapathtracer_tpu/ops/hashgrid.py:151"),
     ("photon_table", CSRC + "photon_grid.cu",
@@ -274,19 +296,23 @@ KERNELS = (  # name, source, the JAX function it replaces
     ("shadow_factor_bin", CSRC + "traverse_bin.cu",
      "cudapathtracer_tpu/ops/traverse.py:203"),
 )
-BDPT_KERNELS = ("bdpt_walk", "bdpt_splat", "bdpt_pairs", "bdpt_gather")
-PHOTON_KERNELS = ("vcm_splat", "photon_pack", "photon_table", "vcm_eye",
+BDPT_KERNELS = ("bdpt_walk", "bdpt_splat", "bdpt_splat_bin",
+                "bdpt_splat_trace", "bdpt_pairs", "bdpt_gather")
+PHOTON_KERNELS = ("vcm_splat", "vcm_splat_bin", "vcm_splat_trace",
+                  "photon_pack", "photon_table", "vcm_eye",
                   "vcm_eye_walk", "vcm_eye_connect", "vcm_eye_gather")
 # the mega engines' launches per chunk of a sample (K12, the splat, K8's
 # two launches, K14 and its stages; SPPM has no connection stage), by
 # integrator
 MEGA_KERNELS = {
-    "VCM": ("bdpt_walk", "vcm_splat", "photon_pack", "photon_table",
+    "VCM": ("bdpt_walk", "vcm_splat", "vcm_splat_bin", "vcm_splat_trace",
+            "photon_pack", "photon_table",
             "mega_eye", "mega_eye_walk", "mega_eye_connect",
             "mega_eye_gather"),
     "SPPM": ("bdpt_walk", "photon_pack", "photon_table", "mega_eye",
              "mega_eye_walk", "mega_eye_gather"),
-    "BIDIRECTIONAL": ("bdpt_walk", "bdpt_splat", "mega_eye", "mega_eye_walk",
+    "BIDIRECTIONAL": ("bdpt_walk", "bdpt_splat", "bdpt_splat_bin",
+                      "bdpt_splat_trace", "mega_eye", "mega_eye_walk",
                       "mega_eye_connect", "mega_eye_gather")}
 EYE_STAGES = ("walk", "connect", "gather")
 # The card's peaks (H100 SXM data sheet) for the
@@ -314,6 +340,9 @@ OPS_PER_CAMERA_RAY = 4 * OPS_PER_DRAW + 60
 # decodes, ~40); one codec round trip in packing.cu (~120)
 OPS_PER_WALK_VERTEX = 5 * OPS_PER_DRAW + 360
 OPS_PER_DECODE = 40
+# K11's first stage: a vertex's flag test, world_to_raster (~25) and its
+# tile (~10)
+OPS_PER_RASTER = 40
 OPS_PER_CODEC = 120
 # the photon grid (hashgrid.cuh, photon_grid.cu): one photon's oct decode
 # and encode (~70), half2 codes (~10), cell, hash and key (~20)
@@ -713,6 +742,110 @@ def compare_walk(k, p, what: str) -> tuple:
     return worst_pt
 
 
+def bits(t):
+    """A tensor's bits, as integers of its width (bool as is)."""
+    import torch
+    width = {4: torch.int32, 2: torch.int16, 1: torch.uint8, 8: torch.int64}
+    return t if t.dtype == torch.bool else t.view(width[t.element_size()])
+
+
+def walk_outputs(w, rays) -> dict:
+    """Every output of a K12 walk as bits: the buffers (dead rows
+    included), vertex 0, the escape record, rays and rows."""
+    out = {f"bufs.{f}": getattr(w["bufs"], f) for f in w["bufs"]._fields}
+    out.update({f"v0.{k}": v for k, v in w["v0"].items()})
+    if w["escape"] is not None:
+        out.update({f"escape.{f}": getattr(w["escape"], f)
+                    for f in ("valid", "d", "beta")})
+    out.update(rays=rays, rows=w["rows"])
+    return {k: bits(v) for k, v in out.items()}
+
+
+def walk_grids(scene, px, py, keys, what: str, sms: int, **kw) -> list:
+    """K12's path regeneration: the walk on its resident grid against the
+    walk on `sms` blocks (one a SM: each lane walks many more paths), every
+    output bit-equal (walk_outputs). kw: bdpt_walk's mode, max_depth,
+    camera, eta_vcm, key_table. Returns the resident run's lane counts
+    (bounces, the warps' busiest lanes, the warps' calls)."""
+    import torch
+    from cudapathtracer_tpu_torch import kernels
+    n, dev = px.shape[0], px.device
+    runs = {}
+    for grid in (None, sms):
+        lanes = torch.zeros(3, dtype=torch.int64, device=dev)
+        rays = torch.zeros(n, dtype=torch.int32, device=dev)
+        w = kernels.bdpt_walk(scene, px, py, keys, rays=rays, with_rows=True,
+                              lanes=lanes, grid=grid, **kw)
+        runs[grid] = (walk_outputs(w, rays), lanes.tolist())
+        del w
+    ref = runs[None][0]
+    diff = [k for k in ref if not torch.equal(ref[k], runs[sms][0][k])]
+    check(not diff, f"K12 {what}: the resident grid and {sms} blocks differ "
+          f"in {diff}")
+    (ev, busy, calls), (evs, busys, callss) = runs[None][1], runs[sms][1]
+    table = kw.get("key_table") is not None
+    say("K12", f"{what}: the resident grid "
+        f"({kernels.bdpt_walk_grid(scene, n, table)} blocks of 128) and "
+        f"{sms} blocks bit-equal in {len(ref)} outputs; {ev} bounces in "
+        f"{calls} warp calls: lane use {ev / (32 * calls):.4f}, event "
+        f"balance {ev / (32 * busy):.4f} (on {sms} blocks "
+        f"{evs / (32 * callss):.4f} and {evs / (32 * busys):.4f})")
+    return runs[None][1]
+
+
+def lane_stats(*lane_counts) -> dict:
+    """The kernel line's lane use and event balance over walks' lane
+    counts (bounces, busiest, calls) summed."""
+    ev, busy, calls = (sum(c[k] for c in lane_counts) for k in range(3))
+    return dict(lane_use=ev / (32 * calls), event_balance=ev / (32 * busy))
+
+
+def splat_stages(scene, cam, lbufs, lv0, cfg, what: str, eta_vcm=None,
+                 n_live=None) -> dict:
+    """K11's first stage (SplatPass.bin) against its plain twin
+    (bdpt.splat_queue_plain on the same buffers): the tile offsets equal,
+    and the same entries r N + i in every tile (the kernel's queue sorted
+    inside each tile equals the twin's); the rays it adds equal the
+    queue's length. Each stage timed by CUDA events, and the twin. ->
+    dict(bin_ms, trace_ms, twin_ms, queued, tiles, used tiles)."""
+    import torch
+    from cudapathtracer_tpu_torch import kernels
+    from cudapathtracer_tpu_torch.models import bdpt
+    n, dev = lbufs.pt.shape[1], lbufs.pt.device
+    rays = torch.zeros(n, dtype=torch.int32, device=dev)
+    fb = torch.zeros((cam.width * cam.height, 3), device=dev)
+    sp = kernels.splat_pass(scene, cam, lbufs, lv0, fb, rays, cfg,
+                            eta_vcm=eta_vcm, n_live=n_live)
+    sp.bin()
+    offs = sp.offsets.long()
+    count, tiles = int(offs[-1]), offs.numel() - 1
+    q = sp.queue[:count].long()
+    tile_of = torch.repeat_interleave(torch.arange(tiles, device=dev),
+                                      offs[1:] - offs[:-1])
+    span = (lbufs.pt.shape[0] + (lv0 is not None)) * n
+    kq = q[torch.argsort(tile_of * span + q)]
+    pq, poffs = bdpt.splat_queue_plain(cam, lbufs, lv0, n_live)
+    same = torch.equal(offs, poffs) and torch.equal(kq, pq)
+    if not same:
+        say("K11", f"{what}: stage 1 {count} entries, twin {pq.numel()}; "
+            f"{int((~torch.isin(kq, pq)).sum())} only in the kernel's, "
+            f"{int((~torch.isin(pq, kq)).sum())} only in the twin's; tiles "
+            f"with other counts {int((offs != poffs).sum())}")
+    check(same, f"K11 {what}: stage 1's queue differs from its twin's")
+    check(int(rays.sum()) == count, f"K11 {what}: stage 1 added "
+          f"{int(rays.sum())} rays for {count} queued vertices")
+    out = dict(queued=count, tiles=tiles,
+               used=int((offs[1:] > offs[:-1]).sum()),
+               bin_ms=cuda_ms(sp.bin, 5), trace_ms=cuda_ms(sp.trace, 5),
+               twin_ms=cuda_ms(lambda: bdpt.splat_queue_plain(
+                   cam, lbufs, lv0, n_live), 1))
+    say("K11", f"{what}: stage 1 bit-equal to its twin ({count} of {span} "
+        f"vertices queued in {out['used']} of {tiles} tiles, rays equal); "
+        f"classify and bin {out['bin_ms']:.3f} ms (twin "
+        f"{out['twin_ms']:.3f}), trace and splat {out['trace_ms']:.3f} ms")
+    return out
+
+
 def compare_image(k, p, what: str, tag: str, share: float) -> float:
     """Radiance or a frame buffer ((img, rays), (img, rays)) on the same
     inputs: rays within 0.1%, image mean within 1e-3, >= share of the
@@ -1032,6 +1165,8 @@ def compare_vcm(scene, cam, px, py, cfg, sample_idx: int, what: str) -> dict:
         out["err_splat"] = compare_image((fbk, int(srays.sum())),
                                          (fbp, prays), f"{what} vcm splat",
                                          "K11", 0.999)
+        check(int(srays.sum()) == prays, f"K11 {what}: vcm splat rays "
+              f"{int(srays.sum())} vs plain {prays}")
     kgrid = hashgrid.build_grid_kernel(lb, scene.scene_min, mr, salt)
     def pack_plain():
         rows, valid = hashgrid.photon_rows(lb)
@@ -1773,9 +1908,23 @@ def threaded_phases(card: str, stats: dict, cam, px, py, ids, cfg0) -> int:
                        f"{sched}")
     del k5, p5
 
+    # --- 31b. K12's threaded instantiation: the light walk (with and
+    # without VCM's d_vm chain) and the eye walk, the resident grid
+    # against one block per SM, bit-equal
+    from cudapathtracer_tpu_torch.models import paths
+    bcfg = bdpt.BDPTConfig.from_config(cfg0)
+    key_l, key_e, _ = bdpt.sample_keys(base, 0)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for mode, eta in (("light", None), ("light", VCM_ETA), ("eye", None)):
+        walk_grids(tsc, px, py,
+                   paths.walk_keys(key_l if mode == "light" else key_e, mode),
+                   f"threaded {mode} walk{' with eta_vcm' if eta else ''} "
+                   f"{WIDTH}x{HEIGHT}", sms, mode=mode,
+                   max_depth=bcfg.light_depth if mode == "light"
+                   else bcfg.eye_depth, camera=cam, eta_vcm=eta)
+
     # --- 32. every classic integrator on the threaded scene, against the
     # BVH8 engine of the same scene (its table collapsed from the same tree)
-    bcfg = bdpt.BDPTConfig.from_config(cfg0)
     vcfg = {i: vcm.VCMConfig.from_config(dataclasses.replace(
         cfg0, integrator=i, engine="classic").normalized())
         for i in ("VCM", "SPPM")}
@@ -1939,8 +2088,10 @@ def main() -> int:
     # engine; the gathers trace nothing
     engines = ("ILi0E", "ILi1E")
     for kname in (*(k + e for k in ("uni_mega_kernel", "bdpt_walk_kernel",
-                                    "bdpt_splat_kernel", "bdpt_pairs_kernel")
+                                    "splat_trace_kernel", "bdpt_pairs_kernel")
                     for e in engines), "bdpt_gather_kernel",
+                  "bdpt_walk_start_kernel", "splat_classify_kernel",
+                  "splat_scan_kernel", "splat_scatter_kernel",
                   *(k + e for k in ("eye_walk_kernel", "eye_connect_kernel")
                     for e in ("ILi0ELi0E", "ILi0ELi1E", "ILi1ELi0E",
                               "ILi2ELi0E")),
@@ -2368,6 +2519,13 @@ def main() -> int:
         krays = int(wrays[mode].sum())
         check(abs(krays - prays) <= 1e-3 * prays, f"K12 {mode}: rays "
               f"{krays} vs plain {prays}")
+    # path regeneration: the resident grid bit-equal to one block per SM,
+    # and the lanes the card counted
+    k12_lanes = {m: walk_grids(
+        scene, px, py, wkeys[m], f"{m} walk {WIDTH}x{HEIGHT}", sms, mode=m,
+        max_depth=bcfg.light_depth if m == "light" else bcfg.eye_depth,
+        camera=cam) for m in ("light", "eye")}
+    stats["bdpt_walk"].update(lane_stats(*k12_lanes.values()))
     wrows = int(kw["light"]["rows"].sum() + kw["eye"]["rows"].sum())
     wverts = int(kw["light"]["bufs"].valid.sum() + kw["eye"]["bufs"].valid.sum())
     tbytes = sum(t.numel() * 4 for t in (scene.bvh8_table, scene.tri_f32,
@@ -2411,9 +2569,29 @@ def main() -> int:
                           "vertices per light path", "K11", 0.999)
     say("K11", "two kernel runs on the same buffers (atomicAdd order): max "
         f"abs difference {(fbk - fbk2).abs().max().item():.3g}")
+    check(int(srays.sum()) == prays_s, f"K11: rays {int(srays.sum())} vs "
+          f"plain {prays_s}")
     fbt = torch.zeros((n, 3), device=dev)
     rst = torch.zeros(n, dtype=torch.int32, device=dev)
     lverts = bcfg.light_depth * n
+    # K11's stages: stage 1 against its twin, with every path and with
+    # n_live < N (a mega chunk's pads), each stage timed
+    st11 = splat_stages(scene, cam, lw["bufs"], lw["v0"], bcfg,
+                        f"splat {WIDTH}x{HEIGHT}")
+    splat_stages(scene, cam, lw["bufs"], lw["v0"], bcfg,
+                 f"splat {WIDTH}x{HEIGHT}, n_live {n - 100000}",
+                 n_live=n - 100000)
+    srows_n = int(srows.sum())
+    stats["bdpt_splat_bin"].update(
+        bound=bound_ms((bcfg.light_depth - 1) * n * 17 + n * (12 + 8)
+                       + st11["queued"] * 4 + st11["tiles"] * 8,
+                       lverts * OPS_PER_RASTER),
+        max_abs_err=0.0, ms=st11["bin_ms"], plain_ms=st11["twin_ms"])
+    stats["bdpt_splat_trace"].update(
+        bound=bound_ms(tbytes + st11["queued"] * (4 + VERTEX_BYTES + 12),
+                       srows_n * OPS_PER_ROW
+                       + st11["queued"] * OPS_PER_DECODE),
+        max_abs_err=err11, ms=st11["trace_ms"])
     stats["bdpt_splat"].update(
         bound=bound_ms(tbytes + (bcfg.light_depth - 1) * n * VERTEX_BYTES
                        + n * 44 + n * 12 + n * 4,
@@ -2424,6 +2602,7 @@ def main() -> int:
                                               lw["v0"], fbt, rst, bcfg), 5),
         plain_ms=cuda_ms(lambda: bdpt.light_trace_splat(
             scene, cam, lw["bufs"], lw["v0"], bcfg, fbt), 1, warmup=0))
+    stats["bdpt_splat_trace"]["plain_ms"] = stats["bdpt_splat"]["plain_ms"]
     say("K11", f"kernel {stats['bdpt_splat']['ms']:.3f} ms, plain "
         f"{stats['bdpt_splat']['plain_ms']:.3f} ms; {int(srays.sum())} "
         f"shadow rays, {int(srows.sum())} BVH8 rows; bound "
@@ -2589,6 +2768,19 @@ def main() -> int:
         max_abs_err=err_splat, plain_ms=plain_ms["vcm_splat"],
         ms=cuda_ms(lambda: kernels.vcm_splat(scene, cam, lb, fbt, rst, vmain,
                                              eta), 5))
+    st11 = splat_stages(scene, cam, lb, None, vmain,
+                        f"vcm splat {WIDTH}x{HEIGHT}", eta_vcm=eta)
+    stats["vcm_splat_bin"].update(
+        bound=bound_ms(vmain.light_depth * n * 17 + n * 8
+                       + st11["queued"] * 4 + st11["tiles"] * 8,
+                       vmain.light_depth * n * OPS_PER_RASTER),
+        max_abs_err=0.0, ms=st11["bin_ms"], plain_ms=st11["twin_ms"])
+    stats["vcm_splat_trace"].update(
+        bound=bound_ms(tbytes + st11["queued"] * (4 + VERTEX_BYTES + 12),
+                       int(srows.sum()) * OPS_PER_ROW
+                       + st11["queued"] * OPS_PER_DECODE),
+        max_abs_err=err_splat, ms=st11["trace_ms"],
+        plain_ms=plain_ms["vcm_splat"])
     stats["photon_pack"].update(
         bound=bound_ms(p * (35 + 44) + 8 * (tsize + 1),
                        p * OPS_PER_PHOTON),
@@ -2642,6 +2834,7 @@ def main() -> int:
         stage_errs(stats, "vcm_eye", cres["stages"])
         del cres
     stats["vcm_splat"]["max_abs_err"] = err_splat
+    stats["vcm_splat_trace"]["max_abs_err"] = err_splat
     stats["vcm_eye"]["max_abs_err"] = err_eye
     say("photon", f"K8, K9, K11 and K13's VCM forms held to their plain "
         f"versions in {time.perf_counter() - t0:.1f} s")
@@ -2659,7 +2852,8 @@ def main() -> int:
                                          cfg=gc)
             acc += li
         want = {k: 8 for k in PHOTON_KERNELS + ("bdpt_walk",)}
-        want["vcm_splat"] = 8 if gc.light_trace else 0
+        for k in ("vcm_splat", "vcm_splat_bin", "vcm_splat_trace"):
+            want[k] = 8 if gc.light_trace else 0
         want["vcm_eye_connect"] = 8 if gc.connection else 0
         check(all(kernels.launches[k] == v for k, v in want.items()),
               f"{gname} golden: launches {kernels.launches}")
@@ -2938,7 +3132,15 @@ def main() -> int:
             f"and {int(tr.sum())} rays bit-equal to the folded mode; table "
             f"mode {tb_ms[flavor][0]:.3f} ms, folded {tb_ms[flavor][1]:.3f} "
             f"ms ({card})")
+        # path regeneration in the table mode: the resident grid against
+        # one block per SM, bit-equal
+        tgrid = walk_grids(scene, pxc0, pyc0, paths.walk_keys(key_l0,
+                                                              "light"),
+                           f"table mode {flavor}, chunk 0", sms,
+                           mode="light", max_depth=depth_, eta_vcm=eta_,
+                           key_table=table)
         if flavor == "vcm":
+            stats["bdpt_walk_table"].update(lane_stats(tgrid))
             trows = int(tw["rows"].sum())
             tverts = int(tw["bufs"].valid.sum())
             stats["bdpt_walk_table"].update(
@@ -3005,7 +3207,8 @@ def main() -> int:
     r, bdpt_launches = render_path(
         main_cfg(integrator="BIDIRECTIONAL", engine="classic",
                  name="smoke_bdpt"), "bdpt", card,
-        {"bdpt_walk": 2 * SPP, "bdpt_splat": SPP, "bdpt_pairs": SPP,
+        {"bdpt_walk": 2 * SPP, "bdpt_splat": SPP, "bdpt_splat_bin": SPP,
+         "bdpt_splat_trace": SPP, "bdpt_pairs": SPP,
          "bdpt_gather": SPP, "render_unidirectional": 0})
     bcfg = bdpt.BDPTConfig.from_config(r.cfg)
 
@@ -3065,6 +3268,8 @@ def main() -> int:
         r, launches = render_path(
             cfg, tag, card,
             {"bdpt_walk": SPP, "vcm_splat": SPP if splat else 0,
+             "vcm_splat_bin": SPP if splat else 0,
+             "vcm_splat_trace": SPP if splat else 0,
              "photon_pack": SPP, "photon_table": SPP, "vcm_eye": SPP,
              "vcm_eye_walk": SPP, "vcm_eye_connect": SPP if splat else 0,
              "vcm_eye_gather": SPP, "mega_eye": 0, "bdpt_splat": 0,
@@ -3082,7 +3287,9 @@ def main() -> int:
     # at depth 8 (one launch a sample; its image is sparse: only paths that
     # reach the light by BSDF sampling are lit)
     none = {k: 0 for k in ("vcm_eye", "bdpt_pairs", "render_unidirectional",
-                           "naive", "vcm_splat", "bdpt_splat", "photon_pack",
+                           "naive", "vcm_splat", "bdpt_splat",
+                           "vcm_splat_bin", "vcm_splat_trace",
+                           "bdpt_splat_bin", "bdpt_splat_trace", "photon_pack",
                            "photon_table", "vcm_eye_walk", "vcm_eye_connect",
                            "vcm_eye_gather", "mega_eye_connect")}
     for tag, cfg, integ, chunks in (

@@ -5,14 +5,15 @@ and one .cuh of device code per TPU kernel, shared between them (K1
 traverse8.cuh, K15 traverse_bin.cuh (the threaded binary engine, whose
 batch entries are traverse_bin.cu), K7 camera.cuh, K2 shade.cuh, K3
 bsdf.cuh, K4 nee.cuh, K6 threefry.cuh, K10 packing.cuh, K12's MIS step
-mis.cuh, the BDPT bodies bdpt.cuh; the persistent megakernel K5,
-uni_mega.cu, and the BDPT kernels K11 bdpt_splat.cu, K12 bdpt_walk.cu and
-K13's two stages bdpt_pairs.cu and bdpt_gather.cu call them; the photon
-grid's hashgrid.cuh (K8-K10) serves K8 photon_grid.cu, K9's test entry
-neighbor_slots.cu and the VCM eye passes: the classic one (K13's VCM form
-with K9's fold; strategies in vcm.cuh) and the mega engines' K14 (its
-strategies in mega.cuh) run as the same three stages, eye.cuh's bodies
-launched by eye_walk.cu, eye_connect.cu and eye_gather.cu).
+mis.cuh, the BDPT bodies bdpt.cuh, persistent threads persistent.cuh; the
+persistent megakernel K5, uni_mega.cu, and the BDPT kernels K11
+bdpt_splat.cu, K12 bdpt_walk.cu and K13's two stages bdpt_pairs.cu and
+bdpt_gather.cu call them; the photon grid's hashgrid.cuh (K8-K10) serves
+K8 photon_grid.cu, K9's test entry neighbor_slots.cu and the VCM eye
+passes: the classic one (K13's VCM form with K9's fold; strategies in
+vcm.cuh) and the mega engines' K14 (its strategies in mega.cuh) run as the
+same three stages, eye.cuh's bodies launched by eye_walk.cu,
+eye_connect.cu and eye_gather.cu).
 They are compiled on first use with nvcc, one process per source, all
 started together, and linked into one shared library with a plain C
 interface, build/torch_ext/libtpt_torch_kernels.so, called through ctypes
@@ -29,7 +30,9 @@ launch (samples per dispatch), counted under render_unidirectional, or
 naive for its naive schedule. An eye pass (vcm_eye, mega_eye) counts once
 under its own name and each of its stage launches under <pass>_walk,
 <pass>_connect and <pass>_gather; K13 counts its two launches under
-bdpt_pairs and bdpt_gather.
+bdpt_pairs and bdpt_gather. A splat (bdpt_splat, vcm_splat) counts once
+under its own name and its two stages under <splat>_bin and
+<splat>_trace.
 
 Engines: the kernels that trace rays (K5, K11-K13, the classic eye pass's
 walk and connections) are built twice, once per traversal engine, and
@@ -42,8 +45,9 @@ stages.
 Each wrapper below checks its tensors (device, dtype, shape, contiguity),
 allocates the outputs, launches, raises if the launch was refused, and then
 adds one to its entry of `launches`. The launch counters are the package's
-only global state besides K5's scratch (its pixel counter and key table,
-one buffer a device and stream, written on the card by each launch);
+only global state besides the persistent kernels' scratch (K5's and
+K12's id counter, and K5's key table, one buffer a device and stream,
+written on the card by each launch);
 `reset_launches()` zeroes them. No wrapper waits for the card: the few
 words a launch reads from device memory (key tables) are copied from
 pinned memory without blocking (upload_words), or, for K5, derived on the
@@ -77,7 +81,8 @@ SOURCES = ("rng.cu", "camera.cu", "traverse8.cu", "traverse_bin.cu",
            "eye_gather.cu")
 HEADERS = ("threefry.cuh", "camera.cuh", "traverse8.cuh", "traverse_bin.cuh",
            "shade.cuh", "bsdf.cuh", "nee.cuh", "packing.cuh", "mis.cuh",
-           "bdpt.cuh", "hashgrid.cuh", "vcm.cuh", "mega.cuh", "eye.cuh")
+           "bdpt.cuh", "hashgrid.cuh", "vcm.cuh", "mega.cuh", "eye.cuh",
+           "persistent.cuh")
 _REPO_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 BUILD_DIR = os.path.join(_REPO_ROOT, "build", "torch_ext")
@@ -100,6 +105,10 @@ launches = {"closest_hit8": 0, "shadow_factor8": 0, "closest_hit_bin": 0,
             "photon_pack": 0, "photon_table": 0, "vcm_eye": 0, "rgb9e5": 0,
             "neighbor_slots": 0, "mega_eye": 0, "naive": 0,
             "uniform_keyed": 0, "bdpt_walk_table": 0,
+            # K11's two stages (bdpt_splat.cu), counted beside the splat's
+            # own count: classify and bin, trace and splat
+            "bdpt_splat_bin": 0, "bdpt_splat_trace": 0,
+            "vcm_splat_bin": 0, "vcm_splat_trace": 0,
             # the eye passes' stages (eye_walk.cu, eye_connect.cu,
             # eye_gather.cu), counted beside the pass's own count
             "vcm_eye_walk": 0, "vcm_eye_connect": 0, "vcm_eye_gather": 0,
@@ -225,6 +234,8 @@ def _load(stack_d: int = STACK_D):
         lib.tpt_packing_roundtrip.restype = ctypes.c_int
         lib.tpt_packing_roundtrip.argtypes = [p, p, p, p, p, p, i64, p, p,
                                               p, p, p, p, p]
+        lib.tpt_bdpt_walk_grid.restype = ctypes.c_int
+        lib.tpt_bdpt_walk_grid.argtypes = [i32, i64, p]
         for name in ("tpt_bdpt_walk", "tpt_bdpt_pairs", "tpt_bdpt_gather"):
             getattr(lib, name).restype = ctypes.c_int
             getattr(lib, name).argtypes = [p, p, p, p, p]
@@ -517,19 +528,33 @@ def _scene_args(scene, dev):
     return blocks
 
 
-# K5's scratch, one int64 tensor a (device, stream): the pixel counter,
-# then the key table of k samples (28 uint32 words a sample), both written
-# on the card by the launch's key kernel. Grown to the largest k asked for.
-_K5_SCRATCH: dict = {}
+# The persistent kernels' scratch (K5, K12), one int64 tensor a (device,
+# stream), written on the card by each launch before its kernel runs: word
+# 0 the id counter, then K5's key table (28 uint32 words a sample). Grown
+# to the largest size asked for; launches on one stream are ordered.
+_PERSISTENT_SCRATCH: dict = {}
 
 
-def _k5_scratch(dev, k: int) -> torch.Tensor:
+def _persistent_scratch(dev, words: int = 1) -> torch.Tensor:
     key = (dev.index, torch.cuda.current_stream(dev).cuda_stream)
-    buf = _K5_SCRATCH.get(key)
-    if buf is None or buf.numel() < 1 + 14 * k:
-        buf = _K5_SCRATCH[key] = torch.empty(1 + 14 * k, dtype=torch.int64,
-                                             device=dev)
+    buf = _PERSISTENT_SCRATCH.get(key)
+    if buf is None or buf.numel() < words:
+        buf = _PERSISTENT_SCRATCH[key] = torch.empty(words, dtype=torch.int64,
+                                                     device=dev)
     return buf
+
+
+def _resident_grid(entry: str, engine: int, n: int) -> int:
+    """The blocks (of 128 threads) of a persistent kernel's resident grid
+    for n ids on the current device (its C entry `entry`): its SMs times
+    the blocks that fit on one, at most one block per 128 ids."""
+    blocks = ctypes.c_int32(0)
+    lib = _load()
+    err = getattr(lib, entry)(engine, n, ctypes.byref(blocks))
+    if err != 0:
+        raise RuntimeError(f"{entry} failed: "
+                           f"{lib.tpt_error_string(err).decode()}")
+    return blocks.value
 
 
 def render_unidirectional(scene, px: torch.Tensor, py: torch.Tensor,
@@ -588,24 +613,17 @@ def render_unidirectional(scene, px: torch.Tensor, py: torch.Tensor,
                 base_key[0] & 0xFFFFFFFF, base_key[1] & 0xFFFFFFFF, s0, k,
                 max_depth, int(use_mis), int(sample_environment),
                 SCHEDULES[schedule], air_priority, *eng, li.data_ptr(),
-                rays.data_ptr(), _ptr(rows), _k5_scratch(dev, k).data_ptr(),
+                rays.data_ptr(), _ptr(rows),
+                _persistent_scratch(dev, 1 + 14 * k).data_ptr(),
                 grid or 0, _ptr(lanes), _stream(dev), engine=eng[0])
     return (li, rays) if rows is None else (li, rays, rows)
 
 
 def render_unidirectional_grid(scene, n: int, schedule: str) -> int:
-    """The blocks (of 128 threads) of K5's resident grid for n pixels on
-    the current device: its SMs times the blocks that fit on one, at most
-    one block per 128 pixels."""
+    """K5's resident grid for n pixels (_resident_grid)."""
     dev = torch.device("cuda", torch.cuda.current_device())
     eng = _engine_args(scene, dev, bvh8_only=schedule == "mega")[0]
-    blocks = ctypes.c_int32(0)
-    lib = _load()
-    err = lib.tpt_render_unidirectional_grid(eng, n, ctypes.byref(blocks))
-    if err != 0:
-        raise RuntimeError("K5 grid query failed: "
-                           f"{lib.tpt_error_string(err).decode()}")
-    return blocks.value
+    return _resident_grid("tpt_render_unidirectional_grid", eng, n)
 
 
 def shade_eval(scene, o, d, t, tri, u, v, ids, eta_i, keys: list):
@@ -722,7 +740,7 @@ def _u32s(values):
 
 def bdpt_walk(scene, px, py, keys: list, *, mode: str, max_depth: int,
               rays, camera=None, eta_vcm=None, key_table=None,
-              with_rows: bool = False):
+              with_rows: bool = False, grid: int | None = None, lanes=None):
     """K12 (bdpt_walk.cu): one eye or light walk per pixel (px, py) [N]
     int32; keys: 12 words (models/paths.walk_keys); camera: eye mode only.
     Adds each walk's closest rays to rays [N] i32. eta_vcm turns on the
@@ -732,7 +750,12 @@ def bdpt_walk(scene, px, py, keys: list, *, mode: str, max_depth: int,
     range(max_depth), range(4)) and then the endpoint's (draws 100..104
     of key), which replace the folded ones. -> dict(bufs=PathBuffers
     [max_depth-1, N], v0=vertex-0 dict, escape=Escape (eye) or None,
-    rows=[N] i32 rows visited on the scene's engine or None)."""
+    rows=[N] i32 rows visited on the scene's engine or None).
+    Test arguments (the results do not depend on them): grid, a number of
+    blocks in place of the resident grid; lanes, an int64 [3] tensor on
+    the device to which the walk adds (bounces stepped, the sum over warps
+    of the warp's busiest lane's bounces, the warps' calls of the bounce
+    code), as K5's."""
     from cudapathtracer_tpu_torch.models import paths
     dev = _cuda_device(px)
     n = px.shape[0]
@@ -749,6 +772,10 @@ def bdpt_walk(scene, px, py, keys: list, *, mode: str, max_depth: int,
         key_table = _words32(key_table)
         _check(key_table, "key_table", torch.int32, (max_depth * 8 + 10,),
                dev)
+    if lanes is not None:
+        _check(lanes, "lanes", torch.int64, (3,), dev)
+    if grid is not None and grid < 1:
+        raise ValueError(f"grid {grid}: at least one block")
     # the table mode stands for the JAX keyed walk's fused BVH8 step
     sc = _bdpt_scene(scene, dev, bvh8_only=key_table is not None)
     depth = max_depth - 1
@@ -764,6 +791,9 @@ def bdpt_walk(scene, px, py, keys: list, *, mode: str, max_depth: int,
         esc = paths.Escape(valid=e(n, dt=torch.bool), d=e(n, 3), beta=e(n, 3))
     rows = torch.zeros(n, dtype=torch.int32, device=dev) if with_rows \
         else None
+    # the light walk's start: each path's emitted direction and its |cos|,
+    # written by the prologue, read by the walk
+    start = e(n, 4) if mode == "light" else None
     g = lambda d, k: _ptr(d.get(k)) or 0
     ptrs = ([sc[k].data_ptr() for k in ("table", "tri_f32", "light_f32",
                                         "textures")]
@@ -773,12 +803,14 @@ def bdpt_walk(scene, px, py, keys: list, *, mode: str, max_depth: int,
                                   "mat_id", "tri")]
             + [_ptr(esc.valid) if esc else 0, _ptr(esc.d) if esc else 0,
                _ptr(esc.beta) if esc else 0, rays.data_ptr(),
-               _ptr(rows) or 0, _ptr(key_table) or 0, sc["nodes"]])
+               _ptr(rows) or 0, _ptr(key_table) or 0, sc["nodes"],
+               _persistent_scratch(dev).data_ptr(), _ptr(lanes) or 0,
+               _ptr(start) or 0])
     cam = camera.kernel_params() if camera is not None else [0.0] * 19
     area = camera.plane_area() if camera is not None else 0.0
     iv = [n, sc["tri_f32"].shape[1], scene.num_lights,
           0 if mode == "eye" else 1, max_depth, int(mode == "eye"),
-          int(eta_vcm is not None)] + sc["engine_iv"]
+          int(eta_vcm is not None)] + sc["engine_iv"] + [grid or 0]
     fv = cam + [area, 0.0 if eta_vcm is None else float(eta_vcm)]
     args = (_i64s(ptrs), _i64s(iv), _f32s(fv), _u32s(keys))  # kept alive
     lib = _load()
@@ -794,62 +826,158 @@ def bdpt_walk(scene, px, py, keys: list, *, mode: str, max_depth: int,
     return dict(bufs=bufs, v0=v0, escape=esc, rows=rows)
 
 
+def bdpt_walk_grid(scene, n: int, table: bool = False) -> int:
+    """K12's resident grid for n paths (_resident_grid; table: the table
+    mode, BVH8 on every scene)."""
+    dev = torch.device("cuda", torch.cuda.current_device())
+    eng = _engine_args(scene, dev, bvh8_only=table)[0]
+    return _resident_grid("tpt_bdpt_walk_grid", eng, n)
+
+
 def bdpt_splat(scene, camera, lbufs, lv0: dict, fb, rays, cfg, *,
                n_live: int | None = None, with_rows: bool = False):
     """K11 (bdpt_splat.cu): the t=1 light-trace splat of light paths [N]
     (lbufs [L-1, N], the endpoint lv0) added into the raster-indexed frame
     buffer fb [P,3] f32 in place with atomics; rays [N] i32 += the shadow
     rays to the lens. cfg: a BDPTConfig (do_mis, paint_weight); n_live:
-    only paths i < n_live splat (a mega chunk's pads do not). -> rows [N]
-    i32 (rows visited on the scene's engine) with with_rows, else None."""
-    n = lv0["pt"].shape[0]
-    dev = _cuda_device(fb)
-    for k, dt, tail in (("pt", torch.float32, (3,)), ("n", torch.float32,
-                                                       (3,)),
+    only paths i < n_live splat (a mega chunk's pads do not). Its two
+    stages (SplatPass.bin, SplatPass.trace) count under bdpt_splat_bin and
+    bdpt_splat_trace. -> rows [N] i32 (rows visited on the scene's engine)
+    with with_rows, else None."""
+    sp = splat_pass(scene, camera, lbufs, lv0, fb, rays, cfg, n_live=n_live,
+                    with_rows=with_rows)
+    sp.bin()
+    sp.trace()
+    launches[sp.name] += 1
+    return sp.rows
+
+
+def vcm_splat(scene, camera, lbufs, fb, rays, cfg, eta_vcm: float, *,
+              n_live: int | None = None, with_rows: bool = False):
+    """K11's VCM form (bdpt_splat.cu's VCM mode): every stored light vertex
+    of lbufs [L, N] (not the endpoint) to the lens, w_light with eta_vcm,
+    added into the raster-indexed frame buffer fb [P,3] f32 in place with
+    atomics; rays [N] i32 += the shadow rays to the lens. cfg: a VCMConfig
+    (do_mis, paint_weight); n_live as bdpt_splat's. Its stages count under
+    vcm_splat_bin and vcm_splat_trace. -> rows [N] i32 (rows visited on
+    the scene's engine) with with_rows."""
+    sp = splat_pass(scene, camera, lbufs, None, fb, rays, cfg,
+                    eta_vcm=eta_vcm, n_live=n_live, with_rows=with_rows)
+    sp.bin()
+    sp.trace()
+    launches[sp.name] += 1
+    return sp.rows
+
+
+_BIN_THREADS = 512      # bdpt_splat.cu kBinThreads
+_BIN_RANKS = 2 ** 18    # a bin code's ranks (kTileBits = 13 of 31 bits)
+
+
+def _bin_blocks(dev, n_live: int, rows: int) -> int:
+    """K11's classify grid: two blocks a SM, more where a block would hold
+    2^18 entries or more, at most one a _BIN_THREADS paths."""
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    per_thread = max(1, (_BIN_RANKS - 1) // (_BIN_THREADS * max(rows, 1)))
+    need = -(-max(n_live, 1) // _BIN_THREADS)
+    return min(need, max(2 * sms, -(-need // per_thread)))
+
+
+class SplatPass:
+    """One splat set up for bdpt_splat.cu (splat_pass): its launch arrays,
+    its scratch and, after bin(), the queue of the light vertices that
+    trace, as entries r N + i (row r of path i: vertex r of the BDPT form,
+    stored row r of VCM's), grouped by the screen tile of their pixel
+    (models/bdpt.splat_tiling), in no order inside a tile: tile t's
+    entries are queue[offsets[t]:offsets[t + 1]], offsets [tiles + 1]
+    i32, and offsets[-1] is the queue's length (queue [rows N] i32 holds
+    it). rows: [N] i32 rows visited (with_rows) or None."""
+
+    def __init__(self, name, scene, camera, lbufs, n, v0_ptrs, fb, rays,
+                 cfg, eta_vcm, with_rows, n_live):
+        from cudapathtracer_tpu_torch.models import bdpt
+        dev = _cuda_device(rays)
+        p = camera.width * camera.height
+        _check(fb, "fb", torch.float32, (p, 3), dev)
+        _check(rays, "rays", torch.int32, (n,), dev)
+        sc = _bdpt_scene(scene, dev)
+        depth = lbufs.pt.shape[0]
+        n_live = n if n_live is None else n_live
+        if not 0 <= n_live <= n:
+            raise ValueError(f"n_live {n_live} of {n} light paths")
+        rows_n = (depth + (0 if eta_vcm is not None else 1)) * n
+        if rows_n >= 2 ** 31:
+            raise ValueError(f"{rows_n} light vertices: the queue holds "
+                             "int32 entries")
+        tile, tiles_x, tiles = bdpt.splat_tiling(camera.width, camera.height)
+        blocks = _bin_blocks(dev, n_live, rows_n // n)
+        self.rows = torch.zeros(n, dtype=torch.int32, device=dev) \
+            if with_rows else None
+        # tile_of [rows N], queue [rows N], the tile counts, offsets [tiles
+        # + 1], each classify block's first slot in each tile
+        scratch = torch.empty(2 * rows_n + (2 + blocks) * tiles + 1,
+                              dtype=torch.int32, device=dev)
+        tables = 2 * rows_n
+        self.queue = scratch[rows_n:tables]
+        self.offsets = scratch[tables + tiles:tables + 2 * tiles + 1]
+        self._scratch = scratch
+        ptrs = ([sc[k].data_ptr() for k in ("table", "tri_f32", "mat_f32",
+                                            "textures")]
+                + _check_bufs(lbufs, "lbufs", depth, n, dev) + v0_ptrs
+                + [fb.data_ptr(), rays.data_ptr(), _ptr(self.rows) or 0,
+                   sc["nodes"], scratch.data_ptr(), self.queue.data_ptr(),
+                   scratch[tables:].data_ptr(),
+                   scratch[tables + 2 * tiles + 1:].data_ptr()])
+        iv = [n, sc["tri_f32"].shape[1], depth, camera.width, camera.height,
+              int(cfg.do_mis), int(cfg.paint_weight),
+              int(eta_vcm is not None), n_live] + sc["engine_iv"] \
+            + [tile, tiles_x, tiles, blocks]
+        fv = camera.kernel_params() + [
+            camera.plane_area(), 0.0 if eta_vcm is None else float(eta_vcm)]
+        self._args = {stage: (_i64s(ptrs), _i64s(iv + [stage]), _f32s(fv))
+                      for stage in (1, 2)}
+        self.name, self.dev, self.engine = name, dev, sc["engine_iv"][0]
+
+    def _run(self, stage: int, tag: str, engine: int) -> None:
+        lib = _load()
+        with torch.cuda.device(self.dev):
+            _launch(f"{self.name}_{tag}", lib, lib.tpt_bdpt_splat,
+                    *(ctypes.addressof(a) for a in self._args[stage]),
+                    _stream(self.dev), engine=engine)
+
+    def bin(self) -> None:
+        """Stage 1: classify and bin (adds each path's traced count to
+        rays); it traces nothing: one build, not a threaded
+        instantiation."""
+        self._run(1, "bin", 0)
+
+    def trace(self) -> None:
+        """Stage 2: one shadow ray a thread over the queue of the last
+        bin(), in tile order, each added into fb."""
+        self._run(2, "trace", self.engine)
+
+
+def splat_pass(scene, camera, lbufs, lv0, fb, rays, cfg, *, eta_vcm=None,
+               n_live: int | None = None,
+               with_rows: bool = False) -> SplatPass:
+    """Set up K11 on light paths [N] without launching: the BDPT form
+    (lv0, the endpoint; counted under bdpt_splat_*) or, with eta_vcm and
+    lv0 None, VCM's (vcm_splat_*). Arguments as bdpt_splat's and
+    vcm_splat's."""
+    dev = _cuda_device(rays)
+    n = rays.shape[0]
+    if eta_vcm is not None:
+        return SplatPass("vcm_splat", scene, camera, lbufs, n, [0] * 5, fb,
+                         rays, cfg, eta_vcm, with_rows, n_live)
+    for k, dt, tail in (("pt", torch.float32, (3,)),
+                        ("n", torch.float32, (3,)),
                         ("beta", torch.float32, (3,)),
                         ("pdf_fwd", torch.float32, ()),
                         ("mat_id", torch.int32, ())):
         _check(lv0[k], f"lv0.{k}", dt, (n,) + tail, dev)
-    return _splat("bdpt_splat", scene, camera, lbufs, n,
-                  [lv0[k].data_ptr() for k in ("pt", "n", "beta", "pdf_fwd",
-                                               "mat_id")],
-                  fb, rays, cfg, None, with_rows, n_live)
-
-
-def _splat(name, scene, camera, lbufs, n, v0_ptrs, fb, rays, cfg, eta_vcm,
-           with_rows, n_live=None):
-    """One launch of bdpt_splat.cu's entry, counted under name: the BDPT
-    form with the endpoint's addresses, or the VCM form (eta_vcm given)."""
-    dev = _cuda_device(fb)
-    p = fb.shape[0]
-    _check(fb, "fb", torch.float32, (p, 3), dev)
-    if p != camera.width * camera.height:
-        raise ValueError(f"fb has {p} pixels, the camera {camera.width}x"
-                         f"{camera.height}")
-    _check(rays, "rays", torch.int32, (n,), dev)
-    sc = _bdpt_scene(scene, dev)
-    depth = lbufs.pt.shape[0]
-    rows = torch.zeros(n, dtype=torch.int32, device=dev) if with_rows \
-        else None
-    ptrs = ([sc[k].data_ptr() for k in ("table", "tri_f32", "mat_f32",
-                                        "textures")]
-            + _check_bufs(lbufs, "lbufs", depth, n, dev) + v0_ptrs
-            + [fb.data_ptr(), rays.data_ptr(), _ptr(rows) or 0, sc["nodes"]])
-    n_live = n if n_live is None else n_live
-    if not 0 <= n_live <= n:
-        raise ValueError(f"n_live {n_live} of {n} light paths")
-    iv = [n, sc["tri_f32"].shape[1], depth, camera.width, camera.height,
-          int(cfg.do_mis), int(cfg.paint_weight), int(eta_vcm is not None),
-          n_live] + sc["engine_iv"]
-    fv = camera.kernel_params() + [camera.plane_area(),
-                                   0.0 if eta_vcm is None else float(eta_vcm)]
-    args = (_i64s(ptrs), _i64s(iv), _f32s(fv))
-    lib = _load()
-    with torch.cuda.device(dev):
-        _launch(name, lib, lib.tpt_bdpt_splat,
-                *(ctypes.addressof(a) for a in args), _stream(dev),
-                engine=sc["engine_iv"][0])
-    return rows
+    return SplatPass("bdpt_splat", scene, camera, lbufs, n,
+                     [lv0[k].data_ptr() for k in ("pt", "n", "beta",
+                                                  "pdf_fwd", "mat_id")],
+                     fb, rays, cfg, None, with_rows, n_live)
 
 
 def _connect_launch(name: str, entry: str, scene, camera, key_c, eye: dict,
@@ -966,18 +1094,6 @@ def bdpt_connect(scene, camera, key_c, eye: dict, light: dict, fb, rays, cfg,
 
 
 # --- the photon family (K8, K9, K11's and K13's VCM forms) -------------------
-
-def vcm_splat(scene, camera, lbufs, fb, rays, cfg, eta_vcm: float, *,
-              with_rows: bool = False):
-    """K11's VCM form (bdpt_splat.cu's VCM mode): every stored light vertex
-    of lbufs [L, N] (not the endpoint) to the lens, w_light with eta_vcm,
-    added into the raster-indexed frame buffer fb [P,3] f32 in place with
-    atomics; rays [N] i32 += the shadow rays to the lens. cfg: a VCMConfig
-    (do_mis, paint_weight). -> rows [N] i32 (rows visited on the scene's
-    engine) with with_rows."""
-    return _splat("vcm_splat", scene, camera, lbufs, lbufs.pt.shape[1],
-                  [0] * 5, fb, rays, cfg, eta_vcm, with_rows)
-
 
 def photon_pack(lbufs, scene_min, cell_size: float, table_size: int, salt):
     """K8's first half (photon_grid.cu): one photon per stored light vertex

@@ -1,8 +1,13 @@
 // K11-K13 device code: the per-thread bodies of the BDPT kernels and the
 // packed path-vertex buffers they share.
 //
-//   walk_path      K12: one eye or light walk (models/paths.py:129,219,237);
-//                  its table mode is models/light_mega.py:108's keyed walk
+//   start_walk, begin_walk, walk_bounce, finish_walk
+//                  K12: an eye or light walk's endpoint (drawn by the
+//                  prologue, read back by the walk), one bounce, its end
+//                  (models/paths.py:129,219,237); its table mode is
+//                  models/light_mega.py:108's keyed walk
+//   splat_tile     K11's first stage: whether a light vertex traces to
+//                  the lens, and the screen tile of its pixel
 //   splat_vertex   K11: one light vertex to the lens (models/bdpt.py:93;
 //                  VCM's form, models/vcm.py:87, adds eta_vcm)
 //   pair_term      K13's first stage: one NEE or connection shadow ray
@@ -10,8 +15,10 @@
 //   gather_pixel   K13's second stage: one pixel's ordered sum
 //
 // bdpt_walk.cu, bdpt_splat.cu, bdpt_pairs.cu and bdpt_gather.cu launch
-// them, one thread per path, per light vertex, per (eye vertex, strategy,
-// pixel) and per pixel. The buffers are depth-major
+// them: one bounce of the path a persistent lane holds a loop trip, one
+// thread per light path (classify) and per queued light vertex (trace),
+// per (eye vertex, strategy, pixel) and per pixel. The buffers are
+// depth-major
 // [D, N] in the JAX package's packed layout (models/paths.PathBuffers):
 // the walk keeps its state unpacked in registers and stores each vertex
 // through the K10 codecs (packing.cuh); the splat and the connections read
@@ -282,6 +289,7 @@ struct WalkOut {
   float* esc_beta;
   int32_t* rays;   // += closest rays of the walk
   int32_t* rows;   // nullable: += BVH8 rows visited
+  float* start;    // light mode: [N,4] the emitted direction and its |cos|
 };
 
 __device__ __forceinline__ void put3(float* dst, int64_t i, V3 a) {
@@ -290,140 +298,186 @@ __device__ __forceinline__ void put3(float* dst, int64_t i, V3 a) {
   dst[3 * i + 2] = a.z;
 }
 
-template <int kEngine>
-__device__ __forceinline__ void walk_path(const SceneRefs& sc,
-                                          const WalkParams& p,
-                                          const WalkOut& out, int64_t i,
-                                          int32_t px, int32_t py) {
-  const uint32_t id = static_cast<uint32_t>((py << 14) + px);
+__device__ __forceinline__ V3 get3(const float* src, int64_t i) {
+  return v3(src[3 * i], src[3 * i + 1], src[3 * i + 2]);
+}
+
+// One walk between two bounces: the registers K12's loop keeps for the
+// path a lane holds. j is the next buffer row the walk writes (vertex
+// j + 1, at depth j + 1): a bounce that misses writes no row, one whose
+// BSDF sample is invalid writes its row and ends the walk.
+struct WalkState {
   V3 o, d, thr, prev_pt;
-  float prev_pdf, prev_cos, first_vc;
+  float prev_pdf, prev_cos, first_vc, first_vm;
+  MisState ms;
+  int32_t rays, rows;
+  uint32_t id;
+  int j;
+};
+
+__device__ __forceinline__ uint32_t pixel_id(int32_t px, int32_t py) {
+  return static_cast<uint32_t>((py << 14) + px);
+}
+
+// The endpoint of path i, drawn once for every path before the walk (the
+// walk's prologue, one thread a path): eye, the camera ray into v0_pt and
+// the escape record of a walk that does not escape (the direction and a
+// throughput of one); light, the light point into every v0 array and the
+// emitted direction and its |cos| into out.start.
+__device__ __forceinline__ void start_walk(const SceneRefs& sc,
+                                           const WalkParams& p,
+                                           const WalkOut& out, int64_t i,
+                                           int32_t px, int32_t py) {
+  const uint32_t id = pixel_id(px, py);
   if (p.mode == kModeEye) {
     float org[3], dir[3];
     camera_ray(p.cam, static_cast<float>(px), static_cast<float>(py), id, org,
                dir);
-    o = v3(org[0], org[1], org[2]);
-    d = v3(dir[0], dir[1], dir[2]);
+    put3(out.v0_pt, i, v3(org[0], org[1], org[2]));
+    out.esc_valid[i] = false;
+    put3(out.esc_d, i, v3(dir[0], dir[1], dir[2]));
+    put3(out.esc_beta, i, v3(1.0f, 1.0f, 1.0f));
+    return;
+  }
+  const TableDraws ld{p.key_table != nullptr ? p.key_table + 8 * p.max_depth
+                                             : p.light_keys,
+                      id};
+  const LightPoint lp = light_point(ld, sc);
+  const float num =
+      static_cast<float>(sc.lights.count > 1 ? sc.lights.count : 1);
+  const float pdf0 = (1.0f / num) / fmaxf(lp.area, 1e-20f);
+  const V3 out_local = cosine_sample(ld(3), ld(4));
+  const V3 out_world = to_world(out_local, lp.n);
+  put3(out.v0_pt, i, lp.p);
+  put3(out.v0_n, i, lp.n);
+  put3(out.v0_beta, i, scale(lp.le, kPi / pdf0));
+  out.v0_pdf[i] = pdf0;
+  out.v0_light[i] = lp.li;
+  out.v0_mat[i] = row_i32(
+      sc.tri_f32 + static_cast<int64_t>(lp.tri) * sc.tri_cols, 76);
+  out.v0_tri[i] = lp.tri;
+  float* st = out.start + 4 * i;
+  st[0] = out_world.x;
+  st[1] = out_world.y;
+  st[2] = out_world.z;
+  st[3] = fabsf(out_local.z);
+}
+
+// Path i's state at depth 1, from what start_walk stored: the same values
+// (the same operations on the same floats) as drawing the endpoint here.
+__device__ __forceinline__ void begin_walk(const WalkParams& p,
+                                           const WalkOut& out, int64_t i,
+                                           int32_t px, int32_t py,
+                                           WalkState& st) {
+  st.id = pixel_id(px, py);
+  if (p.mode == kModeEye) {
+    st.o = get3(out.v0_pt, i);
+    st.d = get3(out.esc_d, i);
     const V3 fwd = v3(p.cam.forward[0], p.cam.forward[1], p.cam.forward[2]);
-    const float cos_cam = fabsf(dot(fwd, d));
-    prev_pdf = 1.0f / (p.plane_area * cube(cos_cam));
-    prev_cos = cos_cam;
-    thr = v3(1.0f, 1.0f, 1.0f);
-    prev_pt = o;
-    first_vc = 0.0f;
-    put3(out.v0_pt, i, o);
+    const float cos_cam = fabsf(dot(fwd, st.d));
+    st.prev_pdf = 1.0f / (p.plane_area * cube(cos_cam));
+    st.prev_cos = cos_cam;
+    st.thr = v3(1.0f, 1.0f, 1.0f);
+    st.prev_pt = st.o;
+    st.first_vc = 0.0f;
   } else {
-    const TableDraws ld{p.key_table != nullptr
-                            ? p.key_table + 8 * p.max_depth
-                            : p.light_keys,
-                        id};
-    const LightPoint lp = light_point(ld, sc);
-    const float num =
-        static_cast<float>(sc.lights.count > 1 ? sc.lights.count : 1);
-    const float pdf0 = (1.0f / num) / fmaxf(lp.area, 1e-20f);
-    const V3 beta0 = scale(lp.le, kPi / pdf0);
-    const V3 out_local = cosine_sample(ld(3), ld(4));
-    const V3 out_world = to_world(out_local, lp.n);
-    const float cos_emit = fabsf(out_local.z);
-    put3(out.v0_pt, i, lp.p);
-    put3(out.v0_n, i, lp.n);
-    put3(out.v0_beta, i, beta0);
-    out.v0_pdf[i] = pdf0;
-    out.v0_light[i] = lp.li;
-    out.v0_mat[i] = row_i32(
-        sc.tri_f32 + static_cast<int64_t>(lp.tri) * sc.tri_cols, 76);
-    out.v0_tri[i] = lp.tri;
-    o = add(lp.p, scale(lp.n, kRayEps));
-    d = out_world;
-    thr = beta0;
-    prev_pdf = cos_emit / kPi;
-    prev_cos = cos_emit;
-    prev_pt = lp.p;
-    first_vc = 1.0f / fmaxf(pdf0, 1e-20f);
+    const V3 lp_p = get3(out.v0_pt, i), lp_n = get3(out.v0_n, i);
+    const float* sv = out.start + 4 * i;
+    const float cos_emit = sv[3];
+    st.o = add(lp_p, scale(lp_n, kRayEps));
+    st.d = v3(sv[0], sv[1], sv[2]);
+    st.thr = get3(out.v0_beta, i);
+    st.prev_pdf = cos_emit / kPi;
+    st.prev_cos = cos_emit;
+    st.prev_pt = lp_p;
+    st.first_vc = 1.0f / fmaxf(out.v0_pdf[i], 1e-20f);
   }
-  const float first_vm = p.use_vm ? first_vc / fmaxf(p.eta_vcm, 1e-30f) : 0.0f;
+  st.first_vm = p.use_vm ? st.first_vc / fmaxf(p.eta_vcm, 1e-30f) : 0.0f;
+  st.ms.d_vcm = st.ms.d_vc = st.ms.d_vm = st.ms.pdf_rev_prev = 0.0f;
+  st.ms.prev_was_delta = false;
+  st.rays = st.rows = 0;
+  st.j = 0;
+}
 
-  MisState ms;
-  ms.d_vcm = ms.d_vc = ms.d_vm = ms.pdf_rev_prev = 0.0f;
-  ms.prev_was_delta = false;
-  bool alive = true, escaped = false;
-  V3 esc_d = d, esc_beta = thr;
-  int32_t rays = 0, rows = 0;
-  for (int depth = 1; depth < p.max_depth; ++depth) {
-    const int j = depth - 1;
-    if (!alive) {
-      store_dead(out.bufs, j, i);
-      continue;
+// One bounce of the walk at depth st.j + 1 (< max_depth): the closest ray
+// (K1 or K15), the hit fetch (K2), the BSDF sample (K3), the MIS step and
+// the packed vertex store (K10). Returns whether the walk goes on.
+template <int kEngine>
+__device__ __forceinline__ bool walk_bounce(const SceneRefs& sc,
+                                            const WalkParams& p,
+                                            const WalkOut& out, int64_t i,
+                                            WalkState& st) {
+  const int depth = st.j + 1;
+  ++st.rays;
+  const Trace8 h = trace_ray<kEngine, false>(sc, st.o.x, st.o.y, st.o.z,
+                                             st.d.x, st.d.y, st.d.z, kBigT,
+                                             -1, true);
+  st.rows += h.rows;
+  if (h.tri < 0) {  // the first miss: the walk escapes
+    if (out.esc_valid != nullptr) {
+      out.esc_valid[i] = true;
+      put3(out.esc_d, i, st.d);
+      put3(out.esc_beta, i, st.thr);
     }
-    ++rays;
-    const Trace8 h = trace_ray<kEngine, false>(sc, o.x, o.y, o.z, d.x, d.y,
-                                               d.z, kBigT, -1, true);
-    rows += h.rows;
-    if (h.tri < 0) {  // the first miss: the walk escapes
-      escaped = true;
-      esc_d = d;
-      esc_beta = thr;
-      alive = false;
-      store_dead(out.bufs, j, i);
-      continue;
-    }
-    const ShadeHit s =
-        shade_fetch(sc.tri_f32, sc.tri_cols, h.tri, h.u, h.v, o, d, h.t);
-    const Mat& m = s.mat;
-    const V3 normal = s.normal;
-    const V3 wo_local = to_local(d, normal);  // incoming, z < 0
-    const V3 albedo = resolve_albedo(sc.textures, s);
-    const float trans = resolve_transmission(sc.textures, s);
-
-    const float d2 = fmaxf(length_sq(sub(s.point, prev_pt)), kRayEps);
-    const float pdf_fwd_area = prev_pdf * fabsf(wo_local.z) / d2;
-    const float g = prev_cos / d2;
-
-    BounceDraws bd;
-    bd.id = id;
-    if (p.key_table != nullptr) {
-      bd.table = p.key_table + 8 * depth;
-    } else {
-      bd.table = nullptr;
-      bd.folded = fold_draws(p.key0, p.key1, static_cast<uint32_t>(depth),
-                             id);
-    }
-    const Sample bs = bsdf_sample(bd, m, albedo, neg(wo_local), s.backface,
-                                  1.0f, trans, p.radiance);
-    const float pdf_rev_sa = bsdf_pdf(m, bs.wo, neg(wo_local), 1.0f, trans);
-
-    const float safe_fwd = fmaxf(pdf_fwd_area, 1e-20f);
-    const MisState mv = mis_advance(
-        ms, depth == 1, pdf_fwd_area, g, pdf_rev_sa, m.is_specular,
-        1.0f / safe_fwd, first_vc * g / safe_fwd,
-        p.use_vm ? first_vm * g / safe_fwd : 0.0f, p.use_vm, p.eta_vcm);
-
-    const bool valid = bs.pdf >= kEps;
-    store_vertex(out.bufs, j, i, s.point, normal, normalize(neg(d)), s.uv0,
-                 s.uv1, thr, pdf_fwd_area, mv.d_vcm, mv.d_vc, mv.d_vm,
-                 pack_flags(m.is_specular, s.backface, s.light_ind, s.mat_id),
-                 valid);
-    if (!valid) {
-      alive = false;
-      continue;
-    }
-    // continue the walk
-    thr = scale(mul(thr, bs.f), fabsf(bs.wo.z) / fmaxf(bs.pdf, 1e-20f));
-    const V3 wi_world = normalize(to_world(bs.wo, normal));
-    const float side = dot(wi_world, normal) < 0.0f ? -1.0f : 1.0f;
-    o = add(s.point, scale(normal, side * kRayEps));
-    d = wi_world;
-    prev_pdf = bs.pdf;
-    prev_cos = fabsf(bs.wo.z);
-    prev_pt = s.point;
+    return false;
   }
-  if (out.esc_valid != nullptr) {
-    out.esc_valid[i] = escaped;
-    put3(out.esc_d, i, esc_d);
-    put3(out.esc_beta, i, esc_beta);
+  const ShadeHit s = shade_fetch(sc.tri_f32, sc.tri_cols, h.tri, h.u, h.v,
+                                 st.o, st.d, h.t);
+  const Mat& m = s.mat;
+  const V3 normal = s.normal;
+  const V3 wo_local = to_local(st.d, normal);  // incoming, z < 0
+  const V3 albedo = resolve_albedo(sc.textures, s);
+  const float trans = resolve_transmission(sc.textures, s);
+
+  const float d2 = fmaxf(length_sq(sub(s.point, st.prev_pt)), kRayEps);
+  const float pdf_fwd_area = st.prev_pdf * fabsf(wo_local.z) / d2;
+  const float g = st.prev_cos / d2;
+
+  BounceDraws bd;
+  bd.id = st.id;
+  if (p.key_table != nullptr) {
+    bd.table = p.key_table + 8 * depth;
+  } else {
+    bd.table = nullptr;
+    bd.folded = fold_draws(p.key0, p.key1, static_cast<uint32_t>(depth),
+                           st.id);
   }
-  out.rays[i] += rays;
-  if (out.rows != nullptr) out.rows[i] += rows;
+  const Sample bs = bsdf_sample(bd, m, albedo, neg(wo_local), s.backface,
+                                1.0f, trans, p.radiance);
+  const float pdf_rev_sa = bsdf_pdf(m, bs.wo, neg(wo_local), 1.0f, trans);
+
+  const float safe_fwd = fmaxf(pdf_fwd_area, 1e-20f);
+  const MisState mv = mis_advance(
+      st.ms, depth == 1, pdf_fwd_area, g, pdf_rev_sa, m.is_specular,
+      1.0f / safe_fwd, st.first_vc * g / safe_fwd,
+      p.use_vm ? st.first_vm * g / safe_fwd : 0.0f, p.use_vm, p.eta_vcm);
+
+  const bool valid = bs.pdf >= kEps;
+  store_vertex(out.bufs, st.j, i, s.point, normal, normalize(neg(st.d)),
+               s.uv0, s.uv1, st.thr, pdf_fwd_area, mv.d_vcm, mv.d_vc,
+               mv.d_vm,
+               pack_flags(m.is_specular, s.backface, s.light_ind, s.mat_id),
+               valid);
+  ++st.j;
+  if (!valid) return false;
+  // continue the walk
+  st.thr = scale(mul(st.thr, bs.f), fabsf(bs.wo.z) / fmaxf(bs.pdf, 1e-20f));
+  const V3 wi_world = normalize(to_world(bs.wo, normal));
+  const float side = dot(wi_world, normal) < 0.0f ? -1.0f : 1.0f;
+  st.o = add(s.point, scale(normal, side * kRayEps));
+  st.d = wi_world;
+  st.prev_pdf = bs.pdf;
+  st.prev_cos = fabsf(bs.wo.z);
+  st.prev_pt = s.point;
+  return st.j < out.bufs.depth;
+}
+
+// The end of path i's walk: rays[i] and rows[i] += the walk's counts (the
+// prologue wrote the dead pattern into the rows it did not reach).
+__device__ __forceinline__ void finish_walk(const WalkOut& out, int64_t i,
+                                            const WalkState& st) {
+  out.rays[i] += st.rays;
+  if (out.rows != nullptr) out.rows[i] += st.rows;
 }
 
 // ---- K11: the light-trace splat --------------------------------------------
@@ -446,19 +500,50 @@ struct Endpoint {
   const int32_t* mat;
 };
 
-__device__ __forceinline__ V3 get3(const float* src, int64_t i) {
-  return v3(src[3 * i], src[3 * i + 1], src[3 * i + 2]);
+// The pixel a raster point splats into: truncated, then clipped.
+__device__ __forceinline__ void splat_pixel(const SplatParams& p, float rx,
+                                            float ry, int32_t& ix,
+                                            int32_t& iy) {
+  iy = static_cast<int32_t>(ry);
+  ix = static_cast<int32_t>(rx);
+  iy = iy < 0 ? 0 : (iy > p.height - 1 ? p.height - 1 : iy);
+  ix = ix < 0 ? 0 : (ix > p.width - 1 ? p.width - 1 : ix);
+}
+
+// K11's first stage: -1 where light vertex j of path i traces nothing
+// (invalid, delta or off screen: splat_vertex's test before its shadow
+// ray), else the screen tile of its pixel (tile x tile pixels, tiles_x a
+// row of tiles).
+__device__ __forceinline__ int32_t splat_tile(const SplatParams& p,
+                                              const PathBufs& lb,
+                                              const Endpoint& e, int j,
+                                              int64_t i, int tile,
+                                              int tiles_x) {
+  float pt[3];
+  if (j == 0) {
+    for (int c = 0; c < 3; ++c) pt[c] = e.pt[3 * i + c];
+  } else {
+    const int64_t k = (j - 1) * lb.n + i;
+    if (!lb.valid[k] || unpack_flags(lb.flags[k]).is_delta) return -1;
+    for (int c = 0; c < 3; ++c) pt[c] = lb.pt[3 * k + c];
+  }
+  float rx, ry;
+  if (!world_to_raster(p.cam, pt, rx, ry)) return -1;
+  int32_t ix, iy;
+  splat_pixel(p, rx, ry, ix, iy);
+  return (iy / tile) * tiles_x + ix / tile;
 }
 
 // Light vertex j of path i (j = 0: the endpoint; j >= 1: stored row j - 1)
-// to the lens; adds into fb [P,3] and rays[i] with atomics.
+// to the lens; adds into fb [P,3] with atomics (splat_tile's stage counts
+// the ray into rays[i]).
 template <int kEngine>
 __device__ __forceinline__ void splat_vertex(const SceneRefs& sc,
                                              const SplatParams& p,
                                              const PathBufs& lb,
                                              const Endpoint& e, int j,
                                              int64_t i, float* fb,
-                                             int32_t* rays, int32_t* rows) {
+                                             int32_t* rows) {
   const bool first = j == 0;
   Vertex v;
   if (first) {
@@ -481,7 +566,6 @@ __device__ __forceinline__ void splat_vertex(const SceneRefs& sc,
   const float dist = sqrtf(fmaxf(length_sq(to_cam), 1e-20f));
   const V3 to_cam_u = v3(to_cam.x / dist, to_cam.y / dist, to_cam.z / dist);
   const V3 origin = add(v.pt, scale(v.n, kRayEps));
-  atomicAdd(rays + i, 1);
   const Trace8 sh = trace_ray<kEngine, true>(
       sc, origin.x, origin.y, origin.z, to_cam_u.x, to_cam_u.y, to_cam_u.z,
       dist - kRayEps, -1, true);
@@ -517,9 +601,8 @@ __device__ __forceinline__ void splat_vertex(const SceneRefs& sc,
       mul(scale(mul(v.beta, light_f), g * we), v3(sh.s0, sh.s1, sh.s2));
   const float weight = 1.0f / (1.0f + w_light);
   const V3 o = p.weighting(contrib, weight);
-  int32_t iy = static_cast<int32_t>(ry), ix = static_cast<int32_t>(rx);
-  iy = iy < 0 ? 0 : (iy > p.height - 1 ? p.height - 1 : iy);
-  ix = ix < 0 ? 0 : (ix > p.width - 1 ? p.width - 1 : ix);
+  int32_t ix, iy;
+  splat_pixel(p, rx, ry, ix, iy);
   const int64_t pix = static_cast<int64_t>(iy) * p.width + ix;
   atomicAdd(fb + 3 * pix, o.x);
   atomicAdd(fb + 3 * pix + 1, o.y);
@@ -864,8 +947,11 @@ inline bool walk_launch(const int64_t* ptrs, const int64_t* iv,
   o.rows = dev_ptr<int32_t>(ptrs, 28);
   p.key_table = dev_ptr<const uint32_t>(ptrs, 29);
   w.engine = engine_refs(ptrs, 30, iv, 7, w.sc);
-  return (p.mode == kModeEye || p.mode == kModeLight) && p.max_depth >= 1 &&
-         w.engine >= 0 &&
+  o.start = dev_ptr<float>(ptrs, 33);
+  return (p.mode == kModeEye ? o.esc_valid != nullptr && o.esc_d != nullptr &&
+                                   o.esc_beta != nullptr
+                             : p.mode == kModeLight && o.start != nullptr) &&
+         p.max_depth >= 1 && w.engine >= 0 &&
          (p.key_table == nullptr || w.engine == kEngineBvh8);
 }
 
@@ -880,6 +966,19 @@ struct SplatLaunch {
   int64_t n;
   int64_t n_live;  // paths i >= n_live splat nothing (a mega chunk's pads)
   int engine;
+  // the stages' scratch (bdpt_splat.cu): each (row, path)'s tile and rank
+  // in its classify block (bin_code), the queue of the entries that trace
+  // in tile order, per tile its count and its first queue slot
+  // (offsets[tiles] = the queue's length), and per (classify block, tile)
+  // the block's first slot inside the tile
+  int32_t* tile_of;
+  int32_t* queue;
+  int32_t* hist;
+  int32_t* offsets;
+  int32_t* block_base;
+  int tile, tiles_x, tiles;
+  int bin_blocks;  // the classify and scatter kernels' grid
+  int stages;      // 1: classify and bin; 2: trace and splat
 };
 
 inline bool splat_launch(const int64_t* ptrs, const int64_t* iv,
@@ -912,8 +1011,23 @@ inline bool splat_launch(const int64_t* ptrs, const int64_t* iv,
   s.p.eta_vcm = fv[20];
   s.n_live = iv[8];
   s.engine = engine_refs(ptrs, 23, iv, 9, s.sc);
+  s.tile_of = dev_ptr<int32_t>(ptrs, 24);
+  s.queue = dev_ptr<int32_t>(ptrs, 25);
+  s.hist = dev_ptr<int32_t>(ptrs, 26);
+  s.block_base = dev_ptr<int32_t>(ptrs, 27);
+  s.tile = static_cast<int>(iv[12]);
+  s.tiles_x = static_cast<int>(iv[13]);
+  s.tiles = static_cast<int>(iv[14]);
+  s.bin_blocks = static_cast<int>(iv[15]);
+  s.stages = static_cast<int>(iv[16]);
+  s.offsets = s.hist + s.tiles;
+  const int tiles_y = s.tile > 0 ? (s.p.height + s.tile - 1) / s.tile : 0;
   return s.lb.depth >= 0 && s.p.width > 0 && s.p.height > 0 &&
-         s.n_live >= 0 && s.n_live <= s.n && s.engine >= 0;
+         s.n_live >= 0 && s.n_live <= s.n && s.engine >= 0 &&
+         s.tile > 0 && s.tiles_x == (s.p.width + s.tile - 1) / s.tile &&
+         s.tiles == s.tiles_x * tiles_y && s.bin_blocks >= 1 &&
+         (s.stages == 1 || s.stages == 2) && s.fb != nullptr &&
+         s.tile_of != nullptr && s.queue != nullptr && s.hist != nullptr && s.block_base != nullptr;
 }
 
 inline bool connect_launch(const int64_t* ptrs, const int64_t* iv,

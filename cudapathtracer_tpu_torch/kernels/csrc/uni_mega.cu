@@ -82,7 +82,6 @@
 // table), so its launches take the BVH8 instantiation; the C entries pick
 // the instantiation from their engine argument.
 
-#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -91,6 +90,7 @@
 #include "camera.cuh"
 #include "nee.cuh"
 #include "packing.cuh"
+#include "persistent.cuh"
 #include "shade.cuh"
 #include "threefry.cuh"
 #include "traverse_bin.cuh"
@@ -514,28 +514,13 @@ __device__ __forceinline__ void shade_eval_one(const SceneArgs& sc,
 
 namespace {
 
-namespace cg = cooperative_groups;
-
 constexpr int kThreads = 128;
-constexpr int kWarps = kThreads / 32;
-
-// The next pixel: one atomicAdd for the lanes that ask together, which
-// take consecutive pixels.
-__device__ __forceinline__ int64_t next_pixel(unsigned long long* counter) {
-  const cg::coalesced_group g = cg::coalesced_threads();
-  unsigned long long base = 0;
-  if (g.thread_rank() == 0) base = atomicAdd(counter, g.size());
-  return static_cast<int64_t>(g.shfl(base, 0) + g.thread_rank());
-}
 
 // Samples s0 .. s0+k-1 of each of the n pixels (px, py); sample s keyed by
 // row s of keys [k, 28]. Persistent: each thread steps one event of its
 // path per loop trip and takes the next sample or pixel when the path ends
 // (see the header). counter: the next pixel, zero at the launch. lanes
-// (nullable): += (events stepped, the sum over warps of the warp's busiest
-// lane's events, the warps' calls of the event code: the lanes that call
-// it together count once), whose ratios events / (32 x calls) and events
-// / (32 x busiest) are the lane use and the event balance. The explicit
+// (nullable): the lane counters (tpt::add_lane_counts). The explicit
 // minimum of one block a SM: without it ptxas targets four blocks of 128
 // on this persistent kernel and spills to get there (60 B on BVH8, 100 B
 // on the threaded engine).
@@ -550,7 +535,7 @@ uni_mega_kernel(tpt::SceneArgs sc, tpt::Params p,
                 unsigned long long* __restrict__ counter,
                 unsigned long long* __restrict__ lanes) {
   int32_t events = 0, calls = 0;
-  int64_t i = next_pixel(counter);
+  int64_t i = tpt::next_id(counter);
   if (i < n) {
     int32_t x = px[i], y = py[i];
     uint32_t pix_id = static_cast<uint32_t>((y << 14) + x);
@@ -582,7 +567,7 @@ uni_mega_kernel(tpt::SceneArgs sc, tpt::Params p,
         li_out[3 * i + 2] = acc.z;
         rays_out[i] = rays;
         if (rows_out != nullptr) rows_out[i] = rows;
-        i = next_pixel(counter);
+        i = tpt::next_id(counter);
         if (i >= n) break;
         x = px[i];
         y = py[i];
@@ -594,24 +579,7 @@ uni_mega_kernel(tpt::SceneArgs sc, tpt::Params p,
       alive = tpt::begin_sample(p, row, x, y, pix_id, st);
     }
   }
-  if (lanes != nullptr) {  // uniform: every thread of the block gets here
-    __shared__ int32_t warp_max[kWarps];
-    __shared__ unsigned long long block_sums[2];
-    if (threadIdx.x < kWarps) warp_max[threadIdx.x] = 0;
-    if (threadIdx.x < 2) block_sums[threadIdx.x] = 0;
-    __syncthreads();
-    atomicMax(&warp_max[threadIdx.x / 32], events);
-    atomicAdd(&block_sums[0], static_cast<unsigned long long>(events));
-    atomicAdd(&block_sums[1], static_cast<unsigned long long>(calls));
-    __syncthreads();
-    if (threadIdx.x == 0) {
-      unsigned long long busiest = 0;
-      for (int w = 0; w < kWarps; ++w) busiest += warp_max[w];
-      atomicAdd(lanes, block_sums[0]);
-      atomicAdd(lanes + 1, busiest);
-      atomicAdd(lanes + 2, block_sums[1]);
-    }
-  }
+  tpt::add_lane_counts<kThreads>(events, calls, lanes);
 }
 
 // The launch's scratch: scratch[0] the pixel counter, zeroed here, then
@@ -674,36 +642,13 @@ bool schedule_ok(int32_t schedule) {
          schedule == tpt::kScheduleMega || schedule == tpt::kScheduleNaive;
 }
 
-// The persistent grid of an instantiation on the current device: its SMs
-// times the blocks of kThreads that fit on one, queried once per device
-// and engine; at most one block per kThreads pixels.
+// K5's resident grid for n pixels on the scene's engine.
 int resident_grid(int32_t engine, int64_t n, unsigned& blocks) {
-  constexpr int kDevices = 64;
-  static int per_sm[kDevices][2], sms[kDevices];
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (dev < 0 || dev >= kDevices) return cudaErrorInvalidDevice;
-  const int e = engine == tpt::kEngineThreaded ? 1 : 0;
-  if (per_sm[dev][e] == 0) {
-    int nb = 0, count = 0;
-    err = e == 1 ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-                       &nb, uni_mega_kernel<tpt::kEngineThreaded>, kThreads,
-                       0)
-                 : cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-                       &nb, uni_mega_kernel<tpt::kEngineBvh8>, kThreads, 0);
-    if (err == cudaSuccess)
-      err = cudaDeviceGetAttribute(&count, cudaDevAttrMultiProcessorCount,
-                                   dev);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    if (nb < 1 || count < 1) return cudaErrorLaunchOutOfResources;
-    sms[dev] = count;
-    per_sm[dev][e] = nb;
-  }
-  const int64_t need = (n + kThreads - 1) / kThreads;
-  const int64_t full = static_cast<int64_t>(sms[dev]) * per_sm[dev][e];
-  blocks = static_cast<unsigned>(need < full ? need : full);
-  return 0;
+  return engine == tpt::kEngineThreaded
+             ? tpt::resident_grid<uni_mega_kernel<tpt::kEngineThreaded>,
+                                  kThreads>(n, blocks)
+             : tpt::resident_grid<uni_mega_kernel<tpt::kEngineBvh8>,
+                                  kThreads>(n, blocks);
 }
 
 }  // namespace

@@ -8,9 +8,11 @@ stored light vertex), all lane-wise: eye path i meets light path i, both
 keyed by pixel i's id.
 
 On CUDA tensors `render_sample` launches five kernels per sample: the walk
-kernel K12 (bdpt_walk.cu) for the light paths, the splat K11
-(bdpt_splat.cu, one thread per light vertex, atomicAdd into the frame
-buffer), K12 for the eye paths, and the connection stage K13 in two
+kernel K12 (bdpt_walk.cu, persistent threads that step one bounce of a
+path a trip) for the light paths, the splat K11 (bdpt_splat.cu in two
+stages: the light vertices that trace, binned by screen tile, then one
+shadow ray a thread in tile order, atomicAdd into the frame buffer), K12
+for the eye paths, and the connection stage K13 in two
 launches: bdpt_pairs.cu (one thread per eye vertex, strategy and pixel,
 one shadow ray each, its weighted term stored) and bdpt_gather.cu (one
 thread per pixel adding the terms in the JAX summation order). On CPU
@@ -189,6 +191,55 @@ def _splat_vertex(scene, camera, v, first: bool, cfg, fb,
            + torch.clamp(rx.to(torch.int32), 0, w - 1))
     fb.index_add_(0, pix.to(torch.int64), out)
     return rays
+
+
+SPLAT_TILE = 16          # K11's screen tiles: 16 x 16 pixels at least
+SPLAT_MAX_TILES = 8192   # bdpt_splat.cu kMaxTiles (its shared histogram)
+
+
+def splat_tiling(width: int, height: int) -> tuple:
+    """K11's screen tiles for a width x height frame: (tile, tiles_x,
+    tiles), tile pixels a side from SPLAT_TILE, doubled until the frame
+    has at most SPLAT_MAX_TILES (1920x1080: 16 px, 120 x 68 = 8160)."""
+    tile = SPLAT_TILE
+    while -(-width // tile) * -(-height // tile) > SPLAT_MAX_TILES:
+        tile *= 2
+    tiles_x = -(-width // tile)
+    return tile, tiles_x, tiles_x * -(-height // tile)
+
+
+def splat_queue_plain(camera, lbufs, lv0=None, n_live=None):
+    """Plain twin of K11's first stage (kernels.SplatPass.bin; any device):
+    the light vertices that trace a shadow ray to the lens (valid, not
+    delta, on screen: _splat_vertex's test), of paths i < n_live, as
+    entries r N + i (row r of path i: the endpoint lv0 then the stored
+    rows in the BDPT form; the stored rows alone in VCM's, lv0 None), in
+    the order of the screen tile of their pixel (splat_tiling), by entry
+    inside a tile. -> (queue [count] int64, offsets [tiles + 1] int64:
+    tile t's entries are queue[offsets[t]:offsets[t + 1]])."""
+    n, dev = lbufs.pt.shape[1], lbufs.pt.device
+    tile, tiles_x, tiles = splat_tiling(camera.width, camera.height)
+    rows = [] if lv0 is None else [(lv0["pt"], None, None)]
+    rows += [(lbufs.pt[j], lbufs.valid[j], lbufs.is_delta[j])
+             for j in range(lbufs.pt.shape[0])]
+    live = torch.arange(n, device=dev) < (n if n_live is None else n_live)
+    entries, tile_of = [], []
+    for r, (pt, valid, delta) in enumerate(rows):
+        rx, ry, on_screen = camera.world_to_raster(pt)
+        go = live & on_screen
+        if valid is not None:
+            go = go & valid & ~delta
+        ix = torch.clamp(rx.to(torch.int32), 0, camera.width - 1)
+        iy = torch.clamp(ry.to(torch.int32), 0, camera.height - 1)
+        lane = torch.nonzero(go).reshape(-1)
+        entries.append(r * n + lane)
+        tile_of.append(((iy // tile) * tiles_x + ix // tile)[lane]
+                       .to(torch.int64))
+    entry, t = torch.cat(entries), torch.cat(tile_of)
+    queue = entry[torch.argsort(t * (len(rows) * n) + entry)]
+    counts = torch.bincount(t, minlength=tiles)
+    offsets = torch.cat([counts.new_zeros(1), torch.cumsum(counts, 0)])
+    return queue, offsets
 
 
 # --- the connection stage (K13) ----------------------------------------------

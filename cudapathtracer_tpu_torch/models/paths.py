@@ -11,9 +11,10 @@ connection and splat stages read the decoded (rounded) vertices.
 walk kernel (kernels/csrc/bdpt_walk.cu, which bdpt.render_kernel launches
 through kernels.bdpt_walk with the key words of `walk_keys`): a per-depth
 loop over all lanes (the JAX scan) through ops/traverse, ops/bsdf and
-models/mis, on any device. The kernel runs one thread per path and writes
-the same buffers plus the escape record and the ray count. Every draw is
-keyed by the pixel id (py << 14) + px:
+models/mis, on any device. The kernel steps one bounce of a path a loop
+trip on persistent threads (a lane whose path ends takes the next) and
+writes the same buffers plus the escape record and the ray count. Every
+draw is keyed by the pixel id (py << 14) + px:
   eye raygen   draw_key(fold_in(key_e, 2**20), 0..3)
   light start  draw_key(key_l, 100..104): light pick, sqrt-warp u, v,
                cosine emission u1, u2

@@ -3,7 +3,8 @@ counted from K5's plain version, summed, equal the plain version's closest
 rays (the naive schedule, and the classic and mega ones without NEE, whose
 rays are then their closest rays); with NEE the events are fewer than the
 rays; the lane use of warps of 32 and blocks of 128 lies in (0, 1], the
-blocks' no higher than the warps'."""
+blocks' no higher than the warps'. The same for K12's light and eye walks
+(--walk), whose bounces sum to the plain walk's closest rays."""
 
 import os
 import sys
@@ -53,3 +54,18 @@ def test_band_rows_spread():
     rows = k5_lanes.band_rows(1080, 18, 2)
     assert len(rows) == 18 and rows[0] == 0 and rows[-1] == 1078
     assert k5_lanes.band_rows(32, 20, 2) == list(range(0, 32, 2))
+
+
+@pytest.mark.parametrize("mode,max_depth", [("light", 6), ("eye", 8)])
+def test_walk_events_and_lane_use(scene, mode, max_depth):
+    """K12's walks (--walk): each walk's bounces, min(max_depth - 1,
+    valid vertices + 1), sum to the plain walk's closest rays."""
+    cam = Camera.pinhole((0.0, 0.0, 1.0), W, H, 0.0, 0.0, 0.0, 60.0)
+    px, py = k5_lanes.band_pixels(W, H, H // 2, 2, "cpu")
+    ev, rays = k5_lanes.walk_events(scene, cam, mode, px, py,
+                                    max_depth=max_depth)
+    assert ev.shape == px.shape and int(ev.min()) >= 1
+    assert int(ev.max()) <= max_depth - 1
+    assert int(ev.sum()) == rays > 0
+    w32, b128 = k5_lanes.lane_use(ev, 32), k5_lanes.lane_use(ev, 128)
+    assert 0.0 < b128 <= w32 <= 1.0

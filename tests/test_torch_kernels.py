@@ -93,7 +93,8 @@ def test_import_builds_nothing():
                                   "photon_pack", "photon_table", "vcm_eye",
                                   "rgb9e5_roundtrip", "neighbor_slots",
                                   "mega_eye", "uniform_keyed",
-                                  "vcm_eye_pass", "mega_eye_pass"])
+                                  "vcm_eye_pass", "mega_eye_pass",
+                                  "splat_pass"])
 def test_wrappers_refuse_non_cuda_tensors(call):
     """A wrapper launches on CUDA tensors or raises; it never falls back."""
     kernels.reset_launches()
@@ -128,6 +129,7 @@ def test_wrappers_refuse_non_cuda_tensors(call):
         "packing_roundtrip": (f3, f3, b1, b1, i1, i1),
         "bdpt_walk": (scene, i1, i1, [0] * 12),
         "bdpt_splat": (scene, cam, bufs, v0, f3, i1, cfg),
+        "splat_pass": (scene, cam, bufs, v0, f3, i1, cfg),
         "bdpt_connect": (scene, cam, (0, 1), eye, dict(bufs=bufs, v0=v0),
                          f3, i1, cfg),
         "bdpt_pairs": (scene, cam, (0, 1), eye, dict(bufs=bufs, v0=v0), i1,
@@ -175,7 +177,8 @@ def test_wrappers_refuse_non_cuda_tensors(call):
     assert kernels.launches[{"rgb9e5_roundtrip": "rgb9e5",
                              "bdpt_connect": "bdpt_pairs",
                              "vcm_eye_pass": "vcm_eye_walk",
-                             "mega_eye_pass": "mega_eye_walk"
+                             "mega_eye_pass": "mega_eye_walk",
+                             "splat_pass": "bdpt_splat_bin"
                              }.get(call, call)] == 0
 
 

@@ -22,7 +22,7 @@ light 6), with the pass's strategy switches turned off in turn
 
 A toggled run changes the estimator: it is timed, never compared. It
 prints ptxas' registers, stack frame and spill bytes of every eye-pass,
-K5 and K13 instantiation of the build (the library is rebuilt with
+K5 and K11-K13 instantiation of the build (the library is rebuilt with
 -Xptxas=-v). The other parts:
 
   * --bit-equal prints K14's bit-equal pixel share against its plain
@@ -32,23 +32,34 @@ K5 and K13 instantiation of the build (the library is rebuilt with
     CUDA events (a batch's over its samples at more than one a dispatch)
     and the peak memory rise, through driver.Renderer for bdpt-, mega-,
     classic-, naive-, vcm-, sppm-, vcm-mega-, sppm-mega- and
-    bdpt-mega-1080p (4 spp), uni-mega-256 and naive-256 on cornell_blocks
+    bdpt-mega-1080p (4 spp), keyed-1080p (VCM-mega under
+    TPT_MEGA_LIGHT=1), uni-mega-256 and naive-256 on cornell_blocks
     at 1 and 8 samples a dispatch (--spp-256 samples),
     configs/vcm_caustics.rendertron as shipped with either engine, and
     through render_sample on the threaded scene (no config key selects
     it) for BDPT, K5 classic, VCM and SPPM; and K13 (kernels.bdpt_connect)
-    and one K5 mega sample alone at 1080p ("1080p alone");
-  * --dump DIR writes the outputs whose bits a redesign of K5 or K13 must
-    not move: K5's radiance, rays and rows for the mega, classic and naive
-    schedules on the 1080p bunny scene built for BVH8 and for the threaded
-    engine, with k = 1 and k = 8 samples a launch (sample 0 on), and
-    K13's radiance, rays and rows on the tree's K12 walks of sample 0 at
-    eye 8 and light 6, without a frame buffer and with a fixed one;
-    --compare A B then prints, case by case, whether two dumps are
-    bit-equal;
+    and one K5 mega sample alone at 1080p, and the launches of one
+    bdpt-1080p sample and of a vcm-1080p sample's light walk and splat
+    by CUDA events ("1080p alone");
+  * --dump DIR writes the outputs whose bits a redesign of K5, K12 or K13
+    must not move (--dump-cases REGEX keeps the cases whose name it
+    matches): K12's light walk (with and without VCM's d_vm chain) and
+    eye walk of sample 0 at light 6 and eye 8 on both scenes, and its
+    table mode's light walk on BVH8, every output (the buffers' dead rows
+    included, v0, the escape record, rays, rows) kept as a SHA-256; K5's
+    radiance, rays and rows for the mega, classic and naive schedules on
+    the 1080p bunny scene built for BVH8 and for the threaded engine,
+    with k = 1 and k = 8 samples a launch (sample 0 on), and K13's
+    radiance, rays and rows on the tree's K12 walks of sample 0 at eye 8
+    and light 6, without a frame buffer and with a fixed one; --compare A
+    B then prints, case by case, whether two dumps are bit-equal;
   * --per P [P ...] times K13's pair stage with P pairs a thread
     (kernels.bdpt_pairs(per=P)) on both scenes, and checks that the
-    terms, rays and rows do not depend on P.
+    terms, rays and rows do not depend on P;
+  * --walks times K12's 1080p walks (light, light with eta_vcm, eye; with
+    a digest of every output, so that two trees' walks compare) and K11's
+    BDPT form whole and stage by stage, its first stage's kernels and
+    the light walk's (its prologue) by the profiler (walks_and_splat).
 
 It uses only entry points whose signatures both designs of a redesigned
 kernel share (or tells them apart), so --root may name another checkout
@@ -59,7 +70,8 @@ repository root:
 
     python3 tools/eye_attribution.py [--root DIR] [--toggles] [--reps 2]
         [--bit-equal] [--renders [--cells REGEX] [--spp-256 N]]
-        [--dump DIR] [--per 1 6 42] [--json FILE]
+        [--dump DIR [--dump-cases REGEX]] [--per 1 6 42] [--walks]
+        [--json FILE]
     python3 tools/eye_attribution.py --compare DUMP_A DUMP_B
 """
 
@@ -67,6 +79,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import hashlib
 import json
 import os
 import re
@@ -76,6 +89,7 @@ import time
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 WIDTH, HEIGHT, SPP, DEPTH = 1920, 1080, 4, 8
+VCM_ETA = 5.1471854   # eta_vcm of a VCM light walk (chip_smoke's)
 CLASSIC_TOGGLES = {"all on": {}, "no connections": dict(connection=False),
                    "no merge": dict(do_merge=False), "no NEE": dict(nee=False),
                    "bare walk": dict(connection=False, do_merge=False)}
@@ -99,10 +113,10 @@ def _events_ms(fn, reps: int = 3) -> float:
 
 def ptxas_eye(log: str) -> dict:
     """{entry: (registers, stack bytes, spill stores, spill loads)} of the
-    eye-pass, K5 and K13 kernels in a ptxas -v report."""
+    eye-pass, K5 and K11-K13 kernels in a ptxas -v report."""
     out = {}
     for m in re.finditer(r"Compiling entry function "
-                         r"'([^']*(?:eye|uni_mega|bdpt_pairs|bdpt_gather)"
+                         r"'([^']*(?:eye|uni_mega|bdpt_|splat_)"
                          r"[^']*)'"
                          r".*?(\d+) bytes stack frame, (\d+) bytes spill "
                          r"stores, (\d+) bytes spill loads.*?Used (\d+) "
@@ -311,22 +325,90 @@ def k13_inputs(scene, cam, px, py, bcfg):
     return lw, ew, key_c
 
 
-def dump(path: str, scenes: dict, cam, px, py, bcfg, log) -> None:
-    """Write the bit-equality cases of K5 and K13 (torch.save, one file a
-    case)."""
+def k12_cases(scene, cam, px, py, bcfg, table: bool):
+    """Sample 0's K12 walks of the 1080p frame, every output on the host:
+    {case: {name: tensor}}. The light walk (light depth), the same with
+    VCM's d_vm chain (eta_vcm) and the eye walk (eye depth); with table,
+    the table mode's light walk (the keys of light_mega.key_tables) with
+    and without eta_vcm, BVH8 on every scene."""
+    import torch
+    from cudapathtracer_tpu_torch import kernels
+    from cudapathtracer_tpu_torch.models import light_mega, paths
+    key_l, key_e, _ = bdpt_keys()
+    n = px.shape[0]
+    runs = {"light": dict(mode="light", max_depth=bcfg.light_depth),
+            "light_vm": dict(mode="light", max_depth=bcfg.light_depth,
+                             eta_vcm=VCM_ETA),
+            "eye": dict(mode="eye", max_depth=bcfg.eye_depth, camera=cam)}
+    if table:
+        tab = light_mega.device_table(
+            *light_mega.key_tables(key_l, bcfg.light_depth), px.device)
+        runs = {"table": dict(runs["light"], key_table=tab),
+                "table_vm": dict(runs["light_vm"], key_table=tab)}
+    out = {}
+    for case, kw in runs.items():
+        rays = torch.zeros(n, dtype=torch.int32, device=px.device)
+        keys = paths.walk_keys(key_e if kw["mode"] == "eye" else key_l,
+                               kw["mode"])
+        w = kernels.bdpt_walk(scene, px, py, keys, rays=rays,
+                              with_rows=True, **kw)
+        t = {f"bufs.{f}": getattr(w["bufs"], f)
+             for f in paths.PathBuffers._fields}
+        t.update({f"v0.{k}": v for k, v in w["v0"].items()})
+        if w["escape"] is not None:
+            t.update({f"escape.{f}": getattr(w["escape"], f)
+                      for f in ("valid", "d", "beta")})
+        t.update(rays=rays, rows=w["rows"])
+        out[case] = {k: v.contiguous().cpu() for k, v in t.items()}
+    return out
+
+
+def digests(t: dict) -> dict:
+    """A K12 case as {output: SHA-256 of its bytes}, with the ray and row
+    totals (the buffers are too large to keep)."""
+    out = {k: hashlib.sha256(v.numpy().tobytes()).hexdigest()
+           for k, v in t.items()}
+    out.update(rays_sum=int(t["rays"].sum()), rows_sum=int(t["rows"].sum()))
+    return out
+
+
+def bdpt_keys():
+    from cudapathtracer_tpu_torch.models import bdpt
+    from cudapathtracer_tpu_torch.utils import rng
+    return bdpt.sample_keys(rng.base_key(), 0)
+
+
+def dump(path: str, scenes: dict, cam, px, py, bcfg, log,
+         cases: str = "") -> None:
+    """Write the bit-equality cases of K5, K12 and K13 (torch.save, one
+    file a case) whose name matches the regular expression `cases`."""
     import torch
     from cudapathtracer_tpu_torch import kernels
     os.makedirs(path, exist_ok=True)
     n = px.shape[0]
     for eng, sc in scenes.items():
+        for table in (False, True):
+            if table and eng != "bvh8":
+                continue   # the table mode runs BVH8 on every scene
+            if not re.search(cases, "k12_table" if table else f"k12_{eng}"):
+                continue
+            for case, t in k12_cases(sc, cam, px, py, bcfg, table).items():
+                name = f"k12_{case}" if table else f"k12_{eng}_{case}"
+                d = digests(t)
+                torch.save(d, os.path.join(path, f"{name}.pt"))
+                log(f"[ab] dumped K12 {name}: {d['rays_sum']} rays")
         for sched in ("mega", "classic", "naive"):
             for k in (1, 8):
+                if not re.search(cases, f"k5_{eng}_{sched}_k{k}"):
+                    continue
                 li, rays, rows = k5(sc, cam, px, py, sched, 0, k)
                 torch.save(dict(li=li.cpu(), rays=rays.cpu(),
                                 rows=rows.cpu()),
                            os.path.join(path, f"k5_{eng}_{sched}_k{k}.pt"))
                 log(f"[ab] dumped K5 {eng} {sched} k={k}: "
                     f"{int(rays.sum())} rays")
+        if not re.search(cases, f"k13_{eng}"):
+            continue
         lw, ew, key_c = k13_inputs(sc, cam, px, py, bcfg)
         gen = torch.Generator().manual_seed(7)
         fixed = torch.rand((n, 3), generator=gen).to(px.device)
@@ -342,8 +424,8 @@ def dump(path: str, scenes: dict, cam, px, py, bcfg, log) -> None:
 
 
 def compare(a: str, b: str) -> int:
-    """Case by case: bit-equal li, rays and rows, or how far apart; the
-    number of cases that differ."""
+    """Case by case: bit-equal li, rays and rows (K5, K13) or every output
+    (K12), or how far apart; the number of cases that differ."""
     import torch
     bad, names = 0, sorted(os.listdir(a))
     if not names:
@@ -352,6 +434,15 @@ def compare(a: str, b: str) -> int:
     for name in names:
         x = torch.load(os.path.join(a, name))
         y = torch.load(os.path.join(b, name))
+        if "li" not in x:   # K12: every output's digest, dead rows included
+            diff = [k for k in x if x[k] != y.get(k)]
+            bad += bool(diff)
+            print(f"[ab] {name[:-3]}: "
+                  f"{'DIFFERS in ' + ', '.join(diff) if diff else 'bit-equal'}"
+                  f" ({len(x) - 2} outputs, rays {x['rays_sum']} / "
+                  f"{y['rays_sum']}, rows {x['rows_sum']} / {y['rows_sum']})",
+                  flush=True)
+            continue
         li_eq = (x["li"].view(torch.int32) == y["li"].view(torch.int32))
         pix = li_eq.all(dim=1).float().mean().item()
         same = (bool(li_eq.all()) and torch.equal(x["rays"], y["rays"])
@@ -451,6 +542,14 @@ def renders(cfg0, scenes: dict, cam, px, py, bcfg, log=print,
     for tag, engine in (("caustics-512", "classic"),
                         ("caustics-mega-512", "mega")):
         through_renderer(tag, dataclasses.replace(caustics, engine=engine))
+    if re.search(cells, "keyed-1080p"):
+        # TPT_MEGA_LIGHT=1: VCM-mega's light walk in K12's table mode
+        os.environ["TPT_MEGA_LIGHT"] = "1"
+        try:
+            through_renderer("keyed-1080p", dataclasses.replace(
+                c1080, integrator="VCM", engine="mega"))
+        finally:
+            del os.environ["TPT_MEGA_LIGHT"]
     tsc = scenes["threaded"]
     vcfg = {integ: vcm.VCMConfig.from_config(dataclasses.replace(
         cfg0, integrator=integ, engine="classic").normalized())
@@ -475,6 +574,125 @@ def renders(cfg0, scenes: dict, cam, px, py, bcfg, log=print,
     res["K5 mega ms"] = _events_ms(lambda: k5(s8, cam, px, py, "mega", 0, 1))
     log(f"[ab] 1080p alone: K13 {res['K13 ms']:.3f} ms, K5 mega sample "
         f"{res['K5 mega ms']:.3f} ms")
+    res["launches"] = sample_launches(s8, cam, px, py, bcfg, vcfg["VCM"])
+    for tag, ms in res["launches"].items():
+        log(f"[ab] one {tag} sample by launch: " + ", ".join(
+            f"{k} {v:.3f} ms" for k, v in ms.items()))
+    return res
+
+
+def _timed_in_turn(steps, reps: int = 2) -> dict:
+    """{name: ms} of steps [(name, fn)] run in order, each between two
+    CUDA events; the last of reps passes (the first warms up)."""
+    import torch
+    for _ in range(reps):
+        ev = [torch.cuda.Event(enable_timing=True)
+              for _ in range(len(steps) + 1)]
+        ev[0].record()
+        for k, (_, fn) in enumerate(steps):
+            fn()
+            ev[k + 1].record()
+        torch.cuda.synchronize()
+    return {name: ev[k].elapsed_time(ev[k + 1])
+            for k, (name, _) in enumerate(steps)}
+
+
+def sample_launches(scene, cam, px, py, bcfg, vcfg) -> dict:
+    """The launches of one 1080p bdpt sample (K12 light, K11, K12 eye,
+    K13) and of a vcm sample's light side (K12 with eta_vcm, K11's VCM
+    form), sample 0, by CUDA events: {cell: {launch: ms}}."""
+    import torch
+    from cudapathtracer_tpu_torch import kernels
+    from cudapathtracer_tpu_torch.models import paths, vcm
+    from cudapathtracer_tpu_torch.utils import rng
+    n = px.shape[0]
+    key_l, key_e, key_c = bdpt_keys()
+    rays = torch.zeros(n, dtype=torch.int32, device=px.device)
+    fb = torch.zeros((n, 3), device=px.device)
+    st = {}
+    steps = [
+        ("light walk", lambda: st.update(lw=kernels.bdpt_walk(
+            scene, px, py, paths.walk_keys(key_l, "light"), mode="light",
+            max_depth=bcfg.light_depth, rays=rays))),
+        ("splat", lambda: kernels.bdpt_splat(
+            scene, cam, st["lw"]["bufs"], st["lw"]["v0"], fb, rays, bcfg)),
+        ("eye walk", lambda: st.update(ew=kernels.bdpt_walk(
+            scene, px, py, paths.walk_keys(key_e, "eye"), mode="eye",
+            max_depth=bcfg.eye_depth, rays=rays, camera=cam))),
+        ("K13", lambda: kernels.bdpt_connect(
+            scene, cam, key_c, st["ew"], st["lw"], fb, rays, bcfg, px=px,
+            py=py))]
+    out = {"bdpt-1080p": _timed_in_turn(steps)}
+    vkey_l, _ = vcm.sample_keys(rng.base_key(), 0)
+    _, eta, _ = vcm.sample_scalars(scene, vcfg, 0, n)
+    steps = [
+        ("light walk", lambda: st.update(vw=kernels.bdpt_walk(
+            scene, px, py, paths.walk_keys(vkey_l, "light"), mode="light",
+            max_depth=vcfg.light_depth + 1, rays=rays, eta_vcm=eta))),
+        ("vcm_splat", lambda: kernels.vcm_splat(
+            scene, cam, st["vw"]["bufs"], fb, rays, vcfg, eta))]
+    out["vcm-1080p"] = _timed_in_turn(steps)
+    return out
+
+
+def walks_and_splat(scene, cam, px, py, bcfg, log, reps: int = 5) -> dict:
+    """K12's light walk (with and without VCM's d_vm chain) and eye walk of
+    sample 0 at 1080p (their outputs' SHA-256, so that two trees' walks can
+    be held equal), and K11's BDPT form on the light walk, whole and stage
+    by stage, by CUDA events; on a tree whose K11 has stages, the first
+    stage's kernels and the light walk's by the profiler. -> {name:
+    ms}."""
+    import torch
+    from cudapathtracer_tpu_torch import kernels
+    from cudapathtracer_tpu_torch.models import paths
+    key_l, key_e, _ = bdpt_keys()
+    n = px.shape[0]
+    rays = torch.zeros(n, dtype=torch.int32, device=px.device)
+    res = {}
+    for case, t in k12_cases(scene, cam, px, py, bcfg, False).items():
+        kw = dict(mode="eye", max_depth=bcfg.eye_depth, camera=cam) \
+            if case == "eye" else dict(mode="light",
+                                       max_depth=bcfg.light_depth,
+                                       eta_vcm=VCM_ETA if case == "light_vm"
+                                       else None)
+        keys = paths.walk_keys(key_e if case == "eye" else key_l, kw["mode"])
+        res[f"walk {case}"] = _events_ms(lambda: kernels.bdpt_walk(
+            scene, px, py, keys, rays=rays, **kw), reps)
+        digest = hashlib.sha256("".join(
+            v for k, v in sorted(digests(t).items())
+            if isinstance(v, str)).encode()).hexdigest()[:16]
+        log(f"[walks] K12 {case} walk: {res[f'walk {case}']:.3f} ms, "
+            f"outputs' digest {digest}")
+    lw = kernels.bdpt_walk(scene, px, py, paths.walk_keys(key_l, "light"),
+                           mode="light", max_depth=bcfg.light_depth,
+                           rays=rays)
+    fb = torch.zeros((n, 3), device=px.device)
+    res["splat"] = _events_ms(lambda: kernels.bdpt_splat(
+        scene, cam, lw["bufs"], lw["v0"], fb, rays, bcfg), reps)
+    line = f"[walks] K11 bdpt_splat {res['splat']:.3f} ms"
+    if hasattr(kernels, "splat_pass"):
+        from torch.profiler import ProfilerActivity, profile
+        sp = kernels.splat_pass(scene, cam, lw["bufs"], lw["v0"], fb, rays,
+                                bcfg)
+        res["bin"] = _events_ms(sp.bin, reps)
+        res["trace"] = _events_ms(sp.trace, reps)
+        line += (f" (classify and bin {res['bin']:.3f} ms, trace and splat "
+                 f"{res['trace']:.3f} ms)")
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                sp.bin()
+                kernels.bdpt_walk(scene, px, py,
+                                  paths.walk_keys(key_l, "light"),
+                                  mode="light", max_depth=bcfg.light_depth,
+                                  rays=rays)
+            torch.cuda.synchronize()
+        for e in prof.key_averages():
+            if e.device_time_total > 0:
+                m = re.search(r"(\w+)\(", e.key)
+                name = m.group(1) if m else e.key
+                res[name] = e.device_time_total / e.count / 1e3
+                line += f"; {name} {res[name]:.4f} ms"
+    log(line)
     return res
 
 
@@ -526,16 +744,21 @@ def main() -> int:
     ap.add_argument("--spp-256", type=int, default=256)
     ap.add_argument("--bit-equal", action="store_true", help="also print "
                     "K14's bit-equal share through the tree's chip_smoke")
-    ap.add_argument("--dump", default=None, help="write K5's and K13's "
-                    "bit-equality cases into this directory")
+    ap.add_argument("--dump", default=None, help="write K5's, K12's and "
+                    "K13's bit-equality cases into this directory")
+    ap.add_argument("--dump-cases", default="", help="with --dump: the "
+                    "cases whose name this regular expression matches")
     ap.add_argument("--compare", nargs=2, default=None, help="compare two "
                     "dumps case by case (needs no GPU)")
     ap.add_argument("--per", type=int, nargs="+", default=None)
+    ap.add_argument("--walks", action="store_true", help="time K12's walks "
+                    "and K11's stages at 1080p (walks_and_splat)")
     args = ap.parse_args()
     if args.compare:
         return 1 if compare(*args.compare) else 0
     toggles = args.toggles or not (args.renders or args.bit_equal
-                                   or args.dump or args.per)
+                                   or args.dump or args.per
+                                   or args.walks)
     root = os.path.abspath(args.root)
     sys.path.insert(0, root)
     import torch
@@ -586,12 +809,14 @@ def main() -> int:
         out["bit_equal"] = bit_equal_shares(root, scenes["bvh8"], cam, px,
                                             py, cfg0)
     if args.dump:
-        dump(args.dump, scenes, cam, px, py, bcfg, log)
+        dump(args.dump, scenes, cam, px, py, bcfg, log, args.dump_cases)
     if args.renders:
         out["renders"] = renders(cfg0, scenes, cam, px, py, bcfg, log,
                                  args.cells, args.spp_256)
     if args.per:
         out["per"] = per_pairs(scenes, cam, px, py, bcfg, args.per, log)
+    if args.walks:
+        out["walks"] = walks_and_splat(scenes["bvh8"], cam, px, py, bcfg, log)
     if args.json:
         os.makedirs(os.path.dirname(os.path.abspath(args.json)),
                     exist_ok=True)

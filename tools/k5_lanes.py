@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""How busy K5's lanes are: events per path, and the lane use of warps.
+"""How busy K5's and K12's lanes are: events per path, and the lane use
+of warps.
 
 K5 (kernels/csrc/uni_mega.cu) steps a path one event (one closest ray and
 its shading) at a time, and a path takes 1 to 133 events. If one thread
@@ -25,12 +26,20 @@ over warps of the most events one lane stepped). Under regeneration every
 lane draws pixels until they run out, so the event balance is near 1 by
 design; the lane use also shows lanes that step their events apart.
 
+With --walk light|eye it counts K12's walks instead (kernels/csrc/
+bdpt_walk.cu, which steps one bounce of a path per loop trip): a walk of
+max_depth (--depth; 6 for the light walk, 8 for the eye walk, the
+config's) takes min(max_depth - 1, valid vertices + 1) bounces, each one
+closest ray, counted from the plain walk (models/paths.py, sample 0's BDPT
+keys); with --card K12 runs on the whole frame with its lane counters.
+
 Run from the repository root (the plain version on the CPU is slow: a few
 bands of a 1080p frame take minutes; --device cuda runs it on the card):
 
-    python3 tools/k5_lanes.py [--schedule mega|classic|naive]
-        [--width 1920 --height 1080 --depth 8] [--bands 18 --band-rows 2]
-        [--mesh builtin:cornell_bunny] [--device cpu|cuda] [--card]
+    python3 tools/k5_lanes.py [--schedule mega|classic|naive | --walk
+        light|eye] [--width 1920 --height 1080 --depth 8]
+        [--bands 18 --band-rows 2] [--mesh builtin:cornell_bunny]
+        [--device cpu|cuda] [--card]
 """
 
 from __future__ import annotations
@@ -107,6 +116,25 @@ def path_events(scene, camera, schedule: str, px, py, *, max_depth: int,
     return events, int(rays)
 
 
+def walk_events(scene, camera, mode: str, px, py, *, max_depth: int,
+                sample_idx: int = 0):
+    """Each walk's bounces [N] int64, min(max_depth - 1, valid vertices +
+    1), from K12's plain version (sample sample_idx's BDPT keys), and the
+    plain walk's rays (a Python int)."""
+    import torch
+    from cudapathtracer_tpu_torch.models import bdpt, paths
+    from cudapathtracer_tpu_torch.utils import rng
+    key_l, key_e, _ = bdpt.sample_keys(rng.base_key(), sample_idx)
+    if mode == "light":
+        bufs, _, rays = paths.generate_light_path(scene, key_l, px, py,
+                                                  max_depth)
+    else:
+        bufs, _, _, rays = paths.generate_eye_path(scene, camera, key_e, px,
+                                                   py, max_depth)
+    valid = bufs.valid.sum(dim=0).to(torch.int64)
+    return torch.clamp(valid + 1, max=max_depth - 1), int(rays)
+
+
 def lane_use(events, group: int) -> float:
     """sum(events) / (group x sum over groups of `group` consecutive paths
     of the group's most events); the last group is padded with idle
@@ -139,13 +167,42 @@ def card_lane_use(scene, camera, schedule: str, max_depth: int, dev) -> tuple:
             kernels.render_unidirectional_grid(scene, px.shape[0], schedule))
 
 
+def card_walk_lane_use(scene, camera, mode: str, max_depth: int,
+                       dev) -> tuple:
+    """K12 on the whole frame with its lane counters (sample 0's keys):
+    (lane use, event balance, bounces, warp calls of the bounce code,
+    blocks of the grid)."""
+    import torch
+    from cudapathtracer_tpu_torch import kernels
+    from cudapathtracer_tpu_torch.models import bdpt, paths
+    from cudapathtracer_tpu_torch.utils import rng
+    gy, gx = torch.meshgrid(
+        torch.arange(camera.height, dtype=torch.int32, device=dev),
+        torch.arange(camera.width, dtype=torch.int32, device=dev),
+        indexing="ij")
+    px, py = gx.reshape(-1).contiguous(), gy.reshape(-1).contiguous()
+    key_l, key_e, _ = bdpt.sample_keys(rng.base_key(), 0)
+    lanes = torch.zeros(3, dtype=torch.int64, device=dev)
+    kernels.bdpt_walk(scene, px, py,
+                      paths.walk_keys(key_l if mode == "light" else key_e,
+                                      mode),
+                      mode=mode, max_depth=max_depth, camera=camera,
+                      rays=torch.zeros_like(px), lanes=lanes)
+    events, busiest, calls = lanes.tolist()
+    return (events / (32 * calls), events / (32 * busiest), events, calls,
+            kernels.bdpt_walk_grid(scene, px.shape[0]))
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("--schedule", default="mega",
                     choices=("mega", "classic", "naive"))
     ap.add_argument("--width", type=int, default=1920)
     ap.add_argument("--height", type=int, default=1080)
-    ap.add_argument("--depth", type=int, default=8)
+    ap.add_argument("--walk", default=None, choices=("light", "eye"),
+                    help="count K12's walk of this mode instead of K5")
+    ap.add_argument("--depth", type=int, default=None, help="max depth "
+                    "(default 8; the light walk 6)")
     ap.add_argument("--bands", type=int, default=18)
     ap.add_argument("--band-rows", type=int, default=2)
     ap.add_argument("--mesh", default="builtin:cornell_bunny",
@@ -154,6 +211,8 @@ def main() -> int:
     ap.add_argument("--card", action="store_true", help="also launch K5 "
                     "on the whole frame on the card with its lane counter")
     args = ap.parse_args()
+    if args.depth is None:
+        args.depth = 6 if args.walk == "light" else 8
     sys.path.insert(0, ROOT)
     import torch
     from cudapathtracer_tpu_torch.scene import builtin
@@ -170,15 +229,21 @@ def main() -> int:
                          0.0, 60.0)
     px, py = band_pixels(args.width, args.height, args.bands, args.band_rows,
                          dev)
-    ev, rays = path_events(scene, cam, args.schedule, px, py,
-                           max_depth=args.depth)
+    if args.walk:
+        ev, rays = walk_events(scene, cam, args.walk, px, py,
+                               max_depth=args.depth)
+    else:
+        ev, rays = path_events(scene, cam, args.schedule, px, py,
+                               max_depth=args.depth)
     evf = ev.double()
-    print(f"[k5_lanes] {args.schedule}, {args.mesh} {args.width}x"
+    what = f"{args.walk} walk" if args.walk else args.schedule
+    print(f"[k5_lanes] {what}, {args.mesh} {args.width}x"
           f"{args.height} depth {args.depth}, {args.bands} bands of "
           f"{args.band_rows} rows: {ev.numel()} paths, {int(ev.sum())} "
           f"events ({rays} rays); events a path mean {evf.mean():.3f}, p99 "
           f"{torch.quantile(evf.cpu(), 0.99).item():.0f}, max "
-          f"{int(ev.max())}")
+          f"{int(ev.max())}; histogram of 1..max "
+          f"{torch.bincount(ev.cpu())[1:].tolist()}")
     print(f"[k5_lanes] one path a thread: lane use {lane_use(ev, 32):.4f} "
           f"(warps of 32), {lane_use(ev, 128):.4f} (blocks of 128)")
     if args.card:
@@ -188,8 +253,12 @@ def main() -> int:
         cdev = torch.device("cuda", 0)
         csc = scene if dev.type == "cuda" else build_scene(
             mesh, builtin_materials(), device=cdev)[0]
-        use, balance, events, calls, blocks = card_lane_use(
-            csc, cam, args.schedule, args.depth, cdev)
+        if args.walk:
+            use, balance, events, calls, blocks = card_walk_lane_use(
+                csc, cam, args.walk, args.depth, cdev)
+        else:
+            use, balance, events, calls, blocks = card_lane_use(
+                csc, cam, args.schedule, args.depth, cdev)
         print(f"[k5_lanes] card ({torch.cuda.get_device_name(0)}), whole "
               f"frame, path regeneration on {blocks} blocks of 128: "
               f"{events} events in {calls} warp calls of the event code, "

@@ -54,7 +54,11 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 LAYERS = (("K5 megakernel", "uni_mega_kernel"),
           ("K5 key table", "uni_mega_keys_kernel"),
           ("K12 BDPT walks", "bdpt_walk_kernel"),
-          ("K11 splat (BDPT or VCM form)", "bdpt_splat_kernel"),
+          ("K12 prologue (endpoints, dead rows)", "bdpt_walk_start_kernel"),
+          ("K11 stage 1: classify", "splat_classify_kernel"),
+          ("K11 stage 1: scan", "splat_scan_kernel"),
+          ("K11 stage 1: scatter", "splat_scatter_kernel"),
+          ("K11 stage 2: trace and splat", "splat_trace_kernel"),
           ("K13 BDPT connection rays", "bdpt_pairs_kernel"),
           ("K13 BDPT gather", "bdpt_gather_kernel"),
           ("K8 photon_pack", "photon_pack_kernel"),
