@@ -8,7 +8,8 @@ Phases (one line each; any failure exits non-zero before the result line):
   1. a CUDA card is required; print nvidia-smi's name and power limit;
   2. build the kernels from kernels/csrc into build/torch_ext (one nvcc per
      source, all at once); print the build seconds and each kernel's
-     registers, stack frame and spill bytes (ptxas);
+     registers, stack frame and spill bytes (ptxas), those of the kernels
+     K1 runs in also on K1's rows of the kernels line;
   3. K6 (rng.cu) against its plain version on 2,073,600 ids: bit-equal;
   4. K7 (camera.cu) against its plain version at 1920x1080: max abs <= 1e-6;
   5. K1 (traverse8.cu) against its plain version on the ~82k-triangle
@@ -88,8 +89,11 @@ Phases (one line each; any failure exits non-zero before the result line):
      stage against its plain twin on the same inputs (compare_eye_stages:
      the walk's records under compare_records, the connections over the
      live pairs and the gather under compare_image at 99.5%, rays and
-     dropped photons equal), K8 (photon_pack, a stable torch.sort,
-     photon_table) bit-equal to build_grid; the same for SPPM, and for VCM
+     dropped photons equal), K8 (photon_pack, the hand-written stable
+     radix sort photon_sort, photon_table) bit-equal to build_grid, the
+     sort's order and sorted buckets equal to torch.sort's (int64 and
+     sign-flipped int32 keys, both timed as its library calls) and its
+     twin's (compare_photon_sort); the same for SPPM, and for VCM
      on the 512x512 mirror + glass spheres at the caustics config's depths
      (samples 0 and 1); each kernel and stage timed at the 1080p shapes,
      the 1080p splat twice to print the spread from atomicAdd's order;
@@ -98,8 +102,8 @@ Phases (one line each; any failure exits non-zero before the result line):
      Engine classic on the same config (1080p bunny, 4 spp), then
      configs/vcm_caustics.rendertron with Engine classic at 4 spp: rays,
      render-phase seconds, Mrays/s, peak memory, launches per sample (K12,
-     vcm_splat, photon_pack, photon_table, vcm_eye; SPPM without the
-     splat; and one torch.sort), merge-cap dropped photons; finite,
+     vcm_splat, photon_pack, photon_sort, photon_table, vcm_eye; SPPM
+     without the splat), merge-cap dropped photons; finite,
      non-negative, > 90% non-black;
  19. one 1080p VCM sample's launches timed with CUDA events (the eye
      pass stage by stage);
@@ -121,7 +125,7 @@ Phases (one line each; any failure exits non-zero before the result line):
  23. the default-engine main paths through Renderer: Integrator VCM, SPPM
      and BIDIRECTIONAL with no Engine line on the same config (1080p bunny,
      4 spp, two chunks a sample: per chunk K12, the splat, photon_pack,
-     torch.sort, photon_table and mega_eye; SPPM without the splat; BDPT
+     photon_sort, photon_table and mega_eye; SPPM without the splat; BDPT
      K12, bdpt_splat, mega_eye), configs/vcm_caustics.rendertron as shipped
      at 4 spp (one chunk), and NAIVE_UNIDIRECTIONAL at depth 8 (one launch
      a sample; > 5% non-black, its image being sparse): rays, render-phase
@@ -205,12 +209,17 @@ threaded instantiation, whose launches there the two entries carry in
 uniform_keyed are the test entries of device code that runs inside K5,
 K14 and K12, so 0), error and times against its plain version, its
 bound on this card and the library call's time (null: no PyTorch call
-computes these functions), the card's name and power limit, and as the
+computes these functions; photon_sort's is torch.sort's, the faster of
+library_ms_int64 and library_ms_int32), the card's name and power limit,
+and as the
 last line {"ok": true, "device": {...}}. The eye passes have a row each
 (vcm_eye, mega_eye: the pass, counted once a pass and timed as its
 three launches) and a row per stage (<pass>_walk, _connect, _gather);
 K13 a row per stage (bdpt_pairs, bdpt_gather), K11 a row per stage of
-each form (bdpt_splat_bin, _trace; vcm_splat_bin, _trace); K5
+each form (bdpt_splat_bin, _trace; vcm_splat_bin, _trace); K1's two
+rows the ptxas numbers of each kernel it runs in ("ptxas") and its
+traversals on the mega path (the rays of its 4 samples, inside K5's
+launches, "launches_of_the_kernel_it_runs_in"); K5
 (render_unidirectional, naive) its lane use and event balance on the
 1080p sample (phase 7b), K12 (bdpt_walk, bdpt_walk_table) theirs over
 the 1080p walks (phase 11) and the table mode's chunk (phase 26).
@@ -269,6 +278,8 @@ KERNELS = (  # name, source, the JAX function it replaces
      "cudapathtracer_tpu/ops/hashgrid.py:151"),
     ("photon_table", CSRC + "photon_grid.cu",
      "cudapathtracer_tpu/ops/hashgrid.py:151"),
+    ("photon_sort", CSRC + "radix_sort.cu",
+     "cudapathtracer_tpu/ops/hashgrid.py:151"),
     ("vcm_eye", CSRC + "eye.cuh", "cudapathtracer_tpu/models/vcm.py:150"),
     ("vcm_eye_walk", CSRC + "eye_walk.cu",
      "cudapathtracer_tpu/models/vcm.py:150"),
@@ -296,20 +307,30 @@ KERNELS = (  # name, source, the JAX function it replaces
     ("shadow_factor_bin", CSRC + "traverse_bin.cu",
      "cudapathtracer_tpu/ops/traverse.py:203"),
 )
+# the kernels K1 (traverse8.cuh) runs in, BVH8 instantiations: its batch
+# entries, K5, K12, K11's trace, K13's pairs, the eye passes' walk and
+# connections (classic, mega VCM, mega BDPT)
+K1_HOSTS = ("traverse8_kernelILb0E", "traverse8_kernelILb1E",
+            "uni_mega_kernelILi0E", "bdpt_walk_kernelILi0E",
+            "splat_trace_kernelILi0E", "bdpt_pairs_kernelILi0E",
+            *(k + f + "Li0E" for k in ("eye_walk_kernel",
+                                       "eye_connect_kernel")
+              for f in ("ILi0E", "ILi1E", "ILi2E")))
 BDPT_KERNELS = ("bdpt_walk", "bdpt_splat", "bdpt_splat_bin",
                 "bdpt_splat_trace", "bdpt_pairs", "bdpt_gather")
 PHOTON_KERNELS = ("vcm_splat", "vcm_splat_bin", "vcm_splat_trace",
-                  "photon_pack", "photon_table", "vcm_eye",
+                  "photon_pack", "photon_sort", "photon_table", "vcm_eye",
                   "vcm_eye_walk", "vcm_eye_connect", "vcm_eye_gather")
 # the mega engines' launches per chunk of a sample (K12, the splat, K8's
 # two launches, K14 and its stages; SPPM has no connection stage), by
 # integrator
 MEGA_KERNELS = {
     "VCM": ("bdpt_walk", "vcm_splat", "vcm_splat_bin", "vcm_splat_trace",
-            "photon_pack", "photon_table",
+            "photon_pack", "photon_sort", "photon_table",
             "mega_eye", "mega_eye_walk", "mega_eye_connect",
             "mega_eye_gather"),
-    "SPPM": ("bdpt_walk", "photon_pack", "photon_table", "mega_eye",
+    "SPPM": ("bdpt_walk", "photon_pack", "photon_sort", "photon_table",
+             "mega_eye",
              "mega_eye_walk", "mega_eye_gather"),
     "BIDIRECTIONAL": ("bdpt_walk", "bdpt_splat", "bdpt_splat_bin",
                       "bdpt_splat_trace", "mega_eye", "mega_eye_walk",
@@ -995,6 +1016,55 @@ def compare_grid(k, p, what: str) -> None:
     say("K8", f"{what}: {k.rows.shape[0]} sorted rows ({invalid} invalid in "
         f"the sentinel bucket), table of {t + 1} buckets (key wraps: "
         f"{t > 2 ** 24}): rows and (start, end) bit-equal")
+
+
+def compare_photon_sort(key, bucket, table_size: int, stats: dict,
+                        what: str) -> tuple:
+    """K8's sort (kernels.photon_sort) on photon_pack's keys and buckets
+    against its plain twin (hashgrid.radix_sort_plain) and torch.sort
+    (stable) on the same keys as int64 and as sign-flipped int32: the
+    order and the sorted buckets equal. Fills stats["photon_sort"] (the
+    library times are the two torch.sort calls) and returns (order,
+    bucket[order])."""
+    import torch
+    from cudapathtracer_tpu_torch import kernels
+    from cudapathtracer_tpu_torch.ops import hashgrid
+    n = key.shape[0]
+    bits = hashgrid.key_bits(table_size, hashgrid.REWEIGHT)
+    order, sorted_h = kernels.photon_sort(key, bits, bucket)
+    k64 = key.to(torch.int64) & 0xFFFFFFFF
+    k32 = key ^ torch.iinfo(torch.int32).min      # uint32 order as int32
+    lib64 = torch.sort(k64, stable=True).indices
+    lib32 = torch.sort(k32, stable=True).indices
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    twin, twin_h = hashgrid.radix_sort_plain(key, bits, bucket)
+    t1.record()
+    torch.cuda.synchronize()
+    o64 = order.to(torch.int64)
+    check(torch.equal(o64, lib64) and torch.equal(o64, lib32)
+          and torch.equal(o64, twin), f"K8 sort {what}: the order differs "
+          "from torch.sort's or the twin's")
+    check(torch.equal(sorted_h, bucket[lib64]) and torch.equal(
+        sorted_h, twin_h), f"K8 sort {what}: the sorted buckets differ")
+    passes = -(-bits // hashgrid.RADIX_BITS)
+    # inputs key, bucket; outputs order, bucket[order]; per pass and key a
+    # digit, a match and a rank (~10 operations)
+    stats["photon_sort"].update(
+        bound=bound_ms(16 * n, 10 * passes * n), max_abs_err=0.0,
+        plain_ms=t0.elapsed_time(t1),
+        ms=cuda_ms(lambda: kernels.photon_sort(key, bits, bucket), 5),
+        library_ms_int64=cuda_ms(lambda: torch.sort(k64, stable=True), 5),
+        library_ms_int32=cuda_ms(lambda: torch.sort(k32, stable=True), 5))
+    st = stats["photon_sort"]
+    st["library_ms"] = min(st["library_ms_int64"], st["library_ms_int32"])
+    say("K8", f"{what}: sort of {n} keys ({bits} bits, {passes} passes) "
+        f"equal to torch.sort's order (int64 and int32 keys) and the twin's; "
+        f"kernel {st['ms']:.4f} ms, torch.sort int64 "
+        f"{st['library_ms_int64']:.4f} ms, int32 {st['library_ms_int32']:.4f}"
+        f" ms, twin {st['plain_ms']:.1f} ms, bound {st['bound'][0]:.4f} ms")
+    return order, sorted_h
 
 
 def compare_records(k, p, what: str, tag: str) -> float:
@@ -2099,12 +2169,19 @@ def main() -> int:
                                                       "ILi2E")),
                   "traverse_bin_kernelILb0E", "traverse_bin_kernelILb1E",
                   "packing_kernel", "photon_pack_kernel",
-                  "photon_table_kernel", "slots_kernel", "rgb9e5_kernel"):
+                  "photon_table_kernel", "radix_hist_kernel",
+                  "radix_scan_kernel", "radix_scatter_kernel", "slots_kernel",
+                  "rgb9e5_kernel"):
         mk = ptxas_of(ptxas_log, kname)
         say("build", f"{kname}: {mk['registers']} registers, "
             f"{mk['stack_bytes']} bytes stack frame, "
             f"{mk['spill_store_bytes']} bytes spill stores, "
             f"{mk['spill_load_bytes']} bytes spill loads")
+    # K1 runs inside these kernels (their BVH8 instantiations): their
+    # registers, stack frames and spills go on K1's rows of the kernels line
+    k1_hosts = {k: ptxas_of(ptxas_log, k) for k in K1_HOSTS}
+    stats["closest_hit8"]["ptxas"] = stats["shadow_factor8"]["ptxas"] = \
+        k1_hosts
 
     # --- 3. K6
     n = WIDTH * HEIGHT
@@ -2753,7 +2830,8 @@ def main() -> int:
                                   with_rows=True, **switches)
     packed = kernels.photon_pack(lb, scene.scene_min, 2.0 * mr, tsize,
                                  res["salt"])
-    order = torch.sort(packed[2], stable=True).indices
+    order, sorted_h = compare_photon_sort(packed[2], packed[1], tsize, stats,
+                                          f"vcm {WIDTH}x{HEIGHT}")
     tbytes = sum(t.numel() * 4 for t in (scene.bvh8_table, scene.tri_f32,
                                           scene.light_f32, scene.textures,
                                           scene.mat_f32))
@@ -2782,18 +2860,18 @@ def main() -> int:
         max_abs_err=err_splat, ms=st11["trace_ms"],
         plain_ms=plain_ms["vcm_splat"])
     stats["photon_pack"].update(
-        bound=bound_ms(p * (35 + 44) + 8 * (tsize + 1),
+        bound=bound_ms(p * (35 + 40) + 8 * (tsize + 1),
                        p * OPS_PER_PHOTON),
         max_abs_err=0.0, plain_ms=plain_ms["photon_pack"],
         ms=cuda_ms(lambda: kernels.photon_pack(lb, scene.scene_min, 2.0 * mr,
                                                tsize, res["salt"]), 5))
     touched = int((vgrid.cell_se[:, 1] > vgrid.cell_se[:, 0]).sum())
     stats["photon_table"].update(
-        bound=bound_ms(p * (8 + 4 + 32) + 32 * p8 + 16 * touched, p * 4),
+        bound=bound_ms(p * (4 + 4 + 32) + 32 * p8 + 16 * touched, p * 4),
         max_abs_err=0.0, plain_ms=plain_ms["photon_table"],
-        ms=cuda_ms(lambda: kernels.photon_table(packed[0], packed[1], order,
+        ms=cuda_ms(lambda: kernels.photon_table(packed[0], sorted_h, order,
                                                 packed[3]), 5))
-    sort_ms = cuda_ms(lambda: torch.sort(packed[2], stable=True), 5)
+    sort_ms = stats["photon_sort"]["ms"]
     stats["vcm_eye"].update(
         bound=bound_ms(tbytes + lbytes + gbytes + n * (8 + 12 + 4 + 4),
                        int(erows.sum()) * OPS_PER_ROW
@@ -2815,7 +2893,7 @@ def main() -> int:
         f"{stats['photon_table']['ms']:.3f} / {plain_ms['photon_table']:.3f}"
         f", vcm_eye {stats['vcm_eye']['ms']:.3f} / {plain_ms['vcm_eye']:.3f}"
         f"; {int(srows.sum())} + {int(erows.sum())} BVH8 rows (splat, eye)")
-    del res, lb, vgrid, packed, order, srows, erows, fbt, rst, fbs
+    del res, lb, vgrid, packed, order, sorted_h, srows, erows, fbt, rst, fbs
     sres = compare_vcm(scene, cam, px, py, photon_cfg(cfg0, "SPPM"), 0,
                        f"sppm {WIDTH}x{HEIGHT}")
     stage_errs(stats, "vcm_eye", sres["stages"])
@@ -3200,6 +3278,7 @@ def main() -> int:
             engine, card, {"render_unidirectional": SPP})
         if engine == "mega":
             main_launches = launches
+            k1_traversals = r.metrics.rays_traced
         del r
 
     # --- 15. the BDPT main path through the Renderer: the same config with
@@ -3270,7 +3349,8 @@ def main() -> int:
             {"bdpt_walk": SPP, "vcm_splat": SPP if splat else 0,
              "vcm_splat_bin": SPP if splat else 0,
              "vcm_splat_trace": SPP if splat else 0,
-             "photon_pack": SPP, "photon_table": SPP, "vcm_eye": SPP,
+             "photon_pack": SPP, "photon_sort": SPP, "photon_table": SPP,
+             "vcm_eye": SPP,
              "vcm_eye_walk": SPP, "vcm_eye_connect": SPP if splat else 0,
              "vcm_eye_gather": SPP, "mega_eye": 0, "bdpt_splat": 0,
              "bdpt_pairs": 0, "render_unidirectional": 0})
@@ -3290,7 +3370,8 @@ def main() -> int:
                            "naive", "vcm_splat", "bdpt_splat",
                            "vcm_splat_bin", "vcm_splat_trace",
                            "bdpt_splat_bin", "bdpt_splat_trace", "photon_pack",
-                           "photon_table", "vcm_eye_walk", "vcm_eye_connect",
+                           "photon_sort", "photon_table", "vcm_eye_walk",
+                           "vcm_eye_connect",
                            "vcm_eye_gather", "mega_eye_connect")}
     for tag, cfg, integ, chunks in (
             ("vcm mega", main_cfg(integrator="VCM", name="smoke_vcm_mega"),
@@ -3333,7 +3414,7 @@ def main() -> int:
     lkeys, ekeys = paths.walk_keys(key_l, "light"), vcm_mega.eye_keys(key_e)
     salt = hashgrid.photon_salt(SPP)
     sw = hashgrid.merge_switches(vc.max_per_cell)
-    names = ("light walk", "vcm_splat", "photon_pack", "torch.sort",
+    names = ("light walk", "vcm_splat", "photon_pack", "photon_sort",
              "photon_table", "mega_eye walk", "mega_eye connect",
              "mega_eye gather")
     stage_ms = {}
@@ -3360,9 +3441,10 @@ def main() -> int:
             rows, h, key, cse = kernels.photon_pack(
                 lb, vmr.scene.scene_min, 2.0 * mr, tsize, salt)
             ev[3].record()
-            order = torch.sort(key, stable=True).indices
+            order, hs = kernels.photon_sort(
+                key, hashgrid.key_bits(tsize, hashgrid.REWEIGHT), h)
             ev[4].record()
-            srows = kernels.photon_table(rows, h, order, cse)
+            srows = kernels.photon_table(rows, hs, order, cse)
             ev[5].record()
             ep = kernels.mega_eye_pass(
                 vmr.scene, vmr.camera, ekeys, lb, hashgrid.PhotonGrid(
@@ -3376,7 +3458,7 @@ def main() -> int:
             torch.cuda.synchronize()
             for i, k in enumerate(names):
                 stage_ms[k] += ev[i].elapsed_time(ev[i + 1])
-            del lw, lb, rows, h, key, cse, order, srows, ep
+            del lw, lb, rows, h, key, cse, order, hs, srows, ep
     say("vcm mega", f"one 1080p sample ({ch.n_chunks} chunks), CUDA events "
         "per launch summed over the chunks: " + ", ".join(
             f"{k} {v:.3f} ms" for k, v in stage_ms.items())
@@ -3445,9 +3527,10 @@ def main() -> int:
         rows, h, key, cse = kernels.photon_pack(
             lw["bufs"], vr.scene.scene_min, 2.0 * mr, tsize, salt)
         ev[3].record()
-        order = torch.sort(key, stable=True).indices
+        order, hs = kernels.photon_sort(
+            key, hashgrid.key_bits(tsize, hashgrid.REWEIGHT), h)
         ev[4].record()
-        srows = kernels.photon_table(rows, h, order, cse)
+        srows = kernels.photon_table(rows, hs, order, cse)
         ev[5].record()
         ep = kernels.vcm_eye_pass(
             vr.scene, vr.camera, paths.walk_keys(key_e, "eye"), lw["bufs"],
@@ -3462,9 +3545,9 @@ def main() -> int:
         torch.cuda.synchronize()
         stage_ms = {name: ev[i].elapsed_time(ev[i + 1]) for i, name in
                     enumerate(("light walk", "vcm_splat", "photon_pack",
-                               "torch.sort", "photon_table", "vcm_eye walk",
+                               "photon_sort", "photon_table", "vcm_eye walk",
                                "vcm_eye connect", "vcm_eye gather"))}
-        del lw, rows, h, key, cse, order, srows, ep
+        del lw, rows, h, key, cse, order, hs, srows, ep
     say("vcm", "one 1080p sample, CUDA events per launch: " + ", ".join(
         f"{k} {v:.3f} ms" for k, v in stage_ms.items())
         + f"; sum {sum(stage_ms.values()):.3f} ms ({card})")
@@ -3763,6 +3846,12 @@ def main() -> int:
     for k in ("closest_hit_bin", "shadow_factor_bin"):
         main_launches[k] = tl[k]
         inside[k] = {"render_unidirectional": tl["threaded_engine"]}
+    # K1's entries launch 0 times on the mega path: its device code traces
+    # every ray of K5's launches there
+    for k in ("closest_hit8", "shadow_factor8"):
+        inside[k] = {"render_unidirectional":
+                     main_launches["render_unidirectional"]}
+        stats[k]["traversals_on_main_path"] = k1_traversals
 
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
@@ -3770,7 +3859,11 @@ def main() -> int:
          "max_abs_err": stats[name]["max_abs_err"],
          "ms": stats[name]["ms"], "plain_ms": stats[name]["plain_ms"],
          "bound_ms": stats[name]["bound"][0],
-         "bound_by": stats[name]["bound"][1], "library_ms": None,
+         "bound_by": stats[name]["bound"][1],
+         "library_ms": stats[name].get("library_ms"),
+         **{key: stats[name][key] for key in stats[name]
+            if key.startswith("library_ms_")
+            or key in ("ptxas", "traversals_on_main_path")},
          **({"launches_of_the_kernel_it_runs_in": inside[name]}
             if name in inside else {}),
          **{key: stats[name][key] for key in ("lane_use", "event_balance")

@@ -9,7 +9,8 @@ mis.cuh, the BDPT bodies bdpt.cuh, persistent threads persistent.cuh; the
 persistent megakernel K5, uni_mega.cu, and the BDPT kernels K11
 bdpt_splat.cu, K12 bdpt_walk.cu and K13's two stages bdpt_pairs.cu and
 bdpt_gather.cu call them; the photon grid's hashgrid.cuh (K8-K10) serves
-K8 photon_grid.cu, K9's test entry neighbor_slots.cu and the VCM eye
+K8 photon_grid.cu (around its radix sort, radix_sort.cu), K9's test
+entry neighbor_slots.cu and the VCM eye
 passes: the classic one (K13's VCM form with K9's fold; strategies in
 vcm.cuh) and the mega engines' K14 (its strategies in mega.cuh) run as the
 same three stages, eye.cuh's bodies launched by eye_walk.cu,
@@ -78,7 +79,7 @@ SOURCES = ("rng.cu", "camera.cu", "traverse8.cu", "traverse_bin.cu",
            "uni_mega.cu", "packing.cu", "bdpt_walk.cu", "bdpt_splat.cu",
            "bdpt_pairs.cu", "bdpt_gather.cu", "photon_grid.cu",
            "neighbor_slots.cu", "eye_walk.cu", "eye_connect.cu",
-           "eye_gather.cu")
+           "eye_gather.cu", "radix_sort.cu")
 HEADERS = ("threefry.cuh", "camera.cuh", "traverse8.cuh", "traverse_bin.cuh",
            "shade.cuh", "bsdf.cuh", "nee.cuh", "packing.cuh", "mis.cuh",
            "bdpt.cuh", "hashgrid.cuh", "vcm.cuh", "mega.cuh", "eye.cuh",
@@ -91,6 +92,7 @@ STACK_D = 16      # traverse8.cuh's default stack depth
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-fmad=false", "-Xcompiler", "-fPIC")
 SHADE_EVAL_COLS = 38   # uni_mega.cu kShadeEvalCols
+SORT_TILE = 2048      # radix_sort.cu kTile: keys a block
 SCHEDULES = {"classic": 0, "mega": 1, "naive": 2}
 EYE_FLAVORS = {"classic": 0, "vcm": 1, "bdpt": 2}   # eye.cuh kEye*
 SLOT_MODES = {"slots": 0, "compact": 1, "gather": 2}
@@ -102,7 +104,8 @@ launches = {"closest_hit8": 0, "shadow_factor8": 0, "closest_hit_bin": 0,
             "generate_rays": 0, "render_unidirectional": 0, "shade_eval": 0,
             "packing_roundtrip": 0, "bdpt_walk": 0, "bdpt_splat": 0,
             "bdpt_pairs": 0, "bdpt_gather": 0, "vcm_splat": 0,
-            "photon_pack": 0, "photon_table": 0, "vcm_eye": 0, "rgb9e5": 0,
+            "photon_pack": 0, "photon_sort": 0, "photon_table": 0,
+            "vcm_eye": 0, "rgb9e5": 0,
             "neighbor_slots": 0, "mega_eye": 0, "naive": 0,
             "uniform_keyed": 0, "bdpt_walk_table": 0,
             # K11's two stages (bdpt_splat.cu), counted beside the splat's
@@ -245,6 +248,9 @@ def _load(stack_d: int = STACK_D):
         lib.tpt_photon_pack.argtypes = [p, p, p, u32, p]
         lib.tpt_photon_table.restype = ctypes.c_int
         lib.tpt_photon_table.argtypes = [p, p, p]
+        lib.tpt_radix_sort32.restype = ctypes.c_int
+        lib.tpt_radix_sort32.argtypes = [p, i64, i32, p, p, p, p, p, p, p,
+                                         p, p]
         for name in ("tpt_eye_walk", "tpt_eye_connect", "tpt_eye_gather"):
             getattr(lib, name).restype = ctypes.c_int
             getattr(lib, name).argtypes = [p, p, p, p, p]
@@ -1099,8 +1105,8 @@ def photon_pack(lbufs, scene_min, cell_size: float, table_size: int, salt):
     """K8's first half (photon_grid.cu): one photon per stored light vertex
     of lbufs [L, N], in the flat order row * N + lane. -> (rows [P, 8] f32
     with uint32 words 3-5, bucket [P] i32 (table_size for a photon that is
-    invalid or delta), key [P] i64 (uint32 values: salted with salt, or the
-    bucket alone when salt is None), cell_se [T+1, 2] i32 filled with
+    invalid or delta), key [P] i32 holding uint32 bits (salted with salt, or
+    the bucket alone when salt is None), cell_se [T+1, 2] i32 filled with
     (P, 0))."""
     dev = _cuda_device(lbufs.pt)
     depth, n = lbufs.pt.shape[0], lbufs.pt.shape[1]
@@ -1109,7 +1115,7 @@ def photon_pack(lbufs, scene_min, cell_size: float, table_size: int, salt):
         raise ValueError(f"photon_pack: {p} photons, table {table_size}")
     e = lambda *sh, dt=torch.float32: torch.empty(sh, dtype=dt, device=dev)
     rows, bucket = e(p, 8), e(p, dt=torch.int32)
-    key, cell_se = e(p, dt=torch.int64), e(table_size + 1, 2, dt=torch.int32)
+    key, cell_se = e(p, dt=torch.int32), e(table_size + 1, 2, dt=torch.int32)
     ptrs = (_check_bufs(lbufs, "lbufs", depth, n, dev)
             + [rows.data_ptr(), bucket.data_ptr(), key.data_ptr(),
                cell_se.data_ptr()])
@@ -1124,17 +1130,46 @@ def photon_pack(lbufs, scene_min, cell_size: float, table_size: int, salt):
     return rows, bucket, key, cell_se
 
 
+def photon_sort(key, bits: int, bucket=None):
+    """K8's sort (radix_sort.cu): the stable order of key [P] (i32 holding
+    uint32 values whose bits above the low `bits` are 0) by an LSD radix
+    sort of 8-bit digits, one pass (three launches) a digit that can be
+    nonzero. -> (order [P] i32, sorted slot -> index; bucket[order] [P]
+    i32, or None without bucket). key is left as it is; counted once a
+    sort."""
+    dev = _cuda_device(key)
+    p = key.shape[0]
+    _check(key, "key", torch.int32, (p,), dev)
+    if bucket is not None:
+        _check(bucket, "bucket", torch.int32, (p,), dev)
+    if not 0 < p < 2 ** 31 or not 1 <= bits <= 32:
+        raise ValueError(f"photon_sort: {p} keys of {bits} bits")
+    e = lambda m: torch.empty(m, dtype=torch.int32, device=dev)
+    tiles = -(-p // SORT_TILE)
+    order = e(p)
+    gathered = None if bucket is None else e(p)
+    # keys and indices between passes, each tile's digit counts, the
+    # digits' totals
+    scratch = [e(p), e(p), e(p), e(256 * tiles), e(256)]
+    lib = _load()
+    with torch.cuda.device(dev):
+        _launch("photon_sort", lib, lib.tpt_radix_sort32, key.data_ptr(), p,
+                bits, *(t.data_ptr() for t in scratch), order.data_ptr(),
+                _ptr(bucket), _ptr(gathered), _stream(dev))
+    return order, gathered
+
+
 def photon_table(rows, bucket, order, cell_se):
     """K8's second half (photon_grid.cu): the rows [P, 8] gathered into
-    sorted order (order [P] i64, from a stable sort of photon_pack's keys)
-    and padded by (-P) % 8 + 8 zero rows, and each bucket's (start, end)
-    made with atomicMin / atomicMax into cell_se [T+1, 2] in place.
-    -> sorted rows [P8, 8] f32."""
+    sorted order (order [P] i32 and the buckets in that order, bucket [P]
+    i32, from photon_sort) and padded by (-P) % 8 + 8 zero rows, and each
+    bucket's (start, end) made with atomicMin / atomicMax into cell_se
+    [T+1, 2] in place. -> sorted rows [P8, 8] f32."""
     dev = _cuda_device(rows)
     p = rows.shape[0]
     _check(rows, "rows", torch.float32, (p, 8), dev)
     _check(bucket, "bucket", torch.int32, (p,), dev)
-    _check(order, "order", torch.int64, (p,), dev)
+    _check(order, "order", torch.int32, (p,), dev)
     _check(cell_se, "cell_se", torch.int32, cell_se.shape, dev)
     if cell_se.dim() != 2 or cell_se.shape[1] != 2:
         raise ValueError(f"cell_se must be [T+1, 2], got "

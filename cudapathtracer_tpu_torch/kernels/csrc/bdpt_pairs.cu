@@ -24,12 +24,11 @@
 // H100: one pair a thread 58.8 ms on BVH8 and 82.3 threaded, all of a
 // pixel's 84.9 and 70.5; tools/eye_attribution.py --per). The rays and
 // rows are integer atomics, so their totals stay exact in any order.
-// ptxas (H100 build), at a minimum of 4 blocks of 128 threads an SM as the
-// VCM eye passes' connection stage (eye_connect.cu): 128 registers with
-// 16 B of spill (BVH8) and 122 without (threaded). A minimum of 3 blocks
-// takes 143 registers and no spill, but the BVH8 stage then took 67.3 ms
-// a 1080p sample against 58.8 (H100, tools/eye_attribution.py --per 1),
-// so the 16 B stay.
+// ptxas (H100 build), at a minimum of 4 blocks of 128 threads an SM, the
+// count the threaded instantiation gets: 126 registers on BVH8, 122
+// threaded, no spills. A minimum of 3 blocks (143 registers) took 67.3 ms
+// a 1080p sample against 58.8 at 4 (H100, tools/eye_attribution.py --per
+// 1).
 
 #include <cuda_runtime.h>
 

@@ -65,11 +65,10 @@ constexpr int kThreads = 128;
 // takes the next path when it ends (persistent.cuh). counter: the next
 // path id, zero at the launch. lanes (nullable): the lane counters
 // (tpt::add_lane_counts), a bounce being an event. At least
-// five blocks a SM: ptxas then fits the BVH8 instantiation in 96
-// registers with 100 B of spill (the threaded one in 94, none), and the
-// walks ran ~4% faster than at one block a SM (114 registers, no spill;
-// tools/eye_attribution.py --walks). The persistent grid is sized from
-// what fits.
+// five blocks a SM: ptxas then fits the BVH8 instantiation in 95
+// registers and the threaded one in 94, no spills, and the walks ran ~4%
+// faster than at one block a SM (tools/eye_attribution.py --walks). The
+// persistent grid is sized from what fits.
 template <int kEngine>
 __global__ void __launch_bounds__(kThreads, 5)
 bdpt_walk_kernel(tpt::WalkLaunch w, unsigned long long* __restrict__ counter,

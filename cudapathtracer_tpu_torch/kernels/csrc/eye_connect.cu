@@ -17,9 +17,11 @@
 // it, so the depth-major records, light buffers and outputs are read and
 // written coalesced, and a warp whose eye vertices are dead, delta or
 // invalid leaves before it fetches a light vertex. The rays and rows are
-// integer atomics, so their totals stay exact in any order. ptxas (H100
-// build): 122-125 registers on BVH8, 91 threaded, no spills at a minimum
-// of 4 blocks of 128 threads an SM, which __launch_bounds__ asks for.
+// integer atomics, so their totals stay exact in any order. At least 5
+// blocks of 128 threads an SM, the count the threaded instantiation (91
+// registers) gets: the BVH8 one then fits in 96 registers with some spill,
+// and ran faster than at 4 blocks (124 registers, no spill;
+// tools/k1_attribution.py, PERF.md).
 
 #include <cuda_runtime.h>
 
@@ -32,7 +34,7 @@ namespace {
 constexpr int kThreads = 128;
 
 template <int kFlavor, int kEngine>
-__global__ void __launch_bounds__(kThreads, 4)
+__global__ void __launch_bounds__(kThreads, 5)
     eye_connect_kernel(tpt::EyeLaunch c) {
   const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x +
                     threadIdx.x;

@@ -14,10 +14,9 @@
 // merge, with their loops whose length varies from lane to lane, are the
 // other two stages, so this kernel carries K12's eye walk plus NEE and
 // the records are written depth-major ([D, N]: a warp's 32 paths store
-// neighbouring words). ptxas (H100 build): 148 registers on BVH8 (3 blocks
-// of 128 threads an SM), 122 threaded, no spills; a minimum of 4 blocks
-// (at most 128 registers) spills 24-52 bytes, so the bounds name no
-// minimum. chip_smoke.py prints the report.
+// neighbouring words). ptxas (H100 build): 127-128 registers on BVH8 and
+// 122 threaded (4 blocks of 128 threads an SM), no spills, with no
+// minimum in the bounds. chip_smoke.py prints the report.
 
 #include <cuda_runtime.h>
 

@@ -1,4 +1,5 @@
-// K8: the photon grid build, two kernels around a stable sort.
+// K8: the photon grid build, two kernels around a stable sort
+// (radix_sort.cu).
 //
 // Replaces cudapathtracer_tpu/ops/hashgrid.py:build_grid (line 151) with
 // the photon row of pack_photons (119), as the JAX VCM sample calls them
@@ -13,7 +14,8 @@
 //                 bucket * 256 plus an 8-bit tiebreak, uint32 and wrapping
 //                 as there). It also fills the (start, end) table with
 //                 (P, 0).
-//   (torch.sort of the keys, stable, between the two launches)
+//   (radix_sort.cu's stable sort of the keys between the two launches:
+//   the order, sorted slot -> photon, and each slot's bucket)
 //   photon_table  one thread per sorted slot: gathers the row, and
 //                 atomicMin / atomicMax of the slot into its bucket's
 //                 (start, end), JAX's scatter-min/max, once per run of
@@ -23,11 +25,12 @@
 //                 be contiguous, so min / max stays the rule.
 //
 // Bound: bytes. photon_pack reads ~43 bytes of buffers per vertex and writes
-// a 32-byte row, a 4-byte bucket and an 8-byte key; photon_table reads an
-// 8-byte index, a 4-byte bucket and a 32-byte row and writes the row, and
+// a 32-byte row, a 4-byte bucket and a 4-byte key; photon_table reads a
+// 4-byte index, a 4-byte bucket and a 32-byte row and writes the row, and
 // the table of 8 (T + 1) bytes is written once and updated by atomics.
 // Design: one thread per element, 16-byte vector loads and stores of the
-// rows; the gather's reads are scattered (sorted order), its writes
+// rows; the gather's row reads are scattered (sorted order), its index and
+// bucket reads (the sort put the buckets in sorted order) and its writes
 // coalesced.
 
 #include <cuda_runtime.h>
@@ -49,7 +52,7 @@ struct PackLaunch {
   int64_t p;           // L * N
   float* rows;         // [P, 8]
   int32_t* bucket;     // [P]
-  int64_t* key;        // [P]
+  uint32_t* key;       // [P]
   int32_t* cell_se;    // [T+1, 2]
 };
 
@@ -80,15 +83,14 @@ __global__ void __launch_bounds__(kThreads) photon_pack_kernel(PackLaunch a) {
   reinterpret_cast<float4*>(a.rows + 8 * k)[1] = r1;
   const uint32_t h = valid ? tpt::bucket_of(a.geom, pos) : a.geom.table_size;
   a.bucket[k] = static_cast<int32_t>(h);
-  a.key[k] = a.salted ? static_cast<int64_t>(tpt::salted_key(
-                            h, static_cast<uint32_t>(k), a.salt))
-                      : static_cast<int64_t>(h);
+  a.key[k] = a.salted ? tpt::salted_key(h, static_cast<uint32_t>(k), a.salt)
+                      : h;
 }
 
 struct TableLaunch {
   const float* rows;      // [P, 8]
-  const int32_t* bucket;  // [P]
-  const int64_t* order;   // [P] sorted slot -> photon
+  const int32_t* bucket;  // [P] in sorted order
+  const uint32_t* order;  // [P] sorted slot -> photon
   int64_t p, p8;
   float* sorted;          // [P8, 8]
   int32_t* cell_se;       // [T+1, 2]
@@ -104,7 +106,7 @@ __global__ void __launch_bounds__(kThreads) photon_table_kernel(TableLaunch a) {
                     threadIdx.x;
   const bool live = i < a.p;
   const int64_t src = live ? a.order[i] : 0;
-  const int32_t h = live ? a.bucket[src] : -1;
+  const int32_t h = live ? a.bucket[i] : -1;
   const int lane = static_cast<int>(threadIdx.x) & 31;
   const int32_t h_prev = __shfl_up_sync(0xFFFFFFFFu, h, 1);
   const int32_t h_next = __shfl_down_sync(0xFFFFFFFFu, h, 1);
@@ -147,7 +149,7 @@ extern "C" int tpt_photon_pack(const int64_t* ptrs, const int64_t* iv,
   a.salt = salt;
   a.rows = tpt::dev_ptr<float>(ptrs, 11);
   a.bucket = tpt::dev_ptr<int32_t>(ptrs, 12);
-  a.key = tpt::dev_ptr<int64_t>(ptrs, 13);
+  a.key = tpt::dev_ptr<uint32_t>(ptrs, 13);
   a.cell_se = tpt::dev_ptr<int32_t>(ptrs, 14);
   if (a.p <= 0 || iv[2] <= 0 || iv[2] >= (int64_t{1} << 32) ||
       a.p >= (int64_t{1} << 31))
@@ -157,14 +159,14 @@ extern "C" int tpt_photon_pack(const int64_t* ptrs, const int64_t* iv,
   return static_cast<int>(cudaGetLastError());
 }
 
-// ptrs: rows, bucket, order, sorted, cell_se. iv: p, p8 (P plus its
+// ptrs: rows, bucket (sorted order), order, sorted, cell_se. iv: p, p8 (P plus its
 // padding). Returns the launch's cudaError_t.
 extern "C" int tpt_photon_table(const int64_t* ptrs, const int64_t* iv,
                                 void* stream) {
   TableLaunch a;
   a.rows = tpt::dev_ptr<const float>(ptrs, 0);
   a.bucket = tpt::dev_ptr<const int32_t>(ptrs, 1);
-  a.order = tpt::dev_ptr<const int64_t>(ptrs, 2);
+  a.order = tpt::dev_ptr<const uint32_t>(ptrs, 2);
   a.sorted = tpt::dev_ptr<float>(ptrs, 3);
   a.cell_se = tpt::dev_ptr<int32_t>(ptrs, 4);
   a.p = iv[0];

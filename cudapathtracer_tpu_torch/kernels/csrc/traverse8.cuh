@@ -19,13 +19,26 @@
 // Bound: memory latency. Each step is one dependent 384-byte row fetch
 // (then a child row that depends on it), and rays diverge, so neighbouring
 // threads read unrelated rows; the arithmetic per row (8 slab tests, a
-// 19-comparator sort, 4 Moller-Trumbore tests) is small beside it.
-// Design: the row is read with 16-byte loads through the read-only path,
-// the 8 child keys are sorted in registers by the same 19-comparator
-// network, and the stack is a ring of kStackD entries in local memory, so an
-// overflow keeps the newest entries exactly as the JAX shift did. kStackD is
-// 16, the JAX default; -DTPT_STACK_D=<n> builds another depth, as the JAX
-// package's TPT_STACK_D does (tests build 7 to drive the overflow path).
+// 19-comparator sort, 4 Moller-Trumbore tests) is small beside it. So the
+// hosts' occupancy decides how much latency is hidden, and trace8 is
+// inlined into every host kernel: its live values are the host's
+// registers.
+// Design: the row is consumed in stages: the child boxes one axis at a
+// time (two 16-byte loads of minima and two of maxima, folded into 8
+// running near / far t's), then the 8 keys sorted in registers by the same
+// 19-comparator network, then the 4 inline triangles one at a time, each
+// read (8-byte loads) and tested only when its id word is >= 0, the row's
+// winner kept as it goes. At most ~40 row
+// values are live instead of ~110 (48 box floats, 40 triangle floats, four
+// results), which took 21-23 registers off the hosts (uni_mega 146 -> 125,
+// the eye walk 148 -> 125-128) and up to 17% of their time (K5, the eye
+// walk; tools/k1_attribution.py). The stack is a ring of kStackD entries
+// in local memory (L1), so an overflow keeps the newest entries exactly as
+// the JAX shift did; a [kStackD][128] slab in shared memory (8 KB a block)
+// measured 6-8% slower in K5 and the eye walk and at most 2% faster
+// elsewhere. kStackD is 16, the JAX default; -DTPT_STACK_D=<n> builds
+// another depth, as the JAX package's TPT_STACK_D does (tests build 7 to
+// drive the overflow path).
 // The traversal order is the JAX one, so the results are the same ids, not
 // just the same closest distance:
 //  * child key = (tmin bits, negatives flipped, & ~7) | slot, ascending;
@@ -165,6 +178,43 @@ struct Trace8 {
   int restarts, rows;
 };
 
+// The slab test of one axis of the row's 8 children: lo / hi are the
+// axis's 8 minima / maxima (two float4 each), o and inv the ray's origin
+// and inverse direction on it. The first axis sets tn / tf (first),
+// later ones narrow them, in the JAX order (max of the near t's, min of
+// the far t's, x then y then z).
+__device__ __forceinline__ void slab_axis(const float4* row4, int lo, int hi,
+                                          float o, float inv, float tn[8],
+                                          float tf[8], bool first) {
+  const float4 a0 = __ldg(row4 + lo), a1 = __ldg(row4 + lo + 1);
+  const float4 b0 = __ldg(row4 + hi), b1 = __ldg(row4 + hi + 1);
+  const float mn[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+  const float mx[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+#pragma unroll
+  for (int s = 0; s < 8; ++s) {
+    const float t1 = (mn[s] - o) * inv, t2 = (mx[s] - o) * inv;
+    tn[s] = first ? fminf(t1, t2) : fmaxf(tn[s], fminf(t1, t2));
+    tf[s] = first ? fmaxf(t1, t2) : fminf(tf[s], fmaxf(t1, t2));
+  }
+}
+
+// Inline triangle j of a row (floats [50 + 9j, 59 + 9j): v0, e1, e2), read
+// with the 8-byte loads its offset allows.
+__device__ __forceinline__ void load_leaf_tri(const float* row, int j,
+                                              float p[9]) {
+  const float* q = row + kTriOff + 9 * j;
+  const int odd = j & 1;  // an odd slot starts on an odd float
+  if (odd) p[0] = __ldg(q);
+  const float2* q2 = reinterpret_cast<const float2*>(q + odd);
+#pragma unroll
+  for (int w = 0; w < 4; ++w) {
+    const float2 f = __ldg(q2 + w);
+    p[odd + 2 * w] = f.x;
+    p[odd + 2 * w + 1] = f.y;
+  }
+  if (!odd) p[8] = __ldg(q + 8);
+}
+
 // tri_f32 / tri_cols: the scene's triangle block, read by shadow rays for
 // MAT_LEAF transmission only (columns 78:94).
 template <bool kShadow>
@@ -201,32 +251,21 @@ __device__ __forceinline__ Trace8 trace8(const float* __restrict__ table,
     const float4* row4 = reinterpret_cast<const float4*>(row);
 
     // ---- child stage: slab-test 8 slots, sort packed keys
-    float b[48];
-#pragma unroll
-    for (int q = 0; q < 12; ++q) {
-      const float4 w = __ldg(row4 + q);
-      b[4 * q] = w.x;
-      b[4 * q + 1] = w.y;
-      b[4 * q + 2] = w.z;
-      b[4 * q + 3] = w.w;
-    }
-    const float4 meta = __ldg(row4 + 12);  // [48:52]: child base, pad, tri0
-    const int32_t base = __float_as_int(meta.x);
     int32_t key[8];
+    {  // one axis at a time: 16 box floats live, not 48
+      float tn[8], tf[8];
+      slab_axis(row4, 0, 6, ox, ix, tn, tf, true);
+      slab_axis(row4, 2, 8, oy, iy, tn, tf, false);
+      slab_axis(row4, 4, 10, oz, iz, tn, tf, false);
 #pragma unroll
-    for (int s = 0; s < 8; ++s) {
-      const float t1x = (b[s] - ox) * ix, t2x = (b[24 + s] - ox) * ix;
-      const float t1y = (b[8 + s] - oy) * iy, t2y = (b[32 + s] - oy) * iy;
-      const float t1z = (b[16 + s] - oz) * iz, t2z = (b[40 + s] - oz) * iz;
-      const float tmin =
-          fmaxf(fmaxf(fminf(t1x, t2x), fminf(t1y, t2y)), fminf(t1z, t2z));
-      const float tmax =
-          fminf(fminf(fmaxf(t1x, t2x), fmaxf(t1y, t2y)), fmaxf(t1z, t2z));
-      const bool hit = (tmax >= tmin) && (tmax > 0.0f) && (tmin < t_cut);
-      int32_t tb = __float_as_int(tmin);
-      if (tb < 0) tb ^= 0x7FFFFFFF;
-      key[s] = hit ? ((tb & ~7) | s) : kKeyInvalid;
+      for (int s = 0; s < 8; ++s) {
+        const bool hit = (tf[s] >= tn[s]) && (tf[s] > 0.0f) && (tn[s] < t_cut);
+        int32_t tb = __float_as_int(tn[s]);
+        if (tb < 0) tb ^= 0x7FFFFFFF;
+        key[s] = hit ? ((tb & ~7) | s) : kKeyInvalid;
+      }
     }
+    const int32_t base = __float_as_int(__ldg(row + 48));
     sort8(key);
     const int32_t new_direct =
         key[0] != kKeyInvalid ? base + (key[0] & 7) : -1;
@@ -244,63 +283,49 @@ __device__ __forceinline__ Trace8 trace8(const float* __restrict__ table,
     if (top + count > kStackD) lostc |= 1;
     top = top + count < kStackD ? top + count : kStackD;
 
-    // ---- inline-triangle stage: Moller-Trumbore on up to 4 triangles
-    float tv[40];
-    const float2* row2 = reinterpret_cast<const float2*>(row + kTriOff);
+    // ---- inline-triangle stage: Moller-Trumbore on up to 4 triangles,
+    // every test against the t_cut the row started with
+    const float t_row = t_cut;
+    // one triangle at a time, and only the slots whose id word is >= 0
+    const float2* ids2 = reinterpret_cast<const float2*>(row + 86);
+    const float2 id01 = __ldg(ids2), id23 = __ldg(ids2 + 1);
+    const int32_t raw[kLeafTris] = {__float_as_int(id01.x),
+                                    __float_as_int(id01.y),
+                                    __float_as_int(id23.x),
+                                    __float_as_int(id23.y)};
+    int32_t kmin = kKeyInvalid;
+    float f0 = 1.0f, f1 = 1.0f, f2 = 1.0f;
+    bool opaque = false, any_leaf = false;
 #pragma unroll
-    for (int q = 0; q < 20; ++q) {
-      const float2 w = __ldg(row2 + q);
-      tv[2 * q] = w.x;
-      tv[2 * q + 1] = w.y;
-    }
-    LeafTri tr[kLeafTris];
-#pragma unroll
-    for (int j = 0; j < kLeafTris; ++j)
-      tr[j] = moller_trumbore(tv + 9 * j, __float_as_int(tv[36 + j]), ox,
-                              oy, oz, dx, dy, dz, t_cut, skip_tri);
-
-    if (!kShadow) {
-      int32_t kmin = kKeyInvalid;
-      int win = 0;
-#pragma unroll
-      for (int j = 0; j < kLeafTris; ++j) {
-        const int32_t k =
-            tr[j].ok ? ((__float_as_int(fmaxf(tr[j].t, 0.0f)) & ~3) | j)
-                     : kKeyInvalid;
+    for (int j = 0; j < kLeafTris; ++j) {
+      if (raw[j] < 0 || opaque) continue;
+      float p[9];
+      load_leaf_tri(row, j, p);
+      const LeafTri tr = moller_trumbore(p, raw[j], ox, oy, oz, dx, dy, dz,
+                                         t_row, skip_tri);
+      if (!tr.ok) continue;
+      if (!kShadow) {
+        // the row's winner: the smallest (t bits & ~3) | slot
+        const int32_t k = (__float_as_int(fmaxf(tr.t, 0.0f)) & ~3) | j;
         if (k < kmin) {
           kmin = k;
-          win = j;
+          t_cut = tr.t;
+          best_tri = tr.tid;
+          best_u = tr.u;
+          best_v = tr.v;
         }
-      }
-      if (kmin != kKeyInvalid) {
-#pragma unroll
-        for (int j = 0; j < kLeafTris; ++j) {
-          if (j == win) {
-            t_cut = tr[j].t;
-            best_tri = tr[j].tid;
-            best_u = tr[j].u;
-            best_v = tr[j].v;
-          }
-        }
-      }
-    } else {
-      float f0 = 1.0f, f1 = 1.0f, f2 = 1.0f;
-      bool opaque = false, any_leaf = false;
-#pragma unroll
-      for (int j = 0; j < kLeafTris; ++j) {
-        if (!tr[j].ok) continue;
-        const bool leaf_mat = tr[j].raw >= 0 && (tr[j].raw & kLeafMatFlag);
-        if (!leaf_mat) {
-          opaque = true;
-          continue;
-        }
+      } else if (!(tr.raw & kLeafMatFlag)) {
+        opaque = true;  // occlusion is final: the rest cannot matter
+      } else {
         float a0, a1, a2;
-        leaf_transmission(tri_f32, tri_cols, tr[j], dx, dy, dz, a0, a1, a2);
+        leaf_transmission(tri_f32, tri_cols, tr, dx, dy, dz, a0, a1, a2);
         f0 = f0 * a0;
         f1 = f1 * a1;
         f2 = f2 * a2;
         any_leaf = true;
       }
+    }
+    if (kShadow) {
       s0 = s0 * f0;
       s1 = s1 * f1;
       s2 = s2 * f2;

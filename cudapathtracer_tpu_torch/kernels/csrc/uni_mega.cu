@@ -521,9 +521,9 @@ constexpr int kThreads = 128;
 // path per loop trip and takes the next sample or pixel when the path ends
 // (see the header). counter: the next pixel, zero at the launch. lanes
 // (nullable): the lane counters (tpt::add_lane_counts). The explicit
-// minimum of one block a SM: without it ptxas targets four blocks of 128
-// on this persistent kernel and spills to get there (60 B on BVH8, 100 B
-// on the threaded engine).
+// minimum of one block a SM leaves ptxas its own register count (125 on
+// BVH8, 121 threaded: four blocks of 128 fit); with no minimum it has
+// targeted more blocks on this persistent kernel and spilled.
 template <int kEngine>
 __global__ void __launch_bounds__(kThreads, 1)
 uni_mega_kernel(tpt::SceneArgs sc, tpt::Params p,

@@ -342,9 +342,9 @@ def connect_pairs_plain(scene, key_c, ebufs, lbufs, cfg: BDPTConfig, ids):
             terms[t - 2, 0] = torch.where((do & ne["ok"])[:, None], out, 0.0)
 
         # s >= 2: connections to the stored light vertices
-        for j, lv in enumerate(lverts):
-            terms[t - 2, 1 + j], r = _connect_one(scene, ev, mat_e, albedo_e,
-                                                  trans_e, lv, ones, cfg)
+        if lverts:
+            terms[t - 2, 1:len(lverts) + 1], r = _connect_rows(
+                scene, ev, mat_e, albedo_e, trans_e, lverts, ones, cfg)
             rays += r
     return terms, rays
 
@@ -418,27 +418,45 @@ def connect_gather_plain(scene, camera, ebufs, ev0, esc, terms,
     return li if fb is None else li + fb
 
 
-def _connect_one(scene, ev, mat_e, albedo_e, trans_e, lv, ones, cfg):
-    """One s>=2 connection per lane -> (its weighted term, +0 where nothing
-    was traced or the ray was blocked; rays as a Python int)."""
+def _connect_rows(scene, ev, mat_e, albedo_e, trans_e, lverts, ones, cfg):
+    """One s>=2 connection per lane to each light row of lverts, their
+    shadow rays traced in one call -> (the weighted terms [L, N, 3], +0
+    where nothing was traced or the ray was blocked; rays as a Python
+    int)."""
+    geo = []
+    for lv in lverts:
+        do = ev["valid"] & lv["valid"] & ~ev["is_delta"] & ~lv["is_delta"]
+        e2l = lv["pt"] - ev["pt"]
+        d2 = torch.clamp(length_sq(e2l), min=RAY_EPSILON)
+        dist = torch.sqrt(d2)
+        e2l_u = e2l / dist[:, None]
+        cos_l = torch.abs(dot(lv["n"], -e2l_u))
+        cos_e = torch.abs(dot(ev["n"], e2l_u))
+        do = do & (cos_l > EPSILON) & (cos_e > EPSILON)
+        geo.append((do, e2l_u, dist, cos_l, cos_e, d2))
+    do = torch.stack([g[0] for g in geo])
+    origin = ev["pt"] + ev["n"] * RAY_EPSILON
+    shadow = traverse.shadow_factor_rows(
+        scene, origin.expand(len(geo), -1, -1),
+        torch.stack([g[1] for g in geo]),
+        torch.stack([g[2] - RAY_EPSILON for g in geo]), do)
+    out = torch.empty((len(geo), ones.shape[0], 3), dtype=torch.float32,
+                      device=ones.device)
+    for j, (lv, (_, e2l_u, _, cos_l, cos_e, d2)) in enumerate(zip(lverts,
+                                                                 geo)):
+        term = _connect_term(scene, ev, mat_e, albedo_e, trans_e, lv, e2l_u,
+                             cos_l, cos_e, d2, shadow[j], ones, cfg)
+        ok = do[j] & (shadow[j].amax(dim=-1) > 0.0)
+        out[j] = torch.where(ok[:, None], term, 0.0)
+    return out, int(do.sum())
+
+
+def _connect_term(scene, ev, mat_e, albedo_e, trans_e, lv, e2l_u, cos_l,
+                  cos_e, d2, shadow, ones, cfg):
+    """The weighted s>=2 term of each lane's connection to lv, shadowed."""
     mat_l = _gather_mat(scene, lv["mat_id"])
     albedo_l = bsdf_ops.resolve_albedo(scene, mat_l, lv["uv"])
     trans_l = bsdf_ops.resolve_transmission(scene, mat_l, lv["uv"])
-    do = ev["valid"] & lv["valid"] & ~ev["is_delta"] & ~lv["is_delta"]
-
-    e2l = lv["pt"] - ev["pt"]
-    d2 = torch.clamp(length_sq(e2l), min=RAY_EPSILON)
-    dist = torch.sqrt(d2)
-    e2l_u = e2l / dist[:, None]
-    cos_l = torch.abs(dot(lv["n"], -e2l_u))
-    cos_e = torch.abs(dot(ev["n"], e2l_u))
-    do = do & (cos_l > EPSILON) & (cos_e > EPSILON)
-
-    origin = ev["pt"] + ev["n"] * RAY_EPSILON
-    rays = int(do.sum())
-    shadow = traverse.shadow_factor(scene, origin, e2l_u, dist - RAY_EPSILON,
-                                    active=do)
-    do = do & (shadow.amax(dim=-1) > 0.0)
 
     l2e_loc_l = to_local(-e2l_u, lv["n"])
     to_l_from_prev_loc = to_local(-lv["wo"], lv["n"])
@@ -469,8 +487,7 @@ def _connect_one(scene, ev, mat_e, albedo_e, trans_e, lv, ones, cfg):
                               ones, transmission=trans_l)
     g = torch.clamp(cos_e * cos_l / d2, max=MAX_G_CONNECT)
     contrib = ev["beta"] * lv["beta"] * f_eye * f_light * g[:, None] * shadow
-    out = _weighted(contrib, weight, cfg)
-    return torch.where(do[:, None], out, 0.0), rays
+    return _weighted(contrib, weight, cfg)
 
 
 # --- one sample --------------------------------------------------------------

@@ -20,10 +20,10 @@ and ends each eye path after its first non-delta surface.
 
 On CUDA tensors `render_sample` launches K12 (bdpt_walk.cu, light mode
 with eta_vcm), K11's VCM form (vcm_splat, bdpt_splat.cu), K8 (photon_pack,
-a stable torch.sort, photon_table: photon_grid.cu) and the eye pass
-(K13's VCM form with the K9 merge: eye_walk.cu, eye_connect.cu,
-eye_gather.cu): seven launches and a sort per sample (SPPM: no splat and
-no connection stage). On CPU tensors it runs `render_plain`, the plain
+photon_table: photon_grid.cu, around the stable radix sort photon_sort:
+radix_sort.cu) and the eye pass (K13's VCM form with the K9 merge:
+eye_walk.cu, eye_connect.cu, eye_gather.cu): eight launches per sample
+(SPPM: no splat and no connection stage). On CPU tensors it runs `render_plain`, the plain
 versions operation for operation over [N] lanes (each eye stage's twin:
 eye_walk_plain, eye_connect_plain, eye_gather_plain). The merge radius,
 eta_vcm and the merge normalisation are float32 values computed once per
@@ -353,13 +353,11 @@ def eye_connect_plain(scene, rec: EyeRecords, lbufs, cfg: VCMConfig,
     rays = 0
     for t in range(depth):
         live = rec.conn(t)
-        if not bool(live.any()):
+        if not lverts or not bool(live.any()):
             continue
-        e = rec.eye(scene, t)
-        for j, lv in enumerate(lverts):
-            conn[t, j], r = _connect_vcm(scene, e, lv, live, ones, cfg,
-                                         eta_vcm)
-            rays += r
+        conn[t], r = _connect_rows(scene, rec.eye(scene, t), lverts, live,
+                                   ones, cfg, eta_vcm)
+        rays += r
     return conn, rays
 
 
@@ -443,15 +441,30 @@ def _connect_vcm(scene, e, lv, conn, ones, cfg, eta_vcm):
     """s >= 2 against one stored light vertex per lane: (what each lane
     adds, zero where nothing is traced or the ray is blocked; the shadow
     rays traced)."""
-    do, e2l_u, dist, cos_l, cos_e, d2 = conn_geometry(e, lv, conn)
-    rays = int(do.sum())
-    shadow = traverse.shadow_factor(scene, e["pos"] + e["n"] * RAY_EPSILON,
-                                    e2l_u, dist - RAY_EPSILON, active=do)
-    do = do & (shadow.amax(dim=-1) > 0.0)
-    base, weight = conn_terms(scene, e, lv, ones, e2l_u, cos_l, cos_e, d2,
-                              eta_vcm)
-    out = _clamp_firefly(_weighted(base * shadow, weight, cfg))
-    return torch.where(do[:, None], out, 0.0), rays
+    out, rays = _connect_rows(scene, e, [lv], conn, ones, cfg, eta_vcm)
+    return out[0], rays
+
+
+def _connect_rows(scene, e, lverts, conn, ones, cfg, eta_vcm):
+    """_connect_vcm against each light row of lverts, their shadow rays
+    traced in one call -> ([L, N, 3], the shadow rays traced)."""
+    geo = [conn_geometry(e, lv, conn) for lv in lverts]
+    do = torch.stack([g[0] for g in geo])
+    origin = e["pos"] + e["n"] * RAY_EPSILON
+    shadow = traverse.shadow_factor_rows(
+        scene, origin.expand(len(geo), -1, -1),
+        torch.stack([g[1] for g in geo]),
+        torch.stack([g[2] - RAY_EPSILON for g in geo]), do)
+    out = torch.empty((len(geo), ones.shape[0], 3), dtype=torch.float32,
+                      device=ones.device)
+    for j, (lv, (_, e2l_u, _, cos_l, cos_e, d2)) in enumerate(zip(lverts,
+                                                                 geo)):
+        base, weight = conn_terms(scene, e, lv, ones, e2l_u, cos_l, cos_e,
+                                  d2, eta_vcm)
+        term = _clamp_firefly(_weighted(base * shadow[j], weight, cfg))
+        ok = do[j] & (shadow[j].amax(dim=-1) > 0.0)
+        out[j] = torch.where(ok[:, None], term, 0.0)
+    return out, int(do.sum())
 
 
 def conn_geometry(e, lv, conn):
@@ -589,7 +602,8 @@ def render_plain(scene, camera, base_key, sample_idx, px, py, *,
 
 def render_kernel(scene, camera, base_key, sample_idx, px, py, *,
                   cfg: VCMConfig):
-    """K12 (light), vcm_splat, photon_pack + sort + photon_table, vcm_eye:
+    """K12 (light), vcm_splat, photon_pack + photon_sort + photon_table,
+    vcm_eye:
     one ray-count and one dropped-count accumulator [P], each summed on the
     card into a 0-d int64 tensor (no host sync)."""
     key_l, key_e = sample_keys(base_key, sample_idx)

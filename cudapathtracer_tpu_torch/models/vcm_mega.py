@@ -533,7 +533,7 @@ def render_plain(scene, camera, base_key, sample_idx, px, py, *,
 def render_kernel(scene, camera, base_key, sample_idx, px, py, *,
                   cfg: VCMConfig, width: int = 0, chunk_pixels: int = 0):
     """Per chunk: K12 (light; its table mode under TPT_MEGA_LIGHT),
-    vcm_splat, photon_pack + sort + photon_table, K14 (mega_eye); one
+    vcm_splat, photon_pack + photon_sort + photon_table, K14 (mega_eye); one
     ray-count and one dropped-count accumulator per chunk, summed on the
     card into 0-d int64 tensors (no host sync)."""
     key_l, key_e = sample_keys(base_key, sample_idx)

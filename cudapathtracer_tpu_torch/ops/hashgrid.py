@@ -12,9 +12,10 @@ distance, and weighs each kept photon by count/kept.
 
 The functions here are the plain versions, on any device: the CPU path
 and the oracle. On the card `build_grid_kernel` builds the same grid from
-K12's packed light buffers with two kernels around a stable torch.sort
-(kernels.photon_pack and kernels.photon_table), and the merge query is
-device code of the VCM eye kernel (kernels/csrc/hashgrid.cuh). The
+K12's packed light buffers with three kernels (kernels.photon_pack, the
+stable radix sort kernels.photon_sort, whose plain twin is radix_sort_plain,
+and kernels.photon_table), and the merge query is device code of the VCM
+eye kernel (kernels/csrc/hashgrid.cuh). The
 estimator switches are read under the JAX package's names and defaults:
 TPT_MERGE_REWEIGHT at import (REWEIGHT), TPT_GRID_ONE_BRICK at each call.
 
@@ -182,6 +183,47 @@ def grid_table(rows, h, order, table_size: int):
     return rows_sorted, torch.stack([start, end], dim=-1)
 
 
+RADIX_BITS = 8      # kernels/csrc/radix_sort.cu kBits
+RADIX_TILE = 2048   # its kTile: keys a block
+
+
+def key_bits(table_size: int, salted: bool) -> int:
+    """The low bits a sort key can have nonzero: the bucket is at most
+    table_size (the sentinel), and a salted key is bucket * 256 plus an
+    8-bit tiebreak, wrapping at 32 bits."""
+    top = (table_size << 8) + 255 if salted else table_size
+    return min(32, top.bit_length())
+
+
+def radix_sort_plain(key, bits: int, gather=None):
+    """Plain twin of kernels.photon_sort: the same LSD passes of 8-bit
+    digits over the low `bits` of key [P] (int32 or int64 holding uint32
+    values), each a digit histogram per tile of RADIX_TILE keys, the
+    digit-major exclusive scan over the tiles, and a scatter to the keys of
+    lower digits + the tile's offset + the key's rank among the tile's keys
+    of its digit in input order. -> (order [P] int64, gather[order] or
+    None): the stable order, as torch.sort(stable=True) gives it."""
+    p, dev = key.shape[0], key.device
+    k = key.to(torch.int64) & _M32
+    v = torch.arange(p, dtype=torch.int64, device=dev)
+    tiles = -(-p // RADIX_TILE)
+    tile = torch.arange(p, dtype=torch.int64, device=dev) // RADIX_TILE
+    ndig = 1 << RADIX_BITS
+    for shift in range(0, bits, RADIX_BITS):
+        d = (k >> shift) & (ndig - 1)
+        counts = torch.bincount(d * tiles + tile, minlength=ndig * tiles)
+        offset = torch.cumsum(counts, 0) - counts          # digit-major
+        rank = torch.empty(p, dtype=torch.int64, device=dev)
+        for t0 in range(0, p, RADIX_TILE):                  # in-tile ranks
+            dt = d[t0:t0 + RADIX_TILE]
+            seen = torch.cumsum(torch.nn.functional.one_hot(dt, ndig), 0)
+            rank[t0:t0 + RADIX_TILE] = seen.gather(1, dt[:, None])[:, 0] - 1
+        dest = offset[d * tiles + tile] + rank
+        k = torch.empty_like(k).index_copy_(0, dest, k)
+        v = torch.empty_like(v).index_copy_(0, dest, v)
+    return v, (None if gather is None else gather[v])
+
+
 def build_grid(rows, valid, scene_min, merge_radius: float, table_size: int,
                salt=None) -> PhotonGrid:
     """Plain version of K8: hash, stable sort, padded sorted rows and the
@@ -199,10 +241,11 @@ def build_grid(rows, valid, scene_min, merge_radius: float, table_size: int,
 def build_grid_kernel(lbufs, scene_min, merge_radius: float, salt,
                       table_size: int | None = None) -> PhotonGrid:
     """K8 on the card from K12's light buffers [L, N]: photon_pack (row,
-    bucket and key per stored vertex; plain version photon_rows +
-    grid_keys), a stable torch.sort of the keys, photon_table (sorted
-    padded rows, the (start, end) table; plain version grid_table). The
-    same grid as photon_rows + build_grid, bit for bit."""
+    bucket and uint32 key per stored vertex; plain version photon_rows +
+    grid_keys), photon_sort (the keys' stable order and the buckets in it;
+    plain twin radix_sort_plain), photon_table (sorted padded rows, the
+    (start, end) table; plain version grid_table). The same grid as
+    photon_rows + build_grid, bit for bit."""
     from cudapathtracer_tpu_torch import kernels
     p = lbufs.pt.shape[0] * lbufs.pt.shape[1]
     if table_size is None:
@@ -211,8 +254,9 @@ def build_grid_kernel(lbufs, scene_min, merge_radius: float, salt,
     salted = salt is not None and REWEIGHT
     rows, h, key, cell_se = kernels.photon_pack(
         lbufs, scene_min, cell_size, table_size, salt if salted else None)
-    order = torch.sort(key, stable=True).indices
-    rows_sorted = kernels.photon_table(rows, h, order, cell_se)
+    order, h_sorted = kernels.photon_sort(key, key_bits(table_size, salted),
+                                          h)
+    rows_sorted = kernels.photon_table(rows, h_sorted, order, cell_se)
     return PhotonGrid(rows=rows_sorted, cell_se=cell_se,
                       scene_min=tuple(scene_min), cell_size=cell_size,
                       table_size=table_size)

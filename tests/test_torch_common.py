@@ -186,3 +186,27 @@ def test_second_lowest_skips_priority_zero():
     ts = tc.stack_remove(ts, torch.tensor([9]), torch.tensor([True]))
     assert ts.top.tolist() == [2]
     assert (ts.stack[0, 1].item() & 1023) == 5
+
+
+def test_one_over_tensor_rounds_once():
+    """`1.0 / t` (ops/bsdf.py, models/common.py) is PyTorch's reciprocal
+    times 1.0, and the product by one is exact: bit-equal to the correctly
+    rounded division true_div(1.0, t) and to float64's quotient rounded
+    to float32, on random, tiny (subnormal) and huge floats of both
+    signs."""
+    from cudapathtracer_tpu_torch.utils.math import true_div
+    gen = np.random.default_rng(29)
+    x = np.concatenate([
+        gen.uniform(-4.0, 4.0, 4096),
+        gen.lognormal(0.0, 20.0, 4096) * gen.choice([-1.0, 1.0], 4096),
+        np.float32(2.0 ** -149) * gen.integers(1, 2 ** 23, 1024),
+        np.float32(2.0 ** 127) * gen.uniform(1.0, 1.99, 1024),
+        [np.finfo(np.float32).tiny, np.finfo(np.float32).max, 1.0, -1.0,
+         3.0, 0.1]]).astype(np.float32)
+    t = torch.from_numpy(x)
+    got = (1.0 / t).numpy().view(np.int32)
+    np.testing.assert_array_equal(got, true_div(1.0, t).numpy().view(
+        np.int32))
+    with np.errstate(over="ignore"):   # 1 / a subnormal overflows to inf
+        want = (1.0 / x.astype(np.float64)).astype(np.float32)
+    np.testing.assert_array_equal(got, want.view(np.int32))

@@ -1006,3 +1006,46 @@ def test_threaded_scene_runs_k15(cuda):
     assert not torch.equal(rows["threaded", "classic"],
                            rows["bvh8", "classic"])
     assert torch.equal(rows["threaded", "mega"], rows["bvh8", "mega"])
+
+
+def test_photon_sort_refuses_non_cuda_tensors():
+    """K8's sort launches on CUDA tensors or raises; it never falls back
+    to its twin or to torch.sort."""
+    kernels.reset_launches()
+    with pytest.raises(ValueError):
+        kernels.photon_sort(torch.zeros(4, dtype=torch.int32), 32)
+    assert kernels.launches["photon_sort"] == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["random", "high", "equal", "sentinel"])
+def test_photon_sort_matches_torch_sort(cuda, kind):
+    """The hand-written radix sort (radix_sort.cu) against torch.sort
+    (stable) on the same uint32 keys, and its twin: the order and the
+    gathered buckets exactly equal; one launch counted; the keys left as
+    they were. 1,000,003 keys (not a multiple of the tile), and 1 key."""
+    gen = np.random.default_rng(5)
+    for n in (1_000_003, 1):
+        if kind == "equal":
+            k = np.full(n, 0x80000001, dtype=np.uint32)
+        elif kind == "sentinel":
+            k = np.where(gen.uniform(size=n) < 0.47, np.uint32(24_883_207),
+                         gen.integers(0, 24_883_207, n).astype(np.uint32))
+        else:
+            lo = 2 ** 31 if kind == "high" else 0
+            k = gen.integers(lo, 2 ** 32, n, dtype=np.uint64).astype(
+                np.uint32)
+        key = torch.from_numpy(k.view(np.int32).copy()).to(cuda)
+        bucket = torch.from_numpy(gen.integers(0, 2 ** 31 - 1, n).astype(
+            np.int32)).to(cuda)
+        before = key.clone()
+        kernels.reset_launches()
+        order, got = kernels.photon_sort(key, 32, bucket)
+        assert kernels.launches["photon_sort"] == 1
+        want = torch.sort(torch.from_numpy(k.astype(np.int64)).to(cuda),
+                          stable=True).indices
+        assert torch.equal(order.to(torch.int64), want)
+        assert torch.equal(got, bucket[want])
+        assert torch.equal(key, before)
+        twin, _ = hashgrid.radix_sort_plain(key, 32)
+        assert torch.equal(twin, want)

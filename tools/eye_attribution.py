@@ -39,8 +39,8 @@ K5 and K11-K13 instantiation of the build (the library is rebuilt with
     through render_sample on the threaded scene (no config key selects
     it) for BDPT, K5 classic, VCM and SPPM; and K13 (kernels.bdpt_connect)
     and one K5 mega sample alone at 1080p, and the launches of one
-    bdpt-1080p sample and of a vcm-1080p sample's light walk and splat
-    by CUDA events ("1080p alone");
+    bdpt-, vcm- and sppm-1080p sample by CUDA events, on each scene
+    ("1080p alone");
   * --dump DIR writes the outputs whose bits a redesign of K5, K12 or K13
     must not move (--dump-cases REGEX keeps the cases whose name it
     matches): K12's light walk (with and without VCM's d_vm chain) and
@@ -59,7 +59,20 @@ K5 and K11-K13 instantiation of the build (the library is rebuilt with
   * --walks times K12's 1080p walks (light, light with eta_vcm, eye; with
     a digest of every output, so that two trees' walks compare) and K11's
     BDPT form whole and stage by stage, its first stage's kernels and
-    the light walk's (its prologue) by the profiler (walks_and_splat).
+    the light walk's (its prologue) by the profiler (walks_and_splat);
+  * --k1 times K1 (the BVH8 traversal) in its two batch entries and in
+    each kernel it runs in, one 1080p sample's launch each on the BVH8
+    scene (k1_hosts): K5's mega and classic schedules, K12's light and eye
+    walks, K11's trace stage, K13's pair stage, the classic VCM eye pass's
+    walk and connection stages; tools/k1_attribution.py runs it on copies
+    of a tree with one change to K1 or its hosts each, in turns.
+  * --dump also writes, per engine, the eye passes' walk and connection
+    stages (the classic VCM pass; on BVH8 also K14's VCM and BDPT
+    flavours, chunk 0): their records and contributions (zeroed before
+    the stages, so unwritten entries compare), rays and rows; and K11's
+    queue (both forms): the tile offsets, each tile's entries in
+    ascending order (the queue has no order inside a tile), the rays, and
+    the trace stage's rows (eye_k11_cases).
 
 It uses only entry points whose signatures both designs of a redesigned
 kernel share (or tells them apart), so --root may name another checkout
@@ -70,8 +83,8 @@ repository root:
 
     python3 tools/eye_attribution.py [--root DIR] [--toggles] [--reps 2]
         [--bit-equal] [--renders [--cells REGEX] [--spp-256 N]]
-        [--dump DIR [--dump-cases REGEX]] [--per 1 6 42] [--walks]
-        [--json FILE]
+        [--dump DIR [--dump-cases REGEX]] [--per 1 6 42] [--walks] [--k1]
+        [--reuse-build] [--json FILE]
     python3 tools/eye_attribution.py --compare DUMP_A DUMP_B
 """
 
@@ -112,17 +125,22 @@ def _events_ms(fn, reps: int = 3) -> float:
 
 
 def ptxas_eye(log: str) -> dict:
-    """{entry: (registers, stack bytes, spill stores, spill loads)} of the
-    eye-pass, K5 and K11-K13 kernels in a ptxas -v report."""
+    """{entry: (registers, stack bytes, spill stores, spill loads, shared
+    bytes)} of the eye-pass, K1, K5 and K11-K13 kernels in a ptxas -v
+    report (a kernel that calls a function that is not inlined reports
+    that function's stack frame first: its first numbers are the
+    callee's)."""
     out = {}
     for m in re.finditer(r"Compiling entry function "
-                         r"'([^']*(?:eye|uni_mega|bdpt_|splat_)"
+                         r"'([^']*(?:eye|uni_mega|bdpt_|splat_|traverse8)"
                          r"[^']*)'"
                          r".*?(\d+) bytes stack frame, (\d+) bytes spill "
                          r"stores, (\d+) bytes spill loads.*?Used (\d+) "
-                         r"registers", log, re.S):
-        name, stack, st, ld, regs = m.groups()
-        out[name] = (int(regs), int(stack), int(st), int(ld))
+                         r"registers([^\n]*)", log, re.S):
+        name, stack, st, ld, regs, rest = m.groups()
+        smem = re.search(r"(\d+) bytes smem", rest)
+        out[name] = (int(regs), int(stack), int(st), int(ld),
+                     int(smem.group(1)) if smem else 0)
     return out
 
 
@@ -378,10 +396,11 @@ def bdpt_keys():
     return bdpt.sample_keys(rng.base_key(), 0)
 
 
-def dump(path: str, scenes: dict, cam, px, py, bcfg, log,
+def dump(path: str, scenes: dict, cam, px, py, bcfg, cfg0, log,
          cases: str = "") -> None:
-    """Write the bit-equality cases of K5, K12 and K13 (torch.save, one
-    file a case) whose name matches the regular expression `cases`."""
+    """Write the bit-equality cases of K5, K12, K13, the eye passes' walk
+    and connection stages and K11's queue (torch.save, one file a case)
+    whose name matches the regular expression `cases`."""
     import torch
     from cudapathtracer_tpu_torch import kernels
     os.makedirs(path, exist_ok=True)
@@ -407,6 +426,16 @@ def dump(path: str, scenes: dict, cam, px, py, bcfg, log,
                            os.path.join(path, f"k5_{eng}_{sched}_k{k}.pt"))
                 log(f"[ab] dumped K5 {eng} {sched} k={k}: "
                     f"{int(rays.sum())} rays")
+        if re.search(cases, f"eye_{eng}") or re.search(cases,
+                                                        f"k11_{eng}"):
+            for case, t in eye_k11_cases(sc, cam, px, py, bcfg, cfg0,
+                                         eng).items():
+                name = f"{case.split('_')[0]}_{eng}_{case.split('_', 1)[1]}"
+                if not re.search(cases, name):
+                    continue
+                d = digests(t)
+                torch.save(d, os.path.join(path, f"{name}.pt"))
+                log(f"[ab] dumped {name}: {d['rays_sum']} rays")
         if not re.search(cases, f"k13_{eng}"):
             continue
         lw, ew, key_c = k13_inputs(sc, cam, px, py, bcfg)
@@ -423,6 +452,154 @@ def dump(path: str, scenes: dict, cam, px, py, bcfg, log,
         del lw, ew
 
 
+def _zeroed_pass(ep):
+    """An eye pass whose records and contributions start at zero, so that
+    the entries its stages leave unwritten compare too."""
+    for t in ep.rec:
+        t.zero_()
+    if ep.conn is not None:
+        ep.conn.zero_()
+    return ep
+
+
+def eye_k11_cases(scene, cam, px, py, bcfg, cfg0, eng: str) -> dict:
+    """The deterministic outputs of the eye passes' walk and connection
+    stages and of K11's queue, sample 0 at 1080p: {case: {name: tensor}}
+    (the module's docstring lists them; every case has rays and rows)."""
+    import torch
+    from cudapathtracer_tpu_torch import kernels
+    from cudapathtracer_tpu_torch.models import bdpt, bdpt_mega, paths, vcm
+    from cudapathtracer_tpu_torch.ops import hashgrid
+    n, dev = px.shape[0], px.device
+    out = {}
+
+    def stages(case, ep):
+        _zeroed_pass(ep)
+        kernels.eye_walk(ep)
+        t = {f"rec.{f}": getattr(ep.rec, f) for f in ep.rec._fields}
+        t["walk_rays"] = ep.rays.clone()
+        if ep.conn is not None:
+            kernels.eye_connect(ep)
+            t["conn"] = ep.conn
+        t.update(rays=ep.rays, rows=ep.rows)
+        out[case] = {k: v.contiguous().cpu() for k, v in t.items()}
+
+    def cfg_of(integ, engine):
+        c = dataclasses.replace(cfg0, integrator=integ,
+                                engine=engine).normalized()
+        if integ == "BIDIRECTIONAL":
+            return bdpt_mega.as_machine_cfg(bdpt.BDPTConfig.from_config(c))
+        return vcm.VCMConfig.from_config(c)
+    cv = cfg_of("VCM", "classic")
+    inp = classic_inputs(scene, px, py, cv)
+    z = lambda m: torch.zeros(m, dtype=torch.int32, device=dev)
+    stages("eye_vcm", kernels.vcm_eye_pass(
+        scene, cam, inp["keys"], inp["lb"], inp["grid"], None, z(n), cv,
+        px=px, py=py, merge_radius=inp["mr"], eta_vcm=inp["eta"],
+        merge_norm=inp["norm"], with_rows=True,
+        **hashgrid.merge_switches(cv.max_per_cell)))
+    if eng == "bvh8":   # K14 traces BVH8 on every scene
+        for flavor, integ in (("vcm", "VCM"), ("bdpt", "BIDIRECTIONAL")):
+            mc = cfg_of(integ, "mega")
+            ch = mega_inputs(scene, px, py, mc, flavor)[0]
+            sw = (hashgrid.merge_switches(mc.max_per_cell)
+                  if flavor == "vcm" else {})
+            stages(f"eye_mega_{flavor}", kernels.mega_eye_pass(
+                scene, cam, ch["keys"], ch["lb"], ch["grid"],
+                torch.zeros((n, 3), device=dev), z(ch["pxc"].shape[0]), mc,
+                px=ch["pxc"], py=ch["pyc"], cnt=ch["cnt"],
+                gbase=ch["gbase"], flavor=flavor, merge_radius=ch["mr"],
+                eta_vcm=ch["eta"], merge_norm=ch["norm"], with_rows=True,
+                **sw))
+            del ch
+
+    def queue(case, sp, rays):
+        sp.bin()
+        torch.cuda.synchronize()
+        off = sp.offsets.to(torch.int64)
+        q = sp.queue[:int(off[-1])].to(torch.int64)
+        tile = torch.repeat_interleave(
+            torch.arange(off.shape[0] - 1, device=dev), off[1:] - off[:-1])
+        t = {"offsets": sp.offsets.clone(),
+             "queue": torch.sort(tile * 2 ** 32 + q).values,
+             "bin_rays": rays.clone()}
+        sp.trace()
+        t.update(rays=rays, rows=sp.rows)
+        out[case] = {k: v.contiguous().cpu() for k, v in t.items()}
+    lw, _, _ = k13_inputs(scene, cam, px, py, bcfg)
+    fb, rays = torch.zeros((n, 3), device=dev), z(n)
+    queue("k11_bdpt", kernels.splat_pass(scene, cam, lw["bufs"], lw["v0"],
+                                         fb, rays, bcfg, with_rows=True),
+          rays)
+    rays = z(n)
+    queue("k11_vcm", kernels.splat_pass(scene, cam, inp["lb"], None, fb,
+                                        rays, cv, eta_vcm=inp["eta"],
+                                        with_rows=True), rays)
+    return out
+
+
+def k1_hosts(root: str, scene, cam, px, py, bcfg, cfg0, reps: int,
+             log=print) -> dict:
+    """K1's time in each kernel it runs in, on the BVH8 scene at 1080p,
+    sample 0, by CUDA events: {name: ms} (the module's docstring lists
+    them). The batch entries trace the 1080p primary rays and the NEE rays
+    from their hits (the tree's chip_smoke.nee_rays)."""
+    import importlib.util
+    import torch
+    from cudapathtracer_tpu_torch import kernels
+    from cudapathtracer_tpu_torch.models import paths, vcm
+    from cudapathtracer_tpu_torch.ops import hashgrid, traverse8
+    from cudapathtracer_tpu_torch.utils import rng
+    spec = importlib.util.spec_from_file_location(
+        "tree_chip_smoke", os.path.join(root, "chip_smoke.py"))
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    n, dev = px.shape[0], px.device
+    res = {}
+
+    def timed(name, fn):
+        res[name] = _events_ms(fn, reps)
+        log(f"[k1] {name}: {res[name]:.3f} ms")
+    ids = rng.pixel_ids(px, py).contiguous()
+    ckey = rng.fold_in(rng.sample_key(rng.base_key(), 0), 2 ** 20)
+    o, d = cam.generate_rays(ckey, px.float(), py.float(), ids)
+    hit = traverse8.closest_hit8(scene, o, d)
+    so, sd, smt = smoke.nee_rays(scene, o, d, hit, ids)
+    timed("K1 closest entry", lambda: traverse8.closest_hit8(scene, o, d))
+    timed("K1 shadow entry",
+          lambda: traverse8.shadow_factor8(scene, so, sd, smt))
+    del o, d, hit, so, sd, smt
+    for sched in ("mega", "classic"):
+        timed(f"K5 {sched}", lambda: k5(scene, cam, px, py, sched, 0, 1))
+    key_l, key_e, key_c = bdpt_keys()
+    z = lambda: torch.zeros(n, dtype=torch.int32, device=dev)
+    rays = z()
+    timed("K12 light walk", lambda: kernels.bdpt_walk(
+        scene, px, py, paths.walk_keys(key_l, "light"), mode="light",
+        max_depth=bcfg.light_depth, rays=rays))
+    timed("K12 eye walk", lambda: kernels.bdpt_walk(
+        scene, px, py, paths.walk_keys(key_e, "eye"), mode="eye",
+        max_depth=bcfg.eye_depth, rays=rays, camera=cam))
+    lw, ew, _ = k13_inputs(scene, cam, px, py, bcfg)
+    fb = torch.zeros((n, 3), device=dev)
+    sp = kernels.splat_pass(scene, cam, lw["bufs"], lw["v0"], fb, rays, bcfg)
+    sp.bin()
+    timed("K11 trace", sp.trace)
+    timed("K13 pairs", lambda: kernels.bdpt_pairs(
+        scene, cam, key_c, ew, lw, rays, bcfg, px=px, py=py))
+    del sp, lw, ew
+    cv = vcm.VCMConfig.from_config(dataclasses.replace(
+        cfg0, integrator="VCM", engine="classic").normalized())
+    inp = classic_inputs(scene, px, py, cv)
+    ep = kernels.vcm_eye_pass(
+        scene, cam, inp["keys"], inp["lb"], inp["grid"], None, rays, cv,
+        px=px, py=py, merge_radius=inp["mr"], eta_vcm=inp["eta"],
+        merge_norm=inp["norm"], **hashgrid.merge_switches(cv.max_per_cell))
+    timed("eye walk", lambda: kernels.eye_walk(ep))
+    timed("eye connect", lambda: kernels.eye_connect(ep))
+    return res
+
+
 def compare(a: str, b: str) -> int:
     """Case by case: bit-equal li, rays and rows (K5, K13) or every output
     (K12), or how far apart; the number of cases that differ."""
@@ -434,7 +611,7 @@ def compare(a: str, b: str) -> int:
     for name in names:
         x = torch.load(os.path.join(a, name))
         y = torch.load(os.path.join(b, name))
-        if "li" not in x:   # K12: every output's digest, dead rows included
+        if "li" not in x:   # every output's digest (K12: dead rows too)
             diff = [k for k in x if x[k] != y.get(k)]
             bad += bool(diff)
             print(f"[ab] {name[:-3]}: "
@@ -574,7 +751,10 @@ def renders(cfg0, scenes: dict, cam, px, py, bcfg, log=print,
     res["K5 mega ms"] = _events_ms(lambda: k5(s8, cam, px, py, "mega", 0, 1))
     log(f"[ab] 1080p alone: K13 {res['K13 ms']:.3f} ms, K5 mega sample "
         f"{res['K5 mega ms']:.3f} ms")
-    res["launches"] = sample_launches(s8, cam, px, py, bcfg, vcfg["VCM"])
+    res["launches"] = sample_launches(s8, cam, px, py, bcfg, vcfg)
+    res["launches"].update({
+        f"{tag} (threaded scene)": ms for tag, ms in sample_launches(
+            tsc, cam, px, py, bcfg, vcfg).items()})
     for tag, ms in res["launches"].items():
         log(f"[ab] one {tag} sample by launch: " + ", ".join(
             f"{k} {v:.3f} ms" for k, v in ms.items()))
@@ -597,13 +777,17 @@ def _timed_in_turn(steps, reps: int = 2) -> dict:
             for k, (name, _) in enumerate(steps)}
 
 
-def sample_launches(scene, cam, px, py, bcfg, vcfg) -> dict:
+def sample_launches(scene, cam, px, py, bcfg, vcfgs: dict) -> dict:
     """The launches of one 1080p bdpt sample (K12 light, K11, K12 eye,
-    K13) and of a vcm sample's light side (K12 with eta_vcm, K11's VCM
-    form), sample 0, by CUDA events: {cell: {launch: ms}}."""
+    K13) and of a vcm and an sppm sample (K12 with eta_vcm, K11's VCM form
+    (not SPPM), K8's photon_pack, sort (the tree's photon_sort, or
+    torch.sort where it has none) and photon_table, the eye pass's walk,
+    connections (not SPPM) and gather), sample 0, by CUDA events:
+    {cell: {launch: ms}}."""
     import torch
     from cudapathtracer_tpu_torch import kernels
     from cudapathtracer_tpu_torch.models import paths, vcm
+    from cudapathtracer_tpu_torch.ops import hashgrid
     from cudapathtracer_tpu_torch.utils import rng
     n = px.shape[0]
     key_l, key_e, key_c = bdpt_keys()
@@ -623,15 +807,49 @@ def sample_launches(scene, cam, px, py, bcfg, vcfg) -> dict:
             scene, cam, key_c, st["ew"], st["lw"], fb, rays, bcfg, px=px,
             py=py))]
     out = {"bdpt-1080p": _timed_in_turn(steps)}
-    vkey_l, _ = vcm.sample_keys(rng.base_key(), 0)
-    _, eta, _ = vcm.sample_scalars(scene, vcfg, 0, n)
-    steps = [
-        ("light walk", lambda: st.update(vw=kernels.bdpt_walk(
-            scene, px, py, paths.walk_keys(vkey_l, "light"), mode="light",
-            max_depth=vcfg.light_depth + 1, rays=rays, eta_vcm=eta))),
-        ("vcm_splat", lambda: kernels.vcm_splat(
-            scene, cam, st["vw"]["bufs"], fb, rays, vcfg, eta))]
-    out["vcm-1080p"] = _timed_in_turn(steps)
+    vkey_l, vkey_e = vcm.sample_keys(rng.base_key(), 0)
+    salt = hashgrid.photon_salt(0)
+    for cell, vcfg in (("vcm-1080p", vcfgs["VCM"]),
+                       ("sppm-1080p", vcfgs["SPPM"])):
+        mr, eta, norm = vcm.sample_scalars(scene, vcfg, 0, n)
+        tsize = hashgrid.photon_table_size(vcfg.light_depth * n)
+
+        def sort():
+            key, h = st["pack"][2], st["pack"][1]
+            if hasattr(kernels, "photon_sort"):
+                st["order"] = kernels.photon_sort(
+                    key, hashgrid.key_bits(tsize, hashgrid.REWEIGHT), h)
+            else:   # an earlier tree: torch.sort, photon_table gathers h
+                st["order"] = (torch.sort(key, stable=True).indices, h)
+
+        def eye_pass():
+            st["ep"] = kernels.vcm_eye_pass(
+                scene, cam, paths.walk_keys(vkey_e, "eye"), st["vw"]["bufs"],
+                hashgrid.PhotonGrid(st["rows"], st["pack"][3],
+                                    scene.scene_min, 2.0 * mr, tsize),
+                fb, rays, vcfg, px=px, py=py, merge_radius=mr, eta_vcm=eta,
+                merge_norm=norm, **hashgrid.merge_switches(vcfg.max_per_cell))
+            kernels.eye_walk(st["ep"])
+        steps = [
+            ("light walk", lambda: st.update(vw=kernels.bdpt_walk(
+                scene, px, py, paths.walk_keys(vkey_l, "light"),
+                mode="light", max_depth=vcfg.light_depth + 1, rays=rays,
+                eta_vcm=eta))),
+            ("vcm_splat", lambda: kernels.vcm_splat(
+                scene, cam, st["vw"]["bufs"], fb, rays, vcfg, eta)),
+            ("photon_pack", lambda: st.update(pack=kernels.photon_pack(
+                st["vw"]["bufs"], scene.scene_min, 2.0 * mr, tsize, salt))),
+            ("sort", sort),
+            ("photon_table", lambda: st.update(rows=kernels.photon_table(
+                st["pack"][0], st["order"][1], st["order"][0],
+                st["pack"][3]))),
+            ("eye walk", eye_pass),
+            ("eye connect", lambda: kernels.eye_connect(st["ep"])),
+            ("eye gather", lambda: kernels.eye_gather(st["ep"]))]
+        if not vcfg.light_trace:
+            steps = [x for x in steps if x[0] not in ("vcm_splat",
+                                                       "eye connect")]
+        out[cell] = _timed_in_turn(steps)
     return out
 
 
@@ -753,12 +971,17 @@ def main() -> int:
     ap.add_argument("--per", type=int, nargs="+", default=None)
     ap.add_argument("--walks", action="store_true", help="time K12's walks "
                     "and K11's stages at 1080p (walks_and_splat)")
+    ap.add_argument("--k1", action="store_true", help="time K1 in its batch "
+                    "entries and in each kernel it runs in (k1_hosts)")
+    ap.add_argument("--reuse-build", action="store_true", help="keep the "
+                    "tree's kernel library and ptxas report if they are up "
+                    "to date (a later turn of tools/k1_attribution.py)")
     args = ap.parse_args()
     if args.compare:
         return 1 if compare(*args.compare) else 0
     toggles = args.toggles or not (args.renders or args.bit_equal
                                    or args.dump or args.per
-                                   or args.walks)
+                                   or args.walks or args.k1)
     root = os.path.abspath(args.root)
     sys.path.insert(0, root)
     import torch
@@ -782,13 +1005,20 @@ def main() -> int:
                           text=True, timeout=60).stdout.strip()
     log = lambda m: print(f"{m} ({card})", flush=True)
     t0 = time.perf_counter()
-    with open(kernels.build(verbose=True) + ".ptxas.txt") as f:
+    lib = kernels.LIBRARY
+    fresh = (args.reuse_build and os.path.exists(lib + ".ptxas.txt")
+             and kernels.build() == lib and os.path.getmtime(lib + ".ptxas.txt")
+             >= os.path.getmtime(lib))
+    if not fresh:
+        kernels.build(verbose=True)
+    with open(lib + ".ptxas.txt") as f:
         regs = ptxas_eye(f.read())
     print(f"[attribution] {card}; tree {root}: kernels ready in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
-    for name, (r, st, ss, sl) in sorted(regs.items()):
+    for name, (r, st, ss, sl, sm) in sorted(regs.items()):
         print(f"[attribution] ptxas {name}: {r} registers, {st} bytes stack "
-              f"frame, {ss} bytes spill stores, {sl} bytes spill loads")
+              f"frame, {ss} bytes spill stores, {sl} bytes spill loads, "
+              f"{sm} bytes smem")
     dev = torch.device("cuda", 0)
     cam = Camera.pinhole((0.0, 0.0, 1.0), WIDTH, HEIGHT, 0.0, 0.0, 0.0, 60.0)
     gy, gx = torch.meshgrid(torch.arange(HEIGHT, dtype=torch.int32,
@@ -797,8 +1027,11 @@ def main() -> int:
                                          device=dev), indexing="ij")
     px, py = gx.reshape(-1).contiguous(), gy.reshape(-1).contiguous()
     mesh = builtin.cornell_with_bunny(subdivisions=6)
+    bvh8_only = not (toggles or args.bit_equal or args.dump or args.renders
+                     or args.per)
     scenes = {t: build_scene(mesh, builtin_materials(), traversal=t,
-                             device=dev)[0] for t in ("bvh8", "threaded")}
+                             device=dev)[0]
+              for t in (("bvh8",) if bvh8_only else ("bvh8", "threaded"))}
     cfg0 = load_config(os.path.join(ROOT, "configs", "cornell.rendertron"))
     bcfg = bdpt.BDPTConfig.from_config(cfg0)
     out = dict(card=card, tree=root, ptxas=regs)
@@ -809,7 +1042,8 @@ def main() -> int:
         out["bit_equal"] = bit_equal_shares(root, scenes["bvh8"], cam, px,
                                             py, cfg0)
     if args.dump:
-        dump(args.dump, scenes, cam, px, py, bcfg, log, args.dump_cases)
+        dump(args.dump, scenes, cam, px, py, bcfg, cfg0, log,
+             args.dump_cases)
     if args.renders:
         out["renders"] = renders(cfg0, scenes, cam, px, py, bcfg, log,
                                  args.cells, args.spp_256)
@@ -817,6 +1051,9 @@ def main() -> int:
         out["per"] = per_pairs(scenes, cam, px, py, bcfg, args.per, log)
     if args.walks:
         out["walks"] = walks_and_splat(scenes["bvh8"], cam, px, py, bcfg, log)
+    if args.k1:
+        out["k1"] = k1_hosts(root, scenes["bvh8"], cam, px, py, bcfg, cfg0,
+                             args.reps, log)
     if args.json:
         os.makedirs(os.path.dirname(os.path.abspath(args.json)),
                     exist_ok=True)

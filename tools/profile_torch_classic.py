@@ -11,7 +11,7 @@ integrator (K5's naive schedule); bdpt, vcm or sppm, Integrator
 BIDIRECTIONAL / VCM / SPPM with Engine classic at the config's eye and
 light depths (the walks K12, the splat K11, the connections K13 in two
 launches; or K12,
-vcm_splat (not SPPM), photon_pack, torch.sort, photon_table and the VCM
+vcm_splat (not SPPM), photon_pack, photon_sort, photon_table and the VCM
 eye pass's three stages: walk, connections (not SPPM), gather);
 bdpt-mega, vcm-mega or sppm-mega, the same integrators with the default
 mega engine (per chunk K12, the splat, K8, the mega eye pass K14 in the
@@ -62,7 +62,9 @@ LAYERS = (("K5 megakernel", "uni_mega_kernel"),
           ("K13 BDPT connection rays", "bdpt_pairs_kernel"),
           ("K13 BDPT gather", "bdpt_gather_kernel"),
           ("K8 photon_pack", "photon_pack_kernel"),
-          ("K8 sort (torch.sort)", "RadixSort"),
+          ("K8 sort: digit histograms", "radix_hist_kernel"),
+          ("K8 sort: scan", "radix_scan_kernel"),
+          ("K8 sort: scatter", "radix_scatter_kernel"),
           ("K8 photon_table", "photon_table_kernel"),
           ("eye pass stage 1: the walk (classic VCM / K14)",
            "eye_walk_kernel"),
