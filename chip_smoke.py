@@ -90,10 +90,11 @@ Phases (one line each; any failure exits non-zero before the result line):
      the walk's records under compare_records, the connections over the
      live pairs and the gather under compare_image at 99.5%, rays and
      dropped photons equal), K8 (photon_pack, the hand-written stable
-     radix sort photon_sort, photon_table) bit-equal to build_grid, the
-     sort's order and sorted buckets equal to torch.sort's (int64 and
-     sign-flipped int32 keys, both timed as its library calls) and its
-     twin's (compare_photon_sort); the same for SPPM, and for VCM
+     radix sort photon_sort on the buckets, which derives each photon's
+     key, photon_table) bit-equal to build_grid, the sort's order and
+     sorted buckets equal to torch.sort's on the same keys (int64 and
+     sign-flipped int32, both timed as its library calls) and its twin's
+     (compare_photon_sort); the same for SPPM, and for VCM
      on the 512x512 mirror + glass spheres at the caustics config's depths
      (samples 0 and 1); each kernel and stage timed at the 1080p shapes,
      the 1080p splat twice to print the spread from atomicAdd's order;
@@ -168,9 +169,10 @@ Phases (one line each; any failure exits non-zero before the result line):
      the image changes only under it;
  30. K15, the threaded binary engine (traverse_bin.cu), against its plain
      version on the bunny scene built with traversal="threaded" (no SBVH,
-     93k binary nodes): the 1080p primary rays, random secondary rays
-     (max_t, skip_tri) and NEE-like shadow rays, and shadow rays on its
-     MAT_LEAF variant, under phase 5's criteria; the kernel's rows a ray
+     93k binary nodes; the tables it walks, derived from node_packed at
+     upload, and their size printed): the 1080p primary rays, random
+     secondary rays (max_t, skip_tri) and NEE-like shadow rays, and shadow
+     rays on its MAT_LEAF variant, under phase 5's criteria; the kernel's rows a ray
      equal to the plain walk's on >= 99.99% of the rays, printed against
      K1's on the same rays, and the plain walk's triangle tests, which
      with the rows make the bound's operations;
@@ -1018,28 +1020,28 @@ def compare_grid(k, p, what: str) -> None:
         f"{t > 2 ** 24}): rows and (start, end) bit-equal")
 
 
-def compare_photon_sort(key, bucket, table_size: int, stats: dict,
+def compare_photon_sort(bucket, salt, table_size: int, stats: dict,
                         what: str) -> tuple:
-    """K8's sort (kernels.photon_sort) on photon_pack's keys and buckets
-    against its plain twin (hashgrid.radix_sort_plain) and torch.sort
-    (stable) on the same keys as int64 and as sign-flipped int32: the
-    order and the sorted buckets equal. Fills stats["photon_sort"] (the
-    library times are the two torch.sort calls) and returns (order,
-    bucket[order])."""
+    """K8's sort (kernels.photon_sort) on photon_pack's buckets against its
+    plain twin (hashgrid.radix_sort_plain) and torch.sort (stable) on the
+    same keys (hashgrid.sort_keys of the buckets) as int64 and as
+    sign-flipped int32: the order and the sorted buckets equal. Fills
+    stats["photon_sort"] (the library times are the two torch.sort calls)
+    and returns (order, bucket[order])."""
     import torch
     from cudapathtracer_tpu_torch import kernels
     from cudapathtracer_tpu_torch.ops import hashgrid
-    n = key.shape[0]
+    n = bucket.shape[0]
     bits = hashgrid.key_bits(table_size, hashgrid.REWEIGHT)
-    order, sorted_h = kernels.photon_sort(key, bits, bucket)
-    k64 = key.to(torch.int64) & 0xFFFFFFFF
-    k32 = key ^ torch.iinfo(torch.int32).min      # uint32 order as int32
+    order, sorted_h = kernels.photon_sort(bucket, bits, salt)
+    k64 = hashgrid.sort_keys(bucket.to(torch.int64), salt)
+    k32 = (k64 - 2 ** 31).to(torch.int32)      # uint32 order as int32
     lib64 = torch.sort(k64, stable=True).indices
     lib32 = torch.sort(k32, stable=True).indices
     t0 = torch.cuda.Event(enable_timing=True)
     t1 = torch.cuda.Event(enable_timing=True)
     t0.record()
-    twin, twin_h = hashgrid.radix_sort_plain(key, bits, bucket)
+    twin, twin_h = hashgrid.radix_sort_plain(k64, bits, bucket)
     t1.record()
     torch.cuda.synchronize()
     o64 = order.to(torch.int64)
@@ -1049,12 +1051,13 @@ def compare_photon_sort(key, bucket, table_size: int, stats: dict,
     check(torch.equal(sorted_h, bucket[lib64]) and torch.equal(
         sorted_h, twin_h), f"K8 sort {what}: the sorted buckets differ")
     passes = -(-bits // hashgrid.RADIX_BITS)
-    # inputs key, bucket; outputs order, bucket[order]; per pass and key a
-    # digit, a match and a rank (~10 operations)
+    # input the buckets; outputs the order and bucket[order]; per photon
+    # its key (~8 operations), and per pass and photon a digit, a match
+    # and a rank (~10)
     stats["photon_sort"].update(
-        bound=bound_ms(16 * n, 10 * passes * n), max_abs_err=0.0,
+        bound=bound_ms(12 * n, (8 + 10 * passes) * n), max_abs_err=0.0,
         plain_ms=t0.elapsed_time(t1),
-        ms=cuda_ms(lambda: kernels.photon_sort(key, bits, bucket), 5),
+        ms=cuda_ms(lambda: kernels.photon_sort(bucket, bits, salt), 5),
         library_ms_int64=cuda_ms(lambda: torch.sort(k64, stable=True), 5),
         library_ms_int32=cuda_ms(lambda: torch.sort(k32, stable=True), 5))
     st = stats["photon_sort"]
@@ -1844,21 +1847,25 @@ def threaded_phases(card: str, stats: dict, cam, px, py, ids, cfg0) -> int:
     t0 = time.perf_counter()
     tsc, _ = build_scene(builtin.cornell_with_bunny(subdivisions=6),
                          builtin_materials(), traversal="threaded", device=dev)
-    nodes, leaf_k = tsc.node_packed, tsc.max_leaf_size
+    table, nodes = tsc.bin_table, tsc.node_packed.shape[0]
     say("scene", f"threaded cornell_with_bunny(6): {tsc.num_triangles} "
-        f"triangles, {nodes.shape[0]} binary nodes of {nodes.shape[1]} "
-        f"floats (largest leaf {leaf_k}), {tsc.bvh8_table.shape[0]} BVH8 "
-        f"rows, built in {time.perf_counter() - t0:.1f} s")
+        f"triangles, {nodes} binary nodes (node_packed rows of "
+        f"{tsc.node_packed.shape[1]} floats, largest leaf "
+        f"{tsc.max_leaf_size}; K15's tables {table.numel() * 4 / 2 ** 20:.3f}"
+        f" MiB more: {nodes} node records of 96 B and "
+        f"{(table.numel() - 24 * nodes) // 12} leaf triangles of 48 B), "
+        f"{tsc.bvh8_table.shape[0]} BVH8 rows, built in "
+        f"{time.perf_counter() - t0:.1f} s")
     ckey = rng.fold_in(rng.sample_key(base, 0), 2 ** 20)
     o, d = cam.generate_rays(ckey, px.float(), py.float(), ids)
     nomax = torch.full((n,), 999999.0, device=dev)
     noskip = torch.full((n,), -1, dtype=torch.int32, device=dev)
     kh = traverse.closest_hit(tsc, o, d)
-    ph = traverse.closest_hit_bin_plain(nodes, leaf_k, o, d, nomax, noskip,
+    ph = traverse.closest_hit_bin_plain(table, nodes, o, d, nomax, noskip,
                                         None, with_counts=True)
     err15 = compare_hits(kh, traverse.Hit(*ph[:4]), "threaded primary "
                          "1080p", tag="K15")
-    rows_b = kernels.closest_hit_bin(nodes, leaf_k, o, d, nomax, noskip, None,
+    rows_b = kernels.closest_hit_bin(table, nodes, o, d, nomax, noskip, None,
                                      with_rows=True)[4]
     rows_8 = kernels.closest_hit8(tsc.bvh8_table, o, d, nomax, noskip, None,
                                   with_rows=True)[4]
@@ -1868,16 +1875,16 @@ def threaded_phases(card: str, stats: dict, cam, px, py, ids, cfg0) -> int:
     nrows, ntests = int(rows_b.sum()), int(ph[5].sum())
     # inputs read once: the node table, o, d, max_t, skip_tri; outputs t,
     # tri, u, v; operations: the rows these rays visited and the triangle
-    # tests of their hit leaves. (Each visit's 192-byte row fetched from
-    # memory would take nrows * 192 B / 3.35 TB/s, printed below: the rows
-    # near the root stay in the caches.)
-    tbytes = nodes.numel() * 4
+    # tests of their hit leaves. (Each visit's two 32-byte sectors fetched
+    # from memory would take nrows * 64 B / 3.35 TB/s, printed below: the
+    # rows near the root stay in the caches.)
+    tbytes = table.numel() * 4
     stats["closest_hit_bin"].update(
         bound=bound_ms(tbytes + n * (32 + 16), nrows * OPS_PER_BIN_ROW
                        + ntests * OPS_PER_TRI_TEST),
         ms=cuda_ms(lambda: traverse.closest_hit(tsc, o, d), 10),
         plain_ms=cuda_ms(lambda: traverse.closest_hit_bin_plain(
-            nodes, leaf_k, o, d, nomax, noskip, None), 1, warmup=0))
+            table, nodes, o, d, nomax, noskip, None), 1, warmup=0))
     say("K15", f"rows a ray on the 1080p primaries: threaded "
         f"{rows_b.float().mean().item():.3f} (max {int(rows_b.max())}; "
         f"equal to the plain walk's on {same_rows:.6f} of the rays), BVH8 "
@@ -1888,7 +1895,7 @@ def threaded_phases(card: str, stats: dict, cam, px, py, ids, cfg0) -> int:
         f"{stats['closest_hit_bin']['plain_ms']:.3f} ms, bound "
         f"{stats['closest_hit_bin']['bound'][0]:.4f} ms "
         f"({stats['closest_hit_bin']['bound'][1]}); every visited row from "
-        f"memory {nrows * nodes.shape[1] * 4 / PEAK_BYTES_S * 1e3:.4f} ms "
+        f"memory {nrows * 64 / PEAK_BYTES_S * 1e3:.4f} ms "
         f"({card})")
     gen = np.random.default_rng(7)
     sel = torch.nonzero(kh.valid)[:, 0]
@@ -1899,7 +1906,7 @@ def threaded_phases(card: str, stats: dict, cam, px, py, ids, cfg0) -> int:
     mt = torch.as_tensor(gen.uniform(0.05, 3.0, sel.numel()),
                          dtype=torch.float32, device=dev)
     skip = kh.tri[sel].contiguous()
-    ph2 = traverse.closest_hit_bin_plain(nodes, leaf_k, so, rd, mt, skip,
+    ph2 = traverse.closest_hit_bin_plain(table, nodes, so, rd, mt, skip,
                                          None)
     err15 = max(err15, compare_hits(traverse.closest_hit(tsc, so, rd, mt,
                                                          skip),
@@ -1918,8 +1925,8 @@ def threaded_phases(card: str, stats: dict, cam, px, py, ids, cfg0) -> int:
         sk = torch.full((m,), -1, dtype=torch.int32, device=dev)
         ks = traverse.shadow_factor(sc, so, sd, smt)
         ps, psrows, pstests = traverse.shadow_factor_bin_plain(
-            sc.node_packed, sc.max_leaf_size, sc.tri_f32, so, sd, smt, sk,
-            None, with_counts=True)
+            sc.bin_table, sc.node_packed.shape[0], sc.tri_f32, so, sd, smt,
+            sk, None, with_counts=True)
         e = (ks - ps).abs().max().item()
         partial = ((ks > 0) & (ks < 1)).any(dim=1).float().mean().item()
         check(e <= 1e-5, f"K15 shadow ({label}): max abs error {e:.3g}")
@@ -1928,7 +1935,7 @@ def threaded_phases(card: str, stats: dict, cam, px, py, ids, cfg0) -> int:
             f"{(ks.amax(1) == 0).float().mean().item():.4f}, partly "
             f"transmitted {partial:.4f}")
         if label == "bunny":
-            srows = kernels.shadow_factor_bin(nodes, leaf_k, sc.tri_f32, so,
+            srows = kernels.shadow_factor_bin(table, nodes, sc.tri_f32, so,
                                               sd, smt, sk, None,
                                               with_rows=True)[1]
             srows8 = kernels.shadow_factor8(sc.bvh8_table, sc.tri_f32, so, sd,
@@ -1945,7 +1952,7 @@ def threaded_phases(card: str, stats: dict, cam, px, py, ids, cfg0) -> int:
                 ms=cuda_ms(lambda: traverse.shadow_factor(sc, so, sd, smt),
                            10),
                 plain_ms=cuda_ms(lambda: traverse.shadow_factor_bin_plain(
-                    nodes, leaf_k, sc.tri_f32, so, sd, smt, sk, None), 1,
+                    table, nodes, sc.tri_f32, so, sd, smt, sk, None), 1,
                     warmup=0))
             say("K15", f"shadow rows a ray: threaded "
                 f"{srows.float().mean().item():.3f} (equal to the plain "
@@ -2170,8 +2177,7 @@ def main() -> int:
                   "traverse_bin_kernelILb0E", "traverse_bin_kernelILb1E",
                   "packing_kernel", "photon_pack_kernel",
                   "photon_table_kernel", "radix_hist_kernel",
-                  "radix_scan_kernel", "radix_scatter_kernel", "slots_kernel",
-                  "rgb9e5_kernel"):
+                  "radix_pass_kernel", "slots_kernel", "rgb9e5_kernel"):
         mk = ptxas_of(ptxas_log, kname)
         say("build", f"{kname}: {mk['registers']} registers, "
             f"{mk['stack_bytes']} bytes stack frame, "
@@ -2828,10 +2834,10 @@ def main() -> int:
                                   vmain, px=px, py=py, merge_radius=mr,
                                   eta_vcm=eta, merge_norm=norm,
                                   with_rows=True, **switches)
-    packed = kernels.photon_pack(lb, scene.scene_min, 2.0 * mr, tsize,
-                                 res["salt"])
-    order, sorted_h = compare_photon_sort(packed[2], packed[1], tsize, stats,
-                                          f"vcm {WIDTH}x{HEIGHT}")
+    packed = kernels.photon_pack(lb, scene.scene_min, 2.0 * mr, tsize)
+    order, sorted_h = compare_photon_sort(
+        packed[1], res["salt"] if hashgrid.REWEIGHT else None, tsize, stats,
+        f"vcm {WIDTH}x{HEIGHT}")
     tbytes = sum(t.numel() * 4 for t in (scene.bvh8_table, scene.tri_f32,
                                           scene.light_f32, scene.textures,
                                           scene.mat_f32))
@@ -2864,13 +2870,13 @@ def main() -> int:
                        p * OPS_PER_PHOTON),
         max_abs_err=0.0, plain_ms=plain_ms["photon_pack"],
         ms=cuda_ms(lambda: kernels.photon_pack(lb, scene.scene_min, 2.0 * mr,
-                                               tsize, res["salt"]), 5))
+                                               tsize), 5))
     touched = int((vgrid.cell_se[:, 1] > vgrid.cell_se[:, 0]).sum())
     stats["photon_table"].update(
         bound=bound_ms(p * (4 + 4 + 32) + 32 * p8 + 16 * touched, p * 4),
         max_abs_err=0.0, plain_ms=plain_ms["photon_table"],
         ms=cuda_ms(lambda: kernels.photon_table(packed[0], sorted_h, order,
-                                                packed[3]), 5))
+                                                packed[2]), 5))
     sort_ms = stats["photon_sort"]["ms"]
     stats["vcm_eye"].update(
         bound=bound_ms(tbytes + lbytes + gbytes + n * (8 + 12 + 4 + 4),
@@ -3438,11 +3444,11 @@ def main() -> int:
                               eta)
             ev[2].record()
             tsize = hashgrid.photon_table_size(vc.light_depth * ch.c_pix)
-            rows, h, key, cse = kernels.photon_pack(
-                lb, vmr.scene.scene_min, 2.0 * mr, tsize, salt)
+            rows, h, cse = kernels.photon_pack(
+                lb, vmr.scene.scene_min, 2.0 * mr, tsize)
             ev[3].record()
             order, hs = kernels.photon_sort(
-                key, hashgrid.key_bits(tsize, hashgrid.REWEIGHT), h)
+                h, hashgrid.key_bits(tsize, hashgrid.REWEIGHT), salt)
             ev[4].record()
             srows = kernels.photon_table(rows, hs, order, cse)
             ev[5].record()
@@ -3458,7 +3464,7 @@ def main() -> int:
             torch.cuda.synchronize()
             for i, k in enumerate(names):
                 stage_ms[k] += ev[i].elapsed_time(ev[i + 1])
-            del lw, lb, rows, h, key, cse, order, hs, srows, ep
+            del lw, lb, rows, h, cse, order, hs, srows, ep
     say("vcm mega", f"one 1080p sample ({ch.n_chunks} chunks), CUDA events "
         "per launch summed over the chunks: " + ", ".join(
             f"{k} {v:.3f} ms" for k, v in stage_ms.items())
@@ -3524,11 +3530,11 @@ def main() -> int:
                           eta)
         ev[2].record()
         tsize = hashgrid.photon_table_size(vc.light_depth * n)
-        rows, h, key, cse = kernels.photon_pack(
-            lw["bufs"], vr.scene.scene_min, 2.0 * mr, tsize, salt)
+        rows, h, cse = kernels.photon_pack(
+            lw["bufs"], vr.scene.scene_min, 2.0 * mr, tsize)
         ev[3].record()
         order, hs = kernels.photon_sort(
-            key, hashgrid.key_bits(tsize, hashgrid.REWEIGHT), h)
+            h, hashgrid.key_bits(tsize, hashgrid.REWEIGHT), salt)
         ev[4].record()
         srows = kernels.photon_table(rows, hs, order, cse)
         ev[5].record()
@@ -3547,7 +3553,7 @@ def main() -> int:
                     enumerate(("light walk", "vcm_splat", "photon_pack",
                                "photon_sort", "photon_table", "vcm_eye walk",
                                "vcm_eye connect", "vcm_eye gather"))}
-        del lw, rows, h, key, cse, order, hs, srows, ep
+        del lw, rows, h, cse, order, hs, srows, ep
     say("vcm", "one 1080p sample, CUDA events per launch: " + ", ".join(
         f"{k} {v:.3f} ms" for k, v in stage_ms.items())
         + f"; sum {sum(stage_ms.values()):.3f} ms ({card})")

@@ -38,10 +38,10 @@ under its own name and its two stages under <splat>_bin and
 Engines: the kernels that trace rays (K5, K11-K13, the classic eye pass's
 walk and connections) are built twice, once per traversal engine, and
 launched with the scene's: BVH8 (K1, scene.bvh8_table) or threaded (K15,
-scene.node_packed), as the JAX functions follow scene.traversal. Three
-launches read the BVH8 table on every scene, as their JAX counterparts
-(make_fused_step) do: K5's mega schedule, K12's table mode and K14's
-stages.
+scene.bin_table, derived from scene.node_packed), as the JAX functions
+follow scene.traversal. Three launches read the BVH8 table on every
+scene, as their JAX counterparts (make_fused_step) do: K5's mega
+schedule, K12's table mode and K14's stages.
 
 Each wrapper below checks its tensors (device, dtype, shape, contiguity),
 allocates the outputs, launches, raises if the launch was refused, and then
@@ -92,7 +92,8 @@ STACK_D = 16      # traverse8.cuh's default stack depth
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-fmad=false", "-Xcompiler", "-fPIC")
 SHADE_EVAL_COLS = 38   # uni_mega.cu kShadeEvalCols
-SORT_TILE = 2048      # radix_sort.cu kTile: keys a block
+BIN_HEAD = 24         # traverse_bin.cuh: floats a node record of K15's
+BIN_TRI = 12          # tables, floats a leaf triangle record
 SCHEDULES = {"classic": 0, "mega": 1, "naive": 2}
 EYE_FLAVORS = {"classic": 0, "vcm": 1, "bdpt": 2}   # eye.cuh kEye*
 SLOT_MODES = {"slots": 0, "compact": 1, "gather": 2}
@@ -245,12 +246,14 @@ def _load(stack_d: int = STACK_D):
         lib.tpt_bdpt_splat.restype = ctypes.c_int
         lib.tpt_bdpt_splat.argtypes = [p, p, p, p]
         lib.tpt_photon_pack.restype = ctypes.c_int
-        lib.tpt_photon_pack.argtypes = [p, p, p, u32, p]
+        lib.tpt_photon_pack.argtypes = [p, p, p, p]
         lib.tpt_photon_table.restype = ctypes.c_int
         lib.tpt_photon_table.argtypes = [p, p, p]
         lib.tpt_radix_sort32.restype = ctypes.c_int
-        lib.tpt_radix_sort32.argtypes = [p, i64, i32, p, p, p, p, p, p, p,
+        lib.tpt_radix_sort32.argtypes = [p, i64, i32, i32, u32, p, p, p, p,
                                          p, p]
+        lib.tpt_radix_sort32_scratch.restype = ctypes.c_int64
+        lib.tpt_radix_sort32_scratch.argtypes = [i64]
         for name in ("tpt_eye_walk", "tpt_eye_connect", "tpt_eye_gather"):
             getattr(lib, name).restype = ctypes.c_int
             getattr(lib, name).argtypes = [p, p, p, p, p]
@@ -443,22 +446,26 @@ def shadow_factor8(table, tri_f32, o, d, max_t, skip_tri, active,
     return scale if rows is None else (scale, rows)
 
 
-def _bin_args(nodes, leaf_k: int, dev):
-    """Check a threaded node table [M, W] for leaf_k inline triangles."""
-    if nodes.dim() != 2 or leaf_k < 1 or nodes.shape[1] % 8 \
-            or nodes.shape[1] < 24 + 10 * leaf_k:
-        raise ValueError(f"node table must be [M, round8(24 + 10 * {leaf_k})]"
-                         f", got {tuple(nodes.shape)}")
-    _check(nodes, "nodes", torch.float32, nodes.shape, dev)
+def _bin_args(table, nodes: int, dev) -> int:
+    """Check a threaded engine's flat bin_table (ops/traverse.py) of `nodes`
+    node records; -> its number of leaf triangle slots."""
+    head = BIN_HEAD * nodes
+    if (table.dim() != 1 or nodes < 1 or table.numel() <= head
+            or (table.numel() - head) % BIN_TRI or nodes >= 2 ** 31):
+        raise ValueError(f"bin_table must hold {BIN_HEAD} * {nodes} header "
+                         f"and {BIN_TRI} * S triangle floats, got "
+                         f"{tuple(table.shape)}")
+    _check(table, "bin_table", torch.float32, table.shape, dev)
+    return (table.numel() - head) // BIN_TRI
 
 
-def closest_hit_bin(nodes, leaf_k: int, o, d, max_t, skip_tri, active,
+def closest_hit_bin(table, nodes: int, o, d, max_t, skip_tri, active,
                     with_rows=False):
-    """K15 closest (traverse_bin.cu) on a threaded scene's node_packed ->
-    (t, tri, u, v), each [N]; with with_rows, also each ray's number of
-    node rows visited."""
+    """K15 closest (traverse_bin.cu) on a threaded scene's bin_table of
+    `nodes` node records -> (t, tri, u, v), each [N]; with with_rows, also
+    each ray's number of node rows visited."""
     dev, n = _ray_args(None, o, d, max_t, skip_tri, active)
-    _bin_args(nodes, leaf_k, dev)
+    slots = _bin_args(table, nodes, dev)
     t = torch.empty(n, dtype=torch.float32, device=dev)
     tri = torch.empty(n, dtype=torch.int32, device=dev)
     u = torch.empty(n, dtype=torch.float32, device=dev)
@@ -467,7 +474,7 @@ def closest_hit_bin(nodes, leaf_k: int, o, d, max_t, skip_tri, active,
     lib = _load()
     with torch.cuda.device(dev):
         _launch("closest_hit_bin", lib, lib.tpt_closest_hit_bin,
-                nodes.data_ptr(), nodes.shape[1], leaf_k, o.data_ptr(),
+                table.data_ptr(), nodes, slots, o.data_ptr(),
                 d.data_ptr(), max_t.data_ptr(), skip_tri.data_ptr(),
                 _ptr(active), n, t.data_ptr(), tri.data_ptr(), u.data_ptr(),
                 v.data_ptr(), _ptr(rows), _stream(dev))
@@ -475,19 +482,19 @@ def closest_hit_bin(nodes, leaf_k: int, o, d, max_t, skip_tri, active,
     return out if rows is None else out + (rows,)
 
 
-def shadow_factor_bin(nodes, leaf_k: int, tri_f32, o, d, max_t, skip_tri,
+def shadow_factor_bin(table, nodes: int, tri_f32, o, d, max_t, skip_tri,
                       active, with_rows=False):
     """K15 shadow (traverse_bin.cu) -> transmission scale [N,3]; with
     with_rows, (scale, each ray's number of node rows visited)."""
     dev, n = _ray_args(None, o, d, max_t, skip_tri, active)
-    _bin_args(nodes, leaf_k, dev)
+    slots = _bin_args(table, nodes, dev)
     _tri_args(tri_f32, dev)
     scale = torch.empty((n, 3), dtype=torch.float32, device=dev)
     rows = _counts(with_rows, n, dev)
     lib = _load()
     with torch.cuda.device(dev):
         _launch("shadow_factor_bin", lib, lib.tpt_shadow_factor_bin,
-                nodes.data_ptr(), nodes.shape[1], leaf_k, tri_f32.data_ptr(),
+                table.data_ptr(), nodes, slots, tri_f32.data_ptr(),
                 tri_f32.shape[1], o.data_ptr(), d.data_ptr(),
                 max_t.data_ptr(), skip_tri.data_ptr(), _ptr(active), n,
                 scale.data_ptr(), _ptr(rows), _stream(dev))
@@ -495,17 +502,18 @@ def shadow_factor_bin(nodes, leaf_k: int, tri_f32, o, d, max_t, skip_tri,
 
 
 def _engine_args(scene, dev, bvh8_only: bool = False) -> tuple:
-    """(engine, node table address, node_w, leaf_k) of a launch: the
-    scene's engine, or BVH8 for the launches that read the BVH8 table on
-    every scene (bvh8_only: K5's mega schedule, K12's table mode, K14)."""
+    """(engine, threaded tables' address, their nodes, their slots) of a
+    launch: the scene's engine, or BVH8 for the launches that read the
+    BVH8 table on every scene (bvh8_only: K5's mega schedule, K12's table
+    mode, K14)."""
     if scene.traversal not in ENGINES:
         raise ValueError(f"traversal {scene.traversal!r}: one of "
                          f"{sorted(ENGINES)}")
     if bvh8_only or scene.traversal == "bvh8":
         return ENGINES["bvh8"], 0, 0, 0
-    _bin_args(scene.node_packed, scene.max_leaf_size, dev)
-    return (ENGINES["threaded"], scene.node_packed.data_ptr(),
-            scene.node_packed.shape[1], scene.max_leaf_size)
+    nodes = scene.node_packed.shape[0]
+    slots = _bin_args(scene.bin_table, nodes, dev)
+    return ENGINES["threaded"], scene.bin_table.data_ptr(), nodes, slots
 
 
 def _table(scene, dev):
@@ -718,18 +726,19 @@ def _check_bufs(bufs, name: str, depth: int, n: int, dev) -> list:
 
 def _bdpt_scene(scene, dev, bvh8_only: bool = False) -> dict:
     """The scene blocks of the BDPT and photon kernels, checked, and the
-    engine fields that end their launch arrays (engine: the node table's
-    address for ptrs, then engine, node_w, leaf_k for iv)."""
+    engine fields that end their launch arrays (engine: the threaded
+    tables' address for ptrs, then engine, their nodes and slots for
+    iv)."""
     tbl = _table(scene, dev)
     b = _scene_args(scene, dev)
     mat = scene.mat_f32
     if mat.dim() != 2 or mat.shape[1] != 26:
         raise ValueError(f"mat_f32 must be [M,26], got {tuple(mat.shape)}")
     _check(mat, "mat_f32", torch.float32, mat.shape, dev)
-    eng, nodes, node_w, leaf_k = _engine_args(scene, dev, bvh8_only)
+    eng, bin_ptr, nodes, slots = _engine_args(scene, dev, bvh8_only)
     return dict(table=tbl, tri_f32=b["tri_f32"], light_f32=b["light_f32"],
-                textures=b["textures"], mat_f32=mat, nodes=nodes,
-                engine_iv=[eng, node_w, leaf_k])
+                textures=b["textures"], mat_f32=mat, bin=bin_ptr,
+                engine_iv=[eng, nodes, slots])
 
 
 def _i64s(values):
@@ -809,7 +818,7 @@ def bdpt_walk(scene, px, py, keys: list, *, mode: str, max_depth: int,
                                   "mat_id", "tri")]
             + [_ptr(esc.valid) if esc else 0, _ptr(esc.d) if esc else 0,
                _ptr(esc.beta) if esc else 0, rays.data_ptr(),
-               _ptr(rows) or 0, _ptr(key_table) or 0, sc["nodes"],
+               _ptr(rows) or 0, _ptr(key_table) or 0, sc["bin"],
                _persistent_scratch(dev).data_ptr(), _ptr(lanes) or 0,
                _ptr(start) or 0])
     cam = camera.kernel_params() if camera is not None else [0.0] * 19
@@ -930,7 +939,7 @@ class SplatPass:
                                             "textures")]
                 + _check_bufs(lbufs, "lbufs", depth, n, dev) + v0_ptrs
                 + [fb.data_ptr(), rays.data_ptr(), _ptr(self.rows) or 0,
-                   sc["nodes"], scratch.data_ptr(), self.queue.data_ptr(),
+                   sc["bin"], scratch.data_ptr(), self.queue.data_ptr(),
                    scratch[tables:].data_ptr(),
                    scratch[tables + 2 * tiles + 1:].data_ptr()])
         iv = [n, sc["tri_f32"].shape[1], depth, camera.width, camera.height,
@@ -1023,7 +1032,7 @@ def _connect_launch(name: str, entry: str, scene, camera, key_c, eye: dict,
                esc.d.data_ptr(), esc.beta.data_ptr()]
             + lptrs
             + [_ptr(fb) or 0, _ptr(out) or 0, _ptr(rays) or 0,
-               _ptr(rows) or 0, sc["nodes"], terms.data_ptr()])
+               _ptr(rows) or 0, sc["bin"], terms.data_ptr()])
     iv = [n, sc["tri_f32"].shape[1], scene.num_lights, cfg.eye_depth,
           cfg.light_depth, int(cfg.naive), int(cfg.nee), int(cfg.connection),
           int(cfg.do_mis), int(cfg.paint_weight),
@@ -1101,13 +1110,11 @@ def bdpt_connect(scene, camera, key_c, eye: dict, light: dict, fb, rays, cfg,
 
 # --- the photon family (K8, K9, K11's and K13's VCM forms) -------------------
 
-def photon_pack(lbufs, scene_min, cell_size: float, table_size: int, salt):
+def photon_pack(lbufs, scene_min, cell_size: float, table_size: int):
     """K8's first half (photon_grid.cu): one photon per stored light vertex
     of lbufs [L, N], in the flat order row * N + lane. -> (rows [P, 8] f32
     with uint32 words 3-5, bucket [P] i32 (table_size for a photon that is
-    invalid or delta), key [P] i32 holding uint32 bits (salted with salt, or
-    the bucket alone when salt is None), cell_se [T+1, 2] i32 filled with
-    (P, 0))."""
+    invalid or delta), cell_se [T+1, 2] i32 filled with (P, 0))."""
     dev = _cuda_device(lbufs.pt)
     depth, n = lbufs.pt.shape[0], lbufs.pt.shape[1]
     p = depth * n
@@ -1115,47 +1122,45 @@ def photon_pack(lbufs, scene_min, cell_size: float, table_size: int, salt):
         raise ValueError(f"photon_pack: {p} photons, table {table_size}")
     e = lambda *sh, dt=torch.float32: torch.empty(sh, dtype=dt, device=dev)
     rows, bucket = e(p, 8), e(p, dt=torch.int32)
-    key, cell_se = e(p, dt=torch.int32), e(table_size + 1, 2, dt=torch.int32)
+    cell_se = e(table_size + 1, 2, dt=torch.int32)
     ptrs = (_check_bufs(lbufs, "lbufs", depth, n, dev)
-            + [rows.data_ptr(), bucket.data_ptr(), key.data_ptr(),
-               cell_se.data_ptr()])
-    iv = [n, depth, table_size, int(salt is not None)]
+            + [rows.data_ptr(), bucket.data_ptr(), cell_se.data_ptr()])
+    iv = [n, depth, table_size]
     fv = [float(x) for x in scene_min] + [float(cell_size)]
     args = (_i64s(ptrs), _i64s(iv), _f32s(fv))
     lib = _load()
     with torch.cuda.device(dev):
         _launch("photon_pack", lib, lib.tpt_photon_pack,
-                *(ctypes.addressof(a) for a in args),
-                0 if salt is None else int(salt) & 0xFFFFFFFF, _stream(dev))
-    return rows, bucket, key, cell_se
+                *(ctypes.addressof(a) for a in args), _stream(dev))
+    return rows, bucket, cell_se
 
 
-def photon_sort(key, bits: int, bucket=None):
-    """K8's sort (radix_sort.cu): the stable order of key [P] (i32 holding
-    uint32 values whose bits above the low `bits` are 0) by an LSD radix
-    sort of 8-bit digits, one pass (three launches) a digit that can be
-    nonzero. -> (order [P] i32, sorted slot -> index; bucket[order] [P]
-    i32, or None without bucket). key is left as it is; counted once a
-    sort."""
-    dev = _cuda_device(key)
-    p = key.shape[0]
-    _check(key, "key", torch.int32, (p,), dev)
-    if bucket is not None:
-        _check(bucket, "bucket", torch.int32, (p,), dev)
-    if not 0 < p < 2 ** 31 or not 1 <= bits <= 32:
+def photon_sort(bucket, bits: int, salt=None):
+    """K8's sort (radix_sort.cu): the stable order of the photons' sort
+    keys, each derived from its bucket [P] (i32 holding uint32 values) and
+    index as hashgrid.sort_keys does (salted with salt, or the bucket
+    itself when salt is None), of which only the low `bits` may be
+    nonzero, by an LSD radix sort of 8-bit digits: one histogram launch
+    for every pass, then one launch a digit that can be nonzero. ->
+    (order [P] i32, sorted slot -> photon; bucket[order] [P] i32). bucket
+    is left as it is; counted once a sort."""
+    dev = _cuda_device(bucket)
+    p = bucket.shape[0]
+    _check(bucket, "bucket", torch.int32, (p,), dev)
+    if not 0 < p < 2 ** 30 or not 1 <= bits <= 32:
         raise ValueError(f"photon_sort: {p} keys of {bits} bits")
     e = lambda m: torch.empty(m, dtype=torch.int32, device=dev)
-    tiles = -(-p // SORT_TILE)
-    order = e(p)
-    gathered = None if bucket is None else e(p)
-    # keys and indices between passes, each tile's digit counts, the
-    # digits' totals
-    scratch = [e(p), e(p), e(p), e(256 * tiles), e(256)]
     lib = _load()
+    order, gathered = e(p), e(p)
+    # (bucket, index) pairs between passes; the histograms, tile counters
+    # and tiles' flagged counts (zeroed by the sort)
+    scratch = [e(2 * p), e(2 * p), e(lib.tpt_radix_sort32_scratch(p))]
     with torch.cuda.device(dev):
-        _launch("photon_sort", lib, lib.tpt_radix_sort32, key.data_ptr(), p,
-                bits, *(t.data_ptr() for t in scratch), order.data_ptr(),
-                _ptr(bucket), _ptr(gathered), _stream(dev))
+        _launch("photon_sort", lib, lib.tpt_radix_sort32, bucket.data_ptr(),
+                p, bits, int(salt is not None),
+                0 if salt is None else int(salt) & 0xFFFFFFFF,
+                *(t.data_ptr() for t in scratch), order.data_ptr(),
+                gathered.data_ptr(), _stream(dev))
     return order, gathered
 
 
@@ -1234,7 +1239,7 @@ def _eye_pass(name: str, scene, camera, keys: list, lbufs, grid, fb, out,
             + [px.data_ptr(), py.data_ptr()]
             + _check_bufs(lbufs, "light bufs", light_rows, n_buf, dev)
             + gptrs + [_ptr(fb) or 0, out.data_ptr(), rays.data_ptr(),
-                       dropped.data_ptr(), _ptr(rows) or 0, sc["nodes"]]
+                       dropped.data_ptr(), _ptr(rows) or 0, sc["bin"]]
             + [t.data_ptr() for t in rec] + [_ptr(conn) or 0])
     iv = [n, n_buf, sc["tri_f32"].shape[1], scene.num_lights, depth,
           light_rows, EYE_FLAVORS[flavor], int(cfg.naive), int(cfg.nee),

@@ -36,8 +36,8 @@
 // kEngineThreaded with K15), and each entry launches the scene's; K12's
 // table mode (the keyed walk, which stands for the JAX light_mega's fused
 // BVH8 step) is launched with BVH8 on every scene. The launch arrays end
-// with the engine's fields: ptrs the node table, iv the engine, node_w and
-// leaf_k (engine_refs).
+// with the engine's fields: ptrs the threaded tables, iv the engine, their
+// nodes and slots (engine_refs).
 #pragma once
 
 #include <cuda_fp16.h>
@@ -150,8 +150,8 @@ struct SceneRefs {
   Lights lights;          // light_f32 [L, 17]
   const float* mat_f32;   // [M, 26]
   const float* textures;  // [A, 3]
-  const float* nodes;     // node_packed [M, node_w] (threaded engine)
-  int node_w, leaf_k;
+  const float* bin;       // bin_table (threaded engine, traverse_bin.cuh)
+  int32_t bin_nodes;      // its node records
 };
 
 // The draws of one key: draw(d) = uniform of draw_key(key, d) keyed by id.
@@ -866,16 +866,16 @@ inline T* dev_ptr(const int64_t* ptrs, int k) {
   return reinterpret_cast<T*>(ptrs[k]);
 }
 
-// The engine fields at the end of a launch's arrays: ptrs[kp] the node
-// table (0 under BVH8), iv[ki] the engine, iv[ki + 1] node_w, iv[ki + 2]
-// leaf_k. Returns the engine, or -1 if the fields are not a valid one.
+// The engine fields at the end of a launch's arrays: ptrs[kp] the
+// threaded tables (0 under BVH8), iv[ki] the engine, iv[ki + 1] their
+// nodes, iv[ki + 2] their slots. Returns the engine, or -1 if the fields
+// are not a valid one.
 inline int engine_refs(const int64_t* ptrs, int kp, const int64_t* iv,
                        int ki, SceneRefs& sc) {
-  sc.nodes = dev_ptr<const float>(ptrs, kp);
-  sc.node_w = static_cast<int>(iv[ki + 1]);
-  sc.leaf_k = static_cast<int>(iv[ki + 2]);
+  sc.bin = dev_ptr<const float>(ptrs, kp);
+  sc.bin_nodes = static_cast<int32_t>(iv[ki + 1]);
   const int engine = static_cast<int>(iv[ki]);
-  return engine_ok(engine, sc.nodes, sc.node_w, sc.leaf_k) ? engine : -1;
+  return engine_ok(engine, sc.bin, iv[ki + 1], iv[ki + 2]) ? engine : -1;
 }
 
 // The 11 buffer fields from ptrs[0..10].

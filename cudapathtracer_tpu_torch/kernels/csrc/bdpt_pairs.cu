@@ -60,11 +60,12 @@ __global__ void __launch_bounds__(kThreads, 4)
 
 // ptrs: table, tri_f32, light_f32, mat_f32, textures, px, py, the 11
 // eye-buffer fields, ev0_pt, esc_valid, esc_d, esc_beta, the 11
-// light-buffer fields, fb, out, rays, rows (0 = none), the node table (0
-// under BVH8), terms. iv: n, tri_cols, num_lights, eye_depth, light_depth,
-// naive, nee, connection, do_mis, paint_weight, sample_environment,
-// engine, node_w, leaf_k, per (the pairs a thread takes, a divisor of the
-// (eye_depth - 1) x light_depth pairs of a pixel). fv: the 19 camera
+// light-buffer fields, fb, out, rays, rows (0 = none), the threaded
+// tables (0 under BVH8), terms. iv: n, tri_cols, num_lights, eye_depth,
+// light_depth, naive, nee, connection, do_mis, paint_weight,
+// sample_environment, engine, bin nodes, bin slots, per (the pairs a
+// thread takes, a divisor of the (eye_depth - 1) x light_depth pairs of a
+// pixel). fv: the 19 camera
 // floats, plane_area. keys: key_c. The pairs read the eye and light
 // buffers, px, py and write terms, rays and rows; ev0_pt, the escape, fb
 // and out may be 0. Returns the launch's cudaError_t.

@@ -171,13 +171,13 @@ splat_trace_kernel(tpt::SplatLaunch s) {
 
 // ptrs: table, tri_f32, mat_f32, textures, the 11 light-buffer fields,
 // v0_pt, v0_n, v0_beta, v0_pdf, v0_mat (0 in VCM's form), fb, rays, rows
-// (0 = none), the node table (0 under BVH8), then the stages' scratch:
+// (0 = none), the threaded tables (0 under BVH8), then the stages' scratch:
 // tile_of [rows, N] i32, queue [rows, N] i32, tables [2 tiles + 1] i32
 // (the counts, the offsets) and block_base [bin_blocks, tiles] i32. iv:
 // n, tri_cols, depth (stored light vertices), width, height, do_mis,
 // paint_weight, vcm, n_live (paths i >= n_live are skipped: the mega
-// engines' chunk pads), engine, node_w, leaf_k, tile (pixels a side),
-// tiles_x, tiles (at most 8192), bin_blocks (the classify grid: each
+// engines' chunk pads), engine, bin nodes, bin slots, tile (pixels a
+// side), tiles_x, tiles (at most 8192), bin_blocks (the classify grid: each
 // block holds fewer than 2^18 entries), stages (1: classify and bin, 2:
 // trace and splat, on the queue of an earlier stage 1 on the same
 // scratch). rows = depth + 1 in the BDPT form, depth in VCM's;

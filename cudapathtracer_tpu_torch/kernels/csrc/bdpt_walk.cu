@@ -128,13 +128,13 @@ int resident_grid(int engine, int64_t n, unsigned& blocks) {
 // light_f32, textures, px, py, the 11 buffer fields (pt, n_oct, wo_oct, uv,
 // beta, pdf_fwd, d_vcm, d_vc, d_vm, flags, valid), v0_pt, v0_n, v0_beta,
 // v0_pdf, v0_light, v0_mat, v0_tri, esc_valid, esc_d, esc_beta, rays, rows,
-// key_table (0: the folded mode), the node table (0 under BVH8), the path
-// counter (8 bytes of device memory a stream: launches that share it must
-// be ordered), lanes (0, or three u64 as the kernel's), start (the light
+// key_table (0: the folded mode), the threaded tables (0 under BVH8), the
+// path counter (8 bytes of device memory a stream: launches that share it
+// must be ordered), lanes (0, or three u64 as the kernel's), start (the light
 // walk's [N,4] f32 scratch; 0 for the eye walk).
 // iv: n, tri_cols, num_lights, mode (0 eye, 1 light), max_depth, radiance,
-// use_vm, engine, node_w, leaf_k (the table mode takes BVH8 only), blocks
-// (0: the resident grid; a test argument). fv: the 19 camera floats,
+// use_vm, engine, bin nodes, bin slots (the table mode takes BVH8 only),
+// blocks (0: the resident grid; a test argument). fv: the 19 camera floats,
 // plane_area, eta_vcm. keys: 10
 // draw-key words (eye: the camera's 8; light: draws 100..104) and the walk
 // key pair. Returns the launches' cudaError_t.

@@ -367,7 +367,7 @@ __device__ __forceinline__ void eye_gather_one(const EyeLaunch& c,
 // ptrs: 0 table, 1 tri_f32, 2 light_f32, 3 mat_f32, 4 textures, 5 px,
 // 6 py, 7-17 the 11 light-buffer fields [light_rows, n_buf], 18 grid rows,
 // 19 cell_se (0, 0 without the merge), 20 fb (classic; 0 = none), 21 out,
-// 22 rays, 23 dropped, 24 rows (0 = none), 25 the node table (0 under
+// 22 rays, 23 dropped, 24 rows (0 = none), 25 the threaded tables (0 under
 // BVH8), 26-38 the records: pos, n, to_prev, thr, albedo, trans, mat_id,
 // d_vcm, d_vc, d_vm, flags, implicit, nee; 39 conn (0 without
 // connections).
@@ -375,7 +375,8 @@ __device__ __forceinline__ void eye_gather_one(const EyeLaunch& c,
 // 3 num_lights, 4 eye_depth, 5 light_rows, 6 flavor, 7 naive, 8 nee,
 // 9 connection, 10 do_mis, 11 paint_weight, 12 sample_environment,
 // 13 merge, 14 sppm, 15 table_size, 16 max_per_cell, 17 one_brick,
-// 18 reweight, 19 grid rows P8, 20 gbase, 21 engine, 22 node_w, 23 leaf_k.
+// 18 reweight, 19 grid rows P8, 20 gbase, 21 engine, 22 bin nodes,
+// 23 bin slots.
 // fv: the 19 camera floats, plane_area, eta_vcm, merge_norm,
 // scene_min[3], cell_size, merge radius squared.
 // keys (22 words): the 8 camera draw-key words, then classic: 2 unused,

@@ -9,13 +9,13 @@
 //                 (the position; the DECODED direction to the previous
 //                 vertex encoded again, as the JAX package packs the
 //                 decoded buffer field; beta half3 -> float -> half2 r|g,
-//                 b|0; d_vcm; d_vm), its bucket (the sentinel T unless
-//                 valid and not delta) and its sort key (salted: the
-//                 bucket * 256 plus an 8-bit tiebreak, uint32 and wrapping
-//                 as there). It also fills the (start, end) table with
-//                 (P, 0).
-//   (radix_sort.cu's stable sort of the keys between the two launches:
-//   the order, sorted slot -> photon, and each slot's bucket)
+//                 b|0; d_vcm; d_vm) and its bucket (the sentinel T unless
+//                 valid and not delta). It also fills the (start, end)
+//                 table with (P, 0).
+//   (radix_sort.cu's stable sort between the two launches, by the sort key
+//   it derives from each bucket and index (salted: the bucket * 256 plus
+//   an 8-bit tiebreak, uint32 and wrapping as there): the order, sorted
+//   slot -> photon, and each slot's bucket)
 //   photon_table  one thread per sorted slot: gathers the row, and
 //                 atomicMin / atomicMax of the slot into its bucket's
 //                 (start, end), JAX's scatter-min/max, once per run of
@@ -25,9 +25,9 @@
 //                 be contiguous, so min / max stays the rule.
 //
 // Bound: bytes. photon_pack reads ~43 bytes of buffers per vertex and writes
-// a 32-byte row, a 4-byte bucket and a 4-byte key; photon_table reads a
-// 4-byte index, a 4-byte bucket and a 32-byte row and writes the row, and
-// the table of 8 (T + 1) bytes is written once and updated by atomics.
+// a 32-byte row and a 4-byte bucket; photon_table reads a 4-byte index, a
+// 4-byte bucket and a 32-byte row and writes the row, and the table of
+// 8 (T + 1) bytes is written once and updated by atomics.
 // Design: one thread per element, 16-byte vector loads and stores of the
 // rows; the gather's row reads are scattered (sorted order), its index and
 // bucket reads (the sort put the buckets in sorted order) and its writes
@@ -47,12 +47,9 @@ constexpr int kThreads = 256;
 struct PackLaunch {
   tpt::PathBufs lb;    // [L, N]
   tpt::GridGeom geom;
-  uint32_t salt;
-  bool salted;
   int64_t p;           // L * N
   float* rows;         // [P, 8]
   int32_t* bucket;     // [P]
-  uint32_t* key;       // [P]
   int32_t* cell_se;    // [T+1, 2]
 };
 
@@ -83,8 +80,6 @@ __global__ void __launch_bounds__(kThreads) photon_pack_kernel(PackLaunch a) {
   reinterpret_cast<float4*>(a.rows + 8 * k)[1] = r1;
   const uint32_t h = valid ? tpt::bucket_of(a.geom, pos) : a.geom.table_size;
   a.bucket[k] = static_cast<int32_t>(h);
-  a.key[k] = a.salted ? tpt::salted_key(h, static_cast<uint32_t>(k), a.salt)
-                      : h;
 }
 
 struct TableLaunch {
@@ -133,24 +128,20 @@ unsigned blocks_for(int64_t n) {
 
 }  // namespace
 
-// ptrs: the 11 light-buffer fields, rows, bucket, key, cell_se. iv: n
-// (lanes), depth (stored vertices per lane), table_size, salted. fv:
-// scene_min[3], cell_size. salt: the key's salt. Returns the launch's
-// cudaError_t.
+// ptrs: the 11 light-buffer fields, rows, bucket, cell_se. iv: n (lanes),
+// depth (stored vertices per lane), table_size. fv: scene_min[3],
+// cell_size. Returns the launch's cudaError_t.
 extern "C" int tpt_photon_pack(const int64_t* ptrs, const int64_t* iv,
-                               const float* fv, uint32_t salt, void* stream) {
+                               const float* fv, void* stream) {
   PackLaunch a;
   a.lb = tpt::path_bufs(ptrs, iv[0], static_cast<int>(iv[1]));
   a.p = iv[0] * iv[1];
   for (int k = 0; k < 3; ++k) a.geom.smin[k] = fv[k];
   a.geom.cell_size = fv[3];
   a.geom.table_size = static_cast<uint32_t>(iv[2]);
-  a.salted = iv[3] != 0;
-  a.salt = salt;
   a.rows = tpt::dev_ptr<float>(ptrs, 11);
   a.bucket = tpt::dev_ptr<int32_t>(ptrs, 12);
-  a.key = tpt::dev_ptr<uint32_t>(ptrs, 13);
-  a.cell_se = tpt::dev_ptr<int32_t>(ptrs, 14);
+  a.cell_se = tpt::dev_ptr<int32_t>(ptrs, 13);
   if (a.p <= 0 || iv[2] <= 0 || iv[2] >= (int64_t{1} << 32) ||
       a.p >= (int64_t{1} << 31))
     return static_cast<int>(cudaErrorInvalidValue);

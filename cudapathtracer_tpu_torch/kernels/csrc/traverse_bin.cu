@@ -16,9 +16,13 @@
 
 namespace {
 
+// The batch entries' block: 64 threads timed faster than 128 and 256 in
+// both entries (tools/k8_k15_attribution.py).
+constexpr int kThreads = 64;
+
 template <bool kShadow>
-__global__ void __launch_bounds__(128)
-traverse_bin_kernel(const float* __restrict__ nodes, int node_w, int leaf_k,
+__global__ void __launch_bounds__(kThreads)
+traverse_bin_kernel(const float* __restrict__ bin, int32_t nodes,
                     const float* __restrict__ tri_f32, int tri_cols,
                     const float* __restrict__ o, const float* __restrict__ d,
                     const float* __restrict__ max_t,
@@ -32,7 +36,7 @@ traverse_bin_kernel(const float* __restrict__ nodes, int node_w, int leaf_k,
                     threadIdx.x;
   if (i >= n) return;
   const tpt::Trace8 r = tpt::trace_bin<kShadow>(
-      nodes, node_w, leaf_k, tri_f32, tri_cols, o[3 * i], o[3 * i + 1],
+      bin, nodes, tri_f32, tri_cols, o[3 * i], o[3 * i + 1],
       o[3 * i + 2], d[3 * i], d[3 * i + 1], d[3 * i + 2], max_t[i], skip[i],
       active == nullptr || active[i]);
   if (rows_out != nullptr) rows_out[i] = r.rows;
@@ -48,48 +52,47 @@ traverse_bin_kernel(const float* __restrict__ nodes, int node_w, int leaf_k,
   }
 }
 
-constexpr int kThreads = 128;
-
 inline unsigned blocks_for(int64_t n) {
   return static_cast<unsigned>((n + kThreads - 1) / kThreads);
 }
 
 }  // namespace
 
-// nodes: node_packed [M, node_w]. active may be null (every ray traced),
+// bin: the threaded tables (traverse_bin.cuh) of `nodes` node records and
+// `slots` leaf triangles. active may be null (every ray traced),
 // and so may rows (per ray, the number of node rows visited). Returns the
 // launch's cudaError_t.
-extern "C" int tpt_closest_hit_bin(const float* nodes, int32_t node_w,
-                                   int32_t leaf_k, const float* o,
+extern "C" int tpt_closest_hit_bin(const float* bin, int32_t nodes,
+                                   int32_t slots, const float* o,
                                    const float* d, const float* max_t,
                                    const int32_t* skip_tri,
                                    const bool* active, int64_t n, float* t,
                                    int32_t* tri, float* u, float* v,
                                    int32_t* rows, void* stream) {
-  if (!tpt::engine_ok(tpt::kEngineThreaded, nodes, node_w, leaf_k))
+  if (!tpt::engine_ok(tpt::kEngineThreaded, bin, nodes, slots))
     return static_cast<int>(cudaErrorInvalidValue);
   if (n <= 0) return 0;
   traverse_bin_kernel<false><<<blocks_for(n), kThreads, 0,
                                static_cast<cudaStream_t>(stream)>>>(
-      nodes, node_w, leaf_k, nullptr, 0, o, d, max_t, skip_tri, active, n, t,
+      bin, nodes, nullptr, 0, o, d, max_t, skip_tri, active, n, t,
       tri, u, v, nullptr, rows);
   return static_cast<int>(cudaGetLastError());
 }
 
-extern "C" int tpt_shadow_factor_bin(const float* nodes, int32_t node_w,
-                                     int32_t leaf_k, const float* tri_f32,
+extern "C" int tpt_shadow_factor_bin(const float* bin, int32_t nodes,
+                                     int32_t slots, const float* tri_f32,
                                      int32_t tri_cols, const float* o,
                                      const float* d, const float* max_t,
                                      const int32_t* skip_tri,
                                      const bool* active, int64_t n,
                                      float* scale, int32_t* rows,
                                      void* stream) {
-  if (!tpt::engine_ok(tpt::kEngineThreaded, nodes, node_w, leaf_k))
+  if (!tpt::engine_ok(tpt::kEngineThreaded, bin, nodes, slots))
     return static_cast<int>(cudaErrorInvalidValue);
   if (n <= 0) return 0;
   traverse_bin_kernel<true><<<blocks_for(n), kThreads, 0,
                               static_cast<cudaStream_t>(stream)>>>(
-      nodes, node_w, leaf_k, tri_f32, tri_cols, o, d, max_t, skip_tri, active,
+      bin, nodes, tri_f32, tri_cols, o, d, max_t, skip_tri, active,
       n, nullptr, nullptr, nullptr, nullptr, scale, rows);
   return static_cast<int>(cudaGetLastError());
 }

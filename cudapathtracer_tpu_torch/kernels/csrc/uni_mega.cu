@@ -76,7 +76,7 @@
 //
 // Engines: every kernel here is a template on the traversal engine
 // (traverse_bin.cuh): kEngineBvh8 traces with K1 (bvh8_table),
-// kEngineThreaded with K15 (node_packed), as the JAX classic and naive
+// kEngineThreaded with K15 (bin_table), as the JAX classic and naive
 // integrators follow the scene's traversal. The mega schedule traces BVH8
 // on every scene (the JAX mega engine's make_fused_step reads the BVH8
 // table), so its launches take the BVH8 instantiation; the C entries pick
@@ -149,8 +149,8 @@ struct SceneArgs {
   Lights lights;           // light_f32 [L, 17]
   const float* textures;   // [A, 3]
   const float* medium;     // [M, 4]: absorption xyz, ior
-  const float* nodes;      // node_packed [M, node_w] (threaded engine)
-  int node_w, leaf_k;
+  const float* bin;        // bin_table (threaded engine, traverse_bin.cuh)
+  int32_t bin_nodes;       // its node records
 };
 
 // What every sample of a launch shares (the keys are per sample).
@@ -617,17 +617,16 @@ shade_eval_kernel(tpt::SceneArgs sc, DrawKeys dk,
       out + tpt::kShadeEvalCols * i);
 }
 
-// scene: the table pointers (nodes: the threaded engine's, or null).
+// scene: the table pointers (bin: the threaded engine's, or null).
 tpt::SceneArgs make_scene(const float* table, const float* tri_f32,
                           int32_t tri_cols, const float* light_f32,
                           int32_t num_lights, const float* textures,
-                          const float* medium, const float* nodes = nullptr,
-                          int32_t node_w = 0, int32_t leaf_k = 0) {
+                          const float* medium, const float* bin = nullptr,
+                          int32_t bin_nodes = 0) {
   tpt::SceneArgs sc;
   sc.table = table;
-  sc.nodes = nodes;
-  sc.node_w = node_w;
-  sc.leaf_k = leaf_k;
+  sc.bin = bin;
+  sc.bin_nodes = bin_nodes;
   sc.tri_f32 = tri_f32;
   sc.tri_cols = tri_cols;
   sc.lights.rows = light_f32;
@@ -660,7 +659,8 @@ int resident_grid(int32_t engine, int64_t n, unsigned& blocks) {
 // k bytes of device memory (the pixel counter and the key table), written
 // by the key kernel on the stream, so launches that share it must be
 // ordered (one stream). engine: kEngineBvh8 (0) or kEngineThreaded (1,
-// with nodes [M, node_w] and leaf_k). Test arguments: blocks > 0 fixes the
+// with bin, the threaded tables of bin_nodes node records and bin_slots
+// leaf triangles). Test arguments: blocks > 0 fixes the
 // grid (0: the resident grid), lanes (null, or three u64 in device
 // memory) as the kernel's. Returns the launches' cudaError_t.
 extern "C" int tpt_render_unidirectional(
@@ -670,11 +670,11 @@ extern "C" int tpt_render_unidirectional(
     const float* cam_params, uint32_t b0, uint32_t b1, uint32_t s0,
     int32_t k, int32_t max_depth, int32_t use_mis,
     int32_t sample_environment, int32_t schedule, int32_t air_priority,
-    int32_t engine, const float* nodes, int32_t node_w, int32_t leaf_k,
+    int32_t engine, const float* bin, int32_t bin_nodes, int32_t bin_slots,
     float* li, int32_t* rays, int32_t* rows, void* scratch, int32_t blocks,
     void* lanes, void* stream) {
   if (k < 1 || scratch == nullptr || blocks < 0 || !schedule_ok(schedule) ||
-      !tpt::engine_ok(engine, nodes, node_w, leaf_k))
+      !tpt::engine_ok(engine, bin, bin_nodes, bin_slots))
     return static_cast<int>(cudaErrorInvalidValue);
   if (n <= 0) return 0;
   unsigned grid = static_cast<unsigned>(blocks);
@@ -685,7 +685,7 @@ extern "C" int tpt_render_unidirectional(
   static const uint32_t kNoKeys[8] = {};
   const tpt::SceneArgs sc =
       make_scene(table, tri_f32, tri_cols, light_f32, num_lights, textures,
-                 medium, nodes, node_w, leaf_k);
+                 medium, bin, bin_nodes);
   tpt::Params p;
   p.cam = tpt::make_camera(cam_params, kNoKeys);
   p.max_depth = max_depth;

@@ -184,7 +184,7 @@ def grid_table(rows, h, order, table_size: int):
 
 
 RADIX_BITS = 8      # kernels/csrc/radix_sort.cu kBits
-RADIX_TILE = 2048   # its kTile: keys a block
+RADIX_TILE = 3072   # its kTile: keys a block
 
 
 def key_bits(table_size: int, salted: bool) -> int:
@@ -196,29 +196,36 @@ def key_bits(table_size: int, salted: bool) -> int:
 
 
 def radix_sort_plain(key, bits: int, gather=None):
-    """Plain twin of kernels.photon_sort: the same LSD passes of 8-bit
-    digits over the low `bits` of key [P] (int32 or int64 holding uint32
-    values), each a digit histogram per tile of RADIX_TILE keys, the
-    digit-major exclusive scan over the tiles, and a scatter to the keys of
-    lower digits + the tile's offset + the key's rank among the tile's keys
-    of its digit in input order. -> (order [P] int64, gather[order] or
-    None): the stable order, as torch.sort(stable=True) gives it."""
+    """Plain twin of kernels.photon_sort: the digit histograms of every
+    pass from the input keys, then the same LSD passes of 8-bit digits
+    over the low `bits` of key [P] (int32 or int64 holding uint32 values):
+    a key goes to its digit's start (the histogram's exclusive prefix over
+    the digits), plus the keys of its digit in the tiles of RADIX_TILE keys
+    before its own (the prefix the kernel's look-back sums), plus its rank
+    among its tile's keys of its digit in input order. -> (order [P]
+    int64, gather[order] or None): the stable order, as
+    torch.sort(stable=True) gives it."""
     p, dev = key.shape[0], key.device
     k = key.to(torch.int64) & _M32
     v = torch.arange(p, dtype=torch.int64, device=dev)
     tiles = -(-p // RADIX_TILE)
     tile = torch.arange(p, dtype=torch.int64, device=dev) // RADIX_TILE
     ndig = 1 << RADIX_BITS
-    for shift in range(0, bits, RADIX_BITS):
+    shifts = range(0, bits, RADIX_BITS)
+    hist = [torch.bincount((k >> s) & (ndig - 1), minlength=ndig)
+            for s in shifts]
+    for shift, h in zip(shifts, hist):
         d = (k >> shift) & (ndig - 1)
-        counts = torch.bincount(d * tiles + tile, minlength=ndig * tiles)
-        offset = torch.cumsum(counts, 0) - counts          # digit-major
+        start = torch.cumsum(h, 0) - h                      # over digits
+        counts = torch.bincount(tile * ndig + d,
+                                minlength=tiles * ndig).view(tiles, ndig)
+        before = torch.cumsum(counts, 0) - counts           # over tiles
         rank = torch.empty(p, dtype=torch.int64, device=dev)
         for t0 in range(0, p, RADIX_TILE):                  # in-tile ranks
             dt = d[t0:t0 + RADIX_TILE]
             seen = torch.cumsum(torch.nn.functional.one_hot(dt, ndig), 0)
             rank[t0:t0 + RADIX_TILE] = seen.gather(1, dt[:, None])[:, 0] - 1
-        dest = offset[d * tiles + tile] + rank
+        dest = start[d] + before[tile, d] + rank
         k = torch.empty_like(k).index_copy_(0, dest, k)
         v = torch.empty_like(v).index_copy_(0, dest, v)
     return v, (None if gather is None else gather[v])
@@ -240,22 +247,23 @@ def build_grid(rows, valid, scene_min, merge_radius: float, table_size: int,
 
 def build_grid_kernel(lbufs, scene_min, merge_radius: float, salt,
                       table_size: int | None = None) -> PhotonGrid:
-    """K8 on the card from K12's light buffers [L, N]: photon_pack (row,
-    bucket and uint32 key per stored vertex; plain version photon_rows +
-    grid_keys), photon_sort (the keys' stable order and the buckets in it;
-    plain twin radix_sort_plain), photon_table (sorted padded rows, the
-    (start, end) table; plain version grid_table). The same grid as
-    photon_rows + build_grid, bit for bit."""
+    """K8 on the card from K12's light buffers [L, N]: photon_pack (row
+    and bucket per stored vertex; plain version photon_rows + grid_keys),
+    photon_sort (the stable order of the keys it derives from the buckets,
+    and the buckets in it; plain twin radix_sort_plain on grid_keys'
+    keys), photon_table (sorted padded rows, the (start, end) table; plain
+    version grid_table). The same grid as photon_rows + build_grid, bit
+    for bit."""
     from cudapathtracer_tpu_torch import kernels
     p = lbufs.pt.shape[0] * lbufs.pt.shape[1]
     if table_size is None:
         table_size = photon_table_size(p)
     cell_size = 2.0 * merge_radius
     salted = salt is not None and REWEIGHT
-    rows, h, key, cell_se = kernels.photon_pack(
-        lbufs, scene_min, cell_size, table_size, salt if salted else None)
-    order, h_sorted = kernels.photon_sort(key, key_bits(table_size, salted),
-                                          h)
+    rows, h, cell_se = kernels.photon_pack(lbufs, scene_min, cell_size,
+                                           table_size)
+    order, h_sorted = kernels.photon_sort(h, key_bits(table_size, salted),
+                                          salt if salted else None)
     rows_sorted = kernels.photon_table(rows, h_sorted, order, cell_se)
     return PhotonGrid(rows=rows_sorted, cell_se=cell_se,
                       scene_min=tuple(scene_min), cell_size=cell_size,

@@ -8,18 +8,31 @@ K1), "threaded" to the threaded binary engine below (kernel K15,
 kernels/csrc/traverse_bin.cu, on CUDA tensors; its plain version on CPU
 tensors).
 
-The threaded engine walks Scene.node_packed, one row per binary node, with
-one int cursor per ray and no stack: slab-test the node's box (tmin below
-t_best for closest rays, below max_t for shadow rays); on a hit of an inner
-node take the ray octant's hit link (the near child), else its miss link
-(the rest of the tree after this subtree); a hit leaf tests its K inline
-triangles in slot order (strict t < t_best, tid != skip_tri) and then
-continues at its miss link. Shadow rays multiply the transmission of each
-MAT_LEAF triangle they cross in slot order and stop at the first opaque
-hit or once the product's max falls below 0.01. The JAX version advances
-the whole wavefront in lockstep with straggler compaction and a one-hot
-octant select, TPU mechanism; the plain version here advances the rays
-still in flight one row a step, indexing them.
+The threaded engine walks Scene.bin_table, which `threaded_table` derives
+from Scene.node_packed once a scene, with one int cursor per ray and no
+stack: slab-test the node's box (tmin below t_best for closest rays, below
+max_t for shadow rays); on a hit of an inner node take the ray octant's
+hit link (the near child), else its miss link (the rest of the tree after
+this subtree); a hit leaf tests its inline triangles in slot order
+(strict t < t_best, tid != skip_tri) and then continues at its miss link.
+Shadow rays multiply the transmission of each MAT_LEAF triangle they cross
+in slot order and stop at the first opaque hit or once the product's max
+falls below 0.01. The JAX version advances the whole wavefront in lockstep
+with straggler compaction and a one-hot octant select, TPU mechanism; the
+plain version here advances the rays still in flight one row a step,
+indexing them.
+
+bin_table (f32, ints as bits) is two tables, so that a visit is two
+sectors of one 96-byte record and a leaf's triangles are 16-byte loads:
+  head [M, 24]  per node: the box (min xyz, max xyz), two zero words, then
+                for each octant o the pair (hit word, miss link) at 8 + 2o.
+                The hit word is the octant's hit link for an inner node
+                and -2 - s for a leaf whose triangles start at slot s (so a
+                hit's next cursor < -1 marks a hit leaf);
+  tris [S, 12]  one record a leaf triangle, the leaves' triangles in node
+                order: v0, e1, e2, the id word (bit 30 MAT_LEAF), 1 on the
+                leaf's last triangle (else 0), 0.
+flat: head then tris, 24 M + 12 S floats.
 
 `shade_data` is the plain version of the hit fetch (K2, device code in
 kernels/csrc/shade.cuh): one gather of the packed shading row and the
@@ -60,17 +73,55 @@ def _octant(d):
     return neg[:, 0] | (neg[:, 1] << 1) | (neg[:, 2] << 2)
 
 
-def _traverse_bin_plain(nodes, leaf_k, tri_f32, o, d, max_t, skip_tri,
+def threaded_table(node_packed, leaf_k: int):
+    """bin_table (layout in the module docstring) from node_packed [M, W]
+    of leaves of at most leaf_k triangles, on node_packed's device."""
+    m, dev = node_packed.shape[0], node_packed.device
+    ir = node_packed.view(torch.int32)
+    count = ir[:, 22].to(torch.int64)
+    first = torch.cumsum(count, 0) - count
+    hit = torch.where((count > 0)[:, None], (-2 - first)[:, None],
+                      ir[:, 6:14].to(torch.int64)).to(torch.int32)
+    head = torch.zeros((m, kernels.BIN_HEAD), dtype=torch.int32,
+                       device=dev)
+    head[:, 0:6] = ir[:, 0:6]
+    head[:, 8::2] = hit
+    head[:, 9::2] = ir[:, 14:22]
+    node = torch.repeat_interleave(torch.arange(m, device=dev), count)
+    k = torch.arange(node.shape[0], device=dev) - first[node]
+    cols = 24 + 9 * k[:, None] + torch.arange(9, device=dev)
+    tris = torch.zeros((node.shape[0], kernels.BIN_TRI), dtype=torch.int32,
+                       device=dev)
+    tris[:, 0:9] = ir[node[:, None], cols]
+    tris[:, 9] = ir[node, 24 + 9 * leaf_k + k]
+    tris[:, 10] = (k == count[node] - 1).to(torch.int32)
+    return torch.cat([head.reshape(-1), tris.reshape(-1)]).view(
+        torch.float32)
+
+
+def bin_tables(table, num_nodes: int):
+    """The two tables of a flat bin_table: (head [M, 24], tris [S, 12])."""
+    head = kernels.BIN_HEAD * num_nodes
+    return (table[:head].view(-1, kernels.BIN_HEAD),
+            table[head:].view(-1, kernels.BIN_TRI))
+
+
+def _traverse_bin_plain(table, num_nodes, tri_f32, o, d, max_t, skip_tri,
                         active, shadow, with_counts=False):
-    """Plain version of K15, both modes. Per-ray state lives in full-width
-    tensors; each step gathers the rays in flight, advances them one node
-    row and scatters them back. with_counts also returns, per ray, the node
-    rows visited and the triangle tests K15 makes (a hit leaf's slots below
-    its count, for a shadow ray up to the one that blocks it)."""
+    """Plain version of K15, both modes, over bin_table. Per-ray state
+    lives in full-width tensors; each step gathers the rays in flight,
+    advances them one node record and scatters them back; a hit leaf's
+    triangles are tested one slot a step over the rays still in their
+    leaf. with_counts also returns, per ray, the node rows visited and the
+    triangle tests K15 makes (a hit leaf's triangles, for a shadow ray up
+    to the one that blocks it)."""
     from cudapathtracer_tpu_torch.ops.traverse8 import leaf_factor
+    head, tris = bin_tables(table, num_nodes)
+    ihead, itris = head.view(torch.int32), tris.view(torch.int32)
     n, dev = o.shape[0], o.device
     inv_d = safe_inv_dir(d)
-    octs = _octant(d)
+    # the columns of each ray's octant's (hit word, miss link)
+    pair = 8 + 2 * _octant(d)[:, None] + torch.arange(2, device=dev)
     cur = torch.zeros(n, dtype=torch.int32, device=dev)
     if active is not None:
         cur = torch.where(active, cur, -1)
@@ -80,7 +131,6 @@ def _traverse_bin_plain(nodes, leaf_k, tri_f32, o, d, max_t, skip_tri,
     v = torch.zeros(n, dtype=torch.float32, device=dev)
     scale = torch.ones((n, 3), dtype=torch.float32, device=dev)
     with_leaf = tri_f32 is not None and tri_f32.shape[1] >= 94
-    id_off = 24 + 9 * leaf_k
     rows = torch.zeros(n, dtype=torch.int32, device=dev)
     tests = torch.zeros(n, dtype=torch.int32, device=dev)
     while True:
@@ -89,61 +139,51 @@ def _traverse_bin_plain(nodes, leaf_k, tri_f32, o, d, max_t, skip_tri,
             break
         if with_counts:
             rows[live] += 1
-        row = nodes[cur[live].long()]
-        irow = row.view(torch.int32)
+        at = cur[live].long()
+        rec = head[at]
+        links = ihead[at].gather(1, pair[live])
         t_cut = max_t[live] if shadow else t_best[live]
-        tmin, _, hit = aabb_intersect(o[live], inv_d[live], row[:, 0:3],
-                                      row[:, 3:6])
+        tmin, _, hit = aabb_intersect(o[live], inv_d[live], rec[:, 0:3],
+                                      rec[:, 3:6])
         hit = hit & (tmin < t_cut)
-        oc = octs[live][:, None]
-        is_leaf = irow[:, 22] > 0
-        nxt = torch.where(hit & ~is_leaf, irow.gather(1, 6 + oc)[:, 0],
-                          irow.gather(1, 14 + oc)[:, 0])
-        sel = torch.nonzero(hit & is_leaf)[:, 0]
-        if sel.numel():
-            lane = live[sel]
+        miss = links[:, 1]
+        nxt = torch.where(hit, links[:, 0], miss)
+        pos = torch.nonzero(nxt < -1)[:, 0]       # the hit leaves
+        slot = (-2 - nxt[pos]).long()
+        after = miss.clone()          # a hit leaf's next cursor
+        while pos.numel():            # one triangle slot a step
+            lane = live[pos]
+            tv, raw = tris[slot], itris[slot, 9]
+            last = itris[slot, 10] != 0
+            tid = torch.where(raw < 0, -1, raw & ~LEAF_MAT_FLAG)
             ld = d[lane]
-            # the K slots' tests at once; their fold is in slot order
-            tv = row[sel, 24:id_off].reshape(-1, leaf_k, 9)
-            raws = irow[sel, id_off:id_off + leaf_k]
-            tids = torch.where(raws < 0, -1, raws & ~LEAF_MAT_FLAG)
-            tts, uus, vvs, oks = moller_trumbore(
-                o[lane, None], ld[:, None], tv[..., 0:3], tv[..., 3:6],
-                tv[..., 6:9])
-            oks = oks & (tids >= 0) & (tids != skip_tri[lane, None])
-            count = irow[sel, 22]
-            if with_counts and not shadow:
-                tests[lane] += count
+            tt, uu, vv, ok = moller_trumbore(o[lane], ld, tv[:, 0:3],
+                                             tv[:, 3:6], tv[:, 6:9])
+            ok = ok & (tid >= 0) & (tid != skip_tri[lane])
+            if with_counts:
+                tests[lane] += 1
             if not shadow:
-                tb, ltri, lu, lv = t_best[lane], tri[lane], u[lane], v[lane]
-                for k in range(leaf_k):
-                    ok = oks[:, k] & (tts[:, k] < tb)
-                    tb = torch.where(ok, tts[:, k], tb)
-                    ltri = torch.where(ok, tids[:, k], ltri)
-                    lu = torch.where(ok, uus[:, k], lu)
-                    lv = torch.where(ok, vvs[:, k], lv)
-                t_best[lane], tri[lane], u[lane], v[lane] = tb, ltri, lu, lv
+                ok = ok & (tt < t_best[lane])
+                t_best[lane] = torch.where(ok, tt, t_best[lane])
+                tri[lane] = torch.where(ok, tid, tri[lane])
+                u[lane] = torch.where(ok, uu, u[lane])
+                v[lane] = torch.where(ok, vv, v[lane])
+                done = last
             else:
-                sc, mt = scale[lane], max_t[lane]
-                blocked = torch.zeros(sel.numel(), dtype=torch.bool,
-                                      device=dev)
-                for k in range(leaf_k):
-                    if with_counts:
-                        tests[lane] += ((k < count) & ~blocked).to(
-                            torch.int32)
-                    ok = oks[:, k] & ~blocked & (tts[:, k] < mt)
-                    if with_leaf:
-                        lm = (raws[:, k] & LEAF_MAT_FLAG) != 0
-                        sc = torch.where(
-                            (ok & lm)[:, None],
-                            sc * leaf_factor(tri_f32, ld, uus[:, k],
-                                             vvs[:, k], tids[:, k]), sc)
-                        dark = sc.amax(dim=1) < 0.01
-                        blocked = blocked | (ok & (~lm | dark))
-                    else:
-                        blocked = blocked | ok
-                scale[lane] = torch.where(blocked[:, None], 0.0, sc)
-                nxt[sel] = torch.where(blocked, -1, nxt[sel])
+                ok = ok & (tt < max_t[lane])
+                stop = ok
+                if with_leaf:
+                    lm = (raw & LEAF_MAT_FLAG) != 0
+                    sc = torch.where((ok & lm)[:, None], scale[lane]
+                                     * leaf_factor(tri_f32, ld, uu, vv, tid),
+                                     scale[lane])
+                    scale[lane] = sc
+                    stop = ok & (~lm | (sc.amax(dim=1) < 0.01))
+                scale[lane[stop]] = 0.0       # occlusion is final
+                after[pos[stop]] = -1
+                done = last | stop
+            pos, slot = pos[~done], slot[~done] + 1
+        nxt = torch.where(nxt < -1, after, nxt)
         cur[live] = nxt
     out = (scale,) if shadow else (t_best, tri, u, v)
     if with_counts:
@@ -151,19 +191,20 @@ def _traverse_bin_plain(nodes, leaf_k, tri_f32, o, d, max_t, skip_tri,
     return out[0] if shadow else out
 
 
-def closest_hit_bin_plain(nodes, leaf_k, o, d, max_t, skip_tri, active,
+def closest_hit_bin_plain(table, num_nodes, o, d, max_t, skip_tri, active,
                           with_counts=False):
-    """Plain version of K15 closest -> (t, tri, u, v), and with with_counts
-    the rows visited and triangle tests per ray [N] i32."""
-    return _traverse_bin_plain(nodes, leaf_k, None, o, d, max_t, skip_tri,
-                               active, shadow=False, with_counts=with_counts)
+    """Plain version of K15 closest over bin_table -> (t, tri, u, v), and
+    with with_counts the rows visited and triangle tests per ray [N] i32."""
+    return _traverse_bin_plain(table, num_nodes, None, o, d, max_t,
+                               skip_tri, active, shadow=False,
+                               with_counts=with_counts)
 
 
-def shadow_factor_bin_plain(nodes, leaf_k, tri_f32, o, d, max_t, skip_tri,
-                            active, with_counts=False):
+def shadow_factor_bin_plain(table, num_nodes, tri_f32, o, d, max_t,
+                            skip_tri, active, with_counts=False):
     """Plain version of K15 shadow -> scale [N,3], and with with_counts
     (scale, rows, tests) as closest_hit_bin_plain."""
-    return _traverse_bin_plain(nodes, leaf_k, tri_f32, o, d, max_t,
+    return _traverse_bin_plain(table, num_nodes, tri_f32, o, d, max_t,
                                skip_tri, active, shadow=True,
                                with_counts=with_counts)
 
@@ -176,13 +217,10 @@ def closest_hit(scene, o, d, max_t=None, skip_tri=None, active=None) -> Hit:
     if scene.traversal == "bvh8":
         return traverse8.closest_hit8(scene, o, d, max_t, skip_tri, active)
     o, d, max_t, skip_tri = traverse8.ray_inputs(o, d, max_t, skip_tri)
-    if o.device.type == "cpu":
-        out = closest_hit_bin_plain(scene.node_packed, scene.max_leaf_size,
-                                    o, d, max_t, skip_tri, active)
-    else:
-        out = kernels.closest_hit_bin(scene.node_packed, scene.max_leaf_size,
-                                      o, d, max_t, skip_tri, active)
-    return Hit(*out)
+    fn = (closest_hit_bin_plain if o.device.type == "cpu"
+          else kernels.closest_hit_bin)
+    return Hit(*fn(scene.bin_table, scene.node_packed.shape[0], o, d, max_t,
+                   skip_tri, active))
 
 
 def shadow_factor(scene, o, d, max_t, skip_tri=None, active=None):
@@ -193,13 +231,10 @@ def shadow_factor(scene, o, d, max_t, skip_tri=None, active=None):
     if scene.traversal == "bvh8":
         return traverse8.shadow_factor8(scene, o, d, max_t, skip_tri, active)
     o, d, max_t, skip_tri = traverse8.ray_inputs(o, d, max_t, skip_tri)
-    if o.device.type == "cpu":
-        return shadow_factor_bin_plain(scene.node_packed,
-                                       scene.max_leaf_size, scene.tri_f32, o,
-                                       d, max_t, skip_tri, active)
-    return kernels.shadow_factor_bin(scene.node_packed, scene.max_leaf_size,
-                                     scene.tri_f32, o, d, max_t, skip_tri,
-                                     active)
+    fn = (shadow_factor_bin_plain if o.device.type == "cpu"
+          else kernels.shadow_factor_bin)
+    return fn(scene.bin_table, scene.node_packed.shape[0], scene.tri_f32, o,
+              d, max_t, skip_tri, active)
 
 
 def shadow_factor_rows(scene, o, d, max_t, active):

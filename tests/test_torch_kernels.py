@@ -137,7 +137,7 @@ def test_wrappers_refuse_non_cuda_tensors(call):
         "bdpt_gather": (scene, cam, eye, torch.zeros((2, 2, n, 3)), f3,
                         cfg),
         "vcm_splat": (scene, cam, bufs, f3, i1, vcfg, 1.0),
-        "photon_pack": (bufs, (0.0, 0.0, 0.0), 0.1, 7, None),
+        "photon_pack": (bufs, (0.0, 0.0, 0.0), 0.1, 7),
         "photon_table": (torch.zeros((n, 8)), i1,
                          torch.zeros(n, dtype=torch.int64),
                          torch.zeros((8, 2), dtype=torch.int32)),
@@ -921,35 +921,34 @@ def test_k15_matches_plain(cuda, bunny_mat):
     n = 20000
     o, d, mt, active = _rays(n, cuda, 1)
     skip = torch.full((n,), -1, dtype=torch.int32, device=cuda)
+    nodes = sc.node_packed.shape[0]
     kernels.reset_launches()
     k = traverse.closest_hit(sc, o, d, mt, skip, active)
-    p = traverse.closest_hit_bin_plain(sc.node_packed, sc.max_leaf_size, o,
-                                       d, mt, skip, active)
+    p = traverse.closest_hit_bin_plain(sc.bin_table, nodes, o, d, mt, skip,
+                                       active)
     assert torch.equal(k.tri, p[1])
     m = k.tri >= 0
     for a, b in zip(k, p):
         if a.dtype == torch.float32:
             assert (a[m] - b[m]).abs().max().item() <= 1e-5
     ks = traverse.shadow_factor(sc, o, d, mt, skip, active)
-    ps = traverse.shadow_factor_bin_plain(sc.node_packed, sc.max_leaf_size,
-                                          sc.tri_f32, o, d, mt, skip, active)
+    ps = traverse.shadow_factor_bin_plain(sc.bin_table, nodes, sc.tri_f32, o,
+                                          d, mt, skip, active)
     assert (ks - ps).abs().max().item() <= 1e-5
     assert kernels.launches["closest_hit_bin"] == 1
     assert kernels.launches["shadow_factor_bin"] == 1
     assert kernels.launches["closest_hit8"] == 0
     assert kernels.launches["shadow_factor8"] == 0
     # the kernel visits the rows the plain walk counts
-    krows = kernels.closest_hit_bin(sc.node_packed, sc.max_leaf_size, o, d,
-                                    mt, skip, active, with_rows=True)[4]
+    krows = kernels.closest_hit_bin(sc.bin_table, nodes, o, d, mt, skip,
+                                    active, with_rows=True)[4]
     prows = traverse.closest_hit_bin_plain(
-        sc.node_packed, sc.max_leaf_size, o, d, mt, skip, active,
-        with_counts=True)[4]
+        sc.bin_table, nodes, o, d, mt, skip, active, with_counts=True)[4]
     assert (krows == prows).float().mean().item() >= 0.9999
-    ksrows = kernels.shadow_factor_bin(sc.node_packed, sc.max_leaf_size,
-                                       sc.tri_f32, o, d, mt, skip, active,
-                                       with_rows=True)[1]
+    ksrows = kernels.shadow_factor_bin(sc.bin_table, nodes, sc.tri_f32, o, d,
+                                       mt, skip, active, with_rows=True)[1]
     psrows = traverse.shadow_factor_bin_plain(
-        sc.node_packed, sc.max_leaf_size, sc.tri_f32, o, d, mt, skip, active,
+        sc.bin_table, nodes, sc.tri_f32, o, d, mt, skip, active,
         with_counts=True)[1]
     assert (ksrows == psrows).float().mean().item() >= 0.9999
 
@@ -1022,8 +1021,10 @@ def test_photon_sort_refuses_non_cuda_tensors():
 def test_photon_sort_matches_torch_sort(cuda, kind):
     """The hand-written radix sort (radix_sort.cu) against torch.sort
     (stable) on the same uint32 keys, and its twin: the order and the
-    gathered buckets exactly equal; one launch counted; the keys left as
-    they were. 1,000,003 keys (not a multiple of the tile), and 1 key."""
+    sorted buckets exactly equal; one launch counted; the buckets left as
+    they were. Unsalted, the key is the bucket (any uint32 value); salted,
+    the key of photon i in bucket h is hashgrid.sort_keys'. 1,000,003
+    photons (not a multiple of the tile), and 1."""
     gen = np.random.default_rng(5)
     for n in (1_000_003, 1):
         if kind == "equal":
@@ -1035,17 +1036,19 @@ def test_photon_sort_matches_torch_sort(cuda, kind):
             lo = 2 ** 31 if kind == "high" else 0
             k = gen.integers(lo, 2 ** 32, n, dtype=np.uint64).astype(
                 np.uint32)
-        key = torch.from_numpy(k.view(np.int32).copy()).to(cuda)
-        bucket = torch.from_numpy(gen.integers(0, 2 ** 31 - 1, n).astype(
-            np.int32)).to(cuda)
-        before = key.clone()
-        kernels.reset_launches()
-        order, got = kernels.photon_sort(key, 32, bucket)
-        assert kernels.launches["photon_sort"] == 1
-        want = torch.sort(torch.from_numpy(k.astype(np.int64)).to(cuda),
-                          stable=True).indices
-        assert torch.equal(order.to(torch.int64), want)
-        assert torch.equal(got, bucket[want])
-        assert torch.equal(key, before)
-        twin, _ = hashgrid.radix_sort_plain(key, 32)
-        assert torch.equal(twin, want)
+        bucket = torch.from_numpy(k.view(np.int32).copy()).to(cuda)
+        salts = [None] + ([hashgrid.photon_salt(n)] if kind == "sentinel"
+                          else [])
+        for salt in salts:
+            key = hashgrid.sort_keys(bucket.to(torch.int64) & 0xFFFFFFFF,
+                                     salt)
+            before = bucket.clone()
+            kernels.reset_launches()
+            order, got = kernels.photon_sort(bucket, 32, salt)
+            assert kernels.launches["photon_sort"] == 1
+            want = torch.sort(key, stable=True).indices
+            assert torch.equal(order.to(torch.int64), want)
+            assert torch.equal(got, bucket[want])
+            assert torch.equal(bucket, before)
+            twin, _ = hashgrid.radix_sort_plain(key, 32)
+            assert torch.equal(twin, want)

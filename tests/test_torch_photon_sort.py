@@ -2,13 +2,14 @@
 twin of kernels.photon_sort, radix_sort.cu) and its key, on the CPU, on
 seeded numpy inputs.
 
-The twin runs the kernel's passes (8-bit digits, a histogram per tile of
-hashgrid.RADIX_TILE keys, the digit-major scan over the tiles, the scatter
-by in-tile rank) and must give exactly the order of
+The twin runs the kernel's passes (8-bit digits; each key to its digit's
+start from the histograms taken before the first pass, plus the keys of
+its digit in the tiles of hashgrid.RADIX_TILE keys before its own, plus
+its rank in its tile) and must give exactly the order of
 torch.sort(stable=True) on the same uint32 values, and gather[order]:
 random keys, keys >= 2^31, all-equal keys, a sentinel-heavy mix (~47%
-invalid photons in one bucket, as at 1080p) and sizes that are not a
-multiple of the tile. key_bits bounds the passes by the table size. The
+invalid photons in one bucket, as at 1080p), one key, and sizes on and
+off a multiple of the tile. key_bits bounds the passes by the table size. The
 grid built from the twins (photon_rows + grid_keys, the radix twin,
 grid_table) is the JAX package's build_grid bit for bit, salted and
 unsalted, also with a table above 2^24 buckets (the uint32 key wraps).
@@ -48,7 +49,7 @@ def _as_int32(k: np.ndarray) -> torch.Tensor:
 
 
 @pytest.mark.parametrize("kind", ["random", "high", "equal", "sentinel"])
-@pytest.mark.parametrize("n", [1, TILE - 1, 3 * TILE + 517])
+@pytest.mark.parametrize("n", [1, TILE - 1, TILE, TILE + 1, 3 * TILE + 517])
 def test_radix_twin_equals_stable_sort(kind, n):
     k = _keys(kind, n, 40 + n)
     key = _as_int32(k)

@@ -179,22 +179,151 @@ def test_plain_counts(case):
     triangle tests a row (on the MAT_LEAF scene, so the shadow walk's
     transmission path is counted too)."""
     name, js, ts, o, d, max_t, active, gen = case
-    k = ts.max_leaf_size
+    k, nodes = ts.max_leaf_size, ts.node_packed.shape[0]
     to, td, tm, ta = (torch.as_tensor(a) for a in (o, d, max_t, active))
     skip = torch.full((N,), -1, dtype=torch.int32)
-    base = traverse.closest_hit_bin_plain(ts.node_packed, k, to, td, tm,
+    base = traverse.closest_hit_bin_plain(ts.bin_table, nodes, to, td, tm,
                                           skip, ta)
     *hit, rows, tests = traverse.closest_hit_bin_plain(
-        ts.node_packed, k, to, td, tm, skip, ta, with_counts=True)
+        ts.bin_table, nodes, to, td, tm, skip, ta, with_counts=True)
     for a, b in zip(base, hit):
         assert torch.equal(a, b)
     assert (rows[~ta] == 0).all() and (rows[ta] >= 1).all()
     assert (tests <= k * rows).all() and tests.sum() > 0
-    args = (ts.node_packed, k, ts.tri_f32, to, td, tm, skip, ta)
+    args = (ts.bin_table, nodes, ts.tri_f32, to, td, tm, skip, ta)
     scale, srows, stests = traverse.shadow_factor_bin_plain(
         *args, with_counts=True)
     assert torch.equal(scale, traverse.shadow_factor_bin_plain(*args))
     assert (srows[~ta] == 0).all() and (stests <= k * srows).all()
+
+
+def _node_packed_walk(nodes, leaf_k, tri_f32, o, d, max_t, skip, active,
+                      shadow):
+    """A reference walk over the JAX package's node_packed (its row
+    layout, K15's design before the derived tables): the JAX threaded
+    step's row semantics (box, octant links, all leaf_k slots folded in
+    slot order), one row a step for the rays in flight -> (results, rows
+    a ray, triangle tests a ray)."""
+    from cudapathtracer_tpu_torch.ops.traverse8 import leaf_factor
+    n = o.shape[0]
+    inv_d = traverse.safe_inv_dir(d)
+    octs = traverse._octant(d)
+    cur = torch.where(active, 0, -1).to(torch.int32)
+    t_best, scale = max_t.clone(), torch.ones((n, 3))
+    tri = torch.full((n,), -1, dtype=torch.int32)
+    u, v = torch.zeros(n), torch.zeros(n)
+    rows = torch.zeros(n, dtype=torch.int32)
+    tests = torch.zeros(n, dtype=torch.int32)
+    with_leaf = tri_f32 is not None and tri_f32.shape[1] >= 94
+    ids_at = 24 + 9 * leaf_k
+    while (cur >= 0).any():
+        live = torch.nonzero(cur >= 0)[:, 0]
+        rows[live] += 1
+        row = nodes[cur[live].long()]
+        irow = row.view(torch.int32)
+        tmin, _, hit = traverse.aabb_intersect(o[live], inv_d[live],
+                                               row[:, 0:3], row[:, 3:6])
+        hit = hit & (tmin < (max_t[live] if shadow else t_best[live]))
+        oc = octs[live][:, None]
+        count = irow[:, 22]
+        nxt = torch.where(hit & (count == 0), irow.gather(1, 6 + oc)[:, 0],
+                          irow.gather(1, 14 + oc)[:, 0])
+        blocked = torch.zeros(live.numel(), dtype=torch.bool)
+        for k in range(leaf_k):
+            on = hit & (count > k) & ~blocked
+            lane = live[on]
+            tests[lane] += 1
+            tv = row[on, 24 + 9 * k:33 + 9 * k]
+            raw = irow[on, ids_at + k]
+            tid = torch.where(raw < 0, -1, raw & ~traverse.LEAF_MAT_FLAG)
+            tt, uu, vv, ok = traverse.moller_trumbore(
+                o[lane], d[lane], tv[:, 0:3], tv[:, 3:6], tv[:, 6:9])
+            ok = ok & (tid >= 0) & (tid != skip[lane])
+            if not shadow:
+                ok = ok & (tt < t_best[lane])
+                t_best[lane] = torch.where(ok, tt, t_best[lane])
+                tri[lane] = torch.where(ok, tid, tri[lane])
+                u[lane] = torch.where(ok, uu, u[lane])
+                v[lane] = torch.where(ok, vv, v[lane])
+                continue
+            ok = ok & (tt < max_t[lane])
+            stop = ok
+            if with_leaf:
+                lm = (raw & traverse.LEAF_MAT_FLAG) != 0
+                scale[lane] = torch.where(
+                    (ok & lm)[:, None], scale[lane] * leaf_factor(
+                        tri_f32, d[lane], uu, vv, tid), scale[lane])
+                stop = ok & (~lm | (scale[lane].amax(dim=1) < 0.01))
+            scale[lane[stop]] = 0.0
+            blocked[torch.nonzero(on)[:, 0][stop]] = True
+        cur[live] = torch.where(blocked, -1, nxt)
+    return ((scale,) if shadow else (t_best, tri, u, v)), rows, tests
+
+
+def test_threaded_table_fields(case):
+    """bin_table, derived from the JAX package's node_packed, holds its
+    fields: per node the box and, per octant, the miss link and (inner
+    nodes) the hit link or (leaves) -2 - the first triangle's slot; per
+    leaf, its triangles in slot order (v0, e1, e2, id word) with the last
+    one flagged. The port's scene derives the same table at upload."""
+    name, js, ts, *_ = case
+    nodes = torch.from_numpy(np.asarray(js.node_packed).copy())
+    m, k = nodes.shape[0], js.max_leaf_size
+    table = traverse.threaded_table(nodes, k)
+    assert torch.equal(table.view(torch.int32), ts.bin_table.view(torch.int32))
+    head, tris = traverse.bin_tables(table, m)
+    ihead, itris = head.view(torch.int32), tris.view(torch.int32)
+    inodes = nodes.view(torch.int32)
+    count = inodes[:, 22]
+    first = torch.cumsum(count, 0) - count
+    assert itris.shape[0] == int(count.sum())
+    leaf = count > 0
+    assert torch.equal(ihead[:, 0:6], inodes[:, 0:6])
+    assert (ihead[:, 6:8] == 0).all()
+    for o in range(8):
+        hit, miss = ihead[:, 8 + 2 * o], ihead[:, 9 + 2 * o]
+        assert torch.equal(miss, inodes[:, 14 + o])
+        assert torch.equal(hit[~leaf], inodes[~leaf, 6 + o])
+        assert torch.equal(hit[leaf], -2 - first[leaf])
+        assert (hit[~leaf] >= 0).all()
+    for j in range(int(count.max())):
+        sel = count > j
+        slot = (first + j)[sel].long()
+        assert torch.equal(itris[slot, 0:9],
+                           inodes[sel, 24 + 9 * j:33 + 9 * j])
+        assert torch.equal(itris[slot, 9], inodes[sel, 24 + 9 * k + j])
+        assert torch.equal(itris[slot, 10],
+                           (count[sel] == j + 1).to(torch.int32))
+    assert (itris[:, 11] == 0).all()
+
+
+def test_plain_walk_matches_node_packed_walk(case):
+    """The plain K15 walk over bin_table visits the rows a walk of the
+    JAX package's node_packed visits, makes the same triangle tests and
+    gives the same results bit for bit, closest (with max_t, skip_tri and
+    inactive rays) and shadow (MAT_LEAF transmission on bunny2_leaf);
+    test_closest_matches_jax and test_shadow_matches_jax hold those
+    results to the JAX engine."""
+    name, js, ts, o, d, max_t, active, gen = case
+    nodes = torch.from_numpy(np.asarray(js.node_packed).copy())
+    m = nodes.shape[0]
+    to, td, tm, ta = (torch.as_tensor(a) for a in (o, d, max_t, active))
+    skip = torch.as_tensor(np.where(gen.uniform(size=N) < 0.33,
+                                    gen.integers(0, ts.num_triangles, N),
+                                    -1).astype(np.int32))
+    for shadow in (False, True):
+        tri = ts.tri_f32 if shadow else None
+        want, rows, tests = _node_packed_walk(nodes, js.max_leaf_size, tri,
+                                              to, td, tm, skip, ta, shadow)
+        args = (ts.bin_table, m) + ((tri,) if shadow else ()) + (
+            to, td, tm, skip, ta)
+        fn = (traverse.shadow_factor_bin_plain if shadow
+              else traverse.closest_hit_bin_plain)
+        *got, grows, gtests = fn(*args, with_counts=True)
+        for a, b in zip(got, want):
+            assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+        assert torch.equal(grows, rows) and torch.equal(gtests, tests)
+        assert rows[ta].float().mean() > 3.0
 
 
 def _tree(n=200, leaf=2, seed=0):

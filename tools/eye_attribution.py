@@ -51,8 +51,12 @@ K5 and K11-K13 instantiation of the build (the library is rebuilt with
     the 1080p bunny scene built for BVH8 and for the threaded engine,
     with k = 1 and k = 8 samples a launch (sample 0 on), and K13's
     radiance, rays and rows on the tree's K12 walks of sample 0 at eye 8
-    and light 6, without a frame buffer and with a fixed one; --compare A
-    B then prints, case by case, whether two dumps are bit-equal;
+    and light 6, without a frame buffer and with a fixed one; K15's batch
+    entries on the threaded scene (k15_case: closest hits of the primary
+    rays, shadow factors of their NEE rays, rows) and K8's grid of the
+    1080p VCM sample (k8_case: sorted rows and (start, end) table);
+    --compare A B then prints, case by case, whether two dumps are
+    bit-equal;
   * --per P [P ...] times K13's pair stage with P pairs a thread
     (kernels.bdpt_pairs(per=P)) on both scenes, and checks that the
     terms, rays and rows do not depend on P;
@@ -62,10 +66,15 @@ K5 and K11-K13 instantiation of the build (the library is rebuilt with
     the light walk's (its prologue) by the profiler (walks_and_splat);
   * --k1 times K1 (the BVH8 traversal) in its two batch entries and in
     each kernel it runs in, one 1080p sample's launch each on the BVH8
-    scene (k1_hosts): K5's mega and classic schedules, K12's light and eye
-    walks, K11's trace stage, K13's pair stage, the classic VCM eye pass's
-    walk and connection stages; tools/k1_attribution.py runs it on copies
-    of a tree with one change to K1 or its hosts each, in turns.
+    scene (trace_hosts): K5's mega and classic schedules, K12's light and
+    eye walks, K11's trace stage, K13's pair stage, the classic VCM eye
+    pass's walk and connection stages; tools/k1_attribution.py runs it on
+    copies of a tree with one change to K1 or its hosts each, in turns;
+  * --k15 times K15 (the threaded traversal) the same way on the threaded
+    scene (K5's classic schedule only: its mega schedule traces BVH8), and
+    --sort times K8's sort against torch.sort on the 1080p VCM keys with
+    its launches and a digest of its outputs (sort_times);
+    tools/k8_k15_attribution.py runs both on copies of a tree, in turns.
   * --dump also writes, per engine, the eye passes' walk and connection
     stages (the classic VCM pass; on BVH8 also K14's VCM and BDPT
     flavours, chunk 0): their records and contributions (zeroed before
@@ -84,7 +93,7 @@ repository root:
     python3 tools/eye_attribution.py [--root DIR] [--toggles] [--reps 2]
         [--bit-equal] [--renders [--cells REGEX] [--spp-256 N]]
         [--dump DIR [--dump-cases REGEX]] [--per 1 6 42] [--walks] [--k1]
-        [--reuse-build] [--json FILE]
+        [--k15] [--sort] [--reuse-build] [--json FILE]
     python3 tools/eye_attribution.py --compare DUMP_A DUMP_B
 """
 
@@ -93,6 +102,8 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import hashlib
+import importlib.util
+import inspect
 import json
 import os
 import re
@@ -126,13 +137,14 @@ def _events_ms(fn, reps: int = 3) -> float:
 
 def ptxas_eye(log: str) -> dict:
     """{entry: (registers, stack bytes, spill stores, spill loads, shared
-    bytes)} of the eye-pass, K1, K5 and K11-K13 kernels in a ptxas -v
-    report (a kernel that calls a function that is not inlined reports
-    that function's stack frame first: its first numbers are the
+    bytes)} of the eye-pass, K1, K5, K11-K13, K15 and K8-sort kernels in a
+    ptxas -v report (a kernel that calls a function that is not inlined
+    reports that function's stack frame first: its first numbers are the
     callee's)."""
     out = {}
     for m in re.finditer(r"Compiling entry function "
-                         r"'([^']*(?:eye|uni_mega|bdpt_|splat_|traverse8)"
+                         r"'([^']*(?:eye|uni_mega|bdpt_|splat_|traverse8|"
+                         r"traverse_bin|radix_)"
                          r"[^']*)'"
                          r".*?(\d+) bytes stack frame, (\d+) bytes spill "
                          r"stores, (\d+) bytes spill loads.*?Used (\d+) "
@@ -278,7 +290,6 @@ def bit_equal_shares(root: str, scene, cam, px, py, cfg0, log=print):
     the VCM, SPPM and BDPT flavours, through the tree's own
     chip_smoke.compare_mega (rays and dropped photons equal, >= 99.9% of
     the pixels within rtol 1e-3): {integrator: bit-equal pixel share}."""
-    import importlib.util
     from cudapathtracer_tpu_torch.models import bdpt, bdpt_mega, vcm
     spec = importlib.util.spec_from_file_location(
         "tree_chip_smoke", os.path.join(root, "chip_smoke.py"))
@@ -386,7 +397,8 @@ def digests(t: dict) -> dict:
     totals (the buffers are too large to keep)."""
     out = {k: hashlib.sha256(v.numpy().tobytes()).hexdigest()
            for k, v in t.items()}
-    out.update(rays_sum=int(t["rays"].sum()), rows_sum=int(t["rows"].sum()))
+    out.update(rays_sum=int(t["rays"].sum()) if "rays" in t else 0,
+               rows_sum=int(t["rows"].sum()) if "rows" in t else 0)
     return out
 
 
@@ -436,6 +448,14 @@ def dump(path: str, scenes: dict, cam, px, py, bcfg, cfg0, log,
                 d = digests(t)
                 torch.save(d, os.path.join(path, f"{name}.pt"))
                 log(f"[ab] dumped {name}: {d['rays_sum']} rays")
+        if re.search(cases, f"k15_{eng}") and eng == "threaded":
+            d = digests(k15_case(sc, cam, px, py))
+            torch.save(d, os.path.join(path, "k15_threaded_entries.pt"))
+            log(f"[ab] dumped k15_threaded_entries: {d['rows_sum']} rows")
+        if re.search(cases, f"k8_{eng}") and eng == "bvh8":
+            d = digests(k8_case(sc, px, py, cfg0))
+            torch.save(d, os.path.join(path, "k8_bvh8_grid.pt"))
+            log("[ab] dumped k8_bvh8_grid")
         if not re.search(cases, f"k13_{eng}"):
             continue
         lw, ew, key_c = k13_inputs(sc, cam, px, py, bcfg)
@@ -450,6 +470,59 @@ def dump(path: str, scenes: dict, cam, px, py, bcfg, cfg0, log,
                        os.path.join(path, f"k13_{eng}_{tag}.pt"))
             log(f"[ab] dumped K13 {eng} {tag}: {int(rays.sum())} rays")
         del lw, ew
+
+
+def k15_case(scene, cam, px, py) -> dict:
+    """K15's batch entries on the threaded 1080p scene: the closest hits of
+    sample 0's primary rays and the shadow factors of the NEE rays from
+    them (chip_smoke.nee_rays), with each ray's rows."""
+    import torch
+    from cudapathtracer_tpu_torch import kernels
+    from cudapathtracer_tpu_torch.ops import traverse
+    from cudapathtracer_tpu_torch.utils import rng
+    spec = importlib.util.spec_from_file_location(
+        "tool_chip_smoke", os.path.join(ROOT, "chip_smoke.py"))
+    chip_smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(chip_smoke)
+    ids = rng.pixel_ids(px, py).contiguous()
+    ckey = rng.fold_in(rng.sample_key(rng.base_key(), 0), 2 ** 20)
+    o, d = cam.generate_rays(ckey, px.float(), py.float(), ids)
+    hit = traverse.closest_hit(scene, o, d)
+    so, sd, smt = chip_smoke.nee_rays(scene, o, d, hit, ids)
+    n, m = o.shape[0], so.shape[0]
+    dev = o.device
+    if getattr(scene, "bin_table", None) is not None:
+        tables = (scene.bin_table, scene.node_packed.shape[0])
+    else:   # an earlier tree: the entries walk node_packed
+        tables = (scene.node_packed, scene.max_leaf_size)
+    rows = kernels.closest_hit_bin(
+        *tables, o, d, torch.full((n,), 999999.0, device=dev),
+        torch.full((n,), -1, dtype=torch.int32, device=dev), None,
+        with_rows=True)[4]
+    srows = kernels.shadow_factor_bin(
+        *tables, scene.tri_f32, so, sd, smt,
+        torch.full((m,), -1, dtype=torch.int32, device=dev), None,
+        with_rows=True)[1]
+    t = {"t": hit.t, "tri": hit.tri, "u": hit.u, "v": hit.v,
+         "scale": traverse.shadow_factor(scene, so, sd, smt),
+         "rows": torch.cat([rows, srows])}
+    return {k: v.contiguous().cpu() for k, v in t.items()}
+
+
+def k8_case(scene, px, py, cfg0) -> dict:
+    """K8's grid of the 1080p VCM sample 0 (classic_inputs: its light
+    walk, a table above 2^24 buckets): the sorted rows and the (start,
+    end) table, with the walk's stored vertices a lane."""
+    from cudapathtracer_tpu_torch import kernels
+    from cudapathtracer_tpu_torch.models import vcm
+    cv = vcm.VCMConfig.from_config(dataclasses.replace(
+        cfg0, integrator="VCM", engine="classic").normalized())
+    kernels.reset_launches()
+    inp = classic_inputs(scene, px, py, cv)
+    g = inp["grid"]
+    return {"grid_rows": g.rows.contiguous().cpu(),
+            "cell_se": g.cell_se.contiguous().cpu(),
+            "stored": inp["lb"].valid.sum(dim=0).cpu()}
 
 
 def _zeroed_pass(ep):
@@ -538,38 +611,41 @@ def eye_k11_cases(scene, cam, px, py, bcfg, cfg0, eng: str) -> dict:
     return out
 
 
-def k1_hosts(root: str, scene, cam, px, py, bcfg, cfg0, reps: int,
-             log=print) -> dict:
-    """K1's time in each kernel it runs in, on the BVH8 scene at 1080p,
-    sample 0, by CUDA events: {name: ms} (the module's docstring lists
-    them). The batch entries trace the 1080p primary rays and the NEE rays
-    from their hits (the tree's chip_smoke.nee_rays)."""
-    import importlib.util
+def trace_hosts(root: str, scene, cam, px, py, bcfg, cfg0, reps: int,
+                log=print) -> dict:
+    """The traversal's time in its batch entries and in each kernel it
+    runs in, on the scene's engine (K1 on a BVH8 scene, K15 on a threaded
+    one) at 1080p, sample 0, by CUDA events: {name: ms} (the module's
+    docstring lists them; K5's mega schedule traces BVH8 on every scene
+    and is timed on the BVH8 scene only). The batch entries trace the
+    1080p primary rays and the NEE rays from their hits (the tree's
+    chip_smoke.nee_rays)."""
     import torch
     from cudapathtracer_tpu_torch import kernels
     from cudapathtracer_tpu_torch.models import paths, vcm
-    from cudapathtracer_tpu_torch.ops import hashgrid, traverse8
+    from cudapathtracer_tpu_torch.ops import hashgrid, traverse
     from cudapathtracer_tpu_torch.utils import rng
     spec = importlib.util.spec_from_file_location(
         "tree_chip_smoke", os.path.join(root, "chip_smoke.py"))
     smoke = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(smoke)
     n, dev = px.shape[0], px.device
+    tag = "K1" if scene.traversal == "bvh8" else "K15"
     res = {}
 
     def timed(name, fn):
         res[name] = _events_ms(fn, reps)
-        log(f"[k1] {name}: {res[name]:.3f} ms")
+        log(f"[{tag.lower()}] {name}: {res[name]:.3f} ms")
     ids = rng.pixel_ids(px, py).contiguous()
     ckey = rng.fold_in(rng.sample_key(rng.base_key(), 0), 2 ** 20)
     o, d = cam.generate_rays(ckey, px.float(), py.float(), ids)
-    hit = traverse8.closest_hit8(scene, o, d)
+    hit = traverse.closest_hit(scene, o, d)
     so, sd, smt = smoke.nee_rays(scene, o, d, hit, ids)
-    timed("K1 closest entry", lambda: traverse8.closest_hit8(scene, o, d))
-    timed("K1 shadow entry",
-          lambda: traverse8.shadow_factor8(scene, so, sd, smt))
+    timed(f"{tag} closest entry", lambda: traverse.closest_hit(scene, o, d))
+    timed(f"{tag} shadow entry",
+          lambda: traverse.shadow_factor(scene, so, sd, smt))
     del o, d, hit, so, sd, smt
-    for sched in ("mega", "classic"):
+    for sched in ("mega", "classic") if tag == "K1" else ("classic",):
         timed(f"K5 {sched}", lambda: k5(scene, cam, px, py, sched, 0, 1))
     key_l, key_e, key_c = bdpt_keys()
     z = lambda: torch.zeros(n, dtype=torch.int32, device=dev)
@@ -597,6 +673,67 @@ def k1_hosts(root: str, scene, cam, px, py, bcfg, cfg0, reps: int,
         merge_norm=inp["norm"], **hashgrid.merge_switches(cv.max_per_cell))
     timed("eye walk", lambda: kernels.eye_walk(ep))
     timed("eye connect", lambda: kernels.eye_connect(ep))
+    return res
+
+
+def sort_times(scene, px, py, cfg0, reps: int, log=print) -> dict:
+    """K8's sort on the 1080p VCM sample's photons (sample 0's light walk,
+    12,441,600 candidates): the tree's photon_sort (on the buckets, or on
+    the keys photon_pack wrote) and torch.sort (stable) on the same keys
+    as int32, each timed by CUDA events (mean of reps calls), the sort's
+    launches by the profiler, the order held equal to torch.sort's and a
+    SHA-256 of the order and the sorted buckets: {name: value}."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from cudapathtracer_tpu_torch import kernels
+    from cudapathtracer_tpu_torch.models import paths, vcm
+    from cudapathtracer_tpu_torch.ops import hashgrid
+    from cudapathtracer_tpu_torch.utils import rng
+    n = px.shape[0]
+    cv = vcm.VCMConfig.from_config(dataclasses.replace(
+        cfg0, integrator="VCM", engine="classic").normalized())
+    key_l, _ = vcm.sample_keys(rng.base_key(), 0)
+    mr, eta, _ = vcm.sample_scalars(scene, cv, 0, n)
+    lb = kernels.bdpt_walk(
+        scene, px, py, paths.walk_keys(key_l, "light"), mode="light",
+        max_depth=cv.light_depth + 1,
+        rays=torch.zeros(n, dtype=torch.int32, device=px.device),
+        eta_vcm=eta)["bufs"]
+    tsize = hashgrid.photon_table_size(cv.light_depth * n)
+    salt = hashgrid.photon_salt(0) if hashgrid.REWEIGHT else None
+    bits = hashgrid.key_bits(tsize, salt is not None)
+    args = (lb, scene.scene_min, 2.0 * mr, tsize)
+    if "salt" in inspect.signature(kernels.photon_pack).parameters:
+        _, h, key, _ = kernels.photon_pack(*args, salt)
+        run = lambda: kernels.photon_sort(key, bits, h)
+    else:
+        _, h, _ = kernels.photon_pack(*args)
+        run = lambda: kernels.photon_sort(h, bits, salt)
+    k64 = hashgrid.sort_keys(h.to(torch.int64), salt)
+    k32 = (k64 - 2 ** 31).to(torch.int32)
+    order, sorted_h = run()
+    want = torch.sort(k64, stable=True).indices
+    ok = (torch.equal(order.to(torch.int64), want)
+          and torch.equal(sorted_h, h[want]))
+    digest = hashlib.sha256(order.cpu().numpy().tobytes()
+                            + sorted_h.cpu().numpy().tobytes()).hexdigest()
+    res = {"photons": n * cv.light_depth, "bits": bits, "equal": ok,
+           "digest": digest,
+           "sort": _events_ms(run, reps),
+           "torch.sort int32": _events_ms(
+               lambda: torch.sort(k32, stable=True), reps)}
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    res["launches"] = [
+        (e.name.split("::")[-1].split("(")[0], e.device_time)
+        for e in prof.events()
+        if e.device_type == torch.autograd.DeviceType.CUDA]
+    log(f"[sort] {res['photons']} keys of {bits} bits: sort "
+        f"{res['sort']:.4f} ms, torch.sort int32 "
+        f"{res['torch.sort int32']:.4f} ms, order equal to torch.sort's: "
+        f"{ok}, digest {digest[:16]}; launches (us): " + ", ".join(
+            f"{name} {us:.1f}" for name, us in res["launches"]))
     return res
 
 
@@ -780,8 +917,9 @@ def _timed_in_turn(steps, reps: int = 2) -> dict:
 def sample_launches(scene, cam, px, py, bcfg, vcfgs: dict) -> dict:
     """The launches of one 1080p bdpt sample (K12 light, K11, K12 eye,
     K13) and of a vcm and an sppm sample (K12 with eta_vcm, K11's VCM form
-    (not SPPM), K8's photon_pack, sort (the tree's photon_sort, or
-    torch.sort where it has none) and photon_table, the eye pass's walk,
+    (not SPPM), K8's photon_pack, sort (the tree's photon_sort, on the
+    keys photon_pack wrote or on the buckets, or torch.sort where it has
+    none) and photon_table, the eye pass's walk,
     connections (not SPPM) and gather), sample 0, by CUDA events:
     {cell: {launch: ms}}."""
     import torch
@@ -809,16 +947,28 @@ def sample_launches(scene, cam, px, py, bcfg, vcfgs: dict) -> dict:
     out = {"bdpt-1080p": _timed_in_turn(steps)}
     vkey_l, vkey_e = vcm.sample_keys(rng.base_key(), 0)
     salt = hashgrid.photon_salt(0)
+    # an earlier tree's photon_pack writes the keys it salts
+    keyed = "salt" in inspect.signature(kernels.photon_pack).parameters
     for cell, vcfg in (("vcm-1080p", vcfgs["VCM"]),
                        ("sppm-1080p", vcfgs["SPPM"])):
         mr, eta, norm = vcm.sample_scalars(scene, vcfg, 0, n)
         tsize = hashgrid.photon_table_size(vcfg.light_depth * n)
 
+        def pack():
+            args = (st["vw"]["bufs"], scene.scene_min, 2.0 * mr, tsize)
+            if keyed:   # (rows, bucket, key, cell_se)
+                st["pack"] = kernels.photon_pack(*args, salt)
+            else:
+                rows, h, cse = kernels.photon_pack(*args)
+                st["pack"] = (rows, h, None, cse)
+
         def sort():
-            key, h = st["pack"][2], st["pack"][1]
-            if hasattr(kernels, "photon_sort"):
-                st["order"] = kernels.photon_sort(
-                    key, hashgrid.key_bits(tsize, hashgrid.REWEIGHT), h)
+            h, key = st["pack"][1], st["pack"][2]
+            bits = hashgrid.key_bits(tsize, hashgrid.REWEIGHT)
+            if not keyed:
+                st["order"] = kernels.photon_sort(h, bits, salt)
+            elif hasattr(kernels, "photon_sort"):
+                st["order"] = kernels.photon_sort(key, bits, h)
             else:   # an earlier tree: torch.sort, photon_table gathers h
                 st["order"] = (torch.sort(key, stable=True).indices, h)
 
@@ -837,8 +987,7 @@ def sample_launches(scene, cam, px, py, bcfg, vcfgs: dict) -> dict:
                 eta_vcm=eta))),
             ("vcm_splat", lambda: kernels.vcm_splat(
                 scene, cam, st["vw"]["bufs"], fb, rays, vcfg, eta)),
-            ("photon_pack", lambda: st.update(pack=kernels.photon_pack(
-                st["vw"]["bufs"], scene.scene_min, 2.0 * mr, tsize, salt))),
+            ("photon_pack", pack),
             ("sort", sort),
             ("photon_table", lambda: st.update(rows=kernels.photon_table(
                 st["pack"][0], st["order"][1], st["order"][0],
@@ -972,7 +1121,12 @@ def main() -> int:
     ap.add_argument("--walks", action="store_true", help="time K12's walks "
                     "and K11's stages at 1080p (walks_and_splat)")
     ap.add_argument("--k1", action="store_true", help="time K1 in its batch "
-                    "entries and in each kernel it runs in (k1_hosts)")
+                    "entries and in each kernel it runs in (trace_hosts)")
+    ap.add_argument("--k15", action="store_true", help="time K15 in its "
+                    "batch entries and in each kernel it runs in on the "
+                    "threaded scene (trace_hosts)")
+    ap.add_argument("--sort", action="store_true", help="time K8's sort "
+                    "against torch.sort on the 1080p VCM keys (sort_times)")
     ap.add_argument("--reuse-build", action="store_true", help="keep the "
                     "tree's kernel library and ptxas report if they are up "
                     "to date (a later turn of tools/k1_attribution.py)")
@@ -980,8 +1134,8 @@ def main() -> int:
     if args.compare:
         return 1 if compare(*args.compare) else 0
     toggles = args.toggles or not (args.renders or args.bit_equal
-                                   or args.dump or args.per
-                                   or args.walks or args.k1)
+                                   or args.dump or args.per or args.walks
+                                   or args.k1 or args.k15 or args.sort)
     root = os.path.abspath(args.root)
     sys.path.insert(0, root)
     import torch
@@ -1028,7 +1182,7 @@ def main() -> int:
     px, py = gx.reshape(-1).contiguous(), gy.reshape(-1).contiguous()
     mesh = builtin.cornell_with_bunny(subdivisions=6)
     bvh8_only = not (toggles or args.bit_equal or args.dump or args.renders
-                     or args.per)
+                     or args.per or args.k15)
     scenes = {t: build_scene(mesh, builtin_materials(), traversal=t,
                              device=dev)[0]
               for t in (("bvh8",) if bvh8_only else ("bvh8", "threaded"))}
@@ -1052,8 +1206,13 @@ def main() -> int:
     if args.walks:
         out["walks"] = walks_and_splat(scenes["bvh8"], cam, px, py, bcfg, log)
     if args.k1:
-        out["k1"] = k1_hosts(root, scenes["bvh8"], cam, px, py, bcfg, cfg0,
-                             args.reps, log)
+        out["k1"] = trace_hosts(root, scenes["bvh8"], cam, px, py, bcfg,
+                                cfg0, args.reps, log)
+    if args.k15:
+        out["k15"] = trace_hosts(root, scenes["threaded"], cam, px, py, bcfg,
+                                 cfg0, args.reps, log)
+    if args.sort:
+        out["sort"] = sort_times(scenes["bvh8"], px, py, cfg0, args.reps, log)
     if args.json:
         os.makedirs(os.path.dirname(os.path.abspath(args.json)),
                     exist_ok=True)
