@@ -313,7 +313,7 @@ KERNELS = (  # name, source, the JAX function it replaces
 # entries, K5, K12, K11's trace, K13's pairs, the eye passes' walk and
 # connections (classic, mega VCM, mega BDPT)
 K1_HOSTS = ("traverse8_kernelILb0E", "traverse8_kernelILb1E",
-            "uni_mega_kernelILi0E", "bdpt_walk_kernelILi0E",
+            "uni_mega_kernelILi0ELi8E", "bdpt_walk_kernelILi0E",
             "splat_trace_kernelILi0E", "bdpt_pairs_kernelILi0E",
             *(k + f + "Li0E" for k in ("eye_walk_kernel",
                                        "eye_connect_kernel")
@@ -376,6 +376,16 @@ OPS_PER_RGB9E5 = 120
 # K9's slots (hashgrid.cuh): a query's 8 cell hashes and table reads
 # (~200), each slot's index and distance test (~20)
 OPS_PER_QUERY = 200
+# the kernels K2-K4 run in (both engines where they trace) and K9's hosts
+SHADE_HOSTS = ("shade_eval_kernel", "uni_mega_kernelILi0ELi8E",
+               "uni_mega_kernelILi0ELi1E", "uni_mega_kernelILi1ELi8E",
+               "uni_mega_kernelILi1ELi1E", "bdpt_walk_kernelILi0E",
+               "bdpt_walk_kernelILi1E", "splat_trace_kernelILi0E",
+               "bdpt_pairs_kernelILi0E", "eye_walk_kernelILi0ELi0E",
+               "eye_walk_kernelILi1ELi0E", "eye_walk_kernelILi2ELi0E",
+               "eye_connect_kernelILi0ELi0E", "eye_connect_kernelILi1ELi0E",
+               "eye_gather_kernelILi0E", "eye_gather_kernelILi1E",
+               "slots_kernel")
 OPS_PER_SLOT = 20
 # one eye record (kernels/csrc/eye.cuh): pos, n, to_prev, thr, albedo 60,
 # trans, mat_id, d_vcm, d_vc, d_vm, flags 24, the s=0 and NEE terms 24
@@ -1775,6 +1785,17 @@ def eye_stage_stats(stats: dict, name: str, st: dict, eps: list,
                             st[stage][0]),
             plain_ms=st[stage][1],
             ms=sum(cuda_ms(lambda: fn(ep), 2) for ep in eps))
+        if stage == "gather" and gbytes:
+            # K9's share: the same gather with the merge switched off
+            bare = sum(cuda_ms(lambda: kernels.eye_gather(ep, merge=False), 2)
+                       for ep in eps)
+            stats[row]["merge_ms"] = stats[row]["ms"] - bare
+            stats[row]["merge_bound"] = bound_ms(gbytes + live * 16,
+                                                 live * OPS_PER_QUERY)
+            say(name, f"K9 (the merge query) in the gather: "
+                f"{stats[row]['merge_ms']:.3f} of {stats[row]['ms']:.3f} ms "
+                f"(bound {stats[row]['merge_bound'][0]:.4f} ms, "
+                f"{stats[row]['merge_bound'][1]})")
     say(name, "stages: " + ", ".join(
         f"{stage} {stats[f'{name}_{stage}']['ms']:.3f} ms (bound "
         f"{stats[f'{name}_{stage}']['bound'][0]:.4f}, "
@@ -2160,11 +2181,13 @@ def main() -> int:
     say("build", f"{kernels.LIBRARY} built in {build_s:.1f} s "
         f"({len(kernels.SOURCES)} sources in parallel)")
     # the kernels that trace rays are built per engine: ILi0E BVH8 (K1),
-    # ILi1E threaded (K15)
+    # ILi1E threaded (K15); K5 also per build (Li8E wide, Li1E narrow)
     # the eye stages per flavour (0 classic, 1 mega VCM, 2 mega BDPT) and
     # engine; the gathers trace nothing
     engines = ("ILi0E", "ILi1E")
-    for kname in (*(k + e for k in ("uni_mega_kernel", "bdpt_walk_kernel",
+    for kname in (*("uni_mega_kernel" + e + b for e in engines
+                    for b in ("Li8E", "Li1E")),
+                  *(k + e for k in ("bdpt_walk_kernel",
                                     "splat_trace_kernel", "bdpt_pairs_kernel")
                     for e in engines), "bdpt_gather_kernel",
                   "bdpt_walk_start_kernel", "splat_classify_kernel",
@@ -2177,12 +2200,20 @@ def main() -> int:
                   "traverse_bin_kernelILb0E", "traverse_bin_kernelILb1E",
                   "packing_kernel", "photon_pack_kernel",
                   "photon_table_kernel", "radix_hist_kernel",
-                  "radix_pass_kernel", "slots_kernel", "rgb9e5_kernel"):
+                  "radix_pass_kernel", "slots_kernel", "rgb9e5_kernel",
+                  "shade_eval_kernel"):
         mk = ptxas_of(ptxas_log, kname)
         say("build", f"{kname}: {mk['registers']} registers, "
             f"{mk['stack_bytes']} bytes stack frame, "
             f"{mk['spill_store_bytes']} bytes spill stores, "
             f"{mk['spill_load_bytes']} bytes spill loads")
+    # K2-K4 (the shading transition) run inside these kernels, K9 (the
+    # merge query) inside the gathers
+    say("build", "K2-K4 and K9 hosts (registers/stack/spill st/spill ld): "
+        + "; ".join(
+            f"{k} {m['registers']}/{m['stack_bytes']}/"
+            f"{m['spill_store_bytes']}/{m['spill_load_bytes']}"
+            for k, m in ((k, ptxas_of(ptxas_log, k)) for k in SHADE_HOSTS)))
     # K1 runs inside these kernels (their BVH8 instantiations): their
     # registers, stack frames and spills go on K1's rows of the kernels line
     k1_hosts = {k: ptxas_of(ptxas_log, k) for k in K1_HOSTS}
@@ -2242,7 +2273,10 @@ def main() -> int:
                            builtin_materials(), device=dev)
     say("scene", f"cornell_with_bunny(6): {scene.num_triangles} triangles, "
         f"{scene.bvh8_table.shape[0]} BVH8 rows, built in "
-        f"{time.perf_counter() - t0:.1f} s")
+        f"{time.perf_counter() - t0:.1f} s; shade_table "
+        f"{scene.shade_table.numel() * 4} bytes on the device "
+        f"({scene.shade_table.shape[1] * 4} a triangle; the JAX shade rows "
+        f"{scene.num_triangles * 192} bytes)")
     o, d = cam.generate_rays(ckey, fx, fy, ids)
     tbl, nomax = scene.bvh8_table, torch.full((n,), 999999.0, device=dev)
     noskip = torch.full((n,), -1, dtype=torch.int32, device=dev)
@@ -2406,19 +2440,27 @@ def main() -> int:
             c = lambda x: x.contiguous()
             args = (sc, eo, ed, c(eh.t), c(eh.tri), c(eh.u), c(eh.v), eids,
                     c(eta), keys)
-            # inputs: the hit records (48 B), the shading rows of the hit
-            # triangles (192 B), a light row (68 B); output 38 floats
+            # inputs: the hit records (48 B), the shading records of the
+            # hit triangles (64 B: scene.shade_table), a light row (68 B),
+            # the material table once; output 38 floats. The JAX layout's
+            # bound read the 192-byte shade row a hit instead.
             nv = int(eh.valid.sum())
+            ops = nv * 7 * OPS_PER_DRAW
             stats["shade_eval"].update(
-                bound=bound_ms(ne * 48 + nv * (192 + 68) + ne * 38 * 4,
-                               nv * 7 * OPS_PER_DRAW),
+                bound=bound_ms(ne * 48 + nv * (64 + 68)
+                               + sc.mat_f32.numel() * 4 + ne * 38 * 4, ops),
+                bound_row192=bound_ms(ne * 48 + nv * (192 + 68)
+                                      + ne * 38 * 4, ops),
                 ms=cuda_ms(lambda: kernels.shade_eval(*args), 10),
                 plain_ms=cuda_ms(lambda: unidirectional_mega.shade_eval_plain(
                     sc, eo, ed, eh, eids, eta, skey), 3))
     stats["shade_eval"]["max_abs_err"] = err_k24
     say("shade", f"kernel {stats['shade_eval']['ms']:.4f} ms, plain "
         f"{stats['shade_eval']['plain_ms']:.4f} ms ({shade_hits} hits "
-        "compared over both scenes)")
+        "compared over both scenes); bound "
+        f"{stats['shade_eval']['bound'][0]:.4f} ms on the 64-byte records "
+        f"({stats['shade_eval']['bound_row192'][0]:.4f} ms on the 192-byte "
+        "shade rows)")
     del leaf_scene
 
     # --- 7. K5 against its plain version

@@ -35,6 +35,11 @@ bdpt_pairs and bdpt_gather. A splat (bdpt_splat, vcm_splat) counts once
 under its own name and its two stages under <splat>_bin and
 <splat>_trace.
 
+The hit fetch (K2) reads scene.shade_table, the 64-byte record of each
+triangle derived from tri_f32 at upload (scene/scene.py), and the kernels
+read a material by id from scene.mat_f32: K5, K12, K13 and the eye passes
+take both tables' addresses (K11's splat mat_f32 alone).
+
 Engines: the kernels that trace rays (K5, K11-K13, the classic eye pass's
 walk and connections) are built twice, once per traversal engine, and
 launched with the scene's: BVH8 (K1, scene.bvh8_table) or threaded (K15,
@@ -92,6 +97,7 @@ STACK_D = 16      # traverse8.cuh's default stack depth
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-fmad=false", "-Xcompiler", "-fPIC")
 SHADE_EVAL_COLS = 38   # uni_mega.cu kShadeEvalCols
+SHADE_COLS = 16        # floats a record of scene.shade_table (shade.cuh)
 BIN_HEAD = 24         # traverse_bin.cuh: floats a node record of K15's
 BIN_TRI = 12          # tables, floats a leaf triangle record
 SCHEDULES = {"classic": 0, "mega": 1, "naive": 2}
@@ -228,12 +234,12 @@ def _load(stack_d: int = STACK_D):
                                               p, p, i64, p, p, p]
         lib.tpt_render_unidirectional.restype = ctypes.c_int
         lib.tpt_render_unidirectional.argtypes = [
-            p, p, i32, p, i32, p, p, p, p, i64, p, u32, u32, u32, i32, i32,
-            i32, i32, i32, i32, i32, p, i32, i32, p, p, p, p, i32, p, p]
+            p, p, i32, p, p, p, i32, p, p, p, p, i64, p, u32, u32, u32, i32,
+            i32, i32, i32, i32, i32, i32, p, i32, i32, p, p, p, p, i32, p, p]
         lib.tpt_render_unidirectional_grid.restype = ctypes.c_int
         lib.tpt_render_unidirectional_grid.argtypes = [i32, i64, p]
         lib.tpt_shade_eval.restype = ctypes.c_int
-        lib.tpt_shade_eval.argtypes = [p, i32, p, i32, p, p, p, p, p, p, p,
+        lib.tpt_shade_eval.argtypes = [p, p, p, i32, p, p, p, p, p, p, p,
                                        p, p, p, i64, p, p, p]
         lib.tpt_packing_roundtrip.restype = ctypes.c_int
         lib.tpt_packing_roundtrip.argtypes = [p, p, p, p, p, p, i64, p, p,
@@ -528,17 +534,22 @@ def _table(scene, dev):
 def _scene_args(scene, dev):
     """Check the scene blocks the per-path kernels read; returns them."""
     blocks = dict(tri_f32=scene.tri_f32, light_f32=scene.light_f32,
-                  textures=scene.textures, medium=scene.medium_f32)
+                  textures=scene.textures, medium=scene.medium_f32,
+                  shade=scene.shade_table, mat_f32=scene.mat_f32)
     for name, t in blocks.items():
         if t.dim() != 2:
             raise ValueError(f"{name} must be 2-D, got {tuple(t.shape)}")
         _check(t, name, torch.float32, t.shape, dev)
     cols = {"tri_f32": (78, 94), "light_f32": (17,), "textures": (3,),
-            "medium": (4,)}
+            "medium": (4,), "shade": (SHADE_COLS,), "mat_f32": (26,)}
     for name, ok in cols.items():
         if blocks[name].shape[1] not in ok:
             raise ValueError(f"{name}: {blocks[name].shape[1]} columns, "
                              f"expected one of {ok}")
+    if blocks["shade"].shape[0] != blocks["tri_f32"].shape[0] \
+            or blocks["shade"].data_ptr() % 16:
+        raise ValueError("shade_table: one 16-byte aligned record a "
+                         "triangle")
     return blocks
 
 
@@ -621,6 +632,7 @@ def render_unidirectional(scene, px: torch.Tensor, py: torch.Tensor,
         _launch("naive" if schedule == "naive" else "render_unidirectional",
                 lib, lib.tpt_render_unidirectional, tbl.data_ptr(),
                 b["tri_f32"].data_ptr(), b["tri_f32"].shape[1],
+                b["shade"].data_ptr(), b["mat_f32"].data_ptr(),
                 b["light_f32"].data_ptr(), scene.num_lights,
                 b["textures"].data_ptr(), b["medium"].data_ptr(),
                 px.data_ptr(), py.data_ptr(), n, ctypes.addressof(cparams),
@@ -662,7 +674,7 @@ def shade_eval(scene, o, d, t, tri, u, v, ids, eta_i, keys: list):
     lib = _load()
     with torch.cuda.device(dev):
         _launch("shade_eval", lib, lib.tpt_shade_eval,
-                b["tri_f32"].data_ptr(), b["tri_f32"].shape[1],
+                b["shade"].data_ptr(), b["mat_f32"].data_ptr(),
                 b["light_f32"].data_ptr(), scene.num_lights,
                 b["textures"].data_ptr(), b["medium"].data_ptr(),
                 o.data_ptr(), d.data_ptr(), t.data_ptr(), tri.data_ptr(),
@@ -731,14 +743,10 @@ def _bdpt_scene(scene, dev, bvh8_only: bool = False) -> dict:
     iv)."""
     tbl = _table(scene, dev)
     b = _scene_args(scene, dev)
-    mat = scene.mat_f32
-    if mat.dim() != 2 or mat.shape[1] != 26:
-        raise ValueError(f"mat_f32 must be [M,26], got {tuple(mat.shape)}")
-    _check(mat, "mat_f32", torch.float32, mat.shape, dev)
     eng, bin_ptr, nodes, slots = _engine_args(scene, dev, bvh8_only)
     return dict(table=tbl, tri_f32=b["tri_f32"], light_f32=b["light_f32"],
-                textures=b["textures"], mat_f32=mat, bin=bin_ptr,
-                engine_iv=[eng, nodes, slots])
+                textures=b["textures"], mat_f32=b["mat_f32"],
+                shade=b["shade"], bin=bin_ptr, engine_iv=[eng, nodes, slots])
 
 
 def _i64s(values):
@@ -820,7 +828,8 @@ def bdpt_walk(scene, px, py, keys: list, *, mode: str, max_depth: int,
                _ptr(esc.beta) if esc else 0, rays.data_ptr(),
                _ptr(rows) or 0, _ptr(key_table) or 0, sc["bin"],
                _persistent_scratch(dev).data_ptr(), _ptr(lanes) or 0,
-               _ptr(start) or 0])
+               _ptr(start) or 0, sc["shade"].data_ptr(),
+               sc["mat_f32"].data_ptr()])
     cam = camera.kernel_params() if camera is not None else [0.0] * 19
     area = camera.plane_area() if camera is not None else 0.0
     iv = [n, sc["tri_f32"].shape[1], scene.num_lights,
@@ -1032,7 +1041,8 @@ def _connect_launch(name: str, entry: str, scene, camera, key_c, eye: dict,
                esc.d.data_ptr(), esc.beta.data_ptr()]
             + lptrs
             + [_ptr(fb) or 0, _ptr(out) or 0, _ptr(rays) or 0,
-               _ptr(rows) or 0, sc["bin"], terms.data_ptr()])
+               _ptr(rows) or 0, sc["bin"], terms.data_ptr(),
+               sc["shade"].data_ptr()])
     iv = [n, sc["tri_f32"].shape[1], scene.num_lights, cfg.eye_depth,
           cfg.light_depth, int(cfg.naive), int(cfg.nee), int(cfg.connection),
           int(cfg.do_mis), int(cfg.paint_weight),
@@ -1240,7 +1250,8 @@ def _eye_pass(name: str, scene, camera, keys: list, lbufs, grid, fb, out,
             + _check_bufs(lbufs, "light bufs", light_rows, n_buf, dev)
             + gptrs + [_ptr(fb) or 0, out.data_ptr(), rays.data_ptr(),
                        dropped.data_ptr(), _ptr(rows) or 0, sc["bin"]]
-            + [t.data_ptr() for t in rec] + [_ptr(conn) or 0])
+            + [t.data_ptr() for t in rec] + [_ptr(conn) or 0,
+                                             sc["shade"].data_ptr()])
     iv = [n, n_buf, sc["tri_f32"].shape[1], scene.num_lights, depth,
           light_rows, EYE_FLAVORS[flavor], int(cfg.naive), int(cfg.nee),
           int(cfg.connection), int(cfg.do_mis), int(cfg.paint_weight),
@@ -1288,11 +1299,15 @@ def vcm_eye_pass(scene, camera, keys: list, lbufs, grid, fb, rays, cfg, *,
                      with_rows=with_rows, dropped=dropped)
 
 
-def _eye_stage(ep: EyePass, stage: str) -> None:
+EYE_IV_MERGE = 13   # eye.cuh eye_launch: iv[13] is the merge switch
+
+
+def _eye_stage(ep: EyePass, stage: str, args=None) -> None:
     lib = _load()
     with torch.cuda.device(ep.dev):
         _launch(f"{ep.name}_{stage}", lib, getattr(lib, f"tpt_eye_{stage}"),
-                *(ctypes.addressof(a) for a in ep.args), _stream(ep.dev),
+                *(ctypes.addressof(a) for a in (args or ep.args)),
+                _stream(ep.dev),
                 engine=0 if stage == "gather" else ep.engine)
 
 
@@ -1310,10 +1325,18 @@ def eye_connect(ep: EyePass) -> None:
     _eye_stage(ep, "connect")
 
 
-def eye_gather(ep: EyePass) -> None:
+def eye_gather(ep: EyePass, merge: bool = True) -> None:
     """Stage 3 (eye_gather.cu): the terms summed in the flavour's JAX
-    order with the merge folded in, into ep.out and ep.dropped."""
-    _eye_stage(ep, "gather")
+    order with the merge folded in, into ep.out and ep.dropped. merge=False
+    (a measurement argument) sums the same terms without the merge, so the
+    difference of the two launches' times is the merge query's (K9's)
+    share of the gather."""
+    args = None
+    if not merge:
+        iv = type(ep.args[1])(*ep.args[1])
+        iv[EYE_IV_MERGE] = 0
+        args = (ep.args[0], iv, ep.args[2], ep.args[3])
+    _eye_stage(ep, "gather", args)
 
 
 def run_eye_pass(ep: EyePass) -> None:

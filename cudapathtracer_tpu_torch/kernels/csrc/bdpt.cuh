@@ -58,7 +58,6 @@ namespace tpt {
 constexpr float kMaxGNee = 15.0f;
 constexpr float kMaxGConnect = 2.0f;
 constexpr float kMaxFireflyLum = 5.0f;
-constexpr int kMatCols = 26;  // mat_f32: shade-row columns 20:46
 
 // ---- packed buffers --------------------------------------------------------
 
@@ -145,8 +144,9 @@ __device__ __forceinline__ void store_dead(const PathBufs& b, int j,
 
 struct SceneRefs {
   const float* table;     // bvh8_table [R, 96]
-  const float* tri_f32;   // [T, tri_cols]
+  const float* tri_f32;   // [T, tri_cols] (shadow rays: MAT_LEAF rows)
   int tri_cols;
+  const float4* shade;    // shade_table [T, 16] (shade.cuh)
   Lights lights;          // light_f32 [L, 17]
   const float* mat_f32;   // [M, 26]
   const float* textures;  // [A, 3]
@@ -220,8 +220,8 @@ __device__ __forceinline__ LightPoint light_point(const Draw& draw,
   const V3 a = row_v3(r, 0), b = row_v3(r, 3), c = row_v3(r, 6);
   lp.le = row_v3(r, 12);
   lp.area = __ldg(r + 15);
-  const float* tn = sc.tri_f32 + static_cast<int64_t>(lp.tri) * sc.tri_cols + 9;
-  const V3 n0 = row_v3(tn, 0), n1 = row_v3(tn, 3), n2 = row_v3(tn, 6);
+  V3 n0, n1, n2;
+  vertex_normals(sc.shade, lp.tri, n0, n1, n2);
   const float u = sqrtf(draw(1));
   const float v = draw(2);
   const float w0 = 1.0f - u, w1 = u * (1.0f - v), w2 = u * v;
@@ -237,8 +237,10 @@ __device__ __forceinline__ float fourth(float x) {
   return x2 * x2;
 }
 
-__device__ __forceinline__ Mat mat_of(const SceneRefs& sc, int32_t mat_id) {
-  return read_mat(sc.mat_f32 + kMatCols * static_cast<int64_t>(mat_id));
+// The material of a hit or a stored vertex (mat_id, uv): bsdf.cuh Surf.
+__device__ __forceinline__ Surf surf_of(const SceneRefs& sc, int32_t mat_id,
+                                        float u, float v) {
+  return surf(sc.mat_f32, sc.textures, mat_id, u, v);
 }
 
 __device__ __forceinline__ float max3(float a, float b, float c) {
@@ -347,14 +349,13 @@ __device__ __forceinline__ void start_walk(const SceneRefs& sc,
       static_cast<float>(sc.lights.count > 1 ? sc.lights.count : 1);
   const float pdf0 = (1.0f / num) / fmaxf(lp.area, 1e-20f);
   const V3 out_local = cosine_sample(ld(3), ld(4));
-  const V3 out_world = to_world(out_local, lp.n);
+  const V3 out_world = to_world(out_local, frame(lp.n));
   put3(out.v0_pt, i, lp.p);
   put3(out.v0_n, i, lp.n);
   put3(out.v0_beta, i, scale(lp.le, kPi / pdf0));
   out.v0_pdf[i] = pdf0;
   out.v0_light[i] = lp.li;
-  out.v0_mat[i] = row_i32(
-      sc.tri_f32 + static_cast<int64_t>(lp.tri) * sc.tri_cols, 76);
+  out.v0_mat[i] = record_mat(sc.shade, lp.tri);
   out.v0_tri[i] = lp.tri;
   float* st = out.start + 4 * i;
   st[0] = out_world.x;
@@ -421,13 +422,12 @@ __device__ __forceinline__ bool walk_bounce(const SceneRefs& sc,
     }
     return false;
   }
-  const ShadeHit s = shade_fetch(sc.tri_f32, sc.tri_cols, h.tri, h.u, h.v,
-                                 st.o, st.d, h.t);
-  const Mat& m = s.mat;
+  const ShadeHit s = shade_fetch(sc.shade, h.tri, h.u, h.v, st.o, st.d, h.t);
+  const Surf sm = surf_of(sc, s.mat_id, s.uv0, s.uv1);
+  const SurfHeld m = hold(sm);
   const V3 normal = s.normal;
-  const V3 wo_local = to_local(st.d, normal);  // incoming, z < 0
-  const V3 albedo = resolve_albedo(sc.textures, s);
-  const float trans = resolve_transmission(sc.textures, s);
+  const Frame fr = frame(normal);
+  const V3 wo_local = to_local(st.d, fr);  // incoming, z < 0
 
   const float d2 = fmaxf(length_sq(sub(s.point, st.prev_pt)), kRayEps);
   const float pdf_fwd_area = st.prev_pdf * fabsf(wo_local.z) / d2;
@@ -442,13 +442,14 @@ __device__ __forceinline__ bool walk_bounce(const SceneRefs& sc,
     bd.folded = fold_draws(p.key0, p.key1, static_cast<uint32_t>(depth),
                            st.id);
   }
-  const Sample bs = bsdf_sample(bd, m, albedo, neg(wo_local), s.backface,
-                                1.0f, trans, p.radiance);
-  const float pdf_rev_sa = bsdf_pdf(m, bs.wo, neg(wo_local), 1.0f, trans);
+  const Sample bs = bsdf_sample(bd, m, neg(wo_local), s.backface, 1.0f,
+                                p.radiance);
+  const float pdf_rev_sa = bsdf_pdf(m, bs.wo, neg(wo_local), 1.0f);
+  const bool is_specular = sm.is_specular();
 
   const float safe_fwd = fmaxf(pdf_fwd_area, 1e-20f);
   const MisState mv = mis_advance(
-      st.ms, depth == 1, pdf_fwd_area, g, pdf_rev_sa, m.is_specular,
+      st.ms, depth == 1, pdf_fwd_area, g, pdf_rev_sa, is_specular,
       1.0f / safe_fwd, st.first_vc * g / safe_fwd,
       p.use_vm ? st.first_vm * g / safe_fwd : 0.0f, p.use_vm, p.eta_vcm);
 
@@ -456,13 +457,13 @@ __device__ __forceinline__ bool walk_bounce(const SceneRefs& sc,
   store_vertex(out.bufs, st.j, i, s.point, normal, normalize(neg(st.d)),
                s.uv0, s.uv1, st.thr, pdf_fwd_area, mv.d_vcm, mv.d_vc,
                mv.d_vm,
-               pack_flags(m.is_specular, s.backface, s.light_ind, s.mat_id),
+               pack_flags(is_specular, s.backface, s.light_ind, s.mat_id),
                valid);
   ++st.j;
   if (!valid) return false;
   // continue the walk
   st.thr = scale(mul(st.thr, bs.f), fabsf(bs.wo.z) / fmaxf(bs.pdf, 1e-20f));
-  const V3 wi_world = normalize(to_world(bs.wo, normal));
+  const V3 wi_world = normalize(to_world(bs.wo, fr));
   const float side = dot(wi_world, normal) < 0.0f ? -1.0f : 1.0f;
   st.o = add(s.point, scale(normal, side * kRayEps));
   st.d = wi_world;
@@ -576,7 +577,8 @@ __device__ __forceinline__ void splat_vertex(const SceneRefs& sc,
   const float cos_cam = fabsf(dot(fwd, neg(to_cam_u)));
   if (!(cos_light > kEps)) return;
 
-  const V3 to_cam_local = to_local(to_cam_u, v.n);
+  const Frame fr = frame(v.n);
+  const V3 to_cam_local = to_local(to_cam_u, fr);
   const float d2 = fmaxf(length_sq(to_cam), kRayEps);
   const float pdf_trace_cam = cos_light / (d2 * p.plane_area * cube(cos_cam));
   V3 light_f;
@@ -585,13 +587,11 @@ __device__ __forceinline__ void splat_vertex(const SceneRefs& sc,
     light_f = v3(kInvPi, kInvPi, kInvPi);
     w_light = pdf_trace_cam / fmaxf(v.pdf_fwd, 1e-20f);
   } else {
-    const V3 to_prev_local = to_local(v.wo, v.n);
-    const Mat m = mat_of(sc, v.mat_id);
-    const V3 albedo = resolve_albedo(sc.textures, m, v.u, v.v);
-    const float trans = resolve_transmission(sc.textures, m, v.u, v.v);
-    light_f = bsdf_f(m, albedo, to_prev_local, to_cam_local, 1.0f, trans);
-    const float pdf_rev_sa =
-        bsdf_pdf(m, to_cam_local, to_prev_local, 1.0f, trans);
+    const V3 to_prev_local = to_local(v.wo, fr);
+    const BsdfEval ev = bsdf_eval<false, true>(
+        surf_of(sc, v.mat_id, v.u, v.v), to_prev_local, to_cam_local, 1.0f);
+    light_f = ev.f;
+    const float pdf_rev_sa = ev.pdf_rev;
     const float d_vcm = p.vcm ? p.eta_vcm + v.d_vcm : v.d_vcm;
     w_light = pdf_trace_cam * (d_vcm + pdf_rev_sa * v.d_vc);
   }
@@ -687,16 +687,12 @@ __device__ __forceinline__ V3 pair_term(const ConnectLaunch& c, int t,
     lv = load_vertex(c.in.light, slot - 1, i);
   }
   const Vertex ev = load_vertex(c.in.eye, t - 2, i);
-  const Mat me = mat_of(sc, ev.mat_id);
-  const V3 albedo_e = resolve_albedo(sc.textures, me, ev.u, ev.v);
-  const float trans_e = resolve_transmission(sc.textures, me, ev.u, ev.v);
   const Weighting& wt = p.weighting;
 
   if (nee) {  // s = 1
     const float num =
         static_cast<float>(sc.lights.count > 1 ? sc.lights.count : 1);
     const uint32_t id = static_cast<uint32_t>((c.py[i] << 14) + c.px[i]);
-    const V3 ptc_local = to_local(neg(ev.wo), ev.n);
     atomicAdd(c.rays + i, 1);
     const KeyDraws kk = fold_draws(p.key_c0, p.key_c1,
                                    static_cast<uint32_t>(t), id);
@@ -717,18 +713,18 @@ __device__ __forceinline__ V3 pair_term(const ConnectLaunch& c, int t,
     const float g = fminf(cos_light * cos_surf / d2, kMaxGNee);
     const float pdf_connect = (1.0f / num) / fmaxf(lp.area, 1e-20f);
     const float pdf_emit_sa = cos_light / kPi;
-    const V3 stl_local = to_local(stl_u, ev.n);
-    const V3 f = bsdf_f(me, albedo_e, neg(ptc_local), stl_local, 1.0f,
-                        trans_e);
-    const V3 contrib = scale(mul(mul(v3(sh.s0, sh.s1, sh.s2), f), lp.le),
+    const Frame fe = frame(ev.n);
+    const V3 ptc_local = to_local(neg(ev.wo), fe);
+    const V3 stl_local = to_local(stl_u, fe);
+    const BsdfEval be = bsdf_eval<true, true>(
+        surf_of(sc, ev.mat_id, ev.u, ev.v), neg(ptc_local), stl_local, 1.0f);
+    const V3 contrib = scale(mul(mul(v3(sh.s0, sh.s1, sh.s2), be.f), lp.le),
                              g / pdf_connect);
-    const float pdf_bsdf_sa =
-        bsdf_pdf(me, neg(ptc_local), stl_local, 1.0f, trans_e);
+    const float pdf_bsdf_sa = be.pdf;
     const float pdf_bsdf_area = pdf_bsdf_sa * fabsf(cos_light) / d2;
     const float w_light = pdf_bsdf_area / fmaxf(pdf_connect, 1e-20f);
     const float pdf_curr_rev_area = pdf_emit_sa * fabsf(stl_local.z) / d2;
-    const float pdf_prev_rev_sa =
-        bsdf_pdf(me, stl_local, neg(ptc_local), 1.0f, trans_e);
+    const float pdf_prev_rev_sa = be.pdf_rev;
     const float w_eye =
         pdf_curr_rev_area * (ev.d_vcm + pdf_prev_rev_sa * ev.d_vc);
     const float weight = 1.0f / (1.0f + w_light + w_eye);
@@ -751,36 +747,35 @@ __device__ __forceinline__ V3 pair_term(const ConnectLaunch& c, int t,
   if (c.rows != nullptr) atomicAdd(c.rows + i, sh.rows);
   if (!(max3(sh.s0, sh.s1, sh.s2) > 0.0f)) return zero;
 
-  const V3 l2e_loc_l = to_local(neg(e2l_u), lv.n);
-  const V3 to_l_from_prev_loc = to_local(neg(lv.wo), lv.n);
-  const V3 l2e_loc_e = to_local(neg(e2l_u), ev.n);
-  const V3 to_prev_loc_e = to_local(ev.wo, ev.n);
-  const Mat ml = mat_of(sc, lv.mat_id);
-  const V3 albedo_l = resolve_albedo(sc.textures, ml, lv.u, lv.v);
-  const float trans_l = resolve_transmission(sc.textures, ml, lv.u, lv.v);
+  const Frame fl = frame(lv.n), fe = frame(ev.n);
+  const V3 l2e_loc_l = to_local(neg(e2l_u), fl);
+  const V3 to_l_from_prev_loc = to_local(neg(lv.wo), fl);
+  const V3 l2e_loc_e = to_local(neg(e2l_u), fe);
+  const V3 to_prev_loc_e = to_local(ev.wo, fe);
+  // one evaluation a side: f_eval(A, B) is bsdf_f(-A, B), pdf_eval(A, B)
+  // bsdf_pdf(-A, B)
+  const BsdfEval bl =
+      bsdf_eval<true, true>(surf_of(sc, lv.mat_id, lv.u, lv.v), l2e_loc_l,
+                            neg(to_l_from_prev_loc), 1.0f);
+  const BsdfEval be =
+      bsdf_eval<true, true>(surf_of(sc, ev.mat_id, ev.u, ev.v),
+                            neg(l2e_loc_e), to_prev_loc_e, 1.0f);
 
-  // four reverse pdfs (pdf_eval(A, B) is bsdf_pdf(-A, B))
-  const float pdf_eye_rev_sa =
-      bsdf_pdf(ml, neg(to_l_from_prev_loc), l2e_loc_l, 1.0f, trans_l);
+  // four reverse pdfs
+  const float pdf_eye_rev_sa = bl.pdf_rev;
   const float pdf_eye_rev_area = pdf_eye_rev_sa * cos_e / d2;
-  const float pdf_bef_eye_rev_sa =
-      bsdf_pdf(me, neg(l2e_loc_e), to_prev_loc_e, 1.0f, trans_e);
-  const float pdf_light_rev_sa =
-      bsdf_pdf(me, to_prev_loc_e, neg(l2e_loc_e), 1.0f, trans_e);
+  const float pdf_bef_eye_rev_sa = be.pdf;
+  const float pdf_light_rev_sa = be.pdf_rev;
   const float pdf_light_rev_area = pdf_light_rev_sa * cos_l / d2;
-  const float pdf_bef_light_rev_sa =
-      bsdf_pdf(ml, l2e_loc_l, neg(to_l_from_prev_loc), 1.0f, trans_l);
+  const float pdf_bef_light_rev_sa = bl.pdf;
   const float w_eye =
       pdf_eye_rev_area * (ev.d_vcm + pdf_bef_eye_rev_sa * ev.d_vc);
   const float w_light =
       pdf_light_rev_area * (lv.d_vcm + pdf_bef_light_rev_sa * lv.d_vc);
   const float weight = 1.0f / (1.0f + w_eye + w_light);
 
-  // f_eval(A, B) is bsdf_f(-A, B)
-  const V3 f_eye =
-      bsdf_f(me, albedo_e, neg(l2e_loc_e), to_prev_loc_e, 1.0f, trans_e);
-  const V3 f_light = bsdf_f(ml, albedo_l, l2e_loc_l, neg(to_l_from_prev_loc),
-                            1.0f, trans_l);
+  const V3 f_eye = be.f;
+  const V3 f_light = bl.f;
   const float g = fminf(cos_e * cos_l / d2, kMaxGConnect);
   const V3 contrib =
       mul(scale(mul(mul(mul(ev.beta, lv.beta), f_eye), f_light), g),
@@ -916,7 +911,8 @@ inline bool walk_launch(const int64_t* ptrs, const int64_t* iv,
   w.sc.tri_cols = static_cast<int>(iv[1]);
   w.sc.lights.rows = dev_ptr<const float>(ptrs, 2);
   w.sc.lights.count = static_cast<int32_t>(iv[2]);
-  w.sc.mat_f32 = nullptr;
+  w.sc.mat_f32 = dev_ptr<const float>(ptrs, 35);
+  w.sc.shade = dev_ptr<const float4>(ptrs, 34);
   w.sc.textures = dev_ptr<const float>(ptrs, 3);
   w.px = dev_ptr<const int32_t>(ptrs, 4);
   w.py = dev_ptr<const int32_t>(ptrs, 5);
@@ -948,7 +944,8 @@ inline bool walk_launch(const int64_t* ptrs, const int64_t* iv,
   p.key_table = dev_ptr<const uint32_t>(ptrs, 29);
   w.engine = engine_refs(ptrs, 30, iv, 7, w.sc);
   o.start = dev_ptr<float>(ptrs, 33);
-  return (p.mode == kModeEye ? o.esc_valid != nullptr && o.esc_d != nullptr &&
+  return w.sc.shade != nullptr && w.sc.mat_f32 != nullptr &&
+         (p.mode == kModeEye ? o.esc_valid != nullptr && o.esc_d != nullptr &&
                                    o.esc_beta != nullptr
                              : p.mode == kModeLight && o.start != nullptr) &&
          p.max_depth >= 1 && w.engine >= 0 &&
@@ -991,6 +988,7 @@ inline bool splat_launch(const int64_t* ptrs, const int64_t* iv,
   s.sc.lights.rows = nullptr;
   s.sc.lights.count = 0;
   s.sc.mat_f32 = dev_ptr<const float>(ptrs, 2);
+  s.sc.shade = nullptr;  // the splat reads no shading record
   s.sc.textures = dev_ptr<const float>(ptrs, 3);
   s.lb = path_bufs(ptrs + 4, s.n, static_cast<int>(iv[2]));
   s.e.pt = dev_ptr<const float>(ptrs, 15);
@@ -1069,8 +1067,9 @@ inline bool connect_launch(const int64_t* ptrs, const int64_t* iv,
   c.rows = dev_ptr<int32_t>(ptrs, 36);
   c.engine = engine_refs(ptrs, 37, iv, 11, c.sc);
   c.terms = dev_ptr<float>(ptrs, 38);
-  return p.eye_depth >= 2 && p.light_depth >= 1 && c.engine >= 0 &&
-         c.terms != nullptr;
+  c.sc.shade = dev_ptr<const float4>(ptrs, 39);
+  return c.sc.shade != nullptr && p.eye_depth >= 2 && p.light_depth >= 1 &&
+         c.engine >= 0 && c.terms != nullptr;
 }
 
 }  // namespace tpt

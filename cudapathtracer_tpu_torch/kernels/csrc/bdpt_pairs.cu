@@ -24,11 +24,13 @@
 // H100: one pair a thread 58.8 ms on BVH8 and 82.3 threaded, all of a
 // pixel's 84.9 and 70.5; tools/eye_attribution.py --per). The rays and
 // rows are integer atomics, so their totals stay exact in any order.
-// ptxas (H100 build), at a minimum of 4 blocks of 128 threads an SM, the
-// count the threaded instantiation gets: 126 registers on BVH8, 122
-// threaded, no spills. A minimum of 3 blocks (143 registers) took 67.3 ms
-// a 1080p sample against 58.8 at 4 (H100, tools/eye_attribution.py --per
-// 1).
+// ptxas (H100 build), at a minimum of kMinBlocks blocks of 128 threads an
+// SM: 64 registers, spills cached. The shading code's fewer live values
+// (the material read by id, the fused evaluations) make the warps pay: a
+// 1080p sample 45.6 ms at 8, 45.2 at 10, 48.9 at 6, 50.8 at 5, 57.1 at 4
+// (128 registers; H100, tools/shade_attribution.py). A minimum of 3 blocks (143
+// registers) took 67.3 ms against 58.8 at 4 before (tools/eye_attribution
+// --per 1).
 
 #include <cuda_runtime.h>
 
@@ -39,11 +41,12 @@
 namespace {
 
 constexpr int kThreads = 128;
+constexpr int kMinBlocks = 8;
 
 // Thread (blockIdx.y, i) takes `per` consecutive pairs (t, slot) of pixel
 // i, from pair blockIdx.y * per in (t, slot) order.
 template <int kEngine>
-__global__ void __launch_bounds__(kThreads, 4)
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
     bdpt_pairs_kernel(tpt::ConnectLaunch c, int per) {
   const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x +
                     threadIdx.x;
@@ -61,7 +64,7 @@ __global__ void __launch_bounds__(kThreads, 4)
 // ptrs: table, tri_f32, light_f32, mat_f32, textures, px, py, the 11
 // eye-buffer fields, ev0_pt, esc_valid, esc_d, esc_beta, the 11
 // light-buffer fields, fb, out, rays, rows (0 = none), the threaded
-// tables (0 under BVH8), terms. iv: n, tri_cols, num_lights, eye_depth,
+// tables (0 under BVH8), terms, shade_table [T, 16]. iv: n, tri_cols, num_lights, eye_depth,
 // light_depth, naive, nee, connection, do_mis, paint_weight,
 // sample_environment, engine, bin nodes, bin slots, per (the pairs a
 // thread takes, a divisor of the (eye_depth - 1) x light_depth pairs of a

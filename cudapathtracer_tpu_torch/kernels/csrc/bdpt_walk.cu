@@ -64,13 +64,16 @@ constexpr int kThreads = 128;
 // Persistent: each thread steps one bounce of its path per loop trip and
 // takes the next path when it ends (persistent.cuh). counter: the next
 // path id, zero at the launch. lanes (nullable): the lane counters
-// (tpt::add_lane_counts), a bounce being an event. At least
-// five blocks a SM: ptxas then fits the BVH8 instantiation in 95
-// registers and the threaded one in 94, no spills, and the walks ran ~4%
-// faster than at one block a SM (tools/eye_attribution.py --walks). The
-// persistent grid is sized from what fits.
+// (tpt::add_lane_counts), a bounce being an event. At least kMinBlocks
+// blocks a SM: ptxas then fits the instantiations in 80 registers (spills
+// cached); at 5 (95 registers, no spills) the walks ran ~4% faster than
+// at one block a SM (tools/eye_attribution.py --walks), at 6 another 3-5%
+// (the hit's material read by id; 8 ties 6, 10 loses;
+// tools/shade_attribution.py). The persistent grid is sized from what
+// fits.
+constexpr int kMinBlocks = 6;
 template <int kEngine>
-__global__ void __launch_bounds__(kThreads, 5)
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
 bdpt_walk_kernel(tpt::WalkLaunch w, unsigned long long* __restrict__ counter,
                  unsigned long long* __restrict__ lanes) {
   int32_t events = 0, calls = 0;
@@ -131,7 +134,8 @@ int resident_grid(int engine, int64_t n, unsigned& blocks) {
 // key_table (0: the folded mode), the threaded tables (0 under BVH8), the
 // path counter (8 bytes of device memory a stream: launches that share it
 // must be ordered), lanes (0, or three u64 as the kernel's), start (the light
-// walk's [N,4] f32 scratch; 0 for the eye walk).
+// walk's [N,4] f32 scratch; 0 for the eye walk), shade_table [T, 16],
+// mat_f32 [M, 26].
 // iv: n, tri_cols, num_lights, mode (0 eye, 1 light), max_depth, radiance,
 // use_vm, engine, bin nodes, bin slots (the table mode takes BVH8 only),
 // blocks (0: the resident grid; a test argument). fv: the 19 camera floats,

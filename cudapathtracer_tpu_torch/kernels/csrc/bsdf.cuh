@@ -15,13 +15,23 @@
 // Bound: arithmetic (a few hundred flops per lobe, a handful of
 // transcendentals) plus, for textured materials, four scattered 12-byte
 // texel reads; per path it is small beside the traversal.
-// Design: each lobe is a plain function of registers; the uniforms a sample
-// needs are drawn lazily through the caller's draw functor, so a lobe that
-// needs two draws pays for two Threefry calls.
+// Design: each lobe is a plain function of registers. The material is a
+// Surf (its row of mat_f32 and the hit's uv), read field by field after the
+// switch on its type, so a hit carries two words of it and each lobe loads
+// only the fields it reads; the texture lookups run in the lobes that read
+// albedo or transmission (diffuse, leaf). A SurfHeld holds the fields in
+// registers instead (a vertex evaluated against many directions, as a
+// merge query's photons). bsdf_eval is one evaluation of f(wi, wo) and the
+// pdfs of both directions that shares the half vector and D between them
+// (the merge term, NEE and the connections take all three). The uniforms
+// a sample needs are drawn lazily through the caller's draw functor, so a
+// lobe that needs two draws pays for two Threefry calls.
 //
 // Arithmetic follows ops/bsdf.py operation for operation (the file is built
 // with -fmad=false); sqrtf and division are correctly rounded, sinf, cosf
-// and expf are CUDA's (not the fast intrinsics).
+// and expf are CUDA's (not the fast intrinsics). A shared term is the value
+// each separate function computes by the same operations, so bsdf_eval
+// equals bsdf_f and bsdf_pdf bit for bit.
 #pragma once
 
 #include <cstdint>
@@ -75,27 +85,104 @@ __device__ __forceinline__ V3 sample_texture(const float* __restrict__ tex,
   return v3(out[0], out[1], out[2]);
 }
 
-__device__ __forceinline__ V3 resolve_albedo(const float* __restrict__ tex,
-                                             const Mat& m, float u, float v) {
-  if (m.tex_start < 0) return m.albedo;
-  return sample_texture(tex, m.tex_start, m.tex_width, m.tex_height, u, v);
+// The material of a hit or a stored vertex: its row of mat_f32 (fields in
+// the layout of scene/scene.py mat_f32: type 0, albedo 1:4, roughness 4,
+// eta 5:8, k 8:11, ior 11, transmission 12, is_specular 13, boundary 14,
+// priority 19, tex start/w/h 20:23, trans_tex start/w/h 23:26), read at
+// each use, and its uv, at which albedo() and trans() look its textures up.
+struct Surf {
+  const float* m;    // mat_f32 + 26 * mat_id
+  const float* tex;  // the texture atlas [A, 3]
+  float u, v;
+  __device__ __forceinline__ int32_t type() const { return row_i32(m, 0); }
+  __device__ __forceinline__ float roughness() const { return __ldg(m + 4); }
+  __device__ __forceinline__ V3 eta() const { return row_v3(m, 5); }
+  __device__ __forceinline__ V3 k() const { return row_v3(m, 8); }
+  __device__ __forceinline__ float ior() const { return __ldg(m + 11); }
+  __device__ __forceinline__ bool is_specular() const {
+    return row_i32(m, 13) != 0;
+  }
+  __device__ __forceinline__ bool boundary() const {
+    return row_i32(m, 14) != 0;
+  }
+  __device__ __forceinline__ int32_t priority() const {
+    return row_i32(m, 19);
+  }
+  // resolve_albedo: the albedo map at (u, v), else the constant
+  __device__ __forceinline__ V3 albedo() const {
+    const int32_t start = row_i32(m, 20);
+    if (start < 0) return row_v3(m, 1);
+    return sample_texture(tex, start, row_i32(m, 21), row_i32(m, 22), u, v);
+  }
+  // resolve_transmission: the map's red channel, else the constant
+  __device__ __forceinline__ float trans() const {
+    const int32_t start = row_i32(m, 23);
+    if (start < 0) return __ldg(m + 12);
+    return sample_texture(tex, start, row_i32(m, 24), row_i32(m, 25), u, v)
+        .x;
+  }
+};
+
+__device__ __forceinline__ Surf surf(const float* mat_f32,
+                                     const float* tex, int32_t mat_id,
+                                     float u, float v) {
+  Surf s;
+  s.m = mat_f32 + kMatCols * static_cast<int64_t>(mat_id);
+  s.tex = tex;
+  s.u = u;
+  s.v = v;
+  return s;
 }
 
-__device__ __forceinline__ V3 resolve_albedo(const float* __restrict__ tex,
-                                             const ShadeHit& s) {
-  return resolve_albedo(tex, s.mat, s.uv0, s.uv1);
+// The fields a lobe reads, in registers, with albedo and transmission
+// already resolved (the eye passes' records hold them).
+struct SurfHeld {
+  int32_t type_;
+  float roughness_, ior_, trans_;
+  V3 eta_, k_, albedo_;
+  __device__ __forceinline__ int32_t type() const { return type_; }
+  __device__ __forceinline__ float roughness() const { return roughness_; }
+  __device__ __forceinline__ V3 eta() const { return eta_; }
+  __device__ __forceinline__ V3 k() const { return k_; }
+  __device__ __forceinline__ float ior() const { return ior_; }
+  __device__ __forceinline__ V3 albedo() const { return albedo_; }
+  __device__ __forceinline__ float trans() const { return trans_; }
+};
+
+// A hit's lobe fields, read once from its row (one batch of L1 loads, not
+// one a use) for the event's evaluations, which all come before its shadow
+// ray, so nothing of them lives across it. The texture lookups run only
+// for lobes that read albedo (diffuse, leaf, the default's Lambertian
+// sample) or transmission (leaf), or with all (the eye passes' records
+// store both).
+__device__ __forceinline__ SurfHeld hold(const Surf& s, bool all = false) {
+  SurfHeld h;
+  h.type_ = s.type();
+  h.roughness_ = s.roughness();
+  h.eta_ = s.eta();
+  h.k_ = s.k();
+  h.ior_ = s.ior();
+  const bool albedo = all || (h.type_ != kMatMetal &&
+                              h.type_ != kMatSmoothDielectric &&
+                              h.type_ != kMatDeltaMirror);
+  h.albedo_ = albedo ? s.albedo() : v3(0.0f, 0.0f, 0.0f);
+  h.trans_ = all || h.type_ == kMatLeaf ? s.trans() : 0.0f;
+  return h;
 }
 
-__device__ __forceinline__ float resolve_transmission(
-    const float* __restrict__ tex, const Mat& m, float u, float v) {
-  if (m.trans_tex_start < 0) return m.transmission;
-  return sample_texture(tex, m.trans_tex_start, m.trans_tex_width,
-                        m.trans_tex_height, u, v).x;
-}
-
-__device__ __forceinline__ float resolve_transmission(
-    const float* __restrict__ tex, const ShadeHit& s) {
-  return resolve_transmission(tex, s.mat, s.uv0, s.uv1);
+__device__ __forceinline__ SurfHeld surf_held(const float* mat_f32,
+                                              int32_t mat_id, V3 albedo,
+                                              float trans) {
+  const float* m = mat_f32 + kMatCols * static_cast<int64_t>(mat_id);
+  SurfHeld s;
+  s.type_ = row_i32(m, 0);
+  s.roughness_ = __ldg(m + 4);
+  s.eta_ = row_v3(m, 5);
+  s.k_ = row_v3(m, 8);
+  s.ior_ = __ldg(m + 11);
+  s.albedo_ = albedo;
+  s.trans_ = trans;
+  return s;
 }
 
 // ---- Fresnel --------------------------------------------------------------
@@ -170,28 +257,51 @@ __device__ __forceinline__ V3 ggx_sample_h(float u1, float u2, float alpha) {
 
 __device__ __forceinline__ V3 upper(V3 h) { return h.z <= 0.0f ? neg(h) : h; }
 
-__device__ __forceinline__ V3 metal_f(V3 eta, V3 k, float roughness, V3 wi,
-                                      V3 wo) {
+// The half vector normalize(wi + wo) and its GGX D at alpha = roughness^2:
+// the terms f and both pdfs of one direction pair share (D of upper(h)
+// equals D of h: d_ggx reads h.z squared).
+struct HalfD {
+  V3 hn;
+  float d;
+};
+
+__device__ __forceinline__ HalfD half_d(V3 wi, V3 wo, float roughness) {
+  HalfD x;
+  x.hn = normalize(add(wi, wo));
+  x.d = d_ggx(x.hn.z, roughness * roughness);
+  return x;
+}
+
+__device__ __forceinline__ V3 metal_f_hd(V3 eta, V3 k, float roughness, V3 wi,
+                                         V3 wo, const HalfD& x) {
   if (!(wi.z > 0.0f && wo.z > 0.0f)) return v3(0.0f, 0.0f, 0.0f);
-  const V3 h = upper(normalize(add(wi, wo)));
+  const V3 h = upper(x.hn);
   const float alpha = roughness * roughness;
-  const float d = d_ggx(h.z, alpha);
   const float g = g_smith(wi.z, wo.z, alpha);
   const float c = dot(wi, h);
   const float denom = fmaxf(4.0f * wi.z * wo.z, kEps);
-  const float dg = d * g / denom;
+  const float dg = x.d * g / denom;
   return v3(dg * fresnel_conductor1(c, eta.x, k.x),
             dg * fresnel_conductor1(c, eta.y, k.y),
             dg * fresnel_conductor1(c, eta.z, k.z));
 }
 
-// D * h.z / (4 dot(wo, h)), the denominator's magnitude clamped.
-__device__ __forceinline__ float metal_pdf(float roughness, V3 wi, V3 wo) {
-  const V3 h = normalize(add(wi, wo));
-  const float d = d_ggx(h.z, roughness * roughness);
-  const float denom = 4.0f * dot(wo, h);
+__device__ __forceinline__ V3 metal_f(V3 eta, V3 k, float roughness, V3 wi,
+                                      V3 wo) {
+  if (!(wi.z > 0.0f && wo.z > 0.0f)) return v3(0.0f, 0.0f, 0.0f);
+  return metal_f_hd(eta, k, roughness, wi, wo, half_d(wi, wo, roughness));
+}
+
+// D * h.z / (4 dot(wo, h)), the denominator's magnitude clamped; the pdf
+// of the reverse pair (wo, wi) is metal_pdf_hd(x, wi) (the same h).
+__device__ __forceinline__ float metal_pdf_hd(const HalfD& x, V3 wo) {
+  const float denom = 4.0f * dot(wo, x.hn);
   const float sign = denom >= 0.0f ? 1.0f : -1.0f;
-  return d * h.z / (sign * fmaxf(fabsf(denom), 1e-8f));
+  return x.d * x.hn.z / (sign * fmaxf(fabsf(denom), 1e-8f));
+}
+
+__device__ __forceinline__ float metal_pdf(float roughness, V3 wi, V3 wo) {
+  return metal_pdf_hd(half_d(wi, wo, roughness), wo);
 }
 
 __device__ __forceinline__ float mirror_f(V3 wo) {
@@ -236,18 +346,18 @@ __device__ __forceinline__ Sample dielectric_sample(float u, V3 wi, float ior,
 
 // ---- layered leaf ---------------------------------------------------------
 
-__device__ __forceinline__ V3 leaf_f(V3 albedo, float ior, float curr_ior,
-                                     float roughness, float transmission,
-                                     V3 wi, V3 wo) {
+// x: half_d(wi, wo, roughness), read only when wo and wi lie on one side.
+__device__ __forceinline__ V3 leaf_f_hd(V3 albedo, float ior, float curr_ior,
+                                        float roughness, float transmission,
+                                        V3 wi, V3 wo, const HalfD& x) {
   const V3 diffuse = scale(albedo, kInvPi);
   if (wo.z * wi.z > 0.0f) {
-    const V3 h = upper(normalize(add(wi, wo)));
+    const V3 h = upper(x.hn);
     const float mf = fresnel_schlick(dot(wi, h), curr_ior, ior);
     const float alpha = roughness * roughness;
-    const float d = d_ggx(h.z, alpha);
     const float g = g_smith(wi.z, wo.z, alpha);
     const float denom = fmaxf(4.0f * wi.z * wo.z, kEps);
-    const float cuticle = d * g * mf / denom;
+    const float cuticle = x.d * g * mf / denom;
     const float w = (1.0f - mf) * (1.0f - transmission);
     return v3(w * diffuse.x + cuticle, w * diffuse.y + cuticle,
               w * diffuse.z + cuticle);
@@ -256,19 +366,42 @@ __device__ __forceinline__ V3 leaf_f(V3 albedo, float ior, float curr_ior,
   return scale(diffuse, transmission * (1.0f - fres));
 }
 
-__device__ __forceinline__ float leaf_pdf(float ior, float curr_ior,
-                                          float roughness, float transmission,
-                                          V3 wi, V3 wo) {
+__device__ __forceinline__ float leaf_pdf_hd(float ior, float curr_ior,
+                                             float roughness,
+                                             float transmission, V3 wi, V3 wo,
+                                             const HalfD& x) {
   float fres = fresnel_schlick(fabsf(wi.z), curr_ior, ior);
   fres = fminf(fres, 1.0f - 0.1f * roughness);
   if (wo.z * wi.z > 0.0f) {
     const float p_spec = fres;
     const float p_diff_refl = (1.0f - fres) * (1.0f - transmission);
-    return p_spec * metal_pdf(roughness, wi, wo) +
-           p_diff_refl * cosine_pdf(wo);
+    return p_spec * metal_pdf_hd(x, wo) + p_diff_refl * cosine_pdf(wo);
   }
   const float p_diff_trans = (1.0f - fres) * transmission;
   return cosine_pdf(neg(wo)) * p_diff_trans;
+}
+
+// half_d where a leaf lobe reads it (wo and wi on one side), else unused.
+__device__ __forceinline__ HalfD leaf_half_d(V3 wi, V3 wo, float roughness) {
+  if (wo.z * wi.z > 0.0f) return half_d(wi, wo, roughness);
+  HalfD x;
+  x.hn = v3(0.0f, 0.0f, 1.0f);
+  x.d = 0.0f;
+  return x;
+}
+
+__device__ __forceinline__ V3 leaf_f(V3 albedo, float ior, float curr_ior,
+                                     float roughness, float transmission,
+                                     V3 wi, V3 wo) {
+  return leaf_f_hd(albedo, ior, curr_ior, roughness, transmission, wi, wo,
+                   leaf_half_d(wi, wo, roughness));
+}
+
+__device__ __forceinline__ float leaf_pdf(float ior, float curr_ior,
+                                          float roughness, float transmission,
+                                          V3 wi, V3 wo) {
+  return leaf_pdf_hd(ior, curr_ior, roughness, transmission, wi, wo,
+                     leaf_half_d(wi, wo, roughness));
 }
 
 __device__ __forceinline__ Sample leaf_sample(float u_sel, float u_t,
@@ -292,15 +425,17 @@ __device__ __forceinline__ Sample leaf_sample(float u_sel, float u_t,
 
 // ---- dispatch -------------------------------------------------------------
 
-__device__ __forceinline__ V3 bsdf_f(const Mat& m, V3 albedo, V3 wi, V3 wo,
-                                     float eta_i, float transmission) {
-  switch (m.type) {
+// S: Surf or SurfHeld.
+template <class S>
+__device__ __forceinline__ V3 bsdf_f(const S& m, V3 wi, V3 wo, float eta_i) {
+  switch (m.type()) {
     case kMatDiffuse:
-      return scale(albedo, kInvPi);
+      return scale(m.albedo(), kInvPi);
     case kMatMetal:
-      return metal_f(m.eta, m.k, m.roughness, wi, wo);
+      return metal_f(m.eta(), m.k(), m.roughness(), wi, wo);
     case kMatLeaf:
-      return leaf_f(albedo, m.ior, eta_i, m.roughness, transmission, wi, wo);
+      return leaf_f(m.albedo(), m.ior(), eta_i, m.roughness(), m.trans(), wi,
+                    wo);
     case kMatDeltaMirror: {
       const float f = mirror_f(wo);
       return v3(f, f, f);
@@ -310,15 +445,16 @@ __device__ __forceinline__ V3 bsdf_f(const Mat& m, V3 albedo, V3 wi, V3 wo,
   }
 }
 
-__device__ __forceinline__ float bsdf_pdf(const Mat& m, V3 wi, V3 wo,
-                                          float eta_i, float transmission) {
-  switch (m.type) {
+template <class S>
+__device__ __forceinline__ float bsdf_pdf(const S& m, V3 wi, V3 wo,
+                                          float eta_i) {
+  switch (m.type()) {
     case kMatDiffuse:
       return cosine_pdf(wo);
     case kMatMetal:
-      return metal_pdf(m.roughness, wi, wo);
+      return metal_pdf(m.roughness(), wi, wo);
     case kMatLeaf:
-      return leaf_pdf(m.ior, eta_i, m.roughness, transmission, wi, wo);
+      return leaf_pdf(m.ior(), eta_i, m.roughness(), m.trans(), wi, wo);
     case kMatDeltaMirror:
       return 1.0f;
     default:
@@ -326,31 +462,80 @@ __device__ __forceinline__ float bsdf_pdf(const Mat& m, V3 wi, V3 wo,
   }
 }
 
+// f(wi, wo), pdf(wi, wo) (with kFwd) and pdf(wo, wi) (with kRev) of one
+// lobe in one evaluation: bsdf_f, bsdf_pdf(wi, wo) and bsdf_pdf(wo, wi)
+// bit for bit, the half vector, D and the lobe's fields read once.
+struct BsdfEval {
+  V3 f;
+  float pdf, pdf_rev;
+};
+
+template <bool kFwd, bool kRev, class S>
+__device__ __forceinline__ BsdfEval bsdf_eval(const S& m, V3 wi, V3 wo,
+                                              float eta_i) {
+  BsdfEval e;
+  e.f = v3(0.0f, 0.0f, 0.0f);
+  e.pdf = e.pdf_rev = 0.0f;
+  switch (m.type()) {
+    case kMatDiffuse:
+      e.f = scale(m.albedo(), kInvPi);
+      if (kFwd) e.pdf = cosine_pdf(wo);
+      if (kRev) e.pdf_rev = cosine_pdf(wi);
+      break;
+    case kMatMetal: {
+      const float r = m.roughness();
+      const HalfD x = half_d(wi, wo, r);
+      e.f = metal_f_hd(m.eta(), m.k(), r, wi, wo, x);
+      if (kFwd) e.pdf = metal_pdf_hd(x, wo);
+      if (kRev) e.pdf_rev = metal_pdf_hd(x, wi);
+      break;
+    }
+    case kMatLeaf: {
+      const float r = m.roughness(), ior = m.ior(), tr = m.trans();
+      const HalfD x = leaf_half_d(wi, wo, r);
+      e.f = leaf_f_hd(m.albedo(), ior, eta_i, r, tr, wi, wo, x);
+      if (kFwd) e.pdf = leaf_pdf_hd(ior, eta_i, r, tr, wi, wo, x);
+      if (kRev) e.pdf_rev = leaf_pdf_hd(ior, eta_i, r, tr, wo, wi, x);
+      break;
+    }
+    case kMatDeltaMirror: {
+      const float f = mirror_f(wo);
+      e.f = v3(f, f, f);
+      e.pdf = e.pdf_rev = 1.0f;
+      break;
+    }
+    default:
+      break;
+  }
+  return e;
+}
+
 // Sample wo for one path; draw(k) returns the uniform of draw base + k
 // (0: u_sel, 1: u_t, 2: u1, 3: u2). Types without a lobe of their own
 // sample the Lambertian lobe, as the plain dispatch's default does.
 // radiance: false for importance transport (the BDPT light walk).
-template <class Draw>
-__device__ __forceinline__ Sample bsdf_sample(const Draw& draw, const Mat& m,
-                                              V3 albedo, V3 wi, bool backface,
-                                              float eta_i, float transmission,
+template <class Draw, class S>
+__device__ __forceinline__ Sample bsdf_sample(const Draw& draw, const S& m,
+                                              V3 wi, bool backface,
+                                              float eta_i,
                                               bool radiance = true) {
-  switch (m.type) {
+  switch (m.type()) {
     case kMatMetal: {
-      const V3 h = ggx_sample_h(draw(2), draw(3), m.roughness * m.roughness);
+      const float r = m.roughness();
+      const V3 h = ggx_sample_h(draw(2), draw(3), r * r);
       V3 wo = sub(scale(h, 2.0f * dot(wi, h)), wi);
       if (wo.z <= 0.0f) wo.z = -wo.z;
       Sample s;
       s.wo = wo;
-      s.f = metal_f(m.eta, m.k, m.roughness, wi, wo);
-      s.pdf = metal_pdf(m.roughness, wi, wo);
+      s.f = metal_f(m.eta(), m.k(), r, wi, wo);
+      s.pdf = metal_pdf(r, wi, wo);
       return s;
     }
     case kMatSmoothDielectric:
-      return dielectric_sample(draw(0), wi, m.ior, backface, radiance);
+      return dielectric_sample(draw(0), wi, m.ior(), backface, radiance);
     case kMatLeaf:
-      return leaf_sample(draw(0), draw(1), draw(2), draw(3), wi, m.ior,
-                         eta_i, m.roughness, albedo, transmission);
+      return leaf_sample(draw(0), draw(1), draw(2), draw(3), wi, m.ior(),
+                         eta_i, m.roughness(), m.albedo(), m.trans());
     case kMatDeltaMirror: {
       Sample s;
       s.wo = v3(-wi.x, -wi.y, wi.z);
@@ -362,7 +547,7 @@ __device__ __forceinline__ Sample bsdf_sample(const Draw& draw, const Mat& m,
     default: {
       Sample s;
       s.wo = cosine_sample(draw(2), draw(3));
-      s.f = scale(albedo, kInvPi);
+      s.f = scale(m.albedo(), kInvPi);
       s.pdf = cosine_pdf(s.wo);
       return s;
     }

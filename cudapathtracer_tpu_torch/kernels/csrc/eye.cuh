@@ -20,7 +20,7 @@
 //    (implicit holds the sky term at the depth where the walk escaped), and
 //    writes the vertex record [D,N] that the other stages read: pos, the
 //    shade normal, to_prev, thr, albedo, transmission, the material id
-//    (mat_f32's row is the shade row's material, bit for bit), d_vcm,
+//    (its row of mat_f32 is the material, read by id), d_vcm,
 //    d_vc, d_vm and the flags (kRec*). A hit writes every field; an escape
 //    its flags and the sky term; a depth the walk did not reach only its
 //    flags, 0: no stage reads more of them.
@@ -76,23 +76,22 @@ struct EyeRecs {
   int64_t stride;   // N
 };
 
+// Every field of a hit's record but nee (stored after NEE's shadow ray).
 __device__ __forceinline__ void store_record(const EyeRecs& r, int64_t k,
                                              const EyeVertex& e,
-                                             int32_t mat_id, int32_t flags,
-                                             V3 implicit, V3 nee) {
+                                             int32_t flags, V3 implicit) {
   put3(r.pos, k, e.pos);
   put3(r.n, k, e.n);
   put3(r.to_prev, k, e.to_prev);
   put3(r.thr, k, e.thr);
   put3(r.albedo, k, e.albedo);
   r.trans[k] = e.trans;
-  r.mat_id[k] = mat_id;
+  r.mat_id[k] = e.mat_id;
   r.d_vcm[k] = e.d_vcm;
   r.d_vc[k] = e.d_vc;
   r.d_vm[k] = e.d_vm;
   r.flags[k] = flags;
   put3(r.implicit, k, implicit);
-  put3(r.nee, k, nee);
 }
 
 // The record of a depth the walk escaped at: its flags and the sky term;
@@ -103,8 +102,7 @@ __device__ __forceinline__ void store_escape(const EyeRecs& r, int64_t k,
   put3(r.implicit, k, sky);
 }
 
-__device__ __forceinline__ EyeVertex load_record(const SceneRefs& sc,
-                                                 const EyeRecs& r,
+__device__ __forceinline__ EyeVertex load_record(const EyeRecs& r,
                                                  int64_t k) {
   EyeVertex e;
   e.pos = get3(r.pos, k);
@@ -116,7 +114,7 @@ __device__ __forceinline__ EyeVertex load_record(const SceneRefs& sc,
   e.d_vcm = r.d_vcm[k];
   e.d_vc = r.d_vc[k];
   e.d_vm = r.d_vm[k];
-  e.m = mat_of(sc, r.mat_id[k]);
+  e.mat_id = r.mat_id[k];
   return e;
 }
 
@@ -182,17 +180,20 @@ __device__ __forceinline__ void eye_walk_one(const EyeLaunch& c, int64_t i) {
                                  : zero);
       break;
     }
-    const ShadeHit s =
-        shade_fetch(sc.tri_f32, sc.tri_cols, h.tri, h.u, h.v, o, d, h.t);
+    const ShadeHit s = shade_fetch(sc.shade, h.tri, h.u, h.v, o, d, h.t);
+    const Surf sm = surf_of(sc, s.mat_id, s.uv0, s.uv1);
+    const Frame fr = frame(s.normal);
     EyeVertex e;
-    e.m = s.mat;
+    e.mat_id = s.mat_id;
     e.pos = s.point;
     e.n = s.normal;
     e.thr = thr;
-    const V3 wo_local = to_local(d, e.n);
-    e.albedo = resolve_albedo(sc.textures, s);
-    e.trans = resolve_transmission(sc.textures, s);
-    const bool cur_delta = e.m.is_specular;
+    const V3 wo_local = to_local(d, fr);
+    // the lobe's fields, the record's albedo and transmission resolved
+    const SurfHeld m = hold(sm, true);
+    e.albedo = m.albedo();
+    e.trans = m.trans();
+    const bool cur_delta = sm.is_specular();
 
     const float d2p = fmaxf(length_sq(sub(e.pos, prev_pt)), kRayEps);
     const float pdf_fwd_area = prev_pdf * fabsf(wo_local.z) / d2p;
@@ -201,15 +202,13 @@ __device__ __forceinline__ void eye_walk_one(const EyeLaunch& c, int64_t i) {
     Sample bs;
     KeyDraws bd;
     if constexpr (kMega) {
-      bs = bsdf_sample(TableDraws{p.bsdf_keys, did}, e.m, e.albedo,
-                       neg(wo_local), s.backface, 1.0f, e.trans, true);
+      bs = bsdf_sample(TableDraws{p.bsdf_keys, did}, m, neg(wo_local),
+                       s.backface, 1.0f, true);
     } else {
       bd = fold_draws(p.key_e0, p.key_e1, static_cast<uint32_t>(depth), id);
-      bs = bsdf_sample(bd, e.m, e.albedo, neg(wo_local), s.backface, 1.0f,
-                       e.trans, true);
+      bs = bsdf_sample(bd, m, neg(wo_local), s.backface, 1.0f, true);
     }
-    const float pdf_rev_sa = bsdf_pdf(e.m, bs.wo, neg(wo_local), 1.0f,
-                                      e.trans);
+    const float pdf_rev_sa = bsdf_pdf(m, bs.wo, neg(wo_local), 1.0f);
     const bool valid = bs.pdf >= kEps;
     const MisState mv = mis_advance(
         ms, depth == 0, pdf_fwd_area, g, pdf_rev_sa, cur_delta,
@@ -219,47 +218,55 @@ __device__ __forceinline__ void eye_walk_one(const EyeLaunch& c, int64_t i) {
     e.d_vm = mv.d_vm;
     e.to_prev = normalize(sub(prev_pt, e.pos));
 
-    V3 s0 = zero, ne = zero;
-    if (valid && !cur_delta) {
-      // s = 0: the eye walk hit a light
-      if (p.naive && s.light_ind >= 0 && !s.backface) {
-        if constexpr (kBdpt)
-          s0 = implicit_bdpt(sc, p, s.light_ind, e, prev_pt, prev_delta,
-                             depth);
-        else
-          s0 = implicit_vcm(sc, wt, s.light_ind, e, prev_delta, depth);
-      }
-      // s = 1: NEE
-      if (p.nee && sc.lights.count > 0) {
-        if constexpr (kMega) {
-          EyeVertex ec = e;  // the normal toward the previous vertex
-          if (dot(e.n, e.to_prev) < 0.0f) ec.n = neg(e.n);
-          ne = nee_mega<kBdpt>(sc, p, ec, did, rays, rows);
-        } else {
-          ne = nee_vcm<kEngine>(sc, wt, p.eta_vcm, e, bd, id,
-                                to_local(sub(e.pos, prev_pt), e.n), rays,
-                                rows);
-        }
-      }
+    V3 s0 = zero;
+    const bool strategies = valid && !cur_delta;
+    // s = 0: the eye walk hit a light
+    if (strategies && p.naive && s.light_ind >= 0 && !s.backface) {
+      if constexpr (kBdpt)
+        s0 = implicit_bdpt(sc, p, s.light_ind, e, prev_pt, prev_delta,
+                           depth);
+      else
+        s0 = implicit_vcm(sc, wt, s.light_ind, e, prev_delta, depth);
     }
     // SPPM ends the walk after its first non-delta surface
     const bool stop = !valid || (p.sppm && p.merge && !cur_delta);
     const int32_t flags = (valid ? kRecValid : 0) |
                           (cur_delta ? 0 : kRecNonDelta) |
                           (stop || depth + 1 == p.eye_depth ? kRecEnd : 0);
-    store_record(c.rec, k, e, s.mat_id, flags, s0, ne);
+    store_record(c.rec, k, e, flags, s0);
+    // NEE's inputs from the walk's state at this vertex, then the walk
+    // advances, so that only NEE's own terms live across its shadow ray
+    const bool do_nee = strategies && p.nee && sc.lights.count > 0;
+    const V3 ptc_local =
+        !kMega && do_nee ? to_local(sub(e.pos, prev_pt), fr) : zero;
+    if (!stop) {
+      thr = scale(mul(thr, bs.f), fabsf(bs.wo.z) / fmaxf(bs.pdf, 1e-20f));
+      const V3 wi_world = normalize(to_world(bs.wo, fr));
+      const float side = dot(wi_world, e.n) < 0.0f ? -1.0f : 1.0f;
+      o = add(e.pos, scale(e.n, side * kRayEps));
+      d = wi_world;
+      prev_pdf = bs.pdf;
+      prev_cos = fabsf(bs.wo.z);
+      prev_pt = e.pos;
+      prev_delta = cur_delta;
+    }
+    // s = 1: NEE
+    V3 ne = zero;
+    if (do_nee) {
+      if constexpr (kMega) {
+        // the normal toward the previous vertex, and its frame
+        const bool flip = dot(e.n, e.to_prev) < 0.0f;
+        EyeVertex ec = e;
+        if (flip) ec.n = neg(e.n);
+        ne = nee_mega<kBdpt>(sc, p, ec, flip ? frame(ec.n) : fr, m, did,
+                             rays, rows);
+      } else {
+        ne = nee_vcm<kEngine>(sc, wt, p.eta_vcm, e, fr, m, bd, id,
+                              ptc_local, rays, rows);
+      }
+    }
+    put3(c.rec.nee, k, ne);
     if (stop) break;
-
-    // continue the walk
-    thr = scale(mul(thr, bs.f), fabsf(bs.wo.z) / fmaxf(bs.pdf, 1e-20f));
-    const V3 wi_world = normalize(to_world(bs.wo, e.n));
-    const float side = dot(wi_world, e.n) < 0.0f ? -1.0f : 1.0f;
-    o = add(e.pos, scale(e.n, side * kRayEps));
-    d = wi_world;
-    prev_pdf = bs.pdf;
-    prev_cos = fabsf(bs.wo.z);
-    prev_pt = e.pos;
-    prev_delta = cur_delta;
   }
   for (int t = written; t < p.eye_depth; ++t)
     c.rec.flags[t * c.rec.stride + i] = 0;  // not reached: only the flags
@@ -280,7 +287,7 @@ __device__ __forceinline__ void eye_connect_one(const EyeLaunch& c, int t,
   V3 out = v3(0.0f, 0.0f, 0.0f);
   const int64_t kl = j * c.light.n + i;
   if (c.light.valid[kl] && !unpack_flags(c.light.flags[kl]).is_delta) {
-    EyeVertex e = load_record(c.sc, c.rec, k);
+    EyeVertex e = load_record(c.rec, k);
     if (kMega && dot(e.n, e.to_prev) < 0.0f) e.n = neg(e.n);
     const Vertex lv = load_vertex(c.light, j, i);
     ConnRay cr;
@@ -328,8 +335,8 @@ __device__ __forceinline__ void eye_gather_one(const EyeLaunch& c,
     if ((f & kRecConn) == kRecConn) {
       li = add(li, get3(c.rec.implicit, k));
       if (kMega && merge) {
-        const EyeVertex e = load_record(c.sc, c.rec, k);
-        li = add(li, merge_mega(p, c.grid, e, dropped));
+        const EyeVertex e = load_record(c.rec, k);
+        li = add(li, merge_mega(p, c.grid, e, held_of(c.sc, e), dropped));
       }
       li = add(li, get3(c.rec.nee, k));
       if (conns)
@@ -337,14 +344,17 @@ __device__ __forceinline__ void eye_gather_one(const EyeLaunch& c,
           li = add(li, get3(c.conn, (static_cast<int64_t>(t) * p.light_rows +
                                      j) * n + i));
       if (!kMega && merge) {
-        const EyeVertex e = load_record(c.sc, c.rec, k);
-        const V3 prev_loc = to_local(e.to_prev, e.n);
+        // the vertex resolved once a query: its lobe, frame and to_prev
+        const EyeVertex e = load_record(c.rec, k);
+        const SurfHeld m = held_of(c.sc, e);
+        const Frame fe = frame(e.n);
+        const V3 prev_loc = to_local(e.to_prev, fe);
         const float eta = fmaxf(p.eta_vcm, 1e-30f);
         const Weighting& wt = p.weighting;
         dropped += fold_neighbors(c.grid, e.pos, [&](const Photon& ph,
                                                      float w) {
           float weight;
-          const V3 base = merge_term(e, prev_loc, ph, eta, weight);
+          const V3 base = merge_term(e, m, fe, prev_loc, ph, eta, weight);
           li = add(li, wt(scale(scale(base, p.merge_norm), w), weight));
         });
       }
@@ -370,7 +380,7 @@ __device__ __forceinline__ void eye_gather_one(const EyeLaunch& c,
 // 22 rays, 23 dropped, 24 rows (0 = none), 25 the threaded tables (0 under
 // BVH8), 26-38 the records: pos, n, to_prev, thr, albedo, trans, mat_id,
 // d_vcm, d_vc, d_vm, flags, implicit, nee; 39 conn (0 without
-// connections).
+// connections), 40 shade_table [T, 16].
 // iv: 0 n (paths), 1 n_buf (the light buffers' lanes), 2 tri_cols,
 // 3 num_lights, 4 eye_depth, 5 light_rows, 6 flavor, 7 naive, 8 nee,
 // 9 connection, 10 do_mis, 11 paint_weight, 12 sample_environment,
@@ -449,6 +459,7 @@ inline bool eye_launch(const int64_t* ptrs, const int64_t* iv,
   r.nee = dev_ptr<float>(ptrs, 38);
   r.stride = c.n;
   c.conn = dev_ptr<float>(ptrs, 39);
+  c.sc.shade = dev_ptr<const float4>(ptrs, 40);
   const bool mega = c.flavor != kEyeClassic;
   const bool merge = p.merge && c.flavor != kEyeMegaBdpt;
   bool grid_ok = !merge || (g.rows != nullptr && g.cell_se != nullptr &&
@@ -457,7 +468,8 @@ inline bool eye_launch(const int64_t* ptrs, const int64_t* iv,
   const bool recs_ok = r.pos && r.n && r.to_prev && r.thr && r.albedo &&
                        r.trans && r.mat_id && r.d_vcm && r.d_vc && r.d_vm &&
                        r.flags && r.implicit && r.nee;
-  return c.flavor >= kEyeClassic && c.flavor <= kEyeMegaBdpt &&
+  return c.sc.shade != nullptr && c.flavor >= kEyeClassic &&
+         c.flavor <= kEyeMegaBdpt &&
          p.eye_depth >= 1 && p.light_rows >= (mega ? 0 : 1) &&
          c.n <= n_buf && grid_ok && recs_ok && c.engine >= 0 &&
          (!mega || c.engine == kEngineBvh8);

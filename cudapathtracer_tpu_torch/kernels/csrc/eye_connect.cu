@@ -32,9 +32,15 @@
 namespace {
 
 constexpr int kThreads = 128;
+// At a minimum of kMinBlocks blocks of 128 an SM (64 registers, spills
+// cached): the connection's lobes read by id and evaluated once a side
+// leave few live values, and the warps pay (a 1080p VCM sample's
+// connections 45.8 ms at 8, 45.7 at 10, 48.8 at 6, 52.6 at 5; H100,
+// tools/shade_attribution.py).
+constexpr int kMinBlocks = 8;
 
 template <int kFlavor, int kEngine>
-__global__ void __launch_bounds__(kThreads, 5)
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
     eye_connect_kernel(tpt::EyeLaunch c) {
   const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x +
                     threadIdx.x;

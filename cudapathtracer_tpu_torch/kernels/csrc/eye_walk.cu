@@ -8,15 +8,19 @@
 // need no light vertex: s=0 and NEE.
 //
 // Bound: per bounce one closest ray and one NEE shadow ray (dependent BVH8
-// row fetches or threaded node fetches: memory latency), the shading row,
-// and a record of 108 bytes written (84 of vertex, 24 of terms). Design:
-// the walk state in registers and nothing else: the connections and the
+// row fetches or threaded node fetches: memory latency), the 64-byte
+// shading record and the material row, and a record of 108 bytes written
+// (84 of vertex, 24 of terms). Design: at each hit the record (but NEE's
+// term) is stored and the walk advanced before NEE, whose BSDF terms are
+// evaluated before its shadow ray, so only NEE's own terms and the walk's
+// state live across that trace; the connections and the
 // merge, with their loops whose length varies from lane to lane, are the
 // other two stages, so this kernel carries K12's eye walk plus NEE and
 // the records are written depth-major ([D, N]: a warp's 32 paths store
-// neighbouring words). ptxas (H100 build): 127-128 registers on BVH8 and
-// 122 threaded (4 blocks of 128 threads an SM), no spills, with no
-// minimum in the bounds. chip_smoke.py prints the report.
+// neighbouring words). ptxas (H100 build): 64 registers at the minimum
+// of blocks below (127-128 on BVH8 and 122 threaded, 4 blocks, before the
+// shading code read its material by id). chip_smoke.py prints the
+// report.
 
 #include <cuda_runtime.h>
 
@@ -28,8 +32,14 @@ namespace {
 
 constexpr int kThreads = 128;
 
+// At a minimum of kMinBlocks blocks of 128 an SM (64 registers, spills
+// cached): the walk advanced and NEE's terms computed before its shadow
+// ray leave the trace few live values, and the warps pay (a 1080p VCM
+// sample's walk 20.6 ms at 8, 20.9 at 10, 21.3 at 6, 22.3 at 5, 24.1 at
+// ptxas' own count; H100, tools/shade_attribution.py).
+constexpr int kMinBlocks = 8;
 template <int kFlavor, int kEngine>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
     eye_walk_kernel(tpt::EyeLaunch c) {
   const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x +
                     threadIdx.x;

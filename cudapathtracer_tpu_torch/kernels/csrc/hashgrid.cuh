@@ -28,6 +28,13 @@
 // division (the files are built without fast math). Bound: one 8-byte
 // (start, end) read and up to cap 32-byte row reads per cell, scattered,
 // so memory latency.
+// Design (the merge query): the 8 cells' (start, end) pairs are read up
+// front, 8 independent loads, into registers (every loop over them is
+// unrolled or moves the next pair down, so no index is dynamic and no cell
+// table sits in local memory); a cell's candidate rows are loaded in
+// batches of up to 8, all issued before the first distance test, and the
+// in-range ones are folded afterwards in ascending order, so the scattered
+// loads overlap instead of each waiting for the previous photon's fold.
 #pragma once
 
 #include <cuda_fp16.h>
@@ -124,28 +131,37 @@ struct GridRefs {
   int64_t n_rows;          // P8 (the materialised forms' brick clamp)
 };
 
-// The 8 corner cells of query q (bit 0 of c steps x, bit 1 y, bit 2 z).
+// The 8 corner cells of query q (bit 0 of c steps x, bit 1 y, bit 2 z):
+// (start, count) of cell c. Its users index it with constants only (the
+// loops over the cells unrolled, or the pairs moved down), so it stays in
+// registers.
 struct QueryCells {
   int32_t start[8], count[8];
 };
 
 __device__ __forceinline__ QueryCells query_cells(const GridRefs& g, V3 q) {
   int32_t base[3], step[3];
+#pragma unroll
   for (int k = 0; k < 3; ++k) {
     const float c = cell_coord(g.geom, q, k);
     base[k] = static_cast<int32_t>(floorf(c));
     step[k] = c - static_cast<float>(base[k]) >= 0.5f ? 1 : -1;
   }
-  QueryCells qc;
+  int2 se[8];
+#pragma unroll
   for (int c = 0; c < 8; ++c) {
     const uint32_t h =
         hash_cell(base[0] + ((c & 1) ? step[0] : 0),
                   base[1] + ((c & 2) ? step[1] : 0),
                   base[2] + ((c & 4) ? step[2] : 0), g.geom.table_size);
-    const int2 se = *reinterpret_cast<const int2*>(g.cell_se +
-                                                   2 * static_cast<int64_t>(h));
-    qc.start[c] = se.x;
-    qc.count[c] = se.y - se.x > 0 ? se.y - se.x : 0;
+    se[c] = __ldg(reinterpret_cast<const int2*>(g.cell_se +
+                                                2 * static_cast<int64_t>(h)));
+  }
+  QueryCells qc;
+#pragma unroll
+  for (int c = 0; c < 8; ++c) {
+    qc.start[c] = se[c].x;
+    qc.count[c] = se[c].y - se[c].x > 0 ? se[c].y - se[c].x : 0;
   }
   return qc;
 }
@@ -177,20 +193,44 @@ __device__ __forceinline__ bool in_range(const GridRefs& g, V3 q,
   return length_sq(sub(q, v3(a.x, a.y, a.z))) <= g.r2;
 }
 
+constexpr int kFoldBatch = 8;  // candidate rows loaded before their tests
+
 // Folds fold(photon, w) over the in-range candidates of query q, in the
 // JAX order; returns the photons the cap left out (count - kept, summed).
+// The cells are taken in order from the registers (the next pair moves
+// down a cell); a cell's candidates are tested kFoldBatch at a time, their
+// positions loaded together, then the in-range ones folded in ascending
+// order (each row re-read whole, from L1).
 template <class Fold>
 __device__ __forceinline__ int32_t fold_neighbors(const GridRefs& g, V3 q,
                                                   Fold&& fold) {
-  const QueryCells qc = query_cells(g, q);
+  QueryCells qc = query_cells(g, q);
   int32_t dropped = 0;
+#pragma unroll 1
   for (int c = 0; c < 8; ++c) {
-    const int32_t start = qc.start[c], count = qc.count[c];
+    const int32_t start = qc.start[0], count = qc.count[0];
+#pragma unroll
+    for (int j = 0; j < 7; ++j) {
+      qc.start[j] = qc.start[j + 1];
+      qc.count[j] = qc.count[j + 1];
+    }
     const int32_t kept = kept_of(g, start, count);
     const float w = window_weight(g, count, kept);
-    for (int32_t k = 0; k < kept; ++k) {
-      const float* row = photon_row(g, start + k);
-      if (in_range(g, q, row)) fold(photon_fields(row), w);
+    for (int32_t k0 = 0; k0 < kept; k0 += kFoldBatch) {
+      uint32_t in = 0u;
+#pragma unroll
+      for (int j = 0; j < kFoldBatch; ++j) {
+        if (k0 + j < kept) {
+          const float4 a = __ldg(reinterpret_cast<const float4*>(
+              photon_row(g, start + k0 + j)));
+          if (length_sq(sub(q, v3(a.x, a.y, a.z))) <= g.r2) in |= 1u << j;
+        }
+      }
+      while (in != 0u) {
+        const int j = __ffs(static_cast<int>(in)) - 1;
+        in &= in - 1u;
+        fold(photon_fields(photon_row(g, start + k0 + j)), w);
+      }
     }
     dropped += count - kept;
   }
@@ -213,6 +253,7 @@ __device__ __forceinline__ int32_t neighbor_slots(const GridRefs& g, V3 q,
   const int64_t max_brick = g.n_rows / 8 - 1;
   const int per_cell = g.one_brick ? 8 : g.cap;
   int32_t dropped = 0;
+#pragma unroll
   for (int c = 0; c < 8; ++c) {
     const int32_t start = qc.start[c], count = qc.count[c];
     const int32_t kept = kept_of(g, start, count);
@@ -255,13 +296,23 @@ __device__ __forceinline__ CompactSlot compact_slot(const GridRefs& g,
                                                     int k) {
   CompactSlot s;
   s.ok = k < (total < cap_q ? total : cap_q);
-  int32_t prev = 0;
-  int c = 0;
-  while (c < 8 && prev + kept[c] <= k) prev += kept[c++];
-  const int32_t start = c < 8 ? qc.start[c] : 0;
-  s.p = s.ok ? static_cast<int64_t>(start) + k - (c < 8 ? prev : 0) : 0;
-  s.w = c < 8 ? window_weight(g, qc.count[c], kept[c])
-              : window_weight(g, 0, 0);
+  // the first cell whose kept photons reach past k (8: none), the kept
+  // photons before it, its start and weight: an unrolled select
+  int32_t prev = 0, start = 0;
+  float w = window_weight(g, 0, 0);
+  bool found = false;
+#pragma unroll
+  for (int c = 0; c < 8; ++c) {
+    if (!found && prev + kept[c] > k) {
+      found = true;
+      start = qc.start[c];
+      w = window_weight(g, qc.count[c], kept[c]);
+    } else if (!found) {
+      prev += kept[c];
+    }
+  }
+  s.p = s.ok ? static_cast<int64_t>(start) + k - (found ? prev : 0) : 0;
+  s.w = w;
   return s;
 }
 

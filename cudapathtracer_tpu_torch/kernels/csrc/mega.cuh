@@ -48,7 +48,7 @@ __device__ __forceinline__ V3 implicit_bdpt(const SceneRefs& sc,
                                             bool prev_delta, int depth) {
   const float num =
       static_cast<float>(sc.lights.count > 1 ? sc.lights.count : 1);
-  const float* lr = sc.lights.rows + 17 * static_cast<int64_t>(light_ind);
+  const float* lr = light_row(sc.lights.rows, light_ind);
   const float area = __ldg(lr + 15);
   const float cos_la = fabsf(dot(e.n, e.to_prev));
   V3 contrib = mul(row_v3(lr, 12), e.thr);
@@ -72,11 +72,14 @@ __device__ __forceinline__ V3 implicit_bdpt(const SceneRefs& sc,
 }
 
 // NEE (s = 1) at eye vertex e (its normal turned toward the previous
-// vertex) on BVH8; did: the draw id. Returns the resolved contribution,
-// zero where nothing is traced or the ray is blocked.
-template <bool kBdpt>
+// vertex, fe its frame; m its lobe) on BVH8; did: the draw id. The BSDF
+// terms and the weighted contribution are computed before the trace, so
+// only that contribution lives across it. Returns the resolved
+// contribution, zero where nothing is traced or the ray is blocked.
+template <bool kBdpt, class S>
 __device__ __forceinline__ V3 nee_mega(const SceneRefs& sc,
                                        const EyeParams& p, const EyeVertex& e,
+                                       const Frame& fe, const S& m,
                                        uint32_t did, int32_t& rays,
                                        int32_t& rows) {
   const V3 zero = v3(0.0f, 0.0f, 0.0f);
@@ -89,58 +92,52 @@ __device__ __forceinline__ V3 nee_mega(const SceneRefs& sc,
   const float cos_light = dot(lp.n, neg(stl_u));
   if (!(cos_light >= kEps)) return zero;
   const V3 origin = add(e.pos, scale(e.n, kRayEps));
-  ++rays;
-  const Trace8 sh = trace8<true>(sc.table, sc.tri_f32, sc.tri_cols, origin.x,
-                                 origin.y, origin.z, stl_u.x, stl_u.y,
-                                 stl_u.z, dist - kEps, lp.tri, true);
-  rows += sh.rows;
-  if (!(max3(sh.s0, sh.s1, sh.s2) > 0.0f)) return zero;
   const float num =
       static_cast<float>(sc.lights.count > 1 ? sc.lights.count : 1);
   const float cos_surf = fabsf(dot(e.n, stl_u));
   const float g = fminf(cos_light * cos_surf / d2, kMaxGNee);
   const float pdf_connect = (1.0f / num) / fmaxf(lp.area, 1e-20f);
   const float pdf_emit_sa = cos_light / kPi;
-  const V3 stl_local = to_local(stl_u, e.n);
-  const V3 to_prev_loc = to_local(e.to_prev, e.n);
-  const V3 f = bsdf_f(e.m, e.albedo, to_prev_loc, stl_local, 1.0f, e.trans);
-  const V3 contrib = scale(mul(f, lp.le), g / pdf_connect);
-  const float pdf_bsdf_sa =
-      bsdf_pdf(e.m, to_prev_loc, stl_local, 1.0f, e.trans);
-  const float pdf_bsdf_area = pdf_bsdf_sa * fabsf(cos_light) / d2;
+  const V3 stl_local = to_local(stl_u, fe);
+  const V3 to_prev_loc = to_local(e.to_prev, fe);
+  const BsdfEval be = bsdf_eval<true, true>(m, to_prev_loc, stl_local, 1.0f);
+  const V3 contrib = scale(mul(be.f, lp.le), g / pdf_connect);
+  const float pdf_bsdf_area = be.pdf * fabsf(cos_light) / d2;
   const float ratio = pdf_bsdf_area / fmaxf(pdf_connect, 1e-20f);
   const float w_light = kBdpt ? ratio : ratio * ratio;
   const float pdf_curr_rev_area = pdf_emit_sa * fabsf(stl_local.z) / d2;
-  const float pdf_prev_rev_sa =
-      bsdf_pdf(e.m, stl_local, to_prev_loc, 1.0f, e.trans);
   const float w_eye =
-      pdf_curr_rev_area * (p.eta_vcm + e.d_vcm + pdf_prev_rev_sa * e.d_vc);
+      pdf_curr_rev_area * (p.eta_vcm + e.d_vcm + be.pdf_rev * e.d_vc);
   const float weight = 1.0f / (1.0f + w_light + w_eye);
-  return resolve<kBdpt>(p.weighting,
-                        p.weighting(mul(contrib, e.thr), weight), sh);
+  const V3 pending = p.weighting(mul(contrib, e.thr), weight);
+  ++rays;
+  const Trace8 sh = trace8<true>(sc.table, sc.tri_f32, sc.tri_cols, origin.x,
+                                 origin.y, origin.z, stl_u.x, stl_u.y,
+                                 stl_u.z, dist - kEps, lp.tri, true);
+  rows += sh.rows;
+  if (!(max3(sh.s0, sh.s1, sh.s2) > 0.0f)) return zero;
+  return resolve<kBdpt>(p.weighting, pending, sh);
 }
 
-// The merge at eye vertex e (shade-time normal): its slots' sum from zero;
-// adds the cap's dropped photons.
+// The merge at eye vertex e (shade-time normal; m: its lobe): its
+// candidates' sum from zero (fold_neighbors: for cap <= 8 the photons
+// neighbor_slots' candidate slots hold, in their order); adds the cap's
+// dropped photons. The vertex's frame and its direction to the previous
+// vertex are resolved once, not per photon.
 __device__ __forceinline__ V3 merge_mega(const EyeParams& p,
                                          const GridRefs& g,
                                          const EyeVertex& e,
+                                         const SurfHeld& m,
                                          int32_t& dropped) {
-  const V3 prev_loc = to_local(e.to_prev, e.n);
+  const Frame fe = frame(e.n);
+  const V3 prev_loc = to_local(e.to_prev, fe);
   const float eta = fmaxf(p.eta_vcm, 1e-30f);
   V3 li_m = v3(0.0f, 0.0f, 0.0f);
-  auto term = [&](const Photon& ph, float w) {
+  dropped += fold_neighbors(g, e.pos, [&](const Photon& ph, float w) {
     float weight;
-    const V3 base = merge_term(e, prev_loc, ph, eta, weight);
+    const V3 base = merge_term(e, m, fe, prev_loc, ph, eta, weight);
     li_m = add(li_m, p.weighting(scale(base, p.merge_norm * w), weight));
-  };
-  if (g.cap <= 8)
-    dropped += neighbor_slots<false>(
-        g, e.pos, [&](int, const float* row, bool ok, float w) {
-          if (ok) term(photon_fields(row), w);
-        });
-  else
-    dropped += fold_neighbors(g, e.pos, term);
+  });
   return li_m;
 }
 

@@ -13,9 +13,11 @@
 // Bound: a light-table row read (68 bytes), three Threefry draws and a BSDF
 // evaluation per NEE sample; arithmetic and one scattered read, small
 // beside the shadow ray it launches (K1).
-// Design: NEE stops before the shadow trace and returns the ray, so the
-// caller traces it with K1's device function and weighs the result in the
-// order its schedule needs. The medium stack keeps the reference quirks:
+// Design: NEE stops before the shadow trace and returns the ray, its
+// unshadowed contribution and the BSDF's pdf (one fused evaluation), so
+// the caller finishes the event before it traces the ray with K1's device
+// function and weighs the result in the order its schedule needs. The
+// medium stack keeps the reference quirks:
 // packed (priority << 10 | mat_id) entries, slot 0 never removed, the
 // shift-down on removal as a roll (the last slot takes slot 0's entry).
 #pragma once
@@ -73,6 +75,7 @@ struct Lights {
 struct NeeSample {
   V3 contrib;       // f * Le * cos / pdf, gated, unshadowed
   float light_pdf;
+  float bsdf_pdf;   // the BSDF's pdf of the light direction (if active)
   V3 wo_local;      // light direction in shading space
   V3 origin, dir;   // the shadow ray
   float max_t;
@@ -80,12 +83,14 @@ struct NeeSample {
 };
 
 // Light pick + area sample (draws base+0..2 through draw(k)) and the
-// unshadowed NEE contribution from `point`. wi_local: the incoming ray in
-// shading space (the caller's to_local(d, normal)).
-template <class Draw>
+// unshadowed NEE contribution from `point` in shading frame fr. wi_local:
+// the incoming ray in shading space (the caller's to_local(d, fr)); m: the
+// hit's lobe (bsdf.cuh Surf or SurfHeld), evaluated once for f and the
+// pdf.
+template <class Draw, class S>
 __device__ __forceinline__ NeeSample nee_sample(
-    const Draw& draw, const Lights& lights, V3 point, V3 normal, V3 wi_local,
-    const Mat& m, V3 albedo, float eta_i, bool active, float transmission) {
+    const Draw& draw, const Lights& lights, V3 point, const Frame& fr,
+    V3 wi_local, const S& m, float eta_i, bool active) {
   const float num = static_cast<float>(lights.count > 1 ? lights.count : 1);
   const float ul = draw(0);
   const float u = sqrtf(draw(1));
@@ -93,11 +98,11 @@ __device__ __forceinline__ NeeSample nee_sample(
   int32_t idx = static_cast<int32_t>(ul * num);
   const int32_t last = (lights.count > 1 ? lights.count : 1) - 1;
   idx = idx < last ? idx : last;
-  const float* r = lights.rows + 17 * static_cast<int64_t>(idx);
+  const float* r = light_row(lights.rows, idx);
   const V3 a = row_v3(r, 0), b = row_v3(r, 3), c = row_v3(r, 6);
   const float wa = 1.0f - u, wb = u * (1.0f - v), wc = u * v;
   const V3 lp = add(add(scale(a, wa), scale(b, wb)), scale(c, wc));
-  const V3 ln = row_v3(r, 9), le = row_v3(r, 12);
+  const V3 ln = row_v3(r, 9);
   const float larea = __ldg(r + 15);
 
   NeeSample ns;
@@ -110,14 +115,16 @@ __device__ __forceinline__ NeeSample nee_sample(
   ns.max_t = (dist - kEps) * (1.0f - kEps);
   ns.dir = wi;
   ns.light_pdf = nee_pdf(point, lp, ln, larea, num);
-  const float cos_surf = fabsf(dot(normal, wi));
-  ns.wo_local = to_local(wi, normal);
+  const float cos_surf = fabsf(dot(fr.n, wi));
+  ns.wo_local = to_local(wi, fr);
   ns.active = (ns.light_pdf > kEps) && active;
+  ns.bsdf_pdf = 0.0f;
   if (ns.active) {
-    const V3 f = bsdf_f(m, albedo, neg(wi_local), ns.wo_local, eta_i,
-                        transmission);
-    ns.contrib = scale(mul(f, le), cos_surf / signed_clamp(ns.light_pdf,
-                                                           1e-20f));
+    const BsdfEval e =
+        bsdf_eval<true, false>(m, neg(wi_local), ns.wo_local, eta_i);
+    ns.bsdf_pdf = e.pdf;
+    ns.contrib = scale(mul(e.f, row_v3(r, 12)),
+                       cos_surf / signed_clamp(ns.light_pdf, 1e-20f));
   } else {
     ns.contrib = v3(0.0f, 0.0f, 0.0f);
   }

@@ -13,6 +13,8 @@
 //   2 gather   rows [8 x cap, N, 8] and ok (in_range) [8 x cap, N].
 // Bound: memory: the output rows (32 bytes per slot, written once) and the
 // scattered photon-row reads, 8 (start, end) reads per query.
+// Design: the cell table (hashgrid.cuh query_cells) and the kept counts
+// stay in registers (every loop over the cells is unrolled).
 
 #include <cuda_runtime.h>
 
@@ -69,6 +71,7 @@ __global__ void __launch_bounds__(kThreads) slots_kernel(SlotsLaunch s) {
   }
   const tpt::QueryCells qc = tpt::query_cells(g, q);
   if (s.mode == kModeGather) {  // cells with the x step outermost
+#pragma unroll
     for (int x = 0; x < 8; ++x) {
       const int c = (x >> 2) | (x & 2) | ((x & 1) << 2);
       for (int k = 0; k < g.cap; ++k) {
@@ -81,6 +84,7 @@ __global__ void __launch_bounds__(kThreads) slots_kernel(SlotsLaunch s) {
     return;
   }
   int32_t kept[8], total = 0, over = 0;
+#pragma unroll
   for (int c = 0; c < 8; ++c) {
     kept[c] = tpt::kept_of(g, qc.start[c], qc.count[c]);
     total += kept[c];

@@ -1,19 +1,27 @@
-// K2 device code: the hit fetch (one packed shading row per hit) and the
-// vector math it and K3-K5 share.
+// K2 device code: the hit fetch (one 64-byte shading record per hit) and
+// the vector math and shading frame it and K3-K5 share.
 //
 // Replaces cudapathtracer_tpu/ops/lanemajor.py:shade_dataT (line 125) and
-// its row-major twin ops/traverse.py:shade_data (line 315): one read of the
-// hit triangle's 48-float shading row (layout: scene/scene.py
-// Scene.tri_shade_row, columns 28:76 of tri_f32), the barycentric shading
-// normal flipped to face the ray, the uv, emission, the material fields, and
-// the hit point o + d*t (the mega engine passes exactly that point,
-// unidirectional_mega.py:356-358).
+// its row-major twin ops/traverse.py:shade_data: one read of the hit
+// triangle's record in scene.shade_table (derived from tri_f32 at upload,
+// scene/scene.py shade_table: the three vertex normals, the three uvs and
+// one word of mat_id | light index << 10, as four float4s), the
+// barycentric shading normal flipped to face the ray, the uv and the hit
+// point o + d*t (the mega engine passes exactly that point,
+// unidirectional_mega.py:356-358). What the JAX row carries besides is
+// read where it is used: the material by mat_id from mat_f32 (bsdf.cuh
+// Surf), and a light's emission, vertex-a normal and area by its light
+// index from light_f32, whose columns 9:16 equal the triangle's (a
+// non-light triangle emits nothing; tests/test_torch_scene.py holds both).
 //
-// Bound: one dependent 192-byte row read per hit, scattered across the
-// triangle block, so memory latency; the interpolation is ~40 flops.
-// Design: the row is read with read-only loads straight into the fields a
-// shader uses, and nothing is written back: the per-path megakernel keeps
-// the result in registers.
+// Bound: one dependent 64-byte record read per hit (two sectors, four
+// 16-byte loads), scattered across the table, so memory latency; the
+// interpolation is ~40 flops.
+// Design: the record holds only what every hit needs before its material,
+// 16-byte aligned, so the fetch is four vector loads and the hit keeps 11
+// words in registers; the material is read by id where the event uses it
+// (bsdf.cuh Surf, hold) and a light's row only on a light. The shading
+// frame (t, b, n) is built once per hit and passed to to_local / to_world.
 //
 // Arithmetic: the vector helpers below evaluate in the order of the plain
 // PyTorch versions (utils/math.py: dot products left to right, normalize as
@@ -72,51 +80,45 @@ __device__ __forceinline__ float luminance(V3 c) {
   return c.x * 0.2126f + c.y * 0.7152f + c.z * 0.0722f;
 }
 
-// Orthonormal tangent frame (t, b) around a unit normal.
-__device__ __forceinline__ void build_frame(V3 n, V3& t, V3& b) {
+// The orthonormal shading frame (t, b, n) around a unit normal n.
+struct Frame {
+  V3 t, b, n;
+};
+
+__device__ __forceinline__ Frame frame(V3 n) {
+  Frame f;
+  f.n = n;
   const bool use_x = fabsf(n.x) > fabsf(n.z);
   if (use_x) {
     const float inv_a = rsqrtf(fmaxf(n.x * n.x + n.y * n.y, 1e-20f));
-    t = v3(-n.y * inv_a, n.x * inv_a, 0.0f);
+    f.t = v3(-n.y * inv_a, n.x * inv_a, 0.0f);
   } else {
     const float inv_b = rsqrtf(fmaxf(n.y * n.y + n.z * n.z, 1e-20f));
-    t = v3(0.0f, -n.z * inv_b, n.y * inv_b);
+    f.t = v3(0.0f, -n.z * inv_b, n.y * inv_b);
   }
-  b = cross(n, t);
+  f.b = cross(n, f.t);
+  return f;
 }
 
-__device__ __forceinline__ V3 to_local(V3 v, V3 n) {
-  V3 t, b;
-  build_frame(n, t, b);
-  return v3(dot(v, t), dot(v, b), dot(v, n));
+__device__ __forceinline__ V3 to_local(V3 v, const Frame& f) {
+  return v3(dot(v, f.t), dot(v, f.b), dot(v, f.n));
 }
 
-__device__ __forceinline__ V3 to_world(V3 v, V3 n) {
-  V3 t, b;
-  build_frame(n, t, b);
-  return add(add(scale(t, v.x), scale(b, v.y)), scale(n, v.z));
+__device__ __forceinline__ V3 to_world(V3 v, const Frame& f) {
+  return add(add(scale(f.t, v.x), scale(f.b, v.y)), scale(f.n, v.z));
 }
 
 // ---- the hit fetch --------------------------------------------------------
 
-struct Mat {
-  int32_t type;
-  V3 albedo;
-  float roughness;
-  V3 eta, k;
-  float ior, transmission;
-  bool is_specular, boundary;
-  int32_t priority;
-  int32_t tex_start, tex_width, tex_height;
-  int32_t trans_tex_start, trans_tex_width, trans_tex_height;
-};
+constexpr int kShadeRecord = 4;  // float4s a record of scene.shade_table
+constexpr int kMatCols = 26;     // mat_f32 [M, 26]: a material's fields
+constexpr int kLightCols = 17;   // light_f32 [L, 17]
 
 struct ShadeHit {
-  V3 point, normal, emission, normal_a;
-  float uv0, uv1, area;
-  int32_t mat_id, light_ind;
+  V3 point, normal;
+  float uv0, uv1;
+  int32_t mat_id, light_ind;  // light_ind -1: not a light
   bool backface;
-  Mat mat;
 };
 
 __device__ __forceinline__ int32_t row_i32(const float* row, int c) {
@@ -127,54 +129,67 @@ __device__ __forceinline__ V3 row_v3(const float* row, int c) {
   return v3(__ldg(row + c), __ldg(row + c + 1), __ldg(row + c + 2));
 }
 
-// The material fields of one row in the layout of shade-row columns 20:46
-// (scene/scene.py: a triangle's shade row from column 20, or a row of the
-// per-material block mat_f32 [M, 26]).
-__device__ __forceinline__ Mat read_mat(const float* r) {
-  Mat m;
-  m.type = row_i32(r, 0);
-  m.albedo = row_v3(r, 1);
-  m.roughness = __ldg(r + 4);
-  m.eta = row_v3(r, 5);
-  m.k = row_v3(r, 8);
-  m.ior = __ldg(r + 11);
-  m.transmission = __ldg(r + 12);
-  m.is_specular = row_i32(r, 13) != 0;
-  m.boundary = row_i32(r, 14) != 0;
-  m.priority = row_i32(r, 19);
-  m.tex_start = row_i32(r, 20);
-  m.tex_width = row_i32(r, 21);
-  m.tex_height = row_i32(r, 22);
-  m.trans_tex_start = row_i32(r, 23);
-  m.trans_tex_width = row_i32(r, 24);
-  m.trans_tex_height = row_i32(r, 25);
-  return m;
+// The id word of a shading record: mat_id in bits 0-9, the light index
+// (-1: none) above them.
+__device__ __forceinline__ int32_t id_mat(int32_t w) { return w & 1023; }
+__device__ __forceinline__ int32_t id_light(int32_t w) { return w >> 10; }
+
+// The three vertex normals of triangle tri (its record's first 36 bytes).
+__device__ __forceinline__ void vertex_normals(const float4* __restrict__ shade,
+                                               int32_t tri, V3& na, V3& nb,
+                                               V3& nc) {
+  const float4* r = shade + kShadeRecord * static_cast<int64_t>(tri);
+  const float4 q0 = __ldg(r), q1 = __ldg(r + 1), q2 = __ldg(r + 2);
+  na = v3(q0.x, q0.y, q0.z);
+  nb = v3(q0.w, q1.x, q1.y);
+  nc = v3(q1.z, q1.w, q2.x);
 }
 
-// The shading record of a closest hit (tri >= 0; a miss reads row 0, as the
-// plain version's clamp does, and its record is not used).
-__device__ __forceinline__ ShadeHit shade_fetch(const float* __restrict__ tri_f32,
-                                                int tri_cols, int32_t tri,
-                                                float u, float v, V3 o, V3 d,
-                                                float t) {
-  const float* row =
-      tri_f32 + static_cast<int64_t>(tri > 0 ? tri : 0) * tri_cols + 28;
+// The mat_id of triangle tri (its record's id word).
+__device__ __forceinline__ int32_t record_mat(const float4* __restrict__ shade,
+                                             int32_t tri) {
+  const float* r = reinterpret_cast<const float*>(
+      shade + kShadeRecord * static_cast<int64_t>(tri));
+  return id_mat(__float_as_int(__ldg(r + 15)));
+}
+
+// The shading record of a closest hit (tri >= 0; a miss reads record 0, as
+// the plain version's clamp does, and its record is not used).
+__device__ __forceinline__ ShadeHit shade_fetch(
+    const float4* __restrict__ shade, int32_t tri, float u, float v, V3 o,
+    V3 d, float t) {
+  const float4* r =
+      shade + kShadeRecord * static_cast<int64_t>(tri > 0 ? tri : 0);
+  const float4 q0 = __ldg(r), q1 = __ldg(r + 1), q2 = __ldg(r + 2),
+               q3 = __ldg(r + 3);
   ShadeHit s;
   const float w0 = 1.0f - u - v;
-  const V3 na = row_v3(row, 0), nb = row_v3(row, 3), nc = row_v3(row, 6);
+  const V3 na = v3(q0.x, q0.y, q0.z), nb = v3(q0.w, q1.x, q1.y),
+           nc = v3(q1.z, q1.w, q2.x);
   V3 nrm = normalize(add(add(scale(na, w0), scale(nb, u)), scale(nc, v)));
   s.backface = dot(nrm, d) > 0.0f;
   s.normal = s.backface ? neg(nrm) : nrm;
-  s.uv0 = __ldg(row + 9) * w0 + __ldg(row + 11) * u + __ldg(row + 13) * v;
-  s.uv1 = __ldg(row + 10) * w0 + __ldg(row + 12) * u + __ldg(row + 14) * v;
+  s.uv0 = q2.y * w0 + q2.w * u + q3.y * v;
+  s.uv1 = q2.z * w0 + q3.x * u + q3.z * v;
   s.point = add(o, scale(d, t));
-  s.emission = row_v3(row, 15);
-  s.light_ind = row_i32(row, 18);
-  s.mat_id = row_i32(row, 19);
-  s.normal_a = na;
-  s.area = __ldg(row + 46);
-  s.mat = read_mat(row + 20);
+  const int32_t ids = __float_as_int(q3.w);
+  s.mat_id = id_mat(ids);
+  s.light_ind = id_light(ids);
   return s;
+}
+
+// A hit light's row of light_f32 (light_ind >= 0): emission at column 12,
+// vertex-a normal at 9, area at 15.
+__device__ __forceinline__ const float* light_row(const float* lights,
+                                                  int32_t light_ind) {
+  return lights + kLightCols * static_cast<int64_t>(light_ind);
+}
+
+// The emission of a hit: its light's, zero off the lights.
+__device__ __forceinline__ V3 hit_emission(const float* lights,
+                                           int32_t light_ind) {
+  return light_ind >= 0 ? row_v3(light_row(lights, light_ind), 12)
+                        : v3(0.0f, 0.0f, 0.0f);
 }
 
 }  // namespace tpt

@@ -50,8 +50,9 @@
 // pixel's k samples are done. k = 1 is one sample.
 //
 // Bound: memory latency of the traversal (K1: dependent row reads, rays
-// diverge), then of the shading row and light row reads; the BSDF and NEE
-// arithmetic is a few hundred flops per event. A path takes 1 to 133
+// diverge), then of the 64-byte shading record (shade.cuh), material row
+// and light row reads; the BSDF and NEE arithmetic is a few hundred flops
+// per event. A path takes 1 to 133
 // events (mean ~5.4, p99 11 on the 1080p bunny scene at depth 8), so one
 // thread per path left about half of each warp's issue slots idle while
 // its longest path ran (tools/k5_lanes.py).
@@ -144,8 +145,10 @@ __device__ __forceinline__ void sample_key_row(uint32_t b0, uint32_t b1,
 
 struct SceneArgs {
   const float* table;      // bvh8_table [R, 96]
-  const float* tri_f32;    // [T, tri_cols]
+  const float* tri_f32;    // [T, tri_cols] (shadow rays: MAT_LEAF rows)
   int tri_cols;
+  const float4* shade;     // shade_table [T, 16] (shade.cuh)
+  const float* mat_f32;    // [M, 26]
   Lights lights;           // light_f32 [L, 17]
   const float* textures;   // [A, 3]
   const float* medium;     // [M, 4]: absorption xyz, ior
@@ -219,6 +222,11 @@ __device__ __forceinline__ void start_path(PathState& st, V3 o, V3 d,
 // One event of a classic or mega path; keys: its sample's key row, index:
 // its position in the pixel list (mega ids), pix_id: its pixel id (classic
 // ids). Adds the event's rays and rows; returns whether the path goes on.
+// Everything the event computes but NEE's shadow factor (the BSDF sample,
+// the medium stack, the next ray and throughput, Russian roulette's draw)
+// is done before the shadow trace, so only the NEE term's inputs and the
+// path's state live across it; the NEE term joins li after the trace, in
+// each schedule's order.
 template <int kEngine>
 __device__ __forceinline__ bool path_event(const SceneArgs& sc,
                                            const Params& p,
@@ -256,12 +264,11 @@ __device__ __forceinline__ bool path_event(const SceneArgs& sc,
     li = add(li, mul(beta, sample_sky(d, p.sample_environment != 0)));
     return false;
   }
-  const ShadeHit s =
-      shade_fetch(sc.tri_f32, sc.tri_cols, h.tri, h.u, h.v, o, d, h.t);
-  const Mat& m = s.mat;
-  const V3 wi_local = to_local(d, s.normal);
-  const V3 albedo = resolve_albedo(sc.textures, s);
-  const float trans = resolve_transmission(sc.textures, s);
+  const ShadeHit s = shade_fetch(sc.shade, h.tri, h.u, h.v, o, d, h.t);
+  const Surf sm = surf(sc.mat_f32, sc.textures, s.mat_id, s.uv0, s.uv1);
+  const SurfHeld m = hold(sm);
+  const Frame fr = frame(s.normal);
+  const V3 wi_local = to_local(d, fr);
 
   // dominant medium + Beer-Lambert absorption
   const int32_t dom = st.ms.dominant();
@@ -274,93 +281,108 @@ __device__ __forceinline__ bool path_event(const SceneArgs& sc,
   }
   // a lower-priority boundary crossed inside a dominant medium is a
   // false hit: the path passes straight through
-  const bool true_hit = !(m.boundary && m.priority > dom_pri);
+  const bool boundary = sm.boundary();
+  const int32_t priority = sm.priority();
+  const bool true_hit = !(boundary && priority > dom_pri);
   const float dom_ior = __ldg(med + 3);
-  if ((true_hit && m.boundary && m.type == kMatSmoothDielectric) ||
-      !m.boundary)
+  if ((true_hit && boundary && m.type() == kMatSmoothDielectric) ||
+      !boundary)
     st.eta_i = dom_ior;
   if (!true_hit) {
     if (!s.backface)
-      st.ms.push(s.mat_id, m.priority);
+      st.ms.push(s.mat_id, priority);
     else
       st.ms.remove(s.mat_id);
   }
 
-  // emission
-  const bool emissive = length_sq(s.emission) > kEps;
+  // emission (a light's row)
+  const bool is_specular = sm.is_specular();
+  const V3 emission = hit_emission(sc.lights.rows, s.light_ind);
+  const bool emissive = length_sq(emission) > kEps;
   const bool direct_view = st.depth == 0 || !st.hit_nonspec;
-  if (true_hit && emissive && direct_view)
-    li = add(li, mul(beta, s.emission));
+  if (true_hit && emissive && direct_view) li = add(li, mul(beta, emission));
 
+  // NEE: the light sample and its unshadowed term; traced below
+  bool trace_nee = false;
+  NeeSample ns;
+  float w = 0.0f;
+  V3 nee_pending = v3(0.0f, 0.0f, 0.0f), nee_beta = beta;
   if (p.use_mis) {
     // a BSDF-sampled ray hit a light: weigh against the NEE pdf
-    if (true_hit && emissive && !direct_view && !m.is_specular) {
-      const float lpdf =
-          nee_pdf(st.prev_point, s.point, s.normal_a, s.area, num_lights);
+    if (true_hit && emissive && !direct_view && !is_specular) {
+      const float* lr = light_row(sc.lights.rows, s.light_ind);
+      const float lpdf = nee_pdf(st.prev_point, s.point, row_v3(lr, 9),
+                                 __ldg(lr + 15), num_lights);
       if (lpdf > kEps)
-        li = add(li, scale(mul(beta, s.emission),
+        li = add(li, scale(mul(beta, emission),
                            power2_weight(st.prev_pdf, lpdf)));
     }
     // NEE from non-emissive, non-specular surfaces
-    const bool do_nee = true_hit && !emissive && !m.is_specular;
+    const bool do_nee = true_hit && !emissive && !is_specular;
     if (classic && do_nee) ++rays;
     if (do_nee && sc.lights.count > 0) {
       const BasedDraws nd{&e, kDNee};
-      const NeeSample ns = nee_sample(nd, sc.lights, s.point, s.normal,
-                                      wi_local, m, albedo, st.eta_i, true,
-                                      trans);
+      ns = nee_sample(nd, sc.lights, s.point, fr, wi_local, m, st.eta_i,
+                      true);
       if (ns.active) {
         if (!classic) ++rays;
-        const float bpdf =
-            bsdf_pdf(m, neg(wi_local), ns.wo_local, st.eta_i, trans);
-        const float w = power2_weight(ns.light_pdf, bpdf);
-        const Trace8 sh = trace_ray<kEngine, true>(
-            sc, ns.origin.x, ns.origin.y, ns.origin.z, ns.dir.x, ns.dir.y,
-            ns.dir.z, ns.max_t, -1, true);
-        rows += sh.rows;
-        const V3 shadow = v3(sh.s0, sh.s1, sh.s2);
-        if (classic) {
-          if (fmaxf(fmaxf(sh.s0, sh.s1), sh.s2) > 0.0f)
-            li = add(li, scale(mul(beta, mul(ns.contrib, shadow)), w));
-        } else {
-          li = add(li, mul(scale(mul(beta, ns.contrib), w), shadow));
-        }
+        w = power2_weight(ns.light_pdf, ns.bsdf_pdf);
+        trace_nee = true;
+        // classic adds (beta * (contrib * shadow)) * w, mega ((beta *
+        // contrib) * w) * shadow
+        nee_pending = classic ? ns.contrib : scale(mul(beta, ns.contrib), w);
       }
     }
   }
 
   // BSDF sampling
-  const BasedDraws bd{&e, kDBsdf};
-  const Sample bs =
-      bsdf_sample(bd, m, albedo, neg(wi_local), s.backface, st.eta_i, trans);
-  const float pdf = fmaxf(bs.pdf, 0.01f);
   if (true_hit) {
+    const BasedDraws bd{&e, kDBsdf};
+    const Sample bs =
+        bsdf_sample(bd, m, neg(wi_local), s.backface, st.eta_i);
+    const float pdf = fmaxf(bs.pdf, 0.01f);
     // medium stack push/pop on refraction through a true-hit boundary
     if (bs.wo.z < 0.0f) {
       if (!s.backface)
-        st.ms.push(s.mat_id, m.priority);
+        st.ms.push(s.mat_id, priority);
       else
         st.ms.remove(s.mat_id);
     }
     beta = scale(mul(beta, bs.f), fabsf(bs.wo.z) / pdf);
     const float side = bs.wo.z > 0.0f ? 1.0f : -1.0f;
     o = add(s.point, scale(s.normal, side * kEps));
-    d = normalize(to_world(bs.wo, s.normal));
+    d = normalize(to_world(bs.wo, fr));
     st.prev_pdf = pdf;
     st.prev_point = s.point;
     ++st.depth;
   } else {
     o = add(s.point, scale(d, kRayEps));  // pass straight through
   }
+  const bool rr = st.depth > p.max_depth + 1;
+  const float u_rr = rr ? e(kDRr) : 0.0f;
+  st.hit_nonspec = st.hit_nonspec || !is_specular;
+
+  if (trace_nee) {
+    const Trace8 sh = trace_ray<kEngine, true>(
+        sc, ns.origin.x, ns.origin.y, ns.origin.z, ns.dir.x, ns.dir.y,
+        ns.dir.z, ns.max_t, -1, true);
+    rows += sh.rows;
+    const V3 shadow = v3(sh.s0, sh.s1, sh.s2);
+    if (classic) {
+      if (fmaxf(fmaxf(sh.s0, sh.s1), sh.s2) > 0.0f)
+        li = add(li, scale(mul(nee_beta, mul(nee_pending, shadow)), w));
+    } else {
+      li = add(li, mul(nee_pending, shadow));
+    }
+  }
 
   // Russian roulette past max_depth
-  if (st.depth > p.max_depth + 1) {
+  if (rr) {
     const float p_surv = fminf(fmaxf(luminance(beta), 0.05f), 0.99f);
-    if (e(kDRr) > p_surv) return false;
+    if (u_rr > p_surv) return false;
     beta = v3(beta.x / p_surv, beta.y / p_surv, beta.z / p_surv);
   }
   if (st.depth >= kHardDepthCap) return false;
-  st.hit_nonspec = st.hit_nonspec || !m.is_specular;
   ++st.lit;
   return st.lit < (classic ? kLitCap : kLitCap + 1);
 }
@@ -395,18 +417,18 @@ __device__ __forceinline__ bool naive_event(const SceneArgs& sc,
     st.li = add(st.li, mul(beta, sample_sky(d, p.sample_environment != 0)));
     return false;
   }
-  const ShadeHit s =
-      shade_fetch(sc.tri_f32, sc.tri_cols, h.tri, h.u, h.v, o, d, h.t);
-  const V3 wi_local = to_local(d, s.normal);
-  const V3 albedo = resolve_albedo(sc.textures, s);
-  const float trans = resolve_transmission(sc.textures, s);
+  const ShadeHit s = shade_fetch(sc.shade, h.tri, h.u, h.v, o, d, h.t);
+  const SurfHeld m =
+      hold(surf(sc.mat_f32, sc.textures, s.mat_id, s.uv0, s.uv1));
+  const Frame fr = frame(s.normal);
+  const V3 wi_local = to_local(d, fr);
   const BasedDraws bd{&e, 0};
-  const Sample bs =
-      bsdf_sample(bd, s.mat, albedo, neg(wi_local), s.backface, 1.0f, trans);
+  const Sample bs = bsdf_sample(bd, m, neg(wi_local), s.backface, 1.0f);
   if (bs.pdf <= 0.0f || length_sq(bs.f) < kEps) return false;
-  st.li = add(st.li, mul(s.emission, beta));
+  st.li = add(st.li,
+              mul(hit_emission(sc.lights.rows, s.light_ind), beta));
   beta = scale(mul(beta, bs.f), fabsf(bs.wo.z) / fmaxf(bs.pdf, 1e-20f));
-  d = to_world(bs.wo, s.normal);
+  d = to_world(bs.wo, fr);
   const float side = bs.wo.z > 0.0f ? 1.0f : -1.0f;
   o = add(s.point, scale(s.normal, side * kRayEps));
   ++st.lit;
@@ -440,12 +462,15 @@ __device__ __forceinline__ void shade_eval_one(const SceneArgs& sc,
                                                float t, int32_t tri, float u,
                                                float v, uint32_t id,
                                                float eta_i, float* out) {
-  const ShadeHit s = shade_fetch(sc.tri_f32, sc.tri_cols, tri, u, v, o, d, t);
-  const Mat& m = s.mat;
-  const V3 wi_local = to_local(d, s.normal);
-  const V3 albedo = resolve_albedo(sc.textures, s);
-  const float trans = resolve_transmission(sc.textures, s);
-  const bool emissive = length_sq(s.emission) > kEps;
+  const ShadeHit s = shade_fetch(sc.shade, tri, u, v, o, d, t);
+  const Surf sm = surf(sc.mat_f32, sc.textures, s.mat_id, s.uv0, s.uv1);
+  const SurfHeld m = hold(sm, true);
+  const Frame fr = frame(s.normal);
+  const V3 wi_local = to_local(d, fr);
+  const V3 albedo = m.albedo();
+  const float trans = m.trans();
+  const bool emissive =
+      length_sq(hit_emission(sc.lights.rows, s.light_ind)) > kEps;
   EventDraws e;
   e.mega_keys = draw_keys;
   e.classic = false;
@@ -454,8 +479,8 @@ __device__ __forceinline__ void shade_eval_one(const SceneArgs& sc,
   NeeSample ns;
   if (sc.lights.count > 0) {
     const BasedDraws nd{&e, kDNee};
-    ns = nee_sample(nd, sc.lights, s.point, s.normal, wi_local, m, albedo,
-                    eta_i, tri >= 0 && !emissive && !m.is_specular, trans);
+    ns = nee_sample(nd, sc.lights, s.point, fr, wi_local, m, eta_i,
+                    tri >= 0 && !emissive && !sm.is_specular());
   } else {
     ns.contrib = ns.wo_local = ns.dir = v3(0.0f, 0.0f, 0.0f);
     ns.light_pdf = -1.0f;
@@ -463,10 +488,11 @@ __device__ __forceinline__ void shade_eval_one(const SceneArgs& sc,
     ns.max_t = 0.0f;
     ns.active = false;
   }
-  const float bpdf = bsdf_pdf(m, neg(wi_local), ns.wo_local, eta_i, trans);
+  const float bpdf = ns.active
+                         ? ns.bsdf_pdf
+                         : bsdf_pdf(m, neg(wi_local), ns.wo_local, eta_i);
   const BasedDraws bd{&e, kDBsdf};
-  const Sample bs =
-      bsdf_sample(bd, m, albedo, neg(wi_local), s.backface, eta_i, trans);
+  const Sample bs = bsdf_sample(bd, m, neg(wi_local), s.backface, eta_i);
   const V3 cols[] = {s.point, s.normal};
   int c = 0;
   for (const V3& x : cols) {
@@ -520,12 +546,21 @@ constexpr int kThreads = 128;
 // row s of keys [k, 28]. Persistent: each thread steps one event of its
 // path per loop trip and takes the next sample or pixel when the path ends
 // (see the header). counter: the next pixel, zero at the launch. lanes
-// (nullable): the lane counters (tpt::add_lane_counts). The explicit
-// minimum of one block a SM leaves ptxas its own register count (125 on
-// BVH8, 121 threaded: four blocks of 128 fit); with no minimum it has
-// targeted more blocks on this persistent kernel and spilled.
-template <int kEngine>
-__global__ void __launch_bounds__(kThreads, 1)
+// (nullable): the lane counters (tpt::add_lane_counts). Built twice, by
+// the minimum of blocks of 128 an SM it asks ptxas for (the result does not
+// depend on it). kMinBlocksWide holds ptxas to 64 registers (~490 bytes of
+// spills, cached): the event's work done before its shadow ray leaves the
+// trace few live values, and the warps it adds hide the traversal's
+// latency (a mega 1080p sample 21.7 ms at 8, 22.1 at 10, 23.4 at 6, 24.3 at
+// 5, 25.7 at ptxas' own 116 registers, four blocks; H100,
+// tools/shade_attribution.py). A frame whose pixels do not fill that grid
+// (256x256: 65,536 pixels against 135,168 threads) gains no warps from it
+// and pays the spills (uni-mega-256 -2 to -3%, naive-256 -5 to -6%), so it
+// takes kMinBlocksNarrow, ptxas' own count (launch_grid).
+constexpr int kMinBlocksWide = 8;
+constexpr int kMinBlocksNarrow = 1;
+template <int kEngine, int kMinBlocks>
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
 uni_mega_kernel(tpt::SceneArgs sc, tpt::Params p,
                 const uint32_t* __restrict__ keys, int32_t k,
                 const int32_t* __restrict__ px,
@@ -619,12 +654,15 @@ shade_eval_kernel(tpt::SceneArgs sc, DrawKeys dk,
 
 // scene: the table pointers (bin: the threaded engine's, or null).
 tpt::SceneArgs make_scene(const float* table, const float* tri_f32,
-                          int32_t tri_cols, const float* light_f32,
+                          int32_t tri_cols, const float* shade,
+                          const float* mat_f32, const float* light_f32,
                           int32_t num_lights, const float* textures,
                           const float* medium, const float* bin = nullptr,
                           int32_t bin_nodes = 0) {
   tpt::SceneArgs sc;
   sc.table = table;
+  sc.shade = reinterpret_cast<const float4*>(shade);
+  sc.mat_f32 = mat_f32;
   sc.bin = bin;
   sc.bin_nodes = bin_nodes;
   sc.tri_f32 = tri_f32;
@@ -641,18 +679,47 @@ bool schedule_ok(int32_t schedule) {
          schedule == tpt::kScheduleMega || schedule == tpt::kScheduleNaive;
 }
 
-// K5's resident grid for n pixels on the scene's engine.
-int resident_grid(int32_t engine, int64_t n, unsigned& blocks) {
+// K5's build for n pixels on engine kEngine (wide: kMinBlocksWide, when
+// the pixels fill its resident grid) and that build's resident grid.
+template <int kEngine>
+int launch_grid(int64_t n, unsigned& blocks, bool& wide) {
+  unsigned full = 0;
+  int err = tpt::resident_grid<uni_mega_kernel<kEngine, kMinBlocksWide>,
+                               kThreads>(INT64_MAX / 2, full);
+  if (err != 0) return err;
+  wide = n >= static_cast<int64_t>(full) * kThreads;
+  return wide ? tpt::resident_grid<uni_mega_kernel<kEngine, kMinBlocksWide>,
+                                   kThreads>(n, blocks)
+              : tpt::resident_grid<
+                    uni_mega_kernel<kEngine, kMinBlocksNarrow>, kThreads>(
+                    n, blocks);
+}
+
+int launch_grid(int32_t engine, int64_t n, unsigned& blocks, bool& wide) {
   return engine == tpt::kEngineThreaded
-             ? tpt::resident_grid<uni_mega_kernel<tpt::kEngineThreaded>,
-                                  kThreads>(n, blocks)
-             : tpt::resident_grid<uni_mega_kernel<tpt::kEngineBvh8>,
-                                  kThreads>(n, blocks);
+             ? launch_grid<tpt::kEngineThreaded>(n, blocks, wide)
+             : launch_grid<tpt::kEngineBvh8>(n, blocks, wide);
+}
+
+template <int kEngine>
+void launch(bool wide, unsigned grid, cudaStream_t st,
+            const tpt::SceneArgs& sc, const tpt::Params& p,
+            const uint32_t* keys, int32_t k, const int32_t* px,
+            const int32_t* py, int64_t n, float* li, int32_t* rays,
+            int32_t* rows, unsigned long long* ctr,
+            unsigned long long* ln) {
+  if (wide)
+    uni_mega_kernel<kEngine, kMinBlocksWide><<<grid, kThreads, 0, st>>>(
+        sc, p, keys, k, px, py, n, li, rays, rows, ctr, ln);
+  else
+    uni_mega_kernel<kEngine, kMinBlocksNarrow><<<grid, kThreads, 0, st>>>(
+        sc, p, keys, k, px, py, n, li, rays, rows, ctr, ln);
 }
 
 }  // namespace
 
 // Samples s0 .. s0+k-1 (k >= 1) of n pixels under the base key (b0, b1):
+// shade: scene.shade_table [T, 16] (16-byte aligned), mat_f32 [M, 26];
 // li [n,3] f32 the sum of each pixel's k radiances in sample order, rays
 // [n] i32 and rows (null, or [n] i32: rows visited, BVH8 rows or threaded
 // nodes) their sums. cam_params: 19 floats (host memory). scratch: 8 + 112
@@ -665,8 +732,9 @@ int resident_grid(int32_t engine, int64_t n, unsigned& blocks) {
 // memory) as the kernel's. Returns the launches' cudaError_t.
 extern "C" int tpt_render_unidirectional(
     const float* table, const float* tri_f32, int32_t tri_cols,
-    const float* light_f32, int32_t num_lights, const float* textures,
-    const float* medium, const int32_t* px, const int32_t* py, int64_t n,
+    const float* shade, const float* mat_f32, const float* light_f32,
+    int32_t num_lights, const float* textures, const float* medium,
+    const int32_t* px, const int32_t* py, int64_t n,
     const float* cam_params, uint32_t b0, uint32_t b1, uint32_t s0,
     int32_t k, int32_t max_depth, int32_t use_mis,
     int32_t sample_environment, int32_t schedule, int32_t air_priority,
@@ -674,18 +742,19 @@ extern "C" int tpt_render_unidirectional(
     float* li, int32_t* rays, int32_t* rows, void* scratch, int32_t blocks,
     void* lanes, void* stream) {
   if (k < 1 || scratch == nullptr || blocks < 0 || !schedule_ok(schedule) ||
+      shade == nullptr || mat_f32 == nullptr ||
       !tpt::engine_ok(engine, bin, bin_nodes, bin_slots))
     return static_cast<int>(cudaErrorInvalidValue);
   if (n <= 0) return 0;
-  unsigned grid = static_cast<unsigned>(blocks);
-  if (grid == 0) {
-    const int err = resident_grid(engine, n, grid);
-    if (err != 0) return err;
-  }
+  unsigned grid = 0;
+  bool wide = false;
+  const int err = launch_grid(engine, n, grid, wide);
+  if (err != 0) return err;
+  if (blocks > 0) grid = static_cast<unsigned>(blocks);
   static const uint32_t kNoKeys[8] = {};
   const tpt::SceneArgs sc =
-      make_scene(table, tri_f32, tri_cols, light_f32, num_lights, textures,
-                 medium, bin, bin_nodes);
+      make_scene(table, tri_f32, tri_cols, shade, mat_f32, light_f32,
+                 num_lights, textures, medium, bin, bin_nodes);
   tpt::Params p;
   p.cam = tpt::make_camera(cam_params, kNoKeys);
   p.max_depth = max_depth;
@@ -700,11 +769,11 @@ extern "C" int tpt_render_unidirectional(
   uni_mega_keys_kernel<<<(k + kThreads - 1) / kThreads, kThreads, 0, st>>>(
       b0, b1, s0, k, ctr);
   if (engine == tpt::kEngineThreaded)
-    uni_mega_kernel<tpt::kEngineThreaded><<<grid, kThreads, 0, st>>>(
-        sc, p, keys, k, px, py, n, li, rays, rows, ctr, ln);
+    launch<tpt::kEngineThreaded>(wide, grid, st, sc, p, keys, k, px, py, n,
+                                 li, rays, rows, ctr, ln);
   else
-    uni_mega_kernel<tpt::kEngineBvh8><<<grid, kThreads, 0, st>>>(
-        sc, p, keys, k, px, py, n, li, rays, rows, ctr, ln);
+    launch<tpt::kEngineBvh8>(wide, grid, st, sc, p, keys, k, px, py, n, li,
+                             rays, rows, ctr, ln);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -713,16 +782,18 @@ extern "C" int tpt_render_unidirectional(
 extern "C" int tpt_render_unidirectional_grid(int32_t engine, int64_t n,
                                               int32_t* blocks) {
   unsigned grid = 0;
-  const int err = resident_grid(engine, n, grid);
+  bool wide = false;
+  const int err = launch_grid(engine, n, grid, wide);
   *blocks = static_cast<int32_t>(grid);
   return err;
 }
 
 // Test entry: the K2-K4 device functions once per hit; out [n, 38] f32
 // (columns: shade_eval_one); keys: the 18 mega draw-key words (host
-// memory). Returns the launch's cudaError_t.
+// memory); shade: scene.shade_table [T, 16], mat_f32 [M, 26]. Returns the
+// launch's cudaError_t.
 extern "C" int tpt_shade_eval(
-    const float* tri_f32, int32_t tri_cols, const float* light_f32,
+    const float* shade, const float* mat_f32, const float* light_f32,
     int32_t num_lights, const float* textures, const float* medium,
     const float* o, const float* d, const float* t, const int32_t* tri,
     const float* u, const float* v, const int32_t* ids, const float* eta_i,
@@ -733,8 +804,8 @@ extern "C" int tpt_shade_eval(
   const unsigned blocks = static_cast<unsigned>((n + kThreads - 1) / kThreads);
   shade_eval_kernel<<<blocks, kThreads, 0,
                       static_cast<cudaStream_t>(stream)>>>(
-      make_scene(nullptr, tri_f32, tri_cols, light_f32, num_lights, textures,
-                 medium),
+      make_scene(nullptr, nullptr, 0, shade, mat_f32, light_f32, num_lights,
+                 textures, medium),
       dk, o, d, t, tri, u, v, ids, eta_i, n, out);
   return static_cast<int>(cudaGetLastError());
 }

@@ -50,12 +50,20 @@ __device__ __forceinline__ V3 clamp_firefly(V3 c) {
                               : c;
 }
 
-// The eye vertex the strategies of one bounce share.
+// The eye vertex the strategies of one bounce share: its material is
+// mat_id's row of mat_f32 with the albedo and transmission the walk
+// resolved (held_of).
 struct EyeVertex {
   V3 pos, n, albedo, thr, to_prev;
   float trans, d_vcm, d_vc, d_vm;
-  Mat m;
+  int32_t mat_id;
 };
+
+// The fields of e's lobe, in registers (bsdf.cuh SurfHeld).
+__device__ __forceinline__ SurfHeld held_of(const SceneRefs& sc,
+                                            const EyeVertex& e) {
+  return surf_held(sc.mat_f32, e.mat_id, e.albedo, e.trans);
+}
 
 // The geometry of the connection of eye vertex e with light vertex lv, and
 // its shadow ray (to dist - RAY_EPSILON from pos + n RAY_EPSILON): false if
@@ -96,24 +104,24 @@ __device__ __forceinline__ V3 conn_terms(const SceneRefs& sc, float eta_vcm,
                                          const ConnRay& c, float& weight) {
   const V3 e2l_u = c.e2l_u;
   const float d2 = c.d2, cos_l = c.cos_l, cos_e = c.cos_e;
-  const Mat ml = mat_of(sc, lv.mat_id);
-  const V3 albedo_l = resolve_albedo(sc.textures, ml, lv.u, lv.v);
-  const float trans_l = resolve_transmission(sc.textures, ml, lv.u, lv.v);
-  const V3 l2e_loc_l = to_local(neg(e2l_u), lv.n);
-  const V3 to_l_from_prev_loc = to_local(neg(lv.wo), lv.n);
-  const V3 l2e_loc_e = to_local(neg(e2l_u), e.n);
-  const V3 to_prev_loc_e = to_local(e.to_prev, e.n);
+  const Frame fl = frame(lv.n), fe = frame(e.n);
+  const V3 l2e_loc_l = to_local(neg(e2l_u), fl);
+  const V3 to_l_from_prev_loc = to_local(neg(lv.wo), fl);
+  const V3 l2e_loc_e = to_local(neg(e2l_u), fe);
+  const V3 to_prev_loc_e = to_local(e.to_prev, fe);
+  // one evaluation a side (f and the pdfs of both directions)
+  const BsdfEval bl =
+      bsdf_eval<true, true>(surf_of(sc, lv.mat_id, lv.u, lv.v), l2e_loc_l,
+                            neg(to_l_from_prev_loc), 1.0f);
+  const BsdfEval be = bsdf_eval<true, true>(held_of(sc, e), neg(l2e_loc_e),
+                                            to_prev_loc_e, 1.0f);
 
-  const float pdf_eye_rev_sa =
-      bsdf_pdf(ml, neg(to_l_from_prev_loc), l2e_loc_l, 1.0f, trans_l);
+  const float pdf_eye_rev_sa = bl.pdf_rev;
   const float pdf_eye_rev_area = pdf_eye_rev_sa * cos_e / d2;
-  const float pdf_bef_eye_rev_sa =
-      bsdf_pdf(e.m, neg(l2e_loc_e), to_prev_loc_e, 1.0f, e.trans);
-  const float pdf_light_rev_sa =
-      bsdf_pdf(e.m, to_prev_loc_e, neg(l2e_loc_e), 1.0f, e.trans);
+  const float pdf_bef_eye_rev_sa = be.pdf;
+  const float pdf_light_rev_sa = be.pdf_rev;
   const float pdf_light_rev_area = pdf_light_rev_sa * cos_l / d2;
-  const float pdf_bef_light_rev_sa =
-      bsdf_pdf(ml, l2e_loc_l, neg(to_l_from_prev_loc), 1.0f, trans_l);
+  const float pdf_bef_light_rev_sa = bl.pdf;
   const float w_eye = pdf_eye_rev_area *
                       (eta_vcm + e.d_vcm + pdf_bef_eye_rev_sa * e.d_vc);
   const float w_light =
@@ -121,24 +129,24 @@ __device__ __forceinline__ V3 conn_terms(const SceneRefs& sc, float eta_vcm,
       (eta_vcm + lv.d_vcm + pdf_bef_light_rev_sa * lv.d_vc);
   weight = 1.0f / (1.0f + w_eye + w_light);
 
-  const V3 f_eye =
-      bsdf_f(e.m, e.albedo, neg(l2e_loc_e), to_prev_loc_e, 1.0f, e.trans);
-  const V3 f_light = bsdf_f(ml, albedo_l, l2e_loc_l, neg(to_l_from_prev_loc),
-                            1.0f, trans_l);
+  const V3 f_eye = be.f;
+  const V3 f_light = bl.f;
   const float gg = fminf(cos_e * cos_l / d2, kMaxGConnect);
   return scale(mul(mul(mul(e.thr, lv.beta), f_eye), f_light), gg);
 }
 
-// s = 1 under VCM's weights at eye vertex e (its shade-time normal): the
-// light point keyed fold_in(bounce key, 7), one shadow ray to dist -
-// EPSILON skipping the light's triangle (counted), w_light the squared
-// ratio; ptc_local: pos - prev_pt in e's frame. Returns the clamped
-// weighted contribution, zero where the ray is blocked or the light faces
-// away.
-template <int kEngine>
+// s = 1 under VCM's weights at eye vertex e (its shade-time normal, fe its
+// frame; m its lobe): the light point keyed fold_in(bounce key, 7), one
+// shadow ray to dist - EPSILON skipping the light's triangle (counted),
+// w_light the squared ratio; ptc_local: pos - prev_pt in e's frame. The
+// BSDF terms and the weight are computed before the trace, so only they
+// live across it. Returns the clamped weighted contribution, zero where the
+// ray is blocked or the light faces away.
+template <int kEngine, class S>
 __device__ __forceinline__ V3 nee_vcm(const SceneRefs& sc,
                                       const Weighting& wt, float eta_vcm,
-                                      const EyeVertex& e, const KeyDraws& bd,
+                                      const EyeVertex& e, const Frame& fe,
+                                      const S& m, const KeyDraws& bd,
                                       uint32_t id, V3 ptc_local,
                                       int32_t& rays, int32_t& rows) {
   ++rays;
@@ -151,34 +159,31 @@ __device__ __forceinline__ V3 nee_vcm(const SceneRefs& sc,
   const float dist = sqrtf(d2);
   const V3 stl_u = v3(stl.x / dist, stl.y / dist, stl.z / dist);
   const V3 origin = add(e.pos, scale(e.n, kRayEps));
+  const float cos_light = dot(lp.n, neg(stl_u));
+  const float cos_surf = fabsf(dot(e.n, stl_u));
+  const float gn = fminf(cos_light * cos_surf / d2, kMaxGNee);
+  const float pdf_connect = (1.0f / num) / fmaxf(lp.area, 1e-20f);
+  const float pdf_emit_sa = cos_light / kPi;
+  const V3 stl_local = to_local(stl_u, fe);
+  const BsdfEval be =
+      bsdf_eval<true, true>(m, neg(ptc_local), stl_local, 1.0f);
+  const float pdf_bsdf_area = be.pdf * fabsf(cos_light) / d2;
+  const float ratio = pdf_bsdf_area / fmaxf(pdf_connect, 1e-20f);
+  const float w_light = ratio * ratio;
+  const float pdf_curr_rev_area = pdf_emit_sa * fabsf(stl_local.z) / d2;
+  const float w_eye =
+      pdf_curr_rev_area * (eta_vcm + e.d_vcm + be.pdf_rev * e.d_vc);
+  const float weight = 1.0f / (1.0f + w_light + w_eye);
+  const float gs = gn / pdf_connect;
   const Trace8 sh = trace_ray<kEngine, true>(sc, origin.x, origin.y,
                                              origin.z, stl_u.x, stl_u.y,
                                              stl_u.z, dist - kEps, lp.tri,
                                              true);
   rows += sh.rows;
-  const float cos_light = dot(lp.n, neg(stl_u));
   if (!(max3(sh.s0, sh.s1, sh.s2) > 0.0f && cos_light >= kEps))
     return v3(0.0f, 0.0f, 0.0f);
-  const float cos_surf = fabsf(dot(e.n, stl_u));
-  const float gn = fminf(cos_light * cos_surf / d2, kMaxGNee);
-  const float pdf_connect = (1.0f / num) / fmaxf(lp.area, 1e-20f);
-  const float pdf_emit_sa = cos_light / kPi;
-  const V3 stl_local = to_local(stl_u, e.n);
-  const V3 f = bsdf_f(e.m, e.albedo, neg(ptc_local), stl_local, 1.0f,
-                      e.trans);
   const V3 contrib =
-      scale(mul(mul(v3(sh.s0, sh.s1, sh.s2), f), lp.le), gn / pdf_connect);
-  const float pdf_bsdf_sa =
-      bsdf_pdf(e.m, neg(ptc_local), stl_local, 1.0f, e.trans);
-  const float pdf_bsdf_area = pdf_bsdf_sa * fabsf(cos_light) / d2;
-  const float ratio = pdf_bsdf_area / fmaxf(pdf_connect, 1e-20f);
-  const float w_light = ratio * ratio;
-  const float pdf_curr_rev_area = pdf_emit_sa * fabsf(stl_local.z) / d2;
-  const float pdf_prev_rev_sa =
-      bsdf_pdf(e.m, stl_local, neg(ptc_local), 1.0f, e.trans);
-  const float w_eye =
-      pdf_curr_rev_area * (eta_vcm + e.d_vcm + pdf_prev_rev_sa * e.d_vc);
-  const float weight = 1.0f / (1.0f + w_light + w_eye);
+      scale(mul(mul(v3(sh.s0, sh.s1, sh.s2), be.f), lp.le), gs);
   return clamp_firefly(wt(mul(contrib, e.thr), weight));
 }
 
@@ -192,7 +197,7 @@ __device__ __forceinline__ V3 implicit_vcm(const SceneRefs& sc,
                                            bool prev_delta, int depth) {
   const float num =
       static_cast<float>(sc.lights.count > 1 ? sc.lights.count : 1);
-  const float* lr = sc.lights.rows + 17 * static_cast<int64_t>(light_ind);
+  const float* lr = light_row(sc.lights.rows, light_ind);
   const float area = __ldg(lr + 15);
   const float cos_l = dot(e.n, e.to_prev);
   const float pdf_connect =
@@ -203,19 +208,20 @@ __device__ __forceinline__ V3 implicit_vcm(const SceneRefs& sc,
   return depth > 0 ? clamp_firefly(out) : out;
 }
 
-// The merge of photon ph at eye vertex e (prev_loc: the direction to the
-// previous vertex in e's frame): returns (beta_p f) thr and its MIS weight.
-__device__ __forceinline__ V3 merge_term(const EyeVertex& e, V3 prev_loc,
+// The merge of photon ph at eye vertex e (m: its lobe, fe: its frame,
+// prev_loc: the direction to the previous vertex in it): returns (beta_p f)
+// thr and its MIS weight. One fused evaluation gives f and both pdfs.
+template <class S>
+__device__ __forceinline__ V3 merge_term(const EyeVertex& e, const S& m,
+                                         const Frame& fe, V3 prev_loc,
                                          const Photon& ph, float eta,
                                          float& weight) {
-  const V3 wi_loc = to_local(ph.wi, e.n);
-  const V3 f = bsdf_f(e.m, e.albedo, wi_loc, prev_loc, 1.0f, e.trans);
-  const float pdf_eye_rev = bsdf_pdf(e.m, wi_loc, prev_loc, 1.0f, e.trans);
-  const float pdf_light_rev = bsdf_pdf(e.m, prev_loc, wi_loc, 1.0f, e.trans);
-  const float w_eye = e.d_vcm / eta + pdf_eye_rev * e.d_vm;
-  const float w_light = ph.d_vcm / eta + pdf_light_rev * ph.d_vm;
+  const V3 wi_loc = to_local(ph.wi, fe);
+  const BsdfEval b = bsdf_eval<true, true>(m, wi_loc, prev_loc, 1.0f);
+  const float w_eye = e.d_vcm / eta + b.pdf * e.d_vm;
+  const float w_light = ph.d_vcm / eta + b.pdf_rev * ph.d_vm;
   weight = 1.0f / (1.0f + w_eye + w_light);
-  return mul(mul(ph.beta, f), e.thr);
+  return mul(mul(ph.beta, b.f), e.thr);
 }
 
 }  // namespace tpt

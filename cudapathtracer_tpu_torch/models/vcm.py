@@ -547,12 +547,9 @@ def merge_terms(e, idx, row, eta_vcm: float):
     prev_loc = e["prev_loc"][idx]
     ones = torch.ones(idx.shape[0], dtype=torch.float32, device=idx.device)
     wi_loc = to_local(wi, nrm)
-    f_val = bsdf_ops.bsdf_f(mat, albedo, wi_loc, prev_loc, ones,
-                            transmission=trans)
-    pdf_eye_rev = bsdf_ops.bsdf_pdf(mat, wi_loc, prev_loc, ones,
-                                    transmission=trans)
-    pdf_light_rev = bsdf_ops.bsdf_pdf(mat, prev_loc, wi_loc, ones,
-                                      transmission=trans)
+    # f and both pdfs in one evaluation, as the kernels' merge does
+    f_val, pdf_eye_rev, pdf_light_rev = bsdf_ops.bsdf_eval(
+        mat, albedo, wi_loc, prev_loc, ones, transmission=trans)
     w_eye = true_div(e["d_vcm"][idx], eta) + pdf_eye_rev * e["d_vm"][idx]
     w_light = true_div(p_d_vcm, eta) + pdf_light_rev * p_d_vm
     weight = 1.0 / (1.0 + w_eye + w_light)

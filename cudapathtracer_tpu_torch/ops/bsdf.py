@@ -286,6 +286,69 @@ def bsdf_pdf(mat, wi, wo, eta_i, transmission=None):
     return torch.where(t == MAT_DELTAMIRROR, 1.0, pdf)
 
 
+def _metal_pdf_hd(hn, d, wo):
+    """metal_pdf from its half vector hn = normalize(wi + wo) and D."""
+    denom = 4.0 * dot(wo, hn)
+    sign = torch.where(denom >= 0, 1.0, -1.0)
+    return d * hn[..., 2] / (sign * torch.clamp(torch.abs(denom), min=1e-8))
+
+
+def bsdf_eval(mat, albedo, wi, wo, eta_i, transmission=None):
+    """f(wi, wo), pdf(wi, wo) and pdf(wo, wi) in one evaluation that shares
+    the half vector normalize(wi + wo), its D and the lobe's Fresnel and G
+    terms between them, as the kernels' fused evaluation does
+    (kernels/csrc/bsdf.cuh bsdf_eval; the merge term, NEE and the
+    connections): bsdf_f and bsdf_pdf both ways, bit for bit (D of the
+    upper half vector equals D of the half vector: d_ggx squares h.z).
+    -> (f [N,3], pdf [N], pdf_rev [N])."""
+    t = mat.type
+    trans = mat.transmission if transmission is None else transmission
+    r = mat.roughness
+    wiz, woz = wi[..., 2], wo[..., 2]
+    hn = normalize(wi + wo)
+    d = d_ggx(hn[..., 2], r * r)
+    h = _upper(hn)
+    alpha = r * r
+    g = g_smith(wiz, woz, alpha)
+    denom = torch.clamp(4.0 * wiz * woz, min=EPSILON)
+    # metal
+    valid = (wiz > 0.0) & (woz > 0.0)
+    f_metal = torch.where(
+        valid[..., None],
+        (d * g / denom)[..., None] * fresnel_conductor(dot(wi, h), mat.eta,
+                                                       mat.k), 0.0)
+    # leaf
+    is_refl = woz * wiz > 0.0
+    fres = fresnel_schlick(wiz, eta_i, mat.ior)
+    mf = fresnel_schlick(dot(wi, h), eta_i, mat.ior)
+    f_cuticle = (d * g * mf / denom)[..., None]
+    f_refl = (((1.0 - mf) * (1.0 - trans))[..., None] * cosine_f(albedo)
+              + f_cuticle)
+    f_trans = cosine_f(albedo) * (trans * (1.0 - fres))[..., None]
+    f_leaf = torch.where(is_refl[..., None], f_refl, f_trans)
+
+    def leaf_pdf_hd(a, b):
+        fr = fresnel_schlick(torch.abs(a[..., 2]), eta_i, mat.ior)
+        fr = torch.minimum(fr, 1.0 - 0.1 * r)
+        p_diff_refl = (1.0 - fr) * (1.0 - trans)
+        p_diff_trans = (1.0 - fr) * trans
+        pdf_refl = fr * _metal_pdf_hd(hn, d, b) + p_diff_refl * cosine_pdf(b)
+        return torch.where(is_refl, pdf_refl, cosine_pdf(-b) * p_diff_trans)
+
+    f = torch.where((t == MAT_DIFFUSE)[..., None], cosine_f(albedo), 0.0)
+    f = torch.where((t == MAT_METAL)[..., None], f_metal, f)
+    f = torch.where((t == MAT_LEAF)[..., None], f_leaf, f)
+    f = torch.where((t == MAT_DELTAMIRROR)[..., None],
+                    mirror_f(wo)[..., None], f)
+    pdfs = []
+    for a, b in ((wi, wo), (wo, wi)):
+        pdf = torch.where(t == MAT_DIFFUSE, cosine_pdf(b), 0.0)
+        pdf = torch.where(t == MAT_METAL, _metal_pdf_hd(hn, d, b), pdf)
+        pdf = torch.where(t == MAT_LEAF, leaf_pdf_hd(a, b), pdf)
+        pdfs.append(torch.where(t == MAT_DELTAMIRROR, 1.0, pdf))
+    return f, pdfs[0], pdfs[1]
+
+
 def bsdf_sample(key, draw_base, mat, albedo, wi, backface, eta_i,
                 transport_mode=TRANSPORT_RADIANCE, transmission=None,
                 ids=None, draws=None):

@@ -35,9 +35,11 @@ sectors of one 96-byte record and a leaf's triangles are 16-byte loads:
 flat: head then tris, 24 M + 12 S floats.
 
 `shade_data` is the plain version of the hit fetch (K2, device code in
-kernels/csrc/shade.cuh): one gather of the packed shading row and the
-barycentric interpolation; `interpolate_hit` (the BDPT walks' fetch)
-returns the same record without the material fields.
+kernels/csrc/shade.cuh): one gather of the hit triangle's record of
+scene.shade_table and the barycentric interpolation, the material by id
+from scene.mat_f32 and a light's emission and area from its light row;
+`interpolate_hit` (the BDPT walks' fetch) returns the same record without
+the material fields.
 """
 
 from __future__ import annotations
@@ -266,66 +268,79 @@ def _i32(x):
     return x.contiguous().view(torch.int32)
 
 
-def shade_data(scene, o, d, hit: Hit):
-    """One packed-row gather -> (info dict, per-hit MaterialTable rows).
-    Layout of the row: scene/scene.py Scene.tri_shade_row."""
+def mat_rows(scene, mat_id):
+    """The MaterialTable rows of mat_id [N] from scene.mat_f32 (its layout
+    is the JAX shade row's columns 20:46, bit for bit)."""
     from cudapathtracer_tpu_torch.scene.materials import MaterialTable
 
-    row = scene.tri_shade_row[torch.clamp(hit.tri, min=0)]   # [N,48]
+    row = scene.mat_f32[mat_id]                               # [N,26]
+    ints = _i32(row)
+    return MaterialTable(
+        type=ints[:, 0],
+        albedo=row[:, 1:4],
+        roughness=row[:, 4],
+        eta=row[:, 5:8],
+        k=row[:, 8:11],
+        ior=row[:, 11],
+        transmission=row[:, 12],
+        is_specular=ints[:, 13] != 0,
+        boundary=ints[:, 14] != 0,
+        thin_walled=ints[:, 15] != 0,
+        absorption=row[:, 16:19],
+        priority=ints[:, 19],
+        tex_start=ints[:, 20],
+        tex_width=ints[:, 21],
+        tex_height=ints[:, 22],
+        trans_tex_start=ints[:, 23],
+        trans_tex_width=ints[:, 24],
+        trans_tex_height=ints[:, 25],
+    )
+
+
+def shade_data(scene, o, d, hit: Hit):
+    """The hit fetch: one gather of the hit triangle's 64-byte record of
+    scene.shade_table (layout: scene/scene.py shade_table) -> (info dict,
+    per-hit MaterialTable rows). The material is mat_id's row of mat_f32;
+    emission and area are the hit light's (light_f32 columns 12:15 and 15;
+    zero off the lights, where no caller reads the area), normal_a the
+    vertex-a normal, as the JAX shade row holds them."""
+    rec = scene.shade_table[torch.clamp(hit.tri, min=0)]     # [N,16]
     w0 = 1.0 - hit.u - hit.v
     u, v = hit.u[:, None], hit.v[:, None]
-    nrm = normalize(row[:, 0:3] * w0[:, None] + row[:, 3:6] * u
-                    + row[:, 6:9] * v)
+    nrm = normalize(rec[:, 0:3] * w0[:, None] + rec[:, 3:6] * u
+                    + rec[:, 6:9] * v)
     backface = dot(nrm, d) > 0.0
     nrm = torch.where(backface[:, None], -nrm, nrm)
-    uv = row[:, 9:11] * w0[:, None] + row[:, 11:13] * u + row[:, 13:15] * v
-    ints = _i32(row[:, 18:21])
+    uv = rec[:, 9:11] * w0[:, None] + rec[:, 11:13] * u + rec[:, 13:15] * v
+    word = _i32(rec[:, 15])
+    mat_id = word & 1023
+    light = word >> 10
+    lit = light >= 0
+    lrow = scene.light_f32[torch.clamp(light, min=0)]
     info = dict(
         point=o + d * hit.t[:, None],
         normal=nrm,
         uv=uv,
-        emission=row[:, 15:18],
-        light_ind=ints[:, 0],
-        mat_id=ints[:, 1],
+        emission=torch.where(lit[:, None], lrow[:, 12:15], 0.0),
+        light_ind=light,
+        mat_id=mat_id,
         backface=backface,
         valid=hit.valid,
         t=hit.t,
         tri=hit.tri,
-        normal_a=row[:, 0:3],   # vertex-a normal and area: the light's
-        area=row[:, 46],        # normal and area for the NEE counter-pdf
+        normal_a=rec[:, 0:3],   # vertex-a normal and area: the light's
+        area=torch.where(lit, lrow[:, 15], 0.0),  # for the NEE counter-pdf
     )
-    flags = _i32(row[:, 33:36])
-    texi = _i32(row[:, 39:46])
-    mat = MaterialTable(
-        type=ints[:, 2],
-        albedo=row[:, 21:24],
-        roughness=row[:, 24],
-        eta=row[:, 25:28],
-        k=row[:, 28:31],
-        ior=row[:, 31],
-        transmission=row[:, 32],
-        is_specular=flags[:, 0] != 0,
-        boundary=flags[:, 1] != 0,
-        thin_walled=flags[:, 2] != 0,
-        absorption=row[:, 36:39],
-        priority=texi[:, 0],
-        tex_start=texi[:, 1],
-        tex_width=texi[:, 2],
-        tex_height=texi[:, 3],
-        trans_tex_start=texi[:, 4],
-        trans_tex_width=texi[:, 5],
-        trans_tex_height=texi[:, 6],
-    )
-    return info, mat
+    return info, mat_rows(scene, mat_id)
 
 
 def interpolate_hit(scene, o, d, hit: Hit) -> dict:
     """Counterpart of the JAX package's interpolate_hit: the interpolated
     shading data at hit points (point, normal flipped toward the ray, uv,
     emission, mat_id, light_ind, backface, valid, t, tri). The JAX function
-    gathers the per-triangle columns; the packed shading row holds the same
-    normals, uvs, emission and ids, interpolated in the same order, so this
-    is shade_data's record."""
+    gathers the per-triangle columns; the shading record holds the same
+    normals, uvs and ids, interpolated in the same order, and a light's row
+    the same emission, so this is shade_data's record."""
     info, _ = shade_data(scene, o, d, hit)
     keys = ("point", "normal", "uv", "emission", "mat_id", "light_ind",
             "backface", "valid", "t", "tri")

@@ -74,11 +74,16 @@ K5 and K11-K13 instantiation of the build (the library is rebuilt with
     scene (K5's classic schedule only: its mega schedule traces BVH8), and
     --sort times K8's sort against torch.sort on the 1080p VCM keys with
     its launches and a digest of its outputs (sort_times);
-    tools/k8_k15_attribution.py runs both on copies of a tree, in turns.
-  * --dump also writes, per engine, the eye passes' walk and connection
-    stages (the classic VCM pass; on BVH8 also K14's VCM and BDPT
+    tools/k8_k15_attribution.py runs both on copies of a tree, in turns;
+  * --shade times the shading transition (K2-K4) in its test entry and in
+    every kernel it runs in, and --merge the merge query (K9) in its entry
+    and its two hosts, the classic and K14 gathers (shade_hosts);
+    tools/shade_attribution.py runs them on copies of a tree, in turns.
+  * --dump also writes, per engine, the eye passes' walk, connection and
+    gather stages (the classic VCM pass; on BVH8 also K14's VCM and BDPT
     flavours, chunk 0): their records and contributions (zeroed before
-    the stages, so unwritten entries compare), rays and rows; and K11's
+    the stages, so unwritten entries compare), the gather's radiance and
+    merge-dropped counts, rays and rows; and K11's
     queue (both forms): the tile offsets, each tile's entries in
     ascending order (the queue has no order inside a tile), the rays, and
     the trace stage's rows (eye_k11_cases).
@@ -93,7 +98,7 @@ repository root:
     python3 tools/eye_attribution.py [--root DIR] [--toggles] [--reps 2]
         [--bit-equal] [--renders [--cells REGEX] [--spp-256 N]]
         [--dump DIR [--dump-cases REGEX]] [--per 1 6 42] [--walks] [--k1]
-        [--k15] [--sort] [--reuse-build] [--json FILE]
+        [--k15] [--sort] [--shade] [--merge] [--reuse-build] [--json FILE]
     python3 tools/eye_attribution.py --compare DUMP_A DUMP_B
 """
 
@@ -137,14 +142,15 @@ def _events_ms(fn, reps: int = 3) -> float:
 
 def ptxas_eye(log: str) -> dict:
     """{entry: (registers, stack bytes, spill stores, spill loads, shared
-    bytes)} of the eye-pass, K1, K5, K11-K13, K15 and K8-sort kernels in a
+    bytes)} of the eye-pass, K1, K5, K11-K13, K15, K8-sort, K2-K4 entry and
+    K9 entry kernels in a
     ptxas -v report (a kernel that calls a function that is not inlined
     reports that function's stack frame first: its first numbers are the
     callee's)."""
     out = {}
     for m in re.finditer(r"Compiling entry function "
                          r"'([^']*(?:eye|uni_mega|bdpt_|splat_|traverse8|"
-                         r"traverse_bin|radix_)"
+                         r"traverse_bin|radix_|shade_eval|slots_kernel)"
                          r"[^']*)'"
                          r".*?(\d+) bytes stack frame, (\d+) bytes spill "
                          r"stores, (\d+) bytes spill loads.*?Used (\d+) "
@@ -554,6 +560,10 @@ def eye_k11_cases(scene, cam, px, py, bcfg, cfg0, eng: str) -> dict:
         if ep.conn is not None:
             kernels.eye_connect(ep)
             t["conn"] = ep.conn
+        # the merge and the ordered sums (K9 in the gather)
+        ep.out.zero_()
+        kernels.eye_gather(ep)
+        t.update(gather_out=ep.out, gather_dropped=ep.dropped)
         t.update(rays=ep.rays, rows=ep.rows)
         out[case] = {k: v.contiguous().cpu() for k, v in t.items()}
 
@@ -676,6 +686,138 @@ def trace_hosts(root: str, scene, cam, px, py, bcfg, cfg0, reps: int,
     return res
 
 
+def shade_inputs(scene, cam, px, py):
+    """chip_smoke's phase-6 hits on the 1080p bunny scene: the first 2^19
+    primary hits of sample 0, then a random ray from each of them (seed
+    11), ~1M rays with their closest hits, ids and eta_i: the K2-K4
+    entry's arguments (o, d, hit, ids, eta_i, skey)."""
+    import numpy as np
+    import torch
+    from cudapathtracer_tpu_torch.ops import traverse8
+    from cudapathtracer_tpu_torch.utils import rng
+    dev = px.device
+    ids = rng.pixel_ids(px, py).contiguous()
+    ckey = rng.fold_in(rng.sample_key(rng.base_key(), 0), 2 ** 20)
+    o, d = cam.generate_rays(ckey, px.float(), py.float(), ids)
+    gen = np.random.default_rng(11)
+    h0 = traverse8.closest_hit8(scene, o, d)
+    sel = torch.nonzero(h0.valid)[:, 0][: 1 << 19]
+    p0 = o[sel] + d[sel] * h0.t[sel, None]
+    rd = torch.as_tensor(gen.normal(size=(sel.numel(), 3)),
+                         dtype=torch.float32, device=dev)
+    rd = rd / rd.norm(dim=1, keepdim=True)
+    eo = torch.cat([o[sel], (p0 - d[sel] * 1e-4)]).contiguous()
+    ed = torch.cat([d[sel], rd]).contiguous()
+    eh = traverse8.closest_hit8(scene, eo, ed)
+    ne = eo.shape[0]
+    lit = torch.as_tensor(gen.integers(0, 12, ne), dtype=torch.int32,
+                          device=dev)
+    eids = (torch.cat([sel, sel]).to(torch.int32) * 191 + lit)
+    eta = torch.as_tensor(gen.choice([1e-5, 1.0, 1.333, 1.5], ne),
+                          dtype=torch.float32, device=dev)
+    return eo, ed, eh, eids, eta, rng.sample_key(rng.base_key(), 3)
+
+
+def shade_hosts(root: str, scenes: dict, cam, px, py, bcfg, cfg0,
+                reps: int, merge_only: bool = False, log=print) -> dict:
+    """Every kernel the shading transition (K2-K4) runs in, and the merge
+    query (K9), one 1080p sample's launch each by CUDA events on the
+    bunny scene (sample 0): {name: ms}. With merge_only, the merge's
+    hosts and entry alone: the classic VCM eye pass's gather, K14's gather
+    (VCM flavour, chunk 0) and K9's neighbor_slots entry (slots mode on
+    chunk 0's grid, the chunk's first hits as queries, the tree's
+    chip_smoke.first_hits). Otherwise also the K2-K4 entry (shade_eval on
+    shade_inputs' hits), K5's mega, classic and naive schedules on the
+    BVH8 scene and its classic schedule on the threaded one, K12's light
+    and eye walks, K11's trace stage, K13's pair stage, the classic VCM
+    eye pass's walk and connections, and K14's walk and connections."""
+    import torch
+    from cudapathtracer_tpu_torch import kernels
+    from cudapathtracer_tpu_torch.models import (bdpt, bdpt_mega, paths,
+                                                 unidirectional_mega, vcm)
+    from cudapathtracer_tpu_torch.ops import hashgrid
+    spec = importlib.util.spec_from_file_location(
+        "tree_chip_smoke", os.path.join(root, "chip_smoke.py"))
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    scene = scenes["bvh8"]
+    n, dev = px.shape[0], px.device
+    res = {}
+
+    def timed(name, fn):
+        res[name] = _events_ms(fn, reps)
+        log(f"[shade] {name}: {res[name]:.3f} ms")
+
+    def cfg_of(integ, engine):
+        c = dataclasses.replace(cfg0, integrator=integ,
+                                engine=engine).normalized()
+        if integ == "BIDIRECTIONAL":
+            return bdpt_mega.as_machine_cfg(bdpt.BDPTConfig.from_config(c))
+        return vcm.VCMConfig.from_config(c)
+    z = lambda m: torch.zeros(m, dtype=torch.int32, device=dev)
+    if not merge_only:
+        args = shade_inputs(scene, cam, px, py)
+        timed("K2-K4 entry (shade_eval)",
+              lambda: unidirectional_mega.shade_eval(scene, *args))
+        del args
+        for sched in ("mega", "classic", "naive"):
+            timed(f"K5 {sched}", lambda: k5(scene, cam, px, py, sched, 0, 1))
+        if "threaded" in scenes:
+            timed("K5 classic threaded", lambda: k5(
+                scenes["threaded"], cam, px, py, "classic", 0, 1))
+        key_l, key_e, key_c = bdpt_keys()
+        rays = z(n)
+        timed("K12 light walk", lambda: kernels.bdpt_walk(
+            scene, px, py, paths.walk_keys(key_l, "light"), mode="light",
+            max_depth=bcfg.light_depth, rays=rays))
+        timed("K12 eye walk", lambda: kernels.bdpt_walk(
+            scene, px, py, paths.walk_keys(key_e, "eye"), mode="eye",
+            max_depth=bcfg.eye_depth, rays=rays, camera=cam))
+        lw, ew, _ = k13_inputs(scene, cam, px, py, bcfg)
+        fb = torch.zeros((n, 3), device=dev)
+        sp = kernels.splat_pass(scene, cam, lw["bufs"], lw["v0"], fb, rays,
+                                bcfg)
+        sp.bin()
+        timed("K11 trace", sp.trace)
+        timed("K13 pairs", lambda: kernels.bdpt_pairs(
+            scene, cam, key_c, ew, lw, rays, bcfg, px=px, py=py))
+        del sp, lw, ew, fb
+    cv = cfg_of("VCM", "classic")
+    inp = classic_inputs(scene, px, py, cv)
+    ep = kernels.vcm_eye_pass(
+        scene, cam, inp["keys"], inp["lb"], inp["grid"], None, z(n), cv,
+        px=px, py=py, merge_radius=inp["mr"], eta_vcm=inp["eta"],
+        merge_norm=inp["norm"], **hashgrid.merge_switches(cv.max_per_cell))
+    kernels.eye_walk(ep)
+    kernels.eye_connect(ep)
+    if not merge_only:
+        timed("eye walk", lambda: kernels.eye_walk(ep))
+        timed("eye connect", lambda: kernels.eye_connect(ep))
+    timed("eye gather", lambda: kernels.eye_gather(ep))
+    del ep, inp
+    mc = cfg_of("VCM", "mega")
+    ch = mega_inputs(scene, px, py, mc, "vcm")[0]
+    ep = kernels.mega_eye_pass(
+        scene, cam, ch["keys"], ch["lb"], ch["grid"],
+        torch.zeros((n, 3), device=dev), z(ch["pxc"].shape[0]), mc,
+        px=ch["pxc"], py=ch["pyc"], cnt=ch["cnt"], gbase=ch["gbase"],
+        flavor="vcm", merge_radius=ch["mr"], eta_vcm=ch["eta"],
+        merge_norm=ch["norm"], **hashgrid.merge_switches(mc.max_per_cell))
+    kernels.eye_walk(ep)
+    kernels.eye_connect(ep)
+    if not merge_only:
+        timed("K14 walk (chunk 0)", lambda: kernels.eye_walk(ep))
+        timed("K14 connect (chunk 0)", lambda: kernels.eye_connect(ep))
+    timed("K14 gather (chunk 0)", lambda: kernels.eye_gather(ep))
+    del ep
+    q, hit = smoke.first_hits(scene, cam, ch["pxc"], ch["pyc"], 0)
+    sw = hashgrid.merge_switches(mc.max_per_cell)
+    timed("K9 entry (neighbor_slots)", lambda: kernels.neighbor_slots(
+        ch["grid"], q, ch["mr"], mc.max_per_cell, mode="slots", active=hit,
+        **sw))
+    return res
+
+
 def sort_times(scene, px, py, cfg0, reps: int, log=print) -> dict:
     """K8's sort on the 1080p VCM sample's photons (sample 0's light walk,
     12,441,600 candidates): the tree's photon_sort (on the buckets, or on
@@ -747,6 +889,10 @@ def compare(a: str, b: str) -> int:
         return 1
     for name in names:
         x = torch.load(os.path.join(a, name))
+        if not os.path.exists(os.path.join(b, name)):
+            bad += 1
+            print(f"[ab] {name[:-3]}: MISSING in {b}", flush=True)
+            continue
         y = torch.load(os.path.join(b, name))
         if "li" not in x:   # every output's digest (K12: dead rows too)
             diff = [k for k in x if x[k] != y.get(k)]
@@ -1127,6 +1273,11 @@ def main() -> int:
                     "threaded scene (trace_hosts)")
     ap.add_argument("--sort", action="store_true", help="time K8's sort "
                     "against torch.sort on the 1080p VCM keys (sort_times)")
+    ap.add_argument("--shade", action="store_true", help="time every kernel "
+                    "the shading transition K2-K4 runs in, its entry and "
+                    "the merge's hosts (shade_hosts)")
+    ap.add_argument("--merge", action="store_true", help="time the merge "
+                    "query K9's hosts (the gathers) and entry alone")
     ap.add_argument("--reuse-build", action="store_true", help="keep the "
                     "tree's kernel library and ptxas report if they are up "
                     "to date (a later turn of tools/k1_attribution.py)")
@@ -1135,7 +1286,8 @@ def main() -> int:
         return 1 if compare(*args.compare) else 0
     toggles = args.toggles or not (args.renders or args.bit_equal
                                    or args.dump or args.per or args.walks
-                                   or args.k1 or args.k15 or args.sort)
+                                   or args.k1 or args.k15 or args.sort
+                                   or args.shade or args.merge)
     root = os.path.abspath(args.root)
     sys.path.insert(0, root)
     import torch
@@ -1182,7 +1334,7 @@ def main() -> int:
     px, py = gx.reshape(-1).contiguous(), gy.reshape(-1).contiguous()
     mesh = builtin.cornell_with_bunny(subdivisions=6)
     bvh8_only = not (toggles or args.bit_equal or args.dump or args.renders
-                     or args.per or args.k15)
+                     or args.per or args.k15 or args.shade)
     scenes = {t: build_scene(mesh, builtin_materials(), traversal=t,
                              device=dev)[0]
               for t in (("bvh8",) if bvh8_only else ("bvh8", "threaded"))}
@@ -1211,6 +1363,9 @@ def main() -> int:
     if args.k15:
         out["k15"] = trace_hosts(root, scenes["threaded"], cam, px, py, bcfg,
                                  cfg0, args.reps, log)
+    if args.shade or args.merge:
+        out["shade"] = shade_hosts(root, scenes, cam, px, py, bcfg, cfg0,
+                                   args.reps, not args.shade, log)
     if args.sort:
         out["sort"] = sort_times(scenes["bvh8"], px, py, cfg0, args.reps, log)
     if args.json:
