@@ -11,7 +11,17 @@ Phases (one line each; any failure exits non-zero before the result line):
      registers, stack frame and spill bytes (ptxas), those of the kernels
      K1 runs in also on K1's rows of the kernels line;
   3. K6 (rng.cu) against its plain version on 2,073,600 ids: bit-equal;
-  4. K7 (camera.cu) against its plain version at 1920x1080: max abs <= 1e-6;
+     timed by CUDA graph replay (graph_ms: the device's time; a call from
+     the host, by CUDA events, is printed beside it); the bound's INT32
+     rate (64 lanes x the SMs x clocks.max.sm) and the
+     cipher's SASS (cuobjdump of rng.cu's keyed draw kernel) are printed
+     first; 3b. each key table the hosts' prologues fold on the card
+     (keys.cuh: K5's draw-key tables of its three schedules, K12's, the
+     classic eye walk's, K13's s=1 table) bit-equal to its plain builder;
+  4. K7 (camera.cu) against its plain version at 1920x1080 on the
+     reference pinhole (aperture 1e-6, the lens live), a camera of aperture
+     0 (no lens; every origin the camera's) and a thin lens: max abs
+     <= 1e-6, each timed as K6;
   5. K1 (traverse8.cu) against its plain version on the ~82k-triangle
      Cornell + bunny scene: closest hits of the 1080p primary rays and of
      random secondary rays (ids equal on >= 99.99% of rays, every mismatch
@@ -140,7 +150,8 @@ Phases (one line each; any failure exits non-zero before the result line):
      4 for mega; CUDA events of the batch against the singles;
  26. K6's keyed mode bit-equal to uniform_keyed's plain version on
      2,073,600 ids with per-lane key pairs; K12's table mode (the keyed
-     light walk of models/light_mega.py) bit-equal to its folded mode on
+     light walk of models/light_mega.py, its table folded on the host)
+     bit-equal to the walk on the table its prologue folds, on
      chunk 0 of the 1080p mega partition (1,036,800 light paths), VCM and
      BDPT flavours, both timed, and against its plain version (the classic
      walk drawing from the same tables; compare_walk, rays within 0.1%),
@@ -339,29 +350,40 @@ MEGA_KERNELS = {
                       "mega_eye_connect", "mega_eye_gather")}
 EYE_STAGES = ("walk", "connect", "gather")
 # The card's peaks (H100 SXM data sheet) for the
-# bound: bytes over memory bandwidth, scalar operations (integer or float,
-# one per instruction: the kernels are built with -fmad=false) over the
-# float32 rate outside the tensor cores. Both are lower bounds on time.
+# bound: bytes over memory bandwidth, scalar operations (one per
+# instruction: the kernels are built with -fmad=false) over the float32
+# rate outside the tensor cores, and Threefry's integer instructions over
+# the INT32 rate. All are lower bounds on time.
 PEAK_BYTES_S = 3.35e12
 PEAK_OPS_S = 67e12
+# The INT32 rate: 64 lanes a clock on each SM (half the FP32 pipe's),
+# times the SMs and the SM clock nvidia-smi reports as the card's maximum
+# (clocks.max.sm), set in main() from this card (int32_rate). A Threefry
+# draw is SASS_PER_CIPHER integer instructions (IADD3, SHF.L.W, LOP3),
+# counted in rng.cu's keyed draw kernel of this build by cuobjdump
+# (sass_counts), and enters a bound as OPS_PER_DRAW float32-equivalent
+# operations: SASS_PER_CIPHER x PEAK_OPS_S / PEAK_INT32_S (set_draw_ops).
+INT32_LANES_PER_SM = 64
+PEAK_INT32_S = 64 * 132 * 1.98e9      # replaced by int32_rate() in main()
+SASS_PER_CIPHER = 72                  # replaced by the build's count
 # scalar operations, counted from the sources: one BVH8 row visited in
 # traverse8.cuh (8 slab tests x 27, the 19-comparator sort x 2, 7 pushes
-# x 3, 4 Moller-Trumbore tests x 52, the leaf fold 7); one Threefry-2x32
-# draw in threefry.cuh (20 rounds x 5, 5 key injections x 3, the unit
-# conversion 2); one K7 pixel (4 draws and ~60 float ops).
+# x 3, 4 Moller-Trumbore tests x 52, the leaf fold 7); one K7 pixel (2
+# draws at aperture 0, 4 with the lens, and ~60 float ops).
 OPS_PER_ROW = 490
 # one threaded node row in traverse_bin.cuh: the slab test (~27) and the
 # link select (~5); each triangle test of a hit leaf one Moller-Trumbore
 # test (52), counted by the plain walk on the same rays
 OPS_PER_BIN_ROW = 32
 OPS_PER_TRI_TEST = 52
-OPS_PER_DRAW = 117
-OPS_PER_CAMERA_RAY = 4 * OPS_PER_DRAW + 60
-# BDPT (bdpt.cuh), counted the same way: a stored walk vertex (the bounce
-# key fold and two draws, 5 Threefry calls, and ~300 float ops of shading,
-# BSDF sample and MIS step; encoding ~60); one decoded vertex (two oct
-# decodes, ~40); one codec round trip in packing.cu (~120)
-OPS_PER_WALK_VERTEX = 5 * OPS_PER_DRAW + 360
+OPS_PER_DRAW = SASS_PER_CIPHER * PEAK_OPS_S / PEAK_INT32_S
+OPS_PER_CAMERA_RAY = 4 * OPS_PER_DRAW + 60      # the lens on
+OPS_PER_PINHOLE_RAY = 2 * OPS_PER_DRAW + 60     # aperture 0
+# BDPT (bdpt.cuh), counted the same way: a stored walk vertex (two draws,
+# one cipher each under the walk's key table, and ~300 float ops of
+# shading, BSDF sample and MIS step; encoding ~60); one decoded vertex
+# (two oct decodes, ~40); one codec round trip in packing.cu (~120)
+OPS_PER_WALK_VERTEX = 2 * OPS_PER_DRAW + 360
 OPS_PER_DECODE = 40
 # K11's first stage: a vertex's flag test, world_to_raster (~25) and its
 # tile (~10)
@@ -370,9 +392,9 @@ OPS_PER_CODEC = 120
 # the photon grid (hashgrid.cuh, photon_grid.cu): one photon's oct decode
 # and encode (~70), half2 codes (~10), cell, hash and key (~20)
 OPS_PER_PHOTON = 100
-# RGB9E5 (packing.cuh): a double log and two double exps counted as ~25
-# scalar operations each, clamps, rounding and packing ~45
-OPS_PER_RGB9E5 = 120
+# RGB9E5 (packing.cuh): its kernel's SASS arithmetic (the double log and
+# exps, clamps, rounding and packing), each instruction at its pipe's
+# rate (sass_ops_ms)
 # K9's slots (hashgrid.cuh): a query's 8 cell hashes and table reads
 # (~200), each slot's index and distance test (~20)
 OPS_PER_QUERY = 200
@@ -435,6 +457,34 @@ def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
         fn()
     end.record()
     torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def graph_ms(fn, reps: int = 20) -> float:
+    """Device milliseconds per call: `reps` calls captured in one CUDA
+    graph, replayed between CUDA events. A short kernel's wrapper (its
+    checks, allocations and, for K7, the host's key folds) can take longer
+    than the kernel, and cuda_ms then times the host; the replay leaves it
+    out."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    del graph
     return start.elapsed_time(end) / reps
 
 
@@ -501,6 +551,91 @@ def peak_gib(base: int) -> str:
     peak = torch.cuda.max_memory_allocated()
     return (f"{peak / 2**30:.3f} GiB ({(peak - base) / 2**30:.3f} GiB above "
             "what was allocated before the render)")
+
+
+def int32_rate(card_clock_mhz: float, sms: int) -> float:
+    """The INT32 pipe's instructions a second: 64 lanes a clock an SM."""
+    return INT32_LANES_PER_SM * sms * card_clock_mhz * 1e6
+
+
+def set_draw_ops(sass_per_cipher: float, peak_int32: float) -> None:
+    """A draw's cost in float32-equivalent operations from this build's
+    cipher and this card's INT32 rate, and the counts built on it."""
+    global SASS_PER_CIPHER, PEAK_INT32_S, OPS_PER_DRAW, OPS_PER_CAMERA_RAY
+    global OPS_PER_PINHOLE_RAY, OPS_PER_WALK_VERTEX
+    SASS_PER_CIPHER, PEAK_INT32_S = sass_per_cipher, peak_int32
+    OPS_PER_DRAW = SASS_PER_CIPHER * PEAK_OPS_S / PEAK_INT32_S
+    OPS_PER_CAMERA_RAY = 4 * OPS_PER_DRAW + 60
+    OPS_PER_PINHOLE_RAY = 2 * OPS_PER_DRAW + 60
+    OPS_PER_WALK_VERTEX = 2 * OPS_PER_DRAW + 360
+
+
+def sass_counts(lib: str, kernel: str) -> dict:
+    """{opcode (without modifiers): count} of the SASS of the first kernel
+    in the library whose name contains `kernel` (cuobjdump -sass), or {}
+    when cuobjdump is missing or finds none."""
+    from torch.utils.cpp_extension import CUDA_HOME
+    tool = os.path.join(CUDA_HOME or "/usr/local/cuda", "bin", "cuobjdump")
+    if not os.path.exists(tool):
+        return {}
+    out = subprocess.run([tool, "-sass", lib], capture_output=True,
+                         text=True, timeout=300).stdout
+    counts, inside = {}, False
+    for line in out.splitlines():
+        if "Function :" in line:
+            if inside:
+                break
+            inside = kernel in line
+            continue
+        m = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?"
+                     r"([A-Z][A-Z0-9_]*)", line)
+        if inside and m:
+            counts[m.group(1)] = counts.get(m.group(1), 0) + 1
+    return counts
+
+
+def cipher_sass(counts: dict) -> int:
+    """The integer instructions of one Threefry cipher (and the few of
+    its kernel's addresses) in a kernel that runs one: IADD3, SHF, LOP3."""
+    return sum(counts.get(k, 0) for k in ("IADD3", "SHF", "LOP3"))
+
+
+# lanes a clock an SM of the pipes sass_ops_ms times (H100: FP64 64, the
+# special-function unit 16, INT32 64); float32 instructions at PEAK_OPS_S
+SASS_PIPES = {"fp64": 64, "mufu": 16, "int32": INT32_LANES_PER_SM}
+
+
+def sass_pipe(op: str) -> str | None:
+    """The pipe an arithmetic SASS opcode issues to, or None for memory,
+    control and conversion instructions (not counted)."""
+    if op in ("DADD", "DMUL", "DFMA", "DSETP", "DMNMX"):
+        return "fp64"
+    if op == "MUFU":
+        return "mufu"
+    if op.startswith(("IADD", "IMAD", "ISETP", "IMNMX", "IABS", "LEA", "SHF",
+                      "LOP", "SEL", "PRMT", "FLO", "POPC", "BREV")):
+        return "int32"
+    if op in ("FADD", "FMUL", "FFMA", "FSETP", "FMNMX", "FSEL", "FSET",
+              "FCHK", "FRND"):
+        return "fp32"
+    return None
+
+
+def sass_ops_ms(counts: dict, threads: int, clock_mhz: float,
+                sms: int) -> float:
+    """The least ms `threads` threads each running the instructions of
+    `counts` once could take: each pipe's lanes-instructions over its rate,
+    the slowest pipe."""
+    per = {}
+    for op, c in counts.items():
+        pipe = sass_pipe(op)
+        if pipe is not None:
+            per[pipe] = per.get(pipe, 0) + c
+    ms = [per.get("fp32", 0) * threads / PEAK_OPS_S * 1e3]
+    for pipe, lanes in SASS_PIPES.items():
+        ms.append(per.get(pipe, 0) * threads
+                  / (lanes * sms * clock_mhz * 1e6) * 1e3)
+    return max(ms)
 
 
 def bound_ms(nbytes: float, ops: float) -> tuple:
@@ -2219,6 +2354,23 @@ def main() -> int:
     k1_hosts = {k: ptxas_of(ptxas_log, k) for k in K1_HOSTS}
     stats["closest_hit8"]["ptxas"] = stats["shadow_factor8"]["ptxas"] = \
         k1_hosts
+    # the INT32 rate of this card and the cipher's SASS in this build: the
+    # bound of every count that holds Threefry draws
+    clk = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                          "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, timeout=60)
+    clk_mhz = float(clk.stdout.strip().splitlines()[0])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    keyed_sass = sass_counts(kernels.LIBRARY, "uniform_keyed_kernel")
+    check(cipher_sass(keyed_sass) > 0, "cuobjdump found no SASS of "
+          "uniform_keyed_kernel in the library")
+    set_draw_ops(cipher_sass(keyed_sass), int32_rate(clk_mhz, sms))
+    say("bound", f"INT32 rate {INT32_LANES_PER_SM} lanes x {sms} SMs x "
+        f"{clk_mhz:.0f} MHz = {PEAK_INT32_S:.4g} instructions/s; one "
+        f"Threefry draw {SASS_PER_CIPHER} SASS integer instructions "
+        f"(uniform_keyed_kernel: " + ", ".join(
+            f"{k} {v}" for k, v in sorted(keyed_sass.items())) + ") = "
+        f"{OPS_PER_DRAW:.1f} float32-equivalent operations ({card})")
 
     # --- 3. K6
     n = WIDTH * HEIGHT
@@ -2238,34 +2390,100 @@ def main() -> int:
     stats["uniform_id"].update(
         bound=bound_ms(n * 8, n * OPS_PER_DRAW),
         max_abs_err=0.0,
-        ms=cuda_ms(lambda: rng.uniform_draw_key(k0, k1, ids), 50),
+        ms=graph_ms(lambda: rng.uniform_draw_key(k0, k1, ids)),
+        call_ms=cuda_ms(lambda: rng.uniform_draw_key(k0, k1, ids), 50),
         plain_ms=cuda_ms(lambda: rng.uniform_draw_key_plain(k0, k1, ids), 10))
+    stats["uniform_id"]["sass_per_cipher"] = SASS_PER_CIPHER
     say("K6", f"{n} ids bit-equal (both words); kernel "
-        f"{stats['uniform_id']['ms']:.4f} ms, plain "
-        f"{stats['uniform_id']['plain_ms']:.4f} ms")
+        f"{stats['uniform_id']['ms']:.4f} ms (graph replay; a call from "
+        f"the host {stats['uniform_id']['call_ms']:.4f} ms), plain "
+        f"{stats['uniform_id']['plain_ms']:.4f} ms, bound "
+        f"{stats['uniform_id']['bound'][0]:.5f} ms "
+        f"({stats['uniform_id']['bound'][1]}) ({card})")
 
-    # --- 4. K7
+    # --- 3b. the key tables the hosts' prologues fold on the card
+    # (keys.cuh), each bit-equal to its plain builder: K5's draw-key tables
+    # of its three schedules (4 samples from sample 3), K12's under key_l and
+    # key_e, the classic eye walk's under key_e and K13's s=1 table under
+    # key_c, at the main paths' depths
+    cfg_k = load_config(os.path.join(ROOT, "configs", "cornell.rendertron"))
+    bcfg_k = bdpt.BDPTConfig.from_config(cfg_k)
+    key_l, key_e, key_c = bdpt.sample_keys(rng.base_key(), 2)
+    vkey_l, vkey_e = vcm.sample_keys(rng.base_key(), 2)
+    vcfg_k = vcm.VCMConfig.from_config(cfg_k)
+    tables = []
+    for sched in ("classic", "naive", "mega"):
+        rows_ = kernels.uni_key_rows(sched, DEPTH)
+        tables.append((f"K5 {sched} ({max(rows_, 1)} rows x 9, 4 samples)",
+                       kernels.key_table("uni", rng.base_key(), [3, 4, rows_],
+                                         dev),
+                       unidirectional.sample_key_table(rng.base_key(), 3, 4,
+                                                       rows_)))
+    for tag, key_, depth_ in (("K12 light (BDPT)", key_l,
+                               bcfg_k.light_depth),
+                              ("K12 eye (BDPT)", key_e, bcfg_k.eye_depth),
+                              ("K12 light (VCM)", vkey_l,
+                               vcfg_k.light_depth + 1)):
+        tables.append((f"{tag}, depth {depth_}",
+                       kernels.key_table("walk", key_, [depth_], dev),
+                       paths.walk_key_table(key_, depth_)))
+    tables.append((f"classic eye walk, depth {vcfg_k.eye_depth}",
+                   kernels.key_table("eye", vkey_e, [vcfg_k.eye_depth], dev),
+                   vcm.eye_key_table(vkey_e, vcfg_k.eye_depth)))
+    tables.append((f"K13 s=1, eye depth {bcfg_k.eye_depth}",
+                   kernels.key_table("nee", key_c, [bcfg_k.eye_depth], dev),
+                   bdpt.nee_key_table(key_c, bcfg_k.eye_depth)))
+    for tag, got, want in tables:
+        check(torch.equal(got.cpu(), want), f"key table {tag}: the card's "
+              "pairs are not bit-equal to the plain builder")
+    say("K6 tables", "; ".join(f"{tag}: {got.shape[0]} pairs"
+                              for tag, got, _ in tables)
+        + " bit-equal to the plain builders")
+
+    # --- 4. K7 on the main paths' camera (the reference pinhole: aperture
+    # 1e-6, its lens live), a camera of aperture 0 (no lens: two draws)
+    # and a thin lens, each against its plain version (1e-6: cos, sin and
+    # rsqrt of the two may differ in the last ulp); at aperture 0 every
+    # origin is the camera's
     cam = Camera.pinhole((0.0, 0.0, 1.0), WIDTH, HEIGHT, 0.0, 0.0, 0.0, 60.0)
     lens = Camera.thin_lens((0.0, 0.0, 1.0), WIDTH, HEIGHT, 0.0, 0.0, 0.0,
                             60.0, 0.05, 1.5)
+    hole = Camera.thin_lens((0.0, 0.0, 1.0), WIDTH, HEIGHT, 0.0, 0.0, 0.0,
+                            60.0, 0.0, 1.0 / 60.0)
     ckey = rng.fold_in(rng.sample_key(rng.base_key(), 0), 2 ** 20)
     fx, fy = px.float(), py.float()
-    err7 = 0.0
-    for c in (cam, lens):
+    err7, k7 = 0.0, {}
+    for tag, c, ops in (("reference pinhole", cam, OPS_PER_CAMERA_RAY),
+                        ("aperture 0", hole, OPS_PER_PINHOLE_RAY),
+                        ("thin lens", lens, OPS_PER_CAMERA_RAY)):
         ko, kd = c.generate_rays(ckey, fx, fy, ids)
         po, pd = c.generate_rays_plain(ckey, fx, fy, ids)
-        err7 = max(err7, (ko - po).abs().max().item(),
-                   (kd - pd).abs().max().item())
-    check(err7 <= 1e-6, f"K7: max abs error {err7:.3g} > 1e-6")
+        err = max((ko - po).abs().max().item(), (kd - pd).abs().max().item())
+        check(err <= 1e-6, f"K7 {tag}: max abs error {err:.3g} > 1e-6")
+        if c.aperture == 0.0:
+            check(bool((ko == torch.tensor(c.origin, device=dev)).all()),
+                  "K7 aperture 0: an origin is not the camera's")
+        err7 = max(err7, err)
+        k7[tag] = dict(
+            ms=graph_ms(lambda: c.generate_rays(ckey, fx, fy, ids)),
+            call_ms=cuda_ms(lambda: c.generate_rays(ckey, fx, fy, ids), 50),
+            plain_ms=cuda_ms(lambda: c.generate_rays_plain(ckey, fx, fy,
+                                                           ids), 10),
+            bound=bound_ms(n * (12 + 24), n * ops), err=err)
+        say("K7", f"{WIDTH}x{HEIGHT} {tag} (aperture {c.aperture:g}): max "
+            f"abs err {err:.3g}; kernel {k7[tag]['ms']:.4f} ms (graph "
+            f"replay; a call from the host, which folds the four draw keys, "
+            f"{k7[tag]['call_ms']:.4f} ms), plain "
+            f"{k7[tag]['plain_ms']:.4f} ms, bound {k7[tag]['bound'][0]:.4f} "
+            f"ms ({k7[tag]['bound'][1]}) ({card})")
     stats["generate_rays"].update(
-        bound=bound_ms(n * (12 + 24), n * OPS_PER_CAMERA_RAY),
-        max_abs_err=err7,
-        ms=cuda_ms(lambda: cam.generate_rays(ckey, fx, fy, ids), 50),
-        plain_ms=cuda_ms(lambda: cam.generate_rays_plain(ckey, fx, fy, ids),
-                         10))
-    say("K7", f"{WIDTH}x{HEIGHT} pinhole + thin lens, max abs err "
-        f"{err7:.3g}; kernel {stats['generate_rays']['ms']:.4f} ms, plain "
-        f"{stats['generate_rays']['plain_ms']:.4f} ms")
+        bound=k7["reference pinhole"]["bound"], max_abs_err=err7,
+        ms=k7["reference pinhole"]["ms"],
+        plain_ms=k7["reference pinhole"]["plain_ms"],
+        ms_aperture_0=k7["aperture 0"]["ms"],
+        bound_ms_aperture_0=k7["aperture 0"]["bound"][0],
+        ms_thin_lens=k7["thin lens"]["ms"],
+        call_ms=k7["reference pinhole"]["call_ms"])
 
     # --- 5. K1
     t0 = time.perf_counter()
@@ -2767,7 +2985,7 @@ def main() -> int:
                        + tbytes_terms,
                        int(crows.sum()) * OPS_PER_ROW
                        + everts * (bcfg.light_depth * OPS_PER_DECODE
-                                   + 7 * OPS_PER_DRAW)),
+                                   + 3 * OPS_PER_DRAW)),
         max_abs_err=err13["pairs"],
         ms=cuda_ms(lambda: kernels.bdpt_pairs(
             scene, cam, key_c, ew, lw, rst, bcfg, px=px, py=py), 3),
@@ -2996,17 +3214,29 @@ def main() -> int:
     # engines' retirement, inside uni_mega.cu's mega schedule and K14)
     rc = rgb9e5_inputs(n).to(dev)
     compare_rgb9e5(kernels.rgb9e5_roundtrip(rc), rc, f"{n} colours")
+    # the bound: the bytes (a colour in, its code and the colour out), or
+    # the kernel's SASS arithmetic at each pipe's rate, as K6's is counted
+    rgb_sass = sass_counts(kernels.LIBRARY, "rgb9e5_kernel")
+    rgb_ops_ms = sass_ops_ms(rgb_sass, n, clk_mhz, sms)
+    check(rgb_sass != {}, "cuobjdump found no SASS of rgb9e5_kernel")
+    rgb_bytes_ms = n * (12 + 4 + 12) / PEAK_BYTES_S * 1e3
     stats["rgb9e5"].update(
-        bound=bound_ms(n * (12 + 4 + 12), n * OPS_PER_RGB9E5),
+        bound=(max(rgb_bytes_ms, rgb_ops_ms),
+               "bytes" if rgb_bytes_ms >= rgb_ops_ms else "operations"),
         max_abs_err=0.0,
-        ms=cuda_ms(lambda: kernels.rgb9e5_roundtrip(rc), 20),
+        ms=graph_ms(lambda: kernels.rgb9e5_roundtrip(rc)),
+        call_ms=cuda_ms(lambda: kernels.rgb9e5_roundtrip(rc), 20),
         plain_ms=cuda_ms(lambda: packing.unpack_rgb9e5(
             packing.pack_rgb9e5(rc)), 5))
     say("K10", f"RGB9E5: {n} colours (zeros, negatives, subnormals, values "
         "above 65408 and infinities, every power of two and rounding edge "
         "of the range) packed and decoded bit-equal; kernel "
-        f"{stats['rgb9e5']['ms']:.4f} ms, plain "
-        f"{stats['rgb9e5']['plain_ms']:.4f} ms")
+        f"{stats['rgb9e5']['ms']:.4f} ms (graph replay; a call from the "
+        f"host {stats['rgb9e5']['call_ms']:.4f} ms), plain "
+        f"{stats['rgb9e5']['plain_ms']:.4f} ms; bound bytes "
+        f"{rgb_bytes_ms:.4f} ms, SASS arithmetic {rgb_ops_ms:.4f} ms ("
+        + ", ".join(f"{k} {v}" for k, v in sorted(rgb_sass.items())
+                    if sass_pipe(k)) + f") ({card})")
     del rc
 
     # --- 21. K14, the mega eye pass, against its plain version on every
@@ -3197,8 +3427,9 @@ def main() -> int:
 
     # --- 26. the keyed draws: K6's keyed mode bit-equal to uniform_keyed's
     # plain version on 2,073,600 ids with per-lane key pairs, then K12's
-    # table mode (the keyed light walk of light_mega) against its folded
-    # mode on chunk 0 of the 1080p mega partition (1,036,800 light paths),
+    # table mode (the keyed light walk of light_mega, its host-folded
+    # table) against the walk whose prologue folds the same table on the
+    # card, on chunk 0 of the 1080p mega partition (1,036,800 light paths),
     # in the VCM flavour (eta_vcm) and the BDPT flavour
     gen = np.random.default_rng(23)
     kw0 = torch.as_tensor(gen.integers(0, 2 ** 32, n, dtype=np.uint64)
@@ -3212,11 +3443,15 @@ def main() -> int:
           "version")
     stats["uniform_keyed"].update(
         bound=bound_ms(n * 16, n * OPS_PER_DRAW), max_abs_err=0.0,
-        ms=cuda_ms(lambda: rng.uniform_keyed(kw0, kw1, ids), 50),
+        ms=graph_ms(lambda: rng.uniform_keyed(kw0, kw1, ids)),
+        call_ms=cuda_ms(lambda: rng.uniform_keyed(kw0, kw1, ids), 50),
         plain_ms=cuda_ms(lambda: rng.uniform_keyed_plain(kw0, kw1, ids), 10))
     say("K6 keyed", f"{n} ids with per-lane key pairs bit-equal; kernel "
-        f"{stats['uniform_keyed']['ms']:.4f} ms, plain "
-        f"{stats['uniform_keyed']['plain_ms']:.4f} ms")
+        f"{stats['uniform_keyed']['ms']:.4f} ms (graph replay; a call from "
+        f"the host {stats['uniform_keyed']['call_ms']:.4f} ms), plain "
+        f"{stats['uniform_keyed']['plain_ms']:.4f} ms, bound "
+        f"{stats['uniform_keyed']['bound'][0]:.5f} ms "
+        f"({stats['uniform_keyed']['bound'][1]}) ({card})")
     del kw0, kw1, uk, up
     vc0 = vcm.VCMConfig.from_config(load_config(os.path.join(
         ROOT, "configs", "cornell.rendertron")))
@@ -3242,11 +3477,11 @@ def main() -> int:
         diverged = ((tw["bufs"].valid != fw["bufs"].valid).any(0)
                     | ((tw["bufs"].pt != fw["bufs"].pt).any(-1)).any(0))
         check(int(diverged.sum()) == 0, f"K12 table mode {flavor}: "
-              f"{int(diverged.sum())} lanes diverged from the folded mode")
+              f"{int(diverged.sum())} lanes diverged from the card's table")
         for name_, a_, b_ in zip(paths.PathBuffers._fields, tw["bufs"],
                                  fw["bufs"]):
             check(torch.equal(a_, b_), f"K12 table mode {flavor}: {name_} "
-                  "differs from the folded mode")
+                  "differs from the walk on the card's table")
         for k_ in fw["v0"]:
             check(torch.equal(tw["v0"][k_], fw["v0"][k_]),
                   f"K12 table mode {flavor}: endpoint {k_} differs")
@@ -3255,9 +3490,9 @@ def main() -> int:
                          cuda_ms(lambda: lwalk(None), 3))
         say("K12 table", f"{flavor} flavour, chunk 0 ({ch0.c_pix} light "
             f"paths, depth {depth_}): 0 lanes diverged, buffers, endpoint "
-            f"and {int(tr.sum())} rays bit-equal to the folded mode; table "
-            f"mode {tb_ms[flavor][0]:.3f} ms, folded {tb_ms[flavor][1]:.3f} "
-            f"ms ({card})")
+            f"and {int(tr.sum())} rays bit-equal to the walk on the card's "
+            f"table; table mode {tb_ms[flavor][0]:.3f} ms, the card's table "
+            f"{tb_ms[flavor][1]:.3f} ms ({card})")
         # path regeneration in the table mode: the resident grid against
         # one block per SM, bit-equal
         tgrid = walk_grids(scene, pxc0, pyc0, paths.walk_keys(key_l0,
@@ -3786,7 +4021,7 @@ def main() -> int:
 
     # --- 28. TPT_MEGA_LIGHT=1: BDPT-mega and VCM-mega at 1080p, 1 sample,
     # against the toggle-off render of the same Renderer. The keyed walk's
-    # buffers are bit-equal to the folded walk's and the eye pass is
+    # buffers are bit-equal to the classic walk's and the eye pass is
     # deterministic, so the images differ only through the splat's
     # atomicAdd order (BDPT's vertex 0 is the endpoint the same table-mode
     # launch writes): rays equal, pixels within 1e-6 + 1e-5 |x|. A second
@@ -3911,7 +4146,9 @@ def main() -> int:
          "library_ms": stats[name].get("library_ms"),
          **{key: stats[name][key] for key in stats[name]
             if key.startswith("library_ms_")
-            or key in ("ptxas", "traversals_on_main_path")},
+            or key in ("ptxas", "traversals_on_main_path", "ms_aperture_0",
+                       "bound_ms_aperture_0", "ms_thin_lens",
+                       "sass_per_cipher", "call_ms")},
          **({"launches_of_the_kernel_it_runs_in": inside[name]}
             if name in inside else {}),
          **{key: stats[name][key] for key in ("lane_use", "event_balance")

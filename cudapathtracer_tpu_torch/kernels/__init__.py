@@ -4,7 +4,8 @@ Sources live in kernels/csrc (sm_90a): one .cu per launchable kernel family
 and one .cuh of device code per TPU kernel, shared between them (K1
 traverse8.cuh, K15 traverse_bin.cuh (the threaded binary engine, whose
 batch entries are traverse_bin.cu), K7 camera.cuh, K2 shade.cuh, K3
-bsdf.cuh, K4 nee.cuh, K6 threefry.cuh, K10 packing.cuh, K12's MIS step
+bsdf.cuh, K4 nee.cuh, K6 threefry.cuh and its key tables keys.cuh, K10
+packing.cuh, K12's MIS step
 mis.cuh, the BDPT bodies bdpt.cuh, persistent threads persistent.cuh; the
 persistent megakernel K5, uni_mega.cu, and the BDPT kernels K11
 bdpt_splat.cu, K12 bdpt_walk.cu and K13's two stages bdpt_pairs.cu and
@@ -52,12 +53,14 @@ Each wrapper below checks its tensors (device, dtype, shape, contiguity),
 allocates the outputs, launches, raises if the launch was refused, and then
 adds one to its entry of `launches`. The launch counters are the package's
 only global state besides the persistent kernels' scratch (K5's and
-K12's id counter, and K5's key table, one buffer a device and stream,
+K12's id counter, and K5's key tables, one buffer a device and stream,
 written on the card by each launch);
-`reset_launches()` zeroes them. No wrapper waits for the card: the few
-words a launch reads from device memory (key tables) are copied from
-pinned memory without blocking (upload_words), or, for K5, derived on the
-card.
+`reset_launches()` zeroes them. No wrapper waits for the card: the key
+tables a launch's draws read (keys.cuh: K5's, K12's, the classic eye
+walk's, K13's pairs') are folded on the card by a prologue queued before
+the kernel from the key words the launch takes by value, into scratch the
+wrapper allocates; the few words the keyed walk's host table holds are
+copied from pinned memory without blocking (upload_words).
 
 Compile flags: -O3 and -fmad=false, no --use_fast_math (so sqrtf and
 division are correctly rounded). -fmad=false keeps every a*b+c rounded
@@ -85,10 +88,10 @@ SOURCES = ("rng.cu", "camera.cu", "traverse8.cu", "traverse_bin.cu",
            "bdpt_pairs.cu", "bdpt_gather.cu", "photon_grid.cu",
            "neighbor_slots.cu", "eye_walk.cu", "eye_connect.cu",
            "eye_gather.cu", "radix_sort.cu")
-HEADERS = ("threefry.cuh", "camera.cuh", "traverse8.cuh", "traverse_bin.cuh",
-           "shade.cuh", "bsdf.cuh", "nee.cuh", "packing.cuh", "mis.cuh",
-           "bdpt.cuh", "hashgrid.cuh", "vcm.cuh", "mega.cuh", "eye.cuh",
-           "persistent.cuh")
+HEADERS = ("threefry.cuh", "keys.cuh", "camera.cuh", "traverse8.cuh",
+           "traverse_bin.cuh", "shade.cuh", "bsdf.cuh", "nee.cuh",
+           "packing.cuh", "mis.cuh", "bdpt.cuh", "hashgrid.cuh", "vcm.cuh",
+           "mega.cuh", "eye.cuh", "persistent.cuh")
 _REPO_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 BUILD_DIR = os.path.join(_REPO_ROOT, "build", "torch_ext")
@@ -104,6 +107,7 @@ SCHEDULES = {"classic": 0, "mega": 1, "naive": 2}
 EYE_FLAVORS = {"classic": 0, "vcm": 1, "bdpt": 2}   # eye.cuh kEye*
 SLOT_MODES = {"slots": 0, "compact": 1, "gather": 2}
 ENGINES = {"bvh8": 0, "threaded": 1}   # traverse_bin.cuh kEngine*
+KEY_PAIR_WORDS = 2    # keys.cuh KeyPair: uint32 words a pair of a key table
 
 # kernel name -> launches since the last reset_launches()
 launches = {"closest_hit8": 0, "shadow_factor8": 0, "closest_hit_bin": 0,
@@ -112,7 +116,7 @@ launches = {"closest_hit8": 0, "shadow_factor8": 0, "closest_hit_bin": 0,
             "packing_roundtrip": 0, "bdpt_walk": 0, "bdpt_splat": 0,
             "bdpt_pairs": 0, "bdpt_gather": 0, "vcm_splat": 0,
             "photon_pack": 0, "photon_sort": 0, "photon_table": 0,
-            "vcm_eye": 0, "rgb9e5": 0,
+            "vcm_eye": 0, "rgb9e5": 0, "key_table": 0,
             "neighbor_slots": 0, "mega_eye": 0, "naive": 0,
             "uniform_keyed": 0, "bdpt_walk_table": 0,
             # K11's two stages (bdpt_splat.cu), counted beside the splat's
@@ -238,6 +242,12 @@ def _load(stack_d: int = STACK_D):
             i32, i32, i32, i32, i32, i32, p, i32, i32, p, p, p, p, i32, p, p]
         lib.tpt_render_unidirectional_grid.restype = ctypes.c_int
         lib.tpt_render_unidirectional_grid.argtypes = [i32, i64, p]
+        lib.tpt_render_unidirectional_scratch.restype = ctypes.c_int64
+        lib.tpt_render_unidirectional_scratch.argtypes = [i32, i32, i32]
+        lib.tpt_render_unidirectional_key_rows.restype = ctypes.c_int32
+        lib.tpt_render_unidirectional_key_rows.argtypes = [i32, i32]
+        lib.tpt_key_table.restype = ctypes.c_int64
+        lib.tpt_key_table.argtypes = [i32, u32, u32, p, p, p]
         lib.tpt_shade_eval.restype = ctypes.c_int
         lib.tpt_shade_eval.argtypes = [p, p, p, i32, p, p, p, p, p, p, p,
                                        p, p, p, i64, p, p, p]
@@ -341,6 +351,45 @@ def uniform_keyed(ids: torch.Tensor, k0: torch.Tensor, k1: torch.Tensor):
         _launch("uniform_keyed", lib, lib.tpt_uniform_keyed, ids.data_ptr(),
                 k0.data_ptr(), k1.data_ptr(), u0.data_ptr(), n, _stream(dev))
     return u0
+
+
+KEY_TABLES = {"uni": 0, "walk": 1, "eye": 2, "nee": 3}   # rng.cu kinds
+
+
+def uni_key_rows(schedule: str, max_depth: int) -> int:
+    """The rows of K5's draw-key table a sample (uni_mega.cu key_rows): 132
+    (every event a classic path can take), max_depth (naive) or 0 (mega:
+    one row, draw_key(skey, d))."""
+    return _load().tpt_render_unidirectional_key_rows(SCHEDULES[schedule],
+                                                      max_depth)
+
+
+def key_table(kind: str, key, dims: list, device) -> torch.Tensor:
+    """Test entry (rng.cu tpt_key_table): the key table a host's prologue
+    folds on the card (keys.cuh) -> int32 [pairs, 2] on `device`. kind:
+    "uni" (K5's draw-key table; dims [s0, k, rows], rows
+    uni_key_rows(schedule, max_depth)), "walk" (K12's; [max_depth]),
+    "eye" (the classic eye walk's; [eye_depth]), "nee" (K13's s=1;
+    [eye_depth]); key: the launch word pair (the base key, the walk key,
+    key_e, key_c). The plain builders are
+    models/unidirectional.sample_key_table, paths.walk_key_table,
+    vcm.eye_key_table and bdpt.nee_key_table."""
+    if kind not in KEY_TABLES:
+        raise ValueError(f"key table {kind!r}: one of {sorted(KEY_TABLES)}")
+    dims = list(dims)
+    cdims = (ctypes.c_int64 * 3)(*(dims + [0] * (3 - len(dims))))
+    lib = _load()
+    k0, k1 = key[0] & 0xFFFFFFFF, key[1] & 0xFFFFFFFF
+    pairs = lib.tpt_key_table(KEY_TABLES[kind], k0, k1, cdims, None, None)
+    if pairs < 0:
+        raise ValueError(f"key table {kind!r}: dims {dims}")
+    out = torch.empty((pairs, KEY_PAIR_WORDS), dtype=torch.int32,
+                      device=device)
+    with torch.cuda.device(device):
+        _launch("key_table", lib, lambda: max(0, -lib.tpt_key_table(
+            KEY_TABLES[kind], k0, k1, cdims, out.data_ptr(),
+            _stream(device))))
+    return out
 
 
 def upload_words(words, device) -> torch.Tensor:
@@ -555,8 +604,9 @@ def _scene_args(scene, dev):
 
 # The persistent kernels' scratch (K5, K12), one int64 tensor a (device,
 # stream), written on the card by each launch before its kernel runs: word
-# 0 the id counter, then K5's key table (28 uint32 words a sample). Grown
-# to the largest size asked for; launches on one stream are ordered.
+# 0 the id counter, then from byte 16 K5's camera rows (8 uint32 words a
+# sample) and its draw-key table. Grown to the largest size asked for;
+# launches on one stream are ordered.
 _PERSISTENT_SCRATCH: dict = {}
 
 
@@ -628,6 +678,10 @@ def render_unidirectional(scene, px: torch.Tensor, py: torch.Tensor,
     rows = _counts(with_rows, n, dev)
     cparams = (ctypes.c_float * 19)(*cam_params)
     lib = _load()
+    scratch = lib.tpt_render_unidirectional_scratch(k, SCHEDULES[schedule],
+                                                    max_depth)
+    if scratch < 0:
+        raise ValueError(f"render_unidirectional: max_depth {max_depth}")
     with torch.cuda.device(dev):
         _launch("naive" if schedule == "naive" else "render_unidirectional",
                 lib, lib.tpt_render_unidirectional, tbl.data_ptr(),
@@ -640,7 +694,7 @@ def render_unidirectional(scene, px: torch.Tensor, py: torch.Tensor,
                 max_depth, int(use_mis), int(sample_environment),
                 SCHEDULES[schedule], air_priority, *eng, li.data_ptr(),
                 rays.data_ptr(), _ptr(rows),
-                _persistent_scratch(dev, 1 + 14 * k).data_ptr(),
+                _persistent_scratch(dev, (scratch + 7) // 8).data_ptr(),
                 grid or 0, _ptr(lanes), _stream(dev), engine=eng[0])
     return (li, rays) if rows is None else (li, rays, rows)
 
@@ -767,11 +821,14 @@ def bdpt_walk(scene, px, py, keys: list, *, mode: str, max_depth: int,
     """K12 (bdpt_walk.cu): one eye or light walk per pixel (px, py) [N]
     int32; keys: 12 words (models/paths.walk_keys); camera: eye mode only.
     Adds each walk's closest rays to rays [N] i32. eta_vcm turns on the
-    VCM d_vm chain (light mode). key_table selects the table mode (counted
-    under "bdpt_walk_table"): [max_depth * 8 + 10] int32 words on the
-    device, the bounce draws' key pairs rng.draw_key_table(key,
-    range(max_depth), range(4)) and then the endpoint's (draws 100..104
-    of key), which replace the folded ones. -> dict(bufs=PathBuffers
+    VCM d_vm chain (light mode). The bounce draws read their key pairs
+    from a table (paths.walk_key_table(key, max_depth)) that the launch's
+    prologue folds on the card from the walk key; key_table selects the
+    table mode (counted under "bdpt_walk_table", BVH8 on every scene):
+    [max_depth * 8 + 10] int32 words on the device, that table folded on
+    the host (the keyed walk's rng.draw_key_table(key, range(max_depth),
+    range(4)), then the endpoint's draws 100..104 of key), read in its
+    place. -> dict(bufs=PathBuffers
     [max_depth-1, N], v0=vertex-0 dict, escape=Escape (eye) or None,
     rows=[N] i32 rows visited on the scene's engine or None).
     Test arguments (the results do not depend on them): grid, a number of
@@ -791,7 +848,11 @@ def bdpt_walk(scene, px, py, keys: list, *, mode: str, max_depth: int,
         raise ValueError("the eye walk needs the camera")
     if max_depth < 1 or len(keys) != 12:
         raise ValueError("bdpt_walk: max_depth >= 1 and 12 key words")
-    if key_table is not None:
+    build = key_table is None
+    if build:
+        key_table = torch.empty(KEY_PAIR_WORDS * (max_depth * 4 + 5),
+                                dtype=torch.int32, device=dev)
+    else:
         key_table = _words32(key_table)
         _check(key_table, "key_table", torch.int32, (max_depth * 8 + 10,),
                dev)
@@ -800,7 +861,7 @@ def bdpt_walk(scene, px, py, keys: list, *, mode: str, max_depth: int,
     if grid is not None and grid < 1:
         raise ValueError(f"grid {grid}: at least one block")
     # the table mode stands for the JAX keyed walk's fused BVH8 step
-    sc = _bdpt_scene(scene, dev, bvh8_only=key_table is not None)
+    sc = _bdpt_scene(scene, dev, bvh8_only=not build)
     depth = max_depth - 1
     bufs = paths.PathBuffers.empty(depth, n, dev)
     e = lambda *s, dt=torch.float32: torch.empty(s, dtype=dt, device=dev)
@@ -826,7 +887,7 @@ def bdpt_walk(scene, px, py, keys: list, *, mode: str, max_depth: int,
                                   "mat_id", "tri")]
             + [_ptr(esc.valid) if esc else 0, _ptr(esc.d) if esc else 0,
                _ptr(esc.beta) if esc else 0, rays.data_ptr(),
-               _ptr(rows) or 0, _ptr(key_table) or 0, sc["bin"],
+               _ptr(rows) or 0, key_table.data_ptr(), sc["bin"],
                _persistent_scratch(dev).data_ptr(), _ptr(lanes) or 0,
                _ptr(start) or 0, sc["shade"].data_ptr(),
                sc["mat_f32"].data_ptr()])
@@ -834,12 +895,13 @@ def bdpt_walk(scene, px, py, keys: list, *, mode: str, max_depth: int,
     area = camera.plane_area() if camera is not None else 0.0
     iv = [n, sc["tri_f32"].shape[1], scene.num_lights,
           0 if mode == "eye" else 1, max_depth, int(mode == "eye"),
-          int(eta_vcm is not None)] + sc["engine_iv"] + [grid or 0]
+          int(eta_vcm is not None)] + sc["engine_iv"] + [grid or 0,
+                                                          int(build)]
     fv = cam + [area, 0.0 if eta_vcm is None else float(eta_vcm)]
     args = (_i64s(ptrs), _i64s(iv), _f32s(fv), _u32s(keys))  # kept alive
     lib = _load()
     with torch.cuda.device(dev):
-        _launch("bdpt_walk" if key_table is None else "bdpt_walk_table",
+        _launch("bdpt_walk" if build else "bdpt_walk_table",
                 lib, lib.tpt_bdpt_walk,
                 *(ctypes.addressof(a) for a in args), _stream(dev),
                 engine=sc["engine_iv"][0])
@@ -1033,6 +1095,10 @@ def _connect_launch(name: str, entry: str, scene, camera, key_c, eye: dict,
     lptrs = ([0] * 11 if light is None else
              _check_bufs(light["bufs"], "light bufs", cfg.light_depth - 1, n,
                          dev))
+    # the pairs' s=1 key table, folded on the card from key_c
+    nee_keys = (torch.empty(KEY_PAIR_WORDS * (cfg.eye_depth + 1) * 3,
+                            dtype=torch.int32, device=dev)
+                if name == "bdpt_pairs" else None)
     ptrs = ([sc[k].data_ptr() for k in ("table", "tri_f32", "light_f32",
                                         "mat_f32", "textures")]
             + [_ptr(px) or 0, _ptr(py) or 0]
@@ -1042,7 +1108,7 @@ def _connect_launch(name: str, entry: str, scene, camera, key_c, eye: dict,
             + lptrs
             + [_ptr(fb) or 0, _ptr(out) or 0, _ptr(rays) or 0,
                _ptr(rows) or 0, sc["bin"], terms.data_ptr(),
-               sc["shade"].data_ptr()])
+               sc["shade"].data_ptr(), _ptr(nee_keys) or 0])
     iv = [n, sc["tri_f32"].shape[1], scene.num_lights, cfg.eye_depth,
           cfg.light_depth, int(cfg.naive), int(cfg.nee), int(cfg.connection),
           int(cfg.do_mis), int(cfg.paint_weight),
@@ -1210,14 +1276,16 @@ class EyePass:
     connections' contributions [eye_depth, light_rows, n, 3] f32 (written
     where the eye record ran its strategies), or None where the pass has no
     connection stage; out, rays, dropped, rows: the pass's outputs (rows
-    None without with_rows)."""
+    None without with_rows); key_table: the classic walk's key table
+    (scratch its walk launch folds and reads; None for mega)."""
 
     def __init__(self, name, dev, args, engine, rec, conn, out, rays,
-                 dropped, rows):
+                 dropped, rows, key_table):
         self.name, self.dev, self.args, self.engine = name, dev, args, engine
         self.rec, self.conn = rec, conn
         self.out, self.rays, self.dropped, self.rows = out, rays, dropped, \
             rows
+        self.key_table = key_table
 
 
 def _eye_pass(name: str, scene, camera, keys: list, lbufs, grid, fb, out,
@@ -1244,6 +1312,9 @@ def _eye_pass(name: str, scene, camera, keys: list, lbufs, grid, fb, out,
                            device=dev)
     rows = torch.zeros(n_buf, dtype=torch.int32, device=dev) if with_rows \
         else None
+    # the classic walk's key table, folded on the card from the eye key
+    key_table = (torch.empty(KEY_PAIR_WORDS * depth * 7, dtype=torch.int32,
+                             device=dev) if flavor == "classic" else None)
     ptrs = ([sc[k].data_ptr() for k in ("table", "tri_f32", "light_f32",
                                         "mat_f32", "textures")]
             + [px.data_ptr(), py.data_ptr()]
@@ -1251,7 +1322,8 @@ def _eye_pass(name: str, scene, camera, keys: list, lbufs, grid, fb, out,
             + gptrs + [_ptr(fb) or 0, out.data_ptr(), rays.data_ptr(),
                        dropped.data_ptr(), _ptr(rows) or 0, sc["bin"]]
             + [t.data_ptr() for t in rec] + [_ptr(conn) or 0,
-                                             sc["shade"].data_ptr()])
+                                             sc["shade"].data_ptr(),
+                                             _ptr(key_table) or 0])
     iv = [n, n_buf, sc["tri_f32"].shape[1], scene.num_lights, depth,
           light_rows, EYE_FLAVORS[flavor], int(cfg.naive), int(cfg.nee),
           int(cfg.connection), int(cfg.do_mis), int(cfg.paint_weight),
@@ -1264,7 +1336,7 @@ def _eye_pass(name: str, scene, camera, keys: list, lbufs, grid, fb, out,
     words = list(keys) + [0] * (22 - len(keys))
     args = (_i64s(ptrs), _i64s(iv), _f32s(fv), _u32s(words))
     return EyePass(name, dev, args, sc["engine_iv"][0], rec, conn, out, rays,
-                   dropped, rows)
+                   dropped, rows, key_table)
 
 
 def vcm_eye_pass(scene, camera, keys: list, lbufs, grid, fb, rays, cfg, *,

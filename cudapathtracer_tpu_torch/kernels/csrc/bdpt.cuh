@@ -24,8 +24,9 @@
 // through the K10 codecs (packing.cuh); the splat and the connections read
 // the DECODED vertices, as the JAX stages do. The light endpoint (s = 1)
 // is kept unpacked (v0 arrays). Every draw is keyed by the pixel id
-// (py << 14) + px and derived in-kernel with Threefry where it depends on
-// depth (bounce_key(key, depth), fold_in(key_c, t)).
+// (py << 14) + px, one cipher a draw under its pair from a key table
+// (keys.cuh) that a prologue folds on the card, where it depends on depth
+// (the walk's bounce_key(key, depth), K13's fold_in(key_c, t)).
 //
 // Arithmetic follows the plain versions (models/paths.py, models/bdpt.py)
 // operation for operation; the files are built with -fmad=false. x**3 and
@@ -46,6 +47,7 @@
 
 #include "bsdf.cuh"
 #include "camera.cuh"
+#include "keys.cuh"
 #include "mis.cuh"
 #include "nee.cuh"
 #include "packing.cuh"
@@ -154,50 +156,6 @@ struct SceneRefs {
   int32_t bin_nodes;      // its node records
 };
 
-// The draws of one key: draw(d) = uniform of draw_key(key, d) keyed by id.
-struct KeyDraws {
-  uint32_t k0, k1, id;
-  __device__ __forceinline__ float operator()(int d) const {
-    uint32_t a = 0u, b = static_cast<uint32_t>(d);
-    threefry2x32(k0, k1, a, b);  // draw_key(key, d) = fold_in(key, d)
-    return uniform_draw_key(a, b, id);
-  }
-};
-
-// fold_in(key, data)
-__device__ __forceinline__ KeyDraws fold_draws(uint32_t k0, uint32_t k1,
-                                               uint32_t data, uint32_t id) {
-  uint32_t a = 0u, b = data;
-  threefry2x32(k0, k1, a, b);
-  KeyDraws d;
-  d.k0 = a;
-  d.k1 = b;
-  d.id = id;
-  return d;
-}
-
-// Draws whose keys were folded on the host: pairs keys[2d], keys[2d+1].
-struct TableDraws {
-  const uint32_t* keys;
-  uint32_t id;
-  __device__ __forceinline__ float operator()(int d) const {
-    return uniform_draw_key(keys[2 * d], keys[2 * d + 1], id);
-  }
-};
-
-// The BSDF draws 0-3 of one walk bounce: from the host-folded key table
-// (K12's table mode) or folded in the thread from the bounce key.
-struct BounceDraws {
-  const uint32_t* table;  // nullable: this bounce's [4][2] pairs
-  KeyDraws folded;
-  uint32_t id;
-  __device__ __forceinline__ float operator()(int d) const {
-    if (table != nullptr)
-      return uniform_draw_key(table[2 * d], table[2 * d + 1], id);
-    return folded(d);
-  }
-};
-
 struct LightPoint {
   int32_t li, tri;
   V3 p, n, le;
@@ -263,13 +221,13 @@ constexpr int kModeLight = 1;
 struct WalkParams {
   CameraParams cam;        // eye mode: raygen (camera draw keys inside)
   float plane_area;        // eye mode
-  uint32_t light_keys[10]; // light mode: draw keys 100..104
   uint32_t key0, key1;     // the walk key (bounce keys derive from it)
-  // Table mode (nullable, device memory): the host-folded draw keys of
-  // rng.draw_key_table, [max_depth][4][2] bounce pairs (row b: draws 0-3
-  // of bounce_key(key, b)), then the [5][2] endpoint pairs (draws 100..104
-  // of key). The draws equal the folded mode's bit for bit.
-  const uint32_t* key_table;
+  // The walk's key table (device memory, keys.cuh walk_key_tables):
+  // [max_depth][4] bounce pairs (row b: draws 0-3 of bounce_key(key, b)),
+  // then the 5 endpoint pairs (draws 100..104 of key). A kernel queued
+  // before the walk's prologue folds it from key0, key1 (build), or the
+  // host folded it (the keyed walk's rng.draw_key_table; the same bits).
+  const KeyPair* key_table;
   int mode, max_depth;
   bool radiance;           // transport: radiance (eye) or importance
   bool use_vm;             // VCM d_vm chain
@@ -341,9 +299,7 @@ __device__ __forceinline__ void start_walk(const SceneRefs& sc,
     put3(out.esc_beta, i, v3(1.0f, 1.0f, 1.0f));
     return;
   }
-  const TableDraws ld{p.key_table != nullptr ? p.key_table + 8 * p.max_depth
-                                             : p.light_keys,
-                      id};
+  const RowDraws ld{p.key_table + kWalkKeyDraws * p.max_depth, id};
   const LightPoint lp = light_point(ld, sc);
   const float num =
       static_cast<float>(sc.lights.count > 1 ? sc.lights.count : 1);
@@ -433,15 +389,7 @@ __device__ __forceinline__ bool walk_bounce(const SceneRefs& sc,
   const float pdf_fwd_area = st.prev_pdf * fabsf(wo_local.z) / d2;
   const float g = st.prev_cos / d2;
 
-  BounceDraws bd;
-  bd.id = st.id;
-  if (p.key_table != nullptr) {
-    bd.table = p.key_table + 8 * depth;
-  } else {
-    bd.table = nullptr;
-    bd.folded = fold_draws(p.key0, p.key1, static_cast<uint32_t>(depth),
-                           st.id);
-  }
+  const RowDraws bd{p.key_table + kWalkKeyDraws * depth, st.id};
   const Sample bs = bsdf_sample(bd, m, neg(wo_local), s.backface, 1.0f,
                                 p.radiance);
   const float pdf_rev_sa = bsdf_pdf(m, bs.wo, neg(wo_local), 1.0f);
@@ -611,7 +559,8 @@ __device__ __forceinline__ void splat_vertex(const SceneRefs& sc,
 
 // ---- K13: the connection stage, in two kernels -----------------------------
 // 1. pair_term (bdpt_pairs.cu): one thread per (eye depth t, slot, pixel
-//    i). Slot 0 is s = 1 (NEE, keys fold_in(key_c, t), the G clamp 15, a
+//    i). Slot 0 is s = 1 (NEE, keys fold_in(key_c, t): row t of the
+//    launch's key table, nee_key_tables; the G clamp 15, a
 //    shadow ray that skips the light's triangle); slot 1 + j the
 //    connection s = j + 2 to stored light vertex j (four reverse pdfs, the
 //    G clamp 2, a shadow ray). It traces at most one shadow ray and
@@ -630,7 +579,8 @@ __device__ __forceinline__ void splat_vertex(const SceneRefs& sc,
 struct ConnectParams {
   CameraParams cam;
   float plane_area;
-  uint32_t key_c0, key_c1;  // NEE keys: fold_in(key_c, t)
+  uint32_t key_c0, key_c1;  // key_c (the prologue folds the table)
+  const KeyPair* nee_keys;  // [eye_depth + 1][3]: fold_in(key_c, t)'s
   int eye_depth, light_depth;
   bool naive, nee, connection, sample_environment;
   Weighting weighting;
@@ -694,8 +644,7 @@ __device__ __forceinline__ V3 pair_term(const ConnectLaunch& c, int t,
         static_cast<float>(sc.lights.count > 1 ? sc.lights.count : 1);
     const uint32_t id = static_cast<uint32_t>((c.py[i] << 14) + c.px[i]);
     atomicAdd(c.rays + i, 1);
-    const KeyDraws kk = fold_draws(p.key_c0, p.key_c1,
-                                   static_cast<uint32_t>(t), id);
+    const RowDraws kk{p.nee_keys + kNeeKeyDraws * t, id};
     const LightPoint lp = light_point(kk, sc);
     const V3 stl = sub(lp.p, ev.pt);
     const float d2 = fmaxf(length_sq(stl), kRayEps);
@@ -920,7 +869,6 @@ inline bool walk_launch(const int64_t* ptrs, const int64_t* iv,
   p.cam = make_camera(fv, keys);
   p.plane_area = fv[19];
   p.eta_vcm = fv[20];
-  for (int k = 0; k < 10; ++k) p.light_keys[k] = keys[k];
   p.key0 = keys[10];
   p.key1 = keys[11];
   p.mode = static_cast<int>(iv[3]);
@@ -941,15 +889,15 @@ inline bool walk_launch(const int64_t* ptrs, const int64_t* iv,
   o.esc_beta = dev_ptr<float>(ptrs, 26);
   o.rays = dev_ptr<int32_t>(ptrs, 27);
   o.rows = dev_ptr<int32_t>(ptrs, 28);
-  p.key_table = dev_ptr<const uint32_t>(ptrs, 29);
+  p.key_table = dev_ptr<const KeyPair>(ptrs, 29);
   w.engine = engine_refs(ptrs, 30, iv, 7, w.sc);
   o.start = dev_ptr<float>(ptrs, 33);
   return w.sc.shade != nullptr && w.sc.mat_f32 != nullptr &&
          (p.mode == kModeEye ? o.esc_valid != nullptr && o.esc_d != nullptr &&
                                    o.esc_beta != nullptr
                              : p.mode == kModeLight && o.start != nullptr) &&
-         p.max_depth >= 1 && w.engine >= 0 &&
-         (p.key_table == nullptr || w.engine == kEngineBvh8);
+         p.max_depth >= 1 && w.engine >= 0 && p.key_table != nullptr &&
+         (iv[11] != 0 || w.engine == kEngineBvh8);
 }
 
 struct SplatLaunch {
@@ -1068,6 +1016,7 @@ inline bool connect_launch(const int64_t* ptrs, const int64_t* iv,
   c.engine = engine_refs(ptrs, 37, iv, 11, c.sc);
   c.terms = dev_ptr<float>(ptrs, 38);
   c.sc.shade = dev_ptr<const float4>(ptrs, 39);
+  p.nee_keys = dev_ptr<const KeyPair>(ptrs, 40);
   return c.sc.shade != nullptr && p.eye_depth >= 2 && p.light_depth >= 1 &&
          c.engine >= 0 && c.terms != nullptr;
 }

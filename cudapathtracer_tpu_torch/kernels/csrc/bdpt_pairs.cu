@@ -17,7 +17,11 @@
 // blockIdx.y is the pair (t, slot) and a warp holds 32 neighbouring pixels
 // of it, so K12's depth-major [D, N] buffers and terms are read and
 // written coalesced, and a thread whose eye vertex is invalid or delta
-// writes +0 and leaves before it fetches a light vertex. On the threaded
+// writes +0 and leaves before it fetches a light vertex. s=1's light point
+// takes its three pairs from row t of a key table that a small kernel
+// folds from key_c first (keys.cuh nee_key_tables): one cipher a draw, not
+// a fold of fold_in(key_c, t) and a fold a draw besides (seven ciphers a
+// NEE pair before). On the threaded
 // engine a thread takes all of its pixel's pairs in (t, slot) order (the
 // launch's `per`): K15's node walks vary much more from ray to ray than
 // K1's row walks, and a thread's sum over ~40 rays evens that out (1080p,
@@ -64,7 +68,9 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
 // ptrs: table, tri_f32, light_f32, mat_f32, textures, px, py, the 11
 // eye-buffer fields, ev0_pt, esc_valid, esc_d, esc_beta, the 11
 // light-buffer fields, fb, out, rays, rows (0 = none), the threaded
-// tables (0 under BVH8), terms, shade_table [T, 16]. iv: n, tri_cols, num_lights, eye_depth,
+// tables (0 under BVH8), terms, shade_table [T, 16], the NEE key table
+// ((eye_depth + 1) x 3 pairs of scratch, written here). iv: n, tri_cols,
+// num_lights, eye_depth,
 // light_depth, naive, nee, connection, do_mis, paint_weight,
 // sample_environment, engine, bin nodes, bin slots, per (the pairs a
 // thread takes, a divisor of the (eye_depth - 1) x light_depth pairs of a
@@ -78,7 +84,8 @@ extern "C" int tpt_bdpt_pairs(const int64_t* ptrs, const int64_t* iv,
   tpt::ConnectLaunch c;
   const int per = static_cast<int>(iv[14]);
   if (!tpt::connect_launch(ptrs, iv, fv, keys, c) || c.px == nullptr ||
-      c.py == nullptr || c.rays == nullptr || per < 1)
+      c.py == nullptr || c.rays == nullptr || c.p.nee_keys == nullptr ||
+      per < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   const int64_t pairs =
       static_cast<int64_t>(c.p.eye_depth - 1) * c.p.light_depth;
@@ -88,6 +95,9 @@ extern "C" int tpt_bdpt_pairs(const int64_t* ptrs, const int64_t* iv,
   const dim3 blocks(static_cast<unsigned>((c.n + kThreads - 1) / kThreads),
                     static_cast<unsigned>(pairs / per));
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  tpt::launch_key_table(
+      tpt::nee_key_tables(c.p.key_c0, c.p.key_c1, c.p.eye_depth),
+      tpt::dev_ptr<tpt::KeyPair>(ptrs, 40), st);
   if (c.engine == tpt::kEngineThreaded)
     bdpt_pairs_kernel<tpt::kEngineThreaded>
         <<<blocks, kThreads, 0, st>>>(c, per);

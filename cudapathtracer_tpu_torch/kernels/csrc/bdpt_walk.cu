@@ -31,9 +31,13 @@
 // atomicAdd), so the endpoints and the first rows they store stay
 // contiguous; later rows are written by lanes at different depths.
 //
-// Every draw is keyed by the pixel id and the depth (bounce_key(key,
-// depth), or the table row), so every buffer, the escape record and the
-// counts are the same bits on any grid and in any order of the ids.
+// Every draw is keyed by the pixel id and the depth: a bounce's pairs are
+// row `depth` of the walk's key table (keys.cuh walk_key_tables), which a
+// small kernel folds from the walk key before the prologue, so a draw is
+// one cipher on the pixel id and no lane folds bounce_key(key, depth)
+// (each bounce folded it once and each draw once more before). So every
+// buffer, the escape record and the counts are the same bits on any grid
+// and in any order of the ids.
 //
 // The rows a walk does not reach hold the dead pattern (store_dead): the
 // prologue writes it into every row, coalesced over the paths, and the
@@ -45,10 +49,10 @@
 // (cudapathtracer_tpu/models/light_mega.py:108 light_walk_mega, with
 // utils/rng.py:123,140 draw_key_table and uniform_keyed). The JAX lane
 // machine keys a lane's draws by the lane's own depth through a
-// per-(bounce, draw) key table folded on the host; here the same table is
-// read at the walk's depth instead of folding bounce_key(key, depth). The
-// draws, and so the buffers, the escape record and the rays, are bit-equal
-// to the folded mode's.
+// per-(bounce, draw) key table folded on the host; here that host table is
+// read in place of the one the prologue folds (the same bits), and the
+// walk traces BVH8 on every scene. The draws, and so the buffers, the
+// escape record and the rays, are bit-equal to the walk's on a BVH8 scene.
 
 #include <cuda_runtime.h>
 
@@ -131,17 +135,19 @@ int resident_grid(int engine, int64_t n, unsigned& blocks) {
 // light_f32, textures, px, py, the 11 buffer fields (pt, n_oct, wo_oct, uv,
 // beta, pdf_fwd, d_vcm, d_vc, d_vm, flags, valid), v0_pt, v0_n, v0_beta,
 // v0_pdf, v0_light, v0_mat, v0_tri, esc_valid, esc_d, esc_beta, rays, rows,
-// key_table (0: the folded mode), the threaded tables (0 under BVH8), the
+// key_table (max_depth * 4 + 5 pairs: walk_key_tables), the threaded
+// tables (0 under BVH8), the
 // path counter (8 bytes of device memory a stream: launches that share it
 // must be ordered), lanes (0, or three u64 as the kernel's), start (the light
 // walk's [N,4] f32 scratch; 0 for the eye walk), shade_table [T, 16],
 // mat_f32 [M, 26].
 // iv: n, tri_cols, num_lights, mode (0 eye, 1 light), max_depth, radiance,
-// use_vm, engine, bin nodes, bin slots (the table mode takes BVH8 only),
-// blocks (0: the resident grid; a test argument). fv: the 19 camera floats,
-// plane_area, eta_vcm. keys: 10
-// draw-key words (eye: the camera's 8; light: draws 100..104) and the walk
-// key pair. Returns the launches' cudaError_t.
+// use_vm, engine, bin nodes, bin slots, blocks (0: the resident grid; a test
+// argument), build (1: key_table is scratch that a kernel queued first folds
+// from the walk key; 0: the host's table, which takes BVH8 only). fv: the 19
+// camera floats, plane_area, eta_vcm. keys: 10 draw-key words (eye: the
+// camera's 8; light: draws 100..104, which the walk reads from its table) and
+// the walk key pair. Returns the launches' cudaError_t.
 extern "C" int tpt_bdpt_walk(const int64_t* ptrs, const int64_t* iv,
                              const float* fv, const uint32_t* keys,
                              void* stream) {
@@ -158,6 +164,10 @@ extern "C" int tpt_bdpt_walk(const int64_t* ptrs, const int64_t* iv,
     if (err != 0) return err;
   }
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (iv[11] != 0)  // build: fold the table from the walk key
+    tpt::launch_key_table(
+        tpt::walk_key_tables(w.p.key0, w.p.key1, w.p.max_depth),
+        const_cast<tpt::KeyPair*>(w.p.key_table), st);
   bdpt_walk_start_kernel<<<static_cast<unsigned>(
                                (w.n + kThreads - 1) / kThreads),
                            kThreads, 0, st>>>(w, counter);

@@ -3,16 +3,19 @@
 //
 // Replaces cudapathtracer_tpu/scene/camera.py:Camera.generate_rays
 // (lines 81-110) for a batch of pixels. The per-pixel arithmetic is
-// tpt::camera_ray (camera.cuh), shared with the per-path megakernel
-// (uni_mega.cu).
+// tpt::camera_ray (camera.cuh), shared with the hosts that start paths
+// (uni_mega.cu, bdpt_walk.cu, eye_walk.cu).
 //
-// Bound: 4 Threefry draws (~470 integer ops) and a few dozen float ops per
-// pixel against 12 bytes read and 24 written, so it sits near the line
-// between the card's memory and scalar rates.
+// Bound: 12 bytes read and 24 written a pixel against two Threefry draws
+// at aperture 0 (about 80 SASS integer instructions each, on the INT32
+// pipe's 64 lanes a clock an SM) or four and the lens's sqrtf and sincosf
+// at aperture > 0, and a few dozen float ops: at 1080p the bytes bound it
+// by a little at aperture 0, the integer work at aperture > 0.
 // Design: one thread per pixel; the camera and the four draw keys (folded on
 // the host) arrive by value in one struct, so the kernel reads only px, py
-// and the ids. Pinhole and thin lens share one code path, as in the JAX
-// function.
+// and the ids. The lens is a branch uniform across the launch: a camera of
+// aperture 0 skips its draws and arithmetic, whose offset the JAX function
+// discards there.
 
 #include <cuda_runtime.h>
 

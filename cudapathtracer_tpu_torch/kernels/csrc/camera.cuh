@@ -1,11 +1,17 @@
 // K7 device code: one pixel's primary ray (pinhole and thin lens).
 //
 // Replaces cudapathtracer_tpu/scene/camera.py:Camera.generate_rays (lines
-// 81-110) and its lane-major twin ops/lanemajor.py:generate_raysT (line
-// 677), which the mega engine calls on refill: four id-keyed draws per pixel
-// (0, 1: +-0.5 * aa_jitter tent jitter; 2, 3: lens disk), the focal-plane
-// point, the lens offset gated on aperture > 0, and the normalized
-// direction. camera.cu launches it over a batch of pixels; uni_mega.cu and
+// 81-110) and its lane-major twin ops/lanemajor.py:generate_raysT (line 677),
+// which the mega engine calls on refill: id-keyed draws 0, 1 (the +-0.5 *
+// aa_jitter jitter), the focal-plane point, the lens offset gated on aperture >
+// 0 (draws 2, 3: the disk point), and the normalized direction. The JAX
+// function always draws the disk and then discards the offset at aperture 0;
+// here the lens (two ciphers, sqrtf and one sincosf) runs only when aperture >
+// 0, a branch uniform across the launch, so a camera of aperture 0 takes two
+// draws and no lens arithmetic. (The reference's pinhole factory, which
+// "Pinhole Camera: true" selects, sets aperture 1e-6: its lens is live.)
+// forward * focal_dist is the same product for every pixel and is taken once in
+// make_camera. camera.cu launches it over a batch of pixels; uni_mega.cu and
 // the BDPT eye walk (bdpt_walk.cu) call it at the start of each path. Also
 // world_to_raster (scene/camera.py:112), the light-trace splat's projection
 // (bdpt_splat.cu).
@@ -24,6 +30,7 @@ namespace tpt {
 struct CameraParams {
   float origin[3], right[3], up[3], forward[3];
   float fov_scale, aperture, focal_dist, aspect, width, height, aa_jitter;
+  float forward_focal[3];  // forward * focal_dist
   uint32_t keys[8];  // (k0, k1) of draws 0, 1, 2, 3
 };
 
@@ -45,6 +52,7 @@ __host__ __device__ inline CameraParams make_camera(const float* params,
   c.width = params[16];
   c.height = params[17];
   c.aa_jitter = params[18];
+  for (int k = 0; k < 3; ++k) c.forward_focal[k] = c.forward[k] * c.focal_dist;
   for (int k = 0; k < 8; ++k) c.keys[k] = keys[k];
   return c;
 }
@@ -65,18 +73,24 @@ __device__ __forceinline__ void camera_ray(const CameraParams& c,
   const float uf = u * c.focal_dist;
   const float vf = v * c.focal_dist;
 
-  const float r_rnd = uniform_draw_key(keys[4], keys[5], id);
-  const float theta =
-      6.28318530717958647692f * uniform_draw_key(keys[6], keys[7], id);
-  const float radius = c.aperture * sqrtf(r_rnd);
-  const float rc = radius * cosf(theta);
-  const float rs = radius * sinf(theta);
+  // the lens disk: rc = radius cos(theta), rs = radius sin(theta)
+  float rc = 0.0f, rs = 0.0f;
   const bool lens_on = c.aperture > 0.0f;
+  if (lens_on) {
+    const float r_rnd = uniform_draw_key(keys[4], keys[5], id);
+    const float theta =
+        6.28318530717958647692f * uniform_draw_key(keys[6], keys[7], id);
+    const float radius = c.aperture * sqrtf(r_rnd);
+    float sn, cs;
+    sincosf(theta, &sn, &cs);
+    rc = radius * cs;
+    rs = radius * sn;
+  }
 
 #pragma unroll
   for (int k = 0; k < 3; ++k) {
     const float focal = c.origin[k] + c.right[k] * uf + c.up[k] * vf +
-                        c.forward[k] * c.focal_dist;
+                        c.forward_focal[k];
     const float lens = lens_on ? c.right[k] * rc + c.up[k] * rs : 0.0f;
     org[k] = c.origin[k] + lens;
     dir[k] = focal - org[k];

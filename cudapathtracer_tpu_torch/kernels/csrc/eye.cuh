@@ -200,13 +200,15 @@ __device__ __forceinline__ void eye_walk_one(const EyeLaunch& c, int64_t i) {
     const float g = prev_cos / d2p;
     const uint32_t did = gid + static_cast<uint32_t>(depth);
     Sample bs;
-    KeyDraws bd;
+    // classic: this depth's row of the key table (BSDF pairs, then NEE's)
+    const KeyPair* krow =
+        kMega ? nullptr : p.key_table + kEyeKeyDraws * depth;
     if constexpr (kMega) {
       bs = bsdf_sample(TableDraws{p.bsdf_keys, did}, m, neg(wo_local),
                        s.backface, 1.0f, true);
     } else {
-      bd = fold_draws(p.key_e0, p.key_e1, static_cast<uint32_t>(depth), id);
-      bs = bsdf_sample(bd, m, neg(wo_local), s.backface, 1.0f, true);
+      bs = bsdf_sample(RowDraws{krow, id}, m, neg(wo_local), s.backface,
+                       1.0f, true);
     }
     const float pdf_rev_sa = bsdf_pdf(m, bs.wo, neg(wo_local), 1.0f);
     const bool valid = bs.pdf >= kEps;
@@ -261,8 +263,9 @@ __device__ __forceinline__ void eye_walk_one(const EyeLaunch& c, int64_t i) {
         ne = nee_mega<kBdpt>(sc, p, ec, flip ? frame(ec.n) : fr, m, did,
                              rays, rows);
       } else {
-        ne = nee_vcm<kEngine>(sc, wt, p.eta_vcm, e, fr, m, bd, id,
-                              ptc_local, rays, rows);
+        ne = nee_vcm<kEngine>(sc, wt, p.eta_vcm, e, fr, m,
+                              RowDraws{krow + kEyeNeeDraw, id}, ptc_local,
+                              rays, rows);
       }
     }
     put3(c.rec.nee, k, ne);
@@ -380,7 +383,9 @@ __device__ __forceinline__ void eye_gather_one(const EyeLaunch& c,
 // 22 rays, 23 dropped, 24 rows (0 = none), 25 the threaded tables (0 under
 // BVH8), 26-38 the records: pos, n, to_prev, thr, albedo, trans, mat_id,
 // d_vcm, d_vc, d_vm, flags, implicit, nee; 39 conn (0 without
-// connections), 40 shade_table [T, 16].
+// connections), 40 shade_table [T, 16], 41 the classic walk's key table
+// (eye_depth x 7 pairs of scratch, written by eye_walk.cu's prologue from
+// the eye key; 0 for mega).
 // iv: 0 n (paths), 1 n_buf (the light buffers' lanes), 2 tri_cols,
 // 3 num_lights, 4 eye_depth, 5 light_rows, 6 flavor, 7 naive, 8 nee,
 // 9 connection, 10 do_mis, 11 paint_weight, 12 sample_environment,
@@ -460,6 +465,7 @@ inline bool eye_launch(const int64_t* ptrs, const int64_t* iv,
   r.stride = c.n;
   c.conn = dev_ptr<float>(ptrs, 39);
   c.sc.shade = dev_ptr<const float4>(ptrs, 40);
+  p.key_table = dev_ptr<const KeyPair>(ptrs, 41);
   const bool mega = c.flavor != kEyeClassic;
   const bool merge = p.merge && c.flavor != kEyeMegaBdpt;
   bool grid_ok = !merge || (g.rows != nullptr && g.cell_se != nullptr &&
@@ -468,7 +474,8 @@ inline bool eye_launch(const int64_t* ptrs, const int64_t* iv,
   const bool recs_ok = r.pos && r.n && r.to_prev && r.thr && r.albedo &&
                        r.trans && r.mat_id && r.d_vcm && r.d_vc && r.d_vm &&
                        r.flags && r.implicit && r.nee;
-  return c.sc.shade != nullptr && c.flavor >= kEyeClassic &&
+  return c.sc.shade != nullptr && (mega || p.key_table != nullptr) &&
+         c.flavor >= kEyeClassic &&
          c.flavor <= kEyeMegaBdpt &&
          p.eye_depth >= 1 && p.light_rows >= (mega ? 0 : 1) &&
          c.n <= n_buf && grid_ok && recs_ok && c.engine >= 0 &&

@@ -17,10 +17,14 @@
 // merge, with their loops whose length varies from lane to lane, are the
 // other two stages, so this kernel carries K12's eye walk plus NEE and
 // the records are written depth-major ([D, N]: a warp's 32 paths store
-// neighbouring words). ptxas (H100 build): 64 registers at the minimum
-// of blocks below (127-128 on BVH8 and 122 threaded, 4 blocks, before the
-// shading code read its material by id). chip_smoke.py prints the
-// report.
+// neighbouring words). The classic flavour's draws take their pairs from a key
+// table a small kernel folds from the eye key first (keys.cuh eye_key_tables:
+// per depth the BSDF pairs of bounce_key(key_e, depth) and NEE's of
+// fold_in(bounce key, 7)): one cipher a draw, where each depth folded its
+// bounce key, NEE's key and each draw's pair in the lane (11 ciphers more a
+// depth with NEE before). ptxas (H100 build): 64 registers at the minimum of
+// blocks below (127-128 on BVH8 and 122 threaded, 4 blocks, before the shading
+// code read its material by id). chip_smoke.py prints the report.
 
 #include <cuda_runtime.h>
 
@@ -62,6 +66,9 @@ extern "C" int tpt_eye_walk(const int64_t* ptrs, const int64_t* iv,
       static_cast<unsigned>((c.n + kThreads - 1) / kThreads);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   using namespace tpt;
+  if (c.flavor == kEyeClassic)
+    launch_key_table(eye_key_tables(c.p.key_e0, c.p.key_e1, c.p.eye_depth),
+                     dev_ptr<KeyPair>(ptrs, 41), st);
   if (c.flavor == kEyeMegaVcm)
     eye_walk_kernel<kEyeMegaVcm, kEngineBvh8><<<blocks, kThreads, 0, st>>>(c);
   else if (c.flavor == kEyeMegaBdpt)

@@ -28,26 +28,33 @@
 //            radiance retires through RGB9E5 (K10, packing.cuh), as the
 //            JAX engine's retirement slots hold it;
 //   naive:   models/naive.py:render_sample (line 41): naive_event.
-// The classic per-event key is derived here with tpt::threefry2x32, so no
-// per-event key table is needed. The NEE weight is summed in each
-// schedule's order: classic (beta * (contrib * shadow)) * w; mega ((beta *
-// contrib) * w) * shadow, the JAX engine's pending-then-scale.
+// Every key a draw needs is the same for every lane at the same (sample,
+// event), so none is folded in a lane: the key kernel (below) writes each
+// sample's draw keys into a table (keys.cuh), the classic and naive
+// schedules' [k][rows][9] pairs draw_key(bounce_key(skey, lit), d) (rows:
+// 132 classic, every event a path can take, max_depth naive) and the mega
+// schedule's [k][9] pairs draw_key(skey, d), and a draw is one 8-byte load
+// and one cipher on the lane's id (the classic event folded its bounce key
+// and each draw's pair before: 1 + 2 x draws ciphers). The NEE weight is
+// summed in each schedule's order: classic (beta * (contrib * shadow)) *
+// w; mega ((beta * contrib) * w) * shadow, the JAX engine's
+// pending-then-scale.
 //
-// Samples: one launch renders k >= 1 samples of every pixel and also
-// replaces cudapathtracer_tpu/models/batch.py:make_batched (line 33) for
-// these three schedules: samples s0 .. s0+k-1 under the base key. A small
-// kernel launched first on the stream derives each sample's 28 key words
-// (the camera's draw keys, the sample key, the mega draw keys, as
-// models/unidirectional.render_plain folds them) with Threefry into a
-// [k, 28] table in device scratch and zeroes the pixel counter beside it,
-// so a launch takes no key words or memset from the host; sample s reads
-// row s. (Derived inside K5 at each sample's start instead, the 15
-// Threefry calls ran in the divergent retire branch on most loop trips
-// while the warp's other lanes waited: a 1080p mega sample took 40.1 ms
-// against 32.0 on an H100.) The pixel's k radiances, each retired as above, are added into a
-// float32 sum from 0 in sample order (the JAX fori_loop's sum), its rays
-// and rows into int32 counters; li, rays and rows are written once a
-// pixel's k samples are done. k = 1 is one sample.
+// Samples: one launch renders k >= 1 samples of every pixel and also replaces
+// cudapathtracer_tpu/models/batch.py:make_batched (line 33) for these three
+// schedules: samples s0 .. s0+k-1 under the base key. A small kernel launched
+// first on the stream derives each sample's keys (as
+// models/unidirectional.render_plain folds them) with Threefry: its camera draw
+// keys into a [k, 8] table in device scratch, its draw keys into the table
+// after it, and zeroes the pixel counter beside them, so a launch takes no key
+// words or memset from the host; sample s reads row s of each. (Derived inside
+// K5 at each sample's start instead, the sample's Threefry calls ran in the
+// divergent retire branch on most loop trips while the warp's other lanes
+// waited: a 1080p mega sample took 40.1 ms against 32.0 on an H100.) The
+// pixel's k radiances, each retired as above, are added into a float32 sum from
+// 0 in sample order (the JAX fori_loop's sum), its rays and rows into int32
+// counters; li, rays and rows are written once a pixel's k samples are done. k
+// = 1 is one sample.
 //
 // Bound: memory latency of the traversal (K1: dependent row reads, rays
 // diverge), then of the 64-byte shading record (shade.cuh), material row
@@ -89,6 +96,7 @@
 
 #include "bsdf.cuh"
 #include "camera.cuh"
+#include "keys.cuh"
 #include "nee.cuh"
 #include "packing.cuh"
 #include "persistent.cuh"
@@ -108,39 +116,21 @@ constexpr int kScheduleClassic = 0;
 constexpr int kScheduleMega = 1;
 constexpr int kScheduleNaive = 2;   // the naive integrator (no NEE/MIS/RR)
 constexpr int kShadeEvalCols = 38;
-// A sample's row of the key table: the camera's 8 draw-key words, then the
-// sample key pair, then the 9 mega draw-key pairs draw_key(skey, d).
-constexpr int kKeyWords = 28;
-constexpr int kKeySample = 8;
-constexpr int kKeyDraws = 10;
+// A sample's camera row: the camera's 8 draw-key words.
+constexpr int kKeyWords = 8;
 
-// The key row of sample `sample` under the base key (b0, b1), as
+// The camera row of sample `sample` under the base key (b0, b1), as
 // models/unidirectional.render_plain folds it: skey = fold_in(base,
-// sample), the camera's draw_key(fold_in(skey, 2^20), 0..3), skey, then
-// draw_key(skey, 0..8).
+// sample), the camera's draw_key(fold_in(skey, 2^20), 0..3).
 __device__ __forceinline__ void sample_key_row(uint32_t b0, uint32_t b1,
                                                uint32_t sample,
                                                uint32_t* row) {
-  uint32_t s0 = 0u, s1 = sample;
-  threefry2x32(b0, b1, s0, s1);
-  uint32_t c0 = 0u, c1 = 1u << 20;
-  threefry2x32(s0, s1, c0, c1);
+  uint32_t s0, s1, c0, c1;
+  fold_in(b0, b1, sample, s0, s1);
+  fold_in(s0, s1, 1u << 20, c0, c1);
 #pragma unroll
-  for (uint32_t d = 0; d < 4; ++d) {
-    uint32_t w0 = 0u, w1 = d;
-    threefry2x32(c0, c1, w0, w1);
-    row[2 * d] = w0;
-    row[2 * d + 1] = w1;
-  }
-  row[kKeySample] = s0;
-  row[kKeySample + 1] = s1;
-#pragma unroll
-  for (uint32_t d = 0; d < 9; ++d) {
-    uint32_t w0 = 0u, w1 = d;
-    threefry2x32(s0, s1, w0, w1);
-    row[kKeyDraws + 2 * d] = w0;
-    row[kKeyDraws + 2 * d + 1] = w1;
-  }
+  for (uint32_t d = 0; d < 4; ++d)
+    fold_in(c0, c1, d, row[2 * d], row[2 * d + 1]);
 }
 
 struct SceneArgs {
@@ -166,26 +156,40 @@ struct Params {
   int32_t air_priority;
 };
 
-// The draws of one closest event: draw(d) -> uniform.
-struct EventDraws {
-  const uint32_t* mega_keys;  // the 9 pairs draw_key(skey, d)
-  uint32_t b0, b1;  // classic: the event's bounce key
-  uint32_t id;
-  bool classic;
+// The draws of one closest event: draw(d) -> uniform, one cipher on the
+// lane's id under pair d of the event's row of its sample's draw-key
+// table: row lit (classic, naive) or the sample's one row (mega).
+using EventDraws = RowDraws;
 
+// The rows of a sample's draw-key table: every event a path of the
+// schedule can take (classic, naive), or 0: one row with no bounce level
+// (mega).
+__host__ __device__ __forceinline__ int32_t key_rows(int32_t schedule,
+                                                     int32_t max_depth) {
+  return schedule == kScheduleClassic
+             ? kLitCap
+             : (schedule == kScheduleNaive ? max_depth : 0);
+}
+
+// The draws of a naive event: the four BSDF pairs of its row, loaded at
+// once right after its closest ray, beside the shading record's loads, so
+// their latency overlaps that of the hit's fetch. (Loaded at each draw, a
+// naive event does little else to hide them: a 1080p naive sample took
+// 0.1% and 1.8% longer in two runs of tools/rng_attribution.py, and the
+// naive cell ran 1.3% below the in-lane folds the tables replaced, 0.4%
+// with the loads held; H100.)
+struct HeldDraws {
+  KeyPair k[4];
+  uint32_t id;
   __device__ __forceinline__ float operator()(int d) const {
-    if (classic) {
-      uint32_t k0 = 0u, k1 = static_cast<uint32_t>(d);
-      threefry2x32(b0, b1, k0, k1);  // fold_in(bounce key, d)
-      return uniform_draw_key(k0, k1, id);
-    }
-    return uniform_draw_key(mega_keys[2 * d], mega_keys[2 * d + 1], id);
+    return uniform_draw_key(k[d].x, k[d].y, id);
   }
 };
 
 // draw(k) of a lobe or of NEE: the event's draw base + k.
+template <class D>
 struct BasedDraws {
-  const EventDraws* e;
+  const D* e;
   int base;
   __device__ __forceinline__ float operator()(int k) const {
     return (*e)(base + k);
@@ -219,9 +223,10 @@ __device__ __forceinline__ void start_path(PathState& st, V3 o, V3 d,
   st.ms.init(air_priority);
 }
 
-// One event of a classic or mega path; keys: its sample's key row, index:
-// its position in the pixel list (mega ids), pix_id: its pixel id (classic
-// ids). Adds the event's rays and rows; returns whether the path goes on.
+// One event of a classic or mega path; table: its sample's draw-key
+// table, index: its position in the pixel list (mega ids), pix_id: its
+// pixel id (classic ids). Adds the event's rays and rows; returns whether
+// the path goes on.
 // Everything the event computes but NEE's shadow factor (the BSDF sample,
 // the medium stack, the next ray and throughput, Russian roulette's draw)
 // is done before the shadow trace, so only the NEE term's inputs and the
@@ -230,7 +235,7 @@ __device__ __forceinline__ void start_path(PathState& st, V3 o, V3 d,
 template <int kEngine>
 __device__ __forceinline__ bool path_event(const SceneArgs& sc,
                                            const Params& p,
-                                           const uint32_t* keys,
+                                           const KeyPair* table,
                                            int64_t index, uint32_t pix_id,
                                            PathState& st, int32_t& rays,
                                            int32_t& rows) {
@@ -243,19 +248,10 @@ __device__ __forceinline__ bool path_event(const SceneArgs& sc,
   V3& li = st.li;
   const int lit = st.lit;
   ++rays;
-  EventDraws e;
-  e.mega_keys = keys + kKeyDraws;
-  e.classic = classic;
-  if (classic) {
-    e.b0 = 0u;
-    e.b1 = static_cast<uint32_t>(lit);
-    threefry2x32(keys[kKeySample], keys[kKeySample + 1], e.b0,
-                 e.b1);  // fold_in(skey, lit)
-    e.id = pix_id;
-  } else {
-    e.b0 = e.b1 = 0u;
-    e.id = static_cast<uint32_t>(index * kIdStride + lit);
-  }
+  const EventDraws e =
+      classic ? EventDraws{table + lit * kUniKeyDraws, pix_id}
+              : EventDraws{table,
+                           static_cast<uint32_t>(index * kIdStride + lit)};
 
   const Trace8 h = trace_ray<kEngine, false>(sc, o.x, o.y, o.z, d.x, d.y,
                                              d.z, kBigT, -1, true);
@@ -321,7 +317,7 @@ __device__ __forceinline__ bool path_event(const SceneArgs& sc,
     const bool do_nee = true_hit && !emissive && !is_specular;
     if (classic && do_nee) ++rays;
     if (do_nee && sc.lights.count > 0) {
-      const BasedDraws nd{&e, kDNee};
+      const BasedDraws<EventDraws> nd{&e, kDNee};
       ns = nee_sample(nd, sc.lights, s.point, fr, wi_local, m, st.eta_i,
                       true);
       if (ns.active) {
@@ -337,7 +333,7 @@ __device__ __forceinline__ bool path_event(const SceneArgs& sc,
 
   // BSDF sampling
   if (true_hit) {
-    const BasedDraws bd{&e, kDBsdf};
+    const BasedDraws<EventDraws> bd{&e, kDBsdf};
     const Sample bs =
         bsdf_sample(bd, m, neg(wi_local), s.backface, st.eta_i);
     const float pdf = fmaxf(bs.pdf, 0.01f);
@@ -391,25 +387,18 @@ __device__ __forceinline__ bool path_event(const SceneArgs& sc,
 // sampling only, no NEE, MIS or Russian roulette, eta_i = 1, emission added
 // after the sampling-validity break, at most max_depth bounces; bounce
 // `depth` draws keyed by fold_in(fold_in(skey, depth), d) with the pixel
-// id; the next ray is unnormalized to_world(wo) from the side of wo.z.
+// id (the draw-key table's row `depth`); the next ray is unnormalized
+// to_world(wo) from the side of wo.z.
 template <int kEngine>
 __device__ __forceinline__ bool naive_event(const SceneArgs& sc,
                                             const Params& p,
-                                            const uint32_t* keys,
+                                            const KeyPair* table,
                                             uint32_t pix_id, PathState& st,
                                             int32_t& rays, int32_t& rows) {
   V3& o = st.o;
   V3& d = st.d;
   V3& beta = st.beta;
   ++rays;
-  EventDraws e;
-  e.mega_keys = keys + kKeyDraws;
-  e.classic = true;
-  e.b0 = 0u;
-  e.b1 = static_cast<uint32_t>(st.lit);
-  threefry2x32(keys[kKeySample], keys[kKeySample + 1], e.b0,
-               e.b1);  // bounce_key(skey, depth)
-  e.id = pix_id;
   const Trace8 h = trace_ray<kEngine, false>(sc, o.x, o.y, o.z, d.x, d.y,
                                              d.z, kBigT, -1, true);
   rows += h.rows;
@@ -417,12 +406,17 @@ __device__ __forceinline__ bool naive_event(const SceneArgs& sc,
     st.li = add(st.li, mul(beta, sample_sky(d, p.sample_environment != 0)));
     return false;
   }
+  HeldDraws e;
+  e.id = pix_id;
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+    e.k[j] = __ldg(table + st.lit * kUniKeyDraws + j);
   const ShadeHit s = shade_fetch(sc.shade, h.tri, h.u, h.v, o, d, h.t);
   const SurfHeld m =
       hold(surf(sc.mat_f32, sc.textures, s.mat_id, s.uv0, s.uv1));
   const Frame fr = frame(s.normal);
   const V3 wi_local = to_local(d, fr);
-  const BasedDraws bd{&e, 0};
+  const BasedDraws<HeldDraws> bd{&e, 0};
   const Sample bs = bsdf_sample(bd, m, neg(wi_local), s.backface, 1.0f);
   if (bs.pdf <= 0.0f || length_sq(bs.f) < kEps) return false;
   st.li = add(st.li,
@@ -471,14 +465,10 @@ __device__ __forceinline__ void shade_eval_one(const SceneArgs& sc,
   const float trans = m.trans();
   const bool emissive =
       length_sq(hit_emission(sc.lights.rows, s.light_ind)) > kEps;
-  EventDraws e;
-  e.mega_keys = draw_keys;
-  e.classic = false;
-  e.b0 = e.b1 = 0u;
-  e.id = id;
+  const TableDraws e{draw_keys, id};
   NeeSample ns;
   if (sc.lights.count > 0) {
-    const BasedDraws nd{&e, kDNee};
+    const BasedDraws<TableDraws> nd{&e, kDNee};
     ns = nee_sample(nd, sc.lights, s.point, fr, wi_local, m, eta_i,
                     tri >= 0 && !emissive && !sm.is_specular());
   } else {
@@ -491,7 +481,7 @@ __device__ __forceinline__ void shade_eval_one(const SceneArgs& sc,
   const float bpdf = ns.active
                          ? ns.bsdf_pdf
                          : bsdf_pdf(m, neg(wi_local), ns.wo_local, eta_i);
-  const BasedDraws bd{&e, kDBsdf};
+  const BasedDraws<TableDraws> bd{&e, kDBsdf};
   const Sample bs = bsdf_sample(bd, m, neg(wi_local), s.backface, eta_i);
   const V3 cols[] = {s.point, s.normal};
   int c = 0;
@@ -543,7 +533,8 @@ namespace {
 constexpr int kThreads = 128;
 
 // Samples s0 .. s0+k-1 of each of the n pixels (px, py); sample s keyed by
-// row s of keys [k, 28]. Persistent: each thread steps one event of its
+// row s of keys [k, 8] (the camera) and its draw-key table table[s]
+// (max(key_rows, 1) x 9 pairs). Persistent: each thread steps one event of its
 // path per loop trip and takes the next sample or pixel when the path ends
 // (see the header). counter: the next pixel, zero at the launch. lanes
 // (nullable): the lane counters (tpt::add_lane_counts). Built twice, by
@@ -562,7 +553,8 @@ constexpr int kMinBlocksNarrow = 1;
 template <int kEngine, int kMinBlocks>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
 uni_mega_kernel(tpt::SceneArgs sc, tpt::Params p,
-                const uint32_t* __restrict__ keys, int32_t k,
+                const uint32_t* __restrict__ keys,
+                const tpt::KeyPair* __restrict__ table, int32_t k,
                 const int32_t* __restrict__ px,
                 const int32_t* __restrict__ py, int64_t n,
                 float* __restrict__ li_out, int32_t* __restrict__ rays_out,
@@ -576,6 +568,9 @@ uni_mega_kernel(tpt::SceneArgs sc, tpt::Params p,
     uint32_t pix_id = static_cast<uint32_t>((y << 14) + x);
     int32_t s = 0, rays = 0, rows = 0;
     const uint32_t* row = keys;
+    const tpt::KeyPair* trow = table;
+    const int32_t nrows = tpt::key_rows(p.schedule, p.max_depth);
+    const int64_t trows = int64_t{nrows > 0 ? nrows : 1} * tpt::kUniKeyDraws;
     tpt::V3 acc = tpt::v3(0.0f, 0.0f, 0.0f);
     tpt::PathState st;
     bool alive = tpt::begin_sample(p, row, x, y, pix_id, st);
@@ -585,9 +580,9 @@ uni_mega_kernel(tpt::SceneArgs sc, tpt::Params p,
             (threadIdx.x & 31) == __ffs(__activemask()) - 1)
           ++calls;
         alive = p.schedule == tpt::kScheduleNaive
-                    ? tpt::naive_event<kEngine>(sc, p, row, pix_id, st,
+                    ? tpt::naive_event<kEngine>(sc, p, trow, pix_id, st,
                                                 rays, rows)
-                    : tpt::path_event<kEngine>(sc, p, row, i, pix_id, st,
+                    : tpt::path_event<kEngine>(sc, p, trow, i, pix_id, st,
                                                rays, rows);
         ++events;
       }
@@ -611,6 +606,7 @@ uni_mega_kernel(tpt::SceneArgs sc, tpt::Params p,
         acc = tpt::v3(0.0f, 0.0f, 0.0f);
       }
       row = keys + tpt::kKeyWords * static_cast<int64_t>(s);
+      trow = table + trows * s;
       alive = tpt::begin_sample(p, row, x, y, pix_id, st);
     }
   }
@@ -618,16 +614,29 @@ uni_mega_kernel(tpt::SceneArgs sc, tpt::Params p,
 }
 
 // The launch's scratch: scratch[0] the pixel counter, zeroed here, then
-// from word 2 on the key rows of samples s0 .. s0+k-1 under (b0, b1).
+// from byte 16 on the camera rows of samples s0 .. s0+k-1 under (b0,
+// b1), then their draw-key table kt: threads s < k write row s, the next
+// ones the table's entries.
 __global__ void __launch_bounds__(kThreads)
 uni_mega_keys_kernel(uint32_t b0, uint32_t b1, uint32_t s0, int32_t k,
+                     tpt::KeyTables kt,
                      unsigned long long* __restrict__ scratch) {
-  const int s = blockIdx.x * kThreads + threadIdx.x;
+  const int64_t s = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
   if (s == 0) scratch[0] = 0ull;
+  uint32_t* rows = reinterpret_cast<uint32_t*>(scratch + 2);
   if (s < k)
     tpt::sample_key_row(b0, b1, s0 + static_cast<uint32_t>(s),
-                        reinterpret_cast<uint32_t*>(scratch + 1) +
-                            tpt::kKeyWords * static_cast<int64_t>(s));
+                        rows + tpt::kKeyWords * s);
+  else
+    tpt::key_table_entry(kt, s - k, reinterpret_cast<tpt::KeyPair*>(
+                                        rows + tpt::kKeyWords * int64_t{k}));
+}
+
+// K5's draw-key table for k samples of `schedule`.
+tpt::KeyTables uni_keys(uint32_t b0, uint32_t b1, uint32_t s0, int32_t k,
+                        int32_t schedule, int32_t max_depth) {
+  return tpt::uni_key_tables(b0, b1, s0, k,
+                             tpt::key_rows(schedule, max_depth));
 }
 
 struct DrawKeys {
@@ -704,32 +713,32 @@ int launch_grid(int32_t engine, int64_t n, unsigned& blocks, bool& wide) {
 template <int kEngine>
 void launch(bool wide, unsigned grid, cudaStream_t st,
             const tpt::SceneArgs& sc, const tpt::Params& p,
-            const uint32_t* keys, int32_t k, const int32_t* px,
-            const int32_t* py, int64_t n, float* li, int32_t* rays,
-            int32_t* rows, unsigned long long* ctr,
+            const uint32_t* keys, const tpt::KeyPair* table, int32_t k,
+            const int32_t* px, const int32_t* py, int64_t n, float* li,
+            int32_t* rays, int32_t* rows, unsigned long long* ctr,
             unsigned long long* ln) {
   if (wide)
     uni_mega_kernel<kEngine, kMinBlocksWide><<<grid, kThreads, 0, st>>>(
-        sc, p, keys, k, px, py, n, li, rays, rows, ctr, ln);
+        sc, p, keys, table, k, px, py, n, li, rays, rows, ctr, ln);
   else
     uni_mega_kernel<kEngine, kMinBlocksNarrow><<<grid, kThreads, 0, st>>>(
-        sc, p, keys, k, px, py, n, li, rays, rows, ctr, ln);
+        sc, p, keys, table, k, px, py, n, li, rays, rows, ctr, ln);
 }
 
 }  // namespace
 
-// Samples s0 .. s0+k-1 (k >= 1) of n pixels under the base key (b0, b1):
-// shade: scene.shade_table [T, 16] (16-byte aligned), mat_f32 [M, 26];
-// li [n,3] f32 the sum of each pixel's k radiances in sample order, rays
-// [n] i32 and rows (null, or [n] i32: rows visited, BVH8 rows or threaded
-// nodes) their sums. cam_params: 19 floats (host memory). scratch: 8 + 112
-// k bytes of device memory (the pixel counter and the key table), written
-// by the key kernel on the stream, so launches that share it must be
-// ordered (one stream). engine: kEngineBvh8 (0) or kEngineThreaded (1,
-// with bin, the threaded tables of bin_nodes node records and bin_slots
-// leaf triangles). Test arguments: blocks > 0 fixes the
-// grid (0: the resident grid), lanes (null, or three u64 in device
-// memory) as the kernel's. Returns the launches' cudaError_t.
+// Samples s0 .. s0+k-1 (k >= 1) of n pixels under the base key (b0, b1): shade:
+// scene.shade_table [T, 16] (16-byte aligned), mat_f32 [M, 26]; li [n,3] f32
+// the sum of each pixel's k radiances in sample order, rays [n] i32 and rows
+// (null, or [n] i32: rows visited, BVH8 rows or threaded nodes) their sums.
+// cam_params: 19 floats (host memory). scratch:
+// tpt_render_unidirectional_scratch(k, schedule, max_depth) bytes of device
+// memory (the pixel counter and the key tables), written by the key kernel on
+// the stream, so launches that share it must be ordered (one stream). engine:
+// kEngineBvh8 (0) or kEngineThreaded (1, with bin, the threaded tables of
+// bin_nodes node records and bin_slots leaf triangles). Test arguments: blocks
+// > 0 fixes the grid (0: the resident grid), lanes (null, or three u64 in
+// device memory) as the kernel's. Returns the launches' cudaError_t.
 extern "C" int tpt_render_unidirectional(
     const float* table, const float* tri_f32, int32_t tri_cols,
     const float* shade, const float* mat_f32, const float* light_f32,
@@ -764,17 +773,42 @@ extern "C" int tpt_render_unidirectional(
   p.air_priority = air_priority;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   auto* ctr = static_cast<unsigned long long*>(scratch);
-  const uint32_t* keys = reinterpret_cast<const uint32_t*>(ctr + 1);
+  const uint32_t* keys = reinterpret_cast<const uint32_t*>(ctr + 2);
+  const tpt::KeyPair* dkeys = reinterpret_cast<const tpt::KeyPair*>(
+      keys + tpt::kKeyWords * int64_t{k});
   auto* ln = static_cast<unsigned long long*>(lanes);
-  uni_mega_keys_kernel<<<(k + kThreads - 1) / kThreads, kThreads, 0, st>>>(
-      b0, b1, s0, k, ctr);
+  const tpt::KeyTables kt = uni_keys(b0, b1, s0, k, schedule, max_depth);
+  const int64_t entries = k + tpt::key_table_entries(kt);
+  uni_mega_keys_kernel<<<static_cast<unsigned>(
+                             (entries + kThreads - 1) / kThreads),
+                         kThreads, 0, st>>>(b0, b1, s0, k, kt, ctr);
   if (engine == tpt::kEngineThreaded)
-    launch<tpt::kEngineThreaded>(wide, grid, st, sc, p, keys, k, px, py, n,
-                                 li, rays, rows, ctr, ln);
+    launch<tpt::kEngineThreaded>(wide, grid, st, sc, p, keys, dkeys, k, px,
+                                 py, n, li, rays, rows, ctr, ln);
   else
-    launch<tpt::kEngineBvh8>(wide, grid, st, sc, p, keys, k, px, py, n, li,
-                             rays, rows, ctr, ln);
+    launch<tpt::kEngineBvh8>(wide, grid, st, sc, p, keys, dkeys, k, px, py,
+                             n, li, rays, rows, ctr, ln);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The rows of a sample's draw-key table (tpt::key_rows: 0 is one row with
+// no bounce level; -1: an unknown schedule).
+extern "C" int32_t tpt_render_unidirectional_key_rows(int32_t schedule,
+                                                      int32_t max_depth) {
+  if (!schedule_ok(schedule) || max_depth < 0) return -1;
+  return tpt::key_rows(schedule, max_depth);
+}
+
+// The bytes of scratch tpt_render_unidirectional needs for k samples of
+// `schedule`: the pixel counter, k camera rows and the draw-key table.
+extern "C" int64_t tpt_render_unidirectional_scratch(int32_t k,
+                                                     int32_t schedule,
+                                                     int32_t max_depth) {
+  if (k < 1 || !schedule_ok(schedule) || max_depth < 0) return -1;
+  return 16 + 4 * int64_t{tpt::kKeyWords} * k +
+         static_cast<int64_t>(sizeof(tpt::KeyPair)) *
+             tpt::key_table_entries(uni_keys(0u, 0u, 0u, k, schedule,
+                                             max_depth));
 }
 
 // The resident grid tpt_render_unidirectional launches for n pixels on the

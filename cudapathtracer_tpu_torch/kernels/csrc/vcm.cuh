@@ -34,7 +34,8 @@ namespace tpt {
 struct EyeParams {
   CameraParams cam;         // raygen (camera draw keys inside)
   float plane_area;
-  uint32_t key_e0, key_e1;  // classic: bounce keys fold_in(key_e, depth)
+  uint32_t key_e0, key_e1;  // classic: key_e (the prologue folds the table)
+  const KeyPair* key_table;  // classic: [eye_depth][7] (eye_key_tables)
   uint32_t bsdf_keys[8];    // mega: draw_key(key_e, 0..3)
   uint32_t nee_keys[6];     // mega: draw_key(key_e, 16..18)
   int eye_depth, light_rows;
@@ -136,23 +137,22 @@ __device__ __forceinline__ V3 conn_terms(const SceneRefs& sc, float eta_vcm,
 }
 
 // s = 1 under VCM's weights at eye vertex e (its shade-time normal, fe its
-// frame; m its lobe): the light point keyed fold_in(bounce key, 7), one
-// shadow ray to dist - EPSILON skipping the light's triangle (counted),
-// w_light the squared ratio; ptc_local: pos - prev_pt in e's frame. The
-// BSDF terms and the weight are computed before the trace, so only they
-// live across it. Returns the clamped weighted contribution, zero where the
-// ray is blocked or the light faces away.
-template <int kEngine, class S>
+// frame; m its lobe): the light point drawn by kk (the pairs of fold_in(bounce
+// key, 7), the eye walk's key table), one shadow ray to dist - EPSILON skipping
+// the light's triangle (counted), w_light the squared ratio; ptc_local: pos -
+// prev_pt in e's frame. The BSDF terms and the weight are computed before the
+// trace, so only they live across it. Returns the clamped weighted
+// contribution, zero where the ray is blocked or the light faces away.
+template <int kEngine, class S, class Draw>
 __device__ __forceinline__ V3 nee_vcm(const SceneRefs& sc,
                                       const Weighting& wt, float eta_vcm,
                                       const EyeVertex& e, const Frame& fe,
-                                      const S& m, const KeyDraws& bd,
-                                      uint32_t id, V3 ptc_local,
-                                      int32_t& rays, int32_t& rows) {
+                                      const S& m, const Draw& kk,
+                                      V3 ptc_local, int32_t& rays,
+                                      int32_t& rows) {
   ++rays;
   const float num =
       static_cast<float>(sc.lights.count > 1 ? sc.lights.count : 1);
-  const KeyDraws kk = fold_draws(bd.k0, bd.k1, 7u, id);
   const LightPoint lp = light_point(kk, sc);
   const V3 stl = sub(lp.p, e.pos);
   const float d2 = fmaxf(length_sq(stl), kRayEps);

@@ -492,6 +492,14 @@ def _connect_term(scene, ev, mat_e, albedo_e, trans_e, lv, e2l_u, cos_l,
 
 # --- one sample --------------------------------------------------------------
 
+def nee_key_table(key_c, eye_depth: int) -> torch.Tensor:
+    """Plain version of K13's s=1 key table (bdpt_pairs.cu's prologue,
+    kernels/csrc/keys.cuh nee_key_tables): for t = 0..eye_depth the pairs
+    draw_key(fold_in(key_c, t), 0..2), the keys _bdpt_nee folds ->
+    int32 [(eye_depth + 1) * 3, 2]."""
+    return rng.fold_table(key_c, 3, rows=eye_depth + 1)
+
+
 def sample_keys(base_key, sample_idx):
     """(key_l, key_e, key_c) of a sample."""
     skey = rng.sample_key(base_key, sample_idx)

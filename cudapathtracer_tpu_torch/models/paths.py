@@ -350,6 +350,16 @@ def generate_light_path(scene, key, px, py, max_depth: int, eta_vcm=None):
     return bufs, v0, rays
 
 
+def walk_key_table(key, max_depth: int) -> torch.Tensor:
+    """Plain version of K12's key table (kernels/csrc/keys.cuh
+    walk_key_tables, folded by the walk's prologue): the pairs of draws 0-3
+    of bounce_key(key, b) for b < max_depth, then draws LIGHT_DRAWS of key
+    -> int32 [max_depth * 4 + 5, 2] (the keyed walk's host table)."""
+    return torch.cat([rng.fold_table(key, 4, rows=max_depth),
+                      rng.fold_table(key, len(LIGHT_DRAWS),
+                                     draw0=LIGHT_DRAWS[0])])
+
+
 def walk_keys(key, mode: str) -> list:
     """The 12 key words K12 takes: 10 draw-key words (eye: the camera's
     four draw keys and two unused words; light: the five endpoint draw

@@ -118,6 +118,18 @@ def render_batch_kernel(scene, camera, base_key, s0: int, px, py, k: int, *,
     return li, rays.sum()
 
 
+def sample_key_table(base_key, s0: int, k: int, rows: int) -> torch.Tensor:
+    """Plain version of K5's draw-key table (the key kernel of
+    kernels/csrc/uni_mega.cu, keys.cuh uni_key_tables): for samples s0 ..
+    s0+k-1 and draws d = 0..8, with rows > 0 (the classic and naive
+    schedules: kernels.uni_key_rows) the pairs
+    draw_key(bounce_key(sample_key(base_key, s), lit), d) of events lit <
+    rows, the keys render_plain's _bounce folds; with rows 0 (mega) the
+    pairs draw_key(sample_key(base_key, s), d) -> int32 [k * max(rows, 1)
+    * 9, 2]."""
+    return rng.fold_table(base_key, 9, rows=rows, samples=k, s0=s0)
+
+
 def render_plain(scene, camera, base_key, sample_idx, px, py, *,
                  max_depth: int, use_mis: bool = True,
                  sample_environment: bool = False, schedule: str):

@@ -219,6 +219,18 @@ def record_flags(reached, missed, valid, cur_delta, stop, last: bool):
         missed, REC_ESCAPED | REC_END, 0)).to(torch.int32)
 
 
+def eye_key_table(key_e, eye_depth: int) -> torch.Tensor:
+    """Plain version of the classic eye walk's key table (eye_walk.cu's
+    prologue, kernels/csrc/keys.cuh eye_key_tables): per depth the BSDF
+    pairs draw_key(bounce_key(key_e, depth), 0..3), then NEE's
+    draw_key(fold_in(bounce_key(key_e, depth), 7), 0..2), the keys
+    eye_walk_plain folds -> int32 [eye_depth * 7, 2]."""
+    bsdf = rng.fold_table(key_e, 4, rows=eye_depth).view(eye_depth, 4, 2)
+    nee = rng.fold_table(key_e, 3, rows=eye_depth, mid=7) \
+        .view(eye_depth, 3, 2)
+    return torch.cat([bsdf, nee], 1).reshape(-1, 2)
+
+
 def eye_walk_plain(scene, camera, key_e, cfg: VCMConfig, px, py,
                    eta_vcm: float):
     """Plain version of the classic eye walk stage (eye_walk.cu, any

@@ -17,7 +17,9 @@ package is keyed by pixel id. The positional streams (`uniform`,
 `uniform2`) of the JAX package are not. `draw_key_table` folds the key
 pairs of every (bounce, draw) on the host once, and `uniform_keyed` draws
 with a key pair per lane (K6's keyed mode on CUDA tensors): the keyed
-light walk (models/light_mega.py) reads its draws that way.
+light walk (models/light_mega.py) reads its draws that way. `fold_table`
+is the plain version of the key tables the kernels' prologues fold on the
+card (kernels/csrc/keys.cuh), in their order.
 """
 
 from __future__ import annotations
@@ -89,10 +91,16 @@ def _threefry_lanes(k0, k1, ids: torch.Tensor):
     in int64 arithmetic masked to 32 bits, under the key (k0, k1): Python
     ints, or int64 tensors of per-lane words (the keyed mode). Returns
     (x0, x1) int64."""
+    x0 = ids.to(torch.int64) & _MASK
+    return _threefry_words(k0, k1, x0, torch.zeros_like(x0))
+
+
+def _threefry_words(k0, k1, x0: torch.Tensor, x1: torch.Tensor):
+    """Threefry-2x32 of the blocks (x0, x1) (int64 tensors of uint32
+    words) under the key (k0, k1), Python ints or int64 tensors."""
     ks = (k0, k1, k0 ^ k1 ^ _PARITY)
-    x0 = (ids.to(torch.int64) & _MASK) + ks[0]
-    x0 = x0 & _MASK
-    x1 = torch.zeros_like(x0) + ks[1]
+    x0 = (x0 + ks[0]) & _MASK
+    x1 = (x1 + ks[1]) & _MASK
     for i in range(5):
         for r in _TF_ROT[i % 2]:
             x0 = (x0 + x1) & _MASK
@@ -160,6 +168,35 @@ def draw_key_table(key: Key, bounces, draw_ids) -> torch.Tensor:
         bkey = key if b is None else bounce_key(key, b)
         rows.append([list(draw_key(bkey, d)) for d in draw_ids])
     return torch.tensor(rows, dtype=torch.uint32)
+
+
+def fold_table(key: Key, draws: int, rows: int = 0, samples: int = 0,
+               s0: int = 0, mid: int = -1, draw0: int = 0) -> torch.Tensor:
+    """Plain version of one KeyTableSpec of kernels/csrc/keys.cuh: the
+    pairs draw_key(., draw0 + j) of fold_in(fold_in(fold_in(key, s0 + s),
+    r), mid), the sample level only when samples > 0, the row level only
+    when rows > 0, the mid level only when mid >= 0, in (s, r, j) order ->
+    int32 [max(samples, 1) * max(rows, 1) * draws, 2] (uint32 words)."""
+    ns, nr = max(samples, 1), max(rows, 1)
+    s = torch.arange(ns, dtype=torch.int64).repeat_interleave(nr * draws)
+    r = torch.arange(nr, dtype=torch.int64).repeat_interleave(draws) \
+        .repeat(ns)
+    j = torch.arange(draws, dtype=torch.int64).repeat(ns * nr)
+    k0 = torch.full_like(s, key[0] & _MASK)
+    k1 = torch.full_like(s, key[1] & _MASK)
+
+    def fold(k0, k1, data):
+        return _threefry_words(k0, k1, torch.zeros_like(data),
+                               data & _MASK)
+    if samples > 0:
+        k0, k1 = fold(k0, k1, s + s0)
+    if rows > 0:
+        k0, k1 = fold(k0, k1, r)
+    if mid >= 0:
+        k0, k1 = fold(k0, k1, torch.full_like(s, mid))
+    k0, k1 = fold(k0, k1, j + draw0)
+    w = torch.stack([k0, k1], 1)
+    return torch.where(w >= 1 << 31, w - (1 << 32), w).to(torch.int32)
 
 
 def _words(k: torch.Tensor) -> torch.Tensor:

@@ -1,6 +1,7 @@
 """Primary ray generation (kernel K7's plain version) against the JAX
 package. Tolerance: atol 1e-6. The draws are bit-equal; cos, sin and rsqrt
-of XLA:CPU and PyTorch may differ in the last ulp."""
+of XLA:CPU and PyTorch may differ in the last ulp. At aperture 0 the lens
+is off: every origin is the camera's."""
 
 import jax
 import jax.numpy as jnp
@@ -21,6 +22,9 @@ CAMERAS = {
                                     5.0, 45.0)),
     "thin_lens": ("thin_lens", ((0.1, 0.2, 1.0), W, H, 10.0, -20.0, 5.0,
                                 45.0, 0.05, 1.3)),
+    # aperture 0 (K7 skips the lens) with a nonzero jitter
+    "aperture_0": ("thin_lens", ((-0.3, 0.1, 1.2), W, H, -5.0, 15.0, 0.0,
+                                 50.0, 0.0, 1.1, 1.5)),
 }
 
 
@@ -47,6 +51,9 @@ def test_generate_rays_matches_jax(name):
                                    atol=1e-6)
     np.testing.assert_allclose(np.linalg.norm(td.numpy(), axis=1), 1.0,
                                atol=1e-6)
+    if tc.aperture == 0.0:
+        np.testing.assert_array_equal(
+            to.numpy(), np.broadcast_to(np.float32(tc.origin), to.shape))
 
 
 def test_from_config():

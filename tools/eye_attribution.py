@@ -78,7 +78,12 @@ K5 and K11-K13 instantiation of the build (the library is rebuilt with
   * --shade times the shading transition (K2-K4) in its test entry and in
     every kernel it runs in, and --merge the merge query (K9) in its entry
     and its two hosts, the classic and K14 gathers (shade_hosts);
-    tools/shade_attribution.py runs them on copies of a tree, in turns.
+    tools/shade_attribution.py runs them on copies of a tree, in turns;
+    tools/rng_attribution.py runs --shade with --rng, which times K6's
+    entries and K7's on the reference pinhole (aperture 1e-6), a camera of
+    aperture 0 and a thin lens (rng_entries); --aperture0 renders
+    everything through a camera of aperture 0 (the reference pinhole's
+    geometry, no lens) in place of the reference pinhole.
   * --dump also writes, per engine, the eye passes' walk, connection and
     gather stages (the classic VCM pass; on BVH8 also K14's VCM and BDPT
     flavours, chunk 0): their records and contributions (zeroed before
@@ -98,7 +103,8 @@ repository root:
     python3 tools/eye_attribution.py [--root DIR] [--toggles] [--reps 2]
         [--bit-equal] [--renders [--cells REGEX] [--spp-256 N]]
         [--dump DIR [--dump-cases REGEX]] [--per 1 6 42] [--walks] [--k1]
-        [--k15] [--sort] [--shade] [--merge] [--reuse-build] [--json FILE]
+        [--k15] [--sort] [--shade] [--merge] [--rng] [--aperture0]
+        [--reuse-build] [--json FILE]
     python3 tools/eye_attribution.py --compare DUMP_A DUMP_B
 """
 
@@ -818,6 +824,78 @@ def shade_hosts(root: str, scenes: dict, cam, px, py, bcfg, cfg0,
     return res
 
 
+def _graph_ms(fn, reps: int = 20) -> float:
+    """Device ms per call: reps calls captured in one CUDA graph and
+    replayed between CUDA events (chip_smoke.graph_ms)."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def rng_entries(px, py, reps: int, log=print) -> dict:
+    """K6's entries (uniform_id, its keyed mode on per-lane pairs) on the
+    1080p pixel ids and K7's (generate_rays) at 1080p on the reference
+    pinhole (aperture 1e-6), a camera of aperture 0 and a thin lens:
+    {name: device ms by CUDA graph replay, name + " call": ms of a call
+    from the host by CUDA events}."""
+    import numpy as np
+    import torch
+    from cudapathtracer_tpu_torch.scene.camera import Camera
+    from cudapathtracer_tpu_torch.utils import rng
+    ids = rng.pixel_ids(px, py).contiguous()
+    n, dev = ids.shape[0], ids.device
+    res = {}
+
+    def timed(name, fn):
+        res[name] = _graph_ms(fn)
+        res[name + " call"] = _events_ms(fn, max(reps, 20))
+        log(f"[rng] {name}: {res[name]:.4f} ms (a call from the host "
+            f"{res[name + ' call']:.4f} ms)")
+    k0, k1 = rng.draw_key(rng.bounce_key(rng.sample_key(rng.base_key(), 5),
+                                         3), 4)
+    timed("K6 uniform_id", lambda: rng.uniform_draw_key(k0, k1, ids))
+    gen = np.random.default_rng(23)
+    kw = [torch.as_tensor(gen.integers(0, 2 ** 32, n, dtype=np.uint64)
+                          .astype(np.uint32).view(np.int32), device=dev)
+          for _ in range(2)]
+    timed("K6 keyed", lambda: rng.uniform_keyed(kw[0], kw[1], ids))
+    ckey = rng.fold_in(rng.sample_key(rng.base_key(), 0), 2 ** 20)
+    fx, fy = px.float(), py.float()
+    for tag, cam in (
+            ("K7 reference pinhole", Camera.pinhole(
+                (0.0, 0.0, 1.0), WIDTH, HEIGHT, 0.0, 0.0, 0.0, 60.0)),
+            ("K7 aperture 0", aperture0_camera()),
+            ("K7 thin lens", Camera.thin_lens(
+                (0.0, 0.0, 1.0), WIDTH, HEIGHT, 0.0, 0.0, 0.0, 60.0, 0.05,
+                1.5))):
+        timed(tag, lambda: cam.generate_rays(ckey, fx, fy, ids))
+    return res
+
+
+def aperture0_camera():
+    """The reference pinhole's geometry (focal_dist 1 / fov) at aperture 0:
+    no lens."""
+    from cudapathtracer_tpu_torch.scene.camera import Camera
+    return Camera.thin_lens((0.0, 0.0, 1.0), WIDTH, HEIGHT, 0.0, 0.0, 0.0,
+                            60.0, 0.0, 1.0 / 60.0)
+
+
 def sort_times(scene, px, py, cfg0, reps: int, log=print) -> dict:
     """K8's sort on the 1080p VCM sample's photons (sample 0's light walk,
     12,441,600 candidates): the tree's photon_sort (on the buckets, or on
@@ -1278,6 +1356,10 @@ def main() -> int:
                     "the merge's hosts (shade_hosts)")
     ap.add_argument("--merge", action="store_true", help="time the merge "
                     "query K9's hosts (the gathers) and entry alone")
+    ap.add_argument("--rng", action="store_true", help="time K6's and K7's "
+                    "entries (rng_entries)")
+    ap.add_argument("--aperture0", action="store_true", help="a camera of "
+                    "aperture 0 in place of the reference pinhole")
     ap.add_argument("--reuse-build", action="store_true", help="keep the "
                     "tree's kernel library and ptxas report if they are up "
                     "to date (a later turn of tools/k1_attribution.py)")
@@ -1287,7 +1369,7 @@ def main() -> int:
     toggles = args.toggles or not (args.renders or args.bit_equal
                                    or args.dump or args.per or args.walks
                                    or args.k1 or args.k15 or args.sort
-                                   or args.shade or args.merge)
+                                   or args.shade or args.merge or args.rng)
     root = os.path.abspath(args.root)
     sys.path.insert(0, root)
     import torch
@@ -1326,7 +1408,8 @@ def main() -> int:
               f"frame, {ss} bytes spill stores, {sl} bytes spill loads, "
               f"{sm} bytes smem")
     dev = torch.device("cuda", 0)
-    cam = Camera.pinhole((0.0, 0.0, 1.0), WIDTH, HEIGHT, 0.0, 0.0, 0.0, 60.0)
+    cam = (aperture0_camera() if args.aperture0 else Camera.pinhole(
+        (0.0, 0.0, 1.0), WIDTH, HEIGHT, 0.0, 0.0, 0.0, 60.0))
     gy, gx = torch.meshgrid(torch.arange(HEIGHT, dtype=torch.int32,
                                          device=dev),
                             torch.arange(WIDTH, dtype=torch.int32,
@@ -1368,6 +1451,8 @@ def main() -> int:
                                    args.reps, not args.shade, log)
     if args.sort:
         out["sort"] = sort_times(scenes["bvh8"], px, py, cfg0, args.reps, log)
+    if args.rng:
+        out["rng"] = rng_entries(px, py, args.reps, log)
     if args.json:
         os.makedirs(os.path.dirname(os.path.abspath(args.json)),
                     exist_ok=True)

@@ -354,8 +354,8 @@ def _names():
         yield from ((v,) if isinstance(v, str) else v)
 
 
-def _apply(dst: str, part: str) -> None:
-    for fname, old, new, times in PATCHES[part]:
+def _apply(dst: str, part: str, patches: dict | None = None) -> None:
+    for fname, old, new, times in (patches or PATCHES)[part]:
         if fname.startswith("re:"):
             glob = re.compile(fname[3:].replace(".", r"\.")
                               .replace("*", ".*") + "$")
@@ -385,8 +385,11 @@ def _apply(dst: str, part: str) -> None:
             f.write(src.replace(old, new))
 
 
-def make_variant(parent: str, out: str, name: str) -> str:
-    """A copy of the tree `parent` with the patches of variant `name`."""
+def make_variant(parent: str, out: str, name: str,
+                 patches: dict | None = None) -> str:
+    """A copy of the tree `parent` with the patches of variant `name`
+    (names joined by + apply several) from `patches` (PATCHES)."""
+    patches = patches or PATCHES
     dst = os.path.join(out, name)
     if os.path.exists(dst):
         shutil.rmtree(dst)
@@ -400,10 +403,10 @@ def make_variant(parent: str, out: str, name: str) -> str:
         else:
             shutil.copy2(src, dst)
     for part in name.split("+"):
-        if part not in PATCHES:
+        if part not in patches:
             raise SystemExit(f"FAIL: no variant {part!r} (have "
-                             f"{', '.join(PATCHES)})")
-        _apply(dst, part)
+                             f"{', '.join(patches)})")
+        _apply(dst, part, patches)
     return dst
 
 
