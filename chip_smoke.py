@@ -4,6 +4,10 @@ NVIDIA GPU. Run from the repository root:
 
     python3 chip_smoke.py
 
+needs one card; `python3 chip_smoke.py --sharded` builds the kernels and
+runs phase 35b-c alone, over every visible card (on a machine with n >= 2
+cards it adds NCCL (n,1) and (n/2,2) meshes, one card a rank).
+
 Phases (one line each; any failure exits non-zero before the result line):
   1. a CUDA card is required; print nvidia-smi's name and power limit;
   2. build the kernels from kernels/csrc into build/torch_ext (one nvcc per
@@ -210,11 +214,32 @@ Phases (one line each; any failure exits non-zero before the result line):
      flavours, and (34b, after phase 33) the classic VCM pass on the
      threaded scene, timed with the connections, the merge and NEE off in
      turn and with the connections and merge off together (timed only:
-     each toggle changes the estimator).
+     each toggle changes the estimator);
+ 35. tile x spp rendering over a mesh of ranks (parallel/sharding.py) and
+     K8's rows mode: on the 1080p VCM sample's photons the pack-only
+     photon_pack (rows, validity) against hashgrid.photon_rows,
+     photon_bucket (K8-rows) against its plain version and against
+     photon_pack's buckets and table, the rows-mode grid against the
+     lbufs mode's and build_grid, and on the union of four tiles' photons
+     gathered tile-major against build_grid, all bit-equal, photon_bucket
+     timed; then naive (depth 8), BDPT and VCM with merging (eye 4, light
+     3) at 256x256 on cornell_with_blocks on an NCCL (1,1) mesh over
+     cuda:0, on (4,1) and (2,2) meshes with every rank on cuda:0 (Gloo)
+     and, where n >= 2 cards are visible, on NCCL (n,1) and (n/2,2)
+     meshes, one card a rank, against the unsharded calls on cuda:0,
+     each of which is timed as the sharded calls are (host clock, median
+     of 5, every card synchronised): naive against the per-shard calls
+     composed (each shard's key and sample, summed over the spp axis),
+     BDPT and VCM against the single-rank render (the spp ranks' samples
+     summed) within rtol 2e-4 + atol 2e-5, rays equal, no photon dropped;
+     each sharded call's kernels launched, photon_bucket only where the
+     tile axis has 2 or more ranks; each call's time and Mrays/s printed
+     beside the direct call's.
 Then one JSON line with each kernel's launches on its main path (the
 BDPT kernels on the BDPT path, the photon kernels on the VCM path, mega_eye
 on the VCM-mega path, naive on the naive path, the others on the mega
-path; bdpt_walk_table on the TPT_MEGA_LIGHT VCM-mega path; K15's two
+path; bdpt_walk_table on the TPT_MEGA_LIGHT VCM-mega path;
+photon_bucket on the (4,1) mesh's sharded VCM sample; K15's two
 entries on the threaded UNIDIRECTIONAL path, where they launch 0 times as
 K1's entries do on the mega path: their device code runs inside K5's
 threaded instantiation, whose launches there the two entries carry in
@@ -242,6 +267,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import faulthandler
 import importlib
 import io
 import json
@@ -254,6 +280,9 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 OUT_DIR = os.path.join(ROOT, "chiprun_out", "chip_smoke")
 WIDTH, HEIGHT, SPP, DEPTH = 1920, 1080, 4, 8
+# --sharded: the build, then phase 35b-c alone (on a machine with several
+# cards, its NCCL meshes over all of them)
+SHARDED_ONLY = sys.argv[1:] == ["--sharded"]
 CSRC = "cudapathtracer_tpu_torch/kernels/csrc/"
 KERNELS = (  # name, source, the JAX function it replaces
     ("uniform_id", CSRC + "rng.cu", "cudapathtracer_tpu/utils/rng.py:106"),
@@ -292,6 +321,8 @@ KERNELS = (  # name, source, the JAX function it replaces
     ("photon_table", CSRC + "photon_grid.cu",
      "cudapathtracer_tpu/ops/hashgrid.py:151"),
     ("photon_sort", CSRC + "radix_sort.cu",
+     "cudapathtracer_tpu/ops/hashgrid.py:151"),
+    ("photon_bucket", CSRC + "photon_grid.cu",
      "cudapathtracer_tpu/ops/hashgrid.py:151"),
     ("vcm_eye", CSRC + "eye.cuh", "cudapathtracer_tpu/models/vcm.py:150"),
     ("vcm_eye_walk", CSRC + "eye_walk.cu",
@@ -2269,7 +2300,271 @@ def threaded_phases(card: str, stats: dict, cam, px, py, ids, cfg0) -> int:
     return uni_launches
 
 
+def sharded_phases(card: str, stats: dict, px, py, cfg0) -> int:
+    """Phase 35, tile x spp rendering over a mesh of ranks
+    (parallel/sharding.py), and K8's rows mode. Returns photon_bucket's
+    launches on the sharded VCM path (the (4,1) mesh's sample)."""
+    import torch
+    from cudapathtracer_tpu_torch import kernels
+    from cudapathtracer_tpu_torch.models import paths, vcm
+    from cudapathtracer_tpu_torch.ops import hashgrid
+    from cudapathtracer_tpu_torch.scene import builtin
+    from cudapathtracer_tpu_torch.scene.materials import builtin_materials
+    from cudapathtracer_tpu_torch.scene.scene import build_scene
+    from cudapathtracer_tpu_torch.utils import rng
+    dev, n, base = px.device, px.shape[0], rng.base_key()
+
+    # --- 35a. K8's rows mode on the 1080p VCM sample's photons: the pack-only
+    # photon_pack (rows and validity) against hashgrid.photon_rows,
+    # photon_bucket against its plain version and against photon_pack's
+    # buckets and table (the lbufs mode), the rows-mode grid against the
+    # lbufs mode's and build_grid; then on the union of the 1080p frame cut
+    # into 4 tiles (each tile's walk packed, gathered tile-major, as a (4,1)
+    # mesh gathers them) against build_grid, bit for bit
+    scene, _ = build_scene(builtin.cornell_with_bunny(subdivisions=6),
+                           builtin_materials(), device=dev)
+    vmain = vcm.VCMConfig.from_config(dataclasses.replace(
+        cfg0, integrator="VCM", engine="classic").normalized())
+    key_l, _ = vcm.sample_keys(base, 0)
+    mr, eta, _ = vcm.sample_scalars(scene, vmain, 0, n)
+    salt = hashgrid.photon_salt(0)
+    salted = hashgrid.REWEIGHT
+    lkeys = paths.walk_keys(key_l, "light")
+
+    def walk(tx, ty):
+        return kernels.bdpt_walk(
+            scene, tx, ty, lkeys, mode="light",
+            max_depth=vmain.light_depth + 1,
+            rays=torch.zeros(tx.shape[0], dtype=torch.int32, device=dev),
+            eta_vcm=eta)["bufs"]
+    lb = walk(px, py)
+    p = lb.pt.shape[0] * lb.pt.shape[1]
+    tsize = hashgrid.photon_table_size(p)
+    rows, valid = kernels.photon_rows(lb)
+    prow, pval = hashgrid.photon_rows(lb)
+    check(torch.equal(rows.view(torch.int32), prow.view(torch.int32))
+          and torch.equal(valid.bool(), pval), "K8 rows mode: photon_pack's "
+          "pack-only rows or validity differ from hashgrid.photon_rows")
+    h, se = kernels.photon_bucket(rows, valid, scene.scene_min, 2.0 * mr,
+                                  tsize)
+    ph, pse = hashgrid.photon_bucket_plain(rows, valid, scene.scene_min,
+                                           2.0 * mr, tsize)
+    _, lh, lse = kernels.photon_pack(lb, scene.scene_min, 2.0 * mr, tsize)
+    check(torch.equal(h, ph) and torch.equal(se, pse), "K8 rows mode: "
+          "photon_bucket differs from its plain version")
+    check(torch.equal(h, lh) and torch.equal(se, lse), "K8 rows mode: "
+          "photon_bucket differs from photon_pack's buckets (lbufs mode)")
+    g_rows = hashgrid.build_grid_rows_kernel(rows, valid, scene.scene_min,
+                                             mr, salt)
+    g_lbufs = hashgrid.build_grid_kernel(lb, scene.scene_min, mr, salt)
+    compare_grid(g_rows, g_lbufs, f"rows mode against the lbufs mode, "
+                 f"{WIDTH}x{HEIGHT}")
+    compare_grid(g_rows, hashgrid.build_grid(prow, pval, scene.scene_min, mr,
+                                             tsize, salt=salt),
+                 f"rows mode against build_grid, {WIDTH}x{HEIGHT}")
+    del g_lbufs, prow, pval, lh, lse, ph, pse
+    parts = [kernels.photon_rows(walk(px[sl], py[sl]))
+             for sl in (slice(t * n // 4, (t + 1) * n // 4)
+                        for t in range(4))]
+    urows = torch.cat([r for r, _ in parts])
+    uvalid = torch.cat([v for _, v in parts])
+    del parts
+    g_union = hashgrid.build_grid_rows_kernel(urows, uvalid, scene.scene_min,
+                                              mr, salt)
+    compare_grid(g_union, hashgrid.build_grid(
+        urows, uvalid.bool(), scene.scene_min, mr, tsize, salt=salt),
+        f"rows mode on 4 tiles' photons gathered, {WIDTH}x{HEIGHT}")
+    del g_union, g_rows
+    stats["photon_bucket"].update(
+        # a position (12 B) and a validity byte in, a bucket out, the table
+        # written once; a cell, its hash and the bucket (~20 operations)
+        bound=bound_ms(p * (12 + 1 + 4) + 8 * (tsize + 1), p * 20),
+        max_abs_err=0.0,
+        ms=cuda_ms(lambda: kernels.photon_bucket(
+            urows, uvalid, scene.scene_min, 2.0 * mr, tsize), 10),
+        plain_ms=cuda_ms(lambda: hashgrid.photon_bucket_plain(
+            urows, uvalid, scene.scene_min, 2.0 * mr, tsize), 3),
+        library_ms=None)
+    st = stats["photon_bucket"]
+    say("K8 rows", f"{p} photons, table of {tsize + 1} buckets: photon_bucket "
+        f"{st['ms']:.4f} ms, plain {st['plain_ms']:.3f} ms, bound "
+        f"{st['bound'][0]:.4f} ms ({st['bound'][1]}); pack-only rows, "
+        f"buckets, table and grids bit-equal to the plain versions and the "
+        f"lbufs mode (salted {salted}) ({card})")
+    del urows, uvalid, rows, valid, h, se, lb, scene
+    return sharded_renders(card, dev, 256)
+
+
+def host_ms(fn, dev_list, reps: int = 5) -> float:
+    """Median host milliseconds of fn() over `reps` calls, each ended by a
+    synchronisation of every device in dev_list (after one warm-up)."""
+    import torch
+    cuda = [d for d in dev_list if d.type == "cuda"]
+    fn()
+    times = []
+    for _ in range(reps):
+        for d in cuda:
+            torch.cuda.synchronize(d)
+        t0 = time.perf_counter()
+        fn()
+        for d in cuda:
+            torch.cuda.synchronize(d)
+        times.append((time.perf_counter() - t0) * 1e3)
+    return sorted(times)[reps // 2]
+
+
+def sharded_renders(card: str, dev, w: int) -> int:
+    """Phase 35b-c: the sharded path at w x w on cornell_with_blocks,
+    naive (depth 8), BDPT and VCM (eye 4, light 3; VCM with merging at r0
+    0.005 of the scene radius and 64 photons a cell, where no 256x256 cell
+    holds more, so the union's candidate set is the single rank's): an
+    NCCL (1,1) mesh, (4,1) and (2,2) meshes with every rank on the one
+    card (Gloo) and, where n >= 2 cards are visible, NCCL (n,1) and
+    (n/2,2) meshes over all of them, each against the unsharded calls on
+    `dev`. Each sharded call and the direct (unsharded) call of one sample
+    of the whole frame are timed alike (host_ms). Returns photon_bucket's
+    launches in the one-card (4,1) mesh's VCM sample."""
+    import torch
+    from cudapathtracer_tpu_torch import kernels
+    from cudapathtracer_tpu_torch.models import bdpt, naive, vcm
+    from cudapathtracer_tpu_torch.parallel import sharding
+    from cudapathtracer_tpu_torch.scene import builtin
+    from cudapathtracer_tpu_torch.scene.camera import Camera
+    from cudapathtracer_tpu_torch.scene.materials import builtin_materials
+    from cudapathtracer_tpu_torch.scene.scene import build_scene
+    from cudapathtracer_tpu_torch.utils import rng
+    base = rng.base_key()
+    bscene, _ = build_scene(builtin.cornell_with_blocks(), builtin_materials(),
+                            device=dev)
+    bcam = Camera.pinhole((0.0, 0.0, 1.0), w, w, 0.0, 0.0, 0.0, 60.0)
+    gy, gx = torch.meshgrid(torch.arange(w, dtype=torch.int32, device=dev),
+                            torch.arange(w, dtype=torch.int32, device=dev),
+                            indexing="ij")
+    bpx, bpy = gx.reshape(-1), gy.reshape(-1)
+    nb = w * w
+    bcfg = bdpt.BDPTConfig(eye_depth=4, light_depth=3)
+    vcfg = vcm.VCMConfig(eye_depth=4, light_depth=3, max_per_cell=64,
+                         r0_multiplier=0.005)
+    cases = {
+        "naive": (naive.render_sample, dict(max_depth=DEPTH), (
+            "naive",)),
+        "BDPT": (bdpt.render_sample, dict(splat=True, cfg=bcfg),
+                 BDPT_KERNELS),
+        "VCM": (vcm.render_sample, dict(splat=True, cfg=vcfg,
+                                        photon_axis="tile"),
+                ("bdpt_walk",) + PHOTON_KERNELS)}
+    singles = {}
+
+    def direct(name, si):
+        """The unsharded call of sample si over the whole frame (naive:
+        with the (0, 0) shard's key)."""
+        fn, kw, _ = cases[name]
+        if name == "naive":
+            k = rng.fold_in(rng.fold_in(base, 0), 0)
+            return fn(bscene, bcam, k, si, bpx, bpy, **kw)
+        return fn(bscene, bcam, base, si, bpx, bpy, cfg=kw["cfg"])
+
+    def single(name, si):
+        """The single-rank render of sample si, kept."""
+        if (name, si) not in singles:
+            out = direct(name, si)
+            check(name != "VCM" or int(out[2]) == 0, "sharded VCM: the "
+                  "single-rank render dropped photons, so the union's "
+                  "candidate set would differ from it")
+            singles[(name, si)] = (out[0], int(out[1]))
+        return singles[(name, si)]
+    direct_ms = {}
+    for name in cases:
+        direct_ms[name] = host_ms(lambda: direct(name, 0), [dev])
+        say("sharded", f"direct {name} {w}x{w}: one sample of the frame in "
+            f"{direct_ms[name]:.4f} ms (median of 5, synchronised) ({card})")
+    meshes = [((1, 1), [dev], "nccl"), ((4, 1), [dev] * 4, "gloo"),
+              ((2, 2), [dev] * 4, "gloo")]
+    n_cards = torch.cuda.device_count()
+    cards = [torch.device("cuda", i) for i in range(n_cards)]
+    if n_cards >= 2:
+        meshes.append(((n_cards, 1), cards, "nccl"))
+    if n_cards >= 4 and n_cards % 2 == 0:
+        meshes.append(((n_cards // 2, 2), cards, "nccl"))
+    bucket_launches = 0
+    for shape, devices, backend in meshes:
+        # a mesh that hangs prints every thread's stack and exits
+        faulthandler.dump_traceback_later(240, exit=True)
+        mesh = sharding.make_mesh(*shape, devices=devices)
+        n_tile, n_spp = shape
+        tag = f"{shape} on {len(set(devices))} card(s)"
+        say("sharded", mesh.describe())
+        check(mesh.backend == backend, f"sharded {tag}: backend "
+              f"{mesh.backend}, not {backend}")
+        nl = nb // n_tile
+        for name, (fn, kw, names) in cases.items():
+            call = sharding.make_sharded_sample_fn(fn, mesh, bscene, bcam,
+                                                   **kw)
+            call(base, 0, bpx, bpy)    # warm-up
+            kernels.reset_launches()
+            li, rays, *rest = call(base, 0, bpx, bpy)
+            launches = dict(kernels.launches)
+            want_names = names + (("photon_bucket",) if name == "VCM"
+                                  and n_tile > 1 else ())
+            missing = [k for k in want_names if launches[k] == 0]
+            check(not missing, f"sharded {tag} {name}: {missing} launched "
+                  "no time")
+            if name == "VCM":
+                check((launches["photon_bucket"] > 0) == (n_tile > 1),
+                      f"sharded {tag} VCM: photon_bucket launched "
+                      f"{launches['photon_bucket']} times")
+                if shape == (4, 1) and backend == "gloo":
+                    bucket_launches = launches["photon_bucket"]
+            if name == "naive":
+                # the JAX composition: each shard's own key and sample,
+                # summed over the spp axis in its order
+                want = torch.zeros((nb, 3), device=dev)
+                want_rays = 0
+                for ti in range(n_tile):
+                    sl = slice(ti * nl, (ti + 1) * nl)
+                    for si in range(n_spp):
+                        k = rng.fold_in(rng.fold_in(base, ti), si)
+                        s_li, s_rays = naive.render_sample(
+                            bscene, bcam, k, si, bpx[sl], bpy[sl],
+                            max_depth=DEPTH)
+                        want[sl] += s_li
+                        want_rays += int(s_rays)
+                ok = bool((li.to(dev) - want).abs().le(
+                    1e-7 + 1e-6 * want.abs()).all())
+            else:
+                # the spp ranks render samples 0 .. n_spp - 1: their sum
+                want, want_rays = single(name, 0)
+                for si in range(1, n_spp):
+                    o_li, o_rays = single(name, si)
+                    want, want_rays = want + o_li, want_rays + o_rays
+                ok = bool(torch.isclose(li.to(dev), want, rtol=2e-4,
+                                        atol=2e-5).all())
+            diff = (li.to(dev) - want).abs()
+            ref = "per-shard calls" if name == "naive" else \
+                "single-rank render"
+            ms = host_ms(lambda: call(base, 0, bpx, bpy), set(devices))
+            say("sharded", f"{tag} {name} {w}x{w}: {rays} rays, {n_spp} "
+                f"sample(s) a call in {ms:.4f} ms = "
+                f"{rays / ms / 1e3:.3f} Mrays/s (median of 5); the direct "
+                f"call {direct_ms[name]:.4f} ms a sample ({card}); against "
+                f"the {ref}: rays {want_rays}, max |diff| "
+                f"{diff.max().item():.3g}, bit-equal share "
+                f"{(diff == 0).float().mean().item():.6f}"
+                + (f", dropped {rest[0]}" if rest else ""))
+            check(rays == want_rays and ok, f"sharded {tag} {name}: "
+                  "differs from the unsharded render")
+            if name == "VCM":
+                check(rest[0] == 0, f"sharded {tag} VCM: {rest[0]} "
+                      "dropped photons")
+        mesh.close()
+        faulthandler.cancel_dump_traceback_later()
+    return bucket_launches
+
+
 def main() -> int:
+    if sys.argv[1:] not in ([], ["--sharded"]):
+        print("usage: python3 chip_smoke.py [--sharded]")
+        return 2
     if not os.path.isdir(os.path.join(ROOT, "cudapathtracer_tpu_torch")):
         print("FAIL: run chip_smoke.py from a checkout of the repository "
               "(cudapathtracer_tpu_torch/ not found beside it)")
@@ -2301,7 +2596,8 @@ def main() -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60)
-    card = smi.stdout.strip()
+    # one line a card ("; " between them where several are visible)
+    card = "; ".join(smi.stdout.strip().splitlines())
     say("card", card)
     say("card", f"torch {torch.__version__} cuda {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)}")
@@ -2311,6 +2607,14 @@ def main() -> int:
     t0 = time.perf_counter()
     kernels.build(verbose=True)
     build_s = time.perf_counter() - t0
+    if SHARDED_ONLY:
+        say("build", f"{kernels.LIBRARY} built in {build_s:.1f} s")
+        sharded_renders(card, dev, 256)
+        print(card)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
     with open(kernels.LIBRARY + ".ptxas.txt") as f:
         ptxas_log = f.read()
     say("build", f"{kernels.LIBRARY} built in {build_s:.1f} s "
@@ -2334,8 +2638,9 @@ def main() -> int:
                                                       "ILi2E")),
                   "traverse_bin_kernelILb0E", "traverse_bin_kernelILb1E",
                   "packing_kernel", "photon_pack_kernel",
-                  "photon_table_kernel", "radix_hist_kernel",
-                  "radix_pass_kernel", "slots_kernel", "rgb9e5_kernel",
+                  "photon_bucket_kernel", "photon_table_kernel",
+                  "radix_hist_kernel", "radix_pass_kernel", "slots_kernel",
+                  "rgb9e5_kernel",
                   "shade_eval_kernel"):
         mk = ptxas_of(ptxas_log, kname)
         say("build", f"{kname}: {mk['registers']} registers, "
@@ -4122,6 +4427,9 @@ def main() -> int:
 
     # --- 30-33. the threaded binary engine (K15)
     tl = threaded_phases(card, stats, cam, px, py, ids, cfg0)
+    # --- 35. tile x spp sharding and K8's rows mode
+    main_launches["photon_bucket"] = sharded_phases(card, stats, px, py,
+                                                    cfg0)
     # K15's entries launch 0 times on the threaded path, as K1's do on the
     # mega path: their device code runs inside K5's threaded instantiation,
     # whose launches the line gives beside them
@@ -4157,7 +4465,7 @@ def main() -> int:
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": 1}}))
+        "count": torch.cuda.device_count()}}))
     return 0
 
 

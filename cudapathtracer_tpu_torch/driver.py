@@ -353,8 +353,8 @@ class Renderer:
     def _require_npz(path: str):
         if not path.endswith(".npz"):
             raise NotImplementedError(
-                "only .npz checkpoints are ported (the Orbax directory "
-                "format belongs with multi-GPU, ROADMAP M13)")
+                "only .npz checkpoints are ported: the Orbax directory "
+                "format needs orbax.checkpoint, which imports jax")
 
     def save_checkpoint(self, path: str):
         self._require_npz(path)

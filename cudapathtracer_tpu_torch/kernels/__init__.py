@@ -25,9 +25,12 @@ traversal's stack depth is fixed at build time: the default 16 is the
 library above, and any other depth (stack_d=) builds its own
 libtpt_torch_kernels_stack<d>.so.
 
-Two entries have a second mode, counted under a name of its own: K6's
-keyed draw (uniform_keyed, rng.cu) and K12's table mode for the keyed
-light walk (bdpt_walk_table, bdpt_walk.cu). K5 renders k >= 1 samples a
+Three entries have a second mode, counted under a name of its own: K6's
+keyed draw (uniform_keyed, rng.cu), K12's table mode for the keyed
+light walk (bdpt_walk_table, bdpt_walk.cu) and K8's rows mode, the grid
+of a tile-sharded VCM sample built from the photon rows its ranks
+gathered (photon_bucket, photon_grid.cu; the rows come from photon_pack's
+pack-only mode, photon_rows, counted under photon_pack). K5 renders k >= 1 samples a
 launch (samples per dispatch), counted under render_unidirectional, or
 naive for its naive schedule. An eye pass (vcm_eye, mega_eye) counts once
 under its own name and each of its stage launches under <pass>_walk,
@@ -116,6 +119,9 @@ launches = {"closest_hit8": 0, "shadow_factor8": 0, "closest_hit_bin": 0,
             "packing_roundtrip": 0, "bdpt_walk": 0, "bdpt_splat": 0,
             "bdpt_pairs": 0, "bdpt_gather": 0, "vcm_splat": 0,
             "photon_pack": 0, "photon_sort": 0, "photon_table": 0,
+            # K8's rows mode (photon_grid.cu): the grid of a tile-sharded
+            # VCM sample, built from the photon rows gathered over the tiles
+            "photon_bucket": 0,
             "vcm_eye": 0, "rgb9e5": 0, "key_table": 0,
             "neighbor_slots": 0, "mega_eye": 0, "naive": 0,
             "uniform_keyed": 0, "bdpt_walk_table": 0,
@@ -133,12 +139,19 @@ launches = {"closest_hit8": 0, "shadow_factor8": 0, "closest_hit_bin": 0,
             "threaded_engine": 0}
 
 _lock = threading.Lock()
+_count_lock = threading.Lock()   # the ranks of a mesh launch from threads
 _libs = {}        # stack depth -> loaded library
 
 
 def reset_launches() -> None:
-    for k in launches:
-        launches[k] = 0
+    with _count_lock:
+        for k in launches:
+            launches[k] = 0
+
+
+def _count(name: str) -> None:
+    with _count_lock:
+        launches[name] += 1
 
 
 def _nvcc() -> str:
@@ -263,6 +276,8 @@ def _load(stack_d: int = STACK_D):
         lib.tpt_bdpt_splat.argtypes = [p, p, p, p]
         lib.tpt_photon_pack.restype = ctypes.c_int
         lib.tpt_photon_pack.argtypes = [p, p, p, p]
+        lib.tpt_photon_bucket.restype = ctypes.c_int
+        lib.tpt_photon_bucket.argtypes = [p, p, p, p]
         lib.tpt_photon_table.restype = ctypes.c_int
         lib.tpt_photon_table.argtypes = [p, p, p]
         lib.tpt_radix_sort32.restype = ctypes.c_int
@@ -311,9 +326,9 @@ def _launch(name: str, lib, fn, *args, engine: int = 0) -> None:
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: "
                            f"{lib.tpt_error_string(err).decode()}")
-    launches[name] += 1
+    _count(name)
     if engine == ENGINES["threaded"]:
-        launches["threaded_engine"] += 1
+        _count("threaded_engine")
 
 
 def uniform_id(ids: torch.Tensor, k0: int, k1: int, two: bool):
@@ -934,7 +949,7 @@ def bdpt_splat(scene, camera, lbufs, lv0: dict, fb, rays, cfg, *,
                     with_rows=with_rows)
     sp.bin()
     sp.trace()
-    launches[sp.name] += 1
+    _count(sp.name)
     return sp.rows
 
 
@@ -951,7 +966,7 @@ def vcm_splat(scene, camera, lbufs, fb, rays, cfg, eta_vcm: float, *,
                     eta_vcm=eta_vcm, n_live=n_live, with_rows=with_rows)
     sp.bin()
     sp.trace()
-    launches[sp.name] += 1
+    _count(sp.name)
     return sp.rows
 
 
@@ -1186,29 +1201,74 @@ def bdpt_connect(scene, camera, key_c, eye: dict, light: dict, fb, rays, cfg,
 
 # --- the photon family (K8, K9, K11's and K13's VCM forms) -------------------
 
-def photon_pack(lbufs, scene_min, cell_size: float, table_size: int):
-    """K8's first half (photon_grid.cu): one photon per stored light vertex
-    of lbufs [L, N], in the flat order row * N + lane. -> (rows [P, 8] f32
-    with uint32 words 3-5, bucket [P] i32 (table_size for a photon that is
-    invalid or delta), cell_se [T+1, 2] i32 filled with (P, 0))."""
+def _pack_launch(lbufs, scene_min, cell_size: float, table_size: int,
+                 with_bucket: bool):
+    """One photon_pack launch over lbufs [L, N] -> (rows [P, 8], then bucket
+    [P] and cell_se [T+1, 2] with with_bucket, else the validity [P] u8)."""
     dev = _cuda_device(lbufs.pt)
     depth, n = lbufs.pt.shape[0], lbufs.pt.shape[1]
     p = depth * n
-    if p <= 0 or not 0 < table_size < 2 ** 32:
+    if p <= 0 or (with_bucket and not 0 < table_size < 2 ** 32):
         raise ValueError(f"photon_pack: {p} photons, table {table_size}")
     e = lambda *sh, dt=torch.float32: torch.empty(sh, dtype=dt, device=dev)
-    rows, bucket = e(p, 8), e(p, dt=torch.int32)
-    cell_se = e(table_size + 1, 2, dt=torch.int32)
+    rows = e(p, 8)
+    if with_bucket:
+        outs = (e(p, dt=torch.int32), e(table_size + 1, 2, dt=torch.int32))
+        tail = [outs[0].data_ptr(), outs[1].data_ptr(), 0]
+    else:
+        outs = (e(p, dt=torch.uint8),)
+        tail = [0, 0, outs[0].data_ptr()]
     ptrs = (_check_bufs(lbufs, "lbufs", depth, n, dev)
-            + [rows.data_ptr(), bucket.data_ptr(), cell_se.data_ptr()])
-    iv = [n, depth, table_size]
+            + [rows.data_ptr()] + tail)
+    iv = [n, depth, table_size if with_bucket else 0]
     fv = [float(x) for x in scene_min] + [float(cell_size)]
     args = (_i64s(ptrs), _i64s(iv), _f32s(fv))
     lib = _load()
     with torch.cuda.device(dev):
         _launch("photon_pack", lib, lib.tpt_photon_pack,
                 *(ctypes.addressof(a) for a in args), _stream(dev))
-    return rows, bucket, cell_se
+    return (rows,) + outs
+
+
+def photon_pack(lbufs, scene_min, cell_size: float, table_size: int):
+    """K8's first half (photon_grid.cu): one photon per stored light vertex
+    of lbufs [L, N], in the flat order row * N + lane. -> (rows [P, 8] f32
+    with uint32 words 3-5, bucket [P] i32 (table_size for a photon that is
+    invalid or delta), cell_se [T+1, 2] i32 filled with (P, 0))."""
+    return _pack_launch(lbufs, scene_min, cell_size, table_size, True)
+
+
+def photon_rows(lbufs):
+    """photon_pack's pack-only mode (counted under photon_pack): the photon
+    rows of lbufs [L, N] and their validity, which the ranks of a tile axis
+    all-gather. -> (rows [P, 8] f32, valid [P] u8: 1 where the vertex is
+    valid and not delta). Plain version: ops/hashgrid.photon_rows."""
+    return _pack_launch(lbufs, (0.0, 0.0, 0.0), 0.0, 0, False)
+
+
+def photon_bucket(rows, valid, scene_min, cell_size: float, table_size: int):
+    """K8's rows mode (photon_grid.cu): each packed photon row's bucket
+    from its position and its validity, and the (start, end) table filled
+    for photon_table. rows [P, 8] f32, valid [P] u8 (the union a tile axis
+    gathered). -> (bucket [P] i32, table_size where valid is 0; cell_se
+    [T+1, 2] i32 filled with (P, 0)): photon_pack's on the same photons,
+    bit for bit. Plain version: ops/hashgrid.photon_bucket_plain."""
+    dev = _cuda_device(rows)
+    p = rows.shape[0]
+    _check(rows, "rows", torch.float32, (p, 8), dev)
+    _check(valid, "valid", torch.uint8, (p,), dev)
+    if not 0 < p < 2 ** 31 or not 0 < table_size < 2 ** 32:
+        raise ValueError(f"photon_bucket: {p} photons, table {table_size}")
+    bucket = torch.empty(p, dtype=torch.int32, device=dev)
+    cell_se = torch.empty((table_size + 1, 2), dtype=torch.int32, device=dev)
+    args = (_i64s([rows.data_ptr(), valid.data_ptr(), bucket.data_ptr(),
+                   cell_se.data_ptr()]), _i64s([p, table_size]),
+            _f32s([float(x) for x in scene_min] + [float(cell_size)]))
+    lib = _load()
+    with torch.cuda.device(dev):
+        _launch("photon_bucket", lib, lib.tpt_photon_bucket,
+                *(ctypes.addressof(a) for a in args), _stream(dev))
+    return bucket, cell_se
 
 
 def photon_sort(bucket, bits: int, salt=None):
@@ -1418,7 +1478,7 @@ def run_eye_pass(ep: EyePass) -> None:
     if ep.conn is not None:
         eye_connect(ep)
     eye_gather(ep)
-    launches[ep.name] += 1
+    _count(ep.name)
 
 
 def vcm_eye(scene, camera, keys: list, lbufs, grid, fb, rays, cfg, *, px,

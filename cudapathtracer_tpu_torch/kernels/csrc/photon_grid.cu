@@ -11,7 +11,16 @@
 //                 decoded buffer field; beta half3 -> float -> half2 r|g,
 //                 b|0; d_vcm; d_vm) and its bucket (the sentinel T unless
 //                 valid and not delta). It also fills the (start, end)
-//                 table with (P, 0).
+//                 table with (P, 0). Its pack-only mode (no bucket, no
+//                 table) writes the rows and each photon's validity byte
+//                 instead: what a tile-sharded VCM sample all-gathers
+//                 (cudapathtracer_tpu/models/vcm.py:212-219, photon_axis).
+//   photon_bucket the rows mode: one thread per packed photon row of the
+//                 gathered union, its bucket from the row's position and
+//                 its validity byte, and the (P, 0) fill of the table; the
+//                 same buckets and table as photon_pack's on the same
+//                 photons, bit for bit (the rows hold the positions
+//                 unchanged).
 //   (radix_sort.cu's stable sort between the two launches, by the sort key
 //   it derives from each bucket and index (salted: the bucket * 256 plus
 //   an 8-bit tiebreak, uint32 and wrapping as there): the order, sorted
@@ -25,9 +34,10 @@
 //                 be contiguous, so min / max stays the rule.
 //
 // Bound: bytes. photon_pack reads ~43 bytes of buffers per vertex and writes
-// a 32-byte row and a 4-byte bucket; photon_table reads a 4-byte index, a
-// 4-byte bucket and a 32-byte row and writes the row, and the table of
-// 8 (T + 1) bytes is written once and updated by atomics.
+// a 32-byte row and a 4-byte bucket; photon_bucket reads a 12-byte position
+// and a validity byte and writes a 4-byte bucket; photon_table reads a
+// 4-byte index, a 4-byte bucket and a 32-byte row and writes the row, and
+// the table of 8 (T + 1) bytes is written once and updated by atomics.
 // Design: one thread per element, 16-byte vector loads and stores of the
 // rows; the gather's row reads are scattered (sorted order), its index and
 // bucket reads (the sort put the buckets in sorted order) and its writes
@@ -49,18 +59,25 @@ struct PackLaunch {
   tpt::GridGeom geom;
   int64_t p;           // L * N
   float* rows;         // [P, 8]
-  int32_t* bucket;     // [P]
-  int32_t* cell_se;    // [T+1, 2]
+  int32_t* bucket;     // [P]; null in the pack-only mode
+  int32_t* cell_se;    // [T+1, 2]; null in the pack-only mode
+  uint8_t* valid;      // [P] or null: 1 for a valid, non-delta photon
 };
+
+// The (P, 0) fill of the (start, end) table, strided over the P threads.
+__device__ __forceinline__ void fill_table(int32_t* cell_se, int64_t k,
+                                           int64_t p, uint32_t table_size) {
+  for (int64_t t = k; t <= table_size; t += p) {
+    cell_se[2 * t] = static_cast<int32_t>(p);
+    cell_se[2 * t + 1] = 0;
+  }
+}
 
 __global__ void __launch_bounds__(kThreads) photon_pack_kernel(PackLaunch a) {
   const int64_t k = static_cast<int64_t>(blockIdx.x) * blockDim.x +
                     threadIdx.x;
   if (k >= a.p) return;
-  for (int64_t t = k; t <= a.geom.table_size; t += a.p) {
-    a.cell_se[2 * t] = static_cast<int32_t>(a.p);
-    a.cell_se[2 * t + 1] = 0;
-  }
+  if (a.cell_se) fill_table(a.cell_se, k, a.p, a.geom.table_size);
   const tpt::V3 pos = tpt::v3(a.lb.pt[3 * k], a.lb.pt[3 * k + 1],
                               a.lb.pt[3 * k + 2]);
   const tpt::V3 wi = tpt::unpack_oct(a.lb.wo_oct[k]);
@@ -78,7 +95,31 @@ __global__ void __launch_bounds__(kThreads) photon_pack_kernel(PackLaunch a) {
   r1.w = a.lb.d_vm[k];
   reinterpret_cast<float4*>(a.rows + 8 * k)[0] = r0;
   reinterpret_cast<float4*>(a.rows + 8 * k)[1] = r1;
+  if (a.valid) a.valid[k] = valid ? 1 : 0;
+  if (!a.bucket) return;
   const uint32_t h = valid ? tpt::bucket_of(a.geom, pos) : a.geom.table_size;
+  a.bucket[k] = static_cast<int32_t>(h);
+}
+
+struct BucketLaunch {
+  const float* rows;     // [P, 8] packed photon rows
+  const uint8_t* valid;  // [P]
+  tpt::GridGeom geom;
+  int64_t p;
+  int32_t* bucket;       // [P]
+  int32_t* cell_se;      // [T+1, 2]
+};
+
+__global__ void __launch_bounds__(kThreads)
+    photon_bucket_kernel(BucketLaunch a) {
+  const int64_t k = static_cast<int64_t>(blockIdx.x) * blockDim.x +
+                    threadIdx.x;
+  if (k >= a.p) return;
+  fill_table(a.cell_se, k, a.p, a.geom.table_size);
+  const float4 r0 = reinterpret_cast<const float4*>(a.rows + 8 * k)[0];
+  const uint32_t h = a.valid[k]
+                         ? tpt::bucket_of(a.geom, tpt::v3(r0.x, r0.y, r0.z))
+                         : a.geom.table_size;
   a.bucket[k] = static_cast<int32_t>(h);
 }
 
@@ -128,9 +169,11 @@ unsigned blocks_for(int64_t n) {
 
 }  // namespace
 
-// ptrs: the 11 light-buffer fields, rows, bucket, cell_se. iv: n (lanes),
-// depth (stored vertices per lane), table_size. fv: scene_min[3],
-// cell_size. Returns the launch's cudaError_t.
+// ptrs: the 11 light-buffer fields, rows, bucket, cell_se, valid (bucket
+// and cell_se both null: the pack-only mode, which needs valid; valid may
+// be null otherwise). iv: n (lanes), depth (stored vertices per lane),
+// table_size (0 in the pack-only mode). fv: scene_min[3], cell_size.
+// Returns the launch's cudaError_t.
 extern "C" int tpt_photon_pack(const int64_t* ptrs, const int64_t* iv,
                                const float* fv, void* stream) {
   PackLaunch a;
@@ -142,11 +185,37 @@ extern "C" int tpt_photon_pack(const int64_t* ptrs, const int64_t* iv,
   a.rows = tpt::dev_ptr<float>(ptrs, 11);
   a.bucket = tpt::dev_ptr<int32_t>(ptrs, 12);
   a.cell_se = tpt::dev_ptr<int32_t>(ptrs, 13);
-  if (a.p <= 0 || iv[2] <= 0 || iv[2] >= (int64_t{1} << 32) ||
-      a.p >= (int64_t{1} << 31))
+  a.valid = tpt::dev_ptr<uint8_t>(ptrs, 14);
+  const bool pack_only = !a.bucket && !a.cell_se;
+  if (a.p <= 0 || a.p >= (int64_t{1} << 31) ||
+      (pack_only ? (!a.valid || iv[2] != 0)
+                 : (!a.bucket || !a.cell_se || iv[2] <= 0 ||
+                    iv[2] >= (int64_t{1} << 32))))
     return static_cast<int>(cudaErrorInvalidValue);
   photon_pack_kernel<<<blocks_for(a.p), kThreads, 0,
                        static_cast<cudaStream_t>(stream)>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// ptrs: rows, valid, bucket, cell_se. iv: p, table_size. fv: scene_min[3],
+// cell_size. Returns the launch's cudaError_t.
+extern "C" int tpt_photon_bucket(const int64_t* ptrs, const int64_t* iv,
+                                 const float* fv, void* stream) {
+  BucketLaunch a;
+  a.rows = tpt::dev_ptr<const float>(ptrs, 0);
+  a.valid = tpt::dev_ptr<const uint8_t>(ptrs, 1);
+  a.bucket = tpt::dev_ptr<int32_t>(ptrs, 2);
+  a.cell_se = tpt::dev_ptr<int32_t>(ptrs, 3);
+  a.p = iv[0];
+  for (int k = 0; k < 3; ++k) a.geom.smin[k] = fv[k];
+  a.geom.cell_size = fv[3];
+  a.geom.table_size = static_cast<uint32_t>(iv[1]);
+  if (a.p <= 0 || a.p >= (int64_t{1} << 31) || iv[1] <= 0 ||
+      iv[1] >= (int64_t{1} << 32) || !a.rows || !a.valid || !a.bucket ||
+      !a.cell_se)
+    return static_cast<int>(cudaErrorInvalidValue);
+  photon_bucket_kernel<<<blocks_for(a.p), kThreads, 0,
+                         static_cast<cudaStream_t>(stream)>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -23,7 +23,10 @@ connection and splat inputs from the DECODED packed vertices
 
 The splat's frame buffer is indexed by raster pixel (the pixel list must
 be the whole frame in raster order, as driver.Renderer gives it); float
-atomics make its per-pixel sums order-nondeterministic on the card.
+atomics make its per-pixel sums order-nondeterministic on the card. With
+`splat_shape` (tile sharding, parallel/sharding.py) the pixel list is one
+tile of the frame, the frame buffer covers the whole frame and is returned
+beside the tile's radiance instead of added to it.
 """
 
 from __future__ import annotations
@@ -507,37 +510,47 @@ def sample_keys(base_key, sample_idx):
 
 
 def render_sample(scene, camera, base_key, sample_idx, px, py, *,
-                  cfg: BDPTConfig):
+                  cfg: BDPTConfig, splat_shape: int | None = None):
     """One BDPT sample over the whole frame (px, py [P] in raster order)
     -> (radiance [P,3] with the light-trace splat added, rays traced: a
-    Python int on the CPU, a 0-d int64 tensor on the card)."""
+    Python int on the CPU, a 0-d int64 tensor on the card).
+
+    splat_shape (tile sharding): px, py are one tile of the frame and
+    splat_shape its pixel count (camera.width * camera.height); the splat
+    goes into a frame buffer of that many raster pixels, returned beside
+    the tile's radiance: (li [P,3] without the splat, fb [splat_shape,3],
+    rays). Without it the result is the same as li + fb."""
     fn = render_plain if px.device.type == "cpu" else render_kernel
-    return fn(scene, camera, base_key, sample_idx, px, py, cfg=cfg)
+    return fn(scene, camera, base_key, sample_idx, px, py, cfg=cfg,
+              splat_shape=splat_shape)
 
 
 def render_plain(scene, camera, base_key, sample_idx, px, py, *,
-                 cfg: BDPTConfig):
+                 cfg: BDPTConfig, splat_shape: int | None = None):
     """Plain versions of K12, K11, K12 and K13 in turn; any device."""
     key_l, key_e, key_c = sample_keys(base_key, sample_idx)
     n = px.shape[0]
     lbufs, lv0, rays_l = paths.generate_light_path(
         scene, key_l, px, py, cfg.light_depth)
-    fb = torch.zeros((n, 3), dtype=torch.float32, device=px.device)
+    fb = torch.zeros((splat_shape or n, 3), dtype=torch.float32,
+                     device=px.device)
     rays_s = 0
     if cfg.light_trace:
         fb, rays_s = light_trace_splat(scene, camera, lbufs, lv0, cfg, fb)
     ebufs, ev0, esc, rays_e = paths.generate_eye_path(
         scene, camera, key_e, px, py, cfg.eye_depth)
     li, rays_c = connect_plain(scene, camera, key_c, ebufs, ev0, esc, lbufs,
-                               lv0, cfg, rng.pixel_ids(px, py), fb)
-    return li, rays_l + rays_e + rays_s + rays_c
+                               lv0, cfg, rng.pixel_ids(px, py),
+                               None if splat_shape else fb)
+    rays = rays_l + rays_e + rays_s + rays_c
+    return (li, fb, rays) if splat_shape else (li, rays)
 
 
 def render_kernel(scene, camera, base_key, sample_idx, px, py, *,
-                  cfg: BDPTConfig):
+                  cfg: BDPTConfig, splat_shape: int | None = None):
     """K12 (light), K11, K12 (eye), K13 (pairs, gather): five launches and
     one ray-count accumulator [P], summed on the card (a 0-d int64 tensor;
-    no host sync)."""
+    no host sync). With splat_shape the gather adds no frame buffer."""
     key_l, key_e, key_c = sample_keys(base_key, sample_idx)
     n, dev = px.shape[0], px.device
     px = px.to(torch.int32).contiguous()
@@ -546,12 +559,13 @@ def render_kernel(scene, camera, base_key, sample_idx, px, py, *,
     lw = kernels.bdpt_walk(scene, px, py, paths.walk_keys(key_l, "light"),
                            mode="light", max_depth=cfg.light_depth,
                            rays=rays)
-    fb = torch.zeros((n, 3), dtype=torch.float32, device=dev)
+    fb = torch.zeros((splat_shape or n, 3), dtype=torch.float32, device=dev)
     if cfg.light_trace:
         kernels.bdpt_splat(scene, camera, lw["bufs"], lw["v0"], fb, rays, cfg)
     ew = kernels.bdpt_walk(scene, px, py, paths.walk_keys(key_e, "eye"),
                            mode="eye", max_depth=cfg.eye_depth, rays=rays,
                            camera=camera)
-    out, _ = kernels.bdpt_connect(scene, camera, key_c, ew, lw, fb, rays, cfg,
+    out, _ = kernels.bdpt_connect(scene, camera, key_c, ew, lw,
+                                  None if splat_shape else fb, rays, cfg,
                                   px=px, py=py)
-    return out, rays.sum()
+    return (out, fb, rays.sum()) if splat_shape else (out, rays.sum())

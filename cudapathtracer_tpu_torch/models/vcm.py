@@ -37,6 +37,14 @@ normalize(prev_pt - pos); the merge's w_eye/w_light divide d_vcm by
 max(eta_vcm, 1e-30). The splat's frame buffer is indexed by raster pixel
 (the pixel list must be the whole frame in raster order, as
 driver.Renderer gives it).
+
+Tile sharding (parallel/sharding.py): with `splat_shape` the pixel list is
+one tile and the splat's frame buffer the whole frame, returned beside the
+tile's radiance (as models/bdpt.py). With `photon_group`, the ranks of the
+tile axis, each rank's photon rows and their validity are all-gathered in
+rank order, the grid is built on their union (on the card by K8's rows
+mode) and the merge radius, eta_vcm and the merge normalisation count
+every rank's paths; the connections keep the rank's own light paths.
 """
 
 from __future__ import annotations
@@ -571,68 +579,105 @@ def merge_terms(e, idx, row, eta_vcm: float):
 # --- one sample --------------------------------------------------------------
 
 def render_sample(scene, camera, base_key, sample_idx, px, py, *,
-                  cfg: VCMConfig):
+                  cfg: VCMConfig, splat_shape: int | None = None,
+                  photon_group=None):
     """One VCM/SPPM sample over the whole frame (px, py [P] in raster
     order) -> (radiance [P,3] with the splat added, rays traced, photons
     the merge cap left out), the counts as Python ints on the CPU and as
-    0-d int64 tensors on the card."""
+    0-d int64 tensors on the card.
+
+    splat_shape (tile sharding): px, py are one tile, and the result is
+    (li [P,3] without the splat, fb [splat_shape,3], rays, dropped), as
+    models/bdpt.render_sample's. photon_group: the tile axis's group of
+    ranks (parallel/sharding.Group), whose photons the grid gathers (the
+    JAX package's photon_axis); None, the rank's own photons."""
     fn = render_plain if px.device.type == "cpu" else render_kernel
-    return fn(scene, camera, base_key, sample_idx, px, py, cfg=cfg)
+    return fn(scene, camera, base_key, sample_idx, px, py, cfg=cfg,
+              splat_shape=splat_shape, photon_group=photon_group)
 
 
-def _grid_inputs(scene, cfg, sample_idx, n):
-    mr, eta, norm = sample_scalars(scene, cfg, sample_idx, n)
+def _grid_inputs(scene, cfg, sample_idx, n, photon_group):
+    n_paths = n * (photon_group.size if photon_group is not None else 1)
+    mr, eta, norm = sample_scalars(scene, cfg, sample_idx, n_paths)
     return mr, eta, norm, hashgrid.photon_salt(sample_idx)
 
 
+def _gather_photons(photon_group, rows, valid):
+    """The union of every rank's photon rows [P, 8] and validity [P] u8,
+    rank-major (the JAX package's tiled all_gather)."""
+    return photon_group.all_gather(rows), photon_group.all_gather(valid)
+
+
 def render_plain(scene, camera, base_key, sample_idx, px, py, *,
-                 cfg: VCMConfig):
+                 cfg: VCMConfig, splat_shape: int | None = None,
+                 photon_group=None):
     """Plain versions of K12, the VCM splat, K8 and the eye pass in turn;
     any device."""
     key_l, key_e = sample_keys(base_key, sample_idx)
     n = px.shape[0]
-    mr, eta, norm, salt = _grid_inputs(scene, cfg, sample_idx, n)
+    mr, eta, norm, salt = _grid_inputs(scene, cfg, sample_idx, n,
+                                       photon_group)
     lbufs, _, rays_l = paths.generate_light_path(
         scene, key_l, px, py, cfg.light_depth + 1, eta_vcm=eta)
-    fb = torch.zeros((n, 3), dtype=torch.float32, device=px.device)
+    fb = torch.zeros((splat_shape or n, 3), dtype=torch.float32,
+                     device=px.device)
     rays_s = 0
     if cfg.light_trace:
         fb, rays_s = vcm_light_splat(scene, camera, lbufs, cfg, eta, fb)
     grid = None
     if cfg.do_merge:
         rows, valid = hashgrid.photon_rows(lbufs)
+        if photon_group is not None:
+            rows, valid = _gather_photons(photon_group, rows,
+                                          valid.to(torch.uint8))
+            valid = valid.bool()
         grid = hashgrid.build_grid(
             rows, valid, scene.scene_min, mr,
             hashgrid.photon_table_size(rows.shape[0]), salt=salt)
     li, rays_e, dropped = eye_pass_plain(scene, camera, key_e, lbufs, grid,
                                          cfg, px, py, mr, eta, norm)
-    return li + fb, rays_l + rays_s + rays_e, dropped
+    rays = rays_l + rays_s + rays_e
+    if splat_shape:
+        return li, fb, rays, dropped
+    return li + fb, rays, dropped
 
 
 def render_kernel(scene, camera, base_key, sample_idx, px, py, *,
-                  cfg: VCMConfig):
+                  cfg: VCMConfig, splat_shape: int | None = None,
+                  photon_group=None):
     """K12 (light), vcm_splat, photon_pack + photon_sort + photon_table,
     vcm_eye:
     one ray-count and one dropped-count accumulator [P], each summed on the
-    card into a 0-d int64 tensor (no host sync)."""
+    card into a 0-d int64 tensor (no host sync). With photon_group the grid
+    is photon_pack's rows gathered, then photon_bucket + photon_sort +
+    photon_table on the union."""
     key_l, key_e = sample_keys(base_key, sample_idx)
     n, dev = px.shape[0], px.device
     px = px.to(torch.int32).contiguous()
     py = py.to(torch.int32).contiguous()
-    mr, eta, norm, salt = _grid_inputs(scene, cfg, sample_idx, n)
+    mr, eta, norm, salt = _grid_inputs(scene, cfg, sample_idx, n,
+                                       photon_group)
     rays = torch.zeros(n, dtype=torch.int32, device=dev)
     lw = kernels.bdpt_walk(scene, px, py, paths.walk_keys(key_l, "light"),
                            mode="light", max_depth=cfg.light_depth + 1,
                            rays=rays, eta_vcm=eta)
-    fb = torch.zeros((n, 3), dtype=torch.float32, device=dev)
+    fb = torch.zeros((splat_shape or n, 3), dtype=torch.float32, device=dev)
     if cfg.light_trace:
         kernels.vcm_splat(scene, camera, lw["bufs"], fb, rays, cfg, eta)
     grid = None
-    if cfg.do_merge:
+    if cfg.do_merge and photon_group is not None:
+        rows, valid = _gather_photons(photon_group,
+                                      *kernels.photon_rows(lw["bufs"]))
+        grid = hashgrid.build_grid_rows_kernel(rows, valid, scene.scene_min,
+                                               mr, salt)
+    elif cfg.do_merge:
         grid = hashgrid.build_grid_kernel(lw["bufs"], scene.scene_min, mr,
                                           salt)
     out, dropped, _ = kernels.vcm_eye(
-        scene, camera, paths.walk_keys(key_e, "eye"), lw["bufs"], grid, fb,
-        rays, cfg, px=px, py=py, merge_radius=mr, eta_vcm=eta,
-        merge_norm=norm, **hashgrid.merge_switches(cfg.max_per_cell))
+        scene, camera, paths.walk_keys(key_e, "eye"), lw["bufs"], grid,
+        None if splat_shape else fb, rays, cfg, px=px, py=py,
+        merge_radius=mr, eta_vcm=eta, merge_norm=norm,
+        **hashgrid.merge_switches(cfg.max_per_cell))
+    if splat_shape:
+        return out, fb, rays.sum(), dropped.sum()
     return out, rays.sum(), dropped.sum()

@@ -15,7 +15,10 @@ and the oracle. On the card `build_grid_kernel` builds the same grid from
 K12's packed light buffers with three kernels (kernels.photon_pack, the
 stable radix sort kernels.photon_sort, whose plain twin is radix_sort_plain,
 and kernels.photon_table), and the merge query is device code of the VCM
-eye kernel (kernels/csrc/hashgrid.cuh). The
+eye kernel (kernels/csrc/hashgrid.cuh). A tile-sharded VCM sample builds
+its grid from the photon rows its tile axis gathered
+(`build_grid_rows_kernel`: K8's rows mode, kernels.photon_bucket, in place
+of photon_pack; plain version build_grid on the same rows). The
 estimator switches are read under the JAX package's names and defaults:
 TPT_MERGE_REWEIGHT at import (REWEIGHT), TPT_GRID_ONE_BRICK at each call.
 
@@ -231,6 +234,13 @@ def radix_sort_plain(key, bits: int, gather=None):
     return v, (None if gather is None else gather[v])
 
 
+def _finish_grid(rows, h, order, table_size, scene_min, cell_size):
+    rows_sorted, cell_se = grid_table(rows, h, order, table_size)
+    return PhotonGrid(rows=rows_sorted, cell_se=cell_se,
+                      scene_min=tuple(scene_min), cell_size=cell_size,
+                      table_size=table_size)
+
+
 def build_grid(rows, valid, scene_min, merge_radius: float, table_size: int,
                salt=None) -> PhotonGrid:
     """Plain version of K8: hash, stable sort, padded sorted rows and the
@@ -239,7 +249,38 @@ def build_grid(rows, valid, scene_min, merge_radius: float, table_size: int,
     cell_size = 2.0 * merge_radius
     h, key = grid_keys(rows, valid, scene_min, cell_size, table_size, salt)
     order = torch.sort(key, stable=True).indices
-    rows_sorted, cell_se = grid_table(rows, h, order, table_size)
+    return _finish_grid(rows, h, order, table_size, scene_min, cell_size)
+
+
+def photon_bucket_plain(rows, valid, scene_min, cell_size: float,
+                        table_size: int):
+    """Plain version of K8's rows mode (kernels.photon_bucket): each photon
+    row's bucket (grid_keys) as int32 and the (start, end) table filled
+    with (P, 0). -> (bucket [P] i32, cell_se [T+1, 2] i32)."""
+    p = rows.shape[0]
+    h, _ = grid_keys(rows, valid.bool(), scene_min, cell_size, table_size)
+    cell_se = torch.zeros((table_size + 1, 2), dtype=torch.int32,
+                          device=rows.device)
+    cell_se[:, 0] = p
+    return h.to(torch.int32), cell_se
+
+
+def build_grid_rows_kernel(rows, valid, scene_min, merge_radius: float, salt,
+                           table_size: int | None = None) -> PhotonGrid:
+    """K8 on the card from packed photon rows [P, 8] and their validity [P]
+    u8 (the union a tile axis all-gathered, shard-major): photon_bucket (the
+    rows mode), photon_sort, photon_table. The same grid as build_grid on
+    the same rows, bit for bit."""
+    from cudapathtracer_tpu_torch import kernels
+    if table_size is None:
+        table_size = photon_table_size(rows.shape[0])
+    cell_size = 2.0 * merge_radius
+    salted = salt is not None and REWEIGHT
+    h, cell_se = kernels.photon_bucket(rows, valid, scene_min, cell_size,
+                                       table_size)
+    order, h_sorted = kernels.photon_sort(h, key_bits(table_size, salted),
+                                          salt if salted else None)
+    rows_sorted = kernels.photon_table(rows, h_sorted, order, cell_se)
     return PhotonGrid(rows=rows_sorted, cell_se=cell_se,
                       scene_min=tuple(scene_min), cell_size=cell_size,
                       table_size=table_size)

@@ -23,6 +23,7 @@ from cudapathtracer_tpu_torch.scene.materials import (Material,
                                                       builtin_materials)
 from cudapathtracer_tpu_torch.scene.scene import build_scene
 from cudapathtracer_tpu_torch.utils import rng
+from test_torch_common import _one_thread  # noqa: F401  (autouse)
 
 GRAZE = [1e-7, 1e-4, 1e-2]
 

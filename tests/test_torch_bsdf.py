@@ -70,6 +70,7 @@ from cudapathtracer_tpu_torch.scene.materials import (MAT_LEAF, MAT_METAL,
                                                       build_table,
                                                       builtin_materials)
 from cudapathtracer_tpu_torch.utils import rng as trng
+from test_torch_common import _one_thread  # noqa: F401  (autouse)
 
 N = 2048
 ATOL, RTOL = 1e-6, 1e-5

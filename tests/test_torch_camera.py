@@ -14,6 +14,7 @@ from cudapathtracer_tpu.utils import rng as jrng
 from cudapathtracer_tpu.utils.config import parse_config
 from cudapathtracer_tpu_torch.scene.camera import Camera as TCamera
 from cudapathtracer_tpu_torch.utils import rng as trng
+from test_torch_common import _one_thread  # noqa: F401  (autouse)
 
 W, H = 24, 16
 CAMERAS = {

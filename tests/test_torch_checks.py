@@ -11,6 +11,7 @@ import torch
 
 from cudapathtracer_tpu_torch import cli
 from cudapathtracer_tpu_torch.utils import checks
+from test_torch_common import _one_thread  # noqa: F401  (autouse)
 
 
 def test_checks_disabled_by_default():

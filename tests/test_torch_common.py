@@ -39,6 +39,19 @@ N = 1024
 TOL = dict(rtol=1e-5, atol=1e-6)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """One intra-op thread: the suite's parallel workers would otherwise
+    oversubscribe the cores with the plain versions' many small operators.
+    The count is restored after the module. The port's test modules import
+    this fixture (an imported autouse fixture applies to its module);
+    test_torch_kernels, which runs on the card, defines its own."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def setup():
     js, _ = jbuild_scene(builtin.cornell_with_blocks(), jbuiltin_materials())

@@ -40,6 +40,7 @@ from cudapathtracer_tpu_torch.scene.materials import builtin_materials
 from cudapathtracer_tpu_torch.scene.scene import build_scene
 from cudapathtracer_tpu_torch.utils import debugviz, rng
 from cudapathtracer_tpu_torch.utils.config import RenderConfig
+from test_torch_common import _one_thread  # noqa: F401  (autouse)
 
 CAM = ((0.0, 0.0, 1.0), 32, 32, 0.0, 0.0, 0.0, 60.0)
 

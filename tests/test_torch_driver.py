@@ -225,14 +225,20 @@ def test_port_never_imports_jax(tmp_path):
     integrator with both engines without importing jax or any module of
     the JAX package; so do samples per dispatch (models/batch.py), the
     keyed light walk (models/light_mega.py), the checks (utils/checks.py),
-    the BDPT_DRAWPATH overlay (utils/debugviz.py) and one classic sample
-    on a traversal="threaded" scene (the threaded engine)."""
+    the BDPT_DRAWPATH overlay (utils/debugviz.py), one classic sample
+    on a traversal="threaded" scene (the threaded engine) and tile x spp
+    sharding over CPU ranks (parallel/sharding.py: BDPT's splat, VCM's
+    photon exchange). The renders are 16x12 on one intra-op thread: what
+    is tested is the import graph."""
     code = f"""
 import dataclasses, os, sys
+import torch
+torch.set_num_threads(1)
 import cudapathtracer_tpu_torch
 import cudapathtracer_tpu_torch.cli, cudapathtracer_tpu_torch.driver
 import cudapathtracer_tpu_torch.models.batch
 import cudapathtracer_tpu_torch.models.light_mega
+import cudapathtracer_tpu_torch.parallel.sharding
 import cudapathtracer_tpu_torch.utils.checks
 import cudapathtracer_tpu_torch.utils.debugviz
 from cudapathtracer_tpu_torch.utils.config import parse_config
@@ -245,12 +251,13 @@ for engine, integ in (("mega", "UNIDIRECTIONAL"),
                       ("mega", "NAIVE_UNIDIRECTIONAL")):
     cfg = parse_config({_config_text(tmp_path / 'r')!r}.replace(
         "Engine: classic", "Engine: " + engine).replace(
-        "Integrator: UNIDIRECTIONAL", "Integrator: " + integ))
+        "Integrator: UNIDIRECTIONAL", "Integrator: " + integ).replace(
+        "width: 32", "width: 16").replace("height: 24", "height: 12"))
     assert (cfg.engine, cfg.integrator) == (engine, integ)
     r = Renderer(cfg, device="cpu")
     img = r.render(num_samples=1, progressive=False, verbose=False)
-    assert img.pixels.shape == (24, 32, 3)
-    assert r.metrics.rays_traced > 24 * 32
+    assert img.pixels.shape == (12, 16, 3)
+    assert r.metrics.rays_traced > 12 * 16
 os.environ["TPT_MEGA_LIGHT"] = "1"
 cudapathtracer_tpu_torch.utils.checks.enable_checks(True)
 cfg = dataclasses.replace(cfg, integrator="BIDIRECTIONAL", width=8,
@@ -275,6 +282,16 @@ li, rays = unidirectional.render_sample(
     sc, Camera.pinhole((0.0, 0.0, 1.0), 8, 8, 0.0, 0.0, 0.0, 60.0),
     rng.base_key(), 0, px, py, max_depth=4)
 assert sc.traversal == "threaded" and rays > 64 and li.shape == (64, 3)
+from cudapathtracer_tpu_torch.models import bdpt, vcm
+from cudapathtracer_tpu_torch.parallel import sharding
+mesh = sharding.make_mesh(2, 1, devices=["cpu"] * 2)
+cam = Camera.pinhole((0.0, 0.0, 1.0), 8, 8, 0.0, 0.0, 0.0, 60.0)
+for fn, kw in ((bdpt.render_sample, dict(cfg=bdpt.BDPTConfig(3, 2))),
+               (vcm.render_sample, dict(cfg=vcm.VCMConfig(3, 2),
+                                        photon_axis="tile"))):
+    acc, done, rays = sharding.render_sharded(fn, mesh, sc, cam, 8, 8, 1,
+                                              splat=True, **kw)
+    assert done == 1 and rays > 64 and acc.shape == (64, 3)
 bad = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")
              or m == "cudapathtracer_tpu"
              or m.startswith("cudapathtracer_tpu."))

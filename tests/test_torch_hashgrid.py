@@ -27,6 +27,7 @@ from cudapathtracer_tpu.utils import packing as jpacking
 from cudapathtracer_tpu_torch.ops import hashgrid
 from cudapathtracer_tpu_torch.utils import packing
 from cudapathtracer_tpu_torch.utils.math import next_prime
+from test_torch_common import _one_thread  # noqa: F401  (autouse)
 
 SMIN = (-1.0, -1.0, -1.0)
 

@@ -29,6 +29,7 @@ from cudapathtracer_tpu_torch.scene.bvh import thread_links, triangle_bounds
 from cudapathtracer_tpu_torch.utils import config as tconfig
 from cudapathtracer_tpu_torch.utils.metrics import RenderMetrics
 from cudapathtracer_tpu_torch.utils.obj import MeshData, load_obj
+from test_torch_common import _one_thread  # noqa: F401  (autouse)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CONFIGS = sorted(glob.glob(os.path.join(REPO, "configs", "*.rendertron")))

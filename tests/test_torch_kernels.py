@@ -66,6 +66,16 @@ from cudapathtracer_tpu_torch.scene.scene import build_scene
 from cudapathtracer_tpu_torch.utils import packing, rng
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """test_torch_common._one_thread, defined here too: this module runs on
+    the card, where JAX (which test_torch_common imports) is absent."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
@@ -464,6 +474,49 @@ def test_photon_grid_matches_plain(cuda, table):
     pgrid = hashgrid.build_grid(rows, valid, sc.scene_min, mr,
                                 kgrid.table_size, salt=salt)
     chip_smoke.compare_grid(kgrid, pgrid, "grid test")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("table", [None, 3 * 2 ** 23 + 7])
+def test_photon_rows_mode_matches_plain(cuda, table):
+    """K8's rows mode on two tiles' photons gathered tile-major, as a (2,1)
+    mesh gathers them: the pack-only photon_pack against
+    hashgrid.photon_rows, photon_bucket against its plain version, the grid
+    against build_grid, bit for bit; the second case with a table above
+    2^24 buckets (the key wraps)."""
+    sc, cam, px, py = _vcm_setup("blocks", cuda)
+    cfg = vcm.VCMConfig(eye_depth=6, light_depth=4)
+    key_l, _ = vcm.sample_keys(rng.base_key(), 3)
+    mr, eta, _ = vcm.sample_scalars(sc, cfg, 3, px.shape[0])
+    salt = hashgrid.photon_salt(3)
+    half = px.shape[0] // 2
+    rows, valid = [], []
+    for sl in (slice(0, half), slice(half, None)):
+        lb = kernels.bdpt_walk(
+            sc, px[sl].clone(), py[sl].clone(),
+            paths.walk_keys(key_l, "light"), mode="light",
+            max_depth=cfg.light_depth + 1,
+            rays=torch.zeros(half, dtype=torch.int32, device=cuda),
+            eta_vcm=eta)["bufs"]
+        r, v = kernels.photon_rows(lb)
+        pr, pv = hashgrid.photon_rows(lb)
+        assert torch.equal(r.view(torch.int32), pr.view(torch.int32))
+        assert torch.equal(v.bool(), pv)
+        rows.append(r)
+        valid.append(v)
+    rows, valid = torch.cat(rows), torch.cat(valid)
+    size = hashgrid.photon_table_size(table // 2 if table else rows.shape[0])
+    kernels.reset_launches()
+    h, se = kernels.photon_bucket(rows, valid, sc.scene_min, 2.0 * mr, size)
+    assert kernels.launches["photon_bucket"] == 1
+    ph, pse = hashgrid.photon_bucket_plain(rows, valid, sc.scene_min,
+                                           2.0 * mr, size)
+    assert torch.equal(h, ph) and torch.equal(se, pse)
+    kgrid = hashgrid.build_grid_rows_kernel(rows, valid, sc.scene_min, mr,
+                                            salt, size)
+    pgrid = hashgrid.build_grid(rows, valid.bool(), sc.scene_min, mr, size,
+                                salt=salt)
+    chip_smoke.compare_grid(kgrid, pgrid, "rows-mode grid test")
 
 
 VCM_CASES = {"vcm": ({}, {}), "sppm": (dict(

@@ -13,6 +13,7 @@ import pytest
 from cudapathtracer_tpu.utils import rng as jrng
 from cudapathtracer_tpu_torch.models import bdpt, paths, unidirectional, vcm
 from cudapathtracer_tpu_torch.utils import rng as trng
+from test_torch_common import _one_thread  # noqa: F401  (autouse)
 
 SEEDS = (0, 103033, 2 ** 31 - 1)
 SAMPLES = (0, 5)

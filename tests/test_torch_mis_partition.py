@@ -36,6 +36,7 @@ from cudapathtracer_tpu_torch.utils import rng
 from cudapathtracer_tpu_torch.utils.math import (PI, dot, length_sq,
                                                  normalize, to_local)
 from cudapathtracer_tpu_torch.utils.obj import MeshData
+from test_torch_common import _one_thread  # noqa: F401  (autouse)
 
 
 def _grid(w, h):

@@ -12,6 +12,7 @@ import torch
 
 from cudapathtracer_tpu.utils import packing as jpacking
 from cudapathtracer_tpu_torch.utils import packing
+from test_torch_common import _one_thread  # noqa: F401  (autouse)
 
 N = 20000
 

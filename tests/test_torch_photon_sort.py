@@ -23,6 +23,7 @@ import torch
 from cudapathtracer_tpu.ops import hashgrid as jhashgrid
 from cudapathtracer_tpu_torch.ops import hashgrid
 from cudapathtracer_tpu_torch.utils.math import next_prime
+from test_torch_common import _one_thread  # noqa: F401  (autouse)
 
 SMIN = (-1.0, -1.0, -1.0)
 TILE = hashgrid.RADIX_TILE

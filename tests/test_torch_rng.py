@@ -11,6 +11,7 @@ import torch
 
 from cudapathtracer_tpu.utils import rng as jrng
 from cudapathtracer_tpu_torch.utils import rng as trng
+from test_torch_common import _one_thread  # noqa: F401  (autouse)
 
 SEEDS = (0, 1, 103033, 2 ** 31 - 1)
 MAX_ID = (1079 << 14) + 1919   # 1080p's last pixel id

@@ -25,6 +25,7 @@ from cudapathtracer_tpu.scene.scene import build_scene as jbuild_scene
 from cudapathtracer_tpu_torch.scene import builtin as tbuiltin
 from cudapathtracer_tpu_torch.scene import materials as tmaterials
 from cudapathtracer_tpu_torch.scene.scene import build_scene, pack_scene
+from test_torch_common import _one_thread  # noqa: F401  (autouse)
 
 # name -> (JAX package's mesh, port's mesh)
 SCENES = {

@@ -41,6 +41,7 @@ from cudapathtracer_tpu_torch.scene.materials import (MAT_DELTAMIRROR,
                                                       MaterialTable,
                                                       builtin_materials)
 from cudapathtracer_tpu_torch.scene.scene import build_scene
+from test_torch_common import _one_thread  # noqa: F401  (autouse)
 
 N = 1024
 

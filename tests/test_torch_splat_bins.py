@@ -42,6 +42,7 @@ from cudapathtracer_tpu_torch.scene.camera import Camera
 from cudapathtracer_tpu_torch.scene.materials import builtin_materials
 from cudapathtracer_tpu_torch.scene.scene import build_scene
 from cudapathtracer_tpu_torch.utils import rng
+from test_torch_common import _one_thread  # noqa: F401  (autouse)
 
 W = H = 32
 LIGHT_DEPTH = 5

@@ -27,6 +27,7 @@ from cudapathtracer_tpu_torch.ops.intersect import (brute_force_closest_hit,
                                                     moller_trumbore)
 from cudapathtracer_tpu_torch.scene.materials import builtin_materials
 from cudapathtracer_tpu_torch.scene.scene import build_scene
+from test_torch_common import _one_thread  # noqa: F401  (autouse)
 
 N = 1400  # rays per scene
 SCENES = {

@@ -39,6 +39,7 @@ from cudapathtracer_tpu_torch.scene.materials import builtin_materials
 from cudapathtracer_tpu_torch.scene.scene import build_scene
 from cudapathtracer_tpu_torch.utils import rng
 from cudapathtracer_tpu_torch.utils.image import rmse
+from test_torch_common import _one_thread  # noqa: F401  (autouse)
 
 GOLDEN = "tests/golden/cornell_uni_16x16_8spp.npy"
 

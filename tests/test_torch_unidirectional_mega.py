@@ -54,6 +54,7 @@ from cudapathtracer_tpu_torch.scene.materials import builtin_materials
 from cudapathtracer_tpu_torch.scene.scene import build_scene
 from cudapathtracer_tpu_torch.utils import rng
 from cudapathtracer_tpu_torch.utils.image import rmse
+from test_torch_common import _one_thread  # noqa: F401  (autouse)
 
 GOLDEN = os.path.join(os.path.dirname(os.path.abspath(__file__)), "golden")
 
