@@ -360,25 +360,29 @@ K1_HOSTS = ("traverse8_kernelILb0E", "traverse8_kernelILb1E",
             *(k + f + "Li0E" for k in ("eye_walk_kernel",
                                        "eye_connect_kernel")
               for f in ("ILi0E", "ILi1E", "ILi2E")))
-BDPT_KERNELS = ("bdpt_walk", "bdpt_splat", "bdpt_splat_bin",
-                "bdpt_splat_trace", "bdpt_pairs", "bdpt_gather")
-PHOTON_KERNELS = ("vcm_splat", "vcm_splat_bin", "vcm_splat_trace",
-                  "photon_pack", "photon_sort", "photon_table", "vcm_eye",
-                  "vcm_eye_walk", "vcm_eye_connect", "vcm_eye_gather")
+# launch counters (kernels.launches) by path: a splat counts its two stages
+# and an eye pass its three, never itself (STAGE_OF)
+BDPT_KERNELS = ("bdpt_walk", "bdpt_splat_bin", "bdpt_splat_trace",
+                "bdpt_pairs", "bdpt_gather")
+PHOTON_KERNELS = ("vcm_splat_bin", "vcm_splat_trace", "photon_pack",
+                  "photon_sort", "photon_table", "vcm_eye_walk",
+                  "vcm_eye_connect", "vcm_eye_gather")
+# a kernel table row whose launches are one of its stage's: one splat is
+# one trace stage, one eye pass one walk stage
+STAGE_OF = {"bdpt_splat": "bdpt_splat_trace", "vcm_splat": "vcm_splat_trace",
+            "vcm_eye": "vcm_eye_walk", "mega_eye": "mega_eye_walk"}
 # the mega engines' launches per chunk of a sample (K12, the splat, K8's
 # two launches, K14 and its stages; SPPM has no connection stage), by
 # integrator
 MEGA_KERNELS = {
-    "VCM": ("bdpt_walk", "vcm_splat", "vcm_splat_bin", "vcm_splat_trace",
+    "VCM": ("bdpt_walk", "vcm_splat_bin", "vcm_splat_trace",
             "photon_pack", "photon_sort", "photon_table",
-            "mega_eye", "mega_eye_walk", "mega_eye_connect",
-            "mega_eye_gather"),
+            "mega_eye_walk", "mega_eye_connect", "mega_eye_gather"),
     "SPPM": ("bdpt_walk", "photon_pack", "photon_sort", "photon_table",
-             "mega_eye",
              "mega_eye_walk", "mega_eye_gather"),
-    "BIDIRECTIONAL": ("bdpt_walk", "bdpt_splat", "bdpt_splat_bin",
-                      "bdpt_splat_trace", "mega_eye", "mega_eye_walk",
-                      "mega_eye_connect", "mega_eye_gather")}
+    "BIDIRECTIONAL": ("bdpt_walk", "bdpt_splat_bin", "bdpt_splat_trace",
+                      "mega_eye_walk", "mega_eye_connect",
+                      "mega_eye_gather")}
 EYE_STAGES = ("walk", "connect", "gather")
 # The card's peaks (H100 SXM data sheet) for the
 # bound: bytes over memory bandwidth, scalar operations (one per
@@ -3501,7 +3505,7 @@ def main() -> int:
                                          cfg=gc)
             acc += li
         want = {k: 8 for k in PHOTON_KERNELS + ("bdpt_walk",)}
-        for k in ("vcm_splat", "vcm_splat_bin", "vcm_splat_trace"):
+        for k in ("vcm_splat_bin", "vcm_splat_trace"):
             want[k] = 8 if gc.light_trace else 0
         want["vcm_eye_connect"] = 8 if gc.connection else 0
         check(all(kernels.launches[k] == v for k, v in want.items()),
@@ -3874,7 +3878,7 @@ def main() -> int:
     r, bdpt_launches = render_path(
         main_cfg(integrator="BIDIRECTIONAL", engine="classic",
                  name="smoke_bdpt"), "bdpt", card,
-        {"bdpt_walk": 2 * SPP, "bdpt_splat": SPP, "bdpt_splat_bin": SPP,
+        {"bdpt_walk": 2 * SPP, "bdpt_splat_bin": SPP,
          "bdpt_splat_trace": SPP, "bdpt_pairs": SPP,
          "bdpt_gather": SPP, "render_unidirectional": 0})
     bcfg = bdpt.BDPTConfig.from_config(r.cfg)
@@ -3914,6 +3918,7 @@ def main() -> int:
         + f"; sum {sum(stage_ms.values()):.3f} ms ({card})")
     for k in ("packing_roundtrip",) + BDPT_KERNELS:
         main_launches[k] = bdpt_launches[k]
+    main_launches["bdpt_splat"] = bdpt_launches[STAGE_OF["bdpt_splat"]]
     del r
 
     # --- 18. the photon main paths through the Renderer: Integrator VCM,
@@ -3934,17 +3939,19 @@ def main() -> int:
         splat = tag != "sppm"
         r, launches = render_path(
             cfg, tag, card,
-            {"bdpt_walk": SPP, "vcm_splat": SPP if splat else 0,
+            {"bdpt_walk": SPP,
              "vcm_splat_bin": SPP if splat else 0,
              "vcm_splat_trace": SPP if splat else 0,
              "photon_pack": SPP, "photon_sort": SPP, "photon_table": SPP,
-             "vcm_eye": SPP,
              "vcm_eye_walk": SPP, "vcm_eye_connect": SPP if splat else 0,
-             "vcm_eye_gather": SPP, "mega_eye": 0, "bdpt_splat": 0,
-             "bdpt_pairs": 0, "render_unidirectional": 0})
+             "vcm_eye_gather": SPP, "mega_eye_walk": 0,
+             "bdpt_splat_trace": 0, "bdpt_pairs": 0,
+             "render_unidirectional": 0})
         if tag == "vcm":
             for k in PHOTON_KERNELS:
                 main_launches[k] = launches[k]
+            for k in ("vcm_splat", "vcm_eye"):
+                main_launches[k] = launches[STAGE_OF[k]]
             vr = r
         del r
 
@@ -3954,9 +3961,8 @@ def main() -> int:
     # rendertron as shipped (one chunk with pads), then NAIVE_UNIDIRECTIONAL
     # at depth 8 (one launch a sample; its image is sparse: only paths that
     # reach the light by BSDF sampling are lit)
-    none = {k: 0 for k in ("vcm_eye", "bdpt_pairs", "render_unidirectional",
-                           "naive", "vcm_splat", "bdpt_splat",
-                           "vcm_splat_bin", "vcm_splat_trace",
+    none = {k: 0 for k in ("bdpt_pairs", "render_unidirectional",
+                           "naive", "vcm_splat_bin", "vcm_splat_trace",
                            "bdpt_splat_bin", "bdpt_splat_trace", "photon_pack",
                            "photon_sort", "photon_table", "vcm_eye_walk",
                            "vcm_eye_connect",
@@ -3979,9 +3985,10 @@ def main() -> int:
             # rgb9e5 and neighbor_slots are test entries: their device code
             # runs inside K14's gather (and K5's mega schedule), so they
             # launch 0
-            for k in ("mega_eye", "mega_eye_walk", "mega_eye_connect",
+            for k in ("mega_eye_walk", "mega_eye_connect",
                       "mega_eye_gather", "rgb9e5", "neighbor_slots"):
                 main_launches[k] = launches[k]
+            main_launches["mega_eye"] = launches[STAGE_OF["mega_eye"]]
             vmr = r
         elif tag == "bdpt mega":
             bmr = r
@@ -3989,7 +3996,7 @@ def main() -> int:
     r, launches = render_path(
         main_cfg(integrator="NAIVE_UNIDIRECTIONAL", max_depth=DEPTH,
                  name="smoke_naive"), "naive", card,
-        dict(none, naive=SPP, mega_eye=0, mega_eye_walk=0, bdpt_walk=0),
+        dict(none, naive=SPP, mega_eye_walk=0, bdpt_walk=0),
         min_lit=0.05)
     main_launches["naive"] = launches["naive"]
     del r
@@ -4188,7 +4195,7 @@ def main() -> int:
     phase_s = float(re.search(r"render: ([0-9.]+)s", cli_out).group(1))
     rays_c = int(re.search(r"rays traced: ([0-9,]+)", cli_out).group(1)
                  .replace(",", ""))
-    check(cl["mega_eye"] == caustics.sample_count and cl["bdpt_walk"]
+    check(cl["mega_eye_walk"] == caustics.sample_count and cl["bdpt_walk"]
           == caustics.sample_count, f"caustics cli: launches {cl}, "
           f"expected {caustics.sample_count} of K14 and K12 (one chunk)")
     check("render executed with no numerical errors" in cli_out,
@@ -4196,7 +4203,7 @@ def main() -> int:
     say("caustics cli", f"{caustics.sample_count} samples at {spd_c} per "
         f"dispatch: {rays_c} rays in a {phase_s:.3f} s render phase = "
         f"{rays_c / phase_s / 1e6:.3f} Mrays/s ({card}); K14 launches "
-        f"{cl['mega_eye']} (256 samples x 1 chunk)")
+        f"{cl['mega_eye_walk']} (256 samples x 1 chunk)")
 
     # the same config at 16 samples, 1 per dispatch against the auto 8:
     # rays and dropped photons equal, pixels within the VCM splat's atomic
@@ -4240,7 +4247,8 @@ def main() -> int:
         r.render(progressive=False, verbose=False)
         res2[spd] = (r.accum.clone(), r.metrics.rays_traced,
                      r.metrics.merge_dropped, r.metrics.render_seconds)
-        check(kernels.launches["mega_eye"] == 4, f"vcm 1080 spd {spd}: "
+        check(kernels.launches["mega_eye_walk"] == 4,
+              f"vcm 1080 spd {spd}: "
               f"launches {kernels.launches}, expected 2 samples x 2 chunks "
               "of K14")
         del r

@@ -45,7 +45,6 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
 
     from cudapathtracer_tpu_torch.driver import (Renderer, check_supported,
-                                                 mesh_from_config,
                                                  resolve_device)
     from cudapathtracer_tpu_torch.scene.bvh import bvh_stats
     from cudapathtracer_tpu_torch.utils.config import load_config
@@ -65,10 +64,10 @@ def main(argv=None) -> int:
 
     for rn in range(args.renders):
         print(f'Began render number {rn}: "{cfg.name}" on {device}')
-        mesh = mesh_from_config(cfg.normalized(), rn)
-        r = Renderer(cfg, mesh=mesh, device=device)
+        r = Renderer(cfg, device=device, render_number=rn)
         st = bvh_stats(r.bvh)
-        print(f"  {mesh.num_triangles} triangles, {mesh.num_lights} lights; "
+        print(f"  {r.mesh.num_triangles} triangles, {r.mesh.num_lights} "
+              "lights; "
               f"BVH: {st['num_nodes']} nodes, {st['num_leaves']} leaves, "
               f"depth mean {st['depth_mean']:.1f} / max {st['depth_max']}")
         r.render(num_samples=args.samples, checkpoint_path=args.checkpoint,

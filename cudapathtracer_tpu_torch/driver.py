@@ -11,6 +11,13 @@ with different goldens: one is never rendered when the other was asked
 for. Any other engine raises NotImplementedError. VCM and SPPM count the
 photons their merge cap left out (metrics.merge_dropped).
 
+Renderer(..., trace=True) turns the program's tracing on
+(utils/metrics.py): spans at each layer boundary (tpt.driver.render_batch
+around a dispatch, tpt.step.<model> around the model's sample or batch
+function and its stages, tpt.kernel.<entry> around each kernel entry)
+and the device counters of the hot kernels, which accumulate on the card
+until metrics.counter_totals() reads them. It is off by default.
+
 The Renderer runs on an explicit device. "cuda" needs a CUDA build of
 PyTorch and a card and raises otherwise; the CPU is used only when asked
 for. Checkpoints are the JAX package's `.npz` format (accumulation buffer,
@@ -166,21 +173,22 @@ def merge_note(dropped: int, max_per_cell: int) -> str:
 
 class Renderer:
     """One configured render: scene, camera, integrator and framebuffer on
-    one device."""
+    one device. Without a mesh it loads the config's (mesh_from_config,
+    render_number moving its emissive OBJ meshes), timed as the phase
+    scene_build."""
 
     def __init__(self, config: RenderConfig, mesh: MeshData | None = None,
-                 materials=None, textures=None, device="cuda"):
+                 materials=None, textures=None, device="cuda",
+                 trace: bool = False, render_number: int = 0):
         self.cfg = cfg = config.normalized()
         check_supported(cfg)
         self.device = resolve_device(device)
-        self.metrics = RenderMetrics()
+        self.metrics = RenderMetrics(trace=trace)
         self.checks = CheckLog()
 
-        if mesh is None:
-            if len(cfg.meshes) == 1 and cfg.meshes[0].path in BUILTIN_SCENES:
-                mesh = BUILTIN_SCENES[cfg.meshes[0].path]()
-            else:
-                mesh = mesh_from_config(cfg)
+        with self.metrics.phase("scene_build"):
+            self.mesh = mesh = (mesh_from_config(cfg, render_number)
+                                if mesh is None else mesh)
         if materials is None:
             atlas, wins = reference_atlas()
             materials = builtin_materials(wins)
@@ -189,8 +197,6 @@ class Renderer:
             if textures is None:
                 textures = atlas
 
-        with self.metrics.phase("scene_build"):
-            self.mesh = mesh
         with self.metrics.phase("bvh_build"):
             self.scene, self.bvh = build_scene(
                 mesh, materials, textures,
@@ -226,13 +232,19 @@ class Renderer:
             kw = dict(max_depth=max(cfg.max_depth, 1),
                       sample_environment=cfg.sample_environment)
 
+        step = "tpt.step." + fn.__module__.rsplit(".", 1)[1]
+        span = self.metrics.span
+
         def inner(scene, camera, base_key, sample_idx, px, py):
-            return fn(scene, camera, base_key, sample_idx, px, py, **kw)
+            with span(step):
+                return fn(scene, camera, base_key, sample_idx, px, py, **kw)
         if key in _BATCH:
             batch = _BATCH[key]
 
             def k_sample(scene, camera, base_key, s0, px, py, k):
-                return batch(scene, camera, base_key, s0, px, py, k, **kw)
+                with span(step):
+                    return batch(scene, camera, base_key, s0, px, py, k,
+                                 **kw)
             inner.k_sample = k_sample
         return inner
 
@@ -245,9 +257,11 @@ class Renderer:
     def render_batch(self, s0: int, k: int):
         """Samples s0 .. s0+k-1 in one dispatch (models/batch.py) ->
         (radiance summed [P,3], rays[, merge-dropped]) as 0-d int64
-        tensors."""
-        return make_batched(self._sample_fn())(
-            self.scene, self.camera, self.key, s0, self.px, self.py, k)
+        tensors. Traced, the span tpt.driver.render_batch, identified by
+        s0."""
+        with self.metrics.span("tpt.driver.render_batch", s0):
+            return make_batched(self._sample_fn())(
+                self.scene, self.camera, self.key, s0, self.px, self.py, k)
 
     def render(self, num_samples: int | None = None,
                checkpoint_path: str | None = None, resume: bool = True,
@@ -274,12 +288,14 @@ class Renderer:
                 k = min(spd, total - self.sample_count)
                 args = (self.scene, self.camera, self.key, self.sample_count,
                         self.px, self.py)
-                out = batched(*args, k)
-                li, rays = out[0], out[1]
-                if len(out) > 2:
-                    dtot = dtot + out[2]
-                self.accum += li
-                rtot = rtot + rays
+                with self.metrics.span("tpt.driver.render_batch",
+                                       self.sample_count):
+                    out = batched(*args, k)
+                    li, rays = out[0], out[1]
+                    if len(out) > 2:
+                        dtot = dtot + out[2]
+                    self.accum += li
+                    rtot = rtot + rays
                 self.sample_count += k
                 self.metrics.samples_done += k
                 now = time.monotonic()

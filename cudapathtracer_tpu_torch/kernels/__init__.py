@@ -6,7 +6,8 @@ traverse8.cuh, K15 traverse_bin.cuh (the threaded binary engine, whose
 batch entries are traverse_bin.cu), K7 camera.cuh, K2 shade.cuh, K3
 bsdf.cuh, K4 nee.cuh, K6 threefry.cuh and its key tables keys.cuh, K10
 packing.cuh, K12's MIS step
-mis.cuh, the BDPT bodies bdpt.cuh, persistent threads persistent.cuh; the
+mis.cuh, the BDPT bodies bdpt.cuh, persistent threads persistent.cuh, a
+traced run's device counters tally.cuh; the
 persistent megakernel K5, uni_mega.cu, and the BDPT kernels K11
 bdpt_splat.cu, K12 bdpt_walk.cu and K13's two stages bdpt_pairs.cu and
 bdpt_gather.cu call them; the photon grid's hashgrid.cuh (K8-K10) serves
@@ -32,12 +33,20 @@ of a tile-sharded VCM sample built from the photon rows its ranks
 gathered (photon_bucket, photon_grid.cu; the rows come from photon_pack's
 pack-only mode, photon_rows, counted under photon_pack). K5 renders k >= 1 samples a
 launch (samples per dispatch), counted under render_unidirectional, or
-naive for its naive schedule. An eye pass (vcm_eye, mega_eye) counts once
-under its own name and each of its stage launches under <pass>_walk,
-<pass>_connect and <pass>_gather; K13 counts its two launches under
-bdpt_pairs and bdpt_gather. A splat (bdpt_splat, vcm_splat) counts once
-under its own name and its two stages under <splat>_bin and
-<splat>_trace.
+naive for its naive schedule. An eye pass (vcm_eye, mega_eye) counts each
+of its stage calls under <pass>_walk, <pass>_connect and <pass>_gather;
+K13 counts its two under bdpt_pairs and bdpt_gather; a splat (bdpt_splat,
+vcm_splat) its two stages under <splat>_bin and <splat>_trace. A count is
+of calls into the library's C entries: an entry may launch more than one
+kernel (K5's key table kernel before it, K8's sort a launch a pass), so
+the device runs more kernels than `launches` sums.
+
+Tracing (utils/metrics.py): each entry that the models call is the
+program span tpt.kernel.<entry>, from entry to return, while a tracing
+RenderMetrics has a span open in the calling thread; then K5, K12's light
+walk and the eye passes' walk and connection stages are also given that
+RenderMetrics' device counters (COUNTERS: rows and rays, lane counters,
+the connections' warp calls) when the caller passes none.
 
 The hit fetch (K2) reads scene.shade_table, the 64-byte record of each
 triangle derived from tri_f32 at upload (scene/scene.py), and the kernels
@@ -77,6 +86,7 @@ memory latency, not by FMA throughput.
 from __future__ import annotations
 
 import ctypes
+import functools
 import os
 import subprocess
 import tempfile
@@ -84,6 +94,8 @@ import threading
 
 import numpy as np
 import torch
+
+from cudapathtracer_tpu_torch.utils import metrics
 
 CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 SOURCES = ("rng.cu", "camera.cu", "traverse8.cu", "traverse_bin.cu",
@@ -94,7 +106,7 @@ SOURCES = ("rng.cu", "camera.cu", "traverse8.cu", "traverse_bin.cu",
 HEADERS = ("threefry.cuh", "keys.cuh", "camera.cuh", "traverse8.cuh",
            "traverse_bin.cuh", "shade.cuh", "bsdf.cuh", "nee.cuh",
            "packing.cuh", "mis.cuh", "bdpt.cuh", "hashgrid.cuh", "vcm.cuh",
-           "mega.cuh", "eye.cuh", "persistent.cuh")
+           "mega.cuh", "eye.cuh", "persistent.cuh", "tally.cuh")
 _REPO_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 BUILD_DIR = os.path.join(_REPO_ROOT, "build", "torch_ext")
@@ -116,21 +128,21 @@ KEY_PAIR_WORDS = 2    # keys.cuh KeyPair: uint32 words a pair of a key table
 launches = {"closest_hit8": 0, "shadow_factor8": 0, "closest_hit_bin": 0,
             "shadow_factor_bin": 0, "uniform_id": 0,
             "generate_rays": 0, "render_unidirectional": 0, "shade_eval": 0,
-            "packing_roundtrip": 0, "bdpt_walk": 0, "bdpt_splat": 0,
-            "bdpt_pairs": 0, "bdpt_gather": 0, "vcm_splat": 0,
+            "packing_roundtrip": 0, "bdpt_walk": 0,
+            "bdpt_pairs": 0, "bdpt_gather": 0,
             "photon_pack": 0, "photon_sort": 0, "photon_table": 0,
             # K8's rows mode (photon_grid.cu): the grid of a tile-sharded
             # VCM sample, built from the photon rows gathered over the tiles
             "photon_bucket": 0,
-            "vcm_eye": 0, "rgb9e5": 0, "key_table": 0,
-            "neighbor_slots": 0, "mega_eye": 0, "naive": 0,
+            "rgb9e5": 0, "key_table": 0,
+            "neighbor_slots": 0, "naive": 0,
             "uniform_keyed": 0, "bdpt_walk_table": 0,
-            # K11's two stages (bdpt_splat.cu), counted beside the splat's
-            # own count: classify and bin, trace and splat
+            # K11's two stages (bdpt_splat.cu): classify and bin, trace
+            # and splat
             "bdpt_splat_bin": 0, "bdpt_splat_trace": 0,
             "vcm_splat_bin": 0, "vcm_splat_trace": 0,
             # the eye passes' stages (eye_walk.cu, eye_connect.cu,
-            # eye_gather.cu), counted beside the pass's own count
+            # eye_gather.cu)
             "vcm_eye_walk": 0, "vcm_eye_connect": 0, "vcm_eye_gather": 0,
             "mega_eye_walk": 0, "mega_eye_connect": 0, "mega_eye_gather": 0,
             # launches of a kernel's threaded instantiation (K15's device
@@ -152,6 +164,20 @@ def reset_launches() -> None:
 def _count(name: str) -> None:
     with _count_lock:
         launches[name] += 1
+
+
+def _entry(fn):
+    """A library entry that the models call: while this thread traces
+    (utils/metrics.py), the program span tpt.kernel.<name> from entry to
+    return."""
+    name = "tpt.kernel." + fn.__name__
+
+    @functools.wraps(fn)
+    def entry(*args, **kw):
+        with metrics.span(name):
+            return fn(*args, **kw)
+    entry.span = name
+    return entry
 
 
 def _nvcc() -> str:
@@ -331,6 +357,7 @@ def _launch(name: str, lib, fn, *args, engine: int = 0) -> None:
         _count("threaded_engine")
 
 
+@_entry
 def uniform_id(ids: torch.Tensor, k0: int, k1: int, two: bool):
     """K6 (rng.cu): Threefry-2x32 over (ids, 0) -> ([N] f32, [N] f32|None)."""
     dev = _cuda_device(ids)
@@ -351,6 +378,7 @@ def _words32(k: torch.Tensor) -> torch.Tensor:
     return k.view(torch.int32) if k.dtype == torch.uint32 else k
 
 
+@_entry
 def uniform_keyed(ids: torch.Tensor, k0: torch.Tensor, k1: torch.Tensor):
     """K6's keyed mode (rng.cu): Threefry-2x32 over (ids, 0) under each
     lane's key pair (k0, k1 [N] uint32 words) -> [N] f32."""
@@ -407,6 +435,7 @@ def key_table(kind: str, key, dims: list, device) -> torch.Tensor:
     return out
 
 
+@_entry
 def upload_words(words, device) -> torch.Tensor:
     """uint32 words (a nested list of ints) as an int32 tensor on `device`,
     copied from pinned memory without blocking the host."""
@@ -415,6 +444,7 @@ def upload_words(words, device) -> torch.Tensor:
     return host.pin_memory().to(device, non_blocking=True)
 
 
+@_entry
 def generate_rays(px: torch.Tensor, py: torch.Tensor, ids: torch.Tensor,
                   params: list, keys: list):
     """K7 (camera.cu): primary rays. params: 19 floats (origin, right, up,
@@ -473,6 +503,7 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
+@_entry
 def closest_hit8(table, o, d, max_t, skip_tri, active, stack_d=STACK_D,
                  with_restarts=False, with_rows=False):
     """K1 closest (traverse8.cu) -> (t, tri, u, v), each [N]; with
@@ -497,6 +528,7 @@ def closest_hit8(table, o, d, max_t, skip_tri, active, stack_d=STACK_D,
     return out + tuple(x for x in (restarts, rows) if x is not None)
 
 
+@_entry
 def shadow_factor8(table, tri_f32, o, d, max_t, skip_tri, active,
                    stack_d=STACK_D, with_rows=False):
     """K1 shadow (traverse8.cu) -> transmission scale [N,3]; with
@@ -529,6 +561,7 @@ def _bin_args(table, nodes: int, dev) -> int:
     return (table.numel() - head) // BIN_TRI
 
 
+@_entry
 def closest_hit_bin(table, nodes: int, o, d, max_t, skip_tri, active,
                     with_rows=False):
     """K15 closest (traverse_bin.cu) on a threaded scene's bin_table of
@@ -552,6 +585,7 @@ def closest_hit_bin(table, nodes: int, o, d, max_t, skip_tri, active,
     return out if rows is None else out + (rows,)
 
 
+@_entry
 def shadow_factor_bin(table, nodes: int, tri_f32, o, d, max_t, skip_tri,
                       active, with_rows=False):
     """K15 shadow (traverse_bin.cu) -> transmission scale [N,3]; with
@@ -647,6 +681,7 @@ def _resident_grid(entry: str, engine: int, n: int) -> int:
     return blocks.value
 
 
+@_entry
 def render_unidirectional(scene, px: torch.Tensor, py: torch.Tensor,
                           cam_params: list, base_key, s0: int, k: int, *,
                           max_depth: int, use_mis: bool,
@@ -669,13 +704,20 @@ def render_unidirectional(scene, px: torch.Tensor, py: torch.Tensor,
     depend on it); lanes, an int64 [3] tensor on the device to which the
     launch adds (events stepped, the sum over warps of the warp's busiest
     lane's events, the warps' calls of the event code): events / (32 x
-    calls) is the lane use, events / (32 x busiest) the event balance."""
+    calls) is the lane use, events / (32 x busiest) the event balance.
+    While this thread traces, lanes defaults to the RenderMetrics' counter
+    k5.lanes, and the sums of the rows and rays outputs are added to its
+    counter k5.tally, reduced on the card after the launch (so the kernel
+    is the one an untraced call runs)."""
     dev = _cuda_device(px)
     n = px.shape[0]
     _check(px, "px", torch.int32, (n,), dev)
     _check(py, "py", torch.int32, (n,), dev)
     if k < 1 or not 0 <= s0 < 2 ** 32:
         raise ValueError(f"samples {s0} + {k}: k >= 1 from a uint32 start")
+    if lanes is None:
+        lanes = metrics.counter("k5.lanes", dev)
+    tally = metrics.counter("k5.tally", dev)
     if lanes is not None:
         _check(lanes, "lanes", torch.int64, (3,), dev)
     if grid is not None and grid < 1:
@@ -690,7 +732,7 @@ def render_unidirectional(scene, px: torch.Tensor, py: torch.Tensor,
     eng = _engine_args(scene, dev, bvh8_only=schedule == "mega")
     li = torch.empty((n, 3), dtype=torch.float32, device=dev)
     rays = torch.empty(n, dtype=torch.int32, device=dev)
-    rows = _counts(with_rows, n, dev)
+    rows = _counts(with_rows or tally is not None, n, dev)
     cparams = (ctypes.c_float * 19)(*cam_params)
     lib = _load()
     scratch = lib.tpt_render_unidirectional_scratch(k, SCHEDULES[schedule],
@@ -711,7 +753,9 @@ def render_unidirectional(scene, px: torch.Tensor, py: torch.Tensor,
                 rays.data_ptr(), _ptr(rows),
                 _persistent_scratch(dev, (scratch + 7) // 8).data_ptr(),
                 grid or 0, _ptr(lanes), _stream(dev), engine=eng[0])
-    return (li, rays) if rows is None else (li, rays, rows)
+    if tally is not None:
+        tally += torch.stack([rows.sum(), rays.sum()])
+    return (li, rays, rows) if with_rows else (li, rays)
 
 
 def render_unidirectional_grid(scene, n: int, schedule: str) -> int:
@@ -721,6 +765,7 @@ def render_unidirectional_grid(scene, n: int, schedule: str) -> int:
     return _resident_grid("tpt_render_unidirectional_grid", eng, n)
 
 
+@_entry
 def shade_eval(scene, o, d, t, tri, u, v, ids, eta_i, keys: list):
     """Test entry of uni_mega.cu: the K2-K4 device functions once per hit
     (o, d [N,3]; t, u, v, eta_i [N] f32; tri, ids [N] i32) with the mega
@@ -830,6 +875,7 @@ def _u32s(values):
     return (ctypes.c_uint32 * len(values))(*(v & 0xFFFFFFFF for v in values))
 
 
+@_entry
 def bdpt_walk(scene, px, py, keys: list, *, mode: str, max_depth: int,
               rays, camera=None, eta_vcm=None, key_table=None,
               with_rows: bool = False, grid: int | None = None, lanes=None):
@@ -850,7 +896,8 @@ def bdpt_walk(scene, px, py, keys: list, *, mode: str, max_depth: int,
     blocks in place of the resident grid; lanes, an int64 [3] tensor on
     the device to which the walk adds (bounces stepped, the sum over warps
     of the warp's busiest lane's bounces, the warps' calls of the bounce
-    code), as K5's."""
+    code), as K5's; while this thread traces, a light walk's lanes default
+    to the RenderMetrics' counter k12.lanes."""
     from cudapathtracer_tpu_torch.models import paths
     dev = _cuda_device(px)
     n = px.shape[0]
@@ -863,6 +910,8 @@ def bdpt_walk(scene, px, py, keys: list, *, mode: str, max_depth: int,
         raise ValueError("the eye walk needs the camera")
     if max_depth < 1 or len(keys) != 12:
         raise ValueError("bdpt_walk: max_depth >= 1 and 12 key words")
+    if lanes is None and mode == "light":
+        lanes = metrics.counter("k12.lanes", dev)
     build = key_table is None
     if build:
         key_table = torch.empty(KEY_PAIR_WORDS * (max_depth * 4 + 5),
@@ -935,6 +984,7 @@ def bdpt_walk_grid(scene, n: int, table: bool = False) -> int:
     return _resident_grid("tpt_bdpt_walk_grid", eng, n)
 
 
+@_entry
 def bdpt_splat(scene, camera, lbufs, lv0: dict, fb, rays, cfg, *,
                n_live: int | None = None, with_rows: bool = False):
     """K11 (bdpt_splat.cu): the t=1 light-trace splat of light paths [N]
@@ -949,10 +999,10 @@ def bdpt_splat(scene, camera, lbufs, lv0: dict, fb, rays, cfg, *,
                     with_rows=with_rows)
     sp.bin()
     sp.trace()
-    _count(sp.name)
     return sp.rows
 
 
+@_entry
 def vcm_splat(scene, camera, lbufs, fb, rays, cfg, eta_vcm: float, *,
               n_live: int | None = None, with_rows: bool = False):
     """K11's VCM form (bdpt_splat.cu's VCM mode): every stored light vertex
@@ -966,7 +1016,6 @@ def vcm_splat(scene, camera, lbufs, fb, rays, cfg, eta_vcm: float, *,
                     eta_vcm=eta_vcm, n_live=n_live, with_rows=with_rows)
     sp.bin()
     sp.trace()
-    _count(sp.name)
     return sp.rows
 
 
@@ -1182,6 +1231,7 @@ def bdpt_gather(scene, camera, eye: dict, terms, fb, cfg):
     return out
 
 
+@_entry
 def bdpt_connect(scene, camera, key_c, eye: dict, light: dict, fb, rays, cfg,
                  *, px, py, with_rows: bool = False):
     """K13: the connection stage of each pixel (px, py) [N] i32 as two
@@ -1230,6 +1280,7 @@ def _pack_launch(lbufs, scene_min, cell_size: float, table_size: int,
     return (rows,) + outs
 
 
+@_entry
 def photon_pack(lbufs, scene_min, cell_size: float, table_size: int):
     """K8's first half (photon_grid.cu): one photon per stored light vertex
     of lbufs [L, N], in the flat order row * N + lane. -> (rows [P, 8] f32
@@ -1238,6 +1289,7 @@ def photon_pack(lbufs, scene_min, cell_size: float, table_size: int):
     return _pack_launch(lbufs, scene_min, cell_size, table_size, True)
 
 
+@_entry
 def photon_rows(lbufs):
     """photon_pack's pack-only mode (counted under photon_pack): the photon
     rows of lbufs [L, N] and their validity, which the ranks of a tile axis
@@ -1246,6 +1298,7 @@ def photon_rows(lbufs):
     return _pack_launch(lbufs, (0.0, 0.0, 0.0), 0.0, 0, False)
 
 
+@_entry
 def photon_bucket(rows, valid, scene_min, cell_size: float, table_size: int):
     """K8's rows mode (photon_grid.cu): each packed photon row's bucket
     from its position and its validity, and the (start, end) table filled
@@ -1271,6 +1324,7 @@ def photon_bucket(rows, valid, scene_min, cell_size: float, table_size: int):
     return bucket, cell_se
 
 
+@_entry
 def photon_sort(bucket, bits: int, salt=None):
     """K8's sort (radix_sort.cu): the stable order of the photons' sort
     keys, each derived from its bucket [P] (i32 holding uint32 values) and
@@ -1300,6 +1354,7 @@ def photon_sort(bucket, bits: int, salt=None):
     return order, gathered
 
 
+@_entry
 def photon_table(rows, bucket, order, cell_se):
     """K8's second half (photon_grid.cu): the rows [P, 8] gathered into
     sorted order (order [P] i32 and the buckets in that order, bucket [P]
@@ -1337,15 +1392,20 @@ class EyePass:
     where the eye record ran its strategies), or None where the pass has no
     connection stage; out, rays, dropped, rows: the pass's outputs (rows
     None without with_rows); key_table: the classic walk's key table
-    (scratch its walk launch folds and reads; None for mega)."""
+    (scratch its walk launch folds and reads; None for mega); tallies:
+    stage -> the int64 counter its launch adds into (eye.cuh EyeLaunch
+    tally: walk [rows, rays], connect [rows, rays, warp calls]), the
+    tracing RenderMetrics' eye_walk.tally and eye_connect.tally, or
+    None."""
 
     def __init__(self, name, dev, args, engine, rec, conn, out, rays,
-                 dropped, rows, key_table):
+                 dropped, rows, key_table, tallies):
         self.name, self.dev, self.args, self.engine = name, dev, args, engine
         self.rec, self.conn = rec, conn
         self.out, self.rays, self.dropped, self.rows = out, rays, dropped, \
             rows
         self.key_table = key_table
+        self.tallies = tallies
 
 
 def _eye_pass(name: str, scene, camera, keys: list, lbufs, grid, fb, out,
@@ -1383,7 +1443,7 @@ def _eye_pass(name: str, scene, camera, keys: list, lbufs, grid, fb, out,
                        dropped.data_ptr(), _ptr(rows) or 0, sc["bin"]]
             + [t.data_ptr() for t in rec] + [_ptr(conn) or 0,
                                              sc["shade"].data_ptr(),
-                                             _ptr(key_table) or 0])
+                                             _ptr(key_table) or 0, 0])
     iv = [n, n_buf, sc["tri_f32"].shape[1], scene.num_lights, depth,
           light_rows, EYE_FLAVORS[flavor], int(cfg.naive), int(cfg.nee),
           int(cfg.connection), int(cfg.do_mis), int(cfg.paint_weight),
@@ -1395,8 +1455,10 @@ def _eye_pass(name: str, scene, camera, keys: list, lbufs, grid, fb, out,
           + geom + [_r2(merge_radius)])
     words = list(keys) + [0] * (22 - len(keys))
     args = (_i64s(ptrs), _i64s(iv), _f32s(fv), _u32s(words))
+    tallies = {st: metrics.counter(f"eye_{st}.tally", dev)
+               for st in ("walk", "connect")}
     return EyePass(name, dev, args, sc["engine_iv"][0], rec, conn, out, rays,
-                   dropped, rows, key_table)
+                   dropped, rows, key_table, tallies)
 
 
 def vcm_eye_pass(scene, camera, keys: list, lbufs, grid, fb, rays, cfg, *,
@@ -1432,10 +1494,12 @@ def vcm_eye_pass(scene, camera, keys: list, lbufs, grid, fb, rays, cfg, *,
 
 
 EYE_IV_MERGE = 13   # eye.cuh eye_launch: iv[13] is the merge switch
+EYE_PTR_TALLY = 42  # eye.cuh eye_launch: ptrs[42] is the stage's tally
 
 
 def _eye_stage(ep: EyePass, stage: str, args=None) -> None:
     lib = _load()
+    (args or ep.args)[0][EYE_PTR_TALLY] = _ptr(ep.tallies.get(stage)) or 0
     with torch.cuda.device(ep.dev):
         _launch(f"{ep.name}_{stage}", lib, getattr(lib, f"tpt_eye_{stage}"),
                 *(ctypes.addressof(a) for a in (args or ep.args)),
@@ -1472,15 +1536,14 @@ def eye_gather(ep: EyePass, merge: bool = True) -> None:
 
 
 def run_eye_pass(ep: EyePass) -> None:
-    """The three stages of a pass (two without connections), counted once
-    under the pass's own name."""
+    """The three stages of a pass (two without connections)."""
     eye_walk(ep)
     if ep.conn is not None:
         eye_connect(ep)
     eye_gather(ep)
-    _count(ep.name)
 
 
+@_entry
 def vcm_eye(scene, camera, keys: list, lbufs, grid, fb, rays, cfg, *, px,
             py, merge_radius: float, eta_vcm: float, merge_norm: float,
             one_brick: bool, reweight: bool, with_rows: bool = False):
@@ -1613,6 +1676,7 @@ def mega_eye_pass(scene, camera, keys: list, lbufs, grid, out, rays, cfg, *,
                      with_rows=with_rows, dropped=dropped)
 
 
+@_entry
 def mega_eye(scene, camera, keys: list, lbufs, grid, out, rays, cfg, *, px,
              py, cnt: int, gbase: int, flavor: str, merge_radius: float = 0.0,
              eta_vcm: float = 0.0, merge_norm: float = 0.0,

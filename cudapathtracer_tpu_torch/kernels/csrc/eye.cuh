@@ -44,6 +44,7 @@
 #include <cstdint>
 
 #include "mega.cuh"
+#include "tally.cuh"
 
 namespace tpt {
 
@@ -130,6 +131,9 @@ struct EyeLaunch {
   int32_t* rays;       // [n] +=
   int32_t* dropped;    // [n] =
   int32_t* rows;       // [n] += or null
+  // the stage's device counters or null (tally.cuh): walk [rows, rays],
+  // connect [rows, rays, the warps' calls of the shadow ray]
+  unsigned long long* tally;
   EyeRecs rec;
   float* conn;         // [D, light_rows, n, 3]; null without connections
   int64_t n;
@@ -275,6 +279,7 @@ __device__ __forceinline__ void eye_walk_one(const EyeLaunch& c, int64_t i) {
     c.rec.flags[t * c.rec.stride + i] = 0;  // not reached: only the flags
   c.rays[i] += rays;
   if (c.rows != nullptr) c.rows[i] += rows;
+  if (c.tally != nullptr) tally_add(c.tally, rows, rays, false);
 }
 
 // ---- 2. the connections ------------------------------------------------
@@ -298,6 +303,7 @@ __device__ __forceinline__ void eye_connect_one(const EyeLaunch& c, int t,
     if (conn_ray<kEngine>(c.sc, e, lv, cr, rays, rows)) {
       atomicAdd(c.rays + i, rays);
       if (c.rows != nullptr) atomicAdd(c.rows + i, rows);
+      if (c.tally != nullptr) tally_add(c.tally, rows, rays, true);
       if (max3(cr.sh.s0, cr.sh.s1, cr.sh.s2) > 0.0f) {
         float weight;
         const V3 base = conn_terms(c.sc, c.p.eta_vcm, e, lv, cr, weight);
@@ -385,7 +391,7 @@ __device__ __forceinline__ void eye_gather_one(const EyeLaunch& c,
 // d_vcm, d_vc, d_vm, flags, implicit, nee; 39 conn (0 without
 // connections), 40 shade_table [T, 16], 41 the classic walk's key table
 // (eye_depth x 7 pairs of scratch, written by eye_walk.cu's prologue from
-// the eye key; 0 for mega).
+// the eye key; 0 for mega), 42 the stage's tally (0 = none).
 // iv: 0 n (paths), 1 n_buf (the light buffers' lanes), 2 tri_cols,
 // 3 num_lights, 4 eye_depth, 5 light_rows, 6 flavor, 7 naive, 8 nee,
 // 9 connection, 10 do_mis, 11 paint_weight, 12 sample_environment,
@@ -466,6 +472,7 @@ inline bool eye_launch(const int64_t* ptrs, const int64_t* iv,
   c.conn = dev_ptr<float>(ptrs, 39);
   c.sc.shade = dev_ptr<const float4>(ptrs, 40);
   p.key_table = dev_ptr<const KeyPair>(ptrs, 41);
+  c.tally = dev_ptr<unsigned long long>(ptrs, 42);
   const bool mega = c.flavor != kEyeClassic;
   const bool merge = p.merge && c.flavor != kEyeMegaBdpt;
   bool grid_ok = !merge || (g.rows != nullptr && g.cell_se != nullptr &&

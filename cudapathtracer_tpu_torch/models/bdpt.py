@@ -48,6 +48,7 @@ from cudapathtracer_tpu_torch.utils.math import (EPSILON, INV_PI,
                                                  RAY_EPSILON, dot, length_sq,
                                                  luminance, normalize,
                                                  to_local, true_div)
+from cudapathtracer_tpu_torch.utils.metrics import span
 
 MAX_G_NEE = 15.0        # G clamp of the s=1 strategy
 MAX_G_CONNECT = 2.0     # G clamp of the s>=2 connections
@@ -503,6 +504,11 @@ def nee_key_table(key_c, eye_depth: int) -> torch.Tensor:
     return rng.fold_table(key_c, 3, rows=eye_depth + 1)
 
 
+# the sample's stages, each a program span when tracing (utils/metrics.py)
+STAGES = {st: f"tpt.step.bdpt.{st}"
+          for st in ("light_walk", "splat", "eye_walk", "connect")}
+
+
 def sample_keys(base_key, sample_idx):
     """(key_l, key_e, key_c) of a sample."""
     skey = rng.sample_key(base_key, sample_idx)
@@ -530,18 +536,23 @@ def render_plain(scene, camera, base_key, sample_idx, px, py, *,
     """Plain versions of K12, K11, K12 and K13 in turn; any device."""
     key_l, key_e, key_c = sample_keys(base_key, sample_idx)
     n = px.shape[0]
-    lbufs, lv0, rays_l = paths.generate_light_path(
-        scene, key_l, px, py, cfg.light_depth)
+    with span(STAGES["light_walk"]):
+        lbufs, lv0, rays_l = paths.generate_light_path(
+            scene, key_l, px, py, cfg.light_depth)
     fb = torch.zeros((splat_shape or n, 3), dtype=torch.float32,
                      device=px.device)
     rays_s = 0
     if cfg.light_trace:
-        fb, rays_s = light_trace_splat(scene, camera, lbufs, lv0, cfg, fb)
-    ebufs, ev0, esc, rays_e = paths.generate_eye_path(
-        scene, camera, key_e, px, py, cfg.eye_depth)
-    li, rays_c = connect_plain(scene, camera, key_c, ebufs, ev0, esc, lbufs,
-                               lv0, cfg, rng.pixel_ids(px, py),
-                               None if splat_shape else fb)
+        with span(STAGES["splat"]):
+            fb, rays_s = light_trace_splat(scene, camera, lbufs, lv0, cfg,
+                                           fb)
+    with span(STAGES["eye_walk"]):
+        ebufs, ev0, esc, rays_e = paths.generate_eye_path(
+            scene, camera, key_e, px, py, cfg.eye_depth)
+    with span(STAGES["connect"]):
+        li, rays_c = connect_plain(scene, camera, key_c, ebufs, ev0, esc,
+                                   lbufs, lv0, cfg, rng.pixel_ids(px, py),
+                                   None if splat_shape else fb)
     rays = rays_l + rays_e + rays_s + rays_c
     return (li, fb, rays) if splat_shape else (li, rays)
 
@@ -556,16 +567,21 @@ def render_kernel(scene, camera, base_key, sample_idx, px, py, *,
     px = px.to(torch.int32).contiguous()
     py = py.to(torch.int32).contiguous()
     rays = torch.zeros(n, dtype=torch.int32, device=dev)
-    lw = kernels.bdpt_walk(scene, px, py, paths.walk_keys(key_l, "light"),
-                           mode="light", max_depth=cfg.light_depth,
-                           rays=rays)
+    with span(STAGES["light_walk"]):
+        lw = kernels.bdpt_walk(scene, px, py,
+                               paths.walk_keys(key_l, "light"), mode="light",
+                               max_depth=cfg.light_depth, rays=rays)
     fb = torch.zeros((splat_shape or n, 3), dtype=torch.float32, device=dev)
     if cfg.light_trace:
-        kernels.bdpt_splat(scene, camera, lw["bufs"], lw["v0"], fb, rays, cfg)
-    ew = kernels.bdpt_walk(scene, px, py, paths.walk_keys(key_e, "eye"),
-                           mode="eye", max_depth=cfg.eye_depth, rays=rays,
-                           camera=camera)
-    out, _ = kernels.bdpt_connect(scene, camera, key_c, ew, lw,
-                                  None if splat_shape else fb, rays, cfg,
-                                  px=px, py=py)
+        with span(STAGES["splat"]):
+            kernels.bdpt_splat(scene, camera, lw["bufs"], lw["v0"], fb, rays,
+                               cfg)
+    with span(STAGES["eye_walk"]):
+        ew = kernels.bdpt_walk(scene, px, py, paths.walk_keys(key_e, "eye"),
+                               mode="eye", max_depth=cfg.eye_depth,
+                               rays=rays, camera=camera)
+    with span(STAGES["connect"]):
+        out, _ = kernels.bdpt_connect(scene, camera, key_c, ew, lw,
+                                      None if splat_shape else fb, rays, cfg,
+                                      px=px, py=py)
     return (out, fb, rays.sum()) if splat_shape else (out, rays.sum())

@@ -30,6 +30,7 @@ from cudapathtracer_tpu_torch.models.vcm_mega import (chunk_pixels_of,
                                                       eye_keys, eye_pass_plain,
                                                       mask_pads, mega_chunks)
 from cudapathtracer_tpu_torch.scene.materials import TRANSPORT_IMPORTANCE
+from cudapathtracer_tpu_torch.utils.metrics import span
 
 
 def as_machine_cfg(cfg: bdpt.BDPTConfig) -> VCMConfig:
@@ -48,6 +49,11 @@ def light_pass(scene, key_l, pxc, pyc, light_depth: int):
     return light_mega.walk_with_endpoint(
         scene, key_l, pxc.shape[0], light_depth, TRANSPORT_IMPORTANCE,
         eta_vcm=None, pxc=pxc, pyc=pyc)
+
+
+# a chunk's stages, each a program span when tracing (utils/metrics.py)
+STAGES = {st: f"tpt.step.bdpt_mega.{st}"
+          for st in ("light_walk", "splat", "eye_pass")}
 
 
 def render_sample(scene, camera, base_key, sample_idx, px, py, *,
@@ -75,22 +81,26 @@ def render_plain(scene, camera, base_key, sample_idx, px, py, *,
     keyed = light_mega.enabled()
     for ci in range(ch.n_chunks):
         pxc, pyc, cnt = chunk_pixels_of(px, py, ci, ch.c_pix)
-        if keyed:
-            lbufs, lv0, r = light_pass(scene, key_l, pxc, pyc,
-                                       cfg.light_depth)
-        else:
-            lbufs, lv0, r = paths.generate_light_path(scene, key_l, pxc, pyc,
-                                                      cfg.light_depth)
-        lbufs = mask_pads(lbufs, cnt)
+        with span(STAGES["light_walk"]):
+            if keyed:
+                lbufs, lv0, r = light_pass(scene, key_l, pxc, pyc,
+                                           cfg.light_depth)
+            else:
+                lbufs, lv0, r = paths.generate_light_path(
+                    scene, key_l, pxc, pyc, cfg.light_depth)
+            lbufs = mask_pads(lbufs, cnt)
         rays += r
         if cfg.light_trace:
             live = torch.arange(ch.c_pix, device=dev) < cnt
-            fb, r = bdpt.light_trace_splat(scene, camera, lbufs, lv0, cfg,
-                                           fb, active=live)
+            with span(STAGES["splat"]):
+                fb, r = bdpt.light_trace_splat(scene, camera, lbufs, lv0,
+                                               cfg, fb, active=live)
             rays += r
         g0 = ci * ch.c_pix
-        li, r, _ = eye_pass_plain(scene, camera, key_e, lbufs, None, mcfg,
-                                  pxc[:cnt], pyc[:cnt], g0, flavor="bdpt")
+        with span(STAGES["eye_pass"]):
+            li, r, _ = eye_pass_plain(scene, camera, key_e, lbufs, None,
+                                      mcfg, pxc[:cnt], pyc[:cnt], g0,
+                                      flavor="bdpt")
         out[g0:g0 + cnt] = li
         rays += r
     return out + fb, rays
@@ -117,20 +127,23 @@ def render_kernel(scene, camera, base_key, sample_idx, px, py, *,
     for ci in range(ch.n_chunks):
         pxc, pyc, cnt = chunk_pixels_of(px, py, ci, ch.c_pix)
         rays = torch.zeros(ch.c_pix, dtype=torch.int32, device=dev)
-        if keyed:
-            lbufs, lv0, lrays = light_pass(scene, key_l, pxc, pyc,
-                                           cfg.light_depth)
-            sums.append(lrays)
-        else:
-            lw = kernels.bdpt_walk(scene, pxc, pyc, lkeys, mode="light",
-                                   max_depth=cfg.light_depth, rays=rays)
-            lbufs, lv0 = lw["bufs"], lw["v0"]
-        lbufs = mask_pads(lbufs, cnt)
+        with span(STAGES["light_walk"]):
+            if keyed:
+                lbufs, lv0, lrays = light_pass(scene, key_l, pxc, pyc,
+                                               cfg.light_depth)
+                sums.append(lrays)
+            else:
+                lw = kernels.bdpt_walk(scene, pxc, pyc, lkeys, mode="light",
+                                       max_depth=cfg.light_depth, rays=rays)
+                lbufs, lv0 = lw["bufs"], lw["v0"]
+            lbufs = mask_pads(lbufs, cnt)
         if cfg.light_trace:
-            kernels.bdpt_splat(scene, camera, lbufs, lv0, fb, rays, cfg,
-                               n_live=cnt)
-        kernels.mega_eye(scene, camera, ekeys, lbufs, None, out, rays, mcfg,
-                         px=pxc, py=pyc, cnt=cnt, gbase=ci * ch.c_pix,
-                         flavor="bdpt")
+            with span(STAGES["splat"]):
+                kernels.bdpt_splat(scene, camera, lbufs, lv0, fb, rays, cfg,
+                                   n_live=cnt)
+        with span(STAGES["eye_pass"]):
+            kernels.mega_eye(scene, camera, ekeys, lbufs, None, out, rays,
+                             mcfg, px=pxc, py=pyc, cnt=cnt,
+                             gbase=ci * ch.c_pix, flavor="bdpt")
         sums.append(rays.sum())
     return out + fb, torch.stack(sums).sum()

@@ -24,6 +24,7 @@ from cudapathtracer_tpu_torch.utils import rng
 from cudapathtracer_tpu_torch.utils.math import (EPSILON, RAY_EPSILON,
                                                  length_sq, to_local,
                                                  to_world)
+from cudapathtracer_tpu_torch.utils.metrics import span
 
 _D_BSDF = 0   # ..3
 
@@ -63,42 +64,44 @@ def render_plain(scene, camera, base_key, sample_idx, px, py, *,
     n, dev = px.shape[0], px.device
     skey = rng.sample_key(base_key, sample_idx)
     pid = rng.pixel_ids(px, py)
-    o, d = camera.generate_rays_plain(rng.fold_in(skey, 2 ** 20),
-                                      px.to(torch.float32),
-                                      py.to(torch.float32), pid)
-    beta = torch.ones((n, 3), dtype=torch.float32, device=dev)
-    li = torch.zeros((n, 3), dtype=torch.float32, device=dev)
-    alive = torch.ones(n, dtype=torch.bool, device=dev)
-    eta_i = torch.ones(n, dtype=torch.float32, device=dev)
-    rays = 0
-    for depth in range(max_depth):
-        if not bool(alive.any()):
-            break
-        bkey = rng.bounce_key(skey, depth)
-        rays += int(alive.sum())
-        hit = traverse.closest_hit(scene, o, d, active=alive)
-        info, mat = traverse.shade_data(scene, o, d, hit)
-        miss = alive & ~hit.valid
-        li = li + torch.where(
-            miss[:, None], beta * common.sample_sky(d, sample_environment),
-            0.0)
-        alive = alive & hit.valid
-        normal = info["normal"]
-        wi_local = to_local(d, normal)
-        albedo = bsdf_ops.resolve_albedo(scene, mat, info["uv"])
-        trans = bsdf_ops.resolve_transmission(scene, mat, info["uv"])
-        wo_local, f_val, pdf = bsdf_ops.bsdf_sample(
-            bkey, _D_BSDF, mat, albedo, -wi_local, info["backface"], eta_i,
-            ids=pid, transmission=trans)
-        alive = alive & ~((pdf <= 0.0) | (length_sq(f_val) < EPSILON))
-        up = alive[:, None]
-        # emission after the sampling-validity break
-        li = li + torch.where(up, info["emission"] * beta, 0.0)
-        beta = torch.where(up, beta * f_val * (
-            torch.abs(wo_local[..., 2])
-            / torch.clamp(pdf, min=1e-20))[:, None], beta)
-        side = torch.where(wo_local[..., 2] > 0.0, 1.0, -1.0)
-        o = torch.where(up, info["point"] + normal
-                        * (side * RAY_EPSILON)[:, None], o)
-        d = torch.where(up, to_world(wo_local, normal), d)
-    return li, rays
+    with span("tpt.step.naive.camera"):
+        o, d = camera.generate_rays_plain(rng.fold_in(skey, 2 ** 20),
+                                          px.to(torch.float32),
+                                          py.to(torch.float32), pid)
+    with span("tpt.step.naive.paths"):
+        beta = torch.ones((n, 3), dtype=torch.float32, device=dev)
+        li = torch.zeros((n, 3), dtype=torch.float32, device=dev)
+        alive = torch.ones(n, dtype=torch.bool, device=dev)
+        eta_i = torch.ones(n, dtype=torch.float32, device=dev)
+        rays = 0
+        for depth in range(max_depth):
+            if not bool(alive.any()):
+                break
+            bkey = rng.bounce_key(skey, depth)
+            rays += int(alive.sum())
+            hit = traverse.closest_hit(scene, o, d, active=alive)
+            info, mat = traverse.shade_data(scene, o, d, hit)
+            miss = alive & ~hit.valid
+            li = li + torch.where(
+                miss[:, None],
+                beta * common.sample_sky(d, sample_environment), 0.0)
+            alive = alive & hit.valid
+            normal = info["normal"]
+            wi_local = to_local(d, normal)
+            albedo = bsdf_ops.resolve_albedo(scene, mat, info["uv"])
+            trans = bsdf_ops.resolve_transmission(scene, mat, info["uv"])
+            wo_local, f_val, pdf = bsdf_ops.bsdf_sample(
+                bkey, _D_BSDF, mat, albedo, -wi_local, info["backface"],
+                eta_i, ids=pid, transmission=trans)
+            alive = alive & ~((pdf <= 0.0) | (length_sq(f_val) < EPSILON))
+            up = alive[:, None]
+            # emission after the sampling-validity break
+            li = li + torch.where(up, info["emission"] * beta, 0.0)
+            beta = torch.where(up, beta * f_val * (
+                torch.abs(wo_local[..., 2])
+                / torch.clamp(pdf, min=1e-20))[:, None], beta)
+            side = torch.where(wo_local[..., 2] > 0.0, 1.0, -1.0)
+            o = torch.where(up, info["point"] + normal
+                            * (side * RAY_EPSILON)[:, None], o)
+            d = torch.where(up, to_world(wo_local, normal), d)
+        return li, rays

@@ -44,6 +44,7 @@ from cudapathtracer_tpu_torch.utils.math import (EPSILON, RAY_EPSILON,
                                                  length_sq, luminance,
                                                  normalize, to_local,
                                                  to_world)
+from cudapathtracer_tpu_torch.utils.metrics import span
 
 HARD_DEPTH_CAP = 100
 LIT_CAP = HARD_DEPTH_CAP + 32   # the mega engine's event cap
@@ -60,6 +61,13 @@ _D_RR = 8
 _STATE = ("lane", "pid", "depth", "o", "d", "beta", "li", "prev_pdf",
           "hit_nonspec", "prev_point", "eta_i", "eta_t", "ms_stack",
           "ms_top")
+
+
+# the model whose step a schedule of K5 runs: its stages' program spans
+# (utils/metrics.py) are tpt.step.<model>.camera (plain version only) and
+# tpt.step.<model>.paths
+STEPS = {"classic": "unidirectional", "mega": "unidirectional_mega",
+         "naive": "naive"}
 
 
 def render_sample(scene, camera, base_key, sample_idx, px, py, *,
@@ -109,13 +117,14 @@ def render_batch_kernel(scene, camera, base_key, s0: int, px, py, k: int, *,
     (models/batch.py); the kernel derives the samples' keys from base_key.
     -> (radiance summed in sample order [N,3], rays as a 0-d int64
     tensor)."""
-    li, rays = kernels.render_unidirectional(
-        scene, px.to(torch.int32).contiguous(),
-        py.to(torch.int32).contiguous(), camera.kernel_params(), base_key,
-        s0, k, max_depth=max_depth, use_mis=use_mis,
-        sample_environment=sample_environment, schedule=schedule,
-        air_priority=scene.air_priority)
-    return li, rays.sum()
+    with span(f"tpt.step.{STEPS[schedule]}.paths"):
+        li, rays = kernels.render_unidirectional(
+            scene, px.to(torch.int32).contiguous(),
+            py.to(torch.int32).contiguous(), camera.kernel_params(),
+            base_key, s0, k, max_depth=max_depth, use_mis=use_mis,
+            sample_environment=sample_environment, schedule=schedule,
+            air_priority=scene.air_priority)
+        return li, rays.sum()
 
 
 def sample_key_table(base_key, s0: int, k: int, rows: int) -> torch.Tensor:
@@ -136,11 +145,13 @@ def render_plain(scene, camera, base_key, sample_idx, px, py, *,
     """Plain version of K5 for either draw schedule ("classic" or "mega");
     any device. -> (radiance [N,3], rays as a Python int)."""
     n, dev = px.shape[0], px.device
+    step = STEPS[schedule]
     skey = rng.sample_key(base_key, sample_idx)
     pid = rng.pixel_ids(px, py)
-    o, d = camera.generate_rays_plain(rng.fold_in(skey, 2 ** 20),
-                                      px.to(torch.float32),
-                                      py.to(torch.float32), pid)
+    with span(f"tpt.step.{step}.camera"):
+        o, d = camera.generate_rays_plain(rng.fold_in(skey, 2 ** 20),
+                                          px.to(torch.float32),
+                                          py.to(torch.float32), pid)
     mats = scene.materials
     ms0 = common.MediumStack.make(n, scene.air_priority, device=dev)
     li_out = torch.zeros((n, 3), dtype=torch.float32, device=dev)
@@ -159,18 +170,20 @@ def render_plain(scene, camera, base_key, sample_idx, px, py, *,
         ms_stack=ms0.stack, ms_top=ms0.top)
     rays = 0
     it = 0
-    while it < MAX_EVENTS[schedule] and s["lane"].numel() > 0:
-        rays += s["lane"].numel()
-        alive, s, nee_rays = _bounce(scene, mats, skey, it, s, max_depth,
-                                     use_mis, sample_environment, schedule)
-        rays += nee_rays
-        li_out[s["lane"]] = s["li"]
-        keep = torch.nonzero(alive)[:, 0]
-        if keep.numel() < alive.numel():
-            s = {k: s[k][keep] for k in _STATE}
-        it += 1
-    if schedule == "mega":   # the mega engine's RGB9E5 retirement
-        li_out = packing.round_rgb9e5(li_out)
+    with span(f"tpt.step.{step}.paths"):
+        while it < MAX_EVENTS[schedule] and s["lane"].numel() > 0:
+            rays += s["lane"].numel()
+            alive, s, nee_rays = _bounce(scene, mats, skey, it, s,
+                                         max_depth, use_mis,
+                                         sample_environment, schedule)
+            rays += nee_rays
+            li_out[s["lane"]] = s["li"]
+            keep = torch.nonzero(alive)[:, 0]
+            if keep.numel() < alive.numel():
+                s = {k: s[k][keep] for k in _STATE}
+            it += 1
+        if schedule == "mega":   # the mega engine's RGB9E5 retirement
+            li_out = packing.round_rgb9e5(li_out)
     return li_out, rays
 
 

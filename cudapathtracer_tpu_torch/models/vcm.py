@@ -71,6 +71,7 @@ from cudapathtracer_tpu_torch.utils.math import (EPSILON, MAX_FIREFLY_LUM,
                                                  merge_radius, normalize,
                                                  to_local, to_world,
                                                  true_div)
+from cudapathtracer_tpu_torch.utils.metrics import span
 
 
 @dataclass(frozen=True)
@@ -578,6 +579,11 @@ def merge_terms(e, idx, row, eta_vcm: float):
 
 # --- one sample --------------------------------------------------------------
 
+# the sample's stages, each a program span when tracing (utils/metrics.py)
+STAGES = {st: f"tpt.step.vcm.{st}"
+          for st in ("light_walk", "splat", "photon_grid", "eye_pass")}
+
+
 def render_sample(scene, camera, base_key, sample_idx, px, py, *,
                   cfg: VCMConfig, splat_shape: int | None = None,
                   photon_group=None):
@@ -617,25 +623,29 @@ def render_plain(scene, camera, base_key, sample_idx, px, py, *,
     n = px.shape[0]
     mr, eta, norm, salt = _grid_inputs(scene, cfg, sample_idx, n,
                                        photon_group)
-    lbufs, _, rays_l = paths.generate_light_path(
-        scene, key_l, px, py, cfg.light_depth + 1, eta_vcm=eta)
+    with span(STAGES["light_walk"]):
+        lbufs, _, rays_l = paths.generate_light_path(
+            scene, key_l, px, py, cfg.light_depth + 1, eta_vcm=eta)
     fb = torch.zeros((splat_shape or n, 3), dtype=torch.float32,
                      device=px.device)
     rays_s = 0
     if cfg.light_trace:
-        fb, rays_s = vcm_light_splat(scene, camera, lbufs, cfg, eta, fb)
+        with span(STAGES["splat"]):
+            fb, rays_s = vcm_light_splat(scene, camera, lbufs, cfg, eta, fb)
     grid = None
     if cfg.do_merge:
-        rows, valid = hashgrid.photon_rows(lbufs)
-        if photon_group is not None:
-            rows, valid = _gather_photons(photon_group, rows,
-                                          valid.to(torch.uint8))
-            valid = valid.bool()
-        grid = hashgrid.build_grid(
-            rows, valid, scene.scene_min, mr,
-            hashgrid.photon_table_size(rows.shape[0]), salt=salt)
-    li, rays_e, dropped = eye_pass_plain(scene, camera, key_e, lbufs, grid,
-                                         cfg, px, py, mr, eta, norm)
+        with span(STAGES["photon_grid"]):
+            rows, valid = hashgrid.photon_rows(lbufs)
+            if photon_group is not None:
+                rows, valid = _gather_photons(photon_group, rows,
+                                              valid.to(torch.uint8))
+                valid = valid.bool()
+            grid = hashgrid.build_grid(
+                rows, valid, scene.scene_min, mr,
+                hashgrid.photon_table_size(rows.shape[0]), salt=salt)
+    with span(STAGES["eye_pass"]):
+        li, rays_e, dropped = eye_pass_plain(scene, camera, key_e, lbufs,
+                                             grid, cfg, px, py, mr, eta, norm)
     rays = rays_l + rays_s + rays_e
     if splat_shape:
         return li, fb, rays, dropped
@@ -658,26 +668,32 @@ def render_kernel(scene, camera, base_key, sample_idx, px, py, *,
     mr, eta, norm, salt = _grid_inputs(scene, cfg, sample_idx, n,
                                        photon_group)
     rays = torch.zeros(n, dtype=torch.int32, device=dev)
-    lw = kernels.bdpt_walk(scene, px, py, paths.walk_keys(key_l, "light"),
-                           mode="light", max_depth=cfg.light_depth + 1,
-                           rays=rays, eta_vcm=eta)
+    with span(STAGES["light_walk"]):
+        lw = kernels.bdpt_walk(scene, px, py,
+                               paths.walk_keys(key_l, "light"), mode="light",
+                               max_depth=cfg.light_depth + 1, rays=rays,
+                               eta_vcm=eta)
     fb = torch.zeros((splat_shape or n, 3), dtype=torch.float32, device=dev)
     if cfg.light_trace:
-        kernels.vcm_splat(scene, camera, lw["bufs"], fb, rays, cfg, eta)
+        with span(STAGES["splat"]):
+            kernels.vcm_splat(scene, camera, lw["bufs"], fb, rays, cfg, eta)
     grid = None
-    if cfg.do_merge and photon_group is not None:
-        rows, valid = _gather_photons(photon_group,
-                                      *kernels.photon_rows(lw["bufs"]))
-        grid = hashgrid.build_grid_rows_kernel(rows, valid, scene.scene_min,
-                                               mr, salt)
-    elif cfg.do_merge:
-        grid = hashgrid.build_grid_kernel(lw["bufs"], scene.scene_min, mr,
-                                          salt)
-    out, dropped, _ = kernels.vcm_eye(
-        scene, camera, paths.walk_keys(key_e, "eye"), lw["bufs"], grid,
-        None if splat_shape else fb, rays, cfg, px=px, py=py,
-        merge_radius=mr, eta_vcm=eta, merge_norm=norm,
-        **hashgrid.merge_switches(cfg.max_per_cell))
+    if cfg.do_merge:
+        with span(STAGES["photon_grid"]):
+            if photon_group is not None:
+                rows, valid = _gather_photons(
+                    photon_group, *kernels.photon_rows(lw["bufs"]))
+                grid = hashgrid.build_grid_rows_kernel(
+                    rows, valid, scene.scene_min, mr, salt)
+            else:
+                grid = hashgrid.build_grid_kernel(lw["bufs"],
+                                                  scene.scene_min, mr, salt)
+    with span(STAGES["eye_pass"]):
+        out, dropped, _ = kernels.vcm_eye(
+            scene, camera, paths.walk_keys(key_e, "eye"), lw["bufs"], grid,
+            None if splat_shape else fb, rays, cfg, px=px, py=py,
+            merge_radius=mr, eta_vcm=eta, merge_norm=norm,
+            **hashgrid.merge_switches(cfg.max_per_cell))
     if splat_shape:
         return out, fb, rays.sum(), dropped.sum()
     return out, rays.sum(), dropped.sum()

@@ -80,6 +80,7 @@ from cudapathtracer_tpu_torch.utils.math import (EPSILON, MAX_FIREFLY_LUM,
                                                  merge_radius, normalize,
                                                  to_local, to_world,
                                                  true_div)
+from cudapathtracer_tpu_torch.utils.metrics import span
 
 # the JAX engine's lane count; it sets the chunk size, so it is read under
 # the JAX package's name
@@ -465,6 +466,11 @@ def eye_pass_plain(scene, camera, key_e, lbufs, grid, cfg: VCMConfig, px,
 
 # --- one sample --------------------------------------------------------------
 
+# a chunk's stages, each a program span when tracing (utils/metrics.py)
+STAGES = {st: f"tpt.step.vcm_mega.{st}"
+          for st in ("light_walk", "splat", "photon_grid", "eye_pass")}
+
+
 def render_sample(scene, camera, base_key, sample_idx, px, py, *,
                   cfg: VCMConfig, width: int = 0, chunk_pixels: int = 0):
     """One VCM/SPPM sample of the mega engine over the whole frame (px, py
@@ -507,24 +513,29 @@ def render_plain(scene, camera, base_key, sample_idx, px, py, *,
     for ci in range(ch.n_chunks):
         pxc, pyc, cnt = chunk_pixels_of(px, py, ci, ch.c_pix)
         mr, eta, norm = chunk_scalars(scene, cfg, sample_idx, cnt)
-        if keyed:
-            lbufs, r = light_mega.light_walk_mega(
-                scene, key_l, ch.c_pix, cfg.light_depth + 1,
-                TRANSPORT_IMPORTANCE, eta_vcm=eta, pxc=pxc, pyc=pyc)
-        else:
-            lbufs, _, r = paths.generate_light_path(
-                scene, key_l, pxc, pyc, cfg.light_depth + 1, eta_vcm=eta)
-        lbufs = mask_pads(lbufs, cnt)
+        with span(STAGES["light_walk"]):
+            if keyed:
+                lbufs, r = light_mega.light_walk_mega(
+                    scene, key_l, ch.c_pix, cfg.light_depth + 1,
+                    TRANSPORT_IMPORTANCE, eta_vcm=eta, pxc=pxc, pyc=pyc)
+            else:
+                lbufs, _, r = paths.generate_light_path(
+                    scene, key_l, pxc, pyc, cfg.light_depth + 1, eta_vcm=eta)
+            lbufs = mask_pads(lbufs, cnt)
         rays += r
         if cfg.light_trace:
-            fb, r = vcm_light_splat(scene, camera, lbufs, cfg, eta, fb)
+            with span(STAGES["splat"]):
+                fb, r = vcm_light_splat(scene, camera, lbufs, cfg, eta, fb)
             rays += r
-        grid = (_grid_plain(scene, cfg, lbufs, mr, sample_idx)
-                if cfg.do_merge else None)
+        grid = None
+        if cfg.do_merge:
+            with span(STAGES["photon_grid"]):
+                grid = _grid_plain(scene, cfg, lbufs, mr, sample_idx)
         g0 = ci * ch.c_pix
-        li, r, drop = eye_pass_plain(scene, camera, key_e, lbufs, grid, cfg,
-                                     pxc[:cnt], pyc[:cnt], g0, mr=mr,
-                                     eta_vcm=eta, merge_norm=norm)
+        with span(STAGES["eye_pass"]):
+            li, r, drop = eye_pass_plain(scene, camera, key_e, lbufs, grid,
+                                         cfg, pxc[:cnt], pyc[:cnt], g0, mr=mr,
+                                         eta_vcm=eta, merge_norm=norm)
         out[g0:g0 + cnt] = li
         rays, dropped = rays + r, dropped + drop
     return out + fb, rays, dropped
@@ -552,25 +563,31 @@ def render_kernel(scene, camera, base_key, sample_idx, px, py, *,
         pxc, pyc, cnt = chunk_pixels_of(px, py, ci, ch.c_pix)
         mr, eta, norm = chunk_scalars(scene, cfg, sample_idx, cnt)
         rays = torch.zeros(ch.c_pix, dtype=torch.int32, device=dev)
-        if keyed:
-            lbufs, lrays = light_mega.light_walk_mega(
-                scene, key_l, ch.c_pix, cfg.light_depth + 1,
-                TRANSPORT_IMPORTANCE, eta_vcm=eta, pxc=pxc, pyc=pyc)
-            ray_sums.append(lrays)
-        else:
-            lbufs = kernels.bdpt_walk(
-                scene, pxc, pyc, lkeys, mode="light",
-                max_depth=cfg.light_depth + 1, rays=rays,
-                eta_vcm=eta)["bufs"]
-        lbufs = mask_pads(lbufs, cnt)
+        with span(STAGES["light_walk"]):
+            if keyed:
+                lbufs, lrays = light_mega.light_walk_mega(
+                    scene, key_l, ch.c_pix, cfg.light_depth + 1,
+                    TRANSPORT_IMPORTANCE, eta_vcm=eta, pxc=pxc, pyc=pyc)
+                ray_sums.append(lrays)
+            else:
+                lbufs = kernels.bdpt_walk(
+                    scene, pxc, pyc, lkeys, mode="light",
+                    max_depth=cfg.light_depth + 1, rays=rays,
+                    eta_vcm=eta)["bufs"]
+            lbufs = mask_pads(lbufs, cnt)
         if cfg.light_trace:
-            kernels.vcm_splat(scene, camera, lbufs, fb, rays, cfg, eta)
-        grid = (hashgrid.build_grid_kernel(lbufs, scene.scene_min, mr, salt)
-                if cfg.do_merge else None)
-        dropped, _ = kernels.mega_eye(
-            scene, camera, ekeys, lbufs, grid, out, rays, cfg, px=pxc,
-            py=pyc, cnt=cnt, gbase=ci * ch.c_pix, flavor="vcm",
-            merge_radius=mr, eta_vcm=eta, merge_norm=norm, **switches)
+            with span(STAGES["splat"]):
+                kernels.vcm_splat(scene, camera, lbufs, fb, rays, cfg, eta)
+        grid = None
+        if cfg.do_merge:
+            with span(STAGES["photon_grid"]):
+                grid = hashgrid.build_grid_kernel(lbufs, scene.scene_min, mr,
+                                                  salt)
+        with span(STAGES["eye_pass"]):
+            dropped, _ = kernels.mega_eye(
+                scene, camera, ekeys, lbufs, grid, out, rays, cfg, px=pxc,
+                py=pyc, cnt=cnt, gbase=ci * ch.c_pix, flavor="vcm",
+                merge_radius=mr, eta_vcm=eta, merge_norm=norm, **switches)
         ray_sums.append(rays.sum())
         drop_sums.append(dropped.sum())
     return (out + fb, torch.stack(ray_sums).sum(),

@@ -54,6 +54,7 @@ import torch.distributed as dist
 
 from cudapathtracer_tpu_torch.models import (bdpt, bdpt_mega, vcm,
                                              vcm_mega)
+from cudapathtracer_tpu_torch.utils import metrics
 from cudapathtracer_tpu_torch.utils import rng as rng_mod
 
 SPLAT_FNS = (bdpt.render_sample, vcm.render_sample)
@@ -143,13 +144,16 @@ class Mesh:
         -> the results in rank order. The exception of the first rank to
         fail is raised here once every thread has ended (the others end at
         once where they wait at a group's barrier, else at their
-        collectives' timeout)."""
+        collectives' timeout). Where the caller traces (utils/metrics.py),
+        each rank's thread traces too, its spans carrying its rank."""
         out = [None] * len(self.ranks)
         errors = []
+        traced = metrics.handoff()
 
         def body(r: Rank):
             try:
-                with self.turn or contextlib.nullcontext(), _on(r):
+                with (self.turn or contextlib.nullcontext(), _on(r),
+                      metrics.adopted(traced, r.rank)):
                     out[r.rank] = fn(r)
             except BaseException as e:   # re-raised in the caller
                 errors.append((r.rank, e))

@@ -186,8 +186,12 @@ def test_wrappers_refuse_non_cuda_tensors(call):
         getattr(kernels, call)(*meta, **kw)
     assert kernels.launches[{"rgb9e5_roundtrip": "rgb9e5",
                              "bdpt_connect": "bdpt_pairs",
+                             "vcm_eye": "vcm_eye_walk",
                              "vcm_eye_pass": "vcm_eye_walk",
+                             "mega_eye": "mega_eye_walk",
                              "mega_eye_pass": "mega_eye_walk",
+                             "bdpt_splat": "bdpt_splat_bin",
+                             "vcm_splat": "vcm_splat_bin",
                              "splat_pass": "bdpt_splat_bin"
                              }.get(call, call)] == 0
 
@@ -413,7 +417,8 @@ def test_bdpt_kernels_match_plain(cuda, name, flags):
                             bdpt.sample_keys(rng.base_key(), 2),
                             f"{name} {flags}", eta_vcm=eta)
     # K13's stages once each, then once more as the composed pass
-    assert (kernels.launches["bdpt_walk"], kernels.launches["bdpt_splat"],
+    assert (kernels.launches["bdpt_walk"],
+            kernels.launches["bdpt_splat_trace"],
             kernels.launches["bdpt_pairs"],
             kernels.launches["bdpt_gather"]) == (2, 1, 2, 2)
 
@@ -544,8 +549,9 @@ def test_vcm_kernels_match_plain(cuda, monkeypatch, name, case):
                               **over)
     kernels.reset_launches()
     res = chip_smoke.compare_vcm(sc, cam, px, py, cfg, 1, f"{name} {case}")
-    assert kernels.launches["vcm_eye"] == 1
-    assert kernels.launches["vcm_splat"] == int(cfg.light_trace)
+    # the pass, then its stages one by one against their twins
+    assert kernels.launches["vcm_eye_walk"] == 2
+    assert kernels.launches["vcm_splat_trace"] == int(cfg.light_trace)
     assert res["photons"] > 0
 
 
@@ -563,7 +569,7 @@ def test_vcm_goldens_on_card(cuda, name):
         li, rays, _ = vcm.render_sample(sc, cam, rng.base_key(), s, px, py,
                                         cfg=cfg)
         acc += li
-    assert kernels.launches["vcm_eye"] == 8
+    assert kernels.launches["vcm_eye_walk"] == 8
     golden = np.load(os.path.join(os.path.dirname(os.path.abspath(
         __file__)), "golden", f"cornell_{name}_16x16_8spp.npy"))
     err = np.sqrt(np.mean(((acc / 8).cpu().numpy() - golden) ** 2))
@@ -635,7 +641,8 @@ def test_mega_eye_matches_plain(cuda, name, case):
     kernels.reset_launches()
     res = chip_smoke.compare_mega(sc, cam, px, py, cfg, flavor, 1,
                                   f"{name} {case}", **part)
-    assert kernels.launches["mega_eye"] == res["chunks"].n_chunks
+    # each chunk's pass, then its stages one by one against their twins
+    assert kernels.launches["mega_eye_walk"] == 2 * res["chunks"].n_chunks
 
 
 @pytest.mark.cuda
@@ -652,7 +659,7 @@ def test_mega_render_launches(cuda, integrator):
             sc, cam, rng.base_key(), 0, px, py,
             cfg=bdpt.BDPTConfig(eye_depth=6, light_depth=4),
             chunk_pixels=96 * 32)
-        want = dict(bdpt_walk=2, bdpt_splat=2, mega_eye=2)
+        want = dict(bdpt_walk=2, bdpt_splat_trace=2, mega_eye_walk=2)
     else:
         cfg = vcm.VCMConfig(eye_depth=6, light_depth=4)
         if integrator == "SPPM":
@@ -660,8 +667,8 @@ def test_mega_render_launches(cuda, integrator):
         li, rays, _ = vcm_mega.render_sample(sc, cam, rng.base_key(), 0, px,
                                              py, cfg=cfg,
                                              chunk_pixels=96 * 32)
-        want = dict(bdpt_walk=2, vcm_splat=2 * cfg.light_trace,
-                    photon_pack=2, photon_table=2, mega_eye=2)
+        want = dict(bdpt_walk=2, vcm_splat_trace=2 * cfg.light_trace,
+                    photon_pack=2, photon_table=2, mega_eye_walk=2)
     assert all(kernels.launches[k] == v for k, v in want.items()), \
         kernels.launches
     assert bool(torch.isfinite(li).all()) and bool((li >= 0).all())
@@ -700,15 +707,15 @@ def _eye_pass_inputs(cuda, flavor, over):
 @pytest.mark.parametrize("case", list(EYE_PASSES))
 def test_eye_pass_is_three_stage_launches(cuda, case):
     """One pass = its walk, its connections (not without them) and its
-    gather, each counted once under its stage, the pass once under its
-    name; the stages on their own launch only themselves."""
+    gather, each counted once under its stage; the stages on their own
+    launch only themselves."""
     name, flavor, over = EYE_PASSES[case]
     sc, cam, cfg, ep, _ = _eye_pass_inputs(cuda, flavor, over)
     kernels.reset_launches()
     kernels.run_eye_pass(ep)
     torch.cuda.synchronize()
     conn = int(cfg.connection)
-    want = {name: 1, f"{name}_walk": 1, f"{name}_connect": conn,
+    want = {f"{name}_walk": 1, f"{name}_connect": conn,
             f"{name}_gather": 1}
     got = {k: v for k, v in kernels.launches.items() if v}
     assert got == {k: v for k, v in want.items() if v}, got
