@@ -358,7 +358,7 @@ K1_HOSTS = ("traverse8_kernelILb0E", "traverse8_kernelILb1E",
             "uni_mega_kernelILi0ELi8E", "bdpt_walk_kernelILi0E",
             "splat_trace_kernelILi0E", "bdpt_pairs_kernelILi0E",
             *(k + f + "Li0E" for k in ("eye_walk_kernel",
-                                       "eye_connect_kernel")
+                                       "eye_connect_kernel_trace")
               for f in ("ILi0E", "ILi1E", "ILi2E")))
 # launch counters (kernels.launches) by path: a splat counts its two stages
 # and an eye pass its three, never itself (STAGE_OF)
@@ -440,7 +440,8 @@ SHADE_HOSTS = ("shade_eval_kernel", "uni_mega_kernelILi0ELi8E",
                "bdpt_walk_kernelILi1E", "splat_trace_kernelILi0E",
                "bdpt_pairs_kernelILi0E", "eye_walk_kernelILi0ELi0E",
                "eye_walk_kernelILi1ELi0E", "eye_walk_kernelILi2ELi0E",
-               "eye_connect_kernelILi0ELi0E", "eye_connect_kernelILi1ELi0E",
+               "eye_connect_kernel_traceILi0ELi0E",
+               "eye_connect_kernel_traceILi1ELi0E",
                "eye_gather_kernelILi0E", "eye_gather_kernelILi1E",
                "slots_kernel")
 OPS_PER_SLOT = 20
@@ -2635,9 +2636,10 @@ def main() -> int:
                     for e in engines), "bdpt_gather_kernel",
                   "bdpt_walk_start_kernel", "splat_classify_kernel",
                   "splat_scan_kernel", "splat_scatter_kernel",
-                  *(k + e for k in ("eye_walk_kernel", "eye_connect_kernel")
+                  *(k + e for k in ("eye_walk_kernel",
+                                    "eye_connect_kernel_trace")
                     for e in ("ILi0ELi0E", "ILi0ELi1E", "ILi1ELi0E",
-                              "ILi2ELi0E")),
+                              "ILi2ELi0E")), "eye_connect_kernel_queue",
                   *("eye_gather_kernel" + e for e in ("ILi0E", "ILi1E",
                                                       "ILi2E")),
                   "traverse_bin_kernelILb0E", "traverse_bin_kernelILb1E",

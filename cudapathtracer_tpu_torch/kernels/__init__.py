@@ -38,15 +38,17 @@ of its stage calls under <pass>_walk, <pass>_connect and <pass>_gather;
 K13 counts its two under bdpt_pairs and bdpt_gather; a splat (bdpt_splat,
 vcm_splat) its two stages under <splat>_bin and <splat>_trace. A count is
 of calls into the library's C entries: an entry may launch more than one
-kernel (K5's key table kernel before it, K8's sort a launch a pass), so
-the device runs more kernels than `launches` sums.
+kernel (K5's key table kernel before it, K8's sort a launch a pass, the
+eye connections' queue before their trace), so the device runs more
+kernels than `launches` sums.
 
 Tracing (utils/metrics.py): each entry that the models call is the
 program span tpt.kernel.<entry>, from entry to return, while a tracing
 RenderMetrics has a span open in the calling thread; then K5, K12's light
 walk and the eye passes' walk and connection stages are also given that
 RenderMetrics' device counters (COUNTERS: rows and rays, lane counters,
-the connections' warp calls) when the caller passes none.
+the connections' warp calls, pairs queued and slots) when the caller
+passes none.
 
 The hit fetch (K2) reads scene.shade_table, the 64-byte record of each
 triangle derived from tri_f32 at upload (scene/scene.py), and the kernels
@@ -1390,18 +1392,22 @@ class EyePass:
     rec: the walk's models.vcm.EyeRecords [eye_depth, n]; conn: the
     connections' contributions [eye_depth, light_rows, n, 3] f32 (written
     where the eye record ran its strategies), or None where the pass has no
-    connection stage; out, rays, dropped, rows: the pass's outputs (rows
-    None without with_rows); key_table: the classic walk's key table
-    (scratch its walk launch folds and reads; None for mega); tallies:
-    stage -> the int64 counter its launch adds into (eye.cuh EyeLaunch
-    tally: walk [rows, rays], connect [rows, rays, warp calls]), the
-    tracing RenderMetrics' eye_walk.tally and eye_connect.tally, or
-    None."""
+    connection stage; queue, queued: the connection stage's scratch, its
+    queue of pair slots (t light_rows + j) n + i [eye_depth light_rows n]
+    i32 (uint32 values; its first queued[0] entries written, in no fixed
+    order) and that length [1] i32, or None with conn; out, rays, dropped,
+    rows: the pass's outputs (rows None without with_rows); key_table: the
+    classic walk's key table (scratch its walk launch folds and reads; None
+    for mega); tallies: stage -> the int64 counter its launch adds into
+    (eye.cuh EyeLaunch tally: walk [rows, rays], connect [rows, rays, warp
+    calls, pairs queued, slots]), the tracing RenderMetrics'
+    eye_walk.tally and eye_connect.tally, or None."""
 
-    def __init__(self, name, dev, args, engine, rec, conn, out, rays,
-                 dropped, rows, key_table, tallies):
+    def __init__(self, name, dev, args, engine, rec, conn, queue, queued,
+                 out, rays, dropped, rows, key_table, tallies):
         self.name, self.dev, self.args, self.engine = name, dev, args, engine
         self.rec, self.conn = rec, conn
+        self.queue, self.queued = queue, queued
         self.out, self.rays, self.dropped, self.rows = out, rays, dropped, \
             rows
         self.key_table = key_table
@@ -1426,10 +1432,18 @@ def _eye_pass(name: str, scene, camera, keys: list, lbufs, grid, fb, out,
         gptrs, table, p8, geom = _grid_args(grid, dev)
     depth = cfg.eye_depth
     rec = EyeRecords.empty(depth, n, dev)
-    conn = None
+    conn = queue = queued = None
     if cfg.connection and light_rows > 0:
+        slots = depth * light_rows * n
+        if slots >= 2 ** 32 or light_rows > 64:
+            raise ValueError(f"{name}: the connections take at most 64 light "
+                             f"rows and fewer than 2^32 slots (eye depth x "
+                             f"light rows x paths), not {light_rows} and "
+                             f"{slots}")
         conn = torch.empty((depth, light_rows, n, 3), dtype=torch.float32,
                            device=dev)
+        queue = torch.empty(slots, dtype=torch.int32, device=dev)
+        queued = torch.empty(1, dtype=torch.int32, device=dev)
     rows = torch.zeros(n_buf, dtype=torch.int32, device=dev) if with_rows \
         else None
     # the classic walk's key table, folded on the card from the eye key
@@ -1443,7 +1457,9 @@ def _eye_pass(name: str, scene, camera, keys: list, lbufs, grid, fb, out,
                        dropped.data_ptr(), _ptr(rows) or 0, sc["bin"]]
             + [t.data_ptr() for t in rec] + [_ptr(conn) or 0,
                                              sc["shade"].data_ptr(),
-                                             _ptr(key_table) or 0, 0])
+                                             _ptr(key_table) or 0, 0,
+                                             _ptr(queue) or 0,
+                                             _ptr(queued) or 0])
     iv = [n, n_buf, sc["tri_f32"].shape[1], scene.num_lights, depth,
           light_rows, EYE_FLAVORS[flavor], int(cfg.naive), int(cfg.nee),
           int(cfg.connection), int(cfg.do_mis), int(cfg.paint_weight),
@@ -1457,8 +1473,8 @@ def _eye_pass(name: str, scene, camera, keys: list, lbufs, grid, fb, out,
     args = (_i64s(ptrs), _i64s(iv), _f32s(fv), _u32s(words))
     tallies = {st: metrics.counter(f"eye_{st}.tally", dev)
                for st in ("walk", "connect")}
-    return EyePass(name, dev, args, sc["engine_iv"][0], rec, conn, out, rays,
-                   dropped, rows, key_table, tallies)
+    return EyePass(name, dev, args, sc["engine_iv"][0], rec, conn, queue,
+                   queued, out, rays, dropped, rows, key_table, tallies)
 
 
 def vcm_eye_pass(scene, camera, keys: list, lbufs, grid, fb, rays, cfg, *,
@@ -1515,7 +1531,9 @@ def eye_walk(ep: EyePass) -> None:
 
 def eye_connect(ep: EyePass) -> None:
     """Stage 2 (eye_connect.cu): every (eye depth, light row, path) pair's
-    resolved connection into ep.conn, its shadow rays added atomically."""
+    resolved connection into ep.conn, its shadow rays added atomically:
+    the pairs that can trace queued into ep.queue on the card, then
+    traced from the queue."""
     if ep.conn is None:
         raise ValueError(f"{ep.name}: this pass has no connection stage")
     _eye_stage(ep, "connect")

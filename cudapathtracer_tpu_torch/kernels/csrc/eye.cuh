@@ -24,12 +24,17 @@
 //    d_vc, d_vm and the flags (kRec*). A hit writes every field; an escape
 //    its flags and the sky term; a depth the walk did not reach only its
 //    flags, 0: no stage reads more of them.
-// 2. eye_connect_one: one thread per (eye depth t, light row j, path i):
-//    record t of path i against light vertex j (K12's buffers), one shadow
-//    ray, its resolved contribution into conn [D,L,N,3] (zero where
-//    nothing is traced or the ray is blocked); rays and rows added with
-//    integer atomics. A pair whose eye record has no strategies (dead,
-//    delta or invalid) writes nothing: the gather does not read it.
+// 2. the connections, pair (eye depth t, light row j, path i): record t
+//    of path i against light vertex j (K12's buffers), in two steps. The
+//    pair's gate before its ray: the record ran its strategies (kRecConn),
+//    the light vertex is valid and not delta (conn_light).
+//    eye_connect.cu queues the slots (t L + j) N + i of the pairs that
+//    pass and zeroes the rows of conn [D,L,N,3] the gather reads (every
+//    pair whose eye record passes); eye_connect_one then runs a queued
+//    pair: one shadow ray and, where one is traced, its resolved
+//    contribution into its row (zero where the ray is blocked), rays and
+//    rows added with integer atomics. The gather reads no row of a pair
+//    whose eye record has no strategies (dead, delta or invalid).
 // 3. eye_gather_one: one thread per path adds the stored terms in the
 //    flavour's JAX order, starting from zero, and folds the merge from the
 //    record at its place: classic per depth the sky, s=0, NEE, the
@@ -132,10 +137,13 @@ struct EyeLaunch {
   int32_t* dropped;    // [n] =
   int32_t* rows;       // [n] += or null
   // the stage's device counters or null (tally.cuh): walk [rows, rays],
-  // connect [rows, rays, the warps' calls of the shadow ray]
+  // connect [rows, rays, the warps' calls of the shadow ray, the pairs
+  // queued, the slots D light_rows n]
   unsigned long long* tally;
   EyeRecs rec;
   float* conn;         // [D, light_rows, n, 3]; null without connections
+  uint32_t* queue;     // [D light_rows n] the connections' queue of slots
+  uint32_t* queued;    // its length, counted on the card
   int64_t n;
   int flavor, engine;
 };
@@ -284,37 +292,43 @@ __device__ __forceinline__ void eye_walk_one(const EyeLaunch& c, int64_t i) {
 
 // ---- 2. the connections ------------------------------------------------
 
-// Pair (t, j, i): eye record t of path i against light vertex j of lane i.
+// The gate of pair (t, j, i) before its shadow ray: eye record t of path i
+// holds kRecConn (it ran its strategies) and conn_light holds: light
+// vertex j of lane i is valid and not delta.
+__device__ __forceinline__ bool conn_light(const EyeLaunch& c, int j,
+                                           int64_t i) {
+  const int64_t kl = j * c.light.n + i;
+  const uint32_t w = c.light.flags[kl];  // read with valid, not after it
+  return c.light.valid[kl] && !unpack_flags(w).is_delta;
+}
+
+// Pair (t, j, i), one that passes the gate: eye record t of path i against
+// light vertex j of lane i. Its row of conn is zero before the call (the
+// queue pass writes it), and is written only where a ray is traced.
 template <int kFlavor, int kEngine>
 __device__ __forceinline__ void eye_connect_one(const EyeLaunch& c, int t,
                                                 int j, int64_t i) {
   constexpr bool kMega = kFlavor != kEyeClassic;
   constexpr bool kBdpt = kFlavor == kEyeMegaBdpt;
-  const int64_t k = t * c.rec.stride + i;
-  if ((c.rec.flags[k] & kRecConn) != kRecConn) return;
+  EyeVertex e = load_record(c.rec, t * c.rec.stride + i);
+  if (kMega && dot(e.n, e.to_prev) < 0.0f) e.n = neg(e.n);
+  const Vertex lv = load_vertex(c.light, j, i);
+  ConnRay cr;
+  int32_t rays = 0, rows = 0;
+  if (!conn_ray<kEngine>(c.sc, e, lv, cr, rays, rows)) return;
+  atomicAdd(c.rays + i, rays);
+  if (c.rows != nullptr) atomicAdd(c.rows + i, rows);
+  if (c.tally != nullptr) tally_add(c.tally, rows, rays, true);
   V3 out = v3(0.0f, 0.0f, 0.0f);
-  const int64_t kl = j * c.light.n + i;
-  if (c.light.valid[kl] && !unpack_flags(c.light.flags[kl]).is_delta) {
-    EyeVertex e = load_record(c.rec, k);
-    if (kMega && dot(e.n, e.to_prev) < 0.0f) e.n = neg(e.n);
-    const Vertex lv = load_vertex(c.light, j, i);
-    ConnRay cr;
-    int32_t rays = 0, rows = 0;
-    if (conn_ray<kEngine>(c.sc, e, lv, cr, rays, rows)) {
-      atomicAdd(c.rays + i, rays);
-      if (c.rows != nullptr) atomicAdd(c.rows + i, rows);
-      if (c.tally != nullptr) tally_add(c.tally, rows, rays, true);
-      if (max3(cr.sh.s0, cr.sh.s1, cr.sh.s2) > 0.0f) {
-        float weight;
-        const V3 base = conn_terms(c.sc, c.p.eta_vcm, e, lv, cr, weight);
-        const Weighting& wt = c.p.weighting;
-        if constexpr (kMega)
-          out = resolve<kBdpt>(wt, wt(base, weight), cr.sh);
-        else
-          out = clamp_firefly(
-              wt(mul(base, v3(cr.sh.s0, cr.sh.s1, cr.sh.s2)), weight));
-      }
-    }
+  if (max3(cr.sh.s0, cr.sh.s1, cr.sh.s2) > 0.0f) {
+    float weight;
+    const V3 base = conn_terms(c.sc, c.p.eta_vcm, e, lv, cr, weight);
+    const Weighting& wt = c.p.weighting;
+    if constexpr (kMega)
+      out = resolve<kBdpt>(wt, wt(base, weight), cr.sh);
+    else
+      out = clamp_firefly(
+          wt(mul(base, v3(cr.sh.s0, cr.sh.s1, cr.sh.s2)), weight));
   }
   put3(c.conn,
        (static_cast<int64_t>(t) * c.p.light_rows + j) * c.rec.stride + i,
@@ -391,7 +405,9 @@ __device__ __forceinline__ void eye_gather_one(const EyeLaunch& c,
 // d_vcm, d_vc, d_vm, flags, implicit, nee; 39 conn (0 without
 // connections), 40 shade_table [T, 16], 41 the classic walk's key table
 // (eye_depth x 7 pairs of scratch, written by eye_walk.cu's prologue from
-// the eye key; 0 for mega), 42 the stage's tally (0 = none).
+// the eye key; 0 for mega), 42 the stage's tally (0 = none), 43 the
+// connections' queue [eye_depth light_rows n] u32 and 44 its length (one
+// u32), scratch of the connection stage (0 without connections).
 // iv: 0 n (paths), 1 n_buf (the light buffers' lanes), 2 tri_cols,
 // 3 num_lights, 4 eye_depth, 5 light_rows, 6 flavor, 7 naive, 8 nee,
 // 9 connection, 10 do_mis, 11 paint_weight, 12 sample_environment,
@@ -473,6 +489,8 @@ inline bool eye_launch(const int64_t* ptrs, const int64_t* iv,
   c.sc.shade = dev_ptr<const float4>(ptrs, 40);
   p.key_table = dev_ptr<const KeyPair>(ptrs, 41);
   c.tally = dev_ptr<unsigned long long>(ptrs, 42);
+  c.queue = dev_ptr<uint32_t>(ptrs, 43);
+  c.queued = dev_ptr<uint32_t>(ptrs, 44);
   const bool mega = c.flavor != kEyeClassic;
   const bool merge = p.merge && c.flavor != kEyeMegaBdpt;
   bool grid_ok = !merge || (g.rows != nullptr && g.cell_se != nullptr &&

@@ -358,6 +358,19 @@ def eye_walk_plain(scene, camera, key_e, cfg: VCMConfig, px, py,
     return rec, rays
 
 
+def eye_connect_queue_plain(rec: EyeRecords, lbufs):
+    """Plain version of the connection stage's queue (eye_connect.cu's
+    eye_connect_kernel_queue, any device): the slots (t L + j) N + i of
+    the pairs that pass the gate before the shadow ray, eye record t of
+    path i ran its strategies and light vertex j of lane i (lbufs [L, >=
+    N]) is valid and not delta, in (t, j, i) order -> [Q] int64. The
+    kernel's queue holds the same slots in an order of its own."""
+    n = rec.flags.shape[1]
+    live = (rec.flags & REC_CONN) == REC_CONN
+    lanes = lbufs.valid[:, :n] & ~lbufs.is_delta[:, :n]
+    return torch.nonzero((live[:, None] & lanes[None]).reshape(-1))[:, 0]
+
+
 def eye_connect_plain(scene, rec: EyeRecords, lbufs, cfg: VCMConfig,
                       eta_vcm: float):
     """Plain version of the classic connection stage (eye_connect.cu, any

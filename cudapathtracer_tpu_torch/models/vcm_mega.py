@@ -11,8 +11,8 @@ the pixel list g and its depth (id g * 64 + depth, keys draw_key(key_e,
 d): the BSDF draws 0-3, NEE's 16-18) and the primary ray by the pixel id
 (draw keys of fold_in(key_e, 2^20)). So the port runs K14 as three staged
 kernels (kernels/csrc/eye_walk.cu, eye_connect.cu, eye_gather.cu: one
-thread per path, per (eye depth, light row, path) pair, per path) and, on
-CPU tensors, their plain twins below over [N] lanes.
+thread per path, per queued (eye depth, light row, path) pair, per path)
+and, on CPU tensors, their plain twins below over [N] lanes.
 
 What is ported is the estimator, with its chunking (`mega_chunks`): the
 frame is cut into chunks of c_pix pixels (pad slots repeat the last pixel);
@@ -64,9 +64,12 @@ from cudapathtracer_tpu_torch import kernels
 from cudapathtracer_tpu_torch.models import common, light_mega, mis, paths
 from cudapathtracer_tpu_torch.models.bdpt import (MAX_G_NEE, _cube, _vertex,
                                                   _weighted)
+# eye_connect_queue_plain: the queue of K14's connection stage is the
+# classic one's (the gate reads flags only; lanes 0..n-1 of lbufs [L, >= n])
 from cudapathtracer_tpu_torch.models.vcm import (REC_ESCAPED, EyeRecords,
                                                  VCMConfig, _clamp_firefly,
                                                  conn_geometry, conn_terms,
+                                                 eye_connect_queue_plain,
                                                  implicit_vcm, merge_terms,
                                                  record_flags, sample_keys,
                                                  vcm_light_splat)
@@ -392,16 +395,26 @@ def eye_connect_plain(scene, rec: EyeRecords, lbufs, cfg: VCMConfig, *,
         eye = rec.eye(scene, t)
         eye["n"] = _toward_prev(eye["n"], eye["to_prev"])
         for j, lv in enumerate(lverts):
-            do, e2l_u, dist, cos_l, cos_e, d2 = conn_geometry(eye, lv, live)
-            rays += int(do.sum())
-            shadow = traverse8.shadow_factor8(
-                scene, eye["pos"] + eye["n"] * RAY_EPSILON, e2l_u,
-                dist - RAY_EPSILON, active=do)
-            base, weight = conn_terms(scene, eye, lv, ones, e2l_u, cos_l,
-                                      cos_e, d2, eta_vcm)
-            out = _resolve(_weighted(base, weight, cfg), shadow, flavor, cfg)
-            conn[t, j] = torch.where(do[:, None], out, 0.0)
+            conn[t, j], r = _connect_row(scene, eye, lv, live, ones, cfg,
+                                         flavor, eta_vcm)
+            rays += r
     return conn, rays
+
+
+def _connect_row(scene, eye, lv, live, ones, cfg: VCMConfig, flavor: str,
+                 eta_vcm: float):
+    """The connections of eye vertices `eye` (the normal turned toward
+    the previous vertex) to light vertices lv, lane by lane, on the lanes
+    `live` -> (each lane's resolved contribution [N,3], zero where nothing
+    is traced; the shadow rays traced)."""
+    do, e2l_u, dist, cos_l, cos_e, d2 = conn_geometry(eye, lv, live)
+    shadow = traverse8.shadow_factor8(
+        scene, eye["pos"] + eye["n"] * RAY_EPSILON, e2l_u,
+        dist - RAY_EPSILON, active=do)
+    base, weight = conn_terms(scene, eye, lv, ones, e2l_u, cos_l, cos_e, d2,
+                              eta_vcm)
+    out = _resolve(_weighted(base, weight, cfg), shadow, flavor, cfg)
+    return torch.where(do[:, None], out, 0.0), int(do.sum())
 
 
 def eye_gather_plain(scene, rec: EyeRecords, conn, grid, cfg: VCMConfig, *,

@@ -32,7 +32,8 @@ on by RenderMetrics(trace=True) (driver.Renderer's trace argument):
   kernels add into when given one (kernels/__init__.py asks `counter()`
   for them while a tracing span is open), accumulated across dispatches
   with no host sync, and read once by counter_totals(). RATIOS derives
-  rows a ray and the share of a warp's lanes that work.
+  rows a ray, the share of a warp's lanes that work, and the share of
+  the connections' slots queued and of the queued pairs that trace.
 
 With tracing off nothing is recorded and no kernel is given a counter.
 """
@@ -63,10 +64,11 @@ COUNTERS = {
     "k5.lanes": ("events", "busiest", "calls"),
     "k12.lanes": ("events", "busiest", "calls"),
     # the VCM eye passes' walk and connection stages (eye.cuh): rows and
-    # rays of the stage, and the warps' calls of the connection's shadow
-    # ray (the lanes that trace it together count once)
+    # rays of the stage; the warps' calls of the connection's shadow ray
+    # (the lanes that trace it together count once), the pairs its queue
+    # held and the (eye depth, light row, path) slots of its launches
     "eye_walk.tally": ("rows", "rays"),
-    "eye_connect.tally": ("rows", "rays", "calls"),
+    "eye_connect.tally": ("rows", "rays", "calls", "queued", "slots"),
 }
 # ratio -> (counter, numerator word, denominator word, denominator scale)
 RATIOS = {
@@ -76,6 +78,8 @@ RATIOS = {
     "eye_walk.rows_per_ray": ("eye_walk.tally", "rows", "rays", 1),
     "eye_connect.rows_per_ray": ("eye_connect.tally", "rows", "rays", 1),
     "eye_connect.lane_use": ("eye_connect.tally", "rays", "calls", 32),
+    "eye_connect.queue_share": ("eye_connect.tally", "queued", "slots", 1),
+    "eye_connect.trace_share": ("eye_connect.tally", "rays", "queued", 1),
 }
 # the layers a dispatch's spans fall into, by name prefix (self times)
 LAYERS = (("driver", "tpt.driver."), ("step", "tpt.step."),

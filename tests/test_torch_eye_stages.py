@@ -10,6 +10,12 @@ eye_gather_plain), whose composition is each pass's eye_pass_plain.
     END, escapes last, SPPM ending at its first non-delta hit; the
     connections [D, L, N, 3], pair (t, j, i) at (t L + j) N + i, zero
     where the eye record ran no strategy.
+  * The connections' queue (eye_connect_queue_plain, the twin of
+    eye_connect.cu's queue kernel) in each flavour: each gated pair once
+    (its eye record ran its strategies, its light vertex valid and not
+    delta), in (t, j, i) order; the connections computed slot by slot
+    from the queue equal eye_connect_plain bit for bit; invalid light
+    buffers give an empty queue and zero rows.
   * The ordered gather: hand-built terms (1e8, 1, -1e8, ...) whose
     float32 sum depends on the order equal a sequential float32 sum in the
     flavour's JAX order (classic: the sky, s=0, NEE, the connections;
@@ -182,6 +188,117 @@ def test_pair_layout(setup):
         i = torch.arange(n)
         assert torch.equal(flat[(t * lrows + j) * n + i], want)
     assert bool((conn != 0).any())
+
+
+# --- the connections' queue ---------------------------------------------------
+
+FLAVORS = ("classic", "vcm", "bdpt")
+MEGA_N = 200   # the mega flavours' paths: lanes 0..199 of the 256 light lanes
+
+
+def _flavor_inputs(setup, flavor):
+    """(records, light buffers, paths, eta_vcm) of a flavour's pass on the
+    golden setup, with delta vertices marked on both sides (the scene has
+    no delta surface): every fourth lane's light vertices and every fifth
+    path's depth-1 record. The classic pass runs over every lane; the mega
+    ones over the first MEGA_N paths against the full light buffers, as a
+    chunk's pass."""
+    rec, lb = setup["rec"], setup["lbufs"]
+    lanes = torch.arange(lb.flags.shape[1])
+    lb = lb._replace(flags=torch.where((lanes % 4 == 1)[None],
+                                       lb.flags | -2 ** 31, lb.flags))
+    flags = rec.flags.clone()
+    flags[1, lanes % 5 == 2] &= ~vcm.REC_NON_DELTA
+    rec = rec._replace(flags=flags)
+    if flavor == "classic":
+        return rec, lb, W * H, setup["eta"]
+    rec = vcm.EyeRecords(*(f[:, :MEGA_N] for f in rec))
+    return rec, lb, MEGA_N, setup["eta"] if flavor == "vcm" else 0.0
+
+
+def _connect_plain(setup, flavor, rec, lb, eta):
+    if flavor == "classic":
+        return vcm.eye_connect_plain(setup["sc"], rec, lb, CFG, eta)
+    return vcm_mega.eye_connect_plain(setup["sc"], rec, lb, CFG,
+                                      flavor=flavor, eta_vcm=eta)
+
+
+def _connect_from_queue(setup, flavor, rec, lb, n, eta, queue):
+    """The connections computed slot by slot from a queue, as the trace
+    kernel runs it: each queued pair's eye record and light vertex gathered
+    into one flat batch of lanes, the flavour's connection of each lane,
+    scattered into a zero conn [D, L, n, 3] at its slot -> (conn, rays)."""
+    sc = setup["sc"]
+    depth, lrows = rec.flags.shape[0], lb.pt.shape[0]
+    tj, i = queue // n, queue % n
+    t, j = tj // lrows, tj % lrows
+    eye = vcm.EyeRecords(*(f[t, i][None] for f in rec)).eye(sc, 0)
+    lv = _vertex(paths.PathBuffers(*(f[j, i][None] for f in lb)), 0)
+    q = queue.shape[0]
+    every, ones = torch.ones(q, dtype=torch.bool), torch.ones(q)
+    if flavor == "classic":
+        out, rays = vcm._connect_vcm(sc, eye, lv, every, ones, CFG, eta)
+    else:
+        eye["n"] = vcm_mega._toward_prev(eye["n"], eye["to_prev"])
+        out, rays = vcm_mega._connect_row(sc, eye, lv, every, ones, CFG,
+                                          flavor, eta)
+    conn = torch.zeros((depth, lrows, n, 3))
+    conn.view(-1, 3)[queue] = out
+    return conn, rays
+
+
+def _queue_twin(flavor):
+    return (vcm if flavor == "classic" else vcm_mega).eye_connect_queue_plain
+
+
+@pytest.mark.parametrize("flavor", FLAVORS)
+def test_connect_queue_holds_the_gated_pairs(setup, flavor):
+    """The queue's twin holds each pair once, in (t, j, i) order: exactly
+    those whose eye record ran its strategies and whose light vertex is
+    valid and not delta."""
+    rec, lb, n, _ = _flavor_inputs(setup, flavor)
+    queue = _queue_twin(flavor)(rec, lb)
+    assert queue.dtype == torch.int64 and queue.dim() == 1
+    assert bool((queue[1:] > queue[:-1]).all())     # once each, in order
+    depth, lrows = rec.flags.shape[0], lb.pt.shape[0]
+    want = set()
+    for t in range(depth):
+        live = rec.conn(t)
+        for j in range(lrows):
+            lv = _vertex(lb, j)
+            ok = live & lv["valid"][:n] & ~lv["is_delta"][:n]
+            want |= {(t * lrows + j) * n + i for i in
+                     torch.nonzero(ok)[:, 0].tolist()}
+    assert set(queue.tolist()) == want
+    # some live records' pairs pass, some fail the light vertex's test
+    live = (rec.flags & vcm.REC_CONN) == vcm.REC_CONN
+    assert 0 < len(want) < int(live.sum()) * lrows
+
+
+@pytest.mark.parametrize("flavor", FLAVORS)
+def test_connect_from_queue_matches_plain(setup, flavor):
+    """The connections computed slot by slot from the queue equal the
+    connection stage's twin bit for bit, conn and rays alike."""
+    rec, lb, n, eta = _flavor_inputs(setup, flavor)
+    queue = _queue_twin(flavor)(rec, lb)
+    got, rays = _connect_from_queue(setup, flavor, rec, lb, n, eta, queue)
+    want, want_rays = _connect_plain(setup, flavor, rec, lb, eta)
+    assert rays == want_rays > 0
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    assert bool((want != 0).any())
+
+
+@pytest.mark.parametrize("flavor", FLAVORS)
+def test_connect_queue_empty_without_light_vertices(setup, flavor):
+    """Light buffers with every vertex invalid: an empty queue, no ray,
+    and a zero row on every live record's pairs."""
+    rec, lb, n, eta = _flavor_inputs(setup, flavor)
+    dark = lb._replace(valid=torch.zeros_like(lb.valid))
+    queue = _queue_twin(flavor)(rec, dark)
+    assert queue.numel() == 0
+    conn, rays = _connect_plain(setup, flavor, rec, dark, eta)
+    assert rays == 0 and bool(rec.conn(0).any())
+    assert not bool(conn.any())
 
 
 # --- the ordered gather -------------------------------------------------------

@@ -38,7 +38,10 @@ same inputs inside compare_vcm / compare_mega (the walk's records within
 chip_smoke.compare_records' bounds, the connections and the gather under
 compare_image), one pass = three launches (two without connections), the
 gather bit-equal to its twin on hand-built terms whose float32 sum
-depends on the order, and no host sync inside the passes.
+depends on the order, and no host sync inside the passes. The
+connection stage's queue holds its twin's slots (eye_connect_queue_plain),
+and in each of the trace kernel's four instantiations each path's rays and
+rows are exactly its twin's and conn exactly zero where nothing adds.
 K15, the threaded engine (traversal="threaded"), as K1: triangle ids
 equal, t/u/v and shadow scale within 1e-5 of its plain version; K5's
 classic and naive schedules on a threaded scene under compare_render; on
@@ -763,6 +766,134 @@ def test_eye_gather_adds_in_jax_order(cuda, case):
                                           flavor=flavor)
         got = ep.out[:n]
     assert torch.equal(got.view(torch.int32), li.view(torch.int32))
+
+
+CONNECT_CASES = {  # the trace kernel's instantiation -> (flavor, engine)
+    "classic_bvh8": ("classic", "bvh8"),
+    "classic_threaded": ("classic", "threaded"),
+    "mega_vcm": ("vcm", "bvh8"),
+    "mega_bdpt": ("bdpt", "bvh8"),
+}
+
+
+def _twin_rays(sc, rec, lb, n: int, flavor: str, cfg):
+    """The twin's shadow rays of every (t, j) on the kernel's records,
+    traced by the same device traversal with their rows: -> (traced [D, L,
+    n] bool, blocked [D, L, n] bool, rays [n] i64, rows [n] i64)."""
+    from cudapathtracer_tpu_torch.models.bdpt import _vertex
+    from cudapathtracer_tpu_torch.utils.math import RAY_EPSILON
+    lanes = paths.PathBuffers(*(f[:, :n] for f in lb))
+    depth, lrows = rec.flags.shape[0], lanes.pt.shape[0]
+    dev = rec.flags.device
+    traced = torch.zeros((depth, lrows, n), dtype=torch.bool, device=dev)
+    blocked = torch.zeros_like(traced)
+    rows = torch.zeros(n, dtype=torch.int64, device=dev)
+    for t in range(depth):
+        eye = rec.eye(sc, t)
+        if flavor != "classic":
+            eye["n"] = vcm_mega._toward_prev(eye["n"], eye["to_prev"])
+        for j in range(lrows):
+            do, e2l_u, dist, *_ = vcm.conn_geometry(eye, _vertex(lanes, j),
+                                                    rec.conn(t))
+            o = eye["pos"] + eye["n"] * RAY_EPSILON
+            skip = torch.full((n,), -1, dtype=torch.int32, device=dev)
+            if sc.traversal == "threaded":
+                sh, r = kernels.shadow_factor_bin(
+                    sc.bin_table, sc.node_packed.shape[0], sc.tri_f32, o,
+                    e2l_u, dist - RAY_EPSILON, skip, do, with_rows=True)
+            else:
+                sh, r = kernels.shadow_factor8(
+                    sc.bvh8_table, sc.tri_f32, o, e2l_u, dist - RAY_EPSILON,
+                    skip, do, with_rows=True)
+            traced[t, j] = do
+            blocked[t, j] = do & (sh.amax(dim=1) <= 0.0)
+            rows += torch.where(do, r, 0)
+    return traced, blocked, traced.sum((0, 1)), rows
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(CONNECT_CASES))
+def test_eye_connect_queue_matches_twin(cuda, case):
+    """The connection stage (queue, then trace) in each of the trace
+    kernel's four instantiations, on the records of the kernel's walk: the
+    queued slots are eye_connect_queue_plain's, each once; each path's rays
+    and rows are exactly its twin shadow rays' (the same device traversal);
+    conn is exactly zero on every pair of a live record that the twin does
+    not trace or finds blocked (the queue pass's zero rows among them), and
+    the traced pairs' contributions equal the twin's under the stage's
+    bounds (compare_image, 99.5%: the kernel evaluates each lobe fused,
+    the twin by operator, tests/test_torch_bsdf.py). The mega flavours run
+    a chunk whose last 37 light lanes are pads (light lanes != paths).
+    Delta light vertices and records are marked by hand (the scene has
+    none), so the gate's two delta tests are held too."""
+    flavor, engine = CONNECT_CASES[case]
+    sc, _ = build_scene(builtin.cornell_with_blocks(), builtin_materials(),
+                        traversal=engine, device=cuda)
+    cam = Camera.pinhole((0.0, 0.0, 1.0), 96, 64, 0.0, 0.0, 0.0, 60.0)
+    px, py = _grid(96, 64, cuda)
+    n_buf = px.shape[0]
+    cfg = vcm.VCMConfig(eye_depth=6, light_depth=4, do_merge=False)
+    key_l, key_e = vcm.sample_keys(rng.base_key(), 1)
+    _, eta, _ = vcm.sample_scalars(sc, cfg, 1, n_buf)
+    if flavor == "bdpt":
+        cfg = bdpt_mega.as_machine_cfg(bdpt.BDPTConfig(eye_depth=6,
+                                                       light_depth=4))
+        eta = 0.0
+    z = lambda: torch.zeros(n_buf, dtype=torch.int32, device=cuda)
+    lb = kernels.bdpt_walk(sc, px, py, paths.walk_keys(key_l, "light"),
+                           mode="light", max_depth=cfg.light_depth + 1,
+                           rays=z(), eta_vcm=eta or None)["bufs"]
+    # the scene has no delta surface: every fourth lane's light vertices
+    # and (below) every fifth path's depth-1 record are marked delta
+    lanes = torch.arange(n_buf, device=cuda)
+    lb = lb._replace(flags=torch.where((lanes % 4 == 1)[None],
+                                       lb.flags | -2 ** 31, lb.flags))
+    if flavor == "classic":
+        n = n_buf
+        ep = kernels.vcm_eye_pass(
+            sc, cam, paths.walk_keys(key_e, "eye"), lb, None, None, z(), cfg,
+            px=px, py=py, merge_radius=0.0, eta_vcm=eta, merge_norm=0.0,
+            one_brick=False, reweight=True, with_rows=True)
+    else:
+        n = n_buf - 37
+        ep = kernels.mega_eye_pass(
+            sc, cam, vcm_mega.eye_keys(key_e), lb, None,
+            torch.zeros((n, 3), device=cuda), z(), cfg, px=px, py=py, cnt=n,
+            gbase=0, flavor=flavor, eta_vcm=eta, with_rows=True)
+    kernels.eye_walk(ep)
+    ep.rec.flags[1, lanes[:n] % 5 == 2] &= ~vcm.REC_NON_DELTA
+    rays0, rows0 = ep.rays[:n].clone(), ep.rows[:n].clone()
+    ep.conn.fill_(float("nan"))   # every slot the gather reads is written
+    kernels.eye_connect(ep)
+    torch.cuda.synchronize()
+    rec = ep.rec
+    # the queue
+    q = int(ep.queued[0])
+    got = torch.sort(ep.queue[:q].to(torch.int64) & 0xFFFFFFFF).values
+    want = vcm.eye_connect_queue_plain(rec, lb)
+    assert torch.equal(got, want) and q > 0
+    # each path's rays and rows
+    traced, blocked, rays, rows = _twin_rays(sc, rec, lb, n, flavor, cfg)
+    assert torch.equal((ep.rays[:n] - rays0).to(torch.int64), rays)
+    assert torch.equal((ep.rows[:n] - rows0).to(torch.int64), rows)
+    assert int(rays.sum()) > 0 and bool(blocked.any())
+    # conn: exact zeros where nothing adds, the twin's values elsewhere
+    live = ((rec.flags & vcm.REC_CONN) == vcm.REC_CONN)[:, None, :].expand(
+        -1, ep.conn.shape[1], -1)
+    conn = ep.conn
+    assert bool(torch.isfinite(conn[live]).all())
+    zero = live & (~traced | blocked)
+    assert bool((conn[zero] == 0).all())
+    if flavor == "classic":
+        pconn, prays = vcm.eye_connect_plain(sc, rec, lb, cfg, eta)
+    else:
+        pconn, prays = vcm_mega.eye_connect_plain(sc, rec, lb, cfg,
+                                                  flavor=flavor, eta_vcm=eta)
+    assert prays == int(rays.sum())
+    assert bool((pconn[zero] == 0).all())
+    lit = live & traced & ~blocked
+    chip_smoke.compare_image((conn[lit], prays), (pconn[lit], prays),
+                             f"{case} connections", "K13v", 0.995)
 
 
 @pytest.mark.cuda

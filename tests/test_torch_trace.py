@@ -12,8 +12,10 @@ innermost span).
 
 On the card (marker cuda): each counter's totals equal the sums of the
 per-ray outputs of the same launches (K5's rows and rays, the eye walk's
-and the connections' rows and rays), the lane counters stay within 32
-lanes a call, and the outputs are bit-equal with tracing on and off.
+and the connections' rows and rays; the connections' pairs queued, the
+queue's length and its twin's), the lane counters stay within 32 lanes a
+call, the shares at or below 1, and the outputs are bit-equal with
+tracing on and off.
 """
 
 import ast
@@ -174,16 +176,29 @@ def test_scene_build_times_the_mesh_load(monkeypatch):
     assert r.metrics.phases["scene_build"] >= 0.05
 
 
-def test_counter_ratios():
+RATIO_CASES = {  # case -> (counter words, the ratios they give)
+    "k5": ({"k5.tally": [60, 10], "k5.lanes": [48, 2, 2]},
+           {"k5.rows_per_ray": 6.0, "k5.lane_use": 0.75}),
+    "eye_connect": ({"eye_connect.tally": [70, 16, 1, 20, 160]},
+                    {"eye_connect.rows_per_ray": 70 / 16,
+                     "eye_connect.lane_use": 0.5,
+                     "eye_connect.queue_share": 0.125,
+                     "eye_connect.trace_share": 0.8}),
+}
+
+
+@pytest.mark.parametrize("case", list(RATIO_CASES))
+def test_counter_ratios(case):
+    counters, want = RATIO_CASES[case]
     m = RenderMetrics(trace=True)
-    m.counter("k5.tally", "cpu").copy_(torch.tensor([60, 10]))
-    m.counter("k5.lanes", "cpu").copy_(torch.tensor([48, 2, 2]))
-    m.counter("eye_connect.tally", "cpu").copy_(torch.tensor([70, 16, 1]))
+    for name, words in counters.items():
+        m.counter(name, "cpu").copy_(torch.tensor(words))
     got = metrics.ratios(m.counter_totals())
-    assert got == {"k5.rows_per_ray": 6.0, "k5.lane_use": 0.75,
-                   "eye_connect.rows_per_ray": 70 / 16,
-                   "eye_connect.lane_use": 0.5}
-    assert "k5.lane_use: 0.7500" in m.summary()
+    assert got == want
+    assert all(v <= 1.0 for k, v in got.items()
+               if k.endswith(("lane_use", "_share")))
+    first = next(iter(want))
+    assert f"{first}: {want[first]:.4f}" in m.summary()
     m.reset_trace()
     assert metrics.ratios(m.counter_totals()) == {}
 
@@ -341,11 +356,11 @@ def test_eye_and_light_walk_counters_on_card(cuda):
                       kernels.eye_gather):
             stage(ep)
             seen.append((int(rays.sum()), int(ep.rows.sum())))
-        return ep, seen
-    ep0, seen0 = run()
+        return ep, seen, lw["bufs"]
+    ep0, seen0, _ = run()
     m = RenderMetrics(trace=True)
     with m.span("tpt.driver.render_batch", 2):
-        ep1, seen1 = run()
+        ep1, seen1, lb1 = run()
     assert seen0 == seen1
     for a, b in ((ep0.out, ep1.out), (ep0.dropped, ep1.dropped),
                  (ep0.rays, ep1.rays), (ep0.rows, ep1.rows)):
@@ -358,6 +373,10 @@ def test_eye_and_light_walk_counters_on_card(cuda):
     assert (r3, w3) == (r2, w2)    # the gather traces nothing
     c = t["eye_connect.tally"]
     assert c["rays"] <= 32 * c["calls"]
+    assert c["slots"] == cfg.eye_depth * cfg.light_depth * n
+    assert c["queued"] == int(ep1.queued[0]) == vcm.eye_connect_queue_plain(
+        ep1.rec, lb1).numel()
+    assert 0 < c["rays"] <= c["queued"] < c["slots"]
     ln = t["k12.lanes"]
     assert 0 < ln["events"] <= 32 * ln["calls"]
 
@@ -390,8 +409,10 @@ def test_renderer_trace_on_card(cuda, path):
     got = metrics.ratios(m.counter_totals())
     want = ({"k5.rows_per_ray", "k5.lane_use"} if path == "unidirectional"
             else {"k12.lane_use", "eye_walk.rows_per_ray",
-                  "eye_connect.rows_per_ray", "eye_connect.lane_use"})
+                  "eye_connect.rows_per_ray", "eye_connect.lane_use",
+                  "eye_connect.queue_share", "eye_connect.trace_share"})
     assert set(got) == want
     assert all(0.0 < v for v in got.values())
-    assert all(got[k] <= 1.0 for k in want if k.endswith("lane_use"))
+    assert all(got[k] <= 1.0 for k in want
+               if k.endswith(("lane_use", "_share")))
     assert m.layer_ms()["kernels"] > 0.0
