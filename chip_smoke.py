@@ -6,7 +6,7 @@ NVIDIA GPU. Run from the repository root:
 
 needs one card; `python3 chip_smoke.py --sharded` builds the kernels and
 runs phase 35b-c alone, over every visible card (on a machine with n >= 2
-cards it adds NCCL (n,1) and (n/2,2) meshes, one card a rank).
+cards it adds (n,1) and (n/2,2) meshes, one card a rank).
 
 Phases (one line each; any failure exits non-zero before the result line):
   1. a CUDA card is required; print nvidia-smi's name and power limit;
@@ -223,9 +223,9 @@ Phases (one line each; any failure exits non-zero before the result line):
      lbufs mode's and build_grid, and on the union of four tiles' photons
      gathered tile-major against build_grid, all bit-equal, photon_bucket
      timed; then naive (depth 8), BDPT and VCM with merging (eye 4, light
-     3) at 256x256 on cornell_with_blocks on an NCCL (1,1) mesh over
-     cuda:0, on (4,1) and (2,2) meshes with every rank on cuda:0 (Gloo)
-     and, where n >= 2 cards are visible, on NCCL (n,1) and (n/2,2)
+     3) at 256x256 on cornell_with_blocks on a (1,1) mesh over
+     cuda:0, on (4,1) and (2,2) meshes with every rank on cuda:0
+     and, where n >= 2 cards are visible, on (n,1) and (n/2,2)
      meshes, one card a rank, against the unsharded calls on cuda:0,
      each of which is timed as the sharded calls are (host clock, median
      of 5, every card synchronised): naive against the per-shard calls
@@ -281,7 +281,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 OUT_DIR = os.path.join(ROOT, "chiprun_out", "chip_smoke")
 WIDTH, HEIGHT, SPP, DEPTH = 1920, 1080, 4, 8
 # --sharded: the build, then phase 35b-c alone (on a machine with several
-# cards, its NCCL meshes over all of them)
+# cards, its meshes over all of them)
 SHARDED_ONLY = sys.argv[1:] == ["--sharded"]
 CSRC = "cudapathtracer_tpu_torch/kernels/csrc/"
 KERNELS = (  # name, source, the JAX function it replaces
@@ -2423,8 +2423,8 @@ def sharded_renders(card: str, dev, w: int) -> int:
     naive (depth 8), BDPT and VCM (eye 4, light 3; VCM with merging at r0
     0.005 of the scene radius and 64 photons a cell, where no 256x256 cell
     holds more, so the union's candidate set is the single rank's): an
-    NCCL (1,1) mesh, (4,1) and (2,2) meshes with every rank on the one
-    card (Gloo) and, where n >= 2 cards are visible, NCCL (n,1) and
+    (1,1) mesh, (4,1) and (2,2) meshes with every rank on the one
+    card and, where n >= 2 cards are visible, (n,1) and
     (n/2,2) meshes over all of them, each against the unsharded calls on
     `dev`. Each sharded call and the direct (unsharded) call of one sample
     of the whole frame are timed alike (host_ms). Returns photon_bucket's
@@ -2483,24 +2483,21 @@ def sharded_renders(card: str, dev, w: int) -> int:
         direct_ms[name] = host_ms(lambda: direct(name, 0), [dev])
         say("sharded", f"direct {name} {w}x{w}: one sample of the frame in "
             f"{direct_ms[name]:.4f} ms (median of 5, synchronised) ({card})")
-    meshes = [((1, 1), [dev], "nccl"), ((4, 1), [dev] * 4, "gloo"),
-              ((2, 2), [dev] * 4, "gloo")]
+    meshes = [((1, 1), [dev]), ((4, 1), [dev] * 4), ((2, 2), [dev] * 4)]
     n_cards = torch.cuda.device_count()
     cards = [torch.device("cuda", i) for i in range(n_cards)]
     if n_cards >= 2:
-        meshes.append(((n_cards, 1), cards, "nccl"))
+        meshes.append(((n_cards, 1), cards))
     if n_cards >= 4 and n_cards % 2 == 0:
-        meshes.append(((n_cards // 2, 2), cards, "nccl"))
+        meshes.append(((n_cards // 2, 2), cards))
     bucket_launches = 0
-    for shape, devices, backend in meshes:
+    for shape, devices in meshes:
         # a mesh that hangs prints every thread's stack and exits
         faulthandler.dump_traceback_later(240, exit=True)
         mesh = sharding.make_mesh(*shape, devices=devices)
         n_tile, n_spp = shape
         tag = f"{shape} on {len(set(devices))} card(s)"
         say("sharded", mesh.describe())
-        check(mesh.backend == backend, f"sharded {tag}: backend "
-              f"{mesh.backend}, not {backend}")
         nl = nb // n_tile
         for name, (fn, kw, names) in cases.items():
             call = sharding.make_sharded_sample_fn(fn, mesh, bscene, bcam,
@@ -2509,6 +2506,7 @@ def sharded_renders(card: str, dev, w: int) -> int:
             kernels.reset_launches()
             li, rays, *rest = call(base, 0, bpx, bpy)
             launches = dict(kernels.launches)
+            rays, rest = int(rays), [int(c) for c in rest]
             want_names = names + (("photon_bucket",) if name == "VCM"
                                   and n_tile > 1 else ())
             missing = [k for k in want_names if launches[k] == 0]
@@ -2518,7 +2516,7 @@ def sharded_renders(card: str, dev, w: int) -> int:
                 check((launches["photon_bucket"] > 0) == (n_tile > 1),
                       f"sharded {tag} VCM: photon_bucket launched "
                       f"{launches['photon_bucket']} times")
-                if shape == (4, 1) and backend == "gloo":
+                if shape == (4, 1) and len(set(devices)) == 1:
                     bucket_launches = launches["photon_bucket"]
             if name == "naive":
                 # the JAX composition: each shard's own key and sample,
@@ -2561,7 +2559,6 @@ def sharded_renders(card: str, dev, w: int) -> int:
             if name == "VCM":
                 check(rest[0] == 0, f"sharded {tag} VCM: {rest[0]} "
                       "dropped photons")
-        mesh.close()
         faulthandler.cancel_dump_traceback_later()
     return bucket_launches
 

@@ -1,8 +1,10 @@
 """Command-line entry point of the PyTorch + CUDA port.
 
 The same flags as `python -m cudapathtracer_tpu`, plus --device (default
-cuda; the CPU only when asked for with --device cpu). After each render
-it prints the metrics and the numerical checks' summary
+cuda; the CPU only when asked for with --device cpu). A config's
+`Mesh Shape: <n_tile> <n_spp>` renders over that mesh of cards (or CPU
+ranks with --device cpu), which is described once it is built. After
+each render it prints the metrics and the numerical checks' summary
 (CUDAPATHTRACER_TPU_CHECKS=1 turns the checks on).
 
 Usage:
@@ -70,6 +72,8 @@ def main(argv=None) -> int:
               "lights; "
               f"BVH: {st['num_nodes']} nodes, {st['num_leaves']} leaves, "
               f"depth mean {st['depth_mean']:.1f} / max {st['depth_max']}")
+        if r.device_mesh is not None:
+            print(f"  mesh: {r.device_mesh.describe()}")
         r.render(num_samples=args.samples, checkpoint_path=args.checkpoint,
                  progressive=not args.no_progressive)
         r.save_final(rn)

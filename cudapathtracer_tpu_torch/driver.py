@@ -29,6 +29,21 @@ models/batch.py, with the ray and merge-dropped totals kept as int64 on the
 device and fetched once after the loop; CUDAPATHTRACER_TPU_CHECKS=1 scans
 each progressive save's batch (utils/checks.py); BDPT_DRAWPATH composites
 the eye-path overlay (utils/debugviz.py) for BIDIRECTIONAL, VCM and SPPM.
+
+`Mesh Shape: <n_tile> <n_spp>` above 1 1 renders over a (tile, spp) mesh
+of n_tile * n_spp ranks (parallel/sharding.py): cuda:0 .. cuda:n-1 from
+the Renderer's card on, or n CPU ranks with device="cpu". The cards'
+contexts are made on the rank threads while the scene is built, and the
+mesh is joined after (the phase mesh_build: the ranks' streams and the
+first exchange within each tile group, which hold the interpreter, and
+the scene's replication); the scene is
+replicated on every rank and each dispatch runs the integrator through
+make_sharded_sample_fn: the splat integrators with splat=True, VCM and
+SPPM with their photons gathered over the tile axis. A call advances
+n_spp samples, so a dispatch holds a multiple of n_spp samples. The frame
+and the counts stay on the first device. The mega engines of BDPT, VCM
+and SPPM are refused on a mesh. Without a mesh nothing of parallel/ is
+imported.
 """
 
 from __future__ import annotations
@@ -108,13 +123,17 @@ def resolve_samples_per_dispatch(cfg: RenderConfig, device) -> int:
     """Samples accumulated per dispatch, the JAX driver's rule with the
     device type in place of the backend: an explicit value wins; else a
     CPU device or a frame above 512^2 pixels renders one sample per
-    dispatch, and a card batches max(1, min(8, 2^21 // pixels))."""
-    if cfg.samples_per_dispatch > 0:
-        return cfg.samples_per_dispatch
+    dispatch, and a card batches max(1, min(8, 2^21 // pixels)); on a
+    mesh, rounded up to a multiple of its spp axis."""
     n = cfg.width * cfg.height
-    if torch.device(device).type == "cpu" or n > (1 << 18):
-        return 1
-    return max(1, min(8, (1 << 21) // max(n, 1)))
+    if cfg.samples_per_dispatch > 0:
+        spd = cfg.samples_per_dispatch
+    elif torch.device(device).type == "cpu" or n > (1 << 18):
+        spd = 1
+    else:
+        spd = max(1, min(8, (1 << 21) // max(n, 1)))
+    n_spp = cfg.mesh_shape[1]
+    return -(-spd // n_spp) * n_spp
 
 
 def check_supported(cfg: RenderConfig) -> None:
@@ -173,9 +192,10 @@ def merge_note(dropped: int, max_per_cell: int) -> str:
 
 class Renderer:
     """One configured render: scene, camera, integrator and framebuffer on
-    one device. Without a mesh it loads the config's (mesh_from_config,
-    render_number moving its emissive OBJ meshes), timed as the phase
-    scene_build."""
+    one device, or over the config's mesh of ranks (device_mesh; the frame
+    on its first device). Without a triangle mesh it loads the config's
+    (mesh_from_config, render_number moving its emissive OBJ meshes),
+    timed as the phase scene_build."""
 
     def __init__(self, config: RenderConfig, mesh: MeshData | None = None,
                  materials=None, textures=None, device="cuda",
@@ -185,7 +205,40 @@ class Renderer:
         self.device = resolve_device(device)
         self.metrics = RenderMetrics(trace=trace)
         self.checks = CheckLog()
+        self.device_mesh = None
+        self._sharded = None
+        join = None
+        if tuple(cfg.mesh_shape) != (1, 1):
+            from cudapathtracer_tpu_torch.parallel import sharding
+            sharding.check_shardable(self._step()[0])
+            n_tile, n_spp = cfg.mesh_shape
+            n = n_tile * n_spp
+            # consecutive cards from the Renderer's on, or n CPU ranks
+            devices = ([self.device] * n if self.device.type == "cpu" else
+                       [torch.device("cuda", (self.device.index or 0) + i)
+                        for i in range(n)])
+            join = sharding.start_mesh(n_tile, n_spp, devices)
+            self.device = devices[0]
+        self.camera = Camera.from_config(cfg)
+        self._build_scene(cfg, mesh, materials, textures, render_number)
+        if join is not None:
+            with self.metrics.phase("mesh_build", "tpt.mesh.build"):
+                self.device_mesh = join()
+                self._sharded = self._sharded_fn()
+        self.key = rng.base_key(cfg.seed)
+        py, px = torch.meshgrid(
+            torch.arange(cfg.height, dtype=torch.int32, device=self.device),
+            torch.arange(cfg.width, dtype=torch.int32, device=self.device),
+            indexing="ij")
+        self.px = px.reshape(-1)
+        self.py = py.reshape(-1)
+        self.metrics.pixels = cfg.width * cfg.height
+        self.accum = torch.zeros((cfg.width * cfg.height, 3),
+                                 dtype=torch.float32, device=self.device)
+        self.sample_count = 0
+        self._overlay = None  # BDPT_DRAWPATH channel, built lazily
 
+    def _build_scene(self, cfg, mesh, materials, textures, render_number):
         with self.metrics.phase("scene_build"):
             self.mesh = mesh = (mesh_from_config(cfg, render_number)
                                 if mesh is None else mesh)
@@ -202,19 +255,48 @@ class Renderer:
                 mesh, materials, textures,
                 max_leaf_size=max(cfg.bvh_leaf_size, 1), device=self.device)
 
-        self.camera = Camera.from_config(cfg)
-        self.key = rng.base_key(cfg.seed)
-        py, px = torch.meshgrid(
-            torch.arange(cfg.height, dtype=torch.int32, device=self.device),
-            torch.arange(cfg.width, dtype=torch.int32, device=self.device),
-            indexing="ij")
-        self.px = px.reshape(-1)
-        self.py = py.reshape(-1)
-        self.metrics.pixels = cfg.width * cfg.height
-        self.accum = torch.zeros((cfg.width * cfg.height, 3),
-                                 dtype=torch.float32, device=self.device)
-        self.sample_count = 0
-        self._overlay = None  # BDPT_DRAWPATH channel, built lazily
+    def _step(self):
+        """(the integrator's render_sample, its keyword settings)."""
+        cfg = self.cfg
+        fn = _RENDER[(_family(cfg.integrator), cfg.engine)]
+        if cfg.integrator == "BIDIRECTIONAL":
+            kw = dict(cfg=bdpt_mod.BDPTConfig.from_config(cfg))
+        elif cfg.integrator in ("VCM", "SPPM"):
+            kw = dict(cfg=vcm_mod.VCMConfig.from_config(cfg))
+        else:
+            kw = dict(max_depth=max(cfg.max_depth, 1),
+                      sample_environment=cfg.sample_environment)
+        return fn, kw
+
+    def _sharded_fn(self):
+        """The integrator's sample over the mesh (make_sharded_sample_fn):
+        the splat integrators with splat=True, VCM and SPPM with the
+        photons gathered over the tile axis."""
+        from cudapathtracer_tpu_torch.parallel import sharding
+        fn, kw = self._step()
+        if fn in sharding.SPLAT_FNS:
+            kw["splat"] = True
+        if fn is vcm_mod.render_sample:
+            kw["photon_axis"] = "tile"
+        return sharding.make_sharded_sample_fn(
+            fn, self.device_mesh, self.scene, self.camera, **kw)
+
+    def _mesh_batch(self, s0: int, k: int):
+        """Samples s0 .. s0+k-1 over the mesh, n_spp a call, summed in
+        call order -> (radiance [P,3], rays[, merge-dropped]) as 0-d int64
+        tensors on the first device. The ranks' waits at their
+        collectives so far are the phase mesh_wait."""
+        n_spp = self.device_mesh.shape["spp"]
+        if k < 1 or k % n_spp or s0 % n_spp:
+            raise ValueError(f"a dispatch over a mesh with {n_spp} spp "
+                             f"ranks starts at and holds a multiple of "
+                             f"{n_spp} samples, got {k} from {s0}")
+        out = None
+        for call in range(s0 // n_spp, (s0 + k) // n_spp):
+            got = self._sharded(self.key, call, self.px, self.py)
+            out = got if out is None else [a + b for a, b in zip(out, got)]
+        self.metrics.phases["mesh_wait"] = self.device_mesh.wait_s()
+        return tuple(out)
 
     def _sample_fn(self):
         """The per-sample step inner(scene, camera, key, sample_idx, px, py)
@@ -223,14 +305,7 @@ class Renderer:
         with its one-launch batch as inner.k_sample (models/batch.py)."""
         cfg = self.cfg
         key = (_family(cfg.integrator), cfg.engine)
-        fn = _RENDER[key]
-        if cfg.integrator == "BIDIRECTIONAL":
-            kw = dict(cfg=bdpt_mod.BDPTConfig.from_config(cfg))
-        elif cfg.integrator in ("VCM", "SPPM"):
-            kw = dict(cfg=vcm_mod.VCMConfig.from_config(cfg))
-        else:
-            kw = dict(max_depth=max(cfg.max_depth, 1),
-                      sample_environment=cfg.sample_environment)
+        fn, kw = self._step()
 
         step = "tpt.step." + fn.__module__.rsplit(".", 1)[1]
         span = self.metrics.span
@@ -250,7 +325,8 @@ class Renderer:
 
     def render_sample(self, sample_idx: int):
         """One sample of every pixel -> (radiance [P,3], rays), and for VCM
-        and SPPM also the photons the merge cap left out."""
+        and SPPM also the photons the merge cap left out; on the
+        Renderer's (first) device alone."""
         return self._sample_fn()(self.scene, self.camera, self.key,
                                  sample_idx, self.px, self.py)
 
@@ -258,10 +334,18 @@ class Renderer:
         """Samples s0 .. s0+k-1 in one dispatch (models/batch.py) ->
         (radiance summed [P,3], rays[, merge-dropped]) as 0-d int64
         tensors. Traced, the span tpt.driver.render_batch, identified by
-        s0."""
+        s0. On a mesh s0 and k are multiples of its spp axis."""
         with self.metrics.span("tpt.driver.render_batch", s0):
-            return make_batched(self._sample_fn())(
-                self.scene, self.camera, self.key, s0, self.px, self.py, k)
+            return self._dispatcher()(s0, k)
+
+    def _dispatcher(self):
+        """dispatch(s0, k) -> render_batch's result, over the mesh or one
+        device."""
+        if self._sharded is not None:
+            return self._mesh_batch
+        batched = make_batched(self._sample_fn())
+        return lambda s0, k: batched(self.scene, self.camera, self.key, s0,
+                                     self.px, self.py, k)
 
     def render(self, num_samples: int | None = None,
                checkpoint_path: str | None = None, resume: bool = True,
@@ -273,9 +357,9 @@ class Renderer:
         device, fetched once after it."""
         cfg = self.cfg
         total = num_samples if num_samples is not None else cfg.sample_count
-        inner = self._sample_fn()
         spd = resolve_samples_per_dispatch(cfg, self.device)
-        batched = make_batched(inner)
+        n_spp = cfg.mesh_shape[1]
+        dispatch = self._dispatcher()
         if checkpoint_path and resume and os.path.exists(checkpoint_path):
             self.load_checkpoint(checkpoint_path)
             if verbose:
@@ -285,12 +369,11 @@ class Renderer:
         rtot, dtot = zero(), zero()
         with self.metrics.phase("render"):
             while self.sample_count < total:
-                k = min(spd, total - self.sample_count)
-                args = (self.scene, self.camera, self.key, self.sample_count,
-                        self.px, self.py)
+                # a mesh's last dispatch rounds up to its spp axis
+                k = -(-min(spd, total - self.sample_count) // n_spp) * n_spp
                 with self.metrics.span("tpt.driver.render_batch",
                                        self.sample_count):
-                    out = batched(*args, k)
+                    out = dispatch(self.sample_count, k)
                     li, rays = out[0], out[1]
                     if len(out) > 2:
                         dtot = dtot + out[2]

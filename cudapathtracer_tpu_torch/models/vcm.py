@@ -42,8 +42,10 @@ Tile sharding (parallel/sharding.py): with `splat_shape` the pixel list is
 one tile and the splat's frame buffer the whole frame, returned beside the
 tile's radiance (as models/bdpt.py). With `photon_group`, the ranks of the
 tile axis, each rank's photon rows and their validity are all-gathered in
-rank order, the grid is built on their union (on the card by K8's rows
-mode) and the merge radius, eta_vcm and the merge normalisation count
+the order one rank holding every tile would pack them (depth-major, the
+tiles in rank order within a depth), the grid is built on their union (on
+the card by K8's rows mode), so a capped cell keeps the photons the single
+rank keeps, and the merge radius, eta_vcm and the merge normalisation count
 every rank's paths; the connections keep the rank's own light paths.
 """
 
@@ -621,10 +623,15 @@ def _grid_inputs(scene, cfg, sample_idx, n, photon_group):
     return mr, eta, norm, hashgrid.photon_salt(sample_idx)
 
 
-def _gather_photons(photon_group, rows, valid):
-    """The union of every rank's photon rows [P, 8] and validity [P] u8,
-    rank-major (the JAX package's tiled all_gather)."""
-    return photon_group.all_gather(rows), photon_group.all_gather(valid)
+def _gather_photons(photon_group, rows, valid, n: int):
+    """The union of every rank's photon rows [L n, 8] and validity [L n]
+    u8 (n paths a rank), in the order of one rank holding every tile's
+    paths: depth-major, the tiles in rank order within a depth. The
+    capped merge then keeps the photons the single rank keeps."""
+    depth = rows.shape[0] // n
+    rows = photon_group.all_gather(rows.view(depth, n, 8), dim=1)
+    valid = photon_group.all_gather(valid.view(depth, n), dim=1)
+    return rows.reshape(-1, 8), valid.reshape(-1)
 
 
 def render_plain(scene, camera, base_key, sample_idx, px, py, *,
@@ -651,7 +658,7 @@ def render_plain(scene, camera, base_key, sample_idx, px, py, *,
             rows, valid = hashgrid.photon_rows(lbufs)
             if photon_group is not None:
                 rows, valid = _gather_photons(photon_group, rows,
-                                              valid.to(torch.uint8))
+                                              valid.to(torch.uint8), n)
                 valid = valid.bool()
             grid = hashgrid.build_grid(
                 rows, valid, scene.scene_min, mr,
@@ -695,7 +702,7 @@ def render_kernel(scene, camera, base_key, sample_idx, px, py, *,
         with span(STAGES["photon_grid"]):
             if photon_group is not None:
                 rows, valid = _gather_photons(
-                    photon_group, *kernels.photon_rows(lw["bufs"]))
+                    photon_group, *kernels.photon_rows(lw["bufs"]), n)
                 grid = hashgrid.build_grid_rows_kernel(
                     rows, valid, scene.scene_min, mr, salt)
             else:

@@ -1,8 +1,10 @@
 """Render configuration: dataclass + parser for the `.rendertron` text format.
 
-The port's own copy of cudapathtracer_tpu/utils/config.py, unchanged, so
-both packages read a config into equal dataclasses
-(tests/test_torch_host.py).
+The port's own copy of cudapathtracer_tpu/utils/config.py, so both
+packages read a config into equal dataclasses (tests/test_torch_host.py),
+with one key of the port's own: `Mesh Shape: <n_tile> <n_spp>`
+(mesh_shape, default 1 1: no mesh), the (tile, spp) mesh of cards that
+driver.Renderer renders over (parallel/sharding.py).
 
 Same semantic surface as the reference's RenderConfig/loadConfig
 (objects.cuh:794-943): `key: value` lines plus a trailing mesh section of
@@ -117,6 +119,9 @@ class RenderConfig:
     # samples (measured 3.6x at 256^2); large frames and the CPU backend
     # stay at 1 (per-sample dispatch, prompt progressive saves).
     samples_per_dispatch: int = 0
+    # the port's own ("Mesh Shape" key): the (tile, spp) mesh of cards the
+    # Renderer renders over; (1, 1) is no mesh
+    mesh_shape: tuple = (1, 1)
 
     def normalized(self) -> "RenderConfig":
         """Resolve integrator aliases + apply the SPPM flag override
@@ -171,6 +176,15 @@ def _parse_vec3(v: str) -> tuple:
     return (float(nums[0]), float(nums[1]), float(nums[2]))
 
 
+def _parse_mesh_shape(v: str) -> tuple:
+    """`<n_tile> <n_spp>`, each a whole number of at least 1."""
+    nums = v.replace(",", " ").split()
+    if len(nums) != 2 or not all(x.isdigit() and int(x) >= 1 for x in nums):
+        raise ValueError(f"Mesh Shape {v!r}: two whole numbers >= 1, "
+                         "<n_tile> <n_spp>")
+    return (int(nums[0]), int(nums[1]))
+
+
 # key -> (field, converter). Mirrors loadConfig's mapping (objects.cuh:906-941),
 # including BOTH spellings of "Multipl(i)er" (the shipped config has the typo
 # "Multipler" which the reference parser silently drops; we accept both so the
@@ -212,6 +226,7 @@ _KEYMAP = {
     "Save Interval Seconds": ("save_interval_seconds", float),
     "Samples Per Dispatch": ("samples_per_dispatch", int),
     "Output Dir": ("output_dir", str),
+    "Mesh Shape": ("mesh_shape", _parse_mesh_shape),
 }
 
 

@@ -35,6 +35,17 @@ on by RenderMetrics(trace=True) (driver.Renderer's trace argument):
   rows a ray, the share of a warp's lanes that work, and the share of
   the connections' slots queued and of the queued pairs that trace.
 
+* Host counters: a counter of what the host knows before it launches is
+  kept as an int64 tensor on the CPU beside the device ones and added to
+  by count(): mesh.bytes, the bytes a mesh's collectives move and its
+  ranks hand to the first device (parallel/sharding.py).
+* A mesh (driver.Renderer with a `Mesh Shape` above 1 1) adds two phases,
+  timed whether or not it traces: mesh_build, the seconds the Renderer's
+  thread waited for the mesh's rank threads after its scene build (the
+  span tpt.mesh.build), and mesh_wait, the host seconds the rank threads
+  waited at their collectives' barriers, summed over the ranks (each wait the span
+  tpt.mesh.<collective>).
+
 With tracing off nothing is recorded and no kernel is given a counter.
 """
 
@@ -69,6 +80,10 @@ COUNTERS = {
     # held and the (eye depth, light row, path) slots of its launches
     "eye_walk.tally": ("rows", "rays"),
     "eye_connect.tally": ("rows", "rays", "calls", "queued", "slots"),
+    # a mesh (parallel/sharding.py): the bytes each collective brought its
+    # rank and the bytes each rank but the first handed to the first (its
+    # radiance and counts), summed over the ranks (a host counter)
+    "mesh.bytes": ("all_gather", "all_reduce", "to_first"),
 }
 # ratio -> (counter, numerator word, denominator word, denominator scale)
 RATIOS = {
@@ -170,6 +185,16 @@ def counter(name: str, device):
     return None if m is None else m.counter(name, device)
 
 
+def count(name: str, word: str, n: int) -> None:
+    """Add n to `word` of the host counter `name` of the RenderMetrics
+    tracing in this thread; a no-op where none is."""
+    m = _here.metrics
+    if m is not None:
+        t = m.counter(name, "cpu")
+        with m._lock:
+            t[COUNTERS[name].index(word)] += n
+
+
 def handoff():
     """The calling thread's tracing state, for the threads it starts (a
     mesh's ranks; adopted), or None where it is not tracing."""
@@ -227,12 +252,12 @@ class RenderMetrics:
                                   repr=False, compare=False)
 
     @contextmanager
-    def phase(self, name: str):
+    def phase(self, name: str, span: str | None = None):
         """Time a phase into `phases`; when tracing, also the span
-        tpt.<name>."""
+        tpt.<name> (or `span`)."""
         t0 = time.perf_counter()
         try:
-            with self.span(SPAN_PREFIX + name):
+            with self.span(span or SPAN_PREFIX + name):
                 yield
         finally:
             self.phases[name] = self.phases.get(name, 0.0) + (time.perf_counter() - t0)

@@ -1,11 +1,12 @@
 """Tile x spp rendering over a mesh of ranks (cudapathtracer_tpu_torch/
-parallel/sharding.py) on the CPU: Gloo, one thread a rank, on the JAX
+parallel/sharding.py) on the CPU: CPU ranks, one thread a rank, on the JAX
 sharding tests' setup (cornell_with_blocks, 16x16, pinhole at (0,0,1),
 fov 60, depth 4; BDPT and VCM at eye depth 4, light depth 3).
 
-  (a) rank r of an (n_tile, n_spp) mesh sits at divmod(r, n_spp), and each
-      of its groups (tile axis, spp axis, world) gathers exactly the ranks
-      JAX's reshape(n_tile, n_spp) puts on that axis, in axis order.
+  (a) rank r of an (n_tile, n_spp) mesh sits at divmod(r, n_spp), the
+      ranks are the world once each, and its tile group gathers exactly
+      the ranks JAX's reshape(n_tile, n_spp) puts on its tile axis, in
+      axis order, and sums them.
   (b) naive and unidirectional on a (4,2) mesh against the JAX functions
       composed shard by shard on one device (key fold_in(fold_in(key, ti),
       si), sample s n_spp + si, summed over si), held as test_torch_naive
@@ -113,24 +114,22 @@ def spp_mesh_render(setup):
 def test_mesh_placement_and_groups(n_tile, n_spp):
     mesh = _cpu_mesh(n_tile, n_spp)
     assert mesh.shape == {"tile": n_tile, "spp": n_spp}
-    assert mesh.backend == "gloo" and mesh.reason
     assert len(mesh.ranks) == n_tile * n_spp
     grid = np.arange(n_tile * n_spp).reshape(n_tile, n_spp)
 
     def members(r):
         me = torch.tensor([r.rank])
-        return [g.all_gather(me).tolist() for g in (r.tile, r.spp, r.world)]
+        return r.tile.all_gather(me).tolist(), int(r.tile.all_reduce(me))
 
     got = mesh.run(members)
+    assert [r.rank for r in mesh.ranks] == list(range(n_tile * n_spp))
     for r in mesh.ranks:
         assert (r.ti, r.si) == divmod(r.rank, n_spp)
         assert grid[r.ti, r.si] == r.rank
-        tile, spp, world = got[r.rank]
+        tile, total = got[r.rank]
         assert tile == list(grid[:, r.si]) == list(r.tile.members)
-        assert spp == list(grid[r.ti, :]) == list(r.spp.members)
-        assert world == list(range(n_tile * n_spp))
-        assert (r.tile.rank, r.spp.rank) == (r.ti, r.si)
-        assert (r.tile.size, r.spp.size) == (n_tile, n_spp)
+        assert total == grid[:, r.si].sum()
+        assert (r.tile.rank, r.tile.size) == (r.ti, n_tile)
 
 
 @pytest.mark.parametrize("name", ["naive", "unidirectional"])

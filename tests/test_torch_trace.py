@@ -149,20 +149,17 @@ def test_mesh_rank_spans():
     carrying its rank."""
     from cudapathtracer_tpu_torch.parallel import sharding
     mesh = sharding.make_mesh(2, 1, devices=["cpu", "cpu"])
-    try:
-        m = RenderMetrics(trace=True)
-        with m.span("tpt.driver.render_batch", 5):
-            outer = metrics._here.stack[-1].sid
+    m = RenderMetrics(trace=True)
+    with m.span("tpt.driver.render_batch", 5):
+        outer = metrics._here.stack[-1].sid
 
-            def fn(r):
-                with metrics.span("tpt.step.rank_work"):
-                    return r.rank
-            assert mesh.run(fn) == [0, 1]
-        work = [s for s in m.spans if s.name == "tpt.step.rank_work"]
-        assert sorted(s.rank for s in work) == [0, 1]
-        assert all(s.parent == outer and s.ident == 5 for s in work)
-    finally:
-        mesh.close()
+        def fn(r):
+            with metrics.span("tpt.step.rank_work"):
+                return r.rank
+        assert mesh.run(fn) == [0, 1]
+    work = [s for s in m.spans if s.name == "tpt.step.rank_work"]
+    assert sorted(s.rank for s in work) == [0, 1]
+    assert all(s.parent == outer and s.ident == 5 for s in work)
     # without tracing the ranks record nothing
     assert metrics._here.metrics is None
 
