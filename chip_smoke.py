@@ -101,9 +101,10 @@ Phases (one line each; any failure exits non-zero before the result line):
      buffers and grid (rays within 0.1%, image mean within 1e-3, >= 99.9% /
      99.5% of pixels within rtol 1e-3, dropped photons equal), then each
      stage against its plain twin on the same inputs (compare_eye_stages:
-     the walk's records under compare_records, the connections over the
-     live pairs and the gather under compare_image at 99.5%, rays and
-     dropped photons equal), K8 (photon_pack, the hand-written stable
+     the walk's records under compare_records, its lane counters (a bounce
+     a record; the lane use and event balance printed beside K12's), the
+     connections over the live pairs and the gather under compare_image at
+     99.5%, rays and dropped photons equal), K8 (photon_pack, the hand-written stable
      radix sort photon_sort on the buckets, which derives each photon's
      key, photon_table) bit-equal to build_grid, the sort's order and
      sorted buckets equal to torch.sort's on the same keys (int64 and
@@ -260,7 +261,9 @@ traversals on the mega path (the rays of its 4 samples, inside K5's
 launches, "launches_of_the_kernel_it_runs_in"); K5
 (render_unidirectional, naive) its lane use and event balance on the
 1080p sample (phase 7b), K12 (bdpt_walk, bdpt_walk_table) theirs over
-the 1080p walks (phase 11) and the table mode's chunk (phase 26).
+the 1080p walks (phase 11) and the table mode's chunk (phase 26), the eye
+walks (vcm_eye_walk, mega_eye_walk) theirs over the 1080p passes (phases
+16 and 21).
 """
 
 from __future__ import annotations
@@ -1320,8 +1323,9 @@ def compare_eye_stages(ep, walk_plain, connect_plain, gather_plain,
     walk_plain() -> (records, rays); connect_plain(records) -> (conn,
     rays); gather_plain(records, conn) -> (radiance, dropped); out_rows:
     the rows of ep.out the pass writes. Returns per stage (max abs error,
-    plain CUDA-event ms), the stages' rays and rows (ep.rows, if set) and
-    the live record and pair counts."""
+    plain CUDA-event ms), the stages' rays and rows (ep.rows, if set), the
+    live record and pair counts and the walk's lane counts (bounces, the
+    warps' busiest lanes, the warps' calls)."""
     import torch
     from cudapathtracer_tpu_torch import kernels
 
@@ -1339,7 +1343,8 @@ def compare_eye_stages(ep, walk_plain, connect_plain, gather_plain,
                 int(ep.rows.sum()) if ep.rows is not None else 0)
     res = {}
     r0, w0 = counts()
-    kernels.eye_walk(ep)
+    lanes = torch.zeros(3, dtype=torch.int64, device=ep.rays.device)
+    kernels.eye_walk(ep, lanes=lanes)
     r1, w1 = counts()
     (prec, prays), pms = timed(walk_plain)
     check(r1 - r0 == prays, f"{tag} {what}: walk rays kernel {r1 - r0} vs "
@@ -1350,7 +1355,9 @@ def compare_eye_stages(ep, walk_plain, connect_plain, gather_plain,
     live = (flags & 3) == 3
     res.update(rays={"walk": r1 - r0}, rows={"walk": w1 - w0},
                records=int((flags != 0).sum()), live=int(live.sum()),
-               pairs=0)
+               pairs=0, lanes=lanes.tolist())
+    check(res["lanes"][0] == res["records"], f"{tag} {what}: the walk's "
+          f"{res['lanes'][0]} bounces vs {res['records']} records")
     if ep.conn is not None:
         kernels.eye_connect(ep)
         r2, w2 = counts()
@@ -1483,6 +1490,8 @@ def add_stages(acc: dict, res: dict) -> dict:
             acc[k] = (max(pe, e), pms + ms)
     for k in ("records", "live", "pairs"):
         acc[k] = acc.get(k, 0) + res[k]
+    acc["lanes"] = [a + b for a, b in zip(acc.get("lanes", (0, 0, 0)),
+                                          res["lanes"])]
     for k in ("rays", "rows"):
         d = acc.setdefault(k, {})
         for st, v in res[k].items():
@@ -1967,6 +1976,12 @@ def eye_stage_stats(stats: dict, name: str, st: dict, eps: list,
                 f"{stats[row]['merge_ms']:.3f} of {stats[row]['ms']:.3f} ms "
                 f"(bound {stats[row]['merge_bound'][0]:.4f} ms, "
                 f"{stats[row]['merge_bound'][1]})")
+    stats[f"{name}_walk"].update(lane_stats(st["lanes"]))
+    k12 = stats["bdpt_walk"].get("lane_use")
+    say(name, f"walk on persistent lanes: lane use "
+        f"{stats[f'{name}_walk']['lane_use']:.4f}, event balance "
+        f"{stats[f'{name}_walk']['event_balance']:.4f} (K12's walks "
+        + (f"{k12:.4f})" if k12 is not None else "not run)"))
     say(name, "stages: " + ", ".join(
         f"{stage} {stats[f'{name}_{stage}']['ms']:.3f} ms (bound "
         f"{stats[f'{name}_{stage}']['bound'][0]:.4f}, "

@@ -46,9 +46,9 @@ Tracing (utils/metrics.py): each entry that the models call is the
 program span tpt.kernel.<entry>, from entry to return, while a tracing
 RenderMetrics has a span open in the calling thread; then K5, K12's light
 walk and the eye passes' walk and connection stages are also given that
-RenderMetrics' device counters (COUNTERS: rows and rays, lane counters,
-the connections' warp calls, pairs queued and slots) when the caller
-passes none.
+RenderMetrics' device counters (COUNTERS: rows and rays, the lane
+counters of K5, K12's light walk and the eye walk, the connections' warp
+calls, pairs queued and slots) when the caller passes none.
 
 The hit fetch (K2) reads scene.shade_table, the 64-byte record of each
 triangle derived from tri_f32 at upload (scene/scene.py), and the kernels
@@ -66,9 +66,9 @@ schedule, K12's table mode and K14's stages.
 Each wrapper below checks its tensors (device, dtype, shape, contiguity),
 allocates the outputs, launches, raises if the launch was refused, and then
 adds one to its entry of `launches`. The launch counters are the package's
-only global state besides the persistent kernels' scratch (K5's and
-K12's id counter, and K5's key tables, one buffer a device and stream,
-written on the card by each launch);
+only global state besides the persistent kernels' scratch (K5's, K12's
+and the eye walk's id counter, and K5's key tables, one buffer a device
+and stream, written on the card by each launch);
 `reset_launches()` zeroes them. No wrapper waits for the card: the key
 tables a launch's draws read (keys.cuh: K5's, K12's, the classic eye
 walk's, K13's pairs') are folded on the card by a prologue queued before
@@ -1401,10 +1401,11 @@ class EyePass:
     for mega); tallies: stage -> the int64 counter its launch adds into
     (eye.cuh EyeLaunch tally: walk [rows, rays], connect [rows, rays, warp
     calls, pairs queued, slots]), the tracing RenderMetrics'
-    eye_walk.tally and eye_connect.tally, or None."""
+    eye_walk.tally and eye_connect.tally, or None; lanes: the walk's lane
+    counters (the tracing RenderMetrics' eye_walk.lanes, or None)."""
 
     def __init__(self, name, dev, args, engine, rec, conn, queue, queued,
-                 out, rays, dropped, rows, key_table, tallies):
+                 out, rays, dropped, rows, key_table, tallies, lanes):
         self.name, self.dev, self.args, self.engine = name, dev, args, engine
         self.rec, self.conn = rec, conn
         self.queue, self.queued = queue, queued
@@ -1412,6 +1413,7 @@ class EyePass:
             rows
         self.key_table = key_table
         self.tallies = tallies
+        self.lanes = lanes
 
 
 def _eye_pass(name: str, scene, camera, keys: list, lbufs, grid, fb, out,
@@ -1459,13 +1461,13 @@ def _eye_pass(name: str, scene, camera, keys: list, lbufs, grid, fb, out,
                                              sc["shade"].data_ptr(),
                                              _ptr(key_table) or 0, 0,
                                              _ptr(queue) or 0,
-                                             _ptr(queued) or 0])
+                                             _ptr(queued) or 0, 0, 0])
     iv = [n, n_buf, sc["tri_f32"].shape[1], scene.num_lights, depth,
           light_rows, EYE_FLAVORS[flavor], int(cfg.naive), int(cfg.nee),
           int(cfg.connection), int(cfg.do_mis), int(cfg.paint_weight),
           int(cfg.sample_environment), int(merge), int(cfg.do_sppm), table,
           cfg.max_per_cell, int(one_brick), int(reweight), p8, gbase] \
-        + sc["engine_iv"]
+        + sc["engine_iv"] + [0]
     fv = (camera.kernel_params()
           + [camera.plane_area(), float(eta_vcm), float(merge_norm)]
           + geom + [_r2(merge_radius)])
@@ -1474,7 +1476,8 @@ def _eye_pass(name: str, scene, camera, keys: list, lbufs, grid, fb, out,
     tallies = {st: metrics.counter(f"eye_{st}.tally", dev)
                for st in ("walk", "connect")}
     return EyePass(name, dev, args, sc["engine_iv"][0], rec, conn, queue,
-                   queued, out, rays, dropped, rows, key_table, tallies)
+                   queued, out, rays, dropped, rows, key_table, tallies,
+                   metrics.counter("eye_walk.lanes", dev))
 
 
 def vcm_eye_pass(scene, camera, keys: list, lbufs, grid, fb, rays, cfg, *,
@@ -1510,7 +1513,10 @@ def vcm_eye_pass(scene, camera, keys: list, lbufs, grid, fb, rays, cfg, *,
 
 
 EYE_IV_MERGE = 13   # eye.cuh eye_launch: iv[13] is the merge switch
+EYE_IV_BLOCKS = 24  # iv[24]: the walk's blocks (0: the resident grid)
 EYE_PTR_TALLY = 42  # eye.cuh eye_launch: ptrs[42] is the stage's tally
+EYE_PTR_COUNTER = 45  # ptrs[45]: the walk's path counter
+EYE_PTR_LANES = 46    # ptrs[46]: the walk's lane counters
 
 
 def _eye_stage(ep: EyePass, stage: str, args=None) -> None:
@@ -1523,9 +1529,25 @@ def _eye_stage(ep: EyePass, stage: str, args=None) -> None:
                 engine=0 if stage == "gather" else ep.engine)
 
 
-def eye_walk(ep: EyePass) -> None:
+def eye_walk(ep: EyePass, grid: int | None = None, lanes=None) -> None:
     """Stage 1 (eye_walk.cu): the eye walk with s=0 and NEE into ep.rec,
-    the rays traced added into the pass's rays."""
+    the rays traced added into the pass's rays, on persistent lanes that
+    take the next path when theirs ends. grid (a test argument): that many
+    blocks in place of the resident grid (the outputs do not depend on
+    it); lanes: an int64 [3] tensor on the device to which the walk adds
+    its lane counters (bounces, the sum over warps of the busiest lane's
+    bounces, the warps' calls of the bounce code), default ep.lanes."""
+    if lanes is None:
+        lanes = ep.lanes
+    if lanes is not None:
+        _check(lanes, "lanes", torch.int64, (3,), ep.dev)
+    if grid is not None and grid < 1:
+        raise ValueError(f"eye_walk: grid {grid}, expected >= 1 blocks")
+    ptrs, iv = ep.args[0], ep.args[1]
+    iv[EYE_IV_BLOCKS] = grid or 0
+    ptrs[EYE_PTR_LANES] = _ptr(lanes) or 0
+    with torch.cuda.device(ep.dev):
+        ptrs[EYE_PTR_COUNTER] = _persistent_scratch(ep.dev).data_ptr()
     _eye_stage(ep, "walk")
 
 

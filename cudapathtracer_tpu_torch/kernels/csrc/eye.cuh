@@ -12,10 +12,13 @@
 //
 // K14's flavours trace BVH8 on every scene, as JAX's make_fused_step does.
 //
-// 1. eye_walk_one: one thread per path walks eye_depth bounces (raygen
-//    K7 -> closest hit -> the sky on a miss -> hit fetch -> BSDF sample ->
-//    MIS step) and at each valid non-delta vertex computes the strategies
-//    that need no light vertex: s=0 and NEE (one shadow ray). It stores
+// 1. the eye walk: a path walks up to eye_depth bounces (raygen K7,
+//    begin_eye_walk; then a bounce a call of eye_walk_bounce: closest hit
+//    -> the sky on a miss -> hit fetch -> BSDF sample -> MIS step) and at
+//    each valid non-delta vertex computes the strategies that need no
+//    light vertex: s=0 and NEE (one shadow ray). eye_walk.cu runs it on
+//    persistent lanes that step one bounce a loop trip and take the next
+//    path when theirs ends (finish_eye_walk adds its counts). It stores
 //    them, weighted and resolved, in the term slots implicit / nee [D,N,3]
 //    (implicit holds the sky term at the depth where the walk escaped), and
 //    writes the vertex record [D,N] that the other stages read: pos, the
@@ -23,7 +26,8 @@
 //    (its row of mat_f32 is the material, read by id), d_vcm,
 //    d_vc, d_vm and the flags (kRec*). A hit writes every field; an escape
 //    its flags and the sky term; a depth the walk did not reach only its
-//    flags, 0: no stage reads more of them.
+//    flags, 0, which the entry's start kernel writes into every depth
+//    before the walk: no stage reads more of them.
 // 2. the connections, pair (eye depth t, light row j, path i): record t
 //    of path i against light vertex j (K12's buffers), in two steps. The
 //    pair's gate before its ray: the record ran its strategies (kRecConn),
@@ -140,6 +144,10 @@ struct EyeLaunch {
   // connect [rows, rays, the warps' calls of the shadow ray, the pairs
   // queued, the slots D light_rows n]
   unsigned long long* tally;
+  // the walk: its path counter (zeroed by its start kernel) and its lane
+  // counters (persistent.cuh add_lane_counts) or null
+  unsigned long long* counter;
+  unsigned long long* lanes;
   EyeRecs rec;
   float* conn;         // [D, light_rows, n, 3]; null without connections
   uint32_t* queue;     // [D light_rows n] the connections' queue of slots
@@ -150,144 +158,167 @@ struct EyeLaunch {
 
 // ---- 1. the eye walk ---------------------------------------------------
 
+// A lane's eye path between two bounces: what one bounce hands the next.
+struct EyeWalk {
+  V3 o, d, thr, prev_pt;
+  float prev_pdf, prev_cos;
+  MisState ms;
+  bool prev_delta;
+  int depth;     // the bounce to step
+  uint32_t id;   // the pixel id (py << 14) + px, the classic draws' key
+  int32_t rays, rows;
+};
+
+// Path i's camera ray (K7) and the walk's state before its first bounce.
+__device__ __forceinline__ void begin_eye_walk(const EyeLaunch& c, int64_t i,
+                                               EyeWalk& w) {
+  const EyeParams& p = c.p;
+  const int32_t px = c.px[i], py = c.py[i];
+  w.id = static_cast<uint32_t>((py << 14) + px);
+  float org[3], dir[3];
+  camera_ray(p.cam, static_cast<float>(px), static_cast<float>(py), w.id,
+             org, dir);
+  w.o = v3(org[0], org[1], org[2]);
+  w.d = v3(dir[0], dir[1], dir[2]);
+  const V3 fwd = v3(p.cam.forward[0], p.cam.forward[1], p.cam.forward[2]);
+  const float cos_cam = fabsf(dot(fwd, w.d));
+  w.prev_pdf = 1.0f / (p.plane_area * cube(cos_cam));
+  w.prev_cos = cos_cam;
+  w.thr = v3(1.0f, 1.0f, 1.0f);
+  w.prev_pt = w.o;
+  w.prev_delta = true;
+  w.ms.d_vcm = w.ms.d_vc = w.ms.d_vm = w.ms.pdf_rev_prev = 0.0f;
+  w.ms.prev_was_delta = false;
+  w.depth = 0;
+  w.rays = w.rows = 0;
+}
+
+// One bounce of path i at depth w.depth: the closest ray, the record (but
+// NEE's term), the walk advanced, then NEE's shadow ray and its term.
+// Returns whether the path goes on (false: it escaped, stopped, or this
+// was its last depth).
 template <int kFlavor, int kEngine>
-__device__ __forceinline__ void eye_walk_one(const EyeLaunch& c, int64_t i) {
+__device__ __forceinline__ bool eye_walk_bounce(const EyeLaunch& c, int64_t i,
+                                                EyeWalk& w) {
   constexpr bool kMega = kFlavor != kEyeClassic;
   constexpr bool kBdpt = kFlavor == kEyeMegaBdpt;
   const SceneRefs& sc = c.sc;
   const EyeParams& p = c.p;
   const Weighting& wt = p.weighting;
-  const int32_t px = c.px[i], py = c.py[i];
-  const uint32_t id = static_cast<uint32_t>((py << 14) + px);
-  const uint32_t gid =
-      kMega ? static_cast<uint32_t>(p.gbase + i) * kMegaIdStride : 0u;
-  float org[3], dir[3];
-  camera_ray(p.cam, static_cast<float>(px), static_cast<float>(py), id, org,
-             dir);
-  V3 o = v3(org[0], org[1], org[2]);
-  V3 d = v3(dir[0], dir[1], dir[2]);
-  const V3 fwd = v3(p.cam.forward[0], p.cam.forward[1], p.cam.forward[2]);
-  const float cos_cam = fabsf(dot(fwd, d));
-  float prev_pdf = 1.0f / (p.plane_area * cube(cos_cam));
-  float prev_cos = cos_cam;
-  V3 thr = v3(1.0f, 1.0f, 1.0f), prev_pt = o;
-  bool prev_delta = true;
-  MisState ms;
-  ms.d_vcm = ms.d_vc = ms.d_vm = ms.pdf_rev_prev = 0.0f;
-  ms.prev_was_delta = false;
+  const int depth = w.depth;
   const V3 zero = v3(0.0f, 0.0f, 0.0f);
-  int32_t rays = 0, rows = 0;
-  int written = 0;
-
-  for (int depth = 0; depth < p.eye_depth; ++depth) {
-    const int64_t k = depth * c.rec.stride + i;
-    written = depth + 1;
-    ++rays;
-    const Trace8 h = trace_ray<kEngine, false>(sc, o.x, o.y, o.z, d.x, d.y,
-                                               d.z, kBigT, -1, true);
-    rows += h.rows;
-    if (h.tri < 0) {  // escaped: the sky, weight 1
-      store_escape(c.rec, k, p.sample_environment
-                                 ? wt(mul(thr, sample_sky(d, true)), 1.0f)
-                                 : zero);
-      break;
-    }
-    const ShadeHit s = shade_fetch(sc.shade, h.tri, h.u, h.v, o, d, h.t);
-    const Surf sm = surf_of(sc, s.mat_id, s.uv0, s.uv1);
-    const Frame fr = frame(s.normal);
-    EyeVertex e;
-    e.mat_id = s.mat_id;
-    e.pos = s.point;
-    e.n = s.normal;
-    e.thr = thr;
-    const V3 wo_local = to_local(d, fr);
-    // the lobe's fields, the record's albedo and transmission resolved
-    const SurfHeld m = hold(sm, true);
-    e.albedo = m.albedo();
-    e.trans = m.trans();
-    const bool cur_delta = sm.is_specular();
-
-    const float d2p = fmaxf(length_sq(sub(e.pos, prev_pt)), kRayEps);
-    const float pdf_fwd_area = prev_pdf * fabsf(wo_local.z) / d2p;
-    const float g = prev_cos / d2p;
-    const uint32_t did = gid + static_cast<uint32_t>(depth);
-    Sample bs;
-    // classic: this depth's row of the key table (BSDF pairs, then NEE's)
-    const KeyPair* krow =
-        kMega ? nullptr : p.key_table + kEyeKeyDraws * depth;
-    if constexpr (kMega) {
-      bs = bsdf_sample(TableDraws{p.bsdf_keys, did}, m, neg(wo_local),
-                       s.backface, 1.0f, true);
-    } else {
-      bs = bsdf_sample(RowDraws{krow, id}, m, neg(wo_local), s.backface,
-                       1.0f, true);
-    }
-    const float pdf_rev_sa = bsdf_pdf(m, bs.wo, neg(wo_local), 1.0f);
-    const bool valid = bs.pdf >= kEps;
-    const MisState mv = mis_advance(
-        ms, depth == 0, pdf_fwd_area, g, pdf_rev_sa, cur_delta,
-        1.0f / fmaxf(pdf_fwd_area, 1e-20f), 0.0f, 0.0f, !kBdpt, p.eta_vcm);
-    e.d_vcm = mv.d_vcm;
-    e.d_vc = mv.d_vc;
-    e.d_vm = mv.d_vm;
-    e.to_prev = normalize(sub(prev_pt, e.pos));
-
-    V3 s0 = zero;
-    const bool strategies = valid && !cur_delta;
-    // s = 0: the eye walk hit a light
-    if (strategies && p.naive && s.light_ind >= 0 && !s.backface) {
-      if constexpr (kBdpt)
-        s0 = implicit_bdpt(sc, p, s.light_ind, e, prev_pt, prev_delta,
-                           depth);
-      else
-        s0 = implicit_vcm(sc, wt, s.light_ind, e, prev_delta, depth);
-    }
-    // SPPM ends the walk after its first non-delta surface
-    const bool stop = !valid || (p.sppm && p.merge && !cur_delta);
-    const int32_t flags = (valid ? kRecValid : 0) |
-                          (cur_delta ? 0 : kRecNonDelta) |
-                          (stop || depth + 1 == p.eye_depth ? kRecEnd : 0);
-    store_record(c.rec, k, e, flags, s0);
-    // NEE's inputs from the walk's state at this vertex, then the walk
-    // advances, so that only NEE's own terms live across its shadow ray
-    const bool do_nee = strategies && p.nee && sc.lights.count > 0;
-    const V3 ptc_local =
-        !kMega && do_nee ? to_local(sub(e.pos, prev_pt), fr) : zero;
-    if (!stop) {
-      thr = scale(mul(thr, bs.f), fabsf(bs.wo.z) / fmaxf(bs.pdf, 1e-20f));
-      const V3 wi_world = normalize(to_world(bs.wo, fr));
-      const float side = dot(wi_world, e.n) < 0.0f ? -1.0f : 1.0f;
-      o = add(e.pos, scale(e.n, side * kRayEps));
-      d = wi_world;
-      prev_pdf = bs.pdf;
-      prev_cos = fabsf(bs.wo.z);
-      prev_pt = e.pos;
-      prev_delta = cur_delta;
-    }
-    // s = 1: NEE
-    V3 ne = zero;
-    if (do_nee) {
-      if constexpr (kMega) {
-        // the normal toward the previous vertex, and its frame
-        const bool flip = dot(e.n, e.to_prev) < 0.0f;
-        EyeVertex ec = e;
-        if (flip) ec.n = neg(e.n);
-        ne = nee_mega<kBdpt>(sc, p, ec, flip ? frame(ec.n) : fr, m, did,
-                             rays, rows);
-      } else {
-        ne = nee_vcm<kEngine>(sc, wt, p.eta_vcm, e, fr, m,
-                              RowDraws{krow + kEyeNeeDraw, id}, ptc_local,
-                              rays, rows);
-      }
-    }
-    put3(c.rec.nee, k, ne);
-    if (stop) break;
+  const int64_t k = depth * c.rec.stride + i;
+  ++w.rays;
+  const Trace8 h = trace_ray<kEngine, false>(sc, w.o.x, w.o.y, w.o.z, w.d.x,
+                                             w.d.y, w.d.z, kBigT, -1, true);
+  w.rows += h.rows;
+  if (h.tri < 0) {  // escaped: the sky, weight 1
+    store_escape(c.rec, k, p.sample_environment
+                               ? wt(mul(w.thr, sample_sky(w.d, true)), 1.0f)
+                               : zero);
+    return false;
   }
-  for (int t = written; t < p.eye_depth; ++t)
-    c.rec.flags[t * c.rec.stride + i] = 0;  // not reached: only the flags
-  c.rays[i] += rays;
-  if (c.rows != nullptr) c.rows[i] += rows;
-  if (c.tally != nullptr) tally_add(c.tally, rows, rays, false);
+  const ShadeHit s = shade_fetch(sc.shade, h.tri, h.u, h.v, w.o, w.d, h.t);
+  const Surf sm = surf_of(sc, s.mat_id, s.uv0, s.uv1);
+  const Frame fr = frame(s.normal);
+  EyeVertex e;
+  e.mat_id = s.mat_id;
+  e.pos = s.point;
+  e.n = s.normal;
+  e.thr = w.thr;
+  const V3 wo_local = to_local(w.d, fr);
+  // the lobe's fields, the record's albedo and transmission resolved
+  const SurfHeld m = hold(sm, true);
+  e.albedo = m.albedo();
+  e.trans = m.trans();
+  const bool cur_delta = sm.is_specular();
+
+  const float d2p = fmaxf(length_sq(sub(e.pos, w.prev_pt)), kRayEps);
+  const float pdf_fwd_area = w.prev_pdf * fabsf(wo_local.z) / d2p;
+  const float g = w.prev_cos / d2p;
+  const uint32_t did =
+      (kMega ? static_cast<uint32_t>(p.gbase + i) * kMegaIdStride : 0u) +
+      static_cast<uint32_t>(depth);
+  Sample bs;
+  // classic: this depth's row of the key table (BSDF pairs, then NEE's)
+  const KeyPair* krow =
+      kMega ? nullptr : p.key_table + kEyeKeyDraws * depth;
+  if constexpr (kMega) {
+    bs = bsdf_sample(TableDraws{p.bsdf_keys, did}, m, neg(wo_local),
+                     s.backface, 1.0f, true);
+  } else {
+    bs = bsdf_sample(RowDraws{krow, w.id}, m, neg(wo_local), s.backface,
+                     1.0f, true);
+  }
+  const float pdf_rev_sa = bsdf_pdf(m, bs.wo, neg(wo_local), 1.0f);
+  const bool valid = bs.pdf >= kEps;
+  const MisState mv = mis_advance(
+      w.ms, depth == 0, pdf_fwd_area, g, pdf_rev_sa, cur_delta,
+      1.0f / fmaxf(pdf_fwd_area, 1e-20f), 0.0f, 0.0f, !kBdpt, p.eta_vcm);
+  e.d_vcm = mv.d_vcm;
+  e.d_vc = mv.d_vc;
+  e.d_vm = mv.d_vm;
+  e.to_prev = normalize(sub(w.prev_pt, e.pos));
+
+  V3 s0 = zero;
+  const bool strategies = valid && !cur_delta;
+  // s = 0: the eye walk hit a light
+  if (strategies && p.naive && s.light_ind >= 0 && !s.backface) {
+    if constexpr (kBdpt)
+      s0 = implicit_bdpt(sc, p, s.light_ind, e, w.prev_pt, w.prev_delta,
+                         depth);
+    else
+      s0 = implicit_vcm(sc, wt, s.light_ind, e, w.prev_delta, depth);
+  }
+  // SPPM ends the walk after its first non-delta surface
+  const bool stop = !valid || (p.sppm && p.merge && !cur_delta);
+  const bool last = stop || depth + 1 == p.eye_depth;
+  const int32_t flags = (valid ? kRecValid : 0) |
+                        (cur_delta ? 0 : kRecNonDelta) | (last ? kRecEnd : 0);
+  store_record(c.rec, k, e, flags, s0);
+  // NEE's inputs from the walk's state at this vertex, then the walk
+  // advances, so that only NEE's own terms live across its shadow ray
+  const bool do_nee = strategies && p.nee && sc.lights.count > 0;
+  const V3 ptc_local =
+      !kMega && do_nee ? to_local(sub(e.pos, w.prev_pt), fr) : zero;
+  if (!last) {
+    w.thr = scale(mul(w.thr, bs.f), fabsf(bs.wo.z) / fmaxf(bs.pdf, 1e-20f));
+    const V3 wi_world = normalize(to_world(bs.wo, fr));
+    const float side = dot(wi_world, e.n) < 0.0f ? -1.0f : 1.0f;
+    w.o = add(e.pos, scale(e.n, side * kRayEps));
+    w.d = wi_world;
+    w.prev_pdf = bs.pdf;
+    w.prev_cos = fabsf(bs.wo.z);
+    w.prev_pt = e.pos;
+    w.prev_delta = cur_delta;
+    w.depth = depth + 1;
+  }
+  // s = 1: NEE
+  V3 ne = zero;
+  if (do_nee) {
+    if constexpr (kMega) {
+      // the normal toward the previous vertex, and its frame
+      const bool flip = dot(e.n, e.to_prev) < 0.0f;
+      EyeVertex ec = e;
+      if (flip) ec.n = neg(e.n);
+      ne = nee_mega<kBdpt>(sc, p, ec, flip ? frame(ec.n) : fr, m, did,
+                           w.rays, w.rows);
+    } else {
+      ne = nee_vcm<kEngine>(sc, wt, p.eta_vcm, e, fr, m,
+                            RowDraws{krow + kEyeNeeDraw, w.id}, ptc_local,
+                            w.rays, w.rows);
+    }
+  }
+  put3(c.rec.nee, k, ne);
+  return !last;
+}
+
+// The ended path i's rays and rows into the pass's counts and the tally.
+__device__ __forceinline__ void finish_eye_walk(const EyeLaunch& c,
+                                                int64_t i, const EyeWalk& w) {
+  c.rays[i] += w.rays;
+  if (c.rows != nullptr) c.rows[i] += w.rows;
+  if (c.tally != nullptr) tally_add(c.tally, w.rows, w.rays, false);
 }
 
 // ---- 2. the connections ------------------------------------------------
@@ -407,13 +438,16 @@ __device__ __forceinline__ void eye_gather_one(const EyeLaunch& c,
 // (eye_depth x 7 pairs of scratch, written by eye_walk.cu's prologue from
 // the eye key; 0 for mega), 42 the stage's tally (0 = none), 43 the
 // connections' queue [eye_depth light_rows n] u32 and 44 its length (one
-// u32), scratch of the connection stage (0 without connections).
+// u32), scratch of the connection stage (0 without connections), 45 the
+// walk's path counter (one u64 of scratch; launches that share it must be
+// ordered) and 46 its lane counters (three u64; 0 = none).
 // iv: 0 n (paths), 1 n_buf (the light buffers' lanes), 2 tri_cols,
 // 3 num_lights, 4 eye_depth, 5 light_rows, 6 flavor, 7 naive, 8 nee,
 // 9 connection, 10 do_mis, 11 paint_weight, 12 sample_environment,
 // 13 merge, 14 sppm, 15 table_size, 16 max_per_cell, 17 one_brick,
 // 18 reweight, 19 grid rows P8, 20 gbase, 21 engine, 22 bin nodes,
-// 23 bin slots.
+// 23 bin slots, 24 the walk's blocks (0: the resident grid; a test
+// argument).
 // fv: the 19 camera floats, plane_area, eta_vcm, merge_norm,
 // scene_min[3], cell_size, merge radius squared.
 // keys (22 words): the 8 camera draw-key words, then classic: 2 unused,
@@ -491,6 +525,8 @@ inline bool eye_launch(const int64_t* ptrs, const int64_t* iv,
   c.tally = dev_ptr<unsigned long long>(ptrs, 42);
   c.queue = dev_ptr<uint32_t>(ptrs, 43);
   c.queued = dev_ptr<uint32_t>(ptrs, 44);
+  c.counter = dev_ptr<unsigned long long>(ptrs, 45);
+  c.lanes = dev_ptr<unsigned long long>(ptrs, 46);
   const bool mega = c.flavor != kEyeClassic;
   const bool merge = p.merge && c.flavor != kEyeMegaBdpt;
   bool grid_ok = !merge || (g.rows != nullptr && g.cell_se != nullptr &&

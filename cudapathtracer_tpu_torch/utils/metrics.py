@@ -69,11 +69,13 @@ COUNTERS = {
     # K5 (uni_mega.cu): BVH rows visited and rays traced by its paths (its
     # per-pixel rows and rays outputs, summed on the card)
     "k5.tally": ("rows", "rays"),
-    # K5's and K12's light walk's lane counters (persistent.cuh
-    # add_lane_counts): events stepped, the sum over warps of the warp's
-    # busiest lane's events, the warps' calls of the event code
+    # K5's, K12's light walk's and the VCM eye walk's lane counters
+    # (persistent.cuh add_lane_counts): events stepped, the sum over warps
+    # of the warp's busiest lane's events, the warps' calls of the event
+    # code (an eye walk's event is a bounce)
     "k5.lanes": ("events", "busiest", "calls"),
     "k12.lanes": ("events", "busiest", "calls"),
+    "eye_walk.lanes": ("events", "busiest", "calls"),
     # the VCM eye passes' walk and connection stages (eye.cuh): rows and
     # rays of the stage; the warps' calls of the connection's shadow ray
     # (the lanes that trace it together count once), the pairs its queue
@@ -91,6 +93,8 @@ RATIOS = {
     "k5.lane_use": ("k5.lanes", "events", "calls", 32),
     "k12.lane_use": ("k12.lanes", "events", "calls", 32),
     "eye_walk.rows_per_ray": ("eye_walk.tally", "rows", "rays", 1),
+    "eye_walk.lane_use": ("eye_walk.lanes", "events", "calls", 32),
+    "eye_walk.event_balance": ("eye_walk.lanes", "events", "busiest", 32),
     "eye_connect.rows_per_ray": ("eye_connect.tally", "rows", "rays", 1),
     "eye_connect.lane_use": ("eye_connect.tally", "rays", "calls", 32),
     "eye_connect.queue_share": ("eye_connect.tally", "queued", "slots", 1),

@@ -27,6 +27,10 @@ eye_gather_plain), whose composition is each pass's eye_pass_plain.
     the merge and NEE off (no fold in the gather). Tolerances of
     tests/test_torch_vcm.py: rays within 0.1%, image mean within 1e-3,
     >= 98% of the elements within rtol 1e-3.
+
+On the card (marker cuda): the walk kernel's persistent lanes on one
+block and on its resident grid give bit-equal records, terms, rays and
+rows, and the plain walk's rays and records.
 """
 
 import dataclasses
@@ -392,3 +396,70 @@ def test_staged_pass_matches_jax(case):
     assert np.isfinite(got).all() and (got >= 0).all()
     assert abs(got.mean() / want.mean() - 1.0) < 1e-3
     assert np.isclose(got, want, rtol=1e-3, atol=1e-5).mean() >= 0.98
+
+
+# --- the walk kernel on the card ------------------------------------------------
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the kernels are CUDA for sm_90a)")
+    kernels.build()
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("engine", ["bvh8", "threaded"])
+def test_walk_grids_bit_equal_on_card(cuda, engine):
+    """The classic VCM walk (eye_walk.cu: persistent lanes that take the
+    next path when theirs ends) at the deployment's eye depth 16 on 96x64
+    paths, on one block of 128 threads (each lane walks ~48 paths) and on
+    its resident grid: every record field, flag word and term, the rays
+    and the rows bit-equal (its draws are keyed by pixel and depth, never
+    by lane; the records start as NaN and -1, so what either leaves
+    unwritten compares too); each grid's lane counters count one bounce a
+    record. Against eye_walk_plain on the card: the rays equal and the
+    records within chip_smoke.compare_records' bounds."""
+    import chip_smoke
+    sc, _ = build_scene(builtin.cornell_with_blocks(), builtin_materials(),
+                        traversal=engine, device=cuda)
+    cam = Camera.pinhole((0.0, 0.0, 1.0), 96, 64, 0.0, 0.0, 0.0, 60.0)
+    py, px = torch.meshgrid(torch.arange(64, dtype=torch.int32, device=cuda),
+                            torch.arange(96, dtype=torch.int32, device=cuda),
+                            indexing="ij")
+    px, py = px.reshape(-1).contiguous(), py.reshape(-1).contiguous()
+    n = px.shape[0]
+    cfg = vcm.VCMConfig(eye_depth=16, light_depth=10, connection=False,
+                        do_merge=False)
+    key_l, key_e = vcm.sample_keys(rng.base_key(), 1)
+    mr, eta, norm = vcm.sample_scalars(sc, cfg, 1, n)
+    lb = kernels.bdpt_walk(sc, px, py, paths.walk_keys(key_l, "light"),
+                           mode="light", max_depth=cfg.light_depth + 1,
+                           rays=torch.zeros_like(px), eta_vcm=eta)["bufs"]
+    runs = {}
+    for grid in (1, None):
+        ep = kernels.vcm_eye_pass(
+            sc, cam, paths.walk_keys(key_e, "eye"), lb, None, None,
+            torch.zeros_like(px), cfg, px=px, py=py, merge_radius=mr,
+            eta_vcm=eta, merge_norm=norm, one_brick=False, reweight=True,
+            with_rows=True)
+        for t in ep.rec:
+            t.fill_(float("nan") if t.dtype == torch.float32 else -1)
+        lanes = torch.zeros(3, dtype=torch.int64, device=cuda)
+        kernels.eye_walk(ep, grid=grid, lanes=lanes)
+        torch.cuda.synchronize()
+        events, busiest, calls = lanes.tolist()
+        assert events == int((ep.rec.flags != 0).sum())
+        assert 0 < events <= min(32 * calls, 32 * busiest)
+        runs[grid] = ep
+    one, full = runs[1], runs[None]
+    for f in vcm.EyeRecords._fields:
+        a, b = getattr(one.rec, f), getattr(full.rec, f)
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32)), f
+    assert torch.equal(one.rays, full.rays)
+    assert torch.equal(one.rows, full.rows)
+    assert bool((full.rec.flags >= 0).all())    # every flag word written
+    prec, prays = vcm.eye_walk_plain(sc, cam, key_e, cfg, px, py, eta)
+    assert int(full.rays.sum()) == prays
+    assert bool(((full.rec.flags & vcm.REC_END) != 0).any(0).all())
+    chip_smoke.compare_records(full.rec, prec, f"{engine} walk", "K13v")

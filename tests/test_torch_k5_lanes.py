@@ -4,7 +4,8 @@ rays (the naive schedule, and the classic and mega ones without NEE, whose
 rays are then their closest rays); with NEE the events are fewer than the
 rays; the lane use of warps of 32 and blocks of 128 lies in (0, 1], the
 blocks' no higher than the warps'. The same for K12's light and eye walks
-(--walk), whose bounces sum to the plain walk's closest rays."""
+(--walk), whose bounces sum to the plain walk's closest rays, and of the
+classic VCM eye walk (--walk vcm-eye) on 64 pixels."""
 
 import os
 import sys
@@ -67,5 +68,22 @@ def test_walk_events_and_lane_use(scene, mode, max_depth):
     assert ev.shape == px.shape and int(ev.min()) >= 1
     assert int(ev.max()) <= max_depth - 1
     assert int(ev.sum()) == rays > 0
+    w32, b128 = k5_lanes.lane_use(ev, 32), k5_lanes.lane_use(ev, 128)
+    assert 0.0 < b128 <= w32 <= 1.0
+
+
+def test_vcm_eye_events_and_lane_use(scene):
+    """The classic VCM eye walk (--walk vcm-eye) at the deployment's depth
+    16 on 64 pixels: each path's closest rays equal the records it wrote,
+    between 1 and 16, and fewer than the plain walk's closest and NEE
+    rays."""
+    cam = Camera.pinhole((0.0, 0.0, 1.0), W, H, 0.0, 0.0, 0.0, 60.0)
+    px, py = k5_lanes.band_pixels(W, H, 1, 2, "cpu")
+    assert px.shape[0] == 2 * W
+    ev, recs, rays = k5_lanes.vcm_eye_events(scene, cam, px, py,
+                                             max_depth=16, n_paths=W * H)
+    assert torch.equal(ev, recs)
+    assert int(ev.min()) >= 1 and int(ev.max()) <= 16
+    assert 0 < int(ev.sum()) < rays
     w32, b128 = k5_lanes.lane_use(ev, 32), k5_lanes.lane_use(ev, 128)
     assert 0.0 < b128 <= w32 <= 1.0

@@ -181,6 +181,9 @@ RATIO_CASES = {  # case -> (counter words, the ratios they give)
                      "eye_connect.lane_use": 0.5,
                      "eye_connect.queue_share": 0.125,
                      "eye_connect.trace_share": 0.8}),
+    "eye_walk": ({"eye_walk.tally": [90, 12], "eye_walk.lanes": [48, 2, 3]},
+                 {"eye_walk.rows_per_ray": 7.5, "eye_walk.lane_use": 0.5,
+                  "eye_walk.event_balance": 0.75}),
 }
 
 
@@ -193,7 +196,7 @@ def test_counter_ratios(case):
     got = metrics.ratios(m.counter_totals())
     assert got == want
     assert all(v <= 1.0 for k, v in got.items()
-               if k.endswith(("lane_use", "_share")))
+               if k.endswith(("lane_use", "_share", "_balance")))
     first = next(iter(want))
     assert f"{first}: {want[first]:.4f}" in m.summary()
     m.reset_trace()
@@ -329,7 +332,8 @@ def test_k5_counters_on_card(cuda, schedule):
 def test_eye_and_light_walk_counters_on_card(cuda):
     """The classic VCM pass stage by stage: the walk's and the
     connections' tallies equal what each stage added to the per-path rows
-    and rays; K12's light walk's lane counters; outputs as untraced."""
+    and rays; K12's light walk's and the eye walk's lane counters (a walk
+    bounce a record); outputs as untraced."""
     sc, cam, px, py = _scene(cuda)
     cfg = vcm.VCMConfig(eye_depth=6, light_depth=4)
     key_l, key_e = vcm.sample_keys(rng.base_key(), 2)
@@ -376,6 +380,11 @@ def test_eye_and_light_walk_counters_on_card(cuda):
     assert 0 < c["rays"] <= c["queued"] < c["slots"]
     ln = t["k12.lanes"]
     assert 0 < ln["events"] <= 32 * ln["calls"]
+    # a walk bounce is one closest ray and writes one record
+    ln = t["eye_walk.lanes"]
+    assert ln["events"] == int((ep1.rec.flags != 0).sum())
+    assert 0 < ln["events"] <= min(32 * ln["calls"], 32 * ln["busiest"],
+                                   r1 - r0)
 
 
 @pytest.mark.cuda
@@ -406,10 +415,11 @@ def test_renderer_trace_on_card(cuda, path):
     got = metrics.ratios(m.counter_totals())
     want = ({"k5.rows_per_ray", "k5.lane_use"} if path == "unidirectional"
             else {"k12.lane_use", "eye_walk.rows_per_ray",
+                  "eye_walk.lane_use", "eye_walk.event_balance",
                   "eye_connect.rows_per_ray", "eye_connect.lane_use",
                   "eye_connect.queue_share", "eye_connect.trace_share"})
     assert set(got) == want
     assert all(0.0 < v for v in got.values())
     assert all(got[k] <= 1.0 for k in want
-               if k.endswith(("lane_use", "_share")))
+               if k.endswith(("lane_use", "_share", "_balance")))
     assert m.layer_ms()["kernels"] > 0.0

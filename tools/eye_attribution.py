@@ -85,13 +85,23 @@ K5 and K11-K13 instantiation of the build (the library is rebuilt with
     everything through a camera of aperture 0 (the reference pinhole's
     geometry, no lens) in place of the reference pinhole.
   * --dump also writes, per engine, the eye passes' walk, connection and
-    gather stages (the classic VCM pass; on BVH8 also K14's VCM and BDPT
-    flavours, chunk 0): their records and contributions (zeroed before
-    the stages, so unwritten entries compare), the gather's radiance and
-    merge-dropped counts, rays and rows; and K11's
-    queue (both forms): the tile offsets, each tile's entries in
-    ascending order (the queue has no order inside a tile), the rays, and
-    the trace stage's rows (eye_k11_cases).
+    gather stages (the classic VCM pass; the classic VCM pass at the
+    upstream's deployment, 800x800 at eye 16 and light 10, vcm-upstream-
+    800's; the classic SPPM pass; on BVH8 also K14's VCM and BDPT
+    flavours, chunk 0): their records and contributions (filled with NaN
+    and -1 before the stages, so entries left unwritten compare, and an
+    unwritten flag word shows), the gather's radiance and merge-dropped
+    counts, rays and rows; and K11's queue (both forms): the tile
+    offsets, each tile's entries in ascending order (the queue has no
+    order inside a tile), the rays, and the trace stage's rows
+    (eye_k11_cases).
+  * --eye-walks times the eye walk stage alone (kernels.eye_walk on a
+    set-up pass) in each of its instantiations, with the walk's lane
+    counters where the tree's walk takes them (eye_walks): the classic VCM
+    pass at the upstream's deployment (800x800, eye 16, light 10) on
+    BVH8, and at 1080p at configs/cornell.rendertron's depths the classic
+    VCM pass on both scenes, the classic SPPM pass and K14's VCM and BDPT
+    flavours (chunk 0).
 
 It uses only entry points whose signatures both designs of a redesigned
 kernel share (or tells them apart), so --root may name another checkout
@@ -104,6 +114,7 @@ repository root:
         [--bit-equal] [--renders [--cells REGEX] [--spp-256 N]]
         [--dump DIR [--dump-cases REGEX]] [--per 1 6 42] [--walks] [--k1]
         [--k15] [--sort] [--shade] [--merge] [--rng] [--aperture0]
+        [--eye-walks]
         [--reuse-build] [--json FILE]
     python3 tools/eye_attribution.py --compare DUMP_A DUMP_B
 """
@@ -124,6 +135,7 @@ import time
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 WIDTH, HEIGHT, SPP, DEPTH = 1920, 1080, 4, 8
+UPSTREAM_SIZE = 800   # the upstream's VCM deployment's frame (800x800)
 VCM_ETA = 5.1471854   # eta_vcm of a VCM light walk (chip_smoke's)
 CLASSIC_TOGGLES = {"all on": {}, "no connections": dict(connection=False),
                    "no merge": dict(do_merge=False), "no NEE": dict(nee=False),
@@ -168,6 +180,17 @@ def ptxas_eye(log: str) -> dict:
     return out
 
 
+def pass_cfg(cfg0, integ: str, engine: str):
+    """The eye pass configuration of cfg0 under another integrator and
+    engine: VCMConfig, or K14's BDPT machine config for BIDIRECTIONAL."""
+    from cudapathtracer_tpu_torch.models import bdpt, bdpt_mega, vcm
+    c = dataclasses.replace(cfg0, integrator=integ, engine=engine)
+    c = c.normalized()
+    if integ == "BIDIRECTIONAL":
+        return bdpt_mega.as_machine_cfg(bdpt.BDPTConfig.from_config(c))
+    return vcm.VCMConfig.from_config(c)
+
+
 def classic_inputs(scene, px, py, cfg):
     """Sample 0's VCM light walk (K12, eta_vcm) and photon grid (K8)."""
     import torch
@@ -187,6 +210,22 @@ def classic_inputs(scene, px, py, cfg):
                                       hashgrid.photon_salt(0))
     return dict(lb=lb, grid=grid, mr=mr, eta=eta, norm=norm,
                 keys=paths.walk_keys(key_e, "eye"))
+
+
+def classic_eye_pass(scene, cam, px, py, cfg, with_rows: bool = False):
+    """Sample 0's classic eye pass over px, py on classic_inputs, set up
+    for its stage launches (its rays zero): (the pass, the inputs)."""
+    import torch
+    from cudapathtracer_tpu_torch import kernels
+    from cudapathtracer_tpu_torch.ops import hashgrid
+    inp = classic_inputs(scene, px, py, cfg)
+    ep = kernels.vcm_eye_pass(
+        scene, cam, inp["keys"], inp["lb"], inp["grid"], None,
+        torch.zeros(px.shape[0], dtype=torch.int32, device=px.device), cfg,
+        px=px, py=py, merge_radius=inp["mr"], eta_vcm=inp["eta"],
+        merge_norm=inp["norm"], with_rows=with_rows,
+        **hashgrid.merge_switches(cfg.max_per_cell))
+    return ep, inp
 
 
 def classic_pass(scene, cam, px, py, cfg, inp):
@@ -253,15 +292,8 @@ def attribution(scene, tsc, cam, px, py, cfg0, reps: int = 2,
     classic and mega passes on scene (BVH8) and the classic VCM pass on
     tsc (threaded), each where it is not None."""
     import torch
-    from cudapathtracer_tpu_torch.models import bdpt, bdpt_mega, vcm
     res = {}
 
-    def cfg_of(integ, engine):
-        c = dataclasses.replace(cfg0, integrator=integ, engine=engine)
-        c = c.normalized()
-        if integ == "BIDIRECTIONAL":
-            return bdpt_mega.as_machine_cfg(bdpt.BDPTConfig.from_config(c))
-        return vcm.VCMConfig.from_config(c)
 
     def run(name, toggles, base, fn):
         res[name] = {}
@@ -271,20 +303,20 @@ def attribution(scene, tsc, cam, px, py, cfg0, reps: int = 2,
         log(f"[attribution] {name}: " + ", ".join(
             f"{k} {v:.3f} ms" for k, v in res[name].items()))
 
-    cv = cfg_of("VCM", "classic")
+    cv = pass_cfg(cfg0, "VCM", "classic")
     if scene is not None:
         inp = classic_inputs(scene, px, py, cv)
         run("classic VCM", CLASSIC_TOGGLES, cv,
             lambda c: classic_pass(scene, cam, px, py, c, inp))
-        run("classic SPPM", SPPM_TOGGLES, cfg_of("SPPM", "classic"),
+        run("classic SPPM", SPPM_TOGGLES, pass_cfg(cfg0, "SPPM", "classic"),
             lambda c: classic_pass(scene, cam, px, py, c, inp))
         del inp
         out = torch.zeros((px.shape[0], 3), device=px.device)
-        mv = cfg_of("VCM", "mega")
+        mv = pass_cfg(cfg0, "VCM", "mega")
         chunks = mega_inputs(scene, px, py, mv, "vcm")
         run("K14 VCM (2 chunks)", CLASSIC_TOGGLES, mv,
             lambda c: mega_pass(scene, cam, c, "vcm", chunks, out))
-        mb = cfg_of("BIDIRECTIONAL", "mega")
+        mb = pass_cfg(cfg0, "BIDIRECTIONAL", "mega")
         chunks = mega_inputs(scene, px, py, mb, "bdpt")
         run("K14 BDPT (2 chunks)", BDPT_TOGGLES, mb,
             lambda c: mega_pass(scene, cam, c, "bdpt", chunks, out))
@@ -537,14 +569,29 @@ def k8_case(scene, px, py, cfg0) -> dict:
             "stored": inp["lb"].valid.sum(dim=0).cpu()}
 
 
-def _zeroed_pass(ep):
-    """An eye pass whose records and contributions start at zero, so that
-    the entries its stages leave unwritten compare too."""
+def _filled_pass(ep):
+    """An eye pass whose records and contributions start as NaN (integer
+    fields -1), so that the entries its stages leave unwritten compare
+    too, and a flag word the walk should write and does not shows."""
+    import torch
     for t in ep.rec:
-        t.zero_()
+        t.fill_(float("nan") if t.dtype == torch.float32 else -1)
     if ep.conn is not None:
-        ep.conn.zero_()
+        ep.conn.fill_(float("nan"))
     return ep
+
+
+def frame(width: int, height: int, dev):
+    """The reference pinhole camera of a width x height frame and its
+    pixels in raster order: (camera, px, py)."""
+    import torch
+    from cudapathtracer_tpu_torch.scene.camera import Camera
+    cam = Camera.pinhole((0.0, 0.0, 1.0), width, height, 0.0, 0.0, 0.0, 60.0)
+    gy, gx = torch.meshgrid(torch.arange(height, dtype=torch.int32,
+                                         device=dev),
+                            torch.arange(width, dtype=torch.int32,
+                                         device=dev), indexing="ij")
+    return cam, gx.reshape(-1).contiguous(), gy.reshape(-1).contiguous()
 
 
 def eye_k11_cases(scene, cam, px, py, bcfg, cfg0, eng: str) -> dict:
@@ -553,13 +600,13 @@ def eye_k11_cases(scene, cam, px, py, bcfg, cfg0, eng: str) -> dict:
     (the module's docstring lists them; every case has rays and rows)."""
     import torch
     from cudapathtracer_tpu_torch import kernels
-    from cudapathtracer_tpu_torch.models import bdpt, bdpt_mega, paths, vcm
+    from cudapathtracer_tpu_torch.models import vcm
     from cudapathtracer_tpu_torch.ops import hashgrid
     n, dev = px.shape[0], px.device
     out = {}
 
     def stages(case, ep):
-        _zeroed_pass(ep)
+        _filled_pass(ep)
         kernels.eye_walk(ep)
         t = {f"rec.{f}": getattr(ep.rec, f) for f in ep.rec._fields}
         t["walk_rays"] = ep.rays.clone()
@@ -573,23 +620,20 @@ def eye_k11_cases(scene, cam, px, py, bcfg, cfg0, eng: str) -> dict:
         t.update(rays=ep.rays, rows=ep.rows)
         out[case] = {k: v.contiguous().cpu() for k, v in t.items()}
 
-    def cfg_of(integ, engine):
-        c = dataclasses.replace(cfg0, integrator=integ,
-                                engine=engine).normalized()
-        if integ == "BIDIRECTIONAL":
-            return bdpt_mega.as_machine_cfg(bdpt.BDPTConfig.from_config(c))
-        return vcm.VCMConfig.from_config(c)
-    cv = cfg_of("VCM", "classic")
-    inp = classic_inputs(scene, px, py, cv)
     z = lambda m: torch.zeros(m, dtype=torch.int32, device=dev)
-    stages("eye_vcm", kernels.vcm_eye_pass(
-        scene, cam, inp["keys"], inp["lb"], inp["grid"], None, z(n), cv,
-        px=px, py=py, merge_radius=inp["mr"], eta_vcm=inp["eta"],
-        merge_norm=inp["norm"], with_rows=True,
-        **hashgrid.merge_switches(cv.max_per_cell)))
+
+    def classic(case, c, cam_, px_, py_):
+        ep, inp = classic_eye_pass(scene, cam_, px_, py_, c, with_rows=True)
+        stages(case, ep)
+        return inp
+    cv = pass_cfg(cfg0, "VCM", "classic")
+    classic("eye_vcm16", vcm.VCMConfig(),
+            *frame(UPSTREAM_SIZE, UPSTREAM_SIZE, dev))
+    classic("eye_sppm", pass_cfg(cfg0, "SPPM", "classic"), cam, px, py)
+    inp = classic("eye_vcm", cv, cam, px, py)
     if eng == "bvh8":   # K14 traces BVH8 on every scene
         for flavor, integ in (("vcm", "VCM"), ("bdpt", "BIDIRECTIONAL")):
-            mc = cfg_of(integ, "mega")
+            mc = pass_cfg(cfg0, integ, "mega")
             ch = mega_inputs(scene, px, py, mc, flavor)[0]
             sw = (hashgrid.merge_switches(mc.max_per_cell)
                   if flavor == "vcm" else {})
@@ -638,8 +682,8 @@ def trace_hosts(root: str, scene, cam, px, py, bcfg, cfg0, reps: int,
     chip_smoke.nee_rays)."""
     import torch
     from cudapathtracer_tpu_torch import kernels
-    from cudapathtracer_tpu_torch.models import paths, vcm
-    from cudapathtracer_tpu_torch.ops import hashgrid, traverse
+    from cudapathtracer_tpu_torch.models import paths
+    from cudapathtracer_tpu_torch.ops import traverse
     from cudapathtracer_tpu_torch.utils import rng
     spec = importlib.util.spec_from_file_location(
         "tree_chip_smoke", os.path.join(root, "chip_smoke.py"))
@@ -680,13 +724,8 @@ def trace_hosts(root: str, scene, cam, px, py, bcfg, cfg0, reps: int,
     timed("K13 pairs", lambda: kernels.bdpt_pairs(
         scene, cam, key_c, ew, lw, rays, bcfg, px=px, py=py))
     del sp, lw, ew
-    cv = vcm.VCMConfig.from_config(dataclasses.replace(
-        cfg0, integrator="VCM", engine="classic").normalized())
-    inp = classic_inputs(scene, px, py, cv)
-    ep = kernels.vcm_eye_pass(
-        scene, cam, inp["keys"], inp["lb"], inp["grid"], None, rays, cv,
-        px=px, py=py, merge_radius=inp["mr"], eta_vcm=inp["eta"],
-        merge_norm=inp["norm"], **hashgrid.merge_switches(cv.max_per_cell))
+    ep, _ = classic_eye_pass(scene, cam, px, py,
+                             pass_cfg(cfg0, "VCM", "classic"))
     timed("eye walk", lambda: kernels.eye_walk(ep))
     timed("eye connect", lambda: kernels.eye_connect(ep))
     return res
@@ -739,8 +778,7 @@ def shade_hosts(root: str, scenes: dict, cam, px, py, bcfg, cfg0,
     eye pass's walk and connections, and K14's walk and connections."""
     import torch
     from cudapathtracer_tpu_torch import kernels
-    from cudapathtracer_tpu_torch.models import (bdpt, bdpt_mega, paths,
-                                                 unidirectional_mega, vcm)
+    from cudapathtracer_tpu_torch.models import paths, unidirectional_mega
     from cudapathtracer_tpu_torch.ops import hashgrid
     spec = importlib.util.spec_from_file_location(
         "tree_chip_smoke", os.path.join(root, "chip_smoke.py"))
@@ -754,12 +792,6 @@ def shade_hosts(root: str, scenes: dict, cam, px, py, bcfg, cfg0,
         res[name] = _events_ms(fn, reps)
         log(f"[shade] {name}: {res[name]:.3f} ms")
 
-    def cfg_of(integ, engine):
-        c = dataclasses.replace(cfg0, integrator=integ,
-                                engine=engine).normalized()
-        if integ == "BIDIRECTIONAL":
-            return bdpt_mega.as_machine_cfg(bdpt.BDPTConfig.from_config(c))
-        return vcm.VCMConfig.from_config(c)
     z = lambda m: torch.zeros(m, dtype=torch.int32, device=dev)
     if not merge_only:
         args = shade_inputs(scene, cam, px, py)
@@ -788,12 +820,8 @@ def shade_hosts(root: str, scenes: dict, cam, px, py, bcfg, cfg0,
         timed("K13 pairs", lambda: kernels.bdpt_pairs(
             scene, cam, key_c, ew, lw, rays, bcfg, px=px, py=py))
         del sp, lw, ew, fb
-    cv = cfg_of("VCM", "classic")
-    inp = classic_inputs(scene, px, py, cv)
-    ep = kernels.vcm_eye_pass(
-        scene, cam, inp["keys"], inp["lb"], inp["grid"], None, z(n), cv,
-        px=px, py=py, merge_radius=inp["mr"], eta_vcm=inp["eta"],
-        merge_norm=inp["norm"], **hashgrid.merge_switches(cv.max_per_cell))
+    ep, inp = classic_eye_pass(scene, cam, px, py,
+                               pass_cfg(cfg0, "VCM", "classic"))
     kernels.eye_walk(ep)
     kernels.eye_connect(ep)
     if not merge_only:
@@ -801,7 +829,7 @@ def shade_hosts(root: str, scenes: dict, cam, px, py, bcfg, cfg0,
         timed("eye connect", lambda: kernels.eye_connect(ep))
     timed("eye gather", lambda: kernels.eye_gather(ep))
     del ep, inp
-    mc = cfg_of("VCM", "mega")
+    mc = pass_cfg(cfg0, "VCM", "mega")
     ch = mega_inputs(scene, px, py, mc, "vcm")[0]
     ep = kernels.mega_eye_pass(
         scene, cam, ch["keys"], ch["lb"], ch["grid"],
@@ -821,6 +849,61 @@ def shade_hosts(root: str, scenes: dict, cam, px, py, bcfg, cfg0,
     timed("K9 entry (neighbor_slots)", lambda: kernels.neighbor_slots(
         ch["grid"], q, ch["mr"], mc.max_per_cell, mode="slots", active=hit,
         **sw))
+    return res
+
+
+def eye_walks(scenes: dict, cam, px, py, cfg0, reps: int,
+              log=print) -> dict:
+    """The eye walk stage alone, kernels.eye_walk on a set-up pass, by
+    CUDA events (the module's docstring lists the instantiations): {case:
+    {"ms": ..., "lane_use": ..., "event_balance": ...}}, the lane counters
+    where the tree's walk takes them."""
+    import torch
+    from cudapathtracer_tpu_torch import kernels
+    from cudapathtracer_tpu_torch.models import vcm
+    from cudapathtracer_tpu_torch.ops import hashgrid
+    dev = px.device
+    lanes_ok = "lanes" in inspect.signature(kernels.eye_walk).parameters
+    z = lambda m: torch.zeros(m, dtype=torch.int32, device=dev)
+    res = {}
+
+    def timed(case, ep):
+        row = res[case] = {"ms": _events_ms(lambda: kernels.eye_walk(ep),
+                                            reps)}
+        if lanes_ok:
+            lanes = torch.zeros(3, dtype=torch.int64, device=dev)
+            kernels.eye_walk(ep, lanes=lanes)
+            ev, busy, calls = lanes.tolist()
+            row.update(lane_use=ev / (32 * calls),
+                       event_balance=ev / (32 * busy))
+        log(f"[eye-walks] {case}: " + ", ".join(
+            f"{k} {v:.4f}" for k, v in row.items()))
+
+
+    timed(f"classic VCM {UPSTREAM_SIZE}x{UPSTREAM_SIZE} eye 16",
+          classic_eye_pass(scenes["bvh8"],
+                           *frame(UPSTREAM_SIZE, UPSTREAM_SIZE, dev),
+                           vcm.VCMConfig())[0])
+    cv = pass_cfg(cfg0, "VCM", "classic")
+    for eng, scene in scenes.items():
+        timed(f"classic VCM 1080p {eng}",
+              classic_eye_pass(scene, cam, px, py, cv)[0])
+    timed("classic SPPM 1080p", classic_eye_pass(
+        scenes["bvh8"], cam, px, py, pass_cfg(cfg0, "SPPM", "classic"))[0])
+    scene = scenes["bvh8"]
+    for flavor, integ in (("vcm", "VCM"), ("bdpt", "BIDIRECTIONAL")):
+        mc = pass_cfg(cfg0, integ, "mega")
+        ch = mega_inputs(scene, px, py, mc, flavor)[0]
+        sw = (hashgrid.merge_switches(mc.max_per_cell) if flavor == "vcm"
+              else {})
+        timed(f"K14 {flavor} 1080p (chunk 0)", kernels.mega_eye_pass(
+            scene, cam, ch["keys"], ch["lb"], ch["grid"],
+            torch.zeros((px.shape[0], 3), device=dev),
+            z(ch["pxc"].shape[0]), mc, px=ch["pxc"], py=ch["pyc"],
+            cnt=ch["cnt"], gbase=ch["gbase"], flavor=flavor,
+            merge_radius=ch["mr"], eta_vcm=ch["eta"], merge_norm=ch["norm"],
+            **sw))
+        del ch
     return res
 
 
@@ -1360,6 +1443,8 @@ def main() -> int:
                     "entries (rng_entries)")
     ap.add_argument("--aperture0", action="store_true", help="a camera of "
                     "aperture 0 in place of the reference pinhole")
+    ap.add_argument("--eye-walks", action="store_true", help="time the eye "
+                    "walk stage alone in each of its instantiations")
     ap.add_argument("--reuse-build", action="store_true", help="keep the "
                     "tree's kernel library and ptxas report if they are up "
                     "to date (a later turn of tools/k1_attribution.py)")
@@ -1369,7 +1454,8 @@ def main() -> int:
     toggles = args.toggles or not (args.renders or args.bit_equal
                                    or args.dump or args.per or args.walks
                                    or args.k1 or args.k15 or args.sort
-                                   or args.shade or args.merge or args.rng)
+                                   or args.shade or args.merge or args.rng
+                                   or args.eye_walks)
     root = os.path.abspath(args.root)
     sys.path.insert(0, root)
     import torch
@@ -1379,7 +1465,6 @@ def main() -> int:
     from cudapathtracer_tpu_torch import kernels
     from cudapathtracer_tpu_torch.models import bdpt
     from cudapathtracer_tpu_torch.scene import builtin
-    from cudapathtracer_tpu_torch.scene.camera import Camera
     from cudapathtracer_tpu_torch.scene.materials import builtin_materials
     from cudapathtracer_tpu_torch.scene.scene import build_scene
     from cudapathtracer_tpu_torch.utils.config import load_config
@@ -1408,16 +1493,13 @@ def main() -> int:
               f"frame, {ss} bytes spill stores, {sl} bytes spill loads, "
               f"{sm} bytes smem")
     dev = torch.device("cuda", 0)
-    cam = (aperture0_camera() if args.aperture0 else Camera.pinhole(
-        (0.0, 0.0, 1.0), WIDTH, HEIGHT, 0.0, 0.0, 0.0, 60.0))
-    gy, gx = torch.meshgrid(torch.arange(HEIGHT, dtype=torch.int32,
-                                         device=dev),
-                            torch.arange(WIDTH, dtype=torch.int32,
-                                         device=dev), indexing="ij")
-    px, py = gx.reshape(-1).contiguous(), gy.reshape(-1).contiguous()
+    cam, px, py = frame(WIDTH, HEIGHT, dev)
+    if args.aperture0:
+        cam = aperture0_camera()
     mesh = builtin.cornell_with_bunny(subdivisions=6)
     bvh8_only = not (toggles or args.bit_equal or args.dump or args.renders
-                     or args.per or args.k15 or args.shade)
+                     or args.per or args.k15 or args.shade
+                     or args.eye_walks)
     scenes = {t: build_scene(mesh, builtin_materials(), traversal=t,
                              device=dev)[0]
               for t in (("bvh8",) if bvh8_only else ("bvh8", "threaded"))}
@@ -1453,6 +1535,9 @@ def main() -> int:
         out["sort"] = sort_times(scenes["bvh8"], px, py, cfg0, args.reps, log)
     if args.rng:
         out["rng"] = rng_entries(px, py, args.reps, log)
+    if args.eye_walks:
+        out["eye_walks"] = eye_walks(scenes, cam, px, py, cfg0, args.reps,
+                                     log)
     if args.json:
         os.makedirs(os.path.dirname(os.path.abspath(args.json)),
                     exist_ok=True)

@@ -33,11 +33,20 @@ config's) takes min(max_depth - 1, valid vertices + 1) bounces, each one
 closest ray, counted from the plain walk (models/paths.py, sample 0's BDPT
 keys); with --card K12 runs on the whole frame with its lane counters.
 
+With --walk vcm-eye it counts the classic VCM eye walk (kernels/csrc/
+eye_walk.cu, stage 1 of the eye pass) at the upstream's VCM deployment
+(VCMConfig's defaults: eye depth 16 unless --depth, light depth 10): a
+path takes one bounce a closest ray until it escapes, its BSDF sample
+fails or it reaches the depth, counted at the plain walk's closest_hit
+(models/vcm.eye_walk_plain, sample 0's VCM keys) and held equal to the
+records it wrote; with --card the walk runs on the whole frame with its
+lane counters (kernels.eye_walk(lanes=...)).
+
 Run from the repository root (the plain version on the CPU is slow: a few
 bands of a 1080p frame take minutes; --device cuda runs it on the card):
 
     python3 tools/k5_lanes.py [--schedule mega|classic|naive | --walk
-        light|eye] [--width 1920 --height 1080 --depth 8]
+        light|eye|vcm-eye] [--width 1920 --height 1080 --depth 8]
         [--bands 18 --band-rows 2] [--mesh builtin:cornell_bunny]
         [--device cpu|cuda] [--card]
 """
@@ -135,6 +144,35 @@ def walk_events(scene, camera, mode: str, px, py, *, max_depth: int,
     return torch.clamp(valid + 1, max=max_depth - 1), int(rays)
 
 
+def vcm_eye_events(scene, camera, px, py, *, max_depth: int, n_paths: int,
+                   sample_idx: int = 0):
+    """Each classic VCM eye walk's bounces [N] int64, its closest rays
+    counted at the plain walk's closest_hit (models/vcm.eye_walk_plain at
+    VCMConfig's defaults with eye depth max_depth, sample sample_idx's
+    keys, eta_vcm of n_paths light paths), the records [N] int64 it wrote
+    (one a bounce: a hit or an escape), and the plain walk's closest and
+    NEE rays (a Python int)."""
+    import torch
+    from cudapathtracer_tpu_torch.models import vcm
+    from cudapathtracer_tpu_torch.ops import traverse
+    from cudapathtracer_tpu_torch.utils import rng
+    cfg = vcm.VCMConfig(eye_depth=max_depth)
+    _, key_e = vcm.sample_keys(rng.base_key(), sample_idx)
+    eta = vcm.sample_scalars(scene, cfg, sample_idx, n_paths)[1]
+    events = torch.zeros(px.shape[0], dtype=torch.int64, device=px.device)
+    orig = traverse.closest_hit
+
+    def closest_hit(scene, o, d, *a, active=None, **kw):
+        events.add_(active.to(torch.int64))
+        return orig(scene, o, d, *a, active=active, **kw)
+    traverse.closest_hit = closest_hit
+    try:
+        rec, rays = vcm.eye_walk_plain(scene, camera, key_e, cfg, px, py, eta)
+    finally:
+        traverse.closest_hit = orig
+    return events, (rec.flags != 0).sum(dim=0).to(torch.int64), int(rays)
+
+
 def lane_use(events, group: int) -> float:
     """sum(events) / (group x sum over groups of `group` consecutive paths
     of the group's most events); the last group is padded with idle
@@ -145,17 +183,23 @@ def lane_use(events, group: int) -> float:
     return float(ev.sum()) / (group * float(ev.amax(dim=1).sum()))
 
 
+def frame_pixels(camera, dev):
+    """(px, py) [N] int32 of the camera's whole frame in raster order."""
+    import torch
+    gy, gx = torch.meshgrid(
+        torch.arange(camera.height, dtype=torch.int32, device=dev),
+        torch.arange(camera.width, dtype=torch.int32, device=dev),
+        indexing="ij")
+    return gx.reshape(-1).contiguous(), gy.reshape(-1).contiguous()
+
+
 def card_lane_use(scene, camera, schedule: str, max_depth: int, dev) -> tuple:
     """K5 on the whole frame with its lane counters: (lane use, event
     balance, events, warp calls of the event code, blocks of the grid)."""
     import torch
     from cudapathtracer_tpu_torch import kernels
     from cudapathtracer_tpu_torch.utils import rng
-    gy, gx = torch.meshgrid(
-        torch.arange(camera.height, dtype=torch.int32, device=dev),
-        torch.arange(camera.width, dtype=torch.int32, device=dev),
-        indexing="ij")
-    px, py = gx.reshape(-1).contiguous(), gy.reshape(-1).contiguous()
+    px, py = frame_pixels(camera, dev)
     lanes = torch.zeros(3, dtype=torch.int64, device=dev)
     kernels.render_unidirectional(
         scene, px, py, camera.kernel_params(), rng.base_key(), 0, 1,
@@ -176,11 +220,7 @@ def card_walk_lane_use(scene, camera, mode: str, max_depth: int,
     from cudapathtracer_tpu_torch import kernels
     from cudapathtracer_tpu_torch.models import bdpt, paths
     from cudapathtracer_tpu_torch.utils import rng
-    gy, gx = torch.meshgrid(
-        torch.arange(camera.height, dtype=torch.int32, device=dev),
-        torch.arange(camera.width, dtype=torch.int32, device=dev),
-        indexing="ij")
-    px, py = gx.reshape(-1).contiguous(), gy.reshape(-1).contiguous()
+    px, py = frame_pixels(camera, dev)
     key_l, key_e, _ = bdpt.sample_keys(rng.base_key(), 0)
     lanes = torch.zeros(3, dtype=torch.int64, device=dev)
     kernels.bdpt_walk(scene, px, py,
@@ -193,16 +233,48 @@ def card_walk_lane_use(scene, camera, mode: str, max_depth: int,
             kernels.bdpt_walk_grid(scene, px.shape[0]))
 
 
+def card_vcm_eye_lane_use(scene, camera, max_depth: int, dev) -> tuple:
+    """The classic VCM eye walk on the whole frame with its lane counters
+    (sample 0's keys, VCMConfig's defaults at eye depth max_depth; the
+    walk reads neither the connections nor the merge, which are off):
+    (lane use, event balance, bounces, warp calls of the bounce code)."""
+    import torch
+    from cudapathtracer_tpu_torch import kernels
+    from cudapathtracer_tpu_torch.models import paths, vcm
+    from cudapathtracer_tpu_torch.ops import hashgrid
+    from cudapathtracer_tpu_torch.utils import rng
+    px, py = frame_pixels(camera, dev)
+    n = px.shape[0]
+    cfg = vcm.VCMConfig(eye_depth=max_depth, connection=False,
+                        do_merge=False)
+    key_l, key_e = vcm.sample_keys(rng.base_key(), 0)
+    mr, eta, norm = vcm.sample_scalars(scene, cfg, 0, n)
+    rays = torch.zeros(n, dtype=torch.int32, device=dev)
+    lb = kernels.bdpt_walk(scene, px, py, paths.walk_keys(key_l, "light"),
+                           mode="light", max_depth=cfg.light_depth + 1,
+                           rays=rays, eta_vcm=eta)["bufs"]
+    ep = kernels.vcm_eye_pass(scene, camera, paths.walk_keys(key_e, "eye"),
+                              lb, None, None, rays, cfg, px=px, py=py,
+                              merge_radius=mr, eta_vcm=eta, merge_norm=norm,
+                              **hashgrid.merge_switches(cfg.max_per_cell))
+    lanes = torch.zeros(3, dtype=torch.int64, device=dev)
+    kernels.eye_walk(ep, lanes=lanes)
+    events, busiest, calls = lanes.tolist()
+    return events / (32 * calls), events / (32 * busiest), events, calls
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("--schedule", default="mega",
                     choices=("mega", "classic", "naive"))
     ap.add_argument("--width", type=int, default=1920)
     ap.add_argument("--height", type=int, default=1080)
-    ap.add_argument("--walk", default=None, choices=("light", "eye"),
-                    help="count K12's walk of this mode instead of K5")
+    ap.add_argument("--walk", default=None,
+                    choices=("light", "eye", "vcm-eye"), help="count K12's "
+                    "walk of this mode, or the classic VCM eye walk, "
+                    "instead of K5")
     ap.add_argument("--depth", type=int, default=None, help="max depth "
-                    "(default 8; the light walk 6)")
+                    "(default 8; the light walk 6, the VCM eye walk 16)")
     ap.add_argument("--bands", type=int, default=18)
     ap.add_argument("--band-rows", type=int, default=2)
     ap.add_argument("--mesh", default="builtin:cornell_bunny",
@@ -212,7 +284,7 @@ def main() -> int:
                     "on the whole frame on the card with its lane counter")
     args = ap.parse_args()
     if args.depth is None:
-        args.depth = 6 if args.walk == "light" else 8
+        args.depth = {"light": 6, "vcm-eye": 16}.get(args.walk, 8)
     sys.path.insert(0, ROOT)
     import torch
     from cudapathtracer_tpu_torch.scene import builtin
@@ -229,7 +301,15 @@ def main() -> int:
                          0.0, 60.0)
     px, py = band_pixels(args.width, args.height, args.bands, args.band_rows,
                          dev)
-    if args.walk:
+    if args.walk == "vcm-eye":
+        ev, recs, rays = vcm_eye_events(scene, cam, px, py,
+                                        max_depth=args.depth,
+                                        n_paths=args.width * args.height)
+        if not torch.equal(ev, recs):
+            print("FAIL: the plain VCM eye walk's closest rays differ from "
+                  "its records")
+            return 1
+    elif args.walk:
         ev, rays = walk_events(scene, cam, args.walk, px, py,
                                max_depth=args.depth)
     else:
@@ -253,7 +333,11 @@ def main() -> int:
         cdev = torch.device("cuda", 0)
         csc = scene if dev.type == "cuda" else build_scene(
             mesh, builtin_materials(), device=cdev)[0]
-        if args.walk:
+        if args.walk == "vcm-eye":
+            use, balance, events, calls = card_vcm_eye_lane_use(
+                csc, cam, args.depth, cdev)
+            blocks = "the resident grid's"
+        elif args.walk:
             use, balance, events, calls, blocks = card_walk_lane_use(
                 csc, cam, args.walk, args.depth, cdev)
         else:
